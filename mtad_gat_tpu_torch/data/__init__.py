@@ -1,0 +1,19 @@
+from mtad_gat_tpu_torch.data.loading import (
+    adjust_anomaly_scores,
+    get_data,
+    get_data_dim,
+    get_target_dims,
+    normalize_data,
+)
+from mtad_gat_tpu_torch.data.windows import batched_starts, gather_windows, num_windows
+
+__all__ = [
+    "adjust_anomaly_scores",
+    "batched_starts",
+    "gather_windows",
+    "get_data",
+    "get_data_dim",
+    "get_target_dims",
+    "normalize_data",
+    "num_windows",
+]

@@ -1,0 +1,23 @@
+from mtad_gat_tpu_torch.inference.eval_methods import (
+    adjust_predicts,
+    bf_search,
+    calc_point2point,
+    calc_seq,
+    epsilon_eval,
+    find_epsilon,
+    pot_eval,
+)
+from mtad_gat_tpu_torch.inference.predictor import Predictor
+from mtad_gat_tpu_torch.inference.spot import SPOT
+
+__all__ = [
+    "adjust_predicts",
+    "bf_search",
+    "calc_point2point",
+    "calc_seq",
+    "epsilon_eval",
+    "find_epsilon",
+    "pot_eval",
+    "Predictor",
+    "SPOT",
+]

@@ -1,0 +1,104 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``. Libraries go to
+``build/torch_kernels/`` at the repository root, named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing here runs when the package is imported: the first
+kernel call builds its library (or ``build_all`` builds every one at once).
+A failed build raises with nvcc's output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("gat_fwd", "gru_fwd")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives at its current source."""
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> Optional[tuple]:
+    """Start nvcc for ``name`` unless its library is built; returns
+    (process, temp output, final path, log path) or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out, out.with_suffix(".log")
+
+
+def _finish(name: str, job: tuple) -> None:
+    proc, tmp, out, log = job
+    output, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{output}")
+    log.write_text(output)
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+
+
+def build_all(names: Iterable[str] = SOURCES) -> None:
+    """Build every named library at once, one nvcc process per source."""
+    jobs = {name: _start(name) for name in names}
+    try:
+        for name, job in jobs.items():
+            if job is not None:
+                _finish(name, job)
+    finally:
+        for job in jobs.values():
+            if job is not None and job[0].poll() is None:
+                job[0].kill()
+                job[0].wait()
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) from
+    the build of ``name``, or "" when the library was built elsewhere."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

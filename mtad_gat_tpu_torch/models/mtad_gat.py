@@ -1,0 +1,75 @@
+"""MTAD-GAT flagship model.
+
+Composition matches the reference (``mtad_gat.py:64-79``):
+
+    conv -> {feature GAT, temporal GAT} in parallel
+         -> concat [x, h_feat, h_temp] (b, n, 3k)
+         -> GRU -> h_end (b, gru_hid)
+         -> forecasting MLP (b, out_dim)  +  reconstruction decoder (b, n, out_dim)
+
+returning ``(predictions, reconstructions)``. Submodules carry the
+reference's names, so ``load_state_dict`` takes a reference ``model.pt``.
+The model is built on the CPU from an optional seeded generator and moved
+with ``.to(device)``; params are float32 and the forward runs in
+``config.compute_dtype``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from mtad_gat_tpu_torch.config import MTADGATConfig
+from mtad_gat_tpu_torch.nn import (
+    FeatureAttention,
+    ForecastingHead,
+    GRU,
+    ReconstructionHead,
+    TemporalAttention,
+    TemporalConv,
+)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class MTADGAT(nn.Module):
+    def __init__(
+        self, config: MTADGATConfig, generator: Optional[torch.Generator] = None
+    ):
+        super().__init__()
+        c = config
+        self.config = c
+        cd = DTYPES[c.compute_dtype]
+        gru_impl = c.resolved_gru_impl()
+        self.conv = TemporalConv(c.n_features, c.kernel_size, cd, generator)
+        gat_kw = dict(
+            n_features=c.n_features, window_size=c.window_size,
+            dropout=c.dropout, alpha=c.alpha, use_gatv2=c.use_gatv2,
+            impl=c.attention_impl, compute_dtype=cd, generator=generator,
+        )
+        self.feature_gat = FeatureAttention(
+            embed_dim=c.feat_gat_embed_dim, graph_spec=c.feature_graph, **gat_kw)
+        self.temporal_gat = TemporalAttention(
+            embed_dim=c.time_gat_embed_dim, graph_spec=c.temporal_graph, **gat_kw)
+        # the encoder consumes only h_end (reference mtad_gat.py:73-74)
+        self.gru = nn.ModuleDict({
+            "gru": GRU(3 * c.n_features, c.gru_hid_dim, c.gru_n_layers,
+                       c.dropout, cd, collect_outputs=False, impl=gru_impl,
+                       generator=generator),
+        })
+        self.forecasting_model = ForecastingHead(
+            c.gru_hid_dim, c.forecast_hid_dim, c.out_dim, c.forecast_n_layers,
+            c.dropout, generator)
+        self.recon_model = ReconstructionHead(
+            c.window_size, c.gru_hid_dim, c.recon_hid_dim, c.out_dim,
+            c.recon_n_layers, c.dropout, cd, gru_impl, generator)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.conv(x)
+        h_feat = self.feature_gat(x)
+        h_temp = self.temporal_gat(x)
+        h_cat = torch.cat([x, h_feat, h_temp], dim=2)        # (b, n, 3k)
+        _, h_end = self.gru["gru"](h_cat)
+        return self.forecasting_model(h_end), self.recon_model(h_end)

@@ -1,0 +1,69 @@
+"""Weights carried across: the JAX package's flax parameter tree to this
+package's ``state_dict``, and reading a ``model.pt``.
+
+The port names its parameters with the reference torch ``state_dict`` keys,
+so a reference ``model.pt`` (or one written by the JAX package's
+``save_torch_checkpoint``) loads with ``model.load_state_dict`` as it is.
+``jax_params_to_state_dict`` is this package's own copy of the JAX
+package's tree-to-torch mapping; layout differences:
+
+- conv kernel WIO (kw, in, out) -> torch Conv1d (out, in, kw);
+- Linear and GRU weights are stored transposed, (in, out) -> (out, in);
+- the GAT attention vector ``a`` and the (N, N) score bias are unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, dtype=np.float32))
+
+
+def jax_params_to_state_dict(params: Mapping[str, dict]) -> Dict[str, torch.Tensor]:
+    """Map the JAX package's flax ``params`` tree (nested dicts of numpy or
+    array-like leaves) to this package's ``state_dict`` (float32 tensors)."""
+    p = params
+    sd: Dict[str, torch.Tensor] = {
+        "conv.conv.weight": _t(np.asarray(p["conv"]["kernel"]).transpose(2, 1, 0)),
+        "conv.conv.bias": _t(p["conv"]["bias"]),
+    }
+    for name in ("feature_gat", "temporal_gat"):
+        core = p[name]["core"]
+        sd[f"{name}.lin.weight"] = _t(np.asarray(core["lin_kernel"]).T)
+        sd[f"{name}.lin.bias"] = _t(core["lin_bias"])
+        sd[f"{name}.a"] = _t(core["a"])
+        if "bias" in core:
+            sd[f"{name}.bias"] = _t(core["bias"])
+
+    def gru(tree: Mapping[str, np.ndarray], prefix: str) -> None:
+        for key, arr in tree.items():
+            kind, side, layer = key.split("_", 2)  # w/b, ih/hh, lN
+            arr = np.asarray(arr)
+            if kind == "w":
+                sd[f"{prefix}.weight_{side}_{layer}"] = _t(arr.T)
+            else:
+                sd[f"{prefix}.bias_{side}_{layer}"] = _t(arr)
+
+    gru(p["gru"], "gru.gru")
+    gru(p["recon_model"]["decoder"], "recon_model.decoder.rnn")
+    for name, lin in p["forecasting_model"].items():
+        i = name.split("_")[1]
+        sd[f"forecasting_model.layers.{i}.weight"] = _t(np.asarray(lin["kernel"]).T)
+        sd[f"forecasting_model.layers.{i}.bias"] = _t(lin["bias"])
+    sd["recon_model.fc.weight"] = _t(np.asarray(p["recon_model"]["fc"]["kernel"]).T)
+    sd["recon_model.fc.bias"] = _t(p["recon_model"]["fc"]["bias"])
+    return sd
+
+
+def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read a ``model.pt`` state_dict (reference ``training.py:231-241``
+    format) onto the CPU. Only tensors are unpickled."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(sd, Mapping):
+        raise ValueError(f"{path} does not hold a state_dict")
+    return dict(sd)
