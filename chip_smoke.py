@@ -27,7 +27,25 @@ In order, each phase failing the run with a non-zero exit:
    and that the bfloat16 scores lie within a bfloat16 tolerance of them;
    then scoring windows/s in float32 and bfloat16, and device time by
    kernel over one profiled float32 scoring pass;
-6. one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, ...}``.
+6. K1-res (the training forward, residuals and hash dropout) and K2a, K2b,
+   K2c (the attention backward) against their plain versions at the
+   training shapes (feature and temporal layer, batch 256): float32 with
+   dropout 0 and 0.3, with and without bias, bfloat16 at dropout 0.3 with
+   bias, and at N = 2048, where one forward-and-backward also has to
+   allocate no more than its outputs plus 1 MiB;
+7. the training path through its entry point: ``train_cli.main`` with
+   ``--device cuda --attention_impl pallas`` for 2 epochs at the SMD
+   flagship widths (lookback 100, batch 256, dropout 0.3) on the synthetic
+   entity, float32 then bfloat16, asserting finite losses and summary, the
+   launch counts (K1-res, K2a, K2b and K2c twice per training step; K1
+   twice per batch scored without gradient) and that ``predict_cli`` on the
+   written run reproduces its summary;
+8. two one-epoch runs at dropout 0 from one seed, attention through the
+   kernels and through the plain path, whose per-step losses and final
+   parameters must agree; then training windows/s in float32 and bfloat16
+   (all the steps of 6 epochs after a warm-up one, and each epoch's own
+   rate) and device time by kernel over one profiled float32 epoch;
+9. one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -64,6 +82,28 @@ H100_BYTES = 3.35e12          # HBM3, bytes/s
 #   layer whose output is lost or cast below bfloat16 (float8 in one GRU
 #   fails it), not one extra bfloat16 rounding.
 K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-3}
+# Training kernels against their plain versions on the same inputs:
+# - K1-res: out and u as K1, and m, all absolute (3.1e-6 measured for m on
+#   an H100, PERF.md); l, a sum of up to N terms, relative (3.0e-6 measured);
+# - K2a-c: max abs error over the plain gradient's max abs value. float32:
+#   sums of up to B * N * N terms in another order, 1.1e-6 measured, so 1e-5;
+#   bfloat16: dp, dq and dv are written in bfloat16, one rounding is up to
+#   2**-8 of a value, so 8e-3 (da and dbias stay float32).
+TRAIN_TOL = {
+    torch.float32: {"forward": {"out": 2e-5, "u": 2e-5, "m": 2e-5, "l_rel": 1e-5},
+                    "grad": 1e-5},
+    torch.bfloat16: {"forward": {"out": 4e-3, "u": 2e-5, "m": 2e-5, "l_rel": 1e-5},
+                     "grad": 8e-3},
+}
+# One epoch (7 Adam steps) at dropout 0, float32, attention through the
+# kernels against the plain path. Per-step losses: 6.0e-8 apart on an H100
+# (two runs, PERF.md), so 1e-5. Params: 3.2e-6 and 6.6e-5 apart in two runs;
+# Adam divides each gradient by its running RMS, so where a gradient sits
+# near 0 (entries of the score biases) a difference in its last bits can
+# move that parameter by up to lr = 1e-3 a step. 1e-3 keeps a factor 15
+# over the measured and still fails a wrong gradient, which moves the
+# losses.
+TRAIN_PATH_TOL = {"loss": 1e-5, "param": 1e-3}
 K3_TOL = 2e-5
 SCORE_ATOL = 1e-4
 BF16_SCORE_ATOL = 4e-3
@@ -85,6 +125,21 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of nvcc's -Xptxas -v output: its (mangled) name,
+    registers and spills."""
+    lines, name = [], None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[-1].strip()
+        elif "spill" in ln and name:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            lines.append(f"{name}: {ln.split(':', 1)[-1].strip()}; {spill}")
+            name = None
+    return lines
 
 
 def bound(ops: float, nbytes: float) -> tuple:
@@ -352,6 +407,345 @@ def profile_scoring(pred, series) -> dict:
             "top": [{"kernel": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:12]]}
 
 
+# ---------------------------------------------------------------------------
+# Training: K1-res and K2a-c, then the training path through train_cli
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs difference over the reference's max abs value."""
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_training_kernels(gen, dev):
+    """K1-res and K2a-c against their plain versions at the training
+    shapes; returns ({kernel: worst f32 error}, {kernel: {layer: times}})."""
+    from mtad_gat_tpu_torch.kernels import gat as kg
+
+    cases = [("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
+             ("many_key_tiles", 1, 2048, 32, 16)]
+    variants = [(torch.float32, r, b) for r in (0.0, 0.3) for b in (True, False)]
+    variants.append((torch.bfloat16, 0.3, True))
+    worst = {k: 0.0 for k in ("k1res", "k2a", "k2b", "k2c")}
+    worst_rel = dict(worst)
+    times = {k: {} for k in worst}
+    for name, B, N, E, D in cases:
+        for dtype, rate, with_bias in variants:
+            if name == "many_key_tiles" and (dtype, rate, with_bias) != (torch.float32, 0.3, True):
+                continue
+            p, q, a, bias, v = gat_case(gen, dev, B, N, E, D, dtype, with_bias)
+            seed = torch.randint(0, 2**32, (1,), generator=gen, dtype=torch.int64).to(dev)
+            got = kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate)
+            want = kg.gatv2_attention_res_plain(p, q, a, bias, v, 0.2, seed, rate)
+            out, u = got[0], got[1]
+            sig = torch.sigmoid(u)
+            du = torch.randn(B, N, D, generator=gen).to(dev) * sig * (1 - sig)
+            dvec = (du * u).sum(-1)
+            args = (p, q, a, bias, v, got[2], got[3], du, dvec, 0.2, seed, rate)
+            dp, da = kg.gatv2_bwd_dp_da(*args)
+            dq, dv = kg.gatv2_bwd_dq_dv(*args)
+            dbias = kg.gatv2_bwd_dbias(*args) if with_bias else None
+            ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, seed, rate)
+            torch.cuda.synchronize()
+            errs = {"out": (out.float() - want[0].float()).abs().max().item(),
+                    "u": (u - want[1]).abs().max().item(),
+                    "m": (got[2] - want[2]).abs().max().item(),
+                    "l_rel": ((got[3] - want[3]).abs() / want[3]).max().item()}
+            grads = {"dp": (dp, ref[0]), "da": (da, ref[2]), "dq": (dq, ref[1]),
+                     "dv": (dv, ref[4])}
+            if with_bias:
+                grads["dbias"] = (dbias, ref[3])
+            gerr = {k: rel_err(x, y) for k, (x, y) in grads.items()}
+            gabs = {k: (x.float() - y.float()).abs().max().item() for k, (x, y) in grads.items()}
+            tol = TRAIN_TOL[dtype]
+            rec = {"phase": "training_kernels", "case": name, "B": B, "N": N, "E": E, "D": D,
+                   "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
+                   "dropout": rate, "forward_err": errs, "grad_rel_err": gerr,
+                   "grad_abs_err": gabs, "tol": tol}
+            timed = name != "many_key_tiles" and dtype == torch.float32 and rate > 0 and with_bias
+            if timed:
+                rec["timing"] = t = time_training_kernels(kg, p, q, a, bias, v, du, dvec,
+                                                          got[2], got[3], seed, rate)
+                for k in times:
+                    times[k][name] = t[k]
+            emit(rec)
+            bad = [k for k, e in errs.items() if not e <= tol["forward"][k]]
+            bad += [k for k, e in gerr.items() if not e <= tol["grad"]]
+            if bad:
+                raise AssertionError(f"training kernels {name} {dtype} dropout={rate} "
+                                     f"bias={with_bias}: {bad} beyond tolerance: {rec}")
+            if dtype == torch.float32:
+                worst["k1res"] = max(worst["k1res"], errs["out"], errs["u"])
+                for key, names in (("k2a", ("dp", "da")), ("k2b", ("dq", "dv")),
+                                   ("k2c", ("dbias",))):
+                    for n in names:
+                        if n in gerr:
+                            worst[key] = max(worst[key], gabs[n])
+                            worst_rel[key] = max(worst_rel[key], gerr[n])
+            if name == "many_key_tiles":
+                check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate)
+    return worst, worst_rel, times
+
+
+def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> dict:
+    """ms of each kernel, its plain version and its bound at one shape.
+
+    Operations per (i, j) pair, the least each function needs, with the
+    score's z and leaky_relu(z) computed once and kept (a kernel that
+    recomputes them does more): the score 4E (add, leaky relu, a
+    multiply-add of 2). K1-res: score + aggregate 2D. K2a: score + du_i . v_j
+    2D + 4 (weight, dropout, ds) + the dp and da contractions, a multiply-add
+    (2) each per e. K2b: score + 2D + 4 + the dq contraction 2 per e + dv 2
+    per d. K2c: score + 2D + 4. The select of leaky_relu'(z) is not counted,
+    so these are lower bounds."""
+    B, N, E = p.shape
+    D = v.shape[-1]
+    size = p.dtype.itemsize
+    args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seed, rate)
+    in_bytes = (2 * B * N * E + E + B * N * D) * size + N * N * 4
+    stats_bytes = 3 * B * N * 4 + B * N * D * 4      # m, l, dvec, du
+    pairs = B * N * N
+    plain_bwd = time_ms(lambda: kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2,
+                                                             seed, rate), 3, warmup=1)
+    spec = {
+        "k1res": (lambda: kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate),
+                  time_ms(lambda: kg.gatv2_attention_res_plain(p, q, a, bias, v, 0.2, seed,
+                                                               rate), 3, warmup=1),
+                  pairs * (4 * E + 2 * D),
+                  in_bytes + B * N * D * (size + 4) + 2 * B * N * 4),
+        "k2a": (lambda: kg.gatv2_bwd_dp_da(*args), plain_bwd,
+                pairs * (4 * E + 2 * E + 2 * E + 2 * D + 4),
+                in_bytes + stats_bytes + B * N * E * size + E * 4),
+        "k2b": (lambda: kg.gatv2_bwd_dq_dv(*args), plain_bwd,
+                pairs * (4 * E + 2 * E + 2 * D + 2 * D + 4),
+                in_bytes + stats_bytes + B * N * (E + D) * size),
+        "k2c": (lambda: kg.gatv2_bwd_dbias(*args), plain_bwd,
+                pairs * (4 * E + 2 * D + 4),
+                in_bytes + stats_bytes + N * N * 4),
+    }
+    out = {}
+    for k, (fn, plain_ms, ops, nbytes) in spec.items():
+        bound_ms, bound_by = bound(ops, nbytes)
+        out[k] = {"ms": time_ms(fn, 20), "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by}
+    return out
+
+
+def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
+    """One K1-res forward and K2a-c backward allocate their outputs and at
+    most 1 MiB more: no (B, N, N) tensor exists in device memory."""
+    B, N, E = p.shape
+    D = v.shape[-1]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, u, m, l = kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate)
+    args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seed, rate)
+    kg.gatv2_bwd_dp_da(*args)
+    kg.gatv2_bwd_dq_dv(*args)
+    kg.gatv2_bwd_dbias(*args)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    size = p.dtype.itemsize
+    outputs = (B * N * D * (size + 4) + 2 * B * N * 4            # out, u, m, l
+               + 2 * B * N * E * size + E * 4 + B * N * D * size  # dp, dq, da, dv
+               + N * N * 4)                                       # dbias
+    emit({"phase": "training_kernels", "case": "device memory of one forward and backward",
+          "B": B, "N": N, "peak_extra_bytes": extra, "output_bytes": outputs,
+          "score_matrix_bytes": B * N * N * 4})
+    if extra > outputs + 2**20:
+        raise AssertionError(f"K1-res + K2 allocated {extra} bytes at N={N}, "
+                             f"outputs {outputs}")
+
+
+KERNEL_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_bwd_dp_da",
+                   "gatv2_bwd_dq_dv", "gatv2_bwd_dbias", "gru_scan_fwd")
+
+
+def counters() -> dict:
+    from mtad_gat_tpu_torch.kernels import gat, gru
+
+    return {name: getattr(gat if name.startswith("gat") else gru, name)
+            for name in KERNEL_COUNTERS}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: int,
+                               epochs: int, val_split: float) -> dict:
+    """Launch counts of one train_cli run: each training step runs K1-res
+    and K2a-c in both attention layers; each batch evaluated or scored
+    without gradient runs K1 twice (init train and val losses, one val pass
+    per epoch, the test loss, and the train and test scoring passes)."""
+    batches = lambda n: max(1, -(-n // bs))  # noqa: E731
+    n_win = n_train_rows - w
+    n_val = int(np.floor(val_split * n_win))
+    steps = epochs * batches(n_win - n_val)
+    no_grad = (batches(n_win - n_val) + batches(n_val) * (1 + epochs)
+               + batches(n_test_rows - w) + batches(n_train_rows - w + 1)
+               + batches(n_test_rows - w + 1))
+    want = {name: 2 * steps for name in KERNEL_COUNTERS}
+    want.update(gatv2_attention_fwd=2 * no_grad, gru_scan_fwd=0)
+    return want, steps
+
+
+def finite_summary(path: str) -> dict:
+    with open(path) as f:
+        summary = json.load(f)
+    for key in ("epsilon_result", "pot_result", "bf_result"):
+        for k, val in summary[key].items():
+            if not np.all(np.isfinite(val)):
+                raise AssertionError(f"{path}: {key}.{k} = {val}")
+    return summary
+
+
+def check_train_cli(work, data_root):
+    """train_cli.main on the card, float32 then bfloat16; returns the f32
+    run's launch counts."""
+    from mtad_gat_tpu_torch.cli import predict_cli, train_cli
+    from mtad_gat_tpu_torch.config import RunConfig
+
+    flagship = RunConfig()
+    epochs = 2
+    launches = None
+    for dtype in ("float32", "bfloat16"):
+        out_root = os.path.join(work, f"train_{dtype}")
+        common = ["--dataset", "SMD", "--group", "1-1", "--data_root", data_root,
+                  "--output_root", out_root, "--device", "cuda"]
+        argv = common + ["--attention_impl", "pallas", "--epochs", str(epochs),
+                         "--compute_dtype", dtype, "--log_tensorboard", "False",
+                         "--run_id", "run", "--seed", "0"]
+        reset_counts()
+        t0 = time.perf_counter()
+        run = train_cli.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        want, steps = expected_training_launches(2000, 2000, flagship.lookback, flagship.bs,
+                                                 epochs, flagship.val_split)
+        with open(os.path.join(out_root, "SMD", "1-1", "logs", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r[k] for r in records for k in r if k.endswith("total")]
+        summary = finite_summary(os.path.join(run, "summary.txt"))
+        rec = {"phase": "training", "run": f"train_cli {dtype}", "seconds": seconds,
+               "steps": steps, "launches": counts, "expected_launches": want,
+               "epoch_losses": records, "bf_f1": summary["bf_result"]["f1"]}
+        if dtype == "float32":
+            predict_cli.main(common + ["--model_id", "run"])
+            rec["predict_cli_reproduces_summary"] = (
+                finite_summary(os.path.join(run, "summary_1.txt")) == summary)
+            launches = counts
+        emit(rec)
+        if counts != want:
+            raise AssertionError(f"train_cli {dtype}: launches {counts}, expected {want}")
+        if not (len(losses) == 2 * epochs and np.all(np.isfinite(losses))):
+            raise AssertionError(f"train_cli {dtype}: losses {losses}")
+        if rec.get("predict_cli_reproduces_summary") is False:
+            raise AssertionError("predict_cli did not reproduce the trained run's summary")
+    return launches
+
+
+def train_trainer(work, dtype: str, impl: str, dropout: float):
+    """A flagship-width Trainer on the card, at train seed 0."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.training import Trainer
+
+    cfg = RunConfig(attention_impl=impl, compute_dtype=dtype, dropout=dropout, epochs=1,
+                    log_tensorboard=False)
+    trainer = Trainer(cfg.model_config(38, 38), cfg.train_config(),
+                      log_dir=os.path.join(work, f"logs_{impl}_{dtype}"), device="cuda")
+    trainer.init_state()
+    return trainer
+
+
+def check_kernel_vs_plain_training(work, x_train) -> dict:
+    """One epoch at dropout 0 from one seed, attention through the kernels
+    and through the plain path: per-step losses and final params."""
+    runs = {}
+    for impl in ("pallas", "dense"):
+        tr = train_trainer(work, "float32", impl, 0.0)
+        tr.fit(x_train)
+        runs[impl] = tr
+    k, d = runs["pallas"], runs["dense"]
+    loss_err = float(max(np.abs(k.last_batch_losses[i] - d.last_batch_losses[i]).max()
+                         for i in (0, 1)))
+    sk, sd = k.model.state_dict(), d.model.state_dict()
+    param_err = max((sk[n] - sd[n]).abs().max().item() for n in sk)
+    rec = {"phase": "training", "check": "kernels vs plain attention, dropout 0, 1 epoch",
+           "steps": k.step, "step_loss_max_abs_err": loss_err,
+           "param_max_abs_err": param_err, "tol": TRAIN_PATH_TOL}
+    emit(rec)
+    if not (loss_err <= TRAIN_PATH_TOL["loss"] and param_err <= TRAIN_PATH_TOL["param"]):
+        raise AssertionError(f"kernel and plain training disagree: {rec}")
+    return rec
+
+
+THROUGHPUT_EPOCHS = 6
+
+
+def training_throughput(work, x_train) -> dict:
+    """Train windows/s, float32 and bfloat16, attention kernels on at
+    dropout 0.3: all the steps of THROUGHPUT_EPOCHS epochs after a warm-up
+    epoch, as total windows over total time, with every epoch's own rate;
+    then device time by kernel over one profiled float32 epoch."""
+    from mtad_gat_tpu_torch.data.windows import batched_starts
+
+    rates, epoch_rates, prof_trainer = {}, {}, None
+    for dtype in ("float32", "bfloat16"):
+        tr = train_trainer(work, dtype, "pallas", 0.3)
+        series = tr._series(x_train)
+        n_win = len(x_train) - tr.window
+        starts, mask, _ = batched_starts(0, tr.train_config.bs,
+                                         indices=np.arange(n_win - n_win // 10))
+        tr.train_epoch(series, starts, mask)                # warm-up
+        torch.cuda.synchronize()
+        seconds = []
+        for _ in range(THROUGHPUT_EPOCHS):
+            t0 = time.perf_counter()
+            tr.train_epoch(series, starts, mask)            # ends in a device sync
+            seconds.append(time.perf_counter() - t0)
+        n = int(mask.sum())
+        rates[dtype] = n * len(seconds) / sum(seconds)
+        epoch_rates[dtype] = [n / s for s in seconds]
+        if dtype == "float32":
+            prof_trainer, prof_args = tr, (series, starts, mask)
+    emit({"phase": "training", "train_windows_per_s": rates,
+          "epoch_windows_per_s": epoch_rates, "epochs": THROUGHPUT_EPOCHS,
+          "steps_per_epoch": int(prof_args[1].shape[0]),
+          "windows_per_epoch": int(prof_args[2].sum()), "batch": 256, "dropout": 0.3})
+    emit(profile_training(prof_trainer, *prof_args))
+    return rates
+
+
+def profile_training(trainer, series, starts, mask) -> dict:
+    """Device time by kernel over one float32 training epoch, as
+    profile_scoring does for scoring."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(series, starts, mask)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    return {"phase": "profile", "pass": "one training epoch, float32, attention kernels on, "
+            "dropout 0.3", "steps": int(starts.shape[0]),
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms if rows else None,
+            "busy_share": busy_ms / wall_ms if rows else None,
+            "top": [{"kernel": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:16]]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -382,17 +776,24 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                        if "registers" in ln or "spill" in ln] for n in _build.SOURCES}})
+          "ptxas": {n: ptxas_summary(_build.build_log(n)) for n in _build.SOURCES}})
 
     k1_err, k1_ms = check_k1(gen, dev)
     k3_err, k3 = check_k3(gen, dev)
+    train_err, train_rel, train_ms = check_training_kernels(gen, dev)
     with tempfile.TemporaryDirectory() as work:
         launches = check_main_path(gen, dev, work)
+        data_root = os.path.join(work, "data")
+        train_launches = check_train_cli(work, data_root)
+        from mtad_gat_tpu_torch.data import get_data
+
+        (x_train, _), _ = get_data("machine-1-1", data_root=data_root, normalize=True)
+        check_kernel_vs_plain_training(work, x_train)
+        training_throughput(work, x_train)
 
     f, t = k1_ms["feature"], k1_ms["temporal"]
     k1_bound = f[2] + t[2]
-    emit({"kernels": [
+    kernels = [
         {"name": "gatv2_attention_fwd", "route": "cuda",
          "source": "mtad_gat_tpu_torch/csrc/gat_fwd.cu",
          "replaces": "mtad_gat_tpu/kernels/gat_pallas.py:150",
@@ -400,6 +801,7 @@ def main() -> None:
          "max_abs_err_bf16": k1_err[torch.bfloat16],
          "ms": f[0] + t[0], "plain_ms": f[1] + t[1], "bound_ms": k1_bound,
          "bound_by": f[3] if f[2] >= t[2] else t[3], "library_ms": None,
+         "launches_training": train_launches["gatv2_attention_fwd"],
          "shapes": "one scoring batch: feature (256,38,200/100) + temporal "
                    "(256,100,76/38) layer, float32"},
         {"name": "gru_scan_fwd", "route": "cuda",
@@ -410,7 +812,30 @@ def main() -> None:
          "library_ms": k3[2],
          "shapes": "one chain: gi (256,100,450) float32, hidden 150; library_ms "
                    "is torch.nn.GRU (cuDNN) with its input projection"},
-    ]})
+    ]
+    for key, name, source, line in (
+        ("k1res", "gatv2_attention_res", "gat_fwd.cu", 220),
+        ("k2a", "gatv2_bwd_dp_da", "gat_bwd.cu", 454),
+        ("k2b", "gatv2_bwd_dq_dv", "gat_bwd.cu", 497),
+        ("k2c", "gatv2_bwd_dbias", "gat_bwd.cu", 540),
+    ):
+        f, t = train_ms[key]["feature"], train_ms[key]["temporal"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"mtad_gat_tpu_torch/csrc/{source}",
+            "replaces": f"mtad_gat_tpu/kernels/gat_pallas.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": train_err[key],
+            "max_rel_err": None if key == "k1res" else train_rel[key],
+            "ms": f["ms"] + t["ms"], "plain_ms": f["plain_ms"] + t["plain_ms"],
+            "bound_ms": f["bound_ms"] + t["bound_ms"],
+            "bound_by": f["bound_by"] if f["bound_ms"] >= t["bound_ms"] else t["bound_by"],
+            "library_ms": None,
+            "shapes": "one training step's two layers: feature (256,38,200/100) + "
+                      "temporal (256,100,76/38), float32, dropout 0.3, bias; plain_ms "
+                      + ("is the plain forward" if key == "k1res" else
+                         "is one autograd call for all three backward kernels"),
+        })
+    emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,6 +27,22 @@ def gather_windows(series: torch.Tensor, starts: torch.Tensor, window: int) -> t
     return series[idx]
 
 
+def gather_targets(
+    series: torch.Tensor, starts: torch.Tensor, window: int, horizon: int = 1
+) -> torch.Tensor:
+    """Targets ``data[i+window : i+window+horizon]`` -> (b, horizon, k)."""
+    idx = starts[:, None] + window + torch.arange(
+        horizon, dtype=starts.dtype, device=starts.device)
+    return series[idx]
+
+
+def window_batch(
+    series: torch.Tensor, starts: torch.Tensor, window: int, horizon: int = 1
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x (b, window, k), y (b, horizon, k)) of the windows at ``starts``."""
+    return gather_windows(series, starts, window), gather_targets(series, starts, window, horizon)
+
+
 def batched_starts(
     n_windows: int, batch_size: int, indices=None
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:

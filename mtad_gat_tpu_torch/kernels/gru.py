@@ -19,8 +19,8 @@ state in shared memory through all steps and reads W_hh (270 KB at hidden
 (``csrc/gru_fwd.cu`` says more). The TPU kernel's 128-lane and 8-row padding
 is not carried over: the CUDA kernel masks its ragged batch tile.
 
-The backward (BPTT) kernel comes with the training slice (ROADMAP.md,
-Queue 2: K4).
+The backward (BPTT) kernel, K4, is still to be ported (ROADMAP.md, Queue
+2): until then the scan refuses to run where autograd would record it.
 """
 
 from __future__ import annotations
@@ -85,7 +85,13 @@ def gru_scan_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the GRU recurrence in one launch. Returns (hseq (B, T, H)
     float32, h_last (B, H)). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the kernel or raises. Where autograd would record the
+    call it raises on both: the kernel has no backward yet."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (gi, w_hh, b_hh)):
+        raise NotImplementedError(
+            "gru_scan_fwd has no backward until K4, the GRU BPTT kernel, is "
+            "ported (ROADMAP.md, Queue 2): train with gru_impl='xla', or run "
+            "the scan under torch.no_grad()")
     if gi.device.type == "cpu":
         return gru_scan_fwd_plain(gi, w_hh, b_hh, hid_dim)
     if gi.device.type != "cuda":

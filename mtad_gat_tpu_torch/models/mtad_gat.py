@@ -66,10 +66,26 @@ class MTADGAT(nn.Module):
             c.window_size, c.gru_hid_dim, c.recon_hid_dim, c.out_dim,
             c.recon_n_layers, c.dropout, cd, gru_impl, generator)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``generator`` draws every dropout mask of a training-mode call
+        (the counterpart of the JAX package's ``rngs={"dropout": ...}``). It
+        must lie on the model's device; training mode with dropout above 0
+        raises without one, rather than fall back to the global generator."""
+        if self.training and self.config.dropout > 0.0:
+            device = next(self.parameters()).device
+            if generator is None:
+                raise ValueError(
+                    "MTADGAT in training mode with dropout "
+                    f"{self.config.dropout} needs a torch.Generator on {device}")
+            if generator.device.type != device.type:
+                raise ValueError(f"the dropout generator lies on {generator.device}, "
+                                 f"the model on {device}")
         x = self.conv(x)
-        h_feat = self.feature_gat(x)
-        h_temp = self.temporal_gat(x)
+        h_feat = self.feature_gat(x, generator)
+        h_temp = self.temporal_gat(x, generator)
         h_cat = torch.cat([x, h_feat, h_temp], dim=2)        # (b, n, 3k)
-        _, h_end = self.gru["gru"](h_cat)
-        return self.forecasting_model(h_end), self.recon_model(h_end)
+        _, h_end = self.gru["gru"](h_cat, generator)
+        return (self.forecasting_model(h_end, generator),
+                self.recon_model(h_end, generator))

@@ -13,8 +13,11 @@ Reference semantics (``modules.py:25-217``), as in ``mtad_gat_tpu/nn/gat.py``:
 Parameters carry the reference's names (``lin.weight``, ``lin.bias``, ``a``,
 ``bias``), so a reference ``state_dict`` loads as it is. GATv2 scores are
 computed in decomposed form (``p_i + q_j``) and dispatched to the fused
-kernel (``impl="pallas"``, ``kernels/gat.py``) or the plain ops
-(``impl="dense"``, ``graph/ops.py``).
+kernels (``impl="pallas"``, ``kernels/gat.py``) or the plain ops
+(``impl="dense"``, ``graph/ops.py``). In training mode the attention weights
+take dropout at ``dropout`` from the caller's generator: the kernels' hash
+mask keyed by a seed drawn from it, or a Bernoulli mask drawn from it on the
+dense path (as the JAX layer does under ``deterministic=False``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from mtad_gat_tpu_torch.graph.ops import (
     gatv2_scores_dense,
 )
 from mtad_gat_tpu_torch.graph.structure import parse_graph_spec
-from mtad_gat_tpu_torch.kernels.gat import gatv2_attention_fwd
+from mtad_gat_tpu_torch.kernels.gat import gatv2_attention
 from mtad_gat_tpu_torch.nn.init import torch_linear_, xavier_uniform_gain_
 
 # Above this (b, N, N) float32 score-tensor size the JAX package routes
@@ -80,10 +83,12 @@ class GATLayer(nn.Module):
             nn.Parameter(torch.zeros(n_nodes, n_nodes)) if use_bias else None
         )
 
-    def forward(self, v: torch.Tensor) -> torch.Tensor:
-        if self.training and self.dropout > 0.0:
-            raise _not_ported("training-mode attention dropout",
-                              "Queue 1 item 3 and Queue 2 K1-res/K2")
+    def forward(
+        self, v: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        if rate > 0.0 and generator is None:
+            raise ValueError("training-mode attention dropout needs a generator")
         cd = self.compute_dtype
         d = self.node_dim
         v = v.to(cd)
@@ -96,7 +101,13 @@ class GATLayer(nn.Module):
             p = v @ w[:, :d].t()               # query side (i)
             q = v @ w[:, d:].t() + b           # key side (j)
             if self.impl == "pallas":
-                return gatv2_attention_fwd(p, q, a, self.bias, v, self.alpha).to(cd)
+                seed = 0
+                if rate > 0.0:
+                    # drawn on the device: the kernels read it there
+                    seed = torch.randint(0, 2**32, (1,), generator=generator,
+                                         device=generator.device, dtype=torch.int64)
+                return gatv2_attention(p, q, a, self.bias, v, self.alpha, seed,
+                                       rate).to(cd)
             score_bytes = 4 * v.shape[0] * self.n_nodes * self.n_nodes
             if score_bytes > DENSE_AUTO_SCORE_BYTES:
                 raise _not_ported(
@@ -107,7 +118,7 @@ class GATLayer(nn.Module):
             e = w.shape[0]
             wx = v @ w.t() + b                 # (b, N, e)
             scores = gatv1_scores_dense(wx, a[:e], a[e:], self.alpha)
-        return gat_aggregate_dense(scores.to(cd), v, self.bias).to(cd)
+        return gat_aggregate_dense(scores.to(cd), v, self.bias, rate, generator).to(cd)
 
 
 class FeatureAttention(GATLayer):
@@ -129,9 +140,11 @@ class FeatureAttention(GATLayer):
             generator,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         # (b, n, k) -> (b, k, n): node = feature over the window
-        h = super().forward(x.transpose(1, 2))
+        h = super().forward(x.transpose(1, 2), generator)
         return h.transpose(1, 2)
 
 

@@ -12,8 +12,9 @@ of the whole sequence is one matrix product hoisted out of the recurrence;
 the recurrence runs as the fused kernel (``impl="pallas"``,
 ``kernels/gru.py``) or as a per-step loop of the plain version's step,
 ``gru_step``, in the compute type (``impl="xla"``, the name the JAX package
-gives its ``lax.scan`` path). Dropout applies only
-between layers, as in the reference.
+gives its ``lax.scan`` path). Dropout applies only between layers, in
+training mode, from the caller's generator, as in the reference (a
+single-layer GRU has none).
 """
 
 from __future__ import annotations
@@ -26,6 +27,20 @@ from torch import nn
 
 from mtad_gat_tpu_torch.kernels.gru import gru_scan_fwd, gru_step
 from mtad_gat_tpu_torch.nn.init import uniform_bound_
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """Inverted dropout with a Bernoulli mask drawn from ``generator`` (on
+    x's device), as the JAX package's heads and GRU apply it."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("training-mode dropout needs a generator")
+    keep = torch.bernoulli(
+        torch.full(x.shape, 1.0 - rate, device=x.device), generator=generator).bool()
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class GRU(nn.Module):
@@ -59,11 +74,9 @@ class GRU(nn.Module):
                 uniform_bound_(param.data, bound, generator)
                 self.register_parameter(name, param)
 
-    def forward(self, x: torch.Tensor) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "training-mode GRU dropout is not ported to mtad_gat_tpu_torch "
-                "yet (ROADMAP.md, Queue 1 item 3)")
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         cd = self.compute_dtype
         H = self.hid_dim
         h = x.to(cd)
@@ -80,16 +93,17 @@ class GRU(nn.Module):
                 hseq, last_hidden = gru_scan_fwd(gi, w_hh.t(), b_hh, H)
                 last_hidden = last_hidden.to(cd)
                 h = hseq.to(cd) if collect else None
-                continue
-
-            w_hh_t = w_hh.t().to(cd)
-            b_hh_c = b_hh.to(cd)
-            carry = torch.zeros((gi.shape[0], H), dtype=cd, device=gi.device)
-            outs = []
-            for t in range(gi.shape[1]):
-                carry = gru_step(gi[:, t], carry, w_hh_t, b_hh_c)
-                if collect:
-                    outs.append(carry)
-            last_hidden = carry
-            h = torch.stack(outs, dim=1) if collect else None
+            else:
+                w_hh_t = w_hh.t().to(cd)
+                b_hh_c = b_hh.to(cd)
+                carry = torch.zeros((gi.shape[0], H), dtype=cd, device=gi.device)
+                outs = []
+                for t in range(gi.shape[1]):
+                    carry = gru_step(gi[:, t], carry, w_hh_t, b_hh_c)
+                    if collect:
+                        outs.append(carry)
+                last_hidden = carry
+                h = torch.stack(outs, dim=1) if collect else None
+            if layer < self.n_layers - 1 and self.training:
+                h = dropout(h, self.dropout, generator)
         return h, last_hidden

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
-from mtad_gat_tpu_torch.nn.gru import GRU
+from mtad_gat_tpu_torch.nn.gru import GRU, dropout
 from mtad_gat_tpu_torch.nn.init import torch_linear_
 
 
@@ -45,15 +45,14 @@ class ForecastingHead(nn.Module):
             _linear(dims[i], dims[i + 1], generator) for i in range(len(dims) - 1)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "training-mode forecast dropout is not ported to "
-                "mtad_gat_tpu_torch yet (ROADMAP.md, Queue 1 item 3)")
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         for i, lin in enumerate(self.layers):
             x = _apply(lin, x)
             if i < len(self.layers) - 1:
-                x = torch.relu(x)
+                x = dropout(torch.relu(x), self.dropout if self.training else 0.0,
+                            generator)
         return x
 
 
@@ -72,7 +71,9 @@ class ReconstructionHead(nn.Module):
         })
         self.fc = _linear(hid_dim, out_dim, generator)
 
-    def forward(self, h_end: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, h_end: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         # h_end: (b, in_dim) -> (b, window, in_dim). The reference does
         # repeat_interleave(window, dim=1).view(b, window, -1) on the 2-D
         # h_end (modules.py:279), which repeats ELEMENTS then reshapes — a
@@ -81,5 +82,5 @@ class ReconstructionHead(nn.Module):
         h_rep = torch.repeat_interleave(h_end, self.window_size, dim=1).reshape(
             b, self.window_size, d
         )
-        decoder_out, _ = self.decoder["rnn"](h_rep)
+        decoder_out, _ = self.decoder["rnn"](h_rep, generator)
         return _apply(self.fc, decoder_out)

@@ -133,6 +133,8 @@ def test_unported_routes_raise(over, item):
 
 
 def test_training_mode_dropout_raises():
+    """Training-mode dropout draws its masks from the caller's generator
+    and raises without one, rather than use the global generator."""
     model = MTADGAT(MTADGATConfig(**_cfg_kwargs()))
-    with pytest.raises(NotImplementedError, match="K1-res/K2"):
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
         model.train()(torch.zeros(1, W, K))
