@@ -31,21 +31,33 @@ In order, each phase failing the run with a non-zero exit:
    K2c (the attention backward) against their plain versions at the
    training shapes (feature and temporal layer, batch 256): float32 with
    dropout 0 and 0.3, with and without bias, bfloat16 at dropout 0.3 with
-   bias, and at N = 2048, where one forward-and-backward also has to
-   allocate no more than its outputs plus 1 MiB;
-7. the training path through its entry point: ``train_cli.main`` with
-   ``--device cuda --attention_impl pallas`` for 2 epochs at the SMD
-   flagship widths (lookback 100, batch 256, dropout 0.3) on the synthetic
-   entity, float32 then bfloat16, asserting finite losses and summary, the
-   launch counts (K1-res, K2a, K2b and K2c twice per training step; K1
-   twice per batch scored without gradient) and that ``predict_cli`` on the
-   written run reproduces its summary;
-8. two one-epoch runs at dropout 0 from one seed, attention through the
-   kernels and through the plain path, whose per-step losses and final
-   parameters must agree; then training windows/s in float32 and bfloat16
-   (all the steps of 6 epochs after a warm-up one, and each epoch's own
-   rate) and device time by kernel over one profiled float32 epoch;
-9. one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, ...}``.
+   bias, and at N = 2048 and N = 4096, where one forward-and-backward also
+   has to allocate no more than its outputs plus 1 MiB;
+7. K4, the GRU backward through time, against its plain version and against
+   autograd of the plain forward at batch 256, 100 steps, hidden 150
+   (float32 and bfloat16 ``gi``; a dense cotangent and one that is zero
+   except at the last step), at 1024 steps and at a batch that leaves a
+   ragged tile, two launches giving identical bits; its time beside its
+   bound, its plain version and the backward of ``torch.nn.GRU`` (cuDNN);
+   then the window at which the GRU kernels overtake the plain loop, for
+   scoring and for training (the table behind ``GRU_PALLAS_MIN_WINDOW``);
+8. the training paths through their entry point: ``train_cli.main`` with
+   ``--device cuda --attention_impl pallas`` at the SMD flagship widths
+   (lookback 100, batch 256, dropout 0.3) on the synthetic entity, float32
+   then bfloat16: 1 epoch with ``--gru_impl xla`` (the plain GRU loop) and 2
+   epochs with ``--gru_impl pallas`` (every kernel on), asserting finite
+   losses and summary, the launch counts (per training step K1-res, K2a,
+   K2b, K2c and, with the GRU kernels, K3 and K4 twice each; per batch
+   scored without gradient K1 and, with the GRU kernels, K3 twice) and that
+   ``predict_cli`` on the written run reproduces its summary;
+9. three one-epoch runs at dropout 0 from one seed: all plain, attention
+   through the kernels, and attention and GRU through the kernels; per-step
+   losses and final parameters of each kernel run must agree with the plain
+   one. Then training windows/s in float32 and bfloat16 (all the steps of
+   some epochs after a warm-up one, and each epoch's own rate) with the
+   plain GRU loop and with every kernel on, and device time by kernel over
+   one profiled float32 epoch of each;
+10. one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -96,7 +108,7 @@ TRAIN_TOL = {
                      "grad": 8e-3},
 }
 # One epoch (7 Adam steps) at dropout 0, float32, attention through the
-# kernels against the plain path. Per-step losses: 6.0e-8 apart on an H100
+# kernels, or attention and GRU through theirs, against the plain paths. Per-step losses: 6.0e-8 apart on an H100
 # (two runs, PERF.md), so 1e-5. Params: 3.2e-6 and 6.6e-5 apart in two runs;
 # Adam divides each gradient by its running RMS, so where a gradient sits
 # near 0 (entries of the score biases) a difference in its last bits can
@@ -105,6 +117,13 @@ TRAIN_TOL = {
 # losses.
 TRAIN_PATH_TOL = {"loss": 1e-5, "param": 1e-3}
 K3_TOL = 2e-5
+# K4 against its plain version on the same inputs (gi, saved states,
+# cotangent), max abs error over the plain gradient's max abs value, float32
+# arithmetic on both sides whatever gi's type. dgi: the same terms in another
+# order, carried back through up to 1024 steps. dW_hh and db_hh: sums over
+# B * T rows (25,600, or 262,144 at 1024 steps), by step on the plain side, by
+# row chunk in the kernel: about sqrt(rows) * 6e-8 of the largest term.
+K4_TOL = 5e-5
 SCORE_ATOL = 1e-4
 BF16_SCORE_ATOL = 4e-3
 
@@ -214,6 +233,20 @@ def check_no_score_matrix(kernel, p, q, a, bias, v) -> None:
         raise AssertionError(f"K1 allocated {extra} bytes at N={N}")
 
 
+def gru_case(gen, dev, B, T, H, dtype):
+    """A seeded torch.nn.GRU (cuDNN's layout is the port's), its input x and
+    the scan's arguments gi, w_hh (H, 3H), b_hh."""
+    gru = torch.nn.GRU(H, H, batch_first=True)
+    with torch.no_grad():
+        for prm in gru.parameters():
+            prm.uniform_(-H ** -0.5, H ** -0.5, generator=gen)
+    gru = gru.to(dev)
+    x = torch.randn(B, T, H, generator=gen).to(dev)
+    with torch.no_grad():
+        gi = (x @ gru.weight_ih_l0.t() + gru.bias_ih_l0).to(dtype)
+    return gru, x, gi, gru.weight_hh_l0.detach().t(), gru.bias_hh_l0.detach()
+
+
 def check_k3(gen, dev):
     from mtad_gat_tpu_torch.kernels.gru import gru_scan_fwd, gru_scan_fwd_plain
 
@@ -223,15 +256,9 @@ def check_k3(gen, dev):
     for name, B, T, dtype in (("flagship", 256, 100, torch.float32),
                               ("flagship", 256, 100, torch.bfloat16),
                               ("long", 256, 1024, torch.float32)):
-        gru = torch.nn.GRU(H, H, batch_first=True)
+        gru, x, gi, w_hh, b_hh = gru_case(gen, dev, B, T, H, dtype)
+        w_hh = w_hh.contiguous()
         with torch.no_grad():
-            for prm in gru.parameters():
-                prm.uniform_(-H ** -0.5, H ** -0.5, generator=gen)
-        gru = gru.to(dev)
-        x = torch.randn(B, T, H, generator=gen).to(dev)
-        with torch.no_grad():
-            gi = (x @ gru.weight_ih_l0.t() + gru.bias_ih_l0).to(dtype)
-            w_hh, b_hh = gru.weight_hh_l0.t().contiguous(), gru.bias_hh_l0
             got, _ = gru_scan_fwd(gi, w_hh, b_hh, H)
             want, _ = gru_scan_fwd_plain(gi, w_hh, b_hh, H)
             torch.cuda.synchronize()
@@ -424,7 +451,7 @@ def check_training_kernels(gen, dev):
     from mtad_gat_tpu_torch.kernels import gat as kg
 
     cases = [("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
-             ("many_key_tiles", 1, 2048, 32, 16)]
+             ("many_key_tiles", 1, 2048, 32, 16), ("many_key_tiles", 1, 4096, 32, 16)]
     variants = [(torch.float32, r, b) for r in (0.0, 0.3) for b in (True, False)]
     variants.append((torch.bfloat16, 0.3, True))
     worst = {k: 0.0 for k in ("k1res", "k2a", "k2b", "k2c")}
@@ -559,8 +586,142 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
                              f"outputs {outputs}")
 
 
+# ---------------------------------------------------------------------------
+# K4, the GRU backward through time, and the window at which the GRU kernels
+# overtake the plain loop
+# ---------------------------------------------------------------------------
+
+
+def check_k4(gen, dev):
+    """K4 against gru_scan_bwd_plain and against autograd of the plain
+    forward; returns (worst float32 abs error, worst relative error, times
+    at the flagship shape)."""
+    from mtad_gat_tpu_torch.kernels.gru import (
+        gru_scan_bwd, gru_scan_bwd_plain, gru_scan_fwd, gru_scan_fwd_plain)
+
+    H = 150
+    names = ("dgi", "dw_hh", "db_hh")
+    worst_abs, worst_rel, times = 0.0, 0.0, None
+    for name, B, T, dtype, dense in (("flagship", 256, 100, torch.float32, True),
+                                     ("flagship", 256, 100, torch.bfloat16, True),
+                                     ("flagship, cotangent on h_last only", 256, 100,
+                                      torch.float32, False),
+                                     ("long", 256, 1024, torch.float32, True),
+                                     ("ragged batch", 43, 100, torch.float32, True)):
+        gru, x, gi, w_hh, b_hh = gru_case(gen, dev, B, T, H, dtype)
+        dhseq = torch.randn(B, T, H, generator=gen).to(dev)
+        if not dense:
+            dhseq[:, :-1] = 0.0
+        with torch.no_grad():
+            hseq, _ = gru_scan_fwd(gi, w_hh, b_hh, H)
+        got = gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H)
+        again = gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H)
+        want = gru_scan_bwd_plain(gi, w_hh, b_hh, hseq, dhseq, H)
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+        err_abs = {n: (a - b).abs().max().item() for n, a, b in zip(names, got, want)}
+        rec = {"phase": "k4", "case": name, "B": B, "T": T, "H": H,
+               "dtype": str(dtype).replace("torch.", ""), "rel_err": err, "abs_err": err_abs,
+               "tol": K4_TOL, "two_launches_identical": same_bits}
+        if T <= 100:
+            # the other oracle: autograd of the plain forward from the same inputs
+            leaves = [t.detach().float().clone().requires_grad_() for t in (gi, w_hh, b_hh)]
+            ref_seq, _ = gru_scan_fwd_plain(*leaves, H)
+            ref = torch.autograd.grad(ref_seq, leaves, dhseq)
+            rec["rel_err_vs_autograd"] = {n: rel_err(a, b) for n, a, b in zip(names, got, ref)}
+        if name == "flagship" and dtype == torch.float32:
+            rec["timing"] = times = time_k4(gru, x, gi, w_hh, b_hh, hseq, dhseq, H)
+        emit(rec)
+        bad = [n for n, e in err.items() if not e <= K4_TOL]
+        bad += [n for n, e in rec.get("rel_err_vs_autograd", {}).items() if not e <= K4_TOL]
+        if bad or not same_bits:
+            raise AssertionError(f"K4 {name} {dtype}: {bad} beyond tolerance or bits "
+                                 f"differ: {rec}")
+        worst_abs = max(worst_abs, *err_abs.values())
+        worst_rel = max(worst_rel, *err.values())
+    return worst_abs, worst_rel, times
+
+
+def time_k4(gru, x, gi, w_hh, b_hh, hseq, dhseq, H) -> dict:
+    """ms of K4 (whole, and its serial scan alone), of its plain version and
+    of cuDNN's GRU backward on the same data, and K4's bound. Operations per
+    (b, t): three products of 2 H 3H (the gate recompute, dg . W_hh^T, the
+    dW_hh term) and about 30 H for the gates and their gradients. Bytes: gi,
+    hseq, dhseq and the weights read once; dgi, dW_hh, db_hh written once."""
+    from mtad_gat_tpu_torch.kernels.gru import gru_scan_bwd, gru_scan_bwd_plain
+
+    B, T, _ = gi.shape
+    ms = time_ms(lambda: gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H), 10)
+    scan_ms = time_ms(lambda: gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H,
+                                           need_weights=False), 10)
+    plain_ms = time_ms(lambda: gru_scan_bwd_plain(gi, w_hh, b_hh, hseq, dhseq, H), 2,
+                       warmup=1)
+    xg = x.clone().requires_grad_()
+    out, _ = gru(xg)
+    leaves = [xg, *gru.parameters()]
+    library_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dhseq, retain_graph=True),
+                         10)
+    ops = B * T * (3 * 2 * H * 3 * H + 30 * H)
+    nbytes = (B * T * 3 * H * gi.dtype.itemsize + 2 * B * T * H * 4
+              + (H * 3 * H + 3 * H) * 4                      # read
+              + B * T * 3 * H * 4 + (H * 3 * H + 3 * H) * 4)  # written
+    bound_ms, bound_by = bound(ops, nbytes)
+    return {"ms": ms, "scan_ms": scan_ms, "weights_ms": ms - scan_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library": "backward of torch.nn.GRU (cuDNN) on the same data, the input "
+                       "projection's gradients included"}
+
+
+CROSSOVER_WINDOWS = (1, 2, 4, 8, 16, 100, 1024)
+
+
+def gru_crossover(gen, dev) -> dict:
+    """ms of the port's GRU layer (encoder widths: 114 in, 150 hidden, batch
+    256, float32) through the kernels and through the plain loop, by window:
+    a forward without gradient (scoring) and a forward and backward
+    (training). Returns the least measured window from which the kernels win
+    both at every larger measured window."""
+    from mtad_gat_tpu_torch.nn import GRU
+
+    layers = {impl: GRU(114, 150, impl=impl, generator=gen).to(dev)
+              for impl in ("pallas", "xla")}
+    layers["xla"].load_state_dict(layers["pallas"].state_dict())
+    rows, wins = [], []
+    for T in CROSSOVER_WINDOWS:
+        x = torch.randn(256, T, 114, generator=gen).to(dev)
+        row = {"window": T}
+        for impl, layer in layers.items():
+            # the small windows are a few host launches: more calls to settle
+            iters = 3 if (impl == "xla" and T >= 100) else 10 if T >= 100 else 30
+
+            def score(layer=layer):
+                with torch.no_grad():
+                    layer(x)
+
+            def train(layer=layer):
+                out, last = layer(x)
+                torch.autograd.grad(out.sum() + last.sum(), list(layer.parameters()))
+
+            row[f"{impl}_scoring_ms"] = time_ms(score, iters, warmup=2)
+            row[f"{impl}_training_ms"] = time_ms(train, iters, warmup=2)
+        rows.append(row)
+        wins.append(row["pallas_scoring_ms"] < row["xla_scoring_ms"]
+                    and row["pallas_training_ms"] < row["xla_training_ms"])
+    crossover = None
+    for T, win in zip(reversed(CROSSOVER_WINDOWS), reversed(wins)):
+        if not win:
+            break
+        crossover = T
+    rec = {"phase": "gru_crossover", "B": 256, "in": 114, "H": 150, "dtype": "float32",
+           "impl": {"pallas": "K3 (+K4 in training)", "xla": "plain per-step loop"},
+           "rows": rows, "kernels_win_from_window": crossover}
+    emit(rec)
+    return rec
+
+
 KERNEL_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_bwd_dp_da",
-                   "gatv2_bwd_dq_dv", "gatv2_bwd_dbias", "gru_scan_fwd")
+                   "gatv2_bwd_dq_dv", "gatv2_bwd_dbias", "gru_scan_fwd", "gru_scan_bwd")
 
 
 def counters() -> dict:
@@ -580,11 +741,13 @@ def read_counts() -> dict:
 
 
 def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: int,
-                               epochs: int, val_split: float) -> dict:
+                               epochs: int, val_split: float, gru_impl: str) -> dict:
     """Launch counts of one train_cli run: each training step runs K1-res
-    and K2a-c in both attention layers; each batch evaluated or scored
-    without gradient runs K1 twice (init train and val losses, one val pass
-    per epoch, the test loss, and the train and test scoring passes)."""
+    and K2a-c in both attention layers and, with the GRU kernels, K3 and K4
+    in the encoder and the decoder; each batch evaluated or scored without
+    gradient runs K1 twice and, with the GRU kernels, K3 twice (init train
+    and val losses, one val pass per epoch, the test loss, and the train and
+    test scoring passes)."""
     batches = lambda n: max(1, -(-n // bs))  # noqa: E731
     n_win = n_train_rows - w
     n_val = int(np.floor(val_split * n_win))
@@ -592,8 +755,11 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     no_grad = (batches(n_win - n_val) + batches(n_val) * (1 + epochs)
                + batches(n_test_rows - w) + batches(n_train_rows - w + 1)
                + batches(n_test_rows - w + 1))
+    gru = gru_impl == "pallas"
     want = {name: 2 * steps for name in KERNEL_COUNTERS}
-    want.update(gatv2_attention_fwd=2 * no_grad, gru_scan_fwd=0)
+    want.update(gatv2_attention_fwd=2 * no_grad,
+                gru_scan_fwd=2 * (steps + no_grad) if gru else 0,
+                gru_scan_bwd=2 * steps if gru else 0)
     return want, steps
 
 
@@ -607,34 +773,34 @@ def finite_summary(path: str) -> dict:
     return summary
 
 
-def check_train_cli(work, data_root):
-    """train_cli.main on the card, float32 then bfloat16; returns the f32
-    run's launch counts."""
+def check_train_cli(work, data_root, gru_impl: str, epochs: int):
+    """train_cli.main on the card with the attention kernels and the given
+    GRU path, float32 then bfloat16; returns the f32 run's launch counts."""
     from mtad_gat_tpu_torch.cli import predict_cli, train_cli
     from mtad_gat_tpu_torch.config import RunConfig
 
     flagship = RunConfig()
-    epochs = 2
     launches = None
     for dtype in ("float32", "bfloat16"):
-        out_root = os.path.join(work, f"train_{dtype}")
+        out_root = os.path.join(work, f"train_{gru_impl}_{dtype}")
         common = ["--dataset", "SMD", "--group", "1-1", "--data_root", data_root,
                   "--output_root", out_root, "--device", "cuda"]
-        argv = common + ["--attention_impl", "pallas", "--epochs", str(epochs),
-                         "--compute_dtype", dtype, "--log_tensorboard", "False",
-                         "--run_id", "run", "--seed", "0"]
+        argv = common + ["--attention_impl", "pallas", "--gru_impl", gru_impl,
+                         "--epochs", str(epochs), "--compute_dtype", dtype,
+                         "--log_tensorboard", "False", "--run_id", "run", "--seed", "0"]
         reset_counts()
         t0 = time.perf_counter()
         run = train_cli.main(argv)
         seconds = time.perf_counter() - t0
         counts = read_counts()
         want, steps = expected_training_launches(2000, 2000, flagship.lookback, flagship.bs,
-                                                 epochs, flagship.val_split)
+                                                 epochs, flagship.val_split, gru_impl)
         with open(os.path.join(out_root, "SMD", "1-1", "logs", "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         losses = [r[k] for r in records for k in r if k.endswith("total")]
         summary = finite_summary(os.path.join(run, "summary.txt"))
-        rec = {"phase": "training", "run": f"train_cli {dtype}", "seconds": seconds,
+        rec = {"phase": "training", "run": f"train_cli {dtype}, attention kernels, "
+               f"gru_impl {gru_impl}", "epochs": epochs, "seconds": seconds,
                "steps": steps, "launches": counts, "expected_launches": want,
                "epoch_losses": records, "bf_f1": summary["bf_result"]["f1"]}
         if dtype == "float32":
@@ -644,62 +810,71 @@ def check_train_cli(work, data_root):
             launches = counts
         emit(rec)
         if counts != want:
-            raise AssertionError(f"train_cli {dtype}: launches {counts}, expected {want}")
+            raise AssertionError(f"train_cli {dtype} gru_impl {gru_impl}: launches "
+                                 f"{counts}, expected {want}")
         if not (len(losses) == 2 * epochs and np.all(np.isfinite(losses))):
-            raise AssertionError(f"train_cli {dtype}: losses {losses}")
+            raise AssertionError(f"train_cli {dtype} gru_impl {gru_impl}: losses {losses}")
         if rec.get("predict_cli_reproduces_summary") is False:
             raise AssertionError("predict_cli did not reproduce the trained run's summary")
     return launches
 
 
-def train_trainer(work, dtype: str, impl: str, dropout: float):
+def train_trainer(work, dtype: str, impl: str, gru_impl: str, dropout: float):
     """A flagship-width Trainer on the card, at train seed 0."""
     from mtad_gat_tpu_torch.config import RunConfig
     from mtad_gat_tpu_torch.training import Trainer
 
-    cfg = RunConfig(attention_impl=impl, compute_dtype=dtype, dropout=dropout, epochs=1,
-                    log_tensorboard=False)
+    cfg = RunConfig(attention_impl=impl, gru_impl=gru_impl, compute_dtype=dtype,
+                    dropout=dropout, epochs=1, log_tensorboard=False)
     trainer = Trainer(cfg.model_config(38, 38), cfg.train_config(),
-                      log_dir=os.path.join(work, f"logs_{impl}_{dtype}"), device="cuda")
+                      log_dir=os.path.join(work, f"logs_{impl}_{gru_impl}_{dtype}"),
+                      device="cuda")
     trainer.init_state()
     return trainer
 
 
-def check_kernel_vs_plain_training(work, x_train) -> dict:
-    """One epoch at dropout 0 from one seed, attention through the kernels
-    and through the plain path: per-step losses and final params."""
+def check_kernel_vs_plain_training(work, x_train) -> None:
+    """One epoch at dropout 0 from one seed through the plain paths, with
+    the attention through its kernels, and with attention and GRU through
+    theirs: per-step losses and final params of each against the plain run."""
     runs = {}
-    for impl in ("pallas", "dense"):
-        tr = train_trainer(work, "float32", impl, 0.0)
+    for impl, gru_impl in (("dense", "xla"), ("pallas", "xla"), ("pallas", "pallas")):
+        tr = train_trainer(work, "float32", impl, gru_impl, 0.0)
         tr.fit(x_train)
-        runs[impl] = tr
-    k, d = runs["pallas"], runs["dense"]
-    loss_err = float(max(np.abs(k.last_batch_losses[i] - d.last_batch_losses[i]).max()
-                         for i in (0, 1)))
-    sk, sd = k.model.state_dict(), d.model.state_dict()
-    param_err = max((sk[n] - sd[n]).abs().max().item() for n in sk)
-    rec = {"phase": "training", "check": "kernels vs plain attention, dropout 0, 1 epoch",
-           "steps": k.step, "step_loss_max_abs_err": loss_err,
-           "param_max_abs_err": param_err, "tol": TRAIN_PATH_TOL}
-    emit(rec)
-    if not (loss_err <= TRAIN_PATH_TOL["loss"] and param_err <= TRAIN_PATH_TOL["param"]):
-        raise AssertionError(f"kernel and plain training disagree: {rec}")
-    return rec
+        runs[impl, gru_impl] = tr
+    d = runs["dense", "xla"]
+    sd = d.model.state_dict()
+    for key, what, tol in ((("pallas", "xla"), "attention kernels vs plain paths", TRAIN_PATH_TOL),
+                           (("pallas", "pallas"), "all kernels vs plain paths",
+                            TRAIN_PATH_TOL)):
+        k = runs[key]
+        loss_err = float(max(np.abs(k.last_batch_losses[i] - d.last_batch_losses[i]).max()
+                             for i in (0, 1)))
+        sk = k.model.state_dict()
+        param_err = max((sk[n] - sd[n]).abs().max().item() for n in sk)
+        rec = {"phase": "training", "check": f"{what}, dropout 0, 1 epoch",
+               "steps": k.step, "step_loss_max_abs_err": loss_err,
+               "param_max_abs_err": param_err, "tol": tol}
+        emit(rec)
+        if not (loss_err <= tol["loss"] and param_err <= tol["param"]):
+            raise AssertionError(f"kernel and plain training disagree: {rec}")
 
 
-THROUGHPUT_EPOCHS = 6
+THROUGHPUT_EPOCHS = {"xla": 3, "pallas": 6}
 
 
-def training_throughput(work, x_train) -> dict:
+def training_throughput(work, x_train, gru_impl: str) -> dict:
     """Train windows/s, float32 and bfloat16, attention kernels on at
-    dropout 0.3: all the steps of THROUGHPUT_EPOCHS epochs after a warm-up
-    epoch, as total windows over total time, with every epoch's own rate;
-    then device time by kernel over one profiled float32 epoch."""
+    dropout 0.3, the GRU on the given path: all the steps of
+    THROUGHPUT_EPOCHS epochs after a warm-up epoch, as total windows over
+    total time, with every epoch's own rate; then device time by kernel over
+    one profiled float32 epoch."""
     from mtad_gat_tpu_torch.data.windows import batched_starts
 
     rates, epoch_rates, prof_trainer = {}, {}, None
+    epochs = THROUGHPUT_EPOCHS[gru_impl]
     for dtype in ("float32", "bfloat16"):
-        tr = train_trainer(work, dtype, "pallas", 0.3)
+        tr = train_trainer(work, dtype, "pallas", gru_impl, 0.3)
         series = tr._series(x_train)
         n_win = len(x_train) - tr.window
         starts, mask, _ = batched_starts(0, tr.train_config.bs,
@@ -707,7 +882,7 @@ def training_throughput(work, x_train) -> dict:
         tr.train_epoch(series, starts, mask)                # warm-up
         torch.cuda.synchronize()
         seconds = []
-        for _ in range(THROUGHPUT_EPOCHS):
+        for _ in range(epochs):
             t0 = time.perf_counter()
             tr.train_epoch(series, starts, mask)            # ends in a device sync
             seconds.append(time.perf_counter() - t0)
@@ -716,15 +891,15 @@ def training_throughput(work, x_train) -> dict:
         epoch_rates[dtype] = [n / s for s in seconds]
         if dtype == "float32":
             prof_trainer, prof_args = tr, (series, starts, mask)
-    emit({"phase": "training", "train_windows_per_s": rates,
-          "epoch_windows_per_s": epoch_rates, "epochs": THROUGHPUT_EPOCHS,
+    emit({"phase": "training", "gru_impl": gru_impl, "train_windows_per_s": rates,
+          "epoch_windows_per_s": epoch_rates, "epochs": epochs,
           "steps_per_epoch": int(prof_args[1].shape[0]),
           "windows_per_epoch": int(prof_args[2].sum()), "batch": 256, "dropout": 0.3})
-    emit(profile_training(prof_trainer, *prof_args))
+    emit(profile_training(prof_trainer, gru_impl, *prof_args))
     return rates
 
 
-def profile_training(trainer, series, starts, mask) -> dict:
+def profile_training(trainer, gru_impl, series, starts, mask) -> dict:
     """Device time by kernel over one float32 training epoch, as
     profile_scoring does for scoring."""
     from torch.autograd import DeviceType
@@ -740,7 +915,7 @@ def profile_training(trainer, series, starts, mask) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     return {"phase": "profile", "pass": "one training epoch, float32, attention kernels on, "
-            "dropout 0.3", "steps": int(starts.shape[0]),
+            f"gru_impl {gru_impl}, dropout 0.3", "steps": int(starts.shape[0]),
             "wall_ms": wall_ms, "device_busy_ms": busy_ms if rows else None,
             "busy_share": busy_ms / wall_ms if rows else None,
             "top": [{"kernel": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:16]]}
@@ -781,15 +956,19 @@ def main() -> None:
     k1_err, k1_ms = check_k1(gen, dev)
     k3_err, k3 = check_k3(gen, dev)
     train_err, train_rel, train_ms = check_training_kernels(gen, dev)
+    k4_err, k4_rel, k4 = check_k4(gen, dev)
+    gru_crossover(gen, dev)
     with tempfile.TemporaryDirectory() as work:
         launches = check_main_path(gen, dev, work)
         data_root = os.path.join(work, "data")
-        train_launches = check_train_cli(work, data_root)
+        check_train_cli(work, data_root, "xla", epochs=1)
+        train_launches = check_train_cli(work, data_root, "pallas", epochs=2)
         from mtad_gat_tpu_torch.data import get_data
 
         (x_train, _), _ = get_data("machine-1-1", data_root=data_root, normalize=True)
         check_kernel_vs_plain_training(work, x_train)
-        training_throughput(work, x_train)
+        training_throughput(work, x_train, "xla")
+        training_throughput(work, x_train, "pallas")
 
     f, t = k1_ms["feature"], k1_ms["temporal"]
     k1_bound = f[2] + t[2]
@@ -810,8 +989,21 @@ def main() -> None:
          "launches": launches["k3"], "max_abs_err": k3_err,
          "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[3], "bound_by": k3[4],
          "library_ms": k3[2],
+         "launches_training": train_launches["gru_scan_fwd"],
          "shapes": "one chain: gi (256,100,450) float32, hidden 150; library_ms "
                    "is torch.nn.GRU (cuDNN) with its input projection"},
+        {"name": "gru_scan_bwd", "route": "cuda",
+         "source": "mtad_gat_tpu_torch/csrc/gru_bwd.cu",
+         "replaces": "mtad_gat_tpu/kernels/gru_pallas.py:74",
+         "launches": train_launches["gru_scan_bwd"], "max_abs_err": k4_err,
+         "max_rel_err": k4_rel,
+         "ms": k4["ms"], "scan_ms": k4["scan_ms"], "weights_ms": k4["weights_ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+         "shapes": "one chain: gi (256,100,450), hseq and dhseq (256,100,150) float32; "
+                   "one call is the serial scan kernel (scan_ms) and the dW_hh, db_hh "
+                   "product with its reduction (weights_ms); library_ms is the backward "
+                   "of torch.nn.GRU (cuDNN) with its input projection's gradients"},
     ]
     for key, name, source, line in (
         ("k1res", "gatv2_attention_res", "gat_fwd.cu", 220),

@@ -17,10 +17,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from mtad_gat_tpu_torch.graph.structure import parse_graph_spec
 
-# gru_impl="auto" switches to the fused GRU scan kernel at this window size.
-# The value is the JAX package's, measured on a TPU; the H100 crossover is
-# still to be measured (ROADMAP.md, Queue 1 item 2).
-GRU_PALLAS_MIN_WINDOW = 1024
+# gru_impl="auto" switches to the fused GRU scan kernels at this window size.
+# Measured on an NVIDIA H100 80GB HBM3 at 700.00 W by chip_smoke.py (phase
+# gru_crossover; the table is in PERF.md): at batch 256, hidden 150, float32
+# the kernels beat the plain per-step loop at every window from 2 up, for
+# scoring and for training, in every run, because the loop is bound by the
+# host's launches; at window 1 training is a tie within the host's noise.
+# The JAX package keeps its own value, measured on its own hardware.
+GRU_PALLAS_MIN_WINDOW = 2
 
 
 @dataclass
@@ -50,11 +54,11 @@ class MTADGATConfig:
     # "sparse" and "ring" are accepted for config compatibility and raise
     # when a layer is built (ROADMAP.md, Queue 1 items 5 and 8).
     attention_impl: str = "dense"
-    # trades recompute for memory in the backward pass: no effect until
-    # training is ported
+    # trades recompute for memory in the backward pass of the dense path:
+    # accepted for config compatibility, no effect in the port
     remat_attention: bool = False
     # "auto", "xla" (per-step loop of tensor ops) or "pallas" (the fused
-    # GRU scan kernel); "auto" resolves by window size.
+    # GRU scan kernels, forward and backward); "auto" resolves by window size.
     gru_impl: str = "auto"
     gru_unroll: int = 4
     feature_graph: str = "complete"

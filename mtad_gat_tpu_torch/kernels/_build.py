@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("gat_fwd", "gat_bwd", "gru_fwd")
+SOURCES = ("gat_fwd", "gat_bwd", "gru_fwd", "gru_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

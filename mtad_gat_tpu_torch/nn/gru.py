@@ -9,9 +9,10 @@ Parameters are named and laid out as ``nn.GRU``'s (``weight_ih_l0`` is
 (3h, in), gate order (r, z, n)), so the reference's ``gru.gru.*`` and
 ``recon_model.decoder.rnn.*`` keys load as they are. The input projection
 of the whole sequence is one matrix product hoisted out of the recurrence;
-the recurrence runs as the fused kernel (``impl="pallas"``,
-``kernels/gru.py``) or as a per-step loop of the plain version's step,
-``gru_step``, in the compute type (``impl="xla"``, the name the JAX package
+the recurrence runs as the fused kernels (``impl="pallas"``: the forward
+and the backward through time in one call each, ``kernels/gru.gru_scan``)
+or as a per-step loop of the plain version's step, ``gru_step``, in the
+compute type (``impl="xla"``, the name the JAX package
 gives its ``lax.scan`` path). Dropout applies only between layers, in
 training mode, from the caller's generator, as in the reference (a
 single-layer GRU has none).
@@ -25,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from mtad_gat_tpu_torch.kernels.gru import gru_scan_fwd, gru_step
+from mtad_gat_tpu_torch.kernels.gru import gru_scan, gru_step
 from mtad_gat_tpu_torch.nn.init import uniform_bound_
 
 
@@ -90,7 +91,7 @@ class GRU(nn.Module):
             gi = h @ w_ih.t().to(cd) + b_ih.to(cd)           # (b, n, 3h)
 
             if self.impl == "pallas":
-                hseq, last_hidden = gru_scan_fwd(gi, w_hh.t(), b_hh, H)
+                hseq, last_hidden = gru_scan(gi, w_hh.t(), b_hh, H)
                 last_hidden = last_hidden.to(cd)
                 h = hseq.to(cd) if collect else None
             else:

@@ -10,6 +10,7 @@ from mtad_gat_tpu.config import MTADGATConfig as JaxModelConfig
 from mtad_gat_tpu.config import RunConfig as JaxRunConfig
 from mtad_gat_tpu.config import lookup_pot_params as jax_lookup
 from mtad_gat_tpu_torch.config import (
+    GRU_PALLAS_MIN_WINDOW,
     MTADGATConfig,
     PredictConfig,
     RunConfig,
@@ -55,8 +56,21 @@ def test_old_config_without_gru_impl_pins_xla(tmp_path):
 
 @pytest.mark.parametrize("window,impl", [(100, "auto"), (1024, "auto"), (100, "pallas"), (4096, "xla")])
 def test_resolved_gru_impl_matches(window, impl):
-    assert (MTADGATConfig(window_size=window, gru_impl=impl).resolved_gru_impl()
-            == JaxModelConfig(window_size=window, gru_impl=impl).resolved_gru_impl())
+    """An explicit choice resolves as in the JAX package; "auto" resolves by
+    the port's own window, measured on its own hardware (PERF.md), while the
+    JAX package keeps its own."""
+    got = MTADGATConfig(window_size=window, gru_impl=impl).resolved_gru_impl()
+    if impl == "auto":
+        assert got == ("pallas" if window >= GRU_PALLAS_MIN_WINDOW else "xla")
+    else:
+        assert got == JaxModelConfig(window_size=window, gru_impl=impl).resolved_gru_impl()
+
+
+@pytest.mark.parametrize("offset,want", [(-1, "xla"), (0, "pallas"), (1, "pallas")])
+def test_auto_gru_impl_switches_at_the_ports_window(offset, want):
+    window = GRU_PALLAS_MIN_WINDOW + offset
+    assert MTADGATConfig(window_size=window).resolved_gru_impl() == want
+    assert MTADGATConfig(window_size=window, gru_impl="xla").resolved_gru_impl() == "xla"
 
 
 @pytest.mark.parametrize("kw", [

@@ -13,8 +13,6 @@
   of ``_dense_reference`` with the same hash mask; atol 5e-5, as
   ``tests/test_pallas_backward.py`` holds the Pallas backward to the dense
   one.
-- The repair of the GRU scan kernel: it raises where autograd would record
-  it, until its backward (K4) exists.
 
 Inputs are drawn with numpy from a seed, as the JAX tests draw them.
 """
@@ -28,7 +26,6 @@ import torch
 from mtad_gat_tpu.kernels import gat_pallas
 from mtad_gat_tpu_torch.graph.ops import gat_aggregate_dense, gatv2_scores_dense
 from mtad_gat_tpu_torch.kernels import gat as tgat
-from mtad_gat_tpu_torch.kernels.gru import gru_scan_fwd
 
 torch.set_num_threads(1)
 
@@ -235,15 +232,3 @@ def test_dense_dropout_needs_a_generator():
     gen = torch.Generator().manual_seed(0)
     dropped = gat_aggregate_dense(s, v, bias, 0.3, gen)
     assert not torch.allclose(dropped, gat_aggregate_dense(s, v, bias))
-
-
-def test_gru_scan_kernel_refuses_autograd():
-    rng = np.random.default_rng(0)
-    gi = torch.from_numpy(rng.standard_normal((2, 5, 12)).astype(np.float32))
-    w_hh = torch.from_numpy(rng.standard_normal((4, 12)).astype(np.float32))
-    b_hh = torch.zeros(12)
-    with pytest.raises(NotImplementedError, match="K4.*ROADMAP.md, Queue 2"):
-        gru_scan_fwd(gi.requires_grad_(), w_hh, b_hh, 4)
-    with torch.no_grad():
-        hseq, _ = gru_scan_fwd(gi, w_hh, b_hh, 4)
-    assert hseq.shape == (2, 5, 4)

@@ -5,7 +5,11 @@
   order (see ``test_torch_model.py``), on scores of order 1.
 - ``SPOT`` and ``eval_methods``: the port's numpy copies give array-equal
   results to the JAX package's functions on the same inputs (with the one
-  latency quirk of the JAX numpy path that the port does not copy).
+  latency quirk of the JAX numpy path that the port does not copy). Where a
+  comparison is with the JAX package's C++ ``bf_search``, the ``jax_native``
+  fixture first makes sure that this process has really loaded that library
+  (it is built at first use, and a process that meets it half-written falls
+  back to numpy for good), and the test asserts that the C++ path answered.
 - end to end: a tiny SMD run directory holding only ``config.txt`` and a
   ``model.pt`` written by ``save_torch_checkpoint``; the JAX
   ``predict_cli.main`` and the port's (``--device cpu``) write summaries
@@ -14,10 +18,14 @@
   labels start normal, away from the latency quirk above.
 """
 
+import fcntl
 import json
 import os
 import pickle
+import shutil
 import sys
+import tempfile
+import time
 from unittest import mock
 
 import jax
@@ -106,7 +114,66 @@ def _bf(mod, test, labels, **kw):
     return {k: float(v) for k, v in res.items()}
 
 
-def test_eval_methods_equal_jax():
+def _settled(path, pause=0.2, limit=30.0):
+    """Wait until ``path`` is absent or has stopped growing."""
+    end = time.monotonic() + limit
+    while os.path.exists(path) and time.monotonic() < end:
+        before = os.stat(path)
+        time.sleep(pause)
+        after = os.stat(path) if os.path.exists(path) else None
+        if after and (before.st_size, before.st_mtime_ns) == (after.st_size, after.st_mtime_ns):
+            return
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    """The JAX package's C++ host library, loaded in this process.
+
+    The library is not in the repository: the first process to ask builds it
+    in place, and a process that finds it half-written gives up for good and
+    answers from numpy. Several test processes may ask at once. So: one
+    process of this file at a time (a file lock), wait for a file that is
+    being written, and let the loader try again until it has the library,
+    within a time limit."""
+    import mtad_gat_tpu.native as native
+    from mtad_gat_tpu.native import host_ops
+
+    if os.environ.get("MTAD_GAT_NO_NATIVE"):
+        pytest.fail("MTAD_GAT_NO_NATIVE is set: the C++ path cannot be compared")
+    if not os.path.exists(host_ops._LIB_PATH) and shutil.which("g++") is None:
+        pytest.fail("no g++ to build the JAX package's host library")
+    deadline = time.monotonic() + 240.0
+    lock_path = os.path.join(tempfile.gettempdir(), "mtad_gat_tpu_libmtadhost.lock")
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _settled(host_ops._LIB_PATH)
+        while not host_ops.native_available():
+            if time.monotonic() > deadline:
+                pytest.fail("the JAX package's host library did not load in 240 s")
+            time.sleep(0.5)
+            _settled(host_ops._LIB_PATH)
+            with host_ops._lock:
+                host_ops._tried = False          # the loader tries again
+    return native
+
+
+def _bf_jax_native(native, test, labels):
+    """The JAX package's bf_search through its C++ path, asserting that the
+    C++ path and not the numpy fallback gave the answer."""
+    answers = []
+
+    def spy(*args):
+        answers.append(real(*args))
+        return answers[-1]
+
+    real = native.bf_search_native
+    with mock.patch.object(native, "bf_search_native", spy):
+        res = _bf(jax_eval, test, labels, use_native=True)
+    assert len(answers) == 1 and answers[0] is not None
+    return res
+
+
+def test_eval_methods_equal_jax(jax_native):
     train, test, labels = _scores(2)
     for fn, args in [
         ("epsilon_eval", (train, test, labels, 1)),
@@ -117,19 +184,19 @@ def test_eval_methods_equal_jax():
     ]:
         assert getattr(port_eval, fn)(*args) == getattr(jax_eval, fn)(*args), fn
     # the JAX package's C++ and numpy paths of bf_search
-    for use_native in (True, False):
-        assert _bf(port_eval, test, labels) == _bf(jax_eval, test, labels, use_native=use_native)
+    assert _bf(port_eval, test, labels) == _bf_jax_native(jax_native, test, labels)
+    assert _bf(port_eval, test, labels) == _bf(jax_eval, test, labels, use_native=False)
     pred = port_eval.adjust_predicts(test, labels, 0.5)
     np.testing.assert_array_equal(pred, jax_eval.adjust_predicts(test, labels, 0.5))
 
 
-def test_latency_of_a_segment_at_index_zero_counts_as_the_reference():
+def test_latency_of_a_segment_at_index_zero_counts_as_the_reference(jax_native):
     """A label segment at index 0 detected at index 0: the reference's
     backward fill sets no point there and adds no latency, as the JAX
     package's C++ bf_search does; its numpy path adds -1 (ROADMAP.md,
     Queue 3). The port counts as the reference."""
     _, test, labels = _scores(2, at_zero=True)
-    assert _bf(port_eval, test, labels) == _bf(jax_eval, test, labels, use_native=True)
+    assert _bf(port_eval, test, labels) == _bf_jax_native(jax_native, test, labels)
     assert _bf(jax_eval, test, labels, use_native=False)["latency"] < 0
     _, latency = port_eval.adjust_predicts(test, labels, 0.5, calc_latency=True)
     assert latency == 0.0

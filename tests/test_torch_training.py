@@ -2,7 +2,9 @@
 
 - Model gradients: the port's ``MTADGAT`` on a JAX init, in training mode at
   dropout 0, attention "pallas" (the kernels' plain versions behind the
-  autograd Function) and "dense": the loss of ``make_loss_fn`` and every
+  autograd Function) and "dense", and attention and GRU both "pallas" (the
+  JAX side then differentiates through its Pallas attention and BPTT kernels
+  in interpret mode): the loss of ``make_loss_fn`` and every
   parameter's gradient agree with ``jax.grad`` of the JAX loss, atol 1e-4
   (the forward's tolerance in ``test_torch_model.py``: the same float32 math
   summed in other orders).
@@ -11,14 +13,16 @@
   ``Trainer`` and the JAX ``Trainer`` give per-epoch losses and final params
   allclose to atol 2e-4, as ``tests/test_train_trajectory_parity.py`` holds
   the JAX trainer to torch: default Adam, global-norm clip 0.5, and the
-  warmup-cosine schedule.
+  warmup-cosine schedule; once more with attention and GRU "pallas" on both
+  sides.
 - Resume: 3 epochs straight, and 1 epoch + save + ``load_full`` + fit, at
   dropout 0.3 through the attention kernels' plain versions, give
-  bit-identical params and the same loss history.
+  bit-identical params and the same loss history, with the GRU scan (what
+  ``gru_impl="auto"`` resolves to) and with the plain GRU loop.
 - ``train_cli`` end to end (``--device cpu``, tiny widths, 1 epoch): the run
   directory holds model.pt, train_state.pt, config.txt and summary.txt, and
-  the port's ``predict_cli`` on it reproduces summary.txt.
-- ``--gru_impl pallas`` training raises, naming K4.
+  the port's ``predict_cli`` on it reproduces summary.txt; also with
+  ``--gru_impl pallas``.
 """
 
 import dataclasses
@@ -74,9 +78,11 @@ def _assert_params_close(model, jax_params, atol):
                                    atol=atol, err_msg=k)
 
 
-@pytest.mark.parametrize("impl", ["pallas", "dense"])
-def test_loss_and_gradients_match_jax(impl):
-    jmodel = JaxMTADGAT(JaxConfig(**_model_kw(attention_impl=impl)))
+@pytest.mark.parametrize("impl,gru_impl", [("pallas", "xla"), ("dense", "xla"),
+                                           ("pallas", "pallas")],
+                         ids=["pallas", "dense", "pallas-gru_pallas"])
+def test_loss_and_gradients_match_jax(impl, gru_impl):
+    jmodel = JaxMTADGAT(JaxConfig(**_model_kw(attention_impl=impl, gru_impl=gru_impl)))
     params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, W, K)))["params"]
     series = _series(60)
     starts = np.arange(0, 48, 6)[:8]
@@ -88,7 +94,7 @@ def test_loss_and_gradients_match_jax(impl):
         params, jnp.asarray(series), jnp.asarray(starts, jnp.int32), jnp.asarray(mask),
         jax.random.PRNGKey(1), False)
 
-    model = MTADGAT(MTADGATConfig(**_model_kw(attention_impl=impl)))
+    model = MTADGAT(MTADGATConfig(**_model_kw(attention_impl=impl, gru_impl=gru_impl)))
     model.load_state_dict(jax_params_to_state_dict(_np_tree(params)))
     loss_fn = make_loss_fn(model, W, 1, None)
     loss, _ = loss_fn(torch.from_numpy(series), torch.from_numpy(starts),
@@ -102,16 +108,18 @@ def test_loss_and_gradients_match_jax(impl):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("extra", [
-    dict(),
-    dict(grad_clip_norm=0.5),
-    dict(lr_schedule="warmup_cosine", lr_warmup_steps=4, lr_decay_steps=9),
-], ids=["adam", "clip", "warmup_cosine"])
-def test_trainer_tracks_jax_trainer(extra, tmp_path):
-    mkw = _model_kw(attention_impl="pallas")
+@pytest.mark.parametrize("extra,jax_impls", [
+    (dict(), dict()),
+    (dict(grad_clip_norm=0.5), dict()),
+    (dict(lr_schedule="warmup_cosine", lr_warmup_steps=4, lr_decay_steps=9), dict()),
+    (dict(), dict(attention_impl="pallas", gru_impl="pallas")),
+], ids=["adam", "clip", "warmup_cosine", "adam-both_pallas"])
+def test_trainer_tracks_jax_trainer(extra, jax_impls, tmp_path):
+    mkw = _model_kw(attention_impl="pallas", **{k: v for k, v in jax_impls.items()
+                                                if k == "gru_impl"})
     tkw = dict(epochs=1, val_split=0.1, bs=16, init_lr=1e-3, shuffle_dataset=True,
                log_tensorboard=False, seed=3, **extra)
-    jt = JaxTrainer(JaxConfig(**_model_kw()), JaxTrainConfig(**tkw),
+    jt = JaxTrainer(JaxConfig(**_model_kw(**jax_impls)), JaxTrainConfig(**tkw),
                     log_dir=str(tmp_path / "jax"))
     jt.init_state()
     series = _series()
@@ -143,8 +151,16 @@ def test_learning_rate_schedules_match_optax():
 
 
 def test_resume_is_bit_exact(tmp_path):
+    _check_resume("auto", tmp_path)      # the GRU scan, as "auto" resolves
+
+
+def test_resume_is_bit_exact_with_the_plain_gru_loop(tmp_path):
+    _check_resume("xla", tmp_path)
+
+
+def _check_resume(gru_impl, tmp_path):
     mc = MTADGATConfig(**_model_kw(attention_impl="pallas", dropout=0.3,
-                                   forecast_n_layers=2))
+                                   forecast_n_layers=2, gru_impl=gru_impl))
     tc3 = TrainConfig(epochs=3, val_split=0.0, bs=16, init_lr=1e-3,
                       log_tensorboard=False, seed=0, checkpoint_every=1)
     series = _series(140)
@@ -195,10 +211,21 @@ TINY = ["--lookback", "8", "--feat_gat_embed_dim", "4", "--time_gat_embed_dim", 
 
 
 def test_train_cli_end_to_end_then_predict_cli(tmp_path):
+    _check_train_then_predict(tmp_path, [])
+
+
+def test_train_cli_with_the_gru_scan_end_to_end_then_predict_cli(tmp_path):
+    run = _check_train_then_predict(tmp_path, ["--gru_impl", "pallas"])
+    with open(os.path.join(run, "config.txt")) as f:
+        assert json.load(f)["gru_impl"] == "pallas"
+
+
+def _check_train_then_predict(tmp_path, flags):
     data, out = str(tmp_path / "data"), str(tmp_path / "out")
     _write_smd(data)
     common = ["--dataset", "SMD", "--group", "1-1", "--data_root", data, "--output_root", out]
-    run = train_cli.main(common + TINY + ["--attention_impl", "pallas", "--run_id", "r1"])
+    run = train_cli.main(common + TINY + flags
+                         + ["--attention_impl", "pallas", "--run_id", "r1"])
     for name in ("model.pt", "train_state.pt", "config.txt", "summary.txt"):
         assert os.path.exists(os.path.join(run, name)), name
     with open(os.path.join(run, "summary.txt")) as f:
@@ -208,12 +235,12 @@ def test_train_cli_end_to_end_then_predict_cli(tmp_path):
     predict_cli.main(common + ["--model_id", "r1", "--device", "cpu"])
     with open(os.path.join(run, "summary_1.txt")) as f:
         assert json.load(f) == trained
+    return run
 
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh_devices", "2"], "Queue 1 item 8"),
     (["--profile_dir", "prof"], "Queue 1 item 9"),
-    (["--gru_impl", "pallas"], "K4"),
 ])
 def test_train_cli_refuses_unported_paths(flags, item, tmp_path):
     data, out = str(tmp_path / "data"), str(tmp_path / "out")
