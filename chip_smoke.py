@@ -15,8 +15,13 @@ In order, each phase failing the run with a non-zero exit:
    tiles, where it also checks that a call allocates less than one (N, N)
    float32 matrix), with kernel and plain times;
 4. K3, the fused GRU scan forward, against its plain version at batch 256,
-   100 steps, hidden 150 (float32 and bfloat16 inputs) and at 1024 steps,
-   with ``torch.nn.GRU`` (cuDNN) timed on the same data as a yardstick;
+   100 steps, hidden 150 (float32 and bfloat16 inputs; the cluster variant
+   with ragged unit slices), at 1024 steps, at one step, at batch 1 and at a
+   batch that leaves a ragged tile, at a width the cluster divides (64), at
+   one that takes the larger cluster (200) and at one that takes the
+   streaming variant (512), each record naming the variant and cluster size
+   that ran; with ``torch.nn.GRU`` (cuDNN) and the input projection alone
+   timed on the same data as yardsticks;
 5. the scoring path through its entry point: a synthetic SMD entity (2000
    rows, 38 features) and a run directory with a seeded random model at the
    reference's SMD widths; ``predict_cli.main`` with ``--device cuda`` and
@@ -36,8 +41,10 @@ In order, each phase failing the run with a non-zero exit:
 7. K4, the GRU backward through time, against its plain version and against
    autograd of the plain forward at batch 256, 100 steps, hidden 150
    (float32 and bfloat16 ``gi``; a dense cotangent and one that is zero
-   except at the last step), at 1024 steps and at a batch that leaves a
-   ragged tile, two launches giving identical bits; its time beside its
+   except at the last step), at 1024 steps, at one step, at batch 1 and at a
+   batch that leaves a ragged tile, at widths 64, 176 (the larger cluster)
+   and 384 (the streaming variant), two launches giving identical bits and
+   each record naming the variant and cluster size that ran; its time beside its
    bound, its plain version and the backward of ``torch.nn.GRU`` (cuDNN);
    then the window at which the GRU kernels overtake the plain loop, for
    scoring and for training (the table behind ``GRU_PALLAS_MIN_WINDOW``);
@@ -247,15 +254,26 @@ def gru_case(gen, dev, B, T, H, dtype):
     return gru, x, gi, gru.weight_hh_l0.detach().t(), gru.bias_hh_l0.detach()
 
 
+# (case, B, T, H, gi's type, variant the planner must pick); the first is timed
+K3_CASES = (
+    ("flagship", 256, 100, 150, torch.float32, "cluster"),
+    ("flagship", 256, 100, 150, torch.bfloat16, "cluster"),
+    ("long", 256, 1024, 150, torch.float32, "cluster"),
+    ("one step", 256, 1, 150, torch.float32, "cluster"),
+    ("batch 1", 1, 100, 150, torch.float32, "cluster"),
+    ("ragged batch", 43, 100, 150, torch.float32, "cluster"),
+    ("even slices", 64, 100, 64, torch.float32, "cluster"),
+    ("larger cluster", 64, 100, 200, torch.float32, "cluster"),
+    ("wide", 64, 100, 512, torch.float32, "streaming"),
+)
+
+
 def check_k3(gen, dev):
     from mtad_gat_tpu_torch.kernels.gru import gru_scan_fwd, gru_scan_fwd_plain
 
-    H = 150
     result = None
     errs = []
-    for name, B, T, dtype in (("flagship", 256, 100, torch.float32),
-                              ("flagship", 256, 100, torch.bfloat16),
-                              ("long", 256, 1024, torch.float32)):
+    for name, B, T, H, dtype, variant in K3_CASES:
         gru, x, gi, w_hh, b_hh = gru_case(gen, dev, B, T, H, dtype)
         w_hh = w_hh.contiguous()
         with torch.no_grad():
@@ -264,20 +282,29 @@ def check_k3(gen, dev):
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             ms = time_ms(lambda: gru_scan_fwd(gi, w_hh, b_hh, H), 10)
-            plain_ms = time_ms(lambda: gru_scan_fwd_plain(gi, w_hh, b_hh, H), 2, warmup=1)
-            library_ms = time_ms(lambda: gru(x), 10)
         nbytes = B * T * 3 * H * dtype.itemsize + (H * 3 * H + 3 * H) * 4 + B * T * H * 4
         bound_ms, bound_by = bound(2 * B * T * H * 3 * H, nbytes)
-        emit({"phase": "k3", "case": name, "B": B, "T": T, "H": H,
-              "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tol": K3_TOL,
-              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "library": "torch.nn.GRU (cuDNN), input projection included",
-              "bound_ms": bound_ms, "bound_by": bound_by})
+        rec = {"phase": "k3", "case": name, "B": B, "T": T, "H": H,
+               "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tol": K3_TOL,
+               "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               **gru_scan_fwd.last_launch}
+        if result is None:
+            with torch.no_grad():
+                rec["plain_ms"] = time_ms(lambda: gru_scan_fwd_plain(gi, w_hh, b_hh, H), 2,
+                                          warmup=1)
+                rec["library_ms"] = time_ms(lambda: gru(x), 10)
+                rec["projection_ms"] = time_ms(
+                    lambda: x @ gru.weight_ih_l0.t() + gru.bias_ih_l0, 10)
+            rec["library"] = ("torch.nn.GRU (cuDNN), input projection included; "
+                              "projection_ms is x @ W_ih^T + b_ih alone")
+            result = dict(rec)
+        emit(rec)
         if not err <= K3_TOL:
             raise AssertionError(f"K3 {name} {dtype}: max abs error {err} > {K3_TOL}")
+        if rec["variant"] != variant:
+            raise AssertionError(f"K3 {name}: ran the {rec['variant']} variant, "
+                                 f"expected {variant}")
         errs.append(err)
-        if result is None:
-            result = (ms, plain_ms, library_ms, bound_ms, bound_by)
     return max(errs), result
 
 
@@ -592,6 +619,21 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
 # ---------------------------------------------------------------------------
 
 
+# (case, B, T, H, gi's type, dense cotangent, variant the planner must pick)
+K4_CASES = (
+    ("flagship", 256, 100, 150, torch.float32, True, "cluster"),
+    ("flagship", 256, 100, 150, torch.bfloat16, True, "cluster"),
+    ("flagship, cotangent on h_last only", 256, 100, 150, torch.float32, False, "cluster"),
+    ("long", 256, 1024, 150, torch.float32, True, "cluster"),
+    ("one step", 256, 1, 150, torch.float32, True, "cluster"),
+    ("batch 1", 1, 100, 150, torch.float32, True, "cluster"),
+    ("ragged batch", 43, 100, 150, torch.float32, True, "cluster"),
+    ("even slices", 64, 100, 64, torch.float32, True, "cluster"),
+    ("larger cluster", 64, 100, 176, torch.float32, True, "cluster"),
+    ("wide", 64, 100, 384, torch.float32, True, "streaming"),
+)
+
+
 def check_k4(gen, dev):
     """K4 against gru_scan_bwd_plain and against autograd of the plain
     forward; returns (worst float32 abs error, worst relative error, times
@@ -599,15 +641,9 @@ def check_k4(gen, dev):
     from mtad_gat_tpu_torch.kernels.gru import (
         gru_scan_bwd, gru_scan_bwd_plain, gru_scan_fwd, gru_scan_fwd_plain)
 
-    H = 150
     names = ("dgi", "dw_hh", "db_hh")
     worst_abs, worst_rel, times = 0.0, 0.0, None
-    for name, B, T, dtype, dense in (("flagship", 256, 100, torch.float32, True),
-                                     ("flagship", 256, 100, torch.bfloat16, True),
-                                     ("flagship, cotangent on h_last only", 256, 100,
-                                      torch.float32, False),
-                                     ("long", 256, 1024, torch.float32, True),
-                                     ("ragged batch", 43, 100, torch.float32, True)):
+    for name, B, T, H, dtype, dense, variant in K4_CASES:
         gru, x, gi, w_hh, b_hh = gru_case(gen, dev, B, T, H, dtype)
         dhseq = torch.randn(B, T, H, generator=gen).to(dev)
         if not dense:
@@ -623,7 +659,8 @@ def check_k4(gen, dev):
         err_abs = {n: (a - b).abs().max().item() for n, a, b in zip(names, got, want)}
         rec = {"phase": "k4", "case": name, "B": B, "T": T, "H": H,
                "dtype": str(dtype).replace("torch.", ""), "rel_err": err, "abs_err": err_abs,
-               "tol": K4_TOL, "two_launches_identical": same_bits}
+               "tol": K4_TOL, "two_launches_identical": same_bits,
+               **gru_scan_bwd.last_launch}
         if T <= 100:
             # the other oracle: autograd of the plain forward from the same inputs
             leaves = [t.detach().float().clone().requires_grad_() for t in (gi, w_hh, b_hh)]
@@ -638,6 +675,9 @@ def check_k4(gen, dev):
         if bad or not same_bits:
             raise AssertionError(f"K4 {name} {dtype}: {bad} beyond tolerance or bits "
                                  f"differ: {rec}")
+        if rec["variant"] != variant:
+            raise AssertionError(f"K4 {name}: ran the {rec['variant']} variant, "
+                                 f"expected {variant}")
         worst_abs = max(worst_abs, *err_abs.values())
         worst_rel = max(worst_rel, *err.values())
     return worst_abs, worst_rel, times
@@ -669,6 +709,7 @@ def time_k4(gru, x, gi, w_hh, b_hh, hseq, dhseq, H) -> dict:
     bound_ms, bound_by = bound(ops, nbytes)
     return {"ms": ms, "scan_ms": scan_ms, "weights_ms": ms - scan_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            **gru_scan_bwd.last_launch,
             "library": "backward of torch.nn.GRU (cuDNN) on the same data, the input "
                        "projection's gradients included"}
 
@@ -987,11 +1028,14 @@ def main() -> None:
          "source": "mtad_gat_tpu_torch/csrc/gru_fwd.cu",
          "replaces": "mtad_gat_tpu/kernels/gru_pallas.py:52",
          "launches": launches["k3"], "max_abs_err": k3_err,
-         "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[3], "bound_by": k3[4],
-         "library_ms": k3[2],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+         "projection_ms": k3["projection_ms"], "variant": k3["variant"],
+         "cluster": k3["cluster"], "smem_bytes": k3["smem_bytes"],
          "launches_training": train_launches["gru_scan_fwd"],
          "shapes": "one chain: gi (256,100,450) float32, hidden 150; library_ms "
-                   "is torch.nn.GRU (cuDNN) with its input projection"},
+                   "is torch.nn.GRU (cuDNN) with its input projection, projection_ms "
+                   "that projection alone as one matrix product"},
         {"name": "gru_scan_bwd", "route": "cuda",
          "source": "mtad_gat_tpu_torch/csrc/gru_bwd.cu",
          "replaces": "mtad_gat_tpu/kernels/gru_pallas.py:74",
@@ -1000,6 +1044,7 @@ def main() -> None:
          "ms": k4["ms"], "scan_ms": k4["scan_ms"], "weights_ms": k4["weights_ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+         "variant": k4["variant"], "cluster": k4["cluster"], "smem_bytes": k4["smem_bytes"],
          "shapes": "one chain: gi (256,100,450), hseq and dhseq (256,100,150) float32; "
                    "one call is the serial scan kernel (scan_ms) and the dW_hh, db_hh "
                    "product with its reduction (weights_ms); library_ms is the backward "

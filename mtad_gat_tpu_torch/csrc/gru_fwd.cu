@@ -11,20 +11,37 @@
 //
 // where gi = x W_ih + b_ih is computed before the launch by a matrix product.
 //
-// Design: one block per tile of BB batch rows walks all T steps with its
-// hidden state in shared memory, a __syncthreads() between the recurrent
-// product and the gate update of each step. One thread per gate column
-// (3H of them) computes that column of h . W_hh for the BB rows, reading
-// W_hh from device memory, where it stays resident in the 50 MB L2; then
-// the threads update h for (row, unit) pairs and write h_t.
-//
 // What bounds it on the card: the T steps are serial, so a step's latency,
 // not the card's throughput, sets the time. Each step is a (BB, H) x (H, 3H)
 // product; at H = 150, W_hh is 150 x 450 float32 = 270 KB, more than the
-// 227 KB of shared memory a block may use, so this design reads it from L2
-// on every step and reuses each value BB times from registers. Keeping W_hh
-// on chip (split across a thread-block cluster, or held in bfloat16) and
-// using the tensor cores for the step product are later work.
+// 227 KB of shared memory a block may use. Two variants, chosen by the
+// caller from the width (kernels/gru.py::gru_plan):
+//
+// 1. gru_fwd_cluster_kernel, for the widths whose W_hh fits on chip when it
+//    is split: a batch tile of CL_BB rows belongs to a thread-block cluster
+//    of C blocks, and block c holds the columns of W_hh of its own hidden
+//    units, all three gates, in shared memory for all T steps (gru_cluster.cuh
+//    has the split and the step product). W_hh is read from device memory
+//    once per launch. Every block holds the whole h_{t-1} of its rows (two
+//    buffers), computes h . W_hh for its own columns, updates its own units
+//    in its own next-step buffer, and copies that slice into the next-step
+//    buffer of every peer through distributed shared memory, 16 bytes a
+//    store; one cluster barrier ends the step. The step's slice of hseq goes
+//    to device memory between the barrier's two halves, and gi of step t + 1
+//    is loaded while step t computes: neither is on the chain. A step is two
+//    block barriers and one cluster barrier. What a step costs now: the
+//    product is bound by shared-memory reads (h is the same for every lane,
+//    so a warp's 16-byte read of it uses a fraction of the bandwidth), and
+//    the release of the peers' copies at the barrier costs about as much as
+//    the gate update.
+// 2. gru_fwd_kernel, the streaming variant for wider H: one block per tile
+//    of BB batch rows walks all T steps with its hidden state in shared
+//    memory, one thread per gate column, reading W_hh on every step from
+//    device memory, where it stays resident in the 50 MB L2. A step costs a
+//    chain of H dependent loads from L2.
+//
+// Tensor cores for the step product and W_hh in bfloat16 are later work:
+// they would not hold the float32 tolerance against the plain version.
 //
 // Layouts are those of gru_scan_fused: gi (B, T, 3H) float32 or bfloat16,
 // w_hh (H, 3H) float32, b_hh (3H,) float32, gate order (r, z, n); hseq
@@ -33,10 +50,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gru_cluster.cuh"
+
 namespace {
 
-constexpr int BB = 8;             // batch rows per block
+constexpr int BB = 8;             // batch rows per block, streaming variant
 constexpr int MAX_THREADS = 1024;
+constexpr int CL_BB = 12;          // batch rows per cluster, cluster variant
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -103,6 +123,107 @@ gru_fwd_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   }
 }
 
+constexpr int CL_SPLIT = 8;       // most partial sums per column, cluster variant
+
+__device__ __forceinline__ float colsum(const float* part, int stride, int split, int j,
+                                        int r) {
+  return gru_cluster::column_sum<CL_BB, CL_SPLIT>(part, stride, split, j, r);
+}
+
+// Bytes of shared memory of one block of the cluster variant.
+size_t cluster_smem_bytes(int H, int C) {
+  const gru_cluster::Tiling tl = gru_cluster::tiling(H, C, CL_SPLIT);
+  return (size_t)(2 * H * CL_BB + tl.split * CL_BB * tl.stride + H * tl.stride + tl.stride) *
+         sizeof(float);
+}
+
+// RB is CL_BB: the batch rows of the cluster.
+template <typename T, int RB>
+__global__ void __launch_bounds__(gru_cluster::THREADS)
+gru_fwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
+                       const float* __restrict__ b_hh, float* __restrict__ hseq,
+                       int B, int n_steps, int H) {
+  namespace gc = gru_cluster;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const gc::Tiling tl = gc::tiling(H, C, CL_SPLIT);
+  const int k0 = gc::unit_start(H, C, rank), nu = gc::unit_count(H, C, rank);
+  const int H3 = 3 * H;
+  const int b0 = (blockIdx.x / C) * RB;
+
+  // every block lays its shared memory out alike, so a peer's h buffer sits
+  // at the same offset as this block's
+  extern __shared__ __align__(16) float smem[];
+  float* hT = smem;                               // [2][H][RB]: h transposed
+  float* part = hT + 2 * H * RB;                  // [split][RB][stride]
+  float* ws = part + tl.split * RB * tl.stride;   // [H][stride]: this block's W_hh
+  float* bias = ws + H * tl.stride;               // [stride]
+
+  for (int x = threadIdx.x; x < 2 * H * RB; x += blockDim.x) hT[x] = 0.f;
+  gc::load_slice(ws, w_hh, H, H3, H, k0, nu, tl);
+  gc::load_slice(bias, b_hh, 1, 0, H, k0, nu, tl);
+
+  // the step product: column group pg, partial sum ps
+  const int pg = threadIdx.x % tl.groups_pad, ps = threadIdx.x / tl.groups_pad;
+  const bool in_product = 4 * pg < tl.stride && ps < tl.split;
+  // the gate update: batch row r (fastest) and own unit u
+  const int r = threadIdx.x % RB, u = threadIdx.x / RB;
+  const bool in_gates = u < nu;
+  const bool live = in_gates && b0 + r < B;
+  const int at = (k0 + u) * RB + r;                      // (unit, row) in an h buffer
+  const T* gi_at = gi + (size_t)(b0 + r) * n_steps * H3 + k0 + u;
+  float* hseq_at = hseq + (size_t)(b0 + r) * n_steps * H + k0 + u;
+  float g_cur[3], g_nxt[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) g_cur[g] = live ? to_f(gi_at[g * H]) : 0.f;
+  // no block writes into a peer before every block of the cluster runs
+  cluster.sync();
+
+  for (int t = 0; t < n_steps; ++t) {
+    const float* cur = hT + (t & 1) * H * RB;
+    float* nxt = hT + ((t + 1) & 1) * H * RB;
+    // the next step's gi, in flight during the product
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      g_nxt[g] = (live && t + 1 < n_steps) ? to_f(gi_at[(size_t)(t + 1) * H3 + g * H]) : 0.f;
+    if (in_product) gc::partial_product<RB>(cur, ws, part, H, tl.stride, tl.split, pg, ps);
+    __syncthreads();
+
+    float h_new = 0.f;
+    if (in_gates) {
+      const int gw = tl.gate_cols;
+      const float ghr = bias[u] + colsum(part, tl.stride, tl.split, u, r);
+      const float ghz = bias[gw + u] + colsum(part, tl.stride, tl.split, gw + u, r);
+      const float ghn = bias[2 * gw + u] + colsum(part, tl.stride, tl.split, 2 * gw + u, r);
+      const float rg = sigmoid(g_cur[0] + ghr);
+      const float zg = sigmoid(g_cur[1] + ghz);
+      const float ng = tanhf(g_cur[2] + rg * ghn);
+      h_new = (1.f - zg) * ng + zg * cur[at];
+      nxt[at] = h_new;
+    }
+    __syncthreads();
+    gc::send_to_peers(cluster, nxt, k0 * RB, nu * RB);
+    gc::cluster_arrive();
+    if (live) hseq_at[(size_t)t * H] = h_new;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) g_cur[g] = g_nxt[g];
+    // also the last step's: no block exits while a peer writes into it
+    gc::cluster_wait();
+  }
+}
+
+template <typename T>
+int launch_cluster(const void* gi, const void* w_hh, const void* b_hh, void* hseq,
+                   int B, int n_steps, int H, int C, void* stream) {
+  if (!gru_cluster::supported(H, C, CL_BB)) return (int)cudaErrorInvalidValue;
+  const int clusters = (B + CL_BB - 1) / CL_BB;
+  return (int)gru_cluster::launch(
+      gru_fwd_cluster_kernel<T, CL_BB>, clusters, C, cluster_smem_bytes(H, C),
+      (cudaStream_t)stream, (const T*)gi, (const float*)w_hh, (const float*)b_hh,
+      (float*)hseq, B, n_steps, H);
+}
+
 template <typename T>
 int launch(const void* gi, const void* w_hh, const void* b_hh, void* hseq,
            int B, int n_steps, int H, void* stream) {
@@ -125,16 +246,36 @@ int launch(const void* gi, const void* w_hh, const void* b_hh, void* hseq,
 
 extern "C" {
 
-// Bytes of shared memory one block needs at hidden width H.
-long gru_fwd_smem_bytes(int H) { return (long)smem_bytes(H); }
+// Bytes of shared memory one block needs at hidden width H: in a cluster of
+// `cluster` blocks, or (cluster 0) in the streaming variant.
+long gru_fwd_smem_bytes(int H, int cluster) {
+  return (long)(cluster > 0 ? cluster_smem_bytes(H, cluster) : smem_bytes(H));
+}
 
+// Clusters of `cluster` blocks that the card holds at once at hidden width
+// H, or the negated CUDA error.
+int gru_fwd_max_active_clusters(int H, int cluster) {
+  return gru_cluster::max_active_clusters(gru_fwd_cluster_kernel<float, CL_BB>, cluster,
+                                          cluster_smem_bytes(H, cluster));
+}
+
+// Batch rows of one cluster of the cluster variant.
+int gru_fwd_batch_tile() { return CL_BB; }
+
+// cluster > 0: the cluster variant with that many blocks per batch tile;
+// cluster 0: the streaming variant.
 int gru_fwd_f32(const void* gi, const void* w_hh, const void* b_hh, void* hseq,
-                int B, int n_steps, int H, void* stream) {
+                int B, int n_steps, int H, int cluster, void* stream) {
+  if (cluster > 0)
+    return launch_cluster<float>(gi, w_hh, b_hh, hseq, B, n_steps, H, cluster, stream);
   return launch<float>(gi, w_hh, b_hh, hseq, B, n_steps, H, stream);
 }
 
 int gru_fwd_bf16(const void* gi, const void* w_hh, const void* b_hh, void* hseq,
-                 int B, int n_steps, int H, void* stream) {
+                 int B, int n_steps, int H, int cluster, void* stream) {
+  if (cluster > 0)
+    return launch_cluster<__nv_bfloat16>(gi, w_hh, b_hh, hseq, B, n_steps, H, cluster,
+                                         stream);
   return launch<__nv_bfloat16>(gi, w_hh, b_hh, hseq, B, n_steps, H, stream);
 }
 

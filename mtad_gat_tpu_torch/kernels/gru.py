@@ -17,27 +17,127 @@ with ``gi = x W_ih + b_ih`` computed by the caller (``nn/gru.py``), whose
 gradient autograd takes from ``dgi``.
 
 What bounds it on the card: the steps are serial, so a step's latency sets
-the time, not the card's throughput. Each block keeps its batch rows' hidden
-state (forward) or gradient carry (backward) in shared memory through all
-steps and reads W_hh (270 KB at hidden 150, more than a block's 227 KB of
-shared memory) from L2 on every step. The backward recomputes the gates
-from the saved states in the same loop that carries the gradient, and forms
-dW_hh and db_hh off the serial chain, through partial sums added in a fixed
-order (``csrc/gru_bwd.cu`` says more). The TPU kernels' 128-lane and 8-row
-padding is not carried over: the CUDA kernels mask their ragged batch tile.
+the time, not the card's throughput. W_hh is 270 KB at hidden 150, more than
+a block's 227 KB of shared memory, so each kernel has two variants and
+``gru_plan`` picks one from the width. The cluster variant gives a tile of
+batch rows to a thread-block cluster whose blocks each own a slice of the
+hidden units (``unit_slices``) and keep that slice of W_hh in shared memory
+for all steps; the blocks exchange the step's new state (forward) or gate
+gradients (backward) through distributed shared memory, one cluster barrier a
+step. The streaming variant, for the widths the cluster cannot hold, keeps
+the state in one block and reads W_hh from L2 on every step. The backward
+recomputes the gates from the saved states beside the chain that carries the
+gradient, and forms dW_hh and db_hh off the serial chain, through partial
+sums added in a fixed order (``csrc/gru_bwd.cu`` says more). The TPU kernels'
+128-lane and 8-row padding is not carried over: the CUDA kernels mask their
+ragged batch tile and their ragged unit slices.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from mtad_gat_tpu_torch.kernels import _build
 
-_SMEM_LIMIT = 227 * 1024
+_SMEM_LIMIT = 227 * 1024          # shared memory a block may use on the card
+
+# The cluster kernels' tiling, as in csrc/gru_cluster.cuh.
+CLUSTER_THREADS = 512
+CLUSTER_STAGE = 8                 # registers that stage one (H, rows) buffer
+MAX_CLUSTER = 8                   # the portable cluster size
+# Blocks per cluster tried first, batch rows per cluster and most partial sums
+# per column of the step product (the last two are constants of the CUDA
+# sources, checked at launch): measured at hidden 150, batch 256 on the H100
+# (PERF.md).
+K3_CLUSTER, K3_BATCH_TILE, K3_SPLIT = 4, 12, 8
+K4_CLUSTER, K4_BATCH_TILE, K4_SPLIT = 5, 12, 4
+STREAM_BATCH_TILE = 8             # batch rows per block of the streaming kernels
+
+
+def unit_slices(hid_dim: int, cluster: int) -> List[Tuple[int, int]]:
+    """(start, count) of the hidden units each block of a cluster owns, for
+    all three gates: contiguous, the first ``hid_dim % cluster`` blocks one
+    unit longer; a block's count is 0 where the cluster outnumbers the units."""
+    base, rem = divmod(hid_dim, cluster)
+    return [(c * base + min(c, rem), base + (c < rem)) for c in range(cluster)]
+
+
+def cluster_tiling(hid_dim: int, cluster: int, max_split: int) -> Tuple[int, int, int, int, int]:
+    """(units, gate_cols, stride, groups_pad, split) of a cluster kernel's
+    step product: most units a block owns; those rounded up to 4, the columns
+    of one gate in the block's slice of W_hh; floats between rows of the slice
+    (at least three gates, and an odd number of 4-column groups); the groups
+    rounded up to whole warps; and the partial sums per column that 512
+    threads and ``max_split`` allow."""
+    units = -(-hid_dim // cluster)
+    gate_cols = -(-units // 4) * 4
+    stride = 3 * gate_cols
+    if stride // 4 % 2 == 0:
+        stride += 4
+    groups_pad = -(-(stride // 4) // 32) * 32
+    split = max(1, min(CLUSTER_THREADS // groups_pad, max_split, hid_dim))
+    return units, gate_cols, stride, groups_pad, split
+
+
+def gru_smem_bytes(kernel: str, hid_dim: int, cluster: int) -> int:
+    """Bytes of shared memory one block of K3 (``kernel`` "fwd") or of K4's
+    scan ("bwd") needs at this width in a cluster of ``cluster`` blocks, or
+    (cluster 0) in the streaming variant."""
+    H = hid_dim
+    if cluster == 0:
+        return 4 * STREAM_BATCH_TILE * H * (4 if kernel == "fwd" else 12)
+    if kernel == "fwd":     # h (two buffers), partial sums, the W_hh slice, its bias
+        rows = K3_BATCH_TILE
+        _, _, stride, _, split = cluster_tiling(H, cluster, K3_SPLIT)
+        return 4 * (2 * H * rows + split * rows * stride + H * stride + stride)
+    rows = K4_BATCH_TILE    # h and dg (two buffers each), two sets of partial sums, two slices
+    _, _, stride, _, split = cluster_tiling(H, cluster, K4_SPLIT)
+    return 4 * (2 * H * rows + 6 * H * rows + 2 * split * rows * stride + 2 * H * stride
+                + stride)
+
+
+def _cluster_holds(kernel: str, hid_dim: int, cluster: int, smem_limit: int) -> bool:
+    """Whether a cluster of this size can run the width: a thread per (batch
+    row, own unit), the staging registers, and the block's shared memory."""
+    rows = K3_BATCH_TILE if kernel == "fwd" else K4_BATCH_TILE
+    return (rows * -(-hid_dim // cluster) <= CLUSTER_THREADS
+            and hid_dim * rows <= CLUSTER_STAGE * CLUSTER_THREADS
+            and gru_smem_bytes(kernel, hid_dim, cluster) <= smem_limit)
+
+
+def gru_plan(kernel: str, hid_dim: int, smem_limit: int = _SMEM_LIMIT,
+             max_cluster: int = MAX_CLUSTER) -> Tuple[str, int]:
+    """Which variant of K3 ("fwd") or of K4's scan ("bwd") runs at this
+    width on a card whose blocks may use ``smem_limit`` bytes of shared
+    memory and whose clusters hold up to ``max_cluster`` blocks: ("cluster",
+    blocks per cluster) where a block's slice of W_hh fits on chip, at the
+    measured cluster size first and at the largest one otherwise; else
+    ("streaming", 0). Raises where no variant can hold the width."""
+    if kernel not in ("fwd", "bwd"):
+        raise ValueError(f"gru_plan: kernel {kernel!r} is neither 'fwd' nor 'bwd'")
+    if hid_dim < 1:
+        raise ValueError("gru_plan: empty hidden state")
+    prefer = K3_CLUSTER if kernel == "fwd" else K4_CLUSTER
+    for cluster in sorted({min(prefer, max_cluster), max_cluster}):
+        if _cluster_holds(kernel, hid_dim, cluster, smem_limit):
+            return "cluster", cluster
+    if gru_smem_bytes(kernel, hid_dim, 0) <= smem_limit:
+        return "streaming", 0
+    raise ValueError(f"gru_plan: hidden width {hid_dim} needs more shared memory "
+                     "than a block has")
+
+
+def _check_plan(lib_tile: int, lib_bytes: int, tile: int, nbytes: int, what: str) -> None:
+    """The planner mirrors constants of the CUDA source: refuse to launch
+    where the two have drifted apart."""
+    if (lib_tile, lib_bytes) != (tile, nbytes):
+        raise RuntimeError(
+            f"{what}: the planner expects a batch tile of {tile} and {nbytes} bytes of "
+            f"shared memory, the built kernel has {lib_tile} and {lib_bytes}")
 
 
 def gru_step(
@@ -74,10 +174,12 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.gru_fwd_f32, lib.gru_fwd_bf16):
-            fn.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+            fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             fn.restype = i32
-        lib.gru_fwd_smem_bytes.argtypes = [i32]
+        lib.gru_fwd_smem_bytes.argtypes = [i32, i32]
         lib.gru_fwd_smem_bytes.restype = ctypes.c_long
+        lib.gru_fwd_batch_tile.argtypes = []
+        lib.gru_fwd_batch_tile.restype = i32
         lib._typed = True
     return lib
 
@@ -90,9 +192,10 @@ def gru_scan_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: run the GRU recurrence in one launch. Returns (hseq (B, T, H)
     float32, h_last (B, H)). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises. It has no backward of its own:
-    where autograd would record the call it raises, and ``gru_scan`` is the
-    differentiable call."""
+    tensor launches the kernel or raises: the variant ``gru_plan`` names for
+    the width, recorded in ``gru_scan_fwd.last_launch``. It has no backward
+    of its own: where autograd would record the call it raises, and
+    ``gru_scan`` is the differentiable call."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (gi, w_hh, b_hh)):
         raise RuntimeError(
             "gru_scan_fwd launches the forward kernel alone and records no "
@@ -116,26 +219,30 @@ def gru_scan_fwd(
     hseq = torch.empty((B, T, H), dtype=torch.float32, device=gi.device)
     if B == 0:
         return hseq, hseq[:, -1, :]
+    variant, cluster = gru_plan("fwd", H)
+    nbytes = gru_smem_bytes("fwd", H, cluster)
     lib = _lib()
-    if lib.gru_fwd_smem_bytes(H) > _SMEM_LIMIT:
-        raise ValueError(f"gru_scan_fwd: hidden width {H} needs more shared "
-                         "memory than a block has")
+    _check_plan(lib.gru_fwd_batch_tile(), lib.gru_fwd_smem_bytes(H, cluster),
+                K3_BATCH_TILE, nbytes, "gru_scan_fwd")
     gi = gi.contiguous()
     w = w_hh.to(torch.float32).contiguous()
     b = b_hh.to(torch.float32).contiguous()
     fn = lib.gru_fwd_f32 if gi.dtype == torch.float32 else lib.gru_fwd_bf16
     with torch.cuda.device(gi.device):
         err = fn(
-            gi.data_ptr(), w.data_ptr(), b.data_ptr(), hseq.data_ptr(), B, T, H,
+            gi.data_ptr(), w.data_ptr(), b.data_ptr(), hseq.data_ptr(), B, T, H, cluster,
             torch.cuda.current_stream(gi.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"gru_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"gru_fwd {variant} kernel launch failed: CUDA error {err}")
     gru_scan_fwd.launches += 1
+    gru_scan_fwd.last_launch = {"variant": variant, "cluster": cluster,
+                                "smem_bytes": nbytes}
     return hseq, hseq[:, -1, :]
 
 
 gru_scan_fwd.launches = 0
+gru_scan_fwd.last_launch = None
 
 
 # ---------------------------------------------------------------------------
@@ -191,12 +298,14 @@ def _bwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.gru_bwd_scan_f32, lib.gru_bwd_scan_bf16):
-            fn.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+            fn.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
             fn.restype = i32
         lib.gru_bwd_weights.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
         lib.gru_bwd_weights.restype = i32
-        lib.gru_bwd_smem_bytes.argtypes = [i32]
+        lib.gru_bwd_smem_bytes.argtypes = [i32, i32]
         lib.gru_bwd_smem_bytes.restype = ctypes.c_long
+        lib.gru_bwd_batch_tile.argtypes = []
+        lib.gru_bwd_batch_tile.restype = i32
         lib._typed = True
     return lib
 
@@ -212,7 +321,9 @@ def gru_scan_bwd(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """K4 on CUDA tensors: (dgi (B, T, 3H) float32, dw_hh (H, 3H), db_hh
     (3H,)), the last two None when ``need_weights`` is off and only the
-    scan runs. The CPU computes the same in ``gru_scan_bwd_plain``."""
+    scan runs: the variant ``gru_plan`` names for the width, recorded in
+    ``gru_scan_bwd.last_launch``. The CPU computes the same in
+    ``gru_scan_bwd_plain``."""
     if gi.device.type != "cuda":
         raise ValueError(f"gru_scan_bwd: unsupported device {gi.device}")
     B, T, G = gi.shape
@@ -235,15 +346,17 @@ def gru_scan_bwd(
         if not need_weights:
             return dgi, None, None
         return dgi, torch.zeros((H, 3 * H), device=dev), torch.zeros((3 * H,), device=dev)
+    variant, cluster = gru_plan("bwd", H)
+    nbytes = gru_smem_bytes("bwd", H, cluster)
     lib = _bwd_lib()
-    if lib.gru_bwd_smem_bytes(H) > _SMEM_LIMIT:
-        raise ValueError(f"gru_scan_bwd: hidden width {H} needs more shared "
-                         "memory than a block has")
+    _check_plan(lib.gru_bwd_batch_tile(), lib.gru_bwd_smem_bytes(H, cluster),
+                K4_BATCH_TILE, nbytes, "gru_scan_bwd")
     gi = gi.detach().contiguous()
     w = w_hh.detach().to(torch.float32).contiguous()
-    # a second, transposed copy (a layout, not arithmetic) so that both of
-    # the scan's products read W_hh along its rows; free when w_hh is the
-    # transposed view of an nn.GRU-layout parameter
+    # a second, transposed copy (a layout, not arithmetic) so that the scan
+    # reads W_hh along its rows for both of its products (the cluster scan
+    # once per launch, into shared memory); free when w_hh is the transposed
+    # view of an nn.GRU-layout parameter
     w_t = w_hh.detach().to(torch.float32).t().contiguous()
     b = b_hh.detach().to(torch.float32).contiguous()
     hseq = hseq.detach().to(torch.float32).contiguous()
@@ -254,9 +367,10 @@ def gru_scan_bwd(
     with torch.cuda.device(dev):
         err = scan(gi.data_ptr(), w.data_ptr(), w_t.data_ptr(), b.data_ptr(),
                    hseq.data_ptr(), dhseq.data_ptr(), dgi.data_ptr(), dghn.data_ptr(),
-                   B, T, H, stream)
+                   B, T, H, cluster, stream)
         if err != 0:
-            raise RuntimeError(f"gru_bwd scan kernel launch failed: CUDA error {err}")
+            raise RuntimeError(
+                f"gru_bwd {variant} scan kernel launch failed: CUDA error {err}")
         dw = db = None
         if need_weights:
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -272,10 +386,13 @@ def gru_scan_bwd(
                 raise RuntimeError(
                     f"gru_bwd weights kernel launch failed: CUDA error {err}")
     gru_scan_bwd.launches += 1
+    gru_scan_bwd.last_launch = {"variant": variant, "cluster": cluster,
+                                "smem_bytes": nbytes}
     return dgi, dw, db
 
 
 gru_scan_bwd.launches = 0
+gru_scan_bwd.last_launch = None
 
 
 # ---------------------------------------------------------------------------
