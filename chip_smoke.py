@@ -32,12 +32,18 @@ In order, each phase failing the run with a non-zero exit:
    and that the bfloat16 scores lie within a bfloat16 tolerance of them;
    then scoring windows/s in float32 and bfloat16, and device time by
    kernel over one profiled float32 scoring pass;
-6. K1-res (the training forward, residuals and hash dropout) and K2a, K2b,
-   K2c (the attention backward) against their plain versions at the
-   training shapes (feature and temporal layer, batch 256): float32 with
-   dropout 0 and 0.3, with and without bias, bfloat16 at dropout 0.3 with
-   bias, and at N = 2048 and N = 4096, where one forward-and-backward also
-   has to allocate no more than its outputs plus 1 MiB;
+6. K1-res (the training forward, residuals and hash dropout) and the
+   attention backward against their plain versions at the training shapes
+   (feature and temporal layer, batch 256): float32 with dropout 0 and 0.3,
+   with and without bias, bfloat16 at dropout 0.3 with bias. The backward
+   runs the variant ``gat_bwd_plan`` names: K2ab (the whole-graph kernel) at
+   both layers, launched twice for identical bits, its planned shared memory
+   equal to the built library's; K2a then K2b (the tiled kernels) forced
+   once at each layer, and planned at N = 2048 and N = 4096, where one
+   forward-and-backward also has to allocate no more than its outputs plus
+   1 MiB; K2c wherever there is a bias. Each kernel's time at both layers
+   is a wrapper call by CUDA events and its device time from a CUDA graph
+   of 20 calls, beside its bound and its plain version;
 7. K4, the GRU backward through time, against its plain version and against
    autograd of the plain forward at batch 256, 100 steps, hidden 150
    (float32 and bfloat16 ``gi``; a dense cotangent and one that is zero
@@ -53,8 +59,9 @@ In order, each phase failing the run with a non-zero exit:
    (lookback 100, batch 256, dropout 0.3) on the synthetic entity, float32
    then bfloat16: 1 epoch with ``--gru_impl xla`` (the plain GRU loop) and 2
    epochs with ``--gru_impl pallas`` (every kernel on), asserting finite
-   losses and summary, the launch counts (per training step K1-res, K2a,
-   K2b, K2c and, with the GRU kernels, K3 and K4 twice each; per batch
+   losses and summary, the launch counts (per training step K1-res, K2ab
+   (K2a and K2b none at these widths), K2c and, with the GRU kernels, K3
+   and K4 twice each; per batch
    scored without gradient K1 and, with the GRU kernels, K3 twice) and that
    ``predict_cli`` on the written run reproduces its summary;
 9. three one-epoch runs at dropout 0 from one seed: all plain, attention
@@ -104,8 +111,11 @@ K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-3}
 # Training kernels against their plain versions on the same inputs:
 # - K1-res: out and u as K1, and m, all absolute (3.1e-6 measured for m on
 #   an H100, PERF.md); l, a sum of up to N terms, relative (3.0e-6 measured);
-# - K2a-c: max abs error over the plain gradient's max abs value. float32:
-#   sums of up to B * N * N terms in another order, 1.1e-6 measured, so 1e-5;
+# - K2ab, K2a-c: max abs error over the plain gradient's max abs value.
+#   float32: sums of up to B * N * N terms in another order, 1.1e-6 measured
+#   for K2a-c; K2ab also sums each score in two interleaved parts, so its
+#   weights are a few ulp from the forward's instead of equal, 2.9e-6
+#   measured for it on an H100 (PERF.md), so 1e-5 for all;
 #   bfloat16: dp, dq and dv are written in bfloat16, one rounding is up to
 #   2**-8 of a value, so 8e-3 (da and dbias stay float32).
 TRAIN_TOL = {
@@ -151,6 +161,37 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds of one call of fn: ``calls`` calls captured
+    in one CUDA graph, replayed ``replays`` times between CUDA events. The
+    host launches the graph once a replay, so no Python runs between the
+    kernels, as it does under ``time_ms``; besides the kernels the time holds
+    the call's small device work (such as a sum of partials) and the gaps
+    between a graph's nodes. Outputs are allocated at capture, in the
+    graph's own pool."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def ptxas_summary(log: str) -> list:
@@ -472,19 +513,53 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return diff / max(want.float().abs().max().item(), 1e-30)
 
 
+def grad_errors(outs, ref, dbias=None):
+    """({name: error over the plain gradient's max abs value}, {name: max
+    abs error}) of (dp, dq, da, dv) and dbias against the plain backward."""
+    grads = {"dp": (outs[0], ref[0]), "dq": (outs[1], ref[1]), "da": (outs[2], ref[2]),
+             "dv": (outs[3], ref[4])}
+    if dbias is not None:
+        grads["dbias"] = (dbias, ref[3])
+    return ({k: rel_err(x, y) for k, (x, y) in grads.items()},
+            {k: (x.float() - y.float()).abs().max().item() for k, (x, y) in grads.items()})
+
+
+def tiled_bwd(kg, args) -> tuple:
+    """(dp, dq, da, dv) through the tiled K2a then K2b, whatever the plan."""
+    dp, da = kg.gatv2_bwd_dp_da(*args)
+    dq, dv = kg.gatv2_bwd_dq_dv(*args)
+    return dp, dq, da, dv
+
+
+# the kernel each gradient of the backward comes from, by variant
+GRAD_KERNELS = {"graph": {"dp": "k2ab", "dq": "k2ab", "da": "k2ab", "dv": "k2ab"},
+                "tiled": {"dp": "k2a", "da": "k2a", "dq": "k2b", "dv": "k2b"}}
+
+
 def check_training_kernels(gen, dev):
-    """K1-res and K2a-c against their plain versions at the training
-    shapes; returns ({kernel: worst f32 error}, {kernel: {layer: times}})."""
+    """K1-res and the attention backward against their plain versions at the
+    training shapes; returns ({kernel: worst f32 error}, {kernel: worst
+    relative error}, {kernel: {layer: times}})."""
     from mtad_gat_tpu_torch.kernels import gat as kg
 
     cases = [("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
              ("many_key_tiles", 1, 2048, 32, 16), ("many_key_tiles", 1, 4096, 32, 16)]
     variants = [(torch.float32, r, b) for r in (0.0, 0.3) for b in (True, False)]
     variants.append((torch.bfloat16, 0.3, True))
-    worst = {k: 0.0 for k in ("k1res", "k2a", "k2b", "k2c")}
+    worst = {k: 0.0 for k in ("k1res", "k2ab", "k2a", "k2b", "k2c")}
     worst_rel = dict(worst)
     times = {k: {} for k in worst}
+    lib = kg._bwd_lib()
     for name, B, N, E, D in cases:
+        plan = kg.gat_bwd_plan(N, E, D)
+        want_plan = "tiled" if name == "many_key_tiles" else "graph"
+        smem = {"planned": kg.gat_bwd_smem_bytes(N, E, D),
+                "library": lib.gatv2_bwd_smem_bytes(3, N, E, D)}
+        emit({"phase": "training_kernels", "case": f"{name} backward plan", "N": N, "E": E,
+              "D": D, "plan": plan, "expected": want_plan, "k2ab_smem_bytes": smem})
+        if plan != want_plan or smem["planned"] != smem["library"]:
+            raise AssertionError(f"{name}: plan {plan}, expected {want_plan}; K2ab shared "
+                                 f"memory {smem}")
         for dtype, rate, with_bias in variants:
             if name == "many_key_tiles" and (dtype, rate, with_bias) != (torch.float32, 0.3, True):
                 continue
@@ -497,27 +572,32 @@ def check_training_kernels(gen, dev):
             du = torch.randn(B, N, D, generator=gen).to(dev) * sig * (1 - sig)
             dvec = (du * u).sum(-1)
             args = (p, q, a, bias, v, got[2], got[3], du, dvec, 0.2, seed, rate)
-            dp, da = kg.gatv2_bwd_dp_da(*args)
-            dq, dv = kg.gatv2_bwd_dq_dv(*args)
+            outs = kg.gatv2_bwd(*args)
+            variant = kg.gatv2_bwd.last_launch["variant"]
+            again = kg.gatv2_bwd(*args) if variant == "graph" else None
             dbias = kg.gatv2_bwd_dbias(*args) if with_bias else None
             ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, seed, rate)
+            timed = name != "many_key_tiles" and dtype == torch.float32 and rate > 0 and with_bias
+            # the tiled kernels once at each flagship layer, so both variants stay covered
+            tiled = tiled_bwd(kg, args) if timed else None
             torch.cuda.synchronize()
             errs = {"out": (out.float() - want[0].float()).abs().max().item(),
                     "u": (u - want[1]).abs().max().item(),
                     "m": (got[2] - want[2]).abs().max().item(),
                     "l_rel": ((got[3] - want[3]).abs() / want[3]).max().item()}
-            grads = {"dp": (dp, ref[0]), "da": (da, ref[2]), "dq": (dq, ref[1]),
-                     "dv": (dv, ref[4])}
-            if with_bias:
-                grads["dbias"] = (dbias, ref[3])
-            gerr = {k: rel_err(x, y) for k, (x, y) in grads.items()}
-            gabs = {k: (x.float() - y.float()).abs().max().item() for k, (x, y) in grads.items()}
+            gerr, gabs = grad_errors(outs, ref, dbias)
             tol = TRAIN_TOL[dtype]
             rec = {"phase": "training_kernels", "case": name, "B": B, "N": N, "E": E, "D": D,
                    "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
-                   "dropout": rate, "forward_err": errs, "grad_rel_err": gerr,
-                   "grad_abs_err": gabs, "tol": tol}
-            timed = name != "many_key_tiles" and dtype == torch.float32 and rate > 0 and with_bias
+                   "dropout": rate, "backward": variant, "forward_err": errs,
+                   "grad_rel_err": gerr, "grad_abs_err": gabs, "tol": tol}
+            runs = [(variant, gerr, gabs)]
+            if again is not None:
+                rec["two_launches_identical"] = all(torch.equal(x, y) for x, y in zip(outs, again))
+            if tiled is not None:
+                terr, tabs = grad_errors(tiled, ref)
+                rec["tiled_grad_rel_err"], rec["tiled_grad_abs_err"] = terr, tabs
+                runs.append(("tiled", terr, tabs))
             if timed:
                 rec["timing"] = t = time_training_kernels(kg, p, q, a, bias, v, du, dvec,
                                                           got[2], got[3], seed, rate)
@@ -525,18 +605,19 @@ def check_training_kernels(gen, dev):
                     times[k][name] = t[k]
             emit(rec)
             bad = [k for k, e in errs.items() if not e <= tol["forward"][k]]
-            bad += [k for k, e in gerr.items() if not e <= tol["grad"]]
-            if bad:
+            bad += [f"{run} {k}" for run, rel, _ in runs for k, e in rel.items()
+                    if not e <= tol["grad"]]
+            if bad or variant != want_plan or rec.get("two_launches_identical") is False:
                 raise AssertionError(f"training kernels {name} {dtype} dropout={rate} "
-                                     f"bias={with_bias}: {bad} beyond tolerance: {rec}")
+                                     f"bias={with_bias}: {bad} beyond tolerance, or the "
+                                     f"{variant} backward ran, or bits differ: {rec}")
             if dtype == torch.float32:
                 worst["k1res"] = max(worst["k1res"], errs["out"], errs["u"])
-                for key, names in (("k2a", ("dp", "da")), ("k2b", ("dq", "dv")),
-                                   ("k2c", ("dbias",))):
-                    for n in names:
-                        if n in gerr:
-                            worst[key] = max(worst[key], gabs[n])
-                            worst_rel[key] = max(worst_rel[key], gerr[n])
+                for run, rel, absolute in runs:
+                    for k in rel:
+                        key = GRAD_KERNELS[run].get(k, "k2c")
+                        worst[key] = max(worst[key], absolute[k])
+                        worst_rel[key] = max(worst_rel[key], rel[k])
             if name == "many_key_tiles":
                 check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate)
     return worst, worst_rel, times
@@ -548,11 +629,21 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
     Operations per (i, j) pair, the least each function needs, with the
     score's z and leaky_relu(z) computed once and kept (a kernel that
     recomputes them does more): the score 4E (add, leaky relu, a
-    multiply-add of 2). K1-res: score + aggregate 2D. K2a: score + du_i . v_j
-    2D + 4 (weight, dropout, ds) + the dp and da contractions, a multiply-add
-    (2) each per e. K2b: score + 2D + 4 + the dq contraction 2 per e + dv 2
-    per d. K2c: score + 2D + 4. The select of leaky_relu'(z) is not counted,
-    so these are lower bounds."""
+    multiply-add of 2). K1-res: score + aggregate 2D. The backward's sums
+    over keys or rows: leaky_relu'(z) is 1 or alpha, so alpha ds is formed
+    once per pair (inside the 4) and dp_ie and dq_je each take one add per
+    e; da_e takes ds lr(z), a multiply-add (2) per e; dv 2 per d; du_i . v_j
+    2D + 4 (weight, dropout, ds). K2ab (K2a and K2b's work once): score +
+    2D + 4 + dp 1E + dq 1E + da 2E + dv 2D, 8E + 4D + 4. K2a: score + 2D + 4
+    + dp + da, 7E + 2D + 4. K2b: score + 2D + 4 + dq + dv, 5E + 4D + 4. K2c:
+    score + 2D + 4. The select of leaky_relu'(z) is not counted, so these are
+    lower bounds.
+
+    ``ms`` is one wrapper call by CUDA events around back-to-back calls, host
+    overhead included where a call's Python outlasts its kernels;
+    ``graph_ms`` the same call's device time, from a CUDA graph
+    (``graph_ms``). K2ab's entry also times the tiled K2a then K2b that it
+    replaces, both ways."""
     B, N, E = p.shape
     D = v.shape[-1]
     size = p.dtype.itemsize
@@ -568,11 +659,14 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
                                                                rate), 3, warmup=1),
                   pairs * (4 * E + 2 * D),
                   in_bytes + B * N * D * (size + 4) + 2 * B * N * 4),
+        "k2ab": (lambda: kg.gatv2_bwd_graph(*args), plain_bwd,
+                 pairs * (8 * E + 4 * D + 4),
+                 in_bytes + stats_bytes + B * N * (2 * E + D) * size + E * 4),
         "k2a": (lambda: kg.gatv2_bwd_dp_da(*args), plain_bwd,
-                pairs * (4 * E + 2 * E + 2 * E + 2 * D + 4),
+                pairs * (7 * E + 2 * D + 4),
                 in_bytes + stats_bytes + B * N * E * size + E * 4),
         "k2b": (lambda: kg.gatv2_bwd_dq_dv(*args), plain_bwd,
-                pairs * (4 * E + 2 * E + 2 * D + 2 * D + 4),
+                pairs * (5 * E + 4 * D + 4),
                 in_bytes + stats_bytes + B * N * (E + D) * size),
         "k2c": (lambda: kg.gatv2_bwd_dbias(*args), plain_bwd,
                 pairs * (4 * E + 2 * D + 4),
@@ -581,14 +675,18 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
     out = {}
     for k, (fn, plain_ms, ops, nbytes) in spec.items():
         bound_ms, bound_by = bound(ops, nbytes)
-        out[k] = {"ms": time_ms(fn, 20), "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by}
+        out[k] = {"ms": time_ms(fn, 20), "graph_ms": graph_ms(fn), "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+    tiled = lambda: tiled_bwd(kg, args)  # noqa: E731
+    out["k2ab"]["tiled_k2a_k2b_ms"] = time_ms(tiled, 20)
+    out["k2ab"]["tiled_k2a_k2b_graph_ms"] = graph_ms(tiled)
     return out
 
 
 def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
-    """One K1-res forward and K2a-c backward allocate their outputs and at
-    most 1 MiB more: no (B, N, N) tensor exists in device memory."""
+    """One K1-res forward and the backward (the planned variant, then K2c)
+    allocate their outputs and at most 1 MiB more: no (B, N, N) tensor
+    exists in device memory."""
     B, N, E = p.shape
     D = v.shape[-1]
     torch.cuda.synchronize()
@@ -596,8 +694,7 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
     torch.cuda.reset_peak_memory_stats()
     _, u, m, l = kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate)
     args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seed, rate)
-    kg.gatv2_bwd_dp_da(*args)
-    kg.gatv2_bwd_dq_dv(*args)
+    kg.gatv2_bwd(*args)
     kg.gatv2_bwd_dbias(*args)
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
@@ -606,7 +703,8 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
                + 2 * B * N * E * size + E * 4 + B * N * D * size  # dp, dq, da, dv
                + N * N * 4)                                       # dbias
     emit({"phase": "training_kernels", "case": "device memory of one forward and backward",
-          "B": B, "N": N, "peak_extra_bytes": extra, "output_bytes": outputs,
+          "B": B, "N": N, "backward": kg.gatv2_bwd.last_launch["variant"],
+          "peak_extra_bytes": extra, "output_bytes": outputs,
           "score_matrix_bytes": B * N * N * 4})
     if extra > outputs + 2**20:
         raise AssertionError(f"K1-res + K2 allocated {extra} bytes at N={N}, "
@@ -761,8 +859,9 @@ def gru_crossover(gen, dev) -> dict:
     return rec
 
 
-KERNEL_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_bwd_dp_da",
-                   "gatv2_bwd_dq_dv", "gatv2_bwd_dbias", "gru_scan_fwd", "gru_scan_bwd")
+KERNEL_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_bwd_graph",
+                   "gatv2_bwd_dp_da", "gatv2_bwd_dq_dv", "gatv2_bwd_dbias", "gru_scan_fwd",
+                   "gru_scan_bwd")
 
 
 def counters() -> dict:
@@ -782,13 +881,18 @@ def read_counts() -> dict:
 
 
 def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: int,
-                               epochs: int, val_split: float, gru_impl: str) -> dict:
-    """Launch counts of one train_cli run: each training step runs K1-res
-    and K2a-c in both attention layers and, with the GRU kernels, K3 and K4
-    in the encoder and the decoder; each batch evaluated or scored without
-    gradient runs K1 twice and, with the GRU kernels, K3 twice (init train
-    and val losses, one val pass per epoch, the test loss, and the train and
-    test scoring passes)."""
+                               epochs: int, val_split: float, gru_impl: str,
+                               n_features: int = 38) -> dict:
+    """Launch counts of one train_cli run: each training step runs K1-res,
+    the backward's variant that ``gat_bwd_plan`` names for the layer (K2ab,
+    or K2a and K2b) and K2c in both attention layers (feature: N features,
+    E 2w, D w; temporal: N w, E 2 features, D features) and, with the GRU
+    kernels, K3 and K4 in the encoder and the decoder; each batch evaluated
+    or scored without gradient runs K1 twice and, with the GRU kernels, K3
+    twice (init train and val losses, one val pass per epoch, the test loss,
+    and the train and test scoring passes)."""
+    from mtad_gat_tpu_torch.kernels.gat import gat_bwd_plan
+
     batches = lambda n: max(1, -(-n // bs))  # noqa: E731
     n_win = n_train_rows - w
     n_val = int(np.floor(val_split * n_win))
@@ -798,6 +902,10 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
                + batches(n_test_rows - w + 1))
     gru = gru_impl == "pallas"
     want = {name: 2 * steps for name in KERNEL_COUNTERS}
+    graph = sum(gat_bwd_plan(*layer) == "graph" for layer in (
+        (n_features, 2 * w, w), (w, 2 * n_features, n_features)))
+    want.update(gatv2_bwd_graph=graph * steps, gatv2_bwd_dp_da=(2 - graph) * steps,
+                gatv2_bwd_dq_dv=(2 - graph) * steps)
     want.update(gatv2_attention_fwd=2 * no_grad,
                 gru_scan_fwd=2 * (steps + no_grad) if gru else 0,
                 gru_scan_bwd=2 * steps if gru else 0)
@@ -1054,24 +1162,43 @@ def main() -> None:
         ("k1res", "gatv2_attention_res", "gat_fwd.cu", 220),
         ("k2a", "gatv2_bwd_dp_da", "gat_bwd.cu", 454),
         ("k2b", "gatv2_bwd_dq_dv", "gat_bwd.cu", 497),
+        ("k2ab", "gatv2_bwd_graph", "gat_bwd.cu", 454),
         ("k2c", "gatv2_bwd_dbias", "gat_bwd.cu", 540),
     ):
         f, t = train_ms[key]["feature"], train_ms[key]["temporal"]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": f"mtad_gat_tpu_torch/csrc/{source}",
             "replaces": f"mtad_gat_tpu/kernels/gat_pallas.py:{line}",
             "launches": train_launches[name],
             "max_abs_err": train_err[key],
             "max_rel_err": None if key == "k1res" else train_rel[key],
-            "ms": f["ms"] + t["ms"], "plain_ms": f["plain_ms"] + t["plain_ms"],
+            "ms": f["ms"] + t["ms"], "ms_by_layer": [f["ms"], t["ms"]],
+            "graph_ms": f["graph_ms"] + t["graph_ms"],
+            "graph_ms_by_layer": [f["graph_ms"], t["graph_ms"]],
+            "plain_ms": f["plain_ms"] + t["plain_ms"],
             "bound_ms": f["bound_ms"] + t["bound_ms"],
             "bound_by": f["bound_by"] if f["bound_ms"] >= t["bound_ms"] else t["bound_by"],
             "library_ms": None,
             "shapes": "one training step's two layers: feature (256,38,200/100) + "
-                      "temporal (256,100,76/38), float32, dropout 0.3, bias; plain_ms "
+                      "temporal (256,100,76/38), float32, dropout 0.3, bias; ms is a wrapper "
+                      "call by CUDA events, graph_ms its device time from a CUDA graph "
+                      "of 20 calls; plain_ms "
                       + ("is the plain forward" if key == "k1res" else
-                         "is one autograd call for all three backward kernels"),
-        })
+                         "is one autograd call for the whole attention backward"),
+        }
+        if key == "k2ab":
+            tf, tt = f["tiled_k2a_k2b_graph_ms"], t["tiled_k2a_k2b_graph_ms"]
+            row.update(also_replaces="mtad_gat_tpu/kernels/gat_pallas.py:497",
+                       tiled_k2a_k2b_ms=f["tiled_k2a_k2b_ms"] + t["tiled_k2a_k2b_ms"],
+                       tiled_k2a_k2b_graph_ms=tf + tt,
+                       tiled_k2a_k2b_graph_ms_by_layer=[tf, tt],
+                       variant="whole graph per block, both flagship layers "
+                               "(kernels/gat.gat_bwd_plan)")
+        elif key in ("k2a", "k2b"):
+            row["variant"] = ("tiled, for graphs K2ab cannot hold (phase 6: N = 2048 and "
+                              "4096, and once forced at each flagship layer); not on the "
+                              "main path at flagship widths")
+        kernels.append(row)
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

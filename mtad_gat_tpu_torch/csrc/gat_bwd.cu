@@ -1,10 +1,14 @@
-// Fused GATv2 attention backward for Hopper (sm_90a): three kernels.
+// Fused GATv2 attention backward for Hopper (sm_90a): four kernels.
 //
 // Replace the blockwise backward of the JAX package's fused attention,
 // mtad_gat_tpu/kernels/gat_pallas.py::_fused_backward:
 //   K2a  _bwd_dp_da_kernel   dp (B, N, E) and per-block partial sums of da
 //   K2b  _bwd_dq_dv_kernel   dq (B, N, E) and dv (B, N, D)
 //   K2c  _bwd_dbias_kernel   dbias (N, N) = sum_b ds, per-chunk partial sums
+//   K2ab K2a and K2b in one launch for graphs that fit a block whole (the
+//        model's: N = 38 and 100), each (i, j) pair scored once; K2a and K2b
+//        stay as the variant for large graphs (kernels/gat.gat_bwd_plan
+//        chooses). The K2ab section below says more.
 // Each recomputes its tile of attention weights from the forward's row stats
 // (m, l) instead of reading an (N, N) tensor (_ds_tile, :417-451):
 //
@@ -18,8 +22,8 @@
 // with z_ije = p_ie + q_je, du = g . out (1 - out) and dvec_i = du_i . u_i
 // computed by the caller, as JAX computes them outside its kernels. keep_ij
 // is drop_hash over the global (seed, b, i, j), the mask the forward drew.
-// The score is summed in the forward's order, so w equals the forward's
-// weights bit for bit.
+// K2a-c sum the score in the forward's order, so their w equals the
+// forward's weights bit for bit; K2ab's is a few ulp from it.
 //
 // What bounds them on the card: like the forward, the score and the two
 // (i, j, e) contractions are float32 work on the CUDA cores with no product
@@ -381,6 +385,352 @@ gatv2_bwd_dbias_kernel(const T* __restrict__ p, const T* __restrict__ q,
   }
 }
 
+// ---- K2ab: K2a and K2b fused, one block per batch element ----------------
+//
+// The graphs of the model are small (N = 38 and 100), so one block holds a
+// batch element's whole graph in shared memory: p, q, v, du and the row
+// stats in float32, then the (N, N) tiles ds and wa, each computed once.
+// Three passes, two barriers:
+//
+// 1. the score: a thread owns a 4-row x 4-key micro-tile and every
+//    G_SPLIT-th float4 group of the embedding, holds four p and four q
+//    vectors in registers per group, so a float4 read from shared memory
+//    feeds 16 (i, j) pairs; the same for du_i . v_j over D. The G_SPLIT
+//    splits of a tile are neighbouring lanes and add their partial sums in a
+//    fixed order through a reduce-scatter of shuffles, after which each split
+//    owns 16 / G_SPLIT pairs of the tile and writes their ds and wa;
+// 2. dv = wa^T du, a 4-key x 4-column register tile per thread, on the CUDA
+//    cores in float32;
+// 3. the contraction: a thread owns four embedding lanes (a float4 group) and
+//    the rows rg, rg + RG, ... of the graph and walks the keys four at a
+//    time, their q in registers: each z = p_ie + q_je is formed once and
+//    feeds dp_ie (registers), dq_je and da_e. The RG row groups of a float4 group are
+//    neighbouring lanes, so dq of four keys is summed over them by one
+//    reduce-scatter of shuffles and written; dp needs no sum across threads,
+//    da one at the end.
+//
+// Every sum has a fixed order and there are no atomics: two launches give
+// identical bits. The score is summed in another order than K1-res sums it
+// (G_SPLIT interleaved partial sums), so w differs from the forward's
+// weights by a few ulp instead of matching them bit for bit. Row and key padding is
+// to a multiple of 4 (the micro-tile), not to the tiled kernels' 16 x 32:
+// rows and keys >= N give w = ds = wa = 0 and write nothing.
+
+constexpr int G_SPLIT = 2;                  // embedding splits of the score pass
+constexpr int G_RMAX = 8;                   // most rows a thread owns in the contraction
+constexpr int G_MIN_WARPS = 4;
+constexpr int G_MAX_WARPS = 16;
+
+__host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
+// A row stride for float4 reads: an odd number of 16-byte units.
+__host__ __device__ inline int stride4(int x) {
+  const int s = up4(x);
+  return (s / 4) % 2 ? s : s + 4;
+}
+
+// Row groups of the contraction (lanes that share a float4 group); 0 where
+// the graph is too large for this kernel.
+__host__ __device__ inline int graph_row_groups(int N) {
+  return N <= 8 * G_RMAX ? 8 : N <= 16 * G_RMAX ? 16 : 0;
+}
+
+struct GraphLayout {
+  int N4;       // rows and keys padded to the micro-tile
+  int EP, DP;   // strides of p, q and of v, du
+  int NSD;      // stride of ds, odd: the contraction reads it one float per lane
+  int NSW;      // stride of wa, read as float4
+  __host__ __device__ GraphLayout(int N, int E, int D)
+      : N4(up4(N)), EP(stride4(E)), DP(stride4(D)), NSD(up4(N) + 1), NSW(stride4(up4(N))) {}
+  __host__ __device__ size_t floats() const {
+    return 2 * (size_t)N4 * EP + EP + 2 * (size_t)N4 * DP + 3 * (size_t)N4 +
+           (size_t)N4 * NSD + (size_t)N4 * NSW;
+  }
+};
+
+__host__ __device__ inline int graph_warps(int N, int E) {
+  const int lanes_per_group = graph_row_groups(N);
+  const int groups_per_warp = lanes_per_group ? 32 / lanes_per_group : 1;
+  const int w = ((E + 3) / 4 + groups_per_warp - 1) / groups_per_warp;
+  return w < G_MIN_WARPS ? G_MIN_WARPS : w > G_MAX_WARPS ? G_MAX_WARPS : w;
+}
+
+__device__ __forceinline__ float4 load4(const float* x) {
+  return *reinterpret_cast<const float4*>(x);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* x) {
+  __nv_bfloat16 h[4];
+  *reinterpret_cast<uint2*>(h) = *reinterpret_cast<const uint2*>(x);
+  return make_float4(to_f(h[0]), to_f(h[1]), to_f(h[2]), to_f(h[3]));
+}
+
+// nrows x ncols of src (row-major) into dst [rows][stride] in groups of
+// four floats, zeros in the padding; vector loads where every row starts
+// aligned. Unrolled so that a thread has several loads in flight: with one
+// block a multiprocessor nothing else hides their latency.
+template <typename S>
+__device__ void stage_padded(float* dst, const S* __restrict__ src, int nrows, int ncols,
+                             int rows, int stride) {
+  const int groups = stride / 4;
+  const bool vec = ncols % 4 == 0 && reinterpret_cast<uintptr_t>(src) % (4 * sizeof(S)) == 0;
+#pragma unroll 4
+  for (int x = threadIdx.x; x < rows * groups; x += blockDim.x) {
+    const int r = x / groups, c = x % groups * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nrows && c < ncols) {
+      const S* row = src + (size_t)r * ncols;
+      if (vec) {
+        val = load4(row + c);
+      } else {
+        val.x = to_f(row[c]);
+        if (c + 1 < ncols) val.y = to_f(row[c + 1]);
+        if (c + 2 < ncols) val.z = to_f(row[c + 2]);
+        if (c + 3 < ncols) val.w = to_f(row[c + 3]);
+      }
+    }
+    *reinterpret_cast<float4*>(dst + r * stride + c) = val;
+  }
+}
+
+// a . leakyrelu(p + q) over four lanes, added to s in lane order.
+__device__ __forceinline__ float score4(const float4& p, const float4& q, const float4& a,
+                                        float s, float alpha) {
+  float z = p.x + q.x;
+  s = fmaf(a.x, z >= 0.f ? z : alpha * z, s);
+  z = p.y + q.y;
+  s = fmaf(a.y, z >= 0.f ? z : alpha * z, s);
+  z = p.z + q.z;
+  s = fmaf(a.z, z >= 0.f ? z : alpha * z, s);
+  z = p.w + q.w;
+  return fmaf(a.w, z >= 0.f ? z : alpha * z, s);
+}
+
+// Sum x over LANES neighbouring lanes (lane % LANES), scattered: afterwards
+// x[v], v < NV / LANES, holds the sum of value (lane % LANES) * NV / LANES + v.
+// Halving steps at xor offsets LANES / 2, ..., 1: a fixed order. Every index
+// is a compile-time constant, so x stays in registers.
+template <int NV, int LANES, int O = LANES / 2>
+__device__ __forceinline__ void reduce_scatter(float (&x)[NV], int lane) {
+  static_assert(NV % LANES == 0, "values must divide among the lanes");
+  if constexpr (O >= 1) {
+    constexpr int half = NV * O / LANES;
+    const bool upper = (lane & O) != 0;
+#pragma unroll
+    for (int v = 0; v < half; ++v) {
+      const float send = upper ? x[v] : x[v + half];
+      const float keep = upper ? x[v + half] : x[v];
+      x[v] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    reduce_scatter<NV, LANES, O / 2>(x, lane);
+  }
+}
+
+template <typename T, bool DROP, int RG>
+__global__ void __launch_bounds__(G_MAX_WARPS * 32, 1)
+gatv2_bwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
+                       const T* __restrict__ a, const T* __restrict__ v, Args g,
+                       T* __restrict__ dp, T* __restrict__ dq, T* __restrict__ dv,
+                       float* __restrict__ da_part) {
+  extern __shared__ float smem[];
+  const int N = g.N, E = g.E, D = g.D;
+  const GraphLayout L(N, E, D);
+  float* p_s = smem;                        // [N4][EP]
+  float* q_s = p_s + L.N4 * L.EP;           // [N4][EP]
+  float* a_s = q_s + L.N4 * L.EP;           // [EP]
+  float* v_s = a_s + L.EP;                  // [N4][DP]
+  float* du_s = v_s + L.N4 * L.DP;          // [N4][DP]
+  float* m_s = du_s + L.N4 * L.DP;          // [N4]
+  float* l_s = m_s + L.N4;                  // [N4]
+  float* dvec_s = l_s + L.N4;               // [N4]
+  float* ds_s = dvec_s + L.N4;              // [N4][NSD]
+  float* wa_s = ds_s + L.N4 * L.NSD;        // [N4][NSW]
+  const int b = blockIdx.x, nt = blockDim.x;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = nt / 32;
+  const size_t bNE = (size_t)b * N * E, bND = (size_t)b * N * D;
+  const int EG = (E + 3) / 4, DG = (D + 3) / 4, T4 = L.N4 / 4;
+
+  stage_padded(p_s, p + bNE, N, E, L.N4, L.EP);
+  stage_padded(q_s, q + bNE, N, E, L.N4, L.EP);
+  stage_padded(a_s, a, 1, E, 1, L.EP);
+  stage_padded(v_s, v + bND, N, D, L.N4, L.DP);
+  stage_padded(du_s, g.du + bND, N, D, L.N4, L.DP);
+  for (int x = threadIdx.x; x < L.N4; x += nt) {
+    const bool in = x < N;
+    m_s[x] = in ? g.m[(size_t)b * N + x] : 0.f;
+    l_s[x] = in ? g.l[(size_t)b * N + x] : 1.f;
+    dvec_s[x] = in ? g.dvec[(size_t)b * N + x] : 0.f;
+  }
+  __syncthreads();
+
+  // 1. ds and wa: items (micro-tile, split), a tile's splits on neighbouring
+  // lanes; every lane of a warp runs each round, for the shuffles.
+  const uint32_t seed = read_seed(g);
+  const int items = T4 * T4 * G_SPLIT;
+  for (int base = warp * 32; base < items; base += nt) {
+    const int item = base + lane;
+    const int tile = item < items ? item / G_SPLIT : 0;
+    const int sp = lane % G_SPLIT;
+    const int i0 = tile / T4 * 4, j0 = tile % T4 * 4;
+    float s[16], dot[16];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) s[x] = dot[x] = 0.f;
+    for (int eg = sp; eg < EG; eg += G_SPLIT) {
+      float4 pr[4], qc[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pr[r] = load4(p_s + (i0 + r) * L.EP + 4 * eg);
+        qc[r] = load4(q_s + (j0 + r) * L.EP + 4 * eg);
+      }
+      const float4 av = load4(a_s + 4 * eg);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r * 4 + c] = score4(pr[r], qc[c], av, s[r * 4 + c], g.alpha);
+    }
+    for (int dg = sp; dg < DG; dg += G_SPLIT) {
+      float4 ur[4], vc[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        ur[r] = load4(du_s + (i0 + r) * L.DP + 4 * dg);
+        vc[r] = load4(v_s + (j0 + r) * L.DP + 4 * dg);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float& d = dot[r * 4 + c];
+          d = fmaf(ur[r].x, vc[c].x, d);
+          d = fmaf(ur[r].y, vc[c].y, d);
+          d = fmaf(ur[r].z, vc[c].z, d);
+          d = fmaf(ur[r].w, vc[c].w, d);
+        }
+    }
+    // split sp now holds pairs sp * 16 / G_SPLIT + x (row-major in the tile)
+    reduce_scatter<16, G_SPLIT>(s, lane);
+    reduce_scatter<16, G_SPLIT>(dot, lane);
+    if (item < items) {
+#pragma unroll
+      for (int x = 0; x < 16 / G_SPLIT; ++x) {
+        const int pair = sp * (16 / G_SPLIT) + x;
+        const int i = i0 + pair / 4, j = j0 + pair % 4;
+        float dsv = 0.f, wav = 0.f;
+        if (i < N && j < N) {
+          float sv = s[x];
+          if (g.bias != nullptr) sv += g.bias[(size_t)i * N + j];
+          const float w = expf(sv - m_s[i]) / l_s[i];
+          float w_agg = w;
+          if constexpr (DROP) {
+            w_agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < g.thresh
+                        ? w * g.scale : 0.f;
+          }
+          wav = w_agg;
+          dsv = w_agg * dot[x] - w * dvec_s[i];
+        }
+        ds_s[i * L.NSD + j] = dsv;
+        wa_s[i * L.NSW + j] = wav;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. dv_jd = sum_i wa_ij du_id: a thread owns 4 keys x 4 columns.
+  for (int item = threadIdx.x; item < T4 * DG; item += nt) {
+    const int j0 = item / DG * 4, d0 = item % DG * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[c][k] = 0.f;
+    for (int i = 0; i < N; ++i) {
+      const float4 w4 = load4(wa_s + i * L.NSW + j0);
+      const float4 u4 = load4(du_s + i * L.DP + d0);
+      const float wv[4] = {w4.x, w4.y, w4.z, w4.w}, uv[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[c][k] = fmaf(wv[c], uv[k], acc[c][k]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (j0 + c < N && d0 + k < D) dv[bND + (size_t)(j0 + c) * D + d0 + k] = from_f<T>(acc[c][k]);
+  }
+
+  // 3. dp, dq, da: a thread owns float4 group eg and rows rg + RG r; the RG
+  // row groups of a float4 group are neighbouring lanes.
+  constexpr int EL = 32 / RG;               // float4 groups per warp
+  const int rg = lane % RG, egl = lane / RG;
+  const float alpha = g.alpha;
+  for (int eb = 0; eb < EG; eb += warps * EL) {
+    const int eg = eb + warp * EL + egl;
+    const bool live = eg < EG;
+    const int e0 = live ? 4 * eg : 0;
+    float dpa[G_RMAX][4], da[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < G_RMAX; ++r)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dpa[r][k] = 0.f;
+    for (int j0 = 0; j0 < L.N4; j0 += 4) {
+      // the chunk's four q vectors stay in registers and a row's p is read
+      // once a chunk (one float4 read for 16 (i, j, e)): holding every row's
+      // p instead spilled at 128 registers and was slower (PERF.md)
+      float qv[4][4], dqa[16];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 q4 = load4(q_s + (j0 + c) * L.EP + e0);
+        qv[c][0] = q4.x, qv[c][1] = q4.y, qv[c][2] = q4.z, qv[c][3] = q4.w;
+      }
+#pragma unroll
+      for (int x = 0; x < 16; ++x) dqa[x] = 0.f;
+#pragma unroll
+      for (int r = 0; r < G_RMAX; ++r) {
+        const int i = rg + RG * r;
+        if (RG * r < L.N4) {                // warp-uniform: some row of the group is real
+          const bool in = i < L.N4;
+          const float4 p4 = in ? load4(p_s + i * L.EP + e0) : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float d = in ? ds_s[i * L.NSD + j0 + c] : 0.f;
+            const float ad = alpha * d;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float z = pv[k] + qv[c][k];
+              const float gk = z >= 0.f ? d : ad;
+              dpa[r][k] += gk;
+              dqa[c * 4 + k] += gk;
+              da[k] = fmaf(gk, z, da[k]);
+            }
+          }
+        }
+      }
+      reduce_scatter<16, RG>(dqa, lane);
+#pragma unroll
+      for (int x = 0; x < 16 / RG; ++x) {
+        const int idx = rg * (16 / RG) + x;
+        const int j = j0 + idx / 4, e = e0 + idx % 4;
+        if (live && j < N && e < E) dq[bNE + (size_t)j * E + e] = from_f<T>(a_s[e] * dqa[x]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < G_RMAX; ++r) {
+      const int i = rg + RG * r;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (live && i < N && e0 + k < E)
+          dp[bNE + (size_t)i * E + e0 + k] = from_f<T>(a_s[e0 + k] * dpa[r][k]);
+    }
+#pragma unroll
+    for (int o = 1; o < RG; o *= 2)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) da[k] += __shfl_xor_sync(0xffffffffu, da[k], o);
+    if (live && rg == 0)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (e0 + k < E) da_part[(size_t)b * E + e0 + k] = da[k];
+  }
+}
+
 // ---- launch ---------------------------------------------------------------
 
 template <typename K>
@@ -426,6 +776,28 @@ int dq_dv(const void* p, const void* q, const void* a, const void* v, const Args
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool DROP, int RG>
+int graph_rg(const void* p, const void* q, const void* a, const void* v, const Args& g,
+             void* dp, void* dq, void* dv, void* da_part, void* stream) {
+  auto kernel = gatv2_bwd_graph_kernel<T, DROP, RG>;
+  const size_t floats = GraphLayout(g.N, g.E, g.D).floats();
+  if (int err = prepare(kernel, floats)) return err;
+  kernel<<<g.B, graph_warps(g.N, g.E) * 32, floats * sizeof(float), (cudaStream_t)stream>>>(
+      (const T*)p, (const T*)q, (const T*)a, (const T*)v, g, (T*)dp, (T*)dq, (T*)dv,
+      (float*)da_part);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool DROP>
+int graph(const void* p, const void* q, const void* a, const void* v, const Args& g,
+          void* dp, void* dq, void* dv, void* da_part, void* stream) {
+  switch (graph_row_groups(g.N)) {
+    case 8: return graph_rg<T, DROP, 8>(p, q, a, v, g, dp, dq, dv, da_part, stream);
+    case 16: return graph_rg<T, DROP, 16>(p, q, a, v, g, dp, dq, dv, da_part, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, bool DROP>
 int dbias(const void* p, const void* q, const void* a, const void* v, const Args& g,
           void* part, int n_chunks, void* stream) {
@@ -451,12 +823,34 @@ int dbias(const void* p, const void* q, const void* a, const void* v, const Args
 
 extern "C" {
 
-// Bytes of shared memory one block of kernel `which` (0 K2a, 1 K2b, 2 K2c)
-// needs at widths E and D.
-long gatv2_bwd_smem_bytes(int which, int E, int D) {
-  const size_t f = which == 0 ? dp_da_floats(E, D)
-                   : which == 1 ? dq_dv_floats(E, D) : dbias_floats(E, D);
+// Bytes of shared memory one block of kernel `which` (0 K2a, 1 K2b, 2 K2c,
+// 3 K2ab) needs at graph size N (K2ab only) and widths E and D.
+long gatv2_bwd_smem_bytes(int which, int N, int E, int D) {
+  const size_t f = which == 0   ? dp_da_floats(E, D)
+                   : which == 1 ? dq_dv_floats(E, D)
+                   : which == 2 ? dbias_floats(E, D)
+                                : GraphLayout(N, E, D).floats();
   return (long)(f * sizeof(float));
+}
+
+// K2ab's embedding splits of the score pass, and its row groups of the
+// contraction at graph size N (0 where N is too large for it).
+int gatv2_bwd_graph_split() { return G_SPLIT; }
+int gatv2_bwd_graph_row_groups(int N) { return graph_row_groups(N); }
+
+// K2ab: dp, dq (B, N, E) and dv (B, N, D) in T; da_part is (B, E) float32,
+// one row per batch element: the caller sums its rows.
+int gatv2_bwd_graph_f32(GAT_BWD_ARGS, void* dp, void* dq, void* dv, void* da_part,
+                        GAT_BWD_SIZES, GAT_BWD_DROP) {
+  const Args g = GAT_BWD_G;
+  return seed ? graph<float, true>(p, q, a, v, g, dp, dq, dv, da_part, stream)
+              : graph<float, false>(p, q, a, v, g, dp, dq, dv, da_part, stream);
+}
+int gatv2_bwd_graph_bf16(GAT_BWD_ARGS, void* dp, void* dq, void* dv, void* da_part,
+                         GAT_BWD_SIZES, GAT_BWD_DROP) {
+  const Args g = GAT_BWD_G;
+  return seed ? graph<__nv_bfloat16, true>(p, q, a, v, g, dp, dq, dv, da_part, stream)
+              : graph<__nv_bfloat16, false>(p, q, a, v, g, dp, dq, dv, da_part, stream);
 }
 
 // K2a. da_part is (B * ceil(N / 16), E) float32: the caller sums its rows.

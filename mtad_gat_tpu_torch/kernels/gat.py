@@ -15,11 +15,15 @@ those of ``mtad_gat_tpu/kernels/gat_pallas.py``:
   writes the backward's residuals u (pre-sigmoid aggregate), m and l (row
   max and row sum), with in-kernel hash dropout;
 - K2a ``gatv2_bwd_dp_da``, K2b ``gatv2_bwd_dq_dv``, K2c ``gatv2_bwd_dbias``:
-  ``_bwd_dp_da_kernel``, ``_bwd_dq_dv_kernel``, ``_bwd_dbias_kernel``.
+  ``_bwd_dp_da_kernel``, ``_bwd_dq_dv_kernel``, ``_bwd_dbias_kernel``;
+- K2ab ``gatv2_bwd_graph``: K2a and K2b in one launch for a graph that fits
+  a block whole (the model's), each (i, j) pair scored once.
+  ``gatv2_bwd`` runs K2ab or K2a then K2b, as ``gat_bwd_plan`` decides.
 
 What bounds them on the card: the score is float32 work on the CUDA cores
-(4 operations per (i, j, e), recomputed by each backward kernel, then one
-multiply-add per (i, j, e) for each of the backward's contractions), with no
+(4 operations per (i, j, e), recomputed by each tiled backward kernel and
+once by K2ab, then one multiply-add per (i, j, e) for each of the
+backward's contractions), with no
 product structure for the tensor cores; at the model's
 graph sizes that work outweighs the bytes of the inputs. Every kernel keeps
 its tiles' operands in shared memory and recomputes weights from (m, l), so
@@ -235,10 +239,66 @@ def _bwd_lib() -> ctypes.CDLL:
             fn = getattr(lib, f"gatv2_bwd_dbias_{dt}")
             fn.argtypes = [ptr] * 11 + [i32] * 5 + tail
             fn.restype = i32
-        lib.gatv2_bwd_smem_bytes.argtypes = [i32, i32, i32]
+            fn = getattr(lib, f"gatv2_bwd_graph_{dt}")
+            fn.argtypes = [ptr] * 14 + [i32] * 4 + tail
+            fn.restype = i32
+        lib.gatv2_bwd_smem_bytes.argtypes = [i32] * 4
         lib.gatv2_bwd_smem_bytes.restype = ctypes.c_long
+        lib.gatv2_bwd_graph_split.argtypes = []
+        lib.gatv2_bwd_graph_split.restype = i32
+        lib.gatv2_bwd_graph_row_groups.argtypes = [i32]
+        lib.gatv2_bwd_graph_row_groups.restype = i32
         lib._typed = True
     return lib
+
+
+# ---------------------------------------------------------------------------
+# K2ab, the whole-graph backward: what the plan needs of csrc/gat_bwd.cu's
+# layout (GraphLayout's bytes, graph_row_groups' limit on N), the score's
+# split that the CPU model of its arithmetic follows, and the plan that
+# routes a call to it or to the tiled K2a and K2b.
+# ---------------------------------------------------------------------------
+
+GRAPH_SPLIT = 2                   # embedding splits of the score pass (G_SPLIT)
+GRAPH_RMAX = 8                    # most rows a thread owns in the contraction
+
+
+def _up4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _stride4(x: int) -> int:
+    """A row stride for float4 reads: an odd number of 16-byte units."""
+    s = _up4(x)
+    return s if (s // 4) % 2 else s + 4
+
+
+def graph_row_groups(N: int) -> int:
+    """Lanes that share one float4 group of the embedding in K2ab's
+    contraction (each owns every RG-th row), 0 where N is too large."""
+    return 8 if N <= 8 * GRAPH_RMAX else 16 if N <= 16 * GRAPH_RMAX else 0
+
+
+def gat_bwd_smem_bytes(N: int, E: int, D: int) -> int:
+    """Shared memory of one K2ab block: p and q [N4][EP], a [EP], v and du
+    [N4][DP], m, l and dvec [N4], ds [N4][N4 + 1], wa [N4][NSW], float32,
+    with N4 the graph padded to the 4 x 4 micro-tile."""
+    n4, ep, dp = _up4(N), _stride4(E), _stride4(D)
+    floats = 2 * n4 * ep + ep + 2 * n4 * dp + 3 * n4 + n4 * (n4 + 1) + n4 * _stride4(n4)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=None)
+def gat_bwd_plan(N: int, E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> str:
+    """Which backward runs a graph of N nodes at widths E (score) and D
+    (values) on a card whose blocks may use ``smem_limit`` bytes of shared
+    memory: "graph" (K2ab, one block holds a batch element's whole graph)
+    where the graph fits a block, else "tiled" (K2a then K2b)."""
+    if min(N, E, D) < 1:
+        raise ValueError(f"gat_bwd_plan: empty graph or width (N {N}, E {E}, D {D})")
+    if graph_row_groups(N) and gat_bwd_smem_bytes(N, E, D) <= smem_limit:
+        return "graph"
+    return "tiled"
 
 
 def _check(name: str, p, q, a, bias, v) -> None:
@@ -376,19 +436,19 @@ gatv2_attention_res.launches = 0
 
 def _bwd_launch(which: int, name: str, p, q, a, bias, v, m, l, du, dvec,
                 alpha, seed, rate, outs, extra=()):
-    """Launch K2a (0), K2b (1) or K2c (2) writing into ``outs``; the caller
-    has run ``_check``."""
+    """Launch K2a (0), K2b (1), K2c (2) or K2ab (3) writing into ``outs``;
+    the caller has run ``_check``."""
     B, N, E = p.shape
     D = v.shape[-1]
     lib = _bwd_lib()
-    if lib.gatv2_bwd_smem_bytes(which, E, D) > _SMEM_LIMIT:
+    if lib.gatv2_bwd_smem_bytes(which, N, E, D) > _SMEM_LIMIT:
         raise ValueError(f"{name}: widths E {E}, D {D} need more shared memory "
                          "than a block has")
     p, q, a, v = (t.detach().contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
     m, l, du, dvec = (t.detach().to(torch.float32).contiguous() for t in (m, l, du, dvec))
     seed_t, thresh, scale = _drop_args(seed, rate, p.device)
-    kind = ("dp_da", "dq_dv", "dbias")[which]
+    kind = ("dp_da", "dq_dv", "dbias", "graph")[which]
     dt = "f32" if p.dtype == torch.float32 else "bf16"
     fn = getattr(lib, f"gatv2_bwd_{kind}_{dt}")
     with torch.cuda.device(p.device):
@@ -435,6 +495,68 @@ def gatv2_bwd_dq_dv(p, q, a, bias, v, m, l, du, dvec, alpha: float,
 
 
 gatv2_bwd_dq_dv.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _check_graph_layout(N: int, E: int, D: int) -> None:
+    """Refuse a shape K2ab cannot hold, and a built kernel whose shared
+    memory, score split or row groups this module no longer mirrors (once
+    per shape)."""
+    if gat_bwd_plan(N, E, D) != "graph":
+        raise ValueError(f"gatv2_bwd_graph: a graph of {N} nodes at widths E {E}, D {D} "
+                         "does not fit a block; gat_bwd_plan routes it to K2a and K2b")
+    lib = _bwd_lib()
+    built = (lib.gatv2_bwd_smem_bytes(3, N, E, D), lib.gatv2_bwd_graph_split(),
+             lib.gatv2_bwd_graph_row_groups(N))
+    if built != (gat_bwd_smem_bytes(N, E, D), GRAPH_SPLIT, graph_row_groups(N)):
+        raise RuntimeError(f"gatv2_bwd_graph: the built kernel's (shared memory, split, "
+                           f"row groups) {built} differ from this module's")
+
+
+def gatv2_bwd_graph(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
+                    rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """K2ab on CUDA tensors: K2a's and K2b's outputs (dp, dq, da, dv) in one
+    launch, one block per batch element holding its whole graph; inputs as
+    ``gatv2_bwd_dp_da``. Raises where ``gat_bwd_plan`` names "tiled"."""
+    _check("gatv2_bwd_graph", p, q, a, bias, v)
+    B, N, E = p.shape
+    D = v.shape[-1]
+    dp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if B == 0 or N == 0:
+        return dp, dq, torch.zeros((E,), dtype=torch.float32, device=p.device), dv
+    _check_graph_layout(N, E, D)
+    da_part = torch.empty((B, E), dtype=torch.float32, device=p.device)
+    _bwd_launch(3, "gatv2_bwd_graph", p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
+                (dp, dq, dv, da_part))
+    gatv2_bwd_graph.launches += 1
+    return dp, dq, da_part.sum(dim=0), dv
+
+
+gatv2_bwd_graph.launches = 0
+
+
+def gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
+              rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """The attention backward but dbias, on CUDA tensors: (dp, dq, da, dv)
+    through the variant ``gat_bwd_plan`` names for the shape, K2ab alone
+    ("graph") or K2a then K2b ("tiled"), recorded in
+    ``gatv2_bwd.last_launch``."""
+    _, N, E = p.shape
+    variant = gat_bwd_plan(max(N, 1), E, max(v.shape[-1], 1))
+    args = (p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate)
+    if variant == "graph":
+        out = gatv2_bwd_graph(*args)
+    else:
+        dp, da = gatv2_bwd_dp_da(*args)
+        dq, dv = gatv2_bwd_dq_dv(*args)
+        out = (dp, dq, da, dv)
+    gatv2_bwd.last_launch = {"variant": variant}
+    return out
+
+
+gatv2_bwd.last_launch = None
 
 
 @functools.lru_cache(maxsize=None)
@@ -500,8 +622,7 @@ class _GATv2Attention(torch.autograd.Function):
             dp, dq, da, dbias, dv = gatv2_attention_bwd_plain(p, q, a, bias, v, du, *args)
         else:
             dvec = (du * u).sum(dim=-1)
-            dp, da = gatv2_bwd_dp_da(p, q, a, bias, v, m, l, du, dvec, *args)
-            dq, dv = gatv2_bwd_dq_dv(p, q, a, bias, v, m, l, du, dvec, *args)
+            dp, dq, da, dv = gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, *args)
             dbias = None
             if bias is not None and ctx.needs_input_grad[3]:
                 dbias = gatv2_bwd_dbias(p, q, a, bias, v, m, l, du, dvec, *args)

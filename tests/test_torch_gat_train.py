@@ -203,13 +203,15 @@ def test_no_grad_call_takes_the_forward_alone():
 
 def test_backward_kernels_take_cuda_tensors_only():
     """The CPU's backward is one plain call inside the autograd Function;
-    the K2 wrappers launch kernels and refuse a CPU tensor."""
+    the K2 wrappers (K2ab and its dispatcher too) launch kernels and refuse
+    a CPU tensor."""
     xs, g = _case(5, 2, 7, 4, 3, True)
     p, q, a, bias, v = _t(xs)
     _, u, m, l = tgat.gatv2_attention_res(p, q, a, bias, v, 0.2)
     du = torch.from_numpy(g)
     dvec = (du * u).sum(-1)
-    for fn in (tgat.gatv2_bwd_dp_da, tgat.gatv2_bwd_dq_dv, tgat.gatv2_bwd_dbias):
+    for fn in (tgat.gatv2_bwd_dp_da, tgat.gatv2_bwd_dq_dv, tgat.gatv2_bwd_dbias,
+               tgat.gatv2_bwd_graph, tgat.gatv2_bwd):
         with pytest.raises(ValueError, match="unsupported device cpu"):
             fn(p, q, a, bias, v, m, l, du, dvec, 0.2)
 
