@@ -4,8 +4,9 @@
 
 K2ab (``gatv2_bwd_graph_kernel`` in ``mtad_gat_tpu_torch/csrc/gat_bwd.cu``)
 splits the embedding of its score pass over ``G_SPLIT`` neighbouring lanes, a
-constant of the source. This script builds the source once per split (a copy
-under ``build/gat_bwd_sweep/`` with the constant rewritten, compiled with the
+constant of ``csrc/gat_common.cuh`` (the whole-graph forward shares it). This
+script builds the backward once per split (a copy under
+``build/gat_bwd_sweep/`` with the constant rewritten, compiled with the
 package's own nvcc flags), then at the two attention layers of the SMD
 flagship (feature: N 38, E 200, D 100; temporal: N 100, E 76, D 38), float32,
 dropout 0.3, with bias, checks each build's dp, dq, da and dv against the
@@ -47,12 +48,12 @@ def build(splits) -> dict:
         if work.exists():
             shutil.rmtree(work)
         work.mkdir(parents=True)
-        shutil.copy(_build.CSRC / "gat_common.cuh", work)
+        shutil.copy(_build.CSRC / "gat_bwd.cu", work)
         src, n = re.subn(r"constexpr int G_SPLIT = \d+;", f"constexpr int G_SPLIT = {split};",
-                         (_build.CSRC / "gat_bwd.cu").read_text())
+                         (_build.CSRC / "gat_common.cuh").read_text())
         if n != 1:
-            raise RuntimeError(f"gat_bwd.cu: expected one G_SPLIT constant, found {n}")
-        (work / "gat_bwd.cu").write_text(src)
+            raise RuntimeError(f"gat_common.cuh: expected one G_SPLIT constant, found {n}")
+        (work / "gat_common.cuh").write_text(src)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(work / "libgat_bwd.so"),
                str(work / "gat_bwd.cu")]
         jobs[split] = (work, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -130,9 +131,11 @@ def main() -> None:
                    "ptxas": ptxas}
             rec["ok"] = rec["two_launches_identical"] and all(e <= TOL for e in errs.values())
             print(json.dumps(rec), flush=True)
-    _build._loaded["gat_bwd"] = package
-    kg.GRAPH_SPLIT = split_built
-    kg._check_graph_layout.cache_clear()
+        # the package's own build again: the next layer's inputs come from K1-res,
+        # whose launch checks the shared split against its library
+        _build._loaded["gat_bwd"] = package
+        kg.GRAPH_SPLIT = split_built
+        kg._check_graph_layout.cache_clear()
 
 
 if __name__ == "__main__":

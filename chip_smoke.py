@@ -11,9 +11,15 @@ In order, each phase failing the run with a non-zero exit:
    source, all at once) and reports the seconds;
 3. K1, the fused GATv2 attention forward, against its plain PyTorch version
    at the shapes of the scoring path (feature and temporal layer, batch 256,
-   float32 and bfloat16, with and without bias) and at N = 2048 (many key
-   tiles, where it also checks that a call allocates less than one (N, N)
-   float32 matrix), with kernel and plain times;
+   float32 and bfloat16, with and without bias: the whole-graph kernel,
+   launched twice for identical bits, and the tiled kernel forced once at
+   each layer), at N = 160 (E 128, D 64: half a graph's rows a block, timed
+   beside the tiled kernel) and at N = 2048 (the tiled kernel, where it
+   also checks that a call allocates less than one (N, N) float32 matrix);
+   each layer's time
+   by CUDA events and by a CUDA graph of 20 calls for both kernels (at the
+   temporal layer also the whole-graph kernel with the rows over two
+   blocks), beside the plain time and the bound;
 4. K3, the fused GRU scan forward, against its plain version at batch 256,
    100 steps, hidden 150 (float32 and bfloat16 inputs; the cluster variant
    with ragged unit slices), at 1024 steps, at one step, at batch 1 and at a
@@ -35,7 +41,10 @@ In order, each phase failing the run with a non-zero exit:
 6. K1-res (the training forward, residuals and hash dropout) and the
    attention backward against their plain versions at the training shapes
    (feature and temporal layer, batch 256): float32 with dropout 0 and 0.3,
-   with and without bias, bfloat16 at dropout 0.3 with bias. The backward
+   with and without bias, bfloat16 at dropout 0.3 with bias. K1-res runs the
+   variant ``gat_fwd_plan`` names (the whole-graph kernel at both layers,
+   launched twice for identical bits) and the tiled kernel forced once at
+   each layer. The backward
    runs the variant ``gat_bwd_plan`` names: K2ab (the whole-graph kernel) at
    both layers, launched twice for identical bits, its planned shared memory
    equal to the built library's; K2a then K2b (the tiled kernels) forced
@@ -52,6 +61,9 @@ In order, each phase failing the run with a non-zero exit:
    and 384 (the streaming variant), two launches giving identical bits and
    each record naming the variant and cluster size that ran; its time beside its
    bound, its plain version and the backward of ``torch.nn.GRU`` (cuDNN);
+   the weights product (``gru_weight_grads``) alone at the flagship chain
+   against its plain version, its time by CUDA events and by a CUDA graph
+   beside its bound and ``torch.mm(hprev.T, dgh)`` with the db column sum;
    then the window at which the GRU kernels overtake the plain loop, for
    scoring and for training (the table behind ``GRU_PALLAS_MIN_WINDOW``);
 8. the training paths through their entry point: ``train_cli.main`` with
@@ -60,9 +72,10 @@ In order, each phase failing the run with a non-zero exit:
    then bfloat16: 1 epoch with ``--gru_impl xla`` (the plain GRU loop) and 2
    epochs with ``--gru_impl pallas`` (every kernel on), asserting finite
    losses and summary, the launch counts (per training step K1-res, K2ab
-   (K2a and K2b none at these widths), K2c and, with the GRU kernels, K3
-   and K4 twice each; per batch
-   scored without gradient K1 and, with the GRU kernels, K3 twice) and that
+   (K2a and K2b none at these widths), K2c and, with the GRU kernels, K3,
+   K4's scan and K4's weights product twice each; per batch scored without
+   gradient K1 and, with the GRU kernels, K3 twice; K1 and K1-res through
+   the whole-graph kernel only) and that
    ``predict_cli`` on the written run reproduces its summary;
 9. three one-epoch runs at dropout 0 from one seed: all plain, attention
    through the kernels, and attention and GRU through the kernels; per-step
@@ -226,42 +239,98 @@ def gat_case(gen, dev, B, N, E, D, dtype, with_bias):
 
 
 def check_k1(gen, dev):
-    from mtad_gat_tpu_torch.kernels.gat import gatv2_attention_fwd, gatv2_attention_fwd_plain
+    """K1 against its plain version; returns ({dtype: worst error}, {layer:
+    times of the float32 case with bias})."""
+    from mtad_gat_tpu_torch.kernels import gat as kg
 
-    cases = [("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
-             ("many_key_tiles", 1, 2048, 32, 16)]
+    # (case, B, N, E, D, the variant and row blocks gat_fwd_plan must pick)
+    cases = [("feature", 256, 38, 200, 100, "graph", 1),
+             ("temporal", 256, 100, 76, 38, "graph", 1),
+             ("half the rows a block", 64, 160, 128, 64, "graph", 2),
+             ("many_key_tiles", 1, 2048, 32, 16, "tiled", 0)]
     path_ms = {}
     errs = []
-    for name, B, N, E, D in cases:
+    for name, B, N, E, D, want_variant, want_blocks in cases:
+        flagship = name in ("feature", "temporal")
         for dtype in (torch.float32, torch.bfloat16):
             for with_bias in (True, False):
-                if name == "many_key_tiles" and (dtype, with_bias) != (torch.float32, True):
+                if not flagship and (dtype, with_bias) != (torch.float32, True):
                     continue
                 p, q, a, bias, v = gat_case(gen, dev, B, N, E, D, dtype, with_bias)
-                got = gatv2_attention_fwd(p, q, a, bias, v, 0.2)
-                want = gatv2_attention_fwd_plain(p, q, a, bias, v, 0.2)
+                got = kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2)
+                launch = dict(kg.gatv2_attention_fwd.last_launch)
+                again = kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2)
+                want = kg.gatv2_attention_fwd_plain(p, q, a, bias, v, 0.2)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 tol = K1_TOL[dtype]
-                ms = time_ms(lambda: gatv2_attention_fwd(p, q, a, bias, v, 0.2), 20)
-                plain_ms = time_ms(lambda: gatv2_attention_fwd_plain(p, q, a, bias, v, 0.2), 3)
-                size = dtype.itemsize
-                nbytes = (2 * B * N * E + E + 2 * B * N * D) * size + (N * N * 4 if with_bias else 0)
-                ops = B * N * N * (4 * E + 2 * D)
-                bound_ms, bound_by = bound(ops, nbytes)
-                emit({"phase": "k1", "case": name, "B": B, "N": N, "E": E, "D": D,
-                      "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
-                      "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by})
-                if not err <= tol:
-                    raise AssertionError(f"K1 {name} {dtype} bias={with_bias}: "
-                                         f"max abs error {err} > {tol}")
-                errs.append((dtype, err))
+                rec = {"phase": "k1", "case": name, "B": B, "N": N, "E": E, "D": D,
+                       "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
+                       **launch, "max_abs_err": err, "tol": tol,
+                       "two_launches_identical": torch.equal(got, again)}
+                errors = [err]
+                timed = dtype == torch.float32 and with_bias and name != "many_key_tiles"
+                if timed:
+                    # the tiled kernel forced once at each flagship layer
+                    tiled = kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2, variant="tiled")
+                    torch.cuda.synchronize()
+                    rec["tiled_max_abs_err"] = (tiled.float() - want.float()).abs().max().item()
+                    errors.append(rec["tiled_max_abs_err"])
+                    rec["timing"] = t = time_k1(kg, p, q, a, bias, v, want)
+                    path_ms[name] = t
+                emit(rec)
+                if not max(errors) <= tol or not rec["two_launches_identical"]:
+                    raise AssertionError(f"K1 {name} {dtype} bias={with_bias}: max abs error "
+                                         f"{errors} > {tol}, or bits differ: {rec}")
+                if (launch["variant"], launch["row_blocks"]) != (want_variant, want_blocks):
+                    raise AssertionError(f"K1 {name}: ran {launch}, expected the "
+                                         f"{want_variant} variant on {want_blocks} row blocks")
+                errs.append((dtype, max(errors)))
                 if name == "many_key_tiles":
-                    check_no_score_matrix(gatv2_attention_fwd, p, q, a, bias, v)
-                if dtype == torch.float32 and with_bias and name != "many_key_tiles":
-                    path_ms[name] = (ms, plain_ms, bound_ms, bound_by)
+                    check_no_score_matrix(kg.gatv2_attention_fwd, p, q, a, bias, v)
     return {dt: max(e for d, e in errs if d == dt) for dt in K1_TOL}, path_ms
+
+
+def time_k1(kg, p, q, a, bias, v, want) -> dict:
+    """K1 at one flagship layer: a wrapper call by CUDA events (``ms``) and
+    its device time from a CUDA graph of 20 calls (``graph_ms``), the same
+    for the tiled kernel forced, the plain version, and the bound. Operations
+    per (i, j) pair: the score 4E and the aggregate 2D; bytes: p, q, a, v and
+    the bias read once, out written once. At the temporal layer also the
+    whole-graph kernel with the graph's rows over two blocks (``row_blocks``
+    2, two blocks a multiprocessor), beside the one block that runs."""
+    B, N, E = p.shape
+    D = v.shape[-1]
+    size = p.dtype.itemsize
+    nbytes = (2 * B * N * E + E + 2 * B * N * D) * size + (N * N * 4 if bias is not None else 0)
+    bound_ms, bound_by = bound(B * N * N * (4 * E + 2 * D), nbytes)
+    planned = lambda: kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2)  # noqa: E731
+    tiled = lambda: kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2, variant="tiled")  # noqa: E731
+    out = {"ms": time_ms(planned, 20), "graph_ms": graph_ms(planned),
+           "row_blocks": kg.gatv2_attention_fwd.last_launch["row_blocks"],
+           "tiled_ms": time_ms(tiled, 20), "tiled_graph_ms": graph_ms(tiled),
+           "plain_ms": time_ms(lambda: kg.gatv2_attention_fwd_plain(p, q, a, bias, v, 0.2), 3),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if out["row_blocks"] == 1 and N > 64:
+        lib = kg._fwd_lib()
+        halves = torch.full_like(v, float("nan"))     # a row left unwritten fails the check
+        fn = lib.gatv2_fwd_f32 if p.dtype == torch.float32 else lib.gatv2_fwd_bf16
+
+        def two_blocks():
+            err = fn(p.data_ptr(), q.data_ptr(), a.data_ptr(), bias.data_ptr(), v.data_ptr(),
+                     halves.data_ptr(), B, N, E, D, 2, 0.2,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"gatv2_fwd with two row blocks: CUDA error {err}")
+
+        two_blocks()
+        torch.cuda.synchronize()
+        err = (halves.float() - want.float()).abs().max().item()
+        if not err <= K1_TOL[p.dtype]:
+            raise AssertionError(f"K1 with two row blocks: max abs error {err}")
+        out["two_row_blocks_graph_ms"] = graph_ms(two_blocks)
+        out["two_row_blocks_max_abs_err"] = err
+    return out
 
 
 def check_no_score_matrix(kernel, p, q, a, bias, v) -> None:
@@ -386,9 +455,13 @@ def score_run(work, data_root, name, state_dict, **cfg_kw):
     argv = ["--dataset", "SMD", "--group", "1-1", "--model_id", "-1",
             "--data_root", data_root, "--output_root", out_root, "--device", "cuda"]
     gatv2_attention_fwd.launches = 0
+    gatv2_attention_fwd.launches_by_variant = {"graph": 0, "tiled": 0}
     gru_scan_fwd.launches = 0
     predict_cli.main(argv)
     k1, k3 = gatv2_attention_fwd.launches, gru_scan_fwd.launches
+    if gatv2_attention_fwd.launches_by_variant["graph"] != k1:
+        raise AssertionError(f"{name}: K1 ran {gatv2_attention_fwd.launches_by_variant}, "
+                             "expected the whole-graph kernel at both layers")
     with open(os.path.join(run, "summary.txt")) as f:
         summary = json.load(f)
     for key in ("epsilon_result", "pot_result", "bf_result"):
@@ -566,6 +639,8 @@ def check_training_kernels(gen, dev):
             p, q, a, bias, v = gat_case(gen, dev, B, N, E, D, dtype, with_bias)
             seed = torch.randint(0, 2**32, (1,), generator=gen, dtype=torch.int64).to(dev)
             got = kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate)
+            fwd_variant = kg.gatv2_attention_res.last_launch["variant"]
+            fwd_again = kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate)
             want = kg.gatv2_attention_res_plain(p, q, a, bias, v, 0.2, seed, rate)
             out, u = got[0], got[1]
             sig = torch.sigmoid(u)
@@ -580,18 +655,23 @@ def check_training_kernels(gen, dev):
             timed = name != "many_key_tiles" and dtype == torch.float32 and rate > 0 and with_bias
             # the tiled kernels once at each flagship layer, so both variants stay covered
             tiled = tiled_bwd(kg, args) if timed else None
+            tiled_fwd = (kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,
+                                                variant="tiled") if timed else None)
             torch.cuda.synchronize()
-            errs = {"out": (out.float() - want[0].float()).abs().max().item(),
-                    "u": (u - want[1]).abs().max().item(),
-                    "m": (got[2] - want[2]).abs().max().item(),
-                    "l_rel": ((got[3] - want[3]).abs() / want[3]).max().item()}
+            errs = forward_errors(got, want)
             gerr, gabs = grad_errors(outs, ref, dbias)
             tol = TRAIN_TOL[dtype]
             rec = {"phase": "training_kernels", "case": name, "B": B, "N": N, "E": E, "D": D,
                    "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
-                   "dropout": rate, "backward": variant, "forward_err": errs,
-                   "grad_rel_err": gerr, "grad_abs_err": gabs, "tol": tol}
+                   "dropout": rate, "forward": fwd_variant, "backward": variant,
+                   "forward_err": errs, "grad_rel_err": gerr, "grad_abs_err": gabs, "tol": tol,
+                   "forward_two_launches_identical": all(
+                       torch.equal(x, y) for x, y in zip(got, fwd_again))}
             runs = [(variant, gerr, gabs)]
+            bad = [k for k, e in errs.items() if not e <= tol["forward"][k]]
+            if tiled_fwd is not None:
+                rec["tiled_forward_err"] = terr_fwd = forward_errors(tiled_fwd, want)
+                bad += [f"tiled {k}" for k, e in terr_fwd.items() if not e <= tol["forward"][k]]
             if again is not None:
                 rec["two_launches_identical"] = all(torch.equal(x, y) for x, y in zip(outs, again))
             if tiled is not None:
@@ -604,15 +684,19 @@ def check_training_kernels(gen, dev):
                 for k in times:
                     times[k][name] = t[k]
             emit(rec)
-            bad = [k for k, e in errs.items() if not e <= tol["forward"][k]]
             bad += [f"{run} {k}" for run, rel, _ in runs for k, e in rel.items()
                     if not e <= tol["grad"]]
-            if bad or variant != want_plan or rec.get("two_launches_identical") is False:
+            if (bad or variant != want_plan or fwd_variant != want_plan
+                    or rec.get("two_launches_identical") is False
+                    or not rec["forward_two_launches_identical"]):
                 raise AssertionError(f"training kernels {name} {dtype} dropout={rate} "
                                      f"bias={with_bias}: {bad} beyond tolerance, or the "
-                                     f"{variant} backward ran, or bits differ: {rec}")
+                                     f"{fwd_variant} forward or {variant} backward ran, or "
+                                     f"bits differ: {rec}")
             if dtype == torch.float32:
-                worst["k1res"] = max(worst["k1res"], errs["out"], errs["u"])
+                worst["k1res"] = max(worst["k1res"], errs["out"], errs["u"],
+                                     *([] if tiled_fwd is None else
+                                       [terr_fwd["out"], terr_fwd["u"]]))
                 for run, rel, absolute in runs:
                     for k in rel:
                         key = GRAD_KERNELS[run].get(k, "k2c")
@@ -621,6 +705,15 @@ def check_training_kernels(gen, dev):
             if name == "many_key_tiles":
                 check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate)
     return worst, worst_rel, times
+
+
+def forward_errors(got, want) -> dict:
+    """K1-res's errors against its plain version: out, u, m absolute, l
+    relative."""
+    return {"out": (got[0].float() - want[0].float()).abs().max().item(),
+            "u": (got[1] - want[1]).abs().max().item(),
+            "m": (got[2] - want[2]).abs().max().item(),
+            "l_rel": ((got[3] - want[3]).abs() / want[3]).max().item()}
 
 
 def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> dict:
@@ -680,6 +773,10 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
     tiled = lambda: tiled_bwd(kg, args)  # noqa: E731
     out["k2ab"]["tiled_k2a_k2b_ms"] = time_ms(tiled, 20)
     out["k2ab"]["tiled_k2a_k2b_graph_ms"] = graph_ms(tiled)
+    tiled_fwd = lambda: kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,  # noqa: E731
+                                               variant="tiled")
+    out["k1res"]["tiled_ms"] = time_ms(tiled_fwd, 20)
+    out["k1res"]["tiled_graph_ms"] = graph_ms(tiled_fwd)
     return out
 
 
@@ -767,6 +864,8 @@ def check_k4(gen, dev):
             rec["rel_err_vs_autograd"] = {n: rel_err(a, b) for n, a, b in zip(names, got, ref)}
         if name == "flagship" and dtype == torch.float32:
             rec["timing"] = times = time_k4(gru, x, gi, w_hh, b_hh, hseq, dhseq, H)
+            rec["weights"] = times["weights"] = check_k4_weights(gi, w_hh, b_hh, hseq,
+                                                                  got[0], H)
         emit(rec)
         bad = [n for n, e in err.items() if not e <= K4_TOL]
         bad += [n for n, e in rec.get("rel_err_vs_autograd", {}).items() if not e <= K4_TOL]
@@ -782,17 +881,19 @@ def check_k4(gen, dev):
 
 
 def time_k4(gru, x, gi, w_hh, b_hh, hseq, dhseq, H) -> dict:
-    """ms of K4 (whole, and its serial scan alone), of its plain version and
-    of cuDNN's GRU backward on the same data, and K4's bound. Operations per
-    (b, t): three products of 2 H 3H (the gate recompute, dg . W_hh^T, the
-    dW_hh term) and about 30 H for the gates and their gradients. Bytes: gi,
-    hseq, dhseq and the weights read once; dgi, dW_hh, db_hh written once."""
+    """ms of K4 (whole, and its serial scan alone) by CUDA events per wrapper
+    call and by a CUDA graph of 20 calls, of its plain version and of cuDNN's
+    GRU backward on the same data, and the bounds of K4 and of its scan.
+    Operations per (b, t): three products of 2 H 3H (the gate recompute,
+    dg . W_hh^T, the dW_hh term; the scan does the first two) and about 30 H
+    for the gates and their gradients. Bytes: gi, hseq, dhseq and the weights
+    read once; dgi, dW_hh, db_hh written once (the scan: dgi and dghn)."""
     from mtad_gat_tpu_torch.kernels.gru import gru_scan_bwd, gru_scan_bwd_plain
 
     B, T, _ = gi.shape
-    ms = time_ms(lambda: gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H), 10)
-    scan_ms = time_ms(lambda: gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H,
-                                           need_weights=False), 10)
+    full = lambda: gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H)  # noqa: E731
+    scan = lambda: gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H,  # noqa: E731
+                                need_weights=False)
     plain_ms = time_ms(lambda: gru_scan_bwd_plain(gi, w_hh, b_hh, hseq, dhseq, H), 2,
                        warmup=1)
     xg = x.clone().requires_grad_()
@@ -800,16 +901,63 @@ def time_k4(gru, x, gi, w_hh, b_hh, hseq, dhseq, H) -> dict:
     leaves = [xg, *gru.parameters()]
     library_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dhseq, retain_graph=True),
                          10)
-    ops = B * T * (3 * 2 * H * 3 * H + 30 * H)
-    nbytes = (B * T * 3 * H * gi.dtype.itemsize + 2 * B * T * H * 4
-              + (H * 3 * H + 3 * H) * 4                      # read
-              + B * T * 3 * H * 4 + (H * 3 * H + 3 * H) * 4)  # written
-    bound_ms, bound_by = bound(ops, nbytes)
-    return {"ms": ms, "scan_ms": scan_ms, "weights_ms": ms - scan_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    read = B * T * 3 * H * gi.dtype.itemsize + 2 * B * T * H * 4 + (H * 3 * H + 3 * H) * 4
+    bound_ms, bound_by = bound(B * T * (3 * 2 * H * 3 * H + 30 * H),
+                               read + B * T * 3 * H * 4 + (H * 3 * H + 3 * H) * 4)
+    scan_bound_ms, scan_bound_by = bound(B * T * (2 * 2 * H * 3 * H + 30 * H),
+                                         read + B * T * 4 * H * 4)
+    return {"ms": time_ms(full, 10), "graph_ms": graph_ms(full),
+            "scan_ms": time_ms(scan, 10), "scan_graph_ms": graph_ms(scan),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "scan_bound_ms": scan_bound_ms, "scan_bound_by": scan_bound_by,
             **gru_scan_bwd.last_launch,
             "library": "backward of torch.nn.GRU (cuDNN) on the same data, the input "
                        "projection's gradients included"}
+
+
+def check_k4_weights(gi, w_hh, b_hh, hseq, dgi, H) -> dict:
+    """K4's weights product alone (``gru_weight_grads``) on the flagship
+    chain's saved states, the scan's dgi and its dghn = dn_pre r: against
+    its plain version (twice, for identical bits), by CUDA events and by a
+    CUDA graph of 20 calls, beside its bound and beside one library call on
+    the same operands prepared outside the timed region, ``torch.mm(hprev.T,
+    dgh)`` with the db column sum (TF32 off). Operations: 2 M H 3H for
+    dW_hh and M 3H adds for db_hh over the M = B T rows; bytes: hseq, dgi's
+    first 2H columns and dghn read once, dW_hh and db_hh written once."""
+    from mtad_gat_tpu_torch.kernels.gru import gru_weight_grads, gru_weight_grads_plain
+
+    B, T, _ = gi.shape
+    M = B * T
+    with torch.no_grad():
+        hprev = torch.cat([torch.zeros_like(hseq[:, :1]), hseq[:, :-1]], dim=1)
+        r = torch.sigmoid(gi[..., :H].float() + (hprev @ w_hh + b_hh)[..., :H])
+        dghn = (dgi[..., 2 * H:] * r).contiguous()
+        hprev_rows = hprev.reshape(M, H).contiguous()
+        dgh = torch.cat([dgi[..., :2 * H], dghn], dim=-1).reshape(M, 3 * H).contiguous()
+    run = lambda: gru_weight_grads(hseq, dgi, dghn, H)  # noqa: E731
+    got, again = run(), run()
+    want = gru_weight_grads_plain(hseq, dgi, dghn, H)
+    library = lambda: (torch.mm(hprev_rows.t(), dgh), dgh.sum(dim=0))  # noqa: E731
+    lib_w, lib_b = library()
+    torch.cuda.synchronize()
+    bound_ms, bound_by = bound(2 * M * H * 3 * H + M * 3 * H,
+                               M * 4 * H * 4 + (H * 3 * H + 3 * H) * 4)
+    rec = {"B": B, "T": T, "H": H,
+           "rel_err": {"dw_hh": rel_err(got[0], want[0]), "db_hh": rel_err(got[1], want[1])},
+           "abs_err": {"dw_hh": (got[0] - want[0]).abs().max().item(),
+                       "db_hh": (got[1] - want[1]).abs().max().item()},
+           "library_rel_err": {"dw_hh": rel_err(lib_w, want[0]), "db_hh": rel_err(lib_b, want[1])},
+           "tol": K4_TOL, "two_launches_identical": all(
+               torch.equal(x, y) for x, y in zip(got, again)),
+           "ms": time_ms(run, 20), "graph_ms": graph_ms(run),
+           "plain_ms": time_ms(lambda: gru_weight_grads_plain(hseq, dgi, dghn, H), 3),
+           "library_ms": time_ms(library, 20), "library_graph_ms": graph_ms(library),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library": "torch.mm(hprev.T, dgh) and dgh.sum(0) on prepared operands, TF32 off"}
+    if not (max(rec["rel_err"].values()) <= K4_TOL and rec["two_launches_identical"]):
+        raise AssertionError(f"K4 weights product: {rec}")
+    return rec
 
 
 CROSSOVER_WINDOWS = (1, 2, 4, 8, 16, 100, 1024)
@@ -861,7 +1009,8 @@ def gru_crossover(gen, dev) -> dict:
 
 KERNEL_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_bwd_graph",
                    "gatv2_bwd_dp_da", "gatv2_bwd_dq_dv", "gatv2_bwd_dbias", "gru_scan_fwd",
-                   "gru_scan_bwd")
+                   "gru_scan_bwd", "gru_weight_grads")
+FWD_VARIANTS = ("graph", "tiled")    # the forward wrappers count each variant too
 
 
 def counters() -> dict:
@@ -874,10 +1023,19 @@ def counters() -> dict:
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_variant"):
+            fn.launches_by_variant = dict.fromkeys(FWD_VARIANTS, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counters().items()}
+    """Launches by wrapper, and by variant ("name:variant") for the
+    forward's two kernels."""
+    counts = {}
+    for name, fn in counters().items():
+        counts[name] = fn.launches
+        for variant, n in getattr(fn, "launches_by_variant", {}).items():
+            counts[f"{name}:{variant}"] = n
+    return counts
 
 
 def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: int,
@@ -887,11 +1045,12 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     the backward's variant that ``gat_bwd_plan`` names for the layer (K2ab,
     or K2a and K2b) and K2c in both attention layers (feature: N features,
     E 2w, D w; temporal: N w, E 2 features, D features) and, with the GRU
-    kernels, K3 and K4 in the encoder and the decoder; each batch evaluated
-    or scored without gradient runs K1 twice and, with the GRU kernels, K3
-    twice (init train and val losses, one val pass per epoch, the test loss,
-    and the train and test scoring passes)."""
-    from mtad_gat_tpu_torch.kernels.gat import gat_bwd_plan
+    kernels, K3 and K4 (scan and weights product) in the encoder and the
+    decoder; each batch evaluated or scored without gradient runs K1 twice
+    and, with the GRU kernels, K3 twice (init train and val losses, one val
+    pass per epoch, the test loss, and the train and test scoring passes).
+    K1 and K1-res also count by the variant ``gat_fwd_plan`` names."""
+    from mtad_gat_tpu_torch.kernels.gat import gat_bwd_plan, gat_fwd_plan
 
     batches = lambda n: max(1, -(-n // bs))  # noqa: E731
     n_win = n_train_rows - w
@@ -902,13 +1061,17 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
                + batches(n_test_rows - w + 1))
     gru = gru_impl == "pallas"
     want = {name: 2 * steps for name in KERNEL_COUNTERS}
-    graph = sum(gat_bwd_plan(*layer) == "graph" for layer in (
-        (n_features, 2 * w, w), (w, 2 * n_features, n_features)))
+    layers = ((n_features, 2 * w, w), (w, 2 * n_features, n_features))
+    graph = sum(gat_bwd_plan(*layer) == "graph" for layer in layers)
     want.update(gatv2_bwd_graph=graph * steps, gatv2_bwd_dp_da=(2 - graph) * steps,
                 gatv2_bwd_dq_dv=(2 - graph) * steps)
     want.update(gatv2_attention_fwd=2 * no_grad,
                 gru_scan_fwd=2 * (steps + no_grad) if gru else 0,
-                gru_scan_bwd=2 * steps if gru else 0)
+                gru_scan_bwd=2 * steps if gru else 0, gru_weight_grads=2 * steps if gru else 0)
+    fwd_graph = sum(gat_fwd_plan(*layer) == "graph" for layer in layers)
+    for name, calls in (("gatv2_attention_fwd", no_grad), ("gatv2_attention_res", steps)):
+        want[f"{name}:graph"] = fwd_graph * calls
+        want[f"{name}:tiled"] = (2 - fwd_graph) * calls
     return want, steps
 
 
@@ -1120,18 +1283,28 @@ def main() -> None:
         training_throughput(work, x_train, "pallas")
 
     f, t = k1_ms["feature"], k1_ms["temporal"]
-    k1_bound = f[2] + t[2]
+    w = k4["weights"]
     kernels = [
         {"name": "gatv2_attention_fwd", "route": "cuda",
          "source": "mtad_gat_tpu_torch/csrc/gat_fwd.cu",
          "replaces": "mtad_gat_tpu/kernels/gat_pallas.py:150",
          "launches": launches["k1"], "max_abs_err": k1_err[torch.float32],
          "max_abs_err_bf16": k1_err[torch.bfloat16],
-         "ms": f[0] + t[0], "plain_ms": f[1] + t[1], "bound_ms": k1_bound,
-         "bound_by": f[3] if f[2] >= t[2] else t[3], "library_ms": None,
+         "ms": f["ms"] + t["ms"], "ms_by_layer": [f["ms"], t["ms"]],
+         "graph_ms": f["graph_ms"] + t["graph_ms"],
+         "graph_ms_by_layer": [f["graph_ms"], t["graph_ms"]],
+         "plain_ms": f["plain_ms"] + t["plain_ms"], "bound_ms": f["bound_ms"] + t["bound_ms"],
+         "bound_by": f["bound_by"] if f["bound_ms"] >= t["bound_ms"] else t["bound_by"],
+         "library_ms": None, "variant": "graph (kernels/gat.gat_fwd_plan), one block a "
+                                       "graph at both layers",
+         "tiled_ms_by_layer": [f["tiled_ms"], t["tiled_ms"]],
+         "tiled_graph_ms_by_layer": [f["tiled_graph_ms"], t["tiled_graph_ms"]],
+         "temporal_two_row_blocks_graph_ms": t.get("two_row_blocks_graph_ms"),
          "launches_training": train_launches["gatv2_attention_fwd"],
          "shapes": "one scoring batch: feature (256,38,200/100) + temporal "
-                   "(256,100,76/38) layer, float32"},
+                   "(256,100,76/38) layer, float32, bias; ms is a wrapper call by CUDA "
+                   "events, graph_ms its device time from a CUDA graph of 20 calls; tiled_* "
+                   "the tiled kernel forced on the same inputs"},
         {"name": "gru_scan_fwd", "route": "cuda",
          "source": "mtad_gat_tpu_torch/csrc/gru_fwd.cu",
          "replaces": "mtad_gat_tpu/kernels/gru_pallas.py:52",
@@ -1149,14 +1322,28 @@ def main() -> None:
          "replaces": "mtad_gat_tpu/kernels/gru_pallas.py:74",
          "launches": train_launches["gru_scan_bwd"], "max_abs_err": k4_err,
          "max_rel_err": k4_rel,
-         "ms": k4["ms"], "scan_ms": k4["scan_ms"], "weights_ms": k4["weights_ms"],
-         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+         "ms": k4["scan_ms"], "graph_ms": k4["scan_graph_ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["scan_bound_ms"],
+         "bound_by": k4["scan_bound_by"], "library_ms": None,
+         "k4_ms": k4["ms"], "k4_graph_ms": k4["graph_ms"], "k4_bound_ms": k4["bound_ms"],
+         "cudnn_gru_backward_ms": k4["library_ms"],
          "variant": k4["variant"], "cluster": k4["cluster"], "smem_bytes": k4["smem_bytes"],
          "shapes": "one chain: gi (256,100,450), hseq and dhseq (256,100,150) float32; "
-                   "one call is the serial scan kernel (scan_ms) and the dW_hh, db_hh "
-                   "product with its reduction (weights_ms); library_ms is the backward "
-                   "of torch.nn.GRU (cuDNN) with its input projection's gradients"},
+                   "ms and graph_ms are the serial scan alone (need_weights off), k4_* the "
+                   "whole call with the weights product; plain_ms is the whole plain "
+                   "backward; cudnn_gru_backward_ms the backward of torch.nn.GRU with its "
+                   "input projection's gradients"},
+        {"name": "gru_weight_grads", "route": "cuda",
+         "source": "mtad_gat_tpu_torch/csrc/gru_bwd.cu",
+         "replaces": "mtad_gat_tpu/kernels/gru_pallas.py:127",
+         "launches": train_launches["gru_weight_grads"],
+         "max_abs_err": max(w["abs_err"].values()), "max_rel_err": max(w["rel_err"].values()),
+         "ms": w["ms"], "graph_ms": w["graph_ms"], "plain_ms": w["plain_ms"],
+         "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+         "library_ms": w["library_ms"], "library_graph_ms": w["library_graph_ms"],
+         "shapes": "dW_hh (150,450) and db_hh over the 25,600 rows of one chain, float32; "
+                   "library_ms is torch.mm(hprev.T, dgh) with dgh.sum(0) on prepared "
+                   "operands, TF32 off"},
     ]
     for key, name, source, line in (
         ("k1res", "gatv2_attention_res", "gat_fwd.cu", 220),
@@ -1186,7 +1373,12 @@ def main() -> None:
                       + ("is the plain forward" if key == "k1res" else
                          "is one autograd call for the whole attention backward"),
         }
-        if key == "k2ab":
+        if key == "k1res":
+            row.update(variant="graph (kernels/gat.gat_fwd_plan), one block a graph at both "
+                               "layers",
+                       tiled_ms_by_layer=[f["tiled_ms"], t["tiled_ms"]],
+                       tiled_graph_ms_by_layer=[f["tiled_graph_ms"], t["tiled_graph_ms"]])
+        elif key == "k2ab":
             tf, tt = f["tiled_k2a_k2b_graph_ms"], t["tiled_k2a_k2b_graph_ms"]
             row.update(also_replaces="mtad_gat_tpu/kernels/gat_pallas.py:497",
                        tiled_k2a_k2b_ms=f["tiled_k2a_k2b_ms"] + t["tiled_k2a_k2b_ms"],

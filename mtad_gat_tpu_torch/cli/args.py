@@ -3,12 +3,21 @@
 The flags of ``mtad_gat_tpu/cli/args.py`` — the reference's 29 flags
 (``args.py:15-66``) with the same names, types and defaults, plus the JAX
 package's extensions — so one invocation works against either package, and
-``--device``, the device to run on (default ``cuda``).
+``--device``, the device to run on.
+
+Which device runs (``resolve_device``, called by both entry points):
+``--use_cuda False`` selects the CPU, as in the reference (``training.py:60``),
+and raises beside an explicit ``--device cuda``; ``--device`` otherwise
+names the device, the GPU by default. No entry point falls back to the CPU
+on its own: without a GPU, a run that asks for one raises.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Optional
+
+import torch
 
 from mtad_gat_tpu_torch.config import RunConfig
 
@@ -103,9 +112,10 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--data_root", type=str, default="datasets")
     parser.add_argument("--output_root", type=str, default="output")
 
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="device to run on: 'cuda' (default, the GPU) "
-                             "or 'cpu'; without a GPU, 'cuda' raises")
+    parser.add_argument("--device", type=str, default=None,
+                        help="device to run on: 'cuda' (the GPU; the default "
+                             "unless --use_cuda False) or 'cpu'; without a "
+                             "GPU, 'cuda' raises")
 
     # --- Multi-device extensions (not ported yet: ROADMAP.md Queue 1 item 8) ---
     parser.add_argument("--mesh_devices", type=int, default=0,
@@ -139,3 +149,20 @@ def get_parser() -> argparse.ArgumentParser:
 
 def to_run_config(args: argparse.Namespace) -> RunConfig:
     return RunConfig.from_dict(vars(args))
+
+
+def resolve_device(device: Optional[str], use_cuda: bool = True) -> torch.device:
+    """The device a run uses: ``device`` when given, else the GPU, or the
+    CPU under ``use_cuda=False``. A CUDA device beside ``use_cuda=False``,
+    or without a GPU, raises."""
+    if device is None:
+        device = "cuda" if use_cuda else "cpu"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not use_cuda:
+        raise ValueError(f"--use_cuda False selects the CPU, but --device {device} "
+                         "asks for the GPU: give one of the two")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {device}: no CUDA device is available; pass --device cpu "
+            "or --use_cuda False to run on the CPU")
+    return dev

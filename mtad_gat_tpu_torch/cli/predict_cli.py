@@ -6,8 +6,8 @@ The port of ``mtad_gat_tpu/cli/predict_cli.py`` (capabilities of reference
 matches, rebuild the model, load the run's ``model.pt`` (or ``--torch_ckpt``)
 and run ``predict_anomalies`` writing a numbered ``summary_{n}.txt``.
 
-Runs on the GPU (``--device cuda``, the default) unless ``--device cpu`` is
-given; with no GPU and no ``--device cpu`` it raises.
+Runs on the GPU unless ``--device cpu`` or ``--use_cuda False`` is given;
+with no GPU and neither flag it raises (``cli/args.resolve_device``).
 
     python -m mtad_gat_tpu_torch.cli.predict_cli --dataset SMD --group 1-1 \\
         --model_id -1 --data_root <root> --output_root <out>
@@ -19,9 +19,7 @@ import os
 from datetime import datetime
 from typing import Optional, Sequence
 
-import torch
-
-from mtad_gat_tpu_torch.cli.args import get_parser, str2bool
+from mtad_gat_tpu_torch.cli.args import get_parser, resolve_device, str2bool
 from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
 from mtad_gat_tpu_torch.data import get_data, get_target_dims
 from mtad_gat_tpu_torch.inference import Predictor
@@ -53,17 +51,6 @@ def resolve_model_dir(output_path: str, model_id: str) -> str:
     return os.path.join(output_path, model_id)
 
 
-def resolve_device(name: str) -> torch.device:
-    """The device to run on; a CUDA device without a GPU raises."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is available; pass --device cpu "
-            "to score on the CPU"
-        )
-    return device
-
-
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = get_parser()
     parser.add_argument("--model_id", type=str, default="-1",
@@ -73,7 +60,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser.add_argument("--torch_ckpt", type=str, default="",
                         help="a model.pt to load instead of the run's own")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, args.use_cuda)
     if args.mesh_devices:
         raise NotImplementedError(
             "--mesh_devices: multi-device scoring is not ported to "

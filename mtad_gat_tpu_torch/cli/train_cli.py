@@ -7,10 +7,10 @@ dataset POT/epsilon params, score and threshold with all three methods, and
 write ``config.txt`` for a later ``predict_cli``. Run directories are
 datetime-stamped like the reference's (``train.py:14``: ddmmYYYY_HHMMSS).
 
-Runs on the GPU (``--device cuda``, the default) unless ``--device cpu`` is
-given; with no GPU and no ``--device cpu`` it raises. The loss plots of the
-JAX pipeline are not written yet (ROADMAP.md, Queue 1 item 9): the loss
-series are in ``<output>/logs/metrics.jsonl``.
+Runs on the GPU unless ``--device cpu`` or ``--use_cuda False`` is given;
+with no GPU and neither flag it raises (``cli/args.resolve_device``). The
+loss plots of the JAX pipeline are not written yet (ROADMAP.md, Queue 1
+item 9): the loss series are in ``<output>/logs/metrics.jsonl``.
 
     python -m mtad_gat_tpu_torch.cli.train_cli --dataset SMD --group 1-1 \\
         --attention_impl pallas --data_root <root> --output_root <out>
@@ -22,8 +22,7 @@ import os
 from datetime import datetime
 from typing import Optional, Sequence
 
-from mtad_gat_tpu_torch.cli.args import get_parser, to_run_config
-from mtad_gat_tpu_torch.cli.predict_cli import resolve_device
+from mtad_gat_tpu_torch.cli.args import get_parser, resolve_device, to_run_config
 from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
 from mtad_gat_tpu_torch.data import get_data, get_target_dims
 from mtad_gat_tpu_torch.inference import Predictor
@@ -75,14 +74,16 @@ def run_training(
     run_id: Optional[str] = None,
     resume_from: Optional[str] = None,
     init_from_torch: Optional[str] = None,
-    device: str = "cuda",
+    device: Optional[str] = None,
 ) -> str:
-    """Execute the full pipeline on ``device``; returns the save path.
+    """Execute the full pipeline on ``device`` (by default the GPU, or the
+    CPU under ``cfg.use_cuda`` False: ``resolve_device``); returns the save
+    path.
     ``resume_from`` restores a ``train_state.pt`` (params, optimizer state,
     step) before continuing; ``init_from_torch`` warm-starts from a
     reference PyTorch ``model.pt``."""
     _refuse_unported(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, cfg.use_cuda)
     if cfg.auto_resume and not (run_id or cfg.run_id):
         raise ValueError(
             "--auto_resume needs --run_id: without a pinned run directory a "

@@ -47,9 +47,10 @@
 //       of multiply-adds per thread) from W_hh and its transposed copy in L2
 //       (270 KB each at hidden 150), and a step costs two block barriers.
 // 2. gru_bwd_weights_kernel, off the chain: dW_hh = hprev^T . dgh over all
-//    B * T rows as a tiled product, split over row chunks so that the small
-//    (H, 3H) output still fills the card; each block writes its partial tile
-//    (and, for the first tile row, the partial column sums that are db_hh).
+//    B * T rows, with db_hh as one more row of the same product, split over
+//    row chunks so that the small (H + 1, 3H) output still fills the card:
+//    8 x 8 register tiles fed by a cp.async ring (its section below says more);
+//    each block writes its partial tile.
 // 3. gru_bwd_reduce_kernel sums the partials in a fixed order, so two runs
 //    give the same bits. No float atomics anywhere, and the chain's sums run
 //    in a fixed order in both variants.
@@ -75,10 +76,20 @@ constexpr int BB = 8;              // batch rows per block of the streaming scan
 constexpr int SCAN_THREADS = 512;
 constexpr int CL_BB = 12;           // batch rows per cluster of the cluster scan
 
-constexpr int TK = 64;             // weights product: tile of hidden units
-constexpr int TC = 64;             // tile of gate columns
-constexpr int RM = 16;             // rows of (b, t) per stage
-constexpr int W_THREADS = 256;     // each thread owns a 4 x 4 patch of the tile
+// The weights product (gru_bwd_weights_kernel): a thread's 8 x 8 register
+// tile, the most such tiles along a block tile's rows and along its
+// columns, the reduction rows of one cp.async stage and the stages of the
+// ring.
+constexpr int W_MICRO = 8;
+constexpr int W_SIDE_M = 20;
+constexpr int W_SIDE_N = 20;
+constexpr int W_RM = 16;
+constexpr int W_STAGES = 3;
+constexpr int W_MAX_THREADS = (W_SIDE_M * W_SIDE_N + 31) / 32 * 32;
+// launch bounds of 512 threads cap a thread at 128 registers, which
+// kernels/gru.py::weight_grad_chunks counts on to fit blocks on a multiprocessor
+constexpr int W_BOUND_THREADS = 512;
+static_assert(W_MAX_THREADS <= W_BOUND_THREADS, "a block tile needs more threads than allowed");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -385,99 +396,218 @@ gru_bwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   }
 }
 
-// Row m = b * T + t of the two operands: hprev (zero at t = 0, else row m - 1
-// of hseq) and dgh = (dgi[:, :2H], dghn).
-__global__ void __launch_bounds__(W_THREADS)
+// ---- the weights product ---------------------------------------------------
+//
+// dW_hh[k][c] = sum over the rows m = b T + t with t >= 1 of
+// hseq[m - 1][k] dgh[m][c], and db_hh[c] = sum over every row m of dgh[m][c],
+// dgh = (dgi[:, :2H], dghn): a product of (H, M) by (M, 3H) with M = B T
+// reduction rows (25,600 at the flagship), bound by float32 operations on
+// the CUDA cores. db_hh is the product's row H: column H of the staged first
+// operand is 1 on every row, t = 0 included, so the t = 0 mask, which zeroes
+// the first operand's row, leaves db whole and one loop forms both.
+//
+// Split K: block (column tile, row tile, chunk s) sums the rows of chunk s
+// for a tile of 8 TY rows of (dW; db) by 8 TX columns of one gate; a
+// column tile never straddles a gate, so its column source (dgi with row
+// stride 3H for r and z, dghn with stride H for n) is fixed per tile. TY and
+// TX (WTiling) cover the H + 1 rows and the H columns of a gate with as few
+// tiles as W_SIDE_M and W_SIDE_N allow: at H = 150 one 152 x 152 tile a
+// gate, 97% of it used. The chunk count (kernels/gru.py::weight_grad_chunks)
+// fills the card in one wave with as many blocks a multiprocessor as fit:
+// one at H = 150 (384 threads of 128 registers); two blocks of half the
+// rows each were slower there (PERF.md).
+//
+// A thread owns 8 rows (4 TY apart in two groups of four) by 8 columns (the
+// same for 4 TX) and reads them as float4 from shared memory: 64 FMAs for
+// four 16-byte reads, neighbouring threads on neighbouring addresses, the
+// next row's reads in flight during this row's FMAs. Rows are 600 or 1,800
+// bytes long, so only 8-byte aligned (4-byte at an odd H) and TMA cannot
+// describe them: a stage of W_RM rows comes in through 8-byte (4-byte)
+// cp.async, zero-filled where a row is masked (t = 0, or past the chunk), into
+// a ring of W_STAGES buffers, so the next stages' loads are in flight during
+// this stage's FMAs; one block barrier a stage. Each copying thread owns one
+// column pair and every step-th row of a stage, so its source address and
+// the seam are worked out once, and the t = 0 test costs a compare per row.
+// The columns no copy writes (A's column H, the padding) are set once.
+//
+// Partials (S, H + 1, 3H) are summed in chunk order by
+// gru_bwd_reduce_kernel: no atomics, identical bits from run to run.
+
+struct WTiling {
+  int ty, tx;       // micro-tiles along the rows (k) and the columns (c) of a block tile
+  int rt, ct;       // block tiles along the H + 1 rows, and along one gate's H columns
+  int threads;      // at least one per micro-tile and one per column a stage copies
+  __host__ __device__ explicit WTiling(int H) {
+    const int mr = (H + 1 + W_MICRO - 1) / W_MICRO;
+    rt = (mr + W_SIDE_M - 1) / W_SIDE_M;
+    ty = (mr + rt - 1) / rt;
+    const int mc = (H + W_MICRO - 1) / W_MICRO;
+    ct = (mc + W_SIDE_N - 1) / W_SIDE_N;
+    tx = (mc + ct - 1) / ct;
+    int n = ty * tx;
+    const int copy = W_MICRO * (ty > tx ? ty : tx);
+    if (copy > n) n = copy;
+    threads = (n + 31) / 32 * 32;
+  }
+  __host__ __device__ int bm() const { return W_MICRO * ty; }
+  __host__ __device__ int bn() const { return W_MICRO * tx; }
+  __host__ __device__ size_t smem_floats() const {
+    return (size_t)W_STAGES * W_RM * (bm() + bn());
+  }
+};
+
+// Copy V floats (4 or 8 bytes) into shared memory, or write zeros there
+// when full is false.
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (V == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(full ? 8 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void unpack8(float (&x)[8], const float* lo, const float* hi) {
+  const float4 a = *reinterpret_cast<const float4*>(lo);
+  const float4 b = *reinterpret_cast<const float4*>(hi);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+// V floats a copy: 2 where H is even (every row, gate and column pair is
+// then 8-byte aligned), else 1.
+template <int V>
+__global__ void __launch_bounds__(W_BOUND_THREADS, 1)
 gru_bwd_weights_kernel(const float* __restrict__ hseq, const float* __restrict__ dgi,
-                       const float* __restrict__ dghn, float* __restrict__ part,
-                       float* __restrict__ dbpart, int M, int n_steps, int H, int chunk) {
-  __shared__ __align__(16) float As[RM][TK];
-  __shared__ __align__(16) float Bs[RM][TC];
-  const int H3 = 3 * H;
-  const int c0 = blockIdx.x * TC, k0 = blockIdx.y * TK, s = blockIdx.z;
-  const int m_begin = s * chunk;
-  const int m_end = min(M, m_begin + chunk);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const bool sums = blockIdx.y == 0 && ty == 0;
+                       const float* __restrict__ dghn, float* __restrict__ part, int M,
+                       int n_steps, int H, int chunk) {
+  extern __shared__ __align__(16) float wsm[];
+  const WTiling tl(H);
+  const int BM = tl.bm(), BN = tl.bn(), H3 = 3 * H;
+  float* As = wsm;                              // [W_STAGES][W_RM][BM]
+  float* Bs = wsm + W_STAGES * W_RM * BM;       // [W_STAGES][W_RM][BN]
+  const int gate = blockIdx.x / tl.ct, j0 = blockIdx.x % tl.ct * BN;
+  const int k0 = blockIdx.y * BM, s = blockIdx.z;
+  const int m_begin = s * chunk, m_end = min(M, m_begin + chunk);
+  const int tid = threadIdx.x, nt = blockDim.x;
 
-  float acc[4][4];
-  float colsum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // the columns no copy writes: A's column H is the db row's 1, the rest 0
+  for (int x = tid; x < W_STAGES * W_RM * BM; x += nt) {
+    const int k = k0 + x % BM;
+    if (k >= H) As[x] = k == H ? 1.f : 0.f;
+  }
+  for (int x = tid; x < W_STAGES * W_RM * BN; x += nt)
+    if (j0 + x % BN >= H) Bs[x] = 0.f;
 
-  for (int m0 = m_begin; m0 < m_end; m0 += RM) {
-    for (int x = threadIdx.x; x < RM * TK; x += W_THREADS) {
-      const int mm = x / TK, kk = x % TK;
-      const int m = m0 + mm, k = k0 + kk;
-      float a = 0.f;
-      if (m < m_end && k < H && m % n_steps != 0) a = hseq[(size_t)(m - 1) * H + k];
-      As[mm][kk] = a;
-    }
-    for (int x = threadIdx.x; x < RM * TC; x += W_THREADS) {
-      const int mm = x / TC, cc = x % TC;
-      const int m = m0 + mm, c = c0 + cc;
-      float b = 0.f;
-      if (m < m_end && c < H3)
-        b = c < 2 * H ? dgi[(size_t)m * H3 + c] : dghn[(size_t)m * H + c - 2 * H];
-      Bs[mm][cc] = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < RM; ++mm) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[mm][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[mm][tx * 4]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      if (sums) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) colsum[j] += b[j];
+  // a copying thread's V columns and first row; it takes every step-th row
+  const int a_c = tid % (BM / V) * V, a_r = tid / (BM / V), a_step = nt / (BM / V);
+  const bool a_live = k0 + a_c < H && a_r < a_step;
+  const float* a_src = hseq + (k0 + a_live * a_c);
+  const int b_c = tid % (BN / V) * V, b_r = tid / (BN / V), b_step = nt / (BN / V);
+  const bool b_live = j0 + b_c < H && b_r < b_step;
+  const float* b_src = (gate < 2 ? dgi + gate * H : dghn) + j0 + b_live * b_c;
+  const int b_ld = gate < 2 ? H3 : H;
+
+  auto load = [&](int slot, int m0) {
+    if (a_live) {
+      float* dst = As + slot * W_RM * BM + a_c;
+      int t = (m0 + a_r) % n_steps;
+      for (int r = a_r; r < W_RM; r += a_step) {
+        const int m = m0 + r;
+        const bool ok = m < m_end && t != 0;    // pairs with t = 0 take no dW term
+        cp_async<V>(dst + r * BM, ok ? a_src + (size_t)(m - 1) * H : a_src, ok);
+        t += a_step;
+        while (t >= n_steps) t -= n_steps;
       }
     }
-    __syncthreads();
+    if (b_live) {
+      float* dst = Bs + slot * W_RM * BN + b_c;
+      for (int r = b_r; r < W_RM; r += b_step) {
+        const int m = m0 + r;
+        const bool ok = m < m_end;
+        cp_async<V>(dst + r * BN, ok ? b_src + (size_t)m * b_ld : b_src, ok);
+      }
+    }
+  };
+
+  const int n_stage = m_end > m_begin ? (m_end - m_begin + W_RM - 1) / W_RM : 0;
+#pragma unroll
+  for (int st = 0; st < W_STAGES - 1; ++st) {
+    if (st < n_stage) load(st, m_begin + st * W_RM);
+    cp_async_commit();
   }
 
-  float* out = part + (size_t)s * H * H3;
+  const bool computes = tid < tl.ty * tl.tx;
+  const int ty = computes ? tid / tl.tx : 0, tx = computes ? tid % tl.tx : 0;
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= H) continue;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (c < H3) out[(size_t)k * H3 + c] = acc[i][j];
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int st = 0; st < n_stage; ++st) {
+    cp_async_wait<W_STAGES - 2>();
+    __syncthreads();  // stage st has landed, and every thread is done with st - 1
+    const int next = st + W_STAGES - 1;
+    if (next < n_stage) load(next % W_STAGES, m_begin + next * W_RM);
+    cp_async_commit();
+    if (computes) {
+      const float* as = As + st % W_STAGES * W_RM * BM + 4 * ty;
+      const float* bs = Bs + st % W_STAGES * W_RM * BN + 4 * tx;
+      // two register fragments: row r + 1's reads are in flight during row r's FMAs
+      float a[2][8], b[2][8];
+      unpack8(a[0], as, as + BM / 2);
+      unpack8(b[0], bs, bs + BN / 2);
+#pragma unroll
+      for (int r = 0; r < W_RM; ++r) {
+        if (r + 1 < W_RM) {
+          const float* an = as + (r + 1) * BM;
+          const float* bn = bs + (r + 1) * BN;
+          unpack8(a[(r + 1) % 2], an, an + BM / 2);
+          unpack8(b[(r + 1) % 2], bn, bn + BN / 2);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[r % 2][i], b[r % 2][j], acc[i][j]);
+      }
     }
   }
-  if (sums) {
+  cp_async_wait<0>();
+
+  if (!computes) return;
+  float* out = part + (size_t)s * (H + 1) * H3 + gate * H;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (c < H3) dbpart[(size_t)s * H3 + c] = colsum[j];
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + (i < 4 ? 4 * ty + i : BM / 2 + 4 * ty + i - 4);
+    if (k > H) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = j0 + (j < 4 ? 4 * tx + j : BN / 2 + 4 * tx + j - 4);
+      if (c < H) out[(size_t)k * H3 + c] = acc[i][j];
     }
   }
 }
 
-// dw[x] = sum_s part[s][x] and db[c] = sum_s dbpart[s][c], s in order.
-__global__ void gru_bwd_reduce_kernel(const float* __restrict__ part,
-                                      const float* __restrict__ dbpart,
-                                      float* __restrict__ dw, float* __restrict__ db,
-                                      int n_w, int n_b, int S) {
+// (dw; db)[x] = sum_s part[s][x], s in order: x < n_w is dw, the rest db.
+__global__ void gru_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                                      float* __restrict__ db, int n_w, int n_b, int S) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x < n_w) {
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += part[(size_t)s * n_w + x];
+  const int n = n_w + n_b;
+  if (x >= n) return;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) acc += part[(size_t)s * n + x];
+  if (x < n_w)
     dw[x] = acc;
-  } else if (x < n_w + n_b) {
-    const int c = x - n_w;
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += dbpart[(size_t)s * n_b + c];
-    db[c] = acc;
-  }
+  else
+    db[x - n_w] = acc;
 }
 
 template <typename T>
@@ -554,22 +684,37 @@ int gru_bwd_scan_bf16(const void* gi, const void* w_hh, const void* w_hh_t,
                                     n_steps, H, stream);
 }
 
+// The weights product's tiling at hidden width H, for the planner's check:
+// out = (TY, TX, row tiles, column tiles a gate, threads, shared memory bytes).
+void gru_bwd_weights_tiling(int H, int* out) {
+  const WTiling tl(H);
+  out[0] = tl.ty, out[1] = tl.tx, out[2] = tl.rt, out[3] = tl.ct, out[4] = tl.threads;
+  out[5] = (int)(tl.smem_floats() * sizeof(float));
+}
+
 // dw (H, 3H) and db (3H,) from the scan's dgi and dghn, through S row chunks:
-// part (S, H, 3H) and dbpart (S, 3H) are scratch.
+// part (S, H + 1, 3H) is scratch.
 int gru_bwd_weights(const void* hseq, const void* dgi, const void* dghn, void* part,
-                    void* dbpart, void* dw, void* db, int B, int n_steps, int H, int S,
-                    void* stream) {
+                    void* dw, void* db, int B, int n_steps, int H, int S, void* stream) {
+  const WTiling tl(H);
   const int M = B * n_steps, H3 = 3 * H;
-  const int chunk = ((M + S - 1) / S + RM - 1) / RM * RM;
-  const dim3 grid((H3 + TC - 1) / TC, (H + TK - 1) / TK, S);
-  gru_bwd_weights_kernel<<<grid, W_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)hseq, (const float*)dgi, (const float*)dghn, (float*)part,
-      (float*)dbpart, M, n_steps, H, chunk);
+  const int chunk = ((M + S - 1) / S + W_RM - 1) / W_RM * W_RM;
+  const size_t bytes = tl.smem_floats() * sizeof(float);
+  auto kernel = H % 2 == 0 ? gru_bwd_weights_kernel<2> : gru_bwd_weights_kernel<1>;
+  if (bytes > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(3 * tl.ct, tl.rt, S);
+  kernel<<<grid, tl.threads, bytes, (cudaStream_t)stream>>>(
+      (const float*)hseq, (const float*)dgi, (const float*)dghn, (float*)part, M, n_steps,
+      H, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n = H * H3 + H3;
+  const int n = (H + 1) * H3;
   gru_bwd_reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)part, (const float*)dbpart, (float*)dw, (float*)db, H * H3, H3, S);
+      (const float*)part, (float*)dw, (float*)db, H * H3, H3, S);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,7 @@ A failed build raises with nvcc's output; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -102,3 +105,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Multiprocessors of a CUDA device, read once per device: launchers
+    size their grids from it on every call."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

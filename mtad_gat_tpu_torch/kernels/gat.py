@@ -13,7 +13,10 @@ those of ``mtad_gat_tpu/kernels/gat_pallas.py``:
 - K1, ``gatv2_attention_fwd``: ``_kernel`` (scoring, no gradient);
 - K1-res, ``gatv2_attention_res``: ``_kernel_res``, the forward that also
   writes the backward's residuals u (pre-sigmoid aggregate), m and l (row
-  max and row sum), with in-kernel hash dropout;
+  max and row sum), with in-kernel hash dropout. Both run the whole-graph
+  kernel (a batch element's graph, or half its rows, in one block, an exact
+  softmax) or the tiled one (16-row tiles, online softmax), as
+  ``gat_fwd_plan`` decides;
 - K2a ``gatv2_bwd_dp_da``, K2b ``gatv2_bwd_dq_dv``, K2c ``gatv2_bwd_dbias``:
   ``_bwd_dp_da_kernel``, ``_bwd_dq_dv_kernel``, ``_bwd_dbias_kernel``;
 - K2ab ``gatv2_bwd_graph``: K2a and K2b in one launch for a graph that fits
@@ -214,13 +217,17 @@ def _fwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for fn in (lib.gatv2_fwd_f32, lib.gatv2_fwd_bf16):
-            fn.argtypes = [ptr] * 6 + [i32] * 4 + [f32, ptr]
+            fn.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
             fn.restype = i32
         for fn in (lib.gatv2_fwd_res_f32, lib.gatv2_fwd_res_bf16):
-            fn.argtypes = [ptr] * 10 + [i32] * 4 + [f32, ctypes.c_uint32, f32, ptr]
+            fn.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ctypes.c_uint32, f32, ptr]
             fn.restype = i32
         lib.gatv2_fwd_smem_bytes.argtypes = [i32]
         lib.gatv2_fwd_smem_bytes.restype = ctypes.c_long
+        lib.gatv2_fwd_graph_smem_bytes.argtypes = [i32] * 4
+        lib.gatv2_fwd_graph_smem_bytes.restype = ctypes.c_long
+        lib.gatv2_fwd_graph_split.argtypes = []
+        lib.gatv2_fwd_graph_split.restype = i32
         lib._typed = True
     return lib
 
@@ -259,7 +266,7 @@ def _bwd_lib() -> ctypes.CDLL:
 # routes a call to it or to the tiled K2a and K2b.
 # ---------------------------------------------------------------------------
 
-GRAPH_SPLIT = 2                   # embedding splits of the score pass (G_SPLIT)
+GRAPH_SPLIT = 2                   # embedding splits of the whole-graph score passes (G_SPLIT)
 GRAPH_RMAX = 8                    # most rows a thread owns in the contraction
 
 
@@ -299,6 +306,83 @@ def gat_bwd_plan(N: int, E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> str:
     if graph_row_groups(N) and gat_bwd_smem_bytes(N, E, D) <= smem_limit:
         return "graph"
     return "tiled"
+
+
+# ---------------------------------------------------------------------------
+# The forward's variants: what the plan needs of csrc/gat_fwd.cu's whole-graph
+# layout (FwdLayout's bytes), its split of a graph's rows over blocks, and
+# the plan that routes a call to it or to the tiled kernel.
+# ---------------------------------------------------------------------------
+
+def gat_fwd_smem_bytes(N: int, E: int, D: int, row_blocks: int = 1) -> int:
+    """Shared memory of one block of the whole-graph forward: its rows of p
+    [RB][EP], q [N4][EP], a [EP], v [N4][DP], its scores [RB][NSW], m and l
+    [RB], float32, with N4 the graph and RB a block's share of its rows,
+    each padded to the 4 x 4 micro-tile."""
+    n4, rb = _up4(N), _up4(-(-N // row_blocks))
+    ep, dp = _stride4(E), _stride4(D)
+    return 4 * (rb * ep + n4 * ep + ep + n4 * dp + rb * _stride4(n4) + 2 * rb)
+
+
+def fwd_row_blocks(N: int, E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> int:
+    """Blocks that share one graph's rows in the whole-graph forward on a
+    card whose blocks may use ``smem_limit`` bytes of shared memory: 1 where
+    the whole graph fits a block, 2 where half its rows do (each block then
+    holds q, v and its half of p and of the scores), else 0. One block is
+    preferred: at the temporal layer it was faster than two that share a
+    multiprocessor (PERF.md)."""
+    for row_blocks in (1, 2):
+        if gat_fwd_smem_bytes(N, E, D, row_blocks) <= smem_limit:
+            return row_blocks
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def gat_fwd_plan(N: int, E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> str:
+    """Which forward runs a graph of N nodes at widths E (score) and D
+    (values) on a card whose blocks may use ``smem_limit`` bytes of shared
+    memory: "graph" (K1 and K1-res's whole-graph kernel, a batch element's
+    graph, or half its rows, on chip; ``fwd_row_blocks``) where that fits a
+    block, else "tiled" (16-row tiles streaming the keys)."""
+    if min(N, E, D) < 1:
+        raise ValueError(f"gat_fwd_plan: empty graph or width (N {N}, E {E}, D {D})")
+    return "graph" if fwd_row_blocks(N, E, D, smem_limit) else "tiled"
+
+
+@functools.lru_cache(maxsize=None)
+def _check_fwd_layout(N: int, E: int, D: int) -> int:
+    """Refuse a shape the whole-graph forward cannot hold, and a built kernel
+    whose shared memory or score split this module no longer mirrors (once
+    per shape); returns the row blocks of a launch."""
+    if gat_fwd_plan(N, E, D) != "graph":
+        raise ValueError(f"gatv2 forward: a graph of {N} nodes at widths E {E}, D {D} "
+                         "does not fit a block; gat_fwd_plan routes it to the tiled kernel")
+    row_blocks = fwd_row_blocks(N, E, D)
+    lib = _fwd_lib()
+    built = (lib.gatv2_fwd_graph_smem_bytes(N, E, D, row_blocks), lib.gatv2_fwd_graph_split())
+    if built != (gat_fwd_smem_bytes(N, E, D, row_blocks), GRAPH_SPLIT):
+        raise RuntimeError(f"gatv2 forward: the built kernel's (shared memory, split) {built} "
+                           "differ from this module's")
+    return row_blocks
+
+
+def _fwd_variant(name: str, N: int, E: int, D: int, variant: Optional[str]) -> Tuple[str, int]:
+    """(variant, row_blocks argument) of a forward launch: the planned
+    variant, or the one the caller forces; 0 row blocks is the tiled kernel."""
+    variant = variant or gat_fwd_plan(N, E, D)
+    if variant == "graph":
+        return variant, _check_fwd_layout(N, E, D)
+    if variant != "tiled":
+        raise ValueError(f"{name}: variant {variant!r} is neither 'graph' nor 'tiled'")
+    if _fwd_lib().gatv2_fwd_smem_bytes(D) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: value width {D} needs more shared memory than a block has")
+    return variant, 0
+
+
+def _count_fwd(fn, variant: str, row_blocks: int) -> None:
+    fn.launches += 1
+    fn.launches_by_variant[variant] += 1
+    fn.last_launch = {"variant": variant, "row_blocks": row_blocks}
 
 
 def _check(name: str, p, q, a, bias, v) -> None:
@@ -361,12 +445,14 @@ def gatv2_attention_fwd(
     bias: Optional[torch.Tensor],    # (N, N) score bias, or None
     v: torch.Tensor,                 # (B, N, D) node values
     alpha: float,                    # leaky-relu negative slope
+    variant: Optional[str] = None,   # "graph" or "tiled"; None: gat_fwd_plan's
 ) -> torch.Tensor:
     """Fused GATv2 attention forward (K1), (B, N, D) in v's type, without
     gradient: a CPU tensor takes the plain version and a CUDA tensor
-    launches K1 or raises. K1 has no backward, so a call that autograd would
-    record raises on both devices; ``gatv2_attention`` is the
-    differentiable call."""
+    launches K1 or raises, in the variant ``gat_fwd_plan`` names for the
+    shape unless ``variant`` forces one, recorded in ``last_launch``. K1 has
+    no backward, so a call that autograd would record raises on both
+    devices; ``gatv2_attention`` is the differentiable call."""
     if _needs_grad(p, q, a, bias, v):
         raise RuntimeError("gatv2_attention_fwd (K1) records no gradient; call "
                            "gatv2_attention, which trains through K1-res and K2")
@@ -378,32 +464,33 @@ def gatv2_attention_fwd(
     out = torch.empty((B, N, D), dtype=p.dtype, device=p.device)
     if B == 0 or N == 0 or D == 0:
         return out
+    variant, row_blocks = _fwd_variant("gatv2_attention_fwd", N, E, D, variant)
     lib = _fwd_lib()
-    if lib.gatv2_fwd_smem_bytes(D) > _SMEM_LIMIT:
-        raise ValueError(f"gatv2_attention_fwd: value width {D} needs more "
-                         "shared memory than a block has")
     p, q, a, v = (t.contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.to(torch.float32).contiguous()
     fn = lib.gatv2_fwd_f32 if p.dtype == torch.float32 else lib.gatv2_fwd_bf16
     with torch.cuda.device(p.device):
         err = fn(_ptr(p), _ptr(q), _ptr(a), _ptr(bias_c), _ptr(v), _ptr(out),
-                 B, N, E, D, float(alpha), _stream(p.device))
-    _raise_on(err, "gatv2_fwd")
-    gatv2_attention_fwd.launches += 1
+                 B, N, E, D, row_blocks, float(alpha), _stream(p.device))
+    _raise_on(err, f"gatv2_fwd {variant}")
+    _count_fwd(gatv2_attention_fwd, variant, row_blocks)
     return out
 
 
 gatv2_attention_fwd.launches = 0
+gatv2_attention_fwd.launches_by_variant = {"graph": 0, "tiled": 0}
+gatv2_attention_fwd.last_launch = None
 
 
 def gatv2_attention_res(
     p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
     bias: Optional[torch.Tensor], v: torch.Tensor, alpha: float,
-    seed: Seed = 0, rate: float = 0.0,
+    seed: Seed = 0, rate: float = 0.0, variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1-res: (out (B, N, D) in v's type, u (B, N, D), m (B, N), l (B, N)
-    float32), with attention dropout at ``rate`` keyed by ``seed``. Records
-    no autograd history; ``gatv2_attention`` is the differentiable call."""
+    float32), with attention dropout at ``rate`` keyed by ``seed``; the
+    variant as ``gatv2_attention_fwd`` chooses it. Records no autograd
+    history; ``gatv2_attention`` is the differentiable call."""
     if p.device.type == "cpu":
         return gatv2_attention_res_plain(p, q, a, bias, v, alpha, seed, rate)
     _check("gatv2_attention_res", p, q, a, bias, v)
@@ -414,24 +501,24 @@ def gatv2_attention_res(
     u, m, l = torch.empty((B, N, D), **f32), torch.empty((B, N), **f32), torch.empty((B, N), **f32)
     if B == 0 or N == 0 or D == 0:
         return out, u, m, l
+    variant, row_blocks = _fwd_variant("gatv2_attention_res", N, E, D, variant)
     lib = _fwd_lib()
-    if lib.gatv2_fwd_smem_bytes(D) > _SMEM_LIMIT:
-        raise ValueError(f"gatv2_attention_res: value width {D} needs more "
-                         "shared memory than a block has")
     p, q, a, v = (t.detach().contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
     seed_t, thresh, scale = _drop_args(seed, rate, p.device)
     fn = lib.gatv2_fwd_res_f32 if p.dtype == torch.float32 else lib.gatv2_fwd_res_bf16
     with torch.cuda.device(p.device):
         err = fn(_ptr(p), _ptr(q), _ptr(a), _ptr(bias_c), _ptr(v), _ptr(out),
-                 _ptr(u), _ptr(m), _ptr(l), _ptr(seed_t), B, N, E, D, float(alpha),
-                 thresh, scale, _stream(p.device))
-    _raise_on(err, "gatv2_fwd_res")
-    gatv2_attention_res.launches += 1
+                 _ptr(u), _ptr(m), _ptr(l), _ptr(seed_t), B, N, E, D, row_blocks,
+                 float(alpha), thresh, scale, _stream(p.device))
+    _raise_on(err, f"gatv2_fwd_res {variant}")
+    _count_fwd(gatv2_attention_res, variant, row_blocks)
     return out, u, m, l
 
 
 gatv2_attention_res.launches = 0
+gatv2_attention_res.launches_by_variant = {"graph": 0, "tiled": 0}
+gatv2_attention_res.last_launch = None
 
 
 def _bwd_launch(which: int, name: str, p, q, a, bias, v, m, l, du, dvec,
@@ -559,11 +646,6 @@ def gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
 gatv2_bwd.last_launch = None
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def dbias_chunks(B: int, N: int, sms: int) -> int:
     """Batch chunks of K2c on a card of ``sms`` multiprocessors: enough
     blocks for two per SM when the (i, j) tiles alone are fewer, each chunk
@@ -584,7 +666,7 @@ def gatv2_bwd_dbias(p, q, a, bias, v, m, l, du, dvec, alpha: float,
     B, N, _ = p.shape
     if B == 0 or N == 0:
         return torch.zeros((N, N), dtype=torch.float32, device=p.device)
-    n_chunks = dbias_chunks(B, N, _sm_count(p.device))
+    n_chunks = dbias_chunks(B, N, _build.sm_count(p.device))
     part = torch.empty((n_chunks, N, N), dtype=torch.float32, device=p.device)
     _bwd_launch(2, "gatv2_bwd_dbias", p, q, a, bias, v, m, l, du, dvec, alpha, seed,
                 rate, (part,), (n_chunks,))

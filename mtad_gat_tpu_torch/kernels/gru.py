@@ -36,6 +36,7 @@ ragged batch tile and their ragged unit slices.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -284,13 +285,57 @@ def gru_scan_bwd_plain(
     return dgi, dw, db
 
 
-def weight_grad_chunks(rows: int, hid_dim: int, sms: int) -> int:
+# K4's weights product, as in csrc/gru_bwd.cu: a thread's 8 x 8 register
+# tile, the most such tiles along a block tile's rows and along its
+# columns, the reduction rows of one cp.async stage, the stages of the ring,
+# and the registers a thread may use (its launch bounds).
+W_MICRO, W_SIDE_M, W_SIDE_N, W_RM, W_STAGES, W_REGISTERS = 8, 20, 20, 16, 3, 128
+# One multiprocessor of the card: registers, shared memory, threads, and the
+# shared memory the system keeps per block.
+_SM_REGISTERS, _SM_SMEM, _SM_THREADS, _BLOCK_RESERVED = 65536, 228 * 1024, 2048, 1024
+
+
+def weight_grad_tiling(hid_dim: int) -> Tuple[int, int, int, int, int, int]:
+    """(TY, TX, row tiles, column tiles a gate, threads, shared memory bytes)
+    of K4's dW_hh product at this width: a block tile is 8 TY rows of the
+    H + 1 rows of (dW_hh; db_hh) by 8 TX columns of one gate, each side
+    covered by as few tiles of at most ``W_SIDE_M`` (``W_SIDE_N``) register
+    tiles as it can be; a thread a register tile and at least one a column
+    of a stage."""
+    mr = -(-(hid_dim + 1) // W_MICRO)
+    rt = -(-mr // W_SIDE_M)
+    ty = -(-mr // rt)
+    mc = -(-hid_dim // W_MICRO)
+    ct = -(-mc // W_SIDE_N)
+    tx = -(-mc // ct)
+    threads = -(-max(ty * tx, W_MICRO * max(ty, tx)) // 32) * 32
+    smem = 4 * W_STAGES * W_RM * W_MICRO * (ty + tx)
+    return ty, tx, rt, ct, threads, smem
+
+
+def weight_grad_chunks(rows: int, hid_dim: int, sms: int,
+                       tiling: Optional[Tuple[int, ...]] = None) -> int:
     """Row chunks of K4's dW_hh product on a card of ``sms``
-    multiprocessors: its (H, 3H) output alone gives few 64 x 64 tiles, so
-    the B * T rows are split until there are about two blocks per
-    multiprocessor, each chunk at least one 16-row stage."""
-    tiles = -(-hid_dim // 64) * -(-3 * hid_dim // 64)
-    return max(1, min(-(-rows // 16), -(-2 * sms // tiles)))
+    multiprocessors: its (H + 1, 3H) output gives few block tiles (three at
+    hidden 150), so the B * T rows are split until the blocks fill the card
+    in one wave at as many blocks a multiprocessor as its registers, shared
+    memory and threads hold (one at hidden 150), each chunk at least one
+    stage. ``tiling`` is ``weight_grad_tiling``'s, or a sweep's own build's."""
+    _, _, rt, ct, threads, smem = tiling or weight_grad_tiling(hid_dim)
+    per_sm = max(1, min(_SM_REGISTERS // (W_REGISTERS * threads),
+                        _SM_SMEM // (smem + _BLOCK_RESERVED), _SM_THREADS // threads))
+    return max(1, min(-(-rows // W_RM), sms * per_sm // (3 * rt * ct)))
+
+
+@functools.lru_cache(maxsize=None)
+def _check_weights_tiling(hid_dim: int) -> None:
+    """Refuse to launch where the built weights kernel's tiling and this
+    module's mirror of it have drifted apart (once per width)."""
+    out = (ctypes.c_int * 6)()
+    _bwd_lib().gru_bwd_weights_tiling(hid_dim, out)
+    if tuple(out) != weight_grad_tiling(hid_dim):
+        raise RuntimeError(f"gru_weight_grads: the built kernel's tiling {tuple(out)} "
+                           f"differs from this module's {weight_grad_tiling(hid_dim)}")
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -300,14 +345,75 @@ def _bwd_lib() -> ctypes.CDLL:
         for fn in (lib.gru_bwd_scan_f32, lib.gru_bwd_scan_bf16):
             fn.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
             fn.restype = i32
-        lib.gru_bwd_weights.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.gru_bwd_weights.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
         lib.gru_bwd_weights.restype = i32
+        lib.gru_bwd_weights_tiling.argtypes = [i32, ptr]
+        lib.gru_bwd_weights_tiling.restype = None
         lib.gru_bwd_smem_bytes.argtypes = [i32, i32]
         lib.gru_bwd_smem_bytes.restype = ctypes.c_long
         lib.gru_bwd_batch_tile.argtypes = []
         lib.gru_bwd_batch_tile.restype = i32
         lib._typed = True
     return lib
+
+
+def gru_weight_grads_plain(
+    hseq: torch.Tensor, dgi: torch.Tensor, dghn: torch.Tensor, hid_dim: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's weights product in plain tensor ops, float32, step by step as
+    ``gru_scan_bwd_plain`` accumulates it: dW_hh = sum over t >= 1 of
+    h_{t-1}^T dgh_t and db_hh = the sum of dgh over every step and batch row,
+    with dgh = (dgi[..., :2H], dghn)."""
+    H = hid_dim
+    dgh = torch.cat([dgi[..., :2 * H].float(), dghn.float()], dim=-1)
+    dw = torch.zeros((H, 3 * H), dtype=torch.float32, device=dgi.device)
+    db = torch.zeros((3 * H,), dtype=torch.float32, device=dgi.device)
+    for t in range(dgi.shape[1]):
+        if t > 0:
+            dw += hseq[:, t - 1].float().t() @ dgh[:, t]
+        db += dgh[:, t].sum(dim=0)
+    return dw, db
+
+
+def gru_weight_grads(
+    hseq: torch.Tensor,    # (B, T, H) float32, the forward's states
+    dgi: torch.Tensor,     # (B, T, 3H) float32, the scan's input-side gate gradients
+    dghn: torch.Tensor,    # (B, T, H) float32, the scan's dn_pre * r
+    hid_dim: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's weights product on contiguous float32 CUDA tensors: (dW_hh (H,
+    3H), db_hh (3H,)) as ``gru_weight_grads_plain`` computes them, through
+    ``weight_grad_chunks`` row chunks and a fixed-order sum of their
+    partials. ``gru_scan_bwd`` calls it after the scan."""
+    H = hid_dim
+    B, T, _ = dgi.shape
+    dev = dgi.device
+    if dev.type != "cuda":
+        raise ValueError(f"gru_weight_grads: unsupported device {dev}")
+    if hseq.shape != (B, T, H) or dgi.shape != (B, T, 3 * H) or dghn.shape != (B, T, H):
+        raise ValueError(f"gru_weight_grads: shapes hseq {tuple(hseq.shape)} dgi "
+                         f"{tuple(dgi.shape)} dghn {tuple(dghn.shape)} do not fit hidden "
+                         f"width {H}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev
+           for t in (hseq, dgi, dghn)):
+        raise ValueError("gru_weight_grads: hseq, dgi and dghn must be contiguous float32 "
+                         "tensors on one device")
+    _check_weights_tiling(H)
+    S = weight_grad_chunks(B * T, H, _build.sm_count(dev))
+    part = torch.empty((S, H + 1, 3 * H), dtype=torch.float32, device=dev)
+    dw = torch.empty((H, 3 * H), dtype=torch.float32, device=dev)
+    db = torch.empty((3 * H,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _bwd_lib().gru_bwd_weights(
+            hseq.data_ptr(), dgi.data_ptr(), dghn.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), B, T, H, S, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gru_bwd weights kernel launch failed: CUDA error {err}")
+    gru_weight_grads.launches += 1
+    return dw, db
+
+
+gru_weight_grads.launches = 0
 
 
 def gru_scan_bwd(
@@ -322,8 +428,8 @@ def gru_scan_bwd(
     """K4 on CUDA tensors: (dgi (B, T, 3H) float32, dw_hh (H, 3H), db_hh
     (3H,)), the last two None when ``need_weights`` is off and only the
     scan runs: the variant ``gru_plan`` names for the width, recorded in
-    ``gru_scan_bwd.last_launch``. The CPU computes the same in
-    ``gru_scan_bwd_plain``."""
+    ``gru_scan_bwd.last_launch``, then ``gru_weight_grads``. The CPU
+    computes the same in ``gru_scan_bwd_plain``."""
     if gi.device.type != "cuda":
         raise ValueError(f"gru_scan_bwd: unsupported device {gi.device}")
     B, T, G = gi.shape
@@ -371,23 +477,12 @@ def gru_scan_bwd(
         if err != 0:
             raise RuntimeError(
                 f"gru_bwd {variant} scan kernel launch failed: CUDA error {err}")
-        dw = db = None
-        if need_weights:
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            S = weight_grad_chunks(B * T, H, sms)
-            part = torch.empty((S, H, 3 * H), dtype=torch.float32, device=dev)
-            dbpart = torch.empty((S, 3 * H), dtype=torch.float32, device=dev)
-            dw = torch.empty((H, 3 * H), dtype=torch.float32, device=dev)
-            db = torch.empty((3 * H,), dtype=torch.float32, device=dev)
-            err = lib.gru_bwd_weights(hseq.data_ptr(), dgi.data_ptr(), dghn.data_ptr(),
-                                      part.data_ptr(), dbpart.data_ptr(), dw.data_ptr(),
-                                      db.data_ptr(), B, T, H, S, stream)
-            if err != 0:
-                raise RuntimeError(
-                    f"gru_bwd weights kernel launch failed: CUDA error {err}")
     gru_scan_bwd.launches += 1
     gru_scan_bwd.last_launch = {"variant": variant, "cluster": cluster,
                                 "smem_bytes": nbytes}
+    if not need_weights:
+        return dgi, None, None
+    dw, db = gru_weight_grads(hseq, dgi, dghn, H)
     return dgi, dw, db
 
 

@@ -1,5 +1,24 @@
-"""The port's attention backward: its dispatch by graph size and the
-arithmetic of the whole-graph kernel K2ab, on the CPU.
+"""The port's attention kernels: the dispatch of the forward and of the
+backward by graph size, and the arithmetic of the whole-graph kernels (the
+forward K1 / K1-res and the backward K2ab), on the CPU.
+
+- ``gat_fwd_plan`` and ``fwd_row_blocks``: the whole-graph forward at both
+  SMD layers (one block a graph) and the MSL ones, half a graph's rows a
+  block where a whole graph does not fit one, the tiled forward at N = 2048
+  and 4096, the boundary moving with the card's shared memory, and empty
+  widths refused.
+- The whole-graph forward's arithmetic as a slice model: the score by 4 x 4
+  micro-tiles as ``GRAPH_SPLIT`` partial sums (K2ab's score pass), an exact
+  softmax over all N keys (a lane's keys summed in order, then the 32 lanes
+  by xor shuffles), the dropout mask on the aggregate only, the aggregate
+  summed over the keys in order and divided by l. Held against
+  ``gatv2_attention_res_plain`` (out within 2e-6, u and m within 4e-6, l
+  within 4e-6 relative: the same float32 terms in another order, scores up
+  to 8 a few ulp apart; measured at most 2.4e-7, 1.2e-6, 1.4e-6, 1.0e-6) and the
+  JAX package's ``_fused_forward`` with residuals in interpret mode (2e-5,
+  1e-5, 1e-5 relative, the tolerances of ``tests/test_torch_gat_train.py``),
+  with and without bias, at dropout 0 and 0.3 (the hash mask bit for bit:
+  a different mask moves u by far more), at ragged N.
 
 - ``gat_bwd_plan``: which backward runs a graph of N nodes at widths E, D:
   "graph" (K2ab, ``csrc/gat_bwd.cu``) at both layers of the SMD flagship,
@@ -123,33 +142,47 @@ def _pad(x, rows, cols):
     return out
 
 
+def _tiles_by_slices(x, y, width, term):
+    """(B, N, N) sums over the last axis of term(x_i, y_j) by 4 x 4
+    micro-tiles, as ``GRAPH_SPLIT`` partial sums over interleaved float4
+    groups added as the kernels' shuffles add them."""
+    B, N, _ = x.shape
+    n4, g4 = tgat._up4(N), -(-width // 4)
+    X, Y = _pad(x, n4, 4 * g4), _pad(y, n4, 4 * g4)
+    split = tgat.GRAPH_SPLIT
+    out = torch.zeros(B, n4, n4)
+    for i0 in range(0, n4, 4):
+        for j0 in range(0, n4, 4):
+            parts = []
+            for sp in range(split):
+                cols = [c for g in range(sp, g4, split) for c in range(4 * g, 4 * g + 4)]
+                parts.append(term(X[:, i0:i0 + 4, None, cols], Y[:, None, j0:j0 + 4, cols],
+                                  cols).sum(-1))
+            out[:, i0:i0 + 4, j0:j0 + 4] = _tree(parts, _halving(split))
+    return out[:, :N, :N]
+
+
+def _scores_by_slices(p, q, a, bias):
+    """The whole-graph kernels' score (K1, K1-res, K2ab), bias added."""
+    A = _pad(a[None], 1, 4 * -(-a.shape[0] // 4))[0]
+
+    def term(pi, qj, cols):
+        z = pi + qj
+        return torch.where(z >= 0, z, ALPHA * z) * A[cols]
+
+    s = _tiles_by_slices(p, q, p.shape[-1], term)
+    return s if bias is None else s + bias
+
+
 def _graph_bwd_by_slices(p, q, a, bias, v, m, l, du, dvec, seed, rate):
     """(dp, dq, da, dv) as K2ab computes them, in float32."""
     B, N, E = p.shape
     D = v.shape[-1]
-    n4, eg, dg = tgat._up4(N), -(-E // 4), -(-D // 4)
+    n4, eg = tgat._up4(N), -(-E // 4)
     P, Q = _pad(p, n4, 4 * eg), _pad(q, n4, 4 * eg)
-    A = _pad(a[None], 1, 4 * eg)[0]
-    V, DU = _pad(v, n4, 4 * dg), _pad(du, n4, 4 * dg)
-    split = tgat.GRAPH_SPLIT
     # 1. score and du . v by micro-tile, GRAPH_SPLIT interleaved float4 groups each
-    s = torch.zeros(B, n4, n4)
-    dot = torch.zeros(B, n4, n4)
-    for i0 in range(0, n4, 4):
-        for j0 in range(0, n4, 4):
-            s_parts, dot_parts = [], []
-            for sp in range(split):
-                es = [e for g in range(sp, eg, split) for e in range(4 * g, 4 * g + 4)]
-                z = P[:, i0:i0 + 4, None, es] + Q[:, None, j0:j0 + 4, es]
-                s_parts.append((torch.where(z >= 0, z, ALPHA * z) * A[es]).sum(-1))
-                ds_ = [d for g in range(sp, dg, split) for d in range(4 * g, 4 * g + 4)]
-                dot_parts.append(torch.einsum("bid,bjd->bij", DU[:, i0:i0 + 4, ds_],
-                                              V[:, j0:j0 + 4, ds_]))
-            s[:, i0:i0 + 4, j0:j0 + 4] = _tree(s_parts, _halving(split))
-            dot[:, i0:i0 + 4, j0:j0 + 4] = _tree(dot_parts, _halving(split))
-    s, dot = s[:, :N, :N], dot[:, :N, :N]
-    if bias is not None:
-        s = s + bias
+    s = _scores_by_slices(p, q, a, bias)
+    dot = _tiles_by_slices(du, v, D, lambda ui, vj, cols: ui * vj)
     w = torch.exp(s - m[:, :, None]) / l[:, :, None]
     wa = w
     if rate > 0:
@@ -263,3 +296,98 @@ def test_slices_match_jax_pallas_backward(n, e, d, with_bias, rate):
     got = _graph_bwd_by_slices(*_residuals(xs, g, rate), SEED, rate)
     for name, x, y in zip(("dp", "dq", "da", "dv"), got, want):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0, atol=1e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The forward: its plan and the whole-graph kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,E,D,want,row_blocks,nbytes", [
+    (38, 200, 100, "graph", 1, 89_456), (100, 76, 38, "graph", 1, 119_504),   # SMD layers
+    (55, 200, 100, "graph", 1, 128_496), (100, 110, 55, "graph", 1, 158_064),  # MSL layers
+    (160, 128, 64, "graph", 2, 223_888),        # a whole graph does not fit, half its rows do
+    (128, 200, 100, "tiled", 0, None), (2048, 32, 16, "tiled", 0, None),
+    (4096, 32, 16, "tiled", 0, None), (1, 1, 1, "graph", 1, 304),
+])
+def test_fwd_plan_by_shape(N, E, D, want, row_blocks, nbytes):
+    assert tgat.gat_fwd_plan(N, E, D) == want
+    assert tgat.fwd_row_blocks(N, E, D) == row_blocks
+    if want == "graph":
+        assert tgat.gat_fwd_smem_bytes(N, E, D, row_blocks) == nbytes <= SMEM
+
+
+def test_fwd_plan_follows_the_cards_shared_memory():
+    whole = tgat.gat_fwd_smem_bytes(100, 76, 38)
+    half = tgat.gat_fwd_smem_bytes(100, 76, 38, 2)
+    assert half == 85_328 < whole
+    assert tgat.fwd_row_blocks(100, 76, 38, whole) == 1
+    assert tgat.fwd_row_blocks(100, 76, 38, whole - 1) == 2
+    assert tgat.gat_fwd_plan(100, 76, 38, smem_limit=half) == "graph"
+    assert tgat.gat_fwd_plan(100, 76, 38, smem_limit=half - 1) == "tiled"
+    # every N the flagship feature widths hold in one block, then two, then none
+    plans = [tgat.fwd_row_blocks(n, 200, 100) for n in range(1, 200)]
+    assert plans == sorted(plans, key=lambda r: (r == 0, r)) and plans[0] == 1
+
+
+@pytest.mark.parametrize("N,E,D", [(0, 200, 100), (38, 0, 100), (38, 200, 0), (-1, 4, 4)])
+def test_fwd_plan_refuses_bad_input(N, E, D):
+    with pytest.raises(ValueError):
+        tgat.gat_fwd_plan(N, E, D)
+
+
+def _graph_fwd_by_slices(p, q, a, bias, v, seed, rate):
+    """(out, u, m, l) as the whole-graph forward computes them, in float32."""
+    B, N, E = p.shape
+    s = _scores_by_slices(p, q, a, bias)
+    # an exact softmax: lane j % 32 sums its keys in order, then 32 lanes by xor
+    m = s.amax(dim=-1)
+    ex = torch.exp(s - m[:, :, None])
+    lanes = []
+    for lane in range(32):
+        acc = torch.zeros(B, N)
+        for j in range(lane, N, 32):
+            acc = acc + ex[:, :, j]
+        lanes.append(acc)
+    l = _tree(lanes, [16, 8, 4, 2, 1])
+    agg = ex
+    if rate > 0:
+        agg = torch.where(tgat.hash_keep_mask(seed, B, N, N, rate), ex * (1.0 / (1.0 - rate)),
+                          0.0)
+    # the aggregate over the keys in order, divided by the unmasked row sum
+    acc = torch.zeros(B, N, v.shape[-1])
+    for j in range(N):
+        acc = acc + agg[:, :, j, None] * v[:, j, None, :]
+    u = acc / l[:, :, None]
+    return torch.sigmoid(u), u, m, l
+
+
+FWD_SHAPES = [(5, 12, 6), (38, 20, 10), (70, 9, 7)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("n,e,d", FWD_SHAPES)
+def test_fwd_slices_match_plain(n, e, d, with_bias, rate):
+    xs, _ = _case(n + 2 * e, 2, n, e, d, with_bias)
+    got = _graph_fwd_by_slices(*_t(xs), SEED, rate)
+    want = tgat.gatv2_attention_res_plain(*_t(xs), ALPHA, SEED, rate)
+    for name, x, y in zip(("out", "u", "m", "l"), got, want):
+        assert torch.isfinite(x).all()
+        diff = (x - y).abs() / (y if name == "l" else 1.0)
+        assert diff.max().item() <= (2e-6 if name == "out" else 4e-6), name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("n,e,d", FWD_SHAPES[:2])
+def test_fwd_slices_match_jax_pallas_forward(n, e, d, with_bias, rate):
+    xs, _ = _case(3 * n + e, 2, n, e, d, with_bias)
+    jx = [None if x is None else jnp.asarray(x) for x in xs]
+    want = gat_pallas._fused_forward(*jx, ALPHA, True, with_residuals=True,
+                                     seed=jnp.uint32(SEED), dropout_rate=rate)
+    out, u, m, l = _graph_fwd_by_slices(*_t(xs), SEED, rate)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want[0]), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(u.numpy(), np.asarray(want[1]), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(m.numpy(), np.asarray(want[2]), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(l.numpy(), np.asarray(want[3]), rtol=1e-5)

@@ -15,11 +15,24 @@ units over a thread-block cluster, on the CPU.
   ``gru_step`` and against ``gru_scan_bwd_plain`` within 1e-6 in float32,
   and over a few steps against the JAX package's ``gru_scan_fused`` (the
   Pallas kernel in interpret mode) within 1e-5.
+- K4's weights product: its tiling (``weight_grad_tiling``: every (dW;
+  db) entry owned by one thread of one block tile, no tile straddling a
+  gate) and its arithmetic as a slice model (the B T rows in
+  ``weight_grad_chunks`` chunks of whole stages, each chunk summed row by
+  row in order into a partial whose row H is db, a row with t = 0 zero
+  in the first operand, the partials summed in chunk order), at a ragged
+  last chunk, an empty one, T = 1 and the t = 0 / t = T-1 seam, against
+  the product itself in float64 within 1e-12 and ``gru_weight_grads_plain``
+  in float32 within 1e-6 of the largest value (the same terms in another
+  order, up to 45 a chunk), against ``gru_scan_bwd_plain`` and against the JAX package's
+  backward (``jax.grad`` through ``gru_scan_fused`` in interpret mode)
+  within 1e-5, as ``tests/test_torch_gru_train.py`` holds the whole K4.
 
 Inputs are drawn with numpy from a seed. The CUDA kernels themselves run on
 the card only, where ``chip_smoke.py`` holds them against the plain versions.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -226,3 +239,145 @@ def test_backward_steps_by_slices_equal_plain(hid_dim, cluster):
     assert torch.isfinite(dgi1).all() and torch.isfinite(dgi0).all()
     np.testing.assert_allclose(dgi1.numpy(), want[:, 1].numpy(), rtol=0, atol=1e-6)
     np.testing.assert_allclose(dgi0.numpy(), want[:, 0].numpy(), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K4's weights product: tiling and arithmetic
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hid_dim", [1, 5, 8, 64, 150, 176, 384, 1024])
+def test_weight_tiles_own_every_entry_once(hid_dim):
+    """Every (k, c), k <= H (row H is db), c < 3H, belongs to one thread of
+    one block tile, as the kernel maps rows 4 TY and columns 4 TX apart."""
+    H = hid_dim
+    ty_n, tx_n, rt, ct, threads, smem = tgru.weight_grad_tiling(H)
+    bm, bn = tgru.W_MICRO * ty_n, tgru.W_MICRO * tx_n
+    assert ty_n <= tgru.W_SIDE_M and tx_n <= tgru.W_SIDE_N and rt * bm >= H + 1 and ct * bn >= H
+    assert threads % 32 == 0 and threads >= ty_n * tx_n
+    assert threads >= max(bm, bn)                   # a copying thread per column
+    assert smem == 4 * tgru.W_STAGES * tgru.W_RM * (bm + bn) <= 227 * 1024
+    owned = np.zeros((H + 1, 3 * H), dtype=np.int64)
+    half_m, half_n = np.arange(4), np.arange(4)
+    for gate in range(3):
+        for k0 in range(0, rt * bm, bm):
+            for j0 in range(0, ct * bn, bn):
+                for ty in range(ty_n):
+                    rows = k0 + np.concatenate([4 * ty + half_m, bm // 2 + 4 * ty + half_m])
+                    for tx in range(tx_n):
+                        cols = j0 + np.concatenate([4 * tx + half_n, bn // 2 + 4 * tx + half_n])
+                        r = rows[rows <= H]
+                        c = gate * H + cols[cols < H]    # never past the gate's H columns
+                        owned[np.ix_(r, c)] += 1
+    assert (owned == 1).all()
+
+
+def _weights_by_slices(hseq, dgi, dghn, H, sms):
+    """dW_hh and db_hh as K4's weights kernel forms them: the B T rows in
+    ``weight_grad_chunks`` chunks of whole stages, each chunk summed row by
+    row in order into an (H + 1, 3H) partial whose row H is db (the first
+    operand's column H is 1 on every row, its other columns zero on a row
+    with t = 0), the partials summed in chunk order."""
+    B, T, _ = dgi.shape
+    M = B * T
+    S = tgru.weight_grad_chunks(M, H, sms)
+    chunk = -(-(-(-M // S)) // tgru.W_RM) * tgru.W_RM
+    hprev = torch.cat([torch.zeros_like(hseq[:, :1]), hseq[:, :-1]], dim=1).reshape(M, H)
+    a = torch.cat([hprev, torch.ones((M, 1), dtype=hseq.dtype)], dim=1)
+    b = torch.cat([dgi[..., :2 * H], dghn], dim=-1).reshape(M, 3 * H)
+    total = None
+    for s in range(S):
+        acc = torch.zeros((H + 1, 3 * H), dtype=hseq.dtype)
+        for m in range(s * chunk, min(M, (s + 1) * chunk)):
+            acc = acc + a[m, :, None] * b[m, None, :]
+        total = acc if total is None else total + acc
+    return total[:H], total[H], S, chunk
+
+
+def _scan_outputs(seed, B, T, H):
+    """gi, w_hh, b_hh, a cotangent, and the plain forward's hseq, the plain
+    backward's (dgi, dw, db) and the scan's dghn = dn_pre r."""
+    gi, w_hh, b_hh, _ = _inputs(seed, B, H, T)
+    rng = np.random.default_rng(seed + 1)
+    dhseq = torch.from_numpy(rng.standard_normal((B, T, H)).astype(np.float32))
+    hseq, _ = tgru.gru_scan_fwd_plain(gi, w_hh, b_hh, H)
+    dgi, dw, db = tgru.gru_scan_bwd_plain(gi, w_hh, b_hh, hseq, dhseq, H)
+    hprev = torch.cat([torch.zeros_like(hseq[:, :1]), hseq[:, :-1]], dim=1)
+    r = torch.sigmoid(gi[..., :H] + (hprev @ w_hh + b_hh)[..., :H])
+    return (gi, w_hh, b_hh, dhseq), hseq, (dgi, dw, db), dgi[..., 2 * H:] * r
+
+
+# (B, T, H, multiprocessors): chunks of 16, 16 and a ragged 13 crossing the
+# sequences; one empty chunk after a ragged one; T = 1 (every row t = 0); an
+# odd width (4-byte copies) and a multi-tile one
+WEIGHT_CASES = [(5, 9, 6, 12), (5, 10, 64, 2), (20, 1, 5, 6), (3, 7, 7, 9), (2, 12, 170, 132)]
+
+
+@pytest.mark.parametrize("B,T,H,sms", WEIGHT_CASES)
+def test_weights_by_slices_match_plain(B, T, H, sms):
+    _, hseq, (dgi, dw_plain, db_plain), dghn = _scan_outputs(B * T + H, B, T, H)
+    dw, db, S, chunk = _weights_by_slices(hseq, dgi, dghn, H, sms)
+    if (B, T) == (5, 9):
+        assert (S, chunk) == (3, 16)                # 16 + 16 + a ragged 13
+    if (B, T) == (5, 10):
+        assert (S, chunk) == (3, 32) and (S - 1) * chunk >= B * T   # the last chunk is empty
+    want_w, want_b = tgru.gru_weight_grads_plain(hseq, dgi, dghn, H)
+    for got, want, plain in ((dw, want_w, dw_plain), (db, want_b, db_plain)):
+        scale = want.abs().max().item()
+        # the same float32 terms in another order (a chunk's rows in sequence)
+        assert (got - want).abs().max().item() <= 1e-6 * scale
+        assert (got - plain).abs().max().item() <= 1e-6 * scale
+    if T == 1:
+        assert not dw.any()                         # no step has a previous state
+    # in float64 the chunked sums are the product itself
+    h64, dgh64 = hseq.double(), torch.cat([dgi[..., :2 * H], dghn], dim=-1).double()
+    exact = _weights_by_slices(h64, dgi.double(), dghn.double(), H, sms)
+    want64 = (torch.einsum("btk,btc->kc", h64[:, :-1], dgh64[:, 1:]), dgh64.sum(dim=(0, 1)))
+    for got, want in zip(exact[:2], want64):
+        np.testing.assert_allclose(got.numpy(), want.double().numpy(), rtol=0,
+                                   atol=1e-12 * want.abs().max().item())
+
+
+def test_weights_seam_between_sequences():
+    """States only at t = T-1 and gate gradients only at t = 0: every term
+    of dW_hh pairs the two across a sequence boundary, so dW_hh is zero,
+    while db_hh takes the t = 0 rows whole."""
+    B, T, H = 6, 5, 4
+    rng = np.random.default_rng(3)
+    hseq = torch.zeros((B, T, H))
+    hseq[:, -1] = torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32))
+    dgi = torch.zeros((B, T, 3 * H))
+    dgi[:, 0] = torch.from_numpy(rng.standard_normal((B, 3 * H)).astype(np.float32))
+    dghn = torch.zeros((B, T, H))
+    dghn[:, 0] = torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32))
+    for sms in (3, 6):                              # one chunk, and two
+        dw, db, _, _ = _weights_by_slices(hseq, dgi, dghn, H, sms)
+        assert not dw.any()
+        want_b = torch.cat([dgi[:, 0, :2 * H], dghn[:, 0]], dim=-1).sum(dim=0)
+        np.testing.assert_allclose(db.numpy(), want_b.numpy(), rtol=1e-6, atol=1e-7)
+        assert db.abs().min() > 0
+
+
+@pytest.mark.parametrize("B,T,H,sms", WEIGHT_CASES[:4])
+def test_weights_by_slices_match_jax_backward(B, T, H, sms):
+    (gi, w_hh, b_hh, dhseq), hseq, (dgi, _, _), dghn = _scan_outputs(B * T + H, B, T, H)
+    dw, db, _, _ = _weights_by_slices(hseq, dgi, dghn, H, sms)
+
+    def loss(w, b):
+        seq, _ = gru_scan_fused(jnp.asarray(gi.numpy()), w, b, H, interpret=True)
+        return jnp.sum(seq * jnp.asarray(dhseq.numpy()))
+
+    want_w, want_b = jax.grad(loss, argnums=(0, 1))(jnp.asarray(w_hh.numpy()),
+                                                    jnp.asarray(b_hh.numpy()))
+    for got, want in ((dw, want_w), (db, want_b)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_weight_grads_takes_cuda_tensors_only():
+    hseq, dgi, dghn = torch.zeros((2, 3, 4)), torch.zeros((2, 3, 12)), torch.zeros((2, 3, 4))
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        tgru.gru_weight_grads(hseq, dgi, dghn, 4)
+    assert tgru.gru_weight_grads.launches == 0
+

@@ -222,9 +222,11 @@ def test_backward_kernel_takes_cuda_tensors_only():
 
 
 def test_weight_grad_chunks_fill_the_card():
-    """K4's dW_hh product splits its rows until the (H, 3H) output's few
-    tiles give about two blocks per multiprocessor."""
-    assert tgru.weight_grad_chunks(256 * 100, 150, 132) == 11   # 24 tiles: 264 blocks
-    assert tgru.weight_grad_chunks(256 * 100, 150, 114) == 10
+    """K4's dW_hh product splits its rows until the (H + 1, 3H) output's few
+    tiles fill the card in one wave, at as many blocks per multiprocessor as
+    fit."""
+    assert tgru.weight_grad_chunks(256 * 100, 150, 132) == 44   # 3 tiles of 384 threads
+    assert tgru.weight_grad_chunks(256 * 100, 150, 114) == 38
     assert tgru.weight_grad_chunks(20, 150, 132) == 2           # never below a 16-row stage
-    assert tgru.weight_grad_chunks(256 * 100, 1024, 132) == 1   # 768 tiles fill it alone
+    assert tgru.weight_grad_chunks(256 * 100, 176, 132) == 33   # 12 tiles, 3 blocks an SM
+    assert tgru.weight_grad_chunks(256 * 100, 1024, 132) == 1   # 147 tiles fill it alone

@@ -302,3 +302,21 @@ def test_predict_cli_refuses_cuda_without_a_gpu_and_msgpack_runs(smd_run, tmp_pa
     argv[-1] = str(out)
     with pytest.raises(NotImplementedError, match="save_torch_checkpoint"):
         port_cli.main([*argv, "--device", "cpu"])
+
+
+def test_predict_cli_use_cuda_false_scores_on_the_cpu(smd_run, tmp_path, monkeypatch):
+    """--use_cuda False selects the CPU, as in the reference, even where no
+    GPU exists, and scores as --device cpu does; beside an explicit
+    --device cuda it raises."""
+    from mtad_gat_tpu_torch.cli import predict_cli as port_cli
+
+    root, run = smd_run
+    out = tmp_path / "output"
+    shutil.copytree(run, out / "SMD" / "1-1" / run.name)
+    argv = ["--dataset", "SMD", "--group", "1-1", "--model_id", run.name,
+            "--data_root", str(root / "data"), "--output_root", str(out)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    on_cpu = port_cli.main([*argv, "--device", "cpu"])
+    assert port_cli.main([*argv, "--use_cuda", "False"]) == on_cpu
+    with pytest.raises(ValueError, match="--use_cuda False"):
+        port_cli.main([*argv, "--use_cuda", "False", "--device", "cuda"])

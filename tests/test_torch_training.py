@@ -22,7 +22,9 @@
 - ``train_cli`` end to end (``--device cpu``, tiny widths, 1 epoch): the run
   directory holds model.pt, train_state.pt, config.txt and summary.txt, and
   the port's ``predict_cli`` on it reproduces summary.txt; also with
-  ``--gru_impl pallas``.
+  ``--gru_impl pallas``, and with ``--use_cuda False`` in place of
+  ``--device cpu`` (the reference's way to ask for the CPU).
+- The device rule of both entry points (``cli/args.resolve_device``).
 """
 
 import dataclasses
@@ -220,11 +222,11 @@ def test_train_cli_with_the_gru_scan_end_to_end_then_predict_cli(tmp_path):
         assert json.load(f)["gru_impl"] == "pallas"
 
 
-def _check_train_then_predict(tmp_path, flags):
+def _check_train_then_predict(tmp_path, flags, tiny=TINY, predict_flags=("--device", "cpu")):
     data, out = str(tmp_path / "data"), str(tmp_path / "out")
     _write_smd(data)
     common = ["--dataset", "SMD", "--group", "1-1", "--data_root", data, "--output_root", out]
-    run = train_cli.main(common + TINY + flags
+    run = train_cli.main(common + tiny + flags
                          + ["--attention_impl", "pallas", "--run_id", "r1"])
     for name in ("model.pt", "train_state.pt", "config.txt", "summary.txt"):
         assert os.path.exists(os.path.join(run, name)), name
@@ -232,7 +234,7 @@ def _check_train_then_predict(tmp_path, flags):
         trained = json.load(f)
     with open(os.path.join(out, "SMD", "1-1", "logs", "metrics.jsonl")) as f:
         assert json.loads(f.readline())["step"] == 0
-    predict_cli.main(common + ["--model_id", "r1", "--device", "cpu"])
+    predict_cli.main(common + ["--model_id", "r1", *predict_flags])
     with open(os.path.join(run, "summary_1.txt")) as f:
         assert json.load(f) == trained
     return run
@@ -256,3 +258,40 @@ def test_train_cli_defaults_to_the_gpu(tmp_path):
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--data_root", str(tmp_path), "--output_root", str(tmp_path)])
+
+
+def test_train_cli_use_cuda_false_trains_on_the_cpu(tmp_path, monkeypatch):
+    """The reference's --use_cuda False runs the whole pipeline on the CPU,
+    even where no GPU exists, and predict_cli under the same flag
+    reproduces its summary."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = TINY[:TINY.index("--device")]
+    _check_train_then_predict(tmp_path, ["--use_cuda", "False"], tiny=tiny,
+                              predict_flags=["--use_cuda", "False"])
+
+
+@pytest.mark.parametrize("device,use_cuda,gpu,want", [
+    (None, True, True, "cuda"), (None, False, True, "cpu"), (None, False, False, "cpu"),
+    ("cpu", True, False, "cpu"), ("cpu", False, True, "cpu"), ("cuda:0", True, True, "cuda"),
+    (None, True, False, RuntimeError), ("cuda", True, False, RuntimeError),
+    ("cuda", False, True, ValueError), ("cuda", False, False, ValueError),
+])
+def test_resolve_device(device, use_cuda, gpu, want, monkeypatch):
+    from mtad_gat_tpu_torch.cli.args import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: gpu)
+    if isinstance(want, str):
+        assert resolve_device(device, use_cuda).type == want
+    else:
+        with pytest.raises(want):
+            resolve_device(device, use_cuda)
+
+
+def test_clis_refuse_use_cuda_false_beside_device_cuda(tmp_path):
+    argv = ["--data_root", str(tmp_path), "--output_root", str(tmp_path),
+            "--use_cuda", "False", "--device", "cuda"]
+    with pytest.raises(ValueError, match="--use_cuda False"):
+        train_cli.main(argv)
+    with pytest.raises(ValueError, match="--use_cuda False"):
+        predict_cli.main(argv)
+
