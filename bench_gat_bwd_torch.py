@@ -1,6 +1,7 @@
 """Sweep of the whole-graph attention backward (K2ab) on one NVIDIA GPU.
 
     python3 bench_gat_bwd_torch.py [--seed N] [--splits 2,4,8] [--batch 256]
+                                   [--groups 1,2,4]
 
 K2ab (``gatv2_bwd_graph_kernel`` in ``mtad_gat_tpu_torch/csrc/gat_bwd.cu``)
 splits the embedding of its score pass over ``G_SPLIT`` neighbouring lanes, a
@@ -18,6 +19,17 @@ spills, the card's name and power limit first. ``G_SPLIT`` in the source is
 read off these lines; the script changes nothing in the package (it loads
 each copy in place of the built library, and sets the module's mirror of the
 split to match, in its own process only).
+
+Then, with the package's own build, K2ab summing dbias (K2c's function) at
+each batch group size G of ``--groups`` (each block sums ds over G batch
+elements into its (N, N) partial, the caller sums the ceil(B / G) partials;
+``kernels/gat.dbias_groups`` picks G for the port, and G = 1, a (B, N, N)
+partial, is a yardstick the port never runs at B > 1): dbias against the
+plain one, two launches for identical bits, its time by CUDA events and by
+CUDA graph beside K2ab without dbias, the partials' sum alone, and K2c alone
+(``gatv2_bwd_dbias``) on the same inputs, with the partials' bytes and how
+many blocks of each K2ab instantiation a multiprocessor holds. One JSON line
+per (layer, G).
 """
 
 from __future__ import annotations
@@ -86,12 +98,58 @@ def rel_err(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+def k2ab_dbias(call, group: int):
+    """K2ab with dbias at a batch group size the caller chooses (the
+    wrapper takes ``dbias_groups``'s): (dp, dq, da, dv, partials)."""
+    p, q, v = call[0], call[1], call[4]
+    B, N, E = p.shape
+    f32 = dict(dtype=torch.float32, device=p.device)
+    dp, dq, dv = torch.empty_like(p), torch.empty_like(q), torch.empty_like(v)
+    da_part, part = torch.empty((B, E), **f32), torch.empty((-(-B // group), N, N), **f32)
+    kg._bwd_launch(3, "gatv2_bwd_graph", *call, (dp, dq, dv, da_part, part), (group,))
+    return dp, dq, da_part.sum(dim=0), dv, part
+
+
+def sweep_groups(lib, layer, call, want, groups) -> None:
+    """One line per group size G at one layer: see the module's docstring."""
+    p, v = call[0], call[4]
+    B, N, E = p.shape
+    D = v.shape[-1]
+    occupancy = {f"{dt}{'_dbias' if db else ''}": lib.gatv2_bwd_graph_occupancy(
+        N, E, D, dt == "bf16", 1, db) for dt in ("f32", "bf16") for db in (0, 1)}
+    plain = lambda: kg.gatv2_bwd_graph(*call)  # noqa: E731
+    k2c = lambda: kg.gatv2_bwd_dbias(*call)  # noqa: E731
+    base = {"layer": layer, "B": B, "N": N, "E": E, "D": D,
+            "no_dbias_ms": time_ms(plain, 20), "no_dbias_graph_ms": graph_ms(plain),
+            "k2c_ms": time_ms(k2c, 20), "k2c_graph_ms": graph_ms(k2c),
+            "occupancy": occupancy, "planned_group": kg.dbias_groups(B, _build.sm_count(p.device))}
+    for group in groups:
+        got = k2ab_dbias(call, group)
+        again = k2ab_dbias(call, group)
+        torch.cuda.synchronize()
+        dbias = got[4].sum(dim=0)
+        errs = {k: rel_err(x, y) for k, x, y in zip(("dp", "dq", "da", "dv", "dbias"),
+                                                    got[:4] + (dbias,), want)}
+        part = got[4]
+        run = lambda: k2ab_dbias(call, group)[4].sum(dim=0)  # noqa: E731
+        rec = {**base, "group": group, "partials": part.shape[0],
+               "partial_bytes": part.numel() * 4,
+               "ms": time_ms(run, 20), "graph_ms": graph_ms(run),
+               "partial_sum_graph_ms": graph_ms(lambda: part.sum(dim=0)),
+               "rel_err": errs, "tol": TOL,
+               "two_launches_identical": all(torch.equal(x, y) for x, y in zip(got, again))}
+        rec["ok"] = rec["two_launches_identical"] and all(e <= TOL for e in errs.values())
+        print(json.dumps(rec), flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--splits", type=lambda s: tuple(int(x) for x in s.split(",")),
                         default=(2, 4, 8))
     parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--groups", type=lambda s: tuple(int(x) for x in s.split(",")),
+                        default=(1, 2, 4))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_gat_bwd_torch: no CUDA device")
@@ -109,8 +167,9 @@ def main() -> None:
         call, du = case(gen, dev, args.batch, N, E, D)
         p, q, a, bias, v = call[:5]
         want = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, call[10], 0.3)
-        want = (want[0], want[1], want[2], want[4])
+        want = (want[0], want[1], want[2], want[4], want[3])
         _build._loaded["gat_bwd"] = package
+        sweep_groups(package, layer, call, want, args.groups)
         tiled = lambda: tiled_bwd(kg, call)  # noqa: E731
         tiled_ms, tiled_graph_ms = time_ms(tiled, 20), graph_ms(tiled)
         for split, (lib, ptxas) in libs.items():
@@ -127,7 +186,8 @@ def main() -> None:
                    "graph_ms": graph_ms(lambda: kg.gatv2_bwd_graph(*call)),
                    "tiled_k2a_k2b_ms": tiled_ms, "tiled_k2a_k2b_graph_ms": tiled_graph_ms,
                    "rel_err": errs, "tol": TOL,
-                   "two_launches_identical": all(torch.equal(x, y) for x, y in zip(got, again)),
+                   "two_launches_identical": all(torch.equal(x, y)
+                                                 for x, y in zip(got[:4], again[:4])),
                    "ptxas": ptxas}
             rec["ok"] = rec["two_launches_identical"] and all(e <= TOL for e in errs.values())
             print(json.dumps(rec), flush=True)

@@ -46,13 +46,18 @@ In order, each phase failing the run with a non-zero exit:
    launched twice for identical bits) and the tiled kernel forced once at
    each layer. The backward
    runs the variant ``gat_bwd_plan`` names: K2ab (the whole-graph kernel) at
-   both layers, launched twice for identical bits, its planned shared memory
-   equal to the built library's; K2a then K2b (the tiled kernels) forced
-   once at each layer, and planned at N = 2048 and N = 4096, where one
-   forward-and-backward also has to allocate no more than its outputs plus
-   1 MiB; K2c wherever there is a bias. Each kernel's time at both layers
-   is a wrapper call by CUDA events and its device time from a CUDA graph
-   of 20 calls, beside its bound and its plain version;
+   both layers, dbias summed in the same launch wherever there is a bias,
+   launched twice for identical bits (dbias included), its planned shared
+   memory and batch groups (``dbias_groups``) equal to the built library's,
+   with the partials' bytes and each instantiation's blocks a
+   multiprocessor; K2a then K2b (the tiled kernels) forced once at each
+   layer, and planned at N = 2048 and N = 4096 (with K2c for dbias), where
+   one forward-and-backward also has to allocate no more than its outputs
+   plus 1 MiB; K2c forced at each layer wherever there is a bias. Each
+   kernel's time at both layers is a wrapper call by CUDA events and its
+   device time from a CUDA graph of 20 calls, beside its bound and its plain
+   version; K2ab's also without dbias, followed by K2c, and the sum of its
+   partials alone;
 7. K4, the GRU backward through time, against its plain version and against
    autograd of the plain forward at batch 256, 100 steps, hidden 150
    (float32 and bfloat16 ``gi``; a dense cotangent and one that is zero
@@ -72,8 +77,8 @@ In order, each phase failing the run with a non-zero exit:
    then bfloat16: 1 epoch with ``--gru_impl xla`` (the plain GRU loop) and 2
    epochs with ``--gru_impl pallas`` (every kernel on), asserting finite
    losses and summary, the launch counts (per training step K1-res, K2ab
-   (K2a and K2b none at these widths), K2c and, with the GRU kernels, K3,
-   K4's scan and K4's weights product twice each; per batch scored without
+   summing dbias (K2a, K2b and K2c none at these widths) and, with the GRU
+   kernels, K3, K4's scan and K4's weights product twice each; per batch scored without
    gradient K1 and, with the GRU kernels, K3 twice; K1 and K1-res through
    the whole-graph kernel only) and that
    ``predict_cli`` on the written run reproduces its summary;
@@ -604,15 +609,28 @@ def tiled_bwd(kg, args) -> tuple:
     return dp, dq, da, dv
 
 
-# the kernel each gradient of the backward comes from, by variant
-GRAD_KERNELS = {"graph": {"dp": "k2ab", "dq": "k2ab", "da": "k2ab", "dv": "k2ab"},
-                "tiled": {"dp": "k2a", "da": "k2a", "dq": "k2b", "dv": "k2b"}}
+# the kernel each gradient of the backward comes from, by variant (and K2c
+# forced on its own)
+GRAD_KERNELS = {"graph": {"dp": "k2ab", "dq": "k2ab", "da": "k2ab", "dv": "k2ab",
+                          "dbias": "k2ab"},
+                "tiled": {"dp": "k2a", "da": "k2a", "dq": "k2b", "dv": "k2b", "dbias": "k2c"},
+                "k2c": {"dbias": "k2c"}}
+
+
+def graph_occupancy(lib, N: int, E: int, D: int) -> dict:
+    """Blocks of each K2ab instantiation (type, dropout, dbias) that one
+    multiprocessor holds at once, by CUDA's occupancy calculator."""
+    return {f"{dt}{'_dropout' if drop else ''}{'_dbias' if db else ''}":
+            lib.gatv2_bwd_graph_occupancy(N, E, D, dt == "bf16", drop, db)
+            for dt in ("f32", "bf16") for drop in (0, 1) for db in (0, 1)}
 
 
 def check_training_kernels(gen, dev):
     """K1-res and the attention backward against their plain versions at the
-    training shapes; returns ({kernel: worst f32 error}, {kernel: worst
-    relative error}, {kernel: {layer: times}})."""
+    training shapes, dbias from K2ab where the plan says "graph" and from K2c
+    where it says "tiled", and K2c forced at each flagship layer; returns
+    ({kernel: worst f32 error}, {kernel: worst relative error}, {kernel:
+    {layer: times}})."""
     from mtad_gat_tpu_torch.kernels import gat as kg
 
     cases = [("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
@@ -628,11 +646,20 @@ def check_training_kernels(gen, dev):
         want_plan = "tiled" if name == "many_key_tiles" else "graph"
         smem = {"planned": kg.gat_bwd_smem_bytes(N, E, D),
                 "library": lib.gatv2_bwd_smem_bytes(3, N, E, D)}
-        emit({"phase": "training_kernels", "case": f"{name} backward plan", "N": N, "E": E,
-              "D": D, "plan": plan, "expected": want_plan, "k2ab_smem_bytes": smem})
-        if plan != want_plan or smem["planned"] != smem["library"]:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        group = {"planned": kg.dbias_groups(B, sms),
+                 "library": lib.gatv2_bwd_graph_dbias_group(B, sms)}
+        rec = {"phase": "training_kernels", "case": f"{name} backward plan", "N": N, "E": E,
+               "D": D, "B": B, "plan": plan, "expected": want_plan, "k2ab_smem_bytes": smem,
+               "dbias_group": group, "sms": sms}
+        if plan == "graph":
+            rec["k2ab_occupancy"] = graph_occupancy(lib, N, E, D)
+            rec["dbias_partial_bytes"] = -(-B // group["planned"]) * N * N * 4
+        emit(rec)
+        if (plan != want_plan or smem["planned"] != smem["library"]
+                or group["planned"] != group["library"]):
             raise AssertionError(f"{name}: plan {plan}, expected {want_plan}; K2ab shared "
-                                 f"memory {smem}")
+                                 f"memory {smem}, dbias group {group}")
         for dtype, rate, with_bias in variants:
             if name == "many_key_tiles" and (dtype, rate, with_bias) != (torch.float32, 0.3, True):
                 continue
@@ -647,23 +674,27 @@ def check_training_kernels(gen, dev):
             du = torch.randn(B, N, D, generator=gen).to(dev) * sig * (1 - sig)
             dvec = (du * u).sum(-1)
             args = (p, q, a, bias, v, got[2], got[3], du, dvec, 0.2, seed, rate)
-            outs = kg.gatv2_bwd(*args)
-            variant = kg.gatv2_bwd.last_launch["variant"]
-            again = kg.gatv2_bwd(*args) if variant == "graph" else None
-            dbias = kg.gatv2_bwd_dbias(*args) if with_bias else None
+            outs = kg.gatv2_bwd(*args, dbias=with_bias)
+            launch = dict(kg.gatv2_bwd.last_launch)
+            variant = launch["variant"]
+            again = kg.gatv2_bwd(*args, dbias=with_bias) if variant == "graph" else None
             ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, seed, rate)
             timed = name != "many_key_tiles" and dtype == torch.float32 and rate > 0 and with_bias
-            # the tiled kernels once at each flagship layer, so both variants stay covered
+            # the tiled kernels once at each flagship layer, so both variants stay
+            # covered, and K2c on its own wherever there is a bias
             tiled = tiled_bwd(kg, args) if timed else None
+            k2c = (kg.gatv2_bwd_dbias(*args) if with_bias and variant == "graph"
+                   else None)
             tiled_fwd = (kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,
                                                 variant="tiled") if timed else None)
             torch.cuda.synchronize()
             errs = forward_errors(got, want)
-            gerr, gabs = grad_errors(outs, ref, dbias)
+            gerr, gabs = grad_errors(outs, ref, outs[4])
             tol = TRAIN_TOL[dtype]
             rec = {"phase": "training_kernels", "case": name, "B": B, "N": N, "E": E, "D": D,
                    "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
                    "dropout": rate, "forward": fwd_variant, "backward": variant,
+                   "dbias_from": launch["dbias"],
                    "forward_err": errs, "grad_rel_err": gerr, "grad_abs_err": gabs, "tol": tol,
                    "forward_two_launches_identical": all(
                        torch.equal(x, y) for x, y in zip(got, fwd_again))}
@@ -673,11 +704,18 @@ def check_training_kernels(gen, dev):
                 rec["tiled_forward_err"] = terr_fwd = forward_errors(tiled_fwd, want)
                 bad += [f"tiled {k}" for k, e in terr_fwd.items() if not e <= tol["forward"][k]]
             if again is not None:
-                rec["two_launches_identical"] = all(torch.equal(x, y) for x, y in zip(outs, again))
+                rec["two_launches_identical"] = all(
+                    (x is None and y is None) or torch.equal(x, y) for x, y in zip(outs, again))
             if tiled is not None:
                 terr, tabs = grad_errors(tiled, ref)
                 rec["tiled_grad_rel_err"], rec["tiled_grad_abs_err"] = terr, tabs
                 runs.append(("tiled", terr, tabs))
+            if k2c is not None:
+                rec["k2c_dbias_rel_err"] = rel_err(k2c, ref[3])
+                rec["k2c_dbias_abs_err"] = (k2c - ref[3]).abs().max().item()
+                runs.append(("k2c", {"dbias": rec["k2c_dbias_rel_err"]},
+                             {"dbias": rec["k2c_dbias_abs_err"]}))
+            want_dbias = None if not with_bias else "k2ab" if variant == "graph" else "k2c"
             if timed:
                 rec["timing"] = t = time_training_kernels(kg, p, q, a, bias, v, du, dvec,
                                                           got[2], got[3], seed, rate)
@@ -687,19 +725,21 @@ def check_training_kernels(gen, dev):
             bad += [f"{run} {k}" for run, rel, _ in runs for k, e in rel.items()
                     if not e <= tol["grad"]]
             if (bad or variant != want_plan or fwd_variant != want_plan
+                    or launch["dbias"] != want_dbias
                     or rec.get("two_launches_identical") is False
                     or not rec["forward_two_launches_identical"]):
                 raise AssertionError(f"training kernels {name} {dtype} dropout={rate} "
                                      f"bias={with_bias}: {bad} beyond tolerance, or the "
                                      f"{fwd_variant} forward or {variant} backward ran, or "
-                                     f"bits differ: {rec}")
+                                     f"dbias came from {launch['dbias']}, not {want_dbias}, "
+                                     f"or bits differ: {rec}")
             if dtype == torch.float32:
                 worst["k1res"] = max(worst["k1res"], errs["out"], errs["u"],
                                      *([] if tiled_fwd is None else
                                        [terr_fwd["out"], terr_fwd["u"]]))
                 for run, rel, absolute in runs:
                     for k in rel:
-                        key = GRAD_KERNELS[run].get(k, "k2c")
+                        key = GRAD_KERNELS[run][k]
                         worst[key] = max(worst[key], absolute[k])
                         worst_rel[key] = max(worst_rel[key], rel[k])
             if name == "many_key_tiles":
@@ -726,17 +766,24 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
     over keys or rows: leaky_relu'(z) is 1 or alpha, so alpha ds is formed
     once per pair (inside the 4) and dp_ie and dq_je each take one add per
     e; da_e takes ds lr(z), a multiply-add (2) per e; dv 2 per d; du_i . v_j
-    2D + 4 (weight, dropout, ds). K2ab (K2a and K2b's work once): score +
-    2D + 4 + dp 1E + dq 1E + da 2E + dv 2D, 8E + 4D + 4. K2a: score + 2D + 4
-    + dp + da, 7E + 2D + 4. K2b: score + 2D + 4 + dq + dv, 5E + 4D + 4. K2c:
-    score + 2D + 4. The select of leaky_relu'(z) is not counted, so these are
-    lower bounds.
+    2D + 4 (weight, dropout, ds). K2ab (K2a, K2b and K2c's work once, as the
+    main path calls it, dbias included): score + 2D + 4 + dp 1E + dq 1E + da
+    2E + dv 2D + the add of ds into dbias, 8E + 4D + 5, and dbias (N, N)
+    float32 written. K2a: score + 2D + 4 + dp + da, 7E + 2D + 4. K2b: score
+    + 2D + 4 + dq + dv, 5E + 4D + 4. K2c: score + 2D + 4 (+ its add, inside
+    the 4). The select of leaky_relu'(z) is not counted, so these are lower
+    bounds. The bound counts each input read once and each output written
+    once, so not K2ab's partial sums of dbias (``partial_bytes``, written
+    once and read once by their sum); ``bound_with_partials_ms`` adds them.
 
     ``ms`` is one wrapper call by CUDA events around back-to-back calls, host
     overhead included where a call's Python outlasts its kernels;
     ``graph_ms`` the same call's device time, from a CUDA graph
-    (``graph_ms``). K2ab's entry also times the tiled K2a then K2b that it
-    replaces, both ways."""
+    (``graph_ms``). K2ab's entry also times K2ab without dbias
+    (``no_dbias_*``: K2a and K2b's work alone, today's kernel before dbias
+    moved into it), the sum of its partials alone (``partial_sum_*``), K2ab
+    without dbias followed by K2c (``with_k2c_*``: the route dbias took
+    before), and the tiled K2a then K2b that it replaces, both ways."""
     B, N, E = p.shape
     D = v.shape[-1]
     size = p.dtype.itemsize
@@ -752,9 +799,9 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
                                                                rate), 3, warmup=1),
                   pairs * (4 * E + 2 * D),
                   in_bytes + B * N * D * (size + 4) + 2 * B * N * 4),
-        "k2ab": (lambda: kg.gatv2_bwd_graph(*args), plain_bwd,
-                 pairs * (8 * E + 4 * D + 4),
-                 in_bytes + stats_bytes + B * N * (2 * E + D) * size + E * 4),
+        "k2ab": (lambda: kg.gatv2_bwd_graph(*args, dbias=True), plain_bwd,
+                 pairs * (8 * E + 4 * D + 5),
+                 in_bytes + stats_bytes + B * N * (2 * E + D) * size + E * 4 + N * N * 4),
         "k2a": (lambda: kg.gatv2_bwd_dp_da(*args), plain_bwd,
                 pairs * (7 * E + 2 * D + 4),
                 in_bytes + stats_bytes + B * N * E * size + E * 4),
@@ -770,9 +817,20 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
         bound_ms, bound_by = bound(ops, nbytes)
         out[k] = {"ms": time_ms(fn, 20), "graph_ms": graph_ms(fn), "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by}
-    tiled = lambda: tiled_bwd(kg, args)  # noqa: E731
-    out["k2ab"]["tiled_k2a_k2b_ms"] = time_ms(tiled, 20)
-    out["k2ab"]["tiled_k2a_k2b_graph_ms"] = graph_ms(tiled)
+    k2ab = out["k2ab"]
+    group = kg.dbias_groups(B, torch.cuda.get_device_properties(p.device).multi_processor_count)
+    part = torch.randn((-(-B // group), N, N), device=p.device)
+    k2ab["occupancy"] = graph_occupancy(kg._bwd_lib(), N, E, D)
+    k2ab["dbias_group"], k2ab["partials"] = group, part.shape[0]
+    k2ab["partial_bytes"] = part.numel() * 4
+    k2ab["bound_with_partials_ms"] = bound(pairs * (8 * E + 4 * D + 5),
+                                           in_bytes + stats_bytes + B * N * (2 * E + D) * size
+                                           + E * 4 + N * N * 4 + 2 * part.numel() * 4)[0]
+    for key, fn in (("no_dbias", lambda: kg.gatv2_bwd_graph(*args)),
+                    ("partial_sum", lambda: part.sum(dim=0)),
+                    ("with_k2c", lambda: (kg.gatv2_bwd_graph(*args), kg.gatv2_bwd_dbias(*args))),
+                    ("tiled_k2a_k2b", lambda: tiled_bwd(kg, args))):
+        k2ab[f"{key}_ms"], k2ab[f"{key}_graph_ms"] = time_ms(fn, 20), graph_ms(fn)
     tiled_fwd = lambda: kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,  # noqa: E731
                                                variant="tiled")
     out["k1res"]["tiled_ms"] = time_ms(tiled_fwd, 20)
@@ -781,9 +839,9 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
 
 
 def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
-    """One K1-res forward and the backward (the planned variant, then K2c)
-    allocate their outputs and at most 1 MiB more: no (B, N, N) tensor
-    exists in device memory."""
+    """One K1-res forward and the backward (the planned variant, dbias
+    included) allocate their outputs and at most 1 MiB more: no (B, N, N)
+    tensor exists in device memory."""
     B, N, E = p.shape
     D = v.shape[-1]
     torch.cuda.synchronize()
@@ -791,8 +849,7 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
     torch.cuda.reset_peak_memory_stats()
     _, u, m, l = kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate)
     args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seed, rate)
-    kg.gatv2_bwd(*args)
-    kg.gatv2_bwd_dbias(*args)
+    kg.gatv2_bwd(*args, dbias=True)
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
     size = p.dtype.itemsize
@@ -800,7 +857,7 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
                + 2 * B * N * E * size + E * 4 + B * N * D * size  # dp, dq, da, dv
                + N * N * 4)                                       # dbias
     emit({"phase": "training_kernels", "case": "device memory of one forward and backward",
-          "B": B, "N": N, "backward": kg.gatv2_bwd.last_launch["variant"],
+          "B": B, "N": N, "backward": kg.gatv2_bwd.last_launch,
           "peak_extra_bytes": extra, "output_bytes": outputs,
           "score_matrix_bytes": B * N * N * 4})
     if extra > outputs + 2**20:
@@ -1010,7 +1067,6 @@ def gru_crossover(gen, dev) -> dict:
 KERNEL_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_bwd_graph",
                    "gatv2_bwd_dp_da", "gatv2_bwd_dq_dv", "gatv2_bwd_dbias", "gru_scan_fwd",
                    "gru_scan_bwd", "gru_weight_grads")
-FWD_VARIANTS = ("graph", "tiled")    # the forward wrappers count each variant too
 
 
 def counters() -> dict:
@@ -1024,12 +1080,12 @@ def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
         if hasattr(fn, "launches_by_variant"):
-            fn.launches_by_variant = dict.fromkeys(FWD_VARIANTS, 0)
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
 
 def read_counts() -> dict:
     """Launches by wrapper, and by variant ("name:variant") for the
-    forward's two kernels."""
+    forward's two kernels (graph, tiled) and K2ab (dbias, no_dbias)."""
     counts = {}
     for name, fn in counters().items():
         counts[name] = fn.launches
@@ -1041,10 +1097,11 @@ def read_counts() -> dict:
 def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: int,
                                epochs: int, val_split: float, gru_impl: str,
                                n_features: int = 38) -> dict:
-    """Launch counts of one train_cli run: each training step runs K1-res,
-    the backward's variant that ``gat_bwd_plan`` names for the layer (K2ab,
-    or K2a and K2b) and K2c in both attention layers (feature: N features,
-    E 2w, D w; temporal: N w, E 2 features, D features) and, with the GRU
+    """Launch counts of one train_cli run: each training step runs K1-res
+    and the backward's variant that ``gat_bwd_plan`` names for the layer
+    (K2ab, summing dbias too, or K2a, K2b and K2c) in both attention layers
+    (feature: N features, E 2w, D w; temporal: N w, E 2 features, D
+    features; both with a learned score bias) and, with the GRU
     kernels, K3 and K4 (scan and weights product) in the encoder and the
     decoder; each batch evaluated or scored without gradient runs K1 twice
     and, with the GRU kernels, K3 twice (init train and val losses, one val
@@ -1064,7 +1121,8 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     layers = ((n_features, 2 * w, w), (w, 2 * n_features, n_features))
     graph = sum(gat_bwd_plan(*layer) == "graph" for layer in layers)
     want.update(gatv2_bwd_graph=graph * steps, gatv2_bwd_dp_da=(2 - graph) * steps,
-                gatv2_bwd_dq_dv=(2 - graph) * steps)
+                gatv2_bwd_dq_dv=(2 - graph) * steps, gatv2_bwd_dbias=(2 - graph) * steps)
+    want["gatv2_bwd_graph:dbias"], want["gatv2_bwd_graph:no_dbias"] = graph * steps, 0
     want.update(gatv2_attention_fwd=2 * no_grad,
                 gru_scan_fwd=2 * (steps + no_grad) if gru else 0,
                 gru_scan_bwd=2 * steps if gru else 0, gru_weight_grads=2 * steps if gru else 0)
@@ -1379,13 +1437,27 @@ def main() -> None:
                        tiled_ms_by_layer=[f["tiled_ms"], t["tiled_ms"]],
                        tiled_graph_ms_by_layer=[f["tiled_graph_ms"], t["tiled_graph_ms"]])
         elif key == "k2ab":
-            tf, tt = f["tiled_k2a_k2b_graph_ms"], t["tiled_k2a_k2b_graph_ms"]
-            row.update(also_replaces="mtad_gat_tpu/kernels/gat_pallas.py:497",
-                       tiled_k2a_k2b_ms=f["tiled_k2a_k2b_ms"] + t["tiled_k2a_k2b_ms"],
-                       tiled_k2a_k2b_graph_ms=tf + tt,
-                       tiled_k2a_k2b_graph_ms_by_layer=[tf, tt],
-                       variant="whole graph per block, both flagship layers "
-                               "(kernels/gat.gat_bwd_plan)")
+            by_layer = lambda k: [f[k], t[k]]  # noqa: E731
+            row.update(also_replaces=["mtad_gat_tpu/kernels/gat_pallas.py:497",
+                                      "mtad_gat_tpu/kernels/gat_pallas.py:540"],
+                       launches_with_dbias=train_launches["gatv2_bwd_graph:dbias"],
+                       bound_with_partials_ms_by_layer=by_layer("bound_with_partials_ms"),
+                       dbias_group_by_layer=by_layer("dbias_group"),
+                       partial_bytes_by_layer=by_layer("partial_bytes"),
+                       occupancy_by_layer=by_layer("occupancy"),
+                       **{f"{k}_by_layer": by_layer(k)
+                          for k in ("no_dbias_ms", "no_dbias_graph_ms", "partial_sum_ms",
+                                    "partial_sum_graph_ms", "with_k2c_ms", "with_k2c_graph_ms",
+                                    "tiled_k2a_k2b_ms", "tiled_k2a_k2b_graph_ms")},
+                       variant="whole graph per block at both flagship layers "
+                               "(kernels/gat.gat_bwd_plan), dbias summed in the same launch "
+                               "over groups of dbias_groups batch elements; ms and graph_ms "
+                               "include the sum of its partials")
+        elif key == "k2c":
+            row["variant"] = ("tiled, for graphs K2ab cannot hold (phase 6: N = 2048 and "
+                              "4096) and forced at each flagship layer, where its errors and "
+                              "times come from; on the main path dbias comes from K2ab "
+                              "(gatv2_bwd_graph with dbias), so it launches no time there")
         elif key in ("k2a", "k2b"):
             row["variant"] = ("tiled, for graphs K2ab cannot hold (phase 6: N = 2048 and "
                               "4096, and once forced at each flagship layer); not on the "

@@ -6,9 +6,10 @@
 //   K2b  _bwd_dq_dv_kernel   dq (B, N, E) and dv (B, N, D)
 //   K2c  _bwd_dbias_kernel   dbias (N, N) = sum_b ds, per-chunk partial sums
 //   K2ab K2a and K2b in one launch for graphs that fit a block whole (the
-//        model's: N = 38 and 100), each (i, j) pair scored once; K2a and K2b
-//        stay as the variant for large graphs (kernels/gat.gat_bwd_plan
-//        chooses). The K2ab section below says more.
+//        model's: N = 38 and 100), each (i, j) pair scored once, and K2c's
+//        dbias too where the call wants it; K2a, K2b and K2c stay as the
+//        variant for large graphs (kernels/gat.gat_bwd_plan chooses). The
+//        K2ab section below says more.
 // Each recomputes its tile of attention weights from the forward's row stats
 // (m, l) instead of reading an (N, N) tensor (_ds_tile, :417-451):
 //
@@ -40,10 +41,10 @@
 // written except dbias itself.
 //
 // Reductions across blocks are deterministic: K2a writes one da row per
-// block and K2c one dbias matrix per batch chunk; the caller sums them in a
-// second pass (JAX does the same for da, `da_part`, :651 and :669). K2c
-// splits the batch into chunks so that the few (i, j) tiles of a small
-// graph still fill the card.
+// block, K2c one dbias matrix per batch chunk and K2ab one per group of
+// batch elements; the caller sums them in a second pass (JAX does the same
+// for da, `da_part`, :651 and :669). K2c splits the batch into chunks so
+// that the few (i, j) tiles of a small graph still fill the card.
 //
 // Layouts: p, q (B, N, E), v (B, N, D) in T (float32 or bfloat16); a (E,)
 // in T; bias (N, N) float32 or null; m, l, dvec (B, N) and du (B, N, D)
@@ -386,12 +387,13 @@ gatv2_bwd_dbias_kernel(const T* __restrict__ p, const T* __restrict__ q,
   }
 }
 
-// ---- K2ab: K2a and K2b fused, one block per batch element ----------------
+// ---- K2ab: K2a and K2b fused (and K2c with DBIAS), a block per batch group --
 //
 // The graphs of the model are small (N = 38 and 100), so one block holds a
 // batch element's whole graph in shared memory: p, q, v, du and the row
 // stats in float32, then the (N, N) tiles ds and wa, each computed once.
-// Three passes, two barriers:
+// A block takes the batch elements of its group one after the other (a
+// group of one without DBIAS); for each, three passes, two barriers:
 //
 // 1. the score: a thread owns a 4-row x 4-key micro-tile and every
 //    G_SPLIT-th float4 group of the embedding, holds four p and four q
@@ -409,6 +411,20 @@ gatv2_bwd_dbias_kernel(const T* __restrict__ p, const T* __restrict__ q,
 //    neighbouring lanes, so dq of four keys is summed over them by one
 //    reduce-scatter of shuffles and written; dp needs no sum across threads,
 //    da one at the end.
+//
+// With DBIAS the block also sums dbias = sum_b ds over its group, K2c's
+// function, at no second pass over the graph: the thread that writes ds_ij
+// to shared memory in pass 1 owns pair (i, j) for every element of the
+// group (the item-to-thread mapping does not depend on b), so it adds ds_ij
+// to the group's (N, N) float32 partial in device memory, which stays in L2
+// (a few MB in all). The first element of a group writes its ds, the next
+// ones add theirs in batch order; the caller sums the groups' partials
+// (kernels/gat.dbias_groups sizes the groups). This costs no shared memory,
+// so the block's layout and occupancy stay as without DBIAS. Measured on
+// the H100 (PERF.md): the group loop alone costs nothing; reading the
+// partial at the write beat loading it ahead of the score loop (8 more
+// registers held there, and spills), a shared-memory accumulator, and a
+// separate coalesced pass over ds.
 //
 // Every sum has a fixed order and there are no atomics: two launches give
 // identical bits. The score is summed as the whole-graph K1-res sums it
@@ -447,12 +463,23 @@ __host__ __device__ inline int graph_warps(int N, int E) {
   return w < G_MIN_WARPS ? G_MIN_WARPS : w > G_MAX_WARPS ? G_MAX_WARPS : w;
 }
 
-template <typename T, bool DROP, int RG>
+// Batch elements of one K2ab block that sums dbias, on a card of `sms`
+// multiprocessors (kernels/gat.dbias_groups, which the launcher checks
+// against this): one group a multiprocessor, as K2ab runs one block on each,
+// and at least two elements a group, so the partials never grow to (B, N, N).
+__host__ __device__ inline int graph_dbias_group(int B, int sms) {
+  const int g = (B + sms - 1) / sms;
+  const int at_least = g < 2 ? 2 : g;
+  return at_least < B ? at_least : B;
+}
+
+template <typename T, bool DROP, int RG, bool DBIAS>
 __global__ void __launch_bounds__(G_MAX_WARPS * 32, 1)
 gatv2_bwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
                        const T* __restrict__ a, const T* __restrict__ v, Args g,
                        T* __restrict__ dp, T* __restrict__ dq, T* __restrict__ dv,
-                       float* __restrict__ da_part) {
+                       float* __restrict__ da_part, float* __restrict__ dbias_part,
+                       int group) {
   extern __shared__ float smem[];
   const int N = g.N, E = g.E, D = g.D;
   const GraphLayout L(N, E, D);
@@ -466,192 +493,203 @@ gatv2_bwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
   float* dvec_s = l_s + L.N4;               // [N4]
   float* ds_s = dvec_s + L.N4;              // [N4][NSD]
   float* wa_s = ds_s + L.N4 * L.NSD;        // [N4][NSW]
-  const int b = blockIdx.x, nt = blockDim.x;
+  const int nt = blockDim.x;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = nt / 32;
-  const size_t bNE = (size_t)b * N * E, bND = (size_t)b * N * D;
   const int EG = (E + 3) / 4, DG = (D + 3) / 4, T4 = L.N4 / 4;
-
-  stage_padded(p_s, p + bNE, N, E, L.N4, L.EP);
-  stage_padded(q_s, q + bNE, N, E, L.N4, L.EP);
-  stage_padded(a_s, a, 1, E, 1, L.EP);
-  stage_padded(v_s, v + bND, N, D, L.N4, L.DP);
-  stage_padded(du_s, g.du + bND, N, D, L.N4, L.DP);
-  for (int x = threadIdx.x; x < L.N4; x += nt) {
-    const bool in = x < N;
-    m_s[x] = in ? g.m[(size_t)b * N + x] : 0.f;
-    l_s[x] = in ? g.l[(size_t)b * N + x] : 1.f;
-    dvec_s[x] = in ? g.dvec[(size_t)b * N + x] : 0.f;
-  }
-  __syncthreads();
-
-  // 1. ds and wa: items (micro-tile, split), a tile's splits on neighbouring
-  // lanes; every lane of a warp runs each round, for the shuffles.
+  const int b_first = blockIdx.x * group, b_end = min(g.B, b_first + group);
+  float* part = DBIAS ? dbias_part + (size_t)blockIdx.x * N * N : nullptr;
   const uint32_t seed = read_seed(g);
-  const int items = T4 * T4 * G_SPLIT;
-  for (int base = warp * 32; base < items; base += nt) {
-    const int item = base + lane;
-    const int tile = item < items ? item / G_SPLIT : 0;
-    const int sp = lane % G_SPLIT;
-    const int i0 = tile / T4 * 4, j0 = tile % T4 * 4;
-    float s[16], dot[16];
-#pragma unroll
-    for (int x = 0; x < 16; ++x) s[x] = dot[x] = 0.f;
-    for (int eg = sp; eg < EG; eg += G_SPLIT) {
-      float4 pr[4], qc[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pr[r] = load4(p_s + (i0 + r) * L.EP + 4 * eg);
-        qc[r] = load4(q_s + (j0 + r) * L.EP + 4 * eg);
-      }
-      const float4 av = load4(a_s + 4 * eg);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r * 4 + c] = score4(pr[r], qc[c], av, s[r * 4 + c], g.alpha);
-    }
-    for (int dg = sp; dg < DG; dg += G_SPLIT) {
-      float4 ur[4], vc[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        ur[r] = load4(du_s + (i0 + r) * L.DP + 4 * dg);
-        vc[r] = load4(v_s + (j0 + r) * L.DP + 4 * dg);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float& d = dot[r * 4 + c];
-          d = fmaf(ur[r].x, vc[c].x, d);
-          d = fmaf(ur[r].y, vc[c].y, d);
-          d = fmaf(ur[r].z, vc[c].z, d);
-          d = fmaf(ur[r].w, vc[c].w, d);
-        }
-    }
-    // split sp now holds pairs sp * 16 / G_SPLIT + x (row-major in the tile)
-    reduce_scatter<16, G_SPLIT>(s, lane);
-    reduce_scatter<16, G_SPLIT>(dot, lane);
-    if (item < items) {
-#pragma unroll
-      for (int x = 0; x < 16 / G_SPLIT; ++x) {
-        const int pair = sp * (16 / G_SPLIT) + x;
-        const int i = i0 + pair / 4, j = j0 + pair % 4;
-        float dsv = 0.f, wav = 0.f;
-        if (i < N && j < N) {
-          float sv = s[x];
-          if (g.bias != nullptr) sv += g.bias[(size_t)i * N + j];
-          const float w = expf(sv - m_s[i]) / l_s[i];
-          float w_agg = w;
-          if constexpr (DROP) {
-            w_agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < g.thresh
-                        ? w * g.scale : 0.f;
-          }
-          wav = w_agg;
-          dsv = w_agg * dot[x] - w * dvec_s[i];
-        }
-        ds_s[i * L.NSD + j] = dsv;
-        wa_s[i * L.NSW + j] = wav;
-      }
-    }
-  }
-  __syncthreads();
+  stage_padded(a_s, a, 1, E, 1, L.EP);
 
-  // 2. dv_jd = sum_i wa_ij du_id: a thread owns 4 keys x 4 columns.
-  for (int item = threadIdx.x; item < T4 * DG; item += nt) {
-    const int j0 = item / DG * 4, d0 = item % DG * 4;
-    float acc[4][4];
+  for (int b = b_first; b < b_end; ++b) {
+    if (b != b_first) __syncthreads();        // the previous element's readers are done
+    const size_t bNE = (size_t)b * N * E, bND = (size_t)b * N * D;
+    stage_padded(p_s, p + bNE, N, E, L.N4, L.EP);
+    stage_padded(q_s, q + bNE, N, E, L.N4, L.EP);
+    stage_padded(v_s, v + bND, N, D, L.N4, L.DP);
+    stage_padded(du_s, g.du + bND, N, D, L.N4, L.DP);
+    for (int x = threadIdx.x; x < L.N4; x += nt) {
+      const bool in = x < N;
+      m_s[x] = in ? g.m[(size_t)b * N + x] : 0.f;
+      l_s[x] = in ? g.l[(size_t)b * N + x] : 1.f;
+      dvec_s[x] = in ? g.dvec[(size_t)b * N + x] : 0.f;
+    }
+    __syncthreads();
+
+    // 1. ds and wa: items (micro-tile, split), a tile's splits on neighbouring
+    // lanes; every lane of a warp runs each round, for the shuffles.
+    const int items = T4 * T4 * G_SPLIT;
+    for (int base = warp * 32; base < items; base += nt) {
+      const int item = base + lane;
+      const int tile = item < items ? item / G_SPLIT : 0;
+      const int sp = lane % G_SPLIT;
+      const int i0 = tile / T4 * 4, j0 = tile % T4 * 4;
+      float s[16], dot[16];
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+      for (int x = 0; x < 16; ++x) s[x] = dot[x] = 0.f;
+      for (int eg = sp; eg < EG; eg += G_SPLIT) {
+        float4 pr[4], qc[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[c][k] = 0.f;
-    for (int i = 0; i < N; ++i) {
-      const float4 w4 = load4(wa_s + i * L.NSW + j0);
-      const float4 u4 = load4(du_s + i * L.DP + d0);
-      const float wv[4] = {w4.x, w4.y, w4.z, w4.w}, uv[4] = {u4.x, u4.y, u4.z, u4.w};
+        for (int r = 0; r < 4; ++r) {
+          pr[r] = load4(p_s + (i0 + r) * L.EP + 4 * eg);
+          qc[r] = load4(q_s + (j0 + r) * L.EP + 4 * eg);
+        }
+        const float4 av = load4(a_s + 4 * eg);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s[r * 4 + c] = score4(pr[r], qc[c], av, s[r * 4 + c], g.alpha);
+      }
+      for (int dg = sp; dg < DG; dg += G_SPLIT) {
+        float4 ur[4], vc[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          ur[r] = load4(du_s + (i0 + r) * L.DP + 4 * dg);
+          vc[r] = load4(v_s + (j0 + r) * L.DP + 4 * dg);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float& d = dot[r * 4 + c];
+            d = fmaf(ur[r].x, vc[c].x, d);
+            d = fmaf(ur[r].y, vc[c].y, d);
+            d = fmaf(ur[r].z, vc[c].z, d);
+            d = fmaf(ur[r].w, vc[c].w, d);
+          }
+      }
+      // split sp now holds pairs sp * 16 / G_SPLIT + x (row-major in the tile)
+      reduce_scatter<16, G_SPLIT>(s, lane);
+      reduce_scatter<16, G_SPLIT>(dot, lane);
+      if (item < items) {
+#pragma unroll
+        for (int x = 0; x < 16 / G_SPLIT; ++x) {
+          const int pair = sp * (16 / G_SPLIT) + x;
+          const int i = i0 + pair / 4, j = j0 + pair % 4;
+          float dsv = 0.f, wav = 0.f;
+          if (i < N && j < N) {
+            float sv = s[x];
+            if (g.bias != nullptr) sv += g.bias[(size_t)i * N + j];
+            const float w = expf(sv - m_s[i]) / l_s[i];
+            float w_agg = w;
+            if constexpr (DROP) {
+              w_agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < g.thresh
+                          ? w * g.scale : 0.f;
+            }
+            wav = w_agg;
+            dsv = w_agg * dot[x] - w * dvec_s[i];
+            if constexpr (DBIAS) {
+              float& acc = part[(size_t)i * N + j];
+              acc = b != b_first ? acc + dsv : dsv;
+            }
+          }
+          ds_s[i * L.NSD + j] = dsv;
+          wa_s[i * L.NSW + j] = wav;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. dv_jd = sum_i wa_ij du_id: a thread owns 4 keys x 4 columns.
+    for (int item = threadIdx.x; item < T4 * DG; item += nt) {
+      const int j0 = item / DG * 4, d0 = item % DG * 4;
+      float acc[4][4];
 #pragma unroll
       for (int c = 0; c < 4; ++c)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[c][k] = fmaf(wv[c], uv[k], acc[c][k]);
-    }
+        for (int k = 0; k < 4; ++k) acc[c][k] = 0.f;
+      for (int i = 0; i < N; ++i) {
+        const float4 w4 = load4(wa_s + i * L.NSW + j0);
+        const float4 u4 = load4(du_s + i * L.DP + d0);
+        const float wv[4] = {w4.x, w4.y, w4.z, w4.w}, uv[4] = {u4.x, u4.y, u4.z, u4.w};
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (j0 + c < N && d0 + k < D) dv[bND + (size_t)(j0 + c) * D + d0 + k] = from_f<T>(acc[c][k]);
-  }
-
-  // 3. dp, dq, da: a thread owns float4 group eg and rows rg + RG r; the RG
-  // row groups of a float4 group are neighbouring lanes.
-  constexpr int EL = 32 / RG;               // float4 groups per warp
-  const int rg = lane % RG, egl = lane / RG;
-  const float alpha = g.alpha;
-  for (int eb = 0; eb < EG; eb += warps * EL) {
-    const int eg = eb + warp * EL + egl;
-    const bool live = eg < EG;
-    const int e0 = live ? 4 * eg : 0;
-    float dpa[G_RMAX][4], da[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < G_RMAX; ++r)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) dpa[r][k] = 0.f;
-    for (int j0 = 0; j0 < L.N4; j0 += 4) {
-      // the chunk's four q vectors stay in registers and a row's p is read
-      // once a chunk (one float4 read for 16 (i, j, e)): holding every row's
-      // p instead spilled at 128 registers and was slower (PERF.md)
-      float qv[4][4], dqa[16];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 q4 = load4(q_s + (j0 + c) * L.EP + e0);
-        qv[c][0] = q4.x, qv[c][1] = q4.y, qv[c][2] = q4.z, qv[c][3] = q4.w;
+          for (int k = 0; k < 4; ++k) acc[c][k] = fmaf(wv[c], uv[k], acc[c][k]);
       }
 #pragma unroll
-      for (int x = 0; x < 16; ++x) dqa[x] = 0.f;
+      for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int r = 0; r < G_RMAX; ++r) {
-        const int i = rg + RG * r;
-        if (RG * r < L.N4) {                // warp-uniform: some row of the group is real
-          const bool in = i < L.N4;
-          const float4 p4 = in ? load4(p_s + i * L.EP + e0) : make_float4(0.f, 0.f, 0.f, 0.f);
-          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+        for (int k = 0; k < 4; ++k)
+          if (j0 + c < N && d0 + k < D)
+            dv[bND + (size_t)(j0 + c) * D + d0 + k] = from_f<T>(acc[c][k]);
+    }
+
+    // 3. dp, dq, da: a thread owns float4 group eg and rows rg + RG r; the RG
+    // row groups of a float4 group are neighbouring lanes.
+    constexpr int EL = 32 / RG;               // float4 groups per warp
+    const int rg = lane % RG, egl = lane / RG;
+    const float alpha = g.alpha;
+    for (int eb = 0; eb < EG; eb += warps * EL) {
+      const int eg = eb + warp * EL + egl;
+      const bool live = eg < EG;
+      const int e0 = live ? 4 * eg : 0;
+      float dpa[G_RMAX][4], da[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float d = in ? ds_s[i * L.NSD + j0 + c] : 0.f;
-            const float ad = alpha * d;
+      for (int r = 0; r < G_RMAX; ++r)
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float z = pv[k] + qv[c][k];
-              const float gk = z >= 0.f ? d : ad;
-              dpa[r][k] += gk;
-              dqa[c * 4 + k] += gk;
-              da[k] = fmaf(gk, z, da[k]);
+        for (int k = 0; k < 4; ++k) dpa[r][k] = 0.f;
+      for (int j0 = 0; j0 < L.N4; j0 += 4) {
+        // the chunk's four q vectors stay in registers and a row's p is read
+        // once a chunk (one float4 read for 16 (i, j, e)): holding every row's
+        // p instead spilled at 128 registers and was slower (PERF.md)
+        float qv[4][4], dqa[16];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 q4 = load4(q_s + (j0 + c) * L.EP + e0);
+          qv[c][0] = q4.x, qv[c][1] = q4.y, qv[c][2] = q4.z, qv[c][3] = q4.w;
+        }
+#pragma unroll
+        for (int x = 0; x < 16; ++x) dqa[x] = 0.f;
+#pragma unroll
+        for (int r = 0; r < G_RMAX; ++r) {
+          const int i = rg + RG * r;
+          if (RG * r < L.N4) {                // warp-uniform: some row of the group is real
+            const bool in = i < L.N4;
+            const float4 p4 = in ? load4(p_s + i * L.EP + e0) : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float d = in ? ds_s[i * L.NSD + j0 + c] : 0.f;
+              const float ad = alpha * d;
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const float z = pv[k] + qv[c][k];
+                const float gk = z >= 0.f ? d : ad;
+                dpa[r][k] += gk;
+                dqa[c * 4 + k] += gk;
+                da[k] = fmaf(gk, z, da[k]);
+              }
             }
           }
         }
+        reduce_scatter<16, RG>(dqa, lane);
+#pragma unroll
+        for (int x = 0; x < 16 / RG; ++x) {
+          const int idx = rg * (16 / RG) + x;
+          const int j = j0 + idx / 4, e = e0 + idx % 4;
+          if (live && j < N && e < E) dq[bNE + (size_t)j * E + e] = from_f<T>(a_s[e] * dqa[x]);
+        }
       }
-      reduce_scatter<16, RG>(dqa, lane);
 #pragma unroll
-      for (int x = 0; x < 16 / RG; ++x) {
-        const int idx = rg * (16 / RG) + x;
-        const int j = j0 + idx / 4, e = e0 + idx % 4;
-        if (live && j < N && e < E) dq[bNE + (size_t)j * E + e] = from_f<T>(a_s[e] * dqa[x]);
+      for (int r = 0; r < G_RMAX; ++r) {
+        const int i = rg + RG * r;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (live && i < N && e0 + k < E)
+            dp[bNE + (size_t)i * E + e0 + k] = from_f<T>(a_s[e0 + k] * dpa[r][k]);
       }
+#pragma unroll
+      for (int o = 1; o < RG; o *= 2)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) da[k] += __shfl_xor_sync(0xffffffffu, da[k], o);
+      if (live && rg == 0)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (e0 + k < E) da_part[(size_t)b * E + e0 + k] = da[k];
     }
-#pragma unroll
-    for (int r = 0; r < G_RMAX; ++r) {
-      const int i = rg + RG * r;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (live && i < N && e0 + k < E)
-          dp[bNE + (size_t)i * E + e0 + k] = from_f<T>(a_s[e0 + k] * dpa[r][k]);
-    }
-#pragma unroll
-    for (int o = 1; o < RG; o *= 2)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) da[k] += __shfl_xor_sync(0xffffffffu, da[k], o);
-    if (live && rg == 0)
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (e0 + k < E) da_part[(size_t)b * E + e0 + k] = da[k];
-  }
+  }  // batch element b
 }
 
 // ---- launch ---------------------------------------------------------------
@@ -699,26 +737,52 @@ int dq_dv(const void* p, const void* q, const void* a, const void* v, const Args
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool DROP, int RG>
-int graph_rg(const void* p, const void* q, const void* a, const void* v, const Args& g,
-             void* dp, void* dq, void* dv, void* da_part, void* stream) {
-  auto kernel = gatv2_bwd_graph_kernel<T, DROP, RG>;
+// K2ab's outputs and its batch groups: one launch's pointers.
+struct GraphOut {
+  void *dp, *dq, *dv, *da_part, *dbias_part;
+  int group;
+};
+
+// Launches K2ab, or with occupancy non-null only reads how many of its
+// blocks a multiprocessor holds at once.
+template <typename T, bool DROP, int RG, bool DBIAS>
+int graph_launch(const void* p, const void* q, const void* a, const void* v, const Args& g,
+                 const GraphOut& o, void* stream, int* occupancy) {
+  auto kernel = gatv2_bwd_graph_kernel<T, DROP, RG, DBIAS>;
   const size_t floats = GraphLayout(g.N, g.E, g.D).floats();
   if (int err = prepare(kernel, floats)) return err;
-  kernel<<<g.B, graph_warps(g.N, g.E) * 32, floats * sizeof(float), (cudaStream_t)stream>>>(
-      (const T*)p, (const T*)q, (const T*)a, (const T*)v, g, (T*)dp, (T*)dq, (T*)dv,
-      (float*)da_part);
+  const int threads = graph_warps(g.N, g.E) * 32;
+  if (occupancy != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, threads,
+                                                              floats * sizeof(float));
+  kernel<<<(g.B + o.group - 1) / o.group, threads, floats * sizeof(float),
+           (cudaStream_t)stream>>>((const T*)p, (const T*)q, (const T*)a, (const T*)v, g,
+                                   (T*)o.dp, (T*)o.dq, (T*)o.dv, (float*)o.da_part,
+                                   (float*)o.dbias_part, o.group);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool DROP>
-int graph(const void* p, const void* q, const void* a, const void* v, const Args& g,
-          void* dp, void* dq, void* dv, void* da_part, void* stream) {
+template <typename T, bool DROP, bool DBIAS>
+int graph_db(const void* p, const void* q, const void* a, const void* v, const Args& g,
+             const GraphOut& o, void* stream, int* occupancy) {
   switch (graph_row_groups(g.N)) {
-    case 8: return graph_rg<T, DROP, 8>(p, q, a, v, g, dp, dq, dv, da_part, stream);
-    case 16: return graph_rg<T, DROP, 16>(p, q, a, v, g, dp, dq, dv, da_part, stream);
+    case 8: return graph_launch<T, DROP, 8, DBIAS>(p, q, a, v, g, o, stream, occupancy);
+    case 16: return graph_launch<T, DROP, 16, DBIAS>(p, q, a, v, g, o, stream, occupancy);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// dbias is summed where the caller gives it a partial (K2c's function too),
+// not otherwise: then the kernel is K2a and K2b alone.
+template <typename T>
+int graph(const void* p, const void* q, const void* a, const void* v, const Args& g,
+          const GraphOut& o, void* stream, int* occupancy = nullptr) {
+  if (o.group < 1) return (int)cudaErrorInvalidValue;
+  const bool drop = g.seed != nullptr, dbias = o.dbias_part != nullptr;
+  return drop ? (dbias ? graph_db<T, true, true>(p, q, a, v, g, o, stream, occupancy)
+                       : graph_db<T, true, false>(p, q, a, v, g, o, stream, occupancy))
+              : (dbias ? graph_db<T, false, true>(p, q, a, v, g, o, stream, occupancy)
+                       : graph_db<T, false, false>(p, q, a, v, g, o, stream, occupancy));
 }
 
 template <typename T, bool DROP>
@@ -756,24 +820,46 @@ long gatv2_bwd_smem_bytes(int which, int N, int E, int D) {
   return (long)(f * sizeof(float));
 }
 
-// K2ab's embedding splits of the score pass, and its row groups of the
-// contraction at graph size N (0 where N is too large for it).
+// K2ab's embedding splits of the score pass, its row groups of the
+// contraction at graph size N (0 where N is too large for it), and the batch
+// elements a block sums dbias over at batch B on a card of `sms`
+// multiprocessors.
 int gatv2_bwd_graph_split() { return G_SPLIT; }
 int gatv2_bwd_graph_row_groups(int N) { return graph_row_groups(N); }
+int gatv2_bwd_graph_dbias_group(int B, int sms) { return graph_dbias_group(B, sms); }
 
 // K2ab: dp, dq (B, N, E) and dv (B, N, D) in T; da_part is (B, E) float32,
-// one row per batch element: the caller sums its rows.
+// one row per batch element: the caller sums its rows. With dbias_part
+// non-null a block takes `group` batch elements and writes their sum of ds
+// into its (N, N) float32 slice of dbias_part (ceil(B / group), N, N): the
+// caller sums the slices. Without it, pass group 1.
 int gatv2_bwd_graph_f32(GAT_BWD_ARGS, void* dp, void* dq, void* dv, void* da_part,
-                        GAT_BWD_SIZES, GAT_BWD_DROP) {
-  const Args g = GAT_BWD_G;
-  return seed ? graph<float, true>(p, q, a, v, g, dp, dq, dv, da_part, stream)
-              : graph<float, false>(p, q, a, v, g, dp, dq, dv, da_part, stream);
+                        void* dbias_part, GAT_BWD_SIZES, int group, GAT_BWD_DROP) {
+  return graph<float>(p, q, a, v, GAT_BWD_G, GraphOut{dp, dq, dv, da_part, dbias_part, group},
+                      stream);
 }
 int gatv2_bwd_graph_bf16(GAT_BWD_ARGS, void* dp, void* dq, void* dv, void* da_part,
-                         GAT_BWD_SIZES, GAT_BWD_DROP) {
-  const Args g = GAT_BWD_G;
-  return seed ? graph<__nv_bfloat16, true>(p, q, a, v, g, dp, dq, dv, da_part, stream)
-              : graph<__nv_bfloat16, false>(p, q, a, v, g, dp, dq, dv, da_part, stream);
+                         void* dbias_part, GAT_BWD_SIZES, int group, GAT_BWD_DROP) {
+  return graph<__nv_bfloat16>(p, q, a, v, GAT_BWD_G,
+                              GraphOut{dp, dq, dv, da_part, dbias_part, group}, stream);
+}
+
+// Blocks of the K2ab instantiation for (bf16, dropout, dbias) that one
+// multiprocessor holds at once at graph size N and widths E, D (CUDA's
+// occupancy calculator: shared memory, registers, threads); negative on a
+// CUDA error.
+int gatv2_bwd_graph_occupancy(int N, int E, int D, int bf16, int drop, int dbias) {
+  long long one = 0;
+  float part = 0.f;
+  const Args g = make_args(nullptr, drop ? &one : nullptr, nullptr, nullptr, nullptr, nullptr,
+                           1, N, E, D, 0.f, 0u, 1.f);
+  const GraphOut o{nullptr, nullptr, nullptr, nullptr, dbias ? &part : nullptr, 1};
+  int blocks = 0;
+  const int err = bf16 ? graph<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, g, o,
+                                              nullptr, &blocks)
+                       : graph<float>(nullptr, nullptr, nullptr, nullptr, g, o, nullptr,
+                                      &blocks);
+  return err ? -err : blocks;
 }
 
 // K2a. da_part is (B * ceil(N / 16), E) float32: the caller sums its rows.

@@ -20,8 +20,11 @@ those of ``mtad_gat_tpu/kernels/gat_pallas.py``:
 - K2a ``gatv2_bwd_dp_da``, K2b ``gatv2_bwd_dq_dv``, K2c ``gatv2_bwd_dbias``:
   ``_bwd_dp_da_kernel``, ``_bwd_dq_dv_kernel``, ``_bwd_dbias_kernel``;
 - K2ab ``gatv2_bwd_graph``: K2a and K2b in one launch for a graph that fits
-  a block whole (the model's), each (i, j) pair scored once.
-  ``gatv2_bwd`` runs K2ab or K2a then K2b, as ``gat_bwd_plan`` decides.
+  a block whole (the model's), each (i, j) pair scored once, and K2c's dbias
+  in the same pass where the call wants it (a block sums it over a group of
+  batch elements, ``dbias_groups``).
+  ``gatv2_bwd`` runs K2ab, or K2a then K2b (and K2c), as ``gat_bwd_plan``
+  decides.
 
 What bounds them on the card: the score is float32 work on the CUDA cores
 (4 operations per (i, j, e), recomputed by each tiled backward kernel and
@@ -30,7 +33,8 @@ backward's contractions), with no
 product structure for the tensor cores; at the model's
 graph sizes that work outweighs the bytes of the inputs. Every kernel keeps
 its tiles' operands in shared memory and recomputes weights from (m, l), so
-no (N, N) tensor is written to device memory except dbias itself
+no (N, N) tensor is written to device memory except dbias and its partial
+sums, one per batch chunk (K2c) or group (K2ab), never one per batch element
 (``csrc/gat_fwd.cu`` and ``csrc/gat_bwd.cu`` say more). The TPU kernels'
 VMEM tiling plan (``_Plan``) and lane padding are not carried over: the CUDA
 kernels pick their own tiles and mask ragged edges.
@@ -247,7 +251,7 @@ def _bwd_lib() -> ctypes.CDLL:
             fn.argtypes = [ptr] * 11 + [i32] * 5 + tail
             fn.restype = i32
             fn = getattr(lib, f"gatv2_bwd_graph_{dt}")
-            fn.argtypes = [ptr] * 14 + [i32] * 4 + tail
+            fn.argtypes = [ptr] * 15 + [i32] * 5 + tail
             fn.restype = i32
         lib.gatv2_bwd_smem_bytes.argtypes = [i32] * 4
         lib.gatv2_bwd_smem_bytes.restype = ctypes.c_long
@@ -255,6 +259,10 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.gatv2_bwd_graph_split.restype = i32
         lib.gatv2_bwd_graph_row_groups.argtypes = [i32]
         lib.gatv2_bwd_graph_row_groups.restype = i32
+        lib.gatv2_bwd_graph_dbias_group.argtypes = [i32, i32]
+        lib.gatv2_bwd_graph_dbias_group.restype = i32
+        lib.gatv2_bwd_graph_occupancy.argtypes = [i32] * 6
+        lib.gatv2_bwd_graph_occupancy.restype = i32
         lib._typed = True
     return lib
 
@@ -299,13 +307,26 @@ def gat_bwd_smem_bytes(N: int, E: int, D: int) -> int:
 def gat_bwd_plan(N: int, E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> str:
     """Which backward runs a graph of N nodes at widths E (score) and D
     (values) on a card whose blocks may use ``smem_limit`` bytes of shared
-    memory: "graph" (K2ab, one block holds a batch element's whole graph)
-    where the graph fits a block, else "tiled" (K2a then K2b)."""
+    memory: "graph" (K2ab, one block holds a batch element's whole graph, and
+    sums dbias too) where the graph fits a block, else "tiled" (K2a then K2b,
+    and K2c for dbias)."""
     if min(N, E, D) < 1:
         raise ValueError(f"gat_bwd_plan: empty graph or width (N {N}, E {E}, D {D})")
     if graph_row_groups(N) and gat_bwd_smem_bytes(N, E, D) <= smem_limit:
         return "graph"
     return "tiled"
+
+
+def dbias_groups(B: int, sms: int) -> int:
+    """Batch elements G of a K2ab block that sums dbias, on a card of
+    ``sms`` multiprocessors: K2ab runs one block a multiprocessor (its
+    shared memory and registers, PERF.md), so one group each, and at least
+    two elements a group, so that the ceil(B / G) partials of (N, N) are
+    never a (B, N, N) tensor; all of B where B is smaller. Groups are
+    contiguous runs of G batch elements, the last one ragged."""
+    if B < 1 or sms < 1:
+        raise ValueError(f"dbias_groups: batch {B}, multiprocessors {sms}")
+    return min(B, max(2, -(-B // sms)))
 
 
 # ---------------------------------------------------------------------------
@@ -600,46 +621,76 @@ def _check_graph_layout(N: int, E: int, D: int) -> None:
                            f"row groups) {built} differ from this module's")
 
 
+@functools.lru_cache(maxsize=None)
+def _check_dbias_group(B: int, sms: int) -> int:
+    """``dbias_groups`` for a launch, refused where the built kernel's own
+    rule gives another group (once per batch and card)."""
+    group = dbias_groups(B, sms)
+    built = _bwd_lib().gatv2_bwd_graph_dbias_group(B, sms)
+    if built != group:
+        raise RuntimeError(f"gatv2_bwd_graph: the built kernel groups {built} batch elements "
+                           f"a block at batch {B} on {sms} multiprocessors, this module {group}")
+    return group
+
+
 def gatv2_bwd_graph(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
-                    rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
+                    rate: float = 0.0, dbias: bool = False) -> Tuple[torch.Tensor, ...]:
     """K2ab on CUDA tensors: K2a's and K2b's outputs (dp, dq, da, dv) in one
-    launch, one block per batch element holding its whole graph; inputs as
-    ``gatv2_bwd_dp_da``. Raises where ``gat_bwd_plan`` names "tiled"."""
+    launch, one block per batch element holding its whole graph, and, with
+    ``dbias``, K2c's dbias (N, N) float32 from the same pass, each block
+    summing ds over ``dbias_groups`` batch elements (else None); inputs as
+    ``gatv2_bwd_dp_da``. Raises where ``gat_bwd_plan`` names "tiled".
+    Counts its launches, and those that summed dbias under
+    ``launches_by_variant``."""
     _check("gatv2_bwd_graph", p, q, a, bias, v)
+    if dbias and bias is None:
+        raise ValueError("gatv2_bwd_graph: dbias asked for a call without a bias")
     B, N, E = p.shape
     D = v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=p.device)
     dp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if B == 0 or N == 0:
-        return dp, dq, torch.zeros((E,), dtype=torch.float32, device=p.device), dv
+        return (dp, dq, torch.zeros((E,), **f32), dv,
+                torch.zeros((N, N), **f32) if dbias else None)
     _check_graph_layout(N, E, D)
-    da_part = torch.empty((B, E), dtype=torch.float32, device=p.device)
+    group = _check_dbias_group(B, _build.sm_count(p.device)) if dbias else 1
+    da_part = torch.empty((B, E), **f32)
+    part = torch.empty((-(-B // group), N, N), **f32) if dbias else None
     _bwd_launch(3, "gatv2_bwd_graph", p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
-                (dp, dq, dv, da_part))
+                (dp, dq, dv, da_part, part), (group,))
     gatv2_bwd_graph.launches += 1
-    return dp, dq, da_part.sum(dim=0), dv
+    gatv2_bwd_graph.launches_by_variant["dbias" if dbias else "no_dbias"] += 1
+    dbias_sum = None
+    if part is not None:
+        dbias_sum = part[0] if part.shape[0] == 1 else part.sum(dim=0)
+    return dp, dq, da_part.sum(dim=0), dv, dbias_sum
 
 
 gatv2_bwd_graph.launches = 0
+gatv2_bwd_graph.launches_by_variant = {"dbias": 0, "no_dbias": 0}
 
 
 def gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
-              rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
-    """The attention backward but dbias, on CUDA tensors: (dp, dq, da, dv)
+              rate: float = 0.0, dbias: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The attention backward on CUDA tensors: (dp, dq, da, dv, dbias)
     through the variant ``gat_bwd_plan`` names for the shape, K2ab alone
-    ("graph") or K2a then K2b ("tiled"), recorded in
-    ``gatv2_bwd.last_launch``."""
+    ("graph", dbias from the same launch) or K2a then K2b ("tiled", dbias
+    from K2c), recorded in ``gatv2_bwd.last_launch`` with the kernel that
+    gave dbias; dbias is None unless asked for."""
     _, N, E = p.shape
     variant = gat_bwd_plan(max(N, 1), E, max(v.shape[-1], 1))
     args = (p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate)
     if variant == "graph":
-        out = gatv2_bwd_graph(*args)
+        out = gatv2_bwd_graph(*args, dbias=dbias)
     else:
         dp, da = gatv2_bwd_dp_da(*args)
         dq, dv = gatv2_bwd_dq_dv(*args)
-        out = (dp, dq, da, dv)
-    gatv2_bwd.last_launch = {"variant": variant}
+        out = (dp, dq, da, dv, gatv2_bwd_dbias(*args) if dbias else None)
+    gatv2_bwd.last_launch = {"variant": variant,
+                             "dbias": None if not dbias else "k2ab" if variant == "graph"
+                             else "k2c"}
     return out
 
 
@@ -704,10 +755,9 @@ class _GATv2Attention(torch.autograd.Function):
             dp, dq, da, dbias, dv = gatv2_attention_bwd_plain(p, q, a, bias, v, du, *args)
         else:
             dvec = (du * u).sum(dim=-1)
-            dp, dq, da, dv = gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, *args)
-            dbias = None
-            if bias is not None and ctx.needs_input_grad[3]:
-                dbias = gatv2_bwd_dbias(p, q, a, bias, v, m, l, du, dvec, *args)
+            want_dbias = bias is not None and ctx.needs_input_grad[3]
+            dp, dq, da, dv, dbias = gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, *args,
+                                              dbias=want_dbias)
         if dbias is not None:
             dbias = dbias.to(bias.dtype)
         return (dp.to(p.dtype), dq.to(q.dtype), da.to(a.dtype), dbias, dv.to(v.dtype),
@@ -722,7 +772,7 @@ def gatv2_attention(
     """Fused GATv2 attention with gradients and attention dropout at
     ``rate`` (0 in eval), keyed by ``seed`` (an int, or one int64 value on
     the inputs' device). Where a gradient is needed, or dropout is on, it
-    runs K1-res forward (and K2a-c backward); otherwise K1 alone."""
+    runs K1-res forward (and K2ab, or K2a-c, backward); otherwise K1 alone."""
     if rate > 0.0 or _needs_grad(p, q, a, bias, v):
         return _GATv2Attention.apply(p, q, a, bias, v, alpha, seed, rate)
     return gatv2_attention_fwd(p, q, a, bias, v, alpha)

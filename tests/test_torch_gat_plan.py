@@ -42,6 +42,13 @@ forward K1 / K1-res and the backward K2ab), on the CPU.
   package's backward (``jax.vjp`` of the fused attention with its Pallas
   kernels in interpret mode) within 1e-5, float32, at dropout 0 and 0.3,
   with and without bias, at ragged N (5, 38, 70: both row-group layouts).
+- K2ab's dbias (K2c's function, summed in the same pass where the call
+  wants it): ``dbias_groups``, the batch elements a block sums ds over (the
+  groups non-empty, covering the batch, monotone in it, never one per
+  element), and the slice model's dbias, summed by group in batch order then
+  over the groups, against the plain backward's (float32 and float64) and
+  the JAX package's K2c (interpret mode), at dropout 0 and 0.3 and with a
+  ragged last group.
 
 Inputs are drawn with numpy from a seed. The CUDA kernel itself runs on the
 card only, where ``chip_smoke.py`` holds it against the plain version.
@@ -174,8 +181,10 @@ def _scores_by_slices(p, q, a, bias):
     return s if bias is None else s + bias
 
 
-def _graph_bwd_by_slices(p, q, a, bias, v, m, l, du, dvec, seed, rate):
-    """(dp, dq, da, dv) as K2ab computes them, in float32."""
+def _graph_bwd_by_slices(p, q, a, bias, v, m, l, du, dvec, seed, rate, group=2):
+    """(dp, dq, da, dv, dbias) as K2ab computes them, in float32; dbias (None
+    without a bias) summed over contiguous groups of ``group`` batch
+    elements in batch order (a block's partial), then over the groups."""
     B, N, E = p.shape
     D = v.shape[-1]
     n4, eg = tgat._up4(N), -(-E // 4)
@@ -214,7 +223,19 @@ def _graph_bwd_by_slices(p, q, a, bias, v, m, l, du, dvec, seed, rate):
     da = da_b[0]
     for b in range(1, B):
         da = da + da_b[b]
-    return (dp[:, :N, :E] * a, dq[:, :N, :E] * a, da[:E], dv)
+    dbias = None
+    if bias is not None:
+        parts = []
+        for g0 in range(0, B, group):
+            part = ds[g0]
+            for b in range(g0 + 1, min(B, g0 + group)):
+                part = part + ds[b]
+            parts.append(part)
+        dbias = parts[0]
+        for part in parts[1:]:
+            dbias = dbias + part
+        dbias = dbias[:N, :N]
+    return (dp[:, :N, :E] * a, dq[:, :N, :E] * a, da[:E], dv, dbias)
 
 
 def _case(seed, b, n, e, d, with_bias):
@@ -243,17 +264,20 @@ def _residuals(xs, g, rate):
 
 
 def _plain_bwd_f64(p, q, a, bias, v, du, rate):
-    """(dp, dq, da, dv) of the plain forward's u by autograd in float64."""
+    """(dp, dq, da, dv, dbias) of the plain forward's u by autograd in
+    float64 (dbias None without a bias)."""
     P, Q, V, A = (t.double().requires_grad_() for t in (p, q, v, a))
+    leaves = [P, Q, V, A]
     z = P[:, :, None, :] + Q[:, None, :, :]
     s = (torch.where(z >= 0, z, ALPHA * z) * A).sum(-1)
     if bias is not None:
-        s = s + bias.double()
+        leaves.append(bias.double().requires_grad_())
+        s = s + leaves[-1]
     w = torch.softmax(s, dim=-1)
     if rate > 0:
         w = torch.where(tgat.hash_keep_mask(SEED, *s.shape, rate), w / (1.0 - rate), 0.0)
-    dp, dq, dv, da = torch.autograd.grad(w @ V, (P, Q, V, A), du.double())
-    return dp, dq, da, dv
+    grads = torch.autograd.grad(w @ V, leaves, du.double())
+    return grads[0], grads[1], grads[3], grads[2], grads[4] if bias is not None else None
 
 
 SLICE_SHAPES = [(5, 12, 6), (38, 20, 10), (70, 9, 7)]
@@ -296,6 +320,82 @@ def test_slices_match_jax_pallas_backward(n, e, d, with_bias, rate):
     got = _graph_bwd_by_slices(*_residuals(xs, g, rate), SEED, rate)
     for name, x, y in zip(("dp", "dq", "da", "dv"), got, want):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0, atol=1e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K2ab's dbias (K2c's function in the same pass): its batch groups and its sums
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sms", [1, 7, 114, 132])
+def test_dbias_groups_cover_the_batch(sms):
+    """Every group is non-empty, the groups cover the batch exactly, G is
+    monotone in B, never one partial per element (but at B = 1), and no more
+    groups than multiprocessors (K2ab runs one block on each)."""
+    last = 0
+    for B in range(1, 1100):
+        G = tgat.dbias_groups(B, sms)
+        sizes = [min(G, B - g0) for g0 in range(0, B, G)]
+        assert min(sizes) >= 1 and sum(sizes) == B, (B, G)
+        assert G >= last, (B, G, last)
+        assert G >= min(B, 2) and len(sizes) <= sms, (B, G)
+        last = G
+
+
+def test_dbias_groups_at_the_flagship():
+    assert tgat.dbias_groups(256, 132) == 2            # 128 partials on an H100 SXM
+    assert tgat.dbias_groups(256, 114) == 3            # a 114-SM part: 86, the last of 1
+    assert tgat.dbias_groups(1024, 132) == 8           # 128 partials again
+    assert tgat.dbias_groups(1, 132) == 1 and tgat.dbias_groups(3, 132) == 2
+    for B, sms in ((0, 132), (4, 0)):
+        with pytest.raises(ValueError):
+            tgat.dbias_groups(B, sms)
+
+
+@pytest.mark.parametrize("batch", [2, 5], ids=["one_group", "ragged_groups"])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("n,e,d", SLICE_SHAPES)
+def test_dbias_slices_match_plain_backward(n, e, d, rate, batch):
+    """K2ab's dbias as the slice model sums it (ds by group of
+    ``dbias_groups`` batch elements in order, then over the groups; batch 5
+    is three groups of 2, 2 and 1) against the plain function in float64
+    within 1e-6 of the largest value (measured at most 5.5e-7) and against
+    ``gatv2_attention_bwd_plain`` in float32 within 2e-6 (measured at most
+    1.1e-6: ds itself is a few ulp off, as the weights are, and the plain
+    version sums the batch by autograd): the tolerances of the other
+    gradients above."""
+    xs, g = _case(7 * n + e + batch, batch, n, e, d, True)
+    p, q, a, bias, v, m, l, du, dvec = _residuals(xs, g, rate)
+    group = tgat.dbias_groups(batch, 132)
+    got = _graph_bwd_by_slices(p, q, a, bias, v, m, l, du, dvec, SEED, rate, group)[4]
+    want = tgat.gatv2_attention_bwd_plain(p, q, a, bias, v, du, ALPHA, SEED, rate)[3]
+    exact = _plain_bwd_f64(p, q, a, bias, v, du, rate)[4]
+    assert got.shape == (n, n) and torch.isfinite(got).all()
+    err64 = ((got.double() - exact).abs().max() / exact.abs().max()).item()
+    assert err64 <= 1e-6, err64
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err <= 2e-6, err
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("n,e,d", SLICE_SHAPES[:2])
+def test_dbias_slices_match_jax_pallas_backward(n, e, d, rate):
+    """The same dbias against the JAX package's backward with respect to the
+    bias (``jax.vjp`` of the fused attention, argument 3, its K2c Pallas
+    kernel in interpret mode), float32, batch 3 (a ragged last group), within
+    1e-5 as the other gradients."""
+    xs, g = _case(n * e + 3, 3, n, e, d, True)
+    jx = [jnp.asarray(x) for x in xs]
+
+    def fused(bias):
+        return gat_pallas._fused(jx[0], jx[1], jx[2], bias, jx[4],
+                                 jnp.full((1, 1), SEED, jnp.uint32), ALPHA, True, rate)
+
+    _, vjp = jax.vjp(fused, jx[3])
+    (want,) = vjp(jnp.asarray(g))
+    got = _graph_bwd_by_slices(*_residuals(xs, g, rate), SEED, rate,
+                               tgat.dbias_groups(3, 132))[4]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
