@@ -89,7 +89,32 @@ In order, each phase failing the run with a non-zero exit:
    some epochs after a warm-up one, and each epoch's own rate) with the
    plain GRU loop and with every kernel on, and device time by kernel over
    one profiled float32 epoch of each;
-10. one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, ...}``.
+10. ``long_window``: the port's ``Trainer`` at lookback 1024 on a band:128
+    temporal graph with the band-stored score bias (the block scan), batch
+    64, float32, dropout 0.3, ``gru_impl auto``: 2 epochs of 4 steps, finite
+    losses, K3 and K4 launch counts exact, windows/s and peak memory; then
+    the block scan and the unrolled banded path against the COO path at a
+    small size, forward and gradients;
+11. ``graph_cli``: ``train_cli --feature_graph knn:5 --temporal_graph
+    band:10`` (1 epoch) on the synthetic entity and ``predict_cli`` on its
+    run, the same summary; K3 and K4 launch as on the main path, the
+    attention kernels never (the graph variants run plain ops);
+12. ``dense_route``: ``attention_impl="dense"`` on complete GATv2 graphs.
+    At the flagship (batch 256, both layers) it stays dense, with no kernel
+    launch; with the route's threshold pinned to 1 byte the layer runs K1
+    (eval) or K1-res and K2ab (training) once a call and matches the dense
+    layer, output and gradients; at the first N the byte model routes on
+    this card (batch 1, e 76, d 38) it runs the tiled K1 in eval, and the
+    tiled K1-res, K2a, K2b and K2c in training at dropout 0.3, with exact
+    counts and peak memory; the output and the gradients (dp, dq, da,
+    dbias, dv) of both calls are held against the plain attention computed
+    by chunks of query rows on the same inputs; each tiled kernel's time by
+    CUDA graph beside its bound; then dense at the largest N below the
+    route, its peak memory within the byte model, its time beside the
+    kernels';
+13. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+    path, and the tiled kernels' times at the route's N) and, last,
+    ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -1291,6 +1316,463 @@ def profile_training(trainer, gru_impl, series, starts, mask) -> dict:
             "top": [{"kernel": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:16]]}
 
 
+# ---------------------------------------------------------------------------
+# The paths of the eighth slice: the dense route to the kernels, the long
+# window on a band, and the graph variants through the CLIs
+# ---------------------------------------------------------------------------
+
+ATTENTION_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_bwd_graph",
+                      "gatv2_bwd_dp_da", "gatv2_bwd_dq_dv", "gatv2_bwd_dbias")
+# the routed layer against the dense one on the same weights and inputs,
+# float32, TF32 off, dropout 0: the same function summed in other orders (a
+# few 1e-7 apart at the flagship widths), 1e-4 as the issue of this path asks
+ROUTE_TOL = 1e-4
+# the block scan against the COO path on the same inputs, float32, TF32 off
+SCAN_TOL = 1e-5
+
+
+def expect_counts(name: str, counts: dict, want: dict) -> None:
+    """Every counter not named in ``want`` must read 0."""
+    full = {k: 0 for k in counts}
+    full.update(want)
+    if counts != full:
+        raise AssertionError(f"{name}: launches {counts}, expected {full}")
+
+
+def layer_grads(layer, x, gen, cot):
+    """Output and the gradients of (out * cot).sum() by input and parameter."""
+    xg = x.detach().requires_grad_()
+    out = layer(xg, gen)
+    grads = torch.autograd.grad((out.float() * cot).sum(), [xg, *layer.parameters()])
+    return out.detach(), grads
+
+
+# rows of queries a chunk of the plain attention at the route's N holds:
+# (1, 512, N, E) float32 temporaries, 1.3 GB at N 8,587, E 76
+ROUTE_PLAIN_ROWS = 512
+
+
+def chunked_plain_attention(p, q, a, bias, v, alpha, seed, rate, cot=None,
+                            rows=ROUTE_PLAIN_ROWS):
+    """The plain GATv2 attention, out = sigmoid(softmax(a . leakyrelu(p_i +
+    q_j) + bias_ij) v), over chunks of query rows, float32: the softmax is
+    per row, so each chunk's weights are exact, and the hash mask takes the
+    chunk's global rows. With a cotangent ``cot`` of out, also the gradients
+    {dp, dq, da, dbias, dv} by autograd a chunk at a time, summed over the
+    chunks. Holds no (N, N, E) tensor, so it runs at N where the whole plain
+    version does not fit."""
+    from mtad_gat_tpu_torch.graph.dropout import hash_keep_mask
+    from mtad_gat_tpu_torch.graph.ops import gatv2_scores_dense
+
+    B, N, _ = p.shape
+    names = ("dp", "dq", "da", "dbias", "dv")
+    leaves = [t.detach().float().requires_grad_(cot is not None) for t in (p, q, a, bias, v)]
+    pl, ql, al, bl, vl = leaves
+    out = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    grads = {k: torch.zeros_like(t) for k, t in zip(names, leaves)}
+    with torch.set_grad_enabled(cot is not None):
+        for i0 in range(0, N, rows):
+            i1 = min(N, i0 + rows)
+            w = torch.softmax(gatv2_scores_dense(pl[:, i0:i1], ql, al, alpha) + bl[i0:i1], dim=2)
+            if rate > 0.0:
+                keep = hash_keep_mask(seed, B, i1 - i0, N, rate, device=v.device, row_offset=i0)
+                w = torch.where(keep, w / (1.0 - rate), 0.0)
+            o = torch.sigmoid(torch.matmul(w, vl))
+            out[:, i0:i1] = o.detach()
+            if cot is not None:
+                for k, g in zip(names, torch.autograd.grad((o * cot[:, i0:i1]).sum(), leaves)):
+                    grads[k] += g
+    return out, grads
+
+
+def capture_attention(ngat, store: dict):
+    """A stand-in for ``nn/gat.gatv2_attention`` that calls it unchanged and
+    records the call's inputs and, by hooks, the gradients the backward
+    gives p, q, a, bias and v (no launch and no copy of its own)."""
+    real = ngat.gatv2_attention
+
+    def spy(p, q, a, bias, v, alpha, seed, rate):
+        ins = [t.view_as(t) for t in (p, q, a, bias, v)]
+        for k, t in zip(("dp", "dq", "da", "dbias", "dv"), ins):
+            if t.requires_grad:
+                t.register_hook(lambda g, k=k: store.__setitem__(k, g.detach()))
+        store.update(inputs=[t.detach() for t in ins], alpha=alpha, seed=seed, rate=rate)
+        return real(*ins, alpha, seed, rate)
+
+    return spy
+
+
+def check_dense_route(gen, dev) -> dict:
+    """attention_impl="dense" on a complete GATv2 graph: at the flagship it
+    stays dense (no kernel launches); with the route's threshold pinned to 1
+    byte it runs the fused kernels and matches the dense layer; at the first
+    N the byte model routes on this card (b 1, e 76, d 38), it runs tiled
+    K1 in eval and K1-res, K2a, K2b and K2c in training, whose output and
+    gradients (dp, dq, da, dbias, dv) are held against the plain attention
+    computed by chunks of query rows; and dense at the
+    largest N below that, beside the kernels at the same N. Returns the
+    launch counts of the route's run and the tiled kernels' times there."""
+    import mtad_gat_tpu_torch.nn.gat as ngat
+    from mtad_gat_tpu_torch.kernels import gat as kg
+    from mtad_gat_tpu_torch.nn import FeatureAttention, TemporalAttention
+
+    seeded = lambda: torch.Generator().manual_seed(11)  # noqa: E731
+    layers = {"feature": FeatureAttention(38, 100, 0.3, 0.2, generator=seeded()),
+              "temporal": TemporalAttention(38, 100, 0.3, 0.2, generator=seeded())}
+    x = torch.randn(256, 100, 38, generator=gen).to(dev)
+    cot = torch.randn(256, 100, 38, generator=gen).to(dev)
+    dgen = lambda: torch.Generator(device=dev).manual_seed(5)  # noqa: E731
+    ngat.DENSE_AUTO_SCORE_BYTES = None
+    for name, layer in layers.items():
+        with torch.no_grad():
+            layer.bias.normal_(0.0, 0.1, generator=seeded())
+        layer.to(dev)
+        reset_counts()
+        with torch.no_grad():
+            layer.eval()(x)
+        layer_grads(layer.train(), x, dgen(), cot)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        emit({"phase": "dense_route", "case": f"flagship {name} layer, b 256, eval and "
+              "training at dropout 0.3", "routes": layer.dense_route(x),
+              "threshold_bytes": ngat.dense_route_threshold(dev),
+              "dense_bytes": ngat.dense_gatv2_bytes(256, layer.n_nodes,
+                                                    layer.lin.weight.shape[0], 4, True),
+              "launches": counts})
+        expect_counts(f"dense_route flagship {name}", counts, {})
+
+    for name, layer in layers.items():
+        layer.dropout = 0.0
+        res = {}
+        for pin in (1 << 62, 1):
+            ngat.DENSE_AUTO_SCORE_BYTES = pin
+            reset_counts()
+            with torch.no_grad():
+                ev = layer.eval()(x)
+            eval_counts = read_counts()
+            reset_counts()
+            out, grads = layer_grads(layer.train(), x, None, cot)
+            torch.cuda.synchronize()
+            res[pin] = (ev, out, grads, eval_counts, read_counts())
+        (ev_d, out_d, g_d, *_), (ev_r, out_r, g_r, c_eval, c_train) = res[1 << 62], res[1]
+        errs = {"eval": (ev_r - ev_d).abs().max().item(),
+                "train": (out_r - out_d).abs().max().item(),
+                "grads": max((a - b).abs().max().item() for a, b in zip(g_r, g_d))}
+        emit({"phase": "dense_route", "case": f"threshold pinned to 1 byte, flagship {name} "
+              "layer, float32, dropout 0, against the dense layer", "max_abs_err": errs,
+              "tol": ROUTE_TOL, "launches_eval": c_eval, "launches_train": c_train})
+        if not max(errs.values()) <= ROUTE_TOL:
+            raise AssertionError(f"routed {name} layer differs from dense: {errs}")
+        expect_counts(f"routed {name} eval", c_eval,
+                      {"gatv2_attention_fwd": 1, "gatv2_attention_fwd:graph": 1})
+        expect_counts(f"routed {name} training", c_train,
+                      {"gatv2_attention_res": 1, "gatv2_attention_res:graph": 1,
+                       "gatv2_bwd_graph": 1, "gatv2_bwd_graph:dbias": 1})
+        layer.cpu()
+    del layers, x, cot
+    ngat.DENSE_AUTO_SCORE_BYTES = None
+    torch.cuda.empty_cache()
+
+    # the first N the byte model routes on this card, at b 1, e 76, d 38
+    limit = ngat.dense_route_threshold(dev)
+    n_route = ngat.dense_route_nodes(1, 76, 4, False, limit)
+    layer = TemporalAttention(38, n_route, 0.3, 0.2, generator=seeded())
+    with torch.no_grad():
+        layer.bias.normal_(0.0, 0.1, generator=seeded())
+    layer.to(dev)
+    xr = torch.randn(1, n_route, 38, generator=gen).to(dev)
+    route = {"N": n_route, "threshold_bytes": limit,
+             "dense_bytes_eval": ngat.dense_gatv2_bytes(1, n_route, 76, 4, False),
+             "dense_bytes_below": ngat.dense_gatv2_bytes(1, n_route - 1, 76, 4, False),
+             "dense_bytes_training": ngat.dense_gatv2_bytes(1, n_route, 76, 4, True)}
+    cot = torch.randn(1, n_route, 38, generator=gen).to(dev)
+    calls = {"eval": {}, "train": {}}
+    real = ngat.gatv2_attention
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    try:
+        ngat.gatv2_attention = capture_attention(ngat, calls["eval"])
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = layer.eval()(xr)
+        torch.cuda.synchronize()
+        route["eval_seconds"] = time.perf_counter() - t0
+        route["eval_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+        route["launches_eval"] = c_eval = read_counts()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ngat.gatv2_attention = capture_attention(ngat, calls["train"])
+        t0 = time.perf_counter()
+        layer.train()
+        out_t, grads = layer_grads(layer, xr, dgen(), cot)
+        torch.cuda.synchronize()
+        route["train_seconds"] = time.perf_counter() - t0
+        route["train_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+        route["launches_train"] = c_train = read_counts()
+    finally:
+        ngat.gatv2_attention = real
+    finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(out_t).all()) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    route["finite"] = finite
+    # the routed calls against the plain attention on the same inputs, by
+    # chunks of query rows (the plain version whole would hold (N, N, E))
+    ev, tr = calls["eval"], calls["train"]
+    want_ev, _ = chunked_plain_attention(*ev["inputs"], ev["alpha"], 0, 0.0)
+    want_tr, want_g = chunked_plain_attention(*tr["inputs"], tr["alpha"], tr["seed"],
+                                              tr["rate"], cot)
+    tol = TRAIN_TOL[torch.float32]
+    errs = {"eval_out": (out.float() - want_ev).abs().max().item(),
+            "train_out": (out_t.float() - want_tr).abs().max().item()}
+    rel = {k: rel_err(tr[k], want_g[k]) if k in tr else float("inf") for k in want_g}
+    route.update(plain_rows_a_chunk=ROUTE_PLAIN_ROWS, max_abs_err=errs, max_rel_err=rel,
+                 tol={"out": K1_TOL[torch.float32], "grad_rel": tol["grad"]},
+                 rate=tr["rate"])
+    emit({"phase": "dense_route", "case": "the first routed N, b 1, e 76, d 38, float32, "
+          "eval, then training at dropout 0.3 (hash mask), each against the plain "
+          "attention by chunks of query rows on the call's inputs", **route})
+    if not finite:
+        raise AssertionError("the routed layer's output or gradients are not finite")
+    if not (max(errs.values()) <= K1_TOL[torch.float32] and max(rel.values()) <= tol["grad"]):
+        raise AssertionError(f"the routed layer at N {n_route} differs from the plain "
+                             f"attention: {errs}, {rel}")
+    expect_counts("route eval", c_eval, {"gatv2_attention_fwd": 1,
+                                         "gatv2_attention_fwd:tiled": 1})
+    expect_counts("route training", c_train, {
+        "gatv2_attention_res": 1, "gatv2_attention_res:tiled": 1, "gatv2_bwd_dp_da": 1,
+        "gatv2_bwd_dq_dv": 1, "gatv2_bwd_dbias": 1})
+    del out, out_t, grads, calls, ev, tr, want_ev, want_tr, want_g
+    torch.cuda.empty_cache()
+    times = time_route_kernels(kg, layer, xr, gen)
+    torch.cuda.empty_cache()
+
+    # dense at the largest N below the route, in eval, beside the tiled K1
+    n_dense = n_route - 1
+    layer = TemporalAttention(38, n_dense, 0.0, 0.2, generator=seeded()).to(dev).eval()
+    xd = torch.randn(1, n_dense, 38, generator=gen).to(dev)
+    with torch.no_grad():
+        if layer.dense_route(xd):
+            raise AssertionError(f"N {n_dense} routes, the model says it stays dense")
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want = layer(xd)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = read_counts()
+        dense_ms = time_ms(lambda: layer(xd), 2, warmup=0)
+        ngat.DENSE_AUTO_SCORE_BYTES = 1
+        got = layer(xd)
+        kernel_ms = time_ms(lambda: layer(xd), 5)
+        ngat.DENSE_AUTO_SCORE_BYTES = None
+    err = (got - want).abs().max().item()
+    dense = {"N": n_dense, "peak_extra_bytes": peak,
+             "model_bytes": ngat.dense_gatv2_bytes(1, n_dense, 76, 4, False),
+             "threshold_bytes": limit, "dense_ms": dense_ms, "kernel_ms": kernel_ms,
+             "kernel_max_abs_err": err, "launches_dense": counts}
+    emit({"phase": "dense_route", "case": "dense at the largest N below the route, b 1, "
+          "e 76, d 38, float32, eval, beside the tiled K1 (the layer routed by pinning)",
+          **dense})
+    expect_counts("dense below the route", counts, {})
+    if not (err <= ROUTE_TOL and peak <= dense["model_bytes"]):
+        raise AssertionError(f"dense below the route: {dense}")
+    del layer, xd, want, got
+    torch.cuda.empty_cache()
+    return {"launches_eval": c_eval, "launches_train": c_train, "N": n_route,
+            "times": times, "dense": dense, "route": route}
+
+
+def time_route_kernels(kg, layer, x, gen) -> dict:
+    """The tiled kernels at the route's shape (b 1, the layer's N, E 76, D
+    38, float32, dropout 0.3, bias): device time from a CUDA graph of 3
+    calls, and the bound as ``time_training_kernels`` counts it."""
+    B, N, D = x.shape
+    E = layer.lin.weight.shape[0]
+    with torch.no_grad():
+        w, b = layer.lin.weight, layer.lin.bias
+        p = (x @ w[:, :D].t()).contiguous()
+        q = (x @ w[:, D:].t() + b).contiguous()
+        a, bias = layer.a.detach()[:, 0].contiguous(), layer.bias.detach()
+        seed = torch.randint(0, 2**32, (1,), generator=gen, dtype=torch.int64).to(x.device)
+        out, u, m, l = kg.gatv2_attention_res(p, q, a, bias, x, 0.2, seed, 0.3)
+        sig = torch.sigmoid(u)
+        du = sig * (1 - sig)
+        dvec = (du * u).sum(-1)
+    args = (p, q, a, bias, x, m, l, du, dvec, 0.2, seed, 0.3)
+    in_bytes = (2 * B * N * E + E + B * N * D) * 4 + N * N * 4
+    stats_bytes = 3 * B * N * 4 + B * N * D * 4
+    pairs = B * N * N
+    spec = {
+        "k1": (lambda: kg.gatv2_attention_fwd(p, q, a, bias, x, 0.2), pairs * (4 * E + 2 * D),
+               in_bytes + B * N * D * 4),
+        "k1res": (lambda: kg.gatv2_attention_res(p, q, a, bias, x, 0.2, seed, 0.3),
+                  pairs * (4 * E + 2 * D), in_bytes + B * N * D * 8 + 2 * B * N * 4),
+        "k2a": (lambda: kg.gatv2_bwd_dp_da(*args), pairs * (7 * E + 2 * D + 4),
+                in_bytes + stats_bytes + B * N * E * 4 + E * 4),
+        "k2b": (lambda: kg.gatv2_bwd_dq_dv(*args), pairs * (5 * E + 4 * D + 4),
+                in_bytes + stats_bytes + B * N * (E + D) * 4),
+        "k2c": (lambda: kg.gatv2_bwd_dbias(*args), pairs * (4 * E + 2 * D + 4),
+                in_bytes + stats_bytes + N * N * 4),
+    }
+    times = {}
+    for k, (fn, ops, nbytes) in spec.items():
+        bound_ms, bound_by = bound(ops, nbytes)
+        times[k] = {"graph_ms": graph_ms(fn, calls=3, replays=2), "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+        times[k]["over_bound"] = times[k]["graph_ms"] / bound_ms
+        times[k]["variant"] = "tiled"
+    emit({"phase": "dense_route", "case": f"tiled kernels at the route's N, b 1, N {N}, E {E}, "
+          f"D {D}, float32, dropout 0.3, bias; graph_ms from a CUDA graph of 3 calls",
+          "times": times})
+    return times
+
+
+LONG_WINDOW = dict(lookback=1024, temporal_graph="band:128", bias_storage="band", bs=64,
+                   attention_impl="dense", gru_impl="auto", compute_dtype="float32")
+
+
+def check_block_scan_vs_coo(gen, dev) -> None:
+    """At a small size on the card: the block scan and the unrolled banded
+    path against the COO path on the banded graph, forward and gradients,
+    float32, TF32 off."""
+    from mtad_gat_tpu_torch.graph import banded_graph, ops
+
+    b, n, e, d = 4, 300, 16, 8
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    for w, block in ((40, 32), (8, 0)):
+        leaves = [r(b, n, e, scale=0.5), r(b, n, e, scale=0.5), r(e, scale=0.3),
+                  r(n, 2 * w + 1, scale=0.3), r(b, n, d)]
+        cot = r(b, n, d)
+        graph = banded_graph(n, w)
+        graph = type(graph)(graph.src.to(dev), graph.dst.to(dev), n)
+
+        def coo(p, q, a, bias, v):
+            s = ops.gatv2_scores_coo(graph, p, q, a, 0.2)
+            return ops.gat_aggregate_coo(graph, s, v, ops.banded_bias_to_full(bias, n, w))
+
+        if block:
+            def banded(p, q, a, bias, v):
+                return ops.banded_attention_scan(p, q, a, bias, v, 0.2, w, block_size=block,
+                                                 bias_storage="band")
+        else:
+            def banded(p, q, a, bias, v):
+                return ops.gatv2_banded_attention(p, q, a, bias, v, 0.2, w, bias_storage="band")
+
+        res = []
+        for fn in (banded, coo):
+            xs = [t.detach().requires_grad_() for t in leaves]
+            out = fn(*xs)
+            res.append((out.detach(), torch.autograd.grad((out * cot).sum(), xs)))
+        (out_b, g_b), (out_c, g_c) = res
+        errs = {"out": (out_b - out_c).abs().max().item(),
+                "grads": max((x - y).abs().max().item() for x, y in zip(g_b, g_c))}
+        # the COO forward sums segments in a fixed order: the same bits twice
+        with torch.no_grad():
+            same = torch.equal(coo(*leaves), out_c)
+        what = f"block scan B {block}" if block else "unrolled"
+        emit({"phase": "long_window", "case": f"{what} against COO, b {b}, N {n}, W {w}, "
+              f"E {e}, D {d}, float32, band-stored bias", "max_abs_err": errs, "tol": SCAN_TOL,
+              "coo_two_calls_identical": same})
+        if not (max(errs.values()) <= SCAN_TOL and same):
+            raise AssertionError(f"{what} and COO differ on the card, or COO's bits "
+                                 f"differ between calls: {errs}, {same}")
+
+
+def check_long_window(gen, dev, work) -> dict:
+    """The port's Trainer at lookback 1024 on band:128 with the band-stored
+    bias (the block scan), batch 64, float32, gru_impl auto (K3, K4): 2
+    epochs of 4 steps at dropout 0.3, finite losses, exact launch counts,
+    windows/s and peak memory; then the block scan against COO."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import synthetic_series
+    from mtad_gat_tpu_torch.data.windows import batched_starts
+    from mtad_gat_tpu_torch.graph.ops import BAND_UNROLL_CUTOFF
+    from mtad_gat_tpu_torch.training import Trainer
+
+    cfg = RunConfig(**LONG_WINDOW, epochs=2, log_tensorboard=False)
+    steps, epochs = 4, 2
+    n_win = steps * cfg.bs
+    series, _, _ = synthetic_series(n_train=cfg.lookback + n_win, n_test=16, n_features=38)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg.model_config(38, 38), cfg.train_config(),
+                      log_dir=os.path.join(work, "logs_long_window"), device="cuda")
+    trainer.init_state()
+    gat = trainer.model.temporal_gat
+    dev_series = trainer._series(series)
+    starts, mask, _ = batched_starts(0, cfg.bs, indices=np.arange(n_win))
+    reset_counts()
+    seconds, losses = [], []
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_epoch(dev_series, starts, mask))  # ends in a device sync
+        seconds.append(time.perf_counter() - t0)
+    counts = read_counts()
+    want = {"gru_scan_fwd": 2 * steps * epochs, "gru_scan_bwd": 2 * steps * epochs,
+            "gru_weight_grads": 2 * steps * epochs}
+    flat = [float(v) for epoch in losses for v in np.ravel(epoch)]
+    rec = {"phase": "long_window", "config": LONG_WINDOW, "dropout": cfg.dropout,
+           "steps_per_epoch": steps, "epochs": epochs, "temporal_bias_shape": list(gat.bias.shape),
+           "path": "block scan" if gat.band > BAND_UNROLL_CUTOFF else "unrolled",
+           "epoch_seconds": seconds, "epoch_windows_per_s": [n_win / s for s in seconds],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "losses": flat, "launches": counts, "expected_launches": want}
+    emit(rec)
+    if not np.all(np.isfinite(flat)):
+        raise AssertionError(f"long window: losses {flat}")
+    if list(gat.bias.shape) != [1024, 257]:
+        raise AssertionError(f"long window: bias of shape {list(gat.bias.shape)}")
+    expect_counts("long window", counts, want)
+    del trainer, dev_series
+    torch.cuda.empty_cache()
+    check_block_scan_vs_coo(gen, dev)
+    return {"launches": counts, "windows_per_s": n_win / seconds[-1],
+            "max_memory_allocated": rec["max_memory_allocated"]}
+
+
+def check_graph_cli(work, data_root) -> dict:
+    """train_cli with the README's graph variants (--feature_graph knn:5
+    --temporal_graph band:10) on the synthetic entity for 1 epoch, then
+    predict_cli on the run: the same summary; K3 and K4 launch as on the
+    main path, the attention kernels never (the variants run plain ops)."""
+    from mtad_gat_tpu_torch.cli import predict_cli, train_cli
+    from mtad_gat_tpu_torch.config import RunConfig
+
+    out_root = os.path.join(work, "graph_cli")
+    common = ["--dataset", "SMD", "--group", "1-1", "--data_root", data_root,
+              "--output_root", out_root, "--device", "cuda"]
+    argv = common + ["--feature_graph", "knn:5", "--temporal_graph", "band:10", "--epochs", "1",
+                     "--log_tensorboard", "False", "--run_id", "graphs", "--seed", "0"]
+    reset_counts()
+    t0 = time.perf_counter()
+    run = train_cli.main(argv)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    flagship = RunConfig()
+    want, steps = expected_training_launches(2000, 2000, flagship.lookback, flagship.bs, 1,
+                                             flagship.val_split, "pallas")
+    want = {k: 0 if k.startswith("gatv2") else n for k, n in want.items()}
+    with open(os.path.join(run, "config.txt")) as f:
+        edges = json.load(f)["feature_edges"]
+    summary = finite_summary(os.path.join(run, "summary.txt"))
+    predict_cli.main(common + ["--model_id", "graphs"])
+    same = finite_summary(os.path.join(run, "summary_1.txt")) == summary
+    emit({"phase": "graph_cli", "run": "train_cli --feature_graph knn:5 --temporal_graph "
+          "band:10, 1 epoch, then predict_cli", "seconds": seconds, "steps": steps,
+          "feature_edges": len(edges[0]), "launches": counts, "expected_launches": want,
+          "bf_f1": summary["bf_result"]["f1"], "predict_cli_reproduces_summary": same})
+    if counts != want:
+        raise AssertionError(f"graph_cli: launches {counts}, expected {want}")
+    if len(edges[0]) != 38 * 6 or not same:
+        raise AssertionError(f"graph_cli: {len(edges[0])} edges, summary reproduced: {same}")
+    return counts
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1339,6 +1821,16 @@ def main() -> None:
         check_kernel_vs_plain_training(work, x_train)
         training_throughput(work, x_train, "xla")
         training_throughput(work, x_train, "pallas")
+        long_window = check_long_window(gen, dev, work)
+        graph_cli = check_graph_cli(work, data_root)
+    route = check_dense_route(gen, dev)
+    by_path = {name: {"main": train_launches.get(name, 0),
+                      "dense_route": route["launches_eval"][name] + route["launches_train"][name],
+                      "long_window": long_window["launches"][name],
+                      "graph_cli": graph_cli[name]}
+               for name in KERNEL_COUNTERS}
+    by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
+    by_path["gru_scan_fwd"]["main"] = launches["k3"]
 
     f, t = k1_ms["feature"], k1_ms["temporal"]
     w = k4["weights"]
@@ -1463,6 +1955,18 @@ def main() -> None:
                               "4096, and once forced at each flagship layer); not on the "
                               "main path at flagship widths")
         kernels.append(row)
+    route_rows = {"gatv2_attention_fwd": "k1", "gatv2_attention_res": "k1res",
+                  "gatv2_bwd_dp_da": "k2a", "gatv2_bwd_dq_dv": "k2b", "gatv2_bwd_dbias": "k2c"}
+    for row in kernels:
+        row["launches_by_path"] = by_path[row["name"]]
+        if row["name"] in ("gatv2_bwd_dp_da", "gatv2_bwd_dq_dv", "gatv2_bwd_dbias"):
+            # not on the main path at flagship widths: their path is the route
+            row["launches"] = by_path[row["name"]]["dense_route"]
+            row["launches_path"] = "dense_route"
+        if row["name"] in route_rows:
+            t = route["times"][route_rows[row["name"]]]
+            row.update(route_N=route["N"], route_graph_ms=t["graph_ms"],
+                       route_bound_ms=t["bound_ms"], route_bound_by=t["bound_by"])
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

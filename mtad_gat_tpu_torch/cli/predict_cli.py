@@ -3,8 +3,11 @@
 The port of ``mtad_gat_tpu/cli/predict_cli.py`` (capabilities of reference
 ``predict.py:10-173``): resolve a trained run directory by datetime id or
 ``-N`` (N-th latest), reload its ``config.txt``, validate the dataset/group
-matches, rebuild the model, load the run's ``model.pt`` (or ``--torch_ckpt``)
-and run ``predict_anomalies`` writing a numbered ``summary_{n}.txt``.
+matches, rebuild the model, load its weights and run ``predict_anomalies``
+writing a numbered ``summary_{n}.txt``. The weights come, as in the JAX
+package, from ``--torch_ckpt`` when given, else from the run's
+``model.msgpack`` (a run the JAX package trained) unless only ``model.pt``
+exists (a run this package or the reference trained).
 
 Runs on the GPU unless ``--device cpu`` or ``--use_cuda False`` is given;
 with no GPU and neither flag it raises (``cli/args.resolve_device``).
@@ -24,7 +27,8 @@ from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
 from mtad_gat_tpu_torch.data import get_data, get_target_dims
 from mtad_gat_tpu_torch.inference import Predictor
 from mtad_gat_tpu_torch.models import MTADGAT
-from mtad_gat_tpu_torch.utils.weights import load_checkpoint
+from mtad_gat_tpu_torch.training.checkpoint import read_flax_msgpack
+from mtad_gat_tpu_torch.utils.weights import jax_params_to_state_dict, load_checkpoint
 
 
 def resolve_model_dir(output_path: str, model_id: str) -> str:
@@ -98,18 +102,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     target_dims = get_target_dims(dataset)
     out_dim = n_features if target_dims is None else len(target_dims)
 
+    msgpack_path = os.path.join(model_path, "model.msgpack")
     torch_path = args.torch_ckpt or os.path.join(model_path, "model.pt")
-    if not os.path.exists(torch_path):
-        msgpack_path = os.path.join(model_path, "model.msgpack")
-        if os.path.exists(msgpack_path):
-            raise NotImplementedError(
-                f"{model_path} holds a JAX model.msgpack, which this package "
-                "cannot read yet (ROADMAP.md, Queue 1 item 1): convert it with "
-                "mtad_gat_tpu.utils.torch_import.save_torch_checkpoint into "
-                "model.pt")
-        raise FileNotFoundError(f"no model.pt in {model_path}")
+    if args.torch_ckpt or (not os.path.exists(msgpack_path) and os.path.exists(torch_path)):
+        state_dict = load_checkpoint(torch_path)
+    else:
+        if not os.path.exists(msgpack_path):
+            raise FileNotFoundError(f"no model.msgpack or model.pt in {model_path}")
+        print(f"Reading JAX checkpoint {msgpack_path}")
+        state_dict = jax_params_to_state_dict(read_flax_msgpack(msgpack_path)["params"])
     model = MTADGAT(cfg.model_config(n_features, out_dim))
-    model.load_state_dict(load_checkpoint(torch_path))
+    model.load_state_dict(state_dict)
     model.to(device)
 
     level, q, reg_level = lookup_pot_params(dataset, args.group, args.level, args.q)

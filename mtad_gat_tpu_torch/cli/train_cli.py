@@ -25,6 +25,7 @@ from typing import Optional, Sequence
 from mtad_gat_tpu_torch.cli.args import get_parser, resolve_device, to_run_config
 from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
 from mtad_gat_tpu_torch.data import get_data, get_target_dims
+from mtad_gat_tpu_torch.graph import knn_edges_from_series, parse_graph_spec
 from mtad_gat_tpu_torch.inference import Predictor
 from mtad_gat_tpu_torch.training import Trainer
 
@@ -117,9 +118,27 @@ def run_training(
         out_dim = len(target_dims)
         print(f"Will forecast and reconstruct input features: {target_dims}")
 
+    # a knn:K feature graph is computed once from the (normalized) train
+    # series and kept in config.txt, so predict_cli rebuilds the same graph
+    if cfg.feature_graph.startswith("knn:") and cfg.feature_edges is None:
+        _, k = parse_graph_spec(cfg.feature_graph)
+        src, dst = knn_edges_from_series(x_train, k)
+        cfg.feature_edges = [list(src), list(dst)]
+        print(f"Feature graph {cfg.feature_graph}: {len(src)} edges "
+              f"(complete would be {n_features * n_features})")
+
     model_cfg = cfg.model_config(n_features, out_dim)
     args_summary = cfg.to_json()
     print(args_summary)
+    if cfg.lookback >= 2048:
+        if cfg.temporal_graph.startswith("band:") and cfg.bias_storage == "full":
+            gib = cfg.lookback * cfg.lookback * 4 * 3 / 2**30
+            print(f"hint: lookback {cfg.lookback} with a banded temporal graph keeps a "
+                  f"full ({cfg.lookback},{cfg.lookback}) score bias, ~{gib:.1f} GiB of "
+                  "params and Adam state; consider --bias_storage band")
+        if cfg.feat_gat_embed_dim is None:
+            print(f"hint: the feature-GAT embed dim defaults to the lookback "
+                  f"({cfg.lookback}); at long windows consider --feat_gat_embed_dim 150")
 
     trainer = Trainer(
         model_cfg, cfg.train_config(), target_dims=target_dims, save_path=save_path,

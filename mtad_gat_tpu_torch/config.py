@@ -50,9 +50,11 @@ class MTADGATConfig:
     # Compute dtype of the forward pass ("float32" or "bfloat16"); params
     # always live in float32.
     compute_dtype: str = "float32"
-    # "dense" (plain tensor ops) or "pallas" (the fused attention kernel);
-    # "sparse" and "ring" are accepted for config compatibility and raise
-    # when a layer is built (ROADMAP.md, Queue 1 items 5 and 8).
+    # "dense" (plain tensor ops; a complete GATv2 graph too large for them
+    # goes to the fused kernel, nn/gat.dense_route), "sparse" (the COO
+    # path) or "pallas" (the fused attention kernel); "ring" is accepted for
+    # config compatibility and raises when a layer is built (ROADMAP.md,
+    # Queue 1 item 8).
     attention_impl: str = "dense"
     # trades recompute for memory in the backward pass of the dense path:
     # accepted for config compatibility, no effect in the port

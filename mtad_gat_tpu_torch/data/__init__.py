@@ -5,6 +5,7 @@ from mtad_gat_tpu_torch.data.loading import (
     get_target_dims,
     normalize_data,
 )
+from mtad_gat_tpu_torch.data.synthetic import synthetic_series, write_smd_like
 from mtad_gat_tpu_torch.data.windows import (
     batched_starts,
     gather_targets,
@@ -23,5 +24,7 @@ __all__ = [
     "get_target_dims",
     "normalize_data",
     "num_windows",
+    "synthetic_series",
     "window_batch",
+    "write_smd_like",
 ]

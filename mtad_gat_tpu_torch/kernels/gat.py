@@ -40,8 +40,8 @@ VMEM tiling plan (``_Plan``) and lane padding are not carried over: the CUDA
 kernels pick their own tiles and mask ragged edges.
 
 The dropout mask is a hash of the global (seed, batch index, row, column),
-bit for bit the JAX package's ``_hash_u32`` / ``_keep_threshold``; its plain
-form is ``hash_keep_mask``. The seed is a one-element int64 tensor on the
+bit for bit the JAX package's (``graph/dropout.py``); its plain form is
+``hash_keep_mask``. The seed is a one-element int64 tensor on the
 device, drawn there from the step's generator, so no launch waits on the host.
 """
 
@@ -49,10 +49,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple, Union
+from typing import Optional, Tuple
 
 import torch
 
+from mtad_gat_tpu_torch.graph.dropout import Seed, hash_keep_mask, keep_threshold, seed_int
 from mtad_gat_tpu_torch.graph.ops import gat_aggregate_dense, gatv2_scores_dense
 from mtad_gat_tpu_torch.kernels import _build
 
@@ -61,60 +62,6 @@ from mtad_gat_tpu_torch.kernels import _build
 _PLAIN_CHUNK_ELEMS = 1 << 26
 _SMEM_LIMIT = 227 * 1024
 _BI, _BJ = 16, 32                 # the CUDA kernels' row and key tiles
-
-Seed = Union[int, torch.Tensor]
-
-# ---------------------------------------------------------------------------
-# The dropout hash: gat_pallas.py:87-147, in int64 with every product kept
-# below 2**63, so no step relies on signed wraparound.
-# ---------------------------------------------------------------------------
-
-_DROP_C1 = 0x9E3779B9
-_DROP_C2 = 0x85EBCA6B
-_DROP_C3 = 0xC2B2AE35
-_DROP_CB = 0x27D4EB2F
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 x in [0, 2**32): the product is split at
-    16 bits of c so that no partial product reaches 2**49."""
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (hi + x * (c & 0xFFFF)) & _M32
-
-
-def _hash_u32(seed: int, b: torch.Tensor, rows: torch.Tensor,
-              cols: torch.Tensor) -> torch.Tensor:
-    """The JAX package's ``_hash_u32`` over int64 tensors holding uint32
-    values; broadcasts b, rows and cols against each other."""
-    x = (seed & _M32) ^ _mul32(b, _DROP_CB) ^ _mul32(rows, _DROP_C1) ^ _mul32(cols, _DROP_C2)
-    x = x ^ (x >> 16)
-    x = _mul32(x, _DROP_C2)
-    x = x ^ (x >> 13)
-    x = _mul32(x, _DROP_C3)
-    return x ^ (x >> 16)
-
-
-def _keep_threshold(rate: float) -> int:
-    """uint32 threshold for P(keep) = 1 - rate, clamped so that a tiny rate
-    cannot round to 2**32 (which would drop everything under wraparound)."""
-    return min(int(round((1.0 - rate) * 4294967296.0)), 4294967295)
-
-
-def hash_keep_mask(seed: Seed, batch: int, n_rows: int, n_cols: int, rate: float,
-                   batch_offset: int = 0, device=None) -> torch.Tensor:
-    """(batch, n_rows, n_cols) bool keep mask of the kernels' dropout, for
-    batch indices ``batch_offset`` .. ``batch_offset + batch - 1`` of a call."""
-    i64 = dict(dtype=torch.int64, device=device)
-    b = torch.arange(batch_offset, batch_offset + batch, **i64)[:, None, None]
-    rows = torch.arange(n_rows, **i64)[None, :, None]
-    cols = torch.arange(n_cols, **i64)[None, None, :]
-    return _hash_u32(_seed_int(seed), b, rows, cols) < _keep_threshold(rate)
-
-
-def _seed_int(seed: Seed) -> int:
-    return (int(seed.item()) if isinstance(seed, torch.Tensor) else int(seed)) & _M32
-
 
 # ---------------------------------------------------------------------------
 # Plain versions (the CPU path, and the card-side oracle of chip_smoke.py)
@@ -442,11 +389,11 @@ def _drop_args(seed: Seed, rate: float, device):
         return None, 0, 1.0
     if not isinstance(seed, torch.Tensor):
         # a fill kernel carries the value: no host-to-device copy
-        seed = torch.full((1,), _seed_int(seed), dtype=torch.int64, device=device)
+        seed = torch.full((1,), seed_int(seed), dtype=torch.int64, device=device)
     elif seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != device:
         raise ValueError("the dropout seed must be one int64 value on the "
                          "device of the inputs")
-    return seed, _keep_threshold(rate), 1.0 / (1.0 - rate)
+    return seed, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
 def _raise_on(err: int, name: str) -> None:

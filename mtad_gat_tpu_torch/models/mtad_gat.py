@@ -50,9 +50,11 @@ class MTADGAT(nn.Module):
             impl=c.attention_impl, compute_dtype=cd, generator=generator,
         )
         self.feature_gat = FeatureAttention(
-            embed_dim=c.feat_gat_embed_dim, graph_spec=c.feature_graph, **gat_kw)
+            embed_dim=c.feat_gat_embed_dim, graph_spec=c.feature_graph,
+            edges=c.feature_edges, **gat_kw)
         self.temporal_gat = TemporalAttention(
-            embed_dim=c.time_gat_embed_dim, graph_spec=c.temporal_graph, **gat_kw)
+            embed_dim=c.time_gat_embed_dim, graph_spec=c.temporal_graph,
+            bias_storage=c.bias_storage, **gat_kw)
         # the encoder consumes only h_end (reference mtad_gat.py:73-74)
         self.gru = nn.ModuleDict({
             "gru": GRU(3 * c.n_features, c.gru_hid_dim, c.gru_n_layers,

@@ -1,47 +1,122 @@
-"""Graph-attention layers over complete node graphs.
+"""Graph-attention layers over feature and timestamp graphs.
 
 Reference semantics (``modules.py:25-217``), as in ``mtad_gat_tpu/nn/gat.py``:
 
 - FeatureAttention: nodes are *features*; a node is that feature's values
-  across the window. Complete graph over k nodes.
+  across the window. A complete graph over k nodes, or a k-NN graph
+  (``knn:K``) from the train series' correlations.
 - TemporalAttention: nodes are *timestamps*; a node is all feature values at
-  one timestamp. Complete graph over n nodes.
+  one timestamp. A complete graph over n nodes, or a band (``band:W``).
 - GATv2: linear-after-concat scoring with leakyrelu before the attention
   vector; embed dim is doubled. GATv1: linear-first scoring, leakyrelu after.
-- Learnable (N,N) score bias, softmax over the key axis, sigmoid output.
+- Learnable score bias, softmax over the key axis, sigmoid output.
 
 Parameters carry the reference's names (``lin.weight``, ``lin.bias``, ``a``,
 ``bias``), so a reference ``state_dict`` loads as it is. GATv2 scores are
-computed in decomposed form (``p_i + q_j``) and dispatched to the fused
-kernels (``impl="pallas"``, ``kernels/gat.py``) or the plain ops
-(``impl="dense"``, ``graph/ops.py``). In training mode the attention weights
-take dropout at ``dropout`` from the caller's generator: the kernels' hash
-mask keyed by a seed drawn from it, or a Bernoulli mask drawn from it on the
-dense path (as the JAX layer does under ``deterministic=False``).
+computed in decomposed form (``p_i + q_j``). Dispatch, as the JAX layer's
+(``mtad_gat_tpu/nn/gat.py:86-260``):
+
+- a band under ``impl="dense"``: the banded layout (``graph/ops.py``),
+  unrolled up to ``BAND_UNROLL_CUTOFF``, the block scan above;
+- an edge list (k-NN, or a band under ``impl="sparse"``), or a complete
+  graph under ``impl="sparse"``: the COO path;
+- GATv2 on a complete graph: the fused kernel (``kernels/gat.py``) under
+  ``impl="pallas"``, and under ``impl="dense"`` wherever the dense path
+  would not fit the device (``dense_route``); else the dense ops.
+
+In training mode the attention weights take dropout at ``dropout`` from the
+caller's generator: the kernels' and the block scan's hash mask keyed by a
+seed drawn from it, or a Bernoulli mask drawn from it elsewhere (as the
+JAX layer does under ``deterministic=False``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
 from mtad_gat_tpu_torch.graph.ops import (
+    BAND_UNROLL_CUTOFF,
+    banded_attention_scan,
+    banded_bias_to_full,
+    gat_aggregate_coo,
     gat_aggregate_dense,
+    gatv1_banded_attention,
+    gatv1_scores_coo,
     gatv1_scores_dense,
+    gatv2_banded_attention,
+    gatv2_scores_coo,
     gatv2_scores_dense,
 )
-from mtad_gat_tpu_torch.graph.structure import parse_graph_spec
+from mtad_gat_tpu_torch.graph.structure import (
+    Graph,
+    banded_edges,
+    complete_graph,
+    graph_from_edges,
+    parse_graph_spec,
+)
 from mtad_gat_tpu_torch.kernels.gat import gatv2_attention
 from mtad_gat_tpu_torch.nn.init import torch_linear_, xavier_uniform_gain_
 
-# Above this (b, N, N) float32 score-tensor size the JAX package routes
-# attention_impl="dense" to its fused kernel. The value is the JAX package's
-# fallback for a 16 GB TPU; the H100 value is still to be measured, and the
-# route itself is not ported: the layer raises instead (ROADMAP.md, Queue 1 item 2).
-DENSE_AUTO_SCORE_BYTES = 14 * 2**30
+Edges = Tuple[Tuple[int, ...], Tuple[int, ...]]
+
+# What the dense GATv2 path holds at its peak, in bytes per (b, N, N)
+# element: c1 * e * s + c2, e the embedding width, s the compute dtype's
+# bytes, keyed by (autograd, s): without autograd (eval, scoring) and with
+# it (its forward and backward). Eager PyTorch builds the (b, N, N, e)
+# pre-activation and its leaky_relu temporaries (graph/ops.py), which XLA
+# fuses away in the JAX package: that is the c1 term (about 3 s + 1 bytes
+# an element, the 1 being the mask, so c1 differs by dtype). Fitted from
+# torch.cuda.max_memory_allocated on an NVIDIA H100 80GB HBM3 at 700.00 W by
+# bench_graph_torch.py --dense (PERF.md, "PR 8"), rounded up so that no
+# measured point lies above the model (1.2-3.8% above them).
+DENSE_BYTES = {(False, 4): (3.3125, 2.0), (False, 2): (3.5625, 0.0),
+               (True, 4): (3.3125, 5.0), (True, 2): (4.5625, 8.0)}
+# Pins the route's threshold in bytes (tests set it); None takes 7/8 of the
+# device's total memory, read once a device, or 14 GiB on the CPU.
+DENSE_AUTO_SCORE_BYTES: Optional[int] = None
+_DENSE_AUTO_FALLBACK = 14 * 2**30
+_device_limit: dict = {}
+
+
+def dense_gatv2_bytes(b: int, n: int, e: int, itemsize: int, grad: bool) -> int:
+    """Peak bytes of the dense GATv2 path for a (b, N) call at embedding
+    width e in a compute dtype of ``itemsize`` bytes (``DENSE_BYTES``)."""
+    c1, c2 = DENSE_BYTES[bool(grad), itemsize]
+    return int(b * n * n * (c1 * e * itemsize + c2))
+
+
+def dense_route_nodes(b: int, e: int, itemsize: int, grad: bool, limit: int) -> int:
+    """The least N at which a (b, N) dense GATv2 call routes to the kernel
+    under a threshold of ``limit`` bytes."""
+    c1, c2 = DENSE_BYTES[bool(grad), itemsize]
+    n = max(1, int(math.sqrt(limit / (b * (c1 * e * itemsize + c2)))))
+    while dense_gatv2_bytes(b, n, e, itemsize, grad) <= limit:
+        n += 1
+    while n > 1 and dense_gatv2_bytes(b, n - 1, e, itemsize, grad) > limit:
+        n -= 1
+    return n
+
+
+def dense_route_threshold(device: torch.device) -> int:
+    """Bytes above which a dense GATv2 layer on ``device`` routes to the
+    fused kernel: ``DENSE_AUTO_SCORE_BYTES`` when pinned, else 7/8 of a CUDA
+    device's total memory (the JAX rule, ``mtad_gat_tpu/nn/gat.py:67-83``,
+    with the limit read from the card), else 14 GiB."""
+    if DENSE_AUTO_SCORE_BYTES is not None:
+        return DENSE_AUTO_SCORE_BYTES
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _DENSE_AUTO_FALLBACK
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _device_limit:
+        total = torch.cuda.get_device_properties(index).total_memory
+        _device_limit[index] = total * 7 // 8
+    return _device_limit[index]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -51,26 +126,42 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class GATLayer(nn.Module):
-    """Attention over a complete graph of ``n_nodes`` nodes, each with
-    ``node_dim`` input features. Input and output are (b, N, node_dim)."""
+    """Attention over a graph of ``n_nodes`` nodes, each with ``node_dim``
+    input features: complete, or the COO ``edges`` (src, dst), or the band
+    |i - j| <= ``band``. Input and output are (b, N, node_dim).
+    ``bias_storage="band"`` keeps the score bias as its (N, 2W+1) band."""
 
     def __init__(
         self, n_nodes: int, node_dim: int, embed_dim: int, use_gatv2: bool,
         alpha: float, dropout: float, use_bias: bool = True,
         impl: str = "dense", compute_dtype: torch.dtype = torch.float32,
-        graph_spec: str = "complete",
+        edges: Optional[Edges] = None, band: Optional[int] = None,
+        bias_storage: str = "full",
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if impl in ("sparse", "ring"):
-            raise _not_ported(f"attention_impl={impl!r}",
-                              "Queue 1 items 5 and 8")
-        kind, _ = parse_graph_spec(graph_spec)
-        if kind != "complete":
-            raise _not_ported(f"graph topology {graph_spec!r}", "Queue 1 item 5")
+        if impl == "ring":
+            raise _not_ported("attention_impl='ring'", "Queue 1 item 8")
+        if impl not in ("dense", "sparse", "pallas"):
+            raise ValueError(f"attention impl must be dense|sparse|pallas, got {impl!r}")
+        if impl == "pallas" and (edges is not None or band is not None):
+            raise ValueError("attention_impl='pallas' runs complete graphs only")
+        if bias_storage == "band" and band is None:
+            raise ValueError("bias_storage='band' requires a banded topology")
         self.n_nodes, self.node_dim = n_nodes, node_dim
         self.use_gatv2, self.alpha, self.dropout = use_gatv2, alpha, dropout
         self.impl, self.compute_dtype = impl, compute_dtype
+        self.band, self.bias_storage = band, bias_storage
+        graph = None
+        if edges is not None:
+            graph = graph_from_edges(edges[0], edges[1], n_nodes)
+        elif impl == "sparse":
+            graph = complete_graph(n_nodes)
+        self.has_graph = graph is not None
+        if graph is not None:
+            # buffers, so that .to(device) moves them; not in the state_dict
+            self.register_buffer("graph_src", graph.src, persistent=False)
+            self.register_buffer("graph_dst", graph.dst, persistent=False)
 
         # (effective embed dim e is already doubled for GATv2)
         lin_in = 2 * node_dim if use_gatv2 else node_dim
@@ -79,9 +170,20 @@ class GATLayer(nn.Module):
         torch_linear_(self.lin.weight, self.lin.bias, lin_in, generator)
         self.a = nn.Parameter(torch.empty(a_dim, 1))
         xavier_uniform_gain_(self.a.data, 1.414, generator)
-        self.bias = (
-            nn.Parameter(torch.zeros(n_nodes, n_nodes)) if use_bias else None
-        )
+        bias_shape = (n_nodes, 2 * band + 1) if bias_storage == "band" else (n_nodes, n_nodes)
+        self.bias = nn.Parameter(torch.zeros(bias_shape)) if use_bias else None
+
+    def graph(self) -> Graph:
+        return Graph(self.graph_src, self.graph_dst, self.n_nodes)
+
+    def dense_route(self, v: torch.Tensor) -> bool:
+        """Whether a dense GATv2 call on ``v`` goes to the fused kernel: the
+        dense path's bytes (``dense_gatv2_bytes``, with autograd when a
+        gradient is being recorded) above ``dense_route_threshold``."""
+        grad = torch.is_grad_enabled() and (v.requires_grad or self.a.requires_grad)
+        need = dense_gatv2_bytes(v.shape[0], self.n_nodes, self.lin.weight.shape[0],
+                                 v.element_size(), grad)
+        return need > dense_route_threshold(v.device)
 
     def forward(
         self, v: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -95,49 +197,82 @@ class GATLayer(nn.Module):
         w = self.lin.weight.to(cd)             # (e, lin_in), torch layout
         b = self.lin.bias.to(cd)
         a = self.a[:, 0].to(cd)
+        bias = self.bias
+        coo_bias = bias
+        if bias is not None and self.bias_storage == "band" and self.has_graph:
+            coo_bias = banded_bias_to_full(bias, self.n_nodes, self.band)
+        banded = self.band is not None and self.impl == "dense"
+
+        def seed():
+            # one draw a layer call, on the device: the kernels and the
+            # block scan read it there
+            if rate == 0.0:
+                return 0
+            return torch.randint(0, 2**32, (1,), generator=generator,
+                                 device=generator.device, dtype=torch.int64)
 
         if self.use_gatv2:
             # lin([v_i || v_j]) == v_i @ W_l^T + v_j @ W_r^T + b
             p = v @ w[:, :d].t()               # query side (i)
             q = v @ w[:, d:].t() + b           # key side (j)
-            if self.impl == "pallas":
-                seed = 0
-                if rate > 0.0:
-                    # drawn on the device: the kernels read it there
-                    seed = torch.randint(0, 2**32, (1,), generator=generator,
-                                         device=generator.device, dtype=torch.int64)
-                return gatv2_attention(p, q, a, self.bias, v, self.alpha, seed,
-                                       rate).to(cd)
-            score_bytes = 4 * v.shape[0] * self.n_nodes * self.n_nodes
-            if score_bytes > DENSE_AUTO_SCORE_BYTES:
-                raise _not_ported(
-                    f"the dense-to-kernel route for a {score_bytes}-byte score "
-                    "tensor (pass attention_impl='pallas')", "Queue 1 item 2")
+            if banded and self.band <= BAND_UNROLL_CUTOFF:
+                return gatv2_banded_attention(p, q, a, bias, v, self.alpha, self.band, rate,
+                                              generator, self.bias_storage).to(cd)
+            if banded:
+                return banded_attention_scan(p, q, a, bias, v, self.alpha, self.band,
+                                             dropout_rate=rate, dropout_seed=seed(),
+                                             bias_storage=self.bias_storage).to(cd)
+            if self.has_graph:
+                scores = gatv2_scores_coo(self.graph(), p, q, a, self.alpha)
+                return gat_aggregate_coo(self.graph(), scores, v, coo_bias, rate,
+                                         generator).to(cd)
+            if self.impl == "pallas" or self.dense_route(v):
+                return gatv2_attention(p, q, a, bias, v, self.alpha, seed(), rate).to(cd)
             scores = gatv2_scores_dense(p, q, a, self.alpha)
         else:
             e = w.shape[0]
             wx = v @ w.t() + b                 # (b, N, e)
+            if banded:
+                # rank-1 GATv1 scores: the two halves once
+                u = torch.matmul(wx.float(), a[:e].float())
+                wk = torch.matmul(wx.float(), a[e:].float())
+                if self.band <= BAND_UNROLL_CUTOFF:
+                    return gatv1_banded_attention(u, wk, bias, v, self.alpha, self.band,
+                                                  rate, generator, self.bias_storage).to(cd)
+                return banded_attention_scan(u, wk, None, bias, v, self.alpha, self.band,
+                                             dropout_rate=rate, dropout_seed=seed(),
+                                             bias_storage=self.bias_storage).to(cd)
+            if self.has_graph:
+                scores = gatv1_scores_coo(self.graph(), wx, a[:e], a[e:], self.alpha)
+                return gat_aggregate_coo(self.graph(), scores, v, coo_bias, rate,
+                                         generator).to(cd)
             scores = gatv1_scores_dense(wx, a[:e], a[e:], self.alpha)
-        return gat_aggregate_dense(scores.to(cd), v, self.bias, rate, generator).to(cd)
+        return gat_aggregate_dense(scores.to(cd), v, bias, rate, generator).to(cd)
 
 
 class FeatureAttention(GATLayer):
-    """GAT over the complete graph of k features (reference
-    ``modules.py:25-122``). Input/output (b, n, k)."""
+    """GAT over the graph of k features (reference ``modules.py:25-122``):
+    complete, or ``knn:K`` over the given ``edges``. Input/output (b, n, k)."""
 
     def __init__(
         self, n_features: int, window_size: int, dropout: float, alpha: float,
         embed_dim: Optional[int] = None, use_gatv2: bool = True,
         use_bias: bool = True, impl: str = "dense",
         compute_dtype: torch.dtype = torch.float32,
-        graph_spec: str = "complete",
+        graph_spec: str = "complete", edges: Optional[Edges] = None,
         generator: Optional[torch.Generator] = None,
     ):
+        kind, _ = parse_graph_spec(graph_spec)
+        if kind == "knn" and edges is None:
+            raise ValueError(
+                f"feature graph spec {graph_spec!r} is data-driven: pass the (src, dst) "
+                "edge tuples computed from the train series "
+                "(graph.knn_edges_from_series)")
         e = embed_dim if embed_dim is not None else window_size
         super().__init__(
             n_features, window_size, 2 * e if use_gatv2 else e, use_gatv2,
-            alpha, dropout, use_bias, impl, compute_dtype, graph_spec,
-            generator,
+            alpha, dropout, use_bias, impl, compute_dtype,
+            edges=edges if kind == "knn" else None, generator=generator,
         )
 
     def forward(
@@ -149,20 +284,25 @@ class FeatureAttention(GATLayer):
 
 
 class TemporalAttention(GATLayer):
-    """GAT over the complete graph of n timestamps (reference
-    ``modules.py:125-217``). Input/output (b, n, k)."""
+    """GAT over the graph of n timestamps (reference ``modules.py:125-217``):
+    complete, or ``band:W``, with the score bias stored whole or as its band
+    (``bias_storage``). Input/output (b, n, k)."""
 
     def __init__(
         self, n_features: int, window_size: int, dropout: float, alpha: float,
         embed_dim: Optional[int] = None, use_gatv2: bool = True,
         use_bias: bool = True, impl: str = "dense",
         compute_dtype: torch.dtype = torch.float32,
-        graph_spec: str = "complete",
+        graph_spec: str = "complete", bias_storage: str = "full",
         generator: Optional[torch.Generator] = None,
     ):
+        kind, param = parse_graph_spec(graph_spec)
+        band = param if kind == "band" else None
+        # the COO edge list only where the banded layout does not apply
+        edges = banded_edges(window_size, band) if band and impl == "sparse" else None
         e = embed_dim if embed_dim is not None else n_features
         super().__init__(
             window_size, n_features, 2 * e if use_gatv2 else e, use_gatv2,
-            alpha, dropout, use_bias, impl, compute_dtype, graph_spec,
-            generator,
+            alpha, dropout, use_bias, impl, compute_dtype, edges=edges, band=band,
+            bias_storage=bias_storage, generator=generator,
         )

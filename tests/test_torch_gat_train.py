@@ -1,9 +1,10 @@
 """The training attention of the port against the JAX package, on the CPU.
 
-- The dropout hash: ``kernels/gat.hash_keep_mask`` equals
-  ``gat_pallas.hash_keep_mask`` bit for bit, seeds across the whole uint32
-  range (2**31 + 5 and 2**32 - 1 exercise the high bit), rates down to 1e-12
-  (the threshold clamp).
+- The dropout hash: ``hash_keep_mask`` (``graph/dropout.py``, as
+  ``kernels/gat`` uses it) equals ``gat_pallas.hash_keep_mask`` bit for
+  bit, seeds across the whole uint32 range (2**31 + 5 and 2**32 - 1
+  exercise the high bit), rates down to 1e-12 (the threshold clamp); a
+  batch or row offset draws the matching slice.
 - K1-res: ``gatv2_attention_res`` (its plain version, as a CPU tensor takes
   it) against ``_fused_forward(with_residuals=True, interpret=True)``; out
   and u to atol 2e-5, m to atol 1e-5 and l to rtol 1e-5, the K1 tolerances
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from mtad_gat_tpu.kernels import gat_pallas
+from mtad_gat_tpu_torch.graph import dropout as gdrop
 from mtad_gat_tpu_torch.graph.ops import gat_aggregate_dense, gatv2_scores_dense
 from mtad_gat_tpu_torch.kernels import gat as tgat
 
@@ -62,18 +64,21 @@ def test_hash_keep_mask_is_bit_exact(seed, rate):
     # batch offset (the plain versions' batch chunks) draw the same mask
     tail = tgat.hash_keep_mask(torch.tensor([seed]), 2, 37, 41, rate, batch_offset=1)
     np.testing.assert_array_equal(tail.numpy(), want[1:])
+    # and a row offset (a chunk of query rows)
+    rows = gdrop.hash_keep_mask(seed, 3, 20, 41, rate, row_offset=17)
+    np.testing.assert_array_equal(rows.numpy(), want[:, 17:])
 
 
 def test_hash_products_keep_their_low_32_bits():
     """Every uint32 product of the hash, for factors near 2**32 where an
     int64 product would pass 2**63, equals Python's exact arithmetic."""
     x = torch.tensor([0, 1, 2**31 - 1, 2**31, 2**31 + 5, 2**32 - 2, 2**32 - 1])
-    for c in (tgat._DROP_C1, tgat._DROP_C2, tgat._DROP_C3, tgat._DROP_CB):
+    for c in (gdrop.DROP_C1, gdrop.DROP_C2, gdrop.DROP_C3, gdrop.DROP_CB):
         want = [(int(v) * c) % 2**32 for v in x]
-        assert tgat._mul32(x, c).tolist() == want
-    assert tgat._keep_threshold(1e-12) == 2**32 - 1
-    assert tgat._keep_threshold(0.0) == 2**32 - 1
-    assert tgat._keep_threshold(0.5) == 2**31
+        assert gdrop.mul32(x, c).tolist() == want
+    assert gdrop.keep_threshold(1e-12) == 2**32 - 1
+    assert gdrop.keep_threshold(0.0) == 2**32 - 1
+    assert gdrop.keep_threshold(0.5) == 2**31
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])

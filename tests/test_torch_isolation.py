@@ -2,8 +2,10 @@
 
 In a fresh interpreter, importing every module of ``mtad_gat_tpu_torch``
 and loading ``chip_smoke.py`` (without running its ``main``) leaves ``jax``,
-``flax`` and every ``mtad_gat_tpu.`` module out of ``sys.modules``; and an
-AST scan of the package and of ``chip_smoke.py`` finds no such import.
+``flax``, ``msgpack`` (the port reads flax's checkpoints with its own
+decoder: the card's machine has no ``msgpack``) and every ``mtad_gat_tpu.``
+module out of ``sys.modules``; and an AST scan of the package and of
+``chip_smoke.py`` finds no such import.
 """
 
 import ast
@@ -14,7 +16,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "mtad_gat_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mtad_gat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mtad_gat_tpu", "msgpack")
 
 
 def _port_files():

@@ -293,14 +293,15 @@ def test_predict_cli_refuses_cuda_without_a_gpu_and_msgpack_runs(smd_run, tmp_pa
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         port_cli.main(argv)
-    # a run directory holding only the JAX package's model.msgpack
+    # a run directory holding only a model.msgpack that is not flax's
+    # msgpack: read (the JAX package's precedence) and refused by the decoder
     out = tmp_path / "output"
     jax_run = out / "SMD" / "1-1" / "02012026_120000"
     os.makedirs(jax_run)
     (jax_run / "config.txt").write_text((run / "config.txt").read_text())
     (jax_run / "model.msgpack").write_bytes(b"")
     argv[-1] = str(out)
-    with pytest.raises(NotImplementedError, match="save_torch_checkpoint"):
+    with pytest.raises(ValueError, match="msgpack"):
         port_cli.main([*argv, "--device", "cpu"])
 
 
