@@ -1,7 +1,10 @@
-"""Sweep of the whole-graph attention backward (K2ab) on one NVIDIA GPU.
+"""Sweeps of the attention backward (K2ab, and the tiled K2a and K2b) on one
+NVIDIA GPU.
 
     python3 bench_gat_bwd_torch.py [--seed N] [--splits 2,4,8] [--batch 256]
                                    [--groups 1,2,4]
+    python3 bench_gat_bwd_torch.py --tiled [--variants "...;..."]
+                                   [--fills 8,16,24] [--acc 1,0]
 
 K2ab (``gatv2_bwd_graph_kernel`` in ``mtad_gat_tpu_torch/csrc/gat_bwd.cu``)
 splits the embedding of its score pass over ``G_SPLIT`` neighbouring lanes, a
@@ -30,6 +33,23 @@ CUDA graph beside K2ab without dbias, the partials' sum alone, and K2c alone
 (``gatv2_bwd_dbias``) on the same inputs, with the partials' bytes and how
 many blocks of each K2ab instantiation a multiprocessor holds. One JSON line
 per (layer, G).
+
+With ``--tiled``, instead: the tiled K2a and K2b (``gatv2_bwd_dp_da_kernel``
+and ``gatv2_bwd_dq_dv_kernel``, for graphs K2ab cannot hold) at the dense
+route's shape (batch 1, N 8,587, E 76, D 38) and at N 2048 and 4096 (E 32,
+D 16), float32, dropout 0.3, bias. Each ``--variants`` entry is a list of
+``NAME=VALUE`` constants of ``csrc/gat_bwd.cu`` (the FAST tile's rows and
+keys, ``TILE_FAST_RI`` and ``TILE_FAST_KJ``) rewritten in a copy, built as
+above; the empty entry is the source as it is. Each
+build runs with its running sums in shared memory and without (``--acc``)
+and, for the first variant, at each ``TILED_FILL`` of ``--fills`` (the
+planner's constants, set in this process only): dp, dq, da and dv against
+the plain backward (N 2048, 4096) or the package's own build (the route:
+the plain version does not fit the card there), two launches for identical
+bits, each kernel's device time from a CUDA graph, its plan, its blocks a
+multiprocessor (CUDA's occupancy calculator) and ptxas's registers. One JSON
+line per (variant, shape, choice, fill). ``kernels/gat``'s ``TILED_*``
+constants are read off these lines.
 """
 
 from __future__ import annotations
@@ -142,6 +162,114 @@ def sweep_groups(lib, layer, call, want, groups) -> None:
         print(json.dumps(rec), flush=True)
 
 
+TILED_SHAPES = (("route", 1, 8587, 76, 38), ("n2048", 1, 2048, 32, 16),
+                ("n4096", 1, 4096, 32, 16))
+
+
+def build_variants(variants) -> dict:
+    """One gat_bwd library per variant (a dict of constants of the source),
+    all nvcc processes at once; {index: (CDLL, constants, ptxas lines of the
+    tiled kernels)}."""
+    jobs = {}
+    for k, consts in enumerate(variants):
+        work = _build.BUILD_DIR.parent / "gat_bwd_tiled_sweep" / f"v{k}"
+        if work.exists():
+            shutil.rmtree(work)
+        work.mkdir(parents=True)
+        src = (_build.CSRC / "gat_bwd.cu").read_text()
+        for name, value in consts.items():
+            src, n = re.subn(rf"\b{name} = \w+", f"{name} = {value}", src)
+            if n != 1:
+                raise RuntimeError(f"gat_bwd.cu: expected one constant {name}, found {n}")
+        (work / "gat_bwd.cu").write_text(src)
+        shutil.copy(_build.CSRC / "gat_common.cuh", work)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(work / "libgat_bwd.so"),
+               str(work / "gat_bwd.cu")]
+        jobs[k] = (work, consts, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for k, (work, consts, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {consts}:\n{out}")
+        ptxas = [ln for ln in ptxas_summary(out) if "dq_dv" in ln or "dp_da" in ln]
+        libs[k] = (ctypes.CDLL(str(work / "libgat_bwd.so")), consts, ptxas)
+    return libs
+
+
+def use_tiled(lib, tiles, choice, fill) -> None:
+    """Make ``kernels/gat`` launch the tiled kernels from ``lib`` (FAST tile
+    ``tiles``) with acc_smem ``choice`` first (None: the planner's own
+    order) and ``fill``."""
+    _build._loaded["gat_bwd"] = lib
+    kg.TILED_TILES = (tiles, kg.TILED_TILES[1])
+    kg.TILED_CHOICES = {k: cs if choice is None else
+                        (choice,) + tuple(c for c in cs if c != choice)
+                        for k, cs in DEFAULT_CHOICES.items()}
+    kg.TILED_FILL = fill
+    kg.gat_tiled_bwd_plan.cache_clear()
+    kg._tiled_plan.cache_clear()
+
+
+def sweep_tiled(args) -> None:
+    """The ``--tiled`` sweep: see the module's docstring."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(args.seed)
+    package = _build.load("gat_bwd")
+    libs = build_variants(args.variants)
+    base_tiles = kg.TILED_TILES[0]
+    for shape, B, N, E, D in TILED_SHAPES:
+        _build._loaded["gat_bwd"] = package
+        use_tiled(package, base_tiles, None, DEFAULT_FILL)
+        call, du = case(gen, dev, B, N, E, D)
+        p, q, a, bias, v = call[:5]
+        if N <= 4096:
+            ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, call[10], 0.3)
+            want, against = (ref[0], ref[1], ref[2], ref[4]), "plain"
+        else:
+            want, against = tiled_bwd(kg, call), "package build"
+        calls, replays = (3, 2) if N > 4096 else (20, 5)
+        for k, (lib, consts, ptxas) in libs.items():
+            tiles = (int(consts.get("TILE_FAST_RI", base_tiles[0])),
+                     int(consts.get("TILE_FAST_KJ", base_tiles[1])))
+            fills = args.fills if k == 0 else (DEFAULT_FILL,)
+            for choice in args.choices:
+                for fill in fills:
+                    use_tiled(lib, tiles, choice, fill)
+                    plans = kg.gat_tiled_bwd_plan(B, N, E, D, _build.sm_count(dev))
+                    if any((pl.tile, pl.acc_smem) != (0, choice) for pl in plans.values()):
+                        continue                  # the choice does not fit a block here
+                    got = tiled_bwd(kg, call)
+                    again = tiled_bwd(kg, call)
+                    torch.cuda.synchronize()
+                    errs = {n: rel_err(x, y) for n, x, y in zip(("dp", "dq", "da", "dv"),
+                                                                got, want)}
+                    rec = {"shape": shape, "B": B, "N": N, "E": E, "D": D, "variant": consts,
+                           "acc_smem": choice, "fill": fill,
+                           "against": against, "rel_err": errs, "tol": TOL,
+                           "two_launches_identical": all(torch.equal(x, y)
+                                                         for x, y in zip(got, again))}
+                    for name, fn in (("k2a", lambda: kg.gatv2_bwd_dp_da(*call)),
+                                     ("k2b", lambda: kg.gatv2_bwd_dq_dv(*call))):
+                        pl = plans[name]
+                        rec[name] = {"graph_ms": graph_ms(fn, calls=calls, replays=replays),
+                                     "slices": pl.slices, "blocks": pl.blocks,
+                                     "threads": pl.threads, "smem_bytes": pl.smem_bytes,
+                                     "partial_bytes": pl.partial_bytes,
+                                     "occupancy": lib.gatv2_bwd_tiled_occupancy(
+                                         name == "k2b", 0, E, D, int(pl.acc_smem), 1)}
+                    rec["ptxas"] = ptxas
+                    rec["ok"] = rec["two_launches_identical"] and all(
+                        e <= TOL for e in errs.values())
+                    print(json.dumps(rec), flush=True)
+    _build._loaded["gat_bwd"] = package
+    use_tiled(package, base_tiles, None, DEFAULT_FILL)
+
+
+DEFAULT_CHOICES = kg.TILED_CHOICES
+DEFAULT_FILL = kg.TILED_FILL
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -150,6 +278,15 @@ def main() -> None:
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--groups", type=lambda s: tuple(int(x) for x in s.split(",")),
                         default=(1, 2, 4))
+    parser.add_argument("--tiled", action="store_true",
+                        help="sweep the tiled K2a and K2b instead")
+    parser.add_argument("--variants", default=";TILE_FAST_RI=32,TILE_FAST_KJ=64",
+                        type=lambda s: [dict(kv.split("=") for kv in v.split(",") if kv)
+                                        for v in s.split(";")])
+    parser.add_argument("--fills", type=lambda s: tuple(int(x) for x in s.split(",")),
+                        default=(8, 16, 24))
+    parser.add_argument("--acc", dest="choices", default="1,0",
+                        type=lambda s: tuple(c == "1" for c in s.split(",")))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_gat_bwd_torch: no CUDA device")
@@ -158,6 +295,9 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
     print(json.dumps({"device": smi, "torch": torch.__version__}), flush=True)
+    if args.tiled:
+        sweep_tiled(args)
+        return
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     package = _build.load("gat_bwd")

@@ -50,10 +50,12 @@ In order, each phase failing the run with a non-zero exit:
    launched twice for identical bits (dbias included), its planned shared
    memory and batch groups (``dbias_groups``) equal to the built library's,
    with the partials' bytes and each instantiation's blocks a
-   multiprocessor; K2a then K2b (the tiled kernels) forced once at each
-   layer, and planned at N = 2048 and N = 4096 (with K2c for dbias), where
-   one forward-and-backward also has to allocate no more than its outputs
-   plus 1 MiB; K2c forced at each layer wherever there is a bias. Each
+   multiprocessor; K2a then K2b (the tiled kernels) forced twice at each
+   layer, and planned at N = 2048 and N = 4096 (with K2c for dbias), each
+   twice for identical bits, with the plan of each call
+   (``gat_tiled_bwd_plan``), where one forward-and-backward also has to
+   allocate no more than its outputs, the tiled kernels' partial sums and 1
+   MiB; K2c forced at each layer wherever there is a bias. Each
    kernel's time at both layers is a wrapper call by CUDA events and its
    device time from a CUDA graph of 20 calls, beside its bound and its plain
    version; K2ab's also without dbias, followed by K2c, and the sum of its
@@ -634,6 +636,15 @@ def tiled_bwd(kg, args) -> tuple:
     return dp, dq, da, dv
 
 
+def tiled_plans(kg) -> dict:
+    """The launches of the last tiled K2a and K2b (``gat_tiled_bwd_plan``):
+    tile, running sums in shared memory, slices, blocks, shared
+    memory and partial bytes."""
+    return {name: fn.last_plan._asdict()
+            for name, fn in (("k2a", kg.gatv2_bwd_dp_da), ("k2b", kg.gatv2_bwd_dq_dv))
+            if fn.last_plan is not None}
+
+
 # the kernel each gradient of the backward comes from, by variant (and K2c
 # forced on its own)
 GRAD_KERNELS = {"graph": {"dp": "k2ab", "dq": "k2ab", "da": "k2ab", "dv": "k2ab",
@@ -659,7 +670,12 @@ def check_training_kernels(gen, dev):
     from mtad_gat_tpu_torch.kernels import gat as kg
 
     cases = [("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
-             ("many_key_tiles", 1, 2048, 32, 16), ("many_key_tiles", 1, 4096, 32, 16)]
+             ("many_key_tiles", 1, 2048, 32, 16), ("many_key_tiles", 1, 4096, 32, 16),
+             ("widest", 1, 300, 470, 235)]
+    # the tiled cases: planned (not forced), float32 at dropout 0.3 with bias;
+    # "widest" is the feature layer at window 235, the widest the tiled
+    # backward accepts, which takes its WIDE tile
+    tiled_cases = ("many_key_tiles", "widest")
     variants = [(torch.float32, r, b) for r in (0.0, 0.3) for b in (True, False)]
     variants.append((torch.bfloat16, 0.3, True))
     worst = {k: 0.0 for k in ("k1res", "k2ab", "k2a", "k2b", "k2c")}
@@ -668,7 +684,7 @@ def check_training_kernels(gen, dev):
     lib = kg._bwd_lib()
     for name, B, N, E, D in cases:
         plan = kg.gat_bwd_plan(N, E, D)
-        want_plan = "tiled" if name == "many_key_tiles" else "graph"
+        want_plan = "tiled" if name in tiled_cases else "graph"
         smem = {"planned": kg.gat_bwd_smem_bytes(N, E, D),
                 "library": lib.gatv2_bwd_smem_bytes(3, N, E, D)}
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -686,7 +702,7 @@ def check_training_kernels(gen, dev):
             raise AssertionError(f"{name}: plan {plan}, expected {want_plan}; K2ab shared "
                                  f"memory {smem}, dbias group {group}")
         for dtype, rate, with_bias in variants:
-            if name == "many_key_tiles" and (dtype, rate, with_bias) != (torch.float32, 0.3, True):
+            if name in tiled_cases and (dtype, rate, with_bias) != (torch.float32, 0.3, True):
                 continue
             p, q, a, bias, v = gat_case(gen, dev, B, N, E, D, dtype, with_bias)
             seed = torch.randint(0, 2**32, (1,), generator=gen, dtype=torch.int64).to(dev)
@@ -702,12 +718,14 @@ def check_training_kernels(gen, dev):
             outs = kg.gatv2_bwd(*args, dbias=with_bias)
             launch = dict(kg.gatv2_bwd.last_launch)
             variant = launch["variant"]
-            again = kg.gatv2_bwd(*args, dbias=with_bias) if variant == "graph" else None
+            again = kg.gatv2_bwd(*args, dbias=with_bias)
             ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, seed, rate)
-            timed = name != "many_key_tiles" and dtype == torch.float32 and rate > 0 and with_bias
-            # the tiled kernels once at each flagship layer, so both variants stay
-            # covered, and K2c on its own wherever there is a bias
+            timed = name not in tiled_cases and dtype == torch.float32 and rate > 0 and with_bias
+            # the tiled kernels once at each flagship layer (twice, for identical
+            # bits), so both variants stay covered, and K2c on its own wherever
+            # there is a bias
             tiled = tiled_bwd(kg, args) if timed else None
+            tiled_again = tiled_bwd(kg, args) if timed else None
             k2c = (kg.gatv2_bwd_dbias(*args) if with_bias and variant == "graph"
                    else None)
             tiled_fwd = (kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,
@@ -728,12 +746,15 @@ def check_training_kernels(gen, dev):
             if tiled_fwd is not None:
                 rec["tiled_forward_err"] = terr_fwd = forward_errors(tiled_fwd, want)
                 bad += [f"tiled {k}" for k, e in terr_fwd.items() if not e <= tol["forward"][k]]
-            if again is not None:
-                rec["two_launches_identical"] = all(
-                    (x is None and y is None) or torch.equal(x, y) for x, y in zip(outs, again))
+            rec["two_launches_identical"] = all(
+                (x is None and y is None) or torch.equal(x, y) for x, y in zip(outs, again))
+            if variant == "tiled" or tiled is not None:
+                rec["tiled_plan"] = tiled_plans(kg)
             if tiled is not None:
                 terr, tabs = grad_errors(tiled, ref)
                 rec["tiled_grad_rel_err"], rec["tiled_grad_abs_err"] = terr, tabs
+                rec["tiled_two_launches_identical"] = all(
+                    torch.equal(x, y) for x, y in zip(tiled, tiled_again))
                 runs.append(("tiled", terr, tabs))
             if k2c is not None:
                 rec["k2c_dbias_rel_err"] = rel_err(k2c, ref[3])
@@ -751,7 +772,8 @@ def check_training_kernels(gen, dev):
                     if not e <= tol["grad"]]
             if (bad or variant != want_plan or fwd_variant != want_plan
                     or launch["dbias"] != want_dbias
-                    or rec.get("two_launches_identical") is False
+                    or not rec["two_launches_identical"]
+                    or rec.get("tiled_two_launches_identical") is False
                     or not rec["forward_two_launches_identical"]):
                 raise AssertionError(f"training kernels {name} {dtype} dropout={rate} "
                                      f"bias={with_bias}: {bad} beyond tolerance, or the "
@@ -865,8 +887,11 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
 
 def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
     """One K1-res forward and the backward (the planned variant, dbias
-    included) allocate their outputs and at most 1 MiB more: no (B, N, N)
-    tensor exists in device memory."""
+    included) allocate their outputs, the tiled K2a's and K2b's partial sums
+    (``gat_tiled_bwd_plan``'s ``partial_bytes``, the larger of the two: K2a's
+    are freed before K2b's exist, with K2a's da rows) and at most 1 MiB more:
+    no (B, N, N) tensor exists in device memory. The allowance is checked to
+    stay below one (B, N, N) float32 tensor, so that one would still fail."""
     B, N, E = p.shape
     D = v.shape[-1]
     torch.cuda.synchronize()
@@ -881,13 +906,20 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
     outputs = (B * N * D * (size + 4) + 2 * B * N * 4            # out, u, m, l
                + 2 * B * N * E * size + E * 4 + B * N * D * size  # dp, dq, da, dv
                + N * N * 4)                                       # dbias
+    plans = tiled_plans(kg) if kg.gatv2_bwd.last_launch["variant"] == "tiled" else {}
+    partials = max([0] + [pl["partial_bytes"] + (pl["blocks"] * E * 4 if k == "k2a" else 0)
+                          for k, pl in plans.items()])
+    allowed = outputs + partials + 2**20
     emit({"phase": "training_kernels", "case": "device memory of one forward and backward",
           "B": B, "N": N, "backward": kg.gatv2_bwd.last_launch,
-          "peak_extra_bytes": extra, "output_bytes": outputs,
-          "score_matrix_bytes": B * N * N * 4})
-    if extra > outputs + 2**20:
+          "peak_extra_bytes": extra, "output_bytes": outputs, "partial_bytes": partials,
+          "allowed_bytes": allowed, "score_matrix_bytes": B * N * N * 4})
+    if partials + 2**20 >= B * N * N * 4:
+        raise AssertionError(f"the tiled backward's partials ({partials} bytes) at N={N} leave "
+                             "no room to tell a (B, N, N) tensor")
+    if extra > allowed:
         raise AssertionError(f"K1-res + K2 allocated {extra} bytes at N={N}, "
-                             f"outputs {outputs}")
+                             f"outputs {outputs}, partials {partials}")
 
 
 # ---------------------------------------------------------------------------
@@ -1623,6 +1655,8 @@ def time_route_kernels(kg, layer, x, gen) -> dict:
                     "bound_by": bound_by}
         times[k]["over_bound"] = times[k]["graph_ms"] / bound_ms
         times[k]["variant"] = "tiled"
+        if k in ("k2a", "k2b"):
+            times[k]["plan"] = tiled_plans(kg)[k]
     emit({"phase": "dense_route", "case": f"tiled kernels at the route's N, b 1, N {N}, E {E}, "
           f"D {D}, float32, dropout 0.3, bias; graph_ms from a CUDA graph of 3 calls",
           "times": times})
@@ -1952,8 +1986,12 @@ def main() -> None:
                               "(gatv2_bwd_graph with dbias), so it launches no time there")
         elif key in ("k2a", "k2b"):
             row["variant"] = ("tiled, for graphs K2ab cannot hold (phase 6: N = 2048 and "
-                              "4096, and once forced at each flagship layer); not on the "
-                              "main path at flagship widths")
+                              "4096, and once forced at each flagship layer; the dense "
+                              "route's N): 64 x 64 score tiles of 4 x 4 register micro-tiles, "
+                              "the streamed loop cut into slices of their own blocks "
+                              "(kernels/gat.gat_tiled_bwd_plan), float32 partials summed in "
+                              "slice order by a reduce kernel; not on the main path at "
+                              "flagship widths")
         kernels.append(row)
     route_rows = {"gatv2_attention_fwd": "k1", "gatv2_attention_res": "k1res",
                   "gatv2_bwd_dp_da": "k2a", "gatv2_bwd_dq_dv": "k2b", "gatv2_bwd_dbias": "k2c"}
@@ -1967,6 +2005,8 @@ def main() -> None:
             t = route["times"][route_rows[row["name"]]]
             row.update(route_N=route["N"], route_graph_ms=t["graph_ms"],
                        route_bound_ms=t["bound_ms"], route_bound_by=t["bound_by"])
+            if "plan" in t:
+                row["route_plan"] = t["plan"]
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

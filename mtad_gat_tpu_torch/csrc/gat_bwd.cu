@@ -9,7 +9,9 @@
 //        model's: N = 38 and 100), each (i, j) pair scored once, and K2c's
 //        dbias too where the call wants it; K2a, K2b and K2c stay as the
 //        variant for large graphs (kernels/gat.gat_bwd_plan chooses). The
-//        K2ab section below says more.
+//        K2ab section below says more, and the tiled K2a and K2b section how
+//        those two fill the card at batch 1 (slices of the streamed loop,
+//        register tiles, cp.async staging).
 // Each recomputes its tile of attention weights from the forward's row stats
 // (m, l) instead of reading an (N, N) tensor (_ds_tile, :417-451):
 //
@@ -30,25 +32,24 @@
 // What bounds them on the card: like the forward, the score and the two
 // (i, j, e) contractions are float32 work on the CUDA cores with no product
 // structure (some 10 operations per (i, j, e) in K2a and K2b, 4 in K2c),
-// far above the bytes they read at these graph sizes. Every operand of the
-// inner loops sits in shared memory: the row tile's p and du, the key tile's
-// q and v, at their full widths E and D, with odd row strides so that a warp
-// reading one column per lane, or one row across lanes, meets no bank
-// conflict. The score pass maps one key per lane and four rows per thread
-// (as the forward); the contraction over keys maps one embedding lane per
-// thread and loops over the tile's keys, so each thread owns its
-// accumulators and nothing is reduced across threads. No (N, N) tensor is
-// written except dbias itself.
+// far above the bytes they read at these graph sizes. K2c keeps its operands
+// in shared memory at their full widths E and D, with odd row strides so that
+// a warp reading one column per lane, or one row across lanes, meets no bank
+// conflict; its score pass maps one key per lane and four rows per thread (as
+// the tiled forward). K2ab and the tiled K2a and K2b hold 4 x 4 register
+// tiles instead. No (N, N) tensor is written except dbias itself.
 //
 // Reductions across blocks are deterministic: K2a writes one da row per
-// block, K2c one dbias matrix per batch chunk and K2ab one per group of
-// batch elements; the caller sums them in a second pass (JAX does the same
-// for da, `da_part`, :651 and :669). K2c splits the batch into chunks so
-// that the few (i, j) tiles of a small graph still fill the card.
+// block and K2a and K2b one float32 partial per slice of their loop, summed
+// in slice order by a second kernel; K2c writes one dbias matrix per batch
+// chunk and K2ab one per group of batch elements; the caller sums those (JAX
+// does the same for da, `da_part`, :651 and :669). K2c splits the batch into
+// chunks so that the few (i, j) tiles of a small graph still fill the card.
 //
-// Layouts: p, q (B, N, E), v (B, N, D) in T (float32 or bfloat16); a (E,)
-// in T; bias (N, N) float32 or null; m, l, dvec (B, N) and du (B, N, D)
-// float32. dp, dq, dv are written in T; da_part and dbias in float32.
+// Layouts: p, q (B, N, E), v (B, N, D) in T (float32 or bfloat16; float32
+// for the tiled K2a and K2b, whose wrappers widen bfloat16); a (E,) in T;
+// bias (N, N) float32 or null; m, l, dvec (B, N) and du (B, N, D) float32.
+// dp, dq, dv are written in T; da_part and dbias in float32.
 
 #include "gat_common.cuh"
 
@@ -202,145 +203,553 @@ __device__ inline uint32_t read_seed(const Args& g) {
   return g.seed == nullptr ? 0u : (uint32_t)(unsigned long long)(*g.seed);
 }
 
-// ---- K2a: one block per (batch, row tile); loops over key tiles ----------
+// ---- K2a and K2b: the tiled backward, for graphs K2ab cannot hold ---------
+//
+// A graph above N 128 (the dense route's, or --attention_impl pallas on a
+// long window) is cut into score tiles of RI rows x KJ keys. K2b owns a key
+// tile and streams row tiles past it (dq, dv sum over rows); K2a owns a row
+// tile and streams key tiles (dp, da sum over keys). The work is bound by
+// float32 operations on the CUDA cores (the score has no product structure),
+// so the design keeps every thread busy on register-held operands:
+//
+// - the score (tiled_score, shared by both kernels): a thread owns a 4-row x
+//   4-key micro-tile, rows ti + RG r and keys tj + KG c (RG = RI / 4, KG =
+//   KJ / 4, so neighbouring lanes read neighbouring q rows, no bank
+//   conflict), and reads p, q and a as float4: one read feeds 4 pairs. Each
+//   pair's score is one fmaf chain over e = 0..E-1 in order, as the tiled
+//   forward sums it (gat_fwd.cu), so w equals the tiled K1-res's weights bit
+//   for bit; du . v the same over D, with the tile's bias loaded before it
+//   so that its latency hides behind it. The dropout mask is drop_hash of
+//   the global (seed, b, i, j);
+// - the contractions, register tiles that read two float4 for 16 updates:
+//   K2b's dq item is 4 keys x a float4 group of e (q of the 4 keys in
+//   registers; per row one float4 of p and one of ds), its dv item 4 keys x
+//   4 columns (per row one float4 of wa and one of du); K2a's dp item is 4
+//   rows x a float4 group of e (p in registers; per key one float4 of q and
+//   one of ds), with da in registers beside it;
+// - the card filled at batch 1: the streamed loop is cut into `slices`
+//   blocks of its own (kernels/gat.gat_tiled_bwd_plan chooses), each writing
+//   float32 partial sums, (slices, B, N, E + D) for K2b and (slices, B, N, E)
+//   for K2a; gatv2_bwd_slice_reduce_kernel sums them in slice order, scales
+//   by a_e and casts to T. No atomics: two launches give identical bits. A
+//   block's running sums stay in shared memory (acc_smem) or in its own rows
+//   of the partial, which keeps K2b's block small enough for two a
+//   multiprocessor (kernels/gat.TILED_CHOICES, by measurement); each element
+//   has one owner thread, which writes it at the first tile, adds at the
+//   next ones and writes the total at the last;
+// - staging by cp.async with zero fill (ragged rows, padded widths), one
+//   buffer for the streamed tile. Three barriers a tile: the tile has
+//   arrived, its ds is complete (the contraction reads other threads' ds),
+//   its readers are done before the next tile is copied in. A second buffer,
+//   the next tile loading during this one, was measured: it costs a block a
+//   multiprocessor at the route's widths (8 warps instead of 16) and ran
+//   20-40% slower there (PERF.md), so occupancy hides the copies instead.
+//
+// The inputs p, q, a, v are float32 (the wrapper casts bfloat16 ones, an
+// exact widening); m, l, du, dvec float32 as elsewhere. Two tile shapes:
+// FAST for the widths the model uses, WIDE (fewer rows and keys, one warp)
+// for the widest ones the first design of these kernels accepted.
 
-size_t dp_da_floats(int E, int D) {
-  return tile_floats(E, D) + (size_t)BI * BJ + (size_t)BI * E + (size_t)WARPS * E;
+constexpr int TILE_FAST_RI = 64, TILE_FAST_KJ = 64;
+constexpr int TILE_WIDE_RI = 16, TILE_WIDE_KJ = 32;
+// Blocks a multiprocessor the register budget allows: 128 registers a thread.
+#define TILED_BOUNDS(RI, KJ) __launch_bounds__((RI) * (KJ) / 16, 8192 / ((RI) * (KJ)))
+
+struct TiledLayout {
+  int EP, DP;   // strides of p, q, a and of du, v: odd multiples of 16 bytes
+  int EA, DA;   // strides of the running sums: E and D up to a multiple of 4
+  int EG, DG;   // float4 groups of E and of D
+  __host__ __device__ TiledLayout(int E, int D)
+      : EP(stride4(E)), DP(stride4(D)), EA(up4(E)), DA(up4(D)), EG((E + 3) / 4),
+        DG((D + 3) / 4) {}
+};
+
+// Shared memory of one K2b block: a [EP]; the key tile's q [KJ][EP], v
+// [KJ][DP]; the row tile's p [RI][EP], du [RI][DP], m, l, dvec [RI];
+// ds and wa [RI][KJ]; with acc_smem the running dq [KJ][EA] and dv [KJ][DA].
+template <int RI, int KJ>
+__host__ __device__ inline size_t dq_dv_floats(const TiledLayout& L, bool acc_smem) {
+  return (size_t)L.EP + (size_t)KJ * (L.EP + L.DP) + (size_t)RI * (L.EP + L.DP + 3) +
+         2 * (size_t)RI * KJ + (acc_smem ? (size_t)KJ * (L.EA + L.DA) : 0);
 }
 
-template <typename T, bool DROP>
-__global__ void __launch_bounds__(THREADS)
-gatv2_bwd_dp_da_kernel(const T* __restrict__ p, const T* __restrict__ q,
-                       const T* __restrict__ a, const T* __restrict__ v, Args g,
-                       T* __restrict__ dp, float* __restrict__ da_part, int row_tiles) {
-  extern __shared__ float smem[];
-  const int E = g.E, N = g.N, EP = odd(E);
-  const Tile t = carve(smem, E, g.D);
-  float* ds_s = t.next;                     // [BI][BJ]
-  float* dp_acc = ds_s + BI * BJ;           // [BI][E]
-  float* da_w = dp_acc + BI * E;            // [WARPS][E]
-  const int b = blockIdx.x / row_tiles;
-  const int i0 = (blockIdx.x % row_tiles) * BI;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const uint32_t seed = read_seed(g);
+// Shared memory of one K2a block: a [EP]; the row tile's p [RI][EP], du
+// [RI][DP], m, l, dvec [RI]; the key tile's q [KJ][EP], v [KJ][DP];
+// ds by key [KJ][stride4(RI)]; da by row group [RI / 4][EA]; with acc_smem the
+// running dp [RI][EA].
+template <int RI, int KJ>
+__host__ __device__ inline size_t dp_da_floats(const TiledLayout& L, bool acc_smem) {
+  return (size_t)L.EP + (size_t)RI * (L.EP + L.DP + 3) + (size_t)KJ * (L.EP + L.DP) +
+         (size_t)KJ * stride4(RI) + (size_t)(RI / 4) * L.EA +
+         (acc_smem ? (size_t)RI * L.EA : 0);
+}
 
-  stage_a(t, a, E);
-  stage_rows(t, p, g, b, i0);
-  for (int x = threadIdx.x; x < BI * E; x += THREADS) dp_acc[x] = 0.f;
-  for (int x = threadIdx.x; x < WARPS * E; x += THREADS) da_w[x] = 0.f;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  for (int j0 = 0; j0 < N; j0 += BJ) {
-    __syncthreads();  // readers of the previous key tile are done
-    stage_keys(t, q, v, g, b, j0);
-    __syncthreads();
-    float ds[ROWS], wa[ROWS];
-    ds_tile<DROP>(t, g, seed, b, i0, j0, ds, wa);
+// Rows [r0, r0 + rows) of src (n_rows x ncols, float32, row-major) into dst
+// [rows][stride], asynchronously; rows >= n_rows and columns >= ncols read as
+// zero. `vec`: 16-byte copies (ncols % 4 == 0, src 16-byte aligned).
+__device__ void copy_rows_async(float* dst, int stride, const float* __restrict__ src, int r0,
+                                int rows, int n_rows, int ncols, bool vec, int nt) {
+  const int groups = stride / 4;
+  for (int x = threadIdx.x; x < rows * groups; x += nt) {
+    const int r = x / groups, c = x % groups * 4, row = r0 + r;
+    float* d = dst + r * stride + c;
+    const bool live = row < n_rows;
+    const float* s = src + (size_t)(live ? row : 0) * ncols + c;
+    if (vec) {
+      const bool ok = live && c < ncols;
+      cp_async16(d, ok ? s : src, ok);
+    } else {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) ds_s[(warp + r * WARPS) * BJ + lane] = ds[r];
-    __syncthreads();
-    // contract over the tile's keys: one embedding lane per thread
-    const int jn = min(BJ, N - j0);
-    for (int e = lane; e < E; e += 32) {
-      float da = 0.f;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int rl = warp + r * WARPS;
-        const float pv = t.p[rl * EP + e];
-        const float* dsr = ds_s + rl * BJ;
-        float acc = 0.f;
-        for (int c = 0; c < jn; ++c) {
-          const float z = pv + t.q[c * EP + e];
-          const float d = dsr[c];
-          acc = fmaf(d, z >= 0.f ? 1.f : g.alpha, acc);
-          da = fmaf(d, z >= 0.f ? z : g.alpha * z, da);
-        }
-        dp_acc[rl * E + e] += acc;
+      for (int k = 0; k < 4; ++k) {
+        const bool ok = live && c + k < ncols;
+        cp_async4(d + k, ok ? s + k : src, ok);
       }
-      da_w[warp * E + e] += da;
+    }
+  }
+}
+
+// x[r0 .. r0 + n) into dst [n], asynchronously, zero past n_valid.
+__device__ void copy_vec_async(float* dst, const float* __restrict__ src, int r0, int n,
+                               int n_valid, int nt) {
+  for (int x = threadIdx.x; x < n; x += nt) {
+    const bool ok = r0 + x < n_valid;
+    cp_async4(dst + x, ok ? src + r0 + x : src, ok);
+  }
+}
+
+__device__ inline bool aligned16(const void* x) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+// ds and wa of this thread's micro-tile, pair (r, c) at [4 r + c]: rows
+// i0 + ti + RG r of the staged row tile (p, du, m, l, dvec) against keys
+// j0 + tj + KG c of the staged key tile (q, v); 0 for a row or key >= N.
+template <int RI, int KJ, bool DROP>
+__device__ __forceinline__ void tiled_score(const float* p_s, const float* du_s,
+                                            const float* m_s, const float* l_s,
+                                            const float* dvec_s, const float* q_s,
+                                            const float* v_s, const float* a_s,
+                                            const TiledLayout& L, const Args& g, uint32_t seed,
+                                            int b, int i0, int j0, float (&ds)[16],
+                                            float (&wa)[16]) {
+  constexpr int RG = RI / 4, KG = KJ / 4;
+  const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
+  float s[16], dot[16];
+#pragma unroll
+  for (int x = 0; x < 16; ++x) s[x] = dot[x] = 0.f;
+  for (int eg = 0; eg < L.EG; ++eg) {
+    float4 pr[4], qc[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pr[r] = load4(p_s + (ti + RG * r) * L.EP + 4 * eg);
+      qc[r] = load4(q_s + (tj + KG * r) * L.EP + 4 * eg);
+    }
+    const float4 av = load4(a_s + 4 * eg);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        s[r * 4 + c] = score4(pr[r], qc[c], av, s[r * 4 + c], g.alpha);
+  }
+  // the tile's bias, loaded before du . v so that its latency hides behind it
+  float bv[16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = i0 + ti + RG * r, j = j0 + tj + KG * c;
+      bv[r * 4 + c] = g.bias != nullptr && i < g.N && j < g.N
+                          ? __ldg(g.bias + (size_t)i * g.N + j) : 0.f;
+    }
+  for (int dg = 0; dg < L.DG; ++dg) {
+    float4 ur[4], vc[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      ur[r] = load4(du_s + (ti + RG * r) * L.DP + 4 * dg);
+      vc[r] = load4(v_s + (tj + KG * r) * L.DP + 4 * dg);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float& d = dot[r * 4 + c];
+        d = fmaf(ur[r].x, vc[c].x, d);
+        d = fmaf(ur[r].y, vc[c].y, d);
+        d = fmaf(ur[r].z, vc[c].z, d);
+        d = fmaf(ur[r].w, vc[c].w, d);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int rl = ti + RG * r, i = i0 + rl;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + tj + KG * c;
+      float dsv = 0.f, wav = 0.f;
+      if (i < g.N && j < g.N) {
+        float sv = s[r * 4 + c];
+        if (g.bias != nullptr) sv += bv[r * 4 + c];
+        const float w = expf(sv - m_s[rl]) / l_s[rl];
+        float w_agg = w;
+        if constexpr (DROP) {
+          w_agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < g.thresh
+                      ? w * g.scale : 0.f;
+        }
+        wav = w_agg;
+        dsv = w_agg * dot[r * 4 + c] - w * dvec_s[rl];
+      }
+      ds[r * 4 + c] = dsv;
+      wa[r * 4 + c] = wav;
+    }
+  }
+}
+
+// A running sum's element with one owner thread: written at the first tile of
+// the block's slice, added to at the next ones (in shared memory, or in the
+// partial itself without acc_smem), the total written to the partial at the
+// last.
+__device__ __forceinline__ void accumulate(float* part_x, float* smem_x, float val, bool first,
+                                           bool last, bool acc_smem) {
+  if (!first) val += acc_smem ? *smem_x : *part_x;
+  if (last || !acc_smem)
+    *part_x = val;
+  else
+    *smem_x = val;
+}
+
+__device__ inline int slice_begin(int sl, int tiles, int slices) {
+  return (int)((long long)sl * tiles / slices);
+}
+
+// K2b: a block per (slice, batch element, key tile), walking its slice's row
+// tiles. part (slices, B, N, E + D): dq's sums without the factor a_e, then dv's.
+template <int RI, int KJ, bool DROP>
+__global__ void TILED_BOUNDS(RI, KJ)
+gatv2_bwd_dq_dv_kernel(const float* __restrict__ p, const float* __restrict__ q,
+                       const float* __restrict__ a, const float* __restrict__ v, Args g,
+                       float* __restrict__ part, int slices, int acc_smem) {
+  constexpr int NT = RI * KJ / 16, RG = RI / 4, KG = KJ / 4;
+  extern __shared__ __align__(16) float smem[];
+  const int N = g.N, E = g.E, D = g.D, W = E + D;
+  const TiledLayout L(E, D);
+  const int key_tiles = (N + KJ - 1) / KJ, row_tiles = (N + RI - 1) / RI;
+  const int kt = blockIdx.x % key_tiles, sb = blockIdx.x / key_tiles;
+  const int b = sb % g.B, sl = sb / g.B;
+  const int j0 = kt * KJ, kn = min(KJ, N - j0);
+  const int t_begin = slice_begin(sl, row_tiles, slices);
+  const int t_end = slice_begin(sl + 1, row_tiles, slices);
+  float* a_s = smem;                        // [EP]
+  float* q_s = a_s + L.EP;                  // [KJ][EP]
+  float* v_s = q_s + KJ * L.EP;             // [KJ][DP]
+  float* st = v_s + KJ * L.DP;              // the row tile: p, du, m, l, dvec
+  float* ds_s = st + RI * (L.EP + L.DP + 3);  // [RI][KJ], keys by micro-tile
+  float* wa_s = ds_s + RI * KJ;             // [RI][KJ]
+  float* dq_s = wa_s + RI * KJ;             // [KJ][EA] with acc_smem
+  float* dv_s = dq_s + KJ * L.EA;           // [KJ][DA] with acc_smem
+  float* out = part + ((size_t)(sl * g.B + b) * N + j0) * W;
+  const uint32_t seed = read_seed(g);
+  const float* pb = p + (size_t)b * N * E;
+  const float* dub = g.du + (size_t)b * N * D;
+  const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q);
+  const bool vec_d = D % 4 == 0 && aligned16(v) && aligned16(g.du);
+  float* du_t = st + RI * L.EP;
+  float* stats = du_t + RI * L.DP;
+  auto stage = [&](int t) {
+    const int i0 = t * RI;
+    copy_rows_async(st, L.EP, pb, i0, RI, N, E, vec_e, NT);
+    copy_rows_async(du_t, L.DP, dub, i0, RI, N, D, vec_d, NT);
+    copy_vec_async(stats, g.m + (size_t)b * N, i0, RI, N, NT);
+    copy_vec_async(stats + RI, g.l + (size_t)b * N, i0, RI, N, NT);
+    copy_vec_async(stats + 2 * RI, g.dvec + (size_t)b * N, i0, RI, N, NT);
+    cp_async_commit();
+  };
+
+  for (int e = threadIdx.x; e < L.EP; e += NT) a_s[e] = e < E ? a[e] : 0.f;
+  copy_rows_async(q_s, L.EP, q + (size_t)b * N * E, j0, KJ, N, E, vec_e, NT);
+  copy_rows_async(v_s, L.DP, v + (size_t)b * N * D, j0, KJ, N, D, vec_d, NT);
+  stage(t_begin);
+
+  const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
+  const int n_dq = KG * L.EG, items = n_dq + KG * L.DG;
+  for (int t = t_begin; t < t_end; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile has arrived
+    const int i0 = t * RI;
+    {
+      float ds[16], wa[16];
+      tiled_score<RI, KJ, DROP>(st, du_t, stats, stats + RI, stats + 2 * RI, q_s, v_s, a_s, L,
+                                g, seed, b, i0, j0, ds, wa);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int o = (ti + RG * r) * KJ + 4 * tj;
+        *reinterpret_cast<float4*>(ds_s + o) =
+            make_float4(ds[4 * r], ds[4 * r + 1], ds[4 * r + 2], ds[4 * r + 3]);
+        *reinterpret_cast<float4*>(wa_s + o) =
+            make_float4(wa[4 * r], wa[4 * r + 1], wa[4 * r + 2], wa[4 * r + 3]);
+      }
+    }
+    __syncthreads();  // the tile's ds and wa are complete
+    const int in = min(RI, N - i0);
+    const bool first = t == t_begin, last = t == t_end - 1;
+    for (int x = threadIdx.x; x < items; x += NT) {
+      const bool is_dq = x < n_dq;
+      const int y = is_dq ? x : x - n_dq, groups = is_dq ? L.EG : L.DG;
+      const int kg = y / groups, c0 = y % groups * 4;
+      float acc[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+      if (is_dq) {
+        // dq_je: sum_i ds_ij lr'(p_ie + q_je), q of the item's 4 keys held, as
+        // (1 + alpha) / 2 sum_i ds_ij plus (1 - alpha) / 2 sum_i ds_ij with the
+        // sign of z_ije flipped into it (one logic op, not a compare and a
+        // select: 8% of K2b at the route's shape, PERF.md; a z of -0 takes
+        // alpha, where the select takes 1)
+        float qv[4][4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 q4 = load4(q_s + (kg + KG * c) * L.EP + c0);
+          qv[c][0] = q4.x, qv[c][1] = q4.y, qv[c][2] = q4.z, qv[c][3] = q4.w;
+        }
+        const float hi = 0.5f * (1.f + g.alpha), lo = 0.5f * (1.f - g.alpha);
+        float cst[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+        for (int i = 0; i < in; ++i) {
+          const float4 p4 = load4(st + i * L.EP + c0);
+          const float4 d4 = load4(ds_s + i * KJ + 4 * kg);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w}, dd[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            cst[c] = fmaf(hi, dd[c], cst[c]);
+            const unsigned h = __float_as_uint(lo * dd[c]);
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              acc[c * 4 + k] +=
+                  __uint_as_float(h ^ (__float_as_uint(pv[k] + qv[c][k]) & 0x80000000u));
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[c * 4 + k] += cst[c];
+      } else {
+        // dv_jd: sum_i wa_ij du_id
+#pragma unroll 2
+        for (int i = 0; i < in; ++i) {
+          const float4 w4 = load4(wa_s + i * KJ + 4 * kg);
+          const float4 u4 = load4(du_t + i * L.DP + c0);
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w}, uv[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[c * 4 + k] = fmaf(wv[c], uv[k], acc[c * 4 + k]);
+        }
+      }
+      const int width = is_dq ? E : D, sstride = is_dq ? L.EA : L.DA, goff = is_dq ? 0 : E;
+      float* sm = is_dq ? dq_s : dv_s;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = kg + KG * c;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (key < kn && c0 + k < width)
+            accumulate(out + (size_t)key * W + goff + c0 + k, sm + key * sstride + c0 + k,
+                       acc[c * 4 + k], first, last, acc_smem);
+      }
+    }
+    if (t + 1 < t_end) {
+      __syncthreads();  // the contraction's readers of the tile are done
+      stage(t + 1);
+    }
+  }
+}
+
+// Lanes (1, 2 or 4) that share one item of K2a's contraction, each taking
+// every ks-th key: the split whose items x splits fill the block's nt threads
+// the best round for round (the fewest on a tie). 16 row groups x 19 float4
+// groups of E 76 are 304 items, 1.19 rounds of 256 threads; split 4 ways,
+// 4.75. (K2b's dq items split by rows the same way ran 36% slower at the
+// route's shape: PERF.md.)
+__host__ __device__ inline int key_splits(int items, int nt) {
+  int best = 1;
+  long long best_num = 0, best_den = 1;
+  for (int ks = 1; ks <= 4; ks *= 2) {
+    const long long num = (long long)items * ks;
+    const long long den = (num + nt - 1) / nt * nt;
+    if (num * best_den > best_num * den) best = ks, best_num = num, best_den = den;
+  }
+  return best;
+}
+
+// K2a: a block per (slice, batch element, row tile), walking its slice's key
+// tiles. part (slices, B, N, E): dp's sums without the factor a_e; da_part
+// one row of E per block: its rows' and keys' sum of ds lr(z).
+template <int RI, int KJ, bool DROP>
+__global__ void TILED_BOUNDS(RI, KJ)
+gatv2_bwd_dp_da_kernel(const float* __restrict__ p, const float* __restrict__ q,
+                       const float* __restrict__ a, const float* __restrict__ v, Args g,
+                       float* __restrict__ part, float* __restrict__ da_part, int slices,
+                       int acc_smem) {
+  constexpr int NT = RI * KJ / 16, RG = RI / 4, KG = KJ / 4, RS = (RI / 4) % 2 ? RI : RI + 4;
+  extern __shared__ __align__(16) float smem[];
+  const int N = g.N, E = g.E, D = g.D;
+  const TiledLayout L(E, D);
+  const int row_tiles = (N + RI - 1) / RI, key_tiles = (N + KJ - 1) / KJ;
+  const int rt = blockIdx.x % row_tiles, sb = blockIdx.x / row_tiles;
+  const int b = sb % g.B, sl = sb / g.B;
+  const int i0 = rt * RI, in = min(RI, N - i0);
+  const int t_begin = slice_begin(sl, key_tiles, slices);
+  const int t_end = slice_begin(sl + 1, key_tiles, slices);
+  float* a_s = smem;                        // [EP]
+  float* p_s = a_s + L.EP;                  // [RI][EP]
+  float* du_s = p_s + RI * L.EP;            // [RI][DP]
+  float* m_s = du_s + RI * L.DP;            // [RI]
+  float* l_s = m_s + RI;                    // [RI]
+  float* dvec_s = l_s + RI;                 // [RI]
+  float* q_t = dvec_s + RI;                 // the key tile: q [KJ][EP], v [KJ][DP]
+  float* dsT_s = q_t + KJ * (L.EP + L.DP);  // [KJ][RS], rows by micro-tile
+  float* da_s = dsT_s + KJ * RS;            // [RG][EA]
+  float* dp_s = da_s + RG * L.EA;           // [RI][EA] with acc_smem
+  float* out = part + ((size_t)(sl * g.B + b) * N + i0) * E;
+  const uint32_t seed = read_seed(g);
+  const float* qb = q + (size_t)b * N * E;
+  const float* vb = v + (size_t)b * N * D;
+  const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q);
+  const bool vec_d = D % 4 == 0 && aligned16(v) && aligned16(g.du);
+  auto stage = [&](int t) {
+    copy_rows_async(q_t, L.EP, qb, t * KJ, KJ, N, E, vec_e, NT);
+    copy_rows_async(q_t + KJ * L.EP, L.DP, vb, t * KJ, KJ, N, D, vec_d, NT);
+    cp_async_commit();
+  };
+
+  for (int e = threadIdx.x; e < L.EP; e += NT) a_s[e] = e < E ? a[e] : 0.f;
+  copy_rows_async(p_s, L.EP, p + (size_t)b * N * E, i0, RI, N, E, vec_e, NT);
+  copy_rows_async(du_s, L.DP, g.du + (size_t)b * N * D, i0, RI, N, D, vec_d, NT);
+  copy_vec_async(m_s, g.m + (size_t)b * N, i0, RI, N, NT);
+  copy_vec_async(l_s, g.l + (size_t)b * N, i0, RI, N, NT);
+  copy_vec_async(dvec_s, g.dvec + (size_t)b * N, i0, RI, N, NT);
+  stage(t_begin);
+
+  const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
+  const int items = RG * L.EG, ks = key_splits(items, NT);
+  for (int t = t_begin; t < t_end; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile has arrived
+    const int j0 = t * KJ;
+    {
+      float ds[16], wa[16];
+      tiled_score<RI, KJ, DROP>(p_s, du_s, m_s, l_s, dvec_s, q_t, q_t + KJ * L.EP, a_s, L, g,
+                                seed, b, i0, j0, ds, wa);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        *reinterpret_cast<float4*>(dsT_s + (tj + KG * c) * RS + 4 * ti) =
+            make_float4(ds[c], ds[4 + c], ds[8 + c], ds[12 + c]);
+    }
+    __syncthreads();  // the tile's ds is complete
+    const int kn = min(KJ, N - j0);
+    const bool first = t == t_begin, last = t == t_end - 1;
+    for (int base = 0; base < items * ks; base += NT) {
+      // dp_ie: sum_j ds_ij lr'(z), da_e: sum ds_ij lr(z), p of the item's 4
+      // rows held; split sp of an item takes keys sp, sp + ks, ...
+      const int x = base + threadIdx.x;
+      const bool live = x < items * ks;
+      const int item = live ? x / ks : 0, sp = x % ks;
+      const int h = item / L.EG, c0 = item % L.EG * 4;
+      float pv[4][4], dp[16], da[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 p4 = load4(p_s + (h + RG * r) * L.EP + c0);
+        pv[r][0] = p4.x, pv[r][1] = p4.y, pv[r][2] = p4.z, pv[r][3] = p4.w;
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) dp[k] = 0.f;
+#pragma unroll 2
+      for (int k = sp; k < kn; k += ks) {
+        const float4 q4 = load4(q_t + k * L.EP + c0);
+        const float4 d4 = load4(dsT_s + k * RS + 4 * h);
+        const float qv[4] = {q4.x, q4.y, q4.z, q4.w}, dd[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float d = dd[r], ad = g.alpha * d;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float z = pv[r][e] + qv[e];
+            const float gk = z >= 0.f ? d : ad;
+            dp[r * 4 + e] += gk;
+            da[e] = fmaf(gk, z, da[e]);
+          }
+        }
+      }
+      // the splits of an item are neighbouring lanes: a butterfly, a fixed order
+      for (int o = 1; o < ks; o *= 2) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) dp[k] += __shfl_xor_sync(0xffffffffu, dp[k], o);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) da[e] += __shfl_xor_sync(0xffffffffu, da[e], o);
+      }
+      if (!live || sp != 0) continue;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = h + RG * r;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (row < in && c0 + e < E)
+            accumulate(out + (size_t)row * E + c0 + e, dp_s + row * L.EA + c0 + e, dp[r * 4 + e],
+                       first, last, acc_smem);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& s = da_s[h * L.EA + c0 + e];
+        s = first ? da[e] : s + da[e];
+      }
+    }
+    if (t + 1 < t_end) {
+      __syncthreads();  // the contraction's readers of the tile are done
+      stage(t + 1);
     }
   }
   __syncthreads();
-  for (int x = threadIdx.x; x < BI * E; x += THREADS) {
-    const int r = x / E, e = x % E, i = i0 + r;
-    if (i < N) dp[((size_t)b * N + i) * E + e] = from_f<T>(t.a[e] * dp_acc[x]);
-  }
-  for (int e = threadIdx.x; e < E; e += THREADS) {
+  for (int e = threadIdx.x; e < E; e += NT) {
     float s = 0.f;
-    for (int w = 0; w < WARPS; ++w) s += da_w[w * E + e];
+    for (int h = 0; h < RG; ++h) s += da_s[h * L.EA + e];
     da_part[(size_t)blockIdx.x * E + e] = s;
   }
 }
 
-// ---- K2b: one block per (batch, key tile); loops over row tiles ----------
-
-size_t dq_dv_floats(int E, int D) {
-  return tile_floats(E, D) + 2 * (size_t)BI * BJ + (size_t)BJ * E + (size_t)BJ * D;
-}
-
-template <typename T, bool DROP>
-__global__ void __launch_bounds__(THREADS)
-gatv2_bwd_dq_dv_kernel(const T* __restrict__ p, const T* __restrict__ q,
-                       const T* __restrict__ a, const T* __restrict__ v, Args g,
-                       T* __restrict__ dq, T* __restrict__ dv, int col_tiles) {
-  extern __shared__ float smem[];
-  const int E = g.E, D = g.D, N = g.N, EP = odd(E), DP = odd(D);
-  const Tile t = carve(smem, E, D);
-  float* ds_s = t.next;                     // [BI][BJ]
-  float* wa_s = ds_s + BI * BJ;             // [BI][BJ]
-  float* dq_acc = wa_s + BI * BJ;           // [BJ][E]
-  float* dv_acc = dq_acc + BJ * E;          // [BJ][D]
-  const int b = blockIdx.x / col_tiles;
-  const int j0 = (blockIdx.x % col_tiles) * BJ;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const uint32_t seed = read_seed(g);
-  const int jn = min(BJ, N - j0);
-
-  stage_a(t, a, E);
-  stage_keys(t, q, v, g, b, j0);
-  for (int x = threadIdx.x; x < BJ * E; x += THREADS) dq_acc[x] = 0.f;
-  for (int x = threadIdx.x; x < BJ * D; x += THREADS) dv_acc[x] = 0.f;
-
-  for (int i0 = 0; i0 < N; i0 += BI) {
-    __syncthreads();  // readers of the previous row tile are done
-    stage_rows(t, p, g, b, i0);
-    __syncthreads();
-    float ds[ROWS], wa[ROWS];
-    ds_tile<DROP>(t, g, seed, b, i0, j0, ds, wa);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      ds_s[(warp + r * WARPS) * BJ + lane] = ds[r];
-      wa_s[(warp + r * WARPS) * BJ + lane] = wa[r];
-    }
-    __syncthreads();
-    const int in = min(BI, N - i0);
-    // dq: one embedding lane per thread, keys warp, warp + WARPS, ...
-    for (int e = lane; e < E; e += 32) {
-      for (int c = warp; c < jn; c += WARPS) {
-        const float qv = t.q[c * EP + e];
-        float acc = 0.f;
-        for (int r = 0; r < in; ++r) {
-          const float z = t.p[r * EP + e] + qv;
-          acc = fmaf(ds_s[r * BJ + c], z >= 0.f ? 1.f : g.alpha, acc);
-        }
-        dq_acc[c * E + e] += acc;
-      }
-    }
-    // dv: dropout-masked weights only (the aggregate's path)
-    for (int x = threadIdx.x; x < jn * D; x += THREADS) {
-      const int c = x / D, d = x % D;
-      float acc = 0.f;
-      for (int r = 0; r < in; ++r) acc = fmaf(wa_s[r * BJ + c], t.du[r * DP + d], acc);
-      dv_acc[x] += acc;
-    }
-  }
-  __syncthreads();
-  for (int x = threadIdx.x; x < jn * E; x += THREADS) {
-    const int c = x / E, e = x % E;
-    dq[((size_t)b * N + j0 + c) * E + e] = from_f<T>(t.a[e] * dq_acc[x]);
-  }
-  for (int x = threadIdx.x; x < jn * D; x += THREADS) {
-    const int c = x / D, d = x % D;
-    dv[((size_t)b * N + j0 + c) * D + d] = from_f<T>(dv_acc[x]);
+// out_a[r][c] = a_c sum_s part[s][r][c] for c < E and out_b[r][c - E] =
+// sum_s part[s][r][c] for the DB columns after (W = E + DB a row), s in
+// order: no atomics, the same bits every launch; cast to T.
+template <typename T>
+__global__ void gatv2_bwd_slice_reduce_kernel(const float* __restrict__ part,
+                                              const float* __restrict__ a, T* __restrict__ out_a,
+                                              T* __restrict__ out_b, long long rows, int E,
+                                              int DB, int S) {
+  const int W = E + DB;
+  const long long n = rows * W;
+  for (long long x = blockIdx.x * (long long)blockDim.x + threadIdx.x; x < n;
+       x += (long long)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) acc += part[(size_t)s * n + x];
+    const long long r = x / W;
+    const int c = (int)(x % W);
+    if (c < E)
+      out_a[r * E + c] = from_f<T>(a[c] * acc);
+    else
+      out_b[r * DB + c - E] = from_f<T>(acc);
   }
 }
 
@@ -712,29 +1121,108 @@ Args make_args(const void* bias, const void* seed, const void* m, const void* l,
               (const float*)du, (const float*)dvec, B, N, E, D, alpha, thresh, scale};
 }
 
-template <typename T, bool DROP>
-int dp_da(const void* p, const void* q, const void* a, const void* v, const Args& g,
-          void* dp, void* da_part, void* stream) {
-  auto kernel = gatv2_bwd_dp_da_kernel<T, DROP>;
-  const size_t floats = dp_da_floats(g.E, g.D);
-  if (int err = prepare(kernel, floats)) return err;
-  const int row_tiles = (g.N + BI - 1) / BI;
-  kernel<<<g.B * row_tiles, THREADS, floats * sizeof(float), (cudaStream_t)stream>>>(
-      (const T*)p, (const T*)q, (const T*)a, (const T*)v, g, (T*)dp, (float*)da_part,
-      row_tiles);
+// The two tile shapes: 0 FAST, 1 WIDE.
+__host__ __device__ inline bool tile_dims(int tile, int* ri, int* kj) {
+  if (tile == 0) return *ri = TILE_FAST_RI, *kj = TILE_FAST_KJ, true;
+  if (tile == 1) return *ri = TILE_WIDE_RI, *kj = TILE_WIDE_KJ, true;
+  return false;
+}
+
+// Shared memory of one block of K2a (which 0) or K2b (1) at tile shape
+// `tile`, widths E, D and running sums in shared memory or not; 0 for a bad
+// argument.
+size_t tiled_floats(int which, int tile, int E, int D, bool acc_smem) {
+  const TiledLayout L(E, D);
+  if (which < 0 || which > 1) return 0;
+  if (tile == 0)
+    return which ? dq_dv_floats<TILE_FAST_RI, TILE_FAST_KJ>(L, acc_smem)
+                 : dp_da_floats<TILE_FAST_RI, TILE_FAST_KJ>(L, acc_smem);
+  if (tile == 1)
+    return which ? dq_dv_floats<TILE_WIDE_RI, TILE_WIDE_KJ>(L, acc_smem)
+                 : dp_da_floats<TILE_WIDE_RI, TILE_WIDE_KJ>(L, acc_smem);
+  return 0;
+}
+
+// One tiled launch's choices (kernels/gat.gat_tiled_bwd_plan).
+struct TiledPlan {
+  int tile, slices, acc_smem;
+};
+
+template <typename T>
+int slice_reduce(const float* part, const float* a, void* out_a, void* out_b, const Args& g,
+                 int DB, int S, void* stream) {
+  const long long n = (long long)g.B * g.N * (g.E + DB);
+  const long long blocks = (n + 255) / 256;
+  gatv2_bwd_slice_reduce_kernel<T><<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0,
+                                      (cudaStream_t)stream>>>(
+      part, a, (T*)out_a, (T*)out_b, (long long)g.B * g.N, g.E, DB, S);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool DROP>
-int dq_dv(const void* p, const void* q, const void* a, const void* v, const Args& g,
-          void* dq, void* dv, void* stream) {
-  auto kernel = gatv2_bwd_dq_dv_kernel<T, DROP>;
-  const size_t floats = dq_dv_floats(g.E, g.D);
+// K2b and its reduce: dq (B, N, E) and dv (B, N, D) in T, part (slices, B,
+// N, E + D) float32 scratch.
+template <typename T, int RI, int KJ, bool DROP>
+int dq_dv_shape(const float* p, const float* q, const float* a, const float* v, const Args& g,
+                void* dq, void* dv, float* part, const TiledPlan& pl, void* stream,
+                int* occupancy) {
+  auto kernel = gatv2_bwd_dq_dv_kernel<RI, KJ, DROP>;
+  const size_t floats = dq_dv_floats<RI, KJ>(TiledLayout(g.E, g.D), pl.acc_smem);
   if (int err = prepare(kernel, floats)) return err;
-  const int col_tiles = (g.N + BJ - 1) / BJ;
-  kernel<<<g.B * col_tiles, THREADS, floats * sizeof(float), (cudaStream_t)stream>>>(
-      (const T*)p, (const T*)q, (const T*)a, (const T*)v, g, (T*)dq, (T*)dv, col_tiles);
-  return (int)cudaGetLastError();
+  if (occupancy != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, RI * KJ / 16,
+                                                              floats * sizeof(float));
+  const long long blocks = (long long)pl.slices * g.B * ((g.N + KJ - 1) / KJ);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, RI * KJ / 16, floats * sizeof(float), (cudaStream_t)stream>>>(
+      p, q, a, v, g, part, pl.slices, pl.acc_smem);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  return slice_reduce<T>(part, a, dq, dv, g, g.D, pl.slices, stream);
+}
+
+// K2a and its reduce: dp (B, N, E) in T, da_part one float32 row of E per
+// block, part (slices, B, N, E) float32 scratch.
+template <typename T, int RI, int KJ, bool DROP>
+int dp_da_shape(const float* p, const float* q, const float* a, const float* v, const Args& g,
+                void* dp, float* da_part, float* part, const TiledPlan& pl, void* stream,
+                int* occupancy) {
+  auto kernel = gatv2_bwd_dp_da_kernel<RI, KJ, DROP>;
+  const size_t floats = dp_da_floats<RI, KJ>(TiledLayout(g.E, g.D), pl.acc_smem);
+  if (int err = prepare(kernel, floats)) return err;
+  if (occupancy != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, RI * KJ / 16,
+                                                              floats * sizeof(float));
+  const long long blocks = (long long)pl.slices * g.B * ((g.N + RI - 1) / RI);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, RI * KJ / 16, floats * sizeof(float), (cudaStream_t)stream>>>(
+      p, q, a, v, g, part, da_part, pl.slices, pl.acc_smem);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  return slice_reduce<T>(part, a, dp, nullptr, g, 0, pl.slices, stream);
+}
+
+// K2a (which 0) or K2b (1) with its reduce, or (occupancy non-null) only the
+// blocks of its kernel one multiprocessor holds at once.
+template <typename T>
+int tiled(int which, const void* p, const void* q, const void* a, const void* v,
+          const Args& g, void* out0, void* out1, void* part, const TiledPlan& pl,
+          void* stream, int* occupancy = nullptr) {
+  if (pl.slices < 1 || tiled_floats(which, pl.tile, g.E, g.D, pl.acc_smem) == 0)
+    return (int)cudaErrorInvalidValue;
+  const float *pf = (const float*)p, *qf = (const float*)q, *af = (const float*)a,
+              *vf = (const float*)v;
+  float* pt = (float*)part;
+  const bool drop = g.seed != nullptr;
+#define GAT_TILED_CASE(RI, KJ, DROP)                                                       \
+  return which ? dq_dv_shape<T, RI, KJ, DROP>(pf, qf, af, vf, g, out0, out1, pt, pl, stream, \
+                                             occupancy)                                   \
+               : dp_da_shape<T, RI, KJ, DROP>(pf, qf, af, vf, g, out0, (float*)out1, pt, pl, \
+                                             stream, occupancy)
+  if (pl.tile == 0) {
+    if (drop) GAT_TILED_CASE(TILE_FAST_RI, TILE_FAST_KJ, true);
+    GAT_TILED_CASE(TILE_FAST_RI, TILE_FAST_KJ, false);
+  }
+  if (drop) GAT_TILED_CASE(TILE_WIDE_RI, TILE_WIDE_KJ, true);
+  GAT_TILED_CASE(TILE_WIDE_RI, TILE_WIDE_KJ, false);
+#undef GAT_TILED_CASE
 }
 
 // K2ab's outputs and its batch groups: one launch's pointers.
@@ -810,14 +1298,13 @@ int dbias(const void* p, const void* q, const void* a, const void* v, const Args
 
 extern "C" {
 
-// Bytes of shared memory one block of kernel `which` (0 K2a, 1 K2b, 2 K2c,
-// 3 K2ab) needs at graph size N (K2ab only) and widths E and D.
+// Bytes of shared memory one block of K2c (which 2) or K2ab (3) needs at
+// graph size N (K2ab only) and widths E and D; -1 for another kernel
+// (gatv2_bwd_tiled_smem_bytes gives the tiled K2a and K2b's).
 long gatv2_bwd_smem_bytes(int which, int N, int E, int D) {
-  const size_t f = which == 0   ? dp_da_floats(E, D)
-                   : which == 1 ? dq_dv_floats(E, D)
-                   : which == 2 ? dbias_floats(E, D)
-                                : GraphLayout(N, E, D).floats();
-  return (long)(f * sizeof(float));
+  if (which == 2) return (long)(dbias_floats(E, D) * sizeof(float));
+  if (which == 3) return (long)(GraphLayout(N, E, D).floats() * sizeof(float));
+  return -1;
 }
 
 // K2ab's embedding splits of the score pass, its row groups of the
@@ -862,30 +1349,57 @@ int gatv2_bwd_graph_occupancy(int N, int E, int D, int bf16, int drop, int dbias
   return err ? -err : blocks;
 }
 
-// K2a. da_part is (B * ceil(N / 16), E) float32: the caller sums its rows.
-int gatv2_bwd_dp_da_f32(GAT_BWD_ARGS, void* dp, void* da_part, GAT_BWD_SIZES,
-                        GAT_BWD_DROP) {
-  const Args g = GAT_BWD_G;
-  return seed ? dp_da<float, true>(p, q, a, v, g, dp, da_part, stream)
-              : dp_da<float, false>(p, q, a, v, g, dp, da_part, stream);
+// The tiled K2a and K2b's layout, for the planner's check
+// (kernels/gat._check_tiled_layout): rows and keys of tile shape `tile`
+// (out[0], out[1]; 0 for a bad tile), and the shared-memory bytes of one
+// block of K2a (which 0) or K2b (1), 0 for a bad argument.
+void gatv2_bwd_tiled_tile(int tile, int* out) {
+  out[0] = out[1] = 0;
+  tile_dims(tile, out, out + 1);
 }
-int gatv2_bwd_dp_da_bf16(GAT_BWD_ARGS, void* dp, void* da_part, GAT_BWD_SIZES,
-                         GAT_BWD_DROP) {
-  const Args g = GAT_BWD_G;
-  return seed ? dp_da<__nv_bfloat16, true>(p, q, a, v, g, dp, da_part, stream)
-              : dp_da<__nv_bfloat16, false>(p, q, a, v, g, dp, da_part, stream);
+long gatv2_bwd_tiled_smem_bytes(int which, int tile, int E, int D, int acc_smem) {
+  return (long)(tiled_floats(which, tile, E, D, acc_smem != 0) * sizeof(float));
+}
+// Key splits of K2a's contraction at `items` (row groups x float4 groups of
+// E) on `threads` threads.
+int gatv2_bwd_tiled_key_splits(int items, int threads) { return key_splits(items, threads); }
+
+// Blocks of the tiled K2a (which 0) or K2b (1), float32, with dropout or not,
+// that one multiprocessor holds at once (CUDA's occupancy calculator);
+// negative on a CUDA error.
+int gatv2_bwd_tiled_occupancy(int which, int tile, int E, int D, int acc_smem, int drop) {
+  long long one = 0;
+  const Args g = make_args(nullptr, drop ? &one : nullptr, nullptr, nullptr, nullptr, nullptr,
+                           1, 1, E, D, 0.f, 0u, 1.f);
+  int blocks = 0;
+  const int err = tiled<float>(which, nullptr, nullptr, nullptr, nullptr, g, nullptr, nullptr,
+                               nullptr, TiledPlan{tile, 1, acc_smem}, nullptr, &blocks);
+  return err ? -err : blocks;
 }
 
-// K2b.
-int gatv2_bwd_dq_dv_f32(GAT_BWD_ARGS, void* dq, void* dv, GAT_BWD_SIZES, GAT_BWD_DROP) {
-  const Args g = GAT_BWD_G;
-  return seed ? dq_dv<float, true>(p, q, a, v, g, dq, dv, stream)
-              : dq_dv<float, false>(p, q, a, v, g, dq, dv, stream);
+// K2a: dp (B, N, E) in T and da_part (blocks, E) float32, one row a block
+// (slices x B x ceil(N / RI) rows): the caller sums them. K2b: dq (B, N, E)
+// and dv (B, N, D) in T. p, q, a and v are float32 whatever T; part is the
+// float32 scratch of the slices' partial sums, (slices, B, N, E) for K2a and
+// (slices, B, N, E + D) for K2b.
+#define GAT_TILED_TAIL int tile, int slices, int acc_smem
+#define GAT_TILED_PLAN TiledPlan{tile, slices, acc_smem}
+int gatv2_bwd_dp_da_f32(GAT_BWD_ARGS, void* dp, void* da_part, void* part, GAT_BWD_SIZES,
+                        GAT_TILED_TAIL, GAT_BWD_DROP) {
+  return tiled<float>(0, p, q, a, v, GAT_BWD_G, dp, da_part, part, GAT_TILED_PLAN, stream);
 }
-int gatv2_bwd_dq_dv_bf16(GAT_BWD_ARGS, void* dq, void* dv, GAT_BWD_SIZES, GAT_BWD_DROP) {
-  const Args g = GAT_BWD_G;
-  return seed ? dq_dv<__nv_bfloat16, true>(p, q, a, v, g, dq, dv, stream)
-              : dq_dv<__nv_bfloat16, false>(p, q, a, v, g, dq, dv, stream);
+int gatv2_bwd_dp_da_bf16(GAT_BWD_ARGS, void* dp, void* da_part, void* part, GAT_BWD_SIZES,
+                         GAT_TILED_TAIL, GAT_BWD_DROP) {
+  return tiled<__nv_bfloat16>(0, p, q, a, v, GAT_BWD_G, dp, da_part, part, GAT_TILED_PLAN,
+                              stream);
+}
+int gatv2_bwd_dq_dv_f32(GAT_BWD_ARGS, void* dq, void* dv, void* part, GAT_BWD_SIZES,
+                        GAT_TILED_TAIL, GAT_BWD_DROP) {
+  return tiled<float>(1, p, q, a, v, GAT_BWD_G, dq, dv, part, GAT_TILED_PLAN, stream);
+}
+int gatv2_bwd_dq_dv_bf16(GAT_BWD_ARGS, void* dq, void* dv, void* part, GAT_BWD_SIZES,
+                         GAT_TILED_TAIL, GAT_BWD_DROP) {
+  return tiled<__nv_bfloat16>(1, p, q, a, v, GAT_BWD_G, dq, dv, part, GAT_TILED_PLAN, stream);
 }
 
 // K2c. part is (n_chunks, N, N) float32: the caller sums over chunks (with

@@ -24,7 +24,10 @@ those of ``mtad_gat_tpu/kernels/gat_pallas.py``:
   in the same pass where the call wants it (a block sums it over a group of
   batch elements, ``dbias_groups``).
   ``gatv2_bwd`` runs K2ab, or K2a then K2b (and K2c), as ``gat_bwd_plan``
-  decides.
+  decides. The tiled K2a and K2b launch as ``gat_tiled_bwd_plan`` says:
+  score tiles of 4 x 4 register micro-tiles, the streamed loop cut into
+  slices of their own blocks, each slice's float32 partial summed in slice
+  order by a reduce kernel.
 
 What bounds them on the card: the score is float32 work on the CUDA cores
 (4 operations per (i, j, e), recomputed by each tiled backward kernel and
@@ -34,7 +37,8 @@ product structure for the tensor cores; at the model's
 graph sizes that work outweighs the bytes of the inputs. Every kernel keeps
 its tiles' operands in shared memory and recomputes weights from (m, l), so
 no (N, N) tensor is written to device memory except dbias and its partial
-sums, one per batch chunk (K2c) or group (K2ab), never one per batch element
+sums, one per batch chunk (K2c) or group (K2ab), never one per batch element;
+the tiled K2a and K2b's partials are (slices, B, N, width), linear in N
 (``csrc/gat_fwd.cu`` and ``csrc/gat_bwd.cu`` say more). The TPU kernels'
 VMEM tiling plan (``_Plan``) and lane padding are not carried over: the CUDA
 kernels pick their own tiles and mask ragged edges.
@@ -49,7 +53,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import types
+from typing import List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,7 +66,7 @@ from mtad_gat_tpu_torch.kernels import _build
 # build at once, to bound their memory at large batches.
 _PLAIN_CHUNK_ELEMS = 1 << 26
 _SMEM_LIMIT = 227 * 1024
-_BI, _BJ = 16, 32                 # the CUDA kernels' row and key tiles
+_BI, _BJ = 16, 32                 # K2c's row and key tiles
 
 # ---------------------------------------------------------------------------
 # Plain versions (the CPU path, and the card-side oracle of chip_smoke.py)
@@ -191,8 +196,16 @@ def _bwd_lib() -> ctypes.CDLL:
         for name in ("dp_da", "dq_dv"):
             for dt in ("f32", "bf16"):
                 fn = getattr(lib, f"gatv2_bwd_{name}_{dt}")
-                fn.argtypes = [ptr] * 12 + [i32] * 4 + tail
+                fn.argtypes = [ptr] * 13 + [i32] * 7 + tail
                 fn.restype = i32
+        lib.gatv2_bwd_tiled_tile.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+        lib.gatv2_bwd_tiled_tile.restype = None
+        lib.gatv2_bwd_tiled_smem_bytes.argtypes = [i32] * 5
+        lib.gatv2_bwd_tiled_smem_bytes.restype = ctypes.c_long
+        lib.gatv2_bwd_tiled_key_splits.argtypes = [i32, i32]
+        lib.gatv2_bwd_tiled_key_splits.restype = i32
+        lib.gatv2_bwd_tiled_occupancy.argtypes = [i32] * 6
+        lib.gatv2_bwd_tiled_occupancy.restype = i32
         for dt in ("f32", "bf16"):
             fn = getattr(lib, f"gatv2_bwd_dbias_{dt}")
             fn.argtypes = [ptr] * 11 + [i32] * 5 + tail
@@ -274,6 +287,139 @@ def dbias_groups(B: int, sms: int) -> int:
     if B < 1 or sms < 1:
         raise ValueError(f"dbias_groups: batch {B}, multiprocessors {sms}")
     return min(B, max(2, -(-B // sms)))
+
+
+# ---------------------------------------------------------------------------
+# The tiled K2a and K2b: what the plan needs of csrc/gat_bwd.cu's layout
+# (their two tile shapes, TiledLayout's bytes, K2a's key splits), and the
+# plan of a launch: tile, where the running sums live, slices of the
+# streamed loop. The constants are read off bench_gat_bwd_torch.py --tiled
+# (PERF.md, PR 10).
+# ---------------------------------------------------------------------------
+
+TILED_TILES = ((64, 64), (16, 32))  # (rows, keys) of the FAST and WIDE tiles (TILE_*_RI, _KJ)
+# running sums in shared memory or not, each kernel's preference first: K2a
+# is faster with them there, K2b without (its block then fits twice on a
+# multiprocessor); the first that fits a block is taken, FAST tile first
+TILED_CHOICES = {"k2a": (True, False), "k2b": (False, True)}
+TILED_FILL = 16                   # blocks a multiprocessor the slices aim for
+TILED_MIN_TILES = 4               # fewest streamed tiles a slice walks
+TILED_MAX_SLICES = 64
+
+
+class TiledKernelPlan(NamedTuple):
+    """One launch of the tiled K2a ("k2a") or K2b ("k2b")."""
+
+    kernel: str
+    tile: int                     # index into TILED_TILES
+    rows: int                     # score tile: rows x keys, one 4 x 4 micro-tile a thread
+    keys: int
+    threads: int
+    acc_smem: bool                # running sums in shared memory, else in the partial itself
+    own_tiles: int                # tiles a block owns: row tiles (K2a), key tiles (K2b)
+    stream_tiles: int             # tiles its loop walks: key tiles (K2a), row tiles (K2b)
+    slices: int                   # the loop cut into this many blocks
+    blocks: int                   # slices x B x own_tiles
+    smem_bytes: int
+    partial_bytes: int            # float32 partials, (slices, B, N, E) or (slices, B, N, E + D)
+    key_splits: int               # lanes sharing one item of K2a's contraction (K2b: 1)
+
+
+def first_design_smem_bytes(E: int, D: int) -> int:
+    """Shared memory of the larger block of the first tiled K2a and K2b (16
+    x 32 tiles, full widths in shared memory at odd strides, PRs 1-2): the
+    widths it accepted are the widths the tiled backward accepts."""
+    odd = lambda x: x | 1  # noqa: E731
+    tile = 48 * odd(E) + E + 48 * odd(D) + 48
+    return 4 * max(tile + 512 + 20 * E, tile + 1024 + 32 * E + 32 * D)
+
+
+def tiled_smem_bytes(kernel: str, rows: int, keys: int, E: int, D: int,
+                     acc_smem: bool) -> int:
+    """Shared memory of one block (``dp_da_floats`` / ``dq_dv_floats``)."""
+    ep, dp, ea, da = _stride4(E), _stride4(D), _up4(E), _up4(D)
+    if kernel == "k2b":
+        f = (ep + keys * (ep + dp) + rows * (ep + dp + 3) + 2 * rows * keys
+             + (keys * (ea + da) if acc_smem else 0))
+    elif kernel == "k2a":
+        f = (ep + rows * (ep + dp + 3) + keys * (ep + dp) + keys * _stride4(rows)
+             + rows // 4 * ea + (rows * ea if acc_smem else 0))
+    else:
+        raise ValueError(f"tiled_smem_bytes: kernel {kernel!r} is neither 'k2a' nor 'k2b'")
+    return 4 * f
+
+
+def key_splits(items: int, threads: int) -> int:
+    """Lanes (1, 2 or 4) that share one item of K2a's contraction (row
+    groups x float4 groups of E), each taking every ks-th key, their sums
+    added by a butterfly: the split whose items x splits fill the block's
+    threads the best round for round, the fewest on a tie."""
+    best, best_eff = 1, 0.0
+    for ks in (1, 2, 4):
+        num = items * ks
+        eff = num / (-(-num // threads) * threads)
+        if eff > best_eff:
+            best, best_eff = ks, eff
+    return best
+
+
+def slice_bounds(tiles: int, slices: int) -> List[Tuple[int, int]]:
+    """The [begin, end) tiles of each slice of a loop over ``tiles``
+    (``slice_begin`` in the kernels): every tile once, sizes differing by at
+    most one."""
+    if not 1 <= slices <= tiles:
+        raise ValueError(f"slice_bounds: {slices} slices of {tiles} tiles")
+    return [(s * tiles // slices, (s + 1) * tiles // slices) for s in range(slices)]
+
+
+def tiled_slices(own_blocks: int, stream_tiles: int, sms: int) -> int:
+    """Slices of the streamed loop: the fewest that give ``TILED_FILL``
+    blocks a multiprocessor, at most ``TILED_MAX_SLICES`` and so many that
+    a slice walks ``TILED_MIN_TILES`` tiles (its partial's write and read,
+    once a slice, stay small beside its work), at least one."""
+    most = min(TILED_MAX_SLICES, stream_tiles // TILED_MIN_TILES)
+    return max(1, min(most, -(-TILED_FILL * sms // own_blocks)))
+
+
+@functools.lru_cache(maxsize=None)
+def gat_tiled_bwd_plan(B: int, N: int, E: int, D: int, sms: int,
+                       smem_limit: int = _SMEM_LIMIT) -> Mapping[str, TiledKernelPlan]:
+    """The launches of the tiled K2a and K2b ({"k2a": ..., "k2b": ...}) at
+    batch B, N nodes, widths E and D on a card of ``sms`` multiprocessors
+    whose blocks may use ``smem_limit`` bytes of shared memory. Each takes
+    the first tile shape and place of its running sums (``TILED_CHOICES``)
+    that fits; its streamed loop is cut into ``tiled_slices`` blocks. Raises where
+    the first design refused the widths (``first_design_smem_bytes``: the
+    feature layer up to window 235, the temporal layer at D 38 up to E 665)
+    and on empty or bad input."""
+    if min(B, N, E, D, sms) < 1:
+        raise ValueError(f"gat_tiled_bwd_plan: empty or bad input (B {B}, N {N}, E {E}, "
+                         f"D {D}, multiprocessors {sms})")
+    if first_design_smem_bytes(E, D) > smem_limit:
+        raise ValueError(f"gatv2 tiled backward: widths E {E}, D {D} need more shared memory "
+                         "than a block has")
+    plans = {}
+    for kernel in ("k2a", "k2b"):
+        fits = [(tile, rows, keys, acc)
+                for tile, (rows, keys) in enumerate(TILED_TILES)
+                for acc in TILED_CHOICES[kernel]
+                if tiled_smem_bytes(kernel, rows, keys, E, D, acc) <= smem_limit]
+        if not fits:
+            raise ValueError(f"gatv2 tiled backward: no tile of {kernel} fits widths E {E}, "
+                             f"D {D}")
+        tile, rows, keys, acc = fits[0]
+        row_tiles, key_tiles = -(-N // rows), -(-N // keys)
+        own, stream = (row_tiles, key_tiles) if kernel == "k2a" else (key_tiles, row_tiles)
+        slices = tiled_slices(B * own, stream, sms)
+        threads = rows * keys // 16
+        width = E if kernel == "k2a" else E + D
+        plans[kernel] = TiledKernelPlan(
+            kernel=kernel, tile=tile, rows=rows, keys=keys, threads=threads, acc_smem=acc, own_tiles=own, stream_tiles=stream, slices=slices,
+            blocks=slices * B * own,
+            smem_bytes=tiled_smem_bytes(kernel, rows, keys, E, D, acc),
+            partial_bytes=4 * slices * B * N * width,
+            key_splits=key_splits(rows // 4 * -(-E // 4), threads) if kernel == "k2a" else 1)
+    return types.MappingProxyType(plans)      # cached: read-only to every caller
 
 
 # ---------------------------------------------------------------------------
@@ -491,8 +637,8 @@ gatv2_attention_res.last_launch = None
 
 def _bwd_launch(which: int, name: str, p, q, a, bias, v, m, l, du, dvec,
                 alpha, seed, rate, outs, extra=()):
-    """Launch K2a (0), K2b (1), K2c (2) or K2ab (3) writing into ``outs``;
-    the caller has run ``_check``."""
+    """Launch K2c (2) or K2ab (3) writing into ``outs``; the caller has run
+    ``_check``."""
     B, N, E = p.shape
     D = v.shape[-1]
     lib = _bwd_lib()
@@ -503,7 +649,7 @@ def _bwd_launch(which: int, name: str, p, q, a, bias, v, m, l, du, dvec,
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
     m, l, du, dvec = (t.detach().to(torch.float32).contiguous() for t in (m, l, du, dvec))
     seed_t, thresh, scale = _drop_args(seed, rate, p.device)
-    kind = ("dp_da", "dq_dv", "dbias", "graph")[which]
+    kind = {2: "dbias", 3: "graph"}[which]
     dt = "f32" if p.dtype == torch.float32 else "bf16"
     fn = getattr(lib, f"gatv2_bwd_{kind}_{dt}")
     with torch.cuda.device(p.device):
@@ -513,43 +659,99 @@ def _bwd_launch(which: int, name: str, p, q, a, bias, v, m, l, du, dvec,
     _raise_on(err, f"gatv2_bwd_{kind}")
 
 
+@functools.lru_cache(maxsize=None)
+def _tiled_plan(B: int, N: int, E: int, D: int, sms: int) -> Mapping[str, TiledKernelPlan]:
+    """``gat_tiled_bwd_plan`` for a launch, refused where the built
+    library's tile shapes, shared memory or K2a's key splits differ from the
+    plan's (once per shape and card)."""
+    plans = gat_tiled_bwd_plan(B, N, E, D, sms)
+    lib = _bwd_lib()
+    for which, plan in enumerate(plans.values()):
+        dims = (ctypes.c_int * 2)()
+        lib.gatv2_bwd_tiled_tile(plan.tile, dims)
+        built = (tuple(dims), lib.gatv2_bwd_tiled_smem_bytes(which, plan.tile, E, D,
+                                                             int(plan.acc_smem)),
+                 lib.gatv2_bwd_tiled_key_splits(plan.rows // 4 * -(-E // 4), plan.threads)
+                 if which == 0 else 1)
+        want = ((plan.rows, plan.keys), plan.smem_bytes, plan.key_splits)
+        if built != want:
+            raise RuntimeError(f"gatv2 tiled backward {plan.kernel}: the built kernel's (tile, "
+                               f"shared memory, key splits) {built} differ from the plan's {want}")
+    return plans
+
+
+def _tiled_launch(plan: TiledKernelPlan, p, q, a, bias, v, m, l, du, dvec, alpha, seed,
+                  rate, outs) -> None:
+    """Launch the tiled K2a or K2b of ``plan`` and its reduce, writing into
+    ``outs`` (K2a: dp, da_part, part; K2b: dq, dv, part); the caller has run
+    ``_check``. The kernels read float32 p, q, a, v: bfloat16 ones are
+    widened here (exactly), and the reduce writes the outputs in their type."""
+    B, N, E = p.shape
+    D = v.shape[-1]
+    name = "dp_da" if plan.kernel == "k2a" else "dq_dv"
+    dt = "f32" if p.dtype == torch.float32 else "bf16"
+    p, q, a, v = (t.detach().to(torch.float32).contiguous() for t in (p, q, a, v))
+    bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
+    m, l, du, dvec = (t.detach().to(torch.float32).contiguous() for t in (m, l, du, dvec))
+    seed_t, thresh, scale = _drop_args(seed, rate, p.device)
+    fn = getattr(_bwd_lib(), f"gatv2_bwd_{name}_{dt}")
+    with torch.cuda.device(p.device):
+        err = fn(_ptr(p), _ptr(q), _ptr(a), _ptr(bias_c), _ptr(v), _ptr(seed_t),
+                 _ptr(m), _ptr(l), _ptr(du), _ptr(dvec), *(_ptr(t) for t in outs),
+                 B, N, E, D, plan.tile, plan.slices, int(plan.acc_smem),
+                 float(alpha), thresh, scale, _stream(p.device))
+    _raise_on(err, f"gatv2_bwd_{name}")
+
+
 def gatv2_bwd_dp_da(p, q, a, bias, v, m, l, du, dvec, alpha: float,
                     seed: Seed = 0, rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2a on CUDA tensors: dp (B, N, E) in p's type and da (E,) float32,
     from the forward's row stats m, l (B, N), du = g . out (1 - out)
-    (B, N, D) and dvec = sum_d du . u (B, N). The CPU computes all of K2a-c
-    in one call of ``gatv2_attention_bwd_plain``."""
+    (B, N, D) and dvec = sum_d du . u (B, N), through the launch
+    ``gat_tiled_bwd_plan`` gives (recorded in ``last_plan``): the kernel,
+    then the sum of its slices' partials. The CPU computes all of K2a-c in
+    one call of ``gatv2_attention_bwd_plain``."""
     _check("gatv2_bwd_dp_da", p, q, a, bias, v)
     B, N, E = p.shape
+    D = v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=p.device)
+    if B == 0 or N == 0 or D == 0:          # no values: every gradient is 0
+        return torch.zeros(p.shape, dtype=p.dtype, device=p.device), torch.zeros((E,), **f32)
+    plan = _tiled_plan(B, N, E, D, _build.sm_count(p.device))["k2a"]
     dp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
-    da_part = torch.empty((B * -(-N // _BI), E), dtype=torch.float32, device=p.device)
-    if B == 0 or N == 0:
-        return dp, torch.zeros((E,), dtype=torch.float32, device=p.device)
-    _bwd_launch(0, "gatv2_bwd_dp_da", p, q, a, bias, v, m, l, du, dvec, alpha, seed,
-                rate, (dp, da_part))
+    da_part = torch.empty((plan.blocks, E), **f32)
+    part = torch.empty((plan.slices, B, N, E), **f32)
+    _tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, (dp, da_part, part))
     gatv2_bwd_dp_da.launches += 1
+    gatv2_bwd_dp_da.last_plan = plan
     return dp, da_part.sum(dim=0)
 
 
 gatv2_bwd_dp_da.launches = 0
+gatv2_bwd_dp_da.last_plan = None
 
 
 def gatv2_bwd_dq_dv(p, q, a, bias, v, m, l, du, dvec, alpha: float,
                     seed: Seed = 0, rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2b on CUDA tensors: dq (B, N, E) in q's type and dv (B, N, D) in
-    v's type; inputs as ``gatv2_bwd_dp_da``."""
+    v's type; inputs, plan and ``last_plan`` as ``gatv2_bwd_dp_da``."""
     _check("gatv2_bwd_dq_dv", p, q, a, bias, v)
+    B, N, E = p.shape
+    D = v.shape[-1]
+    if B == 0 or N == 0 or D == 0:
+        return torch.zeros_like(q), torch.zeros_like(v)
+    plan = _tiled_plan(B, N, E, D, _build.sm_count(p.device))["k2b"]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    if p.shape[0] == 0 or p.shape[1] == 0:
-        return dq, dv
-    _bwd_launch(1, "gatv2_bwd_dq_dv", p, q, a, bias, v, m, l, du, dvec, alpha, seed,
-                rate, (dq, dv))
+    part = torch.empty((plan.slices, B, N, E + D), dtype=torch.float32, device=p.device)
+    _tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, (dq, dv, part))
     gatv2_bwd_dq_dv.launches += 1
+    gatv2_bwd_dq_dv.last_plan = plan
     return dq, dv
 
 
 gatv2_bwd_dq_dv.launches = 0
+gatv2_bwd_dq_dv.last_plan = None
 
 
 @functools.lru_cache(maxsize=None)
