@@ -14,12 +14,15 @@ In order, each phase failing the run with a non-zero exit:
    float32 and bfloat16, with and without bias: the whole-graph kernel,
    launched twice for identical bits, and the tiled kernel forced once at
    each layer), at N = 160 (E 128, D 64: half a graph's rows a block, timed
-   beside the tiled kernel) and at N = 2048 (the tiled kernel, where it
-   also checks that a call allocates less than one (N, N) float32 matrix);
-   each layer's time
+   beside the tiled kernel), at N = 2048 and 4096 (the tiled kernel, where it
+   also checks that a call allocates less than one (N, N) float32 matrix)
+   and at window 1200 (N 38, E 2400, D 1200: the tiled kernel with E and D
+   in chunks); each layer's time
    by CUDA events and by a CUDA graph of 20 calls for both kernels (at the
    temporal layer also the whole-graph kernel with the rows over two
-   blocks), beside the plain time and the bound;
+   blocks), beside the plain time and the bound, each planned tiled case's
+   by CUDA graph; then the tiled forward's merge alone at the route's
+   partials against its plain version, twice for identical bits, timed;
 4. K3, the fused GRU scan forward, against its plain version at batch 256,
    100 steps, hidden 150 (float32 and bfloat16 inputs; the cluster variant
    with ragged unit slices), at 1024 steps, at one step, at batch 1 and at a
@@ -55,7 +58,11 @@ In order, each phase failing the run with a non-zero exit:
    twice for identical bits, with the plan of each call
    (``gat_tiled_bwd_plan``), where one forward-and-backward also has to
    allocate no more than its outputs, the tiled kernels' partial sums and 1
-   MiB; K2c forced at each layer wherever there is a bias. Each
+   MiB; K2c forced at each layer wherever there is a bias. At the feature
+   layer's window 235 (the WIDE tile), 300 and 1200 (the CHUNKED tile, the
+   tiled K1-res and K2c's chunked staging forced there too, each twice for
+   identical bits, timed by CUDA graph beside its bound); and the tiled
+   K2b's weights against the tiled K1-res's, bit for bit, at each tile. Each
    kernel's time at both layers is a wrapper call by CUDA events and its
    device time from a CUDA graph of 20 calls, beside its bound and its plain
    version; K2ab's also without dbias, followed by K2c, and the sum of its
@@ -101,7 +108,16 @@ In order, each phase failing the run with a non-zero exit:
     band:10`` (1 epoch) on the synthetic entity and ``predict_cli`` on its
     run, the same summary; K3 and K4 launch as on the main path, the
     attention kernels never (the graph variants run plain ops);
-12. ``dense_route``: ``attention_impl="dense"`` on complete GATv2 graphs.
+12. ``wide_window``: ``train_cli --lookback 300 --attention_impl pallas
+    --gru_impl pallas`` at dropout 0 on a short synthetic entity (700 rows,
+    batch 32, 2 epochs): launch counts exact by kernel and variant (the
+    feature layer's CHUNKED K2a and K2b, the temporal layer's tiled K1,
+    K1-res and merge), training windows/s and peak memory, and per-epoch
+    losses equal to the ``--attention_impl dense`` run's within a stated
+    tolerance; then the feature layer at window 1200 in one training call,
+    exact counts (the tiled K1-res and merge, the CHUNKED K2a and K2b, K2c's
+    chunked staging), against the dense layer;
+13. ``dense_route``: ``attention_impl="dense"`` on complete GATv2 graphs.
     At the flagship (batch 256, both layers) it stays dense, with no kernel
     launch; with the route's threshold pinned to 1 byte the layer runs K1
     (eval) or K1-res and K2ab (training) once a call and matches the dense
@@ -114,8 +130,9 @@ In order, each phase failing the run with a non-zero exit:
     CUDA graph beside its bound; then dense at the largest N below the
     route, its peak memory within the byte model, its time beside the
     kernels';
-13. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
-    path, and the tiled kernels' times at the route's N) and, last,
+14. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+    path, and the tiled kernels' times at the route's N; the merge, the
+    CHUNKED K2a and K2b and the chunked K2c as rows of their own) and, last,
     ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
@@ -169,6 +186,13 @@ TRAIN_TOL = {
     torch.bfloat16: {"forward": {"out": 4e-3, "u": 2e-5, "m": 2e-5, "l_rel": 1e-5},
                      "grad": 8e-3},
 }
+# The feature layer at window 1200, float32: each score is a chain of 2,400
+# float32 terms (32 times the temporal layer's 76) in the tiled kernels and a
+# pairwise sum in the plain version, and its rounding grows with the chain:
+# m, u and l measured up to 8.8e-6, 7.6e-6 and 7.6e-6 relative at batch 8 on
+# an H100 (PERF.md, section 6), so 4e-5 for them; out and the gradients as at
+# the model's widths (4.2e-7 and 2.5e-6 measured)
+WIDE_TRAIN_TOL = {"forward": {"out": 2e-5, "u": 4e-5, "m": 4e-5, "l_rel": 4e-5}, "grad": 1e-5}
 # One epoch (7 Adam steps) at dropout 0, float32, attention through the
 # kernels, or attention and GRU through theirs, against the plain paths. Per-step losses: 6.0e-8 apart on an H100
 # (two runs, PERF.md), so 1e-5. Params: 3.2e-6 and 6.6e-5 apart in two runs;
@@ -279,7 +303,9 @@ def check_k1(gen, dev):
     cases = [("feature", 256, 38, 200, 100, "graph", 1),
              ("temporal", 256, 100, 76, 38, "graph", 1),
              ("half the rows a block", 64, 160, 128, 64, "graph", 2),
-             ("many_key_tiles", 1, 2048, 32, 16, "tiled", 0)]
+             ("many_key_tiles", 1, 2048, 32, 16, "tiled", 0),
+             ("many_key_tiles", 1, 4096, 32, 16, "tiled", 0),
+             ("window 1200", 2, 38, 2400, 1200, "tiled", 0)]
     path_ms = {}
     errs = []
     for name, B, N, E, D, want_variant, want_blocks in cases:
@@ -301,7 +327,14 @@ def check_k1(gen, dev):
                        **launch, "max_abs_err": err, "tol": tol,
                        "two_launches_identical": torch.equal(got, again)}
                 errors = [err]
-                timed = dtype == torch.float32 and with_bias and name != "many_key_tiles"
+                timed = dtype == torch.float32 and with_bias and flagship
+                if want_variant == "tiled":
+                    # the planned tiled kernel's device time beside its bound
+                    fn = lambda: kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2)  # noqa: E731
+                    nbytes = (2 * B * N * E + E + 2 * B * N * D) * 4 + N * N * 4
+                    bound_ms, bound_by = bound(B * N * N * (4 * E + 2 * D), nbytes)
+                    rec["timing"] = {"graph_ms": graph_ms(fn), "bound_ms": bound_ms,
+                                     "bound_by": bound_by}
                 if timed:
                     # the tiled kernel forced once at each flagship layer
                     tiled = kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2, variant="tiled")
@@ -320,7 +353,51 @@ def check_k1(gen, dev):
                 errs.append((dtype, max(errors)))
                 if name == "many_key_tiles":
                     check_no_score_matrix(kg.gatv2_attention_fwd, p, q, a, bias, v)
+    path_ms["merge"] = check_merge(kg, gen)
     return {dt: max(e for d, e in errs if d == dt) for dt in K1_TOL}, path_ms
+
+
+# the merge against its plain version: slices' m within a few units of each
+# other, as the slices of one row give them; float32 sums of S terms in the
+# same order, exp on the card against exp on the card, so a few 1e-7: out, u
+# and m absolute, l (a sum of S row sums, up to a few hundred) relative
+MERGE_TOL = 2e-6
+
+
+def check_merge(kg, gen) -> dict:
+    """The tiled forward's merge (``gatv2_fwd_merge``) alone at the route's
+    partials (16 slices, batch 1, N 8,587, D 38) against its plain version,
+    twice for identical bits, with and without residuals; its device time
+    by CUDA graph beside its bound (the partials read once, out, u, m and l
+    written once) and the plain merge's time."""
+    dev = torch.device("cuda")
+    plan = kg.gat_tiled_fwd_plan(1, 8587, 76, 38, torch.cuda.get_device_properties(dev)
+                                 .multi_processor_count)
+    S, N, D = plan.slices, 8587, 38
+    acc = torch.randn(S, 1, N, D, generator=gen).to(dev)
+    m = (3.0 * torch.randn(S, 1, N, generator=gen)).to(dev)
+    l = (1.0 + 10.0 * torch.rand(S, 1, N, generator=gen)).to(dev)
+    got = kg.gatv2_fwd_merge(acc, m, l)
+    again = kg.gatv2_fwd_merge(acc, m, l)
+    k1 = kg.gatv2_fwd_merge(acc, m, l, residuals=False)
+    want = kg.gatv2_fwd_merge_plain(acc, m, l)
+    torch.cuda.synchronize()
+    errs = {k: (x - y).abs().max().item() for k, x, y in zip(("out", "u", "m"), got, want)}
+    errs["l_rel"] = ((got[3] - want[3]).abs() / want[3]).max().item()
+    errs["out_k1"] = (k1[0] - want[0]).abs().max().item()
+    same = all(torch.equal(x, y) for x, y in zip(got, again)) and torch.equal(k1[0], got[0])
+    nbytes = 4 * (S * N * (D + 2) + 2 * N * D + 2 * N)
+    bound_ms, bound_by = bound(S * N * D * 4, nbytes)
+    rec = {"phase": "k1", "case": "the tiled forward's merge at the route's partials",
+           "slices": S, "N": N, "D": D, "max_abs_err": errs, "tol": MERGE_TOL,
+           "two_launches_identical": same,
+           "graph_ms": graph_ms(lambda: kg.gatv2_fwd_merge(acc, m, l)),
+           "plain_ms": time_ms(lambda: kg.gatv2_fwd_merge_plain(acc, m, l), 5),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(rec)
+    if not (max(errs.values()) <= MERGE_TOL and same):
+        raise AssertionError(f"the merge differs from its plain version: {rec}")
+    return rec
 
 
 def time_k1(kg, p, q, a, bias, v, want) -> dict:
@@ -450,16 +527,20 @@ def check_k3(gen, dev):
     return max(errs), result
 
 
-def write_smd(root: str) -> None:
-    """The synthetic SMD entity of the repo's verify recipe."""
+def write_smd(root: str, n: int = 2000, anomaly: float = 0.4) -> None:
+    """The synthetic SMD entity of the repo's verify recipe (n rows of train
+    and of test, the anomaly at rows ``anomaly`` n to that plus n / 40 of
+    the test split)."""
     rng = np.random.default_rng(0)
-    n, k = 2000, 38
+    k = 38
     base = np.sin(np.linspace(0, 60, n))[:, None] * rng.uniform(.5, 1.5, k) \
         + rng.standard_normal((n, k)) * .1
     test = base.copy()
-    test[800:850] += 3.0
+    a0 = int(anomaly * n)
+    a1 = a0 + n // 40
+    test[a0:a1] += 3.0
     label = np.zeros(n, np.float32)
-    label[800:850] = 1
+    label[a0:a1] = 1
     d = os.path.join(root, "ServerMachineDataset", "processed")
     os.makedirs(d, exist_ok=True)
     for nm, arr in [("machine-1-1_train", base.astype(np.float32)),
@@ -669,22 +750,32 @@ def check_training_kernels(gen, dev):
     {layer: times}})."""
     from mtad_gat_tpu_torch.kernels import gat as kg
 
-    cases = [("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
-             ("many_key_tiles", 1, 2048, 32, 16), ("many_key_tiles", 1, 4096, 32, 16),
-             ("widest", 1, 300, 470, 235)]
+    # (case, B, N, E, D, the forward and backward gat_fwd_plan and
+    # gat_bwd_plan must pick)
+    cases = [("feature", 256, 38, 200, 100, "graph", "graph"),
+             ("temporal", 256, 100, 76, 38, "graph", "graph"),
+             ("many_key_tiles", 1, 2048, 32, 16, "tiled", "tiled"),
+             ("many_key_tiles", 1, 4096, 32, 16, "tiled", "tiled"),
+             ("widest", 1, 300, 470, 235, "tiled", "tiled"),
+             ("window 300", 64, 38, 600, 300, "graph", "tiled"),
+             ("window 1200", 8, 38, 2400, 1200, "tiled", "tiled")]
     # the tiled cases: planned (not forced), float32 at dropout 0.3 with bias;
-    # "widest" is the feature layer at window 235, the widest the tiled
-    # backward accepts, which takes its WIDE tile
-    tiled_cases = ("many_key_tiles", "widest")
+    # "widest" is the feature layer at window 235, the widest whole rows of
+    # the tiled backward's WIDE tile take; windows 300 and 1200 the feature
+    # layer beyond, the CHUNKED tile, where the tiled forward and K2c's
+    # chunked staging are also forced (window 300 plans the whole-graph
+    # forward and K2c's whole widths)
+    tiled_cases = ("many_key_tiles", "widest", "window 300", "window 1200")
     variants = [(torch.float32, r, b) for r in (0.0, 0.3) for b in (True, False)]
     variants.append((torch.bfloat16, 0.3, True))
     worst = {k: 0.0 for k in ("k1res", "k2ab", "k2a", "k2b", "k2c")}
     worst_rel = dict(worst)
     times = {k: {} for k in worst}
+    times["wide"] = {}
     lib = kg._bwd_lib()
-    for name, B, N, E, D in cases:
+    for name, B, N, E, D, want_fwd, want_plan in cases:
         plan = kg.gat_bwd_plan(N, E, D)
-        want_plan = "tiled" if name in tiled_cases else "graph"
+        wide = name.startswith("window")
         smem = {"planned": kg.gat_bwd_smem_bytes(N, E, D),
                 "library": lib.gatv2_bwd_smem_bytes(3, N, E, D)}
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -727,13 +818,16 @@ def check_training_kernels(gen, dev):
             tiled = tiled_bwd(kg, args) if timed else None
             tiled_again = tiled_bwd(kg, args) if timed else None
             k2c = (kg.gatv2_bwd_dbias(*args) if with_bias and variant == "graph"
-                   else None)
+                   else kg.gatv2_bwd_dbias(*args, variant="chunked") if wide else None)
+            k2c_again = kg.gatv2_bwd_dbias(*args, variant="chunked") if wide else None
             tiled_fwd = (kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,
-                                                variant="tiled") if timed else None)
+                                                variant="tiled") if timed or wide else None)
+            tiled_fwd_again = (kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,
+                                                      variant="tiled") if wide else None)
             torch.cuda.synchronize()
             errs = forward_errors(got, want)
             gerr, gabs = grad_errors(outs, ref, outs[4])
-            tol = TRAIN_TOL[dtype]
+            tol = WIDE_TRAIN_TOL if name == "window 1200" else TRAIN_TOL[dtype]
             rec = {"phase": "training_kernels", "case": name, "B": B, "N": N, "E": E, "D": D,
                    "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
                    "dropout": rate, "forward": fwd_variant, "backward": variant,
@@ -746,6 +840,14 @@ def check_training_kernels(gen, dev):
             if tiled_fwd is not None:
                 rec["tiled_forward_err"] = terr_fwd = forward_errors(tiled_fwd, want)
                 bad += [f"tiled {k}" for k, e in terr_fwd.items() if not e <= tol["forward"][k]]
+            if wide:
+                rec["tiled_forward_two_launches_identical"] = all(
+                    torch.equal(x, y) for x, y in zip(tiled_fwd, tiled_fwd_again))
+                rec["k2c_chunked_two_launches_identical"] = torch.equal(k2c, k2c_again)
+                rec["k2c_dbias_from"] = "chunked, forced"
+                if not (rec["tiled_forward_two_launches_identical"]
+                        and rec["k2c_chunked_two_launches_identical"]):
+                    bad.append("bits of the forced tiled forward or chunked K2c")
             rec["two_launches_identical"] = all(
                 (x is None and y is None) or torch.equal(x, y) for x, y in zip(outs, again))
             if variant == "tiled" or tiled is not None:
@@ -765,12 +867,18 @@ def check_training_kernels(gen, dev):
             if timed:
                 rec["timing"] = t = time_training_kernels(kg, p, q, a, bias, v, du, dvec,
                                                           got[2], got[3], seed, rate)
-                for k in times:
+                for k in worst:
                     times[k][name] = t[k]
+            if wide:
+                rec["timing"] = t = time_wide_kernels(kg, args, du)
+                t.update(grad_abs_err=gabs, grad_rel_err=gerr,
+                         k2c_chunked_abs_err=rec["k2c_dbias_abs_err"],
+                         k1res_tiled_err=rec["tiled_forward_err"], B=B, N=N, E=E, D=D)
+                times["wide"][name] = t
             emit(rec)
             bad += [f"{run} {k}" for run, rel, _ in runs for k, e in rel.items()
                     if not e <= tol["grad"]]
-            if (bad or variant != want_plan or fwd_variant != want_plan
+            if (bad or variant != want_plan or fwd_variant != want_fwd
                     or launch["dbias"] != want_dbias
                     or not rec["two_launches_identical"]
                     or rec.get("tiled_two_launches_identical") is False
@@ -791,7 +899,71 @@ def check_training_kernels(gen, dev):
                         worst_rel[key] = max(worst_rel[key], rel[k])
             if name == "many_key_tiles":
                 check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate)
+    check_w_bits(kg, torch.device("cuda"), gen)
     return worst, worst_rel, times
+
+
+def time_wide_kernels(kg, args, du) -> dict:
+    """At a width beyond the first design's (the CHUNKED tile): the tiled
+    K1-res (forced), the tiled K2a and K2b and K2c (planned, and K2c's
+    chunked staging forced), each its device time by CUDA graph beside its
+    bound as ``time_training_kernels`` counts it, its plan, and the plain
+    backward's time."""
+    p, q, a, bias, v, m, l, _, dvec, alpha, seed, rate = args
+    B, N, E = p.shape
+    D = v.shape[-1]
+    in_bytes = (2 * B * N * E + E + B * N * D) * 4 + N * N * 4
+    stats_bytes = 3 * B * N * 4 + B * N * D * 4
+    pairs = B * N * N
+    spec = {
+        "k1res": (lambda: kg.gatv2_attention_res(p, q, a, bias, v, alpha, seed, rate,
+                                                 variant="tiled"),
+                  pairs * (4 * E + 2 * D), in_bytes + B * N * D * 8 + 2 * B * N * 4),
+        "k2a": (lambda: kg.gatv2_bwd_dp_da(*args), pairs * (7 * E + 2 * D + 4),
+                in_bytes + stats_bytes + B * N * E * 4 + E * 4),
+        "k2b": (lambda: kg.gatv2_bwd_dq_dv(*args), pairs * (5 * E + 4 * D + 4),
+                in_bytes + stats_bytes + B * N * (E + D) * 4),
+        "k2c": (lambda: kg.gatv2_bwd_dbias(*args), pairs * (4 * E + 2 * D + 4),
+                in_bytes + stats_bytes + N * N * 4),
+        "k2c_chunked": (lambda: kg.gatv2_bwd_dbias(*args, variant="chunked"),
+                        pairs * (4 * E + 2 * D + 4), in_bytes + stats_bytes + N * N * 4),
+    }
+    out = {}
+    for k, (fn, ops, nbytes) in spec.items():
+        bound_ms, bound_by = bound(ops, nbytes)
+        out[k] = {"graph_ms": graph_ms(fn, calls=5, replays=3), "bound_ms": bound_ms,
+                  "bound_by": bound_by}
+        out[k]["over_bound"] = out[k]["graph_ms"] / bound_ms
+    out["k1res"]["plan"] = kg.gatv2_attention_res.last_launch["plan"]
+    out["plain_bwd_ms"] = time_ms(lambda: kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du,
+                                                                       alpha, seed, rate),
+                                  1, warmup=1)
+    out["plans"] = tiled_plans(kg)
+    return out
+
+
+def check_w_bits(kg, dev, gen) -> None:
+    """The tiled K2b recomputes the tiled K1-res's weights bit for bit at
+    each tile (FAST, WIDE, CHUNKED): with v the identity (D = N, one key
+    tile, one slice) the forward's u is w exactly, and with du the identity
+    and dvec 0 K2b's dv is w transposed exactly (every other term of their
+    sums is an exact zero), so equal bits mean equal scores from the one
+    shared score routine."""
+    for N, E in ((64, 76), (32, 470), (32, 2400)):
+        p, q, a, bias, _ = gat_case(gen, dev, 1, N, E, N, torch.float32, True)
+        eye = torch.eye(N, device=dev)[None].contiguous()
+        _, u, m, l = kg.gatv2_attention_res(p, q, a, bias, eye, 0.2, 0, 0.0, variant="tiled")
+        _, dv = kg.gatv2_bwd_dq_dv(p, q, a, bias, eye, m, l, eye, torch.zeros(1, N, device=dev),
+                                   0.2, 0, 0.0)
+        torch.cuda.synchronize()
+        tile = kg.TILED_TILE_NAMES[kg.gatv2_bwd_dq_dv.last_plan.tile]
+        rec = {"phase": "training_kernels", "case": "w of the tiled K1-res against K2b's, bit "
+               "for bit", "N": N, "E": E, "k2b_tile": tile,
+               "identical": torch.equal(u[0], dv[0].t()),
+               "max_abs_diff": (u[0] - dv[0].t()).abs().max().item()}
+        emit(rec)
+        if not rec["identical"]:
+            raise AssertionError(f"the tiled K2b's weights differ from the tiled K1-res's: {rec}")
 
 
 def forward_errors(got, want) -> dict:
@@ -907,8 +1079,9 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
                + 2 * B * N * E * size + E * 4 + B * N * D * size  # dp, dq, da, dv
                + N * N * 4)                                       # dbias
     plans = tiled_plans(kg) if kg.gatv2_bwd.last_launch["variant"] == "tiled" else {}
-    partials = max([0] + [pl["partial_bytes"] + (pl["blocks"] * E * 4 if k == "k2a" else 0)
-                          for k, pl in plans.items()])
+    fwd_plan = kg.gatv2_attention_res.last_launch["plan"]
+    partials = max([0 if fwd_plan is None else fwd_plan["partial_bytes"]]
+                   + [pl["partial_bytes"] + pl["da_rows"] * E * 4 for pl in plans.values()])
     allowed = outputs + partials + 2**20
     emit({"phase": "training_kernels", "case": "device memory of one forward and backward",
           "B": B, "N": N, "backward": kg.gatv2_bwd.last_launch,
@@ -1121,9 +1294,9 @@ def gru_crossover(gen, dev) -> dict:
     return rec
 
 
-KERNEL_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_bwd_graph",
-                   "gatv2_bwd_dp_da", "gatv2_bwd_dq_dv", "gatv2_bwd_dbias", "gru_scan_fwd",
-                   "gru_scan_bwd", "gru_weight_grads")
+KERNEL_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_fwd_merge",
+                   "gatv2_bwd_graph", "gatv2_bwd_dp_da", "gatv2_bwd_dq_dv", "gatv2_bwd_dbias",
+                   "gru_scan_fwd", "gru_scan_bwd", "gru_weight_grads")
 
 
 def counters() -> dict:
@@ -1142,7 +1315,8 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Launches by wrapper, and by variant ("name:variant") for the
-    forward's two kernels (graph, tiled) and K2ab (dbias, no_dbias)."""
+    forward's two kernels (graph, tiled), K2ab (dbias, no_dbias), the tiled
+    K2a and K2b (their tile: fast, wide, chunked) and K2c (full, chunked)."""
     counts = {}
     for name, fn in counters().items():
         counts[name] = fn.launches
@@ -1163,8 +1337,11 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     decoder; each batch evaluated or scored without gradient runs K1 twice
     and, with the GRU kernels, K3 twice (init train and val losses, one val
     pass per epoch, the test loss, and the train and test scoring passes).
-    K1 and K1-res also count by the variant ``gat_fwd_plan`` names."""
-    from mtad_gat_tpu_torch.kernels.gat import gat_bwd_plan, gat_fwd_plan
+    K1 and K1-res also count by the variant ``gat_fwd_plan`` names, each
+    tiled one with a merge; the tiled K2a and K2b by the tile
+    ``gat_tiled_bwd_plan`` names and K2c by its staging (``dbias_chunk``)."""
+    from mtad_gat_tpu_torch.kernels.gat import (TILED_TILE_NAMES, dbias_chunk, gat_bwd_plan,
+                                                gat_fwd_plan, gat_tiled_bwd_plan)
 
     batches = lambda n: max(1, -(-n // bs))  # noqa: E731
     n_win = n_train_rows - w
@@ -1187,6 +1364,17 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     for name, calls in (("gatv2_attention_fwd", no_grad), ("gatv2_attention_res", steps)):
         want[f"{name}:graph"] = fwd_graph * calls
         want[f"{name}:tiled"] = (2 - fwd_graph) * calls
+    want["gatv2_fwd_merge"] = (2 - fwd_graph) * (no_grad + steps)
+    for name in ("gatv2_bwd_dp_da", "gatv2_bwd_dq_dv"):
+        want.update({f"{name}:{tile}": 0 for tile in TILED_TILE_NAMES})
+    want.update({"gatv2_bwd_dbias:full": 0, "gatv2_bwd_dbias:chunked": 0})
+    for layer in layers:
+        if gat_bwd_plan(*layer) == "tiled":
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            for kernel, pl in gat_tiled_bwd_plan(bs, *layer, sms).items():
+                name = "gatv2_bwd_dp_da" if kernel == "k2a" else "gatv2_bwd_dq_dv"
+                want[f"{name}:{TILED_TILE_NAMES[pl.tile]}"] += steps
+            want[f"gatv2_bwd_dbias:{'chunked' if dbias_chunk(*layer[1:]) else 'full'}"] += steps
     return want, steps
 
 
@@ -1570,10 +1758,11 @@ def check_dense_route(gen, dev) -> dict:
         raise AssertionError(f"the routed layer at N {n_route} differs from the plain "
                              f"attention: {errs}, {rel}")
     expect_counts("route eval", c_eval, {"gatv2_attention_fwd": 1,
-                                         "gatv2_attention_fwd:tiled": 1})
+                                         "gatv2_attention_fwd:tiled": 1, "gatv2_fwd_merge": 1})
     expect_counts("route training", c_train, {
-        "gatv2_attention_res": 1, "gatv2_attention_res:tiled": 1, "gatv2_bwd_dp_da": 1,
-        "gatv2_bwd_dq_dv": 1, "gatv2_bwd_dbias": 1})
+        "gatv2_attention_res": 1, "gatv2_attention_res:tiled": 1, "gatv2_fwd_merge": 1,
+        "gatv2_bwd_dp_da": 1, "gatv2_bwd_dp_da:fast": 1, "gatv2_bwd_dq_dv": 1,
+        "gatv2_bwd_dq_dv:fast": 1, "gatv2_bwd_dbias": 1, "gatv2_bwd_dbias:full": 1})
     del out, out_t, grads, calls, ev, tr, want_ev, want_tr, want_g
     torch.cuda.empty_cache()
     times = time_route_kernels(kg, layer, xr, gen)
@@ -1657,6 +1846,10 @@ def time_route_kernels(kg, layer, x, gen) -> dict:
         times[k]["variant"] = "tiled"
         if k in ("k2a", "k2b"):
             times[k]["plan"] = tiled_plans(kg)[k]
+        if k in ("k1", "k1res"):
+            times[k]["plan"] = kg.gatv2_attention_fwd.last_launch["plan"]
+            times[k]["blocks_per_multiprocessor"] = kg._fwd_lib().gatv2_fwd_tiled_occupancy(
+                E, D, int(k == "k1res"))
     emit({"phase": "dense_route", "case": f"tiled kernels at the route's N, b 1, N {N}, E {E}, "
           f"D {D}, float32, dropout 0.3, bias; graph_ms from a CUDA graph of 3 calls",
           "times": times})
@@ -1807,6 +2000,134 @@ def check_graph_cli(work, data_root) -> dict:
     return counts
 
 
+# train_cli at lookback 300: a short entity (700 rows of train and of test:
+# 400 windows, 12 steps of 32 an epoch), 2 epochs, dropout 0
+WIDE_LOOKBACK, WIDE_ROWS, WIDE_BS, WIDE_EPOCHS = 300, 700, 32, 2
+# per-epoch losses, kernels against the dense run from one seed, float32,
+# dropout 0: the feature layer's scores sum 600 terms in the whole-graph
+# forward's order and its backward's chain where dense sums them pairwise,
+# carried through 24 Adam steps (whose updates divide by each gradient's
+# running RMS). 1e-4 of each loss.
+WIDE_LOSS_TOL = 1e-4
+
+
+def check_wide_window(work, gen, dev) -> dict:
+    """The widths beyond the first tiled design on their entry points.
+    ``train_cli --lookback 300 --attention_impl pallas --gru_impl pallas`` at
+    dropout 0 on a short synthetic entity: the feature layer (N 38, E 600, D
+    300) runs the whole-graph K1 and K1-res on two row blocks and the CHUNKED
+    K2a and K2b with K2c, the temporal layer (N 300, E 76, D 38) the tiled
+    K1 and K1-res with their merge, FAST K2a and K2b and K2c. Launch counts
+    exact by kernel and variant, finite losses and summary, training
+    windows/s (``Trainer.train_epoch`` timed by epoch) and peak memory; the
+    same run with ``--attention_impl dense`` gives the same per-epoch losses
+    within ``WIDE_LOSS_TOL``. Then the feature layer at window 1200 (N 38, E
+    2400, D 1200) in training through ``FeatureAttention(impl="pallas")``:
+    the tiled K1-res and its merge, the CHUNKED K2a and K2b and K2c's chunked
+    staging, exact counts, output and gradients against the dense layer at
+    dropout 0. Returns the launch counts of both."""
+    from mtad_gat_tpu_torch.cli import train_cli
+    from mtad_gat_tpu_torch.nn import FeatureAttention
+    from mtad_gat_tpu_torch.training import Trainer
+
+    data_root = os.path.join(work, "wide_data")
+    write_smd(data_root, WIDE_ROWS, anomaly=0.6)   # past the first scored row, 300
+    real_epoch = Trainer.train_epoch
+    runs = {}
+    for impl in ("pallas", "dense"):
+        epochs = []
+
+        def timed_epoch(self, series, starts, mask):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_epoch(self, series, starts, mask)
+            torch.cuda.synchronize()
+            epochs.append((int(mask.sum()), time.perf_counter() - t0))
+            return out
+
+        out_root = os.path.join(work, f"wide_{impl}")
+        argv = ["--dataset", "SMD", "--group", "1-1", "--data_root", data_root,
+                "--output_root", out_root, "--device", "cuda", "--lookback",
+                str(WIDE_LOOKBACK), "--bs", str(WIDE_BS), "--epochs", str(WIDE_EPOCHS),
+                "--dropout", "0", "--attention_impl", impl, "--gru_impl", "pallas",
+                "--log_tensorboard", "False", "--run_id", "run", "--seed", "0"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        Trainer.train_epoch = timed_epoch
+        try:
+            t0 = time.perf_counter()
+            run = train_cli.main(argv)
+            seconds = time.perf_counter() - t0
+        finally:
+            Trainer.train_epoch = real_epoch
+        with open(os.path.join(out_root, "SMD", "1-1", "logs", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        runs[impl] = {"seconds": seconds, "launches": read_counts(),
+                      "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
+                      "train_windows_per_s_by_epoch": [w / s for w, s in epochs],
+                      "epoch_losses": records,
+                      "summary": finite_summary(os.path.join(run, "summary.txt"))}
+    kern, dense = runs["pallas"], runs["dense"]
+    want, steps = expected_training_launches(WIDE_ROWS, WIDE_ROWS, WIDE_LOOKBACK, WIDE_BS,
+                                             WIDE_EPOCHS, 0.1, "pallas")
+    losses = [(k, r[k], d[k]) for r, d in zip(kern["epoch_losses"], dense["epoch_losses"])
+              for k in r if k.endswith(("forecast", "recon", "total"))]
+    loss_err = max(abs(x - y) / abs(y) for _, x, y in losses)
+    rec = {"phase": "wide_window", "run": f"train_cli --lookback {WIDE_LOOKBACK} "
+           "--attention_impl pallas --gru_impl pallas, dropout 0, against --attention_impl "
+           "dense", "rows": WIDE_ROWS, "bs": WIDE_BS, "epochs": WIDE_EPOCHS, "steps": steps,
+           "kernels": {k: v for k, v in kern.items() if k not in ("summary",)},
+           "dense": {k: dense[k] for k in ("seconds", "peak_extra_bytes",
+                                           "train_windows_per_s_by_epoch")},
+           "expected_launches": want, "loss_rel_err": loss_err, "tol": WIDE_LOSS_TOL,
+           "bf_f1": kern["summary"]["bf_result"]["f1"]}
+    emit(rec)
+    if kern["launches"] != want:
+        raise AssertionError(f"wide_window train_cli: launches {kern['launches']}, "
+                             f"expected {want}")
+    if not (len(losses) >= 6 * WIDE_EPOCHS and loss_err <= WIDE_LOSS_TOL
+            and all(np.isfinite(x) for _, x, _ in losses)):
+        raise AssertionError(f"wide_window: losses {losses} beyond {WIDE_LOSS_TOL}")
+
+    # the feature layer at window 1200, one training call through the layer
+    seeded = lambda: torch.Generator().manual_seed(13)  # noqa: E731
+    layer = FeatureAttention(38, 1200, 0.0, 0.2, impl="pallas", generator=seeded())
+    with torch.no_grad():
+        layer.bias.normal_(0.0, 0.1, generator=seeded())
+    layer.to(dev).train()
+    x = torch.randn(2, 1200, 38, generator=gen).to(dev)
+    cot = torch.randn(2, 1200, 38, generator=gen).to(dev)
+    reset_counts()
+    out, grads = layer_grads(layer, x, None, cot)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    layer.impl = "dense"
+    out_d, grads_d = layer_grads(layer, x, None, cot)
+    torch.cuda.synchronize()
+    errs = {"out": (out - out_d).abs().max().item(),
+            "grads": max(rel_err(g, h) for g, h in zip(grads, grads_d))}
+    emit({"phase": "wide_window", "case": "feature layer at window 1200 (N 38, E 2400, D "
+          "1200), b 2, float32, dropout 0, one training call, against the dense layer",
+          "max_err": errs, "tol": {"out": ROUTE_TOL, "grads_rel": TRAIN_TOL[torch.float32]["grad"]},
+          "launches": counts})
+    expect_counts("window 1200 feature layer", counts, {
+        "gatv2_attention_res": 1, "gatv2_attention_res:tiled": 1, "gatv2_fwd_merge": 1,
+        "gatv2_bwd_dp_da": 1, "gatv2_bwd_dp_da:chunked": 1, "gatv2_bwd_dq_dv": 1,
+        "gatv2_bwd_dq_dv:chunked": 1, "gatv2_bwd_dbias": 1, "gatv2_bwd_dbias:chunked": 1})
+    if not (errs["out"] <= ROUTE_TOL and errs["grads"] <= TRAIN_TOL[torch.float32]["grad"]):
+        raise AssertionError(f"the window 1200 feature layer differs from dense: {errs}")
+    del layer, x, cot, out, grads, out_d, grads_d
+    torch.cuda.empty_cache()
+    return {"train_cli": kern["launches"], "layer": counts, "rec": rec}
+
+
+def wide_counts(wide: dict, key: str) -> int:
+    """Launches under ``key`` ("name:variant") on the wide_window path."""
+    return wide["train_cli"][key] + wide["layer"][key]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1857,11 +2178,13 @@ def main() -> None:
         training_throughput(work, x_train, "pallas")
         long_window = check_long_window(gen, dev, work)
         graph_cli = check_graph_cli(work, data_root)
+        wide = check_wide_window(work, gen, dev)
     route = check_dense_route(gen, dev)
     by_path = {name: {"main": train_launches.get(name, 0),
                       "dense_route": route["launches_eval"][name] + route["launches_train"][name],
                       "long_window": long_window["launches"][name],
-                      "graph_cli": graph_cli[name]}
+                      "graph_cli": graph_cli[name],
+                      "wide_window": wide["train_cli"][name] + wide["layer"][name]}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]
@@ -2007,6 +2330,47 @@ def main() -> None:
                        route_bound_ms=t["bound_ms"], route_bound_by=t["bound_by"])
             if "plan" in t:
                 row["route_plan"] = t["plan"]
+    merge = k1_ms["merge"]
+    kernels.append({
+        "name": "gatv2_fwd_merge", "route": "cuda", "source": "mtad_gat_tpu_torch/csrc/gat_fwd.cu",
+        "replaces": "mtad_gat_tpu/kernels/gat_pallas.py:215",
+        "launches": by_path["gatv2_fwd_merge"]["dense_route"], "launches_path": "dense_route",
+        "launches_by_path": by_path["gatv2_fwd_merge"],
+        "max_abs_err": max(merge["max_abs_err"].values()), "ms": merge["graph_ms"],
+        "graph_ms": merge["graph_ms"], "plain_ms": merge["plain_ms"],
+        "bound_ms": merge["bound_ms"], "bound_by": merge["bound_by"], "library_ms": None,
+        "variant": "the tiled K1 and K1-res's merge of their slices' (m, l, aggregate) "
+                   "partials, slices in order; one launch a tiled forward call",
+        "shapes": f"the route's partials: {merge['slices']} slices, batch 1, N {merge['N']}, "
+                  f"D {merge['D']}, float32; ms is its device time from a CUDA graph"})
+    for key, name, line in (("k2a", "gatv2_bwd_dp_da", 454), ("k2b", "gatv2_bwd_dq_dv", 497),
+                            ("k2c_chunked", "gatv2_bwd_dbias", 540)):
+        w3, w12 = train_ms["wide"]["window 300"], train_ms["wide"]["window 1200"]
+        variant = f"{name}:chunked"
+        err = (lambda t: t["k2c_chunked_abs_err"]) if key == "k2c_chunked" else (
+            lambda t: max(t["grad_abs_err"][g] for g in (("dp", "da") if key == "k2a"
+                                                         else ("dq", "dv"))))
+        kernels.append({
+            "name": f"{name}_chunked", "route": "cuda",
+            "source": "mtad_gat_tpu_torch/csrc/gat_bwd.cu",
+            "replaces": f"mtad_gat_tpu/kernels/gat_pallas.py:{line}",
+            "launches": wide_counts(wide, variant),
+            "launches_path": "wide_window", "max_abs_err": max(err(w3), err(w12)),
+            "ms": w3[key]["graph_ms"], "graph_ms_by_window": [w3[key]["graph_ms"],
+                                                              w12[key]["graph_ms"]],
+            "plain_ms": w3["plain_bwd_ms"], "bound_ms": w3[key]["bound_ms"],
+            "bound_by": w3[key]["bound_by"],
+            "bound_ms_by_window": [w3[key]["bound_ms"], w12[key]["bound_ms"]],
+            "library_ms": None,
+            "variant": ("K2c's chunked staging, E and D 64 floats at a time, where its whole "
+                        "rows do not fit a block (kernels/gat.dbias_chunk)" if key == "k2c_chunked"
+                        else "the CHUNKED tile (16 x 32, one warp, E and D streamed in chunks "
+                             "of 64), beyond the widths the FAST and WIDE tiles take "
+                             "(kernels/gat.gat_tiled_bwd_plan)"),
+            "shapes": f"the feature layer at window 300 (b {w3['B']}, N 38, E 600, D 300) and "
+                      f"1200 (b {w12['B']}, N 38, E 2400, D 1200), float32, dropout 0.3, bias; "
+                      "ms and graph_ms from a CUDA graph; plain_ms one autograd call for the "
+                      "whole attention backward at window 300"})
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

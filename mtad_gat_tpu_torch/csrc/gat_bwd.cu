@@ -33,11 +33,12 @@
 // (i, j, e) contractions are float32 work on the CUDA cores with no product
 // structure (some 10 operations per (i, j, e) in K2a and K2b, 4 in K2c),
 // far above the bytes they read at these graph sizes. K2c keeps its operands
-// in shared memory at their full widths E and D, with odd row strides so that
-// a warp reading one column per lane, or one row across lanes, meets no bank
-// conflict; its score pass maps one key per lane and four rows per thread (as
-// the tiled forward). K2ab and the tiled K2a and K2b hold 4 x 4 register
-// tiles instead. No (N, N) tensor is written except dbias itself.
+// in shared memory at their full widths E and D where they fit a block, in
+// chunks of 64 of each beyond (the feature layer above window 400), with odd
+// row strides so that a warp reading one column per lane, or one row across
+// lanes, meets no bank conflict; its score pass maps one key per lane and
+// four rows per thread (the first tiled design). K2ab, the tiled K2a and K2b
+// and the tiled forward hold 4 x 4 register tiles instead. No (N, N) tensor is written except dbias itself.
 //
 // Reductions across blocks are deterministic: K2a writes one da row per
 // block and K2a and K2b one float32 partial per slice of their loop, summed
@@ -65,31 +66,39 @@ constexpr int ROWS = BI / WARPS;            // query rows per thread
 
 __host__ __device__ inline int odd(int x) { return x | 1; }
 
-// Shared-memory layout of one (row tile, key tile) pair, full widths E, D.
+// K2c's widths staged at once: E and D whole where its full-width tile fits
+// a block (chunk 0), else chunks of `chunk` floats of each
+// (kernels/gat.dbias_chunk chooses).
+__host__ __device__ inline int dbias_width(int W, int chunk) {
+  return chunk > 0 && chunk < W ? chunk : W;
+}
+
+// Shared-memory layout of one K2c block: a (row tile, key tile) pair at
+// staged widths EC of E and DC of D.
 struct Tile {
-  float* p;      // [BI][odd(E)]
-  float* q;      // [BJ][odd(E)]
-  float* a;      // [E]
-  float* v;      // [BJ][odd(D)]
-  float* du;     // [BI][odd(D)]
+  float* p;      // [BI][odd(EC)]
+  float* q;      // [BJ][odd(EC)]
+  float* a;      // [EC]
+  float* v;      // [BJ][odd(DC)]
+  float* du;     // [BI][odd(DC)]
   float* m;      // [BI]
   float* l;      // [BI]
   float* dvec;   // [BI]
   float* next;   // first float after the tile
 };
 
-__host__ __device__ inline size_t tile_floats(int E, int D) {
-  return (size_t)(BI + BJ) * odd(E) + E + (size_t)(BI + BJ) * odd(D) + 3 * BI;
+__host__ __device__ inline size_t tile_floats(int EC, int DC) {
+  return (size_t)(BI + BJ) * odd(EC) + EC + (size_t)(BI + BJ) * odd(DC) + 3 * BI;
 }
 
-__device__ inline Tile carve(float* base, int E, int D) {
+__device__ inline Tile carve(float* base, int EC, int DC) {
   Tile t;
   t.p = base;
-  t.q = t.p + BI * odd(E);
-  t.a = t.q + BJ * odd(E);
-  t.v = t.a + E;
-  t.du = t.v + BJ * odd(D);
-  t.m = t.du + BI * odd(D);
+  t.q = t.p + BI * odd(EC);
+  t.a = t.q + BJ * odd(EC);
+  t.v = t.a + EC;
+  t.du = t.v + BJ * odd(DC);
+  t.m = t.du + BI * odd(DC);
   t.l = t.m + BI;
   t.dvec = t.l + BI;
   t.next = t.dvec + BI;
@@ -109,75 +118,88 @@ struct Args {
   float scale;
 };
 
-// Row tile [i0, i0 + BI) of batch b: p, du and the row stats.
+// Row tile [i0, i0 + BI) of batch b: columns [e0, e0 + ew) of p and [d0, d0 +
+// dw) of du, from column 0 of the tile at strides odd(EC) and odd(DC).
 template <typename T>
-__device__ void stage_rows(const Tile& t, const T* __restrict__ p, const Args& g, int b,
-                           int i0) {
-  const int E = g.E, D = g.D, N = g.N, EP = odd(E), DP = odd(D);
-  for (int x = threadIdx.x; x < BI * E; x += THREADS) {
-    const int r = x / E, e = x % E, i = i0 + r;
-    t.p[r * EP + e] = i < N ? to_f(p[((size_t)b * N + i) * E + e]) : 0.f;
+__device__ __forceinline__ void stage_rows(const Tile& t, const T* __restrict__ p, const Args& g, int b,
+                           int i0, int EC, int e0, int ew, int DC, int d0, int dw) {
+  const int E = g.E, D = g.D, N = g.N, EP = odd(EC), DP = odd(DC);
+  for (int x = threadIdx.x; x < BI * ew; x += THREADS) {
+    const int r = x / ew, e = x % ew, i = i0 + r;
+    t.p[r * EP + e] = i < N ? to_f(p[((size_t)b * N + i) * E + e0 + e]) : 0.f;
   }
-  for (int x = threadIdx.x; x < BI * D; x += THREADS) {
-    const int r = x / D, d = x % D, i = i0 + r;
-    t.du[r * DP + d] = i < N ? g.du[((size_t)b * N + i) * D + d] : 0.f;
+  for (int x = threadIdx.x; x < BI * dw; x += THREADS) {
+    const int r = x / dw, d = x % dw, i = i0 + r;
+    t.du[r * DP + d] = i < N ? g.du[((size_t)b * N + i) * D + d0 + d] : 0.f;
   }
+}
+
+// The row tile's m, l and dvec.
+__device__ __forceinline__ void stage_stats(const Tile& t, const Args& g, int b, int i0) {
   if (threadIdx.x < BI) {
     const int i = i0 + threadIdx.x;
-    const bool in = i < N;
-    t.m[threadIdx.x] = in ? g.m[(size_t)b * N + i] : 0.f;
-    t.l[threadIdx.x] = in ? g.l[(size_t)b * N + i] : 1.f;
-    t.dvec[threadIdx.x] = in ? g.dvec[(size_t)b * N + i] : 0.f;
+    const bool in = i < g.N;
+    t.m[threadIdx.x] = in ? g.m[(size_t)b * g.N + i] : 0.f;
+    t.l[threadIdx.x] = in ? g.l[(size_t)b * g.N + i] : 1.f;
+    t.dvec[threadIdx.x] = in ? g.dvec[(size_t)b * g.N + i] : 0.f;
   }
 }
 
-// Key tile [j0, j0 + BJ) of batch b: q and v.
+// Key tile [j0, j0 + BJ) of batch b: columns [e0, e0 + ew) of q and [d0, d0 +
+// dw) of v.
 template <typename T>
-__device__ void stage_keys(const Tile& t, const T* __restrict__ q, const T* __restrict__ v,
-                           const Args& g, int b, int j0) {
-  const int E = g.E, D = g.D, N = g.N, EP = odd(E), DP = odd(D);
-  for (int x = threadIdx.x; x < BJ * E; x += THREADS) {
-    const int c = x / E, e = x % E, j = j0 + c;
-    t.q[c * EP + e] = j < N ? to_f(q[((size_t)b * N + j) * E + e]) : 0.f;
+__device__ __forceinline__ void stage_keys(const Tile& t, const T* __restrict__ q, const T* __restrict__ v,
+                           const Args& g, int b, int j0, int EC, int e0, int ew, int DC, int d0,
+                           int dw) {
+  const int E = g.E, D = g.D, N = g.N, EP = odd(EC), DP = odd(DC);
+  for (int x = threadIdx.x; x < BJ * ew; x += THREADS) {
+    const int c = x / ew, e = x % ew, j = j0 + c;
+    t.q[c * EP + e] = j < N ? to_f(q[((size_t)b * N + j) * E + e0 + e]) : 0.f;
   }
-  for (int x = threadIdx.x; x < BJ * D; x += THREADS) {
-    const int c = x / D, d = x % D, j = j0 + c;
-    t.v[c * DP + d] = j < N ? to_f(v[((size_t)b * N + j) * D + d]) : 0.f;
+  for (int x = threadIdx.x; x < BJ * dw; x += THREADS) {
+    const int c = x / dw, d = x % dw, j = j0 + c;
+    t.v[c * DP + d] = j < N ? to_f(v[((size_t)b * N + j) * D + d0 + d]) : 0.f;
   }
 }
 
 template <typename T>
-__device__ void stage_a(const Tile& t, const T* __restrict__ a, int E) {
-  for (int e = threadIdx.x; e < E; e += THREADS) t.a[e] = to_f(a[e]);
+__device__ __forceinline__ void stage_a(const Tile& t, const T* __restrict__ a, int e0, int ew) {
+  for (int e = threadIdx.x; e < ew; e += THREADS) t.a[e] = to_f(a[e0 + e]);
 }
 
-// ds and wa of this thread's ROWS rows (warp + r * WARPS) and key (lane) of
-// the staged tile pair. Rows >= N and keys >= N give 0.
-template <bool DROP>
-__device__ void ds_tile(const Tile& t, const Args& g, uint32_t seed, int b, int i0, int j0,
-                        float (&ds)[ROWS], float (&wa)[ROWS]) {
+// Adds the staged columns to the score s and to du . v of this thread's ROWS
+// rows (warp + r * WARPS) and key (lane): ew columns of the embedding, dw of
+// the values, each one fmaf chain in order, so chunks continue it.
+__device__ __forceinline__ void tile_sums(const Tile& t, float alpha, int EC, int ew, int DC, int dw,
+                          float (&s)[ROWS], float (&dot)[ROWS]) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int E = g.E, D = g.D, EP = odd(E), DP = odd(D);
-  float s[ROWS], dot[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) s[r] = dot[r] = 0.f;
+  const int EP = odd(EC), DP = odd(DC);
   const float* qj = t.q + lane * EP;
-  for (int e = 0; e < E; ++e) {
+  for (int e = 0; e < ew; ++e) {
     const float qv = qj[e];
     const float av = t.a[e];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       float z = t.p[(warp + r * WARPS) * EP + e] + qv;
-      z = z >= 0.f ? z : g.alpha * z;
+      z = z >= 0.f ? z : alpha * z;
       s[r] = fmaf(av, z, s[r]);
     }
   }
   const float* vj = t.v + lane * DP;
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < dw; ++d) {
     const float vv = vj[d];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) dot[r] = fmaf(t.du[(warp + r * WARPS) * DP + d], vv, dot[r]);
   }
+}
+
+// ds and wa of this thread's ROWS rows and key from their score s and du . v
+// over the whole widths. Rows >= N and keys >= N give 0.
+template <bool DROP>
+__device__ __forceinline__ void ds_tile(const Tile& t, const Args& g, uint32_t seed, int b, int i0, int j0,
+                        const float (&s)[ROWS], const float (&dot)[ROWS], float (&ds)[ROWS],
+                        float (&wa)[ROWS]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int j = j0 + lane;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
@@ -212,13 +234,13 @@ __device__ inline uint32_t read_seed(const Args& g) {
 // float32 operations on the CUDA cores (the score has no product structure),
 // so the design keeps every thread busy on register-held operands:
 //
-// - the score (tiled_score, shared by both kernels): a thread owns a 4-row x
-//   4-key micro-tile, rows ti + RG r and keys tj + KG c (RG = RI / 4, KG =
-//   KJ / 4, so neighbouring lanes read neighbouring q rows, no bank
-//   conflict), and reads p, q and a as float4: one read feeds 4 pairs. Each
-//   pair's score is one fmaf chain over e = 0..E-1 in order, as the tiled
-//   forward sums it (gat_fwd.cu), so w equals the tiled K1-res's weights bit
-//   for bit; du . v the same over D, with the tile's bias loaded before it
+// - the score (tiled_score: score_tile of gat_common.cuh, the routine the
+//   tiled forward calls too): a thread owns a 4-row x 4-key micro-tile, rows
+//   ti + RG r and keys tj + KG c (RG = RI / 4, KG = KJ / 4, so neighbouring
+//   lanes read neighbouring q rows, no bank conflict), and reads p, q and a
+//   as float4: one read feeds 4 pairs. Each pair's score is one fmaf chain
+//   over e = 0..E-1 in order, so w equals the tiled K1-res's weights bit for
+//   bit; du . v the same over D, with the tile's bias loaded before it
 //   so that its latency hides behind it. The dropout mask is drop_hash of
 //   the global (seed, b, i, j);
 // - the contractions, register tiles that read two float4 for 16 updates:
@@ -246,9 +268,11 @@ __device__ inline uint32_t read_seed(const Args& g) {
 //   20-40% slower there (PERF.md), so occupancy hides the copies instead.
 //
 // The inputs p, q, a, v are float32 (the wrapper casts bfloat16 ones, an
-// exact widening); m, l, du, dvec float32 as elsewhere. Two tile shapes:
+// exact widening); m, l, du, dvec float32 as elsewhere. Three tile shapes:
 // FAST for the widths the model uses, WIDE (fewer rows and keys, one warp)
-// for the widest ones the first design of these kernels accepted.
+// for the widest ones the first design of these kernels accepted, and
+// CHUNKED (WIDE's shape, E and D streamed in chunks; its section below)
+// beyond them.
 
 constexpr int TILE_FAST_RI = 64, TILE_FAST_KJ = 64;
 constexpr int TILE_WIDE_RI = 16, TILE_WIDE_KJ = 32;
@@ -284,104 +308,18 @@ __host__ __device__ inline size_t dp_da_floats(const TiledLayout& L, bool acc_sm
          (acc_smem ? (size_t)RI * L.EA : 0);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + rows) of src (n_rows x ncols, float32, row-major) into dst
-// [rows][stride], asynchronously; rows >= n_rows and columns >= ncols read as
-// zero. `vec`: 16-byte copies (ncols % 4 == 0, src 16-byte aligned).
-__device__ void copy_rows_async(float* dst, int stride, const float* __restrict__ src, int r0,
-                                int rows, int n_rows, int ncols, bool vec, int nt) {
-  const int groups = stride / 4;
-  for (int x = threadIdx.x; x < rows * groups; x += nt) {
-    const int r = x / groups, c = x % groups * 4, row = r0 + r;
-    float* d = dst + r * stride + c;
-    const bool live = row < n_rows;
-    const float* s = src + (size_t)(live ? row : 0) * ncols + c;
-    if (vec) {
-      const bool ok = live && c < ncols;
-      cp_async16(d, ok ? s : src, ok);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const bool ok = live && c + k < ncols;
-        cp_async4(d + k, ok ? s + k : src, ok);
-      }
-    }
-  }
-}
-
-// x[r0 .. r0 + n) into dst [n], asynchronously, zero past n_valid.
-__device__ void copy_vec_async(float* dst, const float* __restrict__ src, int r0, int n,
-                               int n_valid, int nt) {
-  for (int x = threadIdx.x; x < n; x += nt) {
-    const bool ok = r0 + x < n_valid;
-    cp_async4(dst + x, ok ? src + r0 + x : src, ok);
-  }
-}
-
-__device__ inline bool aligned16(const void* x) {
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
-}
-
-// ds and wa of this thread's micro-tile, pair (r, c) at [4 r + c]: rows
-// i0 + ti + RG r of the staged row tile (p, du, m, l, dvec) against keys
-// j0 + tj + KG c of the staged key tile (q, v); 0 for a row or key >= N.
-template <int RI, int KJ, bool DROP>
-__device__ __forceinline__ void tiled_score(const float* p_s, const float* du_s,
-                                            const float* m_s, const float* l_s,
-                                            const float* dvec_s, const float* q_s,
-                                            const float* v_s, const float* a_s,
-                                            const TiledLayout& L, const Args& g, uint32_t seed,
-                                            int b, int i0, int j0, float (&ds)[16],
-                                            float (&wa)[16]) {
-  constexpr int RG = RI / 4, KG = KJ / 4;
-  const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
-  float s[16], dot[16];
-#pragma unroll
-  for (int x = 0; x < 16; ++x) s[x] = dot[x] = 0.f;
-  for (int eg = 0; eg < L.EG; ++eg) {
-    float4 pr[4], qc[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      pr[r] = load4(p_s + (ti + RG * r) * L.EP + 4 * eg);
-      qc[r] = load4(q_s + (tj + KG * r) * L.EP + 4 * eg);
-    }
-    const float4 av = load4(a_s + 4 * eg);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        s[r * 4 + c] = score4(pr[r], qc[c], av, s[r * 4 + c], g.alpha);
-  }
-  // the tile's bias, loaded before du . v so that its latency hides behind it
-  float bv[16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = i0 + ti + RG * r, j = j0 + tj + KG * c;
-      bv[r * 4 + c] = g.bias != nullptr && i < g.N && j < g.N
-                          ? __ldg(g.bias + (size_t)i * g.N + j) : 0.f;
-    }
-  for (int dg = 0; dg < L.DG; ++dg) {
+// du . v of a thread's micro-tile, as score_tile: rows ti + RG r of du_s
+// [.][us] against keys tj + KG c of v_s [.][vs] over float4 groups [0, groups),
+// one fmaf chain a pair in order of d.
+template <int RG, int KG>
+__device__ __forceinline__ void dot_tile(const float* du_s, int us, const float* v_s, int vs,
+                                         int groups, int ti, int tj, float (&dot)[16]) {
+  for (int dg = 0; dg < groups; ++dg) {
     float4 ur[4], vc[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      ur[r] = load4(du_s + (ti + RG * r) * L.DP + 4 * dg);
-      vc[r] = load4(v_s + (tj + KG * r) * L.DP + 4 * dg);
+      ur[r] = load4(du_s + (ti + RG * r) * us + 4 * dg);
+      vc[r] = load4(v_s + (tj + KG * r) * vs + 4 * dg);
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r)
@@ -394,6 +332,31 @@ __device__ __forceinline__ void tiled_score(const float* p_s, const float* du_s,
         d = fmaf(ur[r].w, vc[c].w, d);
       }
   }
+}
+
+// The bias of a thread's micro-tile (0 outside the graph or without one),
+// loaded before du . v so that its latency hides behind it.
+template <int RG, int KG>
+__device__ __forceinline__ void tile_bias(const Args& g, int i0, int j0, int ti, int tj,
+                                          float (&bv)[16]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = i0 + ti + RG * r, j = j0 + tj + KG * c;
+      bv[r * 4 + c] = g.bias != nullptr && i < g.N && j < g.N
+                          ? __ldg(g.bias + (size_t)i * g.N + j) : 0.f;
+    }
+}
+
+// ds and wa of a micro-tile from its scores s, du . v and bias, with the
+// row tile's m, l and dvec staged by row: 0 for a row or key >= N.
+template <int RG, int KG, bool DROP>
+__device__ __forceinline__ void tile_ds(const float (&s)[16], const float (&dot)[16],
+                                        const float (&bv)[16], const float* m_s,
+                                        const float* l_s, const float* dvec_s, const Args& g,
+                                        uint32_t seed, int b, int i0, int j0, int ti, int tj,
+                                        float (&ds)[16], float (&wa)[16]) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int rl = ti + RG * r, i = i0 + rl;
@@ -419,6 +382,124 @@ __device__ __forceinline__ void tiled_score(const float* p_s, const float* du_s,
   }
 }
 
+// ds and wa of this thread's micro-tile, pair (r, c) at [4 r + c]: rows
+// i0 + ti + RG r of the staged row tile (p, du, m, l, dvec) against keys
+// j0 + tj + KG c of the staged key tile (q, v); 0 for a row or key >= N.
+template <int RI, int KJ, bool DROP>
+__device__ __forceinline__ void tiled_score(const float* p_s, const float* du_s,
+                                            const float* m_s, const float* l_s,
+                                            const float* dvec_s, const float* q_s,
+                                            const float* v_s, const float* a_s,
+                                            const TiledLayout& L, const Args& g, uint32_t seed,
+                                            int b, int i0, int j0, float (&ds)[16],
+                                            float (&wa)[16]) {
+  constexpr int RG = RI / 4, KG = KJ / 4;
+  const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
+  float s[16], dot[16], bv[16];
+#pragma unroll
+  for (int x = 0; x < 16; ++x) s[x] = dot[x] = 0.f;
+  score_tile<RG, KG>(p_s, L.EP, q_s, L.EP, a_s, L.EG, ti, tj, g.alpha, s);
+  tile_bias<RG, KG>(g, i0, j0, ti, tj, bv);
+  dot_tile<RG, KG>(du_s, L.DP, v_s, L.DP, L.DG, ti, tj, dot);
+  tile_ds<RG, KG, DROP>(s, dot, bv, m_s, l_s, dvec_s, g, seed, b, i0, j0, ti, tj, ds, wa);
+}
+
+// dq's sums of one item of K2b's contraction: keys kg + KG c of q_keys
+// [.][qs] by a float4 group c0 of e, over rows [0, in) of p_rows [.][ps] and
+// of ds_s [.][KJ] (keys by micro-tile): acc[4 c + k] = sum_i ds_ij lr'(p_ie +
+// q_je), without the factor a_e. As (1 + alpha) / 2 sum_i ds_ij plus (1 -
+// alpha) / 2 sum_i ds_ij with the sign of z_ije flipped into it (one logic
+// op, not a compare and a select: 8% of K2b at the route's shape, PERF.md; a
+// z of -0 takes alpha, where the select takes 1).
+template <int KG, int KJ>
+__device__ __forceinline__ void dq_sums(const float* p_rows, int ps, const float* q_keys, int qs,
+                                        const float* ds_s, int kg, int c0, int in, float alpha,
+                                        float (&acc)[16]) {
+  float qv[4][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float4 q4 = load4(q_keys + (kg + KG * c) * qs + c0);
+    qv[c][0] = q4.x, qv[c][1] = q4.y, qv[c][2] = q4.z, qv[c][3] = q4.w;
+  }
+  const float hi = 0.5f * (1.f + alpha), lo = 0.5f * (1.f - alpha);
+  float cst[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+  for (int i = 0; i < in; ++i) {
+    const float4 p4 = load4(p_rows + i * ps + c0);
+    const float4 d4 = load4(ds_s + i * KJ + 4 * kg);
+    const float pv[4] = {p4.x, p4.y, p4.z, p4.w}, dd[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      cst[c] = fmaf(hi, dd[c], cst[c]);
+      const unsigned h = __float_as_uint(lo * dd[c]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc[c * 4 + k] +=
+            __uint_as_float(h ^ (__float_as_uint(pv[k] + qv[c][k]) & 0x80000000u));
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[c * 4 + k] += cst[c];
+}
+
+// dv's sums of one item: acc[4 c + k] = sum_i wa_ij du_id over rows [0, in)
+// of wa_s [.][KJ] (keys kg + KG c by micro-tile) and du_rows [.][us] at
+// columns c0 + k.
+template <int KJ>
+__device__ __forceinline__ void dv_sums(const float* wa_s, const float* du_rows, int us, int kg,
+                                        int c0, int in, float (&acc)[16]) {
+#pragma unroll 2
+  for (int i = 0; i < in; ++i) {
+    const float4 w4 = load4(wa_s + i * KJ + 4 * kg);
+    const float4 u4 = load4(du_rows + i * us + c0);
+    const float wv[4] = {w4.x, w4.y, w4.z, w4.w}, uv[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[c * 4 + k] = fmaf(wv[c], uv[k], acc[c * 4 + k]);
+  }
+}
+
+// dp's and da's sums of one item of K2a's contraction, split sp of ks: rows h
+// + RG r of p_rows [.][ps] by a float4 group c0 of e, over keys sp, sp + ks,
+// ... below kn of q_keys [.][qs] and dsT_s [.][rs] (rows by micro-tile):
+// dp[4 r + e] = sum_j ds_ij lr'(z), da[e] = sum ds_ij lr(z), each from 0.
+template <int RG>
+__device__ __forceinline__ void dp_da_sums(const float* p_rows, int ps, const float* q_keys,
+                                           int qs, const float* dsT_s, int rs, int h, int c0,
+                                           int sp, int ks, int kn, float alpha, float (&dp)[16],
+                                           float (&da)[4]) {
+  float pv[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float4 p4 = load4(p_rows + (h + RG * r) * ps + c0);
+    pv[r][0] = p4.x, pv[r][1] = p4.y, pv[r][2] = p4.z, pv[r][3] = p4.w;
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) dp[k] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) da[e] = 0.f;
+#pragma unroll 2
+  for (int k = sp; k < kn; k += ks) {
+    const float4 q4 = load4(q_keys + k * qs + c0);
+    const float4 d4 = load4(dsT_s + k * rs + 4 * h);
+    const float qv[4] = {q4.x, q4.y, q4.z, q4.w}, dd[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float d = dd[r], ad = alpha * d;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float z = pv[r][e] + qv[e];
+        const float gk = z >= 0.f ? d : ad;
+        dp[r * 4 + e] += gk;
+        da[e] = fmaf(gk, z, da[e]);
+      }
+    }
+  }
+}
+
 // A running sum's element with one owner thread: written at the first tile of
 // the block's slice, added to at the next ones (in shared memory, or in the
 // partial itself without acc_smem), the total written to the partial at the
@@ -430,10 +511,6 @@ __device__ __forceinline__ void accumulate(float* part_x, float* smem_x, float v
     *part_x = val;
   else
     *smem_x = val;
-}
-
-__device__ inline int slice_begin(int sl, int tiles, int slices) {
-  return (int)((long long)sl * tiles / slices);
 }
 
 // K2b: a block per (slice, batch element, key tile), walking its slice's row
@@ -513,52 +590,10 @@ gatv2_bwd_dq_dv_kernel(const float* __restrict__ p, const float* __restrict__ q,
       float acc[16];
 #pragma unroll
       for (int k = 0; k < 16; ++k) acc[k] = 0.f;
-      if (is_dq) {
-        // dq_je: sum_i ds_ij lr'(p_ie + q_je), q of the item's 4 keys held, as
-        // (1 + alpha) / 2 sum_i ds_ij plus (1 - alpha) / 2 sum_i ds_ij with the
-        // sign of z_ije flipped into it (one logic op, not a compare and a
-        // select: 8% of K2b at the route's shape, PERF.md; a z of -0 takes
-        // alpha, where the select takes 1)
-        float qv[4][4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float4 q4 = load4(q_s + (kg + KG * c) * L.EP + c0);
-          qv[c][0] = q4.x, qv[c][1] = q4.y, qv[c][2] = q4.z, qv[c][3] = q4.w;
-        }
-        const float hi = 0.5f * (1.f + g.alpha), lo = 0.5f * (1.f - g.alpha);
-        float cst[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
-        for (int i = 0; i < in; ++i) {
-          const float4 p4 = load4(st + i * L.EP + c0);
-          const float4 d4 = load4(ds_s + i * KJ + 4 * kg);
-          const float pv[4] = {p4.x, p4.y, p4.z, p4.w}, dd[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            cst[c] = fmaf(hi, dd[c], cst[c]);
-            const unsigned h = __float_as_uint(lo * dd[c]);
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              acc[c * 4 + k] +=
-                  __uint_as_float(h ^ (__float_as_uint(pv[k] + qv[c][k]) & 0x80000000u));
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[c * 4 + k] += cst[c];
-      } else {
-        // dv_jd: sum_i wa_ij du_id
-#pragma unroll 2
-        for (int i = 0; i < in; ++i) {
-          const float4 w4 = load4(wa_s + i * KJ + 4 * kg);
-          const float4 u4 = load4(du_t + i * L.DP + c0);
-          const float wv[4] = {w4.x, w4.y, w4.z, w4.w}, uv[4] = {u4.x, u4.y, u4.z, u4.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) acc[c * 4 + k] = fmaf(wv[c], uv[k], acc[c * 4 + k]);
-        }
-      }
+      if (is_dq)
+        dq_sums<KG, KJ>(st, L.EP, q_s, L.EP, ds_s, kg, c0, in, g.alpha, acc);
+      else
+        dv_sums<KJ>(wa_s, du_t, L.DP, kg, c0, in, acc);
       const int width = is_dq ? E : D, sstride = is_dq ? L.EA : L.DA, goff = is_dq ? 0 : E;
       float* sm = is_dq ? dq_s : dv_s;
 #pragma unroll
@@ -669,31 +704,8 @@ gatv2_bwd_dp_da_kernel(const float* __restrict__ p, const float* __restrict__ q,
       const bool live = x < items * ks;
       const int item = live ? x / ks : 0, sp = x % ks;
       const int h = item / L.EG, c0 = item % L.EG * 4;
-      float pv[4][4], dp[16], da[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 p4 = load4(p_s + (h + RG * r) * L.EP + c0);
-        pv[r][0] = p4.x, pv[r][1] = p4.y, pv[r][2] = p4.z, pv[r][3] = p4.w;
-      }
-#pragma unroll
-      for (int k = 0; k < 16; ++k) dp[k] = 0.f;
-#pragma unroll 2
-      for (int k = sp; k < kn; k += ks) {
-        const float4 q4 = load4(q_t + k * L.EP + c0);
-        const float4 d4 = load4(dsT_s + k * RS + 4 * h);
-        const float qv[4] = {q4.x, q4.y, q4.z, q4.w}, dd[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float d = dd[r], ad = g.alpha * d;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float z = pv[r][e] + qv[e];
-            const float gk = z >= 0.f ? d : ad;
-            dp[r * 4 + e] += gk;
-            da[e] = fmaf(gk, z, da[e]);
-          }
-        }
-      }
+      float dp[16], da[4];
+      dp_da_sums<RG>(p_s, L.EP, q_t, L.EP, dsT_s, RS, h, c0, sp, ks, kn, g.alpha, dp, da);
       // the splits of an item are neighbouring lanes: a butterfly, a fixed order
       for (int o = 1; o < ks; o *= 2) {
 #pragma unroll
@@ -730,6 +742,293 @@ gatv2_bwd_dp_da_kernel(const float* __restrict__ p, const float* __restrict__ q,
   }
 }
 
+// ---- the CHUNKED tile: K2a and K2b at any width ---------------------------
+//
+// Above the widths the first design of these kernels accepted (the feature
+// layer above window 235), whole rows of p, q, v and du no longer fit a
+// block beside the tile (kernels/gat.gat_tiled_bwd_plan). There K2a and K2b
+// take the WIDE tile's shape (16 x 32, one warp) with their running sums in
+// the partial, and stream E and D through shared memory in chunks of
+// TILE_CHUNK floats instead of holding whole rows:
+// - the score (chunked_score): p, q and a staged chunk by chunk in order of
+//   e, score_tile called once a chunk, so each pair's fmaf chain over
+//   e = 0..E-1 runs on in order and w is bit for bit what the tiled forward
+//   writes; du . v the same over D chunks; the row tile's m, l and dvec ride
+//   with the first chunk;
+// - the contractions restage their operands by chunk: K2a's dp and da and
+//   K2b's dq restage p and q by E chunk, K2b's dv du by D chunk, each chunk
+//   one pass of the same item code as the FAST and WIDE tiles (dq_sums,
+//   dv_sums, dp_da_sums). K2a's key splits are 1, and its da runs in the
+//   block's RG rows of da_part, one a row group, as dp runs in the partial:
+//   nothing in shared memory grows with E or D.
+// Every element of a running sum has one owner thread, the slices' partials
+// are summed by the same reduce, and there are no atomics. The block holds
+// 17.6 KB (K2b) or 16.1 KB (K2a) at any width.
+
+constexpr int TILE_CHUNK = 64;              // floats of E or D staged at once
+constexpr int CHUNK_RI = TILE_WIDE_RI, CHUNK_KJ = TILE_WIDE_KJ;
+constexpr int CHUNK_NT = CHUNK_RI * CHUNK_KJ / 16;
+constexpr int CHUNK_RG = CHUNK_RI / 4, CHUNK_KG = CHUNK_KJ / 4;
+constexpr int CHUNK_CP = stride4(TILE_CHUNK);   // stride of a staged chunk
+constexpr int CHUNK_RS = stride4(CHUNK_RI);     // stride of K2a's ds by key
+
+// Shared memory of a CHUNKED block: a chunk of the row tile's p or du
+// [RI][CP], of the key tile's q or v [KJ][CP], of a [CP]; the row tile's m,
+// l and dvec [RI]; then K2b's ds and wa [RI][KJ] (which 1) or K2a's ds by
+// key [KJ][RS] (which 0).
+__host__ __device__ constexpr size_t chunked_floats(int which) {
+  return (size_t)(CHUNK_RI + CHUNK_KJ + 1) * CHUNK_CP + 3 * CHUNK_RI +
+         (which ? 2 * CHUNK_RI * CHUNK_KJ : CHUNK_KJ * CHUNK_RS);
+}
+
+struct ChunkBufs {
+  float* x;      // [RI][CP]: p or du of the row tile
+  float* y;      // [KJ][CP]: q or v of the key tile
+  float* a;      // [CP]
+  float* stats;  // m, l, dvec of the row tile, [RI] each
+  float* next;   // first float after them
+};
+
+__device__ inline ChunkBufs carve_chunk(float* smem) {
+  ChunkBufs c;
+  c.x = smem;
+  c.y = c.x + CHUNK_RI * CHUNK_CP;
+  c.a = c.y + CHUNK_KJ * CHUNK_CP;
+  c.stats = c.a + CHUNK_CP;
+  c.next = c.stats + 3 * CHUNK_RI;
+  return c;
+}
+
+// ds and wa of this thread's micro-tile of row tile i0 against key tile j0
+// of batch element b, as tiled_score computes them, staging the operands by
+// chunk. Every chunk starts with a barrier, so the block's earlier readers
+// of the buffers are done.
+template <bool DROP>
+__device__ void chunked_score(const ChunkBufs& c, const float* __restrict__ p,
+                              const float* __restrict__ q, const float* __restrict__ a,
+                              const float* __restrict__ v, const Args& g, uint32_t seed, int b,
+                              int i0, int j0, bool vec_e, bool vec_d, float (&ds)[16],
+                              float (&wa)[16]) {
+  constexpr int RI = CHUNK_RI, KJ = CHUNK_KJ, NT = CHUNK_NT, CP = CHUNK_CP;
+  const int N = g.N, E = g.E, D = g.D;
+  const int ti = threadIdx.x / CHUNK_KG, tj = threadIdx.x % CHUNK_KG;
+  const float* pb = p + (size_t)b * N * E;
+  const float* qb = q + (size_t)b * N * E;
+  const float* vb = v + (size_t)b * N * D;
+  const float* dub = g.du + (size_t)b * N * D;
+  float s[16], dot[16], bv[16];
+#pragma unroll
+  for (int x = 0; x < 16; ++x) s[x] = dot[x] = 0.f;
+  for (int e0 = 0; e0 < E; e0 += TILE_CHUNK) {
+    const int ew = min(TILE_CHUNK, E - e0), groups = (ew + 3) / 4;
+    __syncthreads();  // the buffers' readers are done
+    copy_tile_async(c.x, CP, groups, pb + e0, E, i0, RI, N, ew, vec_e, NT);
+    copy_tile_async(c.y, CP, groups, qb + e0, E, j0, KJ, N, ew, vec_e, NT);
+    copy_tile_async(c.a, CP, groups, a + e0, E, 0, 1, 1, ew, vec_e, NT);
+    if (e0 == 0) {
+      copy_vec_async(c.stats, g.m + (size_t)b * N, i0, RI, N, NT);
+      copy_vec_async(c.stats + RI, g.l + (size_t)b * N, i0, RI, N, NT);
+      copy_vec_async(c.stats + 2 * RI, g.dvec + (size_t)b * N, i0, RI, N, NT);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // the chunk has arrived
+    score_tile<CHUNK_RG, CHUNK_KG>(c.x, CP, c.y, CP, c.a, groups, ti, tj, g.alpha, s);
+  }
+  tile_bias<CHUNK_RG, CHUNK_KG>(g, i0, j0, ti, tj, bv);
+  for (int d0 = 0; d0 < D; d0 += TILE_CHUNK) {
+    const int dw = min(TILE_CHUNK, D - d0), groups = (dw + 3) / 4;
+    __syncthreads();
+    copy_tile_async(c.x, CP, groups, dub + d0, D, i0, RI, N, dw, vec_d, NT);
+    copy_tile_async(c.y, CP, groups, vb + d0, D, j0, KJ, N, dw, vec_d, NT);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    dot_tile<CHUNK_RG, CHUNK_KG>(c.x, CP, c.y, CP, groups, ti, tj, dot);
+  }
+  tile_ds<CHUNK_RG, CHUNK_KG, DROP>(s, dot, bv, c.stats, c.stats + RI, c.stats + 2 * RI, g,
+                                    seed, b, i0, j0, ti, tj, ds, wa);
+}
+
+// After a barrier (the buffer's readers are done), start copying rows [r0,
+// r0 + rows) of src (n_rows x ld) at columns [c0, c0 + cw) into dst [rows][CP].
+__device__ inline void stage_chunk(float* dst, const float* __restrict__ src, int ld, int r0,
+                                   int rows, int n_rows, int c0, int cw, bool vec) {
+  __syncthreads();
+  copy_tile_async(dst, CHUNK_CP, (cw + 3) / 4, src + c0, ld, r0, rows, n_rows, cw, vec,
+                  CHUNK_NT);
+}
+
+// K2b CHUNKED: a block (one warp) per (slice, batch element, key tile of 32),
+// walking its slice's row tiles of 16. part as the FAST and WIDE K2b's.
+template <bool DROP>
+__global__ void __launch_bounds__(CHUNK_NT)
+gatv2_bwd_dq_dv_chunked_kernel(const float* __restrict__ p, const float* __restrict__ q,
+                               const float* __restrict__ a, const float* __restrict__ v, Args g,
+                               float* __restrict__ part, int slices) {
+  constexpr int RI = CHUNK_RI, KJ = CHUNK_KJ, NT = CHUNK_NT, RG = CHUNK_RG, KG = CHUNK_KG;
+  constexpr int CP = CHUNK_CP;
+  extern __shared__ __align__(16) float smem[];
+  const int N = g.N, E = g.E, D = g.D, W = E + D;
+  const int key_tiles = (N + KJ - 1) / KJ, row_tiles = (N + RI - 1) / RI;
+  const int kt = blockIdx.x % key_tiles, sb = blockIdx.x / key_tiles;
+  const int b = sb % g.B, sl = sb / g.B;
+  const int j0 = kt * KJ, kn = min(KJ, N - j0);
+  const int t_begin = slice_begin(sl, row_tiles, slices);
+  const int t_end = slice_begin(sl + 1, row_tiles, slices);
+  const ChunkBufs c = carve_chunk(smem);
+  float* ds_s = c.next;                     // [RI][KJ], keys by micro-tile
+  float* wa_s = ds_s + RI * KJ;             // [RI][KJ]
+  float* out = part + ((size_t)(sl * g.B + b) * N + j0) * W;
+  const uint32_t seed = read_seed(g);
+  const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q) && aligned16(a);
+  const bool vec_d = D % 4 == 0 && aligned16(v) && aligned16(g.du);
+  const float* pb = p + (size_t)b * N * E;
+  const float* qb = q + (size_t)b * N * E;
+  const float* dub = g.du + (size_t)b * N * D;
+  const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int i0 = t * RI;
+    {
+      float ds[16], wa[16];
+      chunked_score<DROP>(c, p, q, a, v, g, seed, b, i0, j0, vec_e, vec_d, ds, wa);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int o = (ti + RG * r) * KJ + 4 * tj;
+        *reinterpret_cast<float4*>(ds_s + o) =
+            make_float4(ds[4 * r], ds[4 * r + 1], ds[4 * r + 2], ds[4 * r + 3]);
+        *reinterpret_cast<float4*>(wa_s + o) =
+            make_float4(wa[4 * r], wa[4 * r + 1], wa[4 * r + 2], wa[4 * r + 3]);
+      }
+    }
+    const int in = min(RI, N - i0);
+    const bool first = t == t_begin, last = t == t_end - 1;
+    // dq by E chunk, p and q restaged; the first chunk's barrier also
+    // completes the tile's ds and wa
+    for (int e0 = 0; e0 < E; e0 += TILE_CHUNK) {
+      const int ew = min(TILE_CHUNK, E - e0), groups = (ew + 3) / 4;
+      stage_chunk(c.x, pb, E, i0, RI, N, e0, ew, vec_e);
+      copy_tile_async(c.y, CP, groups, qb + e0, E, j0, KJ, N, ew, vec_e, NT);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      for (int x = threadIdx.x; x < KG * groups; x += NT) {
+        const int kg = x / groups, c0 = x % groups * 4;
+        float acc[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+        dq_sums<KG, KJ>(c.x, CP, c.y, CP, ds_s, kg, c0, in, g.alpha, acc);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int key = kg + KG * cc;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (key < kn && e0 + c0 + k < E)
+              accumulate(out + (size_t)key * W + e0 + c0 + k, nullptr, acc[cc * 4 + k], first,
+                         last, false);
+        }
+      }
+    }
+    // dv by D chunk, du restaged
+    for (int d0 = 0; d0 < D; d0 += TILE_CHUNK) {
+      const int dw = min(TILE_CHUNK, D - d0), groups = (dw + 3) / 4;
+      stage_chunk(c.x, dub, D, i0, RI, N, d0, dw, vec_d);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      for (int x = threadIdx.x; x < KG * groups; x += NT) {
+        const int kg = x / groups, c0 = x % groups * 4;
+        float acc[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+        dv_sums<KJ>(wa_s, c.x, CP, kg, c0, in, acc);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int key = kg + KG * cc;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (key < kn && d0 + c0 + k < D)
+              accumulate(out + (size_t)key * W + E + d0 + c0 + k, nullptr, acc[cc * 4 + k],
+                         first, last, false);
+        }
+      }
+    }
+  }
+}
+
+// K2a CHUNKED: a block (one warp) per (slice, batch element, row tile of 16),
+// walking its slice's key tiles of 32. part as the FAST and WIDE K2a's;
+// da_part RG rows of E a block, one a row group: the caller sums them all.
+template <bool DROP>
+__global__ void __launch_bounds__(CHUNK_NT)
+gatv2_bwd_dp_da_chunked_kernel(const float* __restrict__ p, const float* __restrict__ q,
+                               const float* __restrict__ a, const float* __restrict__ v, Args g,
+                               float* __restrict__ part, float* __restrict__ da_part,
+                               int slices) {
+  constexpr int RI = CHUNK_RI, KJ = CHUNK_KJ, NT = CHUNK_NT, RG = CHUNK_RG, KG = CHUNK_KG;
+  constexpr int CP = CHUNK_CP, RS = CHUNK_RS;
+  extern __shared__ __align__(16) float smem[];
+  const int N = g.N, E = g.E, D = g.D;
+  const int row_tiles = (N + RI - 1) / RI, key_tiles = (N + KJ - 1) / KJ;
+  const int rt = blockIdx.x % row_tiles, sb = blockIdx.x / row_tiles;
+  const int b = sb % g.B, sl = sb / g.B;
+  const int i0 = rt * RI, in = min(RI, N - i0);
+  const int t_begin = slice_begin(sl, key_tiles, slices);
+  const int t_end = slice_begin(sl + 1, key_tiles, slices);
+  const ChunkBufs c = carve_chunk(smem);
+  float* dsT_s = c.next;                    // [KJ][RS], rows by micro-tile
+  float* out = part + ((size_t)(sl * g.B + b) * N + i0) * E;
+  float* da_rows = da_part + (size_t)blockIdx.x * RG * E;
+  const uint32_t seed = read_seed(g);
+  const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q) && aligned16(a);
+  const bool vec_d = D % 4 == 0 && aligned16(v) && aligned16(g.du);
+  const float* pb = p + (size_t)b * N * E;
+  const float* qb = q + (size_t)b * N * E;
+  const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int j0 = t * KJ;
+    {
+      float ds[16], wa[16];
+      chunked_score<DROP>(c, p, q, a, v, g, seed, b, i0, j0, vec_e, vec_d, ds, wa);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        *reinterpret_cast<float4*>(dsT_s + (tj + KG * cc) * RS + 4 * ti) =
+            make_float4(ds[cc], ds[4 + cc], ds[8 + cc], ds[12 + cc]);
+    }
+    const int kn = min(KJ, N - j0);
+    const bool first = t == t_begin, last = t == t_end - 1;
+    // dp and da by E chunk, p and q restaged; the first chunk's barrier also
+    // completes the tile's ds
+    for (int e0 = 0; e0 < E; e0 += TILE_CHUNK) {
+      const int ew = min(TILE_CHUNK, E - e0), groups = (ew + 3) / 4;
+      stage_chunk(c.x, pb, E, i0, RI, N, e0, ew, vec_e);
+      copy_tile_async(c.y, CP, groups, qb + e0, E, j0, KJ, N, ew, vec_e, NT);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      for (int item = threadIdx.x; item < RG * groups; item += NT) {
+        const int h = item / groups, c0 = item % groups * 4;
+        float dp[16], da[4];
+        dp_da_sums<RG>(c.x, CP, c.y, CP, dsT_s, RS, h, c0, 0, 1, kn, g.alpha, dp, da);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = h + RG * r;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (row < in && e0 + c0 + e < E)
+              accumulate(out + (size_t)row * E + e0 + c0 + e, nullptr, dp[r * 4 + e], first,
+                         last, false);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e0 + c0 + e < E)
+            accumulate(da_rows + (size_t)h * E + e0 + c0 + e, nullptr, da[e], first, last,
+                       false);
+      }
+    }
+  }
+}
+
 // out_a[r][c] = a_c sum_s part[s][r][c] for c < E and out_b[r][c - E] =
 // sum_s part[s][r][c] for the DB columns after (W = E + DB a row), s in
 // order: no atomics, the same bits every launch; cast to T.
@@ -754,18 +1053,32 @@ __global__ void gatv2_bwd_slice_reduce_kernel(const float* __restrict__ part,
 }
 
 // ---- K2c: one block per (row tile, key tile, batch chunk) ----------------
+//
+// Where its full-width tile does not fit a block (the feature layer above
+// window 400), K2c stages E and D in chunks (dbias_width): each round stages
+// the next chunk of each, and the score and du . v run on as one fmaf chain
+// each, so the chunked kernel's ds is the full-width one's bit for bit. Sums:
+// a block's batch elements in order, then the caller sums the chunks'
+// partials in a fixed order.
 
-size_t dbias_floats(int E, int D) { return tile_floats(E, D); }
+size_t dbias_floats(int E, int D, int chunk) {
+  return tile_floats(dbias_width(E, chunk), dbias_width(D, chunk));
+}
 
-template <typename T, bool DROP>
+// CHUNKED: the widths staged in chunks of `chunk` floats; without it whole,
+// in one round (the loop below then compiles to the first design's staging).
+template <typename T, bool DROP, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS)
 gatv2_bwd_dbias_kernel(const T* __restrict__ p, const T* __restrict__ q,
                        const T* __restrict__ a, const T* __restrict__ v, Args g,
                        float* __restrict__ dbias_part, int row_tiles, int col_tiles,
-                       int chunk) {
+                       int batch_chunk, int chunk) {
   extern __shared__ float smem[];
-  const int N = g.N;
-  const Tile t = carve(smem, g.E, g.D);
+  const int N = g.N, E = g.E, D = g.D;
+  const int EC = CHUNKED ? dbias_width(E, chunk) : E;
+  const int DC = CHUNKED ? dbias_width(D, chunk) : D;
+  const int rounds = CHUNKED ? max((E + EC - 1) / EC, (D + DC - 1) / DC) : 1;
+  const Tile t = carve(smem, EC, DC);
   const int tiles = row_tiles * col_tiles;
   const int c = blockIdx.x / tiles;
   const int i0 = (blockIdx.x % tiles) / col_tiles * BI;
@@ -776,15 +1089,25 @@ gatv2_bwd_dbias_kernel(const T* __restrict__ p, const T* __restrict__ q,
   float acc[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-  stage_a(t, a, g.E);
-  const int b_end = min(g.B, (c + 1) * chunk);
-  for (int b = c * chunk; b < b_end; ++b) {
-    __syncthreads();  // readers of the previous batch's tiles are done
-    stage_rows(t, p, g, b, i0);
-    stage_keys(t, q, v, g, b, j0);
-    __syncthreads();
+  if (!CHUNKED) stage_a(t, a, 0, E);
+  const int b_end = min(g.B, (c + 1) * batch_chunk);
+  for (int b = c * batch_chunk; b < b_end; ++b) {
+    float s[ROWS], dot[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) s[r] = dot[r] = 0.f;
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int e0 = rd * EC, ew = CHUNKED ? max(0, min(EC, E - e0)) : E;
+      const int d0 = rd * DC, dw = CHUNKED ? max(0, min(DC, D - d0)) : D;
+      __syncthreads();  // readers of the previous chunk or batch element are done
+      stage_rows(t, p, g, b, i0, EC, e0, ew, DC, d0, dw);
+      stage_keys(t, q, v, g, b, j0, EC, e0, ew, DC, d0, dw);
+      if (CHUNKED) stage_a(t, a, e0, ew);
+      if (rd == 0) stage_stats(t, g, b, i0);
+      __syncthreads();
+      tile_sums(t, g.alpha, EC, ew, DC, dw, s, dot);
+    }
     float ds[ROWS], wa[ROWS];
-    ds_tile<DROP>(t, g, seed, b, i0, j0, ds, wa);
+    ds_tile<DROP>(t, g, seed, b, i0, j0, s, dot, ds, wa);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] += ds[r];
   }
@@ -1121,10 +1444,11 @@ Args make_args(const void* bias, const void* seed, const void* m, const void* l,
               (const float*)du, (const float*)dvec, B, N, E, D, alpha, thresh, scale};
 }
 
-// The two tile shapes: 0 FAST, 1 WIDE.
+// The three tile shapes: 0 FAST, 1 WIDE, 2 CHUNKED.
 __host__ __device__ inline bool tile_dims(int tile, int* ri, int* kj) {
   if (tile == 0) return *ri = TILE_FAST_RI, *kj = TILE_FAST_KJ, true;
   if (tile == 1) return *ri = TILE_WIDE_RI, *kj = TILE_WIDE_KJ, true;
+  if (tile == 2) return *ri = CHUNK_RI, *kj = CHUNK_KJ, true;
   return false;
 }
 
@@ -1140,6 +1464,7 @@ size_t tiled_floats(int which, int tile, int E, int D, bool acc_smem) {
   if (tile == 1)
     return which ? dq_dv_floats<TILE_WIDE_RI, TILE_WIDE_KJ>(L, acc_smem)
                  : dp_da_floats<TILE_WIDE_RI, TILE_WIDE_KJ>(L, acc_smem);
+  if (tile == 2 && !acc_smem) return chunked_floats(which);
   return 0;
 }
 
@@ -1199,6 +1524,33 @@ int dp_da_shape(const float* p, const float* q, const float* a, const float* v, 
   return slice_reduce<T>(part, a, dp, nullptr, g, 0, pl.slices, stream);
 }
 
+// The CHUNKED K2a (which 0) or K2b (1) and its reduce; occupancy as tiled().
+template <typename T, bool DROP>
+int chunked(int which, const float* p, const float* q, const float* a, const float* v,
+            const Args& g, void* out0, void* out1, float* part, const TiledPlan& pl,
+            void* stream, int* occupancy) {
+  const size_t bytes = chunked_floats(which) * sizeof(float);
+  auto k2a = gatv2_bwd_dp_da_chunked_kernel<DROP>;
+  auto k2b = gatv2_bwd_dq_dv_chunked_kernel<DROP>;
+  if (occupancy != nullptr)
+    return (int)(which ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, k2b, CHUNK_NT,
+                                                                       bytes)
+                       : cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, k2a, CHUNK_NT,
+                                                                       bytes));
+  const long long own = which ? (g.N + CHUNK_KJ - 1) / CHUNK_KJ : (g.N + CHUNK_RI - 1) / CHUNK_RI;
+  const long long blocks = (long long)pl.slices * g.B * own;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (which)
+    k2b<<<(unsigned)blocks, CHUNK_NT, bytes, (cudaStream_t)stream>>>(p, q, a, v, g, part,
+                                                                     pl.slices);
+  else
+    k2a<<<(unsigned)blocks, CHUNK_NT, bytes, (cudaStream_t)stream>>>(p, q, a, v, g, part,
+                                                                     (float*)out1, pl.slices);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  return which ? slice_reduce<T>(part, a, out0, out1, g, g.D, pl.slices, stream)
+               : slice_reduce<T>(part, a, out0, nullptr, g, 0, pl.slices, stream);
+}
+
 // K2a (which 0) or K2b (1) with its reduce, or (occupancy non-null) only the
 // blocks of its kernel one multiprocessor holds at once.
 template <typename T>
@@ -1211,6 +1563,11 @@ int tiled(int which, const void* p, const void* q, const void* a, const void* v,
               *vf = (const float*)v;
   float* pt = (float*)part;
   const bool drop = g.seed != nullptr;
+  if (pl.tile == 2)
+    return drop ? chunked<T, true>(which, pf, qf, af, vf, g, out0, out1, pt, pl, stream,
+                                   occupancy)
+                : chunked<T, false>(which, pf, qf, af, vf, g, out0, out1, pt, pl, stream,
+                                    occupancy);
 #define GAT_TILED_CASE(RI, KJ, DROP)                                                       \
   return which ? dq_dv_shape<T, RI, KJ, DROP>(pf, qf, af, vf, g, out0, out1, pt, pl, stream, \
                                              occupancy)                                   \
@@ -1273,18 +1630,29 @@ int graph(const void* p, const void* q, const void* a, const void* v, const Args
                        : graph_db<T, false, false>(p, q, a, v, g, o, stream, occupancy));
 }
 
-template <typename T, bool DROP>
+template <typename T, bool DROP, bool CHUNKED>
 int dbias(const void* p, const void* q, const void* a, const void* v, const Args& g,
-          void* part, int n_chunks, void* stream) {
-  auto kernel = gatv2_bwd_dbias_kernel<T, DROP>;
-  const size_t floats = dbias_floats(g.E, g.D);
+          void* part, int n_chunks, int chunk, void* stream) {
+  auto kernel = gatv2_bwd_dbias_kernel<T, DROP, CHUNKED>;
+  const size_t floats = dbias_floats(g.E, g.D, chunk);
   if (int err = prepare(kernel, floats)) return err;
   const int row_tiles = (g.N + BI - 1) / BI, col_tiles = (g.N + BJ - 1) / BJ;
-  const int chunk = (g.B + n_chunks - 1) / n_chunks;
+  const int batch_chunk = (g.B + n_chunks - 1) / n_chunks;
   kernel<<<row_tiles * col_tiles * n_chunks, THREADS, floats * sizeof(float),
            (cudaStream_t)stream>>>((const T*)p, (const T*)q, (const T*)a, (const T*)v, g,
-                                   (float*)part, row_tiles, col_tiles, chunk);
+                                   (float*)part, row_tiles, col_tiles, batch_chunk, chunk);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dbias_dispatch(const void* p, const void* q, const void* a, const void* v, const Args& g,
+                   void* part, int n_chunks, int chunk, void* stream) {
+  const bool drop = g.seed != nullptr;
+  if (chunk > 0)
+    return drop ? dbias<T, true, true>(p, q, a, v, g, part, n_chunks, chunk, stream)
+                : dbias<T, false, true>(p, q, a, v, g, part, n_chunks, chunk, stream);
+  return drop ? dbias<T, true, false>(p, q, a, v, g, part, n_chunks, 0, stream)
+              : dbias<T, false, false>(p, q, a, v, g, part, n_chunks, 0, stream);
 }
 
 }  // namespace
@@ -1298,13 +1666,18 @@ int dbias(const void* p, const void* q, const void* a, const void* v, const Args
 
 extern "C" {
 
-// Bytes of shared memory one block of K2c (which 2) or K2ab (3) needs at
-// graph size N (K2ab only) and widths E and D; -1 for another kernel
-// (gatv2_bwd_tiled_smem_bytes gives the tiled K2a and K2b's).
+// Bytes of shared memory one block of K2ab (which 3) needs at graph size N
+// and widths E and D; -1 for another kernel (gatv2_bwd_tiled_smem_bytes and
+// gatv2_bwd_dbias_smem_bytes give the tiled K2a and K2b's and K2c's).
 long gatv2_bwd_smem_bytes(int which, int N, int E, int D) {
-  if (which == 2) return (long)(dbias_floats(E, D) * sizeof(float));
   if (which == 3) return (long)(GraphLayout(N, E, D).floats() * sizeof(float));
   return -1;
+}
+
+// Bytes of shared memory one K2c block needs at widths E and D, staged whole
+// (chunk 0) or in chunks of `chunk` floats.
+long gatv2_bwd_dbias_smem_bytes(int E, int D, int chunk) {
+  return (long)(dbias_floats(E, D, chunk) * sizeof(float));
 }
 
 // K2ab's embedding splits of the score pass, its row groups of the
@@ -1350,7 +1723,7 @@ int gatv2_bwd_graph_occupancy(int N, int E, int D, int bf16, int drop, int dbias
 }
 
 // The tiled K2a and K2b's layout, for the planner's check
-// (kernels/gat._check_tiled_layout): rows and keys of tile shape `tile`
+// (kernels/gat._tiled_plan): rows and keys of tile shape `tile`
 // (out[0], out[1]; 0 for a bad tile), and the shared-memory bytes of one
 // block of K2a (which 0) or K2b (1), 0 for a bad argument.
 void gatv2_bwd_tiled_tile(int tile, int* out) {
@@ -1378,7 +1751,8 @@ int gatv2_bwd_tiled_occupancy(int which, int tile, int E, int D, int acc_smem, i
 }
 
 // K2a: dp (B, N, E) in T and da_part (blocks, E) float32, one row a block
-// (slices x B x ceil(N / RI) rows): the caller sums them. K2b: dq (B, N, E)
+// (slices x B x ceil(N / RI) rows; RG = 4 rows a block with the CHUNKED
+// tile): the caller sums them. K2b: dq (B, N, E)
 // and dv (B, N, D) in T. p, q, a and v are float32 whatever T; part is the
 // float32 scratch of the slices' partial sums, (slices, B, N, E) for K2a and
 // (slices, B, N, E + D) for K2b.
@@ -1402,19 +1776,18 @@ int gatv2_bwd_dq_dv_bf16(GAT_BWD_ARGS, void* dq, void* dv, void* part, GAT_BWD_S
   return tiled<__nv_bfloat16>(1, p, q, a, v, GAT_BWD_G, dq, dv, part, GAT_TILED_PLAN, stream);
 }
 
-// K2c. part is (n_chunks, N, N) float32: the caller sums over chunks (with
-// one chunk it is dbias itself).
-int gatv2_bwd_dbias_f32(GAT_BWD_ARGS, void* part, GAT_BWD_SIZES, int n_chunks,
+// K2c. part is (n_chunks, N, N) float32, one (N, N) sum a batch chunk: the
+// caller sums over chunks (with one chunk it is dbias itself). chunk: the
+// widths staged at once, 0 for E and D whole.
+int gatv2_bwd_dbias_f32(GAT_BWD_ARGS, void* part, GAT_BWD_SIZES, int n_chunks, int chunk,
                         GAT_BWD_DROP) {
   const Args g = GAT_BWD_G;
-  return seed ? dbias<float, true>(p, q, a, v, g, part, n_chunks, stream)
-              : dbias<float, false>(p, q, a, v, g, part, n_chunks, stream);
+  return dbias_dispatch<float>(p, q, a, v, g, part, n_chunks, chunk, stream);
 }
-int gatv2_bwd_dbias_bf16(GAT_BWD_ARGS, void* part, GAT_BWD_SIZES, int n_chunks,
+int gatv2_bwd_dbias_bf16(GAT_BWD_ARGS, void* part, GAT_BWD_SIZES, int n_chunks, int chunk,
                          GAT_BWD_DROP) {
   const Args g = GAT_BWD_G;
-  return seed ? dbias<__nv_bfloat16, true>(p, q, a, v, g, part, n_chunks, stream)
-              : dbias<__nv_bfloat16, false>(p, q, a, v, g, part, n_chunks, stream);
+  return dbias_dispatch<__nv_bfloat16>(p, q, a, v, g, part, n_chunks, chunk, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,6 @@
-// Helpers shared by the fused GATv2 attention kernels (gat_fwd.cu, gat_bwd.cu).
+// Helpers shared by the fused GATv2 attention kernels (gat_fwd.cu, gat_bwd.cu):
+// the dropout hash, the whole-graph kernels' staging, and the tiled kernels'
+// cp.async staging and score routine (score_tile).
 //
 // drop_hash is the attention-dropout keep decision of the JAX package's
 // fused attention, mtad_gat_tpu/kernels/gat_pallas.py::_hash_u32 and
@@ -53,9 +55,9 @@ __device__ __forceinline__ uint32_t drop_hash(uint32_t seed, uint32_t b, uint32_
 // and K2ab, so the backward recomputes the forward's scores term for term.
 constexpr int G_SPLIT = 2;
 
-__host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
+__host__ __device__ constexpr int up4(int x) { return (x + 3) & ~3; }
 // A row stride for float4 reads: an odd number of 16-byte units.
-__host__ __device__ inline int stride4(int x) {
+__host__ __device__ constexpr int stride4(int x) {
   const int s = up4(x);
   return (s / 4) % 2 ? s : s + 4;
 }
@@ -108,6 +110,107 @@ __device__ __forceinline__ float score4(const float4& p, const float4& q, const 
   s = fmaf(a.z, z >= 0.f ? z : alpha * z, s);
   z = p.w + q.w;
   return fmaf(a.w, z >= 0.f ? z : alpha * z, s);
+}
+
+// ---- the tiled kernels' staging and score (tiled K1, K1-res, K2a, K2b) ----
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// All but the most recent committed group have arrived.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ inline bool aligned16(const void* x) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+// Rows [r0, r0 + rows) of src (n_rows rows of ld floats, float32), their first
+// 4 x groups columns, into dst [rows][stride], asynchronously; rows >= n_rows
+// and columns >= ncols read as zero. src may point into a row (a chunk of
+// columns). `vec`: 16-byte copies (ld % 4 == 0, src 16-byte aligned).
+__device__ inline void copy_tile_async(float* dst, int stride, int groups,
+                                       const float* __restrict__ src, int ld, int r0, int rows,
+                                       int n_rows, int ncols, bool vec, int nt) {
+  for (int x = threadIdx.x; x < rows * groups; x += nt) {
+    const int r = x / groups, c = x % groups * 4, row = r0 + r;
+    float* d = dst + r * stride + c;
+    const bool live = row < n_rows;
+    const float* s = src + (size_t)(live ? row : 0) * ld + c;
+    if (vec) {
+      const bool ok = live && c < ncols;
+      cp_async16(d, ok ? s : src, ok);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool ok = live && c + k < ncols;
+        cp_async4(d + k, ok ? s + k : src, ok);
+      }
+    }
+  }
+}
+
+// Rows [r0, r0 + rows) of src (n_rows x ncols, float32, row-major) into dst
+// [rows][stride], padding columns included, asynchronously; rows >= n_rows
+// and columns >= ncols read as zero.
+__device__ inline void copy_rows_async(float* dst, int stride, const float* __restrict__ src,
+                                       int r0, int rows, int n_rows, int ncols, bool vec, int nt) {
+  copy_tile_async(dst, stride, stride / 4, src, ncols, r0, rows, n_rows, ncols, vec, nt);
+}
+
+// x[r0 .. r0 + n) into dst [n], asynchronously, zero past n_valid.
+__device__ inline void copy_vec_async(float* dst, const float* __restrict__ src, int r0, int n,
+                                      int n_valid, int nt) {
+  for (int x = threadIdx.x; x < n; x += nt) {
+    const bool ok = r0 + x < n_valid;
+    cp_async4(dst + x, ok ? src + r0 + x : src, ok);
+  }
+}
+
+// The score of a thread's 4 x 4 micro-tile, pair (r, c) at s[4 r + c]: rows
+// ti + RG r of p_s [.][ps] against keys tj + KG c of q_s [.][qs], over the
+// float4 groups [0, groups) of the staged embedding columns (a_s beside
+// them): s += a_e leakyrelu(p_ie + q_je), one e after the other. Each pair's
+// score is one fmaf chain over e in order, so staging E whole, or by chunks
+// with one call a chunk in order of e, gives the same bits. A float4 read
+// feeds 4 pairs. The tiled forward and the tiled K2a and K2b all score
+// through this routine, so the backward recomputes the tiled forward's
+// scores, and with them its weights, bit for bit.
+template <int RG, int KG>
+__device__ __forceinline__ void score_tile(const float* p_s, int ps, const float* q_s, int qs,
+                                           const float* a_s, int groups, int ti, int tj,
+                                           float alpha, float (&s)[16]) {
+  for (int eg = 0; eg < groups; ++eg) {
+    float4 pr[4], qc[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pr[r] = load4(p_s + (ti + RG * r) * ps + 4 * eg);
+      qc[r] = load4(q_s + (tj + KG * r) * qs + 4 * eg);
+    }
+    const float4 av = load4(a_s + 4 * eg);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r * 4 + c] = score4(pr[r], qc[c], av, s[r * 4 + c], alpha);
+  }
+}
+
+// The first tile of slice sl of a loop over `tiles` cut into `slices`
+// (kernels/gat.slice_bounds): every tile once, sizes differing by one at most.
+__device__ inline int slice_begin(int sl, int tiles, int slices) {
+  return (int)((long long)sl * tiles / slices);
 }
 
 // Sum x over LANES neighbouring lanes (lane % LANES), scattered: afterwards

@@ -14,10 +14,10 @@
 //   and 100): one block holds a batch element's whole graph, or the half of
 //   its rows that lets two blocks share a multiprocessor (row_blocks), in
 //   float32 shared memory; its section below says more;
-// - gatv2_fwd_kernel, the tiled variant for larger graphs: a block owns 16
-//   query rows, streams key tiles of 32 (one key per lane) past them with an
-//   online softmax, and keeps the running max, sum and aggregate in shared
-//   memory.
+// - gatv2_fwd_tiled_kernel, the tiled variant for larger graphs and any
+//   width: 64 x 64 score tiles of 4 x 4 register micro-tiles, an online
+//   softmax, the key loop cut into slices whose partials
+//   gatv2_fwd_merge_kernel combines; its section below says more.
 //
 // Two compile-time flags make the training variant of either; with both off
 // (K1, the scoring path) the code is that of the forward alone:
@@ -33,28 +33,19 @@
 // structure (a . leakyrelu(p_i + q_j) is not a matrix product), so it is
 // float32 work on the CUDA cores, about 4 operations per (i, j, e); at the
 // model's graph sizes (N = 38 and 100) that work and the bytes of p, q and v
-// are of the same order.
+// are of the same order, and above them the work dominates.
 //
 // Layouts are those of gatv2_attention_fused: p, q (B, N, E), v (B, N, D),
 // a (E,), bias (N, N) float32 or null, out (B, N, D) in v's type; u
 // (B, N, D), m and l (B, N) float32. p, q, a and v share one type (float32
-// or bfloat16); all arithmetic is float32.
+// or bfloat16; float32 for the tiled kernel, whose wrapper widens bfloat16);
+// all arithmetic is float32.
 
 #include "gat_common.cuh"
 
 namespace {
 
 using namespace gat;
-
-// ---- the tiled forward: one block per (batch element, 16-row tile) -------
-
-constexpr int BI = 16;                      // query rows per block
-constexpr int BJ = 32;                      // keys per tile: one per lane
-constexpr int EC = 32;                      // embedding lanes staged per pass
-constexpr int THREADS = 128;                // four warps
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = BI / WARPS;            // query rows per thread
-constexpr int QT_STRIDE = BJ + 1;           // padded: conflict-free transpose
 
 struct Residuals {
   float* u;                                 // (B, N, D)
@@ -65,140 +56,329 @@ struct Residuals {
   float scale;                              // 1 / (1 - rate)
 };
 
-size_t smem_floats(int D) {
-  return (size_t)BI * EC + (size_t)EC * QT_STRIDE + EC + (size_t)BI * BJ +
-         3 * BI + (size_t)BJ * D + (size_t)BI * D;
+// ---- the tiled forward: 64 x 64 score tiles, slices of the key loop --------
+//
+// A block owns 64 query rows of one batch element and walks a slice of the
+// key tiles of 64; 256 threads, each a 4 x 4 register micro-tile of pairs
+// (rows ti + 16 r, keys tj + 16 c). The design is the tiled K2a and K2b's
+// (gat_bwd.cu; PERF.md, section 6):
+//
+// - the score: score_tile (gat_common.cuh), the routine K2a and K2b call, so
+//   the backward recomputes these scores bit for bit: float4 reads of p, q
+//   and a from shared memory, one read feeding 4 pairs, each pair one fmaf
+//   chain over e in order. The embedding is staged in chunks of at most
+//   FWD_EC_MAX floats; up to that width it is one chunk and the block's rows
+//   of p are staged once. The chain runs on across chunks, so any width is
+//   taken and w does not depend on the chunking;
+// - an online softmax in registers: the 16 threads of a row (a half warp)
+//   take the tile's row max and sum by xor shuffles, each first over its own
+//   4 keys in order; m and l run per row, exp is taken once per pair, and the
+//   hash dropout mask (drop_hash of the global (seed, b, i, j)) applies to
+//   the aggregate's weights only while l sums the unmasked ones;
+// - the aggregate as a register tile: the same thread owns rows ti + 16 r
+//   and columns 4 tj .. 4 tj + 3 of a 64-column chunk of D, fed per 4 keys
+//   by four float4 reads of the weights and four of v, 64 fmaf per 8 reads,
+//   the keys in order. A tile's weights are computed once into shared memory
+//   and applied to each staged D chunk of v. With one chunk (D <= 64) the
+//   running aggregate stays in registers; with more it lives in the block's
+//   rows of the float32 partial, each element read and written by its one
+//   owner thread, as the WIDE backward tile keeps its sums;
+// - batch 1 fills the card: the key loop is cut into `slices` blocks of its
+//   own (kernels/gat.gat_tiled_fwd_plan), each writing its rows' (m, l,
+//   aggregate) partials; gatv2_fwd_merge_kernel combines them in slice order
+//   (m = max_s m_s, l = sum_s l_s e^(m_s - m), u = sum_s acc_s e^(m_s - m) / l)
+//   and writes out, u, m and l. No atomics: two launches give identical bits;
+// - staging by cp.async with zero fill (ragged rows and keys, padded widths),
+//   one buffer each: the first D chunk of v is copied beside the tile's q and
+//   lands while the score runs. Two blocks a multiprocessor (16 warps), as
+//   measured best for the tiled backward; no second buffer, which cost the
+//   backward a block a multiprocessor.
+
+constexpr int FWD_RI = 64, FWD_KJ = 64;                  // rows and keys of a score tile
+constexpr int FWD_THREADS = FWD_RI * FWD_KJ / 16;        // one 4 x 4 micro-tile each
+constexpr int FWD_RG = FWD_RI / 4, FWD_KG = FWD_KJ / 4;  // threads along rows and keys
+constexpr int FWD_EC_MAX = 128;       // most embedding columns staged at once
+constexpr int FWD_DC = 4 * FWD_KG;    // columns of D an aggregate chunk: 4 a thread
+constexpr int FWD_WS = FWD_KJ + 16;   // stride of the weights: a warp's two rows 16 banks apart
+
+static_assert(FWD_RI == FWD_KJ, "the row tiles are the key tiles");
+
+struct TiledFwdLayout {
+  int EC;    // embedding columns a chunk, a multiple of 4: E up to FWD_EC_MAX, else E split evenly
+  int NE;    // chunks of E
+  int ECP;   // stride of p and q: an odd number of 16-byte units
+  int ND;    // chunks of D, FWD_DC columns each
+  __host__ __device__ TiledFwdLayout(int E, int D) {
+    const int n = (E + FWD_EC_MAX - 1) / FWD_EC_MAX;
+    EC = up4((E + n - 1) / n);
+    NE = (E + EC - 1) / EC;
+    ECP = stride4(EC);
+    ND = (D + FWD_DC - 1) / FWD_DC;
+  }
+  // p [RI][ECP], q [KJ][ECP], a [ECP], v [KJ][DC], the weights [RI][WS]
+  __host__ __device__ size_t floats() const {
+    return (size_t)(FWD_RI + FWD_KJ + 1) * ECP + (size_t)FWD_KJ * FWD_DC +
+           (size_t)FWD_RI * FWD_WS;
+  }
+};
+
+struct TiledFwdArgs {
+  const float* bias;        // (N, N) or null
+  const long long* seed;    // one value, or null without dropout
+  int B, N, E, D;
+  float alpha;
+  uint32_t thresh;
+  float scale;
+};
+
+// The max and the sum over the 16 lanes of a half warp (a row's threads).
+__device__ __forceinline__ float half_warp_max(float x) {
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
-template <typename T, bool RES, bool DROP>
-__global__ void __launch_bounds__(THREADS)
-gatv2_fwd_kernel(const T* __restrict__ p, const T* __restrict__ q,
-                 const T* __restrict__ a, const float* __restrict__ bias,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 int N, int E, int D, int row_tiles, float alpha, Residuals res) {
-  extern __shared__ float smem[];
-  float* p_s = smem;                        // [BI][EC]
-  float* qT_s = p_s + BI * EC;              // [EC][QT_STRIDE]
-  float* a_s = qT_s + EC * QT_STRIDE;       // [EC]
-  float* w_s = a_s + EC;                    // [BI][BJ] softmax numerators
-  float* m_s = w_s + BI * BJ;               // [BI] running max
-  float* l_s = m_s + BI;                    // [BI] running sum
-  float* c_s = l_s + BI;                    // [BI] rescale of this key tile
-  float* v_s = c_s + BI;                    // [BJ][D]
-  float* acc_s = v_s + BJ * D;              // [BI][D]
-
-  const int b = blockIdx.x / row_tiles;
-  const int i0 = (blockIdx.x % row_tiles) * BI;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const size_t pq_base = (size_t)b * N * E;
-  const size_t v_base = (size_t)b * N * D;
+// A block per (slice, batch element, row tile). Partials: acc (S, B, N, D),
+// m and l (S, B, N), float32.
+template <bool DROP>
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+gatv2_fwd_tiled_kernel(const float* __restrict__ p, const float* __restrict__ q,
+                       const float* __restrict__ a, const float* __restrict__ v, TiledFwdArgs g,
+                       float* __restrict__ acc_part, float* __restrict__ m_part,
+                       float* __restrict__ l_part, int slices) {
+  extern __shared__ __align__(16) float smem[];
+  const TiledFwdLayout L(g.E, g.D);
+  float* p_s = smem;                        // [RI][ECP], the block's rows, a chunk of E
+  float* q_s = p_s + FWD_RI * L.ECP;        // [KJ][ECP], the key tile, the same chunk
+  float* a_s = q_s + FWD_KJ * L.ECP;        // [ECP]
+  float* v_s = a_s + L.ECP;                 // [KJ][DC], the key tile, a chunk of D
+  float* w_s = v_s + FWD_KJ * FWD_DC;       // [RI][WS], the tile's aggregate weights
+  const int N = g.N, E = g.E, D = g.D;
+  const int tiles = (N + FWD_RI - 1) / FWD_RI;
+  const int rt = blockIdx.x % tiles, sb = blockIdx.x / tiles;
+  const int b = sb % g.B, sl = sb / g.B;
+  const int i0 = rt * FWD_RI;
+  const int t_begin = slice_begin(sl, tiles, slices), t_end = slice_begin(sl + 1, tiles, slices);
+  const int ti = threadIdx.x / FWD_KG, tj = threadIdx.x % FWD_KG;
+  const float* pb = p + (size_t)b * N * E;
+  const float* qb = q + (size_t)b * N * E;
+  const float* vb = v + (size_t)b * N * D;
+  const size_t row0 = (size_t)(sl * g.B + b) * N;   // row 0 of this slice and batch element
+  const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q) && aligned16(a);
+  const bool vec_d = D % 4 == 0 && aligned16(v);
   uint32_t seed = 0;
-  if constexpr (DROP) seed = (uint32_t)(unsigned long long)(*res.seed);
+  if constexpr (DROP) seed = (uint32_t)(unsigned long long)(*g.seed);
+  const int dw0 = min(FWD_DC, D);
 
-  for (int x = tid; x < BI * D; x += THREADS) acc_s[x] = 0.f;
-  if (tid < BI) {
-    m_s[tid] = NEG_BIG;
-    l_s[tid] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < N; j0 += BJ) {
-    // s[r] = sum_e a_e * leakyrelu(p_(row r), e + q_(j0 + lane), e)
-    float s[ROWS];
+  float m[4], l[4], acc[16];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
-    for (int e0 = 0; e0 < E; e0 += EC) {
-      __syncthreads();  // earlier readers of the staging buffers are done
-      for (int x = tid; x < BI * EC; x += THREADS) {
-        const int i = i0 + x / EC, e = e0 + x % EC;
-        p_s[x] = (i < N && e < E) ? to_f(p[pq_base + (size_t)i * E + e]) : 0.f;
+  for (int r = 0; r < 4; ++r) m[r] = NEG_BIG, l[r] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int j0 = t * FWD_KJ;
+    // 1. the score, chunk by chunk of E; the first chunk of v lands meanwhile
+    float s[16];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) s[x] = 0.f;
+    for (int c = 0; c < L.NE; ++c) {
+      const int e0 = c * L.EC, ew = min(L.EC, E - e0), groups = (ew + 3) / 4;
+      if (c > 0) __syncthreads();  // the last chunk's readers are done
+      if (L.NE > 1 || t == t_begin) {
+        copy_tile_async(p_s, L.ECP, groups, pb + e0, E, i0, FWD_RI, N, ew, vec_e, FWD_THREADS);
+        copy_tile_async(a_s, L.ECP, groups, a + e0, E, 0, 1, 1, ew, vec_e, FWD_THREADS);
       }
-      for (int x = tid; x < BJ * EC; x += THREADS) {
-        const int jr = x / EC, c = x % EC;
-        const int j = j0 + jr, e = e0 + c;
-        qT_s[c * QT_STRIDE + jr] =
-            (j < N && e < E) ? to_f(q[pq_base + (size_t)j * E + e]) : 0.f;
+      copy_tile_async(q_s, L.ECP, groups, qb + e0, E, j0, FWD_KJ, N, ew, vec_e, FWD_THREADS);
+      cp_async_commit();
+      if (c == 0) {
+        copy_tile_async(v_s, FWD_DC, (dw0 + 3) / 4, vb, D, j0, FWD_KJ, N, dw0, vec_d,
+                        FWD_THREADS);
+        cp_async_commit();
+        cp_async_wait_one();  // the chunk of E has arrived; v may still be on its way
+      } else {
+        cp_async_wait_all();
       }
-      if (tid < EC) a_s[tid] = (e0 + tid < E) ? to_f(a[e0 + tid]) : 0.f;
       __syncthreads();
-      const int ec = min(EC, E - e0);
-      for (int c = 0; c < ec; ++c) {
-        const float qv = qT_s[c * QT_STRIDE + lane];
-        const float av = a_s[c];
+      score_tile<FWD_RG, FWD_KG>(p_s, L.ECP, q_s, L.ECP, a_s, groups, ti, tj, g.alpha, s);
+    }
+
+    // 2. the online softmax of the tile, in registers; the aggregate's weights
+    // (dropout applied, not normalised) to shared memory
+    float corr[4];
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          float z = p_s[(warp + r * WARPS) * EC + c] + qv;
-          z = z >= 0.f ? z : alpha * z;
-          s[r] = fmaf(av, z, s[r]);
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + ti + FWD_RG * r;
+      float mx = NEG_BIG;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = j0 + tj + FWD_KG * c;
+        float sv = s[4 * r + c];
+        if (j >= N)
+          sv = NEG_BIG;
+        else if (g.bias != nullptr && i < N)
+          sv += __ldg(g.bias + (size_t)i * N + j);
+        s[4 * r + c] = sv;
+        mx = fmaxf(mx, sv);
+      }
+      const float m_new = fmaxf(m[r], half_warp_max(mx));
+      corr[r] = expf(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = j0 + tj + FWD_KG * c;
+        const float ex = expf(s[4 * r + c] - m_new);
+        sum += ex;
+        float agg = ex;
+        if constexpr (DROP) {
+          agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < g.thresh
+                    ? ex * g.scale : 0.f;
+        }
+        w_s[(ti + FWD_RG * r) * FWD_WS + tj + FWD_KG * c] = agg;
+      }
+      l[r] = l[r] * corr[r] + half_warp_sum(sum);
+      m[r] = m_new;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the weights and the first chunk of v are complete
+
+    // 3. acc = acc * corr + w . v, chunk by chunk of D
+    const int kn4 = up4(min(FWD_KJ, N - j0));
+    for (int dc = 0; dc < L.ND; ++dc) {
+      const int d0 = dc * FWD_DC, dw = min(FWD_DC, D - d0);
+      if (dc > 0) {
+        __syncthreads();  // the last chunk's readers are done
+        copy_tile_async(v_s, FWD_DC, (dw + 3) / 4, vb + d0, D, j0, FWD_KJ, N, dw, vec_d,
+                        FWD_THREADS);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      if (4 * tj >= dw) continue;
+      float* part = acc_part + (row0 + i0) * D + d0 + 4 * tj;  // + row * D + k
+      if (L.ND > 1) {  // this chunk's running aggregate lives in the partial
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int rl = ti + FWD_RG * r;
+            acc[4 * r + k] = t > t_begin && i0 + rl < N && 4 * tj + k < dw
+                                 ? part[(size_t)rl * D + k] : 0.f;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[4 * r + k] *= corr[r];
+      for (int j = 0; j < kn4; j += 4) {
+        float4 wr[4], vc[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          wr[x] = load4(w_s + (ti + FWD_RG * x) * FWD_WS + j);
+          vc[x] = load4(v_s + (j + x) * FWD_DC + 4 * tj);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float vk[4] = {vc[c].x, vc[c].y, vc[c].z, vc[c].w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float w = c == 0 ? wr[r].x : c == 1 ? wr[r].y : c == 2 ? wr[r].z : wr[r].w;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[4 * r + k] = fmaf(w, vk[k], acc[4 * r + k]);
+          }
         }
       }
-    }
-
-    // online softmax: each warp owns rows warp, warp + WARPS, ...
-    const int j = j0 + lane;
+      if (L.ND > 1 || t == t_end - 1) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int rl = warp + r * WARPS;
-      const int i = i0 + rl;
-      float sv = s[r];
-      if (j >= N) {
-        sv = NEG_BIG;
-      } else if (bias != nullptr && i < N) {
-        sv += bias[(size_t)i * N + j];
-      }
-      const float m_prev = m_s[rl];
-      const float l_prev = l_s[rl];
-      const float m_new = fmaxf(m_prev, warp_max(sv));
-      const float ex = expf(sv - m_new);
-      const float tile_sum = warp_sum(ex);
-      const float corr = expf(m_prev - m_new);
-      float ex_agg = ex;
-      if constexpr (DROP) {
-        ex_agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < res.thresh
-                     ? ex * res.scale : 0.f;
-      }
-      w_s[rl * BJ + lane] = ex_agg;
-      if (lane == 0) {
-        m_s[rl] = m_new;
-        l_s[rl] = l_prev * corr + tile_sum;
-        c_s[rl] = corr;
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int rl = ti + FWD_RG * r;
+            if (i0 + rl < N && 4 * tj + k < dw) part[(size_t)rl * D + k] = acc[4 * r + k];
+          }
       }
     }
-
-    for (int x = tid; x < BJ * D; x += THREADS) {
-      const int jj = j0 + x / D;
-      v_s[x] = jj < N ? to_f(v[v_base + (size_t)jj * D + x % D]) : 0.f;
-    }
-    __syncthreads();
-
-    // acc = acc * corr + w . v over this key tile
-    for (int x = tid; x < BI * D; x += THREADS) {
-      const int rl = x / D, d = x % D;
-      const float* w = w_s + rl * BJ;
-      float acc = acc_s[x] * c_s[rl];
-#pragma unroll 8
-      for (int jr = 0; jr < BJ; ++jr) acc = fmaf(w[jr], v_s[jr * D + d], acc);
-      acc_s[x] = acc;
+    if (t + 1 < t_end) __syncthreads();  // the readers of w and v are done before the next copies
+  }
+  if (tj == 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + ti + FWD_RG * r;
+      if (i < N) m_part[row0 + i] = m[r], l_part[row0 + i] = l[r];
     }
   }
-  __syncthreads();
+}
 
-  for (int x = tid; x < BI * D; x += THREADS) {
-    const int rl = x / D;
-    const int i = i0 + rl;
-    if (i < N) {
-      const float u = acc_s[x] / l_s[rl];
-      out[v_base + (size_t)i * D + x % D] = from_f<T>(1.f / (1.f + expf(-u)));
-      if constexpr (RES) res.u[v_base + (size_t)i * D + x % D] = u;
+// out (and with RES u, m, l) of every row from the S slices' partials, the
+// slices in order: m = max_s m_s, l = sum_s l_s e^(m_s - m), u = sum_s acc_s
+// e^(m_s - m) / l. With one slice u = acc / l exactly.
+template <typename T, bool RES>
+__global__ void gatv2_fwd_merge_kernel(const float* __restrict__ acc_part,
+                                       const float* __restrict__ m_part,
+                                       const float* __restrict__ l_part, T* __restrict__ out,
+                                       Residuals res, long long rows, int D, int S) {
+  const long long n = rows * D;
+  for (long long x = blockIdx.x * (long long)blockDim.x + threadIdx.x; x < n;
+       x += (long long)gridDim.x * blockDim.x) {
+    const long long r = x / D;
+    float m = NEG_BIG;
+    for (int s = 0; s < S; ++s) m = fmaxf(m, m_part[s * rows + r]);
+    float l = 0.f, acc = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float c = expf(m_part[s * rows + r] - m);
+      l = fmaf(l_part[s * rows + r], c, l);
+      acc = fmaf(acc_part[s * n + x], c, acc);
+    }
+    const float u = acc / l;
+    out[x] = from_f<T>(1.f / (1.f + expf(-u)));
+    if constexpr (RES) {
+      res.u[x] = u;
+      if (x % D == 0) res.m[r] = m, res.l[r] = l;
     }
   }
-  if constexpr (RES) {
-    if (tid < BI && i0 + tid < N) {
-      res.m[(size_t)b * N + i0 + tid] = m_s[tid];
-      res.l[(size_t)b * N + i0 + tid] = l_s[tid];
-    }
+}
+
+template <bool DROP>
+int tiled_launch(const float* p, const float* q, const float* a, const float* v,
+                 const TiledFwdArgs& g, float* acc_part, float* m_part, float* l_part,
+                 int slices, void* stream, int* occupancy) {
+  auto kernel = gatv2_fwd_tiled_kernel<DROP>;
+  const size_t bytes = TiledFwdLayout(g.E, g.D).floats() * sizeof(float);
+  if (bytes > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
   }
+  if (occupancy != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, FWD_THREADS,
+                                                              bytes);
+  const long long blocks = (long long)slices * g.B * ((g.N + FWD_RI - 1) / FWD_RI);
+  if (slices < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, FWD_THREADS, bytes, (cudaStream_t)stream>>>(
+      p, q, a, v, g, acc_part, m_part, l_part, slices);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int merge(const void* acc_part, const void* m_part, const void* l_part, void* out, void* u,
+          void* m, void* l, int B, int N, int D, int S, void* stream) {
+  const long long rows = (long long)B * N, n = rows * D;
+  const long long blocks = (n + 255) / 256;
+  const unsigned grid = (unsigned)(blocks < 65536 ? blocks : 65536);
+  const Residuals res{(float*)u, (float*)m, (float*)l, nullptr, 0u, 1.f};
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  if (u != nullptr)
+    gatv2_fwd_merge_kernel<T, true><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)acc_part, (const float*)m_part, (const float*)l_part, (T*)out, res, rows,
+        D, S);
+  else
+    gatv2_fwd_merge_kernel<T, false><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)acc_part, (const float*)m_part, (const float*)l_part, (T*)out, res, rows,
+        D, S);
+  return (int)cudaGetLastError();
 }
 
 // ---- the whole-graph forward: one block per (batch element, row block) ----
@@ -419,27 +599,14 @@ int launch_graph(const void* p, const void* q, const void* a, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// row_blocks >= 1: the whole-graph kernel, the graph's rows over that many
-// blocks; 0: the tiled kernel.
+// The whole-graph kernel, the graph's rows over row_blocks >= 1 blocks.
 template <typename T, bool RES, bool DROP>
 int launch(const void* p, const void* q, const void* a, const void* bias,
            const void* v, void* out, int B, int N, int E, int D, int row_blocks, float alpha,
            Residuals res, void* stream) {
-  if (row_blocks > 0)
-    return launch_graph<T, RES, DROP>(p, q, a, bias, v, out, B, N, E, D, row_blocks, alpha,
-                                      res, stream);
-  const size_t bytes = smem_floats(D) * sizeof(float);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gatv2_fwd_kernel<T, RES, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int row_tiles = (N + BI - 1) / BI;
-  gatv2_fwd_kernel<T, RES, DROP><<<B * row_tiles, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const T*)p, (const T*)q, (const T*)a, (const float*)bias, (const T*)v,
-      (T*)out, N, E, D, row_tiles, alpha, res);
-  return (int)cudaGetLastError();
+  if (row_blocks < 1) return (int)cudaErrorInvalidValue;
+  return launch_graph<T, RES, DROP>(p, q, a, bias, v, out, B, N, E, D, row_blocks, alpha, res,
+                                    stream);
 }
 
 template <typename T>
@@ -459,9 +626,6 @@ int launch_res(const void* p, const void* q, const void* a, const void* bias,
 
 extern "C" {
 
-// Bytes of shared memory one block of the tiled kernel needs at value width D.
-long gatv2_fwd_smem_bytes(int D) { return (long)(smem_floats(D) * sizeof(float)); }
-
 // Bytes of shared memory one block of the whole-graph kernel needs, and the
 // embedding splits of its score pass.
 long gatv2_fwd_graph_smem_bytes(int N, int E, int D, int row_blocks) {
@@ -469,7 +633,8 @@ long gatv2_fwd_graph_smem_bytes(int N, int E, int D, int row_blocks) {
 }
 int gatv2_fwd_graph_split() { return G_SPLIT; }
 
-// K1: the forward alone (scoring). row_blocks as launch() takes it.
+// K1: the forward alone (scoring), the whole-graph kernel on row_blocks >= 1
+// blocks a graph.
 int gatv2_fwd_f32(const void* p, const void* q, const void* a, const void* bias,
                   const void* v, void* out, int B, int N, int E, int D, int row_blocks,
                   float alpha, void* stream) {
@@ -484,7 +649,8 @@ int gatv2_fwd_bf16(const void* p, const void* q, const void* a, const void* bias
                                              alpha, Residuals{}, stream);
 }
 
-// K1-res: the forward with residuals; dropout when seed is not null.
+// K1-res: the whole-graph forward with residuals; dropout when seed is not
+// null.
 int gatv2_fwd_res_f32(const void* p, const void* q, const void* a, const void* bias,
                       const void* v, void* out, void* u, void* m, void* l,
                       const void* seed, int B, int N, int E, int D, int row_blocks,
@@ -499,6 +665,57 @@ int gatv2_fwd_res_bf16(const void* p, const void* q, const void* a, const void* 
                        float alpha, unsigned int thresh, float scale, void* stream) {
   return launch_res<__nv_bfloat16>(p, q, a, bias, v, out, u, m, l, seed, B, N, E, D,
                                    row_blocks, alpha, thresh, scale, stream);
+}
+
+// The tiled forward's layout at widths E and D, for the planner's check
+// (kernels/gat._tiled_fwd_plan): out = rows, keys, threads, embedding chunk,
+// D chunk, shared-memory bytes of a block.
+void gatv2_fwd_tiled_layout(int E, int D, long* out) {
+  const TiledFwdLayout L(E, D);
+  out[0] = FWD_RI, out[1] = FWD_KJ, out[2] = FWD_THREADS, out[3] = L.EC, out[4] = FWD_DC;
+  out[5] = (long)(L.floats() * sizeof(float));
+}
+
+// Blocks of the tiled forward (with dropout or not) one multiprocessor holds
+// at once at widths E, D (CUDA's occupancy calculator); negative on an error.
+int gatv2_fwd_tiled_occupancy(int E, int D, int drop) {
+  long long one = 0;
+  const TiledFwdArgs g{nullptr, drop ? &one : nullptr, 1, 1, E, D, 0.f, 0u, 1.f};
+  int blocks = 0;
+  const int err = drop ? tiled_launch<true>(nullptr, nullptr, nullptr, nullptr, g, nullptr,
+                                            nullptr, nullptr, 1, nullptr, &blocks)
+                       : tiled_launch<false>(nullptr, nullptr, nullptr, nullptr, g, nullptr,
+                                             nullptr, nullptr, 1, nullptr, &blocks);
+  return err ? -err : blocks;
+}
+
+// The tiled K1 and K1-res before their merge: p, q, a, v float32 (the caller
+// widens bfloat16), dropout when seed is not null; writes the slices'
+// partials acc_part (slices, B, N, D), m_part and l_part (slices, B, N).
+int gatv2_fwd_tiled(const void* p, const void* q, const void* a, const void* bias,
+                    const void* v, const void* seed, void* acc_part, void* m_part,
+                    void* l_part, int B, int N, int E, int D, int slices, float alpha,
+                    unsigned int thresh, float scale, void* stream) {
+  const TiledFwdArgs g{(const float*)bias, (const long long*)seed, B, N, E, D, alpha, thresh,
+                       scale};
+  const float *pf = (const float*)p, *qf = (const float*)q, *af = (const float*)a,
+              *vf = (const float*)v;
+  float *acc = (float*)acc_part, *mp = (float*)m_part, *lp = (float*)l_part;
+  return seed ? tiled_launch<true>(pf, qf, af, vf, g, acc, mp, lp, slices, stream, nullptr)
+              : tiled_launch<false>(pf, qf, af, vf, g, acc, mp, lp, slices, stream, nullptr);
+}
+
+// The merge of the tiled forward's partials: out (B, N, D) in T, and where u
+// is not null u (B, N, D), m and l (B, N) float32.
+int gatv2_fwd_merge_f32(const void* acc_part, const void* m_part, const void* l_part,
+                        void* out, void* u, void* m, void* l, int B, int N, int D, int slices,
+                        void* stream) {
+  return merge<float>(acc_part, m_part, l_part, out, u, m, l, B, N, D, slices, stream);
+}
+int gatv2_fwd_merge_bf16(const void* acc_part, const void* m_part, const void* l_part,
+                         void* out, void* u, void* m, void* l, int B, int N, int D, int slices,
+                         void* stream) {
+  return merge<__nv_bfloat16>(acc_part, m_part, l_part, out, u, m, l, B, N, D, slices, stream);
 }
 
 }  // extern "C"

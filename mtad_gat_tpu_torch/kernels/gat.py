@@ -15,8 +15,11 @@ those of ``mtad_gat_tpu/kernels/gat_pallas.py``:
   writes the backward's residuals u (pre-sigmoid aggregate), m and l (row
   max and row sum), with in-kernel hash dropout. Both run the whole-graph
   kernel (a batch element's graph, or half its rows, in one block, an exact
-  softmax) or the tiled one (16-row tiles, online softmax), as
-  ``gat_fwd_plan`` decides;
+  softmax) or the tiled one, as ``gat_fwd_plan`` decides. The tiled one
+  launches as ``gat_tiled_fwd_plan`` says: 64 x 64 score tiles of 4 x 4
+  register micro-tiles, an online softmax, E and D in chunks (any width),
+  the key loop cut into slices whose float32 partials (m, l, aggregate)
+  ``gatv2_fwd_merge`` combines in slice order;
 - K2a ``gatv2_bwd_dp_da``, K2b ``gatv2_bwd_dq_dv``, K2c ``gatv2_bwd_dbias``:
   ``_bwd_dp_da_kernel``, ``_bwd_dq_dv_kernel``, ``_bwd_dbias_kernel``;
 - K2ab ``gatv2_bwd_graph``: K2a and K2b in one launch for a graph that fits
@@ -25,9 +28,11 @@ those of ``mtad_gat_tpu/kernels/gat_pallas.py``:
   batch elements, ``dbias_groups``).
   ``gatv2_bwd`` runs K2ab, or K2a then K2b (and K2c), as ``gat_bwd_plan``
   decides. The tiled K2a and K2b launch as ``gat_tiled_bwd_plan`` says:
-  score tiles of 4 x 4 register micro-tiles, the streamed loop cut into
-  slices of their own blocks, each slice's float32 partial summed in slice
-  order by a reduce kernel.
+  score tiles of 4 x 4 register micro-tiles (E and D streamed in chunks
+  beyond the widths whole rows fit), the streamed loop cut into slices of
+  their own blocks, each slice's float32 partial summed in slice order by a
+  reduce kernel. No tiled kernel refuses a width: the tiled forward, K2a,
+  K2b and K2c stage E and D by chunks where whole rows do not fit a block.
 
 What bounds them on the card: the score is float32 work on the CUDA cores
 (4 operations per (i, j, e), recomputed by each tiled backward kernel and
@@ -67,6 +72,7 @@ from mtad_gat_tpu_torch.kernels import _build
 _PLAIN_CHUNK_ELEMS = 1 << 26
 _SMEM_LIMIT = 227 * 1024
 _BI, _BJ = 16, 32                 # K2c's row and key tiles
+DBIAS_CHUNK = 64                  # K2c's staged widths where whole rows do not fit a block
 
 # ---------------------------------------------------------------------------
 # Plain versions (the CPU path, and the card-side oracle of chip_smoke.py)
@@ -178,8 +184,15 @@ def _fwd_lib() -> ctypes.CDLL:
         for fn in (lib.gatv2_fwd_res_f32, lib.gatv2_fwd_res_bf16):
             fn.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ctypes.c_uint32, f32, ptr]
             fn.restype = i32
-        lib.gatv2_fwd_smem_bytes.argtypes = [i32]
-        lib.gatv2_fwd_smem_bytes.restype = ctypes.c_long
+        lib.gatv2_fwd_tiled.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ctypes.c_uint32, f32, ptr]
+        lib.gatv2_fwd_tiled.restype = i32
+        for fn in (lib.gatv2_fwd_merge_f32, lib.gatv2_fwd_merge_bf16):
+            fn.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+            fn.restype = i32
+        lib.gatv2_fwd_tiled_layout.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_long)]
+        lib.gatv2_fwd_tiled_layout.restype = None
+        lib.gatv2_fwd_tiled_occupancy.argtypes = [i32] * 3
+        lib.gatv2_fwd_tiled_occupancy.restype = i32
         lib.gatv2_fwd_graph_smem_bytes.argtypes = [i32] * 4
         lib.gatv2_fwd_graph_smem_bytes.restype = ctypes.c_long
         lib.gatv2_fwd_graph_split.argtypes = []
@@ -208,13 +221,15 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.gatv2_bwd_tiled_occupancy.restype = i32
         for dt in ("f32", "bf16"):
             fn = getattr(lib, f"gatv2_bwd_dbias_{dt}")
-            fn.argtypes = [ptr] * 11 + [i32] * 5 + tail
+            fn.argtypes = [ptr] * 11 + [i32] * 6 + tail
             fn.restype = i32
             fn = getattr(lib, f"gatv2_bwd_graph_{dt}")
             fn.argtypes = [ptr] * 15 + [i32] * 5 + tail
             fn.restype = i32
         lib.gatv2_bwd_smem_bytes.argtypes = [i32] * 4
         lib.gatv2_bwd_smem_bytes.restype = ctypes.c_long
+        lib.gatv2_bwd_dbias_smem_bytes.argtypes = [i32] * 3
+        lib.gatv2_bwd_dbias_smem_bytes.restype = ctypes.c_long
         lib.gatv2_bwd_graph_split.argtypes = []
         lib.gatv2_bwd_graph_split.restype = i32
         lib.gatv2_bwd_graph_row_groups.argtypes = [i32]
@@ -291,13 +306,17 @@ def dbias_groups(B: int, sms: int) -> int:
 
 # ---------------------------------------------------------------------------
 # The tiled K2a and K2b: what the plan needs of csrc/gat_bwd.cu's layout
-# (their two tile shapes, TiledLayout's bytes, K2a's key splits), and the
+# (their three tile shapes, TiledLayout's bytes, K2a's key splits), and the
 # plan of a launch: tile, where the running sums live, slices of the
 # streamed loop. The constants are read off bench_gat_bwd_torch.py --tiled
 # (PERF.md, PR 10).
 # ---------------------------------------------------------------------------
 
-TILED_TILES = ((64, 64), (16, 32))  # (rows, keys) of the FAST and WIDE tiles (TILE_*_RI, _KJ)
+# (rows, keys) of the FAST, WIDE and CHUNKED tiles (TILE_*_RI, _KJ; CHUNK_*)
+TILED_TILES = ((64, 64), (16, 32), (16, 32))
+TILED_TILE_NAMES = ("fast", "wide", "chunked")
+CHUNKED = 2                       # the tile that streams E and D in chunks
+TILED_CHUNK = 64                  # floats of E or D a CHUNKED block stages at once (TILE_CHUNK)
 # running sums in shared memory or not, each kernel's preference first: K2a
 # is faster with them there, K2b without (its block then fits twice on a
 # multiprocessor); the first that fits a block is taken, FAST tile first
@@ -311,7 +330,7 @@ class TiledKernelPlan(NamedTuple):
     """One launch of the tiled K2a ("k2a") or K2b ("k2b")."""
 
     kernel: str
-    tile: int                     # index into TILED_TILES
+    tile: int                     # index into TILED_TILES (TILED_TILE_NAMES)
     rows: int                     # score tile: rows x keys, one 4 x 4 micro-tile a thread
     keys: int
     threads: int
@@ -323,12 +342,14 @@ class TiledKernelPlan(NamedTuple):
     smem_bytes: int
     partial_bytes: int            # float32 partials, (slices, B, N, E) or (slices, B, N, E + D)
     key_splits: int               # lanes sharing one item of K2a's contraction (K2b: 1)
+    da_rows: int                  # K2a's float32 rows of E of da partial sums (K2b: 0)
 
 
 def first_design_smem_bytes(E: int, D: int) -> int:
     """Shared memory of the larger block of the first tiled K2a and K2b (16
     x 32 tiles, full widths in shared memory at odd strides, PRs 1-2): the
-    widths it accepted are the widths the tiled backward accepts."""
+    FAST and WIDE tiles run within the widths it accepted, the CHUNKED tile
+    beyond them."""
     odd = lambda x: x | 1  # noqa: E731
     tile = 48 * odd(E) + E + 48 * odd(D) + 48
     return 4 * max(tile + 512 + 20 * E, tile + 1024 + 32 * E + 32 * D)
@@ -336,7 +357,8 @@ def first_design_smem_bytes(E: int, D: int) -> int:
 
 def tiled_smem_bytes(kernel: str, rows: int, keys: int, E: int, D: int,
                      acc_smem: bool) -> int:
-    """Shared memory of one block (``dp_da_floats`` / ``dq_dv_floats``)."""
+    """Shared memory of one FAST or WIDE block (``dp_da_floats`` /
+    ``dq_dv_floats``)."""
     ep, dp, ea, da = _stride4(E), _stride4(D), _up4(E), _up4(D)
     if kernel == "k2b":
         f = (ep + keys * (ep + dp) + rows * (ep + dp + 3) + 2 * rows * keys
@@ -347,6 +369,17 @@ def tiled_smem_bytes(kernel: str, rows: int, keys: int, E: int, D: int,
     else:
         raise ValueError(f"tiled_smem_bytes: kernel {kernel!r} is neither 'k2a' nor 'k2b'")
     return 4 * f
+
+
+def chunked_smem_bytes(kernel: str) -> int:
+    """Shared memory of one CHUNKED block (``chunked_floats``), the same at
+    every width: a chunk of the row tile's p or du, of the key tile's q or v
+    and of a, the row tile's m, l and dvec, then K2b's ds and wa or K2a's ds
+    by key."""
+    rows, keys = TILED_TILES[CHUNKED]
+    cp = _stride4(TILED_CHUNK)
+    tail = 2 * rows * keys if kernel == "k2b" else keys * _stride4(rows)
+    return 4 * ((rows + keys + 1) * cp + 3 * rows + tail)
 
 
 def key_splits(items: int, threads: int) -> int:
@@ -381,44 +414,56 @@ def tiled_slices(own_blocks: int, stream_tiles: int, sms: int) -> int:
     return max(1, min(most, -(-TILED_FILL * sms // own_blocks)))
 
 
+def _tiled_tile(kernel: str, E: int, D: int, smem_limit: int) -> Tuple[int, bool, int]:
+    """(tile, running sums in shared memory, bytes) of K2a or K2b at widths
+    E, D: the first FAST or WIDE choice that fits within the widths the
+    first design accepted, else CHUNKED."""
+    if first_design_smem_bytes(E, D) <= smem_limit:
+        for tile, (rows, keys) in enumerate(TILED_TILES[:CHUNKED]):
+            for acc in TILED_CHOICES[kernel]:
+                nbytes = tiled_smem_bytes(kernel, rows, keys, E, D, acc)
+                if nbytes <= smem_limit:
+                    return tile, acc, nbytes
+    nbytes = chunked_smem_bytes(kernel)
+    if nbytes > smem_limit:
+        raise ValueError(f"gatv2 tiled backward: a CHUNKED block of {kernel} needs {nbytes} "
+                         f"bytes of shared memory, the card {smem_limit}")
+    return CHUNKED, False, nbytes
+
+
 @functools.lru_cache(maxsize=None)
 def gat_tiled_bwd_plan(B: int, N: int, E: int, D: int, sms: int,
                        smem_limit: int = _SMEM_LIMIT) -> Mapping[str, TiledKernelPlan]:
     """The launches of the tiled K2a and K2b ({"k2a": ..., "k2b": ...}) at
     batch B, N nodes, widths E and D on a card of ``sms`` multiprocessors
-    whose blocks may use ``smem_limit`` bytes of shared memory. Each takes
-    the first tile shape and place of its running sums (``TILED_CHOICES``)
-    that fits; its streamed loop is cut into ``tiled_slices`` blocks. Raises where
-    the first design refused the widths (``first_design_smem_bytes``: the
+    whose blocks may use ``smem_limit`` bytes of shared memory. Within the
+    widths the first design accepted (``first_design_smem_bytes``: the
     feature layer up to window 235, the temporal layer at D 38 up to E 665)
-    and on empty or bad input."""
+    each takes the first FAST or WIDE tile and place of its running sums
+    (``TILED_CHOICES``) that fits, as before; beyond them, or where none
+    fits, the CHUNKED tile, which takes every width. Its streamed loop is
+    cut into ``tiled_slices`` blocks. Raises on empty or bad input."""
     if min(B, N, E, D, sms) < 1:
         raise ValueError(f"gat_tiled_bwd_plan: empty or bad input (B {B}, N {N}, E {E}, "
                          f"D {D}, multiprocessors {sms})")
-    if first_design_smem_bytes(E, D) > smem_limit:
-        raise ValueError(f"gatv2 tiled backward: widths E {E}, D {D} need more shared memory "
-                         "than a block has")
     plans = {}
     for kernel in ("k2a", "k2b"):
-        fits = [(tile, rows, keys, acc)
-                for tile, (rows, keys) in enumerate(TILED_TILES)
-                for acc in TILED_CHOICES[kernel]
-                if tiled_smem_bytes(kernel, rows, keys, E, D, acc) <= smem_limit]
-        if not fits:
-            raise ValueError(f"gatv2 tiled backward: no tile of {kernel} fits widths E {E}, "
-                             f"D {D}")
-        tile, rows, keys, acc = fits[0]
+        tile, acc, nbytes = _tiled_tile(kernel, E, D, smem_limit)
+        rows, keys = TILED_TILES[tile]
         row_tiles, key_tiles = -(-N // rows), -(-N // keys)
         own, stream = (row_tiles, key_tiles) if kernel == "k2a" else (key_tiles, row_tiles)
         slices = tiled_slices(B * own, stream, sms)
         threads = rows * keys // 16
         width = E if kernel == "k2a" else E + D
+        splits = 1
+        if kernel == "k2a" and tile != CHUNKED:
+            splits = key_splits(rows // 4 * -(-E // 4), threads)
+        blocks = slices * B * own
         plans[kernel] = TiledKernelPlan(
-            kernel=kernel, tile=tile, rows=rows, keys=keys, threads=threads, acc_smem=acc, own_tiles=own, stream_tiles=stream, slices=slices,
-            blocks=slices * B * own,
-            smem_bytes=tiled_smem_bytes(kernel, rows, keys, E, D, acc),
-            partial_bytes=4 * slices * B * N * width,
-            key_splits=key_splits(rows // 4 * -(-E // 4), threads) if kernel == "k2a" else 1)
+            kernel=kernel, tile=tile, rows=rows, keys=keys, threads=threads, acc_smem=acc,
+            own_tiles=own, stream_tiles=stream, slices=slices, blocks=blocks,
+            smem_bytes=nbytes, partial_bytes=4 * slices * B * N * width, key_splits=splits,
+            da_rows=0 if kernel == "k2b" else blocks * (rows // 4 if tile == CHUNKED else 1))
     return types.MappingProxyType(plans)      # cached: read-only to every caller
 
 
@@ -457,7 +502,8 @@ def gat_fwd_plan(N: int, E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> str:
     (values) on a card whose blocks may use ``smem_limit`` bytes of shared
     memory: "graph" (K1 and K1-res's whole-graph kernel, a batch element's
     graph, or half its rows, on chip; ``fwd_row_blocks``) where that fits a
-    block, else "tiled" (16-row tiles streaming the keys)."""
+    block, else "tiled" (64 x 64 score tiles streaming the keys, any width;
+    ``gat_tiled_fwd_plan``)."""
     if min(N, E, D) < 1:
         raise ValueError(f"gat_fwd_plan: empty graph or width (N {N}, E {E}, D {D})")
     return "graph" if fwd_row_blocks(N, E, D, smem_limit) else "tiled"
@@ -480,23 +526,187 @@ def _check_fwd_layout(N: int, E: int, D: int) -> int:
     return row_blocks
 
 
-def _fwd_variant(name: str, N: int, E: int, D: int, variant: Optional[str]) -> Tuple[str, int]:
-    """(variant, row_blocks argument) of a forward launch: the planned
-    variant, or the one the caller forces; 0 row blocks is the tiled kernel."""
+# ---------------------------------------------------------------------------
+# The tiled forward: what the plan needs of csrc/gat_fwd.cu's TiledFwdLayout
+# (the tile, the chunks of E and D, a block's bytes) and the plan of a
+# launch: its slices of the key loop, the partials the merge combines.
+# ---------------------------------------------------------------------------
+
+TILED_FWD_TILE = (64, 64)         # rows, keys of a score tile (FWD_RI, FWD_KJ)
+TILED_FWD_EC_MAX = 128            # most embedding columns staged at once (FWD_EC_MAX)
+TILED_FWD_DC = 64                 # columns of D an aggregate chunk (FWD_DC)
+TILED_FWD_WS = 80                 # stride of a block's weights (FWD_WS)
+
+
+class TiledFwdPlan(NamedTuple):
+    """One launch of the tiled K1 or K1-res and its merge."""
+
+    rows: int                     # score tile: rows x keys, one 4 x 4 micro-tile a thread
+    keys: int
+    threads: int
+    e_chunk: int                  # embedding columns staged at once, a multiple of 4
+    e_chunks: int
+    d_chunks: int                 # 64-column chunks of D the aggregate walks
+    tiles: int                    # row tiles, and key tiles
+    slices: int                   # the key loop cut into this many blocks
+    blocks: int                   # slices x B x tiles
+    smem_bytes: int
+    partial_bytes: int            # float32 partials: aggregate (S, B, N, D), m and l (S, B, N)
+
+
+def tiled_fwd_chunk(E: int) -> int:
+    """Embedding columns a tiled forward block stages at once: E (up to a
+    multiple of 4) up to ``TILED_FWD_EC_MAX``, else E split into the fewest
+    even chunks of at most that, each a multiple of 4, so the chunk
+    boundaries fall on float4 groups."""
+    n = -(-E // TILED_FWD_EC_MAX)
+    return _up4(-(-E // n))
+
+
+def tiled_fwd_smem_bytes(E: int) -> int:
+    """Shared memory of one tiled forward block (``TiledFwdLayout``): p and
+    q [64][ECP], a [ECP], v [64][64], the weights [64][80], float32."""
+    rows, keys = TILED_FWD_TILE
+    ecp = _stride4(tiled_fwd_chunk(E))
+    return 4 * ((rows + keys + 1) * ecp + keys * TILED_FWD_DC + rows * TILED_FWD_WS)
+
+
+@functools.lru_cache(maxsize=None)
+def gat_tiled_fwd_plan(B: int, N: int, E: int, D: int, sms: int,
+                       smem_limit: int = _SMEM_LIMIT) -> TiledFwdPlan:
+    """The launch of the tiled K1 or K1-res at batch B, N nodes, widths E
+    and D on a card of ``sms`` multiprocessors whose blocks may use
+    ``smem_limit`` bytes of shared memory: 64 x 64 score tiles, E staged in
+    ``tiled_fwd_chunk`` columns and D aggregated by 64-column chunks (any
+    width: a block holds at most 105 KB), the key loop cut into
+    ``tiled_slices`` blocks of its own so that batch 1 fills the card. Each
+    slice writes float32 partials (aggregate, m, l) of its rows, linear in
+    N, that ``gatv2_fwd_merge`` combines. Raises on empty or bad input."""
+    if min(B, N, E, D, sms) < 1:
+        raise ValueError(f"gat_tiled_fwd_plan: empty or bad input (B {B}, N {N}, E {E}, "
+                         f"D {D}, multiprocessors {sms})")
+    nbytes = tiled_fwd_smem_bytes(E)
+    if nbytes > smem_limit:
+        raise ValueError(f"gat_tiled_fwd_plan: a block needs {nbytes} bytes of shared memory, "
+                         f"the card {smem_limit}")
+    rows, keys = TILED_FWD_TILE
+    tiles = -(-N // rows)
+    slices = tiled_slices(B * tiles, tiles, sms)
+    ec = tiled_fwd_chunk(E)
+    return TiledFwdPlan(rows=rows, keys=keys, threads=rows * keys // 16, e_chunk=ec,
+                        e_chunks=-(-E // ec), d_chunks=-(-D // TILED_FWD_DC), tiles=tiles,
+                        slices=slices, blocks=slices * B * tiles, smem_bytes=nbytes,
+                        partial_bytes=4 * slices * B * N * (D + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_fwd_plan(B: int, N: int, E: int, D: int, sms: int) -> TiledFwdPlan:
+    """``gat_tiled_fwd_plan`` for a launch, refused where the built
+    library's tile, chunks or shared memory differ from the plan's (once per
+    shape and card)."""
+    plan = gat_tiled_fwd_plan(B, N, E, D, sms)
+    out = (ctypes.c_long * 6)()
+    _fwd_lib().gatv2_fwd_tiled_layout(E, D, out)
+    want = (plan.rows, plan.keys, plan.threads, plan.e_chunk, TILED_FWD_DC, plan.smem_bytes)
+    if tuple(out) != want:
+        raise RuntimeError(f"gatv2 tiled forward: the built kernel's (rows, keys, threads, "
+                           f"chunks, shared memory) {tuple(out)} differ from the plan's {want}")
+    return plan
+
+
+def gatv2_fwd_merge_plain(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                          dtype: torch.dtype = torch.float32
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The merge's function in plain tensor ops: (out in ``dtype``, u, m, l)
+    from the slices' float32 partials acc (S, B, N, D), m and l (S, B, N),
+    the slices in order: m = max_s m_s, l = sum_s l_s e^(m_s - m), u = sum_s
+    acc_s e^(m_s - m) / l."""
+    mx = m.amax(dim=0)
+    lsum = torch.zeros_like(mx)
+    usum = torch.zeros(acc.shape[1:], dtype=torch.float32, device=acc.device)
+    for s in range(acc.shape[0]):
+        c = torch.exp(m[s] - mx)
+        lsum = lsum + l[s] * c
+        usum = usum + acc[s] * c[..., None]
+    u = usum / lsum[..., None]
+    return torch.sigmoid(u).to(dtype), u, mx, lsum
+
+
+def gatv2_fwd_merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                    dtype: torch.dtype = torch.float32, residuals: bool = True
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The tiled forward's merge: (out (B, N, D) in ``dtype``, u, m, l) from
+    the slices' float32 partials acc (S, B, N, D), m and l (S, B, N), as
+    ``gatv2_fwd_merge_plain`` computes them; u, m and l are None without
+    ``residuals`` (K1). A CPU tensor takes the plain version, a CUDA tensor
+    launches the merge kernel or raises."""
+    if acc.device.type == "cpu":
+        out = gatv2_fwd_merge_plain(acc, m, l, dtype)
+        return out if residuals else (out[0], None, None, None)
+    S, B, N, D = acc.shape
+    if m.shape != (S, B, N) or l.shape != (S, B, N) or any(
+            t.dtype != torch.float32 or not t.is_contiguous() for t in (acc, m, l)):
+        raise ValueError(f"gatv2_fwd_merge: partials acc {tuple(acc.shape)}, m "
+                         f"{tuple(m.shape)}, l {tuple(l.shape)} must be contiguous float32 "
+                         "(S, B, N, D) and (S, B, N)")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gatv2_fwd_merge: output type {dtype}")
+    f32 = dict(dtype=torch.float32, device=acc.device)
+    out = torch.empty((B, N, D), dtype=dtype, device=acc.device)
+    u, mo, lo = ((torch.empty((B, N, D), **f32), torch.empty((B, N), **f32),
+                  torch.empty((B, N), **f32)) if residuals else (None, None, None))
+    lib = _fwd_lib()
+    fn = lib.gatv2_fwd_merge_f32 if dtype == torch.float32 else lib.gatv2_fwd_merge_bf16
+    with torch.cuda.device(acc.device):
+        err = fn(_ptr(acc), _ptr(m), _ptr(l), _ptr(out), _ptr(u), _ptr(mo), _ptr(lo),
+                 B, N, D, S, _stream(acc.device))
+    _raise_on(err, "gatv2_fwd_merge")
+    gatv2_fwd_merge.launches += 1
+    return out, u, mo, lo
+
+
+gatv2_fwd_merge.launches = 0
+
+
+def _fwd_variant(N: int, E: int, D: int, variant: Optional[str]) -> Tuple[str, int]:
+    """(variant, row blocks) of a forward launch: the planned variant, or
+    the one the caller forces; the tiled kernel takes every width."""
     variant = variant or gat_fwd_plan(N, E, D)
     if variant == "graph":
         return variant, _check_fwd_layout(N, E, D)
     if variant != "tiled":
-        raise ValueError(f"{name}: variant {variant!r} is neither 'graph' nor 'tiled'")
-    if _fwd_lib().gatv2_fwd_smem_bytes(D) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: value width {D} needs more shared memory than a block has")
+        raise ValueError(f"gatv2 forward: variant {variant!r} is neither 'graph' nor 'tiled'")
     return variant, 0
 
 
-def _count_fwd(fn, variant: str, row_blocks: int) -> None:
+def _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals: bool):
+    """The tiled K1 (or K1-res with ``residuals``) on CUDA tensors: the
+    kernel writes the slices' partials, ``gatv2_fwd_merge`` combines them;
+    returns (out, u, m, l) and the plan. The kernel reads float32 p, q, a,
+    v: bfloat16 ones are widened here (exactly)."""
+    B, N, E = p.shape
+    D = v.shape[-1]
+    plan = _tiled_fwd_plan(B, N, E, D, _build.sm_count(p.device))
+    pf, qf, af, vf = (t.detach().to(torch.float32).contiguous() for t in (p, q, a, v))
+    bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
+    seed_t, thresh, scale = _drop_args(seed, rate, p.device)
+    S = plan.slices
+    part = torch.empty(S * B * N * (D + 2), dtype=torch.float32, device=p.device)
+    acc = part[:S * B * N * D].view(S, B, N, D)
+    m, l = part[S * B * N * D:].view(2, S, B, N)
+    with torch.cuda.device(p.device):
+        err = _fwd_lib().gatv2_fwd_tiled(
+            _ptr(pf), _ptr(qf), _ptr(af), _ptr(bias_c), _ptr(vf), _ptr(seed_t), _ptr(acc),
+            _ptr(m), _ptr(l), B, N, E, D, S, float(alpha), thresh, scale, _stream(p.device))
+    _raise_on(err, "gatv2_fwd_tiled")
+    return gatv2_fwd_merge(acc, m, l, v.dtype, residuals), plan
+
+
+def _count_fwd(fn, variant: str, row_blocks: int, plan: Optional[TiledFwdPlan] = None) -> None:
     fn.launches += 1
     fn.launches_by_variant[variant] += 1
-    fn.last_launch = {"variant": variant, "row_blocks": row_blocks}
+    fn.last_launch = {"variant": variant, "row_blocks": row_blocks,
+                      "plan": None if plan is None else plan._asdict()}
 
 
 def _check(name: str, p, q, a, bias, v) -> None:
@@ -578,7 +788,11 @@ def gatv2_attention_fwd(
     out = torch.empty((B, N, D), dtype=p.dtype, device=p.device)
     if B == 0 or N == 0 or D == 0:
         return out
-    variant, row_blocks = _fwd_variant("gatv2_attention_fwd", N, E, D, variant)
+    variant, row_blocks = _fwd_variant(N, E, D, variant)
+    if variant == "tiled":
+        (out, *_), plan = _fwd_tiled(p, q, a, bias, v, alpha, 0, 0.0, residuals=False)
+        _count_fwd(gatv2_attention_fwd, variant, row_blocks, plan)
+        return out
     lib = _fwd_lib()
     p, q, a, v = (t.contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.to(torch.float32).contiguous()
@@ -615,7 +829,11 @@ def gatv2_attention_res(
     u, m, l = torch.empty((B, N, D), **f32), torch.empty((B, N), **f32), torch.empty((B, N), **f32)
     if B == 0 or N == 0 or D == 0:
         return out, u, m, l
-    variant, row_blocks = _fwd_variant("gatv2_attention_res", N, E, D, variant)
+    variant, row_blocks = _fwd_variant(N, E, D, variant)
+    if variant == "tiled":
+        outs, plan = _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals=True)
+        _count_fwd(gatv2_attention_res, variant, row_blocks, plan)
+        return outs
     lib = _fwd_lib()
     p, q, a, v = (t.detach().contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
@@ -635,16 +853,13 @@ gatv2_attention_res.launches_by_variant = {"graph": 0, "tiled": 0}
 gatv2_attention_res.last_launch = None
 
 
-def _bwd_launch(which: int, name: str, p, q, a, bias, v, m, l, du, dvec,
+def _bwd_launch(which: int, p, q, a, bias, v, m, l, du, dvec,
                 alpha, seed, rate, outs, extra=()):
     """Launch K2c (2) or K2ab (3) writing into ``outs``; the caller has run
-    ``_check``."""
+    ``_check`` and the layout checks of its kernel."""
     B, N, E = p.shape
     D = v.shape[-1]
     lib = _bwd_lib()
-    if lib.gatv2_bwd_smem_bytes(which, N, E, D) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: widths E {E}, D {D} need more shared memory "
-                         "than a block has")
     p, q, a, v = (t.detach().contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
     m, l, du, dvec = (t.detach().to(torch.float32).contiguous() for t in (m, l, du, dvec))
@@ -672,7 +887,7 @@ def _tiled_plan(B: int, N: int, E: int, D: int, sms: int) -> Mapping[str, TiledK
         built = (tuple(dims), lib.gatv2_bwd_tiled_smem_bytes(which, plan.tile, E, D,
                                                              int(plan.acc_smem)),
                  lib.gatv2_bwd_tiled_key_splits(plan.rows // 4 * -(-E // 4), plan.threads)
-                 if which == 0 else 1)
+                 if which == 0 and plan.tile != CHUNKED else 1)
         want = ((plan.rows, plan.keys), plan.smem_bytes, plan.key_splits)
         if built != want:
             raise RuntimeError(f"gatv2 tiled backward {plan.kernel}: the built kernel's (tile, "
@@ -719,15 +934,17 @@ def gatv2_bwd_dp_da(p, q, a, bias, v, m, l, du, dvec, alpha: float,
         return torch.zeros(p.shape, dtype=p.dtype, device=p.device), torch.zeros((E,), **f32)
     plan = _tiled_plan(B, N, E, D, _build.sm_count(p.device))["k2a"]
     dp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
-    da_part = torch.empty((plan.blocks, E), **f32)
+    da_part = torch.empty((plan.da_rows, E), **f32)
     part = torch.empty((plan.slices, B, N, E), **f32)
     _tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, (dp, da_part, part))
     gatv2_bwd_dp_da.launches += 1
+    gatv2_bwd_dp_da.launches_by_variant[TILED_TILE_NAMES[plan.tile]] += 1
     gatv2_bwd_dp_da.last_plan = plan
     return dp, da_part.sum(dim=0)
 
 
 gatv2_bwd_dp_da.launches = 0
+gatv2_bwd_dp_da.launches_by_variant = dict.fromkeys(TILED_TILE_NAMES, 0)
 gatv2_bwd_dp_da.last_plan = None
 
 
@@ -746,11 +963,13 @@ def gatv2_bwd_dq_dv(p, q, a, bias, v, m, l, du, dvec, alpha: float,
     part = torch.empty((plan.slices, B, N, E + D), dtype=torch.float32, device=p.device)
     _tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, (dq, dv, part))
     gatv2_bwd_dq_dv.launches += 1
+    gatv2_bwd_dq_dv.launches_by_variant[TILED_TILE_NAMES[plan.tile]] += 1
     gatv2_bwd_dq_dv.last_plan = plan
     return dq, dv
 
 
 gatv2_bwd_dq_dv.launches = 0
+gatv2_bwd_dq_dv.launches_by_variant = dict.fromkeys(TILED_TILE_NAMES, 0)
 gatv2_bwd_dq_dv.last_plan = None
 
 
@@ -807,7 +1026,7 @@ def gatv2_bwd_graph(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed =
     group = _check_dbias_group(B, _build.sm_count(p.device)) if dbias else 1
     da_part = torch.empty((B, E), **f32)
     part = torch.empty((-(-B // group), N, N), **f32) if dbias else None
-    _bwd_launch(3, "gatv2_bwd_graph", p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
+    _bwd_launch(3, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
                 (dp, dq, dv, da_part, part), (group,))
     gatv2_bwd_graph.launches += 1
     gatv2_bwd_graph.launches_by_variant["dbias" if dbias else "no_dbias"] += 1
@@ -856,25 +1075,64 @@ def dbias_chunks(B: int, N: int, sms: int) -> int:
     return -(-B // chunk)
 
 
+def dbias_smem_bytes(E: int, D: int, chunk: int) -> int:
+    """Shared memory of one K2c block (``tile_floats``) at widths E, D
+    staged whole (chunk 0) or ``chunk`` floats of each at a time: p, du
+    [16][odd], q, v [32][odd], a, m, l and dvec, float32."""
+    odd = lambda x: x | 1  # noqa: E731
+    ec = min(chunk, E) if chunk else E
+    dc = min(chunk, D) if chunk else D
+    return 4 * ((_BI + _BJ) * (odd(ec) + odd(dc)) + ec + 3 * _BI)
+
+
+def dbias_chunk(E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> int:
+    """K2c's staged widths: 0 (E and D whole, its first design's tile) where
+    that block fits ``smem_limit`` bytes (the feature layer up to window
+    400), else ``DBIAS_CHUNK`` floats of each, which fits at every width."""
+    if min(E, D) < 1:
+        raise ValueError(f"dbias_chunk: empty width (E {E}, D {D})")
+    return 0 if dbias_smem_bytes(E, D, 0) <= smem_limit else DBIAS_CHUNK
+
+
+@functools.lru_cache(maxsize=None)
+def _check_dbias_layout(E: int, D: int, chunk: int) -> None:
+    """Refuse a built K2c whose shared memory this module no longer mirrors
+    (once per widths)."""
+    built = _bwd_lib().gatv2_bwd_dbias_smem_bytes(E, D, chunk)
+    if built != dbias_smem_bytes(E, D, chunk):
+        raise RuntimeError(f"gatv2_bwd_dbias: the built kernel's shared memory {built} "
+                           f"differs from this module's {dbias_smem_bytes(E, D, chunk)}")
+
+
 def gatv2_bwd_dbias(p, q, a, bias, v, m, l, du, dvec, alpha: float,
-                    seed: Seed = 0, rate: float = 0.0) -> torch.Tensor:
+                    seed: Seed = 0, rate: float = 0.0,
+                    variant: Optional[str] = None) -> torch.Tensor:
     """K2c on CUDA tensors: dbias (N, N) float32 = sum over the batch of
-    ds; inputs as ``gatv2_bwd_dp_da``, bias not None."""
+    ds; inputs as ``gatv2_bwd_dp_da``, bias not None. Its widths staged as
+    ``dbias_chunk`` says ("full" or "chunked", counted under
+    ``launches_by_variant``), unless ``variant`` forces "chunked"."""
     if bias is None:
         raise ValueError("gatv2_bwd_dbias: the call has no bias")
     _check("gatv2_bwd_dbias", p, q, a, bias, v)
-    B, N, _ = p.shape
-    if B == 0 or N == 0:
+    B, N, E = p.shape
+    D = v.shape[-1]
+    if B == 0 or N == 0 or D == 0:
         return torch.zeros((N, N), dtype=torch.float32, device=p.device)
+    if variant not in (None, "chunked"):
+        raise ValueError(f"gatv2_bwd_dbias: variant {variant!r} is not 'chunked'")
+    chunk = DBIAS_CHUNK if variant == "chunked" else dbias_chunk(E, D)
+    _check_dbias_layout(E, D, chunk)
     n_chunks = dbias_chunks(B, N, _build.sm_count(p.device))
     part = torch.empty((n_chunks, N, N), dtype=torch.float32, device=p.device)
-    _bwd_launch(2, "gatv2_bwd_dbias", p, q, a, bias, v, m, l, du, dvec, alpha, seed,
-                rate, (part,), (n_chunks,))
+    _bwd_launch(2, p, q, a, bias, v, m, l, du, dvec, alpha, seed,
+                rate, (part,), (n_chunks, chunk))
     gatv2_bwd_dbias.launches += 1
+    gatv2_bwd_dbias.launches_by_variant["chunked" if chunk else "full"] += 1
     return part[0] if n_chunks == 1 else part.sum(dim=0)
 
 
 gatv2_bwd_dbias.launches = 0
+gatv2_bwd_dbias.launches_by_variant = {"full": 0, "chunked": 0}
 
 
 # ---------------------------------------------------------------------------

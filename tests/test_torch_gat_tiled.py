@@ -1,11 +1,14 @@
 """The tiled attention backward (K2a, K2b in ``csrc/gat_bwd.cu``): its plan
 and its arithmetic, on the CPU.
 
-- ``gat_tiled_bwd_plan``: feasible at every width the first design of these
-  kernels accepted (its two shared-memory formulas written out below: the
-  feature layer up to window 235, E 470 and D 235; the temporal layer at D
-  38 up to E 665; and a grid of (E, D)), refused above them and on empty or
-  bad input; each launch's shared memory within a block's; its slices cover
+- ``gat_tiled_bwd_plan``: accepted at every width. The FAST or WIDE tile
+  (the same choice as before) exactly where the first design of these
+  kernels accepted the widths (its two shared-memory formulas written out
+  below: the feature layer up to window 235, E 470 and D 235; the temporal
+  layer at D 38 up to E 665; and a grid of (E, D)), the CHUNKED tile beyond
+  them (the feature layer at windows 236 to 2000, the temporal layer up to
+  E 4000), refused on empty or bad input; each launch's shared memory within
+  a block's; its slices cover
   every streamed tile exactly once (a ragged last tile and uneven slices
   included); at the dense route's shape (batch 1, N 8,587, E 76, D 38) its
   blocks reach ``TILED_FILL`` a multiprocessor on 132; its partial sums grow
@@ -27,6 +30,17 @@ and its arithmetic, on the CPU.
   terms), and against the JAX package's backward (``jax.vjp`` of
   ``gat_pallas._fused``, its Pallas kernels in interpret mode) within 1e-5,
   at dropout 0 and 0.3, with and without bias.
+- The CHUNKED tile's arithmetic past the old limit (N 40, E 600, D 300, the
+  feature layer at window 300): the same model with the score summed chunk
+  by chunk of ``TILED_CHUNK`` columns (one chain over e, continued across
+  the chunks), K2a's key splits 1 and da summed by row group and block (its
+  ``da_rows``), against the plain backward (float32 and float64, within
+  1e-5 of the largest value: each score a chain of 600 float32 terms) and
+  the JAX package's backward in interpret mode (the same, relative).
+- Chunked staging leaves every score's bits alone: a pair's chain over e
+  summed chunk by chunk (the chunks of the CHUNKED tile, of K2c and of the
+  tiled forward, ``tiled_fwd_chunk``) equals the unchunked chain bit for bit,
+  where a sum in another order (two interleaved halves, K2ab's) does not.
 
 Inputs are drawn with numpy from a seed. The CUDA kernels run on the card
 only, where ``chip_smoke.py`` holds them against the plain version.
@@ -82,28 +96,60 @@ def _feasible(E, D):
 # ---------------------------------------------------------------------------
 
 
+def _first_fit(kernel, E, D):
+    """The FAST or WIDE choice the plan made before the CHUNKED tile: the
+    first (tile, running sums) of ``TILED_CHOICES`` whose block fits."""
+    for tile, (rows, keys) in enumerate(tgat.TILED_TILES[:tgat.CHUNKED]):
+        for acc in tgat.TILED_CHOICES[kernel]:
+            if tgat.tiled_smem_bytes(kernel, rows, keys, E, D, acc) <= SMEM:
+                return tile, acc
+    return None
+
+
+def _tiles(E, D):
+    """{kernel: (tile, running sums in shared memory)} of the plan."""
+    return {k: (pl.tile, pl.acc_smem) for k, pl in tgat.gat_tiled_bwd_plan(1, 300, E, D,
+                                                                           SMS).items()}
+
+
 def test_plan_accepts_the_first_designs_widths_by_layer():
-    # the feature layer: E = 2 window, D = window, accepted up to window 235
-    assert all(_accepted(2 * w, w) and _feasible(2 * w, w) for w in range(1, 236))
-    assert not _accepted(472, 236) and not _feasible(472, 236)
-    # the temporal layer at SMD's 38 features: up to E 665
-    assert all(_accepted(e, 38) and _feasible(e, 38) for e in range(1, 666))
-    assert not _accepted(666, 38) and not _feasible(666, 38)
+    """Every window of the feature layer (E = 2 window, D = window) and
+    every E of the temporal layer at SMD's 38 features is accepted: FAST or
+    WIDE as before up to window 235 and E 665, where the first design
+    stopped, CHUNKED beyond."""
+    for w in range(1, 2001):
+        want = ({k: _first_fit(k, 2 * w, w) for k in ("k2a", "k2b")} if w <= 235
+                else dict.fromkeys(("k2a", "k2b"), (tgat.CHUNKED, False)))
+        assert _feasible(2 * w, w) and _tiles(2 * w, w) == want, w
+    assert _accepted(470, 235) and not _accepted(472, 236)
+    for e in range(1, 4001):
+        want = ({k: _first_fit(k, e, 38) for k in ("k2a", "k2b")} if e <= 665
+                else dict.fromkeys(("k2a", "k2b"), (tgat.CHUNKED, False)))
+        assert _feasible(e, 38) and _tiles(e, 38) == want, e
+    assert _accepted(665, 38) and not _accepted(666, 38)
 
 
 @pytest.mark.parametrize("e0", range(1, 14, 3))
 def test_plan_accepts_exactly_the_first_designs_widths(e0):
-    """A grid of (E, D): feasible exactly where the first design was."""
-    for E in range(e0, 1400, 13):
+    """A grid of (E, D): accepted everywhere; FAST or WIDE, the choice of
+    before, exactly where the first design accepted the widths, CHUNKED
+    (16 x 32, 17.6 KB at most) exactly where it did not."""
+    for E in range(e0, 2800, 13):
         for D in range(1, 1400, 11):
-            assert _feasible(E, D) == _accepted(E, D), (E, D)
+            assert _feasible(E, D), (E, D)
+            tiles = _tiles(E, D)
+            if _accepted(E, D):
+                assert tiles == {k: _first_fit(k, E, D) for k in tiles}, (E, D)
+            else:
+                assert set(tiles.values()) == {(tgat.CHUNKED, False)}, (E, D)
     assert tgat.first_design_smem_bytes(470, 235) == max(first_design_dp_da_bytes(470, 235),
                                                          first_design_dq_dv_bytes(470, 235))
+    assert [tgat.chunked_smem_bytes(k) for k in ("k2a", "k2b")] == [16_080, 17_616]
 
 
 @pytest.mark.parametrize("B,N,E,D,sms", [
     (0, 100, 76, 38, 132), (1, 0, 76, 38, 132), (1, 100, 0, 38, 132), (1, 100, 76, 0, 132),
-    (1, 100, 76, 38, 0), (-1, 100, 76, 38, 132), (1, 100, 471, 236, 132),
+    (1, 100, 76, 38, 0), (-1, 100, 76, 38, 132), (1, 100, 471, -236, 132),
 ])
 def test_plan_refuses_bad_input(B, N, E, D, sms):
     with pytest.raises(ValueError):
@@ -194,18 +240,31 @@ def _butterfly(parts):
     return parts[0]
 
 
+def _score_chain(p, q, a, chunk=None):
+    """Each pair's score a . leakyrelu(p_i + q_j) as one sequential sum over
+    e, staged chunk by chunk of ``chunk`` columns (all of E at once without):
+    the chain runs on across the chunks, as score_tile's callers run it."""
+    B, N, E = p.shape
+    s = torch.zeros(B, N, N)
+    for e0 in range(0, E, chunk or E):
+        z = p[:, :, None, e0:e0 + (chunk or E)] + q[:, None, :, e0:e0 + (chunk or E)]
+        lr = torch.where(z >= 0, z, ALPHA * z)
+        for e in range(lr.shape[-1]):
+            s = s + a[e0 + e] * lr[..., e]
+    return s
+
+
 def _tiled_bwd_by_slices(p, q, a, bias, v, m, l, du, dvec, seed, rate, rows, keys,
-                         slices_a, slices_b, ks):
+                         slices_a, slices_b, ks, chunk=None):
     """(dp, dq, da, dv) as the tiled K2a and K2b compute them, float32: ks
-    lanes share an item of K2a's contraction."""
+    lanes share an item of K2a's contraction. With ``chunk`` (the CHUNKED
+    tile) the score is staged by chunks of E and K2a's da rows are one a
+    (block, row group), each summed by the caller; the contractions' sums
+    are the same element for element (E and D chunks only cut the columns)."""
     B, N, E = p.shape
     D = v.shape[-1]
     # the score: one sequential sum over e per pair; du . v over d
-    z = p[:, :, None, :] + q[:, None, :, :]
-    lr = torch.where(z >= 0, z, ALPHA * z)
-    s = torch.zeros(B, N, N)
-    for e in range(E):
-        s = s + a[e] * lr[..., e]
+    s = _score_chain(p, q, a, chunk)
     if bias is not None:
         s = s + bias
     dot = torch.zeros(B, N, N)
@@ -271,6 +330,9 @@ def _tiled_bwd_by_slices(p, q, a, bias, v, m, l, du, dvec, seed, rate, rows, key
                 blk = slice(rt * rows, (rt + 1) * rows)
                 run_p[:, blk] = tdp if t == lo else run_p[:, blk] + tdp
                 da_s = tda if t == lo else da_s + tda
+            if chunk:                             # a row a row group: da_part's RG rows
+                da_rows.extend(da_s[:, h] for h in range(rg))
+                continue
             row = torch.zeros(B, E)
             for h in range(rg):                   # the block's row: row groups in order
                 row = row + da_s[:, h]
@@ -285,11 +347,11 @@ def _tiled_bwd_by_slices(p, q, a, bias, v, m, l, du, dvec, seed, rate, rows, key
     return a * dp, dq, da, dv
 
 
-def _case(seed, b, n, e, d, with_bias):
+def _case(seed, b, n, e, d, with_bias, a_scale=1.0):
     rng = np.random.default_rng(seed)
     p = (0.5 * rng.standard_normal((b, n, e))).astype(np.float32)
     q = (0.5 * rng.standard_normal((b, n, e))).astype(np.float32)
-    a = rng.standard_normal(e).astype(np.float32)
+    a = (a_scale * rng.standard_normal(e)).astype(np.float32)
     bias = (0.1 * rng.standard_normal((n, n))).astype(np.float32) if with_bias else None
     v = rng.standard_normal((b, n, d)).astype(np.float32)
     g = rng.standard_normal((b, n, d)).astype(np.float32)
@@ -377,3 +439,99 @@ def test_slice_model_takes_the_plans_splits():
     assert (a.rows, a.keys) == (b.rows, b.keys) == tgat.TILED_TILES[0]
     assert a.key_splits == tgat.key_splits(a.rows // 4 * -(-76 // 4), a.threads) == 4
     assert b.key_splits == 1
+
+
+# ---------------------------------------------------------------------------
+# The CHUNKED tile past the old limit, and chunked sums
+# ---------------------------------------------------------------------------
+
+# the feature layer at window 300 (N 40 for a ragged row tile): E 600, D 300,
+# a at the layer's initial scale (6 / (E + 1))^0.5, as chip_smoke.gat_case
+# draws it: a ~ N(0, 1) at E 600 puts scores near 30, where any float32 order
+# of the 600 terms moves w by 1e-5 of itself
+WIDE_CASE = (40, 600, 300)
+WIDE_A = (6.0 / 601) ** 0.5
+# each score is one chain of 600 float32 terms (the kernels'), against the
+# plain version's pairwise sums: measured up to 2.7e-6 of the largest
+# gradient from float64 (the float32 plain version itself 1.4e-6), so 1e-5,
+# chip_smoke's TRAIN_TOL for the kernels on the card
+WIDE_TOL = 1e-5
+
+
+def test_window_300_takes_the_chunked_tile():
+    plans = tgat.gat_tiled_bwd_plan(2, *WIDE_CASE, SMS)
+    for pl in plans.values():
+        assert pl.tile == tgat.CHUNKED and (pl.rows, pl.keys) == (16, 32) and not pl.acc_smem
+        assert pl.key_splits == 1 and pl.threads == 32
+    assert plans["k2a"].da_rows == plans["k2a"].blocks * 4
+    assert plans["k2b"].da_rows == 0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_chunked_slices_match_plain_backward(rate):
+    """The CHUNKED model at window 300, bias on: the plain backward in
+    float64 and in float32 within ``WIDE_TOL`` of the largest value."""
+    n, e, d = WIDE_CASE
+    plans = tgat.gat_tiled_bwd_plan(2, n, e, d, SMS)
+    rows, keys = plans["k2a"].rows, plans["k2a"].keys
+    xs, g = _case(n + e + d, 2, n, e, d, True, WIDE_A)
+    p, q, a, bias, v, m, l, du, dvec = _residuals(xs, g, rate)
+    got = _tiled_bwd_by_slices(p, q, a, bias, v, m, l, du, dvec, SEED, rate, rows, keys,
+                               2, 2, 1, chunk=tgat.TILED_CHUNK)
+    want = tgat.gatv2_attention_bwd_plain(p, q, a, bias, v, du, ALPHA, SEED, rate)
+    exact = _plain_bwd_f64(p, q, a, bias, v, du, rate)
+    for name, x, y, y64 in zip(("dp", "dq", "da", "dv"), got,
+                               (want[0], want[1], want[2], want[4]), exact):
+        assert x.shape == y.shape and torch.isfinite(x).all()
+        err64 = ((x.double() - y64).abs().max() / y64.abs().max()).item()
+        err = ((x - y).abs().max() / y.abs().max()).item()
+        assert max(err64, err) <= WIDE_TOL, (name, err64, err)
+
+
+def test_chunked_slices_match_jax_pallas_backward():
+    """The CHUNKED model at window 300, dropout 0.3, bias on, against
+    ``jax.vjp`` of the JAX package's fused attention (its Pallas backward in
+    interpret mode), within ``WIDE_TOL`` of the largest value (da reaches 4
+    here, where the small widths' absolute 1e-5 is 3e-6 of it)."""
+    n, e, d = WIDE_CASE
+    xs, g = _case(7 * n + e, 1, n, e, d, True, WIDE_A)
+    jx = [jnp.asarray(x) for x in xs]
+    argnums = (0, 1, 2, 4)
+
+    def fused(*args):
+        full = list(jx)
+        for i, x in zip(argnums, args):
+            full[i] = x
+        return gat_pallas._fused(*full, jnp.full((1, 1), SEED, jnp.uint32), ALPHA, True, 0.3)
+
+    _, vjp = jax.vjp(fused, *[jx[i] for i in argnums])
+    want = vjp(jnp.asarray(g))
+    got = _tiled_bwd_by_slices(*_residuals(xs, g, 0.3), SEED, 0.3, 16, 32, 1, 2, 1,
+                               chunk=tgat.TILED_CHUNK)
+    for name, x, y in zip(("dp", "dq", "da", "dv"), got, want):
+        y = np.asarray(y)
+        err = np.abs(x.numpy() - y).max() / np.abs(y).max()
+        assert err <= WIDE_TOL, (name, err)
+
+
+@pytest.mark.parametrize("E", [7, 76, 200, 600, 1201])
+def test_chunked_score_equals_one_chain_bit_for_bit(E):
+    """Staging E in chunks (the CHUNKED tile's and K2c's 64, the tiled
+    forward's ``tiled_fwd_chunk``, a chunk of 4) continues each pair's one
+    chain over e, so the scores equal the unchunked chain's bit for bit; a
+    sum of the same terms in another order (two interleaved halves, as K2ab
+    and the whole-graph forward sum) does not."""
+    rng = np.random.default_rng(E)
+    p, q = (torch.from_numpy((0.5 * rng.standard_normal((1, 9, E))).astype(np.float32))
+            for _ in range(2))
+    a = torch.from_numpy(rng.standard_normal(E).astype(np.float32))
+    whole = _score_chain(p, q, a)
+    for chunk in {4, tgat.TILED_CHUNK, tgat.DBIAS_CHUNK, tgat.tiled_fwd_chunk(E)}:
+        assert torch.equal(_score_chain(p, q, a, chunk), whole), chunk
+    z = p[:, :, None, :] + q[:, None, :, :]
+    lr = torch.where(z >= 0, z, ALPHA * z)
+    halves = [torch.zeros(1, 9, 9), torch.zeros(1, 9, 9)]
+    for e in range(E):
+        halves[e // 4 % 2] = halves[e // 4 % 2] + a[e] * lr[..., e]
+    if E > 8:
+        assert not torch.equal(halves[0] + halves[1], whole)
