@@ -130,8 +130,32 @@ In order, each phase failing the run with a non-zero exit:
     CUDA graph beside its bound; then dense at the largest N below the
     route, its peak memory within the byte model, its time beside the
     kernels';
-14. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
-    path, and the tiled kernels' times at the route's N; the merge, the
+14. ``serving``: ``serve_cli`` on phase 5's run directory (the synthetic
+    entity, the seeded model at the SMD widths, both kernels on, float32).
+    K1 at batch 1 (one point's forward) at both layers against its plain
+    version, twice for identical bits, by CUDA graph beside its bound (K3
+    at batch 1 is phase 4's "batch 1" record). ``serve_cli.main --device
+    cuda`` streams the test split from a CSV at ``--chunk 1`` and ``--chunk
+    128`` with ``--threshold_method epsilon``, at 128 with spot, and with
+    dspot on a copy of the run without cached train scores (so it scores
+    the training split to calibrate), ``--flush_ms 0``: record i scores test
+    point i (the train-tail priming); the scores equal ``get_score`` on
+    ``train[-w:] ++ test`` within ``SCORE_ATOL``, and chunk 1 equals chunk
+    128; epsilon alarms are ``score > threshold``, spot and dspot alarms and
+    thresholds those of the offline ``run`` over the served scores; each
+    forward launches K1 (whole graph) twice and K3 twice, the priming's and
+    the calibration's included, no other kernel and no plain attention or
+    GRU call runs; the same stream through the plain paths' run (``dense``,
+    ``xla``) gives the same scores. Kill and resume at chunks 1 and 128: a
+    state file, the first half of a file, then the grown file under another
+    spelling of its path, which skips the rows served; the two runs'
+    records equal the uninterrupted run's, bit for bit at chunk 1. Then
+    points/s at chunks 1, 8, 32, 128 and 512, the time per chunk from its
+    yield to its written records (p50, p99) at 1 and 128, and device time by
+    kernel over one profiled pass at each;
+15. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+    path, serving's included, the tiled kernels' times at the route's N, and
+    K1's and K3's serving launches and batch-1 times; the merge, the
     CHUNKED K2a and K2b and the chunked K2c as rows of their own) and, last,
     ``{"ok": true, ...}``.
 
@@ -143,9 +167,11 @@ any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -490,7 +516,7 @@ K3_CASES = (
 def check_k3(gen, dev):
     from mtad_gat_tpu_torch.kernels.gru import gru_scan_fwd, gru_scan_fwd_plain
 
-    result = None
+    result = batch1 = None
     errs = []
     for name, B, T, H, dtype, variant in K3_CASES:
         gru, x, gi, w_hh, b_hh = gru_case(gen, dev, B, T, H, dtype)
@@ -524,7 +550,9 @@ def check_k3(gen, dev):
             raise AssertionError(f"K3 {name}: ran the {rec['variant']} variant, "
                                  f"expected {variant}")
         errs.append(err)
-    return max(errs), result
+        if name == "batch 1":
+            batch1 = rec          # the serving path's chain at chunk 1
+    return max(errs), result, batch1
 
 
 def write_smd(root: str, n: int = 2000, anomaly: float = 0.4) -> None:
@@ -665,15 +693,21 @@ def check_main_path(gen, dev, work):
 
 
 def profile_scoring(pred, series) -> dict:
-    """Device time by kernel over one float32 scoring pass, from
-    torch.profiler; busy share = summed kernel and copy time over the
-    pass's wall time (the profiler's own cost is in the wall time)."""
+    """Device time by kernel over one float32 scoring pass."""
+    return profile_device(lambda: pred.get_score(series),
+                          "get_score, test split, float32, kernels on")
+
+
+def profile_device(fn, what: str, top: int = 12) -> dict:
+    """Device time by kernel over one call of ``fn``, from torch.profiler;
+    busy share = summed kernel and copy time over the call's wall time (the
+    profiler's own cost is in the wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.get_score(series)
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: an operator's own row also reports the time
     # of the kernels it launched, which would count them twice
@@ -682,10 +716,10 @@ def profile_scoring(pred, series) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    return {"phase": "profile", "pass": "get_score, test split, float32, kernels on",
+    return {"phase": "profile", "pass": what,
             "wall_ms": wall_ms, "device_busy_ms": busy_ms if rows else None,
             "busy_share": busy_ms / wall_ms if rows else None,
-            "top": [{"kernel": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:12]]}
+            "top": [{"kernel": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:top]]}
 
 
 # ---------------------------------------------------------------------------
@@ -1517,23 +1551,11 @@ def training_throughput(work, x_train, gru_impl: str) -> dict:
 def profile_training(trainer, gru_impl, series, starts, mask) -> dict:
     """Device time by kernel over one float32 training epoch, as
     profile_scoring does for scoring."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_epoch(series, starts, mask)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    return {"phase": "profile", "pass": "one training epoch, float32, attention kernels on, "
-            f"gru_impl {gru_impl}, dropout 0.3", "steps": int(starts.shape[0]),
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms if rows else None,
-            "busy_share": busy_ms / wall_ms if rows else None,
-            "top": [{"kernel": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:16]]}
+    rec = profile_device(lambda: trainer.train_epoch(series, starts, mask),
+                         "one training epoch, float32, attention kernels on, "
+                         f"gru_impl {gru_impl}, dropout 0.3", top=16)
+    rec["steps"] = int(starts.shape[0])
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2128,6 +2150,368 @@ def wide_counts(wide: dict, key: str) -> int:
     return wide["train_cli"][key] + wide["layer"][key]
 
 
+# ---------------------------------------------------------------------------
+# Serving: serve_cli point by point and by chunks on phase 5's run
+# ---------------------------------------------------------------------------
+
+SERVE_RUN = "01012026_000000"
+SERVING_CHUNKS = (1, 8, 32, 128, 512)
+PROFILE_POINTS = 512
+
+
+def check_k1_batch1(gen, dev) -> dict:
+    """K1 at batch 1, the serving path's shape at chunk 1, at both flagship
+    layers (float32, bias) against its plain version, twice for identical
+    bits; its device time by CUDA graph beside its bound and the plain
+    version's time."""
+    from mtad_gat_tpu_torch.kernels import gat as kg
+
+    out = {}
+    for name, N, E, D in (("feature", 38, 200, 100), ("temporal", 100, 76, 38)):
+        p, q, a, bias, v = gat_case(gen, dev, 1, N, E, D, torch.float32, True)
+        got = kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2)
+        launch = dict(kg.gatv2_attention_fwd.last_launch)
+        again = kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2)
+        want = kg.gatv2_attention_fwd_plain(p, q, a, bias, v, 0.2)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        nbytes = (2 * N * E + E + 2 * N * D) * 4 + N * N * 4
+        bound_ms, bound_by = bound(N * N * (4 * E + 2 * D), nbytes)
+        rec = {"phase": "serving", "case": f"K1 at batch 1, {name} layer", "B": 1, "N": N,
+               "E": E, "D": D, "dtype": "float32", "bias": True, **launch,
+               "max_abs_err": err, "tol": K1_TOL[torch.float32],
+               "two_launches_identical": torch.equal(got, again),
+               "graph_ms": graph_ms(lambda: kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2)),
+               "plain_ms": time_ms(lambda: kg.gatv2_attention_fwd_plain(p, q, a, bias, v, 0.2),
+                                   20),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(rec)
+        if not (err <= K1_TOL[torch.float32] and rec["two_launches_identical"]):
+            raise AssertionError(f"K1 at batch 1 ({name}) differs from its plain version: {rec}")
+        if launch["variant"] != "graph":
+            raise AssertionError(f"K1 at batch 1 ({name}) ran {launch}, expected the "
+                                 "whole-graph kernel")
+        out[name] = rec
+    return out
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts the calls of the plain attention (dense scores and aggregate,
+    K1's and K1-res's plain versions) and the plain GRU (its per-step loop,
+    K3's plain version) while the block runs."""
+    import mtad_gat_tpu_torch.kernels.gat as kg
+    import mtad_gat_tpu_torch.kernels.gru as kgru
+    import mtad_gat_tpu_torch.nn.gat as ngat
+    import mtad_gat_tpu_torch.nn.gru as ngru
+
+    targets = [(kg, "gatv2_attention_fwd_plain"), (kg, "gatv2_attention_res_plain"),
+               (ngat, "gatv2_scores_dense"), (ngat, "gat_aggregate_dense"),
+               (kgru, "gru_scan_fwd_plain"), (ngru, "gru_step")]
+    counts = dict.fromkeys((name for _, name in targets), 0)
+    real = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for mod, name, fn in real:
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+
+
+def serve(data_root, out_root, stream, output, chunk, method="epsilon", state_file=None):
+    """``serve_cli.main --device cuda`` on the run under ``out_root``;
+    returns its records, the kernels' launches, the plain calls and the
+    seconds of the call."""
+    from mtad_gat_tpu_torch.cli import serve_cli
+
+    argv = ["--dataset", "SMD", "--group", "1-1", "--model_id", SERVE_RUN,
+            "--data_root", data_root, "--output_root", out_root, "--input", stream,
+            "--output", output, "--chunk", str(chunk), "--flush_ms", "0",
+            "--threshold_method", method, "--device", "cuda"]
+    if state_file:
+        argv += ["--state_file", state_file]
+    reset_counts()
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        summary = serve_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    with open(output) as f:
+        records = [json.loads(line) for line in f]
+    return records, summary, read_counts(), dict(plain), seconds
+
+
+def expect_serving_launches(name: str, counts: dict, plain: dict, forwards: int) -> None:
+    """Each forward: K1 twice (the whole-graph kernel) and K3 twice; no other
+    kernel and no plain attention or GRU call."""
+    want = {"gatv2_attention_fwd": 2 * forwards, "gatv2_attention_fwd:graph": 2 * forwards,
+            "gru_scan_fwd": 2 * forwards}
+    wrong = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    if wrong or any(plain.values()):
+        raise AssertionError(f"serving {name}: launches {counts}, plain calls {plain}; "
+                             f"expected {want} ({forwards} forwards) and no plain call")
+
+
+def chunks_of(n: int, chunk: int) -> int:
+    return -(-n // chunk)
+
+
+def serving_records_errors(got, want) -> float:
+    return float(np.max(np.abs(np.array([r["score"] for r in got])
+                               - np.array([r["score"] for r in want]))))
+
+
+def replay_threshold(name, records, spot, train_scores, **init_kw) -> int:
+    """The served alarms and thresholds of a streaming POT run against the
+    offline ``run`` of the same class over the served scores (``step``
+    replays ``run`` point for point); returns the alarms."""
+    spot.fit(train_scores, np.array([r["score"] for r in records]))
+    spot.initialize(**init_kw)
+    res = spot.run(with_alarm=True)
+    alarms = [i for i, r in enumerate(records) if r["is_anomaly"]]
+    if alarms != list(res["alarms"]) or [r["threshold"] for r in records] != list(
+            res["thresholds"]):
+        raise AssertionError(f"serving {name}: alarms or thresholds differ from the offline "
+                             "run over the served scores")
+    return len(alarms)
+
+
+class TimedSink:
+    """A record sink that keeps nothing and notes the time of each flush:
+    ``_serve_loop`` flushes once a chunk, after the chunk's records."""
+
+    def __init__(self):
+        self.flushes = []
+
+    def write(self, text):
+        pass
+
+    def flush(self):
+        self.flushes.append(time.perf_counter())
+
+    def close(self):
+        pass
+
+
+def serving_numbers(run, data_root, stream, short_stream, smi, dev) -> dict:
+    """Points/s by chunk (a warm-up pass, then the best of 3, each pass the
+    whole stream from its CSV: parse, scale, score, write), the time per
+    chunk from its yield to its written records (p50, p99) at chunks 1 and
+    128, and one profiled pass at each of those over the first
+    ``PROFILE_POINTS`` rows: serve_cli's own stream, scoring and serving
+    loop around a scorer set up as its ``main`` sets it up."""
+    from mtad_gat_tpu_torch.cli import serve_cli
+    from mtad_gat_tpu_torch.cli.predict_cli import load_run_model
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import get_data, normalize_data
+    from mtad_gat_tpu_torch.inference import OnlineScorer
+
+    cfg = RunConfig.load(os.path.join(run, "config.txt"))
+    (x_train, _), _ = get_data("machine-1-1", data_root=data_root, normalize=True)
+    (raw_train, _), _ = get_data("machine-1-1", data_root=data_root, normalize=False)
+    _, scaler = normalize_data(raw_train)
+    import pandas as pd
+
+    train_scores = pd.read_pickle(os.path.join(run, "train_output.pkl"))["A_Score_Global"]
+    scorer = OnlineScorer(load_run_model(run, cfg, 38, 38, dev),
+                          cfg.lookback, 38, gamma=cfg.gamma)
+    scorer.fit_threshold(train_scores.to_numpy(), method="epsilon")
+    scorer.update_many(x_train[-cfg.lookback:])
+
+    def score_chunk(batch):
+        batch = scaler.transform(np.nan_to_num(np.asarray(batch, np.float32)))
+        for rec in scorer.update_many(batch):
+            yield serve_cli._record_json(rec, 0)
+
+    def one_pass(chunk, source=stream):
+        sink, yields = TimedSink(), []
+
+        def chunks():
+            for batch in serve_cli._stream_chunks(source, 38, chunk, flush_ms=0):
+                yields.append(time.perf_counter())
+                yield batch
+
+        t0 = time.perf_counter()
+        n_pts, _ = serve_cli._serve_loop(chunks(), score_chunk, sink, None)
+        seconds = time.perf_counter() - t0
+        return n_pts, seconds, [(f - y) * 1e3 for y, f in zip(yields, sink.flushes)]
+
+    rates, latency = {}, {}
+    for chunk in SERVING_CHUNKS:
+        one_pass(chunk)
+        passes = [one_pass(chunk) for _ in range(3)]
+        rates[chunk] = max(n / s for n, s, _ in passes)
+        if chunk in (1, 128):
+            ms = np.concatenate([lat for _, _, lat in passes])
+            latency[chunk] = {"p50_ms": float(np.percentile(ms, 50)),
+                              "p99_ms": float(np.percentile(ms, 99)),
+                              "chunks": int(ms.size)}
+    rec = {"phase": "serving", "case": "numbers", "card": smi, "points": passes[0][0],
+           "points_per_s_by_chunk": rates, "chunk_ms_from_yield_to_write": latency,
+           "what": "points/s: the best of 3 passes over the CSV after a warm-up one; chunk "
+                   "ms: every chunk of the 3 passes"}
+    emit(rec)
+    profiles = {}
+    for chunk in (1, 128):
+        prof = profile_device(lambda: one_pass(chunk, short_stream),
+                              f"serving, chunk {chunk}, the first {PROFILE_POINTS} points, "
+                              "float32, kernels on")
+        prof["phase"] = "serving"
+        emit(prof)
+        profiles[chunk] = prof
+    return {**rec, "profiles": profiles}
+
+
+def check_serving(gen, dev, work, k3_batch1, smi) -> dict:
+    """``serve_cli`` on phase 5's run directory: K1 at batch 1; the test
+    split streamed from a CSV at chunks 1 and 128 (epsilon), at 128 with spot
+    and, on a copy of the run without cached train scores, with dspot; the
+    plain paths' run at 128; exact launch counts and no plain call; scores
+    against get_score and between chunk sizes; kill and resume; the
+    numbers."""
+    import pandas as pd
+
+    from mtad_gat_tpu_torch.cli.predict_cli import load_run_model
+    from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.inference import SPOT, Predictor, dSPOT
+
+    k1 = check_k1_batch1(gen, dev)
+    emit({"phase": "serving", "case": "K3 at batch 1 (phase 4's 'batch 1' record)",
+          **{k: k3_batch1[k] for k in ("B", "T", "H", "max_abs_err", "ms", "bound_ms",
+                                       "bound_by", "variant", "cluster")}})
+    data_root = os.path.join(work, "data")
+    kern_root, plain_root = os.path.join(work, "kernels_f32"), os.path.join(work, "plain_f32")
+    run = os.path.join(kern_root, "SMD", "1-1", SERVE_RUN)
+    cfg = RunConfig.load(os.path.join(run, "config.txt"))
+    w = cfg.lookback
+    (x_train, _), (x_test, _) = get_data("machine-1-1", data_root=data_root, normalize=True)
+    _, (raw_test, _) = get_data("machine-1-1", data_root=data_root, normalize=False)
+    n = len(raw_test)
+    d = os.path.join(work, "serve")
+    os.makedirs(d)
+    stream, short = os.path.join(d, "stream.csv"), os.path.join(d, "short.csv")
+    np.savetxt(stream, raw_test, delimiter=",")
+    np.savetxt(short, raw_test[:PROFILE_POINTS], delimiter=",")
+    # a copy of the run without its scored outputs: serve_cli scores the
+    # training split to calibrate
+    uncached_root = os.path.join(work, "serve_uncached")
+    shutil.copytree(run, os.path.join(uncached_root, "SMD", "1-1", SERVE_RUN),
+                    ignore=shutil.ignore_patterns("*_output.pkl", "summary*"))
+    calib_batches = chunks_of(len(x_train) - w + 1, cfg.bs)
+
+    model = load_run_model(run, cfg, 38, 38, dev)
+    offline = Predictor(model, w, 38, {
+        "dataset": "SMD", "target_dims": None, "scale_scores": False, "q": 1e-3,
+        "level": 0.99, "dynamic_pot": False, "use_mov_av": False, "gamma": cfg.gamma,
+        "reg_level": 1, "save_path": work}, batch_size=cfg.bs).get_score(
+            np.concatenate([x_train[-w:], x_test]))["A_Score_Global"].to_numpy()
+    level, q, _ = lookup_pot_params("SMD", "1-1", cfg.level, cfg.q)
+    train_scores = pd.read_pickle(os.path.join(run, "train_output.pkl"))[
+        "A_Score_Global"].to_numpy()
+
+    runs, launches = {}, dict.fromkeys(KERNEL_COUNTERS, 0)
+    cases = (("chunk 1, epsilon", kern_root, 1, "epsilon", 0),
+             ("chunk 128, epsilon", kern_root, 128, "epsilon", 0),
+             ("chunk 128, spot", kern_root, 128, "spot", 0),
+             ("chunk 128, dspot, calibrated by scoring", uncached_root, 128, "dspot",
+              calib_batches),
+             ("chunk 128, epsilon, plain paths", plain_root, 128, "epsilon", None))
+    for name, root, chunk, method, calib in cases:
+        out = os.path.join(d, f"{len(runs)}.jsonl")
+        records, summary, counts, plain, seconds = serve(data_root, root, stream, out, chunk,
+                                                         method)
+        forwards = None if calib is None else chunks_of(w, chunk) + chunks_of(n, chunk) + calib
+        err = float(np.max(np.abs(np.array([r["score"] for r in records]) - offline)))
+        rec = {"phase": "serving", "run": f"serve_cli {name}", "seconds": seconds,
+               "points": summary["points"], "alarms": summary["alarms"], "forwards": forwards,
+               "k1_launches": counts["gatv2_attention_fwd"], "k3_launches": counts["gru_scan_fwd"],
+               "plain_calls": plain, "max_abs_err_vs_get_score": err, "tol": SCORE_ATOL}
+        if [r["t"] for r in records] != list(range(w, w + n)):
+            raise AssertionError(f"serving {name}: record i does not score test point i")
+        if not err <= SCORE_ATOL:
+            raise AssertionError(f"serving {name}: scores {err} from get_score")
+        if calib is None:
+            if counts["gatv2_attention_fwd"] or counts["gru_scan_fwd"] or not all(
+                    plain[k] for k in ("gatv2_scores_dense", "gru_step")):
+                raise AssertionError(f"serving {name}: launches {counts}, plain calls {plain}")
+            rec["max_abs_err_vs_kernels"] = serving_records_errors(records,
+                                                                  runs["chunk 128, epsilon"])
+            if not rec["max_abs_err_vs_kernels"] <= SCORE_ATOL:
+                raise AssertionError(f"serving {name}: {rec} from the kernels' scores")
+        else:
+            expect_serving_launches(name, counts, plain, forwards)
+            for k in launches:
+                launches[k] += counts[k]
+        if method == "epsilon":
+            if any(r["is_anomaly"] != (r["score"] > r["threshold"]) for r in records):
+                raise AssertionError(f"serving {name}: an alarm is not score > threshold")
+        elif method == "spot":
+            rec["alarms_replayed"] = replay_threshold(name, records, SPOT(q), train_scores,
+                                                      level=level)
+            rec["spot"] = {"q": q, "level": level}
+        else:
+            calib_scores = np.load(os.path.join(uncached_root, "SMD", "1-1", SERVE_RUN,
+                                                "train_scores_raw.npy"))
+            rec["calibration_max_abs_err_vs_cached"] = float(np.max(np.abs(
+                calib_scores - train_scores)))
+            rec["alarms_replayed"] = replay_threshold(name, records, dSPOT(q, 450),
+                                                      calib_scores)
+        emit(rec)
+        runs[name] = records
+    c1 = serving_records_errors(runs["chunk 1, epsilon"], runs["chunk 128, epsilon"])
+    emit({"phase": "serving", "check": "chunk 1 against chunk 128 scores", "max_abs_err": c1,
+          "tol": SCORE_ATOL})
+    if not c1 <= SCORE_ATOL:
+        raise AssertionError(f"serving: chunk 1 and chunk 128 scores {c1} apart")
+
+    for chunk in (1, 128):
+        rd = os.path.join(d, f"resume_{chunk}")
+        os.makedirs(rd)
+        grow, state, out = (os.path.join(rd, f) for f in ("grow.csv", "serve.state", "out.jsonl"))
+        half = n // 2
+        np.savetxt(grow, raw_test[:half], delimiter=",")
+        _, first, c_first, p_first, _ = serve(data_root, kern_root, grow, out, chunk,
+                                             state_file=state)
+        expect_serving_launches(f"resume, chunk {chunk}, first half", c_first, p_first,
+                                chunks_of(w, chunk) + chunks_of(half, chunk))
+        np.savetxt(grow, raw_test, delimiter=",")          # the file grows
+        other = os.path.join(rd, "..", os.path.basename(rd), ".", "grow.csv")
+        records, second, c_second, p_second, _ = serve(data_root, kern_root, other, out, chunk,
+                                                       state_file=state)
+        expect_serving_launches(f"resume, chunk {chunk}, second half", c_second, p_second,
+                                chunks_of(n - half, chunk))
+        for counts in (c_first, c_second):
+            for k in launches:
+                launches[k] += counts[k]
+        want = runs[f"chunk {chunk}, epsilon"]
+        err = serving_records_errors(records, want) if len(records) == n else None
+        rec = {"phase": "serving", "case": f"kill and resume, chunk {chunk}",
+               "points": [first["points"], second["points"]],
+               "second_run_input": other, "max_abs_err_vs_uninterrupted": err,
+               "identical": records == want}
+        emit(rec)
+        if (first["points"], second["points"]) != (half, n - half) or err is None:
+            raise AssertionError(f"serving: the resumed run served {rec['points']} points")
+        if chunk == 1 and records != want:
+            raise AssertionError("serving: kill and resume at chunk 1 differs from the "
+                                 "uninterrupted run")
+        if not err <= SCORE_ATOL or any(
+                r["is_anomaly"] != (r["score"] > r["threshold"]) for r in records):
+            raise AssertionError(f"serving: kill and resume at chunk {chunk}: {rec}")
+
+    numbers = serving_numbers(run, data_root, stream, short, smi, dev)
+    return {"k1": k1, "k3": k3_batch1, "launches": launches, "numbers": numbers}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2161,7 +2545,7 @@ def main() -> None:
           "ptxas": {n: ptxas_summary(_build.build_log(n)) for n in _build.SOURCES}})
 
     k1_err, k1_ms = check_k1(gen, dev)
-    k3_err, k3 = check_k3(gen, dev)
+    k3_err, k3, k3_batch1 = check_k3(gen, dev)
     train_err, train_rel, train_ms = check_training_kernels(gen, dev)
     k4_err, k4_rel, k4 = check_k4(gen, dev)
     gru_crossover(gen, dev)
@@ -2179,12 +2563,14 @@ def main() -> None:
         long_window = check_long_window(gen, dev, work)
         graph_cli = check_graph_cli(work, data_root)
         wide = check_wide_window(work, gen, dev)
-    route = check_dense_route(gen, dev)
+        route = check_dense_route(gen, dev)
+        serving = check_serving(gen, dev, work, k3_batch1, smi)
     by_path = {name: {"main": train_launches.get(name, 0),
                       "dense_route": route["launches_eval"][name] + route["launches_train"][name],
                       "long_window": long_window["launches"][name],
                       "graph_cli": graph_cli[name],
-                      "wide_window": wide["train_cli"][name] + wide["layer"][name]}
+                      "wide_window": wide["train_cli"][name] + wide["layer"][name],
+                      "serving": serving["launches"][name]}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]
@@ -2208,6 +2594,12 @@ def main() -> None:
          "tiled_graph_ms_by_layer": [f["tiled_graph_ms"], t["tiled_graph_ms"]],
          "temporal_two_row_blocks_graph_ms": t.get("two_row_blocks_graph_ms"),
          "launches_training": train_launches["gatv2_attention_fwd"],
+         "serving": {
+             "launches": serving["launches"]["gatv2_attention_fwd"],
+             "launches_per_forward": 2, "forwards": "one a point at chunk 1, one a chunk",
+             "batch1_max_abs_err": max(r["max_abs_err"] for r in serving["k1"].values()),
+             **{f"batch1_{k}_by_layer": [serving["k1"][la][k] for la in ("feature", "temporal")]
+                for k in ("graph_ms", "plain_ms", "bound_ms", "bound_by")}},
          "shapes": "one scoring batch: feature (256,38,200/100) + temporal "
                    "(256,100,76/38) layer, float32, bias; ms is a wrapper call by CUDA "
                    "events, graph_ms its device time from a CUDA graph of 20 calls; tiled_* "
@@ -2221,6 +2613,11 @@ def main() -> None:
          "projection_ms": k3["projection_ms"], "variant": k3["variant"],
          "cluster": k3["cluster"], "smem_bytes": k3["smem_bytes"],
          "launches_training": train_launches["gru_scan_fwd"],
+         "serving": {
+             "launches": serving["launches"]["gru_scan_fwd"],
+             "launches_per_forward": 2, "forwards": "one a point at chunk 1, one a chunk",
+             **{f"batch1_{k}": serving["k3"][k] for k in ("ms", "bound_ms", "bound_by",
+                                                          "max_abs_err")}},
          "shapes": "one chain: gi (256,100,450) float32, hidden 150; library_ms "
                    "is torch.nn.GRU (cuDNN) with its input projection, projection_ms "
                    "that projection alone as one matrix product"},

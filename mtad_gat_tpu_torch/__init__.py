@@ -3,9 +3,16 @@
 The package mirrors ``mtad_gat_tpu`` path for path (``nn/gat.py`` is the
 counterpart of ``mtad_gat_tpu/nn/gat.py``) and imports nothing of it or of
 JAX. The fused Pallas kernels become hand-written CUDA kernels for Hopper
-(``csrc/``, bound in ``kernels/``). This slice ports the scoring path:
-``python -m mtad_gat_tpu_torch.cli.predict_cli`` scores a trained run and
-thresholds it, on the GPU unless ``--device cpu`` is given.
+(``csrc/``, bound in ``kernels/``). Its entry points (those that run the
+model do so on the GPU unless ``--device cpu`` is given):
+
+- ``python -m mtad_gat_tpu_torch.cli.preprocess_cli``: raw SMD, MSL and
+  SMAP files to the processed pickles;
+- ``python -m mtad_gat_tpu_torch.cli.train_cli``: trains a run;
+- ``python -m mtad_gat_tpu_torch.cli.predict_cli``: scores a trained run
+  (this package's or one the JAX package trained) and thresholds it;
+- ``python -m mtad_gat_tpu_torch.cli.serve_cli``: scores a stream point by
+  point against a trained run (one machine; fleets are not ported yet).
 """
 
 from mtad_gat_tpu_torch.config import MTADGATConfig, PredictConfig, RunConfig, TrainConfig

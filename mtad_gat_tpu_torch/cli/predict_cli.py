@@ -22,6 +22,8 @@ import os
 from datetime import datetime
 from typing import Optional, Sequence
 
+import torch
+
 from mtad_gat_tpu_torch.cli.args import get_parser, resolve_device, str2bool
 from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
 from mtad_gat_tpu_torch.data import get_data, get_target_dims
@@ -53,6 +55,27 @@ def resolve_model_dir(output_path: str, model_id: str) -> str:
         subfolders.sort(key=run_time)
         model_id = subfolders[int(model_id)]
     return os.path.join(output_path, model_id)
+
+
+def load_run_model(model_path: str, cfg: RunConfig, n_features: int, out_dim: int,
+                   device: torch.device, torch_ckpt: str = "") -> MTADGAT:
+    """The run's model on ``device``, its weights from ``torch_ckpt`` when
+    given, else from the run's ``model.msgpack`` (a run the JAX package
+    trained, read by this package's own decoder) unless only ``model.pt``
+    exists (a run this package or the reference trained): the JAX package's
+    order. Scoring and serving read runs through it."""
+    msgpack_path = os.path.join(model_path, "model.msgpack")
+    torch_path = torch_ckpt or os.path.join(model_path, "model.pt")
+    if torch_ckpt or (not os.path.exists(msgpack_path) and os.path.exists(torch_path)):
+        state_dict = load_checkpoint(torch_path)
+    else:
+        if not os.path.exists(msgpack_path):
+            raise FileNotFoundError(f"no model.msgpack or model.pt in {model_path}")
+        print(f"Reading JAX checkpoint {msgpack_path}")
+        state_dict = jax_params_to_state_dict(read_flax_msgpack(msgpack_path)["params"])
+    model = MTADGAT(cfg.model_config(n_features, out_dim))
+    model.load_state_dict(state_dict)
+    return model.to(device)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -102,18 +125,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     target_dims = get_target_dims(dataset)
     out_dim = n_features if target_dims is None else len(target_dims)
 
-    msgpack_path = os.path.join(model_path, "model.msgpack")
-    torch_path = args.torch_ckpt or os.path.join(model_path, "model.pt")
-    if args.torch_ckpt or (not os.path.exists(msgpack_path) and os.path.exists(torch_path)):
-        state_dict = load_checkpoint(torch_path)
-    else:
-        if not os.path.exists(msgpack_path):
-            raise FileNotFoundError(f"no model.msgpack or model.pt in {model_path}")
-        print(f"Reading JAX checkpoint {msgpack_path}")
-        state_dict = jax_params_to_state_dict(read_flax_msgpack(msgpack_path)["params"])
-    model = MTADGAT(cfg.model_config(n_features, out_dim))
-    model.load_state_dict(state_dict)
-    model.to(device)
+    model = load_run_model(model_path, cfg, n_features, out_dim, device, args.torch_ckpt)
 
     level, q, reg_level = lookup_pot_params(dataset, args.group, args.level, args.q)
 

@@ -7,8 +7,9 @@ from mtad_gat_tpu_torch.inference.eval_methods import (
     find_epsilon,
     pot_eval,
 )
+from mtad_gat_tpu_torch.inference.online import OnlineScorer
 from mtad_gat_tpu_torch.inference.predictor import Predictor
-from mtad_gat_tpu_torch.inference.spot import SPOT
+from mtad_gat_tpu_torch.inference.spot import SPOT, biSPOT, bidSPOT, dSPOT
 
 __all__ = [
     "adjust_predicts",
@@ -18,6 +19,10 @@ __all__ = [
     "epsilon_eval",
     "find_epsilon",
     "pot_eval",
+    "OnlineScorer",
     "Predictor",
     "SPOT",
+    "biSPOT",
+    "bidSPOT",
+    "dSPOT",
 ]

@@ -11,8 +11,14 @@ scoring path runs (``pot_eval``):
 - run: static mode keeps the initial fit; dynamic mode re-fits the GPD each
   time a new peak arrives.
 
-The plotting helper and the dSPOT / biSPOT / bidSPOT variants come with the
-streaming slice (ROADMAP.md, Queue 1 item 6).
+Beside it, numpy/scipy copies of the rest of that module: ``back_mean``,
+the plotting helper (``SPOT.plot``, ``_plot_run``; matplotlib imported where
+it draws), and the variants ``dSPOT`` (drift-aware: subtracts a depth-window
+moving average before thresholding, reference ``spot.py:1070-1552``; its
+``step`` is the streaming scorer's ``dspot`` threshold), ``biSPOT``
+(two-sided, ``spot.py:517-1057``) and ``bidSPOT`` (drift-aware and two-sided,
+``spot.py:1554-2090``), with the attribute names of the JAX package's, so
+that a state file the JAX server pickled loads into these classes.
 """
 
 from __future__ import annotations
@@ -104,6 +110,22 @@ def _progress(iterable, total=None, desc: str = ""):
         return tqdm(iterable, total=total, desc=desc)
     except Exception:
         return iterable
+
+
+def back_mean(X: np.ndarray, d: int) -> np.ndarray:
+    """Running depth-d mean (reference ``spot.py:1060-1067``): returns
+    len(X) - d + 1 values, M[k] = mean(X[k : k + d]). Uses the reference's
+    exact rolling-update accumulation order — the Grimshaw root search is
+    chaotic in the last float bits, so bit-exact inputs are required for
+    threshold parity."""
+    X = np.asarray(X, dtype=np.float64)
+    M = np.empty(len(X) - d + 1)
+    w = X[:d].sum()
+    M[0] = w / d
+    for i in range(d, len(X)):
+        w = w - X[i - d] + X[i]
+        M[i - d + 1] = w / d
+    return M
 
 
 class SPOT:
@@ -381,6 +403,12 @@ class SPOT:
             self.extreme_quantile = float(quantiles[-1])
         return {"thresholds": list(th), "alarms": []}
 
+    def plot(self, run_results: Dict, with_alarm: bool = True) -> list:
+        """Plot the stream, thresholds, and alarms from a ``run`` result
+        (reference ``spot.py:475-509``): returns the list of matplotlib
+        artists [series, thresholds?, alarms?]."""
+        return _plot_run(self.data, run_results, with_alarm)
+
     def step(self, x: float, with_alarm: bool = True) -> bool:
         """One streaming point of the dynamic-mode loop (the body of ``run``,
         incrementalized for online serving — ``inference/online.py``).
@@ -405,6 +433,38 @@ class SPOT:
         else:
             self.n += 1
         return False
+
+# ---------------------------------------------------------------------------
+# Plotting (reference spot.py:475-509 and per-variant equivalents)
+# ---------------------------------------------------------------------------
+
+# the reference's plot colors (spot.py:24-26)
+_AIR_FORCE_BLUE = "#5D8AA8"
+_DEEP_SAFFRON = "#FF9933"
+
+
+def _plot_run(data: np.ndarray, run_results: Dict, with_alarm: bool = True) -> list:
+    """Shared body of the SPOT-family ``plot`` methods: the streamed series,
+    dashed threshold line(s), and alarm scatter. Returns the artist list in
+    the reference's order (series, thresholds..., alarms)."""
+    import matplotlib.pyplot as plt
+
+    x = range(data.size)
+    figs = []
+    (ts_fig,) = plt.plot(x, data, color=_AIR_FORCE_BLUE)
+    figs.append(ts_fig)
+    for key in ("thresholds", "upper_thresholds", "lower_thresholds"):
+        if key in run_results:
+            (th_fig,) = plt.plot(
+                x, run_results[key], color=_DEEP_SAFFRON, lw=2, ls="dashed"
+            )
+            figs.append(th_fig)
+    if with_alarm and "alarms" in run_results:
+        alarm = np.asarray(run_results["alarms"], dtype=int)
+        figs.append(plt.scatter(alarm, data[alarm], color="red"))
+    plt.xlim((0, data.size))
+    return figs
+
 
 # ---------------------------------------------------------------------------
 # Parallel prefix refits (fast dynamic-mode machinery)
@@ -472,3 +532,354 @@ def _prefix_quantiles(
         ),
         np.float64,
     )
+
+
+# ---------------------------------------------------------------------------
+# Variants: drift-aware and two-sided
+# ---------------------------------------------------------------------------
+
+
+def _fit_gpd(peaks: np.ndarray, n_points: int = 10):
+    """Grimshaw GPD fit on a peak set, reusing SPOT's guarded machinery."""
+    tmp = SPOT()
+    tmp.peaks = np.asarray(peaks, dtype=np.float64)
+    return tmp._grimshaw(n_points=n_points)
+
+
+def _gpd_quantile(init_threshold: float, n: int, proba: float, Nt: int,
+                  gamma: float, sigma: float, upper: bool = True) -> float:
+    r = n * proba / Nt
+    if gamma != 0:
+        d = (sigma / gamma) * (pow(r, -gamma) - 1)
+    else:
+        d = -sigma * log(r)
+    return init_threshold + d if upper else init_threshold - d
+
+
+class dSPOT:
+    """Drift-aware SPOT (reference ``spot.py:1070-1552``): subtract a depth-
+    window moving average before thresholding; the initial threshold is the
+    empirical 0.98 quantile of the drift-corrected calibration values
+    (hardcoded in the reference, ``spot.py:1227``)."""
+
+    def __init__(self, q: float, depth: int):
+        self.proba = q
+        self.depth = depth
+        self.extreme_quantile: Optional[float] = None
+        self.data: Optional[np.ndarray] = None
+        self.init_data: Optional[np.ndarray] = None
+        self.init_threshold: Optional[float] = None
+        self.peaks: Optional[np.ndarray] = None
+        self.n = 0
+        self.Nt = 0
+
+    fit = SPOT.fit
+    add = SPOT.add
+
+    def initialize(self, verbose: bool = False) -> None:
+        n_init = self.init_data.size - self.depth
+        M = back_mean(self.init_data, self.depth)
+        T = self.init_data[self.depth:] - M[:-1]
+
+        S = np.sort(T)
+        self.init_threshold = S[int(0.98 * n_init)]
+        self.peaks = T[T > self.init_threshold] - self.init_threshold
+        self.Nt = self.peaks.size
+        self.n = n_init
+        if self.Nt == 0:
+            self.extreme_quantile = float(self.init_threshold)
+            return
+        g, s, _ = _fit_gpd(self.peaks)
+        self.extreme_quantile = _gpd_quantile(
+            self.init_threshold, self.n, self.proba, self.Nt, g, s
+        )
+        if verbose:
+            print(f"Initial threshold : {self.init_threshold}")
+            print(f"Number of peaks : {self.Nt}")
+            print(f"Extreme quantile : {self.extreme_quantile}")
+
+    def _refit(self) -> None:
+        g, s, _ = _fit_gpd(self.peaks)
+        self.extreme_quantile = _gpd_quantile(
+            self.init_threshold, self.n, self.proba, self.Nt, g, s
+        )
+
+    def run(self, with_alarm: bool = True) -> Dict:
+        if self.n > self.init_data.size:
+            print("Warning: algorithm already run, initialize before running again")
+            return {}
+        W = self.init_data[-self.depth:]
+        th, alarm = [], []
+        for i in range(self.data.size):
+            Mi = W.mean()
+            x = self.data[i] - Mi
+            if x > self.extreme_quantile:
+                if with_alarm:
+                    alarm.append(i)  # drift window freezes during alarms
+                else:
+                    self.peaks = np.append(self.peaks, x - self.init_threshold)
+                    self.Nt += 1
+                    self.n += 1
+                    self._refit()
+                    W = np.append(W[1:], self.data[i])
+            elif x > self.init_threshold:
+                self.peaks = np.append(self.peaks, x - self.init_threshold)
+                self.Nt += 1
+                self.n += 1
+                self._refit()
+                W = np.append(W[1:], self.data[i])
+            else:
+                self.n += 1
+                W = np.append(W[1:], self.data[i])
+            th.append(self.extreme_quantile + Mi)
+        return {"thresholds": th, "alarms": alarm}
+
+    def step(self, x: float, with_alarm: bool = True) -> bool:
+        """One streaming point of the drift-aware loop (the body of ``run``,
+        incrementalized for online serving). Maintains the depth-window
+        drift mean as streaming state; semantics identical to ``run``
+        point-for-point (tested): an over-quantile drift-corrected point
+        alarms and FREEZES the drift window; otherwise peaks re-fit the GPD
+        and the window advances. Sets ``last_threshold`` to the
+        drift-adjusted alarm level this point was compared against
+        (``extreme_quantile + drift mean`` — what run() records in
+        ``thresholds``)."""
+        if not hasattr(self, "_W") or self._W is None:
+            self._W = np.asarray(
+                self.init_data[-self.depth:], dtype=np.float64
+            ).copy()
+        Mi = self._W.mean()
+        xd = x - Mi
+        alarmed = False
+        if xd > self.extreme_quantile:
+            if with_alarm:
+                alarmed = True  # drift window freezes during alarms
+            else:
+                self.peaks = np.append(self.peaks, xd - self.init_threshold)
+                self.Nt += 1
+                self.n += 1
+                self._refit()
+                self._W = np.append(self._W[1:], x)
+        elif xd > self.init_threshold:
+            self.peaks = np.append(self.peaks, xd - self.init_threshold)
+            self.Nt += 1
+            self.n += 1
+            self._refit()
+            self._W = np.append(self._W[1:], x)
+        else:
+            self.n += 1
+            self._W = np.append(self._W[1:], x)
+        self.last_threshold = float(self.extreme_quantile + Mi)
+        return alarmed
+
+    def plot(self, run_results: Dict, with_alarm: bool = True) -> list:
+        """Reference ``dSPOT`` plotting surface (drift-added thresholds are
+        already baked into the run result's series)."""
+        return _plot_run(self.data, run_results, with_alarm)
+
+
+class biSPOT:
+    """Two-sided SPOT (reference ``spot.py:517-1057``): separate GPD tails
+    above the 0.98 and below the 0.02 empirical quantiles."""
+
+    def __init__(self, q: float = 1e-4):
+        self.proba = q
+        self.data: Optional[np.ndarray] = None
+        self.init_data: Optional[np.ndarray] = None
+        self.extreme_quantile = {"up": None, "down": None}
+        self.init_threshold = {"up": None, "down": None}
+        self.peaks = {"up": None, "down": None}
+        self.gamma = {"up": 0.0, "down": 0.0}
+        self.sigma = {"up": 0.0, "down": 0.0}
+        self.Nt = {"up": 0, "down": 0}
+        self.n = 0
+
+    fit = SPOT.fit
+    add = SPOT.add
+
+    def initialize(self, verbose: bool = False) -> None:
+        n_init = self.init_data.size
+        S = np.sort(self.init_data)
+        self.init_threshold["up"] = S[int(0.98 * n_init)]
+        self.init_threshold["down"] = S[int(0.02 * n_init)]
+        self.peaks["up"] = (
+            self.init_data[self.init_data > self.init_threshold["up"]]
+            - self.init_threshold["up"]
+        )
+        self.peaks["down"] = -(
+            self.init_data[self.init_data < self.init_threshold["down"]]
+            - self.init_threshold["down"]
+        )
+        self.Nt = {side: self.peaks[side].size for side in ("up", "down")}
+        self.n = n_init
+        for side in ("up", "down"):
+            self._refit(side)
+        if verbose:
+            print(f"Initial thresholds : {self.init_threshold}")
+            print(f"Extreme quantiles : {self.extreme_quantile}")
+
+    # the reference uses 10 Grimshaw candidate points in SPOT/dSPOT/biSPOT
+    # but 8 in bidSPOT (spot.py:1835) — bidSPOT overrides this
+    _grimshaw_points = 10
+
+    def _refit(self, side: str) -> None:
+        if self.Nt[side] == 0:
+            self.extreme_quantile[side] = float(self.init_threshold[side])
+            return
+        g, s, _ = _fit_gpd(self.peaks[side], n_points=self._grimshaw_points)
+        self.gamma[side], self.sigma[side] = g, s
+        self.extreme_quantile[side] = _gpd_quantile(
+            self.init_threshold[side], self.n, self.proba, self.Nt[side],
+            g, s, upper=(side == "up"),
+        )
+
+    def run(self, with_alarm: bool = True) -> Dict:
+        if self.n > self.init_data.size:
+            print("Warning: algorithm already run, initialize before running again")
+            return {}
+        thup, thdown, alarm = [], [], []
+        for i in range(self.data.size):
+            x = self.data[i]
+            if x > self.extreme_quantile["up"]:
+                if with_alarm:
+                    alarm.append(i)
+                else:
+                    self.peaks["up"] = np.append(
+                        self.peaks["up"], x - self.init_threshold["up"]
+                    )
+                    self.Nt["up"] += 1
+                    self.n += 1
+                    self._refit("up")
+            elif x > self.init_threshold["up"]:
+                self.peaks["up"] = np.append(
+                    self.peaks["up"], x - self.init_threshold["up"]
+                )
+                self.Nt["up"] += 1
+                self.n += 1
+                self._refit("up")
+            elif x < self.extreme_quantile["down"]:
+                if with_alarm:
+                    alarm.append(i)
+                else:
+                    self.peaks["down"] = np.append(
+                        self.peaks["down"], -(x - self.init_threshold["down"])
+                    )
+                    self.Nt["down"] += 1
+                    self.n += 1
+                    self._refit("down")
+            elif x < self.init_threshold["down"]:
+                self.peaks["down"] = np.append(
+                    self.peaks["down"], -(x - self.init_threshold["down"])
+                )
+                self.Nt["down"] += 1
+                self.n += 1
+                self._refit("down")
+            else:
+                self.n += 1
+            thup.append(self.extreme_quantile["up"])
+            thdown.append(self.extreme_quantile["down"])
+        return {"upper_thresholds": thup, "lower_thresholds": thdown, "alarms": alarm}
+
+    def plot(self, run_results: Dict, with_alarm: bool = True) -> list:
+        """Reference ``biSPOT`` plotting surface (both threshold sides)."""
+        return _plot_run(self.data, run_results, with_alarm)
+
+
+class bidSPOT:
+    """Drift-aware two-sided SPOT (reference ``spot.py:1554-2090``)."""
+
+    _grimshaw_points = 8  # reference quirk: bidSPOT fits with 8 candidates
+
+    def __init__(self, q: float = 1e-4, depth: int = 10):
+        self.proba = q
+        self.depth = depth
+        self.data: Optional[np.ndarray] = None
+        self.init_data: Optional[np.ndarray] = None
+        self.extreme_quantile = {"up": None, "down": None}
+        self.init_threshold = {"up": None, "down": None}
+        self.peaks = {"up": None, "down": None}
+        self.gamma = {"up": 0.0, "down": 0.0}
+        self.sigma = {"up": 0.0, "down": 0.0}
+        self.Nt = {"up": 0, "down": 0}
+        self.n = 0
+
+    fit = SPOT.fit
+    add = SPOT.add
+    _refit = biSPOT._refit
+
+    def initialize(self, verbose: bool = False) -> None:
+        n_init = self.init_data.size - self.depth
+        M = back_mean(self.init_data, self.depth)
+        T = self.init_data[self.depth:] - M[:-1]
+        S = np.sort(T)
+        self.init_threshold["up"] = S[int(0.98 * n_init)]
+        self.init_threshold["down"] = S[int(0.02 * n_init)]
+        self.peaks["up"] = T[T > self.init_threshold["up"]] - self.init_threshold["up"]
+        self.peaks["down"] = -(
+            T[T < self.init_threshold["down"]] - self.init_threshold["down"]
+        )
+        self.Nt = {side: self.peaks[side].size for side in ("up", "down")}
+        self.n = n_init
+        for side in ("up", "down"):
+            self._refit(side)
+        if verbose:
+            print(f"Initial thresholds : {self.init_threshold}")
+            print(f"Extreme quantiles : {self.extreme_quantile}")
+
+    def run(self, with_alarm: bool = True) -> Dict:
+        if self.n > self.init_data.size:
+            print("Warning: algorithm already run, initialize before running again")
+            return {}
+        W = self.init_data[-self.depth:]
+        thup, thdown, alarm = [], [], []
+        for i in range(self.data.size):
+            Mi = W.mean()
+            x = self.data[i] - Mi
+            if x > self.extreme_quantile["up"]:
+                if with_alarm:
+                    alarm.append(i)  # drift window freezes during alarms
+                else:
+                    self.peaks["up"] = np.append(
+                        self.peaks["up"], x - self.init_threshold["up"]
+                    )
+                    self.Nt["up"] += 1
+                    self.n += 1
+                    self._refit("up")
+                    W = np.append(W[1:], self.data[i])
+            elif x > self.init_threshold["up"]:
+                self.peaks["up"] = np.append(
+                    self.peaks["up"], x - self.init_threshold["up"]
+                )
+                self.Nt["up"] += 1
+                self.n += 1
+                self._refit("up")
+                W = np.append(W[1:], self.data[i])
+            elif x < self.extreme_quantile["down"]:
+                if with_alarm:
+                    alarm.append(i)
+                else:
+                    self.peaks["down"] = np.append(
+                        self.peaks["down"], -(x - self.init_threshold["down"])
+                    )
+                    self.Nt["down"] += 1
+                    self.n += 1
+                    self._refit("down")
+                    W = np.append(W[1:], self.data[i])
+            elif x < self.init_threshold["down"]:
+                self.peaks["down"] = np.append(
+                    self.peaks["down"], -(x - self.init_threshold["down"])
+                )
+                self.Nt["down"] += 1
+                self.n += 1
+                self._refit("down")
+                W = np.append(W[1:], self.data[i])
+            else:
+                self.n += 1
+                W = np.append(W[1:], self.data[i])
+            thup.append(self.extreme_quantile["up"] + Mi)
+            thdown.append(self.extreme_quantile["down"] + Mi)
+        return {"upper_thresholds": thup, "lower_thresholds": thdown, "alarms": alarm}
+
+    def plot(self, run_results: Dict, with_alarm: bool = True) -> list:
+        """Reference ``bidSPOT`` plotting surface."""
+        return _plot_run(self.data, run_results, with_alarm)
