@@ -5,15 +5,21 @@ trees can be compared in one call.
 
 Imports ``mtad_gat_tpu_torch`` from DIR (default: this checkout), builds its
 kernels there, and on inputs drawn from ``--seed`` (the same in every tree)
-times by CUDA graph the tiled K1 and K1-res (``variant="tiled"``) and the
-tiled K2a, K2b and K2c at the dense route's shape (batch 1, N 8,587, E 76,
-D 38) and at the SMD flagship's two attention layers (batch 256: N 38, E
-200, D 100 and N 100, E 76, D 38), float32, dropout 0.3, with bias. The
+times by CUDA graph the tiled K1 and K1-res (``variant="tiled"``), the
+tiled K2a, K2b and K2c, and the backward as a training call runs it with a
+bias (``gatv2_bwd(..., dbias=True)``: K2a, then K2b summing dbias in its own
+pass; a tree from before that fold runs K2c after them) at the dense
+route's shape (batch 1, N 8,587, E 76, D 38), at the SMD flagship's two
+attention layers (batch 256: N 38, E 200, D 100 and N 100, E 76, D 38) and
+at the temporal layer of a lookback-1024 window (batch 64, N 1024, E 76, D
+38), float32, dropout 0.3, with bias (at the flagship layers ``gatv2_bwd``
+runs the whole-graph K2ab). The
 backward's row stats m and l come from plain tensor ops over chunks of rows,
 written here, so its inputs do not depend on the tree's forward; du and
 dvec are drawn. One JSON line per (shape, kernel) with its device time from
 a CUDA graph (``graph_ms``) and the sha256 of each output's bytes, so two
-trees' outputs compare bit for bit; the card's name and power limit first.
+trees' outputs compare bit for bit (the backward's line also names the
+kernel that gave dbias); the card's name and power limit first.
 A comparison runs parent, change, change, parent in one call:
 
     git archive <parent> | tar -x -C build/parent
@@ -34,7 +40,7 @@ import torch
 
 # (name, B, N, E, D)
 SHAPES = (("route", 1, 8587, 76, 38), ("feature", 256, 38, 200, 100),
-          ("temporal", 256, 100, 76, 38))
+          ("temporal", 256, 100, 76, 38), ("lookback 1024 temporal", 64, 1024, 76, 38))
 ALPHA, RATE = 0.2, 0.3
 
 
@@ -124,18 +130,19 @@ def main() -> None:
             "k2a": lambda: kg.gatv2_bwd_dp_da(*bwd),
             "k2b": lambda: kg.gatv2_bwd_dq_dv(*bwd),
             "k2c": lambda: kg.gatv2_bwd_dbias(*bwd),
+            "bwd": lambda: kg.gatv2_bwd(*bwd, dbias=True),
         }
         for kernel, fn in spec.items():
-            out = fn()
-            outs = out if isinstance(out, tuple) else (out,)
-            again = fn()
-            agains = again if isinstance(again, tuple) else (again,)
+            outs, agains = (tuple(t for t in (x if isinstance(x, tuple) else (x,))
+                                  if t is not None) for x in (fn(), fn()))
             torch.cuda.synchronize()
             rec = {"label": args.label or root, "shape": name, "B": B, "N": N, "E": E, "D": D,
                    "kernel": kernel, "graph_ms": graph_ms(fn, calls, replays),
                    "sha256": sha(*outs),
                    "two_launches_identical": all(torch.equal(x, y)
                                                  for x, y in zip(outs, agains))}
+            if kernel == "bwd":
+                rec["last_launch"] = kg.gatv2_bwd.last_launch
             print(json.dumps(rec), flush=True)
         del p, q, v, a, bias, du, dvec, m, l, bwd
         torch.cuda.empty_cache()

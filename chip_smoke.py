@@ -53,20 +53,25 @@ In order, each phase failing the run with a non-zero exit:
    launched twice for identical bits (dbias included), its planned shared
    memory and batch groups (``dbias_groups``) equal to the built library's,
    with the partials' bytes and each instantiation's blocks a
-   multiprocessor; K2a then K2b (the tiled kernels) forced twice at each
-   layer, and planned at N = 2048 and N = 4096 (with K2c for dbias), each
-   twice for identical bits, with the plan of each call
-   (``gat_tiled_bwd_plan``), where one forward-and-backward also has to
-   allocate no more than its outputs, the tiled kernels' partial sums and 1
-   MiB; K2c forced at each layer wherever there is a bias. At the feature
-   layer's window 235 (the WIDE tile), 300 and 1200 (the CHUNKED tile, the
-   tiled K1-res and K2c's chunked staging forced there too, each twice for
-   identical bits, timed by CUDA graph beside its bound); and the tiled
-   K2b's weights against the tiled K1-res's, bit for bit, at each tile. Each
+   multiprocessor; K2a then K2b (the tiled kernels, K2b summing dbias in
+   its own pass wherever there is a bias) forced twice at each layer, and
+   planned at N = 2048 and N = 4096, each twice for identical bits (dbias
+   included), with the plan of each call (``gat_tiled_bwd_plan``: K2b's
+   batch group ``tiled_dbias_groups`` and its partials' bytes equal to the
+   built library's, K2b's blocks a multiprocessor with and without dbias),
+   where one forward-and-backward also has to allocate no more than its
+   outputs, the tiled kernels' partial sums and 1 MiB; K2c (no longer on
+   any path) forced wherever there is a bias, as the yardstick of the fold.
+   At the feature layer's window 235 (the WIDE tile), 300 and 1200 (the
+   CHUNKED tile, K2b with dbias planned there, the tiled K1-res and K2c's
+   chunked staging forced there too, each twice for identical bits, timed
+   by CUDA graph beside its bound); and the tiled K2b's weights against the
+   tiled K1-res's, bit for bit, at each tile, with and without dbias. Each
    kernel's time at both layers is a wrapper call by CUDA events and its
    device time from a CUDA graph of 20 calls, beside its bound and its plain
    version; K2ab's also without dbias, followed by K2c, and the sum of its
-   partials alone;
+   partials alone; the tiled K2b's with and without dbias, and followed by
+   K2c;
 7. K4, the GRU backward through time, against its plain version and against
    autograd of the plain forward at batch 256, 100 steps, hidden 150
    (float32 and bfloat16 ``gi``; a dense cotangent and one that is zero
@@ -86,7 +91,8 @@ In order, each phase failing the run with a non-zero exit:
    then bfloat16: 1 epoch with ``--gru_impl xla`` (the plain GRU loop) and 2
    epochs with ``--gru_impl pallas`` (every kernel on), asserting finite
    losses and summary, the launch counts (per training step K1-res, K2ab
-   summing dbias (K2a, K2b and K2c none at these widths) and, with the GRU
+   summing dbias (K2a, K2b none at these widths, K2c none on any path) and,
+   with the GRU
    kernels, K3, K4's scan and K4's weights product twice each; per batch scored without
    gradient K1 and, with the GRU kernels, K3 twice; K1 and K1-res through
    the whole-graph kernel only) and that
@@ -112,25 +118,40 @@ In order, each phase failing the run with a non-zero exit:
     --gru_impl pallas`` at dropout 0 on a short synthetic entity (700 rows,
     batch 32, 2 epochs): launch counts exact by kernel and variant (the
     feature layer's CHUNKED K2a and K2b, the temporal layer's tiled K1,
-    K1-res and merge), training windows/s and peak memory, and per-epoch
-    losses equal to the ``--attention_impl dense`` run's within a stated
-    tolerance; then the feature layer at window 1200 in one training call,
-    exact counts (the tiled K1-res and merge, the CHUNKED K2a and K2b, K2c's
-    chunked staging), against the dense layer;
+    K1-res and merge, K2b summing dbias at both, K2c never), training
+    windows/s and peak memory, and per-epoch losses equal to the
+    ``--attention_impl dense`` run's within a stated tolerance; then the
+    feature layer at window 1200 in one training call, exact counts (the
+    tiled K1-res and merge, the CHUNKED K2a and K2b with dbias), against the
+    dense layer;
 13. ``dense_route``: ``attention_impl="dense"`` on complete GATv2 graphs.
     At the flagship (batch 256, both layers) it stays dense, with no kernel
     launch; with the route's threshold pinned to 1 byte the layer runs K1
     (eval) or K1-res and K2ab (training) once a call and matches the dense
     layer, output and gradients; at the first N the byte model routes on
     this card (batch 1, e 76, d 38) it runs the tiled K1 in eval, and the
-    tiled K1-res, K2a, K2b and K2c in training at dropout 0.3, with exact
-    counts and peak memory; the output and the gradients (dp, dq, da,
+    tiled K1-res, K2a and K2b (with dbias) in training at dropout 0.3, with
+    exact counts and peak memory; the output and the gradients (dp, dq, da,
     dbias, dv) of both calls are held against the plain attention computed
     by chunks of query rows on the same inputs; each tiled kernel's time by
-    CUDA graph beside its bound; then dense at the largest N below the
-    route, its peak memory within the byte model, its time beside the
-    kernels';
-14. ``serving``: ``serve_cli`` on phase 5's run directory (the synthetic
+    CUDA graph beside its bound, K2b with dbias beside K2b followed by K2c
+    and the whole tiled backward both ways; then dense at the largest N
+    below the route, its peak memory within the byte model, its time beside
+    the kernels';
+14. ``long_complete``: ``train_cli --lookback 1024 --attention_impl pallas
+    --gru_impl pallas --bs 64 --dropout 0.3`` on complete feature and
+    temporal graphs, float32, 2 epochs on a synthetic entity of 1,700 rows
+    (10 steps an epoch): finite losses and summary, launch counts exact by
+    kernel and variant (the temporal layer's tiled K1, K1-res and merge,
+    FAST K2a and K2b with dbias; the feature layer's tiled forward with E
+    and D in chunks, CHUNKED K2a and K2b with dbias; K3, K4's scan and
+    weights twice a step; K2c never), training windows/s by epoch, peak
+    memory above the baseline, device time by kernel over one profiled
+    epoch; then the same entry point at ``--bs 8 --dropout 0`` for 1 epoch,
+    ``--attention_impl pallas`` and ``dense`` from one seed, per-epoch
+    losses within ``WIDE_LOSS_TOL`` (dense at batch 64 is not run: its byte
+    model, reported, holds the temporal layer alone near 68 GB);
+15. ``serving``: ``serve_cli`` on phase 5's run directory (the synthetic
     entity, the seeded model at the SMD widths, both kernels on, float32).
     K1 at batch 1 (one point's forward) at both layers against its plain
     version, twice for identical bits, by CUDA graph beside its bound (K3
@@ -153,11 +174,12 @@ In order, each phase failing the run with a non-zero exit:
     points/s at chunks 1, 8, 32, 128 and 512, the time per chunk from its
     yield to its written records (p50, p99) at 1 and 128, and device time by
     kernel over one profiled pass at each;
-15. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
-    path, serving's included, the tiled kernels' times at the route's N, and
-    K1's and K3's serving launches and batch-1 times; the merge, the
-    CHUNKED K2a and K2b and the chunked K2c as rows of their own) and, last,
-    ``{"ok": true, ...}``.
+16. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+    path, serving's and long_complete's included, the tiled kernels' times
+    at the route's N, K2b's with and without dbias, K2c's forced times and
+    where dbias now comes from, and K1's and K3's serving launches and
+    batch-1 times; the merge, the CHUNKED K2a and K2b and the chunked K2c as
+    rows of their own) and, last, ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -744,11 +766,19 @@ def grad_errors(outs, ref, dbias=None):
             {k: (x.float() - y.float()).abs().max().item() for k, (x, y) in grads.items()})
 
 
-def tiled_bwd(kg, args) -> tuple:
-    """(dp, dq, da, dv) through the tiled K2a then K2b, whatever the plan."""
+def tiled_bwd(kg, args, dbias: bool = False) -> tuple:
+    """(dp, dq, da, dv, dbias) through the tiled K2a then K2b, whatever the
+    plan, K2b summing dbias with ``dbias`` (else None)."""
     dp, da = kg.gatv2_bwd_dp_da(*args)
-    dq, dv = kg.gatv2_bwd_dq_dv(*args)
-    return dp, dq, da, dv
+    dq, dv, db = kg.gatv2_bwd_dq_dv(*args, dbias=dbias)
+    return dp, dq, da, dv, db
+
+
+def same_bits(xs, ys) -> bool:
+    """Equal bits, element for element, of two launches' outputs (None
+    where neither has one)."""
+    return all((x is None and y is None) or (x is not None and y is not None
+                                               and torch.equal(x, y)) for x, y in zip(xs, ys))
 
 
 def tiled_plans(kg) -> dict:
@@ -761,11 +791,24 @@ def tiled_plans(kg) -> dict:
 
 
 # the kernel each gradient of the backward comes from, by variant (and K2c
-# forced on its own)
+# forced on its own, on no path since dbias comes from K2ab and K2b)
 GRAD_KERNELS = {"graph": {"dp": "k2ab", "dq": "k2ab", "da": "k2ab", "dv": "k2ab",
                           "dbias": "k2ab"},
-                "tiled": {"dp": "k2a", "da": "k2a", "dq": "k2b", "dv": "k2b", "dbias": "k2c"},
+                "tiled": {"dp": "k2a", "da": "k2a", "dq": "k2b", "dv": "k2b", "dbias": "k2b"},
                 "k2c": {"dbias": "k2c"}}
+
+
+def k2b_group(kg, lib, B: int, N: int, E: int, D: int, sms: int) -> dict:
+    """The tiled K2b's batch group with dbias and its partials' bytes, as
+    the plan gives them and as the built library's own rule does, and its
+    blocks a multiprocessor (float32, dropout) with and without dbias: the
+    fold must not cost it a block."""
+    pl = kg.gat_tiled_bwd_plan(B, N, E, D, sms, dbias=True)["k2b"]
+    built = lib.gatv2_bwd_tiled_dbias_group(B, N, pl.tile, sms)
+    return {"planned": pl.group, "library": built, "tile": kg.TILED_TILE_NAMES[pl.tile],
+            "dbias_bytes": pl.dbias_bytes, "library_dbias_bytes": -(-B // built) * N * N * 4,
+            "occupancy": {"dbias" if db else "no_dbias": lib.gatv2_bwd_tiled_occupancy(
+                1, pl.tile, E, D, int(pl.acc_smem), 1, db) for db in (0, 1)}}
 
 
 def graph_occupancy(lib, N: int, E: int, D: int) -> dict:
@@ -778,8 +821,9 @@ def graph_occupancy(lib, N: int, E: int, D: int) -> dict:
 
 def check_training_kernels(gen, dev):
     """K1-res and the attention backward against their plain versions at the
-    training shapes, dbias from K2ab where the plan says "graph" and from K2c
-    where it says "tiled", and K2c forced at each flagship layer; returns
+    training shapes, dbias from K2ab where the plan says "graph" and from K2b
+    where it says "tiled" (and from the tiled K2b forced at the flagship
+    layers), and K2c forced wherever there is a bias; returns
     ({kernel: worst f32 error}, {kernel: worst relative error}, {kernel:
     {layer: times}})."""
     from mtad_gat_tpu_torch.kernels import gat as kg
@@ -791,21 +835,24 @@ def check_training_kernels(gen, dev):
              ("many_key_tiles", 1, 2048, 32, 16, "tiled", "tiled"),
              ("many_key_tiles", 1, 4096, 32, 16, "tiled", "tiled"),
              ("widest", 1, 300, 470, 235, "tiled", "tiled"),
+             ("batch groups", 17, 2048, 32, 16, "tiled", "tiled"),
              ("window 300", 64, 38, 600, 300, "graph", "tiled"),
              ("window 1200", 8, 38, 2400, 1200, "tiled", "tiled")]
     # the tiled cases: planned (not forced), float32 at dropout 0.3 with bias;
     # "widest" is the feature layer at window 235, the widest whole rows of
-    # the tiled backward's WIDE tile take; windows 300 and 1200 the feature
-    # layer beyond, the CHUNKED tile, where the tiled forward and K2c's
-    # chunked staging are also forced (window 300 plans the whole-graph
-    # forward and K2c's whole widths)
-    tiled_cases = ("many_key_tiles", "widest", "window 300", "window 1200")
+    # the tiled backward's WIDE tile take; "batch groups" a batch at which
+    # K2b with dbias takes two batch elements a block (nine groups, the last
+    # of one: tiled_dbias_groups on 132 multiprocessors); windows 300 and
+    # 1200 the feature layer beyond, the CHUNKED tile, where the tiled
+    # forward and K2c's chunked staging are also forced (window 300 plans the
+    # whole-graph forward)
+    tiled_cases = ("many_key_tiles", "widest", "batch groups", "window 300", "window 1200")
     variants = [(torch.float32, r, b) for r in (0.0, 0.3) for b in (True, False)]
     variants.append((torch.bfloat16, 0.3, True))
     worst = {k: 0.0 for k in ("k1res", "k2ab", "k2a", "k2b", "k2c")}
     worst_rel = dict(worst)
     times = {k: {} for k in worst}
-    times["wide"] = {}
+    times["wide"], times["k2b_dbias"] = {}, {}
     lib = kg._bwd_lib()
     for name, B, N, E, D, want_fwd, want_plan in cases:
         plan = kg.gat_bwd_plan(N, E, D)
@@ -821,11 +868,19 @@ def check_training_kernels(gen, dev):
         if plan == "graph":
             rec["k2ab_occupancy"] = graph_occupancy(lib, N, E, D)
             rec["dbias_partial_bytes"] = -(-B // group["planned"]) * N * N * 4
+        # the tiled K2b with dbias: planned where the plan says "tiled",
+        # forced at the flagship layers
+        rec["k2b_dbias_group"] = k2b = k2b_group(kg, lib, B, N, E, D, sms)
         emit(rec)
+        occ = k2b["occupancy"]
         if (plan != want_plan or smem["planned"] != smem["library"]
-                or group["planned"] != group["library"]):
+                or group["planned"] != group["library"]
+                or k2b["planned"] != k2b["library"]
+                or k2b["dbias_bytes"] != k2b["library_dbias_bytes"]
+                or not 0 < occ["dbias"] == occ["no_dbias"]):
             raise AssertionError(f"{name}: plan {plan}, expected {want_plan}; K2ab shared "
-                                 f"memory {smem}, dbias group {group}")
+                                 f"memory {smem}, dbias group {group}; the tiled K2b's group, "
+                                 f"partials and blocks a multiprocessor {k2b}")
         for dtype, rate, with_bias in variants:
             if name in tiled_cases and (dtype, rate, with_bias) != (torch.float32, 0.3, True):
                 continue
@@ -847,12 +902,12 @@ def check_training_kernels(gen, dev):
             ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, seed, rate)
             timed = name not in tiled_cases and dtype == torch.float32 and rate > 0 and with_bias
             # the tiled kernels once at each flagship layer (twice, for identical
-            # bits), so both variants stay covered, and K2c on its own wherever
-            # there is a bias
-            tiled = tiled_bwd(kg, args) if timed else None
-            tiled_again = tiled_bwd(kg, args) if timed else None
-            k2c = (kg.gatv2_bwd_dbias(*args) if with_bias and variant == "graph"
-                   else kg.gatv2_bwd_dbias(*args, variant="chunked") if wide else None)
+            # bits), K2b with dbias, so both variants stay covered, and K2c on
+            # its own wherever there is a bias
+            tiled = tiled_bwd(kg, args, dbias=True) if timed else None
+            tiled_again = tiled_bwd(kg, args, dbias=True) if timed else None
+            k2c = (kg.gatv2_bwd_dbias(*args, variant="chunked") if wide
+                   else kg.gatv2_bwd_dbias(*args) if with_bias else None)
             k2c_again = kg.gatv2_bwd_dbias(*args, variant="chunked") if wide else None
             tiled_fwd = (kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,
                                                 variant="tiled") if timed or wide else None)
@@ -882,27 +937,26 @@ def check_training_kernels(gen, dev):
                 if not (rec["tiled_forward_two_launches_identical"]
                         and rec["k2c_chunked_two_launches_identical"]):
                     bad.append("bits of the forced tiled forward or chunked K2c")
-            rec["two_launches_identical"] = all(
-                (x is None and y is None) or torch.equal(x, y) for x, y in zip(outs, again))
+            rec["two_launches_identical"] = same_bits(outs, again)
             if variant == "tiled" or tiled is not None:
                 rec["tiled_plan"] = tiled_plans(kg)
             if tiled is not None:
-                terr, tabs = grad_errors(tiled, ref)
+                terr, tabs = grad_errors(tiled, ref, tiled[4])
                 rec["tiled_grad_rel_err"], rec["tiled_grad_abs_err"] = terr, tabs
-                rec["tiled_two_launches_identical"] = all(
-                    torch.equal(x, y) for x, y in zip(tiled, tiled_again))
+                rec["tiled_two_launches_identical"] = same_bits(tiled, tiled_again)
                 runs.append(("tiled", terr, tabs))
             if k2c is not None:
                 rec["k2c_dbias_rel_err"] = rel_err(k2c, ref[3])
                 rec["k2c_dbias_abs_err"] = (k2c - ref[3]).abs().max().item()
                 runs.append(("k2c", {"dbias": rec["k2c_dbias_rel_err"]},
                              {"dbias": rec["k2c_dbias_abs_err"]}))
-            want_dbias = None if not with_bias else "k2ab" if variant == "graph" else "k2c"
+            want_dbias = None if not with_bias else "k2ab" if variant == "graph" else "k2b"
             if timed:
                 rec["timing"] = t = time_training_kernels(kg, p, q, a, bias, v, du, dvec,
                                                           got[2], got[3], seed, rate)
-                for k in worst:
-                    times[k][name] = t[k]
+                for k in times:
+                    if k != "wide":
+                        times[k][name] = t[k]
             if wide:
                 rec["timing"] = t = time_wide_kernels(kg, args, du)
                 t.update(grad_abs_err=gabs, grad_rel_err=gerr,
@@ -931,7 +985,7 @@ def check_training_kernels(gen, dev):
                         key = GRAD_KERNELS[run][k]
                         worst[key] = max(worst[key], absolute[k])
                         worst_rel[key] = max(worst_rel[key], rel[k])
-            if name == "many_key_tiles":
+            if name in ("many_key_tiles", "batch groups"):
                 check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate)
     check_w_bits(kg, torch.device("cuda"), gen)
     return worst, worst_rel, times
@@ -939,10 +993,10 @@ def check_training_kernels(gen, dev):
 
 def time_wide_kernels(kg, args, du) -> dict:
     """At a width beyond the first design's (the CHUNKED tile): the tiled
-    K1-res (forced), the tiled K2a and K2b and K2c (planned, and K2c's
-    chunked staging forced), each its device time by CUDA graph beside its
-    bound as ``time_training_kernels`` counts it, its plan, and the plain
-    backward's time."""
+    K1-res (forced), the tiled K2a and K2b (planned, K2b with and without
+    dbias) and K2c (and its chunked staging forced), each its device time by
+    CUDA graph beside its bound as ``time_training_kernels`` counts it, its
+    plan, and the plain backward's time."""
     p, q, a, bias, v, m, l, _, dvec, alpha, seed, rate = args
     B, N, E = p.shape
     D = v.shape[-1]
@@ -957,6 +1011,9 @@ def time_wide_kernels(kg, args, du) -> dict:
                 in_bytes + stats_bytes + B * N * E * 4 + E * 4),
         "k2b": (lambda: kg.gatv2_bwd_dq_dv(*args), pairs * (5 * E + 4 * D + 4),
                 in_bytes + stats_bytes + B * N * (E + D) * 4),
+        "k2b_dbias": (lambda: kg.gatv2_bwd_dq_dv(*args, dbias=True),
+                      pairs * (5 * E + 4 * D + 5),
+                      in_bytes + stats_bytes + B * N * (E + D) * 4 + N * N * 4),
         "k2c": (lambda: kg.gatv2_bwd_dbias(*args), pairs * (4 * E + 2 * D + 4),
                 in_bytes + stats_bytes + N * N * 4),
         "k2c_chunked": (lambda: kg.gatv2_bwd_dbias(*args, variant="chunked"),
@@ -987,16 +1044,18 @@ def check_w_bits(kg, dev, gen) -> None:
         p, q, a, bias, _ = gat_case(gen, dev, 1, N, E, N, torch.float32, True)
         eye = torch.eye(N, device=dev)[None].contiguous()
         _, u, m, l = kg.gatv2_attention_res(p, q, a, bias, eye, 0.2, 0, 0.0, variant="tiled")
-        _, dv = kg.gatv2_bwd_dq_dv(p, q, a, bias, eye, m, l, eye, torch.zeros(1, N, device=dev),
-                                   0.2, 0, 0.0)
+        bwd = (p, q, a, bias, eye, m, l, eye, torch.zeros(1, N, device=dev), 0.2, 0, 0.0)
+        _, dv, _ = kg.gatv2_bwd_dq_dv(*bwd)
+        _, dv_db, _ = kg.gatv2_bwd_dq_dv(*bwd, dbias=True)
         torch.cuda.synchronize()
         tile = kg.TILED_TILE_NAMES[kg.gatv2_bwd_dq_dv.last_plan.tile]
         rec = {"phase": "training_kernels", "case": "w of the tiled K1-res against K2b's, bit "
-               "for bit", "N": N, "E": E, "k2b_tile": tile,
+               "for bit, K2b without and with dbias", "N": N, "E": E, "k2b_tile": tile,
                "identical": torch.equal(u[0], dv[0].t()),
+               "identical_with_dbias": torch.equal(u[0], dv_db[0].t()),
                "max_abs_diff": (u[0] - dv[0].t()).abs().max().item()}
         emit(rec)
-        if not rec["identical"]:
+        if not (rec["identical"] and rec["identical_with_dbias"]):
             raise AssertionError(f"the tiled K2b's weights differ from the tiled K1-res's: {rec}")
 
 
@@ -1023,8 +1082,9 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
     main path calls it, dbias included): score + 2D + 4 + dp 1E + dq 1E + da
     2E + dv 2D + the add of ds into dbias, 8E + 4D + 5, and dbias (N, N)
     float32 written. K2a: score + 2D + 4 + dp + da, 7E + 2D + 4. K2b: score
-    + 2D + 4 + dq + dv, 5E + 4D + 4. K2c: score + 2D + 4 (+ its add, inside
-    the 4). The select of leaky_relu'(z) is not counted, so these are lower
+    + 2D + 4 + dq + dv, 5E + 4D + 4; with dbias (K2c's work in its pass)
+    5E + 4D + 5 and dbias (N, N) float32 written. K2c: score + 2D + 4 (+ its
+    add, inside the 4). The select of leaky_relu'(z) is not counted, so these are lower
     bounds. The bound counts each input read once and each output written
     once, so not K2ab's partial sums of dbias (``partial_bytes``, written
     once and read once by their sum); ``bound_with_partials_ms`` adds them.
@@ -1036,7 +1096,10 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
     (``no_dbias_*``: K2a and K2b's work alone, today's kernel before dbias
     moved into it), the sum of its partials alone (``partial_sum_*``), K2ab
     without dbias followed by K2c (``with_k2c_*``: the route dbias took
-    before), and the tiled K2a then K2b that it replaces, both ways."""
+    before), and the tiled K2a then K2b that it replaces, both ways. The
+    tiled K2b's entry ``k2b_dbias`` is K2b summing dbias in its own pass
+    (forced here), beside K2b followed by K2c (``k2b_k2c_*``: the tiled
+    path's dbias before the fold)."""
     B, N, E = p.shape
     D = v.shape[-1]
     size = p.dtype.itemsize
@@ -1061,6 +1124,9 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
         "k2b": (lambda: kg.gatv2_bwd_dq_dv(*args), plain_bwd,
                 pairs * (5 * E + 4 * D + 4),
                 in_bytes + stats_bytes + B * N * (E + D) * size),
+        "k2b_dbias": (lambda: kg.gatv2_bwd_dq_dv(*args, dbias=True), plain_bwd,
+                      pairs * (5 * E + 4 * D + 5),
+                      in_bytes + stats_bytes + B * N * (E + D) * size + N * N * 4),
         "k2c": (lambda: kg.gatv2_bwd_dbias(*args), plain_bwd,
                 pairs * (4 * E + 2 * D + 4),
                 in_bytes + stats_bytes + N * N * 4),
@@ -1084,6 +1150,10 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
                     ("with_k2c", lambda: (kg.gatv2_bwd_graph(*args), kg.gatv2_bwd_dbias(*args))),
                     ("tiled_k2a_k2b", lambda: tiled_bwd(kg, args))):
         k2ab[f"{key}_ms"], k2ab[f"{key}_graph_ms"] = time_ms(fn, 20), graph_ms(fn)
+    k2b = out["k2b_dbias"]
+    k2b["plan"] = kg.gatv2_bwd_dq_dv.last_plan._asdict()
+    fold_before = lambda: (kg.gatv2_bwd_dq_dv(*args), kg.gatv2_bwd_dbias(*args))  # noqa: E731
+    k2b["k2b_k2c_ms"], k2b["k2b_k2c_graph_ms"] = time_ms(fold_before, 20), graph_ms(fold_before)
     tiled_fwd = lambda: kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,  # noqa: E731
                                                variant="tiled")
     out["k1res"]["tiled_ms"] = time_ms(tiled_fwd, 20)
@@ -1095,7 +1165,8 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
     """One K1-res forward and the backward (the planned variant, dbias
     included) allocate their outputs, the tiled K2a's and K2b's partial sums
     (``gat_tiled_bwd_plan``'s ``partial_bytes``, the larger of the two: K2a's
-    are freed before K2b's exist, with K2a's da rows) and at most 1 MiB more:
+    are freed before K2b's exist, with K2a's da rows; K2b's with its dbias
+    partials beyond the (N, N) output) and at most 1 MiB more:
     no (B, N, N) tensor exists in device memory. The allowance is checked to
     stay below one (B, N, N) float32 tensor, so that one would still fail."""
     B, N, E = p.shape
@@ -1109,13 +1180,19 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
     size = p.dtype.itemsize
-    outputs = (B * N * D * (size + 4) + 2 * B * N * 4            # out, u, m, l
-               + 2 * B * N * E * size + E * 4 + B * N * D * size  # dp, dq, da, dv
-               + N * N * 4)                                       # dbias
+    # each output as the caching allocator holds it: rounded up to 512 bytes
+    # (da's E floats are a block of their own)
+    outputs = sum(-(-n // 512) * 512 for n in (
+        B * N * D * size, B * N * D * 4, B * N * 4, B * N * 4,    # out, u, m, l
+        B * N * E * size, B * N * E * size, E * 4, B * N * D * size,  # dp, dq, da, dv
+        N * N * 4))                                               # dbias
     plans = tiled_plans(kg) if kg.gatv2_bwd.last_launch["variant"] == "tiled" else {}
     fwd_plan = kg.gatv2_attention_res.last_launch["plan"]
+    # K2b's dbias partials beyond the (N, N) output itself (one group: none)
     partials = max([0 if fwd_plan is None else fwd_plan["partial_bytes"]]
-                   + [pl["partial_bytes"] + pl["da_rows"] * E * 4 for pl in plans.values()])
+                   + [pl["partial_bytes"] + pl["da_rows"] * E * 4
+                      + (pl["dbias_bytes"] if pl["dbias_bytes"] > N * N * 4 else 0)
+                      for pl in plans.values()])
     allowed = outputs + partials + 2**20
     emit({"phase": "training_kernels", "case": "device memory of one forward and backward",
           "B": B, "N": N, "backward": kg.gatv2_bwd.last_launch,
@@ -1364,7 +1441,8 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
                                n_features: int = 38) -> dict:
     """Launch counts of one train_cli run: each training step runs K1-res
     and the backward's variant that ``gat_bwd_plan`` names for the layer
-    (K2ab, summing dbias too, or K2a, K2b and K2c) in both attention layers
+    (K2ab, or K2a and K2b, each summing dbias too; K2c never) in both
+    attention layers
     (feature: N features, E 2w, D w; temporal: N w, E 2 features, D
     features; both with a learned score bias) and, with the GRU
     kernels, K3 and K4 (scan and weights product) in the encoder and the
@@ -1373,9 +1451,9 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     pass per epoch, the test loss, and the train and test scoring passes).
     K1 and K1-res also count by the variant ``gat_fwd_plan`` names, each
     tiled one with a merge; the tiled K2a and K2b by the tile
-    ``gat_tiled_bwd_plan`` names and K2c by its staging (``dbias_chunk``)."""
-    from mtad_gat_tpu_torch.kernels.gat import (TILED_TILE_NAMES, dbias_chunk, gat_bwd_plan,
-                                                gat_fwd_plan, gat_tiled_bwd_plan)
+    ``gat_tiled_bwd_plan`` names, K2b's also as summing dbias."""
+    from mtad_gat_tpu_torch.kernels.gat import (TILED_TILE_NAMES, gat_bwd_plan, gat_fwd_plan,
+                                                gat_tiled_bwd_plan)
 
     batches = lambda n: max(1, -(-n // bs))  # noqa: E731
     n_win = n_train_rows - w
@@ -1389,7 +1467,8 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     layers = ((n_features, 2 * w, w), (w, 2 * n_features, n_features))
     graph = sum(gat_bwd_plan(*layer) == "graph" for layer in layers)
     want.update(gatv2_bwd_graph=graph * steps, gatv2_bwd_dp_da=(2 - graph) * steps,
-                gatv2_bwd_dq_dv=(2 - graph) * steps, gatv2_bwd_dbias=(2 - graph) * steps)
+                gatv2_bwd_dq_dv=(2 - graph) * steps, gatv2_bwd_dbias=0)
+    want["gatv2_bwd_dq_dv:dbias"], want["gatv2_bwd_dq_dv:no_dbias"] = (2 - graph) * steps, 0
     want["gatv2_bwd_graph:dbias"], want["gatv2_bwd_graph:no_dbias"] = graph * steps, 0
     want.update(gatv2_attention_fwd=2 * no_grad,
                 gru_scan_fwd=2 * (steps + no_grad) if gru else 0,
@@ -1405,10 +1484,9 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     for layer in layers:
         if gat_bwd_plan(*layer) == "tiled":
             sms = torch.cuda.get_device_properties(0).multi_processor_count
-            for kernel, pl in gat_tiled_bwd_plan(bs, *layer, sms).items():
+            for kernel, pl in gat_tiled_bwd_plan(bs, *layer, sms, dbias=True).items():
                 name = "gatv2_bwd_dp_da" if kernel == "k2a" else "gatv2_bwd_dq_dv"
                 want[f"{name}:{TILED_TILE_NAMES[pl.tile]}"] += steps
-            want[f"gatv2_bwd_dbias:{'chunked' if dbias_chunk(*layer[1:]) else 'full'}"] += steps
     return want, steps
 
 
@@ -1649,7 +1727,7 @@ def check_dense_route(gen, dev) -> dict:
     stays dense (no kernel launches); with the route's threshold pinned to 1
     byte it runs the fused kernels and matches the dense layer; at the first
     N the byte model routes on this card (b 1, e 76, d 38), it runs tiled
-    K1 in eval and K1-res, K2a, K2b and K2c in training, whose output and
+    K1 in eval and K1-res, K2a and K2b (summing dbias) in training, whose output and
     gradients (dp, dq, da, dbias, dv) are held against the plain attention
     computed by chunks of query rows; and dense at the
     largest N below that, beside the kernels at the same N. Returns the
@@ -1784,7 +1862,7 @@ def check_dense_route(gen, dev) -> dict:
     expect_counts("route training", c_train, {
         "gatv2_attention_res": 1, "gatv2_attention_res:tiled": 1, "gatv2_fwd_merge": 1,
         "gatv2_bwd_dp_da": 1, "gatv2_bwd_dp_da:fast": 1, "gatv2_bwd_dq_dv": 1,
-        "gatv2_bwd_dq_dv:fast": 1, "gatv2_bwd_dbias": 1, "gatv2_bwd_dbias:full": 1})
+        "gatv2_bwd_dq_dv:fast": 1, "gatv2_bwd_dq_dv:dbias": 1})
     del out, out_t, grads, calls, ev, tr, want_ev, want_tr, want_g
     torch.cuda.empty_cache()
     times = time_route_kernels(kg, layer, xr, gen)
@@ -1830,7 +1908,10 @@ def check_dense_route(gen, dev) -> dict:
 def time_route_kernels(kg, layer, x, gen) -> dict:
     """The tiled kernels at the route's shape (b 1, the layer's N, E 76, D
     38, float32, dropout 0.3, bias): device time from a CUDA graph of 3
-    calls, and the bound as ``time_training_kernels`` counts it."""
+    calls, and the bound as ``time_training_kernels`` counts it; K2b with
+    dbias (the fold, on the path) beside K2b followed by K2c (before it),
+    and the whole tiled backward both ways: K2a + K2b with dbias (``bwd``,
+    what a training call runs) and K2a + K2b + K2c (``bwd_k2c``)."""
     B, N, D = x.shape
     E = layer.lin.weight.shape[0]
     with torch.no_grad():
@@ -1858,6 +1939,17 @@ def time_route_kernels(kg, layer, x, gen) -> dict:
                 in_bytes + stats_bytes + B * N * (E + D) * 4),
         "k2c": (lambda: kg.gatv2_bwd_dbias(*args), pairs * (4 * E + 2 * D + 4),
                 in_bytes + stats_bytes + N * N * 4),
+        "k2b_dbias": (lambda: kg.gatv2_bwd_dq_dv(*args, dbias=True),
+                      pairs * (5 * E + 4 * D + 5),
+                      in_bytes + stats_bytes + B * N * (E + D) * 4 + N * N * 4),
+        "k2b_k2c": (lambda: (kg.gatv2_bwd_dq_dv(*args), kg.gatv2_bwd_dbias(*args)),
+                    pairs * (5 * E + 4 * D + 5),
+                    in_bytes + stats_bytes + B * N * (E + D) * 4 + N * N * 4),
+        "bwd": (lambda: kg.gatv2_bwd(*args, dbias=True), pairs * (8 * E + 4 * D + 5),
+                in_bytes + stats_bytes + B * N * (2 * E + D) * 4 + E * 4 + N * N * 4),
+        "bwd_k2c": (lambda: (tiled_bwd(kg, args), kg.gatv2_bwd_dbias(*args)),
+                    pairs * (8 * E + 4 * D + 5),
+                    in_bytes + stats_bytes + B * N * (2 * E + D) * 4 + E * 4 + N * N * 4),
     }
     times = {}
     for k, (fn, ops, nbytes) in spec.items():
@@ -1866,8 +1958,8 @@ def time_route_kernels(kg, layer, x, gen) -> dict:
                     "bound_by": bound_by}
         times[k]["over_bound"] = times[k]["graph_ms"] / bound_ms
         times[k]["variant"] = "tiled"
-        if k in ("k2a", "k2b"):
-            times[k]["plan"] = tiled_plans(kg)[k]
+        if k in ("k2a", "k2b", "k2b_dbias"):
+            times[k]["plan"] = tiled_plans(kg)[k[:3]]
         if k in ("k1", "k1res"):
             times[k]["plan"] = kg.gatv2_attention_fwd.last_launch["plan"]
             times[k]["blocks_per_multiprocessor"] = kg._fwd_lib().gatv2_fwd_tiled_occupancy(
@@ -2033,70 +2125,91 @@ WIDE_LOOKBACK, WIDE_ROWS, WIDE_BS, WIDE_EPOCHS = 300, 700, 32, 2
 WIDE_LOSS_TOL = 1e-4
 
 
+def timed_train_cli(argv, out_root) -> dict:
+    """``train_cli.main(argv)`` on the card with ``Trainer.train_epoch``
+    timed by epoch (a device sync on each side): seconds of the call, launch
+    counts, peak memory above the baseline, training windows/s by epoch,
+    per-epoch losses, each step's (forecast, recon) loss, the summary, and
+    the trainer and arguments of its last epoch (``last_epoch``, for a
+    profiled epoch after)."""
+    from mtad_gat_tpu_torch.cli import train_cli
+    from mtad_gat_tpu_torch.training import Trainer
+
+    real_epoch = Trainer.train_epoch
+    epochs, step_losses, last = [], [], {}
+
+    def timed_epoch(self, series, starts, mask):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_epoch(self, series, starts, mask)
+        torch.cuda.synchronize()
+        epochs.append((int(mask.sum()), time.perf_counter() - t0))
+        step_losses.extend(zip(*(np.ravel(x).tolist() for x in out)))
+        last.update(trainer=self, args=(series, starts, mask))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    Trainer.train_epoch = timed_epoch
+    try:
+        t0 = time.perf_counter()
+        run = train_cli.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        Trainer.train_epoch = real_epoch
+    with open(os.path.join(out_root, "SMD", "1-1", "logs", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return {"seconds": seconds, "launches": read_counts(),
+            "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
+            "train_windows_per_s_by_epoch": [w / s for w, s in epochs],
+            "epoch_losses": records, "step_losses": step_losses,
+            "summary": finite_summary(os.path.join(run, "summary.txt")), "last_epoch": last}
+
+
+def loss_errors(got: list, want: list) -> tuple:
+    """(every (key, got, want) of two runs' per-epoch forecast, recon and
+    total losses, the largest difference relative to want's)."""
+    losses = [(k, r[k], d[k]) for r, d in zip(got, want)
+              for k in r if k.endswith(("forecast", "recon", "total"))]
+    return losses, max(abs(x - y) / abs(y) for _, x, y in losses)
+
+
 def check_wide_window(work, gen, dev) -> dict:
     """The widths beyond the first tiled design on their entry points.
     ``train_cli --lookback 300 --attention_impl pallas --gru_impl pallas`` at
     dropout 0 on a short synthetic entity: the feature layer (N 38, E 600, D
     300) runs the whole-graph K1 and K1-res on two row blocks and the CHUNKED
-    K2a and K2b with K2c, the temporal layer (N 300, E 76, D 38) the tiled
-    K1 and K1-res with their merge, FAST K2a and K2b and K2c. Launch counts
+    K2a and K2b, the temporal layer (N 300, E 76, D 38) the tiled K1 and
+    K1-res with their merge, FAST K2a and K2b; K2b sums dbias at both, K2c
+    runs at neither. Launch counts
     exact by kernel and variant, finite losses and summary, training
     windows/s (``Trainer.train_epoch`` timed by epoch) and peak memory; the
     same run with ``--attention_impl dense`` gives the same per-epoch losses
     within ``WIDE_LOSS_TOL``. Then the feature layer at window 1200 (N 38, E
     2400, D 1200) in training through ``FeatureAttention(impl="pallas")``:
-    the tiled K1-res and its merge, the CHUNKED K2a and K2b and K2c's chunked
-    staging, exact counts, output and gradients against the dense layer at
-    dropout 0. Returns the launch counts of both."""
-    from mtad_gat_tpu_torch.cli import train_cli
+    the tiled K1-res and its merge, the CHUNKED K2a and K2b (with dbias),
+    exact counts, output and gradients against the dense layer at dropout 0.
+    Returns the launch counts of both."""
     from mtad_gat_tpu_torch.nn import FeatureAttention
-    from mtad_gat_tpu_torch.training import Trainer
 
     data_root = os.path.join(work, "wide_data")
     write_smd(data_root, WIDE_ROWS, anomaly=0.6)   # past the first scored row, 300
-    real_epoch = Trainer.train_epoch
     runs = {}
     for impl in ("pallas", "dense"):
-        epochs = []
-
-        def timed_epoch(self, series, starts, mask):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = real_epoch(self, series, starts, mask)
-            torch.cuda.synchronize()
-            epochs.append((int(mask.sum()), time.perf_counter() - t0))
-            return out
-
         out_root = os.path.join(work, f"wide_{impl}")
         argv = ["--dataset", "SMD", "--group", "1-1", "--data_root", data_root,
                 "--output_root", out_root, "--device", "cuda", "--lookback",
                 str(WIDE_LOOKBACK), "--bs", str(WIDE_BS), "--epochs", str(WIDE_EPOCHS),
                 "--dropout", "0", "--attention_impl", impl, "--gru_impl", "pallas",
                 "--log_tensorboard", "False", "--run_id", "run", "--seed", "0"]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        reset_counts()
-        Trainer.train_epoch = timed_epoch
-        try:
-            t0 = time.perf_counter()
-            run = train_cli.main(argv)
-            seconds = time.perf_counter() - t0
-        finally:
-            Trainer.train_epoch = real_epoch
-        with open(os.path.join(out_root, "SMD", "1-1", "logs", "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
-        runs[impl] = {"seconds": seconds, "launches": read_counts(),
-                      "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
-                      "train_windows_per_s_by_epoch": [w / s for w, s in epochs],
-                      "epoch_losses": records,
-                      "summary": finite_summary(os.path.join(run, "summary.txt"))}
+        runs[impl] = timed_train_cli(argv, out_root)
+        runs[impl].pop("last_epoch")
     kern, dense = runs["pallas"], runs["dense"]
     want, steps = expected_training_launches(WIDE_ROWS, WIDE_ROWS, WIDE_LOOKBACK, WIDE_BS,
                                              WIDE_EPOCHS, 0.1, "pallas")
-    losses = [(k, r[k], d[k]) for r, d in zip(kern["epoch_losses"], dense["epoch_losses"])
-              for k in r if k.endswith(("forecast", "recon", "total"))]
-    loss_err = max(abs(x - y) / abs(y) for _, x, y in losses)
+    losses, loss_err = loss_errors(kern["epoch_losses"], dense["epoch_losses"])
     rec = {"phase": "wide_window", "run": f"train_cli --lookback {WIDE_LOOKBACK} "
            "--attention_impl pallas --gru_impl pallas, dropout 0, against --attention_impl "
            "dense", "rows": WIDE_ROWS, "bs": WIDE_BS, "epochs": WIDE_EPOCHS, "steps": steps,
@@ -2137,7 +2250,7 @@ def check_wide_window(work, gen, dev) -> dict:
     expect_counts("window 1200 feature layer", counts, {
         "gatv2_attention_res": 1, "gatv2_attention_res:tiled": 1, "gatv2_fwd_merge": 1,
         "gatv2_bwd_dp_da": 1, "gatv2_bwd_dp_da:chunked": 1, "gatv2_bwd_dq_dv": 1,
-        "gatv2_bwd_dq_dv:chunked": 1, "gatv2_bwd_dbias": 1, "gatv2_bwd_dbias:chunked": 1})
+        "gatv2_bwd_dq_dv:chunked": 1, "gatv2_bwd_dq_dv:dbias": 1})
     if not (errs["out"] <= ROUTE_TOL and errs["grads"] <= TRAIN_TOL[torch.float32]["grad"]):
         raise AssertionError(f"the window 1200 feature layer differs from dense: {errs}")
     del layer, x, cot, out, grads, out_d, grads_d
@@ -2148,6 +2261,142 @@ def check_wide_window(work, gen, dev) -> dict:
 def wide_counts(wide: dict, key: str) -> int:
     """Launches under ``key`` ("name:variant") on the wide_window path."""
     return wide["train_cli"][key] + wide["layer"][key]
+
+
+# train_cli at lookback 1024 on complete graphs through the attention kernels:
+# 1,700 rows of train and of test (676 windows: 609 to train, 10 steps of 64
+# an epoch), 2 epochs at the reference's dropout 0.3; the anomaly past the
+# first scored row, 1024
+LONG_LOOKBACK, LONG_ROWS, LONG_BS, LONG_EPOCHS, LONG_ANOMALY = 1024, 1700, 64, 2, 0.7
+# the parity runs against --attention_impl dense: batch 8 (dense at batch 64
+# would hold the temporal layer alone near 68 GB, by its byte model), 1
+# epoch, dropout 0, one seed. On an entity of 1,120 rows (11 steps, as few
+# as wide_window's epochs hold) per-epoch losses within WIDE_LOSS_TOL and
+# every step's within TRAIN_PATH_TOL's; on the 1,700-row entity (77 steps)
+# the first LONG_PARITY_STEPS steps' losses within TRAIN_PATH_TOL's, as
+# phase 9 holds its 7 steps, and the per-epoch losses reported: over 77 Adam
+# steps the two paths' last-bit differences in near-zero gradients of the
+# (1024, 1024) score bias move those entries by up to lr a step each (the
+# reason TRAIN_PATH_TOL gives), so the runs drift apart step by step
+LONG_PARITY_BS, LONG_PARITY_ROWS, LONG_PARITY_STEPS = 8, 1120, 7
+
+
+def check_long_complete(work, dev, smi: str) -> dict:
+    """``train_cli --lookback 1024 --attention_impl pallas --gru_impl pallas
+    --bs 64 --dropout 0.3`` on complete feature and temporal graphs (the
+    defaults), float32, 2 epochs: the temporal layer (N 1024, E 76, D 38)
+    runs the tiled K1 and K1-res with their merge and the FAST K2a and K2b,
+    the feature layer (N 38, E 2048, D 1024) the tiled forward with E and D
+    in chunks and the CHUNKED K2a and K2b; K2b sums dbias at both, K2c runs
+    at neither; K3, K4's scan and its weights product run twice a step at T
+    1024. Launch counts exact by kernel and variant, finite losses and
+    summary, training windows/s by epoch, peak memory above the baseline,
+    device time by kernel over one profiled epoch. Then the same entry point
+    at batch 8, dropout 0, 1 epoch, ``--attention_impl pallas`` and
+    ``dense`` from one seed, on a 1,120-row entity (per-epoch losses within
+    ``WIDE_LOSS_TOL``, every step's within ``TRAIN_PATH_TOL``'s) and on the
+    phase's own (the first ``LONG_PARITY_STEPS`` steps' losses within
+    ``TRAIN_PATH_TOL``'s, the rest and the per-epoch losses reported).
+    Returns the launch counts of the batch-64 run and its records."""
+    import mtad_gat_tpu_torch.nn.gat as ngat
+
+    data_root = os.path.join(work, "long_data")
+    write_smd(data_root, LONG_ROWS, anomaly=LONG_ANOMALY)
+    common = ["--dataset", "SMD", "--group", "1-1", "--data_root", data_root, "--device",
+              "cuda", "--lookback", str(LONG_LOOKBACK), "--gru_impl", "pallas",
+              "--log_tensorboard", "False", "--run_id", "run", "--seed", "0"]
+    out_root = os.path.join(work, "long_complete")
+    run = timed_train_cli(common + ["--output_root", out_root, "--attention_impl", "pallas",
+                                    "--bs", str(LONG_BS), "--dropout", "0.3",
+                                    "--epochs", str(LONG_EPOCHS)], out_root)
+    last = run.pop("last_epoch")
+    want, steps = expected_training_launches(LONG_ROWS, LONG_ROWS, LONG_LOOKBACK, LONG_BS,
+                                             LONG_EPOCHS, 0.1, "pallas")
+    losses = [r[k] for r in run["epoch_losses"] for k in r if k.endswith("total")]
+    threshold = ngat.dense_route_threshold(dev)
+    dense_bytes = ngat.dense_gatv2_bytes(LONG_BS, LONG_LOOKBACK, 76, 4, True)
+    # each layer's tiled forward and backward kernels: their bounds at the
+    # run's shapes, counted as time_training_kernels counts them
+    bounds = {}
+    for layer, (N, E, D) in (("temporal", (LONG_LOOKBACK, 76, 38)),
+                             ("feature", (38, 2 * LONG_LOOKBACK, LONG_LOOKBACK))):
+        B, pairs = LONG_BS, LONG_BS * N * N
+        in_bytes = (2 * B * N * E + E + B * N * D) * 4 + N * N * 4
+        stats = 3 * B * N * 4 + B * N * D * 4
+        bounds[layer] = {k: bound(ops, nbytes) for k, (ops, nbytes) in {
+            "k1res": (pairs * (4 * E + 2 * D), in_bytes + B * N * D * 8 + 2 * B * N * 4),
+            "k2a": (pairs * (7 * E + 2 * D + 4), in_bytes + stats + B * N * E * 4 + E * 4),
+            "k2b_dbias": (pairs * (5 * E + 4 * D + 5),
+                          in_bytes + stats + B * N * (E + D) * 4 + N * N * 4)}.items()}
+    prof = profile_device(lambda: last["trainer"].train_epoch(*last["args"]),
+                          f"one training epoch, train_cli --lookback {LONG_LOOKBACK} "
+                          f"--attention_impl pallas --gru_impl pallas, batch {LONG_BS}, "
+                          "float32, dropout 0.3", top=20)
+    prof.update(phase="long_complete", steps=int(last["args"][1].shape[0]))
+    del last
+    torch.cuda.empty_cache()
+    rec = {"phase": "long_complete", "card": smi,
+           "run": f"train_cli --lookback {LONG_LOOKBACK} --attention_impl pallas --gru_impl "
+                  f"pallas --bs {LONG_BS} --dropout 0.3, complete graphs, float32",
+           "rows": LONG_ROWS, "epochs": LONG_EPOCHS, "steps": steps,
+           **{k: v for k, v in run.items() if k != "summary"},
+           "expected_launches": want, "bf_f1": run["summary"]["bf_result"]["f1"],
+           "temporal_dense_bytes_at_batch": dense_bytes, "dense_route_threshold_bytes": threshold,
+           "temporal_dense_routes": dense_bytes > threshold, "bounds_ms": bounds}
+    emit(rec)
+    emit(prof)
+    if run["launches"] != want:
+        raise AssertionError(f"long_complete train_cli: launches {run['launches']}, "
+                             f"expected {want}")
+    if not (len(losses) == 2 * LONG_EPOCHS and np.all(np.isfinite(losses))):
+        raise AssertionError(f"long_complete: losses {losses}")
+
+    # parity at batch 8, dropout 0: the kernels against dense from one seed,
+    # on a short entity and on the phase's own
+    parity, bad = [], []
+    for rows in (LONG_PARITY_ROWS, LONG_ROWS):
+        root = os.path.join(work, f"long_parity_{rows}")
+        data = data_root if rows == LONG_ROWS else os.path.join(root, "data")
+        if rows != LONG_ROWS:
+            write_smd(data, rows, anomaly=0.93)      # past the first scored row, 1024
+        runs = {}
+        for impl in ("pallas", "dense"):
+            out_root = os.path.join(root, impl)
+            argv = [data if x == data_root else x for x in common]
+            runs[impl] = timed_train_cli(argv + ["--output_root", out_root, "--attention_impl",
+                                                 impl, "--bs", str(LONG_PARITY_BS), "--dropout",
+                                                 "0", "--epochs", "1"], out_root)
+            runs[impl].pop("last_epoch")
+        pwant, psteps = expected_training_launches(rows, rows, LONG_LOOKBACK, LONG_PARITY_BS,
+                                                   1, 0.1, "pallas")
+        plosses, perr = loss_errors(runs["pallas"]["epoch_losses"],
+                                    runs["dense"]["epoch_losses"])
+        step_err = [max(abs(x - y) for x, y in zip(k, d))
+                    for k, d in zip(runs["pallas"]["step_losses"], runs["dense"]["step_losses"])]
+        gated = len(step_err) if rows == LONG_PARITY_ROWS else LONG_PARITY_STEPS
+        prec = {"phase": "long_complete", "case": f"batch {LONG_PARITY_BS}, dropout 0, 1 epoch, "
+                f"--attention_impl pallas against dense, one seed, {rows} rows",
+                "rows": rows, "steps": psteps, "epoch_loss_rel_err": perr,
+                "epoch_loss_tol": WIDE_LOSS_TOL if rows == LONG_PARITY_ROWS else "reported",
+                "losses": plosses, "step_loss_max_abs_err": step_err,
+                "steps_held": gated, "step_loss_tol": TRAIN_PATH_TOL["loss"],
+                "launches": runs["pallas"]["launches"], "expected_launches": pwant,
+                **{f"{impl}_{k}": runs[impl][k] for impl in runs
+                   for k in ("seconds", "peak_extra_bytes", "train_windows_per_s_by_epoch")}}
+        emit(prec)
+        parity.append(prec)
+        if runs["pallas"]["launches"] != pwant:
+            bad.append(f"{rows} rows: launches {runs['pallas']['launches']}, expected {pwant}")
+        if not (len(step_err) == psteps and max(step_err[:gated]) <= TRAIN_PATH_TOL["loss"]
+                and all(np.isfinite(x) for _, x, _ in plosses)
+                and (rows != LONG_PARITY_ROWS or perr <= WIDE_LOSS_TOL)):
+            bad.append(f"{rows} rows: epoch losses {plosses} (relative {perr}), step losses "
+                       f"{step_err[:gated]} beyond {WIDE_LOSS_TOL} and "
+                       f"{TRAIN_PATH_TOL['loss']}")
+    if bad:
+        raise AssertionError(f"long_complete parity: {bad}")
+    torch.cuda.empty_cache()
+    return {"launches": run["launches"], "rec": rec, "profile": prof, "parity": parity}
 
 
 # ---------------------------------------------------------------------------
@@ -2564,12 +2813,14 @@ def main() -> None:
         graph_cli = check_graph_cli(work, data_root)
         wide = check_wide_window(work, gen, dev)
         route = check_dense_route(gen, dev)
+        long_complete = check_long_complete(work, dev, smi)
         serving = check_serving(gen, dev, work, k3_batch1, smi)
     by_path = {name: {"main": train_launches.get(name, 0),
                       "dense_route": route["launches_eval"][name] + route["launches_train"][name],
                       "long_window": long_window["launches"][name],
                       "graph_cli": graph_cli[name],
                       "wide_window": wide["train_cli"][name] + wide["layer"][name],
+                      "long_complete": long_complete["launches"][name],
                       "serving": serving["launches"][name]}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
@@ -2700,33 +2951,58 @@ def main() -> None:
                                "over groups of dbias_groups batch elements; ms and graph_ms "
                                "include the sum of its partials")
         elif key == "k2c":
-            row["variant"] = ("tiled, for graphs K2ab cannot hold (phase 6: N = 2048 and "
-                              "4096) and forced at each flagship layer, where its errors and "
-                              "times come from; on the main path dbias comes from K2ab "
-                              "(gatv2_bwd_graph with dbias), so it launches no time there")
+            row["variant"] = ("the standalone tiled K2c, on no path: dbias comes from K2ab "
+                              "(gatv2_bwd_graph with dbias) where the graph fits a block and "
+                              "from the tiled K2b (gatv2_bwd_dq_dv with dbias) above; forced "
+                              "at each flagship layer and phase 6's tiled cases, where its "
+                              "errors and times come from, as the yardstick of the fold")
+            row["dbias_from"] = {"graph": "k2ab", "tiled": "k2b"}
         elif key in ("k2a", "k2b"):
             row["variant"] = ("tiled, for graphs K2ab cannot hold (phase 6: N = 2048 and "
                               "4096, and once forced at each flagship layer; the dense "
-                              "route's N): 64 x 64 score tiles of 4 x 4 register micro-tiles, "
-                              "the streamed loop cut into slices of their own blocks "
+                              "route's N; long_complete's temporal layer): 64 x 64 score "
+                              "tiles of 4 x 4 register micro-tiles, the streamed loop cut "
+                              "into slices of their own blocks "
                               "(kernels/gat.gat_tiled_bwd_plan), float32 partials summed in "
                               "slice order by a reduce kernel; not on the main path at "
                               "flagship widths")
+            if key == "k2b":
+                db = train_ms["k2b_dbias"]
+                fd, td = db["feature"], db["temporal"]
+                row["variant"] += ("; with dbias it sums K2c's dbias in the same pass, each "
+                                   "block over tiled_dbias_groups batch elements")
+                row.update(
+                    launches_with_dbias=route["launches_train"]["gatv2_bwd_dq_dv:dbias"],
+                    dbias_ms_by_layer=[fd["ms"], td["ms"]],
+                    dbias_graph_ms_by_layer=[fd["graph_ms"], td["graph_ms"]],
+                    dbias_bound_ms_by_layer=[fd["bound_ms"], td["bound_ms"]],
+                    k2b_then_k2c_graph_ms_by_layer=[fd["k2b_k2c_graph_ms"],
+                                                    td["k2b_k2c_graph_ms"]],
+                    dbias_plan_by_layer=[fd["plan"], td["plan"]])
         kernels.append(row)
     route_rows = {"gatv2_attention_fwd": "k1", "gatv2_attention_res": "k1res",
                   "gatv2_bwd_dp_da": "k2a", "gatv2_bwd_dq_dv": "k2b", "gatv2_bwd_dbias": "k2c"}
     for row in kernels:
         row["launches_by_path"] = by_path[row["name"]]
-        if row["name"] in ("gatv2_bwd_dp_da", "gatv2_bwd_dq_dv", "gatv2_bwd_dbias"):
+        if row["name"] in ("gatv2_bwd_dp_da", "gatv2_bwd_dq_dv"):
             # not on the main path at flagship widths: their path is the route
             row["launches"] = by_path[row["name"]]["dense_route"]
             row["launches_path"] = "dense_route"
+        if row["name"] == "gatv2_bwd_dbias":
+            row["launches"] = sum(by_path[row["name"]].values())
+            row["launches_path"] = "none: K2ab and K2b give dbias in their own pass"
         if row["name"] in route_rows:
             t = route["times"][route_rows[row["name"]]]
             row.update(route_N=route["N"], route_graph_ms=t["graph_ms"],
                        route_bound_ms=t["bound_ms"], route_bound_by=t["bound_by"])
             if "plan" in t:
                 row["route_plan"] = t["plan"]
+        if row["name"] == "gatv2_bwd_dq_dv":
+            rt = route["times"]
+            row.update({f"route_{k}_{f}": rt[k][f] for k in ("k2b_dbias", "k2b_k2c", "bwd",
+                                                              "bwd_k2c")
+                        for f in ("graph_ms", "bound_ms")},
+                       route_training_call_seconds=route["route"]["train_seconds"])
     merge = k1_ms["merge"]
     kernels.append({
         "name": "gatv2_fwd_merge", "route": "cuda", "source": "mtad_gat_tpu_torch/csrc/gat_fwd.cu",
@@ -2746,8 +3022,14 @@ def main() -> None:
         variant = f"{name}:chunked"
         err = (lambda t: t["k2c_chunked_abs_err"]) if key == "k2c_chunked" else (
             lambda t: max(t["grad_abs_err"][g] for g in (("dp", "da") if key == "k2a"
-                                                         else ("dq", "dv"))))
-        kernels.append({
+                                                         else ("dq", "dv", "dbias"))))
+        extra = {"launches_long_complete": long_complete["launches"][variant]}
+        if key == "k2b":
+            extra["dbias_graph_ms_by_window"] = [w3["k2b_dbias"]["graph_ms"],
+                                                 w12["k2b_dbias"]["graph_ms"]]
+            extra["dbias_bound_ms_by_window"] = [w3["k2b_dbias"]["bound_ms"],
+                                                 w12["k2b_dbias"]["bound_ms"]]
+        kernels.append({**extra,
             "name": f"{name}_chunked", "route": "cuda",
             "source": "mtad_gat_tpu_torch/csrc/gat_bwd.cu",
             "replaces": f"mtad_gat_tpu/kernels/gat_pallas.py:{line}",

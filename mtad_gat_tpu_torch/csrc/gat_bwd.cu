@@ -7,11 +7,13 @@
 //   K2c  _bwd_dbias_kernel   dbias (N, N) = sum_b ds, per-chunk partial sums
 //   K2ab K2a and K2b in one launch for graphs that fit a block whole (the
 //        model's: N = 38 and 100), each (i, j) pair scored once, and K2c's
-//        dbias too where the call wants it; K2a, K2b and K2c stay as the
-//        variant for large graphs (kernels/gat.gat_bwd_plan chooses). The
-//        K2ab section below says more, and the tiled K2a and K2b section how
+//        dbias too where the call wants it; K2a and K2b stay as the variant
+//        for large graphs (kernels/gat.gat_bwd_plan chooses), K2b summing
+//        K2c's dbias there in the same pass (DBIAS, add_dbias). The K2ab
+//        section below says more, and the tiled K2a and K2b section how
 //        those two fill the card at batch 1 (slices of the streamed loop,
-//        register tiles, cp.async staging).
+//        register tiles, cp.async staging). The standalone K2c launches on
+//        no path: it stays as the yardstick the fold is timed against.
 // Each recomputes its tile of attention weights from the forward's row stats
 // (m, l) instead of reading an (N, N) tensor (_ds_tile, :417-451):
 //
@@ -43,9 +45,11 @@
 // Reductions across blocks are deterministic: K2a writes one da row per
 // block and K2a and K2b one float32 partial per slice of their loop, summed
 // in slice order by a second kernel; K2c writes one dbias matrix per batch
-// chunk and K2ab one per group of batch elements; the caller sums those (JAX
-// does the same for da, `da_part`, :651 and :669). K2c splits the batch into
-// chunks so that the few (i, j) tiles of a small graph still fill the card.
+// chunk and K2ab and K2b one per group of batch elements; the caller sums
+// those (JAX does the same for da, `da_part`, :651 and :669). K2c splits the
+// batch into chunks so that the few (i, j) tiles of a small graph still fill
+// the card; K2b's groups are as large as its fill allows
+// (tiled_dbias_group).
 //
 // Layouts: p, q (B, N, E), v (B, N, D) in T (float32 or bfloat16; float32
 // for the tiled K2a and K2b, whose wrappers widen bfloat16); a (E,) in T;
@@ -259,6 +263,16 @@ __device__ inline uint32_t read_seed(const Args& g) {
 //   multiprocessor (kernels/gat.TILED_CHOICES, by measurement); each element
 //   has one owner thread, which writes it at the first tile, adds at the
 //   next ones and writes the total at the last;
+// - K2c's dbias in K2b's pass (DBIAS): each thread adds the ds of its
+//   micro-tile, already in registers after the score, into a float32 (N, N)
+//   partial of its batch group (add_dbias: one owner a pair, no atomics, no
+//   barrier, no shared memory, so the block's layout and occupancy stay as
+//   without it). The block then walks the G batch elements of its group,
+//   batch outer and its slice's row tiles inner, restaging the key tile for
+//   each, its running sums starting anew each element; at batch 1 the one
+//   partial is dbias itself. Where K2c read p, q, v, du, m, l and dvec a
+//   third time and scored every pair again, the fold adds N^2 float32
+//   writes (and reads, G > 1) to K2b;
 // - staging by cp.async with zero fill (ragged rows, padded widths), one
 //   buffer for the streamed tile. Three barriers a tile: the tile has
 //   arrived, its ds is complete (the contraction reads other threads' ds),
@@ -513,20 +527,50 @@ __device__ __forceinline__ void accumulate(float* part_x, float* smem_x, float v
     *smem_x = val;
 }
 
-// K2b: a block per (slice, batch element, key tile), walking its slice's row
-// tiles. part (slices, B, N, E + D): dq's sums without the factor a_e, then dv's.
-template <int RI, int KJ, bool DROP>
+// K2c's function inside K2b (DBIAS): the thread that scores pair (i, j) of a
+// tile adds its ds_ij into the block's batch group's (N, N) float32 partial,
+// writing it at the group's first batch element and adding at the next ones
+// in batch order. The pair has one owner thread in one block for every
+// batch element of the group (the block's slice holds row i's tile, its key
+// tile key j, and the micro-tile mapping does not depend on b), so there are
+// no atomics and no barrier; rows and keys >= N are not written.
+template <int RG, int KG>
+__device__ __forceinline__ void add_dbias(float* __restrict__ db, int N, int i0, int j0, int ti,
+                                          int tj, const float (&ds)[16], bool add) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ti + RG * r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + tj + KG * c;
+      if (i < N && j < N) {
+        float& x = db[(size_t)i * N + j];
+        x = add ? x + ds[r * 4 + c] : ds[r * 4 + c];
+      }
+    }
+  }
+}
+
+// K2b: a block per (slice, batch group, key tile), walking the batch elements
+// of its group in order and, for each, its slice's row tiles (a group of one
+// element without DBIAS). part (slices, B, N, E + D): dq's sums without the
+// factor a_e, then dv's; with DBIAS dbias_part (ceil(B / group), N, N), one
+// group's sum of ds each.
+template <int RI, int KJ, bool DROP, bool DBIAS>
 __global__ void TILED_BOUNDS(RI, KJ)
 gatv2_bwd_dq_dv_kernel(const float* __restrict__ p, const float* __restrict__ q,
                        const float* __restrict__ a, const float* __restrict__ v, Args g,
-                       float* __restrict__ part, int slices, int acc_smem) {
+                       float* __restrict__ part, float* __restrict__ dbias_part, int slices,
+                       int acc_smem, int group) {
   constexpr int NT = RI * KJ / 16, RG = RI / 4, KG = KJ / 4;
   extern __shared__ __align__(16) float smem[];
   const int N = g.N, E = g.E, D = g.D, W = E + D;
   const TiledLayout L(E, D);
   const int key_tiles = (N + KJ - 1) / KJ, row_tiles = (N + RI - 1) / RI;
+  const int n_groups = (g.B + group - 1) / group;
   const int kt = blockIdx.x % key_tiles, sb = blockIdx.x / key_tiles;
-  const int b = sb % g.B, sl = sb / g.B;
+  const int gr = sb % n_groups, sl = sb / n_groups;
+  const int b_first = gr * group, b_end = min(g.B, b_first + group);
   const int j0 = kt * KJ, kn = min(KJ, N - j0);
   const int t_begin = slice_begin(sl, row_tiles, slices);
   const int t_end = slice_begin(sl + 1, row_tiles, slices);
@@ -538,77 +582,82 @@ gatv2_bwd_dq_dv_kernel(const float* __restrict__ p, const float* __restrict__ q,
   float* wa_s = ds_s + RI * KJ;             // [RI][KJ]
   float* dq_s = wa_s + RI * KJ;             // [KJ][EA] with acc_smem
   float* dv_s = dq_s + KJ * L.EA;           // [KJ][DA] with acc_smem
-  float* out = part + ((size_t)(sl * g.B + b) * N + j0) * W;
+  float* db = DBIAS ? dbias_part + (size_t)gr * N * N : nullptr;
   const uint32_t seed = read_seed(g);
-  const float* pb = p + (size_t)b * N * E;
-  const float* dub = g.du + (size_t)b * N * D;
   const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q);
   const bool vec_d = D % 4 == 0 && aligned16(v) && aligned16(g.du);
   float* du_t = st + RI * L.EP;
   float* stats = du_t + RI * L.DP;
-  auto stage = [&](int t) {
-    const int i0 = t * RI;
-    copy_rows_async(st, L.EP, pb, i0, RI, N, E, vec_e, NT);
-    copy_rows_async(du_t, L.DP, dub, i0, RI, N, D, vec_d, NT);
-    copy_vec_async(stats, g.m + (size_t)b * N, i0, RI, N, NT);
-    copy_vec_async(stats + RI, g.l + (size_t)b * N, i0, RI, N, NT);
-    copy_vec_async(stats + 2 * RI, g.dvec + (size_t)b * N, i0, RI, N, NT);
-    cp_async_commit();
-  };
-
   for (int e = threadIdx.x; e < L.EP; e += NT) a_s[e] = e < E ? a[e] : 0.f;
-  copy_rows_async(q_s, L.EP, q + (size_t)b * N * E, j0, KJ, N, E, vec_e, NT);
-  copy_rows_async(v_s, L.DP, v + (size_t)b * N * D, j0, KJ, N, D, vec_d, NT);
-  stage(t_begin);
-
   const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
   const int n_dq = KG * L.EG, items = n_dq + KG * L.DG;
-  for (int t = t_begin; t < t_end; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // this tile has arrived
-    const int i0 = t * RI;
-    {
-      float ds[16], wa[16];
-      tiled_score<RI, KJ, DROP>(st, du_t, stats, stats + RI, stats + 2 * RI, q_s, v_s, a_s, L,
-                                g, seed, b, i0, j0, ds, wa);
+
+  for (int b = b_first; b < b_end; ++b) {
+    if (b != b_first) __syncthreads();  // the previous element's readers are done
+    float* out = part + ((size_t)(sl * g.B + b) * N + j0) * W;
+    const float* pb = p + (size_t)b * N * E;
+    const float* dub = g.du + (size_t)b * N * D;
+    auto stage = [&](int t) {
+      const int i0 = t * RI;
+      copy_rows_async(st, L.EP, pb, i0, RI, N, E, vec_e, NT);
+      copy_rows_async(du_t, L.DP, dub, i0, RI, N, D, vec_d, NT);
+      copy_vec_async(stats, g.m + (size_t)b * N, i0, RI, N, NT);
+      copy_vec_async(stats + RI, g.l + (size_t)b * N, i0, RI, N, NT);
+      copy_vec_async(stats + 2 * RI, g.dvec + (size_t)b * N, i0, RI, N, NT);
+      cp_async_commit();
+    };
+    copy_rows_async(q_s, L.EP, q + (size_t)b * N * E, j0, KJ, N, E, vec_e, NT);
+    copy_rows_async(v_s, L.DP, v + (size_t)b * N * D, j0, KJ, N, D, vec_d, NT);
+    stage(t_begin);
+
+    for (int t = t_begin; t < t_end; ++t) {
+      cp_async_wait_all();
+      __syncthreads();  // this tile has arrived
+      const int i0 = t * RI;
+      {
+        float ds[16], wa[16];
+        tiled_score<RI, KJ, DROP>(st, du_t, stats, stats + RI, stats + 2 * RI, q_s, v_s, a_s,
+                                  L, g, seed, b, i0, j0, ds, wa);
+        if constexpr (DBIAS) add_dbias<RG, KG>(db, N, i0, j0, ti, tj, ds, b != b_first);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int o = (ti + RG * r) * KJ + 4 * tj;
-        *reinterpret_cast<float4*>(ds_s + o) =
-            make_float4(ds[4 * r], ds[4 * r + 1], ds[4 * r + 2], ds[4 * r + 3]);
-        *reinterpret_cast<float4*>(wa_s + o) =
-            make_float4(wa[4 * r], wa[4 * r + 1], wa[4 * r + 2], wa[4 * r + 3]);
+        for (int r = 0; r < 4; ++r) {
+          const int o = (ti + RG * r) * KJ + 4 * tj;
+          *reinterpret_cast<float4*>(ds_s + o) =
+              make_float4(ds[4 * r], ds[4 * r + 1], ds[4 * r + 2], ds[4 * r + 3]);
+          *reinterpret_cast<float4*>(wa_s + o) =
+              make_float4(wa[4 * r], wa[4 * r + 1], wa[4 * r + 2], wa[4 * r + 3]);
+        }
       }
-    }
-    __syncthreads();  // the tile's ds and wa are complete
-    const int in = min(RI, N - i0);
-    const bool first = t == t_begin, last = t == t_end - 1;
-    for (int x = threadIdx.x; x < items; x += NT) {
-      const bool is_dq = x < n_dq;
-      const int y = is_dq ? x : x - n_dq, groups = is_dq ? L.EG : L.DG;
-      const int kg = y / groups, c0 = y % groups * 4;
-      float acc[16];
+      __syncthreads();  // the tile's ds and wa are complete
+      const int in = min(RI, N - i0);
+      const bool first = t == t_begin, last = t == t_end - 1;
+      for (int x = threadIdx.x; x < items; x += NT) {
+        const bool is_dq = x < n_dq;
+        const int y = is_dq ? x : x - n_dq, groups = is_dq ? L.EG : L.DG;
+        const int kg = y / groups, c0 = y % groups * 4;
+        float acc[16];
 #pragma unroll
-      for (int k = 0; k < 16; ++k) acc[k] = 0.f;
-      if (is_dq)
-        dq_sums<KG, KJ>(st, L.EP, q_s, L.EP, ds_s, kg, c0, in, g.alpha, acc);
-      else
-        dv_sums<KJ>(wa_s, du_t, L.DP, kg, c0, in, acc);
-      const int width = is_dq ? E : D, sstride = is_dq ? L.EA : L.DA, goff = is_dq ? 0 : E;
-      float* sm = is_dq ? dq_s : dv_s;
+        for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+        if (is_dq)
+          dq_sums<KG, KJ>(st, L.EP, q_s, L.EP, ds_s, kg, c0, in, g.alpha, acc);
+        else
+          dv_sums<KJ>(wa_s, du_t, L.DP, kg, c0, in, acc);
+        const int width = is_dq ? E : D, sstride = is_dq ? L.EA : L.DA, goff = is_dq ? 0 : E;
+        float* sm = is_dq ? dq_s : dv_s;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = kg + KG * c;
+        for (int c = 0; c < 4; ++c) {
+          const int key = kg + KG * c;
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (key < kn && c0 + k < width)
-            accumulate(out + (size_t)key * W + goff + c0 + k, sm + key * sstride + c0 + k,
-                       acc[c * 4 + k], first, last, acc_smem);
+          for (int k = 0; k < 4; ++k)
+            if (key < kn && c0 + k < width)
+              accumulate(out + (size_t)key * W + goff + c0 + k, sm + key * sstride + c0 + k,
+                         acc[c * 4 + k], first, last, acc_smem);
+        }
       }
-    }
-    if (t + 1 < t_end) {
-      __syncthreads();  // the contraction's readers of the tile are done
-      stage(t + 1);
+      if (t + 1 < t_end) {
+        __syncthreads();  // the contraction's readers of the tile are done
+        stage(t + 1);
+      }
     }
   }
 }
@@ -859,97 +908,107 @@ __device__ inline void stage_chunk(float* dst, const float* __restrict__ src, in
                   CHUNK_NT);
 }
 
-// K2b CHUNKED: a block (one warp) per (slice, batch element, key tile of 32),
-// walking its slice's row tiles of 16. part as the FAST and WIDE K2b's.
-template <bool DROP>
+// K2b CHUNKED: a block (one warp) per (slice, batch group, key tile of 32),
+// walking the batch elements of its group and, for each, its slice's row
+// tiles of 16. part and dbias_part as the FAST and WIDE K2b's.
+template <bool DROP, bool DBIAS>
 __global__ void __launch_bounds__(CHUNK_NT)
 gatv2_bwd_dq_dv_chunked_kernel(const float* __restrict__ p, const float* __restrict__ q,
                                const float* __restrict__ a, const float* __restrict__ v, Args g,
-                               float* __restrict__ part, int slices) {
+                               float* __restrict__ part, float* __restrict__ dbias_part,
+                               int slices, int group) {
   constexpr int RI = CHUNK_RI, KJ = CHUNK_KJ, NT = CHUNK_NT, RG = CHUNK_RG, KG = CHUNK_KG;
   constexpr int CP = CHUNK_CP;
   extern __shared__ __align__(16) float smem[];
   const int N = g.N, E = g.E, D = g.D, W = E + D;
   const int key_tiles = (N + KJ - 1) / KJ, row_tiles = (N + RI - 1) / RI;
+  const int n_groups = (g.B + group - 1) / group;
   const int kt = blockIdx.x % key_tiles, sb = blockIdx.x / key_tiles;
-  const int b = sb % g.B, sl = sb / g.B;
+  const int gr = sb % n_groups, sl = sb / n_groups;
+  const int b_first = gr * group, b_end = min(g.B, b_first + group);
   const int j0 = kt * KJ, kn = min(KJ, N - j0);
   const int t_begin = slice_begin(sl, row_tiles, slices);
   const int t_end = slice_begin(sl + 1, row_tiles, slices);
   const ChunkBufs c = carve_chunk(smem);
   float* ds_s = c.next;                     // [RI][KJ], keys by micro-tile
   float* wa_s = ds_s + RI * KJ;             // [RI][KJ]
-  float* out = part + ((size_t)(sl * g.B + b) * N + j0) * W;
+  float* db = DBIAS ? dbias_part + (size_t)gr * N * N : nullptr;
   const uint32_t seed = read_seed(g);
   const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q) && aligned16(a);
   const bool vec_d = D % 4 == 0 && aligned16(v) && aligned16(g.du);
-  const float* pb = p + (size_t)b * N * E;
-  const float* qb = q + (size_t)b * N * E;
-  const float* dub = g.du + (size_t)b * N * D;
   const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int i0 = t * RI;
-    {
-      float ds[16], wa[16];
-      chunked_score<DROP>(c, p, q, a, v, g, seed, b, i0, j0, vec_e, vec_d, ds, wa);
+  // every chunk of the score starts with a barrier: nothing to wait for
+  // between batch elements
+  for (int b = b_first; b < b_end; ++b) {
+    float* out = part + ((size_t)(sl * g.B + b) * N + j0) * W;
+    const float* pb = p + (size_t)b * N * E;
+    const float* qb = q + (size_t)b * N * E;
+    const float* dub = g.du + (size_t)b * N * D;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int i0 = t * RI;
+      {
+        float ds[16], wa[16];
+        chunked_score<DROP>(c, p, q, a, v, g, seed, b, i0, j0, vec_e, vec_d, ds, wa);
+        if constexpr (DBIAS) add_dbias<RG, KG>(db, N, i0, j0, ti, tj, ds, b != b_first);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int o = (ti + RG * r) * KJ + 4 * tj;
-        *reinterpret_cast<float4*>(ds_s + o) =
-            make_float4(ds[4 * r], ds[4 * r + 1], ds[4 * r + 2], ds[4 * r + 3]);
-        *reinterpret_cast<float4*>(wa_s + o) =
-            make_float4(wa[4 * r], wa[4 * r + 1], wa[4 * r + 2], wa[4 * r + 3]);
-      }
-    }
-    const int in = min(RI, N - i0);
-    const bool first = t == t_begin, last = t == t_end - 1;
-    // dq by E chunk, p and q restaged; the first chunk's barrier also
-    // completes the tile's ds and wa
-    for (int e0 = 0; e0 < E; e0 += TILE_CHUNK) {
-      const int ew = min(TILE_CHUNK, E - e0), groups = (ew + 3) / 4;
-      stage_chunk(c.x, pb, E, i0, RI, N, e0, ew, vec_e);
-      copy_tile_async(c.y, CP, groups, qb + e0, E, j0, KJ, N, ew, vec_e, NT);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      for (int x = threadIdx.x; x < KG * groups; x += NT) {
-        const int kg = x / groups, c0 = x % groups * 4;
-        float acc[16];
-#pragma unroll
-        for (int k = 0; k < 16; ++k) acc[k] = 0.f;
-        dq_sums<KG, KJ>(c.x, CP, c.y, CP, ds_s, kg, c0, in, g.alpha, acc);
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const int key = kg + KG * cc;
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (key < kn && e0 + c0 + k < E)
-              accumulate(out + (size_t)key * W + e0 + c0 + k, nullptr, acc[cc * 4 + k], first,
-                         last, false);
+        for (int r = 0; r < 4; ++r) {
+          const int o = (ti + RG * r) * KJ + 4 * tj;
+          *reinterpret_cast<float4*>(ds_s + o) =
+              make_float4(ds[4 * r], ds[4 * r + 1], ds[4 * r + 2], ds[4 * r + 3]);
+          *reinterpret_cast<float4*>(wa_s + o) =
+              make_float4(wa[4 * r], wa[4 * r + 1], wa[4 * r + 2], wa[4 * r + 3]);
         }
       }
-    }
-    // dv by D chunk, du restaged
-    for (int d0 = 0; d0 < D; d0 += TILE_CHUNK) {
-      const int dw = min(TILE_CHUNK, D - d0), groups = (dw + 3) / 4;
-      stage_chunk(c.x, dub, D, i0, RI, N, d0, dw, vec_d);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      for (int x = threadIdx.x; x < KG * groups; x += NT) {
-        const int kg = x / groups, c0 = x % groups * 4;
-        float acc[16];
+      const int in = min(RI, N - i0);
+      const bool first = t == t_begin, last = t == t_end - 1;
+      // dq by E chunk, p and q restaged; the first chunk's barrier also
+      // completes the tile's ds and wa
+      for (int e0 = 0; e0 < E; e0 += TILE_CHUNK) {
+        const int ew = min(TILE_CHUNK, E - e0), groups = (ew + 3) / 4;
+        stage_chunk(c.x, pb, E, i0, RI, N, e0, ew, vec_e);
+        copy_tile_async(c.y, CP, groups, qb + e0, E, j0, KJ, N, ew, vec_e, NT);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        for (int x = threadIdx.x; x < KG * groups; x += NT) {
+          const int kg = x / groups, c0 = x % groups * 4;
+          float acc[16];
 #pragma unroll
-        for (int k = 0; k < 16; ++k) acc[k] = 0.f;
-        dv_sums<KJ>(wa_s, c.x, CP, kg, c0, in, acc);
+          for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+          dq_sums<KG, KJ>(c.x, CP, c.y, CP, ds_s, kg, c0, in, g.alpha, acc);
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const int key = kg + KG * cc;
+          for (int cc = 0; cc < 4; ++cc) {
+            const int key = kg + KG * cc;
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (key < kn && d0 + c0 + k < D)
-              accumulate(out + (size_t)key * W + E + d0 + c0 + k, nullptr, acc[cc * 4 + k],
-                         first, last, false);
+            for (int k = 0; k < 4; ++k)
+              if (key < kn && e0 + c0 + k < E)
+                accumulate(out + (size_t)key * W + e0 + c0 + k, nullptr, acc[cc * 4 + k], first,
+                           last, false);
+          }
+        }
+      }
+      // dv by D chunk, du restaged
+      for (int d0 = 0; d0 < D; d0 += TILE_CHUNK) {
+        const int dw = min(TILE_CHUNK, D - d0), groups = (dw + 3) / 4;
+        stage_chunk(c.x, dub, D, i0, RI, N, d0, dw, vec_d);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        for (int x = threadIdx.x; x < KG * groups; x += NT) {
+          const int kg = x / groups, c0 = x % groups * 4;
+          float acc[16];
+#pragma unroll
+          for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+          dv_sums<KJ>(wa_s, c.x, CP, kg, c0, in, acc);
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int key = kg + KG * cc;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (key < kn && d0 + c0 + k < D)
+                accumulate(out + (size_t)key * W + E + d0 + c0 + k, nullptr, acc[cc * 4 + k],
+                           first, last, false);
+          }
         }
       }
     }
@@ -1053,6 +1112,10 @@ __global__ void gatv2_bwd_slice_reduce_kernel(const float* __restrict__ part,
 }
 
 // ---- K2c: one block per (row tile, key tile, batch chunk) ----------------
+//
+// Off every path, since K2ab and K2b sum dbias in their own pass: the
+// wrapper launches it only when a caller asks for it, as the yardstick those
+// are timed against (chip_smoke.py, bench_gat_tiled_torch.py).
 //
 // Where its full-width tile does not fit a block (the feature layer above
 // window 400), K2c stages E and D in chunks (dbias_width): each round stages
@@ -1452,6 +1515,30 @@ __host__ __device__ inline bool tile_dims(int tile, int* ri, int* kj) {
   return false;
 }
 
+// Batch groups of the tiled K2b with dbias (kernels/gat.tiled_dbias_groups,
+// which the launcher checks against this): the most batch elements G a block
+// takes such that ceil(B / G) groups x key tiles x the most slices still give
+// TILED_FILL blocks a multiprocessor, so the fold never costs the card its
+// fill; 1 where even one element a group does not reach it, and all of B
+// where one group does. G is 1 at B 1 and grows with B; the partials,
+// ceil(B / G) of (N, N), stay a few where N is large. kernels/gat mirrors
+// these three constants (TILED_FILL, TILED_MIN_TILES, TILED_MAX_SLICES),
+// which set the slices there.
+constexpr int TILED_FILL = 16, TILED_MIN_TILES = 4, TILED_MAX_SLICES = 64;
+
+inline int tiled_dbias_group(int B, int N, int tile, int sms) {
+  int ri = 0, kj = 0;
+  if (B < 1 || N < 1 || sms < 1 || !tile_dims(tile, &ri, &kj)) return 0;
+  const long long own = (N + kj - 1) / kj, stream = (N + ri - 1) / ri;
+  long long most = stream / TILED_MIN_TILES;
+  most = most < 1 ? 1 : most > TILED_MAX_SLICES ? TILED_MAX_SLICES : most;
+  const long long target = (long long)TILED_FILL * sms, cap = most * own;
+  const long long need = (target + cap - 1) / cap;  // groups the fill needs
+  if (need <= 1) return B;
+  const long long g = (B + need - 2) / (need - 1) - 1;
+  return g < 1 ? 1 : (int)g;
+}
+
 // Shared memory of one block of K2a (which 0) or K2b (1) at tile shape
 // `tile`, widths E, D and running sums in shared memory or not; 0 for a bad
 // argument.
@@ -1468,9 +1555,10 @@ size_t tiled_floats(int which, int tile, int E, int D, bool acc_smem) {
   return 0;
 }
 
-// One tiled launch's choices (kernels/gat.gat_tiled_bwd_plan).
+// One tiled launch's choices (kernels/gat.gat_tiled_bwd_plan): K2b's batch
+// group is 1 without dbias.
 struct TiledPlan {
-  int tile, slices, acc_smem;
+  int tile, slices, acc_smem, group;
 };
 
 template <typename T>
@@ -1485,21 +1573,22 @@ int slice_reduce(const float* part, const float* a, void* out_a, void* out_b, co
 }
 
 // K2b and its reduce: dq (B, N, E) and dv (B, N, D) in T, part (slices, B,
-// N, E + D) float32 scratch.
-template <typename T, int RI, int KJ, bool DROP>
+// N, E + D) float32 scratch; with DBIAS dbias_part (ceil(B / group), N, N).
+template <typename T, int RI, int KJ, bool DROP, bool DBIAS>
 int dq_dv_shape(const float* p, const float* q, const float* a, const float* v, const Args& g,
-                void* dq, void* dv, float* part, const TiledPlan& pl, void* stream,
-                int* occupancy) {
-  auto kernel = gatv2_bwd_dq_dv_kernel<RI, KJ, DROP>;
+                void* dq, void* dv, float* dbias_part, float* part, const TiledPlan& pl,
+                void* stream, int* occupancy) {
+  auto kernel = gatv2_bwd_dq_dv_kernel<RI, KJ, DROP, DBIAS>;
   const size_t floats = dq_dv_floats<RI, KJ>(TiledLayout(g.E, g.D), pl.acc_smem);
   if (int err = prepare(kernel, floats)) return err;
   if (occupancy != nullptr)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, RI * KJ / 16,
                                                               floats * sizeof(float));
-  const long long blocks = (long long)pl.slices * g.B * ((g.N + KJ - 1) / KJ);
+  const long long groups = (g.B + pl.group - 1) / pl.group;
+  const long long blocks = (long long)pl.slices * groups * ((g.N + KJ - 1) / KJ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, RI * KJ / 16, floats * sizeof(float), (cudaStream_t)stream>>>(
-      p, q, a, v, g, part, pl.slices, pl.acc_smem);
+      p, q, a, v, g, part, dbias_part, pl.slices, pl.acc_smem, pl.group);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   return slice_reduce<T>(part, a, dq, dv, g, g.D, pl.slices, stream);
 }
@@ -1524,25 +1613,45 @@ int dp_da_shape(const float* p, const float* q, const float* a, const float* v, 
   return slice_reduce<T>(part, a, dp, nullptr, g, 0, pl.slices, stream);
 }
 
-// The CHUNKED K2a (which 0) or K2b (1) and its reduce; occupancy as tiled().
+// The FAST or WIDE K2a (which 0) or K2b (1), K2b with dbias where dbias_part
+// is non-null.
+template <typename T, int RI, int KJ, bool DROP>
+int tiled_shape(int which, const float* p, const float* q, const float* a, const float* v,
+                const Args& g, void* out0, void* out1, float* dbias_part, float* part,
+                const TiledPlan& pl, void* stream, int* occupancy) {
+  if (which == 0)
+    return dp_da_shape<T, RI, KJ, DROP>(p, q, a, v, g, out0, (float*)out1, part, pl, stream,
+                                        occupancy);
+  return dbias_part != nullptr
+             ? dq_dv_shape<T, RI, KJ, DROP, true>(p, q, a, v, g, out0, out1, dbias_part, part,
+                                                  pl, stream, occupancy)
+             : dq_dv_shape<T, RI, KJ, DROP, false>(p, q, a, v, g, out0, out1, nullptr, part,
+                                                   pl, stream, occupancy);
+}
+
+// The CHUNKED K2a (which 0) or K2b (1, with dbias where dbias_part is
+// non-null) and its reduce; occupancy as tiled().
 template <typename T, bool DROP>
 int chunked(int which, const float* p, const float* q, const float* a, const float* v,
-            const Args& g, void* out0, void* out1, float* part, const TiledPlan& pl,
-            void* stream, int* occupancy) {
+            const Args& g, void* out0, void* out1, float* dbias_part, float* part,
+            const TiledPlan& pl, void* stream, int* occupancy) {
   const size_t bytes = chunked_floats(which) * sizeof(float);
   auto k2a = gatv2_bwd_dp_da_chunked_kernel<DROP>;
-  auto k2b = gatv2_bwd_dq_dv_chunked_kernel<DROP>;
+  auto k2b = dbias_part != nullptr ? gatv2_bwd_dq_dv_chunked_kernel<DROP, true>
+                                   : gatv2_bwd_dq_dv_chunked_kernel<DROP, false>;
   if (occupancy != nullptr)
     return (int)(which ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, k2b, CHUNK_NT,
                                                                        bytes)
                        : cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, k2a, CHUNK_NT,
                                                                        bytes));
   const long long own = which ? (g.N + CHUNK_KJ - 1) / CHUNK_KJ : (g.N + CHUNK_RI - 1) / CHUNK_RI;
-  const long long blocks = (long long)pl.slices * g.B * own;
+  const long long batches = which ? (g.B + pl.group - 1) / pl.group : g.B;
+  const long long blocks = (long long)pl.slices * batches * own;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (which)
     k2b<<<(unsigned)blocks, CHUNK_NT, bytes, (cudaStream_t)stream>>>(p, q, a, v, g, part,
-                                                                     pl.slices);
+                                                                     dbias_part, pl.slices,
+                                                                     pl.group);
   else
     k2a<<<(unsigned)blocks, CHUNK_NT, bytes, (cudaStream_t)stream>>>(p, q, a, v, g, part,
                                                                      (float*)out1, pl.slices);
@@ -1551,35 +1660,35 @@ int chunked(int which, const float* p, const float* q, const float* a, const flo
                : slice_reduce<T>(part, a, out0, nullptr, g, 0, pl.slices, stream);
 }
 
-// K2a (which 0) or K2b (1) with its reduce, or (occupancy non-null) only the
-// blocks of its kernel one multiprocessor holds at once.
+// K2a (which 0) or K2b (1, summing dbias into dbias_part where it is
+// non-null) with its reduce, or (occupancy non-null) only the blocks of its
+// kernel one multiprocessor holds at once.
 template <typename T>
 int tiled(int which, const void* p, const void* q, const void* a, const void* v,
-          const Args& g, void* out0, void* out1, void* part, const TiledPlan& pl,
-          void* stream, int* occupancy = nullptr) {
-  if (pl.slices < 1 || tiled_floats(which, pl.tile, g.E, g.D, pl.acc_smem) == 0)
+          const Args& g, void* out0, void* out1, void* dbias_part, void* part,
+          const TiledPlan& pl, void* stream, int* occupancy = nullptr) {
+  if (pl.slices < 1 || pl.group < 1 || tiled_floats(which, pl.tile, g.E, g.D, pl.acc_smem) == 0)
     return (int)cudaErrorInvalidValue;
+  if (which == 0 && (dbias_part != nullptr || pl.group != 1)) return (int)cudaErrorInvalidValue;
+  if (dbias_part == nullptr && pl.group != 1) return (int)cudaErrorInvalidValue;
   const float *pf = (const float*)p, *qf = (const float*)q, *af = (const float*)a,
               *vf = (const float*)v;
-  float* pt = (float*)part;
+  float *pt = (float*)part, *db = (float*)dbias_part;
   const bool drop = g.seed != nullptr;
   if (pl.tile == 2)
-    return drop ? chunked<T, true>(which, pf, qf, af, vf, g, out0, out1, pt, pl, stream,
+    return drop ? chunked<T, true>(which, pf, qf, af, vf, g, out0, out1, db, pt, pl, stream,
                                    occupancy)
-                : chunked<T, false>(which, pf, qf, af, vf, g, out0, out1, pt, pl, stream,
+                : chunked<T, false>(which, pf, qf, af, vf, g, out0, out1, db, pt, pl, stream,
                                     occupancy);
-#define GAT_TILED_CASE(RI, KJ, DROP)                                                       \
-  return which ? dq_dv_shape<T, RI, KJ, DROP>(pf, qf, af, vf, g, out0, out1, pt, pl, stream, \
-                                             occupancy)                                   \
-               : dp_da_shape<T, RI, KJ, DROP>(pf, qf, af, vf, g, out0, (float*)out1, pt, pl, \
-                                             stream, occupancy)
-  if (pl.tile == 0) {
-    if (drop) GAT_TILED_CASE(TILE_FAST_RI, TILE_FAST_KJ, true);
-    GAT_TILED_CASE(TILE_FAST_RI, TILE_FAST_KJ, false);
-  }
-  if (drop) GAT_TILED_CASE(TILE_WIDE_RI, TILE_WIDE_KJ, true);
-  GAT_TILED_CASE(TILE_WIDE_RI, TILE_WIDE_KJ, false);
-#undef GAT_TILED_CASE
+  if (pl.tile == 0)
+    return drop ? tiled_shape<T, TILE_FAST_RI, TILE_FAST_KJ, true>(
+                      which, pf, qf, af, vf, g, out0, out1, db, pt, pl, stream, occupancy)
+                : tiled_shape<T, TILE_FAST_RI, TILE_FAST_KJ, false>(
+                      which, pf, qf, af, vf, g, out0, out1, db, pt, pl, stream, occupancy);
+  return drop ? tiled_shape<T, TILE_WIDE_RI, TILE_WIDE_KJ, true>(
+                    which, pf, qf, af, vf, g, out0, out1, db, pt, pl, stream, occupancy)
+              : tiled_shape<T, TILE_WIDE_RI, TILE_WIDE_KJ, false>(
+                    which, pf, qf, af, vf, g, out0, out1, db, pt, pl, stream, occupancy);
 }
 
 // K2ab's outputs and its batch groups: one launch's pointers.
@@ -1736,44 +1845,58 @@ long gatv2_bwd_tiled_smem_bytes(int which, int tile, int E, int D, int acc_smem)
 // Key splits of K2a's contraction at `items` (row groups x float4 groups of
 // E) on `threads` threads.
 int gatv2_bwd_tiled_key_splits(int items, int threads) { return key_splits(items, threads); }
+// Batch elements a block of the tiled K2b with dbias sums over, at batch B,
+// N nodes, tile shape `tile` on a card of `sms` multiprocessors; 0 for a bad
+// argument.
+int gatv2_bwd_tiled_dbias_group(int B, int N, int tile, int sms) {
+  return tiled_dbias_group(B, N, tile, sms);
+}
 
-// Blocks of the tiled K2a (which 0) or K2b (1), float32, with dropout or not,
-// that one multiprocessor holds at once (CUDA's occupancy calculator);
-// negative on a CUDA error.
-int gatv2_bwd_tiled_occupancy(int which, int tile, int E, int D, int acc_smem, int drop) {
+// Blocks of the tiled K2a (which 0) or K2b (1), float32, with dropout or not
+// and (K2b) with dbias or not, that one multiprocessor holds at once (CUDA's
+// occupancy calculator); negative on a CUDA error.
+int gatv2_bwd_tiled_occupancy(int which, int tile, int E, int D, int acc_smem, int drop,
+                              int dbias) {
   long long one = 0;
+  float part = 0.f;
   const Args g = make_args(nullptr, drop ? &one : nullptr, nullptr, nullptr, nullptr, nullptr,
                            1, 1, E, D, 0.f, 0u, 1.f);
   int blocks = 0;
   const int err = tiled<float>(which, nullptr, nullptr, nullptr, nullptr, g, nullptr, nullptr,
-                               nullptr, TiledPlan{tile, 1, acc_smem}, nullptr, &blocks);
+                               dbias ? &part : nullptr, nullptr,
+                               TiledPlan{tile, 1, acc_smem, 1}, nullptr, &blocks);
   return err ? -err : blocks;
 }
 
 // K2a: dp (B, N, E) in T and da_part (blocks, E) float32, one row a block
 // (slices x B x ceil(N / RI) rows; RG = 4 rows a block with the CHUNKED
-// tile): the caller sums them. K2b: dq (B, N, E)
-// and dv (B, N, D) in T. p, q, a and v are float32 whatever T; part is the
-// float32 scratch of the slices' partial sums, (slices, B, N, E) for K2a and
-// (slices, B, N, E + D) for K2b.
+// tile): the caller sums them. K2b: dq (B, N, E) and dv (B, N, D) in T and,
+// with dbias_part non-null, K2c's dbias: a block takes `group` batch
+// elements and writes their sum of ds into its (N, N) float32 slice of
+// dbias_part (ceil(B / group), N, N), which the caller sums (with one group
+// it is dbias itself); without it, pass group 1. p, q, a and v are float32
+// whatever T; part is the float32 scratch of the slices' partial sums,
+// (slices, B, N, E) for K2a and (slices, B, N, E + D) for K2b.
 #define GAT_TILED_TAIL int tile, int slices, int acc_smem
-#define GAT_TILED_PLAN TiledPlan{tile, slices, acc_smem}
 int gatv2_bwd_dp_da_f32(GAT_BWD_ARGS, void* dp, void* da_part, void* part, GAT_BWD_SIZES,
                         GAT_TILED_TAIL, GAT_BWD_DROP) {
-  return tiled<float>(0, p, q, a, v, GAT_BWD_G, dp, da_part, part, GAT_TILED_PLAN, stream);
+  return tiled<float>(0, p, q, a, v, GAT_BWD_G, dp, da_part, nullptr, part,
+                      TiledPlan{tile, slices, acc_smem, 1}, stream);
 }
 int gatv2_bwd_dp_da_bf16(GAT_BWD_ARGS, void* dp, void* da_part, void* part, GAT_BWD_SIZES,
                          GAT_TILED_TAIL, GAT_BWD_DROP) {
-  return tiled<__nv_bfloat16>(0, p, q, a, v, GAT_BWD_G, dp, da_part, part, GAT_TILED_PLAN,
-                              stream);
+  return tiled<__nv_bfloat16>(0, p, q, a, v, GAT_BWD_G, dp, da_part, nullptr, part,
+                              TiledPlan{tile, slices, acc_smem, 1}, stream);
 }
-int gatv2_bwd_dq_dv_f32(GAT_BWD_ARGS, void* dq, void* dv, void* part, GAT_BWD_SIZES,
-                        GAT_TILED_TAIL, GAT_BWD_DROP) {
-  return tiled<float>(1, p, q, a, v, GAT_BWD_G, dq, dv, part, GAT_TILED_PLAN, stream);
+int gatv2_bwd_dq_dv_f32(GAT_BWD_ARGS, void* dq, void* dv, void* dbias_part, void* part,
+                        GAT_BWD_SIZES, GAT_TILED_TAIL, int group, GAT_BWD_DROP) {
+  return tiled<float>(1, p, q, a, v, GAT_BWD_G, dq, dv, dbias_part, part,
+                      TiledPlan{tile, slices, acc_smem, group}, stream);
 }
-int gatv2_bwd_dq_dv_bf16(GAT_BWD_ARGS, void* dq, void* dv, void* part, GAT_BWD_SIZES,
-                         GAT_TILED_TAIL, GAT_BWD_DROP) {
-  return tiled<__nv_bfloat16>(1, p, q, a, v, GAT_BWD_G, dq, dv, part, GAT_TILED_PLAN, stream);
+int gatv2_bwd_dq_dv_bf16(GAT_BWD_ARGS, void* dq, void* dv, void* dbias_part, void* part,
+                         GAT_BWD_SIZES, GAT_TILED_TAIL, int group, GAT_BWD_DROP) {
+  return tiled<__nv_bfloat16>(1, p, q, a, v, GAT_BWD_G, dq, dv, dbias_part, part,
+                              TiledPlan{tile, slices, acc_smem, group}, stream);
 }
 
 // K2c. part is (n_chunks, N, N) float32, one (N, N) sum a batch chunk: the

@@ -26,8 +26,11 @@ those of ``mtad_gat_tpu/kernels/gat_pallas.py``:
   a block whole (the model's), each (i, j) pair scored once, and K2c's dbias
   in the same pass where the call wants it (a block sums it over a group of
   batch elements, ``dbias_groups``).
-  ``gatv2_bwd`` runs K2ab, or K2a then K2b (and K2c), as ``gat_bwd_plan``
-  decides. The tiled K2a and K2b launch as ``gat_tiled_bwd_plan`` says:
+  ``gatv2_bwd`` runs K2ab, or K2a then K2b, as ``gat_bwd_plan`` decides;
+  dbias comes from the same pass of K2ab or of the tiled K2b
+  (``dbias_kernel``, K2b's batch groups ``tiled_dbias_groups``), and K2c
+  itself runs on no path, only where a caller asks for it. The tiled K2a
+  and K2b launch as ``gat_tiled_bwd_plan`` says:
   score tiles of 4 x 4 register micro-tiles (E and D streamed in chunks
   beyond the widths whole rows fit), the streamed loop cut into slices of
   their own blocks, each slice's float32 partial summed in slice order by a
@@ -42,7 +45,8 @@ product structure for the tensor cores; at the model's
 graph sizes that work outweighs the bytes of the inputs. Every kernel keeps
 its tiles' operands in shared memory and recomputes weights from (m, l), so
 no (N, N) tensor is written to device memory except dbias and its partial
-sums, one per batch chunk (K2c) or group (K2ab), never one per batch element;
+sums, one per batch chunk (K2c) or group (K2ab, K2b), one per batch element
+only where the tiled K2b needs them all to fill the card;
 the tiled K2a and K2b's partials are (slices, B, N, width), linear in N
 (``csrc/gat_fwd.cu`` and ``csrc/gat_bwd.cu`` say more). The TPU kernels'
 VMEM tiling plan (``_Plan``) and lane padding are not carried over: the CUDA
@@ -206,10 +210,10 @@ def _bwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [f32, ctypes.c_uint32, f32, ptr]
-        for name in ("dp_da", "dq_dv"):
+        for name, ptrs, ints in (("dp_da", 13, 7), ("dq_dv", 14, 8)):
             for dt in ("f32", "bf16"):
                 fn = getattr(lib, f"gatv2_bwd_{name}_{dt}")
-                fn.argtypes = [ptr] * 13 + [i32] * 7 + tail
+                fn.argtypes = [ptr] * ptrs + [i32] * ints + tail
                 fn.restype = i32
         lib.gatv2_bwd_tiled_tile.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
         lib.gatv2_bwd_tiled_tile.restype = None
@@ -217,8 +221,10 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.gatv2_bwd_tiled_smem_bytes.restype = ctypes.c_long
         lib.gatv2_bwd_tiled_key_splits.argtypes = [i32, i32]
         lib.gatv2_bwd_tiled_key_splits.restype = i32
-        lib.gatv2_bwd_tiled_occupancy.argtypes = [i32] * 6
+        lib.gatv2_bwd_tiled_occupancy.argtypes = [i32] * 7
         lib.gatv2_bwd_tiled_occupancy.restype = i32
+        lib.gatv2_bwd_tiled_dbias_group.argtypes = [i32] * 4
+        lib.gatv2_bwd_tiled_dbias_group.restype = i32
         for dt in ("f32", "bf16"):
             fn = getattr(lib, f"gatv2_bwd_dbias_{dt}")
             fn.argtypes = [ptr] * 11 + [i32] * 6 + tail
@@ -284,7 +290,7 @@ def gat_bwd_plan(N: int, E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> str:
     (values) on a card whose blocks may use ``smem_limit`` bytes of shared
     memory: "graph" (K2ab, one block holds a batch element's whole graph, and
     sums dbias too) where the graph fits a block, else "tiled" (K2a then K2b,
-    and K2c for dbias)."""
+    K2b summing dbias too)."""
     if min(N, E, D) < 1:
         raise ValueError(f"gat_bwd_plan: empty graph or width (N {N}, E {E}, D {D})")
     if graph_row_groups(N) and gat_bwd_smem_bytes(N, E, D) <= smem_limit:
@@ -338,11 +344,14 @@ class TiledKernelPlan(NamedTuple):
     own_tiles: int                # tiles a block owns: row tiles (K2a), key tiles (K2b)
     stream_tiles: int             # tiles its loop walks: key tiles (K2a), row tiles (K2b)
     slices: int                   # the loop cut into this many blocks
-    blocks: int                   # slices x B x own_tiles
+    blocks: int                   # slices x batch groups x own_tiles
     smem_bytes: int
     partial_bytes: int            # float32 partials, (slices, B, N, E) or (slices, B, N, E + D)
     key_splits: int               # lanes sharing one item of K2a's contraction (K2b: 1)
     da_rows: int                  # K2a's float32 rows of E of da partial sums (K2b: 0)
+    dbias: bool                   # K2b sums K2c's dbias in the same pass (K2a: never)
+    group: int                    # batch elements a block takes (1 without dbias)
+    dbias_bytes: int              # its float32 (ceil(B / group), N, N) partials; 0 without
 
 
 def first_design_smem_bytes(E: int, D: int) -> int:
@@ -414,6 +423,27 @@ def tiled_slices(own_blocks: int, stream_tiles: int, sms: int) -> int:
     return max(1, min(most, -(-TILED_FILL * sms // own_blocks)))
 
 
+def tiled_dbias_groups(B: int, N: int, tile: int, sms: int) -> int:
+    """Batch elements G a block of the tiled K2b takes when it sums dbias
+    (K2c's function) in its own pass, at batch B, N nodes and tile shape
+    ``tile`` (an index into ``TILED_TILES``) on a card of ``sms``
+    multiprocessors: the most such that ceil(B / G) groups x key tiles x the
+    most slices ``tiled_slices`` allows still give ``TILED_FILL`` blocks a
+    multiprocessor, so the fold never costs the card its fill; 1 where even
+    groups of one element fall short, all of B where one group reaches it.
+    G is 1 at B 1 and never falls as B grows; each group writes one (N, N)
+    float32 partial, ceil(B / G) in all, summed in order by the caller.
+    ``csrc/gat_bwd.cu`` (``tiled_dbias_group``) holds the same rule."""
+    if min(B, N, sms) < 1 or not 0 <= tile < len(TILED_TILES):
+        raise ValueError(f"tiled_dbias_groups: batch {B}, N {N}, tile {tile}, "
+                         f"multiprocessors {sms}")
+    rows, keys = TILED_TILES[tile]
+    own, stream = -(-N // keys), -(-N // rows)
+    most = max(1, min(TILED_MAX_SLICES, stream // TILED_MIN_TILES))
+    need = -(-TILED_FILL * sms // (most * own))       # groups the fill needs
+    return B if need <= 1 else max(1, -(-B // (need - 1)) - 1)
+
+
 def _tiled_tile(kernel: str, E: int, D: int, smem_limit: int) -> Tuple[int, bool, int]:
     """(tile, running sums in shared memory, bytes) of K2a or K2b at widths
     E, D: the first FAST or WIDE choice that fits within the widths the
@@ -433,16 +463,21 @@ def _tiled_tile(kernel: str, E: int, D: int, smem_limit: int) -> Tuple[int, bool
 
 @functools.lru_cache(maxsize=None)
 def gat_tiled_bwd_plan(B: int, N: int, E: int, D: int, sms: int,
-                       smem_limit: int = _SMEM_LIMIT) -> Mapping[str, TiledKernelPlan]:
+                       smem_limit: int = _SMEM_LIMIT,
+                       dbias: bool = False) -> Mapping[str, TiledKernelPlan]:
     """The launches of the tiled K2a and K2b ({"k2a": ..., "k2b": ...}) at
     batch B, N nodes, widths E and D on a card of ``sms`` multiprocessors
-    whose blocks may use ``smem_limit`` bytes of shared memory. Within the
-    widths the first design accepted (``first_design_smem_bytes``: the
-    feature layer up to window 235, the temporal layer at D 38 up to E 665)
-    each takes the first FAST or WIDE tile and place of its running sums
-    (``TILED_CHOICES``) that fits, as before; beyond them, or where none
-    fits, the CHUNKED tile, which takes every width. Its streamed loop is
-    cut into ``tiled_slices`` blocks. Raises on empty or bad input."""
+    whose blocks may use ``smem_limit`` bytes of shared memory, K2b summing
+    dbias too with ``dbias``. Within the widths the first design accepted
+    (``first_design_smem_bytes``: the feature layer up to window 235, the
+    temporal layer at D 38 up to E 665) each takes the first FAST or WIDE
+    tile and place of its running sums (``TILED_CHOICES``) that fits, as
+    before; beyond them, or where none fits, the CHUNKED tile, which takes
+    every width. Its streamed loop is cut into ``tiled_slices`` blocks. K2b
+    with dbias takes its batch in
+    groups of ``tiled_dbias_groups`` elements, a block each (slices x
+    groups x key tiles), and writes one (N, N) float32 partial a group;
+    dbias costs its shared memory nothing. Raises on empty or bad input."""
     if min(B, N, E, D, sms) < 1:
         raise ValueError(f"gat_tiled_bwd_plan: empty or bad input (B {B}, N {N}, E {E}, "
                          f"D {D}, multiprocessors {sms})")
@@ -452,18 +487,22 @@ def gat_tiled_bwd_plan(B: int, N: int, E: int, D: int, sms: int,
         rows, keys = TILED_TILES[tile]
         row_tiles, key_tiles = -(-N // rows), -(-N // keys)
         own, stream = (row_tiles, key_tiles) if kernel == "k2a" else (key_tiles, row_tiles)
-        slices = tiled_slices(B * own, stream, sms)
+        sums = dbias and kernel == "k2b"
+        group = tiled_dbias_groups(B, N, tile, sms) if sums else 1
+        groups = -(-B // group)
+        slices = tiled_slices(groups * own, stream, sms)
         threads = rows * keys // 16
         width = E if kernel == "k2a" else E + D
         splits = 1
         if kernel == "k2a" and tile != CHUNKED:
             splits = key_splits(rows // 4 * -(-E // 4), threads)
-        blocks = slices * B * own
+        blocks = slices * groups * own
         plans[kernel] = TiledKernelPlan(
             kernel=kernel, tile=tile, rows=rows, keys=keys, threads=threads, acc_smem=acc,
             own_tiles=own, stream_tiles=stream, slices=slices, blocks=blocks,
             smem_bytes=nbytes, partial_bytes=4 * slices * B * N * width, key_splits=splits,
-            da_rows=0 if kernel == "k2b" else blocks * (rows // 4 if tile == CHUNKED else 1))
+            da_rows=0 if kernel == "k2b" else blocks * (rows // 4 if tile == CHUNKED else 1),
+            dbias=sums, group=group, dbias_bytes=4 * groups * N * N if sums else 0)
     return types.MappingProxyType(plans)      # cached: read-only to every caller
 
 
@@ -875,11 +914,12 @@ def _bwd_launch(which: int, p, q, a, bias, v, m, l, du, dvec,
 
 
 @functools.lru_cache(maxsize=None)
-def _tiled_plan(B: int, N: int, E: int, D: int, sms: int) -> Mapping[str, TiledKernelPlan]:
+def _tiled_plan(B: int, N: int, E: int, D: int, sms: int,
+                dbias: bool = False) -> Mapping[str, TiledKernelPlan]:
     """``gat_tiled_bwd_plan`` for a launch, refused where the built
-    library's tile shapes, shared memory or K2a's key splits differ from the
-    plan's (once per shape and card)."""
-    plans = gat_tiled_bwd_plan(B, N, E, D, sms)
+    library's tile shapes, shared memory, K2a's key splits or K2b's batch
+    group differ from the plan's (once per shape and card)."""
+    plans = gat_tiled_bwd_plan(B, N, E, D, sms, dbias=dbias)
     lib = _bwd_lib()
     for which, plan in enumerate(plans.values()):
         dims = (ctypes.c_int * 2)()
@@ -887,20 +927,23 @@ def _tiled_plan(B: int, N: int, E: int, D: int, sms: int) -> Mapping[str, TiledK
         built = (tuple(dims), lib.gatv2_bwd_tiled_smem_bytes(which, plan.tile, E, D,
                                                              int(plan.acc_smem)),
                  lib.gatv2_bwd_tiled_key_splits(plan.rows // 4 * -(-E // 4), plan.threads)
-                 if which == 0 and plan.tile != CHUNKED else 1)
-        want = ((plan.rows, plan.keys), plan.smem_bytes, plan.key_splits)
+                 if which == 0 and plan.tile != CHUNKED else 1,
+                 lib.gatv2_bwd_tiled_dbias_group(B, N, plan.tile, sms) if plan.dbias else 1)
+        want = ((plan.rows, plan.keys), plan.smem_bytes, plan.key_splits, plan.group)
         if built != want:
             raise RuntimeError(f"gatv2 tiled backward {plan.kernel}: the built kernel's (tile, "
-                               f"shared memory, key splits) {built} differ from the plan's {want}")
+                               f"shared memory, key splits, batch group) {built} differ from "
+                               f"the plan's {want}")
     return plans
 
 
 def _tiled_launch(plan: TiledKernelPlan, p, q, a, bias, v, m, l, du, dvec, alpha, seed,
                   rate, outs) -> None:
     """Launch the tiled K2a or K2b of ``plan`` and its reduce, writing into
-    ``outs`` (K2a: dp, da_part, part; K2b: dq, dv, part); the caller has run
-    ``_check``. The kernels read float32 p, q, a, v: bfloat16 ones are
-    widened here (exactly), and the reduce writes the outputs in their type."""
+    ``outs`` (K2a: dp, da_part, part; K2b: dq, dv, the dbias partials or
+    None, part); the caller has run ``_check``. The kernels read float32 p,
+    q, a, v: bfloat16 ones are widened here (exactly), and the reduce writes
+    the outputs in their type."""
     B, N, E = p.shape
     D = v.shape[-1]
     name = "dp_da" if plan.kernel == "k2a" else "dq_dv"
@@ -914,6 +957,7 @@ def _tiled_launch(plan: TiledKernelPlan, p, q, a, bias, v, m, l, du, dvec, alpha
         err = fn(_ptr(p), _ptr(q), _ptr(a), _ptr(bias_c), _ptr(v), _ptr(seed_t),
                  _ptr(m), _ptr(l), _ptr(du), _ptr(dvec), *(_ptr(t) for t in outs),
                  B, N, E, D, plan.tile, plan.slices, int(plan.acc_smem),
+                 *((plan.group,) if plan.kernel == "k2b" else ()),
                  float(alpha), thresh, scale, _stream(p.device))
     _raise_on(err, f"gatv2_bwd_{name}")
 
@@ -948,28 +992,43 @@ gatv2_bwd_dp_da.launches_by_variant = dict.fromkeys(TILED_TILE_NAMES, 0)
 gatv2_bwd_dp_da.last_plan = None
 
 
-def gatv2_bwd_dq_dv(p, q, a, bias, v, m, l, du, dvec, alpha: float,
-                    seed: Seed = 0, rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2b on CUDA tensors: dq (B, N, E) in q's type and dv (B, N, D) in
-    v's type; inputs, plan and ``last_plan`` as ``gatv2_bwd_dp_da``."""
+def gatv2_bwd_dq_dv(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
+                    rate: float = 0.0, dbias: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K2b on CUDA tensors: dq (B, N, E) in q's type, dv (B, N, D) in v's
+    type and, with ``dbias``, K2c's dbias (N, N) float32 from the same pass
+    (each block summing ds over ``tiled_dbias_groups`` batch elements, the
+    groups' partials then summed in order), else None; inputs, plan and
+    ``last_plan`` as ``gatv2_bwd_dp_da``. Counts its launches by tile and,
+    under ``launches_by_variant`` "dbias" and "no_dbias", by whether they
+    summed dbias."""
     _check("gatv2_bwd_dq_dv", p, q, a, bias, v)
+    if dbias and bias is None:
+        raise ValueError("gatv2_bwd_dq_dv: dbias asked for a call without a bias")
     B, N, E = p.shape
     D = v.shape[-1]
-    if B == 0 or N == 0 or D == 0:
-        return torch.zeros_like(q), torch.zeros_like(v)
-    plan = _tiled_plan(B, N, E, D, _build.sm_count(p.device))["k2b"]
+    f32 = dict(dtype=torch.float32, device=p.device)
+    if B == 0 or N == 0 or D == 0:          # no values: every gradient is 0
+        return (torch.zeros_like(q), torch.zeros_like(v),
+                torch.zeros((N, N), **f32) if dbias else None)
+    plan = _tiled_plan(B, N, E, D, _build.sm_count(p.device), dbias)["k2b"]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    part = torch.empty((plan.slices, B, N, E + D), dtype=torch.float32, device=p.device)
-    _tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, (dq, dv, part))
+    dpart = torch.empty((-(-B // plan.group), N, N), **f32) if dbias else None
+    part = torch.empty((plan.slices, B, N, E + D), **f32)
+    _tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
+                  (dq, dv, dpart, part))
     gatv2_bwd_dq_dv.launches += 1
     gatv2_bwd_dq_dv.launches_by_variant[TILED_TILE_NAMES[plan.tile]] += 1
+    gatv2_bwd_dq_dv.launches_by_variant["dbias" if dbias else "no_dbias"] += 1
     gatv2_bwd_dq_dv.last_plan = plan
-    return dq, dv
+    if dpart is not None and dpart.shape[0] > 1:
+        dpart = dpart.sum(dim=0)
+    return dq, dv, None if dpart is None else dpart.view(N, N)
 
 
 gatv2_bwd_dq_dv.launches = 0
-gatv2_bwd_dq_dv.launches_by_variant = dict.fromkeys(TILED_TILE_NAMES, 0)
+gatv2_bwd_dq_dv.launches_by_variant = dict.fromkeys(TILED_TILE_NAMES + ("dbias", "no_dbias"), 0)
 gatv2_bwd_dq_dv.last_plan = None
 
 
@@ -1040,25 +1099,33 @@ gatv2_bwd_graph.launches = 0
 gatv2_bwd_graph.launches_by_variant = {"dbias": 0, "no_dbias": 0}
 
 
+def dbias_kernel(N: int, E: int, D: int) -> str:
+    """The kernel that gives dbias (K2c's function) in the backward of a
+    graph of N nodes at widths E and D: "k2ab" where ``gat_bwd_plan`` names
+    the whole-graph kernel, "k2b" (the tiled K2b, in its own pass) where it
+    names the tiled pair. No path launches K2c itself."""
+    return "k2ab" if gat_bwd_plan(N, E, D) == "graph" else "k2b"
+
+
 def gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
               rate: float = 0.0, dbias: bool = False) -> Tuple[torch.Tensor, ...]:
     """The attention backward on CUDA tensors: (dp, dq, da, dv, dbias)
     through the variant ``gat_bwd_plan`` names for the shape, K2ab alone
-    ("graph", dbias from the same launch) or K2a then K2b ("tiled", dbias
-    from K2c), recorded in ``gatv2_bwd.last_launch`` with the kernel that
-    gave dbias; dbias is None unless asked for."""
+    ("graph") or K2a then K2b ("tiled"), dbias from the same launch of K2ab
+    or K2b (``dbias_kernel``), recorded in ``gatv2_bwd.last_launch`` with
+    the kernel that gave dbias; dbias is None unless asked for."""
     _, N, E = p.shape
-    variant = gat_bwd_plan(max(N, 1), E, max(v.shape[-1], 1))
+    shape = (max(N, 1), E, max(v.shape[-1], 1))
+    variant = gat_bwd_plan(*shape)
     args = (p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate)
     if variant == "graph":
         out = gatv2_bwd_graph(*args, dbias=dbias)
     else:
         dp, da = gatv2_bwd_dp_da(*args)
-        dq, dv = gatv2_bwd_dq_dv(*args)
-        out = (dp, dq, da, dv, gatv2_bwd_dbias(*args) if dbias else None)
+        dq, dv, db = gatv2_bwd_dq_dv(*args, dbias=dbias)
+        out = (dp, dq, da, dv, db)
     gatv2_bwd.last_launch = {"variant": variant,
-                             "dbias": None if not dbias else "k2ab" if variant == "graph"
-                             else "k2c"}
+                             "dbias": dbias_kernel(*shape) if dbias else None}
     return out
 
 
@@ -1110,7 +1177,10 @@ def gatv2_bwd_dbias(p, q, a, bias, v, m, l, du, dvec, alpha: float,
     """K2c on CUDA tensors: dbias (N, N) float32 = sum over the batch of
     ds; inputs as ``gatv2_bwd_dp_da``, bias not None. Its widths staged as
     ``dbias_chunk`` says ("full" or "chunked", counted under
-    ``launches_by_variant``), unless ``variant`` forces "chunked"."""
+    ``launches_by_variant``), unless ``variant`` forces "chunked". On no
+    path: K2ab and K2b give dbias in their own pass (``dbias_kernel``); it
+    runs only where a caller asks for it, as the yardstick they are timed
+    against."""
     if bias is None:
         raise ValueError("gatv2_bwd_dbias: the call has no bias")
     _check("gatv2_bwd_dbias", p, q, a, bias, v)
@@ -1179,7 +1249,8 @@ def gatv2_attention(
     """Fused GATv2 attention with gradients and attention dropout at
     ``rate`` (0 in eval), keyed by ``seed`` (an int, or one int64 value on
     the inputs' device). Where a gradient is needed, or dropout is on, it
-    runs K1-res forward (and K2ab, or K2a-c, backward); otherwise K1 alone."""
+    runs K1-res forward (and K2ab, or K2a then K2b, backward); otherwise K1
+    alone."""
     if rate > 0.0 or _needs_grad(p, q, a, bias, v):
         return _GATv2Attention.apply(p, q, a, bias, v, alpha, seed, rate)
     return gatv2_attention_fwd(p, q, a, bias, v, alpha)
