@@ -59,13 +59,21 @@ In order, each phase failing the run with a non-zero exit:
    included), with the plan of each call (``gat_tiled_bwd_plan``: K2b's
    batch group ``tiled_dbias_groups`` and its partials' bytes equal to the
    built library's, K2b's blocks a multiprocessor with and without dbias),
-   where one forward-and-backward also has to allocate no more than its
-   outputs, the tiled kernels' partial sums and 1 MiB; K2c (no longer on
+   where each launch of one forward-and-backward also has to allocate no
+   more than its outputs, its planned partial sums (K2b's dbias partials
+   included) and 1 MiB, and 1 MiB for each of those tensors of 1 MiB or
+   more (the caching allocator's unsplit blocks); K2c (no longer on
    any path) forced wherever there is a bias, as the yardstick of the fold.
-   At the feature layer's window 235 (the WIDE tile), 300 and 1200 (the
-   CHUNKED tile, K2b with dbias planned there, the tiled K1-res and K2c's
-   chunked staging forced there too, each twice for identical bits, timed
-   by CUDA graph beside its bound); and the tiled K2b's weights against the
+   At the feature layer's window 235 (the WIDE tile), 300, 1024 and 1200
+   (the CHUNKED tile, K2b with dbias planned there, the tiled K1-res and
+   K2c's chunked staging forced there too, each twice for identical bits,
+   timed by CUDA graph beside its bound); at the shapes of
+   ``long_complete``'s batch-64 run, float32, dropout 0.3, bias: its
+   temporal layer (64, 1024, 76, 38: the tiled K1-res, the FAST K2a and K2b
+   with dbias in groups of one batch element, 64 partials summed), with the
+   memory check above and K2b with dbias forced at twice the planned group
+   beside the planned one (its errors, bits, partials' bytes and device
+   time), and its feature layer (window 1024 above); and the tiled K2b's weights against the
    tiled K1-res's, bit for bit, at each tile, with and without dbias. Each
    kernel's time at both layers is a wrapper call by CUDA events and its
    device time from a CUDA graph of 20 calls, beside its bound and its plain
@@ -234,13 +242,15 @@ TRAIN_TOL = {
     torch.bfloat16: {"forward": {"out": 4e-3, "u": 2e-5, "m": 2e-5, "l_rel": 1e-5},
                      "grad": 8e-3},
 }
-# The feature layer at window 1200, float32: each score is a chain of 2,400
-# float32 terms (32 times the temporal layer's 76) in the tiled kernels and a
-# pairwise sum in the plain version, and its rounding grows with the chain:
-# m, u and l measured up to 8.8e-6, 7.6e-6 and 7.6e-6 relative at batch 8 on
-# an H100 (PERF.md, section 6), so 4e-5 for them; out and the gradients as at
-# the model's widths (4.2e-7 and 2.5e-6 measured)
+# The feature layer at windows 1024 and 1200, float32: each score is a chain
+# of 2,048 or 2,400 float32 terms (27 or 32 times the temporal layer's 76) in
+# the tiled kernels and a pairwise sum in the plain version, and its rounding
+# grows with the chain: m, u and l measured up to 8.8e-6, 7.6e-6 and 7.6e-6
+# relative at window 1200, batch 8, on an H100 (PERF.md, section 6), so 4e-5
+# for them; out and the gradients as at the model's widths (4.2e-7 and
+# 2.5e-6 measured)
 WIDE_TRAIN_TOL = {"forward": {"out": 2e-5, "u": 4e-5, "m": 4e-5, "l_rel": 4e-5}, "grad": 1e-5}
+WIDE_TRAIN_CASES = ("window 1024", "window 1200")
 # One epoch (7 Adam steps) at dropout 0, float32, attention through the
 # kernels, or attention and GRU through theirs, against the plain paths. Per-step losses: 6.0e-8 apart on an H100
 # (two runs, PERF.md), so 1e-5. Params: 3.2e-6 and 6.6e-5 apart in two runs;
@@ -811,6 +821,65 @@ def k2b_group(kg, lib, B: int, N: int, E: int, D: int, sms: int) -> dict:
                 1, pl.tile, E, D, int(pl.acc_smem), 1, db) for db in (0, 1)}}
 
 
+def k2b_group_cost(kg, args, ref, outs, sms: int, tol: float) -> dict:
+    """The tiled K2b with dbias at its planned batch group G and at 2G,
+    each forced through the launcher with the slices the plan sets for that
+    many groups: its dq, dv and dbias (the groups' partials summed in order)
+    against the plain backward ``ref`` within ``tol`` of the largest value,
+    two launches' bits, the planned one's bits against the wrapper's
+    ``outs`` (dp, dq, da, dv, dbias), its blocks and partials' bytes, and
+    its device time by CUDA graph, the partials' sum included. Forced
+    launches add nothing to the launch counts. Raises where one is off."""
+    p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate = args
+    B, N, E = p.shape
+    D = v.shape[-1]
+    planned = kg._tiled_plan(B, N, E, D, sms, True)["k2b"]
+    f32 = dict(dtype=torch.float32, device=p.device)
+    pairs = B * N * N
+    in_bytes = (2 * B * N * E + E + B * N * D) * 4 + N * N * 4
+    stats_bytes = 3 * B * N * 4 + B * N * D * 4
+    out = {"B": B, "N": N, "E": E, "D": D, "planned_group": planned.group}
+    for G in (planned.group, 2 * planned.group):
+        groups = -(-B // G)
+        slices = kg.tiled_slices(groups * planned.own_tiles, planned.stream_tiles, sms)
+        plan = planned._replace(group=G, slices=slices,
+                                blocks=slices * groups * planned.own_tiles,
+                                partial_bytes=4 * slices * B * N * (E + D),
+                                dbias_bytes=4 * groups * N * N)
+
+        def call(plan=plan, groups=groups):
+            dq, dv = torch.empty_like(q), torch.empty_like(v)
+            dpart = torch.empty((groups, N, N), **f32)
+            part = torch.empty((plan.slices, B, N, E + D), **f32)
+            kg._tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
+                             (dq, dv, dpart, part))
+            return dq, dv, dpart.sum(dim=0) if groups > 1 else dpart[0]
+
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        errs = {"dq": rel_err(got[0], ref[1]), "dv": rel_err(got[1], ref[4]),
+                "dbias": rel_err(got[2], ref[3])}
+        # the partials' write and read beyond dbias's own bound
+        bound_ms, bound_by = bound(pairs * (5 * E + 4 * D + 5),
+                                   in_bytes + stats_bytes + B * N * (E + D) * 4 + N * N * 4
+                                   + (2 * plan.dbias_bytes if groups > 1 else 0))
+        rec = {"group": G, "groups": groups, "slices": slices, "blocks": plan.blocks,
+               "blocks_a_multiprocessor": plan.blocks / sms,
+               "dbias_partial_bytes": plan.dbias_bytes, "grad_rel_err": errs,
+               "two_launches_identical": same_bits(got, again),
+               "graph_ms": graph_ms(call, calls=5, replays=3),
+               "bound_with_partials_ms": bound_ms, "bound_by": bound_by}
+        if G == planned.group:
+            rec["identical_to_the_wrapper"] = same_bits(got, (outs[1], outs[3], outs[4]))
+        out[f"g{G}"] = rec
+        if not (max(errs.values()) <= tol and rec["two_launches_identical"]
+                and rec.get("identical_to_the_wrapper", True)):
+            raise AssertionError(f"the tiled K2b with dbias at group {G}: {rec}")
+    emit({"phase": "training_kernels", "case": "the tiled K2b with dbias at its planned batch "
+          "group and at twice it, forced", **out})
+    return out
+
+
 def graph_occupancy(lib, N: int, E: int, D: int) -> dict:
     """Blocks of each K2ab instantiation (type, dropout, dbias) that one
     multiprocessor holds at once, by CUDA's occupancy calculator."""
@@ -837,7 +906,9 @@ def check_training_kernels(gen, dev):
              ("widest", 1, 300, 470, 235, "tiled", "tiled"),
              ("batch groups", 17, 2048, 32, 16, "tiled", "tiled"),
              ("window 300", 64, 38, 600, 300, "graph", "tiled"),
-             ("window 1200", 8, 38, 2400, 1200, "tiled", "tiled")]
+             ("window 1200", 8, 38, 2400, 1200, "tiled", "tiled"),
+             ("lookback 1024", 64, 1024, 76, 38, "tiled", "tiled"),
+             ("window 1024", 64, 38, 2048, 1024, "tiled", "tiled")]
     # the tiled cases: planned (not forced), float32 at dropout 0.3 with bias;
     # "widest" is the feature layer at window 235, the widest whole rows of
     # the tiled backward's WIDE tile take; "batch groups" a batch at which
@@ -845,8 +916,11 @@ def check_training_kernels(gen, dev):
     # of one: tiled_dbias_groups on 132 multiprocessors); windows 300 and
     # 1200 the feature layer beyond, the CHUNKED tile, where the tiled
     # forward and K2c's chunked staging are also forced (window 300 plans the
-    # whole-graph forward)
-    tiled_cases = ("many_key_tiles", "widest", "batch groups", "window 300", "window 1200")
+    # whole-graph forward); "lookback 1024" and "window 1024" the two layers
+    # of long_complete's batch-64 run at its shapes (the FAST K2b with dbias
+    # in 64 groups of one, the CHUNKED one in 64 more)
+    tiled_cases = ("many_key_tiles", "widest", "batch groups", "window 300", "window 1200",
+                   "lookback 1024", "window 1024")
     variants = [(torch.float32, r, b) for r in (0.0, 0.3) for b in (True, False)]
     variants.append((torch.bfloat16, 0.3, True))
     worst = {k: 0.0 for k in ("k1res", "k2ab", "k2a", "k2b", "k2c")}
@@ -916,7 +990,7 @@ def check_training_kernels(gen, dev):
             torch.cuda.synchronize()
             errs = forward_errors(got, want)
             gerr, gabs = grad_errors(outs, ref, outs[4])
-            tol = WIDE_TRAIN_TOL if name == "window 1200" else TRAIN_TOL[dtype]
+            tol = WIDE_TRAIN_TOL if name in WIDE_TRAIN_CASES else TRAIN_TOL[dtype]
             rec = {"phase": "training_kernels", "case": name, "B": B, "N": N, "E": E, "D": D,
                    "dtype": str(dtype).replace("torch.", ""), "bias": with_bias,
                    "dropout": rate, "forward": fwd_variant, "backward": variant,
@@ -954,8 +1028,8 @@ def check_training_kernels(gen, dev):
             if timed:
                 rec["timing"] = t = time_training_kernels(kg, p, q, a, bias, v, du, dvec,
                                                           got[2], got[3], seed, rate)
-                for k in times:
-                    if k != "wide":
+                for k in t:
+                    if k in times:
                         times[k][name] = t[k]
             if wide:
                 rec["timing"] = t = time_wide_kernels(kg, args, du)
@@ -985,8 +1059,10 @@ def check_training_kernels(gen, dev):
                         key = GRAD_KERNELS[run][k]
                         worst[key] = max(worst[key], absolute[k])
                         worst_rel[key] = max(worst_rel[key], rel[k])
-            if name in ("many_key_tiles", "batch groups"):
+            if name in ("many_key_tiles", "batch groups", "lookback 1024"):
                 check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate)
+            if name == "lookback 1024":
+                times["k2b_groups"] = k2b_group_cost(kg, args, ref, outs, sms, tol["grad"])
     check_w_bits(kg, torch.device("cuda"), gen)
     return worst, worst_rel, times
 
@@ -1162,48 +1238,75 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
 
 
 def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
-    """One K1-res forward and the backward (the planned variant, dbias
-    included) allocate their outputs, the tiled K2a's and K2b's partial sums
-    (``gat_tiled_bwd_plan``'s ``partial_bytes``, the larger of the two: K2a's
-    are freed before K2b's exist, with K2a's da rows; K2b's with its dbias
-    partials beyond the (N, N) output) and at most 1 MiB more:
-    no (B, N, N) tensor exists in device memory. The allowance is checked to
-    stay below one (B, N, N) float32 tensor, so that one would still fail."""
+    """K1-res, then the tiled K2a and K2b with dbias (what ``gatv2_bwd``
+    runs on the "tiled" plan), the peak of each launch above what was
+    allocated before it measured on its own: each allocates its outputs,
+    the scratch its plan names and at most 1 MiB more, and 1 MiB more for
+    each of those tensors of 1 MiB or more (the caching allocator hands such
+    a request a cached block without splitting it where less than 1 MiB
+    would be left over, and counts the whole block). The scratch: the
+    tiled forward's partials (``gat_tiled_fwd_plan``), K2a's partials and
+    da rows, K2b's partials and, beyond the (N, N) output, its dbias
+    partials, ceil(B / G) of (N, N) (``gat_tiled_bwd_plan``'s
+    ``partial_bytes``, ``da_rows`` and ``dbias_bytes``; G checked against
+    the built library at launch). So no (B, N, N) tensor exists in device
+    memory but the dbias partials the plan names: each launch's allowance
+    beyond them is checked to stay below one (B, N, N) float32 tensor, so
+    that one more would still fail."""
     B, N, E = p.shape
     D = v.shape[-1]
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    _, u, m, l = kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate)
-    args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seed, rate)
-    kg.gatv2_bwd(*args, dbias=True)
-    torch.cuda.synchronize()
-    extra = torch.cuda.max_memory_allocated() - base
+    if kg.gat_bwd_plan(N, E, D) != "tiled":
+        raise AssertionError(f"check_training_memory: N {N}, E {E}, D {D} is no tiled shape")
     size = p.dtype.itemsize
-    # each output as the caching allocator holds it: rounded up to 512 bytes
-    # (da's E floats are a block of their own)
-    outputs = sum(-(-n // 512) * 512 for n in (
-        B * N * D * size, B * N * D * 4, B * N * 4, B * N * 4,    # out, u, m, l
-        B * N * E * size, B * N * E * size, E * 4, B * N * D * size,  # dp, dq, da, dv
-        N * N * 4))                                               # dbias
-    plans = tiled_plans(kg) if kg.gatv2_bwd.last_launch["variant"] == "tiled" else {}
+
+    def held(*ns):
+        """Bytes of tensors of ``ns`` bytes as the caching allocator holds
+        them (rounded up to 512), and how many are of 1 MiB or more."""
+        return sum(-(-n // 512) * 512 for n in ns), sum(n >= 2**20 for n in ns)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, torch.cuda.max_memory_allocated() - base
+
+    (_, u, m, l), fwd_extra = peak(
+        lambda: kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate))
     fwd_plan = kg.gatv2_attention_res.last_launch["plan"]
-    # K2b's dbias partials beyond the (N, N) output itself (one group: none)
-    partials = max([0 if fwd_plan is None else fwd_plan["partial_bytes"]]
-                   + [pl["partial_bytes"] + pl["da_rows"] * E * 4
-                      + (pl["dbias_bytes"] if pl["dbias_bytes"] > N * N * 4 else 0)
-                      for pl in plans.values()])
-    allowed = outputs + partials + 2**20
-    emit({"phase": "training_kernels", "case": "device memory of one forward and backward",
-          "B": B, "N": N, "backward": kg.gatv2_bwd.last_launch,
-          "peak_extra_bytes": extra, "output_bytes": outputs, "partial_bytes": partials,
-          "allowed_bytes": allowed, "score_matrix_bytes": B * N * N * 4})
-    if partials + 2**20 >= B * N * N * 4:
-        raise AssertionError(f"the tiled backward's partials ({partials} bytes) at N={N} leave "
-                             "no room to tell a (B, N, N) tensor")
-    if extra > allowed:
-        raise AssertionError(f"K1-res + K2 allocated {extra} bytes at N={N}, "
-                             f"outputs {outputs}, partials {partials}")
+    args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seed, rate)
+    _, k2a_extra = peak(lambda: kg.gatv2_bwd_dp_da(*args))
+    k2a = kg.gatv2_bwd_dp_da.last_plan
+    _, k2b_extra = peak(lambda: kg.gatv2_bwd_dq_dv(*args, dbias=True))
+    k2b = kg.gatv2_bwd_dq_dv.last_plan
+    # (peak, outputs, scratch, dbias partials beyond the (N, N) output), each
+    # a list of its tensors' bytes
+    launches = {
+        "k1res": (fwd_extra, [B * N * D * size, B * N * D * 4, B * N * 4, B * N * 4],
+                  [0 if fwd_plan is None else fwd_plan["partial_bytes"]], []),
+        "k2a": (k2a_extra, [B * N * E * size, E * 4],
+                [k2a.partial_bytes, k2a.da_rows * E * 4], []),
+        "k2b": (k2b_extra, [B * N * E * size, B * N * D * size, N * N * 4],
+                [k2b.partial_bytes], [k2b.dbias_bytes] if k2b.dbias_bytes > N * N * 4 else []),
+    }
+    recs = {}
+    for k, (x, outs, scratch, dpart) in launches.items():
+        (o, no), (sc, ns), (dp, nd) = held(*outs), held(*scratch), held(*dpart)
+        slack = 2**20 * (1 + no + ns + nd)
+        recs[k] = {"peak_extra_bytes": x, "output_bytes": o, "scratch_bytes": sc,
+                   "dbias_partial_bytes": dp, "slack_bytes": slack,
+                   "allowed_bytes": o + sc + dp + slack}
+    emit({"phase": "training_kernels", "case": "device memory of each launch of one forward "
+          "and backward", "B": B, "N": N, "E": E, "D": D, "k2b_group": k2b.group,
+          "launches": recs, "score_matrix_bytes": B * N * N * 4})
+    for k, r in recs.items():
+        if r["scratch_bytes"] + r["slack_bytes"] >= B * N * N * 4:
+            raise AssertionError(f"{k}'s scratch and slack ({r}) at N={N} leave no room to "
+                                 "tell a (B, N, N) tensor")
+        if r["peak_extra_bytes"] > r["allowed_bytes"]:
+            raise AssertionError(f"{k} allocated {r['peak_extra_bytes']} bytes at B={B}, "
+                                 f"N={N}: {r}")
 
 
 # ---------------------------------------------------------------------------
@@ -2978,7 +3081,8 @@ def main() -> None:
                     dbias_bound_ms_by_layer=[fd["bound_ms"], td["bound_ms"]],
                     k2b_then_k2c_graph_ms_by_layer=[fd["k2b_k2c_graph_ms"],
                                                     td["k2b_k2c_graph_ms"]],
-                    dbias_plan_by_layer=[fd["plan"], td["plan"]])
+                    dbias_plan_by_layer=[fd["plan"], td["plan"]],
+                    lookback_1024_by_group=train_ms["k2b_groups"])
         kernels.append(row)
     route_rows = {"gatv2_attention_fwd": "k1", "gatv2_attention_res": "k1res",
                   "gatv2_bwd_dp_da": "k2a", "gatv2_bwd_dq_dv": "k2b", "gatv2_bwd_dbias": "k2c"}
@@ -3019,11 +3123,19 @@ def main() -> None:
     for key, name, line in (("k2a", "gatv2_bwd_dp_da", 454), ("k2b", "gatv2_bwd_dq_dv", 497),
                             ("k2c_chunked", "gatv2_bwd_dbias", 540)):
         w3, w12 = train_ms["wide"]["window 300"], train_ms["wide"]["window 1200"]
+        w10 = train_ms["wide"]["window 1024"]
         variant = f"{name}:chunked"
         err = (lambda t: t["k2c_chunked_abs_err"]) if key == "k2c_chunked" else (
             lambda t: max(t["grad_abs_err"][g] for g in (("dp", "da") if key == "k2a"
                                                          else ("dq", "dv", "dbias"))))
-        extra = {"launches_long_complete": long_complete["launches"][variant]}
+        extra = {"launches_long_complete": long_complete["launches"][variant],
+                 "long_complete_feature_layer": {
+                     "B": w10["B"], "N": w10["N"], "E": w10["E"], "D": w10["D"],
+                     "max_abs_err": err(w10), "graph_ms": w10[key]["graph_ms"],
+                     "bound_ms": w10[key]["bound_ms"], "bound_by": w10[key]["bound_by"],
+                     **({"dbias_graph_ms": w10["k2b_dbias"]["graph_ms"],
+                         "dbias_bound_ms": w10["k2b_dbias"]["bound_ms"]}
+                        if key == "k2b" else {})}}
         if key == "k2b":
             extra["dbias_graph_ms_by_window"] = [w3["k2b_dbias"]["graph_ms"],
                                                  w12["k2b_dbias"]["graph_ms"]]
@@ -3034,7 +3146,7 @@ def main() -> None:
             "source": "mtad_gat_tpu_torch/csrc/gat_bwd.cu",
             "replaces": f"mtad_gat_tpu/kernels/gat_pallas.py:{line}",
             "launches": wide_counts(wide, variant),
-            "launches_path": "wide_window", "max_abs_err": max(err(w3), err(w12)),
+            "launches_path": "wide_window", "max_abs_err": max(err(w3), err(w10), err(w12)),
             "ms": w3[key]["graph_ms"], "graph_ms_by_window": [w3[key]["graph_ms"],
                                                               w12[key]["graph_ms"]],
             "plain_ms": w3["plain_bwd_ms"], "bound_ms": w3[key]["bound_ms"],

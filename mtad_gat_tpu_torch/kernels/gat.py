@@ -824,14 +824,14 @@ def gatv2_attention_fwd(
     _check("gatv2_attention_fwd", p, q, a, bias, v)
     B, N, E = p.shape
     D = v.shape[-1]
-    out = torch.empty((B, N, D), dtype=p.dtype, device=p.device)
     if B == 0 or N == 0 or D == 0:
-        return out
+        return torch.empty((B, N, D), dtype=p.dtype, device=p.device)
     variant, row_blocks = _fwd_variant(N, E, D, variant)
-    if variant == "tiled":
+    if variant == "tiled":             # the merge allocates the output
         (out, *_), plan = _fwd_tiled(p, q, a, bias, v, alpha, 0, 0.0, residuals=False)
         _count_fwd(gatv2_attention_fwd, variant, row_blocks, plan)
         return out
+    out = torch.empty((B, N, D), dtype=p.dtype, device=p.device)
     lib = _fwd_lib()
     p, q, a, v = (t.contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.to(torch.float32).contiguous()
@@ -864,15 +864,17 @@ def gatv2_attention_res(
     B, N, E = p.shape
     D = v.shape[-1]
     f32 = dict(dtype=torch.float32, device=p.device)
-    out = torch.empty((B, N, D), dtype=p.dtype, device=p.device)
-    u, m, l = torch.empty((B, N, D), **f32), torch.empty((B, N), **f32), torch.empty((B, N), **f32)
+    outputs = lambda: (torch.empty((B, N, D), dtype=p.dtype, device=p.device),  # noqa: E731
+                       torch.empty((B, N, D), **f32), torch.empty((B, N), **f32),
+                       torch.empty((B, N), **f32))
     if B == 0 or N == 0 or D == 0:
-        return out, u, m, l
+        return outputs()
     variant, row_blocks = _fwd_variant(N, E, D, variant)
-    if variant == "tiled":
+    if variant == "tiled":             # the merge allocates the outputs
         outs, plan = _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals=True)
         _count_fwd(gatv2_attention_res, variant, row_blocks, plan)
         return outs
+    out, u, m, l = outputs()
     lib = _fwd_lib()
     p, q, a, v = (t.detach().contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
