@@ -4,16 +4,22 @@ trees can be compared in one call.
     python3 bench_gat_tiled_torch.py [--root DIR] [--seed N] [--label NAME]
 
 Imports ``mtad_gat_tpu_torch`` from DIR (default: this checkout), builds its
-kernels there, and on inputs drawn from ``--seed`` (the same in every tree)
-times by CUDA graph the tiled K1 and K1-res (``variant="tiled"``), the
-tiled K2a, K2b and K2c, and the backward as a training call runs it with a
-bias (``gatv2_bwd(..., dbias=True)``: K2a, then K2b summing dbias in its own
-pass; a tree from before that fold runs K2c after them) at the dense
-route's shape (batch 1, N 8,587, E 76, D 38), at the SMD flagship's two
-attention layers (batch 256: N 38, E 200, D 100 and N 100, E 76, D 38) and
-at the temporal layer of a lookback-1024 window (batch 64, N 1024, E 76, D
-38), float32, dropout 0.3, with bias (at the flagship layers ``gatv2_bwd``
-runs the whole-graph K2ab). The
+attention kernels there, and on inputs drawn from ``--seed`` (the same in
+every tree) times by CUDA graph the tiled K1 and K1-res
+(``variant="tiled"``), the tiled K2a, K2b (without and with dbias) and K2c,
+and the backward as a training call runs it with a bias
+(``gatv2_bwd(..., dbias=True)``: K2a, then K2b summing dbias in its own
+pass, or where a tree has it and routes there the streamed backward; a
+tree from before the fold runs K2c after them) at the dense route's shape
+(batch 1, N 8,587, E 76, D 38), at the SMD flagship's two attention layers
+(batch 256: N 38, E 200, D 100 and N 100, E 76, D 38), at the temporal
+layer of a lookback-1024 window (batch 64, N 1024, E 76, D 38) and at the
+feature layer of windows 300, 1024 and 1200 (batch 64, 64 and 8; N 38, E 2
+window, D window: where the tiled plan names the CHUNKED tile, so the K2a
+and K2b lines time the CHUNKED pair, and ``chunked_pair`` the two with
+dbias, in every tree), float32, dropout 0.3, with bias (at the flagship
+layers ``gatv2_bwd`` runs the whole-graph K2ab). A tree with the streamed
+backward also times it on its own (``streamed``) at the wide shapes. The
 backward's row stats m and l come from plain tensor ops over chunks of rows,
 written here, so its inputs do not depend on the tree's forward; du and
 dvec are drawn. One JSON line per (shape, kernel) with its device time from
@@ -40,7 +46,9 @@ import torch
 
 # (name, B, N, E, D)
 SHAPES = (("route", 1, 8587, 76, 38), ("feature", 256, 38, 200, 100),
-          ("temporal", 256, 100, 76, 38), ("lookback 1024 temporal", 64, 1024, 76, 38))
+          ("temporal", 256, 100, 76, 38), ("lookback 1024 temporal", 64, 1024, 76, 38),
+          ("window 300 feature", 64, 38, 600, 300), ("window 1024 feature", 64, 38, 2048, 1024),
+          ("window 1200 feature", 8, 38, 2400, 1200))
 ALPHA, RATE = 0.2, 0.3
 
 
@@ -66,6 +74,11 @@ def graph_ms(fn, calls: int, replays: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def _flat(x) -> list:
+    """The tensors of a call's result, nested tuples flattened."""
+    return [t for y in x for t in _flat(y)] if isinstance(x, tuple) else [x]
 
 
 def sha(*tensors) -> str:
@@ -107,7 +120,7 @@ def main() -> None:
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build_all(["gat_fwd", "gat_bwd"])
+    _build.build_all([name for name in _build.SOURCES if name.startswith("gat")])
     print(json.dumps({"card": smi, "root": root, "label": args.label or root,
                       "package": kg.__file__, "build_seconds": time.perf_counter() - t0}),
           flush=True)
@@ -129,12 +142,17 @@ def main() -> None:
                                                     variant="tiled"),
             "k2a": lambda: kg.gatv2_bwd_dp_da(*bwd),
             "k2b": lambda: kg.gatv2_bwd_dq_dv(*bwd),
+            "k2b_dbias": lambda: kg.gatv2_bwd_dq_dv(*bwd, dbias=True),
             "k2c": lambda: kg.gatv2_bwd_dbias(*bwd),
             "bwd": lambda: kg.gatv2_bwd(*bwd, dbias=True),
         }
+        if name.startswith("window"):
+            spec["chunked_pair"] = lambda: (kg.gatv2_bwd_dp_da(*bwd),
+                                            kg.gatv2_bwd_dq_dv(*bwd, dbias=True))
+            if hasattr(kg, "gatv2_bwd_streamed"):
+                spec["streamed"] = lambda: kg.gatv2_bwd_streamed(*bwd, dbias=True)
         for kernel, fn in spec.items():
-            outs, agains = (tuple(t for t in (x if isinstance(x, tuple) else (x,))
-                                  if t is not None) for x in (fn(), fn()))
+            outs, agains = (tuple(t for t in _flat(x) if t is not None) for x in (fn(), fn()))
             torch.cuda.synchronize()
             rec = {"label": args.label or root, "shape": name, "B": B, "N": N, "E": E, "D": D,
                    "kernel": kernel, "graph_ms": graph_ms(fn, calls, replays),

@@ -65,16 +65,22 @@ In order, each phase failing the run with a non-zero exit:
    more (the caching allocator's unsplit blocks); K2c (no longer on
    any path) forced wherever there is a bias, as the yardstick of the fold.
    At the feature layer's window 235 (the WIDE tile), 300, 1024 and 1200
-   (the CHUNKED tile, K2b with dbias planned there, the tiled K1-res and
-   K2c's chunked staging forced there too, each twice for identical bits,
-   timed by CUDA graph beside its bound); at the shapes of
+   (where the tiled plan names the CHUNKED tile and ``gat_bwd_route`` the
+   streamed backward: that runs, dbias from it, twice for identical bits,
+   its plan equal to the built library's layout, its occupancy reported; at
+   window 300 also at dropout 0 without bias and in bfloat16; the CHUNKED
+   K2a and K2b, the tiled K1-res and K2c's chunked staging forced there
+   too, each twice for identical bits; each timed by CUDA graph beside its
+   bound, the CHUNKED pair beside the streamed backward); at the shapes of
    ``long_complete``'s batch-64 run, float32, dropout 0.3, bias: its
    temporal layer (64, 1024, 76, 38: the tiled K1-res, the FAST K2a and K2b
    with dbias in groups of one batch element, 64 partials summed), with the
    memory check above and K2b with dbias forced at twice the planned group
    beside the planned one (its errors, bits, partials' bytes and device
-   time), and its feature layer (window 1024 above); and the tiled K2b's weights against the
-   tiled K1-res's, bit for bit, at each tile, with and without dbias. Each
+   time), and its feature layer (window 1024 above, with the memory check,
+   the streamed backward's scratch its plan's); and the tiled K2b's weights
+   against the tiled K1-res's, bit for bit, at each tile, with and without
+   dbias, and the streamed backward's at E 2400. Each
    kernel's time at both layers is a wrapper call by CUDA events and its
    device time from a CUDA graph of 20 calls, beside its bound and its plain
    version; K2ab's also without dbias, followed by K2c, and the sum of its
@@ -125,13 +131,13 @@ In order, each phase failing the run with a non-zero exit:
 12. ``wide_window``: ``train_cli --lookback 300 --attention_impl pallas
     --gru_impl pallas`` at dropout 0 on a short synthetic entity (700 rows,
     batch 32, 2 epochs): launch counts exact by kernel and variant (the
-    feature layer's CHUNKED K2a and K2b, the temporal layer's tiled K1,
-    K1-res and merge, K2b summing dbias at both, K2c never), training
-    windows/s and peak memory, and per-epoch losses equal to the
-    ``--attention_impl dense`` run's within a stated tolerance; then the
-    feature layer at window 1200 in one training call, exact counts (the
-    tiled K1-res and merge, the CHUNKED K2a and K2b with dbias), against the
-    dense layer;
+    feature layer's streamed backward, the temporal layer's tiled K1,
+    K1-res and merge and K2a and K2b, dbias from the streamed backward and
+    K2b, the CHUNKED tile and K2c never), training windows/s and peak
+    memory, and per-epoch losses equal to the ``--attention_impl dense``
+    run's within a stated tolerance; then the feature layer at window 1200
+    in one training call, exact counts (the tiled K1-res and merge, the
+    streamed backward with dbias), against the dense layer;
 13. ``dense_route``: ``attention_impl="dense"`` on complete GATv2 graphs.
     At the flagship (batch 256, both layers) it stays dense, with no kernel
     launch; with the route's threshold pinned to 1 byte the layer runs K1
@@ -152,8 +158,9 @@ In order, each phase failing the run with a non-zero exit:
     (10 steps an epoch): finite losses and summary, launch counts exact by
     kernel and variant (the temporal layer's tiled K1, K1-res and merge,
     FAST K2a and K2b with dbias; the feature layer's tiled forward with E
-    and D in chunks, CHUNKED K2a and K2b with dbias; K3, K4's scan and
-    weights twice a step; K2c never), training windows/s by epoch, peak
+    and D in chunks and the streamed backward with dbias; K3, K4's scan and
+    weights twice a step; the CHUNKED tile and K2c never), training
+    windows/s by epoch, peak
     memory above the baseline, device time by kernel over one profiled
     epoch; then the same entry point at ``--bs 8 --dropout 0`` for 1 epoch,
     ``--attention_impl pallas`` and ``dense`` from one seed, per-epoch
@@ -186,8 +193,9 @@ In order, each phase failing the run with a non-zero exit:
     path, serving's and long_complete's included, the tiled kernels' times
     at the route's N, K2b's with and without dbias, K2c's forced times and
     where dbias now comes from, and K1's and K3's serving launches and
-    batch-1 times; the merge, the CHUNKED K2a and K2b and the chunked K2c as
-    rows of their own) and, last, ``{"ok": true, ...}``.
+    batch-1 times; the merge, the CHUNKED K2a and K2b, the chunked K2c and
+    the streamed backward as rows of their own) and, last, ``{"ok": true,
+    ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -801,11 +809,45 @@ def tiled_plans(kg) -> dict:
 
 
 # the kernel each gradient of the backward comes from, by variant (and K2c
-# forced on its own, on no path since dbias comes from K2ab and K2b)
+# forced on its own, on no path since dbias comes from K2ab, K2b and the
+# streamed backward)
 GRAD_KERNELS = {"graph": {"dp": "k2ab", "dq": "k2ab", "da": "k2ab", "dv": "k2ab",
                           "dbias": "k2ab"},
                 "tiled": {"dp": "k2a", "da": "k2a", "dq": "k2b", "dv": "k2b", "dbias": "k2b"},
+                "streamed": dict.fromkeys(("dp", "dq", "da", "dv", "dbias"), "streamed"),
                 "k2c": {"dbias": "k2c"}}
+
+
+def streamed_layout(kg, B: int, N: int, E: int, D: int, sms: int) -> dict:
+    """The streamed backward's plan (``gat_streamed_bwd_plan``, with dbias)
+    and the built library's layout at its row tile and rows a thread
+    (threads, shared memory, key registers, columns, chunk, NMAX, buffers),
+    which must agree, and each pass's blocks a multiprocessor by CUDA's
+    occupancy calculator: the most, and the score pass's as launched
+    (ceil(blocks / sms)), with their warps."""
+    import ctypes
+
+    pl = kg.gat_streamed_bwd_plan(B, N, E, D, sms, dbias=True)
+    lib = kg._streamed_lib()
+    out = (ctypes.c_long * 8)()
+    lib.gatv2_streamed_layout(N, pl.rows, pl.rows_per_thread, out)
+    # (pass, bfloat16 outputs, dropout): the score pass reads float32 and
+    # instantiates by dropout, the contraction pass by its output type
+    kinds = {"score": (0, 0, 0), "score_dropout": (0, 0, 1), "contract": (1, 0, 0),
+             "contract_bf16": (1, 1, 0)}
+    occ = {name: lib.gatv2_streamed_occupancy(which, N, pl.rows, pl.rows_per_thread, bf16, drop)
+           for name, (which, bf16, drop) in kinds.items()}
+    launched = -(-pl.score_blocks // sms)
+    return {"plan": pl._asdict(),
+            "library": dict(zip(("score_threads", "score_smem_bytes", "key_regs", "cols",
+                                 "contract_smem_bytes", "chunk", "nmax", "ring"), out)),
+            "planned": (pl.score_threads, pl.score_smem_bytes, pl.key_regs, pl.cols,
+                        pl.contract_smem_bytes, pl.chunk, kg.STREAMED_NMAX, kg.STREAMED_RING),
+            "occupancy_blocks": occ,
+            "score_blocks_a_multiprocessor": launched,
+            "score_warps_a_multiprocessor": launched * pl.score_threads // 32,
+            "score_warps_most": occ["score_dropout"] * pl.score_threads // 32,
+            "contract_warps_most": occ["contract"] * pl.cols // 32}
 
 
 def k2b_group(kg, lib, B: int, N: int, E: int, D: int, sms: int) -> dict:
@@ -898,38 +940,42 @@ def check_training_kernels(gen, dev):
     from mtad_gat_tpu_torch.kernels import gat as kg
 
     # (case, B, N, E, D, the forward and backward gat_fwd_plan and
-    # gat_bwd_plan must pick)
-    cases = [("feature", 256, 38, 200, 100, "graph", "graph"),
-             ("temporal", 256, 100, 76, 38, "graph", "graph"),
-             ("many_key_tiles", 1, 2048, 32, 16, "tiled", "tiled"),
-             ("many_key_tiles", 1, 4096, 32, 16, "tiled", "tiled"),
-             ("widest", 1, 300, 470, 235, "tiled", "tiled"),
-             ("batch groups", 17, 2048, 32, 16, "tiled", "tiled"),
-             ("window 300", 64, 38, 600, 300, "graph", "tiled"),
-             ("window 1200", 8, 38, 2400, 1200, "tiled", "tiled"),
-             ("lookback 1024", 64, 1024, 76, 38, "tiled", "tiled"),
-             ("window 1024", 64, 38, 2048, 1024, "tiled", "tiled")]
+    # gat_bwd_plan must pick, and the backward gat_bwd_route must run)
+    cases = [("feature", 256, 38, 200, 100, "graph", "graph", "graph"),
+             ("temporal", 256, 100, 76, 38, "graph", "graph", "graph"),
+             ("many_key_tiles", 1, 2048, 32, 16, "tiled", "tiled", "tiled"),
+             ("many_key_tiles", 1, 4096, 32, 16, "tiled", "tiled", "tiled"),
+             ("widest", 1, 300, 470, 235, "tiled", "tiled", "tiled"),
+             ("batch groups", 17, 2048, 32, 16, "tiled", "tiled", "tiled"),
+             ("window 300", 64, 38, 600, 300, "graph", "tiled", "streamed"),
+             ("window 1200", 8, 38, 2400, 1200, "tiled", "tiled", "streamed"),
+             ("lookback 1024", 64, 1024, 76, 38, "tiled", "tiled", "tiled"),
+             ("window 1024", 64, 38, 2048, 1024, "tiled", "tiled", "streamed")]
     # the tiled cases: planned (not forced), float32 at dropout 0.3 with bias;
     # "widest" is the feature layer at window 235, the widest whole rows of
     # the tiled backward's WIDE tile take; "batch groups" a batch at which
     # K2b with dbias takes two batch elements a block (nine groups, the last
     # of one: tiled_dbias_groups on 132 multiprocessors); windows 300 and
-    # 1200 the feature layer beyond, the CHUNKED tile, where the tiled
-    # forward and K2c's chunked staging are also forced (window 300 plans the
-    # whole-graph forward); "lookback 1024" and "window 1024" the two layers
-    # of long_complete's batch-64 run at its shapes (the FAST K2b with dbias
-    # in 64 groups of one, the CHUNKED one in 64 more)
+    # 1200 the feature layer beyond, where the tiled plan names the CHUNKED
+    # tile and the streamed backward runs instead (the CHUNKED K2a and K2b,
+    # the tiled forward and K2c's chunked staging forced there; window 300
+    # plans the whole-graph forward, and runs dropout 0 without bias and
+    # bfloat16 too); "lookback 1024" and "window 1024" the two layers of
+    # long_complete's batch-64 run at its shapes (the FAST K2b with dbias in
+    # 64 groups of one; the streamed backward)
     tiled_cases = ("many_key_tiles", "widest", "batch groups", "window 300", "window 1200",
                    "lookback 1024", "window 1024")
     variants = [(torch.float32, r, b) for r in (0.0, 0.3) for b in (True, False)]
     variants.append((torch.bfloat16, 0.3, True))
-    worst = {k: 0.0 for k in ("k1res", "k2ab", "k2a", "k2b", "k2c")}
+    more = {"window 300": ((torch.float32, 0.0, False), (torch.bfloat16, 0.3, True))}
+    worst = {k: 0.0 for k in ("k1res", "k2ab", "k2a", "k2b", "k2c", "streamed")}
     worst_rel = dict(worst)
     times = {k: {} for k in worst}
     times["wide"], times["k2b_dbias"] = {}, {}
     lib = kg._bwd_lib()
-    for name, B, N, E, D, want_fwd, want_plan in cases:
+    for name, B, N, E, D, want_fwd, want_plan, want_route in cases:
         plan = kg.gat_bwd_plan(N, E, D)
+        route = kg.gat_bwd_route(N, E, D)
         wide = name.startswith("window")
         smem = {"planned": kg.gat_bwd_smem_bytes(N, E, D),
                 "library": lib.gatv2_bwd_smem_bytes(3, N, E, D)}
@@ -937,8 +983,14 @@ def check_training_kernels(gen, dev):
         group = {"planned": kg.dbias_groups(B, sms),
                  "library": lib.gatv2_bwd_graph_dbias_group(B, sms)}
         rec = {"phase": "training_kernels", "case": f"{name} backward plan", "N": N, "E": E,
-               "D": D, "B": B, "plan": plan, "expected": want_plan, "k2ab_smem_bytes": smem,
+               "D": D, "B": B, "plan": plan, "expected": want_plan, "route": route,
+               "expected_route": want_route, "k2ab_smem_bytes": smem,
                "dbias_group": group, "sms": sms}
+        if route == "streamed":
+            rec["streamed"] = layout = streamed_layout(kg, B, N, E, D, sms)
+            if tuple(layout["library"].values()) != layout["planned"]:
+                raise AssertionError(f"{name}: the streamed backward's plan and the built "
+                                     f"library's layout differ: {layout}")
         if plan == "graph":
             rec["k2ab_occupancy"] = graph_occupancy(lib, N, E, D)
             rec["dbias_partial_bytes"] = -(-B // group["planned"]) * N * N * 4
@@ -947,7 +999,7 @@ def check_training_kernels(gen, dev):
         rec["k2b_dbias_group"] = k2b = k2b_group(kg, lib, B, N, E, D, sms)
         emit(rec)
         occ = k2b["occupancy"]
-        if (plan != want_plan or smem["planned"] != smem["library"]
+        if (plan != want_plan or route != want_route or smem["planned"] != smem["library"]
                 or group["planned"] != group["library"]
                 or k2b["planned"] != k2b["library"]
                 or k2b["dbias_bytes"] != k2b["library_dbias_bytes"]
@@ -956,7 +1008,8 @@ def check_training_kernels(gen, dev):
                                  f"memory {smem}, dbias group {group}; the tiled K2b's group, "
                                  f"partials and blocks a multiprocessor {k2b}")
         for dtype, rate, with_bias in variants:
-            if name in tiled_cases and (dtype, rate, with_bias) != (torch.float32, 0.3, True):
+            if name in tiled_cases and (dtype, rate, with_bias) not in (
+                    ((torch.float32, 0.3, True),) + more.get(name, ())):
                 continue
             p, q, a, bias, v = gat_case(gen, dev, B, N, E, D, dtype, with_bias)
             seed = torch.randint(0, 2**32, (1,), generator=gen, dtype=torch.int64).to(dev)
@@ -975,14 +1028,17 @@ def check_training_kernels(gen, dev):
             again = kg.gatv2_bwd(*args, dbias=with_bias)
             ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, seed, rate)
             timed = name not in tiled_cases and dtype == torch.float32 and rate > 0 and with_bias
-            # the tiled kernels once at each flagship layer (twice, for identical
-            # bits), K2b with dbias, so both variants stay covered, and K2c on
-            # its own wherever there is a bias
-            tiled = tiled_bwd(kg, args, dbias=True) if timed else None
-            tiled_again = tiled_bwd(kg, args, dbias=True) if timed else None
-            k2c = (kg.gatv2_bwd_dbias(*args, variant="chunked") if wide
+            # the tiled kernels once at each flagship layer and each streamed
+            # shape (twice, for identical bits), K2b with dbias where there is a
+            # bias, so each tile stays covered, and K2c on its own wherever
+            # there is a bias
+            forced = timed or (wide and route == "streamed")
+            tiled = tiled_bwd(kg, args, dbias=with_bias) if forced else None
+            tiled_again = tiled_bwd(kg, args, dbias=with_bias) if forced else None
+            k2c = (kg.gatv2_bwd_dbias(*args, variant="chunked") if wide and with_bias
                    else kg.gatv2_bwd_dbias(*args) if with_bias else None)
-            k2c_again = kg.gatv2_bwd_dbias(*args, variant="chunked") if wide else None
+            k2c_again = (kg.gatv2_bwd_dbias(*args, variant="chunked") if wide and with_bias
+                         else None)
             tiled_fwd = (kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,
                                                 variant="tiled") if timed or wide else None)
             tiled_fwd_again = (kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate,
@@ -1006,7 +1062,8 @@ def check_training_kernels(gen, dev):
             if wide:
                 rec["tiled_forward_two_launches_identical"] = all(
                     torch.equal(x, y) for x, y in zip(tiled_fwd, tiled_fwd_again))
-                rec["k2c_chunked_two_launches_identical"] = torch.equal(k2c, k2c_again)
+                rec["k2c_chunked_two_launches_identical"] = (
+                    k2c is None or torch.equal(k2c, k2c_again))
                 rec["k2c_dbias_from"] = "chunked, forced"
                 if not (rec["tiled_forward_two_launches_identical"]
                         and rec["k2c_chunked_two_launches_identical"]):
@@ -1014,6 +1071,8 @@ def check_training_kernels(gen, dev):
             rec["two_launches_identical"] = same_bits(outs, again)
             if variant == "tiled" or tiled is not None:
                 rec["tiled_plan"] = tiled_plans(kg)
+            if variant == "streamed":
+                rec["streamed_plan"] = kg.gatv2_bwd_streamed.last_plan._asdict()
             if tiled is not None:
                 terr, tabs = grad_errors(tiled, ref, tiled[4])
                 rec["tiled_grad_rel_err"], rec["tiled_grad_abs_err"] = terr, tabs
@@ -1024,23 +1083,25 @@ def check_training_kernels(gen, dev):
                 rec["k2c_dbias_abs_err"] = (k2c - ref[3]).abs().max().item()
                 runs.append(("k2c", {"dbias": rec["k2c_dbias_rel_err"]},
                              {"dbias": rec["k2c_dbias_abs_err"]}))
-            want_dbias = None if not with_bias else "k2ab" if variant == "graph" else "k2b"
+            want_dbias = None if not with_bias else kg.dbias_kernel(N, E, D)
             if timed:
                 rec["timing"] = t = time_training_kernels(kg, p, q, a, bias, v, du, dvec,
                                                           got[2], got[3], seed, rate)
                 for k in t:
                     if k in times:
                         times[k][name] = t[k]
-            if wide:
+            if wide and (dtype, rate, with_bias) == (torch.float32, 0.3, True):
                 rec["timing"] = t = time_wide_kernels(kg, args, du)
                 t.update(grad_abs_err=gabs, grad_rel_err=gerr,
                          k2c_chunked_abs_err=rec["k2c_dbias_abs_err"],
                          k1res_tiled_err=rec["tiled_forward_err"], B=B, N=N, E=E, D=D)
+                if tiled is not None:
+                    t.update(chunked_grad_abs_err=tabs, chunked_grad_rel_err=terr)
                 times["wide"][name] = t
             emit(rec)
             bad += [f"{run} {k}" for run, rel, _ in runs for k, e in rel.items()
                     if not e <= tol["grad"]]
-            if (bad or variant != want_plan or fwd_variant != want_fwd
+            if (bad or variant != want_route or fwd_variant != want_fwd
                     or launch["dbias"] != want_dbias
                     or not rec["two_launches_identical"]
                     or rec.get("tiled_two_launches_identical") is False
@@ -1059,7 +1120,7 @@ def check_training_kernels(gen, dev):
                         key = GRAD_KERNELS[run][k]
                         worst[key] = max(worst[key], absolute[k])
                         worst_rel[key] = max(worst_rel[key], rel[k])
-            if name in ("many_key_tiles", "batch groups", "lookback 1024"):
+            if name in ("many_key_tiles", "batch groups", "lookback 1024", "window 1024"):
                 check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate)
             if name == "lookback 1024":
                 times["k2b_groups"] = k2b_group_cost(kg, args, ref, outs, sms, tol["grad"])
@@ -1068,11 +1129,14 @@ def check_training_kernels(gen, dev):
 
 
 def time_wide_kernels(kg, args, du) -> dict:
-    """At a width beyond the first design's (the CHUNKED tile): the tiled
-    K1-res (forced), the tiled K2a and K2b (planned, K2b with and without
-    dbias) and K2c (and its chunked staging forced), each its device time by
-    CUDA graph beside its bound as ``time_training_kernels`` counts it, its
-    plan, and the plain backward's time."""
+    """At a width beyond the first design's (where the tiled plan names the
+    CHUNKED tile): the streamed backward (planned there, with and without
+    dbias), the tiled K1-res (forced), the CHUNKED K2a and K2b (K2b with and
+    without dbias) and the two together with dbias (``chunked_pair``: the
+    yardstick the streamed backward replaces), K2c (and its chunked staging
+    forced), each its device time by CUDA graph beside its bound as
+    ``time_training_kernels`` counts it, their plans, and the plain
+    backward's time."""
     p, q, a, bias, v, m, l, _, dvec, alpha, seed, rate = args
     B, N, E = p.shape
     D = v.shape[-1]
@@ -1094,6 +1158,15 @@ def time_wide_kernels(kg, args, du) -> dict:
                 in_bytes + stats_bytes + N * N * 4),
         "k2c_chunked": (lambda: kg.gatv2_bwd_dbias(*args, variant="chunked"),
                         pairs * (4 * E + 2 * D + 4), in_bytes + stats_bytes + N * N * 4),
+        # K2ab's count: both contractions and dbias from one score a pair
+        "streamed": (lambda: kg.gatv2_bwd_streamed(*args, dbias=True),
+                     pairs * (8 * E + 4 * D + 5),
+                     in_bytes + stats_bytes + B * N * (2 * E + D) * 4 + E * 4 + N * N * 4),
+        "streamed_no_dbias": (lambda: kg.gatv2_bwd_streamed(*args),
+                              pairs * (8 * E + 4 * D + 4),
+                              in_bytes + stats_bytes + B * N * (2 * E + D) * 4 + E * 4),
+        "chunked_pair": (lambda: tiled_bwd(kg, args, dbias=True), pairs * (8 * E + 4 * D + 5),
+                         in_bytes + stats_bytes + B * N * (2 * E + D) * 4 + E * 4 + N * N * 4),
     }
     out = {}
     for k, (fn, ops, nbytes) in spec.items():
@@ -1106,16 +1179,21 @@ def time_wide_kernels(kg, args, du) -> dict:
                                                                        alpha, seed, rate),
                                   1, warmup=1)
     out["plans"] = tiled_plans(kg)
+    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
+    out["streamed"]["layout"] = streamed_layout(kg, B, N, E, D, sms)
+    out["streamed"]["chunked_pair_over_streamed"] = (out["chunked_pair"]["graph_ms"]
+                                                     / out["streamed"]["graph_ms"])
     return out
 
 
 def check_w_bits(kg, dev, gen) -> None:
     """The tiled K2b recomputes the tiled K1-res's weights bit for bit at
-    each tile (FAST, WIDE, CHUNKED): with v the identity (D = N, one key
+    each tile (FAST, WIDE, CHUNKED), and so does the streamed backward where
+    ``gat_bwd_route`` names it (E 2400): with v the identity (D = N, one key
     tile, one slice) the forward's u is w exactly, and with du the identity
-    and dvec 0 K2b's dv is w transposed exactly (every other term of their
-    sums is an exact zero), so equal bits mean equal scores from the one
-    shared score routine."""
+    and dvec 0 K2b's dv, and the streamed backward's (``gatv2_bwd``), is w
+    transposed exactly (every other term of their sums is an exact zero), so
+    equal bits mean equal scores from the one shared score routine."""
     for N, E in ((64, 76), (32, 470), (32, 2400)):
         p, q, a, bias, _ = gat_case(gen, dev, 1, N, E, N, torch.float32, True)
         eye = torch.eye(N, device=dev)[None].contiguous()
@@ -1123,16 +1201,23 @@ def check_w_bits(kg, dev, gen) -> None:
         bwd = (p, q, a, bias, eye, m, l, eye, torch.zeros(1, N, device=dev), 0.2, 0, 0.0)
         _, dv, _ = kg.gatv2_bwd_dq_dv(*bwd)
         _, dv_db, _ = kg.gatv2_bwd_dq_dv(*bwd, dbias=True)
+        route = kg.gat_bwd_route(N, E, N)
+        routed = kg.gatv2_bwd(*bwd, dbias=True) if route == "streamed" else None
         torch.cuda.synchronize()
         tile = kg.TILED_TILE_NAMES[kg.gatv2_bwd_dq_dv.last_plan.tile]
         rec = {"phase": "training_kernels", "case": "w of the tiled K1-res against K2b's, bit "
-               "for bit, K2b without and with dbias", "N": N, "E": E, "k2b_tile": tile,
-               "identical": torch.equal(u[0], dv[0].t()),
+               "for bit, K2b without and with dbias, and the routed backward's", "N": N, "E": E,
+               "k2b_tile": tile, "identical": torch.equal(u[0], dv[0].t()),
                "identical_with_dbias": torch.equal(u[0], dv_db[0].t()),
-               "max_abs_diff": (u[0] - dv[0].t()).abs().max().item()}
+               "max_abs_diff": (u[0] - dv[0].t()).abs().max().item(),
+               "route": route}
+        if routed is not None:
+            rec["identical_streamed"] = torch.equal(u[0], routed[3][0].t())
         emit(rec)
-        if not (rec["identical"] and rec["identical_with_dbias"]):
-            raise AssertionError(f"the tiled K2b's weights differ from the tiled K1-res's: {rec}")
+        if not (rec["identical"] and rec["identical_with_dbias"]
+                and (E < 2400 or rec.get("identical_streamed"))):
+            raise AssertionError(f"the tiled K2b's or the routed backward's weights differ "
+                                 f"from the tiled K1-res's: {rec}")
 
 
 def forward_errors(got, want) -> dict:
@@ -1238,25 +1323,31 @@ def time_training_kernels(kg, p, q, a, bias, v, du, dvec, m, l, seed, rate) -> d
 
 
 def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
-    """K1-res, then the tiled K2a and K2b with dbias (what ``gatv2_bwd``
-    runs on the "tiled" plan), the peak of each launch above what was
-    allocated before it measured on its own: each allocates its outputs,
-    the scratch its plan names and at most 1 MiB more, and 1 MiB more for
-    each of those tensors of 1 MiB or more (the caching allocator hands such
-    a request a cached block without splitting it where less than 1 MiB
-    would be left over, and counts the whole block). The scratch: the
-    tiled forward's partials (``gat_tiled_fwd_plan``), K2a's partials and
-    da rows, K2b's partials and, beyond the (N, N) output, its dbias
-    partials, ceil(B / G) of (N, N) (``gat_tiled_bwd_plan``'s
-    ``partial_bytes``, ``da_rows`` and ``dbias_bytes``; G checked against
-    the built library at launch). So no (B, N, N) tensor exists in device
-    memory but the dbias partials the plan names: each launch's allowance
-    beyond them is checked to stay below one (B, N, N) float32 tensor, so
-    that one more would still fail."""
+    """K1-res, then the backward with dbias that ``gatv2_bwd`` runs on the
+    shape's route: the tiled K2a and K2b ("tiled") or the streamed backward
+    ("streamed"), the peak of each launch above what was allocated before it
+    measured on its own: each allocates its outputs, the scratch its plan
+    names and at most 1 MiB more, and 1 MiB more for each of those tensors
+    of 1 MiB or more (the caching allocator hands such a request a cached
+    block without splitting it where less than 1 MiB would be left over, and
+    counts the whole block). The scratch: the tiled forward's partials
+    (``gat_tiled_fwd_plan``), K2a's partials and da rows, K2b's partials
+    and, beyond the (N, N) output, its dbias partials, ceil(B / G) of (N, N)
+    (``gat_tiled_bwd_plan``'s ``partial_bytes``, ``da_rows`` and
+    ``dbias_bytes``; G checked against the built library at launch); the
+    streamed backward's ds, wa (B, N, N) and da rows (B, E), float32
+    (``gat_streamed_bwd_plan``'s ``scratch_bytes``). On the tiled route no
+    (B, N, N) tensor exists in device memory but the dbias partials the plan
+    names: each launch's allowance beyond them is checked to stay below one
+    (B, N, N) float32 tensor, so that one more would still fail. On the
+    streamed route (a feature layer) the plan's own scratch holds two, and
+    one is smaller than the 1 MiB slack (370 KB at lookback 1024): there
+    the check bounds each launch's bytes only."""
     B, N, E = p.shape
     D = v.shape[-1]
-    if kg.gat_bwd_plan(N, E, D) != "tiled":
-        raise AssertionError(f"check_training_memory: N {N}, E {E}, D {D} is no tiled shape")
+    route = kg.gat_bwd_route(N, E, D)
+    if route not in ("tiled", "streamed"):
+        raise AssertionError(f"check_training_memory: N {N}, E {E}, D {D} routes to {route}")
     size = p.dtype.itemsize
 
     def held(*ns):
@@ -1276,20 +1367,31 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
         lambda: kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seed, rate))
     fwd_plan = kg.gatv2_attention_res.last_launch["plan"]
     args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seed, rate)
-    _, k2a_extra = peak(lambda: kg.gatv2_bwd_dp_da(*args))
-    k2a = kg.gatv2_bwd_dp_da.last_plan
-    _, k2b_extra = peak(lambda: kg.gatv2_bwd_dq_dv(*args, dbias=True))
-    k2b = kg.gatv2_bwd_dq_dv.last_plan
     # (peak, outputs, scratch, dbias partials beyond the (N, N) output), each
     # a list of its tensors' bytes
-    launches = {
-        "k1res": (fwd_extra, [B * N * D * size, B * N * D * 4, B * N * 4, B * N * 4],
-                  [0 if fwd_plan is None else fwd_plan["partial_bytes"]], []),
-        "k2a": (k2a_extra, [B * N * E * size, E * 4],
-                [k2a.partial_bytes, k2a.da_rows * E * 4], []),
-        "k2b": (k2b_extra, [B * N * E * size, B * N * D * size, N * N * 4],
-                [k2b.partial_bytes], [k2b.dbias_bytes] if k2b.dbias_bytes > N * N * 4 else []),
-    }
+    launches = {"k1res": (fwd_extra, [B * N * D * size, B * N * D * 4, B * N * 4, B * N * 4],
+                          [0 if fwd_plan is None else fwd_plan["partial_bytes"]], [])}
+    if route == "tiled":
+        _, k2a_extra = peak(lambda: kg.gatv2_bwd_dp_da(*args))
+        k2a = kg.gatv2_bwd_dp_da.last_plan
+        _, k2b_extra = peak(lambda: kg.gatv2_bwd_dq_dv(*args, dbias=True))
+        k2b = kg.gatv2_bwd_dq_dv.last_plan
+        launches["k2a"] = (k2a_extra, [B * N * E * size, E * 4],
+                           [k2a.partial_bytes, k2a.da_rows * E * 4], [])
+        launches["k2b"] = (k2b_extra, [B * N * E * size, B * N * D * size, N * N * 4],
+                           [k2b.partial_bytes],
+                           [k2b.dbias_bytes] if k2b.dbias_bytes > N * N * 4 else [])
+        group = k2b.group
+    else:
+        _, st_extra = peak(lambda: kg.gatv2_bwd_streamed(*args, dbias=True))
+        st = kg.gatv2_bwd_streamed.last_plan
+        launches["streamed"] = (st_extra, [2 * B * N * E * size, B * N * D * size, E * 4,
+                                           N * N * 4],
+                                [B * N * N * 4, B * N * N * 4, B * E * 4], [])
+        if sum(launches["streamed"][2]) != st.scratch_bytes:
+            raise AssertionError(f"the streamed backward's scratch {launches['streamed'][2]} "
+                                 f"is not its plan's {st.scratch_bytes} bytes")
+        group = None
     recs = {}
     for k, (x, outs, scratch, dpart) in launches.items():
         (o, no), (sc, ns), (dp, nd) = held(*outs), held(*scratch), held(*dpart)
@@ -1298,10 +1400,10 @@ def check_training_memory(kg, p, q, a, bias, v, du, dvec, seed, rate) -> None:
                    "dbias_partial_bytes": dp, "slack_bytes": slack,
                    "allowed_bytes": o + sc + dp + slack}
     emit({"phase": "training_kernels", "case": "device memory of each launch of one forward "
-          "and backward", "B": B, "N": N, "E": E, "D": D, "k2b_group": k2b.group,
+          "and backward", "B": B, "N": N, "E": E, "D": D, "route": route, "k2b_group": group,
           "launches": recs, "score_matrix_bytes": B * N * N * 4})
     for k, r in recs.items():
-        if r["scratch_bytes"] + r["slack_bytes"] >= B * N * N * 4:
+        if route == "tiled" and r["scratch_bytes"] + r["slack_bytes"] >= B * N * N * 4:
             raise AssertionError(f"{k}'s scratch and slack ({r}) at N={N} leave no room to "
                                  "tell a (B, N, N) tensor")
         if r["peak_extra_bytes"] > r["allowed_bytes"]:
@@ -1510,7 +1612,7 @@ def gru_crossover(gen, dev) -> dict:
 
 KERNEL_COUNTERS = ("gatv2_attention_fwd", "gatv2_attention_res", "gatv2_fwd_merge",
                    "gatv2_bwd_graph", "gatv2_bwd_dp_da", "gatv2_bwd_dq_dv", "gatv2_bwd_dbias",
-                   "gru_scan_fwd", "gru_scan_bwd", "gru_weight_grads")
+                   "gatv2_bwd_streamed", "gru_scan_fwd", "gru_scan_bwd", "gru_weight_grads")
 
 
 def counters() -> dict:
@@ -1529,8 +1631,9 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Launches by wrapper, and by variant ("name:variant") for the
-    forward's two kernels (graph, tiled), K2ab (dbias, no_dbias), the tiled
-    K2a and K2b (their tile: fast, wide, chunked) and K2c (full, chunked)."""
+    forward's two kernels (graph, tiled), K2ab and the streamed backward
+    (dbias, no_dbias), the tiled K2a and K2b (their tile: fast, wide,
+    chunked) and K2c (full, chunked)."""
     counts = {}
     for name, fn in counters().items():
         counts[name] = fn.launches
@@ -1543,9 +1646,9 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
                                epochs: int, val_split: float, gru_impl: str,
                                n_features: int = 38) -> dict:
     """Launch counts of one train_cli run: each training step runs K1-res
-    and the backward's variant that ``gat_bwd_plan`` names for the layer
-    (K2ab, or K2a and K2b, each summing dbias too; K2c never) in both
-    attention layers
+    and the backward's variant that ``gat_bwd_route`` names for the layer
+    (K2ab, K2a and K2b, or the streamed backward, each summing dbias too;
+    K2c never) in both attention layers
     (feature: N features, E 2w, D w; temporal: N w, E 2 features, D
     features; both with a learned score bias) and, with the GRU
     kernels, K3 and K4 (scan and weights product) in the encoder and the
@@ -1555,7 +1658,7 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     K1 and K1-res also count by the variant ``gat_fwd_plan`` names, each
     tiled one with a merge; the tiled K2a and K2b by the tile
     ``gat_tiled_bwd_plan`` names, K2b's also as summing dbias."""
-    from mtad_gat_tpu_torch.kernels.gat import (TILED_TILE_NAMES, gat_bwd_plan, gat_fwd_plan,
+    from mtad_gat_tpu_torch.kernels.gat import (TILED_TILE_NAMES, gat_bwd_route, gat_fwd_plan,
                                                 gat_tiled_bwd_plan)
 
     batches = lambda n: max(1, -(-n // bs))  # noqa: E731
@@ -1568,11 +1671,15 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     gru = gru_impl == "pallas"
     want = {name: 2 * steps for name in KERNEL_COUNTERS}
     layers = ((n_features, 2 * w, w), (w, 2 * n_features, n_features))
-    graph = sum(gat_bwd_plan(*layer) == "graph" for layer in layers)
-    want.update(gatv2_bwd_graph=graph * steps, gatv2_bwd_dp_da=(2 - graph) * steps,
-                gatv2_bwd_dq_dv=(2 - graph) * steps, gatv2_bwd_dbias=0)
-    want["gatv2_bwd_dq_dv:dbias"], want["gatv2_bwd_dq_dv:no_dbias"] = (2 - graph) * steps, 0
+    routes = [gat_bwd_route(*layer) for layer in layers]
+    graph, tiled, streamed = (routes.count(r) for r in ("graph", "tiled", "streamed"))
+    want.update(gatv2_bwd_graph=graph * steps, gatv2_bwd_dp_da=tiled * steps,
+                gatv2_bwd_dq_dv=tiled * steps, gatv2_bwd_dbias=0,
+                gatv2_bwd_streamed=streamed * steps)
+    want["gatv2_bwd_dq_dv:dbias"], want["gatv2_bwd_dq_dv:no_dbias"] = tiled * steps, 0
     want["gatv2_bwd_graph:dbias"], want["gatv2_bwd_graph:no_dbias"] = graph * steps, 0
+    want["gatv2_bwd_streamed:dbias"] = streamed * steps
+    want["gatv2_bwd_streamed:no_dbias"] = 0
     want.update(gatv2_attention_fwd=2 * no_grad,
                 gru_scan_fwd=2 * (steps + no_grad) if gru else 0,
                 gru_scan_bwd=2 * steps if gru else 0, gru_weight_grads=2 * steps if gru else 0)
@@ -1584,8 +1691,8 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     for name in ("gatv2_bwd_dp_da", "gatv2_bwd_dq_dv"):
         want.update({f"{name}:{tile}": 0 for tile in TILED_TILE_NAMES})
     want.update({"gatv2_bwd_dbias:full": 0, "gatv2_bwd_dbias:chunked": 0})
-    for layer in layers:
-        if gat_bwd_plan(*layer) == "tiled":
+    for layer, route in zip(layers, routes):
+        if route == "tiled":
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             for kernel, pl in gat_tiled_bwd_plan(bs, *layer, sms, dbias=True).items():
                 name = "gatv2_bwd_dp_da" if kernel == "k2a" else "gatv2_bwd_dq_dv"
@@ -2283,16 +2390,17 @@ def check_wide_window(work, gen, dev) -> dict:
     """The widths beyond the first tiled design on their entry points.
     ``train_cli --lookback 300 --attention_impl pallas --gru_impl pallas`` at
     dropout 0 on a short synthetic entity: the feature layer (N 38, E 600, D
-    300) runs the whole-graph K1 and K1-res on two row blocks and the CHUNKED
-    K2a and K2b, the temporal layer (N 300, E 76, D 38) the tiled K1 and
-    K1-res with their merge, FAST K2a and K2b; K2b sums dbias at both, K2c
-    runs at neither. Launch counts
+    300) runs the whole-graph K1 and K1-res on two row blocks and the
+    streamed backward (where the tiled plan names the CHUNKED tile), the
+    temporal layer (N 300, E 76, D 38) the tiled K1 and K1-res with their
+    merge, FAST K2a and K2b; dbias comes from the streamed backward and K2b,
+    K2c runs at neither. Launch counts
     exact by kernel and variant, finite losses and summary, training
     windows/s (``Trainer.train_epoch`` timed by epoch) and peak memory; the
     same run with ``--attention_impl dense`` gives the same per-epoch losses
     within ``WIDE_LOSS_TOL``. Then the feature layer at window 1200 (N 38, E
     2400, D 1200) in training through ``FeatureAttention(impl="pallas")``:
-    the tiled K1-res and its merge, the CHUNKED K2a and K2b (with dbias),
+    the tiled K1-res and its merge, the streamed backward (with dbias),
     exact counts, output and gradients against the dense layer at dropout 0.
     Returns the launch counts of both."""
     from mtad_gat_tpu_torch.nn import FeatureAttention
@@ -2352,8 +2460,7 @@ def check_wide_window(work, gen, dev) -> dict:
           "launches": counts})
     expect_counts("window 1200 feature layer", counts, {
         "gatv2_attention_res": 1, "gatv2_attention_res:tiled": 1, "gatv2_fwd_merge": 1,
-        "gatv2_bwd_dp_da": 1, "gatv2_bwd_dp_da:chunked": 1, "gatv2_bwd_dq_dv": 1,
-        "gatv2_bwd_dq_dv:chunked": 1, "gatv2_bwd_dq_dv:dbias": 1})
+        "gatv2_bwd_streamed": 1, "gatv2_bwd_streamed:dbias": 1})
     if not (errs["out"] <= ROUTE_TOL and errs["grads"] <= TRAIN_TOL[torch.float32]["grad"]):
         raise AssertionError(f"the window 1200 feature layer differs from dense: {errs}")
     del layer, x, cot, out, grads, out_d, grads_d
@@ -2390,9 +2497,10 @@ def check_long_complete(work, dev, smi: str) -> dict:
     defaults), float32, 2 epochs: the temporal layer (N 1024, E 76, D 38)
     runs the tiled K1 and K1-res with their merge and the FAST K2a and K2b,
     the feature layer (N 38, E 2048, D 1024) the tiled forward with E and D
-    in chunks and the CHUNKED K2a and K2b; K2b sums dbias at both, K2c runs
-    at neither; K3, K4's scan and its weights product run twice a step at T
-    1024. Launch counts exact by kernel and variant, finite losses and
+    in chunks and the streamed backward; dbias from K2b and the streamed
+    backward, K2c and the CHUNKED tile at neither; K3, K4's scan and its
+    weights product run twice a step at T 1024. Launch counts exact by
+    kernel and variant, finite losses and
     summary, training windows/s by epoch, peak memory above the baseline,
     device time by kernel over one profiled epoch. Then the same entry point
     at batch 8, dropout 0, 1 epoch, ``--attention_impl pallas`` and
@@ -2430,7 +2538,10 @@ def check_long_complete(work, dev, smi: str) -> dict:
             "k1res": (pairs * (4 * E + 2 * D), in_bytes + B * N * D * 8 + 2 * B * N * 4),
             "k2a": (pairs * (7 * E + 2 * D + 4), in_bytes + stats + B * N * E * 4 + E * 4),
             "k2b_dbias": (pairs * (5 * E + 4 * D + 5),
-                          in_bytes + stats + B * N * (E + D) * 4 + N * N * 4)}.items()}
+                          in_bytes + stats + B * N * (E + D) * 4 + N * N * 4),
+            "streamed": (pairs * (8 * E + 4 * D + 5),
+                         in_bytes + stats + B * N * (2 * E + D) * 4 + E * 4 + N * N * 4)
+        }.items()}
     prof = profile_device(lambda: last["trainer"].train_epoch(*last["args"]),
                           f"one training epoch, train_cli --lookback {LONG_LOOKBACK} "
                           f"--attention_impl pallas --gru_impl pallas, batch {LONG_BS}, "
@@ -3146,7 +3257,10 @@ def main() -> None:
             "source": "mtad_gat_tpu_torch/csrc/gat_bwd.cu",
             "replaces": f"mtad_gat_tpu/kernels/gat_pallas.py:{line}",
             "launches": wide_counts(wide, variant),
-            "launches_path": "wide_window", "max_abs_err": max(err(w3), err(w10), err(w12)),
+            "launches_path": "wide_window; none since the streamed backward replaced the CHUNKED "
+                             "tile at N <= NMAX (kernels/gat.gat_bwd_route), forced in phase 6 "
+                             "as its yardstick",
+            "max_abs_err": max(err(w3), err(w10), err(w12)),
             "ms": w3[key]["graph_ms"], "graph_ms_by_window": [w3[key]["graph_ms"],
                                                               w12[key]["graph_ms"]],
             "plain_ms": w3["plain_bwd_ms"], "bound_ms": w3[key]["bound_ms"],
@@ -3157,11 +3271,45 @@ def main() -> None:
                         "rows do not fit a block (kernels/gat.dbias_chunk)" if key == "k2c_chunked"
                         else "the CHUNKED tile (16 x 32, one warp, E and D streamed in chunks "
                              "of 64), beyond the widths the FAST and WIDE tiles take "
-                             "(kernels/gat.gat_tiled_bwd_plan)"),
+                             "(kernels/gat.gat_tiled_bwd_plan); gatv2_bwd runs it only above "
+                             "the streamed backward's NMAX nodes, so here it is forced through "
+                             "its wrapper"),
             "shapes": f"the feature layer at window 300 (b {w3['B']}, N 38, E 600, D 300) and "
                       f"1200 (b {w12['B']}, N 38, E 2400, D 1200), float32, dropout 0.3, bias; "
                       "ms and graph_ms from a CUDA graph; plain_ms one autograd call for the "
                       "whole attention backward at window 300"})
+    wide_ms = [train_ms["wide"][k] for k in ("window 300", "window 1024", "window 1200")]
+    by_window = lambda key, field: [t[key][field] for t in wide_ms]  # noqa: E731
+    w10 = wide_ms[1]
+    kernels.append({
+        "name": "gatv2_bwd_streamed", "route": "cuda",
+        "source": "mtad_gat_tpu_torch/csrc/gat_streamed.cu",
+        "replaces": "mtad_gat_tpu/kernels/gat_pallas.py:454",
+        "also_replaces": ["mtad_gat_tpu/kernels/gat_pallas.py:497",
+                          "mtad_gat_tpu/kernels/gat_pallas.py:540"],
+        "launches": long_complete["launches"]["gatv2_bwd_streamed"],
+        "launches_path": "long_complete", "launches_by_path": by_path["gatv2_bwd_streamed"],
+        "launches_with_dbias": long_complete["launches"]["gatv2_bwd_streamed:dbias"],
+        "max_abs_err": train_err["streamed"], "max_rel_err": train_rel["streamed"],
+        "ms": w10["streamed"]["graph_ms"], "plain_ms": w10["plain_bwd_ms"],
+        "bound_ms": w10["streamed"]["bound_ms"], "bound_by": w10["streamed"]["bound_by"],
+        "library_ms": None,
+        "graph_ms_by_window": by_window("streamed", "graph_ms"),
+        "bound_ms_by_window": by_window("streamed", "bound_ms"),
+        "no_dbias_graph_ms_by_window": by_window("streamed_no_dbias", "graph_ms"),
+        "chunked_pair_graph_ms_by_window": by_window("chunked_pair", "graph_ms"),
+        "plain_ms_by_window": [t["plain_bwd_ms"] for t in wide_ms],
+        "layout_by_window": [t["streamed"]["layout"] for t in wide_ms],
+        "variant": "the streamed backward (kernels/gat.gat_bwd_route \"streamed\": where the tiled "
+                   "plan names the CHUNKED tile and N <= NMAX): a score pass over (batch element, "
+                   "row tile) blocks writing ds and wa, then a contraction pass over (batch "
+                   "element, 128 columns of E or D) blocks writing dp, dq, dv and da rows, and "
+                   "dbias summed over the batch in order; K2a, K2b and K2c's functions in one "
+                   "call",
+        "shapes": "the feature layer at windows 300 (b 64, N 38, E 600, D 300), 1024 (b 64, E "
+                  "2048, D 1024: long_complete's, ms and plain_ms) and 1200 (b 8, E 2400, D "
+                  "1200), float32, dropout 0.3, bias; times from a CUDA graph of 5 calls; "
+                  "chunked_pair is the CHUNKED K2a then K2b with dbias on the same inputs"})
     emit({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,10 @@
 //        those two fill the card at batch 1 (slices of the streamed loop,
 //        register tiles, cp.async staging). The standalone K2c launches on
 //        no path: it stays as the yardstick the fold is timed against.
+//        Where the tiled plan names the CHUNKED tile on a graph of at most
+//        64 nodes (a wide feature layer), gat_streamed.cu's streamed
+//        backward runs instead (kernels/gat.gat_bwd_route); the CHUNKED
+//        K2a and K2b stay for larger graphs and as its yardstick.
 // Each recomputes its tile of attention weights from the forward's row stats
 // (m, l) instead of reading an (N, N) tensor (_ds_tile, :417-451):
 //
@@ -108,19 +112,6 @@ __device__ inline Tile carve(float* base, int EC, int DC) {
   t.next = t.dvec + BI;
   return t;
 }
-
-struct Args {
-  const float* bias;        // (N, N) or null
-  const long long* seed;    // one value, or null without dropout
-  const float* m;
-  const float* l;
-  const float* du;
-  const float* dvec;
-  int B, N, E, D;
-  float alpha;
-  uint32_t thresh;
-  float scale;
-};
 
 // Row tile [i0, i0 + BI) of batch b: columns [e0, e0 + ew) of p and [d0, d0 +
 // dw) of du, from column 0 of the tile at strides odd(EC) and odd(DC).
@@ -223,10 +214,6 @@ __device__ __forceinline__ void ds_tile(const Tile& t, const Args& g, uint32_t s
       ds[r] = w_agg * dot[r] - w * t.dvec[rl];
     }
   }
-}
-
-__device__ inline uint32_t read_seed(const Args& g) {
-  return g.seed == nullptr ? 0u : (uint32_t)(unsigned long long)(*g.seed);
 }
 
 // ---- K2a and K2b: the tiled backward, for graphs K2ab cannot hold ---------
@@ -378,18 +365,9 @@ __device__ __forceinline__ void tile_ds(const float (&s)[16], const float (&dot)
     for (int c = 0; c < 4; ++c) {
       const int j = j0 + tj + KG * c;
       float dsv = 0.f, wav = 0.f;
-      if (i < g.N && j < g.N) {
-        float sv = s[r * 4 + c];
-        if (g.bias != nullptr) sv += bv[r * 4 + c];
-        const float w = expf(sv - m_s[rl]) / l_s[rl];
-        float w_agg = w;
-        if constexpr (DROP) {
-          w_agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < g.thresh
-                      ? w * g.scale : 0.f;
-        }
-        wav = w_agg;
-        dsv = w_agg * dot[r * 4 + c] - w * dvec_s[rl];
-      }
+      if (i < g.N && j < g.N)
+        pair_ds<DROP>(s[r * 4 + c], dot[r * 4 + c], bv[r * 4 + c], g.bias != nullptr, m_s[rl],
+                      l_s[rl], dvec_s[rl], seed, g.thresh, g.scale, b, i, j, dsv, wav);
       ds[r * 4 + c] = dsv;
       wa[r * 4 + c] = wav;
     }
@@ -1488,24 +1466,6 @@ gatv2_bwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
 }
 
 // ---- launch ---------------------------------------------------------------
-
-template <typename K>
-int prepare(K kernel, size_t floats) {
-  const size_t bytes = floats * sizeof(float);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-Args make_args(const void* bias, const void* seed, const void* m, const void* l,
-               const void* du, const void* dvec, int B, int N, int E, int D, float alpha,
-               unsigned int thresh, float scale) {
-  return Args{(const float*)bias, (const long long*)seed, (const float*)m, (const float*)l,
-              (const float*)du, (const float*)dvec, B, N, E, D, alpha, thresh, scale};
-}
 
 // The three tile shapes: 0 FAST, 1 WIDE, 2 CHUNKED.
 __host__ __device__ inline bool tile_dims(int tile, int* ri, int* kj) {

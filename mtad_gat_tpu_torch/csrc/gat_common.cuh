@@ -1,6 +1,7 @@
-// Helpers shared by the fused GATv2 attention kernels (gat_fwd.cu, gat_bwd.cu):
-// the dropout hash, the whole-graph kernels' staging, and the tiled kernels'
-// cp.async staging and score routine (score_tile).
+// Helpers shared by the fused GATv2 attention kernels (gat_fwd.cu,
+// gat_bwd.cu, gat_streamed.cu): the dropout hash, a pair's ds (pair_ds), the
+// backward's launch arguments, the whole-graph kernels' staging, and the
+// tiled kernels' cp.async staging and score routine (score_tile).
 //
 // drop_hash is the attention-dropout keep decision of the JAX package's
 // fused attention, mtad_gat_tpu/kernels/gat_pallas.py::_hash_u32 and
@@ -47,6 +48,70 @@ __device__ __forceinline__ uint32_t drop_hash(uint32_t seed, uint32_t b, uint32_
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
+}
+
+// ds and wa of pair (i, j) of batch element b from its score s (the bias
+// value bv added where has_bias), du_i . v_j and row i's m, l and dvec:
+// w = exp(s - m) / l, wa = keep_ij ? w scale : 0 (w without dropout; keep_ij
+// is drop_hash of the global (seed, b, i, j) below thresh), ds = wa (du . v)
+// - w dvec. The tiled K2a and K2b and the streamed backward form every
+// pair's ds through this one routine.
+template <bool DROP>
+__device__ __forceinline__ void pair_ds(float s, float dot, float bv, bool has_bias, float m,
+                                        float l, float dvec, uint32_t seed, uint32_t thresh,
+                                        float scale, int b, int i, int j, float& ds,
+                                        float& wa) {
+  if (has_bias) s += bv;
+  const float w = expf(s - m) / l;
+  float w_agg = w;
+  if constexpr (DROP) {
+    w_agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < thresh ? w * scale : 0.f;
+  }
+  wa = w_agg;
+  ds = w_agg * dot - w * dvec;
+}
+
+// ---- the backward kernels' arguments and launch (gat_bwd.cu, gat_streamed.cu)
+
+// A backward launch's inputs beside p, q, a and v: the score bias (N, N) or
+// null; the dropout seed (one value on the device) or null without dropout;
+// the forward's row stats m, l (B, N); du (B, N, D) and dvec (B, N), all
+// float32; sizes, leaky-relu slope, keep threshold and rescale.
+struct Args {
+  const float* bias;
+  const long long* seed;
+  const float* m;
+  const float* l;
+  const float* du;
+  const float* dvec;
+  int B, N, E, D;
+  float alpha;
+  uint32_t thresh;
+  float scale;
+};
+
+inline Args make_args(const void* bias, const void* seed, const void* m, const void* l,
+                      const void* du, const void* dvec, int B, int N, int E, int D,
+                      float alpha, unsigned int thresh, float scale) {
+  return Args{(const float*)bias, (const long long*)seed, (const float*)m, (const float*)l,
+              (const float*)du, (const float*)dvec, B, N, E, D, alpha, thresh, scale};
+}
+
+__device__ inline uint32_t read_seed(const Args& g) {
+  return g.seed == nullptr ? 0u : (uint32_t)(unsigned long long)(*g.seed);
+}
+
+// Opts a kernel in to `floats` floats of dynamic shared memory where that is
+// above the 48 KB a launch gets without asking; a CUDA error code or 0.
+template <typename K>
+int prepare(K kernel, size_t floats) {
+  const size_t bytes = floats * sizeof(float);
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // ---- the whole-graph kernels' staging and score (K1, K1-res, K2ab) ------

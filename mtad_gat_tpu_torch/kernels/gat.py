@@ -26,16 +26,24 @@ those of ``mtad_gat_tpu/kernels/gat_pallas.py``:
   a block whole (the model's), each (i, j) pair scored once, and K2c's dbias
   in the same pass where the call wants it (a block sums it over a group of
   batch elements, ``dbias_groups``).
-  ``gatv2_bwd`` runs K2ab, or K2a then K2b, as ``gat_bwd_plan`` decides;
-  dbias comes from the same pass of K2ab or of the tiled K2b
-  (``dbias_kernel``, K2b's batch groups ``tiled_dbias_groups``), and K2c
-  itself runs on no path, only where a caller asks for it. The tiled K2a
-  and K2b launch as ``gat_tiled_bwd_plan`` says:
+  ``gatv2_bwd`` runs K2ab, K2a then K2b, or the streamed backward, as
+  ``gat_bwd_route`` decides; dbias comes from the same pass of K2ab, of the
+  tiled K2b or of the streamed backward (``dbias_kernel``, K2b's batch
+  groups ``tiled_dbias_groups``), and K2c itself runs on no path, only
+  where a caller asks for it. The tiled K2a and K2b launch as
+  ``gat_tiled_bwd_plan`` says:
   score tiles of 4 x 4 register micro-tiles (E and D streamed in chunks
-  beyond the widths whole rows fit), the streamed loop cut into slices of
-  their own blocks, each slice's float32 partial summed in slice order by a
-  reduce kernel. No tiled kernel refuses a width: the tiled forward, K2a,
-  K2b and K2c stage E and D by chunks where whole rows do not fit a block.
+  beyond the widths whole rows fit: the CHUNKED tile), the streamed loop
+  cut into slices of their own blocks, each slice's float32 partial summed
+  in slice order by a reduce kernel. No tiled kernel refuses a width: the
+  tiled forward, K2a, K2b and K2c stage E and D by chunks where whole rows
+  do not fit a block;
+- the streamed backward ``gatv2_bwd_streamed`` (``csrc/gat_streamed.cu``):
+  K2a, K2b and K2c's functions for a small graph of very wide rows (a
+  feature layer beyond window 235), where the tiled plan names the CHUNKED
+  tile and N is at most ``streamed_nmax``: a score pass that scores each
+  pair once and writes ds and wa (B, N, N), then a contraction pass split
+  over the columns of E and D, launched as ``gat_streamed_bwd_plan`` says.
 
 What bounds them on the card: the score is float32 work on the CUDA cores
 (4 operations per (i, j, e), recomputed by each tiled backward kernel and
@@ -244,6 +252,21 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.gatv2_bwd_graph_dbias_group.restype = i32
         lib.gatv2_bwd_graph_occupancy.argtypes = [i32] * 6
         lib.gatv2_bwd_graph_occupancy.restype = i32
+        lib._typed = True
+    return lib
+
+
+def _streamed_lib() -> ctypes.CDLL:
+    lib = _build.load("gat_streamed")
+    if not getattr(lib, "_typed", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for fn in (lib.gatv2_streamed_f32, lib.gatv2_streamed_bf16):
+            fn.argtypes = [ptr] * 17 + [i32] * 6 + [f32, ctypes.c_uint32, f32, ptr]
+            fn.restype = i32
+        lib.gatv2_streamed_layout.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_long)]
+        lib.gatv2_streamed_layout.restype = None
+        lib.gatv2_streamed_occupancy.argtypes = [i32] * 6
+        lib.gatv2_streamed_occupancy.restype = i32
         lib._typed = True
     return lib
 
@@ -504,6 +527,150 @@ def gat_tiled_bwd_plan(B: int, N: int, E: int, D: int, sms: int,
             da_rows=0 if kernel == "k2b" else blocks * (rows // 4 if tile == CHUNKED else 1),
             dbias=sums, group=group, dbias_bytes=4 * groups * N * N if sums else 0)
     return types.MappingProxyType(plans)      # cached: read-only to every caller
+
+
+# ---------------------------------------------------------------------------
+# The streamed backward (csrc/gat_streamed.cu): K2a and K2b, with K2c's
+# dbias, as two passes where the tiled plan would run the CHUNKED tile on a
+# small graph (a wide feature layer): a score pass over (batch element, row
+# tile) blocks writing ds and wa (B, N, N), then a contraction pass over
+# (batch element, columns of E or of D) blocks. What the plan needs of the
+# source's layout, and the route of a call.
+# ---------------------------------------------------------------------------
+
+STREAMED_CHUNK = 64               # floats of E or D a score block stages at once (SC)
+STREAMED_RING = 2                 # its staging buffers (RING)
+STREAMED_ROWS_MAX = 16            # the score pass's largest row tile (ROWS_MAX)
+STREAMED_STAGE_COST = 0.5         # a staged row's cost in pairs scored, for the row tile
+STREAMED_MR2_ROWS = 8             # row tiles from which a score thread holds two rows
+STREAMED_COLS = 128               # columns of E or D a contraction block owns, a thread each (CW)
+STREAMED_NMAX = 64                # most keys a contraction thread holds in registers (NMAX)
+STREAMED_KEY_STEP = 8             # they come in steps of 8 (KEY_STEP)
+
+
+class StreamedPlan(NamedTuple):
+    """One launch of the streamed backward: its score pass, then its
+    contraction pass."""
+
+    rows: int                     # the score pass's row tile
+    rows_per_thread: int          # its rows a thread holds against one key (1 or 2)
+    score_threads: int            # one a key and rows_per_thread rows, up to whole warps
+    score_blocks: int             # B x ceil(N / rows)
+    score_smem_bytes: int
+    chunk: int                    # floats of E or D staged at once, through STREAMED_RING buffers
+    key_regs: int                 # keys a contraction thread holds: N up to a multiple of 8
+    cols: int                     # columns of a contraction block
+    e_blocks: int                 # B x ceil(E / cols)
+    d_blocks: int                 # B x ceil(D / cols)
+    dbias_blocks: int             # ceil(N^2 / cols) with dbias, else 0
+    contract_blocks: int
+    contract_smem_bytes: int
+    scratch_bytes: int            # ds and wa (B, N, N) and da rows (B, E), float32
+    dbias: bool
+
+
+def streamed_key_regs(N: int) -> int:
+    """Keys a contraction thread holds in registers: N up to a multiple of
+    ``STREAMED_KEY_STEP``, 0 above ``STREAMED_NMAX`` (``key_regs``)."""
+    if not 1 <= N <= STREAMED_NMAX:
+        return 0
+    return -(-N // STREAMED_KEY_STEP) * STREAMED_KEY_STEP
+
+
+def streamed_score_smem_bytes(N: int, rows: int) -> int:
+    """Shared memory of one score block (``score_floats``): STREAMED_RING
+    buffers of a chunk of the row tile's p or du [rows][SCP], of the keys' q
+    or v [N][SCP] and of a [SCP], then m, l and dvec [rows]."""
+    return 4 * (STREAMED_RING * (rows + N + 1) * _stride4(STREAMED_CHUNK) + 3 * rows)
+
+
+def streamed_contract_smem_bytes(N: int) -> int:
+    """Shared memory of one contraction block (``contract_floats``): ds or
+    wa and lo ds [N][key_regs], the row sums of ds [N] and its column sums
+    [key_regs], the block's columns of p or du [N][STREAMED_COLS]."""
+    nr = streamed_key_regs(N)
+    return 4 * (2 * N * nr + N + nr + N * STREAMED_COLS)
+
+
+@functools.lru_cache(maxsize=None)
+def streamed_nmax(smem_limit: int = _SMEM_LIMIT) -> int:
+    """The largest graph the streamed backward takes: at most
+    ``STREAMED_NMAX`` nodes (a contraction thread holds a key column in
+    registers), and its score block at the largest row tile, staged through
+    its ring, and its contraction block both within ``smem_limit`` bytes of
+    shared memory; 0 where none fits."""
+    for N in range(STREAMED_NMAX, 0, -1):
+        if max(streamed_score_smem_bytes(N, STREAMED_ROWS_MAX),
+               streamed_contract_smem_bytes(N)) <= smem_limit:
+            return N
+    return 0
+
+
+def streamed_rows(B: int, N: int, sms: int) -> int:
+    """The score pass's row tile: of the even tiles from 2 to
+    ``STREAMED_ROWS_MAX`` rows (at most N up to even), the one that leaves
+    the busiest of ``sms`` multiprocessors the least work, ceil(B x ceil(N /
+    rows) / sms) blocks of rows x N pairs to score and rows + N rows to
+    stage, a staged row counted as ``STREAMED_STAGE_COST`` pairs (a chunk's
+    16 copies against a pair's 64 terms); on a tie the fewest row tiles. At
+    batch 64, N 38 on 132 multiprocessors: 10 rows, 256 blocks, two a
+    multiprocessor (8 rows: 320 blocks, three on some)."""
+    if min(B, N, sms) < 1:
+        raise ValueError(f"streamed_rows: batch {B}, N {N}, multiprocessors {sms}")
+    tiles = lambda r: -(-N // r)  # noqa: E731
+    return min(range(2, min(STREAMED_ROWS_MAX, max(2, N + N % 2)) + 1, 2),
+               key=lambda r: (-(-B * tiles(r) // sms) * (r * N + STREAMED_STAGE_COST * (r + N)),
+                              tiles(r)))
+
+
+def streamed_rows_per_thread(rows: int) -> int:
+    """Rows of the score pass's row tile a thread holds against its one
+    key: 2 (the key's staged q and v read once for both) where the tile has
+    ``STREAMED_MR2_ROWS`` rows or more, else 1, so that a small batch keeps
+    a thread a pair."""
+    return 2 if rows >= STREAMED_MR2_ROWS else 1
+
+
+@functools.lru_cache(maxsize=None)
+def gat_bwd_route(N: int, E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> str:
+    """The backward a graph of N nodes at widths E and D takes: "graph"
+    (K2ab) or "tiled" (K2a then K2b) as ``gat_bwd_plan`` names them, except
+    that where the tiled plan would run the CHUNKED tile for both kernels
+    and N is at most ``streamed_nmax``, "streamed" (the streamed
+    backward)."""
+    variant = gat_bwd_plan(N, E, D, smem_limit)
+    if (variant == "tiled" and N <= streamed_nmax(smem_limit)
+            and all(_tiled_tile(k, E, D, smem_limit)[0] == CHUNKED for k in ("k2a", "k2b"))):
+        return "streamed"
+    return variant
+
+
+@functools.lru_cache(maxsize=None)
+def gat_streamed_bwd_plan(B: int, N: int, E: int, D: int, sms: int,
+                          smem_limit: int = _SMEM_LIMIT, dbias: bool = False) -> StreamedPlan:
+    """The launch of the streamed backward at batch B, N nodes, widths E and
+    D on a card of ``sms`` multiprocessors whose blocks may use
+    ``smem_limit`` bytes of shared memory, summing dbias with ``dbias``.
+    Raises on empty or bad input and above ``streamed_nmax``."""
+    if min(B, N, E, D, sms) < 1:
+        raise ValueError(f"gat_streamed_bwd_plan: empty or bad input (B {B}, N {N}, E {E}, "
+                         f"D {D}, multiprocessors {sms})")
+    if N > streamed_nmax(smem_limit):
+        raise ValueError(f"gat_streamed_bwd_plan: N {N} is above the streamed backward's "
+                         f"{streamed_nmax(smem_limit)} nodes")
+    rows = streamed_rows(B, N, sms)
+    mr = streamed_rows_per_thread(rows)
+    cols = STREAMED_COLS
+    e_blocks, d_blocks = B * -(-E // cols), B * -(-D // cols)
+    dbias_blocks = -(-N * N // cols) if dbias else 0
+    return StreamedPlan(
+        rows=rows, rows_per_thread=mr, score_threads=-(-rows // mr * N // 32) * 32,
+        score_blocks=B * -(-N // rows), score_smem_bytes=streamed_score_smem_bytes(N, rows),
+        chunk=STREAMED_CHUNK, key_regs=streamed_key_regs(N), cols=cols, e_blocks=e_blocks,
+        d_blocks=d_blocks, dbias_blocks=dbias_blocks,
+        contract_blocks=e_blocks + d_blocks + dbias_blocks,
+        contract_smem_bytes=streamed_contract_smem_bytes(N),
+        scratch_bytes=4 * (2 * B * N * N + B * E), dbias=dbias)
 
 
 # ---------------------------------------------------------------------------
@@ -1035,6 +1202,85 @@ gatv2_bwd_dq_dv.last_plan = None
 
 
 @functools.lru_cache(maxsize=None)
+def _streamed_plan(B: int, N: int, E: int, D: int, sms: int, dbias: bool) -> StreamedPlan:
+    """``gat_streamed_bwd_plan`` for a launch, refused where the built
+    library's layout (threads, shared memory, key registers, columns, chunk,
+    NMAX, buffers) differs from the plan's (once per shape and card)."""
+    plan = gat_streamed_bwd_plan(B, N, E, D, sms, dbias=dbias)
+    out = (ctypes.c_long * 8)()
+    _streamed_lib().gatv2_streamed_layout(N, plan.rows, plan.rows_per_thread, out)
+    want = (plan.score_threads, plan.score_smem_bytes, plan.key_regs, plan.cols,
+            plan.contract_smem_bytes, plan.chunk, STREAMED_NMAX, STREAMED_RING)
+    if tuple(out) != want:
+        raise RuntimeError(f"gatv2_bwd_streamed: the built kernels' layout {tuple(out)} differs "
+                           f"from the plan's {want}")
+    return plan
+
+
+def _streamed_launch(plan: StreamedPlan, p, q, a, bias, v, m, l, du, dvec, alpha, seed,
+                     rate, outs) -> None:
+    """Launch both passes of the streamed backward as ``plan`` says,
+    writing into ``outs`` (ds, wa, dp, dq, dv, da_part, dbias or None); the
+    caller has run ``_check``. The kernels read float32 p, q, a, v:
+    bfloat16 ones are widened here (exactly), and dp, dq, dv are written in
+    their inputs' type."""
+    B, N, E = p.shape
+    D = v.shape[-1]
+    dt = "f32" if p.dtype == torch.float32 else "bf16"
+    p, q, a, v = (t.detach().to(torch.float32).contiguous() for t in (p, q, a, v))
+    bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
+    m, l, du, dvec = (t.detach().to(torch.float32).contiguous() for t in (m, l, du, dvec))
+    seed_t, thresh, scale = _drop_args(seed, rate, p.device)
+    fn = getattr(_streamed_lib(), f"gatv2_streamed_{dt}")
+    with torch.cuda.device(p.device):
+        err = fn(_ptr(p), _ptr(q), _ptr(a), _ptr(bias_c), _ptr(v), _ptr(seed_t), _ptr(m),
+                 _ptr(l), _ptr(du), _ptr(dvec), *(_ptr(t) for t in outs), B, N, E, D,
+                 plan.rows, plan.rows_per_thread, float(alpha), thresh, scale,
+                 _stream(p.device))
+    _raise_on(err, "gatv2_streamed")
+
+
+def gatv2_bwd_streamed(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
+                       rate: float = 0.0, dbias: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The streamed backward on CUDA tensors (``csrc/gat_streamed.cu``):
+    (dp, dq, da, dv, dbias), K2a's and K2b's outputs and, with ``dbias``,
+    K2c's dbias (N, N) float32 (else None), from a score pass that writes
+    ds and wa (B, N, N) float32 and a contraction pass over chunks of E and
+    D; inputs as ``gatv2_bwd_dp_da``, N at most ``streamed_nmax``; dp, dq,
+    dv in their inputs' type. Counts its launches (both passes, one call),
+    those that summed dbias under ``launches_by_variant``, and keeps its
+    plan in ``last_plan``. The CPU computes the backward in one call of
+    ``gatv2_attention_bwd_plain``."""
+    _check("gatv2_bwd_streamed", p, q, a, bias, v)
+    if dbias and bias is None:
+        raise ValueError("gatv2_bwd_streamed: dbias asked for a call without a bias")
+    B, N, E = p.shape
+    D = v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=p.device)
+    if B == 0 or N == 0 or D == 0:          # no values: every gradient is 0
+        return (torch.zeros_like(p), torch.zeros_like(q), torch.zeros((E,), **f32),
+                torch.zeros_like(v), torch.zeros((N, N), **f32) if dbias else None)
+    plan = _streamed_plan(B, N, E, D, _build.sm_count(p.device), dbias)
+    dp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    da_part = torch.empty((B, E), **f32)
+    dbias_out = torch.empty((N, N), **f32) if dbias else None
+    _streamed_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
+                     (torch.empty((B, N, N), **f32), torch.empty((B, N, N), **f32), dp, dq, dv,
+                      da_part, dbias_out))
+    gatv2_bwd_streamed.launches += 1
+    gatv2_bwd_streamed.launches_by_variant["dbias" if dbias else "no_dbias"] += 1
+    gatv2_bwd_streamed.last_plan = plan
+    return dp, dq, da_part.sum(dim=0), dv, dbias_out
+
+
+gatv2_bwd_streamed.launches = 0
+gatv2_bwd_streamed.launches_by_variant = {"dbias": 0, "no_dbias": 0}
+gatv2_bwd_streamed.last_plan = None
+
+
+@functools.lru_cache(maxsize=None)
 def _check_graph_layout(N: int, E: int, D: int) -> None:
     """Refuse a shape K2ab cannot hold, and a built kernel whose shared
     memory, score split or row groups this module no longer mirrors (once
@@ -1103,25 +1349,29 @@ gatv2_bwd_graph.launches_by_variant = {"dbias": 0, "no_dbias": 0}
 
 def dbias_kernel(N: int, E: int, D: int) -> str:
     """The kernel that gives dbias (K2c's function) in the backward of a
-    graph of N nodes at widths E and D: "k2ab" where ``gat_bwd_plan`` names
-    the whole-graph kernel, "k2b" (the tiled K2b, in its own pass) where it
-    names the tiled pair. No path launches K2c itself."""
-    return "k2ab" if gat_bwd_plan(N, E, D) == "graph" else "k2b"
+    graph of N nodes at widths E and D, by ``gat_bwd_route``: "k2ab" (the
+    whole-graph kernel), "k2b" (the tiled K2b, in its own pass) or
+    "streamed" (the streamed backward's contraction pass). No path launches
+    K2c itself."""
+    return {"graph": "k2ab", "tiled": "k2b", "streamed": "streamed"}[gat_bwd_route(N, E, D)]
 
 
 def gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
               rate: float = 0.0, dbias: bool = False) -> Tuple[torch.Tensor, ...]:
     """The attention backward on CUDA tensors: (dp, dq, da, dv, dbias)
-    through the variant ``gat_bwd_plan`` names for the shape, K2ab alone
-    ("graph") or K2a then K2b ("tiled"), dbias from the same launch of K2ab
-    or K2b (``dbias_kernel``), recorded in ``gatv2_bwd.last_launch`` with
-    the kernel that gave dbias; dbias is None unless asked for."""
+    through the variant ``gat_bwd_route`` names for the shape, K2ab alone
+    ("graph"), K2a then K2b ("tiled") or the streamed backward
+    ("streamed"), dbias from the same launch (``dbias_kernel``), recorded in
+    ``gatv2_bwd.last_launch`` with the kernel that gave dbias; dbias is None
+    unless asked for."""
     _, N, E = p.shape
     shape = (max(N, 1), E, max(v.shape[-1], 1))
-    variant = gat_bwd_plan(*shape)
+    variant = gat_bwd_route(*shape)
     args = (p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate)
     if variant == "graph":
         out = gatv2_bwd_graph(*args, dbias=dbias)
+    elif variant == "streamed":
+        out = gatv2_bwd_streamed(*args, dbias=dbias)
     else:
         dp, da = gatv2_bwd_dp_da(*args)
         dq, dv, db = gatv2_bwd_dq_dv(*args, dbias=dbias)

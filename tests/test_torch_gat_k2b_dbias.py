@@ -24,7 +24,8 @@ plan and its arithmetic, on the CPU.
   mode) within 1e-5, at dropout 0 and 0.3, with a ragged last group, a
   tile-ragged N and widths beyond one 64-float chunk.
 - ``dbias_kernel``: the kernel that gives dbias for a shape, "k2ab" where
-  the whole-graph backward runs, "k2b" where the tiled pair does.
+  the whole-graph backward runs, "k2b" where the tiled pair does,
+  "streamed" where the streamed backward replaces the CHUNKED tile.
 
 Inputs are drawn with numpy from a seed. The CUDA kernel runs on the card
 only, where ``chip_smoke.py`` holds it against the plain version.
@@ -290,8 +291,8 @@ def test_fold_order_of_batch_and_tiles():
     (38, 200, 100, "k2ab"), (100, 76, 38, "k2ab"),      # SMD flagship layers
     (55, 200, 100, "k2ab"), (100, 110, 55, "k2ab"),     # MSL layers
     (8587, 76, 38, "k2b"),                              # the dense route's N
-    (1024, 76, 38, "k2b"), (38, 2048, 1024, "k2b"),     # lookback 1024, both layers
-    (300, 76, 38, "k2b"), (38, 600, 300, "k2b"),        # lookback 300, both layers
+    (1024, 76, 38, "k2b"), (38, 2048, 1024, "streamed"),    # lookback 1024, both layers
+    (300, 76, 38, "k2b"), (38, 600, 300, "streamed"),       # lookback 300, both layers
 ])
 def test_dbias_kernel_by_shape(N, E, D, want):
     assert tgat.dbias_kernel(N, E, D) == want
