@@ -1,0 +1,146 @@
+"""K1, K1-res, K3 and K4 of one checkout at G = 1 on one NVIDIA GPU, so that a
+tree that gave K1 and K3 an entity axis can be held against its parent bit
+for bit and time for time in one call.
+
+    python3 bench_fleet_torch.py [--root DIR] [--seed N] [--label NAME]
+
+Imports ``mtad_gat_tpu_torch`` from DIR (default: this checkout), builds its
+``gat_fwd``, ``gru_fwd`` and ``gru_bwd`` kernels there, and on inputs drawn
+from ``--seed`` (the same in every tree) calls through the wrappers, with
+ungrouped weights: K1 (the whole-graph kernel as planned and the tiled one
+forced) and K1-res (both, dropout 0.3) at the SMD flagship's two attention
+layers (batch 256: N 38, E 200, D 100 and N 100, E 76, D 38) and at batch 1,
+K3 at hidden 150 (the cluster variant) and 384 (streaming) at batch 256 and
+1, and K4 (the scan and the weights product) at hidden 150 and 384, all
+float32 with bias. One JSON line per (shape, kernel) with its device time
+from a CUDA graph of 20 calls (``graph_ms``) and the sha256 of its outputs'
+bytes; the card's name and power limit first. A comparison runs parent,
+change, change, parent in one call:
+
+    git archive <parent> | tar -x -C build/parent
+    for t in build/parent . . build/parent; do python3 bench_fleet_torch.py --root $t; done
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ALPHA, RATE = 0.2, 0.3
+# (name, B, N, E, D)
+ATTENTION = (("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
+             ("feature batch 1", 1, 38, 200, 100), ("temporal batch 1", 1, 100, 76, 38))
+# (name, B, T, H)
+GRU = (("hidden 150", 256, 100, 150), ("hidden 150 batch 1", 1, 100, 150),
+       ("hidden 384", 64, 100, 384), ("hidden 384 batch 1", 1, 100, 384))
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds of one call: ``calls`` calls in one CUDA
+    graph, replayed ``replays`` times between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def _flat(x) -> list:
+    """The tensors of a call's result, nested tuples flattened, Nones out."""
+    if isinstance(x, tuple):
+        return [t for y in x for t in _flat(y)]
+    return [] if x is None else [x]
+
+
+def sha(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--label", default="")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("bench_fleet_torch: no CUDA device")
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from mtad_gat_tpu_torch.kernels import _build, gat as kg, gru as kgru
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    label = args.label or root
+    t0 = time.perf_counter()
+    _build.build_all(["gat_fwd", "gru_fwd", "gru_bwd"])
+    print(json.dumps({"card": smi, "root": root, "label": label, "package": kg.__file__,
+                      "build_seconds": time.perf_counter() - t0}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(args.seed)
+    r = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(dev)  # noqa
+
+    def report(shape, kernel, fn, **extra):
+        outs, again = _flat(fn()), _flat(fn())
+        torch.cuda.synchronize()
+        print(json.dumps({"label": label, "shape": shape, "kernel": kernel, **extra,
+                          "graph_ms": graph_ms(fn), "sha256": sha(outs),
+                          "two_launches_identical": all(torch.equal(x, y)
+                                                        for x, y in zip(outs, again))}),
+              flush=True)
+
+    for name, B, N, E, D in ATTENTION:
+        p, q, v = r(B, N, E, scale=0.5), r(B, N, E, scale=0.5), r(B, N, D)
+        a, bias = r(E, scale=(6.0 / (E + 1)) ** 0.5), r(N, N, scale=0.1)
+        seed = torch.randint(0, 2**32, (1,), generator=gen, dtype=torch.int64).to(dev)
+        dims = dict(B=B, N=N, E=E, D=D)
+        with torch.no_grad():
+            for variant in ("graph", "tiled"):
+                report(name, f"k1 {variant}",
+                       lambda: kg.gatv2_attention_fwd(p, q, a, bias, v, ALPHA, variant=variant),
+                       **dims)
+                report(name, f"k1res {variant}",
+                       lambda: kg.gatv2_attention_res(p, q, a, bias, v, ALPHA, seed, RATE,
+                                                      variant=variant), **dims)
+    for name, B, T, H in GRU:
+        gi = r(B, T, 3 * H)
+        w_hh, b_hh = r(H, 3 * H, scale=H ** -0.5), r(3 * H, scale=H ** -0.5)
+        dims = dict(B=B, T=T, H=H)
+        with torch.no_grad():
+            report(name, "k3", lambda: kgru.gru_scan_fwd(gi, w_hh, b_hh, H)[0], **dims,
+                   plan=kgru.gru_plan("fwd", H))
+            hseq = kgru.gru_scan_fwd(gi, w_hh, b_hh, H)[0]
+            dhseq = r(B, T, H, scale=0.1)
+            report(name, "k4", lambda: kgru.gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H),
+                   **dims, plan=kgru.gru_plan("bwd", H))
+        del gi, hseq, dhseq
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -67,7 +67,7 @@ def build(tile: int, fwd_split: int = 0) -> dict:
             raise RuntimeError(f"nvcc failed on {name}.cu at CL_BB = {tile}:\n{out}")
         libs[name] = ctypes.CDLL(str(work / f"lib{name}.so"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    libs["gru_fwd"].gru_fwd_f32.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    libs["gru_fwd"].gru_fwd_f32.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     libs["gru_bwd"].gru_bwd_scan_f32.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
     for fn in (libs["gru_fwd"].gru_fwd_smem_bytes, libs["gru_bwd"].gru_bwd_smem_bytes):
         fn.argtypes = [i32, i32]
@@ -136,7 +136,7 @@ def sweep(all_libs: dict, args, B: int, T: int) -> None:
 
         def fwd(C):
             return libs["gru_fwd"].gru_fwd_f32(gi.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                               hseq.data_ptr(), B, T, H, C, stream)
+                                               hseq.data_ptr(), B, T, H, C, B, stream)
 
         def bwd(C):
             return libs["gru_bwd"].gru_bwd_scan_f32(

@@ -189,13 +189,33 @@ In order, each phase failing the run with a non-zero exit:
     points/s at chunks 1, 8, 32, 128 and 512, the time per chunk from its
     yield to its written records (p50, p99) at 1 and 128, and device time by
     kernel over one profiled pass at each;
-16. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
-    path, serving's and long_complete's included, the tiled kernels' times
+16. ``fleet_serving``: K1 and K3 with an entity axis at G 28 (SMD's
+    machines), 1 and 128 rows a group: K1's whole-graph kernel and its
+    tiled one forced at both flagship layers, K3's cluster variant at
+    hidden 150 and its streaming one at 384, each equal to its G ungrouped
+    launches bit for bit (the tiled K1 may differ where the two plans'
+    slices do, then within ``K1_TOL``) and within its tolerance of the
+    grouped plain version, timed by CUDA graph beside the G launches, with
+    its bound; the host cost of the K1 and K3 custom ops had the solo path
+    called them (it calls the wrappers direct); then 28 synthetic SMD
+    machines (``write_smd`` from seeds 1-28, a seeded flagship model each,
+    both kernels on, no cached train scores) served by ``serve_cli.main
+    --group 1-1,...,3-11 --input a.csv,...`` at chunk 128 (calibrating by
+    scoring each training split) and chunk 1, epsilon: every point
+    served, K1 (whole graph) and K3 launched exactly twice a fleet forward
+    (besides the calibration's), each vmap rule once a layer a forward, no
+    plain call; three groups' records equal to their solo ``serve_cli``
+    runs (scores within ``FLEET_ATOL``, thresholds and alarms equal); then
+    all-entity points/s at chunks 128 and 1, p50 and p99 a dispatch, peak
+    memory, a profiled pass at each, and 28 solo scorers in this process
+    fed the same chunks;
+17. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+    path, serving's, fleet serving's and long_complete's included, the tiled kernels' times
     at the route's N, K2b's with and without dbias, K2c's forced times and
     where dbias now comes from, and K1's and K3's serving launches and
-    batch-1 times; the merge, the CHUNKED K2a and K2b, the chunked K2c and
-    the streamed backward as rows of their own) and, last, ``{"ok": true,
-    ...}``.
+    batch-1 times, and their grouped launches at G 28; the merge, the
+    CHUNKED K2a and K2b, the chunked K2c and the streamed backward as rows
+    of their own) and, last, ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -493,7 +513,7 @@ def time_k1(kg, p, q, a, bias, v, want) -> dict:
 
         def two_blocks():
             err = fn(p.data_ptr(), q.data_ptr(), a.data_ptr(), bias.data_ptr(), v.data_ptr(),
-                     halves.data_ptr(), B, N, E, D, 2, 0.2,
+                     halves.data_ptr(), B, N, E, D, 2, B, 0.2,
                      torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"gatv2_fwd with two row blocks: CUDA error {err}")
@@ -595,11 +615,12 @@ def check_k3(gen, dev):
     return max(errs), result, batch1
 
 
-def write_smd(root: str, n: int = 2000, anomaly: float = 0.4) -> None:
+def write_smd(root: str, n: int = 2000, anomaly: float = 0.4, group: str = "1-1",
+              seed: int = 0) -> None:
     """The synthetic SMD entity of the repo's verify recipe (n rows of train
     and of test, the anomaly at rows ``anomaly`` n to that plus n / 40 of
-    the test split)."""
-    rng = np.random.default_rng(0)
+    the test split), as machine ``group`` from ``seed``."""
+    rng = np.random.default_rng(seed)
     k = 38
     base = np.sin(np.linspace(0, 60, n))[:, None] * rng.uniform(.5, 1.5, k) \
         + rng.standard_normal((n, k)) * .1
@@ -611,9 +632,9 @@ def write_smd(root: str, n: int = 2000, anomaly: float = 0.4) -> None:
     label[a0:a1] = 1
     d = os.path.join(root, "ServerMachineDataset", "processed")
     os.makedirs(d, exist_ok=True)
-    for nm, arr in [("machine-1-1_train", base.astype(np.float32)),
-                    ("machine-1-1_test", test.astype(np.float32)),
-                    ("machine-1-1_test_label", label)]:
+    for nm, arr in [(f"machine-{group}_train", base.astype(np.float32)),
+                    (f"machine-{group}_test", test.astype(np.float32)),
+                    (f"machine-{group}_test_label", label)]:
         with open(os.path.join(d, f"{nm}.pkl"), "wb") as f:
             pickle.dump(arr, f)
 
@@ -2975,6 +2996,449 @@ def check_serving(gen, dev, work, k3_batch1, smi) -> dict:
     return {"k1": k1, "k3": k3_batch1, "launches": launches, "numbers": numbers}
 
 
+# ---------------------------------------------------------------------------
+# Fleet serving: K1 and K3 with an entity axis, and serve_cli over 28 machines
+# ---------------------------------------------------------------------------
+
+FLEET_GROUPS = tuple([f"1-{i}" for i in range(1, 9)] + [f"2-{i}" for i in range(1, 10)]
+                     + [f"3-{i}" for i in range(1, 12)])      # SMD's 28 machines
+FLEET_ROWS = (1, 128)            # rows a group: chunk 1 and chunk 128
+FLEET_ATOL = 1e-5
+
+
+def grouped_record(name, kernel, G, rows, got, per, want, tol, grouped_fn, per_fn, nbytes, ops,
+                   plans=None) -> dict:
+    """A grouped launch against G ungrouped launches (bits) and the grouped
+    plain version (tolerance), both timed by CUDA graph; raises on a
+    failure. ``plans``: (grouped, ungrouped) tiled plans, where they differ
+    in slices the bits may too (the merge sums the slices in order)."""
+    torch.cuda.synchronize()
+    identical = torch.equal(got, per)
+    err = (got.float() - want.float()).abs().max().item()
+    calls = 3 if G * rows > 512 else 20
+    bound_ms, bound_by = bound(ops, nbytes)
+    rec = {"phase": "fleet_serving", "case": f"grouped {kernel}, {name}", "G": G,
+           "rows_per_group": rows, "identical_to_G_launches": identical,
+           "max_abs_err_vs_G_launches": (got.float() - per.float()).abs().max().item(),
+           "max_abs_err": err, "tol": tol,
+           "graph_ms": graph_ms(grouped_fn, calls=calls, replays=3),
+           "G_launches_graph_ms": graph_ms(per_fn, calls=max(1, calls // 3), replays=3),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if plans is not None:
+        rec["slices"] = [plans[0]["slices"], plans[1]["slices"]]
+    emit(rec)
+    sliced = plans is not None and plans[0]["slices"] != plans[1]["slices"]
+    if not err <= tol or not (identical or (sliced and rec["max_abs_err_vs_G_launches"] <= tol)):
+        raise AssertionError(f"grouped {kernel} ({name}): {rec}")
+    return rec
+
+
+def check_grouped_k1(gen, dev) -> dict:
+    """K1 with an entity axis at the flagship's two layers, G 28 at 1 and 128
+    batch elements a group, float32, bias: the whole-graph kernel as planned
+    and the tiled kernel forced, each against G ungrouped launches (bit for
+    bit, but where the tiled plans' slices differ) and the grouped plain
+    version (``K1_TOL``), timed by CUDA graph beside the G launches."""
+    from mtad_gat_tpu_torch.kernels import gat as kg
+
+    G = len(FLEET_GROUPS)
+    out = {}
+    for layer, N, E, D in (("feature", 38, 200, 100), ("temporal", 100, 76, 38)):
+        for rows in FLEET_ROWS:
+            B = G * rows
+            p, q, _, _, v = gat_case(gen, dev, B, N, E, D, torch.float32, False)
+            a = (torch.randn(G, E, generator=gen) * (6.0 / (E + 1)) ** 0.5).to(dev)
+            bias = (0.1 * torch.randn(G, N, N, generator=gen)).to(dev)
+            want = kg.gatv2_attention_fwd_plain(p, q, a, bias, v, 0.2)
+            for variant in ("graph", "tiled"):
+                grouped = lambda: kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2,  # noqa: E731
+                                                         variant=variant)
+
+                def per_group():
+                    return torch.cat([kg.gatv2_attention_fwd(
+                        p[g * rows:(g + 1) * rows], q[g * rows:(g + 1) * rows], a[g], bias[g],
+                        v[g * rows:(g + 1) * rows], 0.2, variant=variant) for g in range(G)])
+
+                got = grouped()
+                launch = dict(kg.gatv2_attention_fwd.last_launch)
+                per = per_group()
+                single = kg.gatv2_attention_fwd.last_launch
+                if launch["variant"] != variant or launch["groups"] != G:
+                    raise AssertionError(f"grouped K1 ran {launch}")
+                nbytes = (2 * B * N * E + G * E + 2 * B * N * D + G * N * N) * 4
+                plans = ((launch["plan"], single["plan"]) if variant == "tiled" else None)
+                out[(layer, rows, variant)] = grouped_record(
+                    f"{layer} layer ({B}, {N}, {E}, {D}), {variant}", "K1", G, rows, got, per,
+                    want, K1_TOL[torch.float32], grouped, per_group, nbytes,
+                    B * N * N * (4 * E + 2 * D), plans)
+            del p, q, v, want
+    return out
+
+
+def check_grouped_k3(gen, dev) -> dict:
+    """K3 with an entity axis, G 28 at 1 and 128 rows a group, T 100,
+    float32: the cluster variant at hidden 150 and the streaming one at 384,
+    each against G ungrouped launches (bit for bit) and the grouped plain
+    version (``K3_TOL``), timed by CUDA graph beside the G launches."""
+    from mtad_gat_tpu_torch.kernels import gru as kgru
+
+    G, T = len(FLEET_GROUPS), 100
+    out = {}
+    for H, variant in ((150, "cluster"), (384, "streaming")):
+        for rows in FLEET_ROWS:
+            B = G * rows
+            gi = torch.randn(B, T, 3 * H, generator=gen).to(dev)
+            w_hh = (torch.rand(G, H, 3 * H, generator=gen) * 2 - 1).mul_(H ** -0.5).to(dev)
+            b_hh = (torch.rand(G, 3 * H, generator=gen) * 2 - 1).mul_(H ** -0.5).to(dev)
+            with torch.no_grad():
+                want, _ = kgru.gru_scan_fwd_plain(gi, w_hh, b_hh, H)
+                grouped = lambda: kgru.gru_scan_fwd(gi, w_hh, b_hh, H)[0]  # noqa: E731
+
+                def per_group():
+                    return torch.cat([kgru.gru_scan_fwd(gi[g * rows:(g + 1) * rows], w_hh[g],
+                                                        b_hh[g], H)[0] for g in range(G)])
+
+                got = grouped()
+                launch = dict(kgru.gru_scan_fwd.last_launch)
+                per = per_group()
+                if launch["variant"] != variant or launch["groups"] != G:
+                    raise AssertionError(f"grouped K3 ran {launch}, expected {variant}")
+                tile = kgru.K3_BATCH_TILE if variant == "cluster" else kgru.STREAM_BATCH_TILE
+                tiles = len(kgru.group_tiles(rows, G, tile))
+                if kgru._lib().gru_fwd_tiles(B, rows, launch["cluster"]) != tiles:
+                    raise AssertionError(f"grouped K3: the built kernel's tiles differ from "
+                                         f"group_tiles' {tiles}")
+                nbytes = (B * T * 3 * H + G * (H * 3 * H + 3 * H) + B * T * H) * 4
+                rec = grouped_record(f"hidden {H} ({B}, {T}), {variant}", "K3", G, rows, got,
+                                     per, want, K3_TOL, grouped, per_group, nbytes,
+                                     2 * B * T * H * 3 * H)
+                rec["tiles"] = tiles
+                out[(H, rows)] = rec
+            del gi, want
+            torch.cuda.empty_cache()
+    return out
+
+
+def op_cost_per_forward(gen, dev) -> dict:
+    """What the custom ops would cost the solo path a forward: host time of
+    a batch-1 K1 call (both flagship layers) and K3 call (hidden 150)
+    through ``gatv2_attention_fwd_op`` / ``gru_scan_fwd_op`` against the
+    same call direct, 400 calls each queued without a sync (the card's work
+    runs behind them), two K1 and two K3 calls a forward. Only batched calls
+    enter the ops, so the solo path does not pay this."""
+    from mtad_gat_tpu_torch.kernels import gat as kg
+    from mtad_gat_tpu_torch.kernels import gru as kgru
+
+    def host_us(fn, calls=400):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    with torch.no_grad():
+        for name, N, E, D in (("k1_feature", 38, 200, 100), ("k1_temporal", 100, 76, 38)):
+            p, q, a, bias, v = gat_case(gen, dev, 1, N, E, D, torch.float32, True)
+            out[name] = (host_us(lambda: kg.gatv2_attention_fwd_op(p, q, a, bias, v, 0.2)),
+                         host_us(lambda: kg.gatv2_attention_fwd(p, q, a, bias, v, 0.2)))
+        _, _, gi, w_hh, b_hh = gru_case(gen, dev, 1, 100, 150, torch.float32)
+        w_hh = w_hh.contiguous()
+        out["k3"] = (host_us(lambda: kgru.gru_scan_fwd_op(gi, w_hh, b_hh, 150)),
+                     host_us(lambda: kgru.gru_scan_fwd(gi, w_hh, b_hh, 150)))
+    extra = {name: op - direct for name, (op, direct) in out.items()}
+    rec = {"phase": "fleet_serving", "case": "the custom ops' host cost on the solo path",
+           "host_us_op_and_direct": out,
+           "op_cost_us_per_forward": extra["k1_feature"] + extra["k1_temporal"]
+           + 2 * extra["k3"],
+           "what": "two K1 calls (one a layer) and two K3 calls a forward; the solo path "
+                   "calls the wrappers direct (kernels/_vmap.is_batched)"}
+    emit(rec)
+    return rec
+
+
+def write_fleet(root: str) -> tuple:
+    """The fleet's 28 synthetic SMD machines (``write_smd`` from seeds 1-28)
+    and their run directories, as phase ``serving`` reads them: the
+    flagship's config with both kernels on and a seeded random model each,
+    no cached train scores (``serve_cli`` calibrates by scoring the training
+    split). Returns (data root, output root, CSV streams of the raw test
+    splits)."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.models import MTADGAT
+
+    data_root, out_root = os.path.join(root, "data"), os.path.join(root, "output")
+    streams = []
+    for e, group in enumerate(FLEET_GROUPS):
+        write_smd(data_root, group=group, seed=1 + e)
+        cfg = RunConfig(group=group, attention_impl="pallas", gru_impl="pallas")
+        run = os.path.join(out_root, "SMD", group, SERVE_RUN)
+        os.makedirs(run)
+        cfg.save(os.path.join(run, "config.txt"))
+        model = MTADGAT(cfg.model_config(38, 38),
+                        generator=torch.Generator().manual_seed(100 + e))
+        torch.save(model.state_dict(), os.path.join(run, "model.pt"))
+        _, (raw_test, _) = get_data(f"machine-{group}", data_root=data_root, normalize=False)
+        stream = os.path.join(root, f"stream_{group}.csv")
+        np.savetxt(stream, raw_test, delimiter=",")
+        streams.append(stream)
+    return data_root, out_root, streams
+
+
+def serve_groups(data_root, out_root, groups, inputs, output, chunk):
+    """``serve_cli.main --device cuda`` over ``groups`` (a fleet where more
+    than one) with epsilon; returns its records, summary, the kernels'
+    launches, the vmap rules' calls, the plain calls and the seconds."""
+    from mtad_gat_tpu_torch.cli import serve_cli
+    from mtad_gat_tpu_torch.kernels import gat as kg
+    from mtad_gat_tpu_torch.kernels import gru as kgru
+
+    argv = ["--dataset", "SMD", "--group", ",".join(groups), "--model_id", SERVE_RUN,
+            "--data_root", data_root, "--output_root", out_root, "--input", ",".join(inputs),
+            "--output", output, "--chunk", str(chunk), "--flush_ms", "0",
+            "--threshold_method", "epsilon", "--device", "cuda"]
+    rules = (kg._gatv2_attention_fwd_vmap.calls, kgru._gru_scan_fwd_vmap.calls)
+    reset_counts()
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        summary = serve_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = read_counts()
+    rule_calls = (kg._gatv2_attention_fwd_vmap.calls - rules[0],
+                  kgru._gru_scan_fwd_vmap.calls - rules[1])
+    with open(output) as f:
+        records = [json.loads(line) for line in f]
+    return records, summary, counts, rule_calls, dict(plain), seconds
+
+
+def fleet_scorers(data_root, out_root, dev):
+    """The fleet as ``serve_cli``'s fleet path sets it up (the runs' models,
+    scalers, epsilon from the calibration sidecars the first run wrote,
+    windows primed with the train tails), and 28 solo ``OnlineScorer``s set
+    up alike, for the numbers."""
+    from mtad_gat_tpu_torch.cli.predict_cli import load_run_model
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import get_data, normalize_data
+    from mtad_gat_tpu_torch.inference import OnlineFleetScorer, OnlineScorer
+
+    models, scalers, scores, tails = [], [], [], []
+    for group in FLEET_GROUPS:
+        run = os.path.join(out_root, "SMD", group, SERVE_RUN)
+        cfg = RunConfig.load(os.path.join(run, "config.txt"))
+        (x_train, _), _ = get_data(f"machine-{group}", data_root=data_root, normalize=True)
+        (raw_train, _), _ = get_data(f"machine-{group}", data_root=data_root, normalize=False)
+        scalers.append(normalize_data(raw_train)[1])
+        models.append(load_run_model(run, cfg, 38, 38, dev))
+        scores.append(np.load(os.path.join(run, "train_scores_raw.npy")))
+        tails.append(x_train[-cfg.lookback:])
+
+    def fleet():
+        f = OnlineFleetScorer.from_models(models, 100, 38)
+        for e, sc in enumerate(scores):
+            f.fit_threshold(e, sc, method="epsilon")
+        f.update_many(np.stack(tails))
+        return f
+
+    def solos():
+        out = []
+        for m, sc, tail in zip(models, scores, tails):
+            s = OnlineScorer(m, 100, 38)
+            s.fit_threshold(sc, method="epsilon")
+            s.update_many(tail)
+            out.append(s)
+        return out
+
+    return fleet, solos, scalers
+
+
+def fleet_numbers(data_root, out_root, streams, short_streams, warm_streams, smi,
+                  dev) -> dict:
+    """All-entity points/s of the fleet at chunks 1 and 128 (a pass over the
+    28 CSV files through ``serve_cli``'s multiplexed stream, scoring and
+    serving loop: at 128 the best of 3 after a warm-up, at 1 one pass after
+    a warm-up), each dispatch's time from its yield to
+    its written records (p50, p99), peak memory above the baseline, one
+    profiled pass at each (at 1 over the short files); then 28 solo
+    ``OnlineScorer``s in this process fed the same chunks, one after
+    another, at 128 over the whole files and at 1 over the short ones,
+    beside the fleet over the short ones."""
+    from mtad_gat_tpu_torch.cli import serve_cli
+
+    make_fleet, make_solos, scalers = fleet_scorers(data_root, out_root, dev)
+
+    def fleet_chunk(fleet):
+        def score_chunk(batches):
+            prepared = [scalers[e].transform(np.nan_to_num(b)) if b.shape[0] else b
+                        for e, b in enumerate(batches)]
+            for recs in fleet.update_ragged(prepared):
+                for rec in recs:
+                    yield serve_cli._record_json(rec, 0)
+        return score_chunk
+
+    def solo_chunk(solos):
+        def score_chunk(batches):
+            for e, b in enumerate(batches):
+                if b.shape[0]:
+                    for rec in solos[e].update_many(scalers[e].transform(np.nan_to_num(b))):
+                        yield serve_cli._record_json(rec, 0)
+        return score_chunk
+
+    def one_pass(score_chunk, chunk, sources):
+        sink, yields = TimedSink(), []
+
+        def chunks():
+            for batch in serve_cli._stream_chunks_multi(sources, 38, chunk, flush_ms=0):
+                yields.append(time.perf_counter())
+                yield batch
+
+        t0 = time.perf_counter()
+        n_pts, _ = serve_cli._serve_loop(chunks(), score_chunk, sink, None)
+        seconds = time.perf_counter() - t0
+        return n_pts, seconds, [(f - y) * 1e3 for y, f in zip(yields, sink.flushes)]
+
+    rec = {"phase": "fleet_serving", "case": "numbers", "card": smi,
+           "entities": len(FLEET_GROUPS)}
+    for chunk, sources, passes in ((128, streams, 3), (1, streams, 1)):
+        one_pass(fleet_chunk(make_fleet()), chunk, warm_streams)      # warm-up
+        fleet = make_fleet()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [one_pass(fleet_chunk(fleet), chunk, sources) for _ in range(passes)]
+        ms = np.concatenate([lat for _, _, lat in runs])
+        rec[f"chunk_{chunk}"] = {
+            "points": runs[0][0], "points_per_s": max(n / t for n, t, _ in runs),
+            "dispatch_ms_p50": float(np.percentile(ms, 50)),
+            "dispatch_ms_p99": float(np.percentile(ms, 99)), "dispatches": int(ms.size),
+            "peak_mb_above_baseline": (torch.cuda.max_memory_allocated() - base) / 2**20}
+        prof = profile_device(lambda: one_pass(fleet_chunk(make_fleet()), chunk,
+                                               short_streams if chunk == 1 else streams),
+                              f"fleet serving, {len(FLEET_GROUPS)} entities, chunk {chunk}"
+                              + (", the short files" if chunk == 1 else "")
+                              + ", float32, kernels on")
+        prof["phase"] = "fleet_serving"
+        emit(prof)
+        rec[f"chunk_{chunk}"]["busy_share"] = prof["busy_share"]
+    short = {}
+    for name, make, score in (("fleet", make_fleet, fleet_chunk),
+                              ("28 solo scorers", make_solos, solo_chunk)):
+        for chunk, sources in ((128, streams), (1, short_streams)):
+            one_pass(score(make()), chunk, warm_streams)                 # warm-up
+            n, t, _ = one_pass(score(make()), chunk, sources)
+            short[f"{name}, chunk {chunk}"] = {"points": n, "points_per_s": n / t}
+    rec["same_process_comparison"] = short
+    rec["what"] = ("points/s: all entities' points over the pass's seconds (CSV, scaling, "
+                   "forward, threshold, JSON); dispatch ms: a fleet dispatch from its "
+                   "yield to its written records; the solo scorers take the same chunks "
+                   "one entity after another; chunk 1 comparisons over the short files")
+    emit(rec)
+    return rec
+
+
+def check_fleet_serving(gen, dev, work, smi) -> dict:
+    """Phase ``fleet_serving``: grouped K1 and K3 against G launches and
+    their plain versions; the custom ops' cost to the solo path; 28 synthetic
+    SMD machines served through ``serve_cli`` in fleet mode at chunks 128
+    (calibrating by scoring) and 1, exact launches (two K1 and two K3 a fleet
+    forward, one vmap rule call each a layer, no plain call), three groups'
+    records against their solo ``serve_cli`` runs at both chunks (atol
+    ``FLEET_ATOL``); then the numbers."""
+    k1 = check_grouped_k1(gen, dev)
+    k3 = check_grouped_k3(gen, dev)
+    op_cost = op_cost_per_forward(gen, dev)
+    root = os.path.join(work, "fleet")
+    data_root, out_root, streams = write_fleet(root)
+    # the first 256 rows of each file (chunk 1's profile and comparison), and
+    # the first 16 (warm-ups)
+    short_streams, warm_streams = [], []
+    for src in streams:
+        for rows, acc in ((PROFILE_POINTS // 2, short_streams), (16, warm_streams)):
+            head = src.replace(".csv", f"_{rows}.csv")
+            with open(src) as f, open(head, "w") as g:
+                g.writelines(line for _, line in zip(range(rows), f))
+            acc.append(head)
+    with open(streams[0]) as f:
+        n = sum(1 for _ in f)                # points a stream
+    w, bs = 100, 256
+    calib = len(FLEET_GROUPS) * chunks_of(n - w + 1, bs)
+    launches, forwards, runs = dict.fromkeys(KERNEL_COUNTERS, 0), 0, {}
+    for chunk, calibrating in ((128, True), (1, False)):
+        out = os.path.join(root, f"fleet_{chunk}.jsonl")
+        records, summary, counts, rules, plain, seconds = serve_groups(
+            data_root, out_root, FLEET_GROUPS, streams, out, chunk)
+        fleet_fwd = summary["forwards"]
+        want = 2 * (fleet_fwd + (calib if calibrating else 0))
+        rec = {"phase": "fleet_serving", "run": f"serve_cli fleet, chunk {chunk}",
+               "seconds": seconds, "points": summary["points"], "alarms": summary["alarms"],
+               "entities": summary["entities"], "fleet_forwards": fleet_fwd,
+               "calibration_forwards": calib if calibrating else 0,
+               "k1_launches": counts["gatv2_attention_fwd"],
+               "k3_launches": counts["gru_scan_fwd"], "vmap_rule_calls": list(rules),
+               "plain_calls": plain}
+        emit(rec)
+        wrong = {k: v for k, v in counts.items()
+                 if v != {"gatv2_attention_fwd": want, "gatv2_attention_fwd:graph": want,
+                          "gru_scan_fwd": want}.get(k, 0)}
+        if wrong or rules != (2 * fleet_fwd, 2 * fleet_fwd) or any(plain.values()):
+            raise AssertionError(f"fleet serving, chunk {chunk}: {rec}; expected {want} K1 and "
+                                 f"K3 launches, {2 * fleet_fwd} rule calls and no plain call")
+        if summary["points"] != n * len(FLEET_GROUPS) or len(records) != summary["points"]:
+            raise AssertionError(f"fleet serving, chunk {chunk}: served {summary['points']}")
+        for k in launches:
+            launches[k] += counts[k] - (2 * calib if calibrating and k in (
+                "gatv2_attention_fwd", "gru_scan_fwd") else 0)
+        forwards += fleet_fwd
+        runs[chunk] = (records, rec)
+    compared = []
+    for group in (FLEET_GROUPS[0], FLEET_GROUPS[len(FLEET_GROUPS) // 2], FLEET_GROUPS[-1]):
+        src = streams[FLEET_GROUPS.index(group)]
+        for chunk in (1, 128):
+            out = os.path.join(root, f"solo_{group}_{chunk}.jsonl")
+            want_recs = serve_groups(data_root, out_root, [group], [src], out, chunk)[0]
+            got = [{k: v for k, v in r.items() if k != "group"} for r in runs[chunk][0]
+                   if r["group"] == group]
+            score = np.array([r["score"] for r in want_recs])
+            thr = np.array([r["threshold"] for r in want_recs])
+            err = (float(np.max(np.abs(np.array([r["score"] for r in got]) - score)))
+                   if len(got) == len(want_recs) else None)
+            near = np.abs(score - thr) <= FLEET_ATOL
+            rec = {"phase": "fleet_serving", "check": f"group {group}, chunk {chunk}: fleet "
+                   "records against its solo serve_cli run", "points": len(got),
+                   "max_abs_err": err, "tol": FLEET_ATOL,
+                   "thresholds_equal": [r["threshold"] for r in got] == list(thr),
+                   "points_within_tol_of_threshold": int(near.sum()),
+                   "identical": got == want_recs}
+            emit(rec)
+            if (err is None or not err <= FLEET_ATOL or not rec["thresholds_equal"]
+                    or [r["t"] for r in got] != [r["t"] for r in want_recs]
+                    or [r["is_anomaly"] for r, c in zip(got, near) if not c]
+                    != [r["is_anomaly"] for r, c in zip(want_recs, near) if not c]):
+                raise AssertionError(f"fleet serving: {rec}")
+            compared.append(rec)
+    numbers = fleet_numbers(data_root, out_root, streams, short_streams, warm_streams, smi,
+                            dev)
+    return {"k1": k1, "k3": k3, "op_cost": op_cost, "launches": launches,
+            "forwards": forwards, "numbers": numbers, "compared": compared}
+
+
+def fleet_row(fleet: dict, kernel: str) -> dict:
+    """K1's or K3's fleet entry of the kernels line: launches on the fleet
+    path (two a fleet forward), the grouped launches' times at G 28 beside
+    the G ungrouped launches they replace, and their bounds."""
+    name = "gatv2_attention_fwd" if kernel == "k1" else "gru_scan_fwd"
+    cases = {" ".join(map(str, k)): {f: r[f] for f in (
+        "graph_ms", "G_launches_graph_ms", "bound_ms", "bound_by", "max_abs_err",
+        "identical_to_G_launches")} for k, r in fleet[kernel].items()}
+    return {"launches": fleet["launches"][name], "forwards": fleet["forwards"],
+            "launches_per_forward": 2, "groups": len(FLEET_GROUPS), "grouped": cases}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3029,13 +3493,15 @@ def main() -> None:
         route = check_dense_route(gen, dev)
         long_complete = check_long_complete(work, dev, smi)
         serving = check_serving(gen, dev, work, k3_batch1, smi)
+        fleet = check_fleet_serving(gen, dev, work, smi)
     by_path = {name: {"main": train_launches.get(name, 0),
                       "dense_route": route["launches_eval"][name] + route["launches_train"][name],
                       "long_window": long_window["launches"][name],
                       "graph_cli": graph_cli[name],
                       "wide_window": wide["train_cli"][name] + wide["layer"][name],
                       "long_complete": long_complete["launches"][name],
-                      "serving": serving["launches"][name]}
+                      "serving": serving["launches"][name],
+                      "fleet_serving": fleet["launches"][name]}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]
@@ -3065,6 +3531,7 @@ def main() -> None:
              "batch1_max_abs_err": max(r["max_abs_err"] for r in serving["k1"].values()),
              **{f"batch1_{k}_by_layer": [serving["k1"][la][k] for la in ("feature", "temporal")]
                 for k in ("graph_ms", "plain_ms", "bound_ms", "bound_by")}},
+         "fleet_serving": fleet_row(fleet, "k1"),
          "shapes": "one scoring batch: feature (256,38,200/100) + temporal "
                    "(256,100,76/38) layer, float32, bias; ms is a wrapper call by CUDA "
                    "events, graph_ms its device time from a CUDA graph of 20 calls; tiled_* "
@@ -3083,6 +3550,7 @@ def main() -> None:
              "launches_per_forward": 2, "forwards": "one a point at chunk 1, one a chunk",
              **{f"batch1_{k}": serving["k3"][k] for k in ("ms", "bound_ms", "bound_by",
                                                           "max_abs_err")}},
+         "fleet_serving": fleet_row(fleet, "k3"),
          "shapes": "one chain: gi (256,100,450) float32, hidden 150; library_ms "
                    "is torch.nn.GRU (cuDNN) with its input projection, projection_ms "
                    "that projection alone as one matrix product"},

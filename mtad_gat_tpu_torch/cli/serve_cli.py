@@ -1,6 +1,6 @@
 """Streaming-serving entry point: score points as they arrive.
 
-The port of ``mtad_gat_tpu/cli/serve_cli.py``, its solo path. It loads a
+The port of ``mtad_gat_tpu/cli/serve_cli.py``. It loads a
 trained run (resolved as ``predict_cli`` resolves it, the port's own or one
 the JAX package trained, ``predict_cli.load_run_model``), arms the alarm
 threshold from the run's training scores, primes the window with the tail of
@@ -27,13 +27,23 @@ writes one JSON record a point (``{"t", "score", "threshold",
   ``--drift_depth``); ``--emit_features K`` adds the top-K per-feature
   scores, by CSV column (mapped through the dataset's target dims).
 
-Fleet serving (``--group 1-1,1-2,...``) is not ported yet (ROADMAP.md,
-Queue 1 item 6b). Runs on the GPU unless ``--device cpu`` or ``--use_cuda
-False`` is given (``cli/args.resolve_device``); ``--compile_cache`` is
-accepted and ignored.
+Fleet serving (``--group 1-1,1-2,... --input a.csv,b.csv,...``, SMD only):
+one process streams every group's machine, one CSV file each, through
+``inference/online_fleet.OnlineFleetScorer``: one forward a dispatch for
+all groups (K1 and K3 twice each, whatever the number of groups). Each
+group keeps its own scaler, threshold calibration, POT parameters, stream
+position and flush buffer; a dispatch carries whatever each stream brought
+(``_stream_chunks_multi``). Every group's run must share the model config
+and gamma, ``use_mov_av``, ``scale_scores`` and ``normalize``; records
+carry ``"group"``.
+
+Runs on the GPU unless ``--device cpu`` or ``--use_cuda False`` is given
+(``cli/args.resolve_device``); ``--compile_cache`` is accepted and ignored.
 
     python -m mtad_gat_tpu_torch.cli.serve_cli --dataset SMD --group 1-1 \\
         --input stream.csv --state_file serve.state
+    python -m mtad_gat_tpu_torch.cli.serve_cli --dataset SMD --group 1-1,1-2 \\
+        --input a.csv,b.csv --state_file fleet.state
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ from mtad_gat_tpu_torch.cli.args import get_parser, resolve_device
 from mtad_gat_tpu_torch.cli.predict_cli import load_run_model, resolve_model_dir
 from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
 from mtad_gat_tpu_torch.data import get_data, get_target_dims, normalize_data
-from mtad_gat_tpu_torch.inference import OnlineScorer, Predictor
+from mtad_gat_tpu_torch.inference import OnlineFleetScorer, OnlineScorer, Predictor
 from mtad_gat_tpu_torch.inference.online import atomic_pickle, load_state_pickle
 from mtad_gat_tpu_torch.inference.predictor import smooth_scores, smoothing_span
 
@@ -190,6 +200,101 @@ def _stream_chunks(source, n_features: int, chunk: int, flush_ms: float = 1000.0
             fh.close()
 
 
+def _stream_chunks_multi(sources, n_features: int, chunk: int, flush_ms: float = 1000.0,
+                         bad_line: str = "skip", skip_lines=None, pos=None):
+    """Multiplex E CSV files (one an entity) into ragged chunks: yields a
+    list of (T_e, n_features) arrays whenever any stream holds ``chunk`` rows
+    or ``flush_ms`` after the first row buffered anywhere, so one fleet
+    dispatch serves whatever every entity brought (possibly nothing). One
+    ``select`` over all file descriptors; each stream keeps its own bytes,
+    rows and line count. A stream at EOF stops contributing; the generator
+    ends when every stream is dry. A file that cannot be opened ends the
+    run with a message.
+
+    Resuming, per stream as in :func:`_stream_chunks`: the first
+    ``skip_lines[i]`` lines of stream i are consumed unparsed, and ``pos[i]``
+    (``pos`` an E-element list, if given) holds the line number covered by
+    the rows of stream i yielded so far; rows still buffered are not
+    counted."""
+    fhs = []
+    try:
+        for src in sources:
+            fhs.append(open(src))
+    except OSError as e:
+        for fh in fhs:
+            fh.close()
+        raise SystemExit(f"serve: cannot open input stream: {e}") from None
+    fds = [fh.fileno() for fh in fhs]
+    bufs = [b"" for _ in fhs]
+    rows = [[] for _ in fhs]        # per stream: (values, line number) pairs
+    lineno = [0 for _ in fhs]
+    eof = [False for _ in fhs]
+    skip_lines = skip_lines or [0] * len(fhs)
+    deadline = None
+    use_select = flush_ms is not None and flush_ms > 0
+
+    def drain(i):
+        while b"\n" in bufs[i]:
+            raw, bufs[i] = bufs[i].split(b"\n", 1)
+            lineno[i] += 1
+            if lineno[i] <= skip_lines[i]:
+                continue
+            line = raw.decode(errors="replace").strip()
+            if not line:
+                continue
+            vals = _parse_row(line, n_features, bad_line, lineno[i])
+            if vals is not None:
+                rows[i].append((vals, lineno[i]))
+
+    def flush():
+        # at most `chunk` rows a stream a dispatch (one read can bring a
+        # whole file); the rest stays buffered and the loop yields again
+        nonlocal deadline
+        out = []
+        for i, r in enumerate(rows):
+            take = r[:chunk]
+            out.append(np.stack([v for v, _ in take]) if take
+                       else np.zeros((0, n_features), np.float32))
+            if take and pos is not None:
+                pos[i] = take[-1][1]
+            del r[:chunk]
+        deadline = None
+        return out
+
+    try:
+        while True:
+            if any(len(r) >= chunk for r in rows):
+                yield flush()
+                continue
+            live = [fd for fd, e in zip(fds, eof) if not e]
+            if not live:
+                while any(rows):
+                    yield flush()
+                break
+            timeout = None
+            if use_select and any(rows):
+                if deadline is None:
+                    deadline = time.monotonic() + flush_ms / 1000.0
+                timeout = max(0.0, deadline - time.monotonic())
+            ready, _, _ = select.select(live, [], [], timeout)
+            if not ready:
+                yield flush()
+                continue
+            for fd in ready:
+                i = fds.index(fd)
+                data = os.read(fd, 1 << 16)
+                if not data:
+                    eof[i] = True
+                    if bufs[i].strip():
+                        bufs[i] += b"\n"  # terminate a final unterminated line
+                else:
+                    bufs[i] += data
+                drain(i)
+    finally:
+        for fh in fhs:
+            fh.close()
+
+
 def _bucket_ladder(chunk: int):
     """The chunk sizes the JAX server compiles (1, 8, 32, chunk): the bucket
     of a chunk of n rows is the smallest that holds it. Here it is only the
@@ -307,6 +412,126 @@ def _serve_loop(chunks, score_chunk, sink, save_state) -> tuple:
     return n_pts, n_alarms
 
 
+def _fleet_main(args, requested_method, threshold_method: str) -> dict:
+    """Fleet serving (``--group 1-1,1-2,...`` with one ``--input`` file a
+    group): every group's model through one ``OnlineFleetScorer``; each
+    group keeps its own scaler, calibration, POT parameters and stream
+    position, and a dispatch carries whatever each stream brought
+    (``OnlineFleetScorer.update_ragged``)."""
+    groups = [g.strip() for g in args.group.split(",")]
+    sources = [src.strip() for src in args.input.split(",")]
+    if len(sources) != len(groups):
+        raise SystemExit(f"--input must list one CSV a group ({len(groups)} groups, "
+                         f"{len(sources)} inputs)")
+    if "-" in sources:
+        raise SystemExit("fleet mode multiplexes one FILE a group; '-' (stdin) is only "
+                         "supported in single-group mode")
+    if args.dataset != "SMD":
+        raise SystemExit("fleet serving is per machine: --dataset SMD only")
+    device = resolve_device(args.device, args.use_cuda)
+
+    E = len(groups)
+    resumed = bool(args.state_file and os.path.exists(args.state_file))
+    models, scalers, thresholds, tails = [], [], [], []
+    cfg0 = None
+    for g in groups:
+        model_path = resolve_model_dir(os.path.join(args.output_root, "SMD", g), args.model_id)
+        cfg = RunConfig.load(os.path.join(model_path, "config.txt"))
+        if cfg0 is None:
+            cfg0 = cfg
+        elif cfg.model_config(1, 1) != cfg0.model_config(1, 1):
+            raise SystemExit(
+                f"fleet serving stacks the groups' weights under one model: group {g}'s "
+                f"model config differs from group {groups[0]}'s; serve it solo or retrain "
+                "with matching hyper-parameters")
+        elif (cfg.gamma, cfg.use_mov_av, cfg.scale_scores, cfg.normalize) != (
+                cfg0.gamma, cfg0.use_mov_av, cfg0.scale_scores, cfg0.normalize):
+            # the fleet scores every group with cfg0's gamma and smoothing: a
+            # group calibrated on another scale would alarm on the wrong one
+            raise SystemExit(
+                f"fleet serving shares scoring parameters: group {g}'s gamma/use_mov_av/"
+                f"scale_scores/normalize differ from group {groups[0]}'s; serve it solo")
+        if cfg.scale_scores:
+            print(f"serve: WARNING — group {g} used scale_scores=True; the stream is scored "
+                  "and calibrated on RAW scores (see OnlineScorer).", file=sys.stderr)
+        entity = f"machine-{g}"
+        (x_train, _), _ = get_data(entity, data_root=args.data_root, normalize=cfg.normalize)
+        scaler = None
+        if cfg.normalize:
+            (raw_train, _), _ = get_data(entity, data_root=args.data_root, normalize=False)
+            _, scaler = normalize_data(raw_train)
+        n_features = x_train.shape[1]
+        model = load_run_model(model_path, cfg, n_features, n_features, device)
+        if not resumed:
+            # a resume restores thresholds and positions from the state file
+            level, q, reg_level = lookup_pot_params("SMD", g, cfg.level, cfg.q)
+            thresholds.append(dict(
+                train_scores=_train_scores(model_path, model, x_train, cfg, n_features, None),
+                method=threshold_method, reg_level=reg_level, q=q, level=level,
+                drift_depth=args.drift_depth))
+        models.append(model)
+        scalers.append(scaler)
+        tails.append(x_train[-cfg.lookback:])
+
+    span = smoothing_span(cfg0.lookback) if cfg0.use_mov_av else None
+    fleet = OnlineFleetScorer.from_models(models, cfg0.lookback, n_features, gamma=cfg0.gamma,
+                                          smoothing_span=span)
+    del models          # the fleet holds their stacked weights
+    fleet.labels = list(groups)
+    chunk = max(1, args.chunk)
+    bucket_for = _bucket_ladder(chunk)
+
+    skips = [0] * E
+    if resumed:
+        saved_input, saved_lines = _load_serving_state(fleet, args.state_file)
+        if isinstance(saved_input, (list, tuple)) and saved_lines:
+            for e, src in enumerate(sources[:len(saved_input)]):
+                skips[e] = _resume_skip_lines(saved_input[e], saved_lines[e], src,
+                                              label=f" ({groups[e]})")
+        active = fleet._entities[0]._threshold_method
+        _warn_resumed_method(active, requested_method, args.state_file)
+        print(f"Fleet serving: resumed {E} entities from {args.state_file} "
+              f"(threshold={active}); chunk={chunk}", file=sys.stderr)
+    else:
+        for e, th in enumerate(thresholds):
+            scores = th.pop("train_scores")
+            if span is not None:
+                # calibrate on SMOOTHED train scores (prediction.py:158-163)
+                scores = smooth_scores(scores, span)
+            fleet.fit_threshold(e, scores, **th)
+        # prime every window with its train tail
+        prime = np.stack(tails)
+        for i in range(0, prime.shape[1], chunk):
+            n = min(chunk, prime.shape[1] - i)
+            fleet.update_many(prime[:, i:i + n], pad_to=bucket_for(n))
+        print(f"Fleet serving: {E} entities primed; chunk={chunk}, "
+              f"threshold={threshold_method}", file=sys.stderr)
+    stream_pos = list(skips)
+
+    def score_chunk(batches):
+        prepared = [scalers[e].transform(np.nan_to_num(np.asarray(b, np.float32)))
+                    if scalers[e] is not None and b.shape[0] else b
+                    for e, b in enumerate(batches)]
+        longest = max(b.shape[0] for b in prepared)
+        recs = fleet.update_ragged(prepared, pad_to=bucket_for(max(1, longest)))
+        for e, group_recs in enumerate(recs):
+            for rec in group_recs:
+                yield {"group": groups[e], **_record_json(rec, args.emit_features)}
+
+    sink = _open_sink(args.output, resumed)
+    input_ids = [_input_id(src) for src in sources]
+    save_state = ((lambda: _save_serving_state(fleet, args.state_file, input_ids,
+                                               list(stream_pos)))
+                  if args.state_file else None)
+    n_pts, n_alarms = _serve_loop(
+        _stream_chunks_multi(sources, n_features, chunk, flush_ms=args.flush_ms,
+                             bad_line=args.bad_line, skip_lines=skips, pos=stream_pos),
+        score_chunk, sink, save_state,
+    )
+    print(f"Served {n_pts} points, {n_alarms} alarms across {E} entities.", file=sys.stderr)
+    return {"points": n_pts, "alarms": n_alarms, "entities": E, "forwards": fleet.forwards}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     # SIGTERM (systemd, docker stop, kill) becomes SystemExit, so the serving
     # loop's finally persists the state; SIGKILL loses at most one chunk
@@ -352,9 +577,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     requested_method = args.threshold_method
     threshold_method = requested_method or "epsilon"
     if "," in args.group:
-        raise NotImplementedError(
-            "--group with several groups (fleet serving) is not ported to "
-            "mtad_gat_tpu_torch yet (ROADMAP.md, Queue 1 item 6b)")
+        # fleet mode: --group 1-1,1-2,... with one --input CSV a group
+        return _fleet_main(args, requested_method, threshold_method)
     device = resolve_device(args.device, args.use_cuda)
 
     dataset = args.dataset

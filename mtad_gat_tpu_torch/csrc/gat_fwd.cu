@@ -40,6 +40,16 @@
 // (B, N, D), m and l (B, N) float32. p, q, a and v share one type (float32
 // or bfloat16; float32 for the tiled kernel, whose wrapper widens bfloat16);
 // all arithmetic is float32.
+//
+// The entity axis of K1 (fleet serving, the counterpart of JAX's batching
+// rule for pallas_call under vmap): the B batch elements form G = B /
+// rows_per_group groups of consecutive elements, and element b reads the
+// attention vector a + g E and the bias + g N N of its group g = b /
+// rows_per_group, so a is (G, E) and bias (G, N, N). Both variants take it;
+// the merge does not change. The group arithmetic is a compile-time flag
+// (GROUPED), instantiated for K1 only: at rows_per_group = B (G = 1), and in
+// K1-res, which passes B, the launch runs the ungrouped instantiation, whose
+// code is the kernel's without the axis (the same registers and bits).
 
 #include "gat_common.cuh"
 
@@ -123,12 +133,13 @@ struct TiledFwdLayout {
 };
 
 struct TiledFwdArgs {
-  const float* bias;        // (N, N) or null
+  const float* bias;        // (G, N, N) or null
   const long long* seed;    // one value, or null without dropout
   int B, N, E, D;
   float alpha;
   uint32_t thresh;
   float scale;
+  int rows_per_group;       // batch elements a group of a and bias: B / G
 };
 
 // The max and the sum over the 16 lanes of a half warp (a row's threads).
@@ -143,7 +154,7 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 
 // A block per (slice, batch element, row tile). Partials: acc (S, B, N, D),
 // m and l (S, B, N), float32.
-template <bool DROP>
+template <bool DROP, bool GROUPED>
 __global__ void __launch_bounds__(FWD_THREADS, 2)
 gatv2_fwd_tiled_kernel(const float* __restrict__ p, const float* __restrict__ q,
                        const float* __restrict__ a, const float* __restrict__ v, TiledFwdArgs g,
@@ -160,6 +171,7 @@ gatv2_fwd_tiled_kernel(const float* __restrict__ p, const float* __restrict__ q,
   const int tiles = (N + FWD_RI - 1) / FWD_RI;
   const int rt = blockIdx.x % tiles, sb = blockIdx.x / tiles;
   const int b = sb % g.B, sl = sb / g.B;
+  const int grp = GROUPED ? b / g.rows_per_group : 0;
   const int i0 = rt * FWD_RI;
   const int t_begin = slice_begin(sl, tiles, slices), t_end = slice_begin(sl + 1, tiles, slices);
   const int ti = threadIdx.x / FWD_KG, tj = threadIdx.x % FWD_KG;
@@ -190,7 +202,8 @@ gatv2_fwd_tiled_kernel(const float* __restrict__ p, const float* __restrict__ q,
       if (c > 0) __syncthreads();  // the last chunk's readers are done
       if (L.NE > 1 || t == t_begin) {
         copy_tile_async(p_s, L.ECP, groups, pb + e0, E, i0, FWD_RI, N, ew, vec_e, FWD_THREADS);
-        copy_tile_async(a_s, L.ECP, groups, a + e0, E, 0, 1, 1, ew, vec_e, FWD_THREADS);
+        copy_tile_async(a_s, L.ECP, groups, (GROUPED ? a + (size_t)grp * E : a) + e0, E, 0,
+                        1, 1, ew, vec_e, FWD_THREADS);
       }
       copy_tile_async(q_s, L.ECP, groups, qb + e0, E, j0, FWD_KJ, N, ew, vec_e, FWD_THREADS);
       cp_async_commit();
@@ -220,7 +233,7 @@ gatv2_fwd_tiled_kernel(const float* __restrict__ p, const float* __restrict__ q,
         if (j >= N)
           sv = NEG_BIG;
         else if (g.bias != nullptr && i < N)
-          sv += __ldg(g.bias + (size_t)i * N + j);
+          sv += __ldg(g.bias + (GROUPED ? ((size_t)grp * N + i) * N : (size_t)i * N) + j);
         s[4 * r + c] = sv;
         mx = fmaxf(mx, sv);
       }
@@ -341,11 +354,11 @@ __global__ void gatv2_fwd_merge_kernel(const float* __restrict__ acc_part,
   }
 }
 
-template <bool DROP>
+template <bool DROP, bool GROUPED>
 int tiled_launch(const float* p, const float* q, const float* a, const float* v,
                  const TiledFwdArgs& g, float* acc_part, float* m_part, float* l_part,
                  int slices, void* stream, int* occupancy) {
-  auto kernel = gatv2_fwd_tiled_kernel<DROP>;
+  auto kernel = gatv2_fwd_tiled_kernel<DROP, GROUPED>;
   const size_t bytes = TiledFwdLayout(g.E, g.D).floats() * sizeof(float);
   if (bytes > 48 * 1024) {
     cudaError_t err =
@@ -424,12 +437,12 @@ struct FwdLayout {
   }
 };
 
-template <typename T, bool RES, bool DROP>
+template <typename T, bool RES, bool DROP, bool GROUPED>
 __global__ void __launch_bounds__(G_MAX_THREADS, 1)
 gatv2_fwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
                        const T* __restrict__ a, const float* __restrict__ bias,
                        const T* __restrict__ v, T* __restrict__ out, int N, int E, int D,
-                       int row_blocks, float alpha, Residuals res) {
+                       int row_blocks, int rows_per_group, float alpha, Residuals res) {
   extern __shared__ __align__(16) float gsm[];
   const FwdLayout L(N, E, D, row_blocks);
   float* p_s = gsm;                         // [RB][EP], the block's rows
@@ -441,6 +454,10 @@ gatv2_fwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
   float* l_s = m_s + L.RB;                  // [RB]
   const int nrb = L.blocks_per_graph(N);
   const int b = blockIdx.x / nrb, i0 = blockIdx.x % nrb * L.RB;
+  const int grp = GROUPED ? b / rows_per_group : 0;
+  if constexpr (GROUPED) {
+    if (bias != nullptr) bias += (size_t)grp * N * N;
+  }
   const int rows = min(L.RB, N - i0);
   const int nt = blockDim.x, lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const size_t bNE = (size_t)b * N * E, bND = (size_t)b * N * D;
@@ -448,7 +465,7 @@ gatv2_fwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
 
   stage_padded(p_s, p + bNE + (size_t)i0 * E, rows, E, L.RB, L.EP);
   stage_padded(q_s, q + bNE, N, E, L.N4, L.EP);
-  stage_padded(a_s, a, 1, E, 1, L.EP);
+  stage_padded(a_s, GROUPED ? a + (size_t)grp * E : a, 1, E, 1, L.EP);
   stage_padded(v_s, v + bND, N, D, L.N4, L.DP);
   __syncthreads();
 
@@ -573,11 +590,11 @@ gatv2_fwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
   }
 }
 
-template <typename T, bool RES, bool DROP>
+template <typename T, bool RES, bool DROP, bool GROUPED>
 int launch_graph(const void* p, const void* q, const void* a, const void* bias,
                  const void* v, void* out, int B, int N, int E, int D, int row_blocks,
-                 float alpha, Residuals res, void* stream) {
-  auto kernel = gatv2_fwd_graph_kernel<T, RES, DROP>;
+                 int rows_per_group, float alpha, Residuals res, void* stream) {
+  auto kernel = gatv2_fwd_graph_kernel<T, RES, DROP, GROUPED>;
   const FwdLayout L(N, E, D, row_blocks);
   const size_t bytes = L.floats() * sizeof(float);
   if (bytes > 48 * 1024) {
@@ -595,18 +612,28 @@ int launch_graph(const void* p, const void* q, const void* a, const void* bias,
   const int threads = (size_t)sm_bytes >= 2 * (bytes + 1024) ? G_MAX_THREADS / 2 : G_MAX_THREADS;
   kernel<<<B * L.blocks_per_graph(N), threads, bytes, (cudaStream_t)stream>>>(
       (const T*)p, (const T*)q, (const T*)a, (const float*)bias, (const T*)v, (T*)out, N, E,
-      D, row_blocks, alpha, res);
+      D, row_blocks, rows_per_group, alpha, res);
   return (int)cudaGetLastError();
 }
 
-// The whole-graph kernel, the graph's rows over row_blocks >= 1 blocks.
+// The whole-graph kernel, the graph's rows over row_blocks >= 1 blocks, the
+// batch in groups of rows_per_group elements (B: one group; K1 alone takes
+// more).
 template <typename T, bool RES, bool DROP>
 int launch(const void* p, const void* q, const void* a, const void* bias,
-           const void* v, void* out, int B, int N, int E, int D, int row_blocks, float alpha,
-           Residuals res, void* stream) {
-  if (row_blocks < 1) return (int)cudaErrorInvalidValue;
-  return launch_graph<T, RES, DROP>(p, q, a, bias, v, out, B, N, E, D, row_blocks, alpha, res,
-                                    stream);
+           const void* v, void* out, int B, int N, int E, int D, int row_blocks,
+           int rows_per_group, float alpha, Residuals res, void* stream) {
+  if (row_blocks < 1 || rows_per_group < 1 || B % rows_per_group != 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows_per_group != B) {
+    if constexpr (RES || DROP)
+      return (int)cudaErrorInvalidValue;
+    else
+      return launch_graph<T, RES, DROP, true>(p, q, a, bias, v, out, B, N, E, D, row_blocks,
+                                              rows_per_group, alpha, res, stream);
+  }
+  return launch_graph<T, RES, DROP, false>(p, q, a, bias, v, out, B, N, E, D, row_blocks,
+                                           rows_per_group, alpha, res, stream);
 }
 
 template <typename T>
@@ -616,9 +643,9 @@ int launch_res(const void* p, const void* q, const void* a, const void* bias,
                float scale, void* stream) {
   const Residuals res{(float*)u, (float*)m, (float*)l, (const long long*)seed, thresh, scale};
   if (seed == nullptr)
-    return launch<T, true, false>(p, q, a, bias, v, out, B, N, E, D, row_blocks, alpha, res,
-                                  stream);
-  return launch<T, true, true>(p, q, a, bias, v, out, B, N, E, D, row_blocks, alpha, res,
+    return launch<T, true, false>(p, q, a, bias, v, out, B, N, E, D, row_blocks, B, alpha,
+                                  res, stream);
+  return launch<T, true, true>(p, q, a, bias, v, out, B, N, E, D, row_blocks, B, alpha, res,
                                stream);
 }
 
@@ -634,19 +661,20 @@ long gatv2_fwd_graph_smem_bytes(int N, int E, int D, int row_blocks) {
 int gatv2_fwd_graph_split() { return G_SPLIT; }
 
 // K1: the forward alone (scoring), the whole-graph kernel on row_blocks >= 1
-// blocks a graph.
+// blocks a graph; a (B / rows_per_group, E) and bias (B / rows_per_group, N,
+// N), one of each a group of rows_per_group batch elements.
 int gatv2_fwd_f32(const void* p, const void* q, const void* a, const void* bias,
                   const void* v, void* out, int B, int N, int E, int D, int row_blocks,
-                  float alpha, void* stream) {
-  return launch<float, false, false>(p, q, a, bias, v, out, B, N, E, D, row_blocks, alpha,
-                                     Residuals{}, stream);
+                  int rows_per_group, float alpha, void* stream) {
+  return launch<float, false, false>(p, q, a, bias, v, out, B, N, E, D, row_blocks,
+                                     rows_per_group, alpha, Residuals{}, stream);
 }
 
 int gatv2_fwd_bf16(const void* p, const void* q, const void* a, const void* bias,
                    const void* v, void* out, int B, int N, int E, int D, int row_blocks,
-                   float alpha, void* stream) {
+                   int rows_per_group, float alpha, void* stream) {
   return launch<__nv_bfloat16, false, false>(p, q, a, bias, v, out, B, N, E, D, row_blocks,
-                                             alpha, Residuals{}, stream);
+                                             rows_per_group, alpha, Residuals{}, stream);
 }
 
 // K1-res: the whole-graph forward with residuals; dropout when seed is not
@@ -680,29 +708,39 @@ void gatv2_fwd_tiled_layout(int E, int D, long* out) {
 // at once at widths E, D (CUDA's occupancy calculator); negative on an error.
 int gatv2_fwd_tiled_occupancy(int E, int D, int drop) {
   long long one = 0;
-  const TiledFwdArgs g{nullptr, drop ? &one : nullptr, 1, 1, E, D, 0.f, 0u, 1.f};
+  const TiledFwdArgs g{nullptr, drop ? &one : nullptr, 1, 1, E, D, 0.f, 0u, 1.f, 1};
   int blocks = 0;
-  const int err = drop ? tiled_launch<true>(nullptr, nullptr, nullptr, nullptr, g, nullptr,
-                                            nullptr, nullptr, 1, nullptr, &blocks)
-                       : tiled_launch<false>(nullptr, nullptr, nullptr, nullptr, g, nullptr,
-                                             nullptr, nullptr, 1, nullptr, &blocks);
+  const int err = drop ? tiled_launch<true, false>(nullptr, nullptr, nullptr, nullptr, g,
+                                                   nullptr, nullptr, nullptr, 1, nullptr,
+                                                   &blocks)
+                       : tiled_launch<false, false>(nullptr, nullptr, nullptr, nullptr, g,
+                                                    nullptr, nullptr, nullptr, 1, nullptr,
+                                                    &blocks);
   return err ? -err : blocks;
 }
 
 // The tiled K1 and K1-res before their merge: p, q, a, v float32 (the caller
-// widens bfloat16), dropout when seed is not null; writes the slices'
+// widens bfloat16), dropout when seed is not null; a and bias grouped as
+// K1's, rows_per_group = B for one group (K1-res); writes the slices'
 // partials acc_part (slices, B, N, D), m_part and l_part (slices, B, N).
 int gatv2_fwd_tiled(const void* p, const void* q, const void* a, const void* bias,
                     const void* v, const void* seed, void* acc_part, void* m_part,
-                    void* l_part, int B, int N, int E, int D, int slices, float alpha,
-                    unsigned int thresh, float scale, void* stream) {
+                    void* l_part, int B, int N, int E, int D, int slices, int rows_per_group,
+                    float alpha, unsigned int thresh, float scale, void* stream) {
+  if (rows_per_group < 1 || B % rows_per_group != 0) return (int)cudaErrorInvalidValue;
   const TiledFwdArgs g{(const float*)bias, (const long long*)seed, B, N, E, D, alpha, thresh,
-                       scale};
+                       scale, rows_per_group};
   const float *pf = (const float*)p, *qf = (const float*)q, *af = (const float*)a,
               *vf = (const float*)v;
   float *acc = (float*)acc_part, *mp = (float*)m_part, *lp = (float*)l_part;
-  return seed ? tiled_launch<true>(pf, qf, af, vf, g, acc, mp, lp, slices, stream, nullptr)
-              : tiled_launch<false>(pf, qf, af, vf, g, acc, mp, lp, slices, stream, nullptr);
+  if (rows_per_group != B)   // K1's entity axis: no dropout there
+    return seed ? (int)cudaErrorInvalidValue
+                : tiled_launch<false, true>(pf, qf, af, vf, g, acc, mp, lp, slices, stream,
+                                            nullptr);
+  return seed ? tiled_launch<true, false>(pf, qf, af, vf, g, acc, mp, lp, slices, stream,
+                                          nullptr)
+              : tiled_launch<false, false>(pf, qf, af, vf, g, acc, mp, lp, slices, stream,
+                                           nullptr);
 }
 
 // The merge of the tiled forward's partials: out (B, N, D) in T, and where u

@@ -46,6 +46,17 @@
 // Layouts are those of gru_scan_fused: gi (B, T, 3H) float32 or bfloat16,
 // w_hh (H, 3H) float32, b_hh (3H,) float32, gate order (r, z, n); hseq
 // (B, T, H) float32. All arithmetic is float32.
+//
+// The entity axis (fleet serving, the counterpart of JAX's batching rule
+// for pallas_call under vmap): the B rows form G = B / rows_per_group
+// groups of consecutive rows, and group g's rows read w_hh + g H 3H and
+// b_hh + g 3H, so w_hh is (G, H, 3H) and b_hh (G, 3H). A batch tile (a
+// block of the streaming variant, a cluster of the cluster variant) holds
+// rows of one group only: the grid is G x ceil(rows_per_group / tile), and
+// each tile loads its own group's W_hh. The group arithmetic is a
+// compile-time flag (GROUPED), so at rows_per_group = B (G = 1) the launch
+// runs the ungrouped instantiation, whose code is the kernel's without the
+// axis: the same grid, tiles, registers and bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,16 +76,24 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 
 size_t smem_bytes(int H) { return (size_t)(H * BB + BB * 3 * H) * sizeof(float); }
 
-template <typename T>
+template <typename T, bool GROUPED>
 __global__ void __launch_bounds__(MAX_THREADS)
 gru_fwd_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
                const float* __restrict__ b_hh, float* __restrict__ hseq,
-               int B, int n_steps, int H) {
+               int B, int n_steps, int H, int rows_per_group) {
   extern __shared__ float smem[];
   float* hT = smem;               // [H][BB]: h transposed, float4-readable
   float* gh = hT + H * BB;        // [BB][3H]: h . W_hh + b_hh of this step
   const int H3 = 3 * H;
-  const int b0 = blockIdx.x * BB;
+  // GROUPED: the block's group and its first row within the group
+  const int tiles = GROUPED ? (rows_per_group + BB - 1) / BB : 1;
+  const int grp = GROUPED ? blockIdx.x / tiles : 0;
+  const int r0 = GROUPED ? blockIdx.x % tiles * BB : 0;
+  const int b0 = GROUPED ? grp * rows_per_group + r0 : blockIdx.x * BB;
+  if constexpr (GROUPED) {
+    w_hh += (size_t)grp * H * H3;
+    b_hh += (size_t)grp * H3;
+  }
 
   for (int x = threadIdx.x; x < H * BB; x += blockDim.x) hT[x] = 0.f;
   __syncthreads();
@@ -108,7 +127,7 @@ gru_fwd_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
     for (int x = threadIdx.x; x < BB * H; x += blockDim.x) {
       const int r = x / H, k = x % H;
       const int row = b0 + r;
-      if (row < B) {
+      if (GROUPED ? r0 + r < rows_per_group : row < B) {
         const T* g = gi + ((size_t)row * n_steps + t) * H3;
         const float* ghr = gh + r * H3;
         const float rg = sigmoid(to_f(g[k]) + ghr[k]);
@@ -138,11 +157,11 @@ size_t cluster_smem_bytes(int H, int C) {
 }
 
 // RB is CL_BB: the batch rows of the cluster.
-template <typename T, int RB>
+template <typename T, int RB, bool GROUPED>
 __global__ void __launch_bounds__(gru_cluster::THREADS)
 gru_fwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
                        const float* __restrict__ b_hh, float* __restrict__ hseq,
-                       int B, int n_steps, int H) {
+                       int B, int n_steps, int H, int rows_per_group) {
   namespace gc = gru_cluster;
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -150,7 +169,11 @@ gru_fwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   const gc::Tiling tl = gc::tiling(H, C, CL_SPLIT);
   const int k0 = gc::unit_start(H, C, rank), nu = gc::unit_count(H, C, rank);
   const int H3 = 3 * H;
-  const int b0 = (blockIdx.x / C) * RB;
+  // GROUPED: the cluster's group and its first row within the group
+  const int tiles = GROUPED ? (rows_per_group + RB - 1) / RB : 1;
+  const int grp = GROUPED ? (blockIdx.x / C) / tiles : 0;
+  const int r0 = GROUPED ? (blockIdx.x / C) % tiles * RB : 0;
+  const int b0 = GROUPED ? grp * rows_per_group + r0 : (blockIdx.x / C) * RB;
 
   // every block lays its shared memory out alike, so a peer's h buffer sits
   // at the same offset as this block's
@@ -161,6 +184,10 @@ gru_fwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   float* bias = ws + H * tl.stride;               // [stride]
 
   for (int x = threadIdx.x; x < 2 * H * RB; x += blockDim.x) hT[x] = 0.f;
+  if constexpr (GROUPED) {
+    w_hh += (size_t)grp * H * H3;
+    b_hh += (size_t)grp * H3;
+  }
   gc::load_slice(ws, w_hh, H, H3, H, k0, nu, tl);
   gc::load_slice(bias, b_hh, 1, 0, H, k0, nu, tl);
 
@@ -170,7 +197,7 @@ gru_fwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   // the gate update: batch row r (fastest) and own unit u
   const int r = threadIdx.x % RB, u = threadIdx.x / RB;
   const bool in_gates = u < nu;
-  const bool live = in_gates && b0 + r < B;
+  const bool live = in_gates && (GROUPED ? r0 + r < rows_per_group : b0 + r < B);
   const int at = (k0 + u) * RB + r;                      // (unit, row) in an h buffer
   const T* gi_at = gi + (size_t)(b0 + r) * n_steps * H3 + k0 + u;
   float* hseq_at = hseq + (size_t)(b0 + r) * n_steps * H + k0 + u;
@@ -213,32 +240,44 @@ gru_fwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   }
 }
 
+// Tiles of `tile` rows that cover B rows in groups of rows_per_group, no
+// tile holding rows of two groups; 0 where the groups do not divide B.
+long group_tiles(int B, int rows_per_group, int tile) {
+  if (rows_per_group < 1 || B % rows_per_group != 0) return 0;
+  return (long)(B / rows_per_group) * ((rows_per_group + tile - 1) / tile);
+}
+
 template <typename T>
 int launch_cluster(const void* gi, const void* w_hh, const void* b_hh, void* hseq,
-                   int B, int n_steps, int H, int C, void* stream) {
+                   int B, int n_steps, int H, int C, int rows_per_group, void* stream) {
   if (!gru_cluster::supported(H, C, CL_BB)) return (int)cudaErrorInvalidValue;
-  const int clusters = (B + CL_BB - 1) / CL_BB;
+  const long clusters = group_tiles(B, rows_per_group, CL_BB);
+  if (clusters < 1 || clusters * C > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  auto kernel = rows_per_group == B ? gru_fwd_cluster_kernel<T, CL_BB, false>
+                                    : gru_fwd_cluster_kernel<T, CL_BB, true>;
   return (int)gru_cluster::launch(
-      gru_fwd_cluster_kernel<T, CL_BB>, clusters, C, cluster_smem_bytes(H, C),
-      (cudaStream_t)stream, (const T*)gi, (const float*)w_hh, (const float*)b_hh,
-      (float*)hseq, B, n_steps, H);
+      kernel, (int)clusters, C, cluster_smem_bytes(H, C), (cudaStream_t)stream,
+      (const T*)gi, (const float*)w_hh, (const float*)b_hh, (float*)hseq, B, n_steps, H,
+      rows_per_group);
 }
 
 template <typename T>
 int launch(const void* gi, const void* w_hh, const void* b_hh, void* hseq,
-           int B, int n_steps, int H, void* stream) {
+           int B, int n_steps, int H, int rows_per_group, void* stream) {
+  const long blocks = group_tiles(B, rows_per_group, BB);
+  if (blocks < 1 || blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  auto kernel = rows_per_group == B ? gru_fwd_kernel<T, false> : gru_fwd_kernel<T, true>;
   const size_t bytes = smem_bytes(H);
   if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gru_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   int threads = ((3 * H + 31) / 32) * 32;
   if (threads > MAX_THREADS) threads = MAX_THREADS;
-  const int blocks = (B + BB - 1) / BB;
-  gru_fwd_kernel<T><<<blocks, threads, bytes, (cudaStream_t)stream>>>(
-      (const T*)gi, (const float*)w_hh, (const float*)b_hh, (float*)hseq, B,
-      n_steps, H);
+  kernel<<<(unsigned)blocks, threads, bytes, (cudaStream_t)stream>>>(
+      (const T*)gi, (const float*)w_hh, (const float*)b_hh, (float*)hseq, B, n_steps, H,
+      rows_per_group);
   return (int)cudaGetLastError();
 }
 
@@ -255,28 +294,37 @@ long gru_fwd_smem_bytes(int H, int cluster) {
 // Clusters of `cluster` blocks that the card holds at once at hidden width
 // H, or the negated CUDA error.
 int gru_fwd_max_active_clusters(int H, int cluster) {
-  return gru_cluster::max_active_clusters(gru_fwd_cluster_kernel<float, CL_BB>, cluster,
-                                          cluster_smem_bytes(H, cluster));
+  return gru_cluster::max_active_clusters(gru_fwd_cluster_kernel<float, CL_BB, false>,
+                                          cluster, cluster_smem_bytes(H, cluster));
 }
 
 // Batch rows of one cluster of the cluster variant.
 int gru_fwd_batch_tile() { return CL_BB; }
 
+// Batch tiles of a launch of B rows in groups of rows_per_group: clusters of
+// the cluster variant (cluster > 0) or blocks of the streaming one (0).
+long gru_fwd_tiles(int B, int rows_per_group, int cluster) {
+  return group_tiles(B, rows_per_group, cluster > 0 ? CL_BB : BB);
+}
+
 // cluster > 0: the cluster variant with that many blocks per batch tile;
-// cluster 0: the streaming variant.
+// cluster 0: the streaming variant. The B rows form B / rows_per_group
+// groups, group g's weights at w_hh + g H 3H and b_hh + g 3H; rows_per_group
+// = B is the ungrouped kernel.
 int gru_fwd_f32(const void* gi, const void* w_hh, const void* b_hh, void* hseq,
-                int B, int n_steps, int H, int cluster, void* stream) {
+                int B, int n_steps, int H, int cluster, int rows_per_group, void* stream) {
   if (cluster > 0)
-    return launch_cluster<float>(gi, w_hh, b_hh, hseq, B, n_steps, H, cluster, stream);
-  return launch<float>(gi, w_hh, b_hh, hseq, B, n_steps, H, stream);
+    return launch_cluster<float>(gi, w_hh, b_hh, hseq, B, n_steps, H, cluster,
+                                 rows_per_group, stream);
+  return launch<float>(gi, w_hh, b_hh, hseq, B, n_steps, H, rows_per_group, stream);
 }
 
 int gru_fwd_bf16(const void* gi, const void* w_hh, const void* b_hh, void* hseq,
-                 int B, int n_steps, int H, int cluster, void* stream) {
+                 int B, int n_steps, int H, int cluster, int rows_per_group, void* stream) {
   if (cluster > 0)
     return launch_cluster<__nv_bfloat16>(gi, w_hh, b_hh, hseq, B, n_steps, H, cluster,
-                                         stream);
-  return launch<__nv_bfloat16>(gi, w_hh, b_hh, hseq, B, n_steps, H, stream);
+                                         rows_per_group, stream);
+  return launch<__nv_bfloat16>(gi, w_hh, b_hh, hseq, B, n_steps, H, rows_per_group, stream);
 }
 
 }  // extern "C"

@@ -8,6 +8,7 @@ from mtad_gat_tpu_torch.inference.eval_methods import (
     pot_eval,
 )
 from mtad_gat_tpu_torch.inference.online import OnlineScorer
+from mtad_gat_tpu_torch.inference.online_fleet import OnlineFleetScorer
 from mtad_gat_tpu_torch.inference.predictor import Predictor
 from mtad_gat_tpu_torch.inference.spot import SPOT, biSPOT, bidSPOT, dSPOT
 
@@ -19,6 +20,7 @@ __all__ = [
     "epsilon_eval",
     "find_epsilon",
     "pot_eval",
+    "OnlineFleetScorer",
     "OnlineScorer",
     "Predictor",
     "SPOT",

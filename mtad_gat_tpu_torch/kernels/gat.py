@@ -64,6 +64,13 @@ The dropout mask is a hash of the global (seed, batch index, row, column),
 bit for bit the JAX package's (``graph/dropout.py``); its plain form is
 ``hash_keep_mask``. The seed is a one-element int64 tensor on the
 device, drawn there from the step's generator, so no launch waits on the host.
+
+K1 also takes an entity axis (fleet serving): a (G, E) and bias (G, N, N),
+group g's for batch elements g B/G .. (g+1) B/G - 1 (``attention_groups``),
+in either variant's one launch. Under ``torch.func.vmap`` the no-grad call
+is the custom op ``gatv2_attention_fwd_op``, whose rule folds the entities
+into those groups (``kernels/_vmap.py``); K1-res and the backward take no
+entity axis yet.
 """
 
 from __future__ import annotations
@@ -77,7 +84,7 @@ import torch
 
 from mtad_gat_tpu_torch.graph.dropout import Seed, hash_keep_mask, keep_threshold, seed_int
 from mtad_gat_tpu_torch.graph.ops import gat_aggregate_dense, gatv2_scores_dense
-from mtad_gat_tpu_torch.kernels import _build
+from mtad_gat_tpu_torch.kernels import _build, _vmap
 
 # Largest (batch chunk x N x N x E) float32 temporary the plain versions
 # build at once, to bound their memory at large batches.
@@ -91,13 +98,38 @@ DBIAS_CHUNK = 64                  # K2c's staged widths where whole rows do not 
 # ---------------------------------------------------------------------------
 
 
+def attention_groups(p: torch.Tensor, a: torch.Tensor, bias: Optional[torch.Tensor],
+                     name: str) -> int:
+    """Groups G of a K1 call on p (B, N, E): 1 for a (E,) and bias (N, N) or
+    None; G for a (G, E) and bias (G, N, N) or None, which needs B a
+    multiple of G. Raises on any other shape."""
+    B, N, E = p.shape
+    if a.shape == (E,) and (bias is None or bias.shape == (N, N)):
+        return 1
+    G = a.shape[0] if a.dim() == 2 else 0
+    if G < 1 or a.shape != (G, E) or (bias is not None and bias.shape != (G, N, N)) or B % G:
+        raise ValueError(
+            f"{name}: a {tuple(a.shape)} and bias "
+            f"{None if bias is None else tuple(bias.shape)} are neither ({E},) and ({N}, {N}) "
+            f"nor G groups (G, {E}) and (G, {N}, {N}) with the batch {B} a multiple of G")
+    return G
+
+
 def gatv2_attention_fwd_plain(
     p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
     bias: Optional[torch.Tensor], v: torch.Tensor, alpha: float,
 ) -> torch.Tensor:
     """K1's function in plain tensor ops: the dense path of ``graph/ops.py``
-    on float32 inputs, output in v's type."""
+    on float32 inputs, output in v's type. Grouped a and bias
+    (``attention_groups``) run one group of B / G batch elements at a time."""
     B, N, E = p.shape
+    G = attention_groups(p, a, bias, "gatv2_attention_fwd_plain")
+    if G > 1 or a.dim() == 2:
+        rows = B // G
+        return torch.cat([gatv2_attention_fwd_plain(
+            *(t[g * rows:(g + 1) * rows] for t in (p, q)), a[g],
+            None if bias is None else bias[g], v[g * rows:(g + 1) * rows], alpha)
+            for g in range(G)])
     out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // max(1, N * N * E))
     af = a.float()
@@ -191,12 +223,12 @@ def _fwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for fn in (lib.gatv2_fwd_f32, lib.gatv2_fwd_bf16):
-            fn.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
+            fn.argtypes = [ptr] * 6 + [i32] * 6 + [f32, ptr]
             fn.restype = i32
         for fn in (lib.gatv2_fwd_res_f32, lib.gatv2_fwd_res_bf16):
             fn.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ctypes.c_uint32, f32, ptr]
             fn.restype = i32
-        lib.gatv2_fwd_tiled.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ctypes.c_uint32, f32, ptr]
+        lib.gatv2_fwd_tiled.argtypes = [ptr] * 9 + [i32] * 6 + [f32, ctypes.c_uint32, f32, ptr]
         lib.gatv2_fwd_tiled.restype = i32
         for fn in (lib.gatv2_fwd_merge_f32, lib.gatv2_fwd_merge_bf16):
             fn.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
@@ -885,11 +917,12 @@ def _fwd_variant(N: int, E: int, D: int, variant: Optional[str]) -> Tuple[str, i
     return variant, 0
 
 
-def _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals: bool):
+def _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals: bool, groups: int = 1):
     """The tiled K1 (or K1-res with ``residuals``) on CUDA tensors: the
     kernel writes the slices' partials, ``gatv2_fwd_merge`` combines them;
     returns (out, u, m, l) and the plan. The kernel reads float32 p, q, a,
-    v: bfloat16 ones are widened here (exactly)."""
+    v: bfloat16 ones are widened here (exactly). ``groups``: K1's entity
+    axis, a and bias grouped as ``attention_groups`` says."""
     B, N, E = p.shape
     D = v.shape[-1]
     plan = _tiled_fwd_plan(B, N, E, D, _build.sm_count(p.device))
@@ -903,29 +936,36 @@ def _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals: bool):
     with torch.cuda.device(p.device):
         err = _fwd_lib().gatv2_fwd_tiled(
             _ptr(pf), _ptr(qf), _ptr(af), _ptr(bias_c), _ptr(vf), _ptr(seed_t), _ptr(acc),
-            _ptr(m), _ptr(l), B, N, E, D, S, float(alpha), thresh, scale, _stream(p.device))
+            _ptr(m), _ptr(l), B, N, E, D, S, B // groups, float(alpha), thresh, scale,
+            _stream(p.device))
     _raise_on(err, "gatv2_fwd_tiled")
     return gatv2_fwd_merge(acc, m, l, v.dtype, residuals), plan
 
 
-def _count_fwd(fn, variant: str, row_blocks: int, plan: Optional[TiledFwdPlan] = None) -> None:
+def _count_fwd(fn, variant: str, row_blocks: int, plan: Optional[TiledFwdPlan] = None,
+               groups: int = 1) -> None:
     fn.launches += 1
     fn.launches_by_variant[variant] += 1
     fn.last_launch = {"variant": variant, "row_blocks": row_blocks,
-                      "plan": None if plan is None else plan._asdict()}
+                      "plan": None if plan is None else plan._asdict(), "groups": groups}
 
 
-def _check(name: str, p, q, a, bias, v) -> None:
-    """Device, type and shape checks of a CUDA launch."""
+def _check(name: str, p, q, a, bias, v, grouped: bool = False) -> int:
+    """Device, type and shape checks of a CUDA launch; returns the groups of
+    a and bias (``attention_groups``), which only a ``grouped`` call (K1)
+    may have more than one of."""
     if p.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {p.device}")
     B, N, E = p.shape
-    if q.shape != p.shape or v.shape[:2] != (B, N) or a.shape != (E,):
+    if q.shape != p.shape or v.shape[:2] != (B, N) or a.shape[-1:] != (E,):
         raise ValueError(
             f"{name}: shapes p {tuple(p.shape)} q {tuple(q.shape)} "
             f"a {tuple(a.shape)} v {tuple(v.shape)} do not agree")
-    if bias is not None and bias.shape != (N, N):
-        raise ValueError(f"{name}: bias {tuple(bias.shape)} is not ({N}, {N})")
+    if not grouped and (a.dim() != 1 or (bias is not None and bias.shape != (N, N))):
+        raise ValueError(f"{name}: a {tuple(a.shape)} and bias "
+                         f"{None if bias is None else tuple(bias.shape)} are not ({E},) and "
+                         f"({N}, {N}): only K1 takes an entity axis")
+    groups = attention_groups(p, a, bias, name)
     if p.dtype not in (torch.float32, torch.bfloat16) or any(
         t.dtype != p.dtype for t in (q, a, v)
     ):
@@ -935,6 +975,7 @@ def _check(name: str, p, q, a, bias, v) -> None:
         raise ValueError(f"{name}: all tensors must be on one device")
     if E == 0:
         raise ValueError(f"{name}: empty embedding")
+    return groups
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -971,8 +1012,8 @@ def _needs_grad(*tensors) -> bool:
 def gatv2_attention_fwd(
     p: torch.Tensor,                 # (B, N, E) query-side projection
     q: torch.Tensor,                 # (B, N, E) key-side projection + lin bias
-    a: torch.Tensor,                 # (E,) attention vector
-    bias: Optional[torch.Tensor],    # (N, N) score bias, or None
+    a: torch.Tensor,                 # (E,) attention vector; or (G, E)
+    bias: Optional[torch.Tensor],    # (N, N) score bias, or None; or (G, N, N)
     v: torch.Tensor,                 # (B, N, D) node values
     alpha: float,                    # leaky-relu negative slope
     variant: Optional[str] = None,   # "graph" or "tiled"; None: gat_fwd_plan's
@@ -980,23 +1021,32 @@ def gatv2_attention_fwd(
     """Fused GATv2 attention forward (K1), (B, N, D) in v's type, without
     gradient: a CPU tensor takes the plain version and a CUDA tensor
     launches K1 or raises, in the variant ``gat_fwd_plan`` names for the
-    shape unless ``variant`` forces one, recorded in ``last_launch``. K1 has
-    no backward, so a call that autograd would record raises on both
-    devices; ``gatv2_attention`` is the differentiable call."""
+    shape unless ``variant`` forces one, recorded in ``last_launch``.
+    Grouped a and bias (``attention_groups``) give batch elements g B/G ..
+    (g+1) B/G - 1 group g's in the same launch; under ``torch.func.vmap``
+    the call is the custom op ``gatv2_attention_fwd_op``, whose rule folds
+    the entities into those groups. K1 has no backward, so a call that
+    autograd would record raises on both devices; ``gatv2_attention`` is the
+    differentiable call."""
     if _needs_grad(p, q, a, bias, v):
         raise RuntimeError("gatv2_attention_fwd (K1) records no gradient; call "
                            "gatv2_attention, which trains through K1-res and K2")
+    if _vmap.is_batched(p, q, a, bias, v):
+        if variant is not None:
+            raise ValueError("gatv2_attention_fwd under vmap runs the planned variant")
+        return gatv2_attention_fwd_op(p, q, a, bias, v, alpha)
     if p.device.type == "cpu":
         return gatv2_attention_fwd_plain(p, q, a, bias, v, alpha)
-    _check("gatv2_attention_fwd", p, q, a, bias, v)
+    groups = _check("gatv2_attention_fwd", p, q, a, bias, v, grouped=True)
     B, N, E = p.shape
     D = v.shape[-1]
     if B == 0 or N == 0 or D == 0:
         return torch.empty((B, N, D), dtype=p.dtype, device=p.device)
     variant, row_blocks = _fwd_variant(N, E, D, variant)
     if variant == "tiled":             # the merge allocates the output
-        (out, *_), plan = _fwd_tiled(p, q, a, bias, v, alpha, 0, 0.0, residuals=False)
-        _count_fwd(gatv2_attention_fwd, variant, row_blocks, plan)
+        (out, *_), plan = _fwd_tiled(p, q, a, bias, v, alpha, 0, 0.0, residuals=False,
+                                     groups=groups)
+        _count_fwd(gatv2_attention_fwd, variant, row_blocks, plan, groups)
         return out
     out = torch.empty((B, N, D), dtype=p.dtype, device=p.device)
     lib = _fwd_lib()
@@ -1005,15 +1055,42 @@ def gatv2_attention_fwd(
     fn = lib.gatv2_fwd_f32 if p.dtype == torch.float32 else lib.gatv2_fwd_bf16
     with torch.cuda.device(p.device):
         err = fn(_ptr(p), _ptr(q), _ptr(a), _ptr(bias_c), _ptr(v), _ptr(out),
-                 B, N, E, D, row_blocks, float(alpha), _stream(p.device))
+                 B, N, E, D, row_blocks, B // groups, float(alpha), _stream(p.device))
     _raise_on(err, f"gatv2_fwd {variant}")
-    _count_fwd(gatv2_attention_fwd, variant, row_blocks)
+    _count_fwd(gatv2_attention_fwd, variant, row_blocks, groups=groups)
     return out
 
 
 gatv2_attention_fwd.launches = 0
 gatv2_attention_fwd.launches_by_variant = {"graph": 0, "tiled": 0}
 gatv2_attention_fwd.last_launch = None
+
+
+@torch.library.custom_op("mtad_gat_tpu_torch::gatv2_attention_fwd", mutates_args=())
+def gatv2_attention_fwd_op(p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
+                           bias: Optional[torch.Tensor], v: torch.Tensor,
+                           alpha: float) -> torch.Tensor:
+    """``gatv2_attention_fwd`` as a custom op, the form a vmapped call takes
+    (its vmap rule below)."""
+    return gatv2_attention_fwd(p, q, a, bias, v, alpha)
+
+
+def _gatv2_attention_fwd_vmap(info, in_dims, p, q, a, bias, v, alpha):
+    """The entities' batch elements folded into one batch, their a and bias
+    into K1's groups (``kernels/_vmap.py``): one grouped call whatever E is."""
+    G = info.batch_size
+    p_dim, q_dim, a_dim, bias_dim, v_dim, _ = in_dims
+    _vmap.refuse_grad("K1", p, q, a, bias, v)
+    out = gatv2_attention_fwd(_vmap.fold_rows(p, p_dim, G), _vmap.fold_rows(q, q_dim, G),
+                              _vmap.fold_weight(a, a_dim, G, 1),
+                              _vmap.fold_weight(bias, bias_dim, G, 2),
+                              _vmap.fold_rows(v, v_dim, G), alpha)
+    _gatv2_attention_fwd_vmap.calls += 1
+    return _vmap.unfold_rows(out, G), 0
+
+
+_gatv2_attention_fwd_vmap.calls = 0
+gatv2_attention_fwd_op.register_vmap(_gatv2_attention_fwd_vmap)
 
 
 def gatv2_attention_res(
@@ -1502,7 +1579,10 @@ def gatv2_attention(
     ``rate`` (0 in eval), keyed by ``seed`` (an int, or one int64 value on
     the inputs' device). Where a gradient is needed, or dropout is on, it
     runs K1-res forward (and K2ab, or K2a then K2b, backward); otherwise K1
-    alone."""
+    alone, which alone runs under ``torch.func.vmap``."""
     if rate > 0.0 or _needs_grad(p, q, a, bias, v):
+        if _vmap.is_batched(p, q, a, bias, v):
+            raise _vmap.not_ported_under_vmap(
+                "gatv2_attention with gradients or attention dropout")
         return _GATv2Attention.apply(p, q, a, bias, v, alpha, seed, rate)
     return gatv2_attention_fwd(p, q, a, bias, v, alpha)

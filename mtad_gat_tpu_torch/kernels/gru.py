@@ -31,6 +31,12 @@ gradient, and forms dW_hh and db_hh off the serial chain, through partial
 sums added in a fixed order (``csrc/gru_bwd.cu`` says more). The TPU kernels'
 128-lane and 8-row padding is not carried over: the CUDA kernels mask their
 ragged batch tile and their ragged unit slices.
+
+K3 also takes an entity axis (fleet serving): W_hh (G, H, 3H) and b_hh
+(G, 3H), group g's weights for rows g B/G .. (g+1) B/G - 1, in one launch
+whose batch tiles never straddle two groups (``group_tiles``). Under
+``torch.func.vmap`` the no-grad forward is a custom op whose vmap rule
+folds the entities into that axis (``kernels/_vmap.py``).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from mtad_gat_tpu_torch.kernels import _build
+from mtad_gat_tpu_torch.kernels import _build, _vmap
 
 _SMEM_LIMIT = 227 * 1024          # shared memory a block may use on the card
 
@@ -132,6 +138,33 @@ def gru_plan(kernel: str, hid_dim: int, smem_limit: int = _SMEM_LIMIT,
                      "than a block has")
 
 
+def group_tiles(rows_per_group: int, groups: int, tile: int) -> List[Tuple[int, int, int]]:
+    """(group, first row, rows) of each batch tile of a grouped launch, in
+    launch order, as ``csrc/gru_fwd.cu`` lays them out: each group's rows
+    cut into tiles of ``tile``, the last one ragged, no tile across two
+    groups; G ceil(rows_per_group / tile) tiles."""
+    per = -(-rows_per_group // tile)
+    return [(g, g * rows_per_group + t * tile, min(tile, rows_per_group - t * tile))
+            for g in range(groups) for t in range(per)]
+
+
+def weight_groups(B: int, w_hh: torch.Tensor, b_hh: torch.Tensor, hid_dim: int,
+                  name: str) -> int:
+    """Groups G of a K3 call: 1 for w_hh (H, 3H) and b_hh (3H,); G for
+    (G, H, 3H) and (G, 3H), which needs B a multiple of G. Raises on any
+    other shape."""
+    H = hid_dim
+    if w_hh.shape == (H, 3 * H) and b_hh.shape == (3 * H,):
+        return 1
+    G = w_hh.shape[0] if w_hh.dim() == 3 else 0
+    if G < 1 or w_hh.shape != (G, H, 3 * H) or b_hh.shape != (G, 3 * H) or B % G:
+        raise ValueError(
+            f"{name}: w_hh {tuple(w_hh.shape)} and b_hh {tuple(b_hh.shape)} are neither "
+            f"({H}, {3 * H}) and ({3 * H},) nor G groups (G, {H}, {3 * H}) and "
+            f"(G, {3 * H}) with the batch {B} a multiple of G")
+    return G
+
+
 def _check_plan(lib_tile: int, lib_bytes: int, tile: int, nbytes: int, what: str) -> None:
     """The planner mirrors constants of the CUDA source: refuse to launch
     where the two have drifted apart."""
@@ -158,9 +191,16 @@ def gru_scan_fwd_plain(
     gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, hid_dim: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain tensor ops, in float32: returns
-    (hseq (B, T, H) float32, h_last (B, H))."""
+    (hseq (B, T, H) float32, h_last (B, H)). Grouped weights (G, H, 3H)
+    and (G, 3H) (``weight_groups``) run one group of B / G rows at a time."""
     B, T, _ = gi.shape
-    w, b = w_hh.float(), b_hh.float()
+    G = weight_groups(B, w_hh, b_hh, hid_dim, "gru_scan_fwd_plain")
+    if G > 1:
+        rows = B // G
+        hseq = torch.cat([gru_scan_fwd_plain(gi[g * rows:(g + 1) * rows], w_hh[g], b_hh[g],
+                                             hid_dim)[0] for g in range(G)])
+        return hseq, hseq[:, -1, :]
+    w, b = w_hh.reshape(hid_dim, -1).float(), b_hh.reshape(-1).float()
     h = torch.zeros((B, hid_dim), dtype=torch.float32, device=gi.device)
     outs = []
     for t in range(T):
@@ -175,8 +215,10 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.gru_fwd_f32, lib.gru_fwd_bf16):
-            fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+            fn.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
             fn.restype = i32
+        lib.gru_fwd_tiles.argtypes = [i32] * 3
+        lib.gru_fwd_tiles.restype = ctypes.c_long
         lib.gru_fwd_smem_bytes.argtypes = [i32, i32]
         lib.gru_fwd_smem_bytes.restype = ctypes.c_long
         lib.gru_fwd_batch_tile.argtypes = []
@@ -187,30 +229,37 @@ def _lib() -> ctypes.CDLL:
 
 def gru_scan_fwd(
     gi: torch.Tensor,      # (B, T, 3H): precomputed x @ W_ih + b_ih
-    w_hh: torch.Tensor,    # (H, 3H), gate order (r, z, n)
-    b_hh: torch.Tensor,    # (3H,)
+    w_hh: torch.Tensor,    # (H, 3H), gate order (r, z, n); or (G, H, 3H)
+    b_hh: torch.Tensor,    # (3H,); or (G, 3H)
     hid_dim: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: run the GRU recurrence in one launch. Returns (hseq (B, T, H)
     float32, h_last (B, H)). A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises: the variant ``gru_plan`` names for
-    the width, recorded in ``gru_scan_fwd.last_launch``. It has no backward
-    of its own: where autograd would record the call it raises, and
-    ``gru_scan`` is the differentiable call."""
+    the width, recorded in ``gru_scan_fwd.last_launch``. Grouped weights
+    (``weight_groups``) give rows g B/G .. (g+1) B/G - 1 group g's W_hh and
+    b_hh in the same launch; under ``torch.func.vmap`` the call is the
+    custom op ``gru_scan_fwd_op``, whose rule folds the entities into those
+    groups. It has no backward of its own: where autograd would record the
+    call it raises, and ``gru_scan`` is the differentiable call."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (gi, w_hh, b_hh)):
         raise RuntimeError(
             "gru_scan_fwd launches the forward kernel alone and records no "
             "gradient: call gru_scan, or run it under torch.no_grad()")
+    if _vmap.is_batched(gi, w_hh, b_hh):
+        hseq = gru_scan_fwd_op(gi, w_hh, b_hh, hid_dim)
+        return hseq, hseq[:, -1, :]
     if gi.device.type == "cpu":
         return gru_scan_fwd_plain(gi, w_hh, b_hh, hid_dim)
     if gi.device.type != "cuda":
         raise ValueError(f"gru_scan_fwd: unsupported device {gi.device}")
-    B, T, G = gi.shape
+    B, T, G3 = gi.shape
     H = hid_dim
-    if G != 3 * H or w_hh.shape != (H, 3 * H) or b_hh.shape != (3 * H,):
+    if G3 != 3 * H:
         raise ValueError(
             f"gru_scan_fwd: shapes gi {tuple(gi.shape)} w_hh {tuple(w_hh.shape)} "
             f"b_hh {tuple(b_hh.shape)} do not fit hidden width {H}")
+    groups = weight_groups(B, w_hh, b_hh, H, "gru_scan_fwd")
     if gi.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("gru_scan_fwd: gi must be float32 or bfloat16")
     if w_hh.device != gi.device or b_hh.device != gi.device:
@@ -232,18 +281,43 @@ def gru_scan_fwd(
     with torch.cuda.device(gi.device):
         err = fn(
             gi.data_ptr(), w.data_ptr(), b.data_ptr(), hseq.data_ptr(), B, T, H, cluster,
-            torch.cuda.current_stream(gi.device).cuda_stream,
+            B // groups, torch.cuda.current_stream(gi.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gru_fwd {variant} kernel launch failed: CUDA error {err}")
     gru_scan_fwd.launches += 1
     gru_scan_fwd.last_launch = {"variant": variant, "cluster": cluster,
-                                "smem_bytes": nbytes}
+                                "smem_bytes": nbytes, "groups": groups}
     return hseq, hseq[:, -1, :]
 
 
 gru_scan_fwd.launches = 0
 gru_scan_fwd.last_launch = None
+
+
+@torch.library.custom_op("mtad_gat_tpu_torch::gru_scan_fwd", mutates_args=())
+def gru_scan_fwd_op(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                    hid_dim: int) -> torch.Tensor:
+    """``gru_scan_fwd``'s hseq as a custom op, the form a vmapped call
+    takes (its vmap rule below)."""
+    return gru_scan_fwd(gi, w_hh, b_hh, hid_dim)[0]
+
+
+def _gru_scan_fwd_vmap(info, in_dims, gi, w_hh, b_hh, hid_dim):
+    """The entities' rows folded into one batch, their weights into K3's
+    groups (``kernels/_vmap.py``): one grouped call whatever E is."""
+    G = info.batch_size
+    gi_dim, w_dim, b_dim, _ = in_dims
+    _vmap.refuse_grad("the GRU scan", gi, w_hh, b_hh)
+    hseq, _ = gru_scan_fwd(_vmap.fold_rows(gi, gi_dim, G),
+                           _vmap.fold_weight(w_hh, w_dim, G, 2),
+                           _vmap.fold_weight(b_hh, b_dim, G, 1), hid_dim)
+    _gru_scan_fwd_vmap.calls += 1
+    return _vmap.unfold_rows(hseq, G), 0
+
+
+_gru_scan_fwd_vmap.calls = 0
+gru_scan_fwd_op.register_vmap(_gru_scan_fwd_vmap)
 
 
 # ---------------------------------------------------------------------------
@@ -527,6 +601,8 @@ def gru_scan(
     CUDA tensors, their plain versions on CPU tensors; the backward is not
     itself differentiable."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (gi, w_hh, b_hh)):
+        if _vmap.is_batched(gi, w_hh, b_hh):
+            raise _vmap.not_ported_under_vmap("gru_scan with gradients")
         hseq = _GRUScan.apply(gi, w_hh, b_hh, hid_dim)
         return hseq, hseq[:, -1, :]
     return gru_scan_fwd(gi, w_hh, b_hh, hid_dim)

@@ -14,7 +14,7 @@ package's tree-to-torch mapping; layout differences:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -58,6 +58,35 @@ def jax_params_to_state_dict(params: Mapping[str, dict]) -> Dict[str, torch.Tens
     sd["recon_model.fc.weight"] = _t(np.asarray(p["recon_model"]["fc"]["kernel"]).T)
     sd["recon_model.fc.bias"] = _t(p["recon_model"]["fc"]["bias"])
     return sd
+
+
+def _entity(tree, e: int):
+    """Entity ``e``'s slice of a tree whose leaves carry a leading entity axis."""
+    if isinstance(tree, Mapping):
+        return {k: _entity(v, e) for k, v in tree.items()}
+    return np.asarray(tree)[e]
+
+
+def jax_stacked_params_to_state_dicts(params: Mapping[str, dict]) -> List[Dict[str, torch.Tensor]]:
+    """Map the JAX package's stacked fleet parameters (a flax ``params``
+    tree whose leaves are numpy arrays with a leading entity axis (E, ...),
+    as ``MultiEntityTrainer.params`` or ``jax.tree.map(jnp.stack, ...)``
+    give them) to E of this package's ``state_dict``s, one an entity, each
+    through ``jax_params_to_state_dict``."""
+    sizes = set()
+
+    def collect(tree):
+        for v in tree.values():
+            if isinstance(v, Mapping):
+                collect(v)
+            else:
+                sizes.add(np.shape(v)[0] if np.ndim(v) else None)
+
+    collect(params)
+    if len(sizes) != 1 or None in sizes:
+        raise ValueError(f"stacked params carry leading axes {sorted(map(str, sizes))}, "
+                         "expected one entity axis on every leaf")
+    return [jax_params_to_state_dict(_entity(params, e)) for e in range(sizes.pop())]
 
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -16,8 +16,10 @@
   1e-5 from the threshold, and that holds for every point here.
 - The port alone: a resume under another spelling of the same path skips
   the rows served and continues bit for bit (chunk 1); an input that cannot
-  be opened ends in a clean ``SystemExit``; ``--group 1-1,1-2`` raises,
-  naming ROADMAP Queue 1 item 6b; with no GPU and no ``--device`` it raises.
+  be opened ends in a clean ``SystemExit``; ``--group 1-1,1-2`` with one
+  ``--input`` ends in fleet mode's clean ``SystemExit`` (one CSV a group;
+  fleet serving itself is ``tests/test_torch_serve_fleet.py``'s); with no GPU
+  and no ``--device`` it raises.
 """
 
 import json
@@ -300,7 +302,7 @@ def test_cli_refusals(jax_run, tmp_path, monkeypatch):
                        "--device", "cpu"])
     argv = _argv(root, out, stream, tmp_path / "o.jsonl")
     argv[argv.index("--group") + 1] = "1-1,1-2"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+    with pytest.raises(SystemExit, match="one CSV a group"):
         port_cli.main([*argv, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
