@@ -14,8 +14,9 @@ K3 at hidden 150 (the cluster variant) and 384 (streaming) at batch 256 and
 1, and K4 (the scan and the weights product) at hidden 150 and 384, all
 float32 with bias. One JSON line per (shape, kernel) with its device time
 from a CUDA graph of 20 calls (``graph_ms``) and the sha256 of its outputs'
-bytes; the card's name and power limit first. A comparison runs parent,
-change, change, parent in one call:
+bytes; the card's name and power limit first, then the registers and
+spills ptxas gave each GRU kernel. A comparison runs parent, change,
+change, parent in one call:
 
     git archive <parent> | tar -x -C build/parent
     for t in build/parent . . build/parent; do python3 bench_fleet_torch.py --root $t; done
@@ -80,6 +81,20 @@ def sha(tensors) -> str:
     return h.hexdigest()[:16]
 
 
+def ptxas(log: str) -> list:
+    """Registers and spills of each kernel in nvcc's ``-Xptxas -v`` output."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -101,6 +116,9 @@ def main() -> None:
     _build.build_all(["gat_fwd", "gru_fwd", "gru_bwd"])
     print(json.dumps({"card": smi, "root": root, "label": label, "package": kg.__file__,
                       "build_seconds": time.perf_counter() - t0}), flush=True)
+    for name in ("gru_fwd", "gru_bwd"):
+        print(json.dumps({"label": label, "ptxas": name, "kernels": ptxas(_build.build_log(name))}),
+              flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     r = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(dev)  # noqa

@@ -209,8 +209,30 @@ In order, each phase failing the run with a non-zero exit:
     all-entity points/s at chunks 128 and 1, p50 and p99 a dispatch, peak
     memory, a profiled pass at each, and 28 solo scorers in this process
     fed the same chunks;
-17. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
-    path, serving's, fleet serving's and long_complete's included, the tiled kernels' times
+17. ``fleet_training``: K4 with an entity axis at G 28, 64 and 256 rows a
+    group, T 100 (the scan's cluster variant at hidden 150 and its streaming
+    one at 384, the weights product at 150), each equal to its G ungrouped
+    launches bit for bit (the weights product at the grouped launch's
+    chunks a group) and within ``K4_TOL`` of the grouped plain version,
+    timed by CUDA graph beside the G launches; K3 under gradients:
+    ``vmap(grad(...))`` of a GRU-scan loss over 28 entities' stacked weights
+    launching K3, K4's scan and K4's weights once each, states and dgi equal
+    to 28 solo ``grad`` calls bit for bit, dW_hh and db_hh within
+    ``K4_TOL``, timed beside them; the dense layers' byte model for the
+    fleet at batch 64 and 256; then 28 synthetic SMD machines (``write_smd``
+    from seeds 1-28, 1,600-2,400 rows) trained by ``sweep_cli.main
+    --batched`` at the flagship widths, batch 64, dropout 0.3, 1 epoch,
+    float32: exactly two K3, K4 scan and K4 weights launches a fleet step,
+    each vmap rule twice a step and the keep-mask rule once a dropout site,
+    no attention kernel and no plain GRU call, every entity's summary
+    finite, ``predict_cli`` reproducing one; three machines (700, 620 and
+    780 rows) against their solo ``Trainer``s at dropout 0 and 0.3 (losses
+    and params within ``FLEET_PARITY_TOL``); then all-entity windows/s, step
+    p50 and p99 on the device's clock, peak memory and a profiled epoch, and
+    ``sweep_cli.main`` without ``--batched`` on the same data (28 solo
+    trainers one after another) for its windows/s;
+18. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+    path, serving's, fleet serving's, fleet training's and long_complete's included, the tiled kernels' times
     at the route's N, K2b's with and without dbias, K2c's forced times and
     where dbias now comes from, and K1's and K3's serving launches and
     batch-1 times, and their grouped launches at G 28; the merge, the
@@ -3439,6 +3461,568 @@ def fleet_row(fleet: dict, kernel: str) -> dict:
             "launches_per_forward": 2, "groups": len(FLEET_GROUPS), "grouped": cases}
 
 
+# ---------------------------------------------------------------------------
+# Fleet training: K3 under gradients and K4 with an entity axis, and
+# sweep_cli --batched over 28 machines
+# ---------------------------------------------------------------------------
+
+FLEET_TRAIN_ROWS = (64, 256)      # rows a group: the fleet's batch and the reference's
+FLEET_TRAIN_BS = 64
+# the fleet against its solo trainers on the card, float32, TF32 off: the
+# same arithmetic, batched (cuBLAS picks other kernels for E entities'
+# products than for one), a few Adam steps; see check_fleet_parity
+FLEET_PARITY_TOL = 2e-4
+FLEET_PARITY_ROWS = (700, 620, 780)
+
+
+def fleet_k4_inputs(gen, dev, G, rows, T, H):
+    """A grouped GRU chain: gi, W_hh (G, H, 3H), b_hh (G, 3H), the
+    cotangent, the forward's states, and the scan's dgi and dghn = dn_pre r
+    (as ``check_k4_weights`` forms it, group by group)."""
+    from mtad_gat_tpu_torch.kernels import gru as kgru
+
+    B = G * rows
+    gi = torch.randn(B, T, 3 * H, generator=gen).to(dev)
+    w = (H ** -0.5 * (torch.rand(G, H, 3 * H, generator=gen) * 2 - 1)).to(dev)
+    b = (H ** -0.5 * (torch.rand(G, 3 * H, generator=gen) * 2 - 1)).to(dev)
+    dh = torch.randn(B, T, H, generator=gen).to(dev)
+    with torch.no_grad():
+        hseq = kgru.gru_scan_fwd(gi, w, b, H)[0]
+        dgi = kgru.gru_scan_bwd(gi, w, b, hseq, dh, H, need_weights=False)[0]
+        hprev = torch.cat([torch.zeros_like(hseq[:, :1]), hseq[:, :-1]], dim=1)
+        gh = torch.bmm(hprev.reshape(G, rows * T, H), w).reshape(B, T, 3 * H)
+        r = torch.sigmoid(gi[..., :H] + gh[..., :H] + b.repeat_interleave(rows, 0)[:, None, :H])
+        dghn = (dgi[..., 2 * H:] * r).contiguous()
+    return gi, w, b, dh, hseq, dgi, dghn
+
+
+def fleet_k4_record(case, G, rows, got, per, want, grouped_fn, per_fn, ops, nbytes, extra):
+    """A grouped K4 launch against G ungrouped launches (bits) and the
+    grouped plain version (``K4_TOL``, relative to the plain output's
+    largest value), both timed by CUDA graph; raises on a failure."""
+    torch.cuda.synchronize()
+    identical = all(torch.equal(x, y) for x, y in zip(got, per))
+    err = max(rel_err(x, y) for x, y in zip(got, want))
+    calls = 3 if G * rows > 512 else 10
+    bound_ms, bound_by = bound(ops, nbytes)
+    rec = {"phase": "fleet_training", "case": case, "G": G, "rows_per_group": rows,
+           "identical_to_G_launches": identical, "max_rel_err": err, "tol": K4_TOL,
+           "graph_ms": graph_ms(grouped_fn, calls=calls, replays=3),
+           "G_launches_graph_ms": graph_ms(per_fn, calls=1, replays=3),
+           "bound_ms": bound_ms, "bound_by": bound_by, **extra}
+    emit(rec)
+    if not (err <= K4_TOL and identical):
+        raise AssertionError(f"{case}: {rec}")
+    return rec
+
+
+def check_grouped_k4(gen, dev) -> dict:
+    """K4 with an entity axis, G 28 at 64 and 256 rows a group, T 100,
+    float32: the scan's cluster variant at hidden 150 and its streaming one
+    at 384, and the weights product at 150, each against its G ungrouped
+    launches bit for bit (the weights product's at the grouped launch's
+    chunks a group, ``gru_weight_grads(chunks=)``) and the grouped plain
+    version, timed by CUDA graph beside the G launches (theirs at their own
+    chunks, as a loop over the entities would run them)."""
+    from mtad_gat_tpu_torch.kernels import gru as kgru
+
+    G, T = 28, 100
+    out = {}
+    for H, variant in ((150, "cluster"), (384, "streaming")):
+        for rows in FLEET_TRAIN_ROWS:
+            B = G * rows
+            gi, w, b, dh, hseq, dgi, dghn = fleet_k4_inputs(gen, dev, G, rows, T, H)
+            sl = [slice(g * rows, (g + 1) * rows) for g in range(G)]
+            scan = lambda: kgru.gru_scan_bwd(gi, w, b, hseq, dh, H,  # noqa: E731
+                                             need_weights=False)[0]
+            got = scan()
+            launch = dict(kgru.gru_scan_bwd.last_launch)
+            if launch["variant"] != variant or launch["groups"] != G:
+                raise AssertionError(f"grouped K4 scan ran {launch}, expected {variant}")
+            tiles = len(kgru.group_tiles(rows, G, kgru.K4_BATCH_TILE if variant == "cluster"
+                                         else kgru.STREAM_BATCH_TILE))
+            if kgru._bwd_lib().gru_bwd_tiles(B, rows, launch["cluster"]) != tiles:
+                raise AssertionError("grouped K4 scan: the built kernel's tiles differ from "
+                                     f"group_tiles' {tiles}")
+
+            def per_scan():
+                return torch.cat([kgru.gru_scan_bwd(gi[s], w[g], b[g], hseq[s], dh[s], H,
+                                                    need_weights=False)[0]
+                                  for g, s in enumerate(sl)])
+
+            want = kgru.gru_scan_bwd_plain(gi, w, b, hseq, dh, H)
+            read = B * T * 3 * H * 4 + 2 * B * T * H * 4 + G * (H * 3 * H + 3 * H) * 4 * 2
+            out[("scan", H, rows)] = fleet_k4_record(
+                f"grouped K4 scan, hidden {H} ({B}, {T}), {variant}", G, rows, [got],
+                [per_scan()], [want[0]], scan, per_scan,
+                B * T * (2 * 2 * H * 3 * H + 30 * H), read + B * T * 4 * H * 4,
+                {"tiles": tiles, **launch})
+            if H == 150:
+                weights = lambda: kgru.gru_weight_grads(hseq, dgi, dghn, H, G)  # noqa: E731
+                gw = weights()
+                S = kgru.gru_weight_grads.last_launch["chunks"]
+                per = [kgru.gru_weight_grads(hseq[s].contiguous(), dgi[s].contiguous(),
+                                             dghn[s].contiguous(), H, chunks=S) for s in sl]
+                parts = [(hseq[s].contiguous(), dgi[s].contiguous(), dghn[s].contiguous())
+                         for s in sl]
+
+                def per_weights():
+                    return [kgru.gru_weight_grads(*p, H) for p in parts]
+
+                pw = kgru.gru_weight_grads_plain(hseq, dgi, dghn, H, groups=G)
+                M = B * T
+                out[("weights", H, rows)] = fleet_k4_record(
+                    f"grouped K4 weights product, hidden {H} ({B}, {T})", G, rows, list(gw),
+                    [torch.stack([p[0] for p in per]), torch.stack([p[1] for p in per])],
+                    list(pw), weights, per_weights, 2 * M * H * 3 * H + M * 3 * H,
+                    M * 4 * H * 4 + G * (H * 3 * H + 3 * H) * 4,
+                    {"chunks_a_group": S, "G_launches_chunks": kgru.weight_grad_chunks(
+                        rows * T, H, _sms(dev))})
+            del gi, hseq, dgi, dghn, want
+            torch.cuda.empty_cache()
+    return out
+
+
+def _sms(dev) -> int:
+    from mtad_gat_tpu_torch.kernels import _build
+
+    return _build.sm_count(dev)
+
+
+def check_k3_under_grad(gen, dev) -> dict:
+    """K3 under gradients: ``vmap(grad(...))`` of a loss of the GRU scan
+    over G 28 entities' stacked weights (the form a fleet step takes), at 64
+    and 256 rows an entity, hidden 150, T 100: exactly one grouped K3, K4
+    scan and K4 weights launch; the states and dgi equal the G solo
+    ``grad`` calls bit for bit, dW_hh and db_hh within ``K4_TOL`` of them
+    (the grouped weights product sums its own chunks; phase ``fleet_training``
+    holds it bit for bit at equal chunks above) and of the plain backward;
+    timed by CUDA graph beside the G solo calls."""
+    from torch.func import grad, vmap
+
+    from mtad_gat_tpu_torch.kernels import gru as kgru
+
+    G, T, H = 28, 100, 150
+    out = {}
+    for rows in FLEET_TRAIN_ROWS:
+        gi = torch.randn(G, rows, T, 3 * H, generator=gen).to(dev)
+        w = (H ** -0.5 * (torch.rand(G, 3 * H, H, generator=gen) * 2 - 1)).to(dev)
+        b = (H ** -0.5 * (torch.rand(G, 3 * H, generator=gen) * 2 - 1)).to(dev)
+        cot = torch.randn(G, rows, T, H, generator=gen).to(dev)
+
+        def loss(w_e, b_e, gi_e, cot_e):
+            hseq, _ = kgru.gru_scan(gi_e, w_e.t(), b_e, H)
+            return (hseq * cot_e).sum(), hseq
+
+        fleet = lambda: vmap(grad(loss, argnums=(0, 1, 2), has_aux=True))(  # noqa: E731
+            w, b, gi, cot)
+
+        def solo():
+            return [grad(loss, argnums=(0, 1, 2), has_aux=True)(w[g], b[g], gi[g], cot[g])
+                    for g in range(G)]
+
+        reset_counts()
+        rules = (kgru._gru_scan_fwd_vmap.calls, kgru._gru_scan_bwd_vmap.calls)
+        (gw, gb, ggi), hseq = fleet()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rule_calls = (kgru._gru_scan_fwd_vmap.calls - rules[0],
+                      kgru._gru_scan_bwd_vmap.calls - rules[1])
+        groups = (kgru.gru_scan_fwd.last_launch["groups"],
+                  kgru.gru_scan_bwd.last_launch["groups"],
+                  kgru.gru_weight_grads.last_launch["groups"])
+        per = solo()
+        with torch.no_grad():
+            flat = lambda t: t.reshape(G * rows, *t.shape[2:])  # noqa: E731
+            w_g = w.transpose(1, 2)
+            want_h = kgru.gru_scan_fwd_plain(flat(gi), w_g, b, H)[0]
+            want = kgru.gru_scan_bwd_plain(flat(gi), w_g, b, want_h, flat(cot), H)
+        torch.cuda.synchronize()
+        same = {"hseq": all(torch.equal(hseq[g], per[g][1]) for g in range(G)),
+                "dgi": all(torch.equal(ggi[g], per[g][0][2]) for g in range(G))}
+        err_solo = {"dw_hh": max(rel_err(gw[g], per[g][0][0]) for g in range(G)),
+                    "db_hh": max(rel_err(gb[g], per[g][0][1]) for g in range(G))}
+        err_plain = {"hseq": (flat(hseq) - want_h).abs().max().item(),
+                     "dgi": rel_err(flat(ggi), want[0]),
+                     "dw_hh": rel_err(gw.transpose(1, 2), want[1]),
+                     "db_hh": rel_err(gb, want[2])}
+        B = G * rows
+        read = B * T * 3 * H * 4 + B * T * H * 4 + G * (H * 3 * H + 3 * H) * 4
+        bound_ms, bound_by = bound(B * T * (4 * 2 * H * 3 * H + 40 * H),
+                                   read + B * T * (H + 3 * H) * 4 + G * (H * 3 * H + 3 * H) * 4)
+        rec = {"phase": "fleet_training", "case": f"K3 under gradients, vmap(grad) over {G} "
+               f"entities ({B}, {T}), hidden {H}", "G": G, "rows_per_group": rows,
+               "launches": {k: counts[k] for k in ("gru_scan_fwd", "gru_scan_bwd",
+                                                   "gru_weight_grads")},
+               "groups": groups, "vmap_rule_calls": rule_calls,
+               "identical_to_G_solo_calls": same, "rel_err_vs_G_solo_calls": err_solo,
+               "err_vs_plain": err_plain, "tol": {"hseq": K3_TOL, "grads": K4_TOL},
+               "graph_ms": graph_ms(fleet, calls=2, replays=3),
+               "G_solo_calls_graph_ms": graph_ms(solo, calls=1, replays=2),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "what": "forward K3, backward K4's scan and weights product, and the "
+                       "autograd glue between them; bound: K3's and K4's operations"}
+        emit(rec)
+        other = {k: v for k, v in counts.items()
+                 if v and k not in ("gru_scan_fwd", "gru_scan_bwd", "gru_weight_grads")}
+        if (set(rec["launches"].values()) != {1} or other or groups != (G, G, G)
+                or rule_calls != (1, 1) or not all(same.values())
+                or not max(err_solo.values()) <= K4_TOL or not err_plain["hseq"] <= K3_TOL
+                or not max(err_plain[k] for k in ("dgi", "dw_hh", "db_hh")) <= K4_TOL):
+            raise AssertionError(f"K3 under gradients: {rec}")
+        out[rows] = rec
+        del gi, cot, hseq, ggi, per, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def fleet_lengths() -> list:
+    """Ragged train lengths of the fleet's 28 machines, 1,600 to 2,400 rows."""
+    n = len(FLEET_GROUPS)
+    return [1600 + (800 * e) // (n - 1) for e in range(n)]
+
+
+class FleetProbe:
+    """Wraps ``MultiEntityTrainer.train_epoch`` and ``Trainer.train_epoch``
+    for the length of a ``with``: each epoch's seconds (synchronised on
+    both sides), its real windows, its launches by kernel and the vmap
+    rules' calls, and CUDA events at the start of each fleet step (from
+    ``_generators``, which a step calls first) for the step times."""
+
+    def __init__(self):
+        from mtad_gat_tpu_torch.training import MultiEntityTrainer, Trainer
+
+        self.fleet_cls, self.solo_cls = MultiEntityTrainer, Trainer
+        self.epochs = []
+        self.step_events = []
+
+    def __enter__(self):
+        from mtad_gat_tpu_torch.graph import dropout as gdrop
+        from mtad_gat_tpu_torch.kernels import gru as kgru
+
+        probe = self
+        fleet_epoch, solo_epoch = self.fleet_cls.train_epoch, self.solo_cls.train_epoch
+        fleet_gens = self.fleet_cls._generators
+        self._saved = (fleet_epoch, solo_epoch, fleet_gens)
+
+        def timed(fn, kind):
+            def run(trainer, series, starts, mask, *rest):
+                torch.cuda.synchronize()
+                before = read_counts()
+                rules = (kgru._gru_scan_fwd_vmap.calls, kgru._gru_scan_bwd_vmap.calls,
+                         gdrop._entity_keep_mask_vmap.calls)
+                steps0 = trainer.fleet_steps if kind == "fleet" else trainer.step
+                t0 = time.perf_counter()
+                res = fn(trainer, series, starts, mask, *rest)
+                torch.cuda.synchronize()
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                probe.step_events.append(end)
+                probe.epochs.append({
+                    "kind": kind, "seconds": time.perf_counter() - t0,
+                    "windows": int(mask.sum().item()),
+                    "steps": (trainer.fleet_steps if kind == "fleet" else trainer.step) - steps0,
+                    "launches": {k: v - before[k] for k, v in read_counts().items()},
+                    "rule_calls": (kgru._gru_scan_fwd_vmap.calls - rules[0],
+                                   kgru._gru_scan_bwd_vmap.calls - rules[1],
+                                   gdrop._entity_keep_mask_vmap.calls - rules[2])})
+                return res
+            return run
+
+        def gens(trainer):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            probe.step_events.append(ev)
+            return fleet_gens(trainer)
+
+        self.fleet_cls.train_epoch = timed(fleet_epoch, "fleet")
+        self.solo_cls.train_epoch = timed(solo_epoch, "solo")
+        self.fleet_cls._generators = gens
+        return self
+
+    def __exit__(self, *exc):
+        (self.fleet_cls.train_epoch, self.solo_cls.train_epoch,
+         self.fleet_cls._generators) = self._saved
+        return False
+
+    def step_ms(self) -> list:
+        """Each fleet step's time on the device's clock: from its start to
+        the next step's (the last step to its epoch's end)."""
+        torch.cuda.synchronize()
+        ev = self.step_events
+        return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+
+def expect_fleet_epoch(name: str, epoch: dict, dropout: float, sites: int = 5) -> None:
+    """Exactly two K3, K4 scan and K4 weights launches a fleet step (the
+    encoder's and the decoder's GRU), no attention kernel (the fleet's
+    attention is dense), and each vmap rule once a GRU a step; at dropout the
+    keep-mask rule once a dropout site a step."""
+    steps = epoch["steps"]
+    want = {"gru_scan_fwd": 2 * steps, "gru_scan_bwd": 2 * steps,
+            "gru_weight_grads": 2 * steps}
+    wrong = {k: v for k, v in epoch["launches"].items() if v != want.get(k, 0)}
+    rules = (2 * steps, 2 * steps, sites * steps if dropout else 0)
+    if wrong or tuple(epoch["rule_calls"]) != rules:
+        raise AssertionError(f"{name}: launches {epoch['launches']}, rule calls "
+                             f"{epoch['rule_calls']}; expected {want} and {rules}")
+
+
+@contextlib.contextmanager
+def recorded_draws():
+    """Every ``torch.bernoulli`` output while the block runs, in order: the
+    solo path's keep masks and the fleet's, which its vmap rule draws an
+    entity at a time."""
+    real, draws = torch.bernoulli, []
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        draws.append(out.bool())
+        return out
+
+    torch.bernoulli = record
+    try:
+        yield draws
+    finally:
+        torch.bernoulli = real
+
+
+def check_fleet_parity(data_root, dev) -> dict:
+    """Three of the fleet's machines (their first 700, 620 and 780 train
+    rows, so that padded batches occur), flagship widths, batch 64, 1
+    epoch, float32, TF32 off: ``MultiEntityTrainer`` against a solo
+    ``Trainer`` each, same seed, at dropout 0 and 0.3. At both, each
+    entity's six loss series (training and validation) and every step's
+    training losses within ``FLEET_PARITY_TOL``; at 0.3 each entity's keep
+    masks those of its solo trainer bit for bit, at every site of every
+    step (``EntityGenerators``). Parameters within ``FLEET_PARITY_TOL`` at
+    dropout 0; at 0.3 their largest difference is reported, not held: the
+    fleet's batched products round otherwise than one entity's, and where a
+    ReLU's input lies within that rounding of 0 the two runs take its two
+    sides, a gradient entry a few tenths of a percent apart, which Adam's
+    first steps turn into updates of up to lr each (measured on the card:
+    a fleet of one equals its solo trainer to 2.2e-7 in the gradients of
+    the step where a fleet of two or three differs by 0.41%)."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.training import MultiEntityTrainer, Trainer
+
+    series = [get_data(f"machine-{g}", data_root=data_root, normalize=True)[0][0][:n]
+              for g, n in zip(FLEET_GROUPS, FLEET_PARITY_ROWS)]
+    E, sites = len(series), 5
+    out = {}
+    for dropout in (0.0, 0.3):
+        cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, dropout=dropout, log_tensorboard=False)
+        mc, tc = cfg.model_config(38, 38), cfg.train_config()
+        with FleetProbe() as probe, recorded_draws() as fleet_draws:
+            fleet = MultiEntityTrainer(mc, tc, device=str(dev))
+            fleet.fit(series, verbose=False)
+        expect_fleet_epoch(f"fleet parity, dropout {dropout}", probe.epochs[0], dropout)
+        loss_err, step_err, param_err, worst, masks_equal = 0.0, 0.0, 0.0, [], True
+        for e, s in enumerate(series):
+            solo = Trainer(mc, tc, log_dir=os.path.join(data_root, f"parity_logs_{e}"),
+                           device=str(dev))
+            solo.init_state()
+            with recorded_draws() as solo_draws:
+                solo.fit(s)
+            for key, vals in solo.losses.items():
+                loss_err = max(loss_err, float(np.max(np.abs(
+                    np.array(fleet.losses[e][key]) - np.array(vals)), initial=0.0)))
+            n = len(solo.last_batch_losses[0])
+            for i in (0, 1):
+                step_err = max(step_err, float(np.max(np.abs(
+                    fleet.last_batch_losses[i][:n, e] - solo.last_batch_losses[i]))))
+            # the fleet draws site by site, entity by entity, a step; an
+            # entity's real steps come first, its padded ones (gated) after
+            if dropout > 0.0:
+                masks_equal &= len(solo_draws) == n * sites and all(
+                    torch.equal(solo_draws[k * sites + i],
+                                fleet_draws[(k * sites + i) * E + e])
+                    for k in range(n) for i in range(sites))
+            else:
+                masks_equal &= not (solo_draws or fleet_draws)
+            got = fleet.entity_params(e)
+            errs = {k: (got[k] - v.cpu()).abs().max().item()
+                    for k, v in solo.model.state_dict().items()}
+            param_err = max(param_err, max(errs.values()))
+            worst.append(max(errs, key=errs.get))
+        rec = {"phase": "fleet_training", "check": f"3 entities against their solo "
+               f"trainers, dropout {dropout}, 1 epoch", "train_rows": list(FLEET_PARITY_ROWS),
+               "steps": [int(s) for s in fleet.steps], "fleet_steps": fleet.fleet_steps,
+               "keep_masks_identical": masks_equal, "loss_max_abs_err": loss_err,
+               "step_loss_max_abs_err": step_err, "param_max_abs_err": param_err,
+               "worst_param_by_entity": worst, "tol": FLEET_PARITY_TOL,
+               "params_held": dropout == 0.0}
+        emit(rec)
+        if not (masks_equal and loss_err <= FLEET_PARITY_TOL and step_err <= FLEET_PARITY_TOL
+                and (dropout > 0.0 or param_err <= FLEET_PARITY_TOL)):
+            raise AssertionError(f"the fleet and its solo trainers disagree: {rec}")
+        out[dropout] = rec
+    return out
+
+
+def fleet_training_numbers(data_root, smi, dev) -> dict:
+    """The fleet on all 28 machines outside the CLI, flagship widths, batch
+    64, dropout 0.3, a fresh ``MultiEntityTrainer`` an epoch: a warm-up
+    epoch, then one timed (all-entity windows/s, each step's time on the
+    device's clock, p50 and p99, peak memory above the baseline, the fleet's
+    weights and Adam state included) and one profiled (busy share, device
+    time by kernel)."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.training import MultiEntityTrainer
+
+    series = [get_data(f"machine-{g}", data_root=data_root, normalize=True)[0][0]
+              for g in FLEET_GROUPS]
+    cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, log_tensorboard=False)
+
+    def train_one_epoch():
+        # a fresh fleet each time: a fit on a trained one would resume past
+        # its epoch
+        fleet = MultiEntityTrainer(cfg.model_config(38, 38), cfg.train_config(),
+                                   device=str(dev))
+        fleet.fit(series, verbose=False)
+
+    train_one_epoch()                                                    # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FleetProbe() as probe:
+        train_one_epoch()
+    epoch = probe.epochs[0]
+    expect_fleet_epoch("fleet numbers", epoch, cfg.dropout)
+    steps = probe.step_ms()
+    rec = {"phase": "fleet_training", "case": "numbers", "card": smi,
+           "entities": len(FLEET_GROUPS), "batch": FLEET_TRAIN_BS,
+           "train_windows": epoch["windows"], "fleet_steps": epoch["steps"],
+           "epoch_seconds": epoch["seconds"],
+           "windows_per_s": epoch["windows"] / epoch["seconds"],
+           "step_ms_p50": float(np.percentile(steps, 50)),
+           "step_ms_p99": float(np.percentile(steps, 99)),
+           "peak_mb_above_baseline": (torch.cuda.max_memory_allocated() - base) / 2**20}
+    prof = profile_device(train_one_epoch,
+                          f"fleet training, {len(FLEET_GROUPS)} entities, batch "
+                          f"{FLEET_TRAIN_BS}, one epoch with its validation, float32")
+    prof["phase"] = "fleet_training"
+    emit(prof)
+    rec["busy_share"] = prof["busy_share"]
+    rec["what"] = ("windows/s: all entities' real training windows over the epoch's "
+                   "train_epoch seconds; step ms: on the device's clock, from one step's "
+                   "start to the next's; the profile covers the epoch's validation too")
+    emit(rec)
+    return rec
+
+
+def check_fleet_training(gen, dev, work, smi) -> dict:
+    """Phase ``fleet_training``: grouped K4 and K3 under gradients against G
+    launches and their plain versions; 28 synthetic SMD machines (ragged,
+    1,600-2,400 train rows) trained by ``sweep_cli --batched`` (1 epoch,
+    batch 64, dropout 0.3, float32): two K3, K4 scan and K4 weights launches
+    a fleet step, each entity's run written and scored, ``predict_cli``
+    reproducing one; three machines against their solo trainers at dropout
+    0 and 0.3; then the numbers, and ``sweep_cli`` without ``--batched`` on
+    the same data (28 solo trainers one after another) for its windows/s."""
+    from mtad_gat_tpu_torch.cli import predict_cli, sweep_cli
+    from mtad_gat_tpu_torch.nn.gat import dense_gatv2_bytes
+
+    k4 = check_grouped_k4(gen, dev)
+    k3 = check_k3_under_grad(gen, dev)
+    root = os.path.join(work, "fleet_training")
+    data_root, out_root = os.path.join(root, "data"), os.path.join(root, "output")
+    for e, (group, n) in enumerate(zip(FLEET_GROUPS, fleet_lengths())):
+        write_smd(data_root, n=n, group=group, seed=1 + e)
+    E = len(FLEET_GROUPS)
+    byte_model = {f"batch {bs}": {
+        "temporal_gb": dense_gatv2_bytes(E * bs, 100, 76, 4, True) / 1e9,
+        "feature_gb": dense_gatv2_bytes(E * bs, 38, 200, 4, True) / 1e9}
+        for bs in (FLEET_TRAIN_BS, 256)}
+    for v in byte_model.values():
+        v["sum_gb"] = v["temporal_gb"] + v["feature_gb"]
+    emit({"phase": "fleet_training", "case": "the dense layers' byte model for the fleet "
+          "(nn/gat.DENSE_BYTES, float32 with gradients)", "entities": E, **byte_model,
+          "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9})
+
+    common = ["--dataset", "SMD", "--epochs", "1", "--bs", str(FLEET_TRAIN_BS),
+              "--dropout", "0.3", "--data_root", data_root, "--device", "cuda",
+              "--log_tensorboard", "False"]
+    reset_counts()
+    with FleetProbe() as probe, plain_calls() as plain:
+        t0 = time.perf_counter()
+        results = sweep_cli.main(common + ["--output_root", out_root, "--batched",
+                                           "--run_id", "fleet"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = read_counts()
+    plain_gru = {k: plain[k] for k in ("gru_scan_fwd_plain", "gru_step")}
+    epoch = probe.epochs[0]
+    expect_fleet_epoch("sweep_cli --batched", epoch, 0.3)
+    steps = epoch["steps"]
+    run0 = os.path.join(out_root, "SMD", FLEET_GROUPS[0], "fleet")
+    summary0 = finite_summary(os.path.join(run0, "summary.txt"))
+    for group in FLEET_GROUPS:
+        finite_summary(os.path.join(out_root, "SMD", group, "fleet", "summary.txt"))
+    predict_cli.main(["--dataset", "SMD", "--group", FLEET_GROUPS[0], "--model_id", "fleet",
+                      "--data_root", data_root, "--output_root", out_root, "--device", "cuda"])
+    rec = {"phase": "fleet_training", "run": f"sweep_cli --batched, {E} machines, 1 epoch",
+           "seconds": seconds, "train_epoch_seconds": epoch["seconds"],
+           "train_windows": epoch["windows"], "fleet_steps": steps,
+           "windows_per_s": epoch["windows"] / epoch["seconds"],
+           "launches_in_train_epoch": epoch["launches"],
+           "vmap_rule_calls_in_train_epoch": epoch["rule_calls"],
+           "launches": counts, "plain_gru_calls": plain_gru,
+           "entities_scored": len(results), "bf_f1_first": summary0["bf_result"]["f1"],
+           "predict_cli_reproduces_summary": finite_summary(
+               os.path.join(run0, "summary_1.txt")) == summary0}
+    emit(rec)
+    attention = {k: v for k, v in counts.items() if k.startswith("gatv2") and v}
+    if (attention or counts["gru_scan_bwd"] != 2 * steps
+            or counts["gru_weight_grads"] != 2 * steps or any(plain_gru.values())
+            or len(results) != E or not rec["predict_cli_reproduces_summary"]):
+        raise AssertionError(f"sweep_cli --batched: {rec}")
+    parity = check_fleet_parity(data_root, dev)
+    numbers = fleet_training_numbers(data_root, smi, dev)
+
+    solo_root = os.path.join(root, "solo_output")
+    with FleetProbe() as probe:
+        t0 = time.perf_counter()
+        sweep_cli.main(common + ["--output_root", solo_root, "--run_id", "solo"])
+        torch.cuda.synchronize()
+        solo_seconds = time.perf_counter() - t0
+    solo_windows = sum(ep["windows"] for ep in probe.epochs)
+    solo_train_s = sum(ep["seconds"] for ep in probe.epochs)
+    solo = {"phase": "fleet_training", "run": f"sweep_cli (sequential), {E} solo trainers, "
+            "1 epoch each, the same data", "seconds": solo_seconds,
+            "train_epoch_seconds": solo_train_s, "train_windows": solo_windows,
+            "windows_per_s": solo_windows / solo_train_s,
+            "fleet_windows_per_s_same_process": rec["windows_per_s"],
+            "fleet_over_solo": rec["windows_per_s"] / (solo_windows / solo_train_s)}
+    emit(solo)
+    if solo_windows != epoch["windows"]:
+        raise AssertionError(f"the solo sweep trained {solo_windows} windows, the fleet "
+                             f"{epoch['windows']}")
+    return {"k4": k4, "k3": k3, "sweep": rec, "parity": parity, "numbers": numbers,
+            "solo": solo, "launches": counts, "steps": steps, "byte_model": byte_model}
+
+
+def fleet_training_row(ft: dict, kernel: str) -> dict:
+    """K3's or K4's fleet-training entry of the kernels line: launches in the
+    batched sweep (two a fleet step), the grouped launches' times at G 28
+    beside the G ungrouped launches they replace, and their bounds."""
+    fields = ("graph_ms", "bound_ms", "bound_by", "max_rel_err", "identical_to_G_launches",
+              "G_launches_graph_ms")
+    if kernel == "gru_scan_fwd":
+        grouped = {f"under gradients, {rows} rows": {
+            f: r[f] for f in ("graph_ms", "G_solo_calls_graph_ms", "bound_ms", "bound_by",
+                              "identical_to_G_solo_calls", "rel_err_vs_G_solo_calls")}
+            for rows, r in ft["k3"].items()}
+    else:
+        part = "scan" if kernel == "gru_scan_bwd" else "weights"
+        grouped = {f"hidden {H}, {rows} rows": {f: r[f] for f in fields}
+                   for (p, H, rows), r in ft["k4"].items() if p == part}
+    return {"launches": ft["launches"][kernel], "fleet_steps": ft["steps"],
+            "launches_per_fleet_step": 2, "groups": len(FLEET_GROUPS), "grouped": grouped}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3494,6 +4078,7 @@ def main() -> None:
         long_complete = check_long_complete(work, dev, smi)
         serving = check_serving(gen, dev, work, k3_batch1, smi)
         fleet = check_fleet_serving(gen, dev, work, smi)
+        fleet_train = check_fleet_training(gen, dev, work, smi)
     by_path = {name: {"main": train_launches.get(name, 0),
                       "dense_route": route["launches_eval"][name] + route["launches_train"][name],
                       "long_window": long_window["launches"][name],
@@ -3501,7 +4086,8 @@ def main() -> None:
                       "wide_window": wide["train_cli"][name] + wide["layer"][name],
                       "long_complete": long_complete["launches"][name],
                       "serving": serving["launches"][name],
-                      "fleet_serving": fleet["launches"][name]}
+                      "fleet_serving": fleet["launches"][name],
+                      "fleet_training": fleet_train["launches"][name]}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]
@@ -3551,6 +4137,7 @@ def main() -> None:
              **{f"batch1_{k}": serving["k3"][k] for k in ("ms", "bound_ms", "bound_by",
                                                           "max_abs_err")}},
          "fleet_serving": fleet_row(fleet, "k3"),
+         "fleet_training": fleet_training_row(fleet_train, "gru_scan_fwd"),
          "shapes": "one chain: gi (256,100,450) float32, hidden 150; library_ms "
                    "is torch.nn.GRU (cuDNN) with its input projection, projection_ms "
                    "that projection alone as one matrix product"},
@@ -3565,6 +4152,7 @@ def main() -> None:
          "k4_ms": k4["ms"], "k4_graph_ms": k4["graph_ms"], "k4_bound_ms": k4["bound_ms"],
          "cudnn_gru_backward_ms": k4["library_ms"],
          "variant": k4["variant"], "cluster": k4["cluster"], "smem_bytes": k4["smem_bytes"],
+         "fleet_training": fleet_training_row(fleet_train, "gru_scan_bwd"),
          "shapes": "one chain: gi (256,100,450), hseq and dhseq (256,100,150) float32; "
                    "ms and graph_ms are the serial scan alone (need_weights off), k4_* the "
                    "whole call with the weights product; plain_ms is the whole plain "
@@ -3578,6 +4166,7 @@ def main() -> None:
          "ms": w["ms"], "graph_ms": w["graph_ms"], "plain_ms": w["plain_ms"],
          "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
          "library_ms": w["library_ms"], "library_graph_ms": w["library_graph_ms"],
+         "fleet_training": fleet_training_row(fleet_train, "gru_weight_grads"),
          "shapes": "dW_hh (150,450) and db_hh over the 25,600 rows of one chain, float32; "
                    "library_ms is torch.mm(hprev.T, dgh) with dgh.sum(0) on prepared "
                    "operands, TF32 off"},

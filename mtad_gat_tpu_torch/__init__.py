@@ -12,7 +12,11 @@ model do so on the GPU unless ``--device cpu`` is given):
 - ``python -m mtad_gat_tpu_torch.cli.predict_cli``: scores a trained run
   (this package's or one the JAX package trained) and thresholds it;
 - ``python -m mtad_gat_tpu_torch.cli.serve_cli``: scores a stream point by
-  point against a trained run (one machine; fleets are not ported yet).
+  point against a trained run, or one stream a machine for a fleet of runs
+  (``--group 1-1,1-2,...``) from one process;
+- ``python -m mtad_gat_tpu_torch.cli.sweep_cli``: trains and scores every
+  SMD machine, one after another or (``--batched``) as one fleet in one
+  vmapped step.
 """
 
 from mtad_gat_tpu_torch.config import MTADGATConfig, PredictConfig, RunConfig, TrainConfig

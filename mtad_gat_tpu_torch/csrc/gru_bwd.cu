@@ -64,6 +64,20 @@
 // (3H, H) float32; b_hh (3H,); hseq, dhseq (B, T, H) float32; dgi (B, T, 3H)
 // float32; dghn (B, T, H) float32 scratch; gate order (r, z, n). h_{-1} is
 // zero and is never read from memory; the ragged last batch tile is masked.
+//
+// The entity axis (fleet training, the counterpart of JAX's batching rule
+// for pallas_call under vmap), as in gru_fwd.cu: the B rows form G = B /
+// rows_per_group groups of consecutive rows, and group g's rows read
+// w_hh + g H 3H, w_hh_t + g 3H H and b_hh + g 3H. A batch tile (a block of
+// the streaming scan, a cluster of the cluster scan) holds rows of one group
+// only: the grid is G x ceil(rows_per_group / tile). The weights product
+// splits each group's rows_per_group T rows into S chunks of its own
+// (partial g S + s), so no chunk spans two groups, and the reduce sums group g's
+// S partials in chunk order into dw + g H 3H and db + g 3H. The group
+// arithmetic is a compile-time flag (GROUPED): at rows_per_group = B (G = 1)
+// every launch runs the ungrouped instantiation, the kernels' code without
+// the axis. A grouped launch gives each group the bits of an ungrouped
+// launch on its rows with the same S.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,7 +126,10 @@ __device__ __forceinline__ void fma8(float (&acc)[BB], const float4& v0, const f
   acc[7] = fmaf(v1.w, s, acc[7]);
 }
 
-template <typename T>
+// GROUPED: B is the rows of one group (the kernel needs no other count), so
+// the ungrouped instantiation keeps the parameters, and the code, of the
+// kernel without the axis.
+template <typename T, bool GROUPED>
 __global__ void __launch_bounds__(SCAN_THREADS)
 gru_bwd_scan_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
                     const float* __restrict__ w_hh_t, const float* __restrict__ b_hh,
@@ -127,7 +144,16 @@ gru_bwd_scan_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   float* dgT = gh + BB * H3;            // [3H][BB]: (dr_pre, dz_pre, dghn) transposed
   float* part = dgT + H3 * BB;          // [BB][3H]: dg . W_hh^T, one third per gate
   float* dhz = part + BB * H3;          // [BB][H]: dh . z
-  const int b0 = blockIdx.x * BB;
+  // GROUPED: the block's group and its first row within the group
+  const int tiles = GROUPED ? (B + BB - 1) / BB : 1;
+  const int grp = GROUPED ? blockIdx.x / tiles : 0;
+  const int r0 = GROUPED ? blockIdx.x % tiles * BB : 0;
+  const int b0 = GROUPED ? grp * B + r0 : blockIdx.x * BB;
+  if constexpr (GROUPED) {
+    w_hh += (size_t)grp * H * H3;
+    w_hh_t += (size_t)grp * H3 * H;
+    b_hh += (size_t)grp * H3;
+  }
 
   // carry = 0; h_cur = h_{T-2}; gh of the last step
   for (int x = threadIdx.x; x < BB * H3; x += blockDim.x) {
@@ -138,7 +164,7 @@ gru_bwd_scan_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
     const int r = x / H, k = x % H;
     const int row = b0 + r;
     dhz[x] = 0.f;
-    h_cur[k * BB + r] = (n_steps > 1 && row < B)
+    h_cur[k * BB + r] = (n_steps > 1 && (GROUPED ? r0 + r < B : row < B))
         ? hseq[((size_t)row * n_steps + n_steps - 2) * H + k] : 0.f;
   }
   __syncthreads();
@@ -165,7 +191,7 @@ gru_bwd_scan_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
     for (int x = threadIdx.x; x < BB * H; x += blockDim.x) {
       const int r = x / H, k = x % H;
       const int row = b0 + r;
-      const bool live = row < B;
+      const bool live = GROUPED ? r0 + r < B : row < B;
       if (t > 0)
         h_nxt[k * BB + r] = (t > 1 && live)
             ? hseq[((size_t)row * n_steps + t - 2) * H + k] : 0.f;
@@ -251,13 +277,13 @@ size_t cluster_smem_bytes(int H, int C) {
 }
 
 // RB is CL_BB: the batch rows of the cluster.
-template <typename T, int RB>
+template <typename T, int RB, bool GROUPED>
 __global__ void __launch_bounds__(gru_cluster::THREADS)
 gru_bwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
                        const float* __restrict__ w_hh_t, const float* __restrict__ b_hh,
                        const float* __restrict__ hseq, const float* __restrict__ dhseq,
                        float* __restrict__ dgi, float* __restrict__ dghn,
-                       int B, int n_steps, int H) {
+                       int B, int n_steps, int H, int rows_per_group) {
   namespace gc = gru_cluster;
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -265,7 +291,13 @@ gru_bwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   const gc::Tiling tl = gc::tiling(H, C, CL_SPLIT);
   const int k0 = gc::unit_start(H, C, rank), nu = gc::unit_count(H, C, rank);
   const int H3 = 3 * H;
-  const int b0 = (blockIdx.x / C) * RB;
+  // GROUPED: the cluster's group and its first row within the group
+  const int tiles = GROUPED ? (rows_per_group + RB - 1) / RB : 1;
+  const int grp = GROUPED ? (blockIdx.x / C) / tiles : 0;
+  const int r0 = GROUPED ? (blockIdx.x / C) % tiles * RB : 0;
+  const int b0 = GROUPED ? grp * rows_per_group + r0 : (blockIdx.x / C) * RB;
+  // whether row rr of the tile exists (the last tile of a group, or of B, is ragged)
+  auto row_live = [&](int rr) { return GROUPED ? r0 + rr < rows_per_group : b0 + rr < B; };
 
   // every block lays its shared memory out alike, so a peer's dg buffers sit
   // at the same offset as this block's
@@ -279,6 +311,11 @@ gru_bwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   float* wt = ws + H * tl.stride;                    // [H][stride]: W_hh[u, gate H + :]
   float* bias = wt + H * tl.stride;                  // [stride]
 
+  if constexpr (GROUPED) {
+    w_hh += (size_t)grp * H * H3;
+    w_hh_t += (size_t)grp * H3 * H;
+    b_hh += (size_t)grp * H3;
+  }
   gc::load_slice(ws, w_hh, H, H3, H, k0, nu, tl);
   gc::load_slice(wt, w_hh_t, H, H, H * H, k0, nu, tl);
   gc::load_slice(bias, b_hh, 1, 0, H, k0, nu, tl);
@@ -286,7 +323,7 @@ gru_bwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
 
   // h_cur = h_{T-2}. Element x of a (H, RB) buffer is (unit x / RB, row x % RB).
   for (int x = threadIdx.x; x < H * RB; x += blockDim.x) {
-    const bool there = b0 + x % RB < B && n_steps > 1;
+    const bool there = row_live(x % RB) && n_steps > 1;
     h_cur[x] = there
         ? hseq[((size_t)(b0 + x % RB) * n_steps + n_steps - 2) * H + x / RB] : 0.f;
   }
@@ -304,7 +341,7 @@ gru_bwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
   // the gate update: batch row r (fastest) and own unit u
   const int r = threadIdx.x % RB, u = threadIdx.x / RB;
   const bool in_gates = u < nu;
-  const bool live = in_gates && b0 + r < B;
+  const bool live = in_gates && row_live(r);
   const int k = k0 + u;
   const size_t row0 = (size_t)(b0 + r) * n_steps;
   float g_cur[3], dh_in, dhz = 0.f;
@@ -324,7 +361,7 @@ gru_bwd_cluster_kernel(const T* __restrict__ gi, const float* __restrict__ w_hh,
 #pragma unroll
     for (int i = 0; i < gc::STAGE; ++i) {
       const int x = threadIdx.x + i * gc::THREADS;
-      const bool there = x < H * RB && b0 + x % RB < B && t > 1;
+      const bool there = x < H * RB && row_live(x % RB) && t > 1;
       h_reg[i] = there
           ? hseq[((size_t)(b0 + x % RB) * n_steps + t - 2) * H + x / RB] : 0.f;
     }
@@ -482,8 +519,12 @@ __device__ __forceinline__ void unpack8(float (&x)[8], const float* lo, const fl
 }
 
 // V floats a copy: 2 where H is even (every row, gate and column pair is
-// then 8-byte aligned), else 1.
-template <int V>
+// then 8-byte aligned), else 1. GROUPED: M is the rows of one group (a
+// multiple of n_steps), blockIdx.y runs over the groups' row tiles (group
+// blockIdx.y / rt) and block (y, z) writes partial g S + z, S = gridDim.z;
+// so the ungrouped instantiation keeps the parameters, and the code, of the
+// kernel without the axis.
+template <int V, bool GROUPED>
 __global__ void __launch_bounds__(W_BOUND_THREADS, 1)
 gru_bwd_weights_kernel(const float* __restrict__ hseq, const float* __restrict__ dgi,
                        const float* __restrict__ dghn, float* __restrict__ part, int M,
@@ -494,8 +535,11 @@ gru_bwd_weights_kernel(const float* __restrict__ hseq, const float* __restrict__
   float* As = wsm;                              // [W_STAGES][W_RM][BM]
   float* Bs = wsm + W_STAGES * W_RM * BM;       // [W_STAGES][W_RM][BN]
   const int gate = blockIdx.x / tl.ct, j0 = blockIdx.x % tl.ct * BN;
-  const int k0 = blockIdx.y * BM, s = blockIdx.z;
-  const int m_begin = s * chunk, m_end = min(M, m_begin + chunk);
+  const int grp = GROUPED ? blockIdx.y / tl.rt : 0;
+  const int k0 = (GROUPED ? blockIdx.y % tl.rt : blockIdx.y) * BM;
+  const int s = GROUPED ? grp * gridDim.z + blockIdx.z : blockIdx.z;
+  const int base = GROUPED ? grp * M : 0;
+  const int m_begin = base + blockIdx.z * chunk, m_end = min(base + M, m_begin + chunk);
   const int tid = threadIdx.x, nt = blockDim.x;
 
   // the columns no copy writes: A's column H is the db row's 1, the rest 0
@@ -597,11 +641,19 @@ gru_bwd_weights_kernel(const float* __restrict__ hseq, const float* __restrict__
 }
 
 // (dw; db)[x] = sum_s part[s][x], s in order: x < n_w is dw, the rest db.
+// GROUPED: group g = blockIdx.y sums its own S partials into dw + g n_w and
+// db + g n_b.
+template <bool GROUPED>
 __global__ void gru_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
                                       float* __restrict__ db, int n_w, int n_b, int S) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = n_w + n_b;
   if (x >= n) return;
+  if constexpr (GROUPED) {
+    part += (size_t)blockIdx.y * S * n;
+    dw += (size_t)blockIdx.y * n_w;
+    db += (size_t)blockIdx.y * n_b;
+  }
   float acc = 0.f;
   for (int s = 0; s < S; ++s) acc += part[(size_t)s * n + x];
   if (x < n_w)
@@ -610,36 +662,51 @@ __global__ void gru_bwd_reduce_kernel(const float* __restrict__ part, float* __r
     db[x - n_w] = acc;
 }
 
+// Tiles of `tile` rows that cover B rows in groups of rows_per_group, no
+// tile holding rows of two groups; 0 where the groups do not divide B.
+long group_tiles(int B, int rows_per_group, int tile) {
+  if (rows_per_group < 1 || B % rows_per_group != 0) return 0;
+  return (long)(B / rows_per_group) * ((rows_per_group + tile - 1) / tile);
+}
+
 template <typename T>
 int launch_scan(const void* gi, const void* w_hh, const void* w_hh_t, const void* b_hh,
                 const void* hseq, const void* dhseq, void* dgi, void* dghn,
-                int B, int n_steps, int H, void* stream) {
+                int B, int n_steps, int H, int rows_per_group, void* stream) {
+  const long blocks = group_tiles(B, rows_per_group, BB);
+  if (blocks < 1 || blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  auto kernel = rows_per_group == B ? gru_bwd_scan_kernel<T, false>
+                                    : gru_bwd_scan_kernel<T, true>;
   const size_t bytes = scan_smem_bytes(H);
   if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gru_bwd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   int threads = ((3 * H + 31) / 32) * 32;
   if (threads > SCAN_THREADS) threads = SCAN_THREADS;
-  const int blocks = (B + BB - 1) / BB;
-  gru_bwd_scan_kernel<T><<<blocks, threads, bytes, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, threads, bytes, (cudaStream_t)stream>>>(
       (const T*)gi, (const float*)w_hh, (const float*)w_hh_t, (const float*)b_hh,
-      (const float*)hseq, (const float*)dhseq, (float*)dgi, (float*)dghn, B, n_steps, H);
+      (const float*)hseq, (const float*)dhseq, (float*)dgi, (float*)dghn,
+      rows_per_group, n_steps, H);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_cluster_scan(const void* gi, const void* w_hh, const void* w_hh_t,
                         const void* b_hh, const void* hseq, const void* dhseq, void* dgi,
-                        void* dghn, int B, int n_steps, int H, int C, void* stream) {
+                        void* dghn, int B, int n_steps, int H, int C, int rows_per_group,
+                        void* stream) {
   if (!gru_cluster::supported(H, C, CL_BB)) return (int)cudaErrorInvalidValue;
-  const int clusters = (B + CL_BB - 1) / CL_BB;
+  const long clusters = group_tiles(B, rows_per_group, CL_BB);
+  if (clusters < 1 || clusters * C > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  auto kernel = rows_per_group == B ? gru_bwd_cluster_kernel<T, CL_BB, false>
+                                    : gru_bwd_cluster_kernel<T, CL_BB, true>;
   return (int)gru_cluster::launch(
-      gru_bwd_cluster_kernel<T, CL_BB>, clusters, C, cluster_smem_bytes(H, C),
+      kernel, (int)clusters, C, cluster_smem_bytes(H, C),
       (cudaStream_t)stream, (const T*)gi, (const float*)w_hh, (const float*)w_hh_t,
       (const float*)b_hh, (const float*)hseq, (const float*)dhseq, (float*)dgi,
-      (float*)dghn, B, n_steps, H);
+      (float*)dghn, B, n_steps, H, rows_per_group);
 }
 
 }  // namespace
@@ -655,33 +722,44 @@ long gru_bwd_smem_bytes(int H, int cluster) {
 // Clusters of `cluster` blocks that the card holds at once at hidden width
 // H, or the negated CUDA error.
 int gru_bwd_max_active_clusters(int H, int cluster) {
-  return gru_cluster::max_active_clusters(gru_bwd_cluster_kernel<float, CL_BB>, cluster,
-                                          cluster_smem_bytes(H, cluster));
+  return gru_cluster::max_active_clusters(gru_bwd_cluster_kernel<float, CL_BB, false>,
+                                          cluster, cluster_smem_bytes(H, cluster));
 }
 
 // Batch rows of one cluster of the cluster scan.
 int gru_bwd_batch_tile() { return CL_BB; }
 
+// Batch tiles of a scan of B rows in groups of rows_per_group: clusters of
+// the cluster scan (cluster > 0) or blocks of the streaming one (0).
+long gru_bwd_tiles(int B, int rows_per_group, int cluster) {
+  return group_tiles(B, rows_per_group, cluster > 0 ? CL_BB : BB);
+}
+
 // cluster > 0: the cluster scan with that many blocks per batch tile;
-// cluster 0: the streaming scan.
+// cluster 0: the streaming scan. The B rows form B / rows_per_group groups,
+// group g's weights at w_hh + g H 3H, w_hh_t + g 3H H and b_hh + g 3H;
+// rows_per_group = B is the ungrouped kernel.
 int gru_bwd_scan_f32(const void* gi, const void* w_hh, const void* w_hh_t,
                      const void* b_hh, const void* hseq, const void* dhseq, void* dgi,
-                     void* dghn, int B, int n_steps, int H, int cluster, void* stream) {
+                     void* dghn, int B, int n_steps, int H, int cluster, int rows_per_group,
+                     void* stream) {
   if (cluster > 0)
     return launch_cluster_scan<float>(gi, w_hh, w_hh_t, b_hh, hseq, dhseq, dgi, dghn, B,
-                                      n_steps, H, cluster, stream);
+                                      n_steps, H, cluster, rows_per_group, stream);
   return launch_scan<float>(gi, w_hh, w_hh_t, b_hh, hseq, dhseq, dgi, dghn, B, n_steps,
-                            H, stream);
+                            H, rows_per_group, stream);
 }
 
 int gru_bwd_scan_bf16(const void* gi, const void* w_hh, const void* w_hh_t,
                       const void* b_hh, const void* hseq, const void* dhseq, void* dgi,
-                      void* dghn, int B, int n_steps, int H, int cluster, void* stream) {
+                      void* dghn, int B, int n_steps, int H, int cluster, int rows_per_group,
+                      void* stream) {
   if (cluster > 0)
     return launch_cluster_scan<__nv_bfloat16>(gi, w_hh, w_hh_t, b_hh, hseq, dhseq, dgi,
-                                              dghn, B, n_steps, H, cluster, stream);
+                                              dghn, B, n_steps, H, cluster, rows_per_group,
+                                              stream);
   return launch_scan<__nv_bfloat16>(gi, w_hh, w_hh_t, b_hh, hseq, dhseq, dgi, dghn, B,
-                                    n_steps, H, stream);
+                                    n_steps, H, rows_per_group, stream);
 }
 
 // The weights product's tiling at hidden width H, for the planner's check:
@@ -693,28 +771,43 @@ void gru_bwd_weights_tiling(int H, int* out) {
 }
 
 // dw (H, 3H) and db (3H,) from the scan's dgi and dghn, through S row chunks:
-// part (S, H + 1, 3H) is scratch.
+// part (S, H + 1, 3H) is scratch. With B / rows_per_group = G groups: dw
+// (G, H, 3H) and db (G, 3H), S chunks a group, part (G S, H + 1, 3H);
+// rows_per_group = B is the ungrouped kernel.
 int gru_bwd_weights(const void* hseq, const void* dgi, const void* dghn, void* part,
-                    void* dw, void* db, int B, int n_steps, int H, int S, void* stream) {
+                    void* dw, void* db, int B, int n_steps, int H, int S, int rows_per_group,
+                    void* stream) {
+  if (rows_per_group < 1 || B % rows_per_group != 0) return (int)cudaErrorInvalidValue;
   const WTiling tl(H);
-  const int M = B * n_steps, H3 = 3 * H;
-  const int chunk = ((M + S - 1) / S + W_RM - 1) / W_RM * W_RM;
+  const int G = B / rows_per_group, H3 = 3 * H;
+  const int group_rows = rows_per_group * n_steps;   // B n_steps when ungrouped
+  if ((long)tl.rt * G > 65535 || S > 65535) return (int)cudaErrorInvalidValue;
+  const int chunk = ((group_rows + S - 1) / S + W_RM - 1) / W_RM * W_RM;
   const size_t bytes = tl.smem_floats() * sizeof(float);
-  auto kernel = H % 2 == 0 ? gru_bwd_weights_kernel<2> : gru_bwd_weights_kernel<1>;
+  const bool grouped = G > 1;
+  auto kernel = H % 2 == 0 ? (grouped ? gru_bwd_weights_kernel<2, true>
+                                      : gru_bwd_weights_kernel<2, false>)
+                           : (grouped ? gru_bwd_weights_kernel<1, true>
+                                      : gru_bwd_weights_kernel<1, false>);
   if (bytes > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid(3 * tl.ct, tl.rt, S);
+  const dim3 grid(3 * tl.ct, tl.rt * G, S);
   kernel<<<grid, tl.threads, bytes, (cudaStream_t)stream>>>(
-      (const float*)hseq, (const float*)dgi, (const float*)dghn, (float*)part, M, n_steps,
-      H, chunk);
+      (const float*)hseq, (const float*)dgi, (const float*)dghn, (float*)part, group_rows,
+      n_steps, H, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = (H + 1) * H3;
-  gru_bwd_reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)part, (float*)dw, (float*)db, H * H3, H3, S);
+  const dim3 rgrid((n + 255) / 256, G);
+  if (grouped)
+    gru_bwd_reduce_kernel<true><<<rgrid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)part, (float*)dw, (float*)db, H * H3, H3, S);
+  else
+    gru_bwd_reduce_kernel<false><<<rgrid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)part, (float*)dw, (float*)db, H * H3, H3, S);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,6 @@
-"""The attention dropout's hash mask: ``mtad_gat_tpu/kernels/gat_pallas.py:87-147``.
+"""Dropout masks: the attention dropout's hash mask
+(``mtad_gat_tpu/kernels/gat_pallas.py:87-147``), and the Bernoulli keep
+masks of the plain paths, drawn per entity in a fleet step.
 
 A pair (i, j) of batch element b is kept where a hash of the global (seed,
 b, i, j) lies below ``keep_threshold(rate)``, bit for bit the JAX package's
@@ -12,7 +14,8 @@ relies on signed wraparound.
 
 from __future__ import annotations
 
-from typing import Union
+import weakref
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -65,3 +68,74 @@ def hash_keep_mask(seed: Seed, batch: int, n_rows: int, n_cols: int, rate: float
     rows = torch.arange(row_offset, row_offset + n_rows, **i64)[None, :, None]
     cols = torch.arange(n_cols, **i64)[None, None, :]
     return hash_u32(seed_int(seed), b, rows, cols) < keep_threshold(rate)
+
+
+# ---------------------------------------------------------------------------
+# Bernoulli keep masks (the GRU's, the heads' and the plain attention's
+# dropout), and their per-entity streams in a fleet step
+# ---------------------------------------------------------------------------
+
+
+class EntityGenerators:
+    """One ``torch.Generator`` an entity of a fleet step under
+    ``torch.func.vmap``, passed where a solo call takes its generator: every
+    keep mask of the step then draws entity e's slice from generator e, the
+    draws and their order those of entity e's solo call (the counterpart of
+    the JAX fleet's ``fold_in(rng, step_e)``). ``device`` is theirs."""
+
+    def __init__(self, generators: Sequence[torch.Generator]):
+        self.generators = list(generators)
+        if not self.generators:
+            raise ValueError("EntityGenerators needs one generator an entity")
+        self.device = self.generators[0].device
+        self.token = id(self)
+        _ENTITY_GENERATORS[self.token] = self
+
+
+_ENTITY_GENERATORS: "weakref.WeakValueDictionary[int, EntityGenerators]" = \
+    weakref.WeakValueDictionary()
+
+
+def bernoulli_keep(like: torch.Tensor, prob: torch.Tensor,
+                   generator: Optional[Union[torch.Generator, EntityGenerators]]) -> torch.Tensor:
+    """A bool keep mask of ``prob``'s shape, each element kept with its
+    probability: ``torch.bernoulli(prob, generator=generator)``; with
+    ``EntityGenerators`` inside a vmap over the entities (``like`` the
+    batched input the mask applies to), one draw an entity from its own
+    generator, through ``entity_keep_mask``'s vmap rule."""
+    if generator is None:
+        raise ValueError("training-mode dropout needs a generator")
+    if isinstance(generator, EntityGenerators):
+        return entity_keep_mask(like.detach(), prob, generator.token)
+    return torch.bernoulli(prob, generator=generator).bool()
+
+
+@torch.library.custom_op("mtad_gat_tpu_torch::entity_keep_mask", mutates_args=())
+def entity_keep_mask(like: torch.Tensor, prob: torch.Tensor, token: int) -> torch.Tensor:
+    """The per-entity keep mask as a custom op: only its vmap rule draws
+    (vmap's own randomness stays "error", so a draw that bypasses it
+    raises)."""
+    raise RuntimeError("EntityGenerators draw masks only under torch.func.vmap over the "
+                       "entities, with a batched input")
+
+
+def _entity_keep_mask_vmap(info, in_dims, like, prob, token):
+    """Entity g's mask from the g-th generator, on prob's g-th slice (or the
+    shared prob), stacked on a leading entity axis."""
+    gens = _ENTITY_GENERATORS[token].generators
+    G = info.batch_size
+    if G != len(gens):
+        raise ValueError(f"a vmap over {G} entities with {len(gens)} generators")
+    p_dim = in_dims[1]
+    prob = prob.movedim(p_dim, 0) if p_dim is not None else prob.expand(G, *prob.shape)
+    _entity_keep_mask_vmap.calls += 1
+    # vmap's randomness check sees every random op while a vmap runs, the
+    # rule's too: these draws are the rule's own, from explicit generators
+    with torch._C._ExcludeDispatchKeyGuard(
+            torch._C.DispatchKeySet(torch._C.DispatchKey.FuncTorchVmapMode)):
+        return torch.stack([torch.bernoulli(prob[g].contiguous(), generator=gens[g]).bool()
+                            for g in range(G)]), 0
+
+
+_entity_keep_mask_vmap.calls = 0
+entity_keep_mask.register_vmap(_entity_keep_mask_vmap)

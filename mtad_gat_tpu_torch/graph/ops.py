@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from mtad_gat_tpu_torch.graph.dropout import hash_u32, keep_threshold
+from mtad_gat_tpu_torch.graph.dropout import bernoulli_keep, hash_u32, keep_threshold
 from mtad_gat_tpu_torch.graph.segment import segment_softmax, segment_sum
 from mtad_gat_tpu_torch.graph.structure import Graph
 
@@ -90,9 +90,7 @@ def _dropout(att: torch.Tensor, rate: float,
     keep mask from ``generator``, kept weights scaled by 1/(1-rate)."""
     if rate <= 0.0:
         return att
-    if generator is None:
-        raise ValueError("attention dropout needs a generator")
-    keep = torch.bernoulli(torch.full_like(att, 1.0 - rate), generator=generator).bool()
+    keep = bernoulli_keep(att, torch.full_like(att, 1.0 - rate), generator)
     return torch.where(keep, att / (1.0 - rate), 0.0)
 
 

@@ -1,20 +1,25 @@
 """The entity axis of the kernels under ``torch.func.vmap``.
 
 Fleet serving runs one model over E entities' stacked weights as
-``vmap(functional_call)`` (``inference/online_fleet.py``), the counterpart of
-the JAX package's ``jax.vmap`` over a stacked parameter tree. Under that
-vmap, JAX's batching rule for ``pallas_call`` gives a kernel an entity grid
-axis; here the no-grad K1 and K3 calls are ``torch.library.custom_op``s
-whose vmap rules do the same: move the entity dimension to the front,
-expand a weight that is not batched, fold (G, B, ...) into one batch of
-G B rows, and call the kernel's grouped form once (on a CUDA tensor the
-kernel, each group of B rows reading its own weights; on a CPU tensor its
-plain version, a group at a time).
+``vmap(functional_call)`` (``inference/online_fleet.py``), fleet training as
+``vmap(grad_and_value(loss))`` (``training/multi_entity.py``): the
+counterparts of the JAX package's ``jax.vmap`` over a stacked parameter
+tree. Under that vmap, JAX's batching rule for ``pallas_call`` gives a
+kernel an entity grid axis; here the no-grad K1, K3 and K4 calls are
+``torch.library.custom_op``s whose vmap rules do the same: move the entity
+dimension to the front, expand a weight that is not batched, fold (G, B,
+...) into one batch of G B rows, and call the kernel's grouped form once (on
+a CUDA tensor the kernel, each group of B rows reading its own weights; on
+a CPU tensor its plain version, a group at a time). The GRU's autograd
+Function runs its forward (K3's op) and backward (K4's op) under vmap.
 
-Only batched calls enter the ops (``is_batched``): an unbatched call goes to
-the wrapper directly, so the solo paths pay nothing for the op's dispatch.
-Training under vmap is not ported: K1-res, the attention backward and K4
-have no entity axis yet (ROADMAP.md, Queue 1 item 7).
+Only calls under a transform enter the ops (``is_batched`` for K1,
+``is_wrapped`` for the GRU, whose Function also runs under ``grad``): a
+plain call goes to the wrapper directly, so the solo paths pay nothing for
+the op's dispatch.
+
+Attention with gradients or dropout under vmap is not ported: K1-res and the
+attention backward have no entity axis yet (ROADMAP.md, Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -22,21 +27,69 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch._C._functorch import is_batchedtensor
+from torch._C._functorch import (
+    get_unwrapped,
+    is_batchedtensor,
+    is_gradtrackingtensor,
+    maybe_get_bdim,
+)
 
-FLEET_TRAINING_ITEM = "Queue 1 item 7"
+FLEET_TRAINING_ITEM = "Queue 1 item 7b"
+
+
+def _is_wrapper(t: torch.Tensor) -> bool:
+    return is_batchedtensor(t) or is_gradtrackingtensor(t)
+
+
+def _levels(t: Optional[torch.Tensor]):
+    """t and the tensors inside its ``torch.func`` wrappers, outermost
+    first: under ``vmap(grad(...))`` a batched tensor is a grad wrapper
+    around a batched one."""
+    while t is not None:
+        yield t
+        if not _is_wrapper(t):
+            return
+        t = get_unwrapped(t)
+
+
+def entities(t: Optional[torch.Tensor]) -> int:
+    """The entities a tensor stands for: the product of its vmap batch
+    sizes at every level of its wrappers (nested vmaps multiply); 1 outside
+    vmap."""
+    n = 1
+    for x in _levels(t):
+        if is_batchedtensor(x):
+            n *= get_unwrapped(x).shape[maybe_get_bdim(x)]
+    return n
+
+
+def is_wrapped(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether any of the tensors is a ``torch.func`` wrapper (batched or
+    grad-tracking), which has no data pointer of its own: a kernel wrapper
+    takes it through its custom op."""
+    return any(t is not None and _is_wrapper(t) for t in tensors)
 
 
 def is_batched(*tensors: Optional[torch.Tensor]) -> bool:
-    """Whether any of the tensors is a vmap-batched tensor."""
-    return any(t is not None and is_batchedtensor(t) for t in tensors)
+    """Whether any of the tensors is vmap-batched at some level of its
+    wrappers, so that the check holds under ``vmap(grad(...))`` too."""
+    return any(is_batchedtensor(x) for t in tensors for x in _levels(t))
+
+
+def requires_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd would record a call on the tensors: grad mode on
+    and one of them requiring a gradient at some level of its wrappers (a
+    batched tensor does not show its own ``requires_grad``)."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for t in tensors for x in _levels(t))
 
 
 def not_ported_under_vmap(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} under torch.func.vmap (a fleet of stacked weights) runs the scoring "
-        "kernels only: training through K1-res, the attention backward and K4 with an "
-        f"entity axis is not ported yet (ROADMAP.md, {FLEET_TRAINING_ITEM})")
+        f"{what} under torch.func.vmap (a fleet of stacked weights): K1-res and the "
+        "attention backward with an entity axis are not ported yet, so a fleet trains "
+        "with attention_impl='dense' below the dense route's threshold (ROADMAP.md, "
+        f"{FLEET_TRAINING_ITEM})")
 
 
 def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:

@@ -32,11 +32,15 @@ sums added in a fixed order (``csrc/gru_bwd.cu`` says more). The TPU kernels'
 128-lane and 8-row padding is not carried over: the CUDA kernels mask their
 ragged batch tile and their ragged unit slices.
 
-K3 also takes an entity axis (fleet serving): W_hh (G, H, 3H) and b_hh
-(G, 3H), group g's weights for rows g B/G .. (g+1) B/G - 1, in one launch
-whose batch tiles never straddle two groups (``group_tiles``). Under
-``torch.func.vmap`` the no-grad forward is a custom op whose vmap rule
-folds the entities into that axis (``kernels/_vmap.py``).
+K3 and K4 also take an entity axis (fleet serving and fleet training):
+W_hh (G, H, 3H) and b_hh (G, 3H), group g's weights for rows g B/G ..
+(g+1) B/G - 1, in one launch whose batch tiles never straddle two groups
+(``group_tiles``); K4's weights product sums each group's rows into its own
+dW_hh (G, H, 3H) and db_hh (G, 3H). Under ``torch.func.vmap`` the forward
+and the backward are custom ops whose vmap rules fold the entities into that
+axis (``kernels/_vmap.py``), and ``gru_scan``'s autograd Function lets vmap
+run its forward and backward, so ``vmap(grad(...))`` over a fleet launches
+K3, K4's scan and K4's weights product once each whatever E is.
 """
 
 from __future__ import annotations
@@ -238,15 +242,15 @@ def gru_scan_fwd(
     tensor launches the kernel or raises: the variant ``gru_plan`` names for
     the width, recorded in ``gru_scan_fwd.last_launch``. Grouped weights
     (``weight_groups``) give rows g B/G .. (g+1) B/G - 1 group g's W_hh and
-    b_hh in the same launch; under ``torch.func.vmap`` the call is the
-    custom op ``gru_scan_fwd_op``, whose rule folds the entities into those
-    groups. It has no backward of its own: where autograd would record the
-    call it raises, and ``gru_scan`` is the differentiable call."""
+    b_hh in the same launch; under ``torch.func`` transforms the call is
+    the custom op ``gru_scan_fwd_op``, whose vmap rule folds the entities
+    into those groups. It has no backward of its own: where autograd would
+    record the call it raises, and ``gru_scan`` is the differentiable call."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (gi, w_hh, b_hh)):
         raise RuntimeError(
             "gru_scan_fwd launches the forward kernel alone and records no "
             "gradient: call gru_scan, or run it under torch.no_grad()")
-    if _vmap.is_batched(gi, w_hh, b_hh):
+    if _vmap.is_wrapped(gi, w_hh, b_hh):
         hseq = gru_scan_fwd_op(gi, w_hh, b_hh, hid_dim)
         return hseq, hseq[:, -1, :]
     if gi.device.type == "cpu":
@@ -308,7 +312,6 @@ def _gru_scan_fwd_vmap(info, in_dims, gi, w_hh, b_hh, hid_dim):
     groups (``kernels/_vmap.py``): one grouped call whatever E is."""
     G = info.batch_size
     gi_dim, w_dim, b_dim, _ = in_dims
-    _vmap.refuse_grad("the GRU scan", gi, w_hh, b_hh)
     hseq, _ = gru_scan_fwd(_vmap.fold_rows(gi, gi_dim, G),
                            _vmap.fold_weight(w_hh, w_dim, G, 2),
                            _vmap.fold_weight(b_hh, b_dim, G, 1), hid_dim)
@@ -331,9 +334,19 @@ def gru_scan_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's function step by step in plain tensor ops, in
     float32: from the saved states hseq (B, T, H) and the cotangent dhseq
-    (B, T, H), returns (dgi (B, T, 3H), dw_hh (H, 3H), db_hh (3H,))."""
+    (B, T, H), returns (dgi (B, T, 3H), dw_hh (H, 3H), db_hh (3H,)).
+    Grouped weights (G, H, 3H) and (G, 3H) (``weight_groups``) run one group
+    of B / G rows at a time and give dw_hh (G, H, 3H) and db_hh (G, 3H)."""
     B, T, _ = gi.shape
     H = hid_dim
+    G = weight_groups(B, w_hh, b_hh, H, "gru_scan_bwd_plain")
+    if w_hh.dim() == 3:
+        rows = B // G
+        parts = [gru_scan_bwd_plain(gi[g * rows:(g + 1) * rows], w_hh[g], b_hh[g],
+                                    hseq[g * rows:(g + 1) * rows],
+                                    dhseq[g * rows:(g + 1) * rows], H) for g in range(G)]
+        return tuple(torch.cat([p[0] for p in parts]) if i == 0
+                     else torch.stack([p[i] for p in parts]) for i in range(3))
     w, b = w_hh.float(), b_hh.float()
     hseq = hseq.float()
     dgi = torch.empty((B, T, 3 * H), dtype=torch.float32, device=gi.device)
@@ -388,17 +401,31 @@ def weight_grad_tiling(hid_dim: int) -> Tuple[int, int, int, int, int, int]:
 
 
 def weight_grad_chunks(rows: int, hid_dim: int, sms: int,
-                       tiling: Optional[Tuple[int, ...]] = None) -> int:
+                       tiling: Optional[Tuple[int, ...]] = None, groups: int = 1) -> int:
     """Row chunks of K4's dW_hh product on a card of ``sms``
     multiprocessors: its (H + 1, 3H) output gives few block tiles (three at
     hidden 150), so the B * T rows are split until the blocks fill the card
     in one wave at as many blocks a multiprocessor as its registers, shared
     memory and threads hold (one at hidden 150), each chunk at least one
-    stage. ``tiling`` is ``weight_grad_tiling``'s, or a sweep's own build's."""
+    stage. With ``groups`` G, ``rows`` are one group's and the count S is a
+    group's: the G S chunks run in waves of the card's fill, so S is the
+    least whose waves times a chunk's rows lies within 5% of the best
+    (3 at G 28 and hidden 150 on 132 multiprocessors: 84 chunks in two waves
+    of 44, where 2 would leave the second wave a quarter full). ``tiling``
+    is ``weight_grad_tiling``'s, or a sweep's own build's."""
     _, _, rt, ct, threads, smem = tiling or weight_grad_tiling(hid_dim)
     per_sm = max(1, min(_SM_REGISTERS // (W_REGISTERS * threads),
                         _SM_SMEM // (smem + _BLOCK_RESERVED), _SM_THREADS // threads))
-    return max(1, min(-(-rows // W_RM), sms * per_sm // (3 * rt * ct)))
+    fill = sms * per_sm // (3 * rt * ct)
+    most = max(1, min(-(-rows // W_RM), fill))
+    if groups == 1:
+        return most
+
+    def cost(s):        # waves of the G s chunks, times a chunk's rows
+        return -(-groups * s // fill) / s
+
+    best = min(cost(s) for s in range(1, most + 1))
+    return next(s for s in range(1, most + 1) if cost(s) <= 1.05 * best)
 
 
 @functools.lru_cache(maxsize=None)
@@ -417,10 +444,12 @@ def _bwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.gru_bwd_scan_f32, lib.gru_bwd_scan_bf16):
-            fn.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+            fn.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
             fn.restype = i32
-        lib.gru_bwd_weights.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.gru_bwd_weights.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.gru_bwd_weights.restype = i32
+        lib.gru_bwd_tiles.argtypes = [i32] * 3
+        lib.gru_bwd_tiles.restype = ctypes.c_long
         lib.gru_bwd_weights_tiling.argtypes = [i32, ptr]
         lib.gru_bwd_weights_tiling.restype = None
         lib.gru_bwd_smem_bytes.argtypes = [i32, i32]
@@ -433,12 +462,19 @@ def _bwd_lib() -> ctypes.CDLL:
 
 def gru_weight_grads_plain(
     hseq: torch.Tensor, dgi: torch.Tensor, dghn: torch.Tensor, hid_dim: int,
+    groups: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4's weights product in plain tensor ops, float32, step by step as
     ``gru_scan_bwd_plain`` accumulates it: dW_hh = sum over t >= 1 of
     h_{t-1}^T dgh_t and db_hh = the sum of dgh over every step and batch row,
-    with dgh = (dgi[..., :2H], dghn)."""
+    with dgh = (dgi[..., :2H], dghn). With ``groups`` G > 1 each group of
+    B / G rows is summed alone: dW_hh (G, H, 3H) and db_hh (G, 3H)."""
     H = hid_dim
+    if groups > 1:
+        rows = dgi.shape[0] // groups
+        parts = [gru_weight_grads_plain(*(t[g * rows:(g + 1) * rows] for t in (hseq, dgi, dghn)),
+                                        H) for g in range(groups)]
+        return torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
     dgh = torch.cat([dgi[..., :2 * H].float(), dghn.float()], dim=-1)
     dw = torch.zeros((H, 3 * H), dtype=torch.float32, device=dgi.device)
     db = torch.zeros((3 * H,), dtype=torch.float32, device=dgi.device)
@@ -454,11 +490,17 @@ def gru_weight_grads(
     dgi: torch.Tensor,     # (B, T, 3H) float32, the scan's input-side gate gradients
     dghn: torch.Tensor,    # (B, T, H) float32, the scan's dn_pre * r
     hid_dim: int,
+    groups: int = 1,
+    chunks: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4's weights product on contiguous float32 CUDA tensors: (dW_hh (H,
     3H), db_hh (3H,)) as ``gru_weight_grads_plain`` computes them, through
     ``weight_grad_chunks`` row chunks and a fixed-order sum of their
-    partials. ``gru_scan_bwd`` calls it after the scan."""
+    partials. With ``groups`` G > 1 (B a multiple of G) each group's rows are
+    chunked and summed on their own into dW_hh (G, H, 3H) and db_hh (G, 3H),
+    in one launch. ``chunks`` forces the chunks a group (a grouped launch
+    gives each group the bits of an ungrouped launch on its rows with the
+    same count). ``gru_scan_bwd`` calls it after the scan."""
     H = hid_dim
     B, T, _ = dgi.shape
     dev = dgi.device
@@ -472,28 +514,34 @@ def gru_weight_grads(
            for t in (hseq, dgi, dghn)):
         raise ValueError("gru_weight_grads: hseq, dgi and dghn must be contiguous float32 "
                          "tensors on one device")
+    if groups < 1 or B % groups:
+        raise ValueError(f"gru_weight_grads: {groups} groups do not divide the batch {B}")
     _check_weights_tiling(H)
-    S = weight_grad_chunks(B * T, H, _build.sm_count(dev))
-    part = torch.empty((S, H + 1, 3 * H), dtype=torch.float32, device=dev)
-    dw = torch.empty((H, 3 * H), dtype=torch.float32, device=dev)
-    db = torch.empty((3 * H,), dtype=torch.float32, device=dev)
+    rows = B // groups
+    S = chunks or weight_grad_chunks(rows * T, H, _build.sm_count(dev), groups=groups)
+    part = torch.empty((groups * S, H + 1, 3 * H), dtype=torch.float32, device=dev)
+    lead = (groups,) if groups > 1 else ()
+    dw = torch.empty((*lead, H, 3 * H), dtype=torch.float32, device=dev)
+    db = torch.empty((*lead, 3 * H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _bwd_lib().gru_bwd_weights(
             hseq.data_ptr(), dgi.data_ptr(), dghn.data_ptr(), part.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), B, T, H, S, torch.cuda.current_stream(dev).cuda_stream)
+            db.data_ptr(), B, T, H, S, rows, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gru_bwd weights kernel launch failed: CUDA error {err}")
     gru_weight_grads.launches += 1
+    gru_weight_grads.last_launch = {"groups": groups, "chunks": S}
     return dw, db
 
 
 gru_weight_grads.launches = 0
+gru_weight_grads.last_launch = None
 
 
 def gru_scan_bwd(
     gi: torch.Tensor,      # (B, T, 3H), float32 or bfloat16
-    w_hh: torch.Tensor,    # (H, 3H)
-    b_hh: torch.Tensor,    # (3H,)
+    w_hh: torch.Tensor,    # (H, 3H); or (G, H, 3H)
+    b_hh: torch.Tensor,    # (3H,); or (G, 3H)
     hseq: torch.Tensor,    # (B, T, H) float32, the forward's output
     dhseq: torch.Tensor,   # (B, T, H), any strides
     hid_dim: int,
@@ -502,18 +550,20 @@ def gru_scan_bwd(
     """K4 on CUDA tensors: (dgi (B, T, 3H) float32, dw_hh (H, 3H), db_hh
     (3H,)), the last two None when ``need_weights`` is off and only the
     scan runs: the variant ``gru_plan`` names for the width, recorded in
-    ``gru_scan_bwd.last_launch``, then ``gru_weight_grads``. The CPU
+    ``gru_scan_bwd.last_launch``, then ``gru_weight_grads``. Grouped weights
+    (``weight_groups``) give rows g B/G .. (g+1) B/G - 1 group g's W_hh and
+    b_hh in the same launches, and dw_hh (G, H, 3H), db_hh (G, 3H). The CPU
     computes the same in ``gru_scan_bwd_plain``."""
     if gi.device.type != "cuda":
         raise ValueError(f"gru_scan_bwd: unsupported device {gi.device}")
-    B, T, G = gi.shape
+    B, T, G3 = gi.shape
     H = hid_dim
-    if (G != 3 * H or w_hh.shape != (H, 3 * H) or b_hh.shape != (3 * H,)
-            or hseq.shape != (B, T, H) or dhseq.shape != (B, T, H)):
+    if G3 != 3 * H or hseq.shape != (B, T, H) or dhseq.shape != (B, T, H):
         raise ValueError(
             f"gru_scan_bwd: shapes gi {tuple(gi.shape)} w_hh {tuple(w_hh.shape)} "
             f"b_hh {tuple(b_hh.shape)} hseq {tuple(hseq.shape)} dhseq "
             f"{tuple(dhseq.shape)} do not fit hidden width {H}")
+    groups = weight_groups(B, w_hh, b_hh, H, "gru_scan_bwd")
     if gi.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("gru_scan_bwd: gi must be float32 or bfloat16")
     if any(t.device != gi.device for t in (w_hh, b_hh, hseq, dhseq)):
@@ -525,7 +575,8 @@ def gru_scan_bwd(
     if B == 0:
         if not need_weights:
             return dgi, None, None
-        return dgi, torch.zeros((H, 3 * H), device=dev), torch.zeros((3 * H,), device=dev)
+        return (dgi, torch.zeros(w_hh.shape, device=dev),
+                torch.zeros(b_hh.shape, device=dev))
     variant, cluster = gru_plan("bwd", H)
     nbytes = gru_smem_bytes("bwd", H, cluster)
     lib = _bwd_lib()
@@ -536,8 +587,8 @@ def gru_scan_bwd(
     # a second, transposed copy (a layout, not arithmetic) so that the scan
     # reads W_hh along its rows for both of its products (the cluster scan
     # once per launch, into shared memory); free when w_hh is the transposed
-    # view of an nn.GRU-layout parameter
-    w_t = w_hh.detach().to(torch.float32).t().contiguous()
+    # view of an nn.GRU-layout parameter; (G, 3H, H) when grouped
+    w_t = w_hh.detach().to(torch.float32).transpose(-2, -1).contiguous()
     b = b_hh.detach().to(torch.float32).contiguous()
     hseq = hseq.detach().to(torch.float32).contiguous()
     dhseq = dhseq.detach().to(torch.float32).contiguous()
@@ -547,21 +598,55 @@ def gru_scan_bwd(
     with torch.cuda.device(dev):
         err = scan(gi.data_ptr(), w.data_ptr(), w_t.data_ptr(), b.data_ptr(),
                    hseq.data_ptr(), dhseq.data_ptr(), dgi.data_ptr(), dghn.data_ptr(),
-                   B, T, H, cluster, stream)
+                   B, T, H, cluster, B // groups, stream)
         if err != 0:
             raise RuntimeError(
                 f"gru_bwd {variant} scan kernel launch failed: CUDA error {err}")
     gru_scan_bwd.launches += 1
     gru_scan_bwd.last_launch = {"variant": variant, "cluster": cluster,
-                                "smem_bytes": nbytes}
+                                "smem_bytes": nbytes, "groups": groups}
     if not need_weights:
         return dgi, None, None
-    dw, db = gru_weight_grads(hseq, dgi, dghn, H)
-    return dgi, dw, db
+    dw, db = gru_weight_grads(hseq, dgi, dghn, H, groups)
+    return dgi, dw.view(w_hh.shape), db.view(b_hh.shape)
 
 
 gru_scan_bwd.launches = 0
 gru_scan_bwd.last_launch = None
+
+
+@torch.library.custom_op("mtad_gat_tpu_torch::gru_scan_bwd", mutates_args=())
+def gru_scan_bwd_op(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                    hseq: torch.Tensor, dhseq: torch.Tensor,
+                    hid_dim: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4, weights included, as a custom op, the form a vmapped backward
+    takes (its vmap rule below): ``gru_scan_bwd`` on a CUDA tensor, its
+    plain version on a CPU one."""
+    if gi.device.type == "cpu":
+        return gru_scan_bwd_plain(gi, w_hh, b_hh, hseq, dhseq, hid_dim)
+    return gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, hid_dim)
+
+
+def _gru_scan_bwd_vmap(info, in_dims, gi, w_hh, b_hh, hseq, dhseq, hid_dim):
+    """The entities' rows folded into one batch, their weights into K4's
+    groups: one grouped scan and one grouped weights product whatever E is,
+    each entity's dW_hh and db_hh its own."""
+    G = info.batch_size
+    gi_dim, w_dim, b_dim, h_dim, d_dim, _ = in_dims
+    w = _vmap.fold_weight(w_hh, w_dim, G, 2)
+    b = _vmap.fold_weight(b_hh, b_dim, G, 1)
+    dgi, dw, db = gru_scan_bwd_op(
+        _vmap.fold_rows(gi, gi_dim, G), w, b, _vmap.fold_rows(hseq, h_dim, G),
+        _vmap.fold_rows(dhseq, d_dim, G), hid_dim)
+    _gru_scan_bwd_vmap.calls += 1
+    # nested vmaps: an entity's weights were already grouped, so are its grads
+    lead = (G,) if w_hh.dim() - (w_dim is not None) == 2 else (G, -1)
+    return ((_vmap.unfold_rows(dgi, G), dw.reshape(*lead, *dw.shape[-2:]),
+             db.reshape(*lead, db.shape[-1])), (0, 0, 0))
+
+
+_gru_scan_bwd_vmap.calls = 0
+gru_scan_bwd_op.register_vmap(_gru_scan_bwd_vmap)
 
 
 # ---------------------------------------------------------------------------
@@ -571,23 +656,50 @@ gru_scan_bwd.last_launch = None
 
 
 class _GRUScan(torch.autograd.Function):
+    """K3 forward, K4 backward. ``torch.func`` transforms it too: under
+    them its forward is K3's custom op and its backward K4's (the ops take
+    the transforms' wrapped tensors apart), under vmap each folding the
+    entities into one grouped launch (``generate_vmap_rule``)."""
+
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, gi, w_hh, b_hh, hid_dim):
-        hseq, _ = gru_scan_fwd(gi, w_hh, b_hh, hid_dim)   # grad mode is off here
-        ctx.save_for_backward(gi, w_hh, b_hh, hseq)
+    def forward(gi, w_hh, b_hh, hid_dim):
+        return gru_scan_fwd(gi, w_hh, b_hh, hid_dim)[0]   # grad mode is off here
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        gi, w_hh, b_hh, hid_dim = inputs
+        ctx.save_for_backward(gi, w_hh, b_hh, output)
         ctx.hid_dim = hid_dim
-        return hseq
+
+    @staticmethod
+    def backward(ctx, dhseq):
+        gi, w_hh, b_hh, hseq = ctx.saved_tensors
+        if not _vmap.is_wrapped(gi, w_hh, b_hh, hseq, dhseq):
+            return _GRUScan._solo_backward(ctx, dhseq)
+        with torch.no_grad():
+            grads = gru_scan_bwd_op(gi, w_hh, b_hh, hseq, dhseq, ctx.hid_dim)
+        return _GRUScan._cast(ctx, *grads)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, dhseq):
+    def _solo_backward(ctx, dhseq):
+        """The backward of a call outside ``torch.func`` transforms,
+        straight to the wrapper (or its plain version); a second derivative
+        through it raises."""
         gi, w_hh, b_hh, hseq = ctx.saved_tensors
-        need_gi, need_w, need_b = ctx.needs_input_grad[:3]
         if gi.device.type == "cpu":
-            dgi, dw, db = gru_scan_bwd_plain(gi, w_hh, b_hh, hseq, dhseq, ctx.hid_dim)
+            grads = gru_scan_bwd_plain(gi, w_hh, b_hh, hseq, dhseq, ctx.hid_dim)
         else:
-            dgi, dw, db = gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, ctx.hid_dim,
-                                       need_weights=need_w or need_b)
+            grads = gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, ctx.hid_dim,
+                                 need_weights=any(ctx.needs_input_grad[1:3]))
+        return _GRUScan._cast(ctx, *grads)
+
+    @staticmethod
+    def _cast(ctx, dgi, dw, db):
+        gi, w_hh, b_hh, _ = ctx.saved_tensors
+        need_gi, need_w, need_b = ctx.needs_input_grad[:3]
         return (dgi.to(gi.dtype) if need_gi else None,
                 dw.to(w_hh.dtype) if need_w else None,
                 db.to(b_hh.dtype) if need_b else None, None)
@@ -598,11 +710,11 @@ def gru_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused GRU scan with gradients: (hseq (B, T, H) float32, h_last
     (B, H)), arguments as ``gru_scan_fwd``. Forward K3 and backward K4 on
-    CUDA tensors, their plain versions on CPU tensors; the backward is not
-    itself differentiable."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (gi, w_hh, b_hh)):
-        if _vmap.is_batched(gi, w_hh, b_hh):
-            raise _vmap.not_ported_under_vmap("gru_scan with gradients")
+    CUDA tensors, their plain versions on CPU tensors; under
+    ``torch.func.vmap`` (with ``grad`` inside or not) each a grouped launch
+    for all entities. The backward is not itself differentiable (an
+    unbatched call's second derivative raises)."""
+    if _vmap.requires_grad(gi, w_hh, b_hh):
         hseq = _GRUScan.apply(gi, w_hh, b_hh, hid_dim)
         return hseq, hseq[:, -1, :]
     return gru_scan_fwd(gi, w_hh, b_hh, hid_dim)

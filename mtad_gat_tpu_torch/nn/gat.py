@@ -39,6 +39,7 @@ import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
+from mtad_gat_tpu_torch.graph.dropout import EntityGenerators
 from mtad_gat_tpu_torch.graph.ops import (
     BAND_UNROLL_CUTOFF,
     banded_attention_scan,
@@ -59,6 +60,7 @@ from mtad_gat_tpu_torch.graph.structure import (
     graph_from_edges,
     parse_graph_spec,
 )
+from mtad_gat_tpu_torch.kernels import _vmap
 from mtad_gat_tpu_torch.kernels.gat import gatv2_attention
 from mtad_gat_tpu_torch.nn.init import torch_linear_, xavier_uniform_gain_
 
@@ -179,10 +181,13 @@ class GATLayer(nn.Module):
     def dense_route(self, v: torch.Tensor) -> bool:
         """Whether a dense GATv2 call on ``v`` goes to the fused kernel: the
         dense path's bytes (``dense_gatv2_bytes``, with autograd when a
-        gradient is being recorded) above ``dense_route_threshold``."""
+        gradient is being recorded) above ``dense_route_threshold``. Under
+        ``torch.func.vmap`` ``v`` is one entity's batch and the layer runs
+        for every entity at once, so the bytes count them all
+        (``_vmap.entities``; nested vmaps multiply)."""
         grad = torch.is_grad_enabled() and (v.requires_grad or self.a.requires_grad)
-        need = dense_gatv2_bytes(v.shape[0], self.n_nodes, self.lin.weight.shape[0],
-                                 v.element_size(), grad)
+        need = dense_gatv2_bytes(v.shape[0] * _vmap.entities(v), self.n_nodes,
+                                 self.lin.weight.shape[0], v.element_size(), grad)
         return need > dense_route_threshold(v.device)
 
     def forward(
@@ -208,6 +213,8 @@ class GATLayer(nn.Module):
             # block scan read it there
             if rate == 0.0:
                 return 0
+            if isinstance(generator, EntityGenerators):
+                raise _vmap.not_ported_under_vmap("the hash-mask attention dropout")
             return torch.randint(0, 2**32, (1,), generator=generator,
                                  device=generator.device, dtype=torch.int64)
 

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from mtad_gat_tpu_torch.graph.dropout import bernoulli_keep
 from mtad_gat_tpu_torch.kernels.gru import gru_scan, gru_step
 from mtad_gat_tpu_torch.nn.init import uniform_bound_
 
@@ -34,13 +35,11 @@ def dropout(
     x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
 ) -> torch.Tensor:
     """Inverted dropout with a Bernoulli mask drawn from ``generator`` (on
-    x's device), as the JAX package's heads and GRU apply it."""
+    x's device), as the JAX package's heads and GRU apply it; in a fleet
+    step ``generator`` is an ``EntityGenerators``, one an entity."""
     if rate <= 0.0:
         return x
-    if generator is None:
-        raise ValueError("training-mode dropout needs a generator")
-    keep = torch.bernoulli(
-        torch.full(x.shape, 1.0 - rate, device=x.device), generator=generator).bool()
+    keep = bernoulli_keep(x, torch.full(x.shape, 1.0 - rate, device=x.device), generator)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

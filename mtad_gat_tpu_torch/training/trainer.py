@@ -51,13 +51,17 @@ def make_loss_fn(model: MTADGAT, window: int, horizon: int, target_dims):
     """Batch loss = RMSE(forecast) + RMSE(recon) over one window batch
     gathered on the device from the series (reference training.py:113-124).
     ``deterministic`` puts the model in eval mode (no dropout); otherwise it
-    trains and draws its masks from ``generator``."""
+    trains and draws its masks from ``generator``. ``params`` (a name ->
+    tensor dict) runs the model on those weights instead of its own, through
+    ``torch.func.functional_call``: the form a fleet step vmaps."""
     dims = None if target_dims is None else list(target_dims)
 
-    def loss_fn(series, starts, mask, generator, deterministic: bool):
+    def loss_fn(series, starts, mask, generator, deterministic: bool, params=None):
         x, y = window_batch(series, starts, window, horizon)
         model.train(not deterministic)
-        preds, recons = model(x, None if deterministic else generator)
+        args = (x, None if deterministic else generator)
+        preds, recons = (model(*args) if params is None
+                         else torch.func.functional_call(model, params, args))
         x_t, y_t = x, y
         if dims is not None:
             x_t = x_t[:, :, dims]

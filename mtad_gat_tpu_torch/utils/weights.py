@@ -1,5 +1,6 @@
 """Weights carried across: the JAX package's flax parameter tree to this
-package's ``state_dict``, and reading a ``model.pt``.
+package's ``state_dict``, a fleet's E ``state_dict``s stacked and unstacked,
+and reading a ``model.pt``.
 
 The port names its parameters with the reference torch ``state_dict`` keys,
 so a reference ``model.pt`` (or one written by the JAX package's
@@ -14,7 +15,7 @@ package's tree-to-torch mapping; layout differences:
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -87,6 +88,23 @@ def jax_stacked_params_to_state_dicts(params: Mapping[str, dict]) -> List[Dict[s
         raise ValueError(f"stacked params carry leading axes {sorted(map(str, sizes))}, "
                          "expected one entity axis on every leaf")
     return [jax_params_to_state_dict(_entity(params, e)) for e in range(sizes.pop())]
+
+
+Stacked = Dict[str, torch.Tensor]
+
+
+def stack_state_dicts(state_dicts: Sequence[Mapping[str, torch.Tensor]]) -> Stacked:
+    """E ``state_dict``s of one config -> one dict of (E, ...) float32
+    tensors, the form a fleet trains (``training/multi_entity.py``)."""
+    keys = list(state_dicts[0])
+    if any(list(sd) != keys for sd in state_dicts):
+        raise ValueError("the entities' state_dicts hold different keys")
+    return {k: torch.stack([sd[k].float() for sd in state_dicts]) for k in keys}
+
+
+def unstack_state_dict(stacked: Mapping[str, torch.Tensor], e: int) -> Dict[str, torch.Tensor]:
+    """Entity e's ``state_dict`` (CPU tensors) out of stacked weights."""
+    return {k: v[e].detach().cpu().clone() for k, v in stacked.items()}
 
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,122 @@
+"""The port's sweep CLI against ``tests/test_sweep.py``'s cases, on the CPU.
+
+- Sequential and ``--batched`` sweeps over two synthetic SMD entities (38
+  features, lookback 20, hidden 16, one epoch; ragged train lengths in the
+  batched one): each entity's run directory (``model.pt``, ``config.txt``,
+  ``summary.txt``), ``sweep_summary.json`` and its aggregate; the batched
+  run's ``model.pt`` scores to its ``summary.txt`` again through
+  ``predict_cli``, and ``--auto_resume`` picks its fleet state up.
+- A ``knn:K`` feature graph in the batched sweep is resolved once from the
+  concatenated train series: the same edges as the JAX package's.
+- ``aggregate`` equals the JAX package's on the same dict.
+- ``--mesh_devices`` raises naming Queue 1 item 8, ``--batched
+  --attention_impl pallas`` naming item 7b.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from mtad_gat_tpu.cli.sweep_cli import aggregate as jax_aggregate
+from mtad_gat_tpu.data import get_data as jax_get_data
+from mtad_gat_tpu.graph import knn_edges_from_series as jax_knn_edges
+from mtad_gat_tpu_torch.cli import predict_cli, sweep_cli
+from mtad_gat_tpu_torch.config import RunConfig
+from mtad_gat_tpu_torch.data import write_smd_like
+
+torch.set_num_threads(1)
+
+SMALL = ["--lookback", "20", "--epochs", "1", "--bs", "32", "--gru_hid_dim", "16",
+         "--fc_hid_dim", "16", "--fc_n_layers", "1", "--recon_hid_dim", "16",
+         "--log_tensorboard", "False", "--device", "cpu"]
+
+
+def _entities(tmp_path, lengths):
+    root = tmp_path / "datasets"
+    for i, (group, n) in enumerate(lengths):
+        write_smd_like(str(root), group=group, n_train=n, n_test=200, seed=i)
+    return root
+
+
+def _argv(root, out, *extra):
+    return [*SMALL, "--data_root", str(root), "--output_root", str(out), *extra]
+
+
+def _summary(out):
+    with open(out / "SMD" / "sweep_summary.json") as f:
+        return json.load(f)
+
+
+def test_sweep_two_entities(tmp_path):
+    root = _entities(tmp_path, [("1-1", 300), ("1-2", 300)])
+    assert sweep_cli.discover_smd_entities(str(root)) == ["1-1", "1-2"]
+    out = tmp_path / "output"
+    results = sweep_cli.main(_argv(root, out, "--run_id", "seq"))
+    assert set(results) == {"1-1", "1-2"}
+    sweep = _summary(out)
+    assert sweep["aggregate"]["bf_result"]["n_entities"] == 2
+    assert 0.0 <= sweep["aggregate"]["bf_result"]["micro_f1"] <= 1.0
+    for group in ("1-1", "1-2"):
+        assert (out / "SMD" / group / "seq" / "model.pt").exists()
+
+
+def test_sweep_batched_two_entities(tmp_path):
+    """Ragged lengths, a knn:3 feature graph shared by the fleet (the JAX
+    package's edges from the concatenated train series), each entity's run
+    scored again by ``predict_cli``, and a resumed fleet."""
+    root = _entities(tmp_path, [("1-1", 300), ("1-2", 260)])
+    out = tmp_path / "output"
+    results = sweep_cli.main(_argv(root, out, "--batched", "--run_id", "b",
+                                   "--feature_graph", "knn:3"))
+    assert set(results) == {"1-1", "1-2"}
+    series = np.concatenate([jax_get_data(f"machine-{g}", data_root=str(root),
+                                          normalize=True)[0][0]
+                             for g in ("1-1", "1-2")])
+    src, dst = jax_knn_edges(series, 3)
+    for group in ("1-1", "1-2"):
+        d = out / "SMD" / group / "b"
+        for name in ("model.pt", "config.txt", "summary.txt"):
+            assert (d / name).exists(), name
+        cfg = RunConfig.load(str(d / "config.txt"))
+        assert cfg.group == group
+        assert cfg.feature_edges == [list(map(int, src)), list(map(int, dst))]
+        with open(d / "summary.txt") as f:
+            want = json.load(f)
+        got = predict_cli.main(["--dataset", "SMD", "--group", group, "--model_id", "b",
+                                "--data_root", str(root), "--output_root", str(out),
+                                "--device", "cpu", "--torch_ckpt", str(d / "model.pt")])
+        assert got["bf_result"]["f1"] == pytest.approx(want["bf_result"]["f1"], abs=1e-6)
+    assert _summary(out)["aggregate"]["bf_result"]["n_entities"] == 2
+    fleet_state = out / "SMD" / "fleet" / "b" / "fleet_state.pt"
+    assert fleet_state.exists()
+    # a resumed fleet has its epoch done: it skips it and scores the same
+    again = sweep_cli.main(_argv(root, out, "--batched", "--run_id", "b", "--auto_resume",
+                                 "True", "--feature_graph", "knn:3"))
+    assert again == results
+
+
+def test_aggregate_micro_equals_the_jax_aggregate():
+    results = {
+        "a": {"bf_result": {"f1": 1.0, "TP": 10, "FP": 0, "FN": 0},
+              "epsilon_result": {"f1": 0.5, "TP": 3, "FP": 3, "FN": 3}},
+        "b": {"bf_result": {"f1": 0.0, "TP": 0, "FP": 5, "FN": 5}, "pot_result": {}},
+    }
+    agg = sweep_cli.aggregate(results)
+    assert agg["bf_result"]["mean_f1"] == 0.5
+    assert agg["bf_result"]["micro_precision"] < 1.0
+    assert agg == jax_aggregate(results)
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--mesh_devices", "2"], "Queue 1 item 8"),
+    (["--batched", "--mesh_devices", "-1"], "Queue 1 item 8"),
+    (["--batched", "--attention_impl", "pallas"], "Queue 1 item 7b"),
+])
+def test_sweep_refusals(extra, match, tmp_path):
+    root = _entities(tmp_path, [("1-1", 200)])
+    with pytest.raises(NotImplementedError, match=match):
+        sweep_cli.main(_argv(root, tmp_path / "output", *extra))
+    assert not os.path.exists(tmp_path / "output" / "SMD" / "sweep_summary.json")
