@@ -1,21 +1,23 @@
-"""K1, K1-res, K3 and K4 of one checkout at G = 1 on one NVIDIA GPU, so that a
-tree that gave K1 and K3 an entity axis can be held against its parent bit
+"""K1, K1-res, K2ab, K3 and K4 of one checkout at G = 1 on one NVIDIA GPU, so
+that a tree that gave them an entity axis can be held against its parent bit
 for bit and time for time in one call.
 
     python3 bench_fleet_torch.py [--root DIR] [--seed N] [--label NAME]
 
 Imports ``mtad_gat_tpu_torch`` from DIR (default: this checkout), builds its
-``gat_fwd``, ``gru_fwd`` and ``gru_bwd`` kernels there, and on inputs drawn
-from ``--seed`` (the same in every tree) calls through the wrappers, with
-ungrouped weights: K1 (the whole-graph kernel as planned and the tiled one
-forced) and K1-res (both, dropout 0.3) at the SMD flagship's two attention
+``gat_fwd``, ``gat_bwd``, ``gru_fwd`` and ``gru_bwd`` kernels there, and on
+inputs drawn from ``--seed`` (the same in every tree) calls through the
+wrappers, with ungrouped weights: K1 (the whole-graph kernel as planned and
+the tiled one forced), K1-res (both, dropout 0.3) and K2ab (dropout 0.3,
+with and without dbias; both also in bfloat16) at the SMD flagship's two attention
 layers (batch 256: N 38, E 200, D 100 and N 100, E 76, D 38) and at batch 1,
 K3 at hidden 150 (the cluster variant) and 384 (streaming) at batch 256 and
 1, and K4 (the scan and the weights product) at hidden 150 and 384, all
 float32 with bias. One JSON line per (shape, kernel) with its device time
 from a CUDA graph of 20 calls (``graph_ms``) and the sha256 of its outputs'
 bytes; the card's name and power limit first, then the registers and
-spills ptxas gave each GRU kernel. A comparison runs parent, change,
+spills ptxas gave each GRU kernel and each whole-graph attention kernel. A
+comparison runs parent, change,
 change, parent in one call:
 
     git archive <parent> | tar -x -C build/parent
@@ -77,7 +79,7 @@ def _flat(x) -> list:
 def sha(tensors) -> str:
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -113,12 +115,14 @@ def main() -> None:
                          timeout=60).stdout.strip().splitlines()[0]
     label = args.label or root
     t0 = time.perf_counter()
-    _build.build_all(["gat_fwd", "gru_fwd", "gru_bwd"])
+    _build.build_all(["gat_fwd", "gat_bwd", "gru_fwd", "gru_bwd"])
     print(json.dumps({"card": smi, "root": root, "label": label, "package": kg.__file__,
                       "build_seconds": time.perf_counter() - t0}), flush=True)
-    for name in ("gru_fwd", "gru_bwd"):
-        print(json.dumps({"label": label, "ptxas": name, "kernels": ptxas(_build.build_log(name))}),
-              flush=True)
+    for name in ("gat_fwd", "gat_bwd", "gru_fwd", "gru_bwd"):
+        kernels = ptxas(_build.build_log(name))
+        if name.startswith("gat"):
+            kernels = [k for k in kernels if "_graph_kernel" in k]
+        print(json.dumps({"label": label, "ptxas": name, "kernels": kernels}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     r = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(dev)  # noqa
@@ -145,6 +149,23 @@ def main() -> None:
                 report(name, f"k1res {variant}",
                        lambda: kg.gatv2_attention_res(p, q, a, bias, v, ALPHA, seed, RATE,
                                                       variant=variant), **dims)
+            _, u, m, l = kg.gatv2_attention_res(p, q, a, bias, v, ALPHA, seed, RATE)
+            sig = torch.sigmoid(u)
+            du = r(B, N, D) * sig * (1 - sig)
+            dvec = (du * u).sum(-1)
+            for db in (True, False):
+                report(name, f"k2ab {'dbias' if db else 'no dbias'}",
+                       lambda: kg.gatv2_bwd_graph(p, q, a, bias, v, m, l, du, dvec, ALPHA, seed,
+                                                  RATE, dbias=db), **dims)
+            # bfloat16 K1-res and K2ab (whole graph, dropout), on the same values
+            pb, qb, ab, vb = (t.to(torch.bfloat16) for t in (p, q, a, v))
+            report(name, "k1res graph bf16",
+                   lambda: kg.gatv2_attention_res(pb, qb, ab, bias, vb, ALPHA, seed, RATE), **dims)
+            _, ub, mb, lb = kg.gatv2_attention_res(pb, qb, ab, bias, vb, ALPHA, seed, RATE)
+            for db in (True, False):
+                report(name, f"k2ab {'dbias' if db else 'no dbias'} bf16",
+                       lambda: kg.gatv2_bwd_graph(pb, qb, ab, bias, vb, mb, lb, du, dvec, ALPHA,
+                                                  seed, RATE, dbias=db), **dims)
     for name, B, T, H in GRU:
         gi = r(B, T, 3 * H)
         w_hh, b_hh = r(H, 3 * H, scale=H ** -0.5), r(3 * H, scale=H ** -0.5)

@@ -126,7 +126,7 @@ def k2ab_dbias(call, group: int):
     f32 = dict(dtype=torch.float32, device=p.device)
     dp, dq, dv = torch.empty_like(p), torch.empty_like(q), torch.empty_like(v)
     da_part, part = torch.empty((B, E), **f32), torch.empty((-(-B // group), N, N), **f32)
-    kg._bwd_launch(3, "gatv2_bwd_graph", *call, (dp, dq, dv, da_part, part), (group,))
+    kg._bwd_launch(3, *call, (dp, dq, dv, da_part, part), (group, B))
     return dp, dq, da_part.sum(dim=0), dv, part
 
 
@@ -136,7 +136,7 @@ def sweep_groups(lib, layer, call, want, groups) -> None:
     B, N, E = p.shape
     D = v.shape[-1]
     occupancy = {f"{dt}{'_dbias' if db else ''}": lib.gatv2_bwd_graph_occupancy(
-        N, E, D, dt == "bf16", 1, db) for dt in ("f32", "bf16") for db in (0, 1)}
+        N, E, D, dt == "bf16", 1, db, 0) for dt in ("f32", "bf16") for db in (0, 1)}
     plain = lambda: kg.gatv2_bwd_graph(*call)  # noqa: E731
     k2c = lambda: kg.gatv2_bwd_dbias(*call)  # noqa: E731
     base = {"layer": layer, "B": B, "N": N, "E": E, "D": D,

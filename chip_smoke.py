@@ -218,24 +218,40 @@ In order, each phase failing the run with a non-zero exit:
     ``vmap(grad(...))`` of a GRU-scan loss over 28 entities' stacked weights
     launching K3, K4's scan and K4's weights once each, states and dgi equal
     to 28 solo ``grad`` calls bit for bit, dW_hh and db_hh within
-    ``K4_TOL``, timed beside them; the dense layers' byte model for the
-    fleet at batch 64 and 256; then 28 synthetic SMD machines (``write_smd``
-    from seeds 1-28, 1,600-2,400 rows) trained by ``sweep_cli.main
-    --batched`` at the flagship widths, batch 64, dropout 0.3, 1 epoch,
-    float32: exactly two K3, K4 scan and K4 weights launches a fleet step,
-    each vmap rule twice a step and the keep-mask rule once a dropout site,
-    no attention kernel and no plain GRU call, every entity's summary
-    finite, ``predict_cli`` reproducing one; three machines (700, 620 and
-    780 rows) against their solo ``Trainer``s at dropout 0 and 0.3 (losses
-    and params within ``FLEET_PARITY_TOL``); then all-entity windows/s, step
-    p50 and p99 on the device's clock, peak memory and a profiled epoch, and
-    ``sweep_cli.main`` without ``--batched`` on the same data (28 solo
-    trainers one after another) for its windows/s;
+    ``K4_TOL``, timed beside them; K1-res and K2ab with an entity axis at
+    G 28, 64 and 256 rows a group, both layers, dropout 0.3 with a seed an
+    entity (float32, and bfloat16 at the feature layer's 64 rows), each
+    equal to its 28 ungrouped launches bit for bit (K2ab with dbias, da and
+    dbias an entity's) and within ``TRAIN_TOL`` of the grouped plain
+    version, the grouped and ungrouped K2ab's blocks a multiprocessor equal,
+    timed by CUDA graph beside the 28 launches; the attention under
+    gradients: ``vmap(grad(...))`` over 28 entities launching K1-res and
+    K2ab once each a layer, within ``TRAIN_TOL`` of 28 solo ``grad`` calls;
+    the dense layers' byte model for the fleet at batch 64 and 256; then 28
+    synthetic SMD machines (``write_smd`` from seeds 1-28, 1,600-2,400 rows)
+    trained by ``sweep_cli.main --batched`` at the flagship widths, dropout
+    0.3, 1 epoch, float32, with dense attention at batch 64 and with
+    ``--attention_impl pallas --gru_impl pallas`` at batch 64 and 256:
+    exactly two K3, K4 scan and K4 weights launches a fleet step and each
+    GRU rule twice a step, dense: no attention kernel and the keep-mask
+    rule once at each of 5 dropout sites, kernels: two K1-res (whole graph)
+    and two K2ab with dbias a step, their rules twice, the keep-mask rule at
+    3 sites and the seed rule at 2, no plain attention call; no plain GRU
+    call, every entity's summary finite, ``predict_cli`` reproducing one;
+    three machines (700, 620 and 780 rows) against their solo ``Trainer``s
+    at dropout 0 and 0.3, dense and through the kernels (losses within
+    ``FLEET_PARITY_TOL``, params at dropout 0; at 0.3 the keep masks and the
+    hash seeds bit for bit); then all-entity windows/s, step p50 and p99 on
+    the device's clock, peak memory and a profiled epoch of the dense fleet
+    at batch 64 and the kernel fleet at 64 and 256, and ``sweep_cli.main``
+    without ``--batched`` on the same data (28 solo trainers one after
+    another) for its windows/s;
 18. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
     path, serving's, fleet serving's, fleet training's and long_complete's included, the tiled kernels' times
     at the route's N, K2b's with and without dbias, K2c's forced times and
     where dbias now comes from, and K1's and K3's serving launches and
-    batch-1 times, and their grouped launches at G 28; the merge, the
+    batch-1 times, and their grouped launches at G 28, K1-res's and K2ab's
+    fleet-training launches and grouped times; the merge, the
     CHUNKED K2a and K2b, the chunked K2c and the streamed backward as rows
     of their own) and, last, ``{"ok": true, ...}``.
 
@@ -965,11 +981,12 @@ def k2b_group_cost(kg, args, ref, outs, sms: int, tol: float) -> dict:
     return out
 
 
-def graph_occupancy(lib, N: int, E: int, D: int) -> dict:
-    """Blocks of each K2ab instantiation (type, dropout, dbias) that one
-    multiprocessor holds at once, by CUDA's occupancy calculator."""
+def graph_occupancy(lib, N: int, E: int, D: int, grouped: int = 0) -> dict:
+    """Blocks of each K2ab instantiation (type, dropout, dbias; the grouped
+    one with ``grouped``) that one multiprocessor holds at once, by CUDA's
+    occupancy calculator."""
     return {f"{dt}{'_dropout' if drop else ''}{'_dbias' if db else ''}":
-            lib.gatv2_bwd_graph_occupancy(N, E, D, dt == "bf16", drop, db)
+            lib.gatv2_bwd_graph_occupancy(N, E, D, dt == "bf16", drop, db, grouped)
             for dt in ("f32", "bf16") for drop in (0, 1) for db in (0, 1)}
 
 
@@ -3676,6 +3693,189 @@ def check_k3_under_grad(gen, dev) -> dict:
     return out
 
 
+# the attention's training kernels in a fleet step: both SMD layers (N, E,
+# D), dropout 0.3
+FLEET_ATTENTION_LAYERS = (("feature", 38, 200, 100), ("temporal", 100, 76, 38))
+FLEET_RATE = 0.3
+
+
+def fleet_attention_bounds(B, G, N, E, D, size) -> dict:
+    """K1-res's and K2ab's (with dbias) bounds at batch B in G groups, as
+    ``time_training_kernels`` reckons them (PERF.md section 6), with a
+    (G, E) and bias, da and dbias (G, N, N)."""
+    pairs = B * N * N
+    in_bytes = (2 * B * N * E + G * E + B * N * D) * size + G * N * N * 4
+    stats = 3 * B * N * 4 + B * N * D * 4
+    return {"k1res": bound(pairs * (4 * E + 2 * D), in_bytes + B * N * D * (size + 4)
+                           + 2 * B * N * 4),
+            "k2ab": bound(pairs * (8 * E + 4 * D + 5), in_bytes + stats
+                          + B * N * (2 * E + D) * size + G * E * 4 + G * N * N * 4)}
+
+
+def check_grouped_attention(gen, dev) -> dict:
+    """K1-res and K2ab with an entity axis at the flagship's two layers, G 28
+    at 64 and 256 rows a group, dropout 0.3 with one seed an entity, bias,
+    float32, and one bfloat16 case (the feature layer at 64 rows): each
+    grouped launch against its 28 ungrouped launches bit for bit (each
+    entity's a, bias, seed and batch index within the entity; K2ab with
+    dbias, da (G, E) and dbias (G, N, N) each summed over the entity's own
+    rows in its launch's order) and the grouped plain version
+    (``TRAIN_TOL``), timed by CUDA graph beside the 28 launches, with its
+    bound."""
+    from mtad_gat_tpu_torch.kernels import gat as kg
+
+    G = len(FLEET_GROUPS)
+    cases = [(layer, N, E, D, rows, torch.float32) for layer, N, E, D in FLEET_ATTENTION_LAYERS
+             for rows in FLEET_TRAIN_ROWS] + [("feature", 38, 200, 100, 64, torch.bfloat16)]
+    out = {}
+    for layer, N, E, D, rows, dtype in cases:
+        B = G * rows
+        p, q, _, _, v = gat_case(gen, dev, B, N, E, D, dtype, False)
+        a = (torch.randn(G, E, generator=gen) * (6.0 / (E + 1)) ** 0.5).to(dev).to(dtype)
+        bias = (0.1 * torch.randn(G, N, N, generator=gen)).to(dev)
+        seeds = torch.randint(0, 2**32, (G,), generator=gen, dtype=torch.int64).to(dev)
+        sl = lambda t, g: t[g * rows:(g + 1) * rows]  # noqa: E731
+        res = lambda: kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seeds, FLEET_RATE)  # noqa
+
+        def res_per():
+            return [kg.gatv2_attention_res(sl(p, g), sl(q, g), a[g], bias[g], sl(v, g), 0.2,
+                                           seeds[g:g + 1], FLEET_RATE) for g in range(G)]
+
+        got = res()
+        fwd_launch = dict(kg.gatv2_attention_res.last_launch)
+        per = res_per()
+        want = kg.gatv2_attention_res_plain(p, q, a, bias, v, 0.2, seeds, FLEET_RATE)
+        _, u, m, l = got
+        sig = torch.sigmoid(u)
+        du = torch.randn(B, N, D, generator=gen).to(dev) * sig * (1 - sig)
+        dvec = (du * u).sum(-1)
+        args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seeds, FLEET_RATE)
+        bwd = lambda: kg.gatv2_bwd_graph(*args, dbias=True)  # noqa: E731
+
+        def bwd_per():
+            return [kg.gatv2_bwd_graph(*(sl(t, g) for t in (p, q)), a[g], bias[g], sl(v, g),
+                                       *(sl(t, g) for t in (m, l, du, dvec)), 0.2,
+                                       seeds[g:g + 1], FLEET_RATE, dbias=True)
+                    for g in range(G)]
+
+        grads = bwd()
+        bwd_launch = dict(kg.gatv2_bwd_graph.last_launch)
+        grads_per = bwd_per()
+        ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, seeds, FLEET_RATE)
+        torch.cuda.synchronize()
+        fwd_same = all(torch.equal(x, torch.cat([y[k] for y in per])) for k, x in enumerate(got))
+        bwd_same = {name: torch.equal(grads[k], (torch.stack if name in ("da", "dbias")
+                                                 else torch.cat)([y[k] for y in grads_per]))
+                    for k, name in enumerate(("dp", "dq", "da", "dv", "dbias"))}
+        ferr = forward_errors(got, want)
+        gerr, gabs = grad_errors(grads, ref, grads[4])
+        tol = TRAIN_TOL[dtype]
+        bounds = fleet_attention_bounds(B, G, N, E, D, p.dtype.itemsize)
+        calls = 3 if B > 2048 else 10
+        times = {}
+        for key, fn, per_fn in (("k1res", res, res_per), ("k2ab", bwd, bwd_per)):
+            times[key] = {"graph_ms": graph_ms(fn, calls=calls, replays=3),
+                          "G_launches_graph_ms": graph_ms(per_fn, calls=1, replays=3),
+                          "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+        rec = {"phase": "fleet_training", "case": f"grouped K1-res and K2ab with dbias, {layer} "
+               f"layer ({B}, {N}, {E}, {D}), {str(dtype).replace('torch.', '')}, dropout "
+               f"{FLEET_RATE}, one seed an entity", "G": G, "rows_per_group": rows,
+               "k1res_launch": fwd_launch, "k2ab_launch": bwd_launch,
+               "k1res_identical_to_G_launches": fwd_same,
+               "k2ab_identical_to_G_launches": bwd_same,
+               "forward_err": ferr, "grad_rel_err": gerr, "grad_abs_err": gabs, "tol": tol,
+               "dbias_group": bwd_launch["group"],
+               "occupancy_grouped": graph_occupancy(kg._bwd_lib(), N, E, D, 1),
+               "occupancy_ungrouped": graph_occupancy(kg._bwd_lib(), N, E, D, 0), **times,
+               "what": "graph_ms: the grouped launch's device time from a CUDA graph; "
+                       "G_launches_graph_ms: its 28 ungrouped launches'; K2ab's include the "
+                       "sums of da and dbias, entity by entity"}
+        emit(rec)
+        if (not fwd_same or not all(bwd_same.values()) or fwd_launch["groups"] != G
+                or fwd_launch["variant"] != "graph" or bwd_launch["groups"] != G
+                or any(not e <= tol["forward"][k] for k, e in ferr.items())
+                or not max(gerr.values()) <= tol["grad"]
+                or rec["occupancy_grouped"] != rec["occupancy_ungrouped"]):
+            raise AssertionError(f"grouped K1-res and K2ab ({layer}, {rows} rows): {rec}")
+        out[(layer, rows, str(dtype).replace("torch.", ""))] = rec
+        del p, q, v, got, per, want, grads, grads_per, ref, du, dvec, u, m, l, sig
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_attention_under_grad(gen, dev) -> dict:
+    """The attention with gradients and dropout in a fleet step:
+    ``vmap(grad(...))`` of a loss of ``gatv2_attention`` over 28 entities'
+    stacked a and bias and their seeds, 64 rows an entity, at both layers,
+    float32: exactly one grouped K1-res and one K2ab launch (dbias summed),
+    each vmap rule once; every gradient within ``TRAIN_TOL`` of the 28 solo
+    ``grad`` calls' (and whether their bits are equal); timed by CUDA graph
+    beside the solo calls."""
+    from torch.func import grad, vmap
+
+    from mtad_gat_tpu_torch.kernels import gat as kg
+
+    G, rows = len(FLEET_GROUPS), FLEET_TRAIN_BS
+    out = {}
+    for layer, N, E, D in FLEET_ATTENTION_LAYERS:
+        r = lambda *s, scale=1.0: (scale * torch.randn(*s, generator=gen)).to(dev)  # noqa
+        p, q, v = r(G, rows, N, E, scale=0.5), r(G, rows, N, E, scale=0.5), r(G, rows, N, D)
+        a, bias = r(G, E, scale=(6.0 / (E + 1)) ** 0.5), r(G, N, N, scale=0.1)
+        cot = r(G, rows, N, D)
+        seeds = torch.randint(0, 2**32, (G, 1), generator=gen, dtype=torch.int64).to(dev)
+
+        def loss(p_e, q_e, a_e, bias_e, v_e, s_e, c_e):
+            return (kg.gatv2_attention(p_e, q_e, a_e, bias_e, v_e, 0.2, s_e, FLEET_RATE)
+                    * c_e).sum()
+
+        fleet = lambda: vmap(grad(loss, argnums=(0, 1, 2, 3, 4)))(  # noqa: E731
+            p, q, a, bias, v, seeds, cot)
+
+        def solo():
+            return [grad(loss, argnums=(0, 1, 2, 3, 4))(p[g], q[g], a[g], bias[g], v[g],
+                                                         seeds[g], cot[g]) for g in range(G)]
+
+        reset_counts()
+        rules = (kg._gatv2_attention_res_vmap.calls, kg._gatv2_attention_bwd_vmap.calls)
+        got = fleet()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rule_calls = (kg._gatv2_attention_res_vmap.calls - rules[0],
+                      kg._gatv2_attention_bwd_vmap.calls - rules[1])
+        groups = (kg.gatv2_attention_res.last_launch["groups"],
+                  kg.gatv2_bwd_graph.last_launch["groups"])
+        per = solo()
+        torch.cuda.synchronize()
+        names = ("dp", "dq", "da", "dbias", "dv")
+        err = {n: max(rel_err(got[k][g], per[g][k]) for g in range(G))
+               for k, n in enumerate(names)}
+        same = {n: all(torch.equal(got[k][g], per[g][k]) for g in range(G))
+                for k, n in enumerate(names)}
+        B = G * rows
+        bounds = fleet_attention_bounds(B, G, N, E, D, 4)
+        rec = {"phase": "fleet_training", "case": f"the attention under gradients, vmap(grad) "
+               f"over {G} entities, {layer} layer ({B}, {N}, {E}, {D}), dropout {FLEET_RATE}",
+               "G": G, "rows_per_group": rows,
+               "launches": {k: v for k, v in counts.items() if v}, "groups": groups,
+               "vmap_rule_calls": rule_calls, "rel_err_vs_G_solo_calls": err,
+               "identical_to_G_solo_calls": same, "tol": TRAIN_TOL[torch.float32]["grad"],
+               "graph_ms": graph_ms(fleet, calls=2, replays=3),
+               "G_solo_calls_graph_ms": graph_ms(solo, calls=1, replays=2),
+               "bound_ms": bounds["k1res"][0] + bounds["k2ab"][0],
+               "what": "forward K1-res, backward K2ab with dbias and the entity sums, and the "
+                       "autograd glue (du, dvec); bound: K1-res's and K2ab's"}
+        emit(rec)
+        want = {"gatv2_attention_res": 1, "gatv2_attention_res:graph": 1, "gatv2_bwd_graph": 1,
+                "gatv2_bwd_graph:dbias": 1}
+        if (rec["launches"] != want or groups != (G, G) or rule_calls != (1, 1)
+                or not max(err.values()) <= TRAIN_TOL[torch.float32]["grad"]):
+            raise AssertionError(f"the attention under gradients ({layer}): {rec}")
+        out[layer] = rec
+        del p, q, v, cot, got, per
+        torch.cuda.empty_cache()
+    return out
+
+
 def fleet_lengths() -> list:
     """Ragged train lengths of the fleet's 28 machines, 1,600 to 2,400 rows."""
     n = len(FLEET_GROUPS)
@@ -3686,7 +3886,8 @@ class FleetProbe:
     """Wraps ``MultiEntityTrainer.train_epoch`` and ``Trainer.train_epoch``
     for the length of a ``with``: each epoch's seconds (synchronised on
     both sides), its real windows, its launches by kernel and the vmap
-    rules' calls, and CUDA events at the start of each fleet step (from
+    rules' calls (K3's, K4's, the keep mask's, K1-res's, the attention
+    backward's, the hash seed's), and CUDA events at the start of each fleet step (from
     ``_generators``, which a step calls first) for the step times."""
 
     def __init__(self):
@@ -3698,8 +3899,12 @@ class FleetProbe:
 
     def __enter__(self):
         from mtad_gat_tpu_torch.graph import dropout as gdrop
+        from mtad_gat_tpu_torch.kernels import gat as kg
         from mtad_gat_tpu_torch.kernels import gru as kgru
 
+        rule_fns = (kgru._gru_scan_fwd_vmap, kgru._gru_scan_bwd_vmap,
+                    gdrop._entity_keep_mask_vmap, kg._gatv2_attention_res_vmap,
+                    kg._gatv2_attention_bwd_vmap, gdrop._entity_seed_vmap)
         probe = self
         fleet_epoch, solo_epoch = self.fleet_cls.train_epoch, self.solo_cls.train_epoch
         fleet_gens = self.fleet_cls._generators
@@ -3709,8 +3914,7 @@ class FleetProbe:
             def run(trainer, series, starts, mask, *rest):
                 torch.cuda.synchronize()
                 before = read_counts()
-                rules = (kgru._gru_scan_fwd_vmap.calls, kgru._gru_scan_bwd_vmap.calls,
-                         gdrop._entity_keep_mask_vmap.calls)
+                rules = [f.calls for f in rule_fns]
                 steps0 = trainer.fleet_steps if kind == "fleet" else trainer.step
                 t0 = time.perf_counter()
                 res = fn(trainer, series, starts, mask, *rest)
@@ -3723,9 +3927,7 @@ class FleetProbe:
                     "windows": int(mask.sum().item()),
                     "steps": (trainer.fleet_steps if kind == "fleet" else trainer.step) - steps0,
                     "launches": {k: v - before[k] for k, v in read_counts().items()},
-                    "rule_calls": (kgru._gru_scan_fwd_vmap.calls - rules[0],
-                                   kgru._gru_scan_bwd_vmap.calls - rules[1],
-                                   gdrop._entity_keep_mask_vmap.calls - rules[2])})
+                    "rule_calls": tuple(f.calls - r for f, r in zip(rule_fns, rules))})
                 return res
             return run
 
@@ -3753,16 +3955,26 @@ class FleetProbe:
         return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
 
 
-def expect_fleet_epoch(name: str, epoch: dict, dropout: float, sites: int = 5) -> None:
+def expect_fleet_epoch(name: str, epoch: dict, dropout: float, kernels: bool = False) -> None:
     """Exactly two K3, K4 scan and K4 weights launches a fleet step (the
-    encoder's and the decoder's GRU), no attention kernel (the fleet's
-    attention is dense), and each vmap rule once a GRU a step; at dropout the
-    keep-mask rule once a dropout site a step."""
+    encoder's and the decoder's GRU) and each GRU rule once a GRU a step;
+    with the attention dense no attention kernel, at dropout the keep-mask
+    rule once at each of 5 dropout sites a step; with ``kernels`` (the
+    attention through them) also two K1-res (whole graph) and two K2ab
+    launches with dbias a step and their rules twice, nothing else of the
+    attention's, and at dropout the keep-mask rule at 3 sites and the seed
+    rule at 2 (the layers' hash masks) a step."""
     steps = epoch["steps"]
     want = {"gru_scan_fwd": 2 * steps, "gru_scan_bwd": 2 * steps,
             "gru_weight_grads": 2 * steps}
+    if kernels:
+        want.update({k: 2 * steps for k in ("gatv2_attention_res", "gatv2_attention_res:graph",
+                                             "gatv2_bwd_graph", "gatv2_bwd_graph:dbias")})
     wrong = {k: v for k, v in epoch["launches"].items() if v != want.get(k, 0)}
-    rules = (2 * steps, 2 * steps, sites * steps if dropout else 0)
+    masks, seeds = (3, 2) if kernels else (5, 0)
+    attn = 2 * steps if kernels else 0
+    rules = (2 * steps, 2 * steps, masks * steps if dropout else 0, attn, attn,
+             seeds * steps if dropout else 0)
     if wrong or tuple(epoch["rule_calls"]) != rules:
         raise AssertionError(f"{name}: launches {epoch['launches']}, rule calls "
                              f"{epoch['rule_calls']}; expected {want} and {rules}")
@@ -3787,14 +3999,37 @@ def recorded_draws():
         torch.bernoulli = real
 
 
-def check_fleet_parity(data_root, dev) -> dict:
+@contextlib.contextmanager
+def recorded_seeds():
+    """Every int64 ``torch.randint`` output while the block runs, in order:
+    the solo layers' hash seeds and the fleet's, which the seed rule draws
+    an entity at a time."""
+    real, draws = torch.randint, []
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        if kw.get("dtype") == torch.int64:
+            draws.append(out.reshape(-1))
+        return out
+
+    torch.randint = record
+    try:
+        yield draws
+    finally:
+        torch.randint = real
+
+
+def check_fleet_parity(data_root, dev, impl: str = "dense") -> dict:
     """Three of the fleet's machines (their first 700, 620 and 780 train
     rows, so that padded batches occur), flagship widths, batch 64, 1
     epoch, float32, TF32 off: ``MultiEntityTrainer`` against a solo
-    ``Trainer`` each, same seed, at dropout 0 and 0.3. At both, each
+    ``Trainer`` each, same seed, at dropout 0 and 0.3, the attention
+    ``impl`` ("dense", or "pallas": the grouped K1-res and K2ab against the
+    solo kernels). At both, each
     entity's six loss series (training and validation) and every step's
     training losses within ``FLEET_PARITY_TOL``; at 0.3 each entity's keep
-    masks those of its solo trainer bit for bit, at every site of every
+    masks, and with the kernels its layers' hash seeds, those of its solo
+    trainer bit for bit, at every site of every
     step (``EntityGenerators``). Parameters within ``FLEET_PARITY_TOL`` at
     dropout 0; at 0.3 their largest difference is reported, not held: the
     fleet's batched products round otherwise than one entity's, and where a
@@ -3809,21 +4044,25 @@ def check_fleet_parity(data_root, dev) -> dict:
 
     series = [get_data(f"machine-{g}", data_root=data_root, normalize=True)[0][0][:n]
               for g, n in zip(FLEET_GROUPS, FLEET_PARITY_ROWS)]
-    E, sites = len(series), 5
+    kernels = impl == "pallas"
+    E, sites, seed_sites = len(series), (3 if kernels else 5), (2 if kernels else 0)
     out = {}
     for dropout in (0.0, 0.3):
-        cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, dropout=dropout, log_tensorboard=False)
+        cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, dropout=dropout, log_tensorboard=False,
+                        attention_impl=impl, gru_impl="pallas")
         mc, tc = cfg.model_config(38, 38), cfg.train_config()
-        with FleetProbe() as probe, recorded_draws() as fleet_draws:
+        with FleetProbe() as probe, recorded_draws() as fleet_draws, \
+                recorded_seeds() as fleet_seeds:
             fleet = MultiEntityTrainer(mc, tc, device=str(dev))
             fleet.fit(series, verbose=False)
-        expect_fleet_epoch(f"fleet parity, dropout {dropout}", probe.epochs[0], dropout)
+        expect_fleet_epoch(f"fleet parity ({impl}), dropout {dropout}", probe.epochs[0],
+                           dropout, kernels)
         loss_err, step_err, param_err, worst, masks_equal = 0.0, 0.0, 0.0, [], True
         for e, s in enumerate(series):
             solo = Trainer(mc, tc, log_dir=os.path.join(data_root, f"parity_logs_{e}"),
                            device=str(dev))
             solo.init_state()
-            with recorded_draws() as solo_draws:
+            with recorded_draws() as solo_draws, recorded_seeds() as solo_seeds:
                 solo.fit(s)
             for key, vals in solo.losses.items():
                 loss_err = max(loss_err, float(np.max(np.abs(
@@ -3839,15 +4078,21 @@ def check_fleet_parity(data_root, dev) -> dict:
                     torch.equal(solo_draws[k * sites + i],
                                 fleet_draws[(k * sites + i) * E + e])
                     for k in range(n) for i in range(sites))
+                masks_equal &= len(solo_seeds) == n * seed_sites and all(
+                    torch.equal(solo_seeds[k * seed_sites + i],
+                                fleet_seeds[(k * seed_sites + i) * E + e])
+                    for k in range(n) for i in range(seed_sites))
             else:
-                masks_equal &= not (solo_draws or fleet_draws)
+                masks_equal &= not (solo_draws or fleet_draws or solo_seeds or fleet_seeds)
             got = fleet.entity_params(e)
             errs = {k: (got[k] - v.cpu()).abs().max().item()
                     for k, v in solo.model.state_dict().items()}
             param_err = max(param_err, max(errs.values()))
             worst.append(max(errs, key=errs.get))
         rec = {"phase": "fleet_training", "check": f"3 entities against their solo "
-               f"trainers, dropout {dropout}, 1 epoch", "train_rows": list(FLEET_PARITY_ROWS),
+               f"trainers, attention {impl}, dropout {dropout}, 1 epoch",
+               "train_rows": list(FLEET_PARITY_ROWS),
+               "hash_seeds_compared": seed_sites * int(fleet.steps.sum()) if dropout else 0,
                "steps": [int(s) for s in fleet.steps], "fleet_steps": fleet.fleet_steps,
                "keep_masks_identical": masks_equal, "loss_max_abs_err": loss_err,
                "step_loss_max_abs_err": step_err, "param_max_abs_err": param_err,
@@ -3861,9 +4106,11 @@ def check_fleet_parity(data_root, dev) -> dict:
     return out
 
 
-def fleet_training_numbers(data_root, smi, dev) -> dict:
+def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
+                           bs: int = FLEET_TRAIN_BS) -> dict:
     """The fleet on all 28 machines outside the CLI, flagship widths, batch
-    64, dropout 0.3, a fresh ``MultiEntityTrainer`` an epoch: a warm-up
+    ``bs``, dropout 0.3, the attention ``impl`` (the GRU's kernels on), a
+    fresh ``MultiEntityTrainer`` an epoch: a warm-up
     epoch, then one timed (all-entity windows/s, each step's time on the
     device's clock, p50 and p99, peak memory above the baseline, the fleet's
     weights and Adam state included) and one profiled (busy share, device
@@ -3874,7 +4121,8 @@ def fleet_training_numbers(data_root, smi, dev) -> dict:
 
     series = [get_data(f"machine-{g}", data_root=data_root, normalize=True)[0][0]
               for g in FLEET_GROUPS]
-    cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, log_tensorboard=False)
+    cfg = RunConfig(bs=bs, epochs=1, log_tensorboard=False, attention_impl=impl,
+                    gru_impl="pallas")
 
     def train_one_epoch():
         # a fresh fleet each time: a fit on a trained one would resume past
@@ -3890,10 +4138,11 @@ def fleet_training_numbers(data_root, smi, dev) -> dict:
     with FleetProbe() as probe:
         train_one_epoch()
     epoch = probe.epochs[0]
-    expect_fleet_epoch("fleet numbers", epoch, cfg.dropout)
+    expect_fleet_epoch(f"fleet numbers ({impl}, batch {bs})", epoch, cfg.dropout,
+                       impl == "pallas")
     steps = probe.step_ms()
-    rec = {"phase": "fleet_training", "case": "numbers", "card": smi,
-           "entities": len(FLEET_GROUPS), "batch": FLEET_TRAIN_BS,
+    rec = {"phase": "fleet_training", "case": "numbers", "attention_impl": impl, "card": smi,
+           "entities": len(FLEET_GROUPS), "batch": bs,
            "train_windows": epoch["windows"], "fleet_steps": epoch["steps"],
            "epoch_seconds": epoch["seconds"],
            "windows_per_s": epoch["windows"] / epoch["seconds"],
@@ -3901,8 +4150,8 @@ def fleet_training_numbers(data_root, smi, dev) -> dict:
            "step_ms_p99": float(np.percentile(steps, 99)),
            "peak_mb_above_baseline": (torch.cuda.max_memory_allocated() - base) / 2**20}
     prof = profile_device(train_one_epoch,
-                          f"fleet training, {len(FLEET_GROUPS)} entities, batch "
-                          f"{FLEET_TRAIN_BS}, one epoch with its validation, float32")
+                          f"fleet training, {len(FLEET_GROUPS)} entities, attention {impl}, "
+                          f"batch {bs}, one epoch with its validation, float32")
     prof["phase"] = "fleet_training"
     emit(prof)
     rec["busy_share"] = prof["busy_share"]
@@ -3913,20 +4162,80 @@ def fleet_training_numbers(data_root, smi, dev) -> dict:
     return rec
 
 
+def batched_sweep(common, out_root, run_id, impl, bs) -> dict:
+    """``sweep_cli.main --batched`` on the fleet's machines at batch ``bs``,
+    the attention ``impl`` ("dense", or "pallas" with ``--gru_impl
+    pallas``), the counts set to 0 just before and read just after: the
+    launches of its training epoch as ``expect_fleet_epoch`` says (with
+    "pallas" two K1-res and two K2ab with dbias a step besides the GRU's),
+    no plain attention or GRU call in the whole run (scoring included) and
+    no attention kernel with "dense", every entity's summary finite, and
+    ``predict_cli`` reproducing the first entity's."""
+    from mtad_gat_tpu_torch.cli import predict_cli, sweep_cli
+
+    kernels = impl == "pallas"
+    extra = ["--attention_impl", "pallas", "--gru_impl", "pallas"] if kernels else []
+    argv = [*common, "--bs", str(bs), "--output_root", out_root, "--batched", "--run_id",
+            run_id, *extra]
+    reset_counts()
+    with FleetProbe() as probe, plain_calls() as plain:
+        t0 = time.perf_counter()
+        results = sweep_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = read_counts()
+    plain_counts = dict(plain)
+    epoch = probe.epochs[0]
+    name = f"sweep_cli --batched, attention {impl}, batch {bs}"
+    expect_fleet_epoch(name, epoch, 0.3, kernels)
+    steps = epoch["steps"]
+    run0 = os.path.join(out_root, "SMD", FLEET_GROUPS[0], run_id)
+    summary0 = finite_summary(os.path.join(run0, "summary.txt"))
+    for group in FLEET_GROUPS:
+        finite_summary(os.path.join(out_root, "SMD", group, run_id, "summary.txt"))
+    predict_cli.main(["--dataset", "SMD", "--group", FLEET_GROUPS[0], "--model_id", run_id,
+                      "--data_root", common[common.index("--data_root") + 1],
+                      "--output_root", out_root, "--device", "cuda"])
+    rec = {"phase": "fleet_training", "run": f"{name}, {len(FLEET_GROUPS)} machines, 1 epoch",
+           "seconds": seconds, "train_epoch_seconds": epoch["seconds"],
+           "train_windows": epoch["windows"], "fleet_steps": steps,
+           "windows_per_s": epoch["windows"] / epoch["seconds"],
+           "launches_in_train_epoch": epoch["launches"],
+           "vmap_rule_calls_in_train_epoch": epoch["rule_calls"],
+           "launches": counts, "plain_calls": plain_counts,
+           "entities_scored": len(results), "bf_f1_first": summary0["bf_result"]["f1"],
+           "predict_cli_reproduces_summary": finite_summary(
+               os.path.join(run0, "summary_1.txt")) == summary0}
+    emit(rec)
+    attention = {k: v for k, v in counts.items() if k.startswith("gatv2") and v}
+    if ((attention and not kernels) or counts["gru_scan_bwd"] != 2 * steps
+            or counts["gru_weight_grads"] != 2 * steps
+            or any(plain_counts[k] for k in ("gru_scan_fwd_plain", "gru_step"))
+            or (kernels and any(plain_counts.values()))
+            or len(results) != len(FLEET_GROUPS) or not rec["predict_cli_reproduces_summary"]):
+        raise AssertionError(f"{name}: {rec}")
+    return rec
+
+
 def check_fleet_training(gen, dev, work, smi) -> dict:
     """Phase ``fleet_training``: grouped K4 and K3 under gradients against G
-    launches and their plain versions; 28 synthetic SMD machines (ragged,
-    1,600-2,400 train rows) trained by ``sweep_cli --batched`` (1 epoch,
-    batch 64, dropout 0.3, float32): two K3, K4 scan and K4 weights launches
-    a fleet step, each entity's run written and scored, ``predict_cli``
-    reproducing one; three machines against their solo trainers at dropout
-    0 and 0.3; then the numbers, and ``sweep_cli`` without ``--batched`` on
-    the same data (28 solo trainers one after another) for its windows/s."""
-    from mtad_gat_tpu_torch.cli import predict_cli, sweep_cli
+    launches and their plain versions; grouped K1-res and K2ab against G
+    launches and theirs, and the attention under gradients; 28 synthetic SMD
+    machines (ragged, 1,600-2,400 train rows) trained by ``sweep_cli
+    --batched`` (1 epoch, dropout 0.3, float32): with dense attention at
+    batch 64, and through the attention kernels at batch 64 and 256, each
+    entity's run written and scored, ``predict_cli`` reproducing one; three
+    machines against their solo trainers at dropout 0 and 0.3, dense and
+    through the kernels; then the numbers of each, and ``sweep_cli`` without
+    ``--batched`` on the same data (28 solo trainers one after another) for
+    its windows/s."""
+    from mtad_gat_tpu_torch.cli import sweep_cli
     from mtad_gat_tpu_torch.nn.gat import dense_gatv2_bytes
 
     k4 = check_grouped_k4(gen, dev)
     k3 = check_k3_under_grad(gen, dev)
+    attention = check_grouped_attention(gen, dev)
+    attention_grad = check_attention_under_grad(gen, dev)
     root = os.path.join(work, "fleet_training")
     data_root, out_root = os.path.join(root, "data"), os.path.join(root, "output")
     for e, (group, n) in enumerate(zip(FLEET_GROUPS, fleet_lengths())):
@@ -3942,50 +4251,32 @@ def check_fleet_training(gen, dev, work, smi) -> dict:
           "(nn/gat.DENSE_BYTES, float32 with gradients)", "entities": E, **byte_model,
           "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9})
 
-    common = ["--dataset", "SMD", "--epochs", "1", "--bs", str(FLEET_TRAIN_BS),
-              "--dropout", "0.3", "--data_root", data_root, "--device", "cuda",
-              "--log_tensorboard", "False"]
-    reset_counts()
-    with FleetProbe() as probe, plain_calls() as plain:
-        t0 = time.perf_counter()
-        results = sweep_cli.main(common + ["--output_root", out_root, "--batched",
-                                           "--run_id", "fleet"])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    counts = read_counts()
-    plain_gru = {k: plain[k] for k in ("gru_scan_fwd_plain", "gru_step")}
-    epoch = probe.epochs[0]
-    expect_fleet_epoch("sweep_cli --batched", epoch, 0.3)
-    steps = epoch["steps"]
-    run0 = os.path.join(out_root, "SMD", FLEET_GROUPS[0], "fleet")
-    summary0 = finite_summary(os.path.join(run0, "summary.txt"))
-    for group in FLEET_GROUPS:
-        finite_summary(os.path.join(out_root, "SMD", group, "fleet", "summary.txt"))
-    predict_cli.main(["--dataset", "SMD", "--group", FLEET_GROUPS[0], "--model_id", "fleet",
-                      "--data_root", data_root, "--output_root", out_root, "--device", "cuda"])
-    rec = {"phase": "fleet_training", "run": f"sweep_cli --batched, {E} machines, 1 epoch",
-           "seconds": seconds, "train_epoch_seconds": epoch["seconds"],
-           "train_windows": epoch["windows"], "fleet_steps": steps,
-           "windows_per_s": epoch["windows"] / epoch["seconds"],
-           "launches_in_train_epoch": epoch["launches"],
-           "vmap_rule_calls_in_train_epoch": epoch["rule_calls"],
-           "launches": counts, "plain_gru_calls": plain_gru,
-           "entities_scored": len(results), "bf_f1_first": summary0["bf_result"]["f1"],
-           "predict_cli_reproduces_summary": finite_summary(
-               os.path.join(run0, "summary_1.txt")) == summary0}
-    emit(rec)
-    attention = {k: v for k, v in counts.items() if k.startswith("gatv2") and v}
-    if (attention or counts["gru_scan_bwd"] != 2 * steps
-            or counts["gru_weight_grads"] != 2 * steps or any(plain_gru.values())
-            or len(results) != E or not rec["predict_cli_reproduces_summary"]):
-        raise AssertionError(f"sweep_cli --batched: {rec}")
+    common = ["--dataset", "SMD", "--epochs", "1", "--dropout", "0.3", "--data_root",
+              data_root, "--device", "cuda", "--log_tensorboard", "False"]
+    rec = batched_sweep(common, out_root, "fleet", "dense", FLEET_TRAIN_BS)
+    epoch_windows, steps = rec["train_windows"], rec["fleet_steps"]
+    sweeps = {bs: batched_sweep(common, out_root, f"kfleet{bs}", "pallas", bs)
+              for bs in FLEET_TRAIN_ROWS}
+    # the phase's launches: its three sweeps, each counted from 0
+    counts = {k: rec["launches"][k] + sum(r["launches"][k] for r in sweeps.values())
+              for k in rec["launches"]}
     parity = check_fleet_parity(data_root, dev)
+    kparity = check_fleet_parity(data_root, dev, "pallas")
     numbers = fleet_training_numbers(data_root, smi, dev)
+    knumbers = {bs: fleet_training_numbers(data_root, smi, dev, "pallas", bs)
+                for bs in FLEET_TRAIN_ROWS}
+    emit({"phase": "fleet_training", "case": "the kernel fleet against the dense fleet",
+          "card": smi, "windows_per_s": {"dense batch 64": numbers["windows_per_s"],
+                                         **{f"kernels batch {bs}": r["windows_per_s"]
+                                            for bs, r in knumbers.items()}},
+          "kernels_over_dense_at_64": knumbers[FLEET_TRAIN_BS]["windows_per_s"]
+          / numbers["windows_per_s"]})
 
     solo_root = os.path.join(root, "solo_output")
     with FleetProbe() as probe:
         t0 = time.perf_counter()
-        sweep_cli.main(common + ["--output_root", solo_root, "--run_id", "solo"])
+        sweep_cli.main(common + ["--bs", str(FLEET_TRAIN_BS), "--output_root", solo_root,
+                                 "--run_id", "solo"])
         torch.cuda.synchronize()
         solo_seconds = time.perf_counter() - t0
     solo_windows = sum(ep["windows"] for ep in probe.epochs)
@@ -3997,10 +4288,12 @@ def check_fleet_training(gen, dev, work, smi) -> dict:
             "fleet_windows_per_s_same_process": rec["windows_per_s"],
             "fleet_over_solo": rec["windows_per_s"] / (solo_windows / solo_train_s)}
     emit(solo)
-    if solo_windows != epoch["windows"]:
+    if solo_windows != epoch_windows:
         raise AssertionError(f"the solo sweep trained {solo_windows} windows, the fleet "
-                             f"{epoch['windows']}")
-    return {"k4": k4, "k3": k3, "sweep": rec, "parity": parity, "numbers": numbers,
+                             f"{epoch_windows}")
+    return {"k4": k4, "k3": k3, "attention": attention, "attention_grad": attention_grad,
+            "sweep": rec, "kernel_sweeps": sweeps, "parity": parity,
+            "kernel_parity": kparity, "numbers": numbers, "kernel_numbers": knumbers,
             "solo": solo, "launches": counts, "steps": steps, "byte_model": byte_model}
 
 
@@ -4021,6 +4314,28 @@ def fleet_training_row(ft: dict, kernel: str) -> dict:
                    for (p, H, rows), r in ft["k4"].items() if p == part}
     return {"launches": ft["launches"][kernel], "fleet_steps": ft["steps"],
             "launches_per_fleet_step": 2, "groups": len(FLEET_GROUPS), "grouped": grouped}
+
+
+def fleet_attention_row(ft: dict, key: str) -> dict:
+    """K1-res's ("k1res") or K2ab's ("k2ab") fleet-training entry of the
+    kernels line: launches in the phase's kernel sweeps (two a fleet step),
+    the grouped launches' times at G 28 beside the 28 ungrouped launches
+    they replace, and their bounds."""
+    name = "gatv2_attention_res" if key == "k1res" else "gatv2_bwd_graph"
+    same = "k1res_identical_to_G_launches" if key == "k1res" else "k2ab_identical_to_G_launches"
+    grouped = {f"{layer}, {rows} rows, {dt}": {
+        **r[key], "identical_to_G_launches": r[same],
+        "max_err": r["forward_err"] if key == "k1res" else r["grad_rel_err"]}
+        for (layer, rows, dt), r in ft["attention"].items()}
+    return {"launches": ft["launches"][name],
+            "launches_by_sweep": {f"batch {bs}": r["launches"][name]
+                                  for bs, r in ft["kernel_sweeps"].items()},
+            "fleet_steps_by_sweep": {f"batch {bs}": r["fleet_steps"]
+                                     for bs, r in ft["kernel_sweeps"].items()},
+            "launches_per_fleet_step": 2, "groups": len(FLEET_GROUPS), "grouped": grouped,
+            "under_gradients": {layer: {k: r[k] for k in (
+                "graph_ms", "G_solo_calls_graph_ms", "bound_ms", "rel_err_vs_G_solo_calls",
+                "identical_to_G_solo_calls")} for layer, r in ft["attention_grad"].items()}}
 
 
 def main() -> None:
@@ -4199,6 +4514,8 @@ def main() -> None:
                       + ("is the plain forward" if key == "k1res" else
                          "is one autograd call for the whole attention backward"),
         }
+        if key in ("k1res", "k2ab"):
+            row["fleet_training"] = fleet_attention_row(fleet_train, key)
         if key == "k1res":
             row.update(variant="graph (kernels/gat.gat_fwd_plan), one block a graph at both "
                                "layers",

@@ -9,9 +9,9 @@ The port of ``mtad_gat_tpu/cli/sweep_cli.py`` (the reference's
   for the fleet (``training/multi_entity.MultiEntityTrainer``), then scored
   an entity at a time through ``train_cli.run_prediction``. Each fleet step
   launches K3, K4's scan and K4's weights product twice each (encoder and
-  decoder GRU) whatever the number of entities. The attention runs dense:
-  ``--attention_impl pallas`` (K1-res and the attention backward with an
-  entity axis) is not ported yet (ROADMAP.md, Queue 1 item 7b).
+  decoder GRU) whatever the number of entities; the attention runs dense,
+  or with ``--attention_impl pallas`` through K1-res and K2ab twice each
+  (feature and temporal layer), each entity's dropout mask its solo run's.
 
 Both write each entity's run directory (``model.pt``, ``config.txt``,
 ``summary.txt``) and ``<output>/SMD/sweep_summary.json``. The batched sweep
@@ -21,7 +21,7 @@ every ``--checkpoint_every`` epochs and resumes from it with
 or ``--use_cuda False`` is given (``cli/args.resolve_device``).
 
     python -m mtad_gat_tpu_torch.cli.sweep_cli --batched --epochs 10 \\
-        --data_root <root> --output_root <out>
+        --attention_impl pallas --gru_impl pallas --data_root <root> --output_root <out>
 """
 
 from __future__ import annotations
@@ -101,11 +101,6 @@ def run_sweep_batched(cfg: RunConfig, groups: Optional[List[str]] = None,
     from mtad_gat_tpu_torch.training.checkpoint import save_checkpoint
 
     _refuse_unported(cfg)
-    if cfg.attention_impl == "pallas":
-        raise NotImplementedError(
-            "--batched --attention_impl pallas: K1-res and the attention backward with "
-            "an entity axis are not ported yet; the fleet trains with --attention_impl "
-            "dense (ROADMAP.md, Queue 1 item 7b)")
     dev = resolve_device(device, cfg.use_cuda)
     groups = _groups(cfg, groups)
     data = {g: get_data(f"machine-{g}", data_root=cfg.data_root, normalize=cfg.normalize)

@@ -1199,6 +1199,18 @@ gatv2_bwd_dbias_kernel(const T* __restrict__ p, const T* __restrict__ q,
 // registers held there, and spills), a shared-memory accumulator, and a
 // separate coalesced pass over ds.
 //
+// The entity axis (GROUPED, fleet training, as the whole-graph K1-res's in
+// gat_fwd.cu): the B batch elements form B / rows_per_group groups of
+// consecutive elements, group g reading a + g E, bias + g N N and seed[g]
+// and hashing its batch index within the group. A block's batch elements
+// lie inside one group: each group's rows are cut into runs of `group`
+// elements, the last one ragged, as an ungrouped launch at rows_per_group
+// cuts its batch, so the blocks of group g, its da rows and its dbias
+// partials (ceil(rows_per_group / group) of them, in block order) are that
+// launch's, and the caller sums each group's as that launch's caller does
+// (kernels/gat.graph_block_batches, _entity_sums). At rows_per_group = B the
+// launch runs the ungrouped instantiation, the kernel without the axis.
+//
 // Every sum has a fixed order and there are no atomics: two launches give
 // identical bits. The score is summed as the whole-graph K1-res sums it
 // (G_SPLIT interleaved partial sums, gat_fwd.cu), so w matches that
@@ -1246,13 +1258,13 @@ __host__ __device__ inline int graph_dbias_group(int B, int sms) {
   return at_least < B ? at_least : B;
 }
 
-template <typename T, bool DROP, int RG, bool DBIAS>
+template <typename T, bool DROP, int RG, bool DBIAS, bool GROUPED>
 __global__ void __launch_bounds__(G_MAX_WARPS * 32, 1)
 gatv2_bwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
                        const T* __restrict__ a, const T* __restrict__ v, Args g,
                        T* __restrict__ dp, T* __restrict__ dq, T* __restrict__ dv,
                        float* __restrict__ da_part, float* __restrict__ dbias_part,
-                       int group) {
+                       int group, int rows_per_group) {
   extern __shared__ float smem[];
   const int N = g.N, E = g.E, D = g.D;
   const GraphLayout L(N, E, D);
@@ -1269,10 +1281,19 @@ gatv2_bwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
   const int nt = blockDim.x;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = nt / 32;
   const int EG = (E + 3) / 4, DG = (D + 3) / 4, T4 = L.N4 / 4;
-  const int b_first = blockIdx.x * group, b_end = min(g.B, b_first + group);
+  // GROUPED: the block's run of `group` elements lies inside entity grp,
+  // which starts at b0; ungrouped, the expressions after each `:` alone
+  const int per = GROUPED ? (rows_per_group + group - 1) / group : 1;
+  const int grp = GROUPED ? (int)blockIdx.x / per : 0, b0 = grp * rows_per_group;
+  const int b_first = GROUPED ? b0 + (int)blockIdx.x % per * group : blockIdx.x * group,
+            b_end = min(GROUPED ? b0 + rows_per_group : g.B, b_first + group);
   float* part = DBIAS ? dbias_part + (size_t)blockIdx.x * N * N : nullptr;
-  const uint32_t seed = read_seed(g);
-  stage_padded(a_s, a, 1, E, 1, L.EP);
+  const uint32_t seed = GROUPED ? (g.seed == nullptr ? 0u : (uint32_t)(unsigned long long)g.seed[grp])
+                                : read_seed(g);
+  stage_padded(a_s, GROUPED ? a + (size_t)grp * E : a, 1, E, 1, L.EP);
+  if constexpr (GROUPED) {
+    if (g.bias != nullptr) g.bias += (size_t)grp * N * N;
+  }
 
   for (int b = b_first; b < b_end; ++b) {
     if (b != b_first) __syncthreads();        // the previous element's readers are done
@@ -1346,7 +1367,10 @@ gatv2_bwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
             if (g.bias != nullptr) sv += g.bias[(size_t)i * N + j];
             const float w = expf(sv - m_s[i]) / l_s[i];
             float w_agg = w;
-            if constexpr (DROP) {
+            if constexpr (DROP && GROUPED) {  // the batch index within the group
+              w_agg = drop_hash(seed, (uint32_t)(b - b0), (uint32_t)i, (uint32_t)j) < g.thresh
+                          ? w * g.scale : 0.f;
+            } else if constexpr (DROP) {
               w_agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < g.thresh
                           ? w * g.scale : 0.f;
             }
@@ -1651,52 +1675,69 @@ int tiled(int which, const void* p, const void* q, const void* a, const void* v,
                     which, pf, qf, af, vf, g, out0, out1, db, pt, pl, stream, occupancy);
 }
 
-// K2ab's outputs and its batch groups: one launch's pointers.
+// K2ab's outputs, its batch elements a block and a group of a and bias:
+// one launch's pointers and sizes.
 struct GraphOut {
   void *dp, *dq, *dv, *da_part, *dbias_part;
   int group;
+  int rows_per_group;
 };
 
 // Launches K2ab, or with occupancy non-null only reads how many of its
 // blocks a multiprocessor holds at once.
-template <typename T, bool DROP, int RG, bool DBIAS>
+template <typename T, bool DROP, int RG, bool DBIAS, bool GROUPED>
 int graph_launch(const void* p, const void* q, const void* a, const void* v, const Args& g,
                  const GraphOut& o, void* stream, int* occupancy) {
-  auto kernel = gatv2_bwd_graph_kernel<T, DROP, RG, DBIAS>;
+  auto kernel = gatv2_bwd_graph_kernel<T, DROP, RG, DBIAS, GROUPED>;
   const size_t floats = GraphLayout(g.N, g.E, g.D).floats();
   if (int err = prepare(kernel, floats)) return err;
   const int threads = graph_warps(g.N, g.E) * 32;
   if (occupancy != nullptr)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, threads,
                                                               floats * sizeof(float));
-  kernel<<<(g.B + o.group - 1) / o.group, threads, floats * sizeof(float),
-           (cudaStream_t)stream>>>((const T*)p, (const T*)q, (const T*)a, (const T*)v, g,
-                                   (T*)o.dp, (T*)o.dq, (T*)o.dv, (float*)o.da_part,
-                                   (float*)o.dbias_part, o.group);
+  const int blocks = GROUPED ? g.B / o.rows_per_group *
+                                   ((o.rows_per_group + o.group - 1) / o.group)
+                             : (g.B + o.group - 1) / o.group;
+  kernel<<<blocks, threads, floats * sizeof(float), (cudaStream_t)stream>>>(
+      (const T*)p, (const T*)q, (const T*)a, (const T*)v, g, (T*)o.dp, (T*)o.dq, (T*)o.dv,
+      (float*)o.da_part, (float*)o.dbias_part, o.group, o.rows_per_group);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool DROP, bool DBIAS>
+template <typename T, bool DROP, bool DBIAS, bool GROUPED>
 int graph_db(const void* p, const void* q, const void* a, const void* v, const Args& g,
              const GraphOut& o, void* stream, int* occupancy) {
   switch (graph_row_groups(g.N)) {
-    case 8: return graph_launch<T, DROP, 8, DBIAS>(p, q, a, v, g, o, stream, occupancy);
-    case 16: return graph_launch<T, DROP, 16, DBIAS>(p, q, a, v, g, o, stream, occupancy);
+    case 8: return graph_launch<T, DROP, 8, DBIAS, GROUPED>(p, q, a, v, g, o, stream,
+                                                            occupancy);
+    case 16: return graph_launch<T, DROP, 16, DBIAS, GROUPED>(p, q, a, v, g, o, stream,
+                                                              occupancy);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename T, bool GROUPED>
+int graph_grouped(const void* p, const void* q, const void* a, const void* v, const Args& g,
+                  const GraphOut& o, void* stream, int* occupancy) {
+  const bool drop = g.seed != nullptr, dbias = o.dbias_part != nullptr;
+  return drop ? (dbias ? graph_db<T, true, true, GROUPED>(p, q, a, v, g, o, stream, occupancy)
+                       : graph_db<T, true, false, GROUPED>(p, q, a, v, g, o, stream, occupancy))
+              : (dbias ? graph_db<T, false, true, GROUPED>(p, q, a, v, g, o, stream, occupancy)
+                       : graph_db<T, false, false, GROUPED>(p, q, a, v, g, o, stream,
+                                                            occupancy));
+}
+
 // dbias is summed where the caller gives it a partial (K2c's function too),
-// not otherwise: then the kernel is K2a and K2b alone.
+// not otherwise: then the kernel is K2a and K2b alone. rows_per_group = B is
+// one group, the ungrouped instantiation.
 template <typename T>
 int graph(const void* p, const void* q, const void* a, const void* v, const Args& g,
           const GraphOut& o, void* stream, int* occupancy = nullptr) {
-  if (o.group < 1) return (int)cudaErrorInvalidValue;
-  const bool drop = g.seed != nullptr, dbias = o.dbias_part != nullptr;
-  return drop ? (dbias ? graph_db<T, true, true>(p, q, a, v, g, o, stream, occupancy)
-                       : graph_db<T, true, false>(p, q, a, v, g, o, stream, occupancy))
-              : (dbias ? graph_db<T, false, true>(p, q, a, v, g, o, stream, occupancy)
-                       : graph_db<T, false, false>(p, q, a, v, g, o, stream, occupancy));
+  if (o.group < 1 || o.rows_per_group < 1 || g.B % o.rows_per_group != 0)
+    return (int)cudaErrorInvalidValue;
+  if (o.rows_per_group != g.B)
+    return graph_grouped<T, true>(p, q, a, v, g, o, stream, occupancy);
+  return graph_grouped<T, false>(p, q, a, v, g, o, stream, occupancy);
 }
 
 template <typename T, bool DROP, bool CHUNKED>
@@ -1761,28 +1802,35 @@ int gatv2_bwd_graph_dbias_group(int B, int sms) { return graph_dbias_group(B, sm
 // one row per batch element: the caller sums its rows. With dbias_part
 // non-null a block takes `group` batch elements and writes their sum of ds
 // into its (N, N) float32 slice of dbias_part (ceil(B / group), N, N): the
-// caller sums the slices. Without it, pass group 1.
+// caller sums the slices. Without it, pass group 1. a, bias and seed hold
+// B / rows_per_group groups (rows_per_group = B: one), each group's blocks
+// and slices those of an ungrouped launch at rows_per_group, group after
+// group: (B / rows_per_group) ceil(rows_per_group / group) slices.
 int gatv2_bwd_graph_f32(GAT_BWD_ARGS, void* dp, void* dq, void* dv, void* da_part,
-                        void* dbias_part, GAT_BWD_SIZES, int group, GAT_BWD_DROP) {
-  return graph<float>(p, q, a, v, GAT_BWD_G, GraphOut{dp, dq, dv, da_part, dbias_part, group},
-                      stream);
+                        void* dbias_part, GAT_BWD_SIZES, int group, int rows_per_group,
+                        GAT_BWD_DROP) {
+  return graph<float>(p, q, a, v, GAT_BWD_G,
+                      GraphOut{dp, dq, dv, da_part, dbias_part, group, rows_per_group}, stream);
 }
 int gatv2_bwd_graph_bf16(GAT_BWD_ARGS, void* dp, void* dq, void* dv, void* da_part,
-                         void* dbias_part, GAT_BWD_SIZES, int group, GAT_BWD_DROP) {
-  return graph<__nv_bfloat16>(p, q, a, v, GAT_BWD_G,
-                              GraphOut{dp, dq, dv, da_part, dbias_part, group}, stream);
+                         void* dbias_part, GAT_BWD_SIZES, int group, int rows_per_group,
+                         GAT_BWD_DROP) {
+  return graph<__nv_bfloat16>(
+      p, q, a, v, GAT_BWD_G, GraphOut{dp, dq, dv, da_part, dbias_part, group, rows_per_group},
+      stream);
 }
 
-// Blocks of the K2ab instantiation for (bf16, dropout, dbias) that one
-// multiprocessor holds at once at graph size N and widths E, D (CUDA's
+// Blocks of the K2ab instantiation for (bf16, dropout, dbias, grouped) that
+// one multiprocessor holds at once at graph size N and widths E, D (CUDA's
 // occupancy calculator: shared memory, registers, threads); negative on a
 // CUDA error.
-int gatv2_bwd_graph_occupancy(int N, int E, int D, int bf16, int drop, int dbias) {
+int gatv2_bwd_graph_occupancy(int N, int E, int D, int bf16, int drop, int dbias,
+                              int grouped) {
   long long one = 0;
   float part = 0.f;
   const Args g = make_args(nullptr, drop ? &one : nullptr, nullptr, nullptr, nullptr, nullptr,
-                           1, N, E, D, 0.f, 0u, 1.f);
-  const GraphOut o{nullptr, nullptr, nullptr, nullptr, dbias ? &part : nullptr, 1};
+                           grouped ? 2 : 1, N, E, D, 0.f, 0u, 1.f);
+  const GraphOut o{nullptr, nullptr, nullptr, nullptr, dbias ? &part : nullptr, 1, 1};
   int blocks = 0;
   const int err = bf16 ? graph<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, g, o,
                                               nullptr, &blocks)

@@ -41,15 +41,19 @@
 // or bfloat16; float32 for the tiled kernel, whose wrapper widens bfloat16);
 // all arithmetic is float32.
 //
-// The entity axis of K1 (fleet serving, the counterpart of JAX's batching
-// rule for pallas_call under vmap): the B batch elements form G = B /
-// rows_per_group groups of consecutive elements, and element b reads the
+// The entity axis (fleet serving and training, the counterpart of JAX's
+// batching rule for pallas_call under vmap): the B batch elements form G =
+// B / rows_per_group groups of consecutive elements, and element b reads the
 // attention vector a + g E and the bias + g N N of its group g = b /
-// rows_per_group, so a is (G, E) and bias (G, N, N). Both variants take it;
-// the merge does not change. The group arithmetic is a compile-time flag
-// (GROUPED), instantiated for K1 only: at rows_per_group = B (G = 1), and in
-// K1-res, which passes B, the launch runs the ungrouped instantiation, whose
-// code is the kernel's without the axis (the same registers and bits).
+// rows_per_group, so a is (G, E) and bias (G, N, N). With dropout it reads
+// its group's seed, seed[g] (G values), and hashes its batch index within
+// the group, b - g rows_per_group, so each group's mask is that of its own
+// ungrouped launch (the JAX kernel's program_id(0) under vmap is the
+// entity's own). The whole-graph kernel takes it in K1 and K1-res, the tiled
+// one in K1 only; the merge does not change. The group arithmetic is a
+// compile-time flag (GROUPED): at rows_per_group = B (G = 1) the launch runs
+// the ungrouped instantiation, whose code is the kernel's without the axis
+// (the same registers and bits).
 
 #include "gat_common.cuh"
 
@@ -515,6 +519,7 @@ gatv2_fwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
   // (dropout applied, not normalised) replace the scores
   uint32_t seed = 0;
   if constexpr (DROP) seed = (uint32_t)(unsigned long long)(*res.seed);
+  if constexpr (DROP && GROUPED) seed = (uint32_t)(unsigned long long)res.seed[grp];
   for (int rl = warp; rl < L.RB; rl += nt / 32) {
     float* wr = w_s + rl * L.NSW;
     if (rl >= rows) {                       // a padded row: its scores are 0
@@ -531,7 +536,10 @@ gatv2_fwd_graph_kernel(const T* __restrict__ p, const T* __restrict__ q,
       if (j < N) {
         ex = expf(wr[j] - mx);
         agg = ex;
-        if constexpr (DROP) {
+        if constexpr (DROP && GROUPED) {      // the batch index within the group
+          agg = drop_hash(seed, (uint32_t)(b - grp * rows_per_group), (uint32_t)i, (uint32_t)j)
+                        < res.thresh ? ex * res.scale : 0.f;
+        } else if constexpr (DROP) {
           agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < res.thresh
                     ? ex * res.scale : 0.f;
         }
@@ -617,21 +625,17 @@ int launch_graph(const void* p, const void* q, const void* a, const void* bias,
 }
 
 // The whole-graph kernel, the graph's rows over row_blocks >= 1 blocks, the
-// batch in groups of rows_per_group elements (B: one group; K1 alone takes
-// more).
+// batch in groups of rows_per_group elements (B: one group, the ungrouped
+// instantiation).
 template <typename T, bool RES, bool DROP>
 int launch(const void* p, const void* q, const void* a, const void* bias,
            const void* v, void* out, int B, int N, int E, int D, int row_blocks,
            int rows_per_group, float alpha, Residuals res, void* stream) {
   if (row_blocks < 1 || rows_per_group < 1 || B % rows_per_group != 0)
     return (int)cudaErrorInvalidValue;
-  if (rows_per_group != B) {
-    if constexpr (RES || DROP)
-      return (int)cudaErrorInvalidValue;
-    else
-      return launch_graph<T, RES, DROP, true>(p, q, a, bias, v, out, B, N, E, D, row_blocks,
-                                              rows_per_group, alpha, res, stream);
-  }
+  if (rows_per_group != B)
+    return launch_graph<T, RES, DROP, true>(p, q, a, bias, v, out, B, N, E, D, row_blocks,
+                                            rows_per_group, alpha, res, stream);
   return launch_graph<T, RES, DROP, false>(p, q, a, bias, v, out, B, N, E, D, row_blocks,
                                            rows_per_group, alpha, res, stream);
 }
@@ -639,14 +643,14 @@ int launch(const void* p, const void* q, const void* a, const void* bias,
 template <typename T>
 int launch_res(const void* p, const void* q, const void* a, const void* bias,
                const void* v, void* out, void* u, void* m, void* l, const void* seed,
-               int B, int N, int E, int D, int row_blocks, float alpha, unsigned int thresh,
-               float scale, void* stream) {
+               int B, int N, int E, int D, int row_blocks, int rows_per_group, float alpha,
+               unsigned int thresh, float scale, void* stream) {
   const Residuals res{(float*)u, (float*)m, (float*)l, (const long long*)seed, thresh, scale};
   if (seed == nullptr)
-    return launch<T, true, false>(p, q, a, bias, v, out, B, N, E, D, row_blocks, B, alpha,
-                                  res, stream);
-  return launch<T, true, true>(p, q, a, bias, v, out, B, N, E, D, row_blocks, B, alpha, res,
-                               stream);
+    return launch<T, true, false>(p, q, a, bias, v, out, B, N, E, D, row_blocks,
+                                  rows_per_group, alpha, res, stream);
+  return launch<T, true, true>(p, q, a, bias, v, out, B, N, E, D, row_blocks, rows_per_group,
+                               alpha, res, stream);
 }
 
 }  // namespace
@@ -678,21 +682,23 @@ int gatv2_fwd_bf16(const void* p, const void* q, const void* a, const void* bias
 }
 
 // K1-res: the whole-graph forward with residuals; dropout when seed is not
-// null.
+// null (B / rows_per_group values, one a group); a and bias grouped as K1's.
 int gatv2_fwd_res_f32(const void* p, const void* q, const void* a, const void* bias,
                       const void* v, void* out, void* u, void* m, void* l,
                       const void* seed, int B, int N, int E, int D, int row_blocks,
-                      float alpha, unsigned int thresh, float scale, void* stream) {
+                      int rows_per_group, float alpha, unsigned int thresh, float scale,
+                      void* stream) {
   return launch_res<float>(p, q, a, bias, v, out, u, m, l, seed, B, N, E, D, row_blocks,
-                           alpha, thresh, scale, stream);
+                           rows_per_group, alpha, thresh, scale, stream);
 }
 
 int gatv2_fwd_res_bf16(const void* p, const void* q, const void* a, const void* bias,
                        const void* v, void* out, void* u, void* m, void* l,
                        const void* seed, int B, int N, int E, int D, int row_blocks,
-                       float alpha, unsigned int thresh, float scale, void* stream) {
+                       int rows_per_group, float alpha, unsigned int thresh, float scale,
+                       void* stream) {
   return launch_res<__nv_bfloat16>(p, q, a, bias, v, out, u, m, l, seed, B, N, E, D,
-                                   row_blocks, alpha, thresh, scale, stream);
+                                   row_blocks, rows_per_group, alpha, thresh, scale, stream);
 }
 
 // The tiled forward's layout at widths E and D, for the planner's check

@@ -1,6 +1,7 @@
 """Dropout masks: the attention dropout's hash mask
-(``mtad_gat_tpu/kernels/gat_pallas.py:87-147``), and the Bernoulli keep
-masks of the plain paths, drawn per entity in a fleet step.
+(``mtad_gat_tpu/kernels/gat_pallas.py:87-147``) and its seed, and the
+Bernoulli keep masks of the plain paths; seeds and masks drawn per entity in
+a fleet step.
 
 A pair (i, j) of batch element b is kept where a hash of the global (seed,
 b, i, j) lies below ``keep_threshold(rate)``, bit for bit the JAX package's
@@ -139,3 +140,43 @@ def _entity_keep_mask_vmap(info, in_dims, like, prob, token):
 
 _entity_keep_mask_vmap.calls = 0
 entity_keep_mask.register_vmap(_entity_keep_mask_vmap)
+
+
+def hash_seed(generator: Union[torch.Generator, EntityGenerators],
+              like: torch.Tensor) -> torch.Tensor:
+    """The hash mask's seed of one attention call, drawn on the generator's
+    device: one int64 in [0, 2**32), ``torch.randint(0, 2**32, (1,))`` from
+    ``generator``; with ``EntityGenerators`` inside a vmap over the entities
+    (``like`` a batched input of the call), the same draw an entity from its
+    own generator, through ``entity_seed``'s vmap rule, so that each
+    entity's seed is its solo call's."""
+    if isinstance(generator, EntityGenerators):
+        return entity_seed(like.detach(), generator.token)
+    return torch.randint(0, 2**32, (1,), generator=generator, device=generator.device,
+                         dtype=torch.int64)
+
+
+@torch.library.custom_op("mtad_gat_tpu_torch::entity_seed", mutates_args=())
+def entity_seed(like: torch.Tensor, token: int) -> torch.Tensor:
+    """The per-entity hash seed as a custom op: only its vmap rule draws, as
+    ``entity_keep_mask``'s."""
+    raise RuntimeError("EntityGenerators draw seeds only under torch.func.vmap over the "
+                       "entities, with a batched input")
+
+
+def _entity_seed_vmap(info, in_dims, like, token):
+    """Entity g's seed from the g-th generator: (G, 1) int64 on their
+    device, batched at dim 0."""
+    gens = _ENTITY_GENERATORS[token].generators
+    G = info.batch_size
+    if G != len(gens):
+        raise ValueError(f"a vmap over {G} entities with {len(gens)} generators")
+    _entity_seed_vmap.calls += 1
+    with torch._C._ExcludeDispatchKeyGuard(
+            torch._C.DispatchKeySet(torch._C.DispatchKey.FuncTorchVmapMode)):
+        return torch.cat([torch.randint(0, 2**32, (1,), generator=g, device=g.device,
+                                        dtype=torch.int64) for g in gens])[:, None], 0
+
+
+_entity_seed_vmap.calls = 0
+entity_seed.register_vmap(_entity_seed_vmap)

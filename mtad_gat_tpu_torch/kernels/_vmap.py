@@ -10,20 +10,27 @@ kernel an entity grid axis; here the no-grad K1, K3 and K4 calls are
 dimension to the front, expand a weight that is not batched, fold (G, B,
 ...) into one batch of G B rows, and call the kernel's grouped form once (on
 a CUDA tensor the kernel, each group of B rows reading its own weights; on
-a CPU tensor its plain version, a group at a time). The GRU's autograd
-Function runs its forward (K3's op) and backward (K4's op) under vmap.
+a CPU tensor its plain version, a group at a time). The GRU's and the
+attention's autograd Functions run their forwards (K3's op, K1-res's op)
+and backwards (K4's op, the attention backward's op: K2ab) under vmap; the
+attention's hash dropout takes a seed an entity and the batch index within
+the entity, so each entity's mask is its solo call's.
 
 Only calls under a transform enter the ops (``is_batched`` for K1,
-``is_wrapped`` for the GRU, whose Function also runs under ``grad``): a
-plain call goes to the wrapper directly, so the solo paths pay nothing for
-the op's dispatch.
+``is_wrapped`` for the Functions, which also run under ``grad``): a plain
+call goes to the wrapper directly, so the solo paths pay nothing for the
+op's dispatch.
 
-Attention with gradients or dropout under vmap is not ported: K1-res and the
-attention backward have no entity axis yet (ROADMAP.md, Queue 1 item 7b).
+Attention with gradients or dropout under vmap runs the whole-graph kernels
+only (K1-res and K2ab, the flagship's plan): a graph whose forward plan is
+"tiled" or whose backward route is "tiled" or "streamed", and the block
+scan's hash dropout, have no entity axis yet and raise before any launch
+(ROADMAP.md, Queue 1 item 7c).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -34,7 +41,7 @@ from torch._C._functorch import (
     maybe_get_bdim,
 )
 
-FLEET_TRAINING_ITEM = "Queue 1 item 7b"
+FLEET_TRAINING_ITEM = "Queue 1 item 7c"
 
 
 def _is_wrapper(t: torch.Tensor) -> bool:
@@ -86,10 +93,11 @@ def requires_grad(*tensors: Optional[torch.Tensor]) -> bool:
 
 def not_ported_under_vmap(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} under torch.func.vmap (a fleet of stacked weights): K1-res and the "
-        "attention backward with an entity axis are not ported yet, so a fleet trains "
-        "with attention_impl='dense' below the dense route's threshold (ROADMAP.md, "
-        f"{FLEET_TRAINING_ITEM})")
+        f"{what} under torch.func.vmap (a fleet of stacked weights): only the whole-graph "
+        "K1-res and K2ab have an entity axis; the tiled forward, the tiled and streamed "
+        "backward and the block scan's hash dropout are not ported under vmap yet, so such "
+        "a fleet trains with attention_impl='dense' below the dense route's threshold "
+        f"(ROADMAP.md, {FLEET_TRAINING_ITEM})")
 
 
 def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -98,6 +106,24 @@ def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
     ``requires_grad``, its unwrapped one does)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise not_ported_under_vmap(f"{what} with gradients")
+
+
+@contextlib.contextmanager
+def autograd_in_rule():
+    """Autograd on a rule's own leaves (a plain version that derives its
+    gradients, on CPU tensors): inside a vmap rule the transforms' layers
+    are still in place and the op's dispatch has excluded the autograd keys
+    below it, so both are set aside for the block."""
+    from torch._C import DispatchKey, DispatchKeySet
+    from torch._functorch.pyfunctorch import temporarily_clear_interpreter_stack
+
+    autograd = (DispatchKeySet(DispatchKey.AutogradFunctionality)
+                | DispatchKeySet(DispatchKey.AutogradOther)
+                | DispatchKeySet(DispatchKey.AutogradNestedTensor))
+    with temporarily_clear_interpreter_stack(), torch._C._ForceDispatchKeyGuard(
+            torch._C._dispatch_tls_local_include_set(),
+            torch._C._dispatch_tls_local_exclude_set() - autograd):
+        yield
 
 
 def _front(t: torch.Tensor, dim: Optional[int], groups: int) -> torch.Tensor:

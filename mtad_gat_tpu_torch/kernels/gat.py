@@ -65,12 +65,17 @@ bit for bit the JAX package's (``graph/dropout.py``); its plain form is
 ``hash_keep_mask``. The seed is a one-element int64 tensor on the
 device, drawn there from the step's generator, so no launch waits on the host.
 
-K1 also takes an entity axis (fleet serving): a (G, E) and bias (G, N, N),
-group g's for batch elements g B/G .. (g+1) B/G - 1 (``attention_groups``),
-in either variant's one launch. Under ``torch.func.vmap`` the no-grad call
-is the custom op ``gatv2_attention_fwd_op``, whose rule folds the entities
-into those groups (``kernels/_vmap.py``); K1-res and the backward take no
-entity axis yet.
+K1, the whole-graph K1-res and K2ab also take an entity axis (fleet serving
+and fleet training): a (G, E) and bias (G, N, N), group g's for batch
+elements g B/G .. (g+1) B/G - 1 (``attention_groups``), one dropout seed a
+group and the batch index within the group in the hash, so that each
+group's mask is its own call's; K2ab's da (G, E) and dbias (G, N, N) each
+summed over its group's rows. Under ``torch.func.vmap`` the no-grad call is
+the custom op ``gatv2_attention_fwd_op``, and ``gatv2_attention``'s
+Function runs K1-res's op forward and the backward's op (K2ab) backward,
+whose rules fold the entities into those groups (``kernels/_vmap.py``). The
+tiled K1-res, the tiled K2a and K2b and the streamed backward take no entity
+axis yet.
 """
 
 from __future__ import annotations
@@ -81,6 +86,7 @@ import types
 from typing import List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from mtad_gat_tpu_torch.graph.dropout import Seed, hash_keep_mask, keep_threshold, seed_int
 from mtad_gat_tpu_torch.graph.ops import gat_aggregate_dense, gatv2_scores_dense
@@ -141,6 +147,14 @@ def gatv2_attention_fwd_plain(
     return out
 
 
+def _group_seed(seed: Seed, g: int, groups: int) -> Seed:
+    """Group g's dropout seed: an int, or a one-element tensor, is every
+    group's; a tensor of G values gives group g its own."""
+    if isinstance(seed, torch.Tensor) and groups > 1 and seed.numel() == groups:
+        return seed.reshape(-1)[g:g + 1]
+    return seed
+
+
 def _res_plain(p, q, a, bias, v, alpha, seed, rate, b0):
     """u, m, l of float32 inputs p, q, v (a batch slice starting at call
     index b0): masked softmax aggregate, differentiable (m is a constant)."""
@@ -164,9 +178,20 @@ def gatv2_attention_res_plain(
     seed: Seed = 0, rate: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1-res's function in plain tensor ops, float32 math: returns out (in
-    v's type), u (B, N, D), m and l (B, N), all but out float32."""
+    v's type), u (B, N, D), m and l (B, N), all but out float32. Grouped a
+    and bias (``attention_groups``), with one seed or G seeds, run one group
+    of B / G batch elements at a time, its mask keyed by its seed and the
+    batch index within the group."""
     B, N, E = p.shape
     D = v.shape[-1]
+    G = attention_groups(p, a, bias, "gatv2_attention_res_plain")
+    if a.dim() == 2:
+        rows = B // G
+        outs = [gatv2_attention_res_plain(
+            *(t[g * rows:(g + 1) * rows] for t in (p, q)), a[g],
+            None if bias is None else bias[g], v[g * rows:(g + 1) * rows], alpha,
+            _group_seed(seed, g, G), rate) for g in range(G)]
+        return tuple(torch.cat(ts) for ts in zip(*outs))
     f32 = dict(dtype=torch.float32, device=p.device)
     u, m, l = torch.empty((B, N, D), **f32), torch.empty((B, N), **f32), torch.empty((B, N), **f32)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // max(1, N * N * E))
@@ -188,8 +213,21 @@ def gatv2_attention_bwd_plain(
     """K2a-c's function: the gradients (dp, dq, da, dbias, dv) of the plain
     forward's u under the cotangent du, by autograd, in float32 (dbias is
     None without a bias). The kernels' dvec = du . u is what autograd
-    derives through the row sum l."""
+    derives through the row sum l. Grouped a and bias run a group at a time
+    as ``gatv2_attention_res_plain``'s, with da (G, E) and dbias (G, N, N)
+    each its group's."""
     B, N, E = p.shape
+    G = attention_groups(p, a, bias, "gatv2_attention_bwd_plain")
+    if a.dim() == 2:
+        rows = B // G
+        outs = [gatv2_attention_bwd_plain(
+            *(t[g * rows:(g + 1) * rows] for t in (p, q)), a[g],
+            None if bias is None else bias[g], v[g * rows:(g + 1) * rows],
+            du[g * rows:(g + 1) * rows], alpha, _group_seed(seed, g, G), rate)
+            for g in range(G)]
+        dp, dq, da, dbias, dv = zip(*outs)
+        return (torch.cat(dp), torch.cat(dq), torch.stack(da),
+                None if bias is None else torch.stack(dbias), torch.cat(dv))
     dp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     dq, dv = torch.empty_like(dp), torch.empty(v.shape, dtype=torch.float32, device=p.device)
     af = a.detach().float().requires_grad_()
@@ -226,7 +264,7 @@ def _fwd_lib() -> ctypes.CDLL:
             fn.argtypes = [ptr] * 6 + [i32] * 6 + [f32, ptr]
             fn.restype = i32
         for fn in (lib.gatv2_fwd_res_f32, lib.gatv2_fwd_res_bf16):
-            fn.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ctypes.c_uint32, f32, ptr]
+            fn.argtypes = [ptr] * 10 + [i32] * 6 + [f32, ctypes.c_uint32, f32, ptr]
             fn.restype = i32
         lib.gatv2_fwd_tiled.argtypes = [ptr] * 9 + [i32] * 6 + [f32, ctypes.c_uint32, f32, ptr]
         lib.gatv2_fwd_tiled.restype = i32
@@ -270,7 +308,7 @@ def _bwd_lib() -> ctypes.CDLL:
             fn.argtypes = [ptr] * 11 + [i32] * 6 + tail
             fn.restype = i32
             fn = getattr(lib, f"gatv2_bwd_graph_{dt}")
-            fn.argtypes = [ptr] * 15 + [i32] * 5 + tail
+            fn.argtypes = [ptr] * 15 + [i32] * 6 + tail
             fn.restype = i32
         lib.gatv2_bwd_smem_bytes.argtypes = [i32] * 4
         lib.gatv2_bwd_smem_bytes.restype = ctypes.c_long
@@ -282,7 +320,7 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.gatv2_bwd_graph_row_groups.restype = i32
         lib.gatv2_bwd_graph_dbias_group.argtypes = [i32, i32]
         lib.gatv2_bwd_graph_dbias_group.restype = i32
-        lib.gatv2_bwd_graph_occupancy.argtypes = [i32] * 6
+        lib.gatv2_bwd_graph_occupancy.argtypes = [i32] * 7
         lib.gatv2_bwd_graph_occupancy.restype = i32
         lib._typed = True
     return lib
@@ -351,6 +389,21 @@ def gat_bwd_plan(N: int, E: int, D: int, smem_limit: int = _SMEM_LIMIT) -> str:
     if graph_row_groups(N) and gat_bwd_smem_bytes(N, E, D) <= smem_limit:
         return "graph"
     return "tiled"
+
+
+def graph_block_batches(B: int, groups: int, group: int) -> List[Tuple[int, int]]:
+    """The [first, end) batch elements of each K2ab block, in block order,
+    at batch B in ``groups`` entity groups of B / G rows (``attention_groups``)
+    and ``group`` elements a block (``dbias_groups`` of the group's rows
+    with dbias, else 1): each entity's rows in runs of ``group``, the last
+    one ragged, so no block straddles two entities and each entity's runs
+    are those of an ungrouped launch at its rows (``csrc/gat_bwd.cu``,
+    ``gatv2_bwd_graph_kernel``)."""
+    if min(groups, group) < 1 or B < 0 or B % groups:
+        raise ValueError(f"graph_block_batches: batch {B}, groups {groups}, group {group}")
+    rows = B // groups
+    return [(e * rows + k, e * rows + min(rows, k + group))
+            for e in range(groups) for k in range(0, rows, group)]
 
 
 def dbias_groups(B: int, sms: int) -> int:
@@ -952,8 +1005,8 @@ def _count_fwd(fn, variant: str, row_blocks: int, plan: Optional[TiledFwdPlan] =
 
 def _check(name: str, p, q, a, bias, v, grouped: bool = False) -> int:
     """Device, type and shape checks of a CUDA launch; returns the groups of
-    a and bias (``attention_groups``), which only a ``grouped`` call (K1)
-    may have more than one of."""
+    a and bias (``attention_groups``), which only a ``grouped`` call (K1,
+    K1-res, K2ab) may have more than one of."""
     if p.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {p.device}")
     B, N, E = p.shape
@@ -964,7 +1017,7 @@ def _check(name: str, p, q, a, bias, v, grouped: bool = False) -> int:
     if not grouped and (a.dim() != 1 or (bias is not None and bias.shape != (N, N))):
         raise ValueError(f"{name}: a {tuple(a.shape)} and bias "
                          f"{None if bias is None else tuple(bias.shape)} are not ({E},) and "
-                         f"({N}, {N}): only K1 takes an entity axis")
+                         f"({N}, {N}): only K1, K1-res and K2ab take an entity axis")
     groups = attention_groups(p, a, bias, name)
     if p.dtype not in (torch.float32, torch.bfloat16) or any(
         t.dtype != p.dtype for t in (q, a, v)
@@ -986,16 +1039,20 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _drop_args(seed: Seed, rate: float, device):
-    """(seed tensor or None, keep threshold, scale) of a launch."""
+def _drop_args(seed: Seed, rate: float, device, groups: int = 1):
+    """(seed tensor or None, keep threshold, scale) of a launch: one int64
+    seed, or one a group of a grouped launch (an int, or one value, is
+    every group's)."""
     if rate <= 0.0:
         return None, 0, 1.0
     if not isinstance(seed, torch.Tensor):
         # a fill kernel carries the value: no host-to-device copy
-        seed = torch.full((1,), seed_int(seed), dtype=torch.int64, device=device)
-    elif seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != device:
-        raise ValueError("the dropout seed must be one int64 value on the "
-                         "device of the inputs")
+        seed = torch.full((groups,), seed_int(seed), dtype=torch.int64, device=device)
+    elif seed.dtype != torch.int64 or seed.numel() not in (1, groups) or seed.device != device:
+        raise ValueError(f"the dropout seed must be one int64 value, or {groups} (one a "
+                         "group), on the device of the inputs")
+    elif groups > 1:
+        seed = seed.reshape(-1).expand(groups).contiguous()
     return seed, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
@@ -1100,11 +1157,17 @@ def gatv2_attention_res(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1-res: (out (B, N, D) in v's type, u (B, N, D), m (B, N), l (B, N)
     float32), with attention dropout at ``rate`` keyed by ``seed``; the
-    variant as ``gatv2_attention_fwd`` chooses it. Records no autograd
-    history; ``gatv2_attention`` is the differentiable call."""
+    variant as ``gatv2_attention_fwd`` chooses it. Grouped a and bias
+    (``attention_groups``) with one seed or G seeds (a (G,) int64 tensor)
+    give batch elements g B/G .. (g+1) B/G - 1 group g's weights and seed,
+    and their mask the batch index within the group, in one launch of the
+    whole-graph kernel (the tiled one takes no groups yet, Queue 1 item 7c).
+    Records no autograd history; ``gatv2_attention`` is the differentiable
+    call, and under ``torch.func.vmap`` its forward is the custom op
+    ``gatv2_attention_res_op``."""
     if p.device.type == "cpu":
         return gatv2_attention_res_plain(p, q, a, bias, v, alpha, seed, rate)
-    _check("gatv2_attention_res", p, q, a, bias, v)
+    groups = _check("gatv2_attention_res", p, q, a, bias, v, grouped=True)
     B, N, E = p.shape
     D = v.shape[-1]
     f32 = dict(dtype=torch.float32, device=p.device)
@@ -1115,6 +1178,8 @@ def gatv2_attention_res(
         return outputs()
     variant, row_blocks = _fwd_variant(N, E, D, variant)
     if variant == "tiled":             # the merge allocates the outputs
+        if groups > 1:
+            raise _vmap.not_ported_under_vmap("the tiled K1-res with an entity axis")
         outs, plan = _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals=True)
         _count_fwd(gatv2_attention_res, variant, row_blocks, plan)
         return outs
@@ -1122,14 +1187,14 @@ def gatv2_attention_res(
     lib = _fwd_lib()
     p, q, a, v = (t.detach().contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
-    seed_t, thresh, scale = _drop_args(seed, rate, p.device)
+    seed_t, thresh, scale = _drop_args(seed, rate, p.device, groups)
     fn = lib.gatv2_fwd_res_f32 if p.dtype == torch.float32 else lib.gatv2_fwd_res_bf16
     with torch.cuda.device(p.device):
         err = fn(_ptr(p), _ptr(q), _ptr(a), _ptr(bias_c), _ptr(v), _ptr(out),
                  _ptr(u), _ptr(m), _ptr(l), _ptr(seed_t), B, N, E, D, row_blocks,
-                 float(alpha), thresh, scale, _stream(p.device))
+                 B // groups, float(alpha), thresh, scale, _stream(p.device))
     _raise_on(err, f"gatv2_fwd_res {variant}")
-    _count_fwd(gatv2_attention_res, variant, row_blocks)
+    _count_fwd(gatv2_attention_res, variant, row_blocks, groups=groups)
     return out, u, m, l
 
 
@@ -1139,16 +1204,17 @@ gatv2_attention_res.last_launch = None
 
 
 def _bwd_launch(which: int, p, q, a, bias, v, m, l, du, dvec,
-                alpha, seed, rate, outs, extra=()):
+                alpha, seed, rate, outs, extra=(), groups: int = 1):
     """Launch K2c (2) or K2ab (3) writing into ``outs``; the caller has run
-    ``_check`` and the layout checks of its kernel."""
+    ``_check`` and the layout checks of its kernel. ``groups``: K2ab's
+    entity groups, one seed each."""
     B, N, E = p.shape
     D = v.shape[-1]
     lib = _bwd_lib()
     p, q, a, v = (t.detach().contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
     m, l, du, dvec = (t.detach().to(torch.float32).contiguous() for t in (m, l, du, dvec))
-    seed_t, thresh, scale = _drop_args(seed, rate, p.device)
+    seed_t, thresh, scale = _drop_args(seed, rate, p.device, groups)
     kind = {2: "dbias", 3: "graph"}[which]
     dt = "f32" if p.dtype == torch.float32 else "bf16"
     fn = getattr(lib, f"gatv2_bwd_{kind}_{dt}")
@@ -1385,35 +1451,56 @@ def _check_dbias_group(B: int, sms: int) -> int:
     return group
 
 
+def _entity_sums(part: torch.Tensor, groups: int) -> torch.Tensor:
+    """(G P, ...) float32 partials, P an entity's, to (G, ...): each
+    entity's P summed as an ungrouped call at its rows sums its own
+    (``part[0]`` where P is 1, else ``sum(dim=0)`` over its slice), so
+    that a grouped launch gives G ungrouped launches' bits."""
+    P = part.shape[0] // groups
+    if P == 1:
+        return part
+    return torch.stack([part[g * P:(g + 1) * P].sum(dim=0) for g in range(groups)])
+
+
 def gatv2_bwd_graph(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
                     rate: float = 0.0, dbias: bool = False) -> Tuple[torch.Tensor, ...]:
     """K2ab on CUDA tensors: K2a's and K2b's outputs (dp, dq, da, dv) in one
     launch, one block per batch element holding its whole graph, and, with
     ``dbias``, K2c's dbias (N, N) float32 from the same pass, each block
     summing ds over ``dbias_groups`` batch elements (else None); inputs as
-    ``gatv2_bwd_dp_da``. Raises where ``gat_bwd_plan`` names "tiled".
-    Counts its launches, and those that summed dbias under
-    ``launches_by_variant``."""
-    _check("gatv2_bwd_graph", p, q, a, bias, v)
+    ``gatv2_bwd_dp_da``. Grouped a and bias (``attention_groups``) with one
+    seed or G seeds give each group of B / G rows its weights, seed and
+    batch index within the group, its blocks' batch runs those of an
+    ungrouped launch at its rows (``graph_block_batches``), and da (G, E)
+    and dbias (G, N, N) each summed over its own rows in that launch's
+    order. Raises where ``gat_bwd_plan`` names "tiled". Counts its
+    launches, and those that summed dbias under ``launches_by_variant``;
+    ``last_launch`` holds the groups and the batch elements a block."""
+    groups = _check("gatv2_bwd_graph", p, q, a, bias, v, grouped=True)
     if dbias and bias is None:
         raise ValueError("gatv2_bwd_graph: dbias asked for a call without a bias")
     B, N, E = p.shape
     D = v.shape[-1]
+    rows = B // groups
     f32 = dict(dtype=torch.float32, device=p.device)
     dp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if B == 0 or N == 0:
-        return (dp, dq, torch.zeros((E,), **f32), dv,
-                torch.zeros((N, N), **f32) if dbias else None)
+        return (dp, dq, torch.zeros(a.shape, **f32), dv,
+                torch.zeros(bias.shape, **f32) if dbias else None)
     _check_graph_layout(N, E, D)
-    group = _check_dbias_group(B, _build.sm_count(p.device)) if dbias else 1
+    group = _check_dbias_group(rows, _build.sm_count(p.device)) if dbias else 1
     da_part = torch.empty((B, E), **f32)
-    part = torch.empty((-(-B // group), N, N), **f32) if dbias else None
+    part = torch.empty((groups * -(-rows // group), N, N), **f32) if dbias else None
     _bwd_launch(3, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
-                (dp, dq, dv, da_part, part), (group,))
+                (dp, dq, dv, da_part, part), (group, rows), groups)
     gatv2_bwd_graph.launches += 1
     gatv2_bwd_graph.launches_by_variant["dbias" if dbias else "no_dbias"] += 1
+    gatv2_bwd_graph.last_launch = {"groups": groups, "group": group}
+    if a.dim() == 2:
+        return (dp, dq, _entity_sums(da_part, groups), dv,
+                None if part is None else _entity_sums(part, groups))
     dbias_sum = None
     if part is not None:
         dbias_sum = part[0] if part.shape[0] == 1 else part.sum(dim=0)
@@ -1422,6 +1509,7 @@ def gatv2_bwd_graph(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed =
 
 gatv2_bwd_graph.launches = 0
 gatv2_bwd_graph.launches_by_variant = {"dbias": 0, "no_dbias": 0}
+gatv2_bwd_graph.last_launch = None
 
 
 def dbias_kernel(N: int, E: int, D: int) -> str:
@@ -1440,10 +1528,14 @@ def gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
     ("graph"), K2a then K2b ("tiled") or the streamed backward
     ("streamed"), dbias from the same launch (``dbias_kernel``), recorded in
     ``gatv2_bwd.last_launch`` with the kernel that gave dbias; dbias is None
-    unless asked for."""
+    unless asked for. Grouped a and bias (an entity axis) run K2ab only:
+    another route raises (Queue 1 item 7c)."""
     _, N, E = p.shape
     shape = (max(N, 1), E, max(v.shape[-1], 1))
     variant = gat_bwd_route(*shape)
+    if a.dim() == 2 and variant != "graph":
+        raise _vmap.not_ported_under_vmap(f"the {variant} attention backward with an entity "
+                                          "axis")
     args = (p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate)
     if variant == "graph":
         out = gatv2_bwd_graph(*args, dbias=dbias)
@@ -1540,34 +1632,192 @@ gatv2_bwd_dbias.launches_by_variant = {"full": 0, "chunked": 0}
 # ---------------------------------------------------------------------------
 
 
+def _seed_tensor(seed: Seed, rate: float, device) -> Optional[torch.Tensor]:
+    """The ops' seed: None without dropout, else a tensor (an int becomes one
+    int64 value on the device, every entity's under vmap)."""
+    if rate <= 0.0:
+        return None
+    if isinstance(seed, torch.Tensor):
+        return seed
+    return torch.full((1,), seed_int(seed), dtype=torch.int64, device=device)
+
+
+@torch.library.custom_op("mtad_gat_tpu_torch::gatv2_attention_res", mutates_args=())
+def gatv2_attention_res_op(p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
+                           bias: Optional[torch.Tensor], v: torch.Tensor, alpha: float,
+                           seed: Optional[torch.Tensor], rate: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``gatv2_attention_res`` as a custom op, the form the forward of a
+    vmapped training call takes (its vmap rule below)."""
+    return gatv2_attention_res(p, q, a, bias, v, alpha, 0 if seed is None else seed, rate)
+
+
+def _fold_seed(seed, dim, groups):
+    """The entities' seeds, one value each, as a (G,) tensor (an unbatched
+    seed expanded), or None without dropout."""
+    return None if seed is None else _vmap.fold_weight(seed, dim, groups, 1).reshape(-1)
+
+
+def _gatv2_attention_res_vmap(info, in_dims, p, q, a, bias, v, alpha, seed, rate):
+    """The entities' batch elements folded into one batch, their a, bias and
+    seeds into K1-res's groups: one grouped launch whatever E is."""
+    G = info.batch_size
+    p_dim, q_dim, a_dim, bias_dim, v_dim, _, seed_dim, _ = in_dims
+    seeds = _fold_seed(seed, seed_dim, G)
+    outs = gatv2_attention_res(
+        _vmap.fold_rows(p, p_dim, G), _vmap.fold_rows(q, q_dim, G),
+        _vmap.fold_weight(a, a_dim, G, 1), _vmap.fold_weight(bias, bias_dim, G, 2),
+        _vmap.fold_rows(v, v_dim, G), alpha, 0 if seeds is None else seeds, rate)
+    _gatv2_attention_res_vmap.calls += 1
+    return tuple(_vmap.unfold_rows(t, G) for t in outs), (0, 0, 0, 0)
+
+
+_gatv2_attention_res_vmap.calls = 0
+gatv2_attention_res_op.register_vmap(_gatv2_attention_res_vmap)
+
+
+def _attention_bwd(p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, need_dbias):
+    """(dp, dq, da, dv, dbias) of the attention under du = g . out (1 - out)
+    and dvec = sum_d du . u: the plain backward on CPU tensors, the route's
+    kernels (``gatv2_bwd``) on CUDA tensors, dbias None unless asked for."""
+    if p.device.type == "cpu":
+        # the plain backward derives its gradients by autograd
+        with _vmap.autograd_in_rule():
+            dp, dq, da, dbias, dv = gatv2_attention_bwd_plain(p, q, a, bias, v, du, alpha,
+                                                              seed, rate)
+        return dp, dq, da, dv, dbias if need_dbias else None
+    return gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, dbias=need_dbias)
+
+
+@torch.library.custom_op("mtad_gat_tpu_torch::gatv2_attention_bwd", mutates_args=())
+def gatv2_attention_bwd_op(p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
+                           bias: Optional[torch.Tensor], v: torch.Tensor, m: torch.Tensor,
+                           l: torch.Tensor, du: torch.Tensor, dvec: torch.Tensor, alpha: float,
+                           seed: Optional[torch.Tensor], rate: float, need_dbias: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The attention backward as a custom op, the form a vmapped backward
+    takes (its vmap rule below): (dp, dq, da, dv, dbias), dbias an empty
+    tensor unless ``need_dbias``."""
+    dp, dq, da, dv, dbias = _attention_bwd(p, q, a, bias, v, m, l, du, dvec, alpha,
+                                           0 if seed is None else seed, rate, need_dbias)
+    return dp, dq, da, dv, dbias if dbias is not None else da.new_empty(0)
+
+
+def _gatv2_attention_bwd_vmap(info, in_dims, p, q, a, bias, v, m, l, du, dvec, alpha, seed,
+                              rate, need_dbias):
+    """The entities' rows folded into one batch, their a, bias and seeds
+    into K2ab's groups: one grouped launch whatever E is, each entity's da
+    and dbias its own (an unbatched a or bias gets one an entity)."""
+    G = info.batch_size
+    p_dim, q_dim, a_dim, bias_dim, v_dim, m_dim, l_dim, du_dim, dvec_dim = in_dims[:9]
+    seeds = _fold_seed(seed, in_dims[10], G)
+    af = _vmap.fold_weight(a, a_dim, G, 1)
+    biasf = _vmap.fold_weight(bias, bias_dim, G, 2)
+    dp, dq, da, dv, dbias = _attention_bwd(
+        _vmap.fold_rows(p, p_dim, G), _vmap.fold_rows(q, q_dim, G), af, biasf,
+        _vmap.fold_rows(v, v_dim, G), _vmap.fold_rows(m, m_dim, G),
+        _vmap.fold_rows(l, l_dim, G), _vmap.fold_rows(du, du_dim, G),
+        _vmap.fold_rows(dvec, dvec_dim, G), alpha, 0 if seeds is None else seeds, rate,
+        need_dbias)
+    _gatv2_attention_bwd_vmap.calls += 1
+    # nested vmaps: an entity's weights were already grouped, so are its grads
+    lead = (G,) if a.dim() - (a_dim is not None) == 1 else (G, -1)
+    da = da.reshape(*lead, da.shape[-1])
+    if dbias is None:
+        return (_vmap.unfold_rows(dp, G), _vmap.unfold_rows(dq, G), da,
+                _vmap.unfold_rows(dv, G), da.new_empty(0)), (0, 0, 0, 0, None)
+    return (_vmap.unfold_rows(dp, G), _vmap.unfold_rows(dq, G), da, _vmap.unfold_rows(dv, G),
+            dbias.reshape(*lead, *dbias.shape[-2:])), (0, 0, 0, 0, 0)
+
+
+_gatv2_attention_bwd_vmap.calls = 0
+gatv2_attention_bwd_op.register_vmap(_gatv2_attention_bwd_vmap)
+
+
 class _GATv2Attention(torch.autograd.Function):
+    """K1-res forward, K2ab (or K2a then K2b, or the streamed backward)
+    backward; returns (out, u, m, l), the last three saved for the backward
+    and not differentiable. ``torch.func`` transforms it too: under them its
+    forward is K1-res's custom op and its backward the backward's op, under
+    vmap each folding the entities into one grouped launch
+    (``generate_vmap_rule``)."""
+
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, p, q, a, bias, v, alpha, seed, rate):
-        out, u, m, l = gatv2_attention_res(p, q, a, bias, v, alpha, seed, rate)
+    def forward(p, q, a, bias, v, alpha, seed, rate):
+        if _vmap.is_wrapped(p, q, a, bias, v):
+            return gatv2_attention_res_op(p, q, a, bias, v, alpha,
+                                          _seed_tensor(seed, rate, p.device), rate)
+        return gatv2_attention_res(p, q, a, bias, v, alpha, seed, rate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        p, q, a, bias, v, alpha, seed, rate = inputs
+        _, u, m, l = output
+        ctx.mark_non_differentiable(u, m, l)
         ctx.save_for_backward(p, q, a, bias, v, u, m, l,
                               seed if isinstance(seed, torch.Tensor) else None)
         ctx.alpha, ctx.rate = alpha, rate
         ctx.seed = None if isinstance(seed, torch.Tensor) else seed
-        return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         p, q, a, bias, v, u, m, l, seed_t = ctx.saved_tensors
-        args = (ctx.alpha, seed_t if seed_t is not None else ctx.seed, ctx.rate)
-        # outside the kernels, as _fused_backward computes them (:610-612)
+        if not _vmap.is_wrapped(p, q, a, bias, v, u, g):
+            return _GATv2Attention._solo_backward(ctx, g)
+        p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, need = \
+            _GATv2Attention._bwd_args(ctx, g)
+        with torch.no_grad():
+            dp, dq, da, dv, dbias = gatv2_attention_bwd_op(
+                p, q, a, bias, v, m, l, du, dvec, alpha, _seed_tensor(seed, rate, p.device),
+                rate, need)
+        return _GATv2Attention._cast(ctx, dp, dq, da, dv, dbias if need else None)
+
+    @staticmethod
+    @once_differentiable
+    def _solo_backward(ctx, g):
+        """The backward of a call outside ``torch.func`` transforms,
+        straight to the wrappers (or the plain version); a second derivative
+        through it raises."""
+        return _GATv2Attention._cast(ctx, *_attention_bwd(*_GATv2Attention._bwd_args(ctx, g)))
+
+    @staticmethod
+    def _bwd_args(ctx, g):
+        """``_attention_bwd``'s arguments: du = g . out (1 - out) and dvec =
+        sum_d du . u outside the kernels, as ``_fused_backward`` computes
+        them (:610-612), and dbias where the bias needs a gradient."""
+        p, q, a, bias, v, u, m, l, seed_t = ctx.saved_tensors
         out = torch.sigmoid(u)
         du = g.float() * out * (1.0 - out)
-        if p.device.type == "cpu":
-            dp, dq, da, dbias, dv = gatv2_attention_bwd_plain(p, q, a, bias, v, du, *args)
-        else:
-            dvec = (du * u).sum(dim=-1)
-            want_dbias = bias is not None and ctx.needs_input_grad[3]
-            dp, dq, da, dv, dbias = gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, *args,
-                                              dbias=want_dbias)
-        if dbias is not None:
-            dbias = dbias.to(bias.dtype)
-        return (dp.to(p.dtype), dq.to(q.dtype), da.to(a.dtype), dbias, dv.to(v.dtype),
+        dvec = (du * u).sum(dim=-1)
+        return (p, q, a, bias, v, m, l, du, dvec, ctx.alpha,
+                seed_t if seed_t is not None else ctx.seed, ctx.rate,
+                bias is not None and ctx.needs_input_grad[3])
+
+    @staticmethod
+    def _cast(ctx, dp, dq, da, dv, dbias):
+        p, q, a, bias, v = ctx.saved_tensors[:5]
+        return (dp.to(p.dtype), dq.to(q.dtype), da.to(a.dtype),
+                None if dbias is None else dbias.to(bias.dtype), dv.to(v.dtype),
                 None, None, None)
+
+
+def refuse_unported_fleet_route(N: int, E: int, D: int, grad: bool = True) -> None:
+    """For a vmapped (fleet) call on a graph of N nodes at widths E and D:
+    raise, before any launch, where the forward plan is not the whole-graph
+    K1-res or (with ``grad``) the backward route not K2ab, the variants that
+    take no entity axis yet."""
+    if min(N, E, D) < 1:
+        return
+    fwd = gat_fwd_plan(N, E, D)
+    bwd = gat_bwd_route(N, E, D) if grad else "graph"
+    if fwd != "graph" or bwd != "graph":
+        what = f"the {fwd} forward" if fwd != "graph" else f"the {bwd} backward"
+        raise _vmap.not_ported_under_vmap(
+            f"gatv2_attention with gradients or attention dropout at N {N}, E {E}, D {D} "
+            f"({what})")
 
 
 def gatv2_attention(
@@ -1578,11 +1828,14 @@ def gatv2_attention(
     """Fused GATv2 attention with gradients and attention dropout at
     ``rate`` (0 in eval), keyed by ``seed`` (an int, or one int64 value on
     the inputs' device). Where a gradient is needed, or dropout is on, it
-    runs K1-res forward (and K2ab, or K2a then K2b, backward); otherwise K1
-    alone, which alone runs under ``torch.func.vmap``."""
-    if rate > 0.0 or _needs_grad(p, q, a, bias, v):
+    runs K1-res forward (and K2ab, or K2a then K2b, or the streamed
+    backward, backward); otherwise K1 alone. Under ``torch.func.vmap`` each
+    is one grouped launch for all entities, each with its own weights and
+    seed; there the training call takes the whole-graph kernels only, and
+    another plan raises before any launch (Queue 1 item 7c)."""
+    grad = _vmap.requires_grad(p, q, a, bias, v)
+    if rate > 0.0 or grad:
         if _vmap.is_batched(p, q, a, bias, v):
-            raise _vmap.not_ported_under_vmap(
-                "gatv2_attention with gradients or attention dropout")
-        return _GATv2Attention.apply(p, q, a, bias, v, alpha, seed, rate)
+            refuse_unported_fleet_route(p.shape[-2], p.shape[-1], v.shape[-1], grad)
+        return _GATv2Attention.apply(p, q, a, bias, v, alpha, seed, rate)[0]
     return gatv2_attention_fwd(p, q, a, bias, v, alpha)

@@ -39,7 +39,7 @@ import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
-from mtad_gat_tpu_torch.graph.dropout import EntityGenerators
+from mtad_gat_tpu_torch.graph.dropout import EntityGenerators, hash_seed
 from mtad_gat_tpu_torch.graph.ops import (
     BAND_UNROLL_CUTOFF,
     banded_attention_scan,
@@ -178,6 +178,12 @@ class GATLayer(nn.Module):
     def graph(self) -> Graph:
         return Graph(self.graph_src, self.graph_dst, self.n_nodes)
 
+    def fused_kernels(self) -> bool:
+        """Whether every call runs the fused kernels: GATv2 on a complete
+        graph under ``impl="pallas"``."""
+        return (self.impl == "pallas" and self.use_gatv2 and not self.has_graph
+                and self.band is None)
+
     def dense_route(self, v: torch.Tensor) -> bool:
         """Whether a dense GATv2 call on ``v`` goes to the fused kernel: the
         dense path's bytes (``dense_gatv2_bytes``, with autograd when a
@@ -208,15 +214,15 @@ class GATLayer(nn.Module):
             coo_bias = banded_bias_to_full(bias, self.n_nodes, self.band)
         banded = self.band is not None and self.impl == "dense"
 
-        def seed():
+        def seed(scan: bool = False):
             # one draw a layer call, on the device: the kernels and the
-            # block scan read it there
+            # block scan read it there; in a fleet step one an entity, from
+            # its own generator (EntityGenerators), at the same place
             if rate == 0.0:
                 return 0
-            if isinstance(generator, EntityGenerators):
-                raise _vmap.not_ported_under_vmap("the hash-mask attention dropout")
-            return torch.randint(0, 2**32, (1,), generator=generator,
-                                 device=generator.device, dtype=torch.int64)
+            if scan and isinstance(generator, EntityGenerators):
+                raise _vmap.not_ported_under_vmap("the block scan's hash-mask attention dropout")
+            return hash_seed(generator, v)
 
         if self.use_gatv2:
             # lin([v_i || v_j]) == v_i @ W_l^T + v_j @ W_r^T + b
@@ -227,13 +233,13 @@ class GATLayer(nn.Module):
                                               generator, self.bias_storage).to(cd)
             if banded:
                 return banded_attention_scan(p, q, a, bias, v, self.alpha, self.band,
-                                             dropout_rate=rate, dropout_seed=seed(),
+                                             dropout_rate=rate, dropout_seed=seed(scan=True),
                                              bias_storage=self.bias_storage).to(cd)
             if self.has_graph:
                 scores = gatv2_scores_coo(self.graph(), p, q, a, self.alpha)
                 return gat_aggregate_coo(self.graph(), scores, v, coo_bias, rate,
                                          generator).to(cd)
-            if self.impl == "pallas" or self.dense_route(v):
+            if self.fused_kernels() or self.dense_route(v):
                 return gatv2_attention(p, q, a, bias, v, self.alpha, seed(), rate).to(cd)
             scores = gatv2_scores_dense(p, q, a, self.alpha)
         else:
@@ -247,7 +253,7 @@ class GATLayer(nn.Module):
                     return gatv1_banded_attention(u, wk, bias, v, self.alpha, self.band,
                                                   rate, generator, self.bias_storage).to(cd)
                 return banded_attention_scan(u, wk, None, bias, v, self.alpha, self.band,
-                                             dropout_rate=rate, dropout_seed=seed(),
+                                             dropout_rate=rate, dropout_seed=seed(scan=True),
                                              bias_storage=self.bias_storage).to(cd)
             if self.has_graph:
                 scores = gatv1_scores_coo(self.graph(), wx, a[:e], a[e:], self.alpha)

@@ -8,17 +8,21 @@ through ``functional_call``. Under that vmap the GRU's forward and backward
 are custom ops whose vmap rules launch K3, K4's scan and K4's weights
 product once each for all entities (``kernels/_vmap.py``), so a fleet step
 launches two of each (encoder and decoder) whatever E is. The attention
-runs the dense path: K1-res and the attention backward have no entity axis
-yet (ROADMAP.md, Queue 1 item 7b).
+runs the dense path, or with ``attention_impl="pallas"`` (and where the
+dense route sends a layer to the kernels) K1-res forward and K2ab backward,
+each one grouped launch a layer for all entities, each entity's hash mask
+keyed by its own seed; a graph those whole-graph kernels cannot hold raises
+(ROADMAP.md, Queue 1 item 7c).
 
 Entity e's trajectory is its solo ``Trainer``'s to float tolerance:
 
 - the same init (one seed for every entity, as the sequential sweep does);
 - the same split and shuffles, each entity drawing from its own
   ``np.random.default_rng(seed)`` in ``Trainer.fit``'s order;
-- the same dropout masks: at every step each entity's masks come from a
-  generator seeded ``step_seed(seed, step_e)`` at its own step, drawn in the
-  solo forward's order (``graph/dropout.EntityGenerators``);
+- the same dropout masks: at every step each entity's masks, and the
+  attention kernels' hash seeds, come from a generator seeded
+  ``step_seed(seed, step_e)`` at its own step, drawn in the solo forward's
+  order (``graph/dropout.EntityGenerators``);
 - Adam by ``torch.optim.Adam``'s formula with per-entity steps and bias
   corrections, global-norm clipping over each entity's own gradients and the
   learning rate of its own step;
@@ -45,6 +49,7 @@ from torch.func import grad_and_value, vmap
 from mtad_gat_tpu_torch.config import MTADGATConfig, TrainConfig
 from mtad_gat_tpu_torch.data.windows import batched_starts, num_windows
 from mtad_gat_tpu_torch.graph.dropout import EntityGenerators
+from mtad_gat_tpu_torch.kernels.gat import refuse_unported_fleet_route
 from mtad_gat_tpu_torch.models import MTADGAT
 from mtad_gat_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from mtad_gat_tpu_torch.training.trainer import learning_rate, make_loss_fn, step_seed
@@ -95,6 +100,10 @@ class MultiEntityTrainer:
         self.device = torch.device(device)
         # the module the stacked weights run through; its own are not used
         self.model = MTADGAT(model_config).to(self.device)
+        for layer in (self.model.feature_gat, self.model.temporal_gat):
+            if layer.fused_kernels():
+                refuse_unported_fleet_route(layer.n_nodes, layer.lin.weight.shape[0],
+                                            layer.node_dim)
         self._loss_fn = make_loss_fn(self.model, self.window, horizon, self.target_dims)
         self.params: Optional[Stacked] = None
         self.exp_avg: Optional[Stacked] = None

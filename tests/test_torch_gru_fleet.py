@@ -12,8 +12,10 @@ grouped plain versions run.
   once a step for E = 1, 3 and 5, and its gradients equal per-entity
   autograd; weights that vmap does not batch get each entity's gradient.
 - The guards see the fleet's composition: ``_vmap.is_batched`` and
-  ``entities`` through the grad wrapper, and ``gatv2_attention`` with
-  gradients or dropout inside a fleet step raises, naming Queue 1 item 7b.
+  ``entities`` through the grad wrapper; ``gatv2_attention`` with gradients
+  or dropout inside a fleet step trains through the grouped K1-res and K2ab
+  (their plain versions here), each entity's gradients its solo call's,
+  and a graph they cannot hold raises, naming Queue 1 item 7c.
 - ``weight_grad_chunks`` with groups: the least count a group whose waves
   on the card cost within 5% of the best; one group the ungrouped count.
 - ``torch.func.grad`` outside vmap goes through the ops and equals autograd.
@@ -166,18 +168,30 @@ def test_the_guards_see_a_batched_tensor_under_grad():
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_attention_with_gradients_in_a_fleet_step_names_item_7b(rate):
+    """Item 7b is done: the attention with gradients inside a fleet step
+    (vmap over grad) runs K1-res's and the backward's ops, whose rules call
+    the grouped plain versions here (no launch on the CPU), and each
+    entity's gradients are its solo call's; a graph the whole-graph kernels
+    cannot hold (N 130: the tiled backward) still raises, now naming item
+    7c, the variants left."""
     G, B, N, E_, D = 2, 2, 4, 6, 3
     g = torch.Generator().manual_seed(0)
     p, q, v = (torch.randn(G, B, N, n, generator=g) for n in (E_, E_, D))
     a = torch.randn(G, E_, generator=g)
-    launches = kg.gatv2_attention_fwd.launches
+    launches = kg.gatv2_attention_fwd.launches, kg.gatv2_attention_res.launches
 
     def loss(a_e, p_e, q_e, v_e):
         return kg.gatv2_attention(p_e, q_e, a_e, None, v_e, 0.2, 0, rate).sum()
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-        vmap(grad(loss))(a, p, q, v)
-    assert kg.gatv2_attention_fwd.launches == launches
+    got = vmap(grad(loss, argnums=(0, 1)))(a, p, q, v)
+    assert (kg.gatv2_attention_fwd.launches, kg.gatv2_attention_res.launches) == launches
+    for e in range(G):
+        want = grad(loss, argnums=(0, 1))(a[e], p[e], q[e], v[e])
+        for x, w in zip(got, want):
+            torch.testing.assert_close(x[e], w, rtol=0, atol=1e-6)
+    wide = torch.zeros(G, 1, 130, E_)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
+        vmap(grad(loss))(a, wide, wide, torch.zeros(G, 1, 130, D))
 
 
 @pytest.mark.parametrize("rows,groups,want", [

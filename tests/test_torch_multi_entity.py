@@ -18,9 +18,10 @@ tensors lie on the CPU), and the dense attention.
 - Each fleet step calls K3's and K4's vmap rules twice (encoder and decoder)
   and, at dropout above 0, the keep-mask rule once a dropout site, under
   vmap's ``randomness="error"``.
-- The dense route counts the entities (``DENSE_AUTO_SCORE_BYTES`` pinned); a
-  fleet whose layer would route to the kernels, or that asks for
-  ``attention_impl="pallas"``, raises naming Queue 1 item 7b.
+- The dense route counts the entities (``DENSE_AUTO_SCORE_BYTES`` pinned): a
+  fleet whose layer routes to the kernels trains through the grouped K1-res
+  and K2ab and matches its solo trainers; a pallas fleet whose graph those
+  kernels cannot hold raises naming Queue 1 item 7c.
 - ``utils/weights``: stacking E ``state_dict``s and unstacking them again.
 """
 
@@ -37,6 +38,7 @@ from mtad_gat_tpu.config import TrainConfig as JaxTrainConfig
 from mtad_gat_tpu.training import MultiEntityTrainer as JaxFleet
 from mtad_gat_tpu_torch.config import MTADGATConfig, TrainConfig
 from mtad_gat_tpu_torch.graph import dropout as gdrop
+from mtad_gat_tpu_torch.kernels import gat as kg
 from mtad_gat_tpu_torch.kernels import gru as kgru
 from mtad_gat_tpu_torch.models import MTADGAT
 from mtad_gat_tpu_torch.nn import gat as ngat
@@ -200,11 +202,12 @@ def test_fleet_matches_the_jax_fleet(tmp_path):
                                        err_msg=f"entity {e} {name}")
 
 
-def test_the_dense_route_counts_the_entities(monkeypatch):
+def test_the_dense_route_counts_the_entities(monkeypatch, tmp_path):
     """One entity's layer stays dense under the pinned threshold, E of them
-    exceed it: in a fleet step the route goes to the kernels, which raise
-    naming item 7b before any launch; 3 entities of 4 rows route as 12 rows
-    would alone."""
+    exceed it: in a fleet step the route goes to the kernels, which train
+    through the grouped K1-res and K2ab (their plain versions here) and
+    match each entity's solo trainer, whose layer stays dense; 3 entities
+    of 4 rows route as 12 rows would alone."""
     cfg = MTADGATConfig(**CFG, dropout=0.0)
     layer = MTADGAT(cfg).temporal_gat
     n = cfg.window_size
@@ -222,17 +225,33 @@ def test_the_dense_route_counts_the_entities(monkeypatch):
     routes.append(layer.dense_route(torch.randn(12, n, cfg.n_features, requires_grad=True)))
     assert routes == [True, False, True]
 
-    # the feature layer (N 5) stays dense for the fleet, the temporal one routes
-    mt = MultiEntityTrainer(cfg, _tcfg(epochs=1, val_split=0.0, bs=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-        mt.fit(_series([30, 30, 30]), verbose=False)
+    # the feature layer (N 5) stays dense for the fleet, the temporal one
+    # routes: one K1-res rule and one backward rule a fleet step
+    tcfg = _tcfg(epochs=1, val_split=0.0, bs=4)
+    series = _series([30, 30, 30])
+    rules = kg._gatv2_attention_res_vmap.calls, kg._gatv2_attention_bwd_vmap.calls
+    mt = _fleet(cfg, tcfg, series)
+    assert (kg._gatv2_attention_res_vmap.calls - rules[0],
+            kg._gatv2_attention_bwd_vmap.calls - rules[1]) == (mt.fleet_steps, mt.fleet_steps)
+    _assert_matches_solo(mt, [_solo(cfg, tcfg, s, tmp_path) for s in series])
 
 
 def test_a_fleet_through_the_attention_kernels_names_item_7b():
-    cfg = MTADGATConfig(**CFG, dropout=0.3, attention_impl="pallas")
-    mt = MultiEntityTrainer(cfg, _tcfg(epochs=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-        mt.fit(_series([40, 40]), verbose=False)
+    """A pallas fleet trains since item 7b (``tests/test_torch_gat_fleet.py``
+    holds it against its solo trainers); one whose temporal graph the
+    whole-graph kernels cannot hold (window 130: the tiled backward) raises
+    when the trainer is built, naming item 7c, and so does a vmapped call of
+    its temporal layer, before any kernel or plain call."""
+    cfg = MTADGATConfig(**{**CFG, "window_size": 130}, dropout=0.3, attention_impl="pallas")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7c") as err:
+        MultiEntityTrainer(cfg, _tcfg(epochs=1), device="cpu")
+    assert "N 130" in str(err.value) and "tiled backward" in str(err.value)
+    layer = MTADGAT(cfg).temporal_gat.eval()
+    rules = kg._gatv2_attention_res_vmap.calls
+    x = torch.randn(2, 3, 130, CFG["n_features"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
+        torch.func.vmap(torch.func.grad(lambda x_e: layer(x_e, None).sum()))(x)
+    assert kg._gatv2_attention_res_vmap.calls == rules
 
 
 def test_entity_generators_draw_only_under_vmap():

@@ -27,7 +27,8 @@ CPU). The weights are the JAX fleet's stacked tree, split into E port
   refused.
 - The kernels' grouped plain versions equal per-group calls; under vmap,
   weights that vmap does not batch included; each vmap rule runs once a
-  layer a forward; vmap with gradients raises, naming Queue 1 item 7.
+  layer a forward; vmap with gradients runs K1-res's op, and a graph the
+  whole-graph kernels cannot hold raises, naming Queue 1 item 7c.
 """
 
 import pickle
@@ -383,6 +384,13 @@ def test_each_vmap_rule_runs_once_a_layer_a_forward(fleet_weights):
 
 
 def test_vmap_with_gradients_raises_naming_item_7(fleet_weights):
+    """Item 7b is done: the fleet's forward with gradients (weights that
+    require them, under vmap) runs K1-res's op, whose rule calls the grouped
+    plain version here, and equals the no-grad fleet forward (K1's op);
+    its gradients are each model's own. The attention at dropout under vmap
+    equals the per-entity calls (one seed, each entity's mask its own
+    call's). A graph the whole-graph kernels cannot hold raises, naming
+    item 7c."""
     _, _, models = fleet_weights
     params, buffers = torch.func.stack_module_state(models)
     base = models[0]
@@ -390,14 +398,35 @@ def test_vmap_with_gradients_raises_naming_item_7(fleet_weights):
     def forward(prm, buf, x):
         return torch.func.functional_call(base, (prm, buf), (x,))[0]
 
-    x = torch.zeros(E, 2, W, K)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        torch.func.vmap(forward)(params, buffers, x)
+    x = torch.from_numpy(_streams(W)[:, None].repeat(2, axis=1))
+    rules = kg._gatv2_attention_res_vmap.calls
+    out = torch.func.vmap(forward)(params, buffers, x)
+    assert kg._gatv2_attention_res_vmap.calls - rules == 2
+    with torch.no_grad():
+        plain = torch.func.vmap(forward)(params, buffers, x)
+    torch.testing.assert_close(out, plain, rtol=0, atol=SOLO_ATOL)
+    out.sum().backward()
+    models[1].zero_grad()
+    models[1](x[1])[0].sum().backward()
+    grads = {n: t.grad for n, t in models[1].named_parameters() if t.grad is not None}
+    assert {"feature_gat.a", "temporal_gat.a", "temporal_gat.bias"} <= set(grads)
+    for name, want in grads.items():
+        torch.testing.assert_close(params[name].grad[1], want, rtol=1e-5, atol=1e-6,
+                                   msg=name)
+    models[1].zero_grad()
+
     (p, q, a, bias, v), G, B = _k1_inputs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        torch.func.vmap(lambda *t: kg.gatv2_attention(*t, 0.2, 0, 0.3))(
-            p.view(G, B, *p.shape[1:]), q.view(G, B, *q.shape[1:]), a, bias,
-            v.view(G, B, *v.shape[1:]))
+    ent = lambda t: t.view(G, B, *t.shape[1:])  # noqa: E731
+    got = torch.func.vmap(lambda *t: kg.gatv2_attention(*t, 0.2, 0, 0.3))(
+        ent(p), ent(q), a, bias, ent(v))
+    for g in range(G):
+        want = kg.gatv2_attention(ent(p)[g], ent(q)[g], a[g], bias[g], ent(v)[g], 0.2, 0, 0.3)
+        assert torch.equal(got[g], want)
+    wide = torch.zeros(G, 1, 2048, 8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
+        torch.func.vmap(lambda p_e, a_e, v_e: kg.gatv2_attention(p_e, p_e, a_e, None, v_e,
+                                                                 0.2, 0, 0.3))(
+            wide, a, torch.zeros(G, 1, 2048, 4))
 
 
 def test_stacked_jax_params_split_by_entity(fleet_weights):
