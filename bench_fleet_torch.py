@@ -1,23 +1,29 @@
-"""K1, K1-res, K2ab, K3 and K4 of one checkout at G = 1 on one NVIDIA GPU, so
-that a tree that gave them an entity axis can be held against its parent bit
-for bit and time for time in one call.
+"""K1, K1-res, K2ab, the tiled K2a and K2b, the streamed backward, K3 and K4
+of one checkout at G = 1 on one NVIDIA GPU, so that a tree that gave them an
+entity axis can be held against its parent bit for bit and time for time in
+one call.
 
     python3 bench_fleet_torch.py [--root DIR] [--seed N] [--label NAME]
 
 Imports ``mtad_gat_tpu_torch`` from DIR (default: this checkout), builds its
-``gat_fwd``, ``gat_bwd``, ``gru_fwd`` and ``gru_bwd`` kernels there, and on
+``gat_fwd``, ``gat_bwd``, ``gat_streamed``, ``gru_fwd`` and ``gru_bwd``
+kernels there, and on
 inputs drawn from ``--seed`` (the same in every tree) calls through the
 wrappers, with ungrouped weights: K1 (the whole-graph kernel as planned and
 the tiled one forced), K1-res (both, dropout 0.3) and K2ab (dropout 0.3,
 with and without dbias; both also in bfloat16) at the SMD flagship's two attention
 layers (batch 256: N 38, E 200, D 100 and N 100, E 76, D 38) and at batch 1,
-K3 at hidden 150 (the cluster variant) and 384 (streaming) at batch 256 and
-1, and K4 (the scan and the weights product) at hidden 150 and 384, all
-float32 with bias. One JSON line per (shape, kernel) with its device time
-from a CUDA graph of 20 calls (``graph_ms``) and the sha256 of its outputs'
-bytes; the card's name and power limit first, then the registers and
-spills ptxas gave each GRU kernel and each whole-graph attention kernel. A
-comparison runs parent, change,
+the lookback-300 layers at batch 64 as a fleet's entity sees them (the
+temporal layer, N 300, E 76, D 38: the tiled K1-res, the FAST K2a, K2b with
+and without dbias; the feature layer, N 38, E 600, D 300: the whole-graph
+K1-res on two row blocks, the streamed backward with and without dbias; all
+at dropout 0.3), K3 at hidden 150 (the cluster variant) and 384 (streaming)
+at batch 256 and 1, and K4 (the scan and the weights product) at hidden 150
+and 384, all float32 with bias. One JSON line per (shape, kernel) with its
+device time from a CUDA graph of 20 calls (``graph_ms``) and the sha256 of
+its outputs' bytes; the card's name and power limit first, then the
+registers and spills ptxas gave each GRU kernel and each attention kernel
+(whole-graph, tiled and streamed). A comparison runs parent, change,
 change, parent in one call:
 
     git archive <parent> | tar -x -C build/parent
@@ -41,6 +47,8 @@ ALPHA, RATE = 0.2, 0.3
 ATTENTION = (("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
              ("feature batch 1", 1, 38, 200, 100), ("temporal batch 1", 1, 100, 76, 38))
 # (name, B, T, H)
+# (name, B, N, E, D): the lookback-300 layers, at an entity's batch
+WIDE = (("temporal lookback 300", 64, 300, 76, 38), ("feature lookback 300", 64, 38, 600, 300))
 GRU = (("hidden 150", 256, 100, 150), ("hidden 150 batch 1", 1, 100, 150),
        ("hidden 384", 64, 100, 384), ("hidden 384 batch 1", 1, 100, 384))
 
@@ -115,13 +123,15 @@ def main() -> None:
                          timeout=60).stdout.strip().splitlines()[0]
     label = args.label or root
     t0 = time.perf_counter()
-    _build.build_all(["gat_fwd", "gat_bwd", "gru_fwd", "gru_bwd"])
+    _build.build_all(["gat_fwd", "gat_bwd", "gat_streamed", "gru_fwd", "gru_bwd"])
     print(json.dumps({"card": smi, "root": root, "label": label, "package": kg.__file__,
                       "build_seconds": time.perf_counter() - t0}), flush=True)
-    for name in ("gat_fwd", "gat_bwd", "gru_fwd", "gru_bwd"):
+    for name in ("gat_fwd", "gat_bwd", "gat_streamed", "gru_fwd", "gru_bwd"):
         kernels = ptxas(_build.build_log(name))
         if name.startswith("gat"):
-            kernels = [k for k in kernels if "_graph_kernel" in k]
+            kernels = [k for k in kernels if any(
+                f"_{kind}_kernel" in k for kind in ("graph", "tiled", "dq_dv", "dp_da",
+                                                   "score", "contract", "reduce"))]
         print(json.dumps({"label": label, "ptxas": name, "kernels": kernels}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
@@ -166,6 +176,31 @@ def main() -> None:
                 report(name, f"k2ab {'dbias' if db else 'no dbias'} bf16",
                        lambda: kg.gatv2_bwd_graph(pb, qb, ab, bias, vb, mb, lb, du, dvec, ALPHA,
                                                   seed, RATE, dbias=db), **dims)
+    for name, B, N, E, D in WIDE:
+        p, q, v = r(B, N, E, scale=0.5), r(B, N, E, scale=0.5), r(B, N, D)
+        a, bias = r(E, scale=(6.0 / (E + 1)) ** 0.5), r(N, N, scale=0.1)
+        seed = torch.randint(0, 2**32, (1,), generator=gen, dtype=torch.int64).to(dev)
+        dims = dict(B=B, N=N, E=E, D=D)
+        with torch.no_grad():
+            variant = kg.gat_fwd_plan(N, E, D)
+            report(name, f"k1res {variant}",
+                   lambda: kg.gatv2_attention_res(p, q, a, bias, v, ALPHA, seed, RATE), **dims)
+            _, u, m, l = kg.gatv2_attention_res(p, q, a, bias, v, ALPHA, seed, RATE)
+            sig = torch.sigmoid(u)
+            du = r(B, N, D) * sig * (1 - sig)
+            dvec = (du * u).sum(-1)
+            args = (p, q, a, bias, v, m, l, du, dvec, ALPHA, seed, RATE)
+            if kg.gat_bwd_route(N, E, D) == "streamed":
+                for db in (True, False):
+                    report(name, f"streamed {'dbias' if db else 'no dbias'}",
+                           lambda: kg.gatv2_bwd_streamed(*args, dbias=db), **dims)
+            else:
+                report(name, "k2a", lambda: kg.gatv2_bwd_dp_da(*args), **dims)
+                for db in (True, False):
+                    report(name, f"k2b {'dbias' if db else 'no dbias'}",
+                           lambda: kg.gatv2_bwd_dq_dv(*args, dbias=db), **dims)
+        del p, q, v, u, m, l, du, dvec
+        torch.cuda.empty_cache()
     for name, B, T, H in GRU:
         gi = r(B, T, 3 * H)
         w_hh, b_hh = r(H, 3 * H, scale=H ** -0.5), r(3 * H, scale=H ** -0.5)

@@ -256,7 +256,7 @@ def sweep_tiled(args) -> None:
                                      "threads": pl.threads, "smem_bytes": pl.smem_bytes,
                                      "partial_bytes": pl.partial_bytes,
                                      "occupancy": lib.gatv2_bwd_tiled_occupancy(
-                                         name == "k2b", 0, E, D, int(pl.acc_smem), 1, 0)}
+                                         name == "k2b", 0, E, D, int(pl.acc_smem), 1, 0, 0)}
                     rec["ptxas"] = ptxas
                     rec["ok"] = rec["two_launches_identical"] and all(
                         e <= TOL for e in errs.values())

@@ -246,12 +246,32 @@ In order, each phase failing the run with a non-zero exit:
     at batch 64 and the kernel fleet at 64 and 256, and ``sweep_cli.main``
     without ``--batched`` on the same data (28 solo trainers one after
     another) for its windows/s;
-18. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
-    path, serving's, fleet serving's, fleet training's and long_complete's included, the tiled kernels' times
-    at the route's N, K2b's with and without dbias, K2c's forced times and
-    where dbias now comes from, and K1's and K3's serving launches and
+18. ``fleet_wide_window``: the lookback-300 layers at G 28 and 64 rows an
+    entity, float32, bias, dropout 0.3 with a seed an entity: the temporal
+    layer's tiled K1-res and FAST K2a and K2b with dbias, the feature
+    layer's whole-graph K1-res on two row blocks and streamed backward with
+    dbias, each grouped launch equal to its 28 ungrouped launches bit for
+    bit (those at the grouped plan's slices and K2b's batch group) and
+    within ``TRAIN_TOL`` of the grouped plain version, timed by CUDA graph
+    beside the 28 launches and its bound, with each new instantiation's
+    blocks a multiprocessor beside the ungrouped one's; then phase 17's 28
+    machines trained by ``sweep_cli.main --batched --attention_impl pallas
+    --gru_impl pallas --lookback 300 --bs 64`` (1 epoch, dropout 0.3): a
+    fleet step's launches exact by kernel and variant (two K1-res, one
+    merge, one FAST K2a, one FAST K2b with dbias, one streamed backward with
+    dbias, the GRU's), no plain call, every summary finite, ``predict_cli``
+    reproducing one; three machines against their solo trainers at lookback
+    300 and dropout 0 within ``FLEET_PARITY_TOL``; then the fleet's
+    windows/s, step p50 and p99 on the device's clock, peak memory and a
+    profiled epoch's busy share;
+19. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+    path, serving's, fleet serving's, fleet training's, the wide fleet's
+    and long_complete's included, the tiled kernels' times at the route's
+    N, K2b's with and without dbias, K2c's forced times and where dbias now
+    comes from, and K1's and K3's serving launches and
     batch-1 times, and their grouped launches at G 28, K1-res's and K2ab's
-    fleet-training launches and grouped times; the merge, the
+    fleet-training launches and grouped times, and the grouped tiled K1-res,
+    K2a, K2b and streamed backward's at lookback 300; the merge, the
     CHUNKED K2a and K2b, the chunked K2c and the streamed backward as rows
     of their own) and, last, ``{"ok": true, ...}``.
 
@@ -894,7 +914,8 @@ def streamed_layout(kg, B: int, N: int, E: int, D: int, sms: int) -> dict:
     # instantiates by dropout, the contraction pass by its output type
     kinds = {"score": (0, 0, 0), "score_dropout": (0, 0, 1), "contract": (1, 0, 0),
              "contract_bf16": (1, 1, 0)}
-    occ = {name: lib.gatv2_streamed_occupancy(which, N, pl.rows, pl.rows_per_thread, bf16, drop)
+    occ = {name: lib.gatv2_streamed_occupancy(which, N, pl.rows, pl.rows_per_thread, bf16, drop,
+                                              0)
            for name, (which, bf16, drop) in kinds.items()}
     launched = -(-pl.score_blocks // sms)
     return {"plan": pl._asdict(),
@@ -915,11 +936,11 @@ def k2b_group(kg, lib, B: int, N: int, E: int, D: int, sms: int) -> dict:
     blocks a multiprocessor (float32, dropout) with and without dbias: the
     fold must not cost it a block."""
     pl = kg.gat_tiled_bwd_plan(B, N, E, D, sms, dbias=True)["k2b"]
-    built = lib.gatv2_bwd_tiled_dbias_group(B, N, pl.tile, sms)
+    built = lib.gatv2_bwd_tiled_dbias_group(B, N, pl.tile, sms, B)
     return {"planned": pl.group, "library": built, "tile": kg.TILED_TILE_NAMES[pl.tile],
             "dbias_bytes": pl.dbias_bytes, "library_dbias_bytes": -(-B // built) * N * N * 4,
             "occupancy": {"dbias" if db else "no_dbias": lib.gatv2_bwd_tiled_occupancy(
-                1, pl.tile, E, D, int(pl.acc_smem), 1, db) for db in (0, 1)}}
+                1, pl.tile, E, D, int(pl.acc_smem), 1, db, 0) for db in (0, 1)}}
 
 
 def k2b_group_cost(kg, args, ref, outs, sms: int, tol: float) -> dict:
@@ -3955,7 +3976,8 @@ class FleetProbe:
         return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
 
 
-def expect_fleet_epoch(name: str, epoch: dict, dropout: float, kernels: bool = False) -> None:
+def expect_fleet_epoch(name: str, epoch: dict, dropout: float, kernels: bool = False,
+                       wide: bool = False) -> None:
     """Exactly two K3, K4 scan and K4 weights launches a fleet step (the
     encoder's and the decoder's GRU) and each GRU rule once a GRU a step;
     with the attention dense no attention kernel, at dropout the keep-mask
@@ -3963,11 +3985,18 @@ def expect_fleet_epoch(name: str, epoch: dict, dropout: float, kernels: bool = F
     attention through them) also two K1-res (whole graph) and two K2ab
     launches with dbias a step and their rules twice, nothing else of the
     attention's, and at dropout the keep-mask rule at 3 sites and the seed
-    rule at 2 (the layers' hash masks) a step."""
+    rule at 2 (the layers' hash masks) a step. ``wide`` (lookback 300,
+    with ``kernels``): a step's attention launches are the feature layer's
+    whole-graph K1-res and streamed backward with dbias, the temporal
+    layer's tiled K1-res and its merge, and FAST K2a and K2b with dbias,
+    one each."""
     steps = epoch["steps"]
     want = {"gru_scan_fwd": 2 * steps, "gru_scan_bwd": 2 * steps,
             "gru_weight_grads": 2 * steps}
-    if kernels:
+    if kernels and wide:
+        want.update({"gatv2_attention_res": 2 * steps,
+                     **{k: steps for k in FLEET_WIDE_STEP_LAUNCHES}})
+    elif kernels:
         want.update({k: 2 * steps for k in ("gatv2_attention_res", "gatv2_attention_res:graph",
                                              "gatv2_bwd_graph", "gatv2_bwd_graph:dbias")})
     wrong = {k: v for k, v in epoch["launches"].items() if v != want.get(k, 0)}
@@ -4019,7 +4048,8 @@ def recorded_seeds():
         torch.randint = real
 
 
-def check_fleet_parity(data_root, dev, impl: str = "dense") -> dict:
+def check_fleet_parity(data_root, dev, impl: str = "dense", lookback: int = 100,
+                       dropouts: tuple = (0.0, 0.3)) -> dict:
     """Three of the fleet's machines (their first 700, 620 and 780 train
     rows, so that padded batches occur), flagship widths, batch 64, 1
     epoch, float32, TF32 off: ``MultiEntityTrainer`` against a solo
@@ -4037,7 +4067,10 @@ def check_fleet_parity(data_root, dev, impl: str = "dense") -> dict:
     sides, a gradient entry a few tenths of a percent apart, which Adam's
     first steps turn into updates of up to lr each (measured on the card:
     a fleet of one equals its solo trainer to 2.2e-7 in the gradients of
-    the step where a fleet of two or three differs by 0.41%)."""
+    the step where a fleet of two or three differs by 0.41%). ``lookback``
+    and ``dropouts``: the window and the dropout rates run (phase
+    ``fleet_wide_window``: 300, dropout 0, through the grouped tiled and
+    streamed kernels against the solo ones)."""
     from mtad_gat_tpu_torch.config import RunConfig
     from mtad_gat_tpu_torch.data import get_data
     from mtad_gat_tpu_torch.training import MultiEntityTrainer, Trainer
@@ -4047,16 +4080,17 @@ def check_fleet_parity(data_root, dev, impl: str = "dense") -> dict:
     kernels = impl == "pallas"
     E, sites, seed_sites = len(series), (3 if kernels else 5), (2 if kernels else 0)
     out = {}
-    for dropout in (0.0, 0.3):
+    wide = lookback != 100
+    for dropout in dropouts:
         cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, dropout=dropout, log_tensorboard=False,
-                        attention_impl=impl, gru_impl="pallas")
+                        attention_impl=impl, gru_impl="pallas", lookback=lookback)
         mc, tc = cfg.model_config(38, 38), cfg.train_config()
         with FleetProbe() as probe, recorded_draws() as fleet_draws, \
                 recorded_seeds() as fleet_seeds:
             fleet = MultiEntityTrainer(mc, tc, device=str(dev))
             fleet.fit(series, verbose=False)
-        expect_fleet_epoch(f"fleet parity ({impl}), dropout {dropout}", probe.epochs[0],
-                           dropout, kernels)
+        expect_fleet_epoch(f"fleet parity ({impl}, lookback {lookback}), dropout {dropout}",
+                           probe.epochs[0], dropout, kernels, wide)
         loss_err, step_err, param_err, worst, masks_equal = 0.0, 0.0, 0.0, [], True
         for e, s in enumerate(series):
             solo = Trainer(mc, tc, log_dir=os.path.join(data_root, f"parity_logs_{e}"),
@@ -4089,8 +4123,9 @@ def check_fleet_parity(data_root, dev, impl: str = "dense") -> dict:
                     for k, v in solo.model.state_dict().items()}
             param_err = max(param_err, max(errs.values()))
             worst.append(max(errs, key=errs.get))
-        rec = {"phase": "fleet_training", "check": f"3 entities against their solo "
-               f"trainers, attention {impl}, dropout {dropout}, 1 epoch",
+        rec = {"phase": "fleet_wide_window" if wide else "fleet_training",
+               "check": f"3 entities against their solo trainers, attention {impl}, lookback "
+               f"{lookback}, dropout {dropout}, 1 epoch",
                "train_rows": list(FLEET_PARITY_ROWS),
                "hash_seeds_compared": seed_sites * int(fleet.steps.sum()) if dropout else 0,
                "steps": [int(s) for s in fleet.steps], "fleet_steps": fleet.fleet_steps,
@@ -4107,14 +4142,15 @@ def check_fleet_parity(data_root, dev, impl: str = "dense") -> dict:
 
 
 def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
-                           bs: int = FLEET_TRAIN_BS) -> dict:
+                           bs: int = FLEET_TRAIN_BS, lookback: int = 100) -> dict:
     """The fleet on all 28 machines outside the CLI, flagship widths, batch
     ``bs``, dropout 0.3, the attention ``impl`` (the GRU's kernels on), a
     fresh ``MultiEntityTrainer`` an epoch: a warm-up
     epoch, then one timed (all-entity windows/s, each step's time on the
     device's clock, p50 and p99, peak memory above the baseline, the fleet's
     weights and Adam state included) and one profiled (busy share, device
-    time by kernel)."""
+    time by kernel). ``lookback``: the window (300 in phase
+    ``fleet_wide_window``)."""
     from mtad_gat_tpu_torch.config import RunConfig
     from mtad_gat_tpu_torch.data import get_data
     from mtad_gat_tpu_torch.training import MultiEntityTrainer
@@ -4122,7 +4158,9 @@ def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
     series = [get_data(f"machine-{g}", data_root=data_root, normalize=True)[0][0]
               for g in FLEET_GROUPS]
     cfg = RunConfig(bs=bs, epochs=1, log_tensorboard=False, attention_impl=impl,
-                    gru_impl="pallas")
+                    gru_impl="pallas", lookback=lookback)
+    wide = lookback != 100
+    phase = "fleet_wide_window" if wide else "fleet_training"
 
     def train_one_epoch():
         # a fresh fleet each time: a fit on a trained one would resume past
@@ -4138,11 +4176,12 @@ def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
     with FleetProbe() as probe:
         train_one_epoch()
     epoch = probe.epochs[0]
-    expect_fleet_epoch(f"fleet numbers ({impl}, batch {bs})", epoch, cfg.dropout,
-                       impl == "pallas")
+    expect_fleet_epoch(f"fleet numbers ({impl}, batch {bs}, lookback {lookback})", epoch,
+                       cfg.dropout, impl == "pallas", wide)
     steps = probe.step_ms()
-    rec = {"phase": "fleet_training", "case": "numbers", "attention_impl": impl, "card": smi,
-           "entities": len(FLEET_GROUPS), "batch": bs,
+    rec = {"phase": phase, "case": "numbers", "attention_impl": impl, "card": smi,
+           "entities": len(FLEET_GROUPS), "batch": bs, "lookback": lookback,
+           "launches_in_epoch": {k: v for k, v in epoch["launches"].items() if v},
            "train_windows": epoch["windows"], "fleet_steps": epoch["steps"],
            "epoch_seconds": epoch["seconds"],
            "windows_per_s": epoch["windows"] / epoch["seconds"],
@@ -4151,8 +4190,9 @@ def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
            "peak_mb_above_baseline": (torch.cuda.max_memory_allocated() - base) / 2**20}
     prof = profile_device(train_one_epoch,
                           f"fleet training, {len(FLEET_GROUPS)} entities, attention {impl}, "
-                          f"batch {bs}, one epoch with its validation, float32")
-    prof["phase"] = "fleet_training"
+                          f"batch {bs}, lookback {lookback}, one epoch with its validation, "
+                          "float32")
+    prof["phase"] = phase
     emit(prof)
     rec["busy_share"] = prof["busy_share"]
     rec["what"] = ("windows/s: all entities' real training windows over the epoch's "
@@ -4162,7 +4202,7 @@ def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
     return rec
 
 
-def batched_sweep(common, out_root, run_id, impl, bs) -> dict:
+def batched_sweep(common, out_root, run_id, impl, bs, lookback: int = 100) -> dict:
     """``sweep_cli.main --batched`` on the fleet's machines at batch ``bs``,
     the attention ``impl`` ("dense", or "pallas" with ``--gru_impl
     pallas``), the counts set to 0 just before and read just after: the
@@ -4170,13 +4210,16 @@ def batched_sweep(common, out_root, run_id, impl, bs) -> dict:
     "pallas" two K1-res and two K2ab with dbias a step besides the GRU's),
     no plain attention or GRU call in the whole run (scoring included) and
     no attention kernel with "dense", every entity's summary finite, and
-    ``predict_cli`` reproducing the first entity's."""
+    ``predict_cli`` reproducing the first entity's. ``lookback`` 300 (phase
+    ``fleet_wide_window``): the launches ``expect_fleet_epoch`` names for
+    that window's plans."""
     from mtad_gat_tpu_torch.cli import predict_cli, sweep_cli
 
     kernels = impl == "pallas"
+    wide = lookback != 100
     extra = ["--attention_impl", "pallas", "--gru_impl", "pallas"] if kernels else []
     argv = [*common, "--bs", str(bs), "--output_root", out_root, "--batched", "--run_id",
-            run_id, *extra]
+            run_id, "--lookback", str(lookback), *extra]
     reset_counts()
     with FleetProbe() as probe, plain_calls() as plain:
         t0 = time.perf_counter()
@@ -4186,8 +4229,8 @@ def batched_sweep(common, out_root, run_id, impl, bs) -> dict:
     counts = read_counts()
     plain_counts = dict(plain)
     epoch = probe.epochs[0]
-    name = f"sweep_cli --batched, attention {impl}, batch {bs}"
-    expect_fleet_epoch(name, epoch, 0.3, kernels)
+    name = f"sweep_cli --batched, attention {impl}, batch {bs}, lookback {lookback}"
+    expect_fleet_epoch(name, epoch, 0.3, kernels, wide)
     steps = epoch["steps"]
     run0 = os.path.join(out_root, "SMD", FLEET_GROUPS[0], run_id)
     summary0 = finite_summary(os.path.join(run0, "summary.txt"))
@@ -4196,7 +4239,8 @@ def batched_sweep(common, out_root, run_id, impl, bs) -> dict:
     predict_cli.main(["--dataset", "SMD", "--group", FLEET_GROUPS[0], "--model_id", run_id,
                       "--data_root", common[common.index("--data_root") + 1],
                       "--output_root", out_root, "--device", "cuda"])
-    rec = {"phase": "fleet_training", "run": f"{name}, {len(FLEET_GROUPS)} machines, 1 epoch",
+    rec = {"phase": "fleet_wide_window" if wide else "fleet_training",
+           "run": f"{name}, {len(FLEET_GROUPS)} machines, 1 epoch",
            "seconds": seconds, "train_epoch_seconds": epoch["seconds"],
            "train_windows": epoch["windows"], "fleet_steps": steps,
            "windows_per_s": epoch["windows"] / epoch["seconds"],
@@ -4338,6 +4382,244 @@ def fleet_attention_row(ft: dict, key: str) -> dict:
                 "identical_to_G_solo_calls")} for layer, r in ft["attention_grad"].items()}}
 
 
+# ---------------------------------------------------------------------------
+# Fleet training at long windows: the tiled K1-res, the tiled K2a and K2b and
+# the streamed backward with an entity axis, and sweep_cli --batched
+# --lookback 300 over the 28 machines
+# ---------------------------------------------------------------------------
+
+FLEET_WIDE_LOOKBACK = 300
+FLEET_WIDE_ROWS = 64              # rows a group: the fleet's batch
+# (layer, N, E, D) at lookback 300 and SMD's 38 features: the temporal layer
+# takes the tiled K1-res and the FAST K2a and K2b, the feature layer the
+# whole-graph K1-res on two row blocks and the streamed backward
+FLEET_WIDE_LAYERS = (("temporal", 300, 76, 38), ("feature", 38, 600, 300))
+# a fleet step's attention launches besides K1-res's two, one each
+FLEET_WIDE_STEP_LAUNCHES = (
+    "gatv2_attention_res:graph", "gatv2_attention_res:tiled", "gatv2_fwd_merge",
+    "gatv2_bwd_dp_da", "gatv2_bwd_dp_da:fast", "gatv2_bwd_dq_dv", "gatv2_bwd_dq_dv:fast",
+    "gatv2_bwd_dq_dv:dbias", "gatv2_bwd_streamed", "gatv2_bwd_streamed:dbias")
+
+
+def wide_bounds(B, G, N, E, D) -> dict:
+    """The bounds of K1-res, K2a, K2b with dbias and the whole backward with
+    dbias (the streamed backward's function) at batch B in G entities,
+    float32, as ``time_training_kernels`` reckons them, with a (G, E), bias,
+    da and dbias an entity's."""
+    pairs = B * N * N
+    in_bytes = (2 * B * N * E + G * E + B * N * D) * 4 + G * N * N * 4
+    stats = 3 * B * N * 4 + B * N * D * 4
+    return {"k1res": bound(pairs * (4 * E + 2 * D), in_bytes + B * N * D * 8 + 2 * B * N * 4),
+            "k2a": bound(pairs * (7 * E + 2 * D + 4), in_bytes + stats + B * N * E * 4 + G * E * 4),
+            "k2b": bound(pairs * (5 * E + 4 * D + 5),
+                         in_bytes + stats + B * N * (E + D) * 4 + G * N * N * 4),
+            "streamed": bound(pairs * (8 * E + 4 * D + 5),
+                              in_bytes + stats + B * N * (2 * E + D) * 4 + G * E * 4
+                              + G * N * N * 4)}
+
+
+def wide_occupancy(kg, route, plans, N, E, D) -> dict:
+    """Blocks a multiprocessor of each new grouped instantiation beside its
+    ungrouped one, [ungrouped, grouped] (float32, dropout): the tiled K2a
+    and K2b with dbias at their plans' tile, or the streamed score and
+    contraction passes at the plan's row tile."""
+    if route == "tiled":
+        lib, pa, pb = kg._bwd_lib(), plans["k2a"], plans["k2b"]
+        return {"k2a": [lib.gatv2_bwd_tiled_occupancy(0, pa["tile"], E, D, int(pa["acc_smem"]),
+                                                      1, 0, gr) for gr in (0, 1)],
+                "k2b_dbias": [lib.gatv2_bwd_tiled_occupancy(1, pb["tile"], E, D,
+                                                            int(pb["acc_smem"]), 1, 1, gr)
+                              for gr in (0, 1)]}
+    lib, pl = kg._streamed_lib(), plans["streamed"]
+    return {f"streamed_{name}": [lib.gatv2_streamed_occupancy(which, N, pl["rows"],
+                                                              pl["rows_per_thread"], 0, 1, gr)
+                                 for gr in (0, 1)]
+            for which, name in ((0, "score"), (1, "contract"))}
+
+
+def check_grouped_wide_kernels(gen, dev) -> dict:
+    """The lookback-300 layers at G 28 and 64 rows an entity, float32, bias,
+    dropout 0.3 with a seed an entity: K1-res (the temporal layer's tiled
+    kernel, the feature layer's whole-graph kernel on two row blocks) and
+    the backward with dbias (the temporal layer's FAST K2a and K2b, the
+    feature layer's streamed backward), each grouped launch against its 28
+    ungrouped launches bit for bit, those at the grouped plan (K2a's and
+    K2b's slices and K2b's batch group forced to the grouped launch's; the
+    forward's and the streamed backward's plans equal at both batches,
+    asserted) and within ``TRAIN_TOL`` of the grouped plain version (da
+    and dbias each entity's); each timed by CUDA graph beside the 28
+    launches and its bound, with its plan and each grouped instantiation's
+    blocks a multiprocessor beside the ungrouped one's."""
+    from mtad_gat_tpu_torch.kernels import gat as kg
+
+    G, rows = len(FLEET_GROUPS), FLEET_WIDE_ROWS
+    B = G * rows
+    sms = _sms(dev)
+    out = {}
+    for layer, N, E, D in FLEET_WIDE_LAYERS:
+        p, q, _, _, v = gat_case(gen, dev, B, N, E, D, torch.float32, False)
+        a = (torch.randn(G, E, generator=gen) * (6.0 / (E + 1)) ** 0.5).to(dev)
+        bias = (0.1 * torch.randn(G, N, N, generator=gen)).to(dev)
+        seeds = torch.randint(0, 2**32, (G,), generator=gen, dtype=torch.int64).to(dev)
+        sl = lambda t, g: t[g * rows:(g + 1) * rows]  # noqa: E731
+        res = lambda: kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seeds, FLEET_RATE)  # noqa
+
+        def res_per():
+            return [kg.gatv2_attention_res(sl(p, g), sl(q, g), a[g], bias[g], sl(v, g), 0.2,
+                                           seeds[g:g + 1], FLEET_RATE) for g in range(G)]
+
+        torch.cuda.reset_peak_memory_stats()
+        got = res()
+        fwd_launch = dict(kg.gatv2_attention_res.last_launch)
+        per = res_per()
+        solo_launch = dict(kg.gatv2_attention_res.last_launch)
+        want = kg.gatv2_attention_res_plain(p, q, a, bias, v, 0.2, seeds, FLEET_RATE)
+        _, u, m, l = got
+        sig = torch.sigmoid(u)
+        du = torch.randn(B, N, D, generator=gen).to(dev) * sig * (1 - sig)
+        dvec = (du * u).sum(-1)
+        args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seeds, FLEET_RATE)
+
+        def one(g):
+            return (sl(p, g), sl(q, g), a[g], bias[g], sl(v, g),
+                    *(sl(t, g) for t in (m, l, du, dvec)), 0.2, seeds[g:g + 1], FLEET_RATE)
+
+        route = kg.gat_bwd_route(N, E, D)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if route == "tiled":
+            dp, da = kg.gatv2_bwd_dp_da(*args)
+            pa = kg.gatv2_bwd_dp_da.last_plan
+            dq, dv, db = kg.gatv2_bwd_dq_dv(*args, dbias=True)
+            pb = kg.gatv2_bwd_dq_dv.last_plan
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            grads = (dp, dq, da, dv, db)
+            solo = kg.gat_tiled_bwd_plan(rows, N, E, D, sms, dbias=True)
+            plans = {"k2a": pa._asdict(), "k2b": pb._asdict(),
+                     "solo_slices": [solo["k2a"].slices, solo["k2b"].slices],
+                     "solo_k2b_group": solo["k2b"].group}
+            k2a_per = lambda: [kg.gatv2_bwd_dp_da(*one(g), plan=pa) for g in range(G)]  # noqa
+            k2b_per = lambda: [kg.gatv2_bwd_dq_dv(*one(g), dbias=True, plan=pb)  # noqa: E731
+                               for g in range(G)]
+            grads_per = [(x[0], y[0], x[1], y[1], y[2]) for x, y in zip(k2a_per(), k2b_per())]
+            timed = {"k2a": (lambda: kg.gatv2_bwd_dp_da(*args), k2a_per),
+                     "k2b": (lambda: kg.gatv2_bwd_dq_dv(*args, dbias=True), k2b_per)}
+            same_plans = plans["solo_slices"] == [pa.slices, pb.slices]
+        else:
+            grads = kg.gatv2_bwd_streamed(*args, dbias=True)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            plan = kg.gatv2_bwd_streamed.last_plan
+            solo = kg.gat_streamed_bwd_plan(rows, N, E, D, sms, dbias=True)
+            plans = {"streamed": plan._asdict(), "solo_rows": [solo.rows, solo.rows_per_thread]}
+            bwd_per = lambda: [kg.gatv2_bwd_streamed(*one(g), dbias=True)  # noqa: E731
+                               for g in range(G)]
+            grads_per = bwd_per()
+            timed = {"streamed": (lambda: kg.gatv2_bwd_streamed(*args, dbias=True), bwd_per)}
+            # the row tile touches no sum: the bits hold whatever it is
+            same_plans = True
+        ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, seeds, FLEET_RATE)
+        torch.cuda.synchronize()
+        fwd_same = all(torch.equal(x, torch.cat([y[k] for y in per])) for k, x in enumerate(got))
+        bwd_same = {name: torch.equal(grads[k], (torch.stack if name in ("da", "dbias")
+                                                 else torch.cat)([y[k] for y in grads_per]))
+                    for k, name in enumerate(("dp", "dq", "da", "dv", "dbias"))}
+        ferr = forward_errors(got, want)
+        gerr, gabs = grad_errors(grads, ref, grads[4])
+        tol = TRAIN_TOL[torch.float32]
+        bounds = wide_bounds(B, G, N, E, D)
+        times = {"k1res": {"graph_ms": graph_ms(res, calls=3, replays=3),
+                           "G_launches_graph_ms": graph_ms(res_per, calls=1, replays=2),
+                           "bound_ms": bounds["k1res"][0], "bound_by": bounds["k1res"][1]}}
+        for key, (fn, per_fn) in timed.items():
+            times[key] = {"graph_ms": graph_ms(fn, calls=3, replays=3),
+                          "G_launches_graph_ms": graph_ms(per_fn, calls=1, replays=2),
+                          "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+        fwd_plan = fwd_launch["plan"]
+        rec = {"phase": "fleet_wide_window", "case": f"grouped K1-res and backward with dbias, "
+               f"{layer} layer ({B}, {N}, {E}, {D}), float32, dropout {FLEET_RATE}, one seed "
+               "an entity", "G": G, "rows_per_group": rows, "route": route,
+               "k1res_launch": fwd_launch,
+               "k1res_solo_launch": {k: solo_launch[k] for k in ("variant", "row_blocks")},
+               "k1res_slices": [None if fwd_plan is None else fwd_plan["slices"],
+                                None if solo_launch["plan"] is None
+                                else solo_launch["plan"]["slices"]],
+               "bwd_plans": plans, "bwd_peak_mb_above_inputs": peak,
+               "k1res_identical_to_G_launches": fwd_same, "bwd_identical_to_G_launches": bwd_same,
+               "forward_err": ferr, "grad_rel_err": gerr, "grad_abs_err": gabs, "tol": tol,
+               "occupancy": wide_occupancy(kg, route, plans, N, E, D),
+               **times,
+               "what": "graph_ms: the grouped launch's device time from a CUDA graph; "
+                       "G_launches_graph_ms: its 28 ungrouped launches' (the backward's at the "
+                       "grouped plan); the backward's include the sums of da and dbias, entity "
+                       "by entity; k1res_slices and bwd_plans: the grouped launch's beside a "
+                       "solo call's at 64 rows"}
+        emit(rec)
+        if (not fwd_same or not all(bwd_same.values()) or fwd_launch["groups"] != G
+                or fwd_launch["variant"] != kg.gat_fwd_plan(N, E, D)
+                or rec["k1res_slices"][0] != rec["k1res_slices"][1] or not same_plans
+                or (layer == "feature" and fwd_launch["row_blocks"] != 2)
+                or any(not e <= tol["forward"][k] for k, e in ferr.items())
+                or not max(gerr.values()) <= tol["grad"]):
+            raise AssertionError(f"grouped wide kernels ({layer}): {rec}")
+        out[layer] = rec
+        del p, q, v, got, per, want, grads, grads_per, ref, du, dvec, u, m, l, sig
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_fleet_wide_window(gen, dev, data_root, out_root, smi) -> dict:
+    """Phase ``fleet_wide_window``: the grouped tiled and streamed kernels
+    (``check_grouped_wide_kernels``); then the 28 machines of phase
+    ``fleet_training`` trained by ``sweep_cli.main --batched
+    --attention_impl pallas --gru_impl pallas --lookback 300 --bs 64`` (1
+    epoch, dropout 0.3, float32): a fleet step's launches exactly two K1-res
+    (the feature layer's whole graph on two row blocks, the temporal
+    layer's tiled with its merge), one FAST K2a, one FAST K2b with dbias and
+    one streamed backward with dbias, the GRU's as at the flagship, no plain
+    attention or GRU call, every entity's summary finite, ``predict_cli``
+    reproducing one; three machines against their solo trainers at lookback
+    300 through the kernels, dropout 0, within ``FLEET_PARITY_TOL``; then
+    the fleet's numbers at lookback 300 (windows/s, step p50 and p99 on the
+    device's clock, peak memory, a profiled epoch's busy share)."""
+    kernels = check_grouped_wide_kernels(gen, dev)
+    common = ["--dataset", "SMD", "--epochs", "1", "--dropout", "0.3", "--data_root",
+              data_root, "--device", "cuda", "--log_tensorboard", "False"]
+    sweep = batched_sweep(common, out_root, "wide", "pallas", FLEET_TRAIN_BS,
+                          FLEET_WIDE_LOOKBACK)
+    parity = check_fleet_parity(data_root, dev, "pallas", FLEET_WIDE_LOOKBACK, (0.0,))
+    numbers = fleet_training_numbers(data_root, smi, dev, "pallas", FLEET_TRAIN_BS,
+                                     FLEET_WIDE_LOOKBACK)
+    return {"kernels": kernels, "sweep": sweep, "parity": parity, "numbers": numbers,
+            "launches": sweep["launches"], "steps": sweep["fleet_steps"]}
+
+
+def fleet_wide_row(fw: dict, key: str) -> dict:
+    """A kernel's ``fleet_wide_window`` entry of the kernels line: its
+    launches in the phase's sweep and a fleet step's, and its grouped
+    launch at G 28 beside the 28 ungrouped launches, their bits, errors and
+    bound, at the layer that runs it."""
+    layer = "feature" if key == "streamed" else "temporal"
+    rec = fw["kernels"][layer]
+    same = (rec["k1res_identical_to_G_launches"] if key == "k1res"
+            else all(rec["bwd_identical_to_G_launches"].values()))
+    name = {"k1res": "gatv2_attention_res", "k2a": "gatv2_bwd_dp_da", "k2b": "gatv2_bwd_dq_dv",
+            "streamed": "gatv2_bwd_streamed"}[key]
+    row = {"launches": fw["launches"][name], "fleet_steps": fw["steps"],
+           "launches_per_fleet_step": 2 if key == "k1res" else 1,
+           "groups": rec["G"], "rows_per_group": rec["rows_per_group"],
+           "grouped": {f"{layer}, {rec['rows_per_group']} rows": {
+               **rec[key], "identical_to_G_launches": same,
+               "max_err": rec["forward_err"] if key == "k1res" else rec["grad_rel_err"]}}}
+    if key == "k1res":
+        f = fw["kernels"]["feature"]
+        row["grouped"][f"feature, {f['rows_per_group']} rows, two row blocks"] = {
+            **f["k1res"], "identical_to_G_launches": f["k1res_identical_to_G_launches"],
+            "max_err": f["forward_err"]}
+    return row
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4394,6 +4676,9 @@ def main() -> None:
         serving = check_serving(gen, dev, work, k3_batch1, smi)
         fleet = check_fleet_serving(gen, dev, work, smi)
         fleet_train = check_fleet_training(gen, dev, work, smi)
+        fleet_root = os.path.join(work, "fleet_training")
+        fleet_wide = check_fleet_wide_window(gen, dev, os.path.join(fleet_root, "data"),
+                                             os.path.join(fleet_root, "output"), smi)
     by_path = {name: {"main": train_launches.get(name, 0),
                       "dense_route": route["launches_eval"][name] + route["launches_train"][name],
                       "long_window": long_window["launches"][name],
@@ -4402,7 +4687,8 @@ def main() -> None:
                       "long_complete": long_complete["launches"][name],
                       "serving": serving["launches"][name],
                       "fleet_serving": fleet["launches"][name],
-                      "fleet_training": fleet_train["launches"][name]}
+                      "fleet_training": fleet_train["launches"][name],
+                      "fleet_wide_window": fleet_wide["launches"][name]}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]
@@ -4516,6 +4802,12 @@ def main() -> None:
         }
         if key in ("k1res", "k2ab"):
             row["fleet_training"] = fleet_attention_row(fleet_train, key)
+        if key in ("k1res", "k2a", "k2b"):
+            row["fleet_wide_window"] = fleet_wide_row(fleet_wide, key)
+        if key == "k2c":
+            row["fleet_wide_window"] = ("dbias an entity's from the grouped tiled K2b and the "
+                                        "grouped streamed backward, in their own passes; "
+                                        "their rows hold the times")
         if key == "k1res":
             row.update(variant="graph (kernels/gat.gat_fwd_plan), one block a graph at both "
                                "layers",
@@ -4680,6 +4972,7 @@ def main() -> None:
                    "element, 128 columns of E or D) blocks writing dp, dq, dv and da rows, and "
                    "dbias summed over the batch in order; K2a, K2b and K2c's functions in one "
                    "call",
+        "fleet_wide_window": fleet_wide_row(fleet_wide, "streamed"),
         "shapes": "the feature layer at windows 300 (b 64, N 38, E 600, D 300), 1024 (b 64, E "
                   "2048, D 1024: long_complete's, ms and plain_ms) and 1200 (b 8, E 2400, D "
                   "1200), float32, dropout 0.3, bias; times from a CUDA graph of 5 calls; "

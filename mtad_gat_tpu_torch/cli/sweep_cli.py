@@ -10,8 +10,11 @@ The port of ``mtad_gat_tpu/cli/sweep_cli.py`` (the reference's
   an entity at a time through ``train_cli.run_prediction``. Each fleet step
   launches K3, K4's scan and K4's weights product twice each (encoder and
   decoder GRU) whatever the number of entities; the attention runs dense,
-  or with ``--attention_impl pallas`` through K1-res and K2ab twice each
-  (feature and temporal layer), each entity's dropout mask its solo run's.
+  or with ``--attention_impl pallas`` through one grouped K1-res and one
+  grouped backward a layer (feature and temporal), whatever their plans (at
+  ``--lookback 300`` the temporal layer's tiled K1-res, K2a and K2b, the
+  feature layer's whole-graph K1-res on two row blocks and the streamed
+  backward), each entity's dropout mask its solo run's.
 
 Both write each entity's run directory (``model.pt``, ``config.txt``,
 ``summary.txt``) and ``<output>/SMD/sweep_summary.json``. The batched sweep

@@ -260,6 +260,18 @@ __device__ __forceinline__ void ds_tile(const Tile& t, const Args& g, uint32_t s
 //   partial is dbias itself. Where K2c read p, q, v, du, m, l and dvec a
 //   third time and scored every pair again, the fold adds N^2 float32
 //   writes (and reads, G > 1) to K2b;
+// - the entity axis (GROUPED, fleet training at long windows; FAST and WIDE
+//   tiles): the B batch elements form B / rows_per_group entities of
+//   consecutive elements, each with its own a + g E, bias + g N N and seed[g]
+//   and its batch index within the entity in the hash (tile_ds takes it; the
+//   score routine is untouched, so w stays the tiled K1-res's bit for bit).
+//   K2b's batch groups are each entity's runs of `group` rows, the last one
+//   ragged, so no group straddles two entities and each entity's dbias
+//   partials are those of its own launch at its rows; K2a's da rows are the
+//   block's, entity by entity within each slice; the reduce scales each row
+//   by its entity's a. The caller sums each entity's partials in its own
+//   launch's order (kernels/gat._entity_sums). A compile-time flag: at
+//   rows_per_group = B the ungrouped instantiations run, the parent's code;
 // - staging by cp.async with zero fill (ragged rows, padded widths), one
 //   buffer for the streamed tile. Three barriers a tile: the tile has
 //   arrived, its ds is complete (the contraction reads other threads' ds),
@@ -532,23 +544,31 @@ __device__ __forceinline__ void add_dbias(float* __restrict__ db, int N, int i0,
 // K2b: a block per (slice, batch group, key tile), walking the batch elements
 // of its group in order and, for each, its slice's row tiles (a group of one
 // element without DBIAS). part (slices, B, N, E + D): dq's sums without the
-// factor a_e, then dv's; with DBIAS dbias_part (ceil(B / group), N, N), one
-// group's sum of ds each.
-template <int RI, int KJ, bool DROP, bool DBIAS>
+// factor a_e, then dv's; with DBIAS dbias_part (batch groups, N, N), one
+// group's sum of ds each. GROUPED (the entity axis, this section's header):
+// each entity's rows_per_group elements are cut into runs of `group`, the
+// last one ragged, so a batch group never straddles two entities and entity
+// e's groups, and their dbias partials, are those of an ungrouped launch at
+// its rows, in order; ungrouped, the batch is cut so (ceil(B / group)).
+template <int RI, int KJ, bool DROP, bool DBIAS, bool GROUPED>
 __global__ void TILED_BOUNDS(RI, KJ)
 gatv2_bwd_dq_dv_kernel(const float* __restrict__ p, const float* __restrict__ q,
                        const float* __restrict__ a, const float* __restrict__ v, Args g,
                        float* __restrict__ part, float* __restrict__ dbias_part, int slices,
-                       int acc_smem, int group) {
+                       int acc_smem, int group, int rows_per_group) {
   constexpr int NT = RI * KJ / 16, RG = RI / 4, KG = KJ / 4;
   extern __shared__ __align__(16) float smem[];
   const int N = g.N, E = g.E, D = g.D, W = E + D;
   const TiledLayout L(E, D);
   const int key_tiles = (N + KJ - 1) / KJ, row_tiles = (N + RI - 1) / RI;
-  const int n_groups = (g.B + group - 1) / group;
+  // GROUPED: `per` runs an entity; ungrouped, the expressions after each `:`
+  const int per = GROUPED ? (rows_per_group + group - 1) / group : 1;
+  const int n_groups = GROUPED ? g.B / rows_per_group * per : (g.B + group - 1) / group;
   const int kt = blockIdx.x % key_tiles, sb = blockIdx.x / key_tiles;
   const int gr = sb % n_groups, sl = sb / n_groups;
-  const int b_first = gr * group, b_end = min(g.B, b_first + group);
+  const int grp = GROUPED ? gr / per : 0, b0 = grp * rows_per_group;
+  const int b_first = GROUPED ? b0 + gr % per * group : gr * group,
+            b_end = min(GROUPED ? b0 + rows_per_group : g.B, b_first + group);
   const int j0 = kt * KJ, kn = min(KJ, N - j0);
   const int t_begin = slice_begin(sl, row_tiles, slices);
   const int t_end = slice_begin(sl + 1, row_tiles, slices);
@@ -561,7 +581,12 @@ gatv2_bwd_dq_dv_kernel(const float* __restrict__ p, const float* __restrict__ q,
   float* dq_s = wa_s + RI * KJ;             // [KJ][EA] with acc_smem
   float* dv_s = dq_s + KJ * L.EA;           // [KJ][DA] with acc_smem
   float* db = DBIAS ? dbias_part + (size_t)gr * N * N : nullptr;
-  const uint32_t seed = read_seed(g);
+  const uint32_t seed = GROUPED ? (g.seed == nullptr ? 0u : (uint32_t)(unsigned long long)g.seed[grp])
+                                : read_seed(g);
+  if constexpr (GROUPED) {
+    a += (size_t)grp * E;
+    if (g.bias != nullptr) g.bias += (size_t)grp * N * N;
+  }
   const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q);
   const bool vec_d = D % 4 == 0 && aligned16(v) && aligned16(g.du);
   float* du_t = st + RI * L.EP;
@@ -594,8 +619,9 @@ gatv2_bwd_dq_dv_kernel(const float* __restrict__ p, const float* __restrict__ q,
       const int i0 = t * RI;
       {
         float ds[16], wa[16];
+        // the hash takes the batch index within the entity (b0 is 0 ungrouped)
         tiled_score<RI, KJ, DROP>(st, du_t, stats, stats + RI, stats + 2 * RI, q_s, v_s, a_s,
-                                  L, g, seed, b, i0, j0, ds, wa);
+                                  L, g, seed, b - b0, i0, j0, ds, wa);
         if constexpr (DBIAS) add_dbias<RG, KG>(db, N, i0, j0, ti, tj, ds, b != b_first);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -659,13 +685,15 @@ __host__ __device__ inline int key_splits(int items, int nt) {
 
 // K2a: a block per (slice, batch element, row tile), walking its slice's key
 // tiles. part (slices, B, N, E): dp's sums without the factor a_e; da_part
-// one row of E per block: its rows' and keys' sum of ds lr(z).
-template <int RI, int KJ, bool DROP>
+// one row of E per block: its rows' and keys' sum of ds lr(z). GROUPED: the
+// element's entity's a, bias and seed, and its index within the entity in
+// the hash; the caller sums each entity's da rows.
+template <int RI, int KJ, bool DROP, bool GROUPED>
 __global__ void TILED_BOUNDS(RI, KJ)
 gatv2_bwd_dp_da_kernel(const float* __restrict__ p, const float* __restrict__ q,
                        const float* __restrict__ a, const float* __restrict__ v, Args g,
                        float* __restrict__ part, float* __restrict__ da_part, int slices,
-                       int acc_smem) {
+                       int acc_smem, int rows_per_group) {
   constexpr int NT = RI * KJ / 16, RG = RI / 4, KG = KJ / 4, RS = (RI / 4) % 2 ? RI : RI + 4;
   extern __shared__ __align__(16) float smem[];
   const int N = g.N, E = g.E, D = g.D;
@@ -687,7 +715,13 @@ gatv2_bwd_dp_da_kernel(const float* __restrict__ p, const float* __restrict__ q,
   float* da_s = dsT_s + KJ * RS;            // [RG][EA]
   float* dp_s = da_s + RG * L.EA;           // [RI][EA] with acc_smem
   float* out = part + ((size_t)(sl * g.B + b) * N + i0) * E;
-  const uint32_t seed = read_seed(g);
+  const int grp = GROUPED ? b / rows_per_group : 0, bh = b - grp * rows_per_group;
+  const uint32_t seed = GROUPED ? (g.seed == nullptr ? 0u : (uint32_t)(unsigned long long)g.seed[grp])
+                                : read_seed(g);
+  if constexpr (GROUPED) {
+    a += (size_t)grp * E;
+    if (g.bias != nullptr) g.bias += (size_t)grp * N * N;
+  }
   const float* qb = q + (size_t)b * N * E;
   const float* vb = v + (size_t)b * N * D;
   const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q);
@@ -715,7 +749,7 @@ gatv2_bwd_dp_da_kernel(const float* __restrict__ p, const float* __restrict__ q,
     {
       float ds[16], wa[16];
       tiled_score<RI, KJ, DROP>(p_s, du_s, m_s, l_s, dvec_s, q_t, q_t + KJ * L.EP, a_s, L, g,
-                                seed, b, i0, j0, ds, wa);
+                                seed, bh, i0, j0, ds, wa);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         *reinterpret_cast<float4*>(dsT_s + (tj + KG * c) * RS + 4 * ti) =
@@ -1068,12 +1102,13 @@ gatv2_bwd_dp_da_chunked_kernel(const float* __restrict__ p, const float* __restr
 
 // out_a[r][c] = a_c sum_s part[s][r][c] for c < E and out_b[r][c - E] =
 // sum_s part[s][r][c] for the DB columns after (W = E + DB a row), s in
-// order: no atomics, the same bits every launch; cast to T.
-template <typename T>
+// order: no atomics, the same bits every launch; cast to T. GROUPED: row r
+// takes a_c of its entity, a + (r / group_rows) E.
+template <typename T, bool GROUPED>
 __global__ void gatv2_bwd_slice_reduce_kernel(const float* __restrict__ part,
                                               const float* __restrict__ a, T* __restrict__ out_a,
                                               T* __restrict__ out_b, long long rows, int E,
-                                              int DB, int S) {
+                                              int DB, int S, long long group_rows) {
   const int W = E + DB;
   const long long n = rows * W;
   for (long long x = blockIdx.x * (long long)blockDim.x + threadIdx.x; x < n;
@@ -1083,7 +1118,7 @@ __global__ void gatv2_bwd_slice_reduce_kernel(const float* __restrict__ part,
     const long long r = x / W;
     const int c = (int)(x % W);
     if (c < E)
-      out_a[r * E + c] = from_f<T>(a[c] * acc);
+      out_a[r * E + c] = from_f<T>((GROUPED ? a + r / group_rows * E : a)[c] * acc);
     else
       out_b[r * DB + c - E] = from_f<T>(acc);
   }
@@ -1507,20 +1542,23 @@ __host__ __device__ inline bool tile_dims(int tile, int* ri, int* kj) {
 // where one group does. G is 1 at B 1 and grows with B; the partials,
 // ceil(B / G) of (N, N), stay a few where N is large. kernels/gat mirrors
 // these three constants (TILED_FILL, TILED_MIN_TILES, TILED_MAX_SLICES),
-// which set the slices there.
+// which set the slices there. With the entity axis the rule is taken at the
+// whole grouped batch B and capped at an entity's rows_per_group (B: no cap),
+// since a group never straddles two entities.
 constexpr int TILED_FILL = 16, TILED_MIN_TILES = 4, TILED_MAX_SLICES = 64;
 
-inline int tiled_dbias_group(int B, int N, int tile, int sms) {
+inline int tiled_dbias_group(int B, int N, int tile, int sms, int rows_per_group) {
   int ri = 0, kj = 0;
   if (B < 1 || N < 1 || sms < 1 || !tile_dims(tile, &ri, &kj)) return 0;
+  if (rows_per_group < 1 || B % rows_per_group != 0) return 0;
   const long long own = (N + kj - 1) / kj, stream = (N + ri - 1) / ri;
   long long most = stream / TILED_MIN_TILES;
   most = most < 1 ? 1 : most > TILED_MAX_SLICES ? TILED_MAX_SLICES : most;
   const long long target = (long long)TILED_FILL * sms, cap = most * own;
   const long long need = (target + cap - 1) / cap;  // groups the fill needs
-  if (need <= 1) return B;
-  const long long g = (B + need - 2) / (need - 1) - 1;
-  return g < 1 ? 1 : (int)g;
+  long long g = need <= 1 ? B : (B + need - 2) / (need - 1) - 1;
+  g = g < 1 ? 1 : g;
+  return (int)(g < rows_per_group ? g : rows_per_group);
 }
 
 // Shared memory of one block of K2a (which 0) or K2b (1) at tile shape
@@ -1540,50 +1578,63 @@ size_t tiled_floats(int which, int tile, int E, int D, bool acc_smem) {
 }
 
 // One tiled launch's choices (kernels/gat.gat_tiled_bwd_plan): K2b's batch
-// group is 1 without dbias.
+// group is 1 without dbias; the batch in entities of rows_per_group elements
+// (B: one, the ungrouped instantiations).
 struct TiledPlan {
-  int tile, slices, acc_smem, group;
+  int tile, slices, acc_smem, group, rows_per_group;
 };
 
 template <typename T>
 int slice_reduce(const float* part, const float* a, void* out_a, void* out_b, const Args& g,
-                 int DB, int S, void* stream) {
+                 int DB, int S, int rows_per_group, void* stream) {
   const long long n = (long long)g.B * g.N * (g.E + DB);
   const long long blocks = (n + 255) / 256;
-  gatv2_bwd_slice_reduce_kernel<T><<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0,
-                                      (cudaStream_t)stream>>>(
-      part, a, (T*)out_a, (T*)out_b, (long long)g.B * g.N, g.E, DB, S);
+  const unsigned grid = (unsigned)(blocks < 65536 ? blocks : 65536);
+  const long long rows = (long long)g.B * g.N, group_rows = (long long)rows_per_group * g.N;
+  if (rows_per_group != g.B)
+    gatv2_bwd_slice_reduce_kernel<T, true><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        part, a, (T*)out_a, (T*)out_b, rows, g.E, DB, S, group_rows);
+  else
+    gatv2_bwd_slice_reduce_kernel<T, false><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        part, a, (T*)out_a, (T*)out_b, rows, g.E, DB, S, group_rows);
   return (int)cudaGetLastError();
 }
 
+// Batch groups of a K2b launch: each entity's rows in runs of `group` when
+// GROUPED, else ceil(B / group).
+inline long long dq_dv_batch_groups(int B, int group, int rows_per_group, bool grouped) {
+  return grouped ? (long long)(B / rows_per_group) * ((rows_per_group + group - 1) / group)
+                 : (B + group - 1) / group;
+}
+
 // K2b and its reduce: dq (B, N, E) and dv (B, N, D) in T, part (slices, B,
-// N, E + D) float32 scratch; with DBIAS dbias_part (ceil(B / group), N, N).
-template <typename T, int RI, int KJ, bool DROP, bool DBIAS>
+// N, E + D) float32 scratch; with DBIAS dbias_part (batch groups, N, N).
+template <typename T, int RI, int KJ, bool DROP, bool DBIAS, bool GROUPED>
 int dq_dv_shape(const float* p, const float* q, const float* a, const float* v, const Args& g,
                 void* dq, void* dv, float* dbias_part, float* part, const TiledPlan& pl,
                 void* stream, int* occupancy) {
-  auto kernel = gatv2_bwd_dq_dv_kernel<RI, KJ, DROP, DBIAS>;
+  auto kernel = gatv2_bwd_dq_dv_kernel<RI, KJ, DROP, DBIAS, GROUPED>;
   const size_t floats = dq_dv_floats<RI, KJ>(TiledLayout(g.E, g.D), pl.acc_smem);
   if (int err = prepare(kernel, floats)) return err;
   if (occupancy != nullptr)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, RI * KJ / 16,
                                                               floats * sizeof(float));
-  const long long groups = (g.B + pl.group - 1) / pl.group;
+  const long long groups = dq_dv_batch_groups(g.B, pl.group, pl.rows_per_group, GROUPED);
   const long long blocks = (long long)pl.slices * groups * ((g.N + KJ - 1) / KJ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, RI * KJ / 16, floats * sizeof(float), (cudaStream_t)stream>>>(
-      p, q, a, v, g, part, dbias_part, pl.slices, pl.acc_smem, pl.group);
+      p, q, a, v, g, part, dbias_part, pl.slices, pl.acc_smem, pl.group, pl.rows_per_group);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
-  return slice_reduce<T>(part, a, dq, dv, g, g.D, pl.slices, stream);
+  return slice_reduce<T>(part, a, dq, dv, g, g.D, pl.slices, pl.rows_per_group, stream);
 }
 
 // K2a and its reduce: dp (B, N, E) in T, da_part one float32 row of E per
 // block, part (slices, B, N, E) float32 scratch.
-template <typename T, int RI, int KJ, bool DROP>
+template <typename T, int RI, int KJ, bool DROP, bool GROUPED>
 int dp_da_shape(const float* p, const float* q, const float* a, const float* v, const Args& g,
                 void* dp, float* da_part, float* part, const TiledPlan& pl, void* stream,
                 int* occupancy) {
-  auto kernel = gatv2_bwd_dp_da_kernel<RI, KJ, DROP>;
+  auto kernel = gatv2_bwd_dp_da_kernel<RI, KJ, DROP, GROUPED>;
   const size_t floats = dp_da_floats<RI, KJ>(TiledLayout(g.E, g.D), pl.acc_smem);
   if (int err = prepare(kernel, floats)) return err;
   if (occupancy != nullptr)
@@ -1592,25 +1643,40 @@ int dp_da_shape(const float* p, const float* q, const float* a, const float* v, 
   const long long blocks = (long long)pl.slices * g.B * ((g.N + RI - 1) / RI);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, RI * KJ / 16, floats * sizeof(float), (cudaStream_t)stream>>>(
-      p, q, a, v, g, part, da_part, pl.slices, pl.acc_smem);
+      p, q, a, v, g, part, da_part, pl.slices, pl.acc_smem, pl.rows_per_group);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
-  return slice_reduce<T>(part, a, dp, nullptr, g, 0, pl.slices, stream);
+  return slice_reduce<T>(part, a, dp, nullptr, g, 0, pl.slices, pl.rows_per_group, stream);
 }
 
 // The FAST or WIDE K2a (which 0) or K2b (1), K2b with dbias where dbias_part
 // is non-null.
+template <typename T, int RI, int KJ, bool DROP, bool GROUPED>
+int tiled_shape_grouped(int which, const float* p, const float* q, const float* a,
+                        const float* v, const Args& g, void* out0, void* out1,
+                        float* dbias_part, float* part, const TiledPlan& pl, void* stream,
+                        int* occupancy) {
+  if (which == 0)
+    return dp_da_shape<T, RI, KJ, DROP, GROUPED>(p, q, a, v, g, out0, (float*)out1, part, pl,
+                                                 stream, occupancy);
+  return dbias_part != nullptr
+             ? dq_dv_shape<T, RI, KJ, DROP, true, GROUPED>(p, q, a, v, g, out0, out1,
+                                                           dbias_part, part, pl, stream,
+                                                           occupancy)
+             : dq_dv_shape<T, RI, KJ, DROP, false, GROUPED>(p, q, a, v, g, out0, out1, nullptr,
+                                                            part, pl, stream, occupancy);
+}
+
+// rows_per_group = B is one entity, the ungrouped instantiations (the kernels
+// without the axis: the same registers and bits).
 template <typename T, int RI, int KJ, bool DROP>
 int tiled_shape(int which, const float* p, const float* q, const float* a, const float* v,
                 const Args& g, void* out0, void* out1, float* dbias_part, float* part,
                 const TiledPlan& pl, void* stream, int* occupancy) {
-  if (which == 0)
-    return dp_da_shape<T, RI, KJ, DROP>(p, q, a, v, g, out0, (float*)out1, part, pl, stream,
-                                        occupancy);
-  return dbias_part != nullptr
-             ? dq_dv_shape<T, RI, KJ, DROP, true>(p, q, a, v, g, out0, out1, dbias_part, part,
-                                                  pl, stream, occupancy)
-             : dq_dv_shape<T, RI, KJ, DROP, false>(p, q, a, v, g, out0, out1, nullptr, part,
-                                                   pl, stream, occupancy);
+  if (pl.rows_per_group != g.B)
+    return tiled_shape_grouped<T, RI, KJ, DROP, true>(which, p, q, a, v, g, out0, out1,
+                                                      dbias_part, part, pl, stream, occupancy);
+  return tiled_shape_grouped<T, RI, KJ, DROP, false>(which, p, q, a, v, g, out0, out1,
+                                                     dbias_part, part, pl, stream, occupancy);
 }
 
 // The CHUNKED K2a (which 0) or K2b (1, with dbias where dbias_part is
@@ -1640,8 +1706,8 @@ int chunked(int which, const float* p, const float* q, const float* a, const flo
     k2a<<<(unsigned)blocks, CHUNK_NT, bytes, (cudaStream_t)stream>>>(p, q, a, v, g, part,
                                                                      (float*)out1, pl.slices);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
-  return which ? slice_reduce<T>(part, a, out0, out1, g, g.D, pl.slices, stream)
-               : slice_reduce<T>(part, a, out0, nullptr, g, 0, pl.slices, stream);
+  return which ? slice_reduce<T>(part, a, out0, out1, g, g.D, pl.slices, g.B, stream)
+               : slice_reduce<T>(part, a, out0, nullptr, g, 0, pl.slices, g.B, stream);
 }
 
 // K2a (which 0) or K2b (1, summing dbias into dbias_part where it is
@@ -1655,6 +1721,10 @@ int tiled(int which, const void* p, const void* q, const void* a, const void* v,
     return (int)cudaErrorInvalidValue;
   if (which == 0 && (dbias_part != nullptr || pl.group != 1)) return (int)cudaErrorInvalidValue;
   if (dbias_part == nullptr && pl.group != 1) return (int)cudaErrorInvalidValue;
+  // the CHUNKED tile takes no entity axis (ROADMAP.md, Queue 1 item 7d)
+  if (pl.rows_per_group < 1 || g.B % pl.rows_per_group != 0 ||
+      (pl.tile == 2 && pl.rows_per_group != g.B))
+    return (int)cudaErrorInvalidValue;
   const float *pf = (const float*)p, *qf = (const float*)q, *af = (const float*)a,
               *vf = (const float*)v;
   float *pt = (float*)part, *db = (float*)dbias_part;
@@ -1853,26 +1923,27 @@ long gatv2_bwd_tiled_smem_bytes(int which, int tile, int E, int D, int acc_smem)
 // Key splits of K2a's contraction at `items` (row groups x float4 groups of
 // E) on `threads` threads.
 int gatv2_bwd_tiled_key_splits(int items, int threads) { return key_splits(items, threads); }
-// Batch elements a block of the tiled K2b with dbias sums over, at batch B,
-// N nodes, tile shape `tile` on a card of `sms` multiprocessors; 0 for a bad
-// argument.
-int gatv2_bwd_tiled_dbias_group(int B, int N, int tile, int sms) {
-  return tiled_dbias_group(B, N, tile, sms);
+// Batch elements a block of the tiled K2b with dbias sums over, at batch B
+// in entities of rows_per_group elements (B: one), N nodes, tile shape
+// `tile` on a card of `sms` multiprocessors; 0 for a bad argument.
+int gatv2_bwd_tiled_dbias_group(int B, int N, int tile, int sms, int rows_per_group) {
+  return tiled_dbias_group(B, N, tile, sms, rows_per_group);
 }
 
-// Blocks of the tiled K2a (which 0) or K2b (1), float32, with dropout or not
-// and (K2b) with dbias or not, that one multiprocessor holds at once (CUDA's
-// occupancy calculator); negative on a CUDA error.
+// Blocks of the tiled K2a (which 0) or K2b (1), float32, with dropout or not,
+// (K2b) with dbias or not, and with the entity axis (GROUPED) or not, that
+// one multiprocessor holds at once (CUDA's occupancy calculator); negative on
+// a CUDA error.
 int gatv2_bwd_tiled_occupancy(int which, int tile, int E, int D, int acc_smem, int drop,
-                              int dbias) {
+                              int dbias, int grouped) {
   long long one = 0;
   float part = 0.f;
   const Args g = make_args(nullptr, drop ? &one : nullptr, nullptr, nullptr, nullptr, nullptr,
-                           1, 1, E, D, 0.f, 0u, 1.f);
+                           grouped ? 2 : 1, 1, E, D, 0.f, 0u, 1.f);
   int blocks = 0;
   const int err = tiled<float>(which, nullptr, nullptr, nullptr, nullptr, g, nullptr, nullptr,
                                dbias ? &part : nullptr, nullptr,
-                               TiledPlan{tile, 1, acc_smem, 1}, nullptr, &blocks);
+                               TiledPlan{tile, 1, acc_smem, 1, 1}, nullptr, &blocks);
   return err ? -err : blocks;
 }
 
@@ -1881,30 +1952,36 @@ int gatv2_bwd_tiled_occupancy(int which, int tile, int E, int D, int acc_smem, i
 // tile): the caller sums them. K2b: dq (B, N, E) and dv (B, N, D) in T and,
 // with dbias_part non-null, K2c's dbias: a block takes `group` batch
 // elements and writes their sum of ds into its (N, N) float32 slice of
-// dbias_part (ceil(B / group), N, N), which the caller sums (with one group
-// it is dbias itself); without it, pass group 1. p, q, a and v are float32
+// dbias_part (batch groups, N, N), which the caller sums (with one group it
+// is dbias itself); without it, pass group 1. p, q, a and v are float32
 // whatever T; part is the float32 scratch of the slices' partial sums,
-// (slices, B, N, E) for K2a and (slices, B, N, E + D) for K2b.
+// (slices, B, N, E) for K2a and (slices, B, N, E + D) for K2b. The entity
+// axis (FAST and WIDE tiles): a (B / rows_per_group, E), bias (B /
+// rows_per_group, N, N) and one seed each; K2b's batch groups are each
+// entity's runs of `group` rows, B / rows_per_group x ceil(rows_per_group /
+// group) of them; rows_per_group = B for one entity.
 #define GAT_TILED_TAIL int tile, int slices, int acc_smem
 int gatv2_bwd_dp_da_f32(GAT_BWD_ARGS, void* dp, void* da_part, void* part, GAT_BWD_SIZES,
-                        GAT_TILED_TAIL, GAT_BWD_DROP) {
+                        GAT_TILED_TAIL, int rows_per_group, GAT_BWD_DROP) {
   return tiled<float>(0, p, q, a, v, GAT_BWD_G, dp, da_part, nullptr, part,
-                      TiledPlan{tile, slices, acc_smem, 1}, stream);
+                      TiledPlan{tile, slices, acc_smem, 1, rows_per_group}, stream);
 }
 int gatv2_bwd_dp_da_bf16(GAT_BWD_ARGS, void* dp, void* da_part, void* part, GAT_BWD_SIZES,
-                         GAT_TILED_TAIL, GAT_BWD_DROP) {
+                         GAT_TILED_TAIL, int rows_per_group, GAT_BWD_DROP) {
   return tiled<__nv_bfloat16>(0, p, q, a, v, GAT_BWD_G, dp, da_part, nullptr, part,
-                              TiledPlan{tile, slices, acc_smem, 1}, stream);
+                              TiledPlan{tile, slices, acc_smem, 1, rows_per_group}, stream);
 }
 int gatv2_bwd_dq_dv_f32(GAT_BWD_ARGS, void* dq, void* dv, void* dbias_part, void* part,
-                        GAT_BWD_SIZES, GAT_TILED_TAIL, int group, GAT_BWD_DROP) {
+                        GAT_BWD_SIZES, GAT_TILED_TAIL, int group, int rows_per_group,
+                        GAT_BWD_DROP) {
   return tiled<float>(1, p, q, a, v, GAT_BWD_G, dq, dv, dbias_part, part,
-                      TiledPlan{tile, slices, acc_smem, group}, stream);
+                      TiledPlan{tile, slices, acc_smem, group, rows_per_group}, stream);
 }
 int gatv2_bwd_dq_dv_bf16(GAT_BWD_ARGS, void* dq, void* dv, void* dbias_part, void* part,
-                         GAT_BWD_SIZES, GAT_TILED_TAIL, int group, GAT_BWD_DROP) {
+                         GAT_BWD_SIZES, GAT_TILED_TAIL, int group, int rows_per_group,
+                         GAT_BWD_DROP) {
   return tiled<__nv_bfloat16>(1, p, q, a, v, GAT_BWD_G, dq, dv, dbias_part, part,
-                              TiledPlan{tile, slices, acc_smem, group}, stream);
+                              TiledPlan{tile, slices, acc_smem, group, rows_per_group}, stream);
 }
 
 // K2c. part is (n_chunks, N, N) float32, one (N, N) sum a batch chunk: the

@@ -49,8 +49,9 @@
 // its group's seed, seed[g] (G values), and hashes its batch index within
 // the group, b - g rows_per_group, so each group's mask is that of its own
 // ungrouped launch (the JAX kernel's program_id(0) under vmap is the
-// entity's own). The whole-graph kernel takes it in K1 and K1-res, the tiled
-// one in K1 only; the merge does not change. The group arithmetic is a
+// entity's own). Both kernels take it in K1 and K1-res (the tiled K1-res
+// since fleet training at long windows); the merge does not change: it
+// works row by row. The group arithmetic is a
 // compile-time flag (GROUPED): at rows_per_group = B (G = 1) the launch runs
 // the ungrouped instantiation, whose code is the kernel's without the axis
 // (the same registers and bits).
@@ -138,7 +139,7 @@ struct TiledFwdLayout {
 
 struct TiledFwdArgs {
   const float* bias;        // (G, N, N) or null
-  const long long* seed;    // one value, or null without dropout
+  const long long* seed;    // one value (G with the entity axis), or null without dropout
   int B, N, E, D;
   float alpha;
   uint32_t thresh;
@@ -186,7 +187,9 @@ gatv2_fwd_tiled_kernel(const float* __restrict__ p, const float* __restrict__ q,
   const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q) && aligned16(a);
   const bool vec_d = D % 4 == 0 && aligned16(v);
   uint32_t seed = 0;
-  if constexpr (DROP) seed = (uint32_t)(unsigned long long)(*g.seed);
+  if constexpr (DROP) seed = (uint32_t)(unsigned long long)(GROUPED ? g.seed[grp] : *g.seed);
+  // the hash's batch index: within the group (GROUPED), else the call's
+  const int bh = GROUPED ? b - grp * g.rows_per_group : b;
   const int dw0 = min(FWD_DC, D);
 
   float m[4], l[4], acc[16];
@@ -251,7 +254,7 @@ gatv2_fwd_tiled_kernel(const float* __restrict__ p, const float* __restrict__ q,
         sum += ex;
         float agg = ex;
         if constexpr (DROP) {
-          agg = drop_hash(seed, (uint32_t)b, (uint32_t)i, (uint32_t)j) < g.thresh
+          agg = drop_hash(seed, (uint32_t)bh, (uint32_t)i, (uint32_t)j) < g.thresh
                     ? ex * g.scale : 0.f;
         }
         w_s[(ti + FWD_RG * r) * FWD_WS + tj + FWD_KG * c] = agg;
@@ -726,9 +729,10 @@ int gatv2_fwd_tiled_occupancy(int E, int D, int drop) {
 }
 
 // The tiled K1 and K1-res before their merge: p, q, a, v float32 (the caller
-// widens bfloat16), dropout when seed is not null; a and bias grouped as
-// K1's, rows_per_group = B for one group (K1-res); writes the slices'
-// partials acc_part (slices, B, N, D), m_part and l_part (slices, B, N).
+// widens bfloat16), dropout when seed is not null (B / rows_per_group values,
+// one a group); a and bias grouped as K1's, rows_per_group = B for one group;
+// writes the slices' partials acc_part (slices, B, N, D), m_part and l_part
+// (slices, B, N).
 int gatv2_fwd_tiled(const void* p, const void* q, const void* a, const void* bias,
                     const void* v, const void* seed, void* acc_part, void* m_part,
                     void* l_part, int B, int N, int E, int D, int slices, int rows_per_group,
@@ -739,8 +743,9 @@ int gatv2_fwd_tiled(const void* p, const void* q, const void* a, const void* bia
   const float *pf = (const float*)p, *qf = (const float*)q, *af = (const float*)a,
               *vf = (const float*)v;
   float *acc = (float*)acc_part, *mp = (float*)m_part, *lp = (float*)l_part;
-  if (rows_per_group != B)   // K1's entity axis: no dropout there
-    return seed ? (int)cudaErrorInvalidValue
+  if (rows_per_group != B)   // the entity axis
+    return seed ? tiled_launch<true, true>(pf, qf, af, vf, g, acc, mp, lp, slices, stream,
+                                           nullptr)
                 : tiled_launch<false, true>(pf, qf, af, vf, g, acc, mp, lp, slices, stream,
                                             nullptr);
   return seed ? tiled_launch<true, false>(pf, qf, af, vf, g, acc, mp, lp, slices, stream,

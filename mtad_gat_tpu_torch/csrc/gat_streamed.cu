@@ -62,6 +62,18 @@
 // Layouts: p, q (B, N, E), a (E,), v and du (B, N, D), bias (N, N) or
 // null, m, l, dvec (B, N), all float32 (the wrapper widens bfloat16 inputs,
 // exactly); dp, dq, dv written in T (float32 or bfloat16).
+//
+// The entity axis (GROUPED, fleet training at long windows, as the tiled
+// K2a and K2b's in gat_bwd.cu): the B batch elements form B / rows_per_group
+// entities of consecutive elements, a (G, E), bias (G, N, N) and one seed
+// each. A score block reads its element's entity's a, bias and seed and
+// hashes the element's index within the entity; a contraction block scales
+// by its entity's a_e; the dbias blocks are G x ceil(N^2 / CW), each summing
+// its own entity's rows in order of b into dbias (G, N, N); da_part stays a
+// row an element, which the caller sums entity by entity. No sum crosses an
+// element of another entity and the row tile touches none, so a grouped
+// launch gives its G ungrouped launches' bits. A compile-time flag: at
+// rows_per_group = B the ungrouped instantiations run, the parent's code.
 
 #include "gat_common.cuh"
 
@@ -103,16 +115,22 @@ __host__ __device__ inline size_t contract_floats(int N) {
 // ceil(N / rows), a thread per key j = x % N and MR rows x / N + k rows / MR
 // (k < MR) of the row tile: MR pairs sharing the key's staged q and v.
 // ds_out and wa_out (B, N, N) float32.
-template <bool DROP, int MR>
+template <bool DROP, int MR, bool GROUPED>
 __global__ void __launch_bounds__(1024)
 gatv2_streamed_score_kernel(const float* __restrict__ p, const float* __restrict__ q,
                             const float* __restrict__ a, const float* __restrict__ v,
                             Args g, float* __restrict__ ds_out,
-                            float* __restrict__ wa_out, int rows) {
+                            float* __restrict__ wa_out, int rows, int rows_per_group) {
   extern __shared__ __align__(16) float smem[];
   const int N = g.N, E = g.E, D = g.D, nt = blockDim.x;
   const int row_tiles = (N + rows - 1) / rows;
   const int b = blockIdx.x / row_tiles, i0 = blockIdx.x % row_tiles * rows;
+  // GROUPED: the element's entity and its index within it (the hash's)
+  const int grp = GROUPED ? b / rows_per_group : 0, bh = b - grp * rows_per_group;
+  if constexpr (GROUPED) {
+    a += (size_t)grp * E;
+    if (g.bias != nullptr) g.bias += (size_t)grp * N * N;
+  }
   const int buf_floats = (rows + N + 1) * SCP;
   const float* m_s = smem + RING * buf_floats;   // m, l, dvec of the row tile
   const float* l_s = m_s + rows;
@@ -202,14 +220,15 @@ gatv2_streamed_score_kernel(const float* __restrict__ p, const float* __restrict
     }
     __syncthreads();  // the chunk's readers are done before its buffer is restaged
   }
-  const uint32_t seed = read_seed(g);
+  const uint32_t seed = GROUPED ? (g.seed == nullptr ? 0u : (uint32_t)(unsigned long long)g.seed[grp])
+                                : read_seed(g);
 #pragma unroll
   for (int k = 0; k < MR; ++k) {
     if (!in[k]) continue;
     const int r = rl[k], i = i0 + r;
     float dsv, wav;
     pair_ds<DROP>(s[k], dot[k], bv[k], g.bias != nullptr, m_s[r], l_s[r], dvec_s[r], seed,
-                  g.thresh, g.scale, b, i, j, dsv, wav);
+                  g.thresh, g.scale, bh, i, j, dsv, wav);
     const size_t o = ((size_t)b * N + i) * N + j;
     ds_out[o] = dsv;
     wa_out[o] = wav;
@@ -218,28 +237,33 @@ gatv2_streamed_score_kernel(const float* __restrict__ p, const float* __restrict
 
 // The contraction pass, KEYS = key_regs(N): blocks [0, B (ne + nd)) by
 // (batch element, ne chunks of E then nd chunks of D, CW columns each), then
-// with dbias ceil(N^2 / CW) blocks that sum ds over the batch. A thread
-// copies its column of p (E blocks) or du (D blocks) into shared memory by
-// cp.async first, all N rows at once, so that its reads overlap the staging
-// of ds and its sums.
-template <typename T, int KEYS>
+// with dbias ceil(N^2 / CW) blocks (G x that GROUPED) that sum ds over the
+// batch (over an entity's rows). A thread copies its column of p (E blocks)
+// or du (D blocks) into shared memory by cp.async first, all N rows at once,
+// so that its reads overlap the staging of ds and its sums.
+template <typename T, int KEYS, bool GROUPED>
 __global__ void __launch_bounds__(CW)
 gatv2_streamed_contract_kernel(const float* __restrict__ p, const float* __restrict__ q,
                                const float* __restrict__ a, Args g,
                                const float* __restrict__ ds, const float* __restrict__ wa,
                                T* __restrict__ dp, T* __restrict__ dq, T* __restrict__ dv,
-                               float* __restrict__ da_part, float* __restrict__ dbias) {
+                               float* __restrict__ da_part, float* __restrict__ dbias,
+                               int rows_per_group) {
   extern __shared__ __align__(16) float smem[];
   const int N = g.N, E = g.E, D = g.D, B = g.B;
   const int ne = (E + CW - 1) / CW, nd = (D + CW - 1) / CW;
   const int tid = threadIdx.x;
   if (blockIdx.x >= B * (ne + nd)) {
-    // dbias: entry x of (N, N), sum_b ds in order of b
-    const int x = (blockIdx.x - B * (ne + nd)) * CW + tid;
+    // dbias: entry x of (N, N) of entity grp, sum_b ds over its rows in
+    // order of b (ungrouped: entity 0, all of the batch)
+    const int k = blockIdx.x - B * (ne + nd), per = (N * N + CW - 1) / CW;
+    const int grp = GROUPED ? k / per : 0;
+    const int x = (GROUPED ? k % per : k) * CW + tid;
+    const int b0 = grp * rows_per_group, b1 = GROUPED ? b0 + rows_per_group : B;
     if (x < N * N) {
       float acc = 0.f;
-      for (int b = 0; b < B; ++b) acc += ds[(size_t)b * N * N + x];
-      dbias[x] = acc;
+      for (int b = b0; b < b1; ++b) acc += ds[(size_t)b * N * N + x];
+      dbias[(size_t)grp * N * N + x] = acc;
     }
     return;
   }
@@ -308,7 +332,7 @@ gatv2_streamed_contract_kernel(const float* __restrict__ p, const float* __restr
     qv[j] = j < N ? qc[(size_t)j * E] : 0.f;
     dqa[j] = 0.f;
   }
-  const float ae = a[e];
+  const float ae = (GROUPED ? a + (size_t)(b / rows_per_group) * E : a)[e];
   T* dpo = dp + (size_t)b * N * E + e;
   float da_abs = 0.f, da_p = 0.f;
   cp_async_wait_all();              // this thread's own column of p
@@ -355,11 +379,11 @@ bool bad_tile(int rows, int mr) {
 
 // The score pass, or (occupancy non-null) only the blocks of it one
 // multiprocessor holds at once.
-template <bool DROP, int MR>
+template <bool DROP, int MR, bool GROUPED>
 int score_mr(const float* p, const float* q, const float* a, const float* v,
-             const Args& g, float* ds, float* wa, int rows, void* stream,
+             const Args& g, float* ds, float* wa, int rows, int rows_per_group, void* stream,
              int* occupancy) {
-  auto kernel = gatv2_streamed_score_kernel<DROP, MR>;
+  auto kernel = gatv2_streamed_score_kernel<DROP, MR, GROUPED>;
   const size_t floats = score_floats(g.N, rows);
   if (int err = prepare(kernel, floats)) return err;
   const int threads = score_threads(g.N, rows, MR);
@@ -369,19 +393,35 @@ int score_mr(const float* p, const float* q, const float* a, const float* v,
   const long long blocks = (long long)g.B * ((g.N + rows - 1) / rows);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, threads, floats * sizeof(float), (cudaStream_t)stream>>>(
-      p, q, a, v, g, ds, wa, rows);
+      p, q, a, v, g, ds, wa, rows, rows_per_group);
   return (int)cudaGetLastError();
 }
 
-int score_launch(const float* p, const float* q, const float* a, const float* v,
-                 const Args& g, float* ds, float* wa, int rows, int mr, void* stream,
-                 int* occupancy) {
+template <bool GROUPED>
+int score_grouped(const float* p, const float* q, const float* a, const float* v,
+                  const Args& g, float* ds, float* wa, int rows, int mr, int rows_per_group,
+                  void* stream, int* occupancy) {
   const bool drop = g.seed != nullptr;
   if (mr == 2)
-    return drop ? score_mr<true, 2>(p, q, a, v, g, ds, wa, rows, stream, occupancy)
-                : score_mr<false, 2>(p, q, a, v, g, ds, wa, rows, stream, occupancy);
-  return drop ? score_mr<true, 1>(p, q, a, v, g, ds, wa, rows, stream, occupancy)
-              : score_mr<false, 1>(p, q, a, v, g, ds, wa, rows, stream, occupancy);
+    return drop ? score_mr<true, 2, GROUPED>(p, q, a, v, g, ds, wa, rows, rows_per_group,
+                                             stream, occupancy)
+                : score_mr<false, 2, GROUPED>(p, q, a, v, g, ds, wa, rows, rows_per_group,
+                                              stream, occupancy);
+  return drop ? score_mr<true, 1, GROUPED>(p, q, a, v, g, ds, wa, rows, rows_per_group, stream,
+                                           occupancy)
+              : score_mr<false, 1, GROUPED>(p, q, a, v, g, ds, wa, rows, rows_per_group, stream,
+                                            occupancy);
+}
+
+// rows_per_group = B: one entity, the ungrouped instantiations.
+int score_launch(const float* p, const float* q, const float* a, const float* v,
+                 const Args& g, float* ds, float* wa, int rows, int mr, int rows_per_group,
+                 void* stream, int* occupancy) {
+  if (rows_per_group != g.B)
+    return score_grouped<true>(p, q, a, v, g, ds, wa, rows, mr, rows_per_group, stream,
+                               occupancy);
+  return score_grouped<false>(p, q, a, v, g, ds, wa, rows, mr, rows_per_group, stream,
+                              occupancy);
 }
 
 struct ContractOut {
@@ -389,31 +429,34 @@ struct ContractOut {
   float *da_part, *dbias;
 };
 
-template <typename T, int KEYS>
+template <typename T, int KEYS, bool GROUPED>
 int contract_keys(const float* p, const float* q, const float* a, const Args& g,
-                  const float* ds, const float* wa, const ContractOut& o, void* stream,
-                  int* occupancy) {
-  auto kernel = gatv2_streamed_contract_kernel<T, KEYS>;
+                  const float* ds, const float* wa, const ContractOut& o, int rows_per_group,
+                  void* stream, int* occupancy) {
+  auto kernel = gatv2_streamed_contract_kernel<T, KEYS, GROUPED>;
   const size_t floats = contract_floats(g.N);
   if (int err = prepare(kernel, floats)) return err;
   if (occupancy != nullptr)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, CW,
                                                               floats * sizeof(float));
+  const long long entities = g.B / rows_per_group;
   const long long blocks = (long long)g.B * ((g.E + CW - 1) / CW + (g.D + CW - 1) / CW) +
-                           (o.dbias != nullptr ? ((long long)g.N * g.N + CW - 1) / CW : 0);
+                           (o.dbias != nullptr
+                                ? entities * (((long long)g.N * g.N + CW - 1) / CW) : 0);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, CW, floats * sizeof(float), (cudaStream_t)stream>>>(
-      p, q, a, g, ds, wa, (T*)o.dp, (T*)o.dq, (T*)o.dv, o.da_part, o.dbias);
+      p, q, a, g, ds, wa, (T*)o.dp, (T*)o.dq, (T*)o.dv, o.da_part, o.dbias, rows_per_group);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int contract(const float* p, const float* q, const float* a, const Args& g,
-             const float* ds, const float* wa, const ContractOut& o, void* stream,
-             int* occupancy) {
+template <typename T, bool GROUPED>
+int contract_grouped(const float* p, const float* q, const float* a, const Args& g,
+                     const float* ds, const float* wa, const ContractOut& o,
+                     int rows_per_group, void* stream, int* occupancy) {
   switch (key_regs(g.N)) {
-#define GAT_KEYS(K) \
-    case K: return contract_keys<T, K>(p, q, a, g, ds, wa, o, stream, occupancy);
+#define GAT_KEYS(K)                                                                         \
+    case K: return contract_keys<T, K, GROUPED>(p, q, a, g, ds, wa, o, rows_per_group, stream, \
+                                                occupancy);
     GAT_KEYS(8) GAT_KEYS(16) GAT_KEYS(24) GAT_KEYS(32)
     GAT_KEYS(40) GAT_KEYS(48) GAT_KEYS(56) GAT_KEYS(64)
 #undef GAT_KEYS
@@ -421,16 +464,27 @@ int contract(const float* p, const float* q, const float* a, const Args& g,
   }
 }
 
+template <typename T>
+int contract(const float* p, const float* q, const float* a, const Args& g,
+             const float* ds, const float* wa, const ContractOut& o, int rows_per_group,
+             void* stream, int* occupancy) {
+  if (rows_per_group != g.B)
+    return contract_grouped<T, true>(p, q, a, g, ds, wa, o, rows_per_group, stream, occupancy);
+  return contract_grouped<T, false>(p, q, a, g, ds, wa, o, rows_per_group, stream, occupancy);
+}
+
 // Both passes on one stream: the score pass writes ds and wa, the
 // contraction pass reads them.
 template <typename T>
 int streamed(const float* p, const float* q, const float* a, const float* v,
              const Args& g, float* ds, float* wa, const ContractOut& o, int rows,
-             int mr, void* stream) {
-  if (key_regs(g.N) == 0 || bad_tile(rows, mr) || g.B < 1 || g.E < 1 || g.D < 1)
+             int mr, int rows_per_group, void* stream) {
+  if (key_regs(g.N) == 0 || bad_tile(rows, mr) || g.B < 1 || g.E < 1 || g.D < 1 ||
+      rows_per_group < 1 || g.B % rows_per_group != 0)
     return (int)cudaErrorInvalidValue;
-  if (int err = score_launch(p, q, a, v, g, ds, wa, rows, mr, stream, nullptr)) return err;
-  return contract<T>(p, q, a, g, ds, wa, o, stream, nullptr);
+  if (int err = score_launch(p, q, a, v, g, ds, wa, rows, mr, rows_per_group, stream, nullptr))
+    return err;
+  return contract<T>(p, q, a, g, ds, wa, o, rows_per_group, stream, nullptr);
 }
 
 }  // namespace
@@ -439,13 +493,14 @@ int streamed(const float* p, const float* q, const float* a, const float* v,
   const void *p, const void *q, const void *a, const void *bias, const void *v,      \
       const void *seed, const void *m, const void *l, const void *du, const void *dvec, \
       void *ds, void *wa, void *dp, void *dq, void *dv, void *da_part, void *dbias,    \
-      int B, int N, int E, int D, int rows, int mr, float alpha, unsigned int thresh,   \
-      float scale, void *stream
+      int B, int N, int E, int D, int rows, int mr, int rows_per_group, float alpha,    \
+      unsigned int thresh, float scale, void *stream
 #define GAT_STREAMED_CALL(T)                                                           \
   streamed<T>((const float*)p, (const float*)q, (const float*)a, (const float*)v,      \
               make_args(bias, seed, m, l, du, dvec, B, N, E, D, alpha, thresh, scale), \
               (float*)ds, (float*)wa,                                                  \
-              ContractOut{dp, dq, dv, (float*)da_part, (float*)dbias}, rows, mr, stream)
+              ContractOut{dp, dq, dv, (float*)da_part, (float*)dbias}, rows, mr,          \
+              rows_per_group, stream)
 
 extern "C" {
 
@@ -454,7 +509,9 @@ extern "C" {
 // sums; with dbias non-null dbias (N, N) float32 = sum_b ds. ds and wa are
 // (B, N, N) float32 scratch. p, q, a and v are float32 whatever T. rows and
 // mr: the score pass's row tile (even, 2 to 16) and rows a thread (1 or 2),
-// kernels/gat.streamed_rows.
+// kernels/gat.streamed_rows. The entity axis: a (B / rows_per_group, E),
+// bias (B / rows_per_group, N, N), one seed each, dbias (B / rows_per_group,
+// N, N), each entity's sum over its rows; rows_per_group = B for one.
 int gatv2_streamed_f32(GAT_STREAMED_ARGS) { return GAT_STREAMED_CALL(float); }
 int gatv2_streamed_bf16(GAT_STREAMED_ARGS) { return GAT_STREAMED_CALL(__nv_bfloat16); }
 
@@ -475,23 +532,24 @@ void gatv2_streamed_layout(int N, int rows, int mr, long* out) {
 }
 
 // Blocks of the score pass (which 0; with dropout or not) or of the
-// contraction pass (1; T bfloat16 or not) that one multiprocessor holds at
-// once at graph size N, row tile `rows` and mr rows a thread (CUDA's
-// occupancy calculator); negative on a CUDA error.
-int gatv2_streamed_occupancy(int which, int N, int rows, int mr, int bf16, int drop) {
+// contraction pass (1; T bfloat16 or not), with the entity axis or not, that
+// one multiprocessor holds at once at graph size N, row tile `rows` and mr
+// rows a thread (CUDA's occupancy calculator); negative on a CUDA error.
+int gatv2_streamed_occupancy(int which, int N, int rows, int mr, int bf16, int drop,
+                             int grouped) {
   if (key_regs(N) == 0 || bad_tile(rows, mr)) return -(int)cudaErrorInvalidValue;
   long long one = 0;
   const Args g = make_args(nullptr, drop ? &one : nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, 1, N, 1, 1, 0.f, 0u, 1.f);
+                                 nullptr, grouped ? 2 : 1, N, 1, 1, 0.f, 0u, 1.f);
   int blocks = 0, err;
   if (which == 0)
-    err = score_launch(nullptr, nullptr, nullptr, nullptr, g, nullptr, nullptr, rows, mr,
+    err = score_launch(nullptr, nullptr, nullptr, nullptr, g, nullptr, nullptr, rows, mr, 1,
                        nullptr, &blocks);
   else {
     const ContractOut o{nullptr, nullptr, nullptr, nullptr, nullptr};
-    err = bf16 ? contract<__nv_bfloat16>(nullptr, nullptr, nullptr, g, nullptr, nullptr, o,
+    err = bf16 ? contract<__nv_bfloat16>(nullptr, nullptr, nullptr, g, nullptr, nullptr, o, 1,
                                          nullptr, &blocks)
-               : contract<float>(nullptr, nullptr, nullptr, g, nullptr, nullptr, o, nullptr,
+               : contract<float>(nullptr, nullptr, nullptr, g, nullptr, nullptr, o, 1, nullptr,
                                  &blocks);
   }
   return err ? -err : blocks;

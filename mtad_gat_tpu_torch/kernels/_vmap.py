@@ -12,20 +12,22 @@ dimension to the front, expand a weight that is not batched, fold (G, B,
 a CUDA tensor the kernel, each group of B rows reading its own weights; on
 a CPU tensor its plain version, a group at a time). The GRU's and the
 attention's autograd Functions run their forwards (K3's op, K1-res's op)
-and backwards (K4's op, the attention backward's op: K2ab) under vmap; the
-attention's hash dropout takes a seed an entity and the batch index within
-the entity, so each entity's mask is its solo call's.
+and backwards (K4's op, the attention backward's op: K2ab, the tiled K2a
+and K2b or the streamed backward) under vmap; the attention's hash dropout
+takes a seed an entity and the batch index within the entity, so each
+entity's mask is its solo call's.
 
 Only calls under a transform enter the ops (``is_batched`` for K1,
 ``is_wrapped`` for the Functions, which also run under ``grad``): a plain
 call goes to the wrapper directly, so the solo paths pay nothing for the
 op's dispatch.
 
-Attention with gradients or dropout under vmap runs the whole-graph kernels
-only (K1-res and K2ab, the flagship's plan): a graph whose forward plan is
-"tiled" or whose backward route is "tiled" or "streamed", and the block
-scan's hash dropout, have no entity axis yet and raise before any launch
-(ROADMAP.md, Queue 1 item 7c).
+Attention with gradients or dropout under vmap runs every plan of the
+forward and every route of the backward with the entity axis, but two:
+a backward on the CHUNKED tiled K2a and K2b (beyond the widths the FAST and
+WIDE tiles take, at more than the streamed backward's 64 nodes) and the
+block scan's hash dropout have no entity axis yet and raise before any
+launch (ROADMAP.md, Queue 1 item 7d).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from torch._C._functorch import (
     maybe_get_bdim,
 )
 
-FLEET_TRAINING_ITEM = "Queue 1 item 7c"
+FLEET_TRAINING_ITEM = "Queue 1 item 7d"
 
 
 def _is_wrapper(t: torch.Tensor) -> bool:
@@ -93,11 +95,10 @@ def requires_grad(*tensors: Optional[torch.Tensor]) -> bool:
 
 def not_ported_under_vmap(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} under torch.func.vmap (a fleet of stacked weights): only the whole-graph "
-        "K1-res and K2ab have an entity axis; the tiled forward, the tiled and streamed "
-        "backward and the block scan's hash dropout are not ported under vmap yet, so such "
-        "a fleet trains with attention_impl='dense' below the dense route's threshold "
-        f"(ROADMAP.md, {FLEET_TRAINING_ITEM})")
+        f"{what} under torch.func.vmap (a fleet of stacked weights): every attention kernel "
+        "has an entity axis but the CHUNKED tiled K2a and K2b, and the block scan's hash "
+        "dropout has none either, so such a fleet trains with attention_impl='dense' below "
+        f"the dense route's threshold (ROADMAP.md, {FLEET_TRAINING_ITEM})")
 
 
 def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:

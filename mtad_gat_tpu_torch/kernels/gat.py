@@ -65,17 +65,18 @@ bit for bit the JAX package's (``graph/dropout.py``); its plain form is
 ``hash_keep_mask``. The seed is a one-element int64 tensor on the
 device, drawn there from the step's generator, so no launch waits on the host.
 
-K1, the whole-graph K1-res and K2ab also take an entity axis (fleet serving
+K1 and K1-res (whole-graph and tiled), K2ab, the FAST and WIDE tiled K2a
+and K2b and the streamed backward also take an entity axis (fleet serving
 and fleet training): a (G, E) and bias (G, N, N), group g's for batch
 elements g B/G .. (g+1) B/G - 1 (``attention_groups``), one dropout seed a
 group and the batch index within the group in the hash, so that each
-group's mask is its own call's; K2ab's da (G, E) and dbias (G, N, N) each
-summed over its group's rows. Under ``torch.func.vmap`` the no-grad call is
-the custom op ``gatv2_attention_fwd_op``, and ``gatv2_attention``'s
-Function runs K1-res's op forward and the backward's op (K2ab) backward,
-whose rules fold the entities into those groups (``kernels/_vmap.py``). The
-tiled K1-res, the tiled K2a and K2b and the streamed backward take no entity
-axis yet.
+group's mask is its own call's; the backward's da (G, E) and dbias (G, N,
+N) each summed over its group's rows in its own launch's order, no batch
+run of a block straddling two groups. Under ``torch.func.vmap`` the no-grad
+call is the custom op ``gatv2_attention_fwd_op``, and ``gatv2_attention``'s
+Function runs K1-res's op forward and the backward's op backward, whose
+rules fold the entities into those groups (``kernels/_vmap.py``). The
+CHUNKED tiled K2a and K2b take no entity axis yet (Queue 1 item 7d).
 """
 
 from __future__ import annotations
@@ -288,7 +289,7 @@ def _bwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [f32, ctypes.c_uint32, f32, ptr]
-        for name, ptrs, ints in (("dp_da", 13, 7), ("dq_dv", 14, 8)):
+        for name, ptrs, ints in (("dp_da", 13, 8), ("dq_dv", 14, 9)):
             for dt in ("f32", "bf16"):
                 fn = getattr(lib, f"gatv2_bwd_{name}_{dt}")
                 fn.argtypes = [ptr] * ptrs + [i32] * ints + tail
@@ -299,9 +300,9 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.gatv2_bwd_tiled_smem_bytes.restype = ctypes.c_long
         lib.gatv2_bwd_tiled_key_splits.argtypes = [i32, i32]
         lib.gatv2_bwd_tiled_key_splits.restype = i32
-        lib.gatv2_bwd_tiled_occupancy.argtypes = [i32] * 7
+        lib.gatv2_bwd_tiled_occupancy.argtypes = [i32] * 8
         lib.gatv2_bwd_tiled_occupancy.restype = i32
-        lib.gatv2_bwd_tiled_dbias_group.argtypes = [i32] * 4
+        lib.gatv2_bwd_tiled_dbias_group.argtypes = [i32] * 5
         lib.gatv2_bwd_tiled_dbias_group.restype = i32
         for dt in ("f32", "bf16"):
             fn = getattr(lib, f"gatv2_bwd_dbias_{dt}")
@@ -331,11 +332,11 @@ def _streamed_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for fn in (lib.gatv2_streamed_f32, lib.gatv2_streamed_bf16):
-            fn.argtypes = [ptr] * 17 + [i32] * 6 + [f32, ctypes.c_uint32, f32, ptr]
+            fn.argtypes = [ptr] * 17 + [i32] * 7 + [f32, ctypes.c_uint32, f32, ptr]
             fn.restype = i32
         lib.gatv2_streamed_layout.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_long)]
         lib.gatv2_streamed_layout.restype = None
-        lib.gatv2_streamed_occupancy.argtypes = [i32] * 6
+        lib.gatv2_streamed_occupancy.argtypes = [i32] * 7
         lib.gatv2_streamed_occupancy.restype = i32
         lib._typed = True
     return lib
@@ -459,7 +460,8 @@ class TiledKernelPlan(NamedTuple):
     da_rows: int                  # K2a's float32 rows of E of da partial sums (K2b: 0)
     dbias: bool                   # K2b sums K2c's dbias in the same pass (K2a: never)
     group: int                    # batch elements a block takes (1 without dbias)
-    dbias_bytes: int              # its float32 (ceil(B / group), N, N) partials; 0 without
+    dbias_bytes: int              # its float32 (batch groups, N, N) partials; 0 without
+    entities: int = 1             # groups of a and bias (the entity axis), B / entities rows each
 
 
 def first_design_smem_bytes(E: int, D: int) -> int:
@@ -531,7 +533,8 @@ def tiled_slices(own_blocks: int, stream_tiles: int, sms: int) -> int:
     return max(1, min(most, -(-TILED_FILL * sms // own_blocks)))
 
 
-def tiled_dbias_groups(B: int, N: int, tile: int, sms: int) -> int:
+def tiled_dbias_groups(B: int, N: int, tile: int, sms: int,
+                       rows_per_group: Optional[int] = None) -> int:
     """Batch elements G a block of the tiled K2b takes when it sums dbias
     (K2c's function) in its own pass, at batch B, N nodes and tile shape
     ``tile`` (an index into ``TILED_TILES``) on a card of ``sms``
@@ -541,15 +544,20 @@ def tiled_dbias_groups(B: int, N: int, tile: int, sms: int) -> int:
     groups of one element fall short, all of B where one group reaches it.
     G is 1 at B 1 and never falls as B grows; each group writes one (N, N)
     float32 partial, ceil(B / G) in all, summed in order by the caller.
-    ``csrc/gat_bwd.cu`` (``tiled_dbias_group``) holds the same rule."""
-    if min(B, N, sms) < 1 or not 0 <= tile < len(TILED_TILES):
+    With the entity axis B is the whole grouped batch and G is capped at an
+    entity's ``rows_per_group`` rows, so that no group straddles two
+    entities (their runs: ``graph_block_batches``). ``csrc/gat_bwd.cu``
+    (``tiled_dbias_group``) holds the same rule."""
+    rows_per_group = B if rows_per_group is None else rows_per_group
+    if (min(B, N, sms, rows_per_group) < 1 or B % rows_per_group
+            or not 0 <= tile < len(TILED_TILES)):
         raise ValueError(f"tiled_dbias_groups: batch {B}, N {N}, tile {tile}, "
-                         f"multiprocessors {sms}")
+                         f"multiprocessors {sms}, rows a group {rows_per_group}")
     rows, keys = TILED_TILES[tile]
     own, stream = -(-N // keys), -(-N // rows)
     most = max(1, min(TILED_MAX_SLICES, stream // TILED_MIN_TILES))
     need = -(-TILED_FILL * sms // (most * own))       # groups the fill needs
-    return B if need <= 1 else max(1, -(-B // (need - 1)) - 1)
+    return min(rows_per_group, B if need <= 1 else max(1, -(-B // (need - 1)) - 1))
 
 
 def _tiled_tile(kernel: str, E: int, D: int, smem_limit: int) -> Tuple[int, bool, int]:
@@ -571,8 +579,8 @@ def _tiled_tile(kernel: str, E: int, D: int, smem_limit: int) -> Tuple[int, bool
 
 @functools.lru_cache(maxsize=None)
 def gat_tiled_bwd_plan(B: int, N: int, E: int, D: int, sms: int,
-                       smem_limit: int = _SMEM_LIMIT,
-                       dbias: bool = False) -> Mapping[str, TiledKernelPlan]:
+                       smem_limit: int = _SMEM_LIMIT, dbias: bool = False,
+                       groups: int = 1) -> Mapping[str, TiledKernelPlan]:
     """The launches of the tiled K2a and K2b ({"k2a": ..., "k2b": ...}) at
     batch B, N nodes, widths E and D on a card of ``sms`` multiprocessors
     whose blocks may use ``smem_limit`` bytes of shared memory, K2b summing
@@ -585,10 +593,15 @@ def gat_tiled_bwd_plan(B: int, N: int, E: int, D: int, sms: int,
     with dbias takes its batch in
     groups of ``tiled_dbias_groups`` elements, a block each (slices x
     groups x key tiles), and writes one (N, N) float32 partial a group;
-    dbias costs its shared memory nothing. Raises on empty or bad input."""
-    if min(B, N, E, D, sms) < 1:
+    dbias costs its shared memory nothing. ``groups``: the entity axis, B
+    in that many entities of B / groups rows, which K2b's batch groups
+    never straddle (each entity's rows in runs of the group, the grouped
+    batch's ``tiled_dbias_groups`` capped at its rows); the slices follow
+    from the grouped launch's blocks. Raises on empty or bad input."""
+    if min(B, N, E, D, sms, groups) < 1 or B % groups:
         raise ValueError(f"gat_tiled_bwd_plan: empty or bad input (B {B}, N {N}, E {E}, "
-                         f"D {D}, multiprocessors {sms})")
+                         f"D {D}, multiprocessors {sms}, entities {groups})")
+    rows_per_group = B // groups
     plans = {}
     for kernel in ("k2a", "k2b"):
         tile, acc, nbytes = _tiled_tile(kernel, E, D, smem_limit)
@@ -596,21 +609,22 @@ def gat_tiled_bwd_plan(B: int, N: int, E: int, D: int, sms: int,
         row_tiles, key_tiles = -(-N // rows), -(-N // keys)
         own, stream = (row_tiles, key_tiles) if kernel == "k2a" else (key_tiles, row_tiles)
         sums = dbias and kernel == "k2b"
-        group = tiled_dbias_groups(B, N, tile, sms) if sums else 1
-        groups = -(-B // group)
-        slices = tiled_slices(groups * own, stream, sms)
+        group = tiled_dbias_groups(B, N, tile, sms, rows_per_group) if sums else 1
+        runs = groups * -(-rows_per_group // group)       # batch groups, by entity
+        slices = tiled_slices(runs * own, stream, sms)
         threads = rows * keys // 16
         width = E if kernel == "k2a" else E + D
         splits = 1
         if kernel == "k2a" and tile != CHUNKED:
             splits = key_splits(rows // 4 * -(-E // 4), threads)
-        blocks = slices * groups * own
+        blocks = slices * runs * own
         plans[kernel] = TiledKernelPlan(
             kernel=kernel, tile=tile, rows=rows, keys=keys, threads=threads, acc_smem=acc,
             own_tiles=own, stream_tiles=stream, slices=slices, blocks=blocks,
             smem_bytes=nbytes, partial_bytes=4 * slices * B * N * width, key_splits=splits,
             da_rows=0 if kernel == "k2b" else blocks * (rows // 4 if tile == CHUNKED else 1),
-            dbias=sums, group=group, dbias_bytes=4 * groups * N * N if sums else 0)
+            dbias=sums, group=group, dbias_bytes=4 * runs * N * N if sums else 0,
+            entities=groups)
     return types.MappingProxyType(plans)      # cached: read-only to every caller
 
 
@@ -974,14 +988,15 @@ def _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals: bool, groups: int
     """The tiled K1 (or K1-res with ``residuals``) on CUDA tensors: the
     kernel writes the slices' partials, ``gatv2_fwd_merge`` combines them;
     returns (out, u, m, l) and the plan. The kernel reads float32 p, q, a,
-    v: bfloat16 ones are widened here (exactly). ``groups``: K1's entity
-    axis, a and bias grouped as ``attention_groups`` says."""
+    v: bfloat16 ones are widened here (exactly). ``groups``: the entity
+    axis, a and bias grouped as ``attention_groups`` says, one seed a
+    group."""
     B, N, E = p.shape
     D = v.shape[-1]
     plan = _tiled_fwd_plan(B, N, E, D, _build.sm_count(p.device))
     pf, qf, af, vf = (t.detach().to(torch.float32).contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
-    seed_t, thresh, scale = _drop_args(seed, rate, p.device)
+    seed_t, thresh, scale = _drop_args(seed, rate, p.device, groups)
     S = plan.slices
     part = torch.empty(S * B * N * (D + 2), dtype=torch.float32, device=p.device)
     acc = part[:S * B * N * D].view(S, B, N, D)
@@ -1005,8 +1020,8 @@ def _count_fwd(fn, variant: str, row_blocks: int, plan: Optional[TiledFwdPlan] =
 
 def _check(name: str, p, q, a, bias, v, grouped: bool = False) -> int:
     """Device, type and shape checks of a CUDA launch; returns the groups of
-    a and bias (``attention_groups``), which only a ``grouped`` call (K1,
-    K1-res, K2ab) may have more than one of."""
+    a and bias (``attention_groups``), which only a ``grouped`` call (every
+    kernel but K2c) may have more than one of."""
     if p.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {p.device}")
     B, N, E = p.shape
@@ -1017,7 +1032,7 @@ def _check(name: str, p, q, a, bias, v, grouped: bool = False) -> int:
     if not grouped and (a.dim() != 1 or (bias is not None and bias.shape != (N, N))):
         raise ValueError(f"{name}: a {tuple(a.shape)} and bias "
                          f"{None if bias is None else tuple(bias.shape)} are not ({E},) and "
-                         f"({N}, {N}): only K1, K1-res and K2ab take an entity axis")
+                         f"({N}, {N}): K2c takes no entity axis")
     groups = attention_groups(p, a, bias, name)
     if p.dtype not in (torch.float32, torch.bfloat16) or any(
         t.dtype != p.dtype for t in (q, a, v)
@@ -1161,7 +1176,7 @@ def gatv2_attention_res(
     (``attention_groups``) with one seed or G seeds (a (G,) int64 tensor)
     give batch elements g B/G .. (g+1) B/G - 1 group g's weights and seed,
     and their mask the batch index within the group, in one launch of the
-    whole-graph kernel (the tiled one takes no groups yet, Queue 1 item 7c).
+    whole-graph or the tiled kernel.
     Records no autograd history; ``gatv2_attention`` is the differentiable
     call, and under ``torch.func.vmap`` its forward is the custom op
     ``gatv2_attention_res_op``."""
@@ -1178,10 +1193,9 @@ def gatv2_attention_res(
         return outputs()
     variant, row_blocks = _fwd_variant(N, E, D, variant)
     if variant == "tiled":             # the merge allocates the outputs
-        if groups > 1:
-            raise _vmap.not_ported_under_vmap("the tiled K1-res with an entity axis")
-        outs, plan = _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals=True)
-        _count_fwd(gatv2_attention_res, variant, row_blocks, plan)
+        outs, plan = _fwd_tiled(p, q, a, bias, v, alpha, seed, rate, residuals=True,
+                                groups=groups)
+        _count_fwd(gatv2_attention_res, variant, row_blocks, plan, groups)
         return outs
     out, u, m, l = outputs()
     lib = _fwd_lib()
@@ -1226,12 +1240,12 @@ def _bwd_launch(which: int, p, q, a, bias, v, m, l, du, dvec,
 
 
 @functools.lru_cache(maxsize=None)
-def _tiled_plan(B: int, N: int, E: int, D: int, sms: int,
-                dbias: bool = False) -> Mapping[str, TiledKernelPlan]:
+def _tiled_plan(B: int, N: int, E: int, D: int, sms: int, dbias: bool = False,
+                groups: int = 1) -> Mapping[str, TiledKernelPlan]:
     """``gat_tiled_bwd_plan`` for a launch, refused where the built
     library's tile shapes, shared memory, K2a's key splits or K2b's batch
-    group differ from the plan's (once per shape and card)."""
-    plans = gat_tiled_bwd_plan(B, N, E, D, sms, dbias=dbias)
+    group differ from the plan's (once per shape, entities and card)."""
+    plans = gat_tiled_bwd_plan(B, N, E, D, sms, dbias=dbias, groups=groups)
     lib = _bwd_lib()
     for which, plan in enumerate(plans.values()):
         dims = (ctypes.c_int * 2)()
@@ -1240,7 +1254,8 @@ def _tiled_plan(B: int, N: int, E: int, D: int, sms: int,
                                                              int(plan.acc_smem)),
                  lib.gatv2_bwd_tiled_key_splits(plan.rows // 4 * -(-E // 4), plan.threads)
                  if which == 0 and plan.tile != CHUNKED else 1,
-                 lib.gatv2_bwd_tiled_dbias_group(B, N, plan.tile, sms) if plan.dbias else 1)
+                 lib.gatv2_bwd_tiled_dbias_group(B, N, plan.tile, sms, B // groups)
+                 if plan.dbias else 1)
         want = ((plan.rows, plan.keys), plan.smem_bytes, plan.key_splits, plan.group)
         if built != want:
             raise RuntimeError(f"gatv2 tiled backward {plan.kernel}: the built kernel's (tile, "
@@ -1250,12 +1265,13 @@ def _tiled_plan(B: int, N: int, E: int, D: int, sms: int,
 
 
 def _tiled_launch(plan: TiledKernelPlan, p, q, a, bias, v, m, l, du, dvec, alpha, seed,
-                  rate, outs) -> None:
+                  rate, outs, groups: int = 1) -> None:
     """Launch the tiled K2a or K2b of ``plan`` and its reduce, writing into
     ``outs`` (K2a: dp, da_part, part; K2b: dq, dv, the dbias partials or
     None, part); the caller has run ``_check``. The kernels read float32 p,
     q, a, v: bfloat16 ones are widened here (exactly), and the reduce writes
-    the outputs in their type."""
+    the outputs in their type. ``groups``: the entity axis, one seed a
+    group."""
     B, N, E = p.shape
     D = v.shape[-1]
     name = "dp_da" if plan.kernel == "k2a" else "dq_dv"
@@ -1263,39 +1279,75 @@ def _tiled_launch(plan: TiledKernelPlan, p, q, a, bias, v, m, l, du, dvec, alpha
     p, q, a, v = (t.detach().to(torch.float32).contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
     m, l, du, dvec = (t.detach().to(torch.float32).contiguous() for t in (m, l, du, dvec))
-    seed_t, thresh, scale = _drop_args(seed, rate, p.device)
+    seed_t, thresh, scale = _drop_args(seed, rate, p.device, groups)
     fn = getattr(_bwd_lib(), f"gatv2_bwd_{name}_{dt}")
     with torch.cuda.device(p.device):
         err = fn(_ptr(p), _ptr(q), _ptr(a), _ptr(bias_c), _ptr(v), _ptr(seed_t),
                  _ptr(m), _ptr(l), _ptr(du), _ptr(dvec), *(_ptr(t) for t in outs),
                  B, N, E, D, plan.tile, plan.slices, int(plan.acc_smem),
-                 *((plan.group,) if plan.kernel == "k2b" else ()),
+                 *((plan.group,) if plan.kernel == "k2b" else ()), B // groups,
                  float(alpha), thresh, scale, _stream(p.device))
     _raise_on(err, f"gatv2_bwd_{name}")
 
 
+def _launch_plan(kernel: str, B: int, N: int, E: int, D: int, device, groups: int,
+                 dbias: bool, plan: Optional[TiledKernelPlan]) -> TiledKernelPlan:
+    """The plan a tiled K2a or K2b launch runs: ``_tiled_plan``'s, or the
+    caller's ``plan`` (its tile, slices, place of the running sums and
+    batch group; a grouped launch's, so that G ungrouped launches can be
+    held against it bit for bit). Refuses the CHUNKED tile under an entity
+    axis (Queue 1 item 7d)."""
+    if plan is None:
+        plan = _tiled_plan(B, N, E, D, _build.sm_count(device), dbias, groups)[kernel]
+    elif plan.kernel != kernel or plan.dbias != dbias:
+        raise ValueError(f"gatv2 tiled backward: a {plan.kernel} plan (dbias {plan.dbias}) for "
+                         f"a {kernel} launch (dbias {dbias})")
+    if groups > 1 and plan.tile == CHUNKED:
+        raise _vmap.not_ported_under_vmap("the CHUNKED tiled K2a and K2b with an entity axis")
+    return plan
+
+
+def _entity_da(da_part: torch.Tensor, plan: TiledKernelPlan, groups: int) -> torch.Tensor:
+    """K2a's da rows (slices, B, row tiles, E), to (G, E): each entity's
+    rows gathered slice by slice, then summed as its ungrouped launch's
+    caller sums its own (``_entity_sums``)."""
+    if plan.slices > 1:
+        S, E = plan.slices, da_part.shape[-1]
+        da_part = da_part.view(S, groups, -1, E).transpose(0, 1).reshape(-1, E)
+    return _entity_sums(da_part, groups)
+
+
 def gatv2_bwd_dp_da(p, q, a, bias, v, m, l, du, dvec, alpha: float,
-                    seed: Seed = 0, rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                    seed: Seed = 0, rate: float = 0.0,
+                    plan: Optional[TiledKernelPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2a on CUDA tensors: dp (B, N, E) in p's type and da (E,) float32,
     from the forward's row stats m, l (B, N), du = g . out (1 - out)
     (B, N, D) and dvec = sum_d du . u (B, N), through the launch
-    ``gat_tiled_bwd_plan`` gives (recorded in ``last_plan``): the kernel,
-    then the sum of its slices' partials. The CPU computes all of K2a-c in
-    one call of ``gatv2_attention_bwd_plain``."""
-    _check("gatv2_bwd_dp_da", p, q, a, bias, v)
+    ``gat_tiled_bwd_plan`` gives, or ``plan`` (``_launch_plan``), recorded
+    in ``last_plan``: the kernel, then the sum of its slices' partials.
+    Grouped a and bias (``attention_groups``) with one seed or G seeds give
+    each entity of B / G rows its weights, seed and batch index within the
+    entity, and da (G, E) each summed over its own rows in its launch's
+    order (FAST and WIDE tiles; the CHUNKED tile raises). The CPU computes
+    all of K2a-c in one call of ``gatv2_attention_bwd_plain``."""
+    groups = _check("gatv2_bwd_dp_da", p, q, a, bias, v, grouped=True)
     B, N, E = p.shape
     D = v.shape[-1]
     f32 = dict(dtype=torch.float32, device=p.device)
     if B == 0 or N == 0 or D == 0:          # no values: every gradient is 0
-        return torch.zeros(p.shape, dtype=p.dtype, device=p.device), torch.zeros((E,), **f32)
-    plan = _tiled_plan(B, N, E, D, _build.sm_count(p.device))["k2a"]
+        return torch.zeros(p.shape, dtype=p.dtype, device=p.device), torch.zeros(a.shape, **f32)
+    plan = _launch_plan("k2a", B, N, E, D, p.device, groups, False, plan)
     dp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
-    da_part = torch.empty((plan.da_rows, E), **f32)
+    da_part = torch.empty((plan.slices * B * -(-N // plan.rows)
+                           * (plan.rows // 4 if plan.tile == CHUNKED else 1), E), **f32)
     part = torch.empty((plan.slices, B, N, E), **f32)
-    _tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, (dp, da_part, part))
+    _tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate, (dp, da_part, part),
+                  groups)
     gatv2_bwd_dp_da.launches += 1
     gatv2_bwd_dp_da.launches_by_variant[TILED_TILE_NAMES[plan.tile]] += 1
     gatv2_bwd_dp_da.last_plan = plan
+    if a.dim() == 2:
+        return dp, _entity_da(da_part, plan, groups)
     return dp, da_part.sum(dim=0)
 
 
@@ -1305,16 +1357,20 @@ gatv2_bwd_dp_da.last_plan = None
 
 
 def gatv2_bwd_dq_dv(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
-                    rate: float = 0.0, dbias: bool = False
+                    rate: float = 0.0, dbias: bool = False,
+                    plan: Optional[TiledKernelPlan] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """K2b on CUDA tensors: dq (B, N, E) in q's type, dv (B, N, D) in v's
     type and, with ``dbias``, K2c's dbias (N, N) float32 from the same pass
     (each block summing ds over ``tiled_dbias_groups`` batch elements, the
-    groups' partials then summed in order), else None; inputs, plan and
-    ``last_plan`` as ``gatv2_bwd_dp_da``. Counts its launches by tile and,
+    groups' partials then summed in order), else None; inputs, plan,
+    entity axis and ``last_plan`` as ``gatv2_bwd_dp_da``: grouped, each
+    entity's rows are cut into its own runs of the batch group
+    (``graph_block_batches``) and dbias is (G, N, N), each entity's
+    partials summed in its launch's order. Counts its launches by tile and,
     under ``launches_by_variant`` "dbias" and "no_dbias", by whether they
     summed dbias."""
-    _check("gatv2_bwd_dq_dv", p, q, a, bias, v)
+    groups = _check("gatv2_bwd_dq_dv", p, q, a, bias, v, grouped=True)
     if dbias and bias is None:
         raise ValueError("gatv2_bwd_dq_dv: dbias asked for a call without a bias")
     B, N, E = p.shape
@@ -1322,18 +1378,21 @@ def gatv2_bwd_dq_dv(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed =
     f32 = dict(dtype=torch.float32, device=p.device)
     if B == 0 or N == 0 or D == 0:          # no values: every gradient is 0
         return (torch.zeros_like(q), torch.zeros_like(v),
-                torch.zeros((N, N), **f32) if dbias else None)
-    plan = _tiled_plan(B, N, E, D, _build.sm_count(p.device), dbias)["k2b"]
+                torch.zeros(bias.shape, **f32) if dbias else None)
+    plan = _launch_plan("k2b", B, N, E, D, p.device, groups, dbias, plan)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    dpart = torch.empty((-(-B // plan.group), N, N), **f32) if dbias else None
+    runs = groups * -(-(B // groups) // plan.group)
+    dpart = torch.empty((runs, N, N), **f32) if dbias else None
     part = torch.empty((plan.slices, B, N, E + D), **f32)
     _tiled_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
-                  (dq, dv, dpart, part))
+                  (dq, dv, dpart, part), groups)
     gatv2_bwd_dq_dv.launches += 1
     gatv2_bwd_dq_dv.launches_by_variant[TILED_TILE_NAMES[plan.tile]] += 1
     gatv2_bwd_dq_dv.launches_by_variant["dbias" if dbias else "no_dbias"] += 1
     gatv2_bwd_dq_dv.last_plan = plan
+    if a.dim() == 2:
+        return dq, dv, None if dpart is None else _entity_sums(dpart, groups)
     if dpart is not None and dpart.shape[0] > 1:
         dpart = dpart.sum(dim=0)
     return dq, dv, None if dpart is None else dpart.view(N, N)
@@ -1361,24 +1420,25 @@ def _streamed_plan(B: int, N: int, E: int, D: int, sms: int, dbias: bool) -> Str
 
 
 def _streamed_launch(plan: StreamedPlan, p, q, a, bias, v, m, l, du, dvec, alpha, seed,
-                     rate, outs) -> None:
+                     rate, outs, groups: int = 1) -> None:
     """Launch both passes of the streamed backward as ``plan`` says,
     writing into ``outs`` (ds, wa, dp, dq, dv, da_part, dbias or None); the
     caller has run ``_check``. The kernels read float32 p, q, a, v:
     bfloat16 ones are widened here (exactly), and dp, dq, dv are written in
-    their inputs' type."""
+    their inputs' type. ``groups``: the entity axis, one seed a group and
+    dbias (G, N, N)."""
     B, N, E = p.shape
     D = v.shape[-1]
     dt = "f32" if p.dtype == torch.float32 else "bf16"
     p, q, a, v = (t.detach().to(torch.float32).contiguous() for t in (p, q, a, v))
     bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
     m, l, du, dvec = (t.detach().to(torch.float32).contiguous() for t in (m, l, du, dvec))
-    seed_t, thresh, scale = _drop_args(seed, rate, p.device)
+    seed_t, thresh, scale = _drop_args(seed, rate, p.device, groups)
     fn = getattr(_streamed_lib(), f"gatv2_streamed_{dt}")
     with torch.cuda.device(p.device):
         err = fn(_ptr(p), _ptr(q), _ptr(a), _ptr(bias_c), _ptr(v), _ptr(seed_t), _ptr(m),
                  _ptr(l), _ptr(du), _ptr(dvec), *(_ptr(t) for t in outs), B, N, E, D,
-                 plan.rows, plan.rows_per_thread, float(alpha), thresh, scale,
+                 plan.rows, plan.rows_per_thread, B // groups, float(alpha), thresh, scale,
                  _stream(p.device))
     _raise_on(err, "gatv2_streamed")
 
@@ -1390,31 +1450,37 @@ def gatv2_bwd_streamed(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: See
     K2c's dbias (N, N) float32 (else None), from a score pass that writes
     ds and wa (B, N, N) float32 and a contraction pass over chunks of E and
     D; inputs as ``gatv2_bwd_dp_da``, N at most ``streamed_nmax``; dp, dq,
-    dv in their inputs' type. Counts its launches (both passes, one call),
-    those that summed dbias under ``launches_by_variant``, and keeps its
-    plan in ``last_plan``. The CPU computes the backward in one call of
+    dv in their inputs' type. Grouped a and bias (``attention_groups``) with
+    one seed or G seeds give each entity of B / G rows its weights, seed and
+    batch index within the entity, da (G, E) summed over its own rows as
+    its launch sums them and dbias (G, N, N) over its own rows in order, in
+    one launch. Counts its launches (both passes, one call), those that
+    summed dbias under ``launches_by_variant``, and keeps its plan in
+    ``last_plan``. The CPU computes the backward in one call of
     ``gatv2_attention_bwd_plain``."""
-    _check("gatv2_bwd_streamed", p, q, a, bias, v)
+    groups = _check("gatv2_bwd_streamed", p, q, a, bias, v, grouped=True)
     if dbias and bias is None:
         raise ValueError("gatv2_bwd_streamed: dbias asked for a call without a bias")
     B, N, E = p.shape
     D = v.shape[-1]
     f32 = dict(dtype=torch.float32, device=p.device)
     if B == 0 or N == 0 or D == 0:          # no values: every gradient is 0
-        return (torch.zeros_like(p), torch.zeros_like(q), torch.zeros((E,), **f32),
-                torch.zeros_like(v), torch.zeros((N, N), **f32) if dbias else None)
+        return (torch.zeros_like(p), torch.zeros_like(q), torch.zeros(a.shape, **f32),
+                torch.zeros_like(v), torch.zeros(bias.shape, **f32) if dbias else None)
     plan = _streamed_plan(B, N, E, D, _build.sm_count(p.device), dbias)
     dp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     da_part = torch.empty((B, E), **f32)
-    dbias_out = torch.empty((N, N), **f32) if dbias else None
+    dbias_out = torch.empty(bias.shape, **f32) if dbias else None
     _streamed_launch(plan, p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate,
                      (torch.empty((B, N, N), **f32), torch.empty((B, N, N), **f32), dp, dq, dv,
-                      da_part, dbias_out))
+                      da_part, dbias_out), groups)
     gatv2_bwd_streamed.launches += 1
     gatv2_bwd_streamed.launches_by_variant["dbias" if dbias else "no_dbias"] += 1
     gatv2_bwd_streamed.last_plan = plan
+    if a.dim() == 2:
+        return dp, dq, _entity_sums(da_part, groups), dv, dbias_out
     return dp, dq, da_part.sum(dim=0), dv, dbias_out
 
 
@@ -1528,14 +1594,12 @@ def gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
     ("graph"), K2a then K2b ("tiled") or the streamed backward
     ("streamed"), dbias from the same launch (``dbias_kernel``), recorded in
     ``gatv2_bwd.last_launch`` with the kernel that gave dbias; dbias is None
-    unless asked for. Grouped a and bias (an entity axis) run K2ab only:
-    another route raises (Queue 1 item 7c)."""
+    unless asked for. Grouped a and bias (an entity axis) take every route
+    but the CHUNKED tile, which raises before any launch (``_launch_plan``,
+    Queue 1 item 7d)."""
     _, N, E = p.shape
     shape = (max(N, 1), E, max(v.shape[-1], 1))
     variant = gat_bwd_route(*shape)
-    if a.dim() == 2 and variant != "graph":
-        raise _vmap.not_ported_under_vmap(f"the {variant} attention backward with an entity "
-                                          "axis")
     args = (p, q, a, bias, v, m, l, du, dvec, alpha, seed, rate)
     if variant == "graph":
         out = gatv2_bwd_graph(*args, dbias=dbias)
@@ -1707,8 +1771,9 @@ def gatv2_attention_bwd_op(p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
 def _gatv2_attention_bwd_vmap(info, in_dims, p, q, a, bias, v, m, l, du, dvec, alpha, seed,
                               rate, need_dbias):
     """The entities' rows folded into one batch, their a, bias and seeds
-    into K2ab's groups: one grouped launch whatever E is, each entity's da
-    and dbias its own (an unbatched a or bias gets one an entity)."""
+    into the backward's groups: one grouped call of the route's kernels
+    whatever E is, each entity's da and dbias its own (an unbatched a or
+    bias gets one an entity)."""
     G = info.batch_size
     p_dim, q_dim, a_dim, bias_dim, v_dim, m_dim, l_dim, du_dim, dvec_dim = in_dims[:9]
     seeds = _fold_seed(seed, in_dims[10], G)
@@ -1804,20 +1869,26 @@ class _GATv2Attention(torch.autograd.Function):
                 None, None, None)
 
 
+def chunked_tile(N: int, E: int, D: int) -> bool:
+    """Whether the backward of a graph of N nodes at widths E and D runs
+    the CHUNKED tiled K2a or K2b (``gat_bwd_route`` "tiled" beyond the
+    widths the FAST and WIDE tiles take), the one backward without an
+    entity axis."""
+    return gat_bwd_route(N, E, D) == "tiled" and any(
+        _tiled_tile(k, E, D, _SMEM_LIMIT)[0] == CHUNKED for k in ("k2a", "k2b"))
+
+
 def refuse_unported_fleet_route(N: int, E: int, D: int, grad: bool = True) -> None:
     """For a vmapped (fleet) call on a graph of N nodes at widths E and D:
-    raise, before any launch, where the forward plan is not the whole-graph
-    K1-res or (with ``grad``) the backward route not K2ab, the variants that
-    take no entity axis yet."""
-    if min(N, E, D) < 1:
+    raise, before any launch, where (with ``grad``) the backward would run
+    the CHUNKED tile, the one variant that takes no entity axis yet (Queue 1
+    item 7d)."""
+    if min(N, E, D) < 1 or not grad:
         return
-    fwd = gat_fwd_plan(N, E, D)
-    bwd = gat_bwd_route(N, E, D) if grad else "graph"
-    if fwd != "graph" or bwd != "graph":
-        what = f"the {fwd} forward" if fwd != "graph" else f"the {bwd} backward"
+    if chunked_tile(N, E, D):
         raise _vmap.not_ported_under_vmap(
-            f"gatv2_attention with gradients or attention dropout at N {N}, E {E}, D {D} "
-            f"({what})")
+            f"gatv2_attention with gradients at N {N}, E {E}, D {D} (the CHUNKED tiled "
+            "backward)")
 
 
 def gatv2_attention(
@@ -1831,8 +1902,8 @@ def gatv2_attention(
     runs K1-res forward (and K2ab, or K2a then K2b, or the streamed
     backward, backward); otherwise K1 alone. Under ``torch.func.vmap`` each
     is one grouped launch for all entities, each with its own weights and
-    seed; there the training call takes the whole-graph kernels only, and
-    another plan raises before any launch (Queue 1 item 7c)."""
+    seed, whatever the plan, but for the CHUNKED tiled backward, which
+    raises before any launch (Queue 1 item 7d)."""
     grad = _vmap.requires_grad(p, q, a, bias, v)
     if rate > 0.0 or grad:
         if _vmap.is_batched(p, q, a, bias, v):

@@ -9,10 +9,11 @@ are custom ops whose vmap rules launch K3, K4's scan and K4's weights
 product once each for all entities (``kernels/_vmap.py``), so a fleet step
 launches two of each (encoder and decoder) whatever E is. The attention
 runs the dense path, or with ``attention_impl="pallas"`` (and where the
-dense route sends a layer to the kernels) K1-res forward and K2ab backward,
-each one grouped launch a layer for all entities, each entity's hash mask
-keyed by its own seed; a graph those whole-graph kernels cannot hold raises
-(ROADMAP.md, Queue 1 item 7c).
+dense route sends a layer to the kernels) K1-res forward (whole-graph or
+tiled) and K2ab, the tiled K2a and K2b or the streamed backward, each one
+grouped launch a layer for all entities, each entity's hash mask keyed by
+its own seed; a graph whose backward takes the CHUNKED tile raises when the
+trainer is built (ROADMAP.md, Queue 1 item 7d).
 
 Entity e's trajectory is its solo ``Trainer``'s to float tolerance:
 

@@ -21,8 +21,12 @@ on the CPU, so the rules call the grouped plain versions). Small sizes (G <=
 - (d) Each vmap rule (K1-res's, the backward's, the seed's) runs once a
   layer a fleet step, K1's once a layer a validation batch.
 - (e) A vmapped training call whose forward plan is "tiled", or whose
-  backward route is "tiled" or "streamed", raises naming Queue 1 item 7c
-  before any plain call or launch.
+  backward route is "tiled" or "streamed", runs since item 7c: one grouped
+  plain K1-res and one grouped plain backward (the rules' calls on the
+  CPU), each entity's gradients its solo call's; one whose backward would
+  take the CHUNKED tile raises naming Queue 1 item 7d before any plain call
+  or launch (``tests/test_torch_gat_fleet_wide.py`` holds the wide shapes
+  against JAX).
 - (f) A slice model of the grouped K2ab (``graph_block_batches``): at rows
   64, 63 and 1 a group and G 28 on 132 multiprocessors no dbias group
   straddles an entity, and each entity's runs are an ungrouped launch's at
@@ -209,27 +213,70 @@ def test_vmap_grad_with_shared_weights_gives_each_entity_its_gradient():
         torch.testing.assert_close(dbias[g], lb.grad, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("N,E,D,what", [
-    (130, 8, 4, "the tiled backward"),
-    (38, 600, 300, "the streamed backward"),
-    (2048, 32, 16, "the tiled forward"),
-])
-@pytest.mark.parametrize("rate", [0.0, 0.3])
-def test_unported_routes_under_vmap_name_item_7c(N, E, D, what, rate, monkeypatch):
-    G = 2
+def _spied(monkeypatch):
+    """The names of the plain attention calls with grouped a (an entity
+    axis) made while the test runs; a grouped call runs its groups through
+    the ungrouped one, which is not listed."""
     calls = []
 
     def spy(name):
         real = getattr(kg, name)
 
         def call(*args, **kw):
-            calls.append(name)
+            if args[2].dim() == 2:
+                calls.append(name)
             return real(*args, **kw)
         return call
 
     for name in ("gatv2_attention_res_plain", "gatv2_attention_bwd_plain",
                  "gatv2_attention_fwd_plain"):
         monkeypatch.setattr(kg, name, spy(name))
+    return calls
+
+
+@pytest.mark.parametrize("N,E,D,what", [
+    (130, 8, 4, "the tiled backward"),
+    (38, 600, 300, "the streamed backward"),
+    (400, 4, 4, "the tiled forward"),
+])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_unported_routes_under_vmap_name_item_7c(N, E, D, what, rate, monkeypatch):
+    """Item 7c is done: the routes that raised run under ``vmap(grad)``,
+    one grouped call each of K1-res's plain version and of the plain
+    backward (the kernels' rules on the CPU), each entity's gradients its
+    solo call's; N 400 is the tiled forward at E 4 (N 2048 at E 32 costs
+    seconds a plain call on the CPU)."""
+    assert {"the tiled backward": kg.gat_bwd_route(N, E, D) == "tiled",
+            "the streamed backward": kg.gat_bwd_route(N, E, D) == "streamed",
+            "the tiled forward": kg.gat_fwd_plan(N, E, D) == "tiled"}[what]
+    G = 2
+    calls = _spied(monkeypatch)
+    gen = torch.Generator().manual_seed(N)
+    p, q = (0.5 * torch.randn(G, 1, N, E, generator=gen) for _ in range(2))
+    v = torch.randn(G, 1, N, D, generator=gen)
+    a = torch.randn(G, E, generator=gen) * (6.0 / (E + 1)) ** 0.5
+    seeds = torch.tensor(SEEDS[:G], dtype=torch.int64)[:, None]
+
+    def loss(a_e, p_e, q_e, v_e, s_e):
+        return kg.gatv2_attention(p_e, q_e, a_e, None, v_e, ALPHA, s_e, rate).sum()
+
+    got = vmap(grad(loss, argnums=(0, 1, 2, 3)))(a, p, q, v, seeds)
+    assert calls == ["gatv2_attention_res_plain", "gatv2_attention_bwd_plain"]
+    for g in range(G):
+        want = grad(loss, argnums=(0, 1, 2, 3))(a[g], p[g], q[g], v[g], seeds[g])
+        for x, w in zip(got, want):
+            torch.testing.assert_close(x[g], w, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_the_chunked_route_under_vmap_names_item_7d(rate, monkeypatch):
+    """N 65 at E 600, D 300: above the streamed backward's 64 nodes and
+    beyond the FAST and WIDE tiles' widths, the backward takes the CHUNKED
+    tile, which has no entity axis: a vmapped training call raises naming
+    Queue 1 item 7d before any plain call or launch."""
+    N, E, D, G = 65, 600, 300, 2
+    assert kg.chunked_tile(N, E, D) and kg.gat_bwd_route(N, E, D) == "tiled"
+    calls = _spied(monkeypatch)
     p = torch.zeros(G, 1, N, E)
     v = torch.zeros(G, 1, N, D)
     a = torch.zeros(G, E)
@@ -237,9 +284,9 @@ def test_unported_routes_under_vmap_name_item_7c(N, E, D, what, rate, monkeypatc
     def loss(a_e, p_e, v_e):
         return kg.gatv2_attention(p_e, p_e, a_e, None, v_e, ALPHA, 0, rate).sum()
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c") as err:
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7d") as err:
         vmap(grad(loss))(a, p, v)
-    assert what in str(err.value)
+    assert "CHUNKED" in str(err.value)
     assert calls == []
 
 

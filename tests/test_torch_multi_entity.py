@@ -20,8 +20,10 @@ tensors lie on the CPU), and the dense attention.
   vmap's ``randomness="error"``.
 - The dense route counts the entities (``DENSE_AUTO_SCORE_BYTES`` pinned): a
   fleet whose layer routes to the kernels trains through the grouped K1-res
-  and K2ab and matches its solo trainers; a pallas fleet whose graph those
-  kernels cannot hold raises naming Queue 1 item 7c.
+  and K2ab and matches its solo trainers; a pallas fleet whose temporal
+  backward is tiled (window 130) matches its solo trainers and the JAX
+  fleet; one whose backward takes the CHUNKED tile raises naming Queue 1
+  item 7d.
 - ``utils/weights``: stacking E ``state_dict``s and unstacking them again.
 """
 
@@ -236,21 +238,60 @@ def test_the_dense_route_counts_the_entities(monkeypatch, tmp_path):
     _assert_matches_solo(mt, [_solo(cfg, tcfg, s, tmp_path) for s in series])
 
 
-def test_a_fleet_through_the_attention_kernels_names_item_7b():
+def test_a_fleet_through_the_attention_kernels_names_item_7b(tmp_path):
     """A pallas fleet trains since item 7b (``tests/test_torch_gat_fleet.py``
-    holds it against its solo trainers); one whose temporal graph the
-    whole-graph kernels cannot hold (window 130: the tiled backward) raises
-    when the trainer is built, naming item 7c, and so does a vmapped call of
-    its temporal layer, before any kernel or plain call."""
-    cfg = MTADGATConfig(**{**CFG, "window_size": 130}, dropout=0.3, attention_impl="pallas")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c") as err:
-        MultiEntityTrainer(cfg, _tcfg(epochs=1), device="cpu")
-    assert "N 130" in str(err.value) and "tiled backward" in str(err.value)
-    layer = MTADGAT(cfg).temporal_gat.eval()
+    holds it against its solo trainers), and since item 7c so does one whose
+    temporal graph the whole-graph kernels cannot hold (window 130: the
+    tiled backward, its grouped plain version here), one backward rule call
+    a layer a step: ragged lengths, dropout 0, each entity its solo pallas
+    trainer's, and from the JAX fleet's stacked init the JAX fleet's (its
+    attention dense: the same function, cheaper in interpret mode's
+    absence). One whose backward takes the CHUNKED tile (65 features at
+    window 300: the feature layer's N 65, E 600, D 300) raises when the
+    trainer is built, naming item 7d, and so does a vmapped call of that
+    layer, before any kernel or plain call."""
+    cfg = MTADGATConfig(**{**CFG, "window_size": 130}, dropout=0.0, attention_impl="pallas")
+    layer = MTADGAT(cfg).temporal_gat
+    assert kg.gat_bwd_route(130, layer.lin.weight.shape[0], layer.node_dim) == "tiled"
+    tkw = dict(epochs=1, val_split=0.2, bs=8, init_lr=1e-3, log_tensorboard=False, seed=0)
+    series = _series([156, 146, 152])
+    rules = kg._gatv2_attention_res_vmap.calls, kg._gatv2_attention_bwd_vmap.calls
+    mt = _fleet(cfg, TrainConfig(**tkw), series)
+    assert (kg._gatv2_attention_res_vmap.calls - rules[0],
+            kg._gatv2_attention_bwd_vmap.calls - rules[1]) == (2 * mt.fleet_steps,
+                                                                2 * mt.fleet_steps)
+    _assert_matches_solo(mt, [_solo(cfg, TrainConfig(**tkw), s, tmp_path / f"solo{e}")
+                              for e, s in enumerate(series)])
+
+    jfleet = JaxFleet(JaxConfig(**{**CFG, "window_size": 130}, dropout=0.0, gru_impl="xla"),
+                      JaxTrainConfig(**tkw))
+    jfleet.init_states(len(series))
+    stacked = jax.tree_util.tree_map(np.asarray, jfleet.params)
+    mt = MultiEntityTrainer(cfg, TrainConfig(**tkw), device="cpu")
+    mt.set_states(jax_stacked_params_to_state_dicts(stacked))
+    jfleet.fit(series, verbose=False)
+    mt.fit(series, verbose=False)
+    want_params = jax_stacked_params_to_state_dicts(
+        jax.tree_util.tree_map(np.asarray, jfleet.params))
+    for e in range(len(series)):
+        for key, want in jfleet.losses[e].items():
+            np.testing.assert_allclose(mt.losses[e][key], want, atol=JAX_ATOL,
+                                       err_msg=f"entity {e} {key}")
+        got = mt.entity_params(e)
+        for name, want in want_params[e].items():
+            np.testing.assert_allclose(got[name].numpy(), want.numpy(), atol=JAX_ATOL,
+                                       err_msg=f"entity {e} {name}")
+
+    wide = MTADGATConfig(**{**CFG, "n_features": 65, "out_dim": 65, "window_size": 300},
+                         dropout=0.3, attention_impl="pallas")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7d") as err:
+        MultiEntityTrainer(wide, _tcfg(epochs=1), device="cpu")
+    assert "N 65" in str(err.value) and "CHUNKED" in str(err.value)
+    feature = MTADGAT(wide).feature_gat.eval()
     rules = kg._gatv2_attention_res_vmap.calls
-    x = torch.randn(2, 3, 130, CFG["n_features"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-        torch.func.vmap(torch.func.grad(lambda x_e: layer(x_e, None).sum()))(x)
+    x = torch.randn(2, 1, 300, 65)                  # (entities, batch, window, features)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
+        torch.func.vmap(torch.func.grad(lambda x_e: feature(x_e, None).sum()))(x)
     assert kg._gatv2_attention_res_vmap.calls == rules
 
 

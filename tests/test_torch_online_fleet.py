@@ -27,8 +27,9 @@ CPU). The weights are the JAX fleet's stacked tree, split into E port
   refused.
 - The kernels' grouped plain versions equal per-group calls; under vmap,
   weights that vmap does not batch included; each vmap rule runs once a
-  layer a forward; vmap with gradients runs K1-res's op, and a graph the
-  whole-graph kernels cannot hold raises, naming Queue 1 item 7c.
+  layer a forward; vmap with gradients runs K1-res's op, at a tiled
+  forward's N too, and a graph whose backward takes the CHUNKED tile
+  raises under gradients, naming Queue 1 item 7d.
 """
 
 import pickle
@@ -389,8 +390,9 @@ def test_vmap_with_gradients_raises_naming_item_7(fleet_weights):
     plain version here, and equals the no-grad fleet forward (K1's op);
     its gradients are each model's own. The attention at dropout under vmap
     equals the per-entity calls (one seed, each entity's mask its own
-    call's). A graph the whole-graph kernels cannot hold raises, naming
-    item 7c."""
+    call's), and so it does at a graph the whole-graph kernels cannot hold
+    (N 400 at E 8: the tiled forward, since item 7c). Under gradients a
+    graph whose backward takes the CHUNKED tile raises, naming item 7d."""
     _, _, models = fleet_weights
     params, buffers = torch.func.stack_module_state(models)
     base = models[0]
@@ -422,11 +424,19 @@ def test_vmap_with_gradients_raises_naming_item_7(fleet_weights):
     for g in range(G):
         want = kg.gatv2_attention(ent(p)[g], ent(q)[g], a[g], bias[g], ent(v)[g], 0.2, 0, 0.3)
         assert torch.equal(got[g], want)
-    wide = torch.zeros(G, 1, 2048, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-        torch.func.vmap(lambda p_e, a_e, v_e: kg.gatv2_attention(p_e, p_e, a_e, None, v_e,
-                                                                 0.2, 0, 0.3))(
-            wide, a, torch.zeros(G, 1, 2048, 4))
+    gen = torch.Generator().manual_seed(1)
+    wide, v_wide = torch.randn(G, 1, 400, 8, generator=gen), torch.randn(G, 1, 400, 4,
+                                                                         generator=gen)
+    assert kg.gat_fwd_plan(400, 8, 4) == "tiled"
+    attend = lambda p_e, a_e, v_e: kg.gatv2_attention(p_e, p_e, a_e, None, v_e,  # noqa: E731
+                                                      0.2, 0, 0.3)
+    got = torch.func.vmap(attend)(wide, a, v_wide)
+    for g in range(G):
+        assert torch.equal(got[g], attend(wide[g], a[g], v_wide[g]))
+    chunked = torch.zeros(G, 1, 65, 600)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
+        torch.func.vmap(torch.func.grad(lambda p_e, a_e, v_e: attend(p_e, a_e, v_e).sum()))(
+            chunked, torch.zeros(G, 600), torch.zeros(G, 1, 65, 300))
 
 
 def test_stacked_jax_params_split_by_entity(fleet_weights):

@@ -12,9 +12,12 @@
   entities at dropout 0.3: each entity's weights are its sequential pallas
   run's.
 - ``aggregate`` equals the JAX package's on the same dict.
-- ``--mesh_devices`` raises naming Queue 1 item 8, ``--batched
-  --attention_impl pallas`` at a lookback whose temporal graph the
-  whole-graph kernels cannot hold naming item 7c.
+- ``--batched --attention_impl pallas`` at lookback 130, where the
+  temporal layer's backward is the tiled K2a and K2b (item 7c), at dropout
+  0: each entity's weights are its sequential pallas run's.
+- ``--mesh_devices`` raises naming Queue 1 item 8, ``--batched`` with a
+  banded temporal graph wide enough for the block scan (its hash dropout
+  has no entity axis) naming item 7d.
 """
 
 import json
@@ -39,10 +42,10 @@ SMALL = ["--lookback", "20", "--epochs", "1", "--bs", "32", "--gru_hid_dim", "16
          "--log_tensorboard", "False", "--device", "cpu"]
 
 
-def _entities(tmp_path, lengths):
+def _entities(tmp_path, lengths, n_test=200):
     root = tmp_path / "datasets"
     for i, (group, n) in enumerate(lengths):
-        write_smd_like(str(root), group=group, n_train=n, n_test=200, seed=i)
+        write_smd_like(str(root), group=group, n_train=n, n_test=n_test, seed=i)
     return root
 
 
@@ -128,6 +131,30 @@ def test_sweep_batched_pallas_two_entities(tmp_path):
                                        err_msg=f"{group} {name}")
 
 
+def test_sweep_batched_pallas_at_a_tiled_window(tmp_path):
+    """``--batched --attention_impl pallas --gru_impl pallas --lookback
+    130``, which raised before item 7c: the temporal layer (N 130, E 76, D
+    38) takes the tiled K2a and K2b, here their grouped plain versions, and
+    at dropout 0 each of two ragged entities' weights (30 and 20 windows,
+    the plain attention's cost kept small) is its sequential pallas run's
+    within ``test_sweep_batched_pallas_two_entities``'s atol 1e-4."""
+    assert kg.gat_bwd_route(130, 76, 38) == "tiled"
+    root = _entities(tmp_path, [("1-1", 160), ("1-2", 150)], n_test=140)
+    impl = ["--attention_impl", "pallas", "--gru_impl", "pallas", "--lookback", "130",
+            "--dropout", "0"]
+    rules = kg._gatv2_attention_bwd_vmap.calls
+    batched = sweep_cli.main(_argv(root, tmp_path / "b", "--batched", "--run_id", "b", *impl))
+    assert kg._gatv2_attention_bwd_vmap.calls > rules
+    solo = sweep_cli.main(_argv(root, tmp_path / "s", "--run_id", "s", *impl))
+    assert set(batched) == set(solo) == {"1-1", "1-2"}
+    for group in ("1-1", "1-2"):
+        got = torch.load(tmp_path / "b" / "SMD" / group / "b" / "model.pt")
+        want = torch.load(tmp_path / "s" / "SMD" / group / "s" / "model.pt")
+        for name, w in want.items():
+            np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=0, atol=1e-4,
+                                       err_msg=f"{group} {name}")
+
+
 def test_aggregate_micro_equals_the_jax_aggregate():
     results = {
         "a": {"bf_result": {"f1": 1.0, "TP": 10, "FP": 0, "FN": 0},
@@ -143,7 +170,7 @@ def test_aggregate_micro_equals_the_jax_aggregate():
 @pytest.mark.parametrize("extra,match", [
     (["--mesh_devices", "2"], "Queue 1 item 8"),
     (["--batched", "--mesh_devices", "-1"], "Queue 1 item 8"),
-    (["--batched", "--attention_impl", "pallas", "--lookback", "130"], "Queue 1 item 7c"),
+    (["--batched", "--lookback", "80", "--temporal_graph", "band:33"], "Queue 1 item 7d"),
 ])
 def test_sweep_refusals(extra, match, tmp_path):
     root = _entities(tmp_path, [("1-1", 200)])
