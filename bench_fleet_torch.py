@@ -17,14 +17,20 @@ the lookback-300 layers at batch 64 as a fleet's entity sees them (the
 temporal layer, N 300, E 76, D 38: the tiled K1-res, the FAST K2a, K2b with
 and without dbias; the feature layer, N 38, E 600, D 300: the whole-graph
 K1-res on two row blocks, the streamed backward with and without dbias; all
-at dropout 0.3), K3 at hidden 150 (the cluster variant) and 384 (streaming)
+at dropout 0.3), the feature layer of 65 features at window 300 (N 65, E
+600, D 300: the tiled K1-res, the CHUNKED K2a, K2b with and without dbias),
+K3 at hidden 150 (the cluster variant) and 384 (streaming)
 at batch 256 and 1, and K4 (the scan and the weights product) at hidden 150
 and 384, all float32 with bias. One JSON line per (shape, kernel) with its
 device time from a CUDA graph of 20 calls (``graph_ms``) and the sha256 of
 its outputs' bytes; the card's name and power limit first, then the
 registers and spills ptxas gave each GRU kernel and each attention kernel
-(whole-graph, tiled and streamed). A comparison runs parent, change,
-change, parent in one call:
+(whole-graph, tiled, CHUNKED and streamed). Last, one training step of the
+model at lookback 1024 on band:128 with the band-stored bias (the block
+scan), batch 64, dropout 0.3, float32: its time by CUDA events (the median
+of 5 after 2 warm-ups), its peak memory, its loss and each gradient's sum
+of absolute values. A comparison runs parent, change, change, parent in
+one call:
 
     git archive <parent> | tar -x -C build/parent
     for t in build/parent . . build/parent; do python3 bench_fleet_torch.py --root $t; done
@@ -48,7 +54,11 @@ ATTENTION = (("feature", 256, 38, 200, 100), ("temporal", 256, 100, 76, 38),
              ("feature batch 1", 1, 38, 200, 100), ("temporal batch 1", 1, 100, 76, 38))
 # (name, B, T, H)
 # (name, B, N, E, D): the lookback-300 layers, at an entity's batch
-WIDE = (("temporal lookback 300", 64, 300, 76, 38), ("feature lookback 300", 64, 38, 600, 300))
+WIDE = (("temporal lookback 300", 64, 300, 76, 38), ("feature lookback 300", 64, 38, 600, 300),
+        ("feature 65 features lookback 300", 64, 65, 600, 300))
+# the block scan's solo step: chip_smoke.py's long_window configuration
+BAND = dict(lookback=1024, temporal_graph="band:128", bias_storage="band", bs=64,
+            attention_impl="dense", gru_impl="auto", compute_dtype="float32")
 GRU = (("hidden 150", 256, 100, 150), ("hidden 150 batch 1", 1, 100, 150),
        ("hidden 384", 64, 100, 384), ("hidden 384 batch 1", 1, 100, 384))
 
@@ -131,7 +141,7 @@ def main() -> None:
         if name.startswith("gat"):
             kernels = [k for k in kernels if any(
                 f"_{kind}_kernel" in k for kind in ("graph", "tiled", "dq_dv", "dp_da",
-                                                   "score", "contract", "reduce"))]
+                                                   "chunked", "score", "contract", "reduce"))]
         print(json.dumps({"label": label, "ptxas": name, "kernels": kernels}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
@@ -214,6 +224,49 @@ def main() -> None:
                    **dims, plan=kgru.gru_plan("bwd", H))
         del gi, hseq, dhseq
         torch.cuda.empty_cache()
+    band_step(label, smi)
+
+
+def band_step(label: str, smi: str) -> None:
+    """One training step (forward, loss, backward; no optimizer) of the
+    model at ``BAND``: the block scan's recompute on a solo path."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.models import MTADGAT
+
+    cfg = RunConfig(**BAND, log_tensorboard=False)
+    model = MTADGAT(cfg.model_config(38, 38),
+                    generator=torch.Generator().manual_seed(0)).cuda().train()
+    x = torch.randn(cfg.bs, cfg.lookback, 38, generator=torch.Generator().manual_seed(1)).cuda()
+    gen = torch.Generator(device="cuda")
+
+    def step():
+        gen.manual_seed(2)
+        model.zero_grad(set_to_none=True)
+        preds, recons = model(x, gen)
+        loss = preds.square().mean() + recons.square().mean()
+        loss.backward()
+        return loss
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() - base
+    grads = {n: p.grad.abs().sum().item() for n, p in model.named_parameters()
+             if p.grad is not None and "temporal_gat" in n}
+    print(json.dumps({"label": label, "card": smi, "shape": "band:128 lookback 1024 batch 64",
+                      "kernel": "training step (block scan)", "step_ms_median": sorted(times)[2],
+                      "step_ms": times, "peak_mb_above_inputs": peak / 2**20,
+                      "loss": loss.item(), "temporal_grad_abs_sums": grads}), flush=True)
 
 
 if __name__ == "__main__":

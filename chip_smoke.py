@@ -198,11 +198,11 @@ In order, each phase failing the run with a non-zero exit:
     grouped plain version, timed by CUDA graph beside the G launches, with
     its bound; the host cost of the K1 and K3 custom ops had the solo path
     called them (it calls the wrappers direct); then 28 synthetic SMD
-    machines (``write_smd`` from seeds 1-28, a seeded flagship model each,
-    both kernels on, no cached train scores) served by ``serve_cli.main
-    --group 1-1,...,3-11 --input a.csv,...`` at chunk 128 (calibrating by
-    scoring each training split) and chunk 1, epsilon: every point
-    served, K1 (whole graph) and K3 launched exactly twice a fleet forward
+    machines (``write_smd`` from seeds 1-28, 1,000 rows each, a seeded
+    flagship model each, both kernels on, no cached train scores) served by
+    ``serve_cli.main --group 1-1,...,3-11 --input a.csv,...`` at chunk 128
+    (calibrating by scoring each training split) and chunk 1, epsilon:
+    every point served, K1 (whole graph) and K3 launched exactly twice a fleet forward
     (besides the calibration's), each vmap rule once a layer a forward, no
     plain call; three groups' records equal to their solo ``serve_cli``
     runs (scores within ``FLEET_ATOL``, thresholds and alarms equal); then
@@ -228,7 +228,7 @@ In order, each phase failing the run with a non-zero exit:
     gradients: ``vmap(grad(...))`` over 28 entities launching K1-res and
     K2ab once each a layer, within ``TRAIN_TOL`` of 28 solo ``grad`` calls;
     the dense layers' byte model for the fleet at batch 64 and 256; then 28
-    synthetic SMD machines (``write_smd`` from seeds 1-28, 1,600-2,400 rows)
+    synthetic SMD machines (``write_smd`` from seeds 1-28, 800-1,200 rows)
     trained by ``sweep_cli.main --batched`` at the flagship widths, dropout
     0.3, 1 epoch, float32, with dense attention at batch 64 and with
     ``--attention_impl pallas --gru_impl pallas`` at batch 64 and 256:
@@ -264,16 +264,39 @@ In order, each phase failing the run with a non-zero exit:
     300 and dropout 0 within ``FLEET_PARITY_TOL``; then the fleet's
     windows/s, step p50 and p99 on the device's clock, peak memory and a
     profiled epoch's busy share;
-19. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
-    path, serving's, fleet serving's, fleet training's, the wide fleet's
-    and long_complete's included, the tiled kernels' times at the route's
+19. ``fleet_wide_features``: the CHUNKED tiled K2a and K2b with dbias at G
+    28 and 64 rows an entity, N 65 and 128, E 600, D 300, float32, bias,
+    dropout 0.3 with a seed an entity, each grouped launch equal to its 28
+    ungrouped launches bit for bit (those at the grouped plan's slices and
+    K2b's batch group) and within ``TRAIN_TOL`` of the grouped plain
+    version, timed by CUDA graph beside the 28 launches and its bound, with
+    each new instantiation's blocks a multiprocessor beside the ungrouped
+    one's; path (a), ``MultiEntityTrainer.fit`` over 28 synthetic machines
+    of 65 features at window 300, batch 64, dropout 0.3, every kernel on
+    (depth cut to 5 steps an epoch): a fleet step's launches exact (two
+    tiled K1-res and merges, the feature layer's CHUNKED K2a and K2b with
+    dbias, the temporal layer's FAST pair, the GRU's), no plain call, its
+    windows/s, step p50 and p99 on the device's clock, peak memory and busy
+    share; path (b), the 28 machines of ``write_fleet`` (800 rows each)
+    trained by ``sweep_cli.main --batched --lookback 300 --temporal_graph
+    band:64 --bias_storage band --attention_impl dense --gru_impl pallas
+    --bs 64`` (the temporal layer the block scan under ``vmap(grad)``):
+    launches exact, no plain GRU call, every summary finite,
+    ``predict_cli`` reproducing one; three machines against their solo
+    trainers at dropout 0 within ``FLEET_PARITY_TOL``; its numbers as path
+    (a)'s, its peak memory within half the card's; then each phase's
+    seconds;
+20. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+    path, serving's, fleet serving's, fleet training's, the wide fleet's,
+    the wide-feature fleet's and long_complete's included, the tiled kernels' times at the route's
     N, K2b's with and without dbias, K2c's forced times and where dbias now
     comes from, and K1's and K3's serving launches and
     batch-1 times, and their grouped launches at G 28, K1-res's and K2ab's
     fleet-training launches and grouped times, and the grouped tiled K1-res,
     K2a, K2b and streamed backward's at lookback 300; the merge, the
-    CHUNKED K2a and K2b, the chunked K2c and the streamed backward as rows
-    of their own) and, last, ``{"ok": true, ...}``.
+    CHUNKED K2a and K2b (their grouped launches and path (a)'s launches
+    with them), the chunked K2c and the streamed backward as rows of their
+    own) and, last, ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -2742,8 +2765,8 @@ def check_k1_batch1(gen, dev) -> dict:
 @contextlib.contextmanager
 def plain_calls():
     """Counts the calls of the plain attention (dense scores and aggregate,
-    K1's and K1-res's plain versions) and the plain GRU (its per-step loop,
-    K3's plain version) while the block runs."""
+    K1's, K1-res's and the backward's plain versions) and the plain GRU (its
+    per-step loop, K3's plain version) while the block runs."""
     import mtad_gat_tpu_torch.kernels.gat as kg
     import mtad_gat_tpu_torch.kernels.gru as kgru
     import mtad_gat_tpu_torch.nn.gat as ngat
@@ -2751,7 +2774,8 @@ def plain_calls():
 
     targets = [(kg, "gatv2_attention_fwd_plain"), (kg, "gatv2_attention_res_plain"),
                (ngat, "gatv2_scores_dense"), (ngat, "gat_aggregate_dense"),
-               (kgru, "gru_scan_fwd_plain"), (ngru, "gru_step")]
+               (kgru, "gru_scan_fwd_plain"), (ngru, "gru_step"),
+               (kg, "gatv2_attention_bwd_plain")]
     counts = dict.fromkeys((name for _, name in targets), 0)
     real = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
@@ -3060,6 +3084,9 @@ def check_serving(gen, dev, work, k3_batch1, smi) -> dict:
 # Fleet serving: K1 and K3 with an entity axis, and serve_cli over 28 machines
 # ---------------------------------------------------------------------------
 
+# rows a served machine's train and test splits hold (2,000 before phase
+# fleet_wide_features needed the time)
+FLEET_SERVE_ROWS = 1000
 FLEET_GROUPS = tuple([f"1-{i}" for i in range(1, 9)] + [f"2-{i}" for i in range(1, 10)]
                      + [f"3-{i}" for i in range(1, 12)])      # SMD's 28 machines
 FLEET_ROWS = (1, 128)            # rows a group: chunk 1 and chunk 128
@@ -3222,8 +3249,9 @@ def op_cost_per_forward(gen, dev) -> dict:
 
 
 def write_fleet(root: str) -> tuple:
-    """The fleet's 28 synthetic SMD machines (``write_smd`` from seeds 1-28)
-    and their run directories, as phase ``serving`` reads them: the
+    """The fleet's 28 synthetic SMD machines (``write_smd`` from seeds 1-28,
+    ``FLEET_SERVE_ROWS`` rows of train and of test each) and their run
+    directories, as phase ``serving`` reads them: the
     flagship's config with both kernels on and a seeded random model each,
     no cached train scores (``serve_cli`` calibrates by scoring the training
     split). Returns (data root, output root, CSV streams of the raw test
@@ -3235,7 +3263,7 @@ def write_fleet(root: str) -> tuple:
     data_root, out_root = os.path.join(root, "data"), os.path.join(root, "output")
     streams = []
     for e, group in enumerate(FLEET_GROUPS):
-        write_smd(data_root, group=group, seed=1 + e)
+        write_smd(data_root, n=FLEET_SERVE_ROWS, group=group, seed=1 + e)
         cfg = RunConfig(group=group, attention_impl="pallas", gru_impl="pallas")
         run = os.path.join(out_root, "SMD", group, SERVE_RUN)
         os.makedirs(run)
@@ -3898,9 +3926,10 @@ def check_attention_under_grad(gen, dev) -> dict:
 
 
 def fleet_lengths() -> list:
-    """Ragged train lengths of the fleet's 28 machines, 1,600 to 2,400 rows."""
+    """Ragged train lengths of the fleet's 28 machines, 800 to 1,200 rows
+    (1,600 to 2,400 before phase ``fleet_wide_features`` needed the time)."""
     n = len(FLEET_GROUPS)
-    return [1600 + (800 * e) // (n - 1) for e in range(n)]
+    return [800 + (400 * e) // (n - 1) for e in range(n)]
 
 
 class FleetProbe:
@@ -3977,7 +4006,7 @@ class FleetProbe:
 
 
 def expect_fleet_epoch(name: str, epoch: dict, dropout: float, kernels: bool = False,
-                       wide: bool = False) -> None:
+                       wide: bool = False, band: bool = False) -> None:
     """Exactly two K3, K4 scan and K4 weights launches a fleet step (the
     encoder's and the decoder's GRU) and each GRU rule once a GRU a step;
     with the attention dense no attention kernel, at dropout the keep-mask
@@ -3989,7 +4018,9 @@ def expect_fleet_epoch(name: str, epoch: dict, dropout: float, kernels: bool = F
     with ``kernels``): a step's attention launches are the feature layer's
     whole-graph K1-res and streamed backward with dbias, the temporal
     layer's tiled K1-res and its merge, and FAST K2a and K2b with dbias,
-    one each."""
+    one each. ``band`` (the attention dense, the temporal layer the block
+    scan): the keep-mask rule at 4 sites and the seed rule at 1 (the block
+    scan's hash mask) a step."""
     steps = epoch["steps"]
     want = {"gru_scan_fwd": 2 * steps, "gru_scan_bwd": 2 * steps,
             "gru_weight_grads": 2 * steps}
@@ -4000,7 +4031,7 @@ def expect_fleet_epoch(name: str, epoch: dict, dropout: float, kernels: bool = F
         want.update({k: 2 * steps for k in ("gatv2_attention_res", "gatv2_attention_res:graph",
                                              "gatv2_bwd_graph", "gatv2_bwd_graph:dbias")})
     wrong = {k: v for k, v in epoch["launches"].items() if v != want.get(k, 0)}
-    masks, seeds = (3, 2) if kernels else (5, 0)
+    masks, seeds = (3, 2) if kernels else (4, 1) if band else (5, 0)
     attn = 2 * steps if kernels else 0
     rules = (2 * steps, 2 * steps, masks * steps if dropout else 0, attn, attn,
              seeds * steps if dropout else 0)
@@ -4049,7 +4080,7 @@ def recorded_seeds():
 
 
 def check_fleet_parity(data_root, dev, impl: str = "dense", lookback: int = 100,
-                       dropouts: tuple = (0.0, 0.3)) -> dict:
+                       dropouts: tuple = (0.0, 0.3), band: bool = False) -> dict:
     """Three of the fleet's machines (their first 700, 620 and 780 train
     rows, so that padded batches occur), flagship widths, batch 64, 1
     epoch, float32, TF32 off: ``MultiEntityTrainer`` against a solo
@@ -4070,7 +4101,8 @@ def check_fleet_parity(data_root, dev, impl: str = "dense", lookback: int = 100,
     the step where a fleet of two or three differs by 0.41%). ``lookback``
     and ``dropouts``: the window and the dropout rates run (phase
     ``fleet_wide_window``: 300, dropout 0, through the grouped tiled and
-    streamed kernels against the solo ones)."""
+    streamed kernels against the solo ones); ``band``: the temporal graph
+    ``FLEET_BAND`` (phase ``fleet_wide_features``: the block scan)."""
     from mtad_gat_tpu_torch.config import RunConfig
     from mtad_gat_tpu_torch.data import get_data
     from mtad_gat_tpu_torch.training import MultiEntityTrainer, Trainer
@@ -4078,19 +4110,21 @@ def check_fleet_parity(data_root, dev, impl: str = "dense", lookback: int = 100,
     series = [get_data(f"machine-{g}", data_root=data_root, normalize=True)[0][0][:n]
               for g, n in zip(FLEET_GROUPS, FLEET_PARITY_ROWS)]
     kernels = impl == "pallas"
-    E, sites, seed_sites = len(series), (3 if kernels else 5), (2 if kernels else 0)
+    E = len(series)
+    sites, seed_sites = (3, 2) if kernels else (4, 1) if band else (5, 0)
     out = {}
     wide = lookback != 100
+    graph = dict(temporal_graph=FLEET_BAND[1], bias_storage=FLEET_BAND[3]) if band else {}
     for dropout in dropouts:
         cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, dropout=dropout, log_tensorboard=False,
-                        attention_impl=impl, gru_impl="pallas", lookback=lookback)
+                        attention_impl=impl, gru_impl="pallas", lookback=lookback, **graph)
         mc, tc = cfg.model_config(38, 38), cfg.train_config()
         with FleetProbe() as probe, recorded_draws() as fleet_draws, \
                 recorded_seeds() as fleet_seeds:
             fleet = MultiEntityTrainer(mc, tc, device=str(dev))
             fleet.fit(series, verbose=False)
         expect_fleet_epoch(f"fleet parity ({impl}, lookback {lookback}), dropout {dropout}",
-                           probe.epochs[0], dropout, kernels, wide)
+                           probe.epochs[0], dropout, kernels, wide, band)
         loss_err, step_err, param_err, worst, masks_equal = 0.0, 0.0, 0.0, [], True
         for e, s in enumerate(series):
             solo = Trainer(mc, tc, log_dir=os.path.join(data_root, f"parity_logs_{e}"),
@@ -4123,9 +4157,9 @@ def check_fleet_parity(data_root, dev, impl: str = "dense", lookback: int = 100,
                     for k, v in solo.model.state_dict().items()}
             param_err = max(param_err, max(errs.values()))
             worst.append(max(errs, key=errs.get))
-        rec = {"phase": "fleet_wide_window" if wide else "fleet_training",
+        rec = {"phase": fleet_phase(wide, band),
                "check": f"3 entities against their solo trainers, attention {impl}, lookback "
-               f"{lookback}, dropout {dropout}, 1 epoch",
+               f"{lookback}{', ' + FLEET_BAND[1] if band else ''}, dropout {dropout}, 1 epoch",
                "train_rows": list(FLEET_PARITY_ROWS),
                "hash_seeds_compared": seed_sites * int(fleet.steps.sum()) if dropout else 0,
                "steps": [int(s) for s in fleet.steps], "fleet_steps": fleet.fleet_steps,
@@ -4141,8 +4175,14 @@ def check_fleet_parity(data_root, dev, impl: str = "dense", lookback: int = 100,
     return out
 
 
+def fleet_phase(wide: bool, band: bool = False) -> str:
+    """The phase a fleet record belongs to."""
+    return "fleet_wide_features" if band else "fleet_wide_window" if wide else "fleet_training"
+
+
 def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
-                           bs: int = FLEET_TRAIN_BS, lookback: int = 100) -> dict:
+                           bs: int = FLEET_TRAIN_BS, lookback: int = 100,
+                           band: bool = False) -> dict:
     """The fleet on all 28 machines outside the CLI, flagship widths, batch
     ``bs``, dropout 0.3, the attention ``impl`` (the GRU's kernels on), a
     fresh ``MultiEntityTrainer`` an epoch: a warm-up
@@ -4150,17 +4190,18 @@ def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
     device's clock, p50 and p99, peak memory above the baseline, the fleet's
     weights and Adam state included) and one profiled (busy share, device
     time by kernel). ``lookback``: the window (300 in phase
-    ``fleet_wide_window``)."""
+    ``fleet_wide_window``); ``band``: the temporal graph ``FLEET_BAND``."""
     from mtad_gat_tpu_torch.config import RunConfig
     from mtad_gat_tpu_torch.data import get_data
     from mtad_gat_tpu_torch.training import MultiEntityTrainer
 
     series = [get_data(f"machine-{g}", data_root=data_root, normalize=True)[0][0]
               for g in FLEET_GROUPS]
+    graph = dict(temporal_graph=FLEET_BAND[1], bias_storage=FLEET_BAND[3]) if band else {}
     cfg = RunConfig(bs=bs, epochs=1, log_tensorboard=False, attention_impl=impl,
-                    gru_impl="pallas", lookback=lookback)
+                    gru_impl="pallas", lookback=lookback, **graph)
     wide = lookback != 100
-    phase = "fleet_wide_window" if wide else "fleet_training"
+    phase = fleet_phase(wide, band)
 
     def train_one_epoch():
         # a fresh fleet each time: a fit on a trained one would resume past
@@ -4177,10 +4218,11 @@ def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
         train_one_epoch()
     epoch = probe.epochs[0]
     expect_fleet_epoch(f"fleet numbers ({impl}, batch {bs}, lookback {lookback})", epoch,
-                       cfg.dropout, impl == "pallas", wide)
+                       cfg.dropout, impl == "pallas", wide, band)
     steps = probe.step_ms()
     rec = {"phase": phase, "case": "numbers", "attention_impl": impl, "card": smi,
            "entities": len(FLEET_GROUPS), "batch": bs, "lookback": lookback,
+           "temporal_graph": cfg.temporal_graph,
            "launches_in_epoch": {k: v for k, v in epoch["launches"].items() if v},
            "train_windows": epoch["windows"], "fleet_steps": epoch["steps"],
            "epoch_seconds": epoch["seconds"],
@@ -4190,8 +4232,9 @@ def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
            "peak_mb_above_baseline": (torch.cuda.max_memory_allocated() - base) / 2**20}
     prof = profile_device(train_one_epoch,
                           f"fleet training, {len(FLEET_GROUPS)} entities, attention {impl}, "
-                          f"batch {bs}, lookback {lookback}, one epoch with its validation, "
-                          "float32")
+                          f"batch {bs}, lookback {lookback}"
+                          f"{', ' + FLEET_BAND[1] if band else ''}, one epoch with its "
+                          "validation, float32")
     prof["phase"] = phase
     emit(prof)
     rec["busy_share"] = prof["busy_share"]
@@ -4202,7 +4245,8 @@ def fleet_training_numbers(data_root, smi, dev, impl: str = "dense",
     return rec
 
 
-def batched_sweep(common, out_root, run_id, impl, bs, lookback: int = 100) -> dict:
+def batched_sweep(common, out_root, run_id, impl, bs, lookback: int = 100,
+                  band: bool = False) -> dict:
     """``sweep_cli.main --batched`` on the fleet's machines at batch ``bs``,
     the attention ``impl`` ("dense", or "pallas" with ``--gru_impl
     pallas``), the counts set to 0 just before and read just after: the
@@ -4212,7 +4256,8 @@ def batched_sweep(common, out_root, run_id, impl, bs, lookback: int = 100) -> di
     no attention kernel with "dense", every entity's summary finite, and
     ``predict_cli`` reproducing the first entity's. ``lookback`` 300 (phase
     ``fleet_wide_window``): the launches ``expect_fleet_epoch`` names for
-    that window's plans."""
+    that window's plans; ``band`` (``FLEET_BAND`` in ``common``, phase
+    ``fleet_wide_features``): the block scan's rule calls."""
     from mtad_gat_tpu_torch.cli import predict_cli, sweep_cli
 
     kernels = impl == "pallas"
@@ -4229,8 +4274,9 @@ def batched_sweep(common, out_root, run_id, impl, bs, lookback: int = 100) -> di
     counts = read_counts()
     plain_counts = dict(plain)
     epoch = probe.epochs[0]
-    name = f"sweep_cli --batched, attention {impl}, batch {bs}, lookback {lookback}"
-    expect_fleet_epoch(name, epoch, 0.3, kernels, wide)
+    name = (f"sweep_cli --batched, attention {impl}, batch {bs}, lookback {lookback}"
+            f"{', ' + FLEET_BAND[1] if band else ''}")
+    expect_fleet_epoch(name, epoch, 0.3, kernels, wide, band)
     steps = epoch["steps"]
     run0 = os.path.join(out_root, "SMD", FLEET_GROUPS[0], run_id)
     summary0 = finite_summary(os.path.join(run0, "summary.txt"))
@@ -4239,7 +4285,7 @@ def batched_sweep(common, out_root, run_id, impl, bs, lookback: int = 100) -> di
     predict_cli.main(["--dataset", "SMD", "--group", FLEET_GROUPS[0], "--model_id", run_id,
                       "--data_root", common[common.index("--data_root") + 1],
                       "--output_root", out_root, "--device", "cuda"])
-    rec = {"phase": "fleet_wide_window" if wide else "fleet_training",
+    rec = {"phase": fleet_phase(wide, band),
            "run": f"{name}, {len(FLEET_GROUPS)} machines, 1 epoch",
            "seconds": seconds, "train_epoch_seconds": epoch["seconds"],
            "train_windows": epoch["windows"], "fleet_steps": steps,
@@ -4265,7 +4311,7 @@ def check_fleet_training(gen, dev, work, smi) -> dict:
     """Phase ``fleet_training``: grouped K4 and K3 under gradients against G
     launches and their plain versions; grouped K1-res and K2ab against G
     launches and theirs, and the attention under gradients; 28 synthetic SMD
-    machines (ragged, 1,600-2,400 train rows) trained by ``sweep_cli
+    machines (ragged, 800-1,200 train rows) trained by ``sweep_cli
     --batched`` (1 epoch, dropout 0.3, float32): with dense attention at
     batch 64, and through the attention kernels at batch 64 and 256, each
     entity's run written and scored, ``predict_cli`` reproducing one; three
@@ -4620,6 +4666,247 @@ def fleet_wide_row(fw: dict, key: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# The last of fleet training: the CHUNKED tiled K2a and K2b with an entity
+# axis (a fleet of more than 64 features beyond window 235), and the block
+# scan under vmap(grad) (sweep_cli --batched --temporal_graph band:W, W > 32)
+# ---------------------------------------------------------------------------
+
+# (name, N, E, D): the feature layer of 65 features at window 300, and a
+# graph of 128 nodes at its widths, where K2b's slices are 2
+FLEET_FEATURES_LAYERS = (("N 65", 65, 600, 300), ("N 128", 128, 600, 300))
+FLEET_FEATURES = 65
+FLEET_FEATURES_WINDOWS = 290      # an entity's windows in path (a): 5 steps of 64, val included
+FLEET_BAND = ["--temporal_graph", "band:64", "--bias_storage", "band"]
+FLEET_BAND_ROWS = 800             # train and test rows a machine in path (b): 8 steps of 64
+FLEET_FEATURES_STEP_LAUNCHES = {
+    # path (a)'s attention launches a fleet step: both layers' tiled K1-res
+    # and merge, the feature layer's CHUNKED pair, the temporal layer's FAST
+    # pair, each K2b with dbias
+    "gatv2_attention_res": 2, "gatv2_attention_res:tiled": 2, "gatv2_fwd_merge": 2,
+    "gatv2_bwd_dp_da": 2, "gatv2_bwd_dp_da:chunked": 1, "gatv2_bwd_dp_da:fast": 1,
+    "gatv2_bwd_dq_dv": 2, "gatv2_bwd_dq_dv:chunked": 1, "gatv2_bwd_dq_dv:fast": 1,
+    "gatv2_bwd_dq_dv:dbias": 2}
+
+
+def check_grouped_chunked_kernels(gen, dev) -> dict:
+    """The CHUNKED tiled K2a and K2b with dbias at G 28 and 64 rows an
+    entity, N 65 and 128, E 600, D 300, float32, bias, dropout 0.3 with a
+    seed an entity: each grouped launch against its 28 ungrouped launches
+    at the grouped plan (slices and K2b's batch group forced to the grouped
+    launch's) bit for bit, and within ``TRAIN_TOL`` of the grouped plain
+    version (da and dbias each entity's); each timed by CUDA graph beside
+    the 28 launches and its bound, with the plans beside a solo call's at
+    64 rows and each new instantiation's blocks a multiprocessor beside the
+    ungrouped one's."""
+    from mtad_gat_tpu_torch.kernels import gat as kg
+
+    G, rows = len(FLEET_GROUPS), FLEET_WIDE_ROWS
+    B = G * rows
+    sms = _sms(dev)
+    out = {}
+    for name, N, E, D in FLEET_FEATURES_LAYERS:
+        p, q, _, _, v = gat_case(gen, dev, B, N, E, D, torch.float32, False)
+        a = (torch.randn(G, E, generator=gen) * (6.0 / (E + 1)) ** 0.5).to(dev)
+        bias = (0.1 * torch.randn(G, N, N, generator=gen)).to(dev)
+        seeds = torch.randint(0, 2**32, (G,), generator=gen, dtype=torch.int64).to(dev)
+        sl = lambda t, g: t[g * rows:(g + 1) * rows]  # noqa: E731
+        _, u, m, l = kg.gatv2_attention_res(p, q, a, bias, v, 0.2, seeds, FLEET_RATE)
+        sig = torch.sigmoid(u)
+        du = torch.randn(B, N, D, generator=gen).to(dev) * sig * (1 - sig)
+        dvec = (du * u).sum(-1)
+        args = (p, q, a, bias, v, m, l, du, dvec, 0.2, seeds, FLEET_RATE)
+
+        def one(g):
+            return (sl(p, g), sl(q, g), a[g], bias[g], sl(v, g),
+                    *(sl(t, g) for t in (m, l, du, dvec)), 0.2, seeds[g:g + 1], FLEET_RATE)
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dp, da = kg.gatv2_bwd_dp_da(*args)
+        pa = kg.gatv2_bwd_dp_da.last_plan
+        dq, dv, db = kg.gatv2_bwd_dq_dv(*args, dbias=True)
+        pb = kg.gatv2_bwd_dq_dv.last_plan
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        grads = (dp, dq, da, dv, db)
+        solo = kg.gat_tiled_bwd_plan(rows, N, E, D, sms, dbias=True)
+        plans = {"k2a": pa._asdict(), "k2b": pb._asdict(),
+                 "solo_slices": [solo["k2a"].slices, solo["k2b"].slices],
+                 "solo_k2b_group": solo["k2b"].group}
+        k2a_per = lambda: [kg.gatv2_bwd_dp_da(*one(g), plan=pa) for g in range(G)]  # noqa
+        k2b_per = lambda: [kg.gatv2_bwd_dq_dv(*one(g), dbias=True, plan=pb)  # noqa: E731
+                           for g in range(G)]
+        grads_per = [(x[0], y[0], x[1], y[1], y[2]) for x, y in zip(k2a_per(), k2b_per())]
+        ref = kg.gatv2_attention_bwd_plain(p, q, a, bias, v, du, 0.2, seeds, FLEET_RATE)
+        torch.cuda.synchronize()
+        same = {k: torch.equal(grads[i], (torch.stack if k in ("da", "dbias") else torch.cat)(
+                    [y[i] for y in grads_per]))
+                for i, k in enumerate(("dp", "dq", "da", "dv", "dbias"))}
+        gerr, gabs = grad_errors(grads, ref, grads[4])
+        tol = TRAIN_TOL[torch.float32]
+        bounds = wide_bounds(B, G, N, E, D)
+        times = {}
+        for key, fn, per_fn in (("k2a", lambda: kg.gatv2_bwd_dp_da(*args), k2a_per),
+                                ("k2b", lambda: kg.gatv2_bwd_dq_dv(*args, dbias=True),
+                                 k2b_per)):
+            times[key] = {"graph_ms": graph_ms(fn, calls=3, replays=3),
+                          "G_launches_graph_ms": graph_ms(per_fn, calls=1, replays=2),
+                          "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+        rec = {"phase": "fleet_wide_features", "case": f"grouped CHUNKED K2a and K2b with "
+               f"dbias, {name} ({B}, {N}, {E}, {D}), float32, dropout {FLEET_RATE}, one seed "
+               "an entity", "G": G, "rows_per_group": rows, "route": kg.gat_bwd_route(N, E, D),
+               "bwd_plans": plans, "bwd_peak_mb_above_inputs": peak,
+               "bwd_identical_to_G_launches": same, "grad_rel_err": gerr,
+               "grad_abs_err": gabs, "tol": tol,
+               "occupancy": wide_occupancy(kg, "tiled", plans, N, E, D), **times,
+               "what": "graph_ms: the grouped launch's device time from a CUDA graph, the "
+                       "sums of da and dbias entity by entity included; G_launches_graph_ms: "
+                       "its 28 ungrouped launches' at the grouped plan; bwd_plans: the grouped "
+                       "launch's beside a solo call's at 64 rows"}
+        emit(rec)
+        if (not all(same.values()) or pa.tile != kg.CHUNKED or pb.tile != kg.CHUNKED
+                or pa.entities != G or pb.entities != G
+                or plans["solo_slices"] != [pa.slices, pb.slices]
+                or not max(gerr.values()) <= tol["grad"]):
+            raise AssertionError(f"grouped CHUNKED kernels ({name}): {rec}")
+        out[name] = rec
+        del p, q, v, grads, grads_per, ref, du, dvec, u, m, l, sig
+        torch.cuda.empty_cache()
+    return out
+
+
+def fleet_features_numbers(dev, smi) -> dict:
+    """Path (a): ``MultiEntityTrainer.fit`` over 28 synthetic machines of 65
+    features (``synthetic_series``, seeds 1-28, depth cut to
+    ``FLEET_FEATURES_WINDOWS`` windows each), window 300, batch 64, dropout
+    0.3, flagship widths, the attention and the GRU through the kernels: a
+    fresh fleet an epoch, a warm-up, one timed (launches exact by kernel and
+    variant, no plain attention or GRU call, windows/s, step p50 and p99 on
+    the device's clock, peak memory above the baseline) and one profiled
+    (busy share, device time by kernel); every loss finite."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import synthetic_series
+    from mtad_gat_tpu_torch.kernels import gat as kg
+    from mtad_gat_tpu_torch.training import MultiEntityTrainer
+
+    k, w = FLEET_FEATURES, FLEET_WIDE_LOOKBACK
+    series = [synthetic_series(n_train=w + FLEET_FEATURES_WINDOWS, n_test=16, n_features=k,
+                               seed=1 + e)[0] for e in range(len(FLEET_GROUPS))]
+    cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, log_tensorboard=False, dropout=0.3,
+                    attention_impl="pallas", gru_impl="pallas", lookback=w)
+    mc = cfg.model_config(k, k)
+    feature = (k, 2 * w, w)
+    if not (kg.chunked_tile(*feature) and kg.gat_fwd_plan(*feature) == "tiled"):
+        raise AssertionError(f"fleet_wide_features: the feature layer {feature} does not take "
+                             "the tiled K1-res and the CHUNKED backward")
+    losses = []
+
+    def train_one_epoch():
+        fleet = MultiEntityTrainer(mc, cfg.train_config(), device=str(dev))
+        fleet.fit(series, verbose=False)
+        losses.extend(v for ent in fleet.losses for vals in ent.values() for v in vals)
+
+    train_one_epoch()                                                    # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FleetProbe() as probe, plain_calls() as plain:
+        train_one_epoch()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    epoch = probe.epochs[0]
+    steps = epoch["steps"]
+    want = {"gru_scan_fwd": 2 * steps, "gru_scan_bwd": 2 * steps, "gru_weight_grads": 2 * steps,
+            **{key: n * steps for key, n in FLEET_FEATURES_STEP_LAUNCHES.items()}}
+    wrong = {key: n for key, n in epoch["launches"].items() if n != want.get(key, 0)}
+    step_ms = probe.step_ms()
+    prof = profile_device(train_one_epoch, f"path (a): fleet training, {len(FLEET_GROUPS)} "
+                          f"entities of {k} features, attention and GRU kernels, batch "
+                          f"{FLEET_TRAIN_BS}, window {w}, one epoch with its validation, float32")
+    prof["phase"] = "fleet_wide_features"
+    emit(prof)
+    rec = {"phase": "fleet_wide_features", "case": "path (a) numbers", "card": smi,
+           "entities": len(FLEET_GROUPS), "features": k, "batch": FLEET_TRAIN_BS,
+           "lookback": w, "dropout": cfg.dropout,
+           "launches_in_epoch": {key: n for key, n in epoch["launches"].items() if n},
+           "expected_launches": want, "plain_calls": dict(plain),
+           "vmap_rule_calls": epoch["rule_calls"],
+           "train_windows": epoch["windows"], "fleet_steps": steps,
+           "epoch_seconds": epoch["seconds"],
+           "windows_per_s": epoch["windows"] / epoch["seconds"],
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "peak_mb_above_baseline": peak, "busy_share": prof["busy_share"],
+           "losses_finite": bool(np.all(np.isfinite(losses))),
+           "what": "windows/s: all entities' real training windows over the epoch's "
+                   "train_epoch seconds; step ms: on the device's clock, from one step's start "
+                   "to the next's; the profile covers the epoch's validation too"}
+    emit(rec)
+    if wrong or any(plain.values()) or not rec["losses_finite"] or steps < 1:
+        raise AssertionError(f"fleet_wide_features path (a): launches off {wrong}, {rec}")
+    return rec
+
+
+def check_fleet_wide_features(gen, dev, work, smi) -> dict:
+    """Phase ``fleet_wide_features``: the grouped CHUNKED kernels
+    (``check_grouped_chunked_kernels``); path (a), a fleet of 65 features
+    at window 300 through them (``fleet_features_numbers``); path (b), the
+    28 machines of ``write_fleet`` (seeds 1-28, depth cut to
+    ``FLEET_BAND_ROWS`` rows) trained by ``sweep_cli.main --batched
+    --lookback 300 --temporal_graph band:64 --bias_storage band
+    --attention_impl dense --gru_impl pallas --bs 64`` (1 epoch, dropout
+    0.3): the temporal layer is the block scan under vmap, a fleet step's
+    launches exact (the GRU's), no plain GRU call, every summary finite,
+    ``predict_cli`` reproducing one; three machines against their solo
+    trainers at dropout 0 within ``FLEET_PARITY_TOL``; then its windows/s,
+    step p50 and p99, peak memory and busy share. The peak must stay within
+    half the card's memory: a recompute recorded under ``torch.func.grad``
+    kept every step's score tile (65.8 GB, out of memory once the allocator
+    fragmented)."""
+    kernels = check_grouped_chunked_kernels(gen, dev)
+    features = fleet_features_numbers(dev, smi)
+    root = os.path.join(work, "fleet_band")
+    data_root, out_root = os.path.join(root, "data"), os.path.join(root, "output")
+    for e, group in enumerate(FLEET_GROUPS):
+        write_smd(data_root, n=FLEET_BAND_ROWS, group=group, seed=1 + e)
+    common = ["--dataset", "SMD", "--epochs", "1", "--dropout", "0.3", "--data_root",
+              data_root, "--device", "cuda", "--log_tensorboard", "False", *FLEET_BAND]
+    sweep = batched_sweep(common, out_root, "band", "dense", FLEET_TRAIN_BS,
+                          FLEET_WIDE_LOOKBACK, band=True)
+    parity = check_fleet_parity(data_root, dev, "dense", FLEET_WIDE_LOOKBACK, (0.0,),
+                                band=True)
+    numbers = fleet_training_numbers(data_root, smi, dev, "dense", FLEET_TRAIN_BS,
+                                     FLEET_WIDE_LOOKBACK, band=True)
+    half = torch.cuda.get_device_properties(dev).total_memory / 2**21
+    if not numbers["peak_mb_above_baseline"] <= half:
+        raise AssertionError(f"fleet_wide_features path (b): peak "
+                             f"{numbers['peak_mb_above_baseline']:.1f} MB above the baseline, "
+                             f"over half the card's {half:.1f} MB")
+    return {"kernels": kernels, "features": features, "sweep": sweep, "parity": parity,
+            "numbers": numbers,
+            "launches": {key: features["launches_in_epoch"].get(key, 0) + sweep["launches"][key]
+                         for key in sweep["launches"]}}
+
+
+def fleet_features_row(ff: dict, key: str) -> dict:
+    """The CHUNKED K2a's ("k2a") or K2b's ("k2b") ``fleet_wide_features``
+    entry of the kernels line: its launches in path (a) (one a fleet step,
+    at the feature layer), and its grouped launch at G 28 beside the 28
+    ungrouped launches, their bits, errors and bound, at N 65 and 128."""
+    name = {"k2a": "gatv2_bwd_dp_da", "k2b": "gatv2_bwd_dq_dv"}[key]
+    feats = ff["features"]
+    return {"launches": feats["launches_in_epoch"].get(f"{name}:chunked", 0),
+            "fleet_steps": feats["fleet_steps"], "launches_per_fleet_step": 1,
+            "groups": len(FLEET_GROUPS), "rows_per_group": FLEET_WIDE_ROWS,
+            "grouped": {layer: {**rec[key],
+                                "identical_to_G_launches": all(
+                                    rec["bwd_identical_to_G_launches"].values()),
+                                "max_err": rec["grad_rel_err"],
+                                "plan": {f: rec["bwd_plans"][key][f]
+                                         for f in ("slices", "group", "blocks")}}
+                        for layer, rec in ff["kernels"].items()}}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4647,16 +4934,22 @@ def main() -> None:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
 
-    t0 = time.perf_counter()
+    marks = [("start", time.perf_counter())]
+    mark = lambda name: marks.append((name, time.perf_counter()))  # noqa: E731
     _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    mark("build")
+    emit({"phase": "build", "seconds": marks[-1][1] - marks[-2][1],
           "ptxas": {n: ptxas_summary(_build.build_log(n)) for n in _build.SOURCES}})
 
     k1_err, k1_ms = check_k1(gen, dev)
+    mark("k1")
     k3_err, k3, k3_batch1 = check_k3(gen, dev)
+    mark("k3")
     train_err, train_rel, train_ms = check_training_kernels(gen, dev)
+    mark("training_kernels")
     k4_err, k4_rel, k4 = check_k4(gen, dev)
     gru_crossover(gen, dev)
+    mark("k4")
     with tempfile.TemporaryDirectory() as work:
         launches = check_main_path(gen, dev, work)
         data_root = os.path.join(work, "data")
@@ -4668,17 +4961,32 @@ def main() -> None:
         check_kernel_vs_plain_training(work, x_train)
         training_throughput(work, x_train, "xla")
         training_throughput(work, x_train, "pallas")
+        mark("main_path")
         long_window = check_long_window(gen, dev, work)
+        mark("long_window")
         graph_cli = check_graph_cli(work, data_root)
+        mark("graph_cli")
         wide = check_wide_window(work, gen, dev)
+        mark("wide_window")
         route = check_dense_route(gen, dev)
+        mark("dense_route")
         long_complete = check_long_complete(work, dev, smi)
+        mark("long_complete")
         serving = check_serving(gen, dev, work, k3_batch1, smi)
+        mark("serving")
         fleet = check_fleet_serving(gen, dev, work, smi)
+        mark("fleet_serving")
         fleet_train = check_fleet_training(gen, dev, work, smi)
+        mark("fleet_training")
         fleet_root = os.path.join(work, "fleet_training")
         fleet_wide = check_fleet_wide_window(gen, dev, os.path.join(fleet_root, "data"),
                                              os.path.join(fleet_root, "output"), smi)
+        mark("fleet_wide_window")
+        fleet_features = check_fleet_wide_features(gen, dev, work, smi)
+        mark("fleet_wide_features")
+    emit({"phase": "seconds", "by_phase": {name: t - marks[i][1]
+                                           for i, (name, t) in enumerate(marks[1:])},
+          "total_after_start": marks[-1][1] - marks[0][1]})
     by_path = {name: {"main": train_launches.get(name, 0),
                       "dense_route": route["launches_eval"][name] + route["launches_train"][name],
                       "long_window": long_window["launches"][name],
@@ -4688,7 +4996,8 @@ def main() -> None:
                       "serving": serving["launches"][name],
                       "fleet_serving": fleet["launches"][name],
                       "fleet_training": fleet_train["launches"][name],
-                      "fleet_wide_window": fleet_wide["launches"][name]}
+                      "fleet_wide_window": fleet_wide["launches"][name],
+                      "fleet_wide_features": fleet_features["launches"][name]}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]
@@ -4918,14 +5227,21 @@ def main() -> None:
                                                  w12["k2b_dbias"]["graph_ms"]]
             extra["dbias_bound_ms_by_window"] = [w3["k2b_dbias"]["bound_ms"],
                                                  w12["k2b_dbias"]["bound_ms"]]
+        if key != "k2c_chunked":
+            extra["fleet_wide_features"] = fleet_features_row(fleet_features, key)
+            extra["launches_wide_window"] = wide_counts(wide, variant)
         kernels.append({**extra,
             "name": f"{name}_chunked", "route": "cuda",
             "source": "mtad_gat_tpu_torch/csrc/gat_bwd.cu",
             "replaces": f"mtad_gat_tpu/kernels/gat_pallas.py:{line}",
-            "launches": wide_counts(wide, variant),
-            "launches_path": "wide_window; none since the streamed backward replaced the CHUNKED "
-                             "tile at N <= NMAX (kernels/gat.gat_bwd_route), forced in phase 6 "
-                             "as its yardstick",
+            "launches": (wide_counts(wide, variant) if key == "k2c_chunked"
+                         else extra["fleet_wide_features"]["launches"]),
+            "launches_path": ("wide_window; none since the streamed backward replaced the "
+                              "CHUNKED tile at N <= NMAX (kernels/gat.gat_bwd_route), forced in "
+                              "phase 6 as its yardstick" if key == "k2c_chunked" else
+                              "fleet_wide_features path (a): the grouped CHUNKED tile at the "
+                              "feature layer of 65 features, one a fleet step; also forced in "
+                              "phase 6 and wide_window as the streamed backward's yardstick"),
             "max_abs_err": max(err(w3), err(w10), err(w12)),
             "ms": w3[key]["graph_ms"], "graph_ms_by_window": [w3[key]["graph_ms"],
                                                               w12[key]["graph_ms"]],

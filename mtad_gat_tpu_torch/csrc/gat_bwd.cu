@@ -260,9 +260,9 @@ __device__ __forceinline__ void ds_tile(const Tile& t, const Args& g, uint32_t s
 //   partial is dbias itself. Where K2c read p, q, v, du, m, l and dvec a
 //   third time and scored every pair again, the fold adds N^2 float32
 //   writes (and reads, G > 1) to K2b;
-// - the entity axis (GROUPED, fleet training at long windows; FAST and WIDE
-//   tiles): the B batch elements form B / rows_per_group entities of
-//   consecutive elements, each with its own a + g E, bias + g N N and seed[g]
+// - the entity axis (GROUPED, fleet training at long windows; every tile,
+//   the CHUNKED one's section below too): the B batch elements form B /
+//   rows_per_group entities of consecutive elements, each with its own a + g E, bias + g N N and seed[g]
 //   and its batch index within the entity in the hash (tile_ds takes it; the
 //   score routine is untouched, so w stays the tiled K1-res's bit for bit).
 //   K2b's batch groups are each entity's runs of `group` rows, the last one
@@ -862,13 +862,14 @@ __device__ inline ChunkBufs carve_chunk(float* smem) {
 
 // ds and wa of this thread's micro-tile of row tile i0 against key tile j0
 // of batch element b, as tiled_score computes them, staging the operands by
-// chunk. Every chunk starts with a barrier, so the block's earlier readers
-// of the buffers are done.
+// chunk; bh is b's index within its entity, the hash's batch index (b
+// ungrouped). Every chunk starts with a barrier, so the block's earlier
+// readers of the buffers are done.
 template <bool DROP>
 __device__ void chunked_score(const ChunkBufs& c, const float* __restrict__ p,
                               const float* __restrict__ q, const float* __restrict__ a,
                               const float* __restrict__ v, const Args& g, uint32_t seed, int b,
-                              int i0, int j0, bool vec_e, bool vec_d, float (&ds)[16],
+                              int bh, int i0, int j0, bool vec_e, bool vec_d, float (&ds)[16],
                               float (&wa)[16]) {
   constexpr int RI = CHUNK_RI, KJ = CHUNK_KJ, NT = CHUNK_NT, CP = CHUNK_CP;
   const int N = g.N, E = g.E, D = g.D;
@@ -908,7 +909,7 @@ __device__ void chunked_score(const ChunkBufs& c, const float* __restrict__ p,
     dot_tile<CHUNK_RG, CHUNK_KG>(c.x, CP, c.y, CP, groups, ti, tj, dot);
   }
   tile_ds<CHUNK_RG, CHUNK_KG, DROP>(s, dot, bv, c.stats, c.stats + RI, c.stats + 2 * RI, g,
-                                    seed, b, i0, j0, ti, tj, ds, wa);
+                                    seed, bh, i0, j0, ti, tj, ds, wa);
 }
 
 // After a barrier (the buffer's readers are done), start copying rows [r0,
@@ -922,22 +923,29 @@ __device__ inline void stage_chunk(float* dst, const float* __restrict__ src, in
 
 // K2b CHUNKED: a block (one warp) per (slice, batch group, key tile of 32),
 // walking the batch elements of its group and, for each, its slice's row
-// tiles of 16. part and dbias_part as the FAST and WIDE K2b's.
-template <bool DROP, bool DBIAS>
+// tiles of 16. part and dbias_part as the FAST and WIDE K2b's, and GROUPED
+// (the entity axis) as theirs: each entity's rows in runs of `group`, the
+// run's entity's a, bias and seed, the batch index within the entity in the
+// hash.
+template <bool DROP, bool DBIAS, bool GROUPED>
 __global__ void __launch_bounds__(CHUNK_NT)
 gatv2_bwd_dq_dv_chunked_kernel(const float* __restrict__ p, const float* __restrict__ q,
                                const float* __restrict__ a, const float* __restrict__ v, Args g,
                                float* __restrict__ part, float* __restrict__ dbias_part,
-                               int slices, int group) {
+                               int slices, int group, int rows_per_group) {
   constexpr int RI = CHUNK_RI, KJ = CHUNK_KJ, NT = CHUNK_NT, RG = CHUNK_RG, KG = CHUNK_KG;
   constexpr int CP = CHUNK_CP;
   extern __shared__ __align__(16) float smem[];
   const int N = g.N, E = g.E, D = g.D, W = E + D;
   const int key_tiles = (N + KJ - 1) / KJ, row_tiles = (N + RI - 1) / RI;
-  const int n_groups = (g.B + group - 1) / group;
+  // GROUPED: `per` runs an entity; ungrouped, the expressions after each `:`
+  const int per = GROUPED ? (rows_per_group + group - 1) / group : 1;
+  const int n_groups = GROUPED ? g.B / rows_per_group * per : (g.B + group - 1) / group;
   const int kt = blockIdx.x % key_tiles, sb = blockIdx.x / key_tiles;
   const int gr = sb % n_groups, sl = sb / n_groups;
-  const int b_first = gr * group, b_end = min(g.B, b_first + group);
+  const int grp = GROUPED ? gr / per : 0, b0 = grp * rows_per_group;
+  const int b_first = GROUPED ? b0 + gr % per * group : gr * group,
+            b_end = min(GROUPED ? b0 + rows_per_group : g.B, b_first + group);
   const int j0 = kt * KJ, kn = min(KJ, N - j0);
   const int t_begin = slice_begin(sl, row_tiles, slices);
   const int t_end = slice_begin(sl + 1, row_tiles, slices);
@@ -945,7 +953,12 @@ gatv2_bwd_dq_dv_chunked_kernel(const float* __restrict__ p, const float* __restr
   float* ds_s = c.next;                     // [RI][KJ], keys by micro-tile
   float* wa_s = ds_s + RI * KJ;             // [RI][KJ]
   float* db = DBIAS ? dbias_part + (size_t)gr * N * N : nullptr;
-  const uint32_t seed = read_seed(g);
+  const uint32_t seed = GROUPED ? (g.seed == nullptr ? 0u : (uint32_t)(unsigned long long)g.seed[grp])
+                                : read_seed(g);
+  if constexpr (GROUPED) {
+    a += (size_t)grp * E;
+    if (g.bias != nullptr) g.bias += (size_t)grp * N * N;
+  }
   const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q) && aligned16(a);
   const bool vec_d = D % 4 == 0 && aligned16(v) && aligned16(g.du);
   const int ti = threadIdx.x / KG, tj = threadIdx.x % KG;
@@ -960,7 +973,8 @@ gatv2_bwd_dq_dv_chunked_kernel(const float* __restrict__ p, const float* __restr
       const int i0 = t * RI;
       {
         float ds[16], wa[16];
-        chunked_score<DROP>(c, p, q, a, v, g, seed, b, i0, j0, vec_e, vec_d, ds, wa);
+        // the hash takes the batch index within the entity (b0 is 0 ungrouped)
+        chunked_score<DROP>(c, p, q, a, v, g, seed, b, b - b0, i0, j0, vec_e, vec_d, ds, wa);
         if constexpr (DBIAS) add_dbias<RG, KG>(db, N, i0, j0, ti, tj, ds, b != b_first);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -1029,13 +1043,15 @@ gatv2_bwd_dq_dv_chunked_kernel(const float* __restrict__ p, const float* __restr
 
 // K2a CHUNKED: a block (one warp) per (slice, batch element, row tile of 16),
 // walking its slice's key tiles of 32. part as the FAST and WIDE K2a's;
-// da_part RG rows of E a block, one a row group: the caller sums them all.
-template <bool DROP>
+// da_part RG rows of E a block, one a row group: the caller sums them all
+// (GROUPED: each entity's, gathered slice by slice; the element's entity's
+// a, bias and seed, and its index within the entity in the hash).
+template <bool DROP, bool GROUPED>
 __global__ void __launch_bounds__(CHUNK_NT)
 gatv2_bwd_dp_da_chunked_kernel(const float* __restrict__ p, const float* __restrict__ q,
                                const float* __restrict__ a, const float* __restrict__ v, Args g,
                                float* __restrict__ part, float* __restrict__ da_part,
-                               int slices) {
+                               int slices, int rows_per_group) {
   constexpr int RI = CHUNK_RI, KJ = CHUNK_KJ, NT = CHUNK_NT, RG = CHUNK_RG, KG = CHUNK_KG;
   constexpr int CP = CHUNK_CP, RS = CHUNK_RS;
   extern __shared__ __align__(16) float smem[];
@@ -1050,7 +1066,13 @@ gatv2_bwd_dp_da_chunked_kernel(const float* __restrict__ p, const float* __restr
   float* dsT_s = c.next;                    // [KJ][RS], rows by micro-tile
   float* out = part + ((size_t)(sl * g.B + b) * N + i0) * E;
   float* da_rows = da_part + (size_t)blockIdx.x * RG * E;
-  const uint32_t seed = read_seed(g);
+  const int grp = GROUPED ? b / rows_per_group : 0, bh = b - grp * rows_per_group;
+  const uint32_t seed = GROUPED ? (g.seed == nullptr ? 0u : (uint32_t)(unsigned long long)g.seed[grp])
+                                : read_seed(g);
+  if constexpr (GROUPED) {
+    a += (size_t)grp * E;
+    if (g.bias != nullptr) g.bias += (size_t)grp * N * N;
+  }
   const bool vec_e = E % 4 == 0 && aligned16(p) && aligned16(q) && aligned16(a);
   const bool vec_d = D % 4 == 0 && aligned16(v) && aligned16(g.du);
   const float* pb = p + (size_t)b * N * E;
@@ -1060,7 +1082,7 @@ gatv2_bwd_dp_da_chunked_kernel(const float* __restrict__ p, const float* __restr
     const int j0 = t * KJ;
     {
       float ds[16], wa[16];
-      chunked_score<DROP>(c, p, q, a, v, g, seed, b, i0, j0, vec_e, vec_d, ds, wa);
+      chunked_score<DROP>(c, p, q, a, v, g, seed, b, bh, i0, j0, vec_e, vec_d, ds, wa);
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc)
         *reinterpret_cast<float4*>(dsT_s + (tj + KG * cc) * RS + 4 * ti) =
@@ -1681,33 +1703,47 @@ int tiled_shape(int which, const float* p, const float* q, const float* a, const
 
 // The CHUNKED K2a (which 0) or K2b (1, with dbias where dbias_part is
 // non-null) and its reduce; occupancy as tiled().
-template <typename T, bool DROP>
-int chunked(int which, const float* p, const float* q, const float* a, const float* v,
-            const Args& g, void* out0, void* out1, float* dbias_part, float* part,
-            const TiledPlan& pl, void* stream, int* occupancy) {
+template <typename T, bool DROP, bool GROUPED>
+int chunked_grouped(int which, const float* p, const float* q, const float* a, const float* v,
+                    const Args& g, void* out0, void* out1, float* dbias_part, float* part,
+                    const TiledPlan& pl, void* stream, int* occupancy) {
   const size_t bytes = chunked_floats(which) * sizeof(float);
-  auto k2a = gatv2_bwd_dp_da_chunked_kernel<DROP>;
-  auto k2b = dbias_part != nullptr ? gatv2_bwd_dq_dv_chunked_kernel<DROP, true>
-                                   : gatv2_bwd_dq_dv_chunked_kernel<DROP, false>;
+  auto k2a = gatv2_bwd_dp_da_chunked_kernel<DROP, GROUPED>;
+  auto k2b = dbias_part != nullptr ? gatv2_bwd_dq_dv_chunked_kernel<DROP, true, GROUPED>
+                                   : gatv2_bwd_dq_dv_chunked_kernel<DROP, false, GROUPED>;
   if (occupancy != nullptr)
     return (int)(which ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, k2b, CHUNK_NT,
                                                                        bytes)
                        : cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, k2a, CHUNK_NT,
                                                                        bytes));
   const long long own = which ? (g.N + CHUNK_KJ - 1) / CHUNK_KJ : (g.N + CHUNK_RI - 1) / CHUNK_RI;
-  const long long batches = which ? (g.B + pl.group - 1) / pl.group : g.B;
+  const long long batches =
+      which ? dq_dv_batch_groups(g.B, pl.group, pl.rows_per_group, GROUPED) : g.B;
   const long long blocks = (long long)pl.slices * batches * own;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (which)
-    k2b<<<(unsigned)blocks, CHUNK_NT, bytes, (cudaStream_t)stream>>>(p, q, a, v, g, part,
-                                                                     dbias_part, pl.slices,
-                                                                     pl.group);
+    k2b<<<(unsigned)blocks, CHUNK_NT, bytes, (cudaStream_t)stream>>>(
+        p, q, a, v, g, part, dbias_part, pl.slices, pl.group, pl.rows_per_group);
   else
-    k2a<<<(unsigned)blocks, CHUNK_NT, bytes, (cudaStream_t)stream>>>(p, q, a, v, g, part,
-                                                                     (float*)out1, pl.slices);
+    k2a<<<(unsigned)blocks, CHUNK_NT, bytes, (cudaStream_t)stream>>>(
+        p, q, a, v, g, part, (float*)out1, pl.slices, pl.rows_per_group);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
-  return which ? slice_reduce<T>(part, a, out0, out1, g, g.D, pl.slices, g.B, stream)
-               : slice_reduce<T>(part, a, out0, nullptr, g, 0, pl.slices, g.B, stream);
+  return which ? slice_reduce<T>(part, a, out0, out1, g, g.D, pl.slices, pl.rows_per_group,
+                                 stream)
+               : slice_reduce<T>(part, a, out0, nullptr, g, 0, pl.slices, pl.rows_per_group,
+                                 stream);
+}
+
+// rows_per_group = B is one entity, the ungrouped instantiations.
+template <typename T, bool DROP>
+int chunked(int which, const float* p, const float* q, const float* a, const float* v,
+            const Args& g, void* out0, void* out1, float* dbias_part, float* part,
+            const TiledPlan& pl, void* stream, int* occupancy) {
+  if (pl.rows_per_group != g.B)
+    return chunked_grouped<T, DROP, true>(which, p, q, a, v, g, out0, out1, dbias_part, part,
+                                          pl, stream, occupancy);
+  return chunked_grouped<T, DROP, false>(which, p, q, a, v, g, out0, out1, dbias_part, part,
+                                         pl, stream, occupancy);
 }
 
 // K2a (which 0) or K2b (1, summing dbias into dbias_part where it is
@@ -1721,10 +1757,7 @@ int tiled(int which, const void* p, const void* q, const void* a, const void* v,
     return (int)cudaErrorInvalidValue;
   if (which == 0 && (dbias_part != nullptr || pl.group != 1)) return (int)cudaErrorInvalidValue;
   if (dbias_part == nullptr && pl.group != 1) return (int)cudaErrorInvalidValue;
-  // the CHUNKED tile takes no entity axis (ROADMAP.md, Queue 1 item 7d)
-  if (pl.rows_per_group < 1 || g.B % pl.rows_per_group != 0 ||
-      (pl.tile == 2 && pl.rows_per_group != g.B))
-    return (int)cudaErrorInvalidValue;
+  if (pl.rows_per_group < 1 || g.B % pl.rows_per_group != 0) return (int)cudaErrorInvalidValue;
   const float *pf = (const float*)p, *qf = (const float*)q, *af = (const float*)a,
               *vf = (const float*)v;
   float *pt = (float*)part, *db = (float*)dbias_part;
@@ -1956,7 +1989,7 @@ int gatv2_bwd_tiled_occupancy(int which, int tile, int E, int D, int acc_smem, i
 // is dbias itself); without it, pass group 1. p, q, a and v are float32
 // whatever T; part is the float32 scratch of the slices' partial sums,
 // (slices, B, N, E) for K2a and (slices, B, N, E + D) for K2b. The entity
-// axis (FAST and WIDE tiles): a (B / rows_per_group, E), bias (B /
+// axis (every tile): a (B / rows_per_group, E), bias (B /
 // rows_per_group, N, N) and one seed each; K2b's batch groups are each
 // entity's runs of `group` rows, B / rows_per_group x ceil(rows_per_group /
 // group) of them; rows_per_group = B for one entity.

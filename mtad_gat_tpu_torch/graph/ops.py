@@ -27,7 +27,6 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from mtad_gat_tpu_torch.graph.dropout import bernoulli_keep, hash_u32, keep_threshold
 from mtad_gat_tpu_torch.graph.segment import segment_softmax, segment_sum
@@ -220,6 +219,66 @@ def _pad_nodes(x: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(x, cfg)
 
 
+class _RecomputedStep(torch.autograd.Function):
+    """One step of the block scan that keeps only its inputs and recomputes
+    itself in the backward pass, as ``jax.checkpoint(step)`` does in the
+    JAX scan (``mtad_gat_tpu/graph/ops.py:424``). ``torch.utils.checkpoint``
+    does the same through saved-tensor hooks, which ``torch.func.grad``
+    refuses; this Function's backward recomputes the step through
+    ``torch.func.vjp`` and vmap rules for it (``generate_vmap_rule``), so
+    one recompute serves a solo call and a fleet step
+    (``vmap(grad_and_value)``) alike.
+
+    Inputs: the step (a function of the rest), the offset d, the carry (the
+    running max, which carries no gradient, the denominator and the
+    weighted sum), pB, qB, vB, af, the bias (or its band blocks) and the
+    seed: what ``checkpoint`` kept. The step draws from no generator, so a
+    recompute is the forward's function bit for bit."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(step, d, m_run, denom, acc, pB, qB, vB, af, bias, seed):
+        return step(d, m_run, denom, acc, pB, qB, vB, af, bias, seed)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        step, d, m_run, denom, acc, pB, qB, vB, af, bias, seed = inputs
+        ctx.mark_non_differentiable(output[0])
+        ctx.step, ctx.d = step, d
+        ctx.seed = None if isinstance(seed, torch.Tensor) else seed
+        ctx.save_for_backward(m_run, denom, acc, pB, qB, vB, af, bias,
+                              seed if isinstance(seed, torch.Tensor) else None)
+
+    @staticmethod
+    def backward(ctx, _, g_denom, g_acc):
+        m_run, *diff, seed = ctx.saved_tensors
+        seed = ctx.seed if seed is None else seed
+        # the step's differentiable inputs: denom, acc, pB, qB, vB, af, bias
+        live = [i for i, t in enumerate(diff) if t is not None and ctx.needs_input_grad[3 + i]]
+
+        def recompute(*xs):
+            args = list(diff)
+            for i, x in zip(live, xs):
+                args[i] = x
+            return ctx.step(ctx.d, m_run, *args, seed)[1:]
+
+        # no_grad: torch.func.grad runs the backward pass with create_graph
+        # on, so a recorded recompute would keep every step's (b, M, B, B, e)
+        # intermediates until the transform returns (five steps' worth at
+        # band 64); vjp differentiates at its own level all the same, and the
+        # step's gradient is not differentiated again
+        with torch.no_grad():
+            _, vjp = torch.func.vjp(recompute, *(diff[i] for i in live))
+            # retain_graph off: each recomputed intermediate is freed once its
+            # node has run, as checkpoint's recompute frees it (kept, the
+            # step's backward would hold one more score tensor at peak)
+            grads = [None] * len(diff)
+            for i, g in zip(live, vjp((g_denom, g_acc), retain_graph=False)):
+                grads[i] = g
+        return (None, None, None, *grads, None)
+
+
 def banded_attention_scan(
     p: torch.Tensor,        # GATv2: (b, N, e) query proj; GATv1: (b, N) u half
     q: torch.Tensor,        # GATv2: (b, N, e) key proj;   GATv1: (b, N) w half
@@ -240,15 +299,17 @@ def banded_attention_scan(
 
     The sequence is cut into M blocks of B nodes; step d scores each block
     m against block m+d as a dense (B, B) tile and folds it into the running
-    softmax. With ``recompute`` each step runs under
-    ``torch.utils.checkpoint``: the backward pass recomputes the step's
-    (b, M, B, B, e) score intermediate rather than keep one per step.
+    softmax. With ``recompute`` each step runs as ``_RecomputedStep``: the
+    backward pass recomputes the step's (b, M, B, B, e) score intermediate
+    rather than keep one per step, under ``torch.func.vmap(grad(...))`` (a
+    fleet step) as in a solo call.
 
     Dropout: ``dropout_seed`` (an int, or one int64 value on the device,
     drawn once per layer call) keys a hash of the global (batch, i, j), the
     kernels' function (``graph/dropout.py``). A recomputed step
-    therefore draws the same mask (``torch.utils.checkpoint`` restores only
-    the default generators), and each pair gets one draw whatever B is. The
+    therefore draws the same mask, and each pair gets one draw whatever B
+    is. Under vmap ``dropout_seed`` is an entity's own and the batch index
+    is within the entity, so each entity's mask is its solo call's. The
     mask applies to the numerator only, as the reference's dropout on the
     normalised weights does.
     """
@@ -278,20 +339,22 @@ def banded_attention_scan(
     # band[m*B + i, d*B + j - i + W]; its column shift depends on i alone,
     # so it is cut out with one column slice and a flatten/stride reshape
     # (row i of a (B, C) window starts at flat offset i*(C-1) + B-1 of the
-    # strided view), with no gather.
-    bias_blocks = None
+    # strided view), with no gather. The step takes these blocks as its
+    # bias, so that their gradient flows through its recompute.
     C = 2 * B - 1
     if bias is not None and bias_storage == "band":
-        bias_blocks = F.pad(bias.float(), (0, 0, 0, pad)).reshape(M, B, 2 * bandwidth + 1)
-        bias_blocks = F.pad(bias_blocks, (2 * B, 2 * B))
-    gi = (torch.arange(M, device=dev) * B)[:, None] + torch.arange(B, device=dev)[None, :]
-    gi_c = gi.clamp(0, n - 1)
-    li = torch.arange(B, device=dev)
-    loff = li[None, :] - li[:, None]              # (B, B) = lj - li
-    bidx = torch.arange(b, device=dev)[:, None, None, None]
+        bias = F.pad(bias.float(), (0, 0, 0, pad)).reshape(M, B, 2 * bandwidth + 1)
+        bias = F.pad(bias, (2 * B, 2 * B))
     keep_below = keep_threshold(rate) if rate > 0.0 else 0
 
     def step(d: int, m_run, denom, acc, pB, qB, vB, af, bias, seed):
+        # the index tensors are made here, not captured: a tensor made
+        # under a torch.func transform and read inside _RecomputedStep
+        # would belong to a level the Function has left
+        gi = (torch.arange(M, device=dev) * B)[:, None] + torch.arange(B, device=dev)[None, :]
+        gi_c = gi.clamp(0, n - 1)
+        li = torch.arange(B, device=dev)
+        loff = li[None, :] - li[:, None]          # (B, B) = lj - li
         qd = torch.roll(qB, -d, dims=1)
         vd = torch.roll(vB, -d, dims=1)
         gj = gi + d * B                           # (M, B) global j
@@ -306,7 +369,7 @@ def banded_attention_scan(
         if bias is not None:
             if bias_storage == "band":
                 c0 = d * B + bandwidth - (B - 1) + 2 * B
-                flat = bias_blocks[:, :, c0:c0 + C].reshape(M, B * C)
+                flat = bias[:, :, c0:c0 + C].reshape(M, B * C)
                 bb = flat[:, B - 1:B - 1 + B * (C - 1)].reshape(M, B, C - 1)[:, :, :B]
             else:
                 bb = bias[gi_c[:, :, None], gj.clamp(0, n - 1)[:, None, :]].float()
@@ -320,6 +383,7 @@ def banded_attention_scan(
         wgt = torch.exp(torch.where(valid[None], s - safe_m[..., None], float("-inf")))
         denom = denom * scale + wgt.sum(dim=-1)
         if rate > 0.0:
+            bidx = torch.arange(b, device=dev)[:, None, None, None]
             keep = hash_u32(seed, bidx, gi_c[None, :, :, None],
                              gj.clamp(0, n - 1)[None, :, None, :]) < keep_below
             wgt = torch.where(keep, wgt / (1.0 - rate), 0.0)
@@ -337,7 +401,7 @@ def banded_attention_scan(
     train = recompute and torch.is_grad_enabled()
     for d in range(-D, D + 1):
         args = (d, *carry, pB, qB, vB, af, bias, seed)
-        carry = checkpoint(step, *args, use_reentrant=False) if train else step(*args)
+        carry = _RecomputedStep.apply(step, *args) if train else step(*args)
     _, denom, acc = carry
     out = acc / torch.where(denom > 0, denom, 1.0)[..., None]
     out = out.reshape(b, M * B, dv)[:, :n]

@@ -23,11 +23,10 @@ call goes to the wrapper directly, so the solo paths pay nothing for the
 op's dispatch.
 
 Attention with gradients or dropout under vmap runs every plan of the
-forward and every route of the backward with the entity axis, but two:
-a backward on the CHUNKED tiled K2a and K2b (beyond the widths the FAST and
-WIDE tiles take, at more than the streamed backward's 64 nodes) and the
-block scan's hash dropout have no entity axis yet and raise before any
-launch (ROADMAP.md, Queue 1 item 7d).
+forward and every route of the backward with the entity axis. The block
+scan (``graph/ops.banded_attention_scan``) is plain PyTorch: vmap batches
+it as it is, its recompute is a ``torch.autograd.Function`` that vmap
+rules for, and each entity's hash seed keys its own mask.
 """
 
 from __future__ import annotations
@@ -42,9 +41,6 @@ from torch._C._functorch import (
     is_gradtrackingtensor,
     maybe_get_bdim,
 )
-
-FLEET_TRAINING_ITEM = "Queue 1 item 7d"
-
 
 def _is_wrapper(t: torch.Tensor) -> bool:
     return is_batchedtensor(t) or is_gradtrackingtensor(t)
@@ -93,20 +89,16 @@ def requires_grad(*tensors: Optional[torch.Tensor]) -> bool:
         x.requires_grad for t in tensors for x in _levels(t))
 
 
-def not_ported_under_vmap(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} under torch.func.vmap (a fleet of stacked weights): every attention kernel "
-        "has an entity axis but the CHUNKED tiled K2a and K2b, and the block scan's hash "
-        "dropout has none either, so such a fleet trains with attention_impl='dense' below "
-        f"the dense route's threshold (ROADMAP.md, {FLEET_TRAINING_ITEM})")
-
-
 def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
-    """In a vmap rule, where the tensors are unwrapped: raise where
-    autograd would record the call (a batched tensor does not show its
-    ``requires_grad``, its unwrapped one does)."""
+    """In the vmap rule of a no-grad op, where the tensors are unwrapped:
+    raise where autograd would record the call (a batched tensor does not
+    show its ``requires_grad``, its unwrapped one does). ``gatv2_attention``
+    never calls K1 with gradients (it runs K1-res), so this guards only a
+    direct call of the op."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise not_ported_under_vmap(f"{what} with gradients")
+        raise NotImplementedError(
+            f"{what} with gradients under torch.func.vmap: {what} has no backward; "
+            "gatv2_attention trains through K1-res and the attention backward")
 
 
 @contextlib.contextmanager

@@ -65,8 +65,8 @@ bit for bit the JAX package's (``graph/dropout.py``); its plain form is
 ``hash_keep_mask``. The seed is a one-element int64 tensor on the
 device, drawn there from the step's generator, so no launch waits on the host.
 
-K1 and K1-res (whole-graph and tiled), K2ab, the FAST and WIDE tiled K2a
-and K2b and the streamed backward also take an entity axis (fleet serving
+K1 and K1-res (whole-graph and tiled), K2ab, the tiled K2a and K2b (every
+tile) and the streamed backward also take an entity axis (fleet serving
 and fleet training): a (G, E) and bias (G, N, N), group g's for batch
 elements g B/G .. (g+1) B/G - 1 (``attention_groups``), one dropout seed a
 group and the batch index within the group in the hash, so that each
@@ -75,8 +75,7 @@ N) each summed over its group's rows in its own launch's order, no batch
 run of a block straddling two groups. Under ``torch.func.vmap`` the no-grad
 call is the custom op ``gatv2_attention_fwd_op``, and ``gatv2_attention``'s
 Function runs K1-res's op forward and the backward's op backward, whose
-rules fold the entities into those groups (``kernels/_vmap.py``). The
-CHUNKED tiled K2a and K2b take no entity axis yet (Queue 1 item 7d).
+rules fold the entities into those groups (``kernels/_vmap.py``).
 """
 
 from __future__ import annotations
@@ -1295,22 +1294,20 @@ def _launch_plan(kernel: str, B: int, N: int, E: int, D: int, device, groups: in
     """The plan a tiled K2a or K2b launch runs: ``_tiled_plan``'s, or the
     caller's ``plan`` (its tile, slices, place of the running sums and
     batch group; a grouped launch's, so that G ungrouped launches can be
-    held against it bit for bit). Refuses the CHUNKED tile under an entity
-    axis (Queue 1 item 7d)."""
+    held against it bit for bit)."""
     if plan is None:
         plan = _tiled_plan(B, N, E, D, _build.sm_count(device), dbias, groups)[kernel]
     elif plan.kernel != kernel or plan.dbias != dbias:
         raise ValueError(f"gatv2 tiled backward: a {plan.kernel} plan (dbias {plan.dbias}) for "
                          f"a {kernel} launch (dbias {dbias})")
-    if groups > 1 and plan.tile == CHUNKED:
-        raise _vmap.not_ported_under_vmap("the CHUNKED tiled K2a and K2b with an entity axis")
     return plan
 
 
 def _entity_da(da_part: torch.Tensor, plan: TiledKernelPlan, groups: int) -> torch.Tensor:
-    """K2a's da rows (slices, B, row tiles, E), to (G, E): each entity's
-    rows gathered slice by slice, then summed as its ungrouped launch's
-    caller sums its own (``_entity_sums``)."""
+    """K2a's da rows (slices, B, row tiles, E), a block's one row (four,
+    one a row group, with the CHUNKED tile), to (G, E): each entity's rows
+    gathered slice by slice, then summed as its ungrouped launch's caller
+    sums its own (``_entity_sums``)."""
     if plan.slices > 1:
         S, E = plan.slices, da_part.shape[-1]
         da_part = da_part.view(S, groups, -1, E).transpose(0, 1).reshape(-1, E)
@@ -1328,7 +1325,7 @@ def gatv2_bwd_dp_da(p, q, a, bias, v, m, l, du, dvec, alpha: float,
     Grouped a and bias (``attention_groups``) with one seed or G seeds give
     each entity of B / G rows its weights, seed and batch index within the
     entity, and da (G, E) each summed over its own rows in its launch's
-    order (FAST and WIDE tiles; the CHUNKED tile raises). The CPU computes
+    order, at every tile. The CPU computes
     all of K2a-c in one call of ``gatv2_attention_bwd_plain``."""
     groups = _check("gatv2_bwd_dp_da", p, q, a, bias, v, grouped=True)
     B, N, E = p.shape
@@ -1594,9 +1591,8 @@ def gatv2_bwd(p, q, a, bias, v, m, l, du, dvec, alpha: float, seed: Seed = 0,
     ("graph"), K2a then K2b ("tiled") or the streamed backward
     ("streamed"), dbias from the same launch (``dbias_kernel``), recorded in
     ``gatv2_bwd.last_launch`` with the kernel that gave dbias; dbias is None
-    unless asked for. Grouped a and bias (an entity axis) take every route
-    but the CHUNKED tile, which raises before any launch (``_launch_plan``,
-    Queue 1 item 7d)."""
+    unless asked for. Grouped a and bias (an entity axis) take every
+    route."""
     _, N, E = p.shape
     shape = (max(N, 1), E, max(v.shape[-1], 1))
     variant = gat_bwd_route(*shape)
@@ -1872,23 +1868,9 @@ class _GATv2Attention(torch.autograd.Function):
 def chunked_tile(N: int, E: int, D: int) -> bool:
     """Whether the backward of a graph of N nodes at widths E and D runs
     the CHUNKED tiled K2a or K2b (``gat_bwd_route`` "tiled" beyond the
-    widths the FAST and WIDE tiles take), the one backward without an
-    entity axis."""
+    widths the FAST and WIDE tiles take)."""
     return gat_bwd_route(N, E, D) == "tiled" and any(
         _tiled_tile(k, E, D, _SMEM_LIMIT)[0] == CHUNKED for k in ("k2a", "k2b"))
-
-
-def refuse_unported_fleet_route(N: int, E: int, D: int, grad: bool = True) -> None:
-    """For a vmapped (fleet) call on a graph of N nodes at widths E and D:
-    raise, before any launch, where (with ``grad``) the backward would run
-    the CHUNKED tile, the one variant that takes no entity axis yet (Queue 1
-    item 7d)."""
-    if min(N, E, D) < 1 or not grad:
-        return
-    if chunked_tile(N, E, D):
-        raise _vmap.not_ported_under_vmap(
-            f"gatv2_attention with gradients at N {N}, E {E}, D {D} (the CHUNKED tiled "
-            "backward)")
 
 
 def gatv2_attention(
@@ -1902,11 +1884,7 @@ def gatv2_attention(
     runs K1-res forward (and K2ab, or K2a then K2b, or the streamed
     backward, backward); otherwise K1 alone. Under ``torch.func.vmap`` each
     is one grouped launch for all entities, each with its own weights and
-    seed, whatever the plan, but for the CHUNKED tiled backward, which
-    raises before any launch (Queue 1 item 7d)."""
-    grad = _vmap.requires_grad(p, q, a, bias, v)
-    if rate > 0.0 or grad:
-        if _vmap.is_batched(p, q, a, bias, v):
-            refuse_unported_fleet_route(p.shape[-2], p.shape[-1], v.shape[-1], grad)
+    seed, whatever the plan and route."""
+    if rate > 0.0 or _vmap.requires_grad(p, q, a, bias, v):
         return _GATv2Attention.apply(p, q, a, bias, v, alpha, seed, rate)[0]
     return gatv2_attention_fwd(p, q, a, bias, v, alpha)

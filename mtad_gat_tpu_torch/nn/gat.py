@@ -39,7 +39,7 @@ import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
-from mtad_gat_tpu_torch.graph.dropout import EntityGenerators, hash_seed
+from mtad_gat_tpu_torch.graph.dropout import hash_seed
 from mtad_gat_tpu_torch.graph.ops import (
     BAND_UNROLL_CUTOFF,
     banded_attention_scan,
@@ -214,15 +214,11 @@ class GATLayer(nn.Module):
             coo_bias = banded_bias_to_full(bias, self.n_nodes, self.band)
         banded = self.band is not None and self.impl == "dense"
 
-        def seed(scan: bool = False):
+        def seed():
             # one draw a layer call, on the device: the kernels and the
             # block scan read it there; in a fleet step one an entity, from
             # its own generator (EntityGenerators), at the same place
-            if rate == 0.0:
-                return 0
-            if scan and isinstance(generator, EntityGenerators):
-                raise _vmap.not_ported_under_vmap("the block scan's hash-mask attention dropout")
-            return hash_seed(generator, v)
+            return 0 if rate == 0.0 else hash_seed(generator, v)
 
         if self.use_gatv2:
             # lin([v_i || v_j]) == v_i @ W_l^T + v_j @ W_r^T + b
@@ -233,7 +229,7 @@ class GATLayer(nn.Module):
                                               generator, self.bias_storage).to(cd)
             if banded:
                 return banded_attention_scan(p, q, a, bias, v, self.alpha, self.band,
-                                             dropout_rate=rate, dropout_seed=seed(scan=True),
+                                             dropout_rate=rate, dropout_seed=seed(),
                                              bias_storage=self.bias_storage).to(cd)
             if self.has_graph:
                 scores = gatv2_scores_coo(self.graph(), p, q, a, self.alpha)
@@ -253,7 +249,7 @@ class GATLayer(nn.Module):
                     return gatv1_banded_attention(u, wk, bias, v, self.alpha, self.band,
                                                   rate, generator, self.bias_storage).to(cd)
                 return banded_attention_scan(u, wk, None, bias, v, self.alpha, self.band,
-                                             dropout_rate=rate, dropout_seed=seed(scan=True),
+                                             dropout_rate=rate, dropout_seed=seed(),
                                              bias_storage=self.bias_storage).to(cd)
             if self.has_graph:
                 scores = gatv1_scores_coo(self.graph(), wx, a[:e], a[e:], self.alpha)

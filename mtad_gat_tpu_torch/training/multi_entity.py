@@ -10,10 +10,11 @@ product once each for all entities (``kernels/_vmap.py``), so a fleet step
 launches two of each (encoder and decoder) whatever E is. The attention
 runs the dense path, or with ``attention_impl="pallas"`` (and where the
 dense route sends a layer to the kernels) K1-res forward (whole-graph or
-tiled) and K2ab, the tiled K2a and K2b or the streamed backward, each one
-grouped launch a layer for all entities, each entity's hash mask keyed by
-its own seed; a graph whose backward takes the CHUNKED tile raises when the
-trainer is built (ROADMAP.md, Queue 1 item 7d).
+tiled) and K2ab, the tiled K2a and K2b (any tile) or the streamed
+backward, each one grouped launch a layer for all entities, each entity's
+hash mask keyed by its own seed. A band graph wider than the unrolled
+cutoff runs the block scan under the vmap, each entity's mask keyed by its
+own seed there too.
 
 Entity e's trajectory is its solo ``Trainer``'s to float tolerance:
 
@@ -50,7 +51,6 @@ from torch.func import grad_and_value, vmap
 from mtad_gat_tpu_torch.config import MTADGATConfig, TrainConfig
 from mtad_gat_tpu_torch.data.windows import batched_starts, num_windows
 from mtad_gat_tpu_torch.graph.dropout import EntityGenerators
-from mtad_gat_tpu_torch.kernels.gat import refuse_unported_fleet_route
 from mtad_gat_tpu_torch.models import MTADGAT
 from mtad_gat_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from mtad_gat_tpu_torch.training.trainer import learning_rate, make_loss_fn, step_seed
@@ -101,10 +101,6 @@ class MultiEntityTrainer:
         self.device = torch.device(device)
         # the module the stacked weights run through; its own are not used
         self.model = MTADGAT(model_config).to(self.device)
-        for layer in (self.model.feature_gat, self.model.temporal_gat):
-            if layer.fused_kernels():
-                refuse_unported_fleet_route(layer.n_nodes, layer.lin.weight.shape[0],
-                                            layer.node_dim)
         self._loss_fn = make_loss_fn(self.model, self.window, horizon, self.target_dims)
         self.params: Optional[Stacked] = None
         self.exp_avg: Optional[Stacked] = None

@@ -23,9 +23,9 @@ on the CPU, so the rules call the grouped plain versions). Small sizes (G <=
 - (e) A vmapped training call whose forward plan is "tiled", or whose
   backward route is "tiled" or "streamed", runs since item 7c: one grouped
   plain K1-res and one grouped plain backward (the rules' calls on the
-  CPU), each entity's gradients its solo call's; one whose backward would
-  take the CHUNKED tile raises naming Queue 1 item 7d before any plain call
-  or launch (``tests/test_torch_gat_fleet_wide.py`` holds the wide shapes
+  CPU), each entity's gradients its solo call's; so does one whose backward
+  takes the CHUNKED tile, since item 7d (``tests/test_torch_gat_fleet_wide
+  .py`` and ``tests/test_torch_gat_fleet_chunked.py`` hold the wide shapes
   against JAX).
 - (f) A slice model of the grouped K2ab (``graph_block_batches``): at rows
   64, 63 and 1 a group and G 28 on 132 multiprocessors no dbias group
@@ -272,22 +272,29 @@ def test_unported_routes_under_vmap_name_item_7c(N, E, D, what, rate, monkeypatc
 def test_the_chunked_route_under_vmap_names_item_7d(rate, monkeypatch):
     """N 65 at E 600, D 300: above the streamed backward's 64 nodes and
     beyond the FAST and WIDE tiles' widths, the backward takes the CHUNKED
-    tile, which has no entity axis: a vmapped training call raises naming
-    Queue 1 item 7d before any plain call or launch."""
+    tile, which has an entity axis since item 7d: a vmapped training call
+    runs one grouped call each of K1-res's plain version and of the plain
+    backward (the kernels' rules on the CPU), each entity's gradients its
+    solo call's."""
     N, E, D, G = 65, 600, 300, 2
     assert kg.chunked_tile(N, E, D) and kg.gat_bwd_route(N, E, D) == "tiled"
     calls = _spied(monkeypatch)
-    p = torch.zeros(G, 1, N, E)
-    v = torch.zeros(G, 1, N, D)
-    a = torch.zeros(G, E)
+    gen = torch.Generator().manual_seed(N)
+    p, q = (0.5 * torch.randn(G, 1, N, E, generator=gen) for _ in range(2))
+    v = torch.randn(G, 1, N, D, generator=gen)
+    a = torch.randn(G, E, generator=gen) * (6.0 / (E + 1)) ** 0.5
+    seeds = torch.tensor(SEEDS[:G], dtype=torch.int64)[:, None]
 
-    def loss(a_e, p_e, v_e):
-        return kg.gatv2_attention(p_e, p_e, a_e, None, v_e, ALPHA, 0, rate).sum()
+    def loss(a_e, p_e, q_e, v_e, s_e):
+        return kg.gatv2_attention(p_e, q_e, a_e, None, v_e, ALPHA, s_e, rate).sum()
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7d") as err:
-        vmap(grad(loss))(a, p, v)
-    assert "CHUNKED" in str(err.value)
-    assert calls == []
+    got = vmap(grad(loss, argnums=(0, 1, 2, 3)))(a, p, q, v, seeds)
+    assert calls == ["gatv2_attention_res_plain", "gatv2_attention_bwd_plain"]
+    for g in range(G):
+        want = grad(loss, argnums=(0, 1, 2, 3))(a[g], p[g], q[g], v[g], seeds[g])
+        for x, w in zip(got, want):
+            # da sums 65 x 65 x 600 terms to some 30: an ulp of it is 1.9e-6
+            torch.testing.assert_close(x[g], w, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("rows", [64, 63, 1])

@@ -13,7 +13,9 @@ dbias (dp, dq, dv by row, da (G, E) and dbias (G, N, N)) equal each group's
 own launch bit for bit. At the lookback-300 layers (temporal N 300, E 76,
 D 38: the tiled K1-res, K2a and K2b with dbias; feature N 38, E 600, D 300:
 the whole-graph K1-res on two row blocks, the streamed backward with dbias)
-the same holds, K2a and K2b launched per group at the grouped launch's plan.
+and at the feature layer of 65 features (N 65, E 600, D 300: the tiled
+K1-res, the CHUNKED K2a and K2b with dbias) the same holds, K2a and K2b
+launched per group at the grouped launch's plan.
 ``tests/test_torch_gat_fleet.py`` and ``tests/test_torch_gat_fleet_wide.py``
 hold their plain versions and the vmapped training call on the CPU.
 """
@@ -66,7 +68,7 @@ def test_grouped_k1res_and_k2ab_equal_g_launches_on_the_card(N, E, D, rows, dtyp
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,E,D", [(300, 76, 38), (38, 600, 300)])
+@pytest.mark.parametrize("N,E,D", [(300, 76, 38), (38, 600, 300), (65, 600, 300)])
 @pytest.mark.parametrize("rows", [1, 13, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_wide_kernels_equal_g_launches_on_the_card(N, E, D, rows, dtype, card):

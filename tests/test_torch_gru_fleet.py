@@ -15,8 +15,7 @@ grouped plain versions run.
   ``entities`` through the grad wrapper; ``gatv2_attention`` with gradients
   or dropout inside a fleet step trains through the grouped K1-res and K2ab
   (their plain versions here), each entity's gradients its solo call's,
-  and a graph whose backward takes the CHUNKED tile raises, naming Queue 1
-  item 7d.
+  a graph whose backward takes the CHUNKED tile too (item 7d).
 - ``weight_grad_chunks`` with groups: the least count a group whose waves
   on the card cost within 5% of the best; one group the ungrouped count.
 - ``torch.func.grad`` outside vmap goes through the ops and equals autograd.
@@ -175,8 +174,8 @@ def test_attention_with_gradients_in_a_fleet_step_names_item_7b(rate):
     entity's gradients are its solo call's. Item 7c is done too: a graph
     the whole-graph kernels cannot hold (N 130: the tiled backward) runs
     and matches its solo calls the same way; one whose backward would take
-    the CHUNKED tile (N 65 at E 600, D 300) raises, naming item 7d, the
-    variant left."""
+    the CHUNKED tile (N 65 at E 600, D 300), the variant left, runs and
+    matches its solo calls too since item 7d."""
     G, B, N, E_, D = 2, 2, 4, 6, 3
     g = torch.Generator().manual_seed(0)
     p, q, v = (torch.randn(G, B, N, n, generator=g) for n in (E_, E_, D))
@@ -199,9 +198,15 @@ def test_attention_with_gradients_in_a_fleet_step_names_item_7b(rate):
         want = grad(loss, argnums=(0, 1))(a[e], wide[0][e], wide[1][e], v_wide[e])
         for x, w in zip(got, want):
             torch.testing.assert_close(x[e], w, rtol=0, atol=1e-6)
-    chunked = torch.zeros(G, 1, 65, 600)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
-        vmap(grad(loss))(torch.zeros(G, 600), chunked, chunked, torch.zeros(G, 1, 65, 300))
+    chunked = torch.randn(G, 1, 65, 600, generator=g), torch.randn(G, 1, 65, 600, generator=g)
+    a_chunked = torch.randn(G, 600, generator=g) * 0.1
+    v_chunked = torch.randn(G, 1, 65, 300, generator=g)
+    got = vmap(grad(loss, argnums=(0, 1)))(a_chunked, *chunked, v_chunked)
+    for e in range(G):
+        want = grad(loss, argnums=(0, 1))(a_chunked[e], chunked[0][e], chunked[1][e],
+                                          v_chunked[e])
+        for x, w in zip(got, want):
+            torch.testing.assert_close(x[e], w, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("rows,groups,want", [

@@ -22,8 +22,10 @@ tensors lie on the CPU), and the dense attention.
   fleet whose layer routes to the kernels trains through the grouped K1-res
   and K2ab and matches its solo trainers; a pallas fleet whose temporal
   backward is tiled (window 130) matches its solo trainers and the JAX
-  fleet; one whose backward takes the CHUNKED tile raises naming Queue 1
-  item 7d.
+  fleet; since item 7d one whose backward takes the CHUNKED tile builds
+  and its vmapped layer matches its per-entity calls, and a fleet on a band
+  wider than the unrolled cutoff (the block scan) matches its solo trainers
+  and the JAX fleet.
 - ``utils/weights``: stacking E ``state_dict``s and unstacking them again.
 """
 
@@ -246,10 +248,12 @@ def test_a_fleet_through_the_attention_kernels_names_item_7b(tmp_path):
     a layer a step: ragged lengths, dropout 0, each entity its solo pallas
     trainer's, and from the JAX fleet's stacked init the JAX fleet's (its
     attention dense: the same function, cheaper in interpret mode's
-    absence). One whose backward takes the CHUNKED tile (65 features at
-    window 300: the feature layer's N 65, E 600, D 300) raises when the
-    trainer is built, naming item 7d, and so does a vmapped call of that
-    layer, before any kernel or plain call."""
+    absence). Since item 7d one whose backward takes the CHUNKED tile (65
+    features at window 300: the feature layer's N 65, E 600, D 300) builds,
+    and a vmapped call of that layer with gradients runs K1-res's and the
+    backward's rules once each and gives each entity its own call's
+    gradients (``tests/test_torch_gat_fleet_chunked.py`` trains such a
+    fleet)."""
     cfg = MTADGATConfig(**{**CFG, "window_size": 130}, dropout=0.0, attention_impl="pallas")
     layer = MTADGAT(cfg).temporal_gat
     assert kg.gat_bwd_route(130, layer.lin.weight.shape[0], layer.node_dim) == "tiled"
@@ -284,15 +288,53 @@ def test_a_fleet_through_the_attention_kernels_names_item_7b(tmp_path):
 
     wide = MTADGATConfig(**{**CFG, "n_features": 65, "out_dim": 65, "window_size": 300},
                          dropout=0.3, attention_impl="pallas")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7d") as err:
-        MultiEntityTrainer(wide, _tcfg(epochs=1), device="cpu")
-    assert "N 65" in str(err.value) and "CHUNKED" in str(err.value)
+    assert MultiEntityTrainer(wide, _tcfg(epochs=1), device="cpu").model is not None
     feature = MTADGAT(wide).feature_gat.eval()
-    rules = kg._gatv2_attention_res_vmap.calls
-    x = torch.randn(2, 1, 300, 65)                  # (entities, batch, window, features)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
-        torch.func.vmap(torch.func.grad(lambda x_e: feature(x_e, None).sum()))(x)
-    assert kg._gatv2_attention_res_vmap.calls == rules
+    assert kg.chunked_tile(feature.n_nodes, feature.lin.weight.shape[0], feature.node_dim)
+    rules = kg._gatv2_attention_res_vmap.calls, kg._gatv2_attention_bwd_vmap.calls
+    # (entities, batch, window, features)
+    x = torch.randn(2, 1, 300, 65, generator=torch.Generator().manual_seed(4))
+    loss = lambda x_e: feature(x_e, None).sum()  # noqa: E731
+    got = torch.func.vmap(torch.func.grad(loss))(x)
+    assert (kg._gatv2_attention_res_vmap.calls - rules[0],
+            kg._gatv2_attention_bwd_vmap.calls - rules[1]) == (1, 1)
+    for e in range(2):
+        torch.testing.assert_close(got[e], torch.func.grad(loss)(x[e]), rtol=0, atol=1e-6)
+
+
+def test_a_band_fleet_through_the_block_scan_matches_solo_and_jax(tmp_path):
+    """Item 7d's repair: a band wider than ``BAND_UNROLL_CUTOFF`` (band:33 at
+    window 80, the band-stored bias) takes the block scan, whose recompute
+    now runs under ``vmap(grad)``. Dropout 0, ragged lengths: each entity equals its solo
+    trainer (rtol 2e-4, atol 1e-5) and, from the JAX fleet's stacked init,
+    the JAX fleet (atol 2e-4). (The raise this replaced came at dropout 0
+    too, from ``torch.utils.checkpoint``'s saved-tensor hooks.)"""
+    band = dict(CFG, window_size=80, temporal_graph="band:33", bias_storage="band")
+    cfg = MTADGATConfig(**band, dropout=0.0)
+    assert MTADGAT(cfg).temporal_gat.band > ngat.BAND_UNROLL_CUTOFF
+    tkw = dict(epochs=1, val_split=0.2, bs=8, init_lr=1e-3, log_tensorboard=False, seed=0)
+    series = _series([116, 100, 108])
+    mt = _fleet(cfg, TrainConfig(**tkw), series)
+    _assert_matches_solo(mt, [_solo(cfg, TrainConfig(**tkw), s, tmp_path / f"solo{e}")
+                              for e, s in enumerate(series)])
+
+    jfleet = JaxFleet(JaxConfig(**band, dropout=0.0, gru_impl="xla"), JaxTrainConfig(**tkw))
+    jfleet.init_states(len(series))
+    mt = MultiEntityTrainer(cfg, TrainConfig(**tkw), device="cpu")
+    mt.set_states(jax_stacked_params_to_state_dicts(
+        jax.tree_util.tree_map(np.asarray, jfleet.params)))
+    jfleet.fit(series, verbose=False)
+    mt.fit(series, verbose=False)
+    want_params = jax_stacked_params_to_state_dicts(
+        jax.tree_util.tree_map(np.asarray, jfleet.params))
+    for e in range(len(series)):
+        for key, want in jfleet.losses[e].items():
+            np.testing.assert_allclose(mt.losses[e][key], want, atol=JAX_ATOL,
+                                       err_msg=f"entity {e} {key}")
+        got = mt.entity_params(e)
+        for name, want in want_params[e].items():
+            np.testing.assert_allclose(got[name].numpy(), want.numpy(), atol=JAX_ATOL,
+                                       err_msg=f"entity {e} {name}")
 
 
 def test_entity_generators_draw_only_under_vmap():

@@ -28,8 +28,8 @@ CPU). The weights are the JAX fleet's stacked tree, split into E port
 - The kernels' grouped plain versions equal per-group calls; under vmap,
   weights that vmap does not batch included; each vmap rule runs once a
   layer a forward; vmap with gradients runs K1-res's op, at a tiled
-  forward's N too, and a graph whose backward takes the CHUNKED tile
-  raises under gradients, naming Queue 1 item 7d.
+  forward's N too, and under gradients at a graph whose backward takes
+  the CHUNKED tile (item 7d).
 """
 
 import pickle
@@ -392,7 +392,8 @@ def test_vmap_with_gradients_raises_naming_item_7(fleet_weights):
     equals the per-entity calls (one seed, each entity's mask its own
     call's), and so it does at a graph the whole-graph kernels cannot hold
     (N 400 at E 8: the tiled forward, since item 7c). Under gradients a
-    graph whose backward takes the CHUNKED tile raises, naming item 7d."""
+    graph whose backward takes the CHUNKED tile runs too since item 7d,
+    each entity's gradients its own call's."""
     _, _, models = fleet_weights
     params, buffers = torch.func.stack_module_state(models)
     base = models[0]
@@ -433,10 +434,15 @@ def test_vmap_with_gradients_raises_naming_item_7(fleet_weights):
     got = torch.func.vmap(attend)(wide, a, v_wide)
     for g in range(G):
         assert torch.equal(got[g], attend(wide[g], a[g], v_wide[g]))
-    chunked = torch.zeros(G, 1, 65, 600)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
-        torch.func.vmap(torch.func.grad(lambda p_e, a_e, v_e: attend(p_e, a_e, v_e).sum()))(
-            chunked, torch.zeros(G, 600), torch.zeros(G, 1, 65, 300))
+    chunked, v_chunked = (torch.randn(G, 1, 65, 600, generator=gen),
+                          torch.randn(G, 1, 65, 300, generator=gen))
+    a_chunked = 0.1 * torch.randn(G, 600, generator=gen)
+    summed = lambda p_e, a_e, v_e: attend(p_e, a_e, v_e).sum()  # noqa: E731
+    got = torch.func.vmap(torch.func.grad(summed, argnums=(0, 1)))(chunked, a_chunked, v_chunked)
+    for g in range(G):
+        want = torch.func.grad(summed, argnums=(0, 1))(chunked[g], a_chunked[g], v_chunked[g])
+        for x, w in zip(got, want):
+            torch.testing.assert_close(x[g], w, rtol=0, atol=1e-6)
 
 
 def test_stacked_jax_params_split_by_entity(fleet_weights):

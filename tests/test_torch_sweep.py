@@ -15,9 +15,12 @@
 - ``--batched --attention_impl pallas`` at lookback 130, where the
   temporal layer's backward is the tiled K2a and K2b (item 7c), at dropout
   0: each entity's weights are its sequential pallas run's.
-- ``--mesh_devices`` raises naming Queue 1 item 8, ``--batched`` with a
-  banded temporal graph wide enough for the block scan (its hash dropout
-  has no entity axis) naming item 7d.
+- ``--batched --lookback 80 --temporal_graph band:33``, a band wide enough
+  for the block scan, which raised before item 7d (even at dropout 0:
+  ``torch.utils.checkpoint``'s saved-tensor hooks under ``torch.func``):
+  two entities train at dropout 0 and 0.3, every summary written, and at
+  dropout 0 each entity's weights are its sequential run's.
+- ``--mesh_devices`` raises naming Queue 1 item 8.
 """
 
 import json
@@ -167,10 +170,37 @@ def test_aggregate_micro_equals_the_jax_aggregate():
     assert agg == jax_aggregate(results)
 
 
+@pytest.mark.parametrize("dropout", ["0", "0.3"])
+def test_sweep_batched_on_a_wide_band(dropout, tmp_path):
+    """The block scan's fleet (item 7d's repair): ``--batched --lookback 80
+    --temporal_graph band:33`` trains two ragged entities and scores each;
+    at dropout 0 each entity's weights are its sequential run's within
+    ``test_sweep_batched_pallas_two_entities``'s atol 1e-4; at 0.3 every
+    weight is finite (each entity's hash seed is its own: the block scan's
+    masks are held against solo calls in ``tests/test_torch_block_scan_fleet
+    .py``)."""
+    root = _entities(tmp_path, [("1-1", 140), ("1-2", 130)], n_test=100)
+    band = ["--lookback", "80", "--temporal_graph", "band:33", "--dropout", dropout]
+    batched = sweep_cli.main(_argv(root, tmp_path / "b", "--batched", "--run_id", "b", *band))
+    assert set(batched) == {"1-1", "1-2"}
+    assert _summary(tmp_path / "b")["aggregate"]["bf_result"]["n_entities"] == 2
+    models = {g: torch.load(tmp_path / "b" / "SMD" / g / "b" / "model.pt") for g in batched}
+    assert models["1-1"]["temporal_gat.bias"].shape == (80, 80)
+    if dropout != "0":
+        assert all(torch.isfinite(w).all() for m in models.values() for w in m.values())
+        return
+    solo = sweep_cli.main(_argv(root, tmp_path / "s", "--run_id", "s", *band))
+    assert set(solo) == {"1-1", "1-2"}
+    for group in ("1-1", "1-2"):
+        want = torch.load(tmp_path / "s" / "SMD" / group / "s" / "model.pt")
+        for name, w in want.items():
+            np.testing.assert_allclose(models[group][name].numpy(), w.numpy(), rtol=0,
+                                       atol=1e-4, err_msg=f"{group} {name}")
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--mesh_devices", "2"], "Queue 1 item 8"),
     (["--batched", "--mesh_devices", "-1"], "Queue 1 item 8"),
-    (["--batched", "--lookback", "80", "--temporal_graph", "band:33"], "Queue 1 item 7d"),
 ])
 def test_sweep_refusals(extra, match, tmp_path):
     root = _entities(tmp_path, [("1-1", 200)])
