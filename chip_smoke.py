@@ -6,7 +6,9 @@ In order, each phase failing the run with a non-zero exit:
 
 1. the card: name and power limit (nvidia-smi); TF32 is turned off for
    matrix products and cuDNN for the whole run, so every comparison below
-   is float32 against float32;
+   is float32 against float32 (phase 20's spawned ranks start with
+   PyTorch's defaults, as any spawned rank does, and turn TF32 off where
+   they are held against this process);
 2. builds the CUDA kernels from ``mtad_gat_tpu_torch/csrc`` (one nvcc per
    source, all at once) and reports the seconds;
 3. K1, the fused GATv2 attention forward, against its plain PyTorch version
@@ -286,7 +288,29 @@ In order, each phase failing the run with a non-zero exit:
     trainers at dropout 0 within ``FLEET_PARITY_TOL``; its numbers as path
     (a)'s, its peak memory within half the card's; then each phase's
     seconds;
-20. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+20. ``multi_device``: two ranks of a mesh as processes sharing the card
+    over gloo (NCCL refuses two ranks on one device), spawned by
+    ``parallel.multihost.spawn`` as ``train_cli --mesh_devices 2`` spawns
+    them. (a) The data axis: each rank runs ``train_cli.train_rank`` (what
+    every rank of ``train_cli --mesh_devices 2 --model_parallel 1`` runs)
+    at the flagship through every kernel, batch 256 (128 a rank), dropout
+    0.3, 1 epoch on the synthetic entity: each rank's launches exact by
+    kernel (those of one device's run, every batch on both ranks), no
+    plain attention or GRU call, one metrics line, a finite summary
+    written once, and ``predict_cli.main --mesh_devices 2 --model_parallel
+    1`` reproducing it; on a (data 2) mesh one step's gradients at dropout
+    0 on each rank within ``MESH_GRAD_TOL`` of the single device's; the
+    ranks' parameters equal bit for bit after each run; all-rank windows/s
+    of a timed epoch beside one device's in this process, peak memory per
+    rank, the backend. (b) The model axis: ``train_rank`` of
+    ``--mesh_devices 2 --model_parallel 2 --attention_impl ring
+    --gru_impl pallas --lookback 300 --bs 64`` at dropout 0, 1 epoch on a
+    700-row entity (temporal N 300, 150 a rank; feature N 38, 19 a rank):
+    the ring twice a forward, K3 and K4 as one device's, no attention
+    kernel; epoch and step losses within ``WIDE_LOSS_TOL`` of
+    ``--attention_impl dense`` on one device; the ranks' parameters equal;
+    peak memory per rank beside the dense run's;
+21. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
     path, serving's, fleet serving's, fleet training's, the wide fleet's,
     the wide-feature fleet's and long_complete's included, the tiled kernels' times at the route's
     N, K2b's with and without dbias, K2c's forced times and where dbias now
@@ -296,7 +320,8 @@ In order, each phase failing the run with a non-zero exit:
     K2a, K2b and streamed backward's at lookback 300; the merge, the
     CHUNKED K2a and K2b (their grouped launches and path (a)'s launches
     with them), the chunked K2c and the streamed backward as rows of their
-    own) and, last, ``{"ok": true, ...}``.
+    own; ``launches_by_path["multi_device"]`` rank 0's on phase 20's path
+    (a)) and, last, ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -2439,13 +2464,13 @@ WIDE_LOOKBACK, WIDE_ROWS, WIDE_BS, WIDE_EPOCHS = 300, 700, 32, 2
 WIDE_LOSS_TOL = 1e-4
 
 
-def timed_train_cli(argv, out_root) -> dict:
-    """``train_cli.main(argv)`` on the card with ``Trainer.train_epoch``
-    timed by epoch (a device sync on each side): seconds of the call, launch
-    counts, peak memory above the baseline, training windows/s by epoch,
-    per-epoch losses, each step's (forecast, recon) loss, the summary, and
-    the trainer and arguments of its last epoch (``last_epoch``, for a
-    profiled epoch after)."""
+def timed_train_cli(argv, out_root, entry=None) -> dict:
+    """``train_cli.main(argv)`` (or ``entry(argv)``) on the card with
+    ``Trainer.train_epoch`` timed by epoch (a device sync on each side):
+    seconds of the call, launch counts, peak memory above the baseline,
+    training windows/s by epoch, per-epoch losses, each step's (forecast,
+    recon) loss, the summary, and the trainer and arguments of its last
+    epoch (``last_epoch``, for a profiled epoch after)."""
     from mtad_gat_tpu_torch.cli import train_cli
     from mtad_gat_tpu_torch.training import Trainer
 
@@ -2469,7 +2494,7 @@ def timed_train_cli(argv, out_root) -> dict:
     Trainer.train_epoch = timed_epoch
     try:
         t0 = time.perf_counter()
-        run = train_cli.main(argv)
+        run = (entry or train_cli.main)(argv)
         seconds = time.perf_counter() - t0
     finally:
         Trainer.train_epoch = real_epoch
@@ -4907,6 +4932,278 @@ def fleet_features_row(ff: dict, key: str) -> dict:
                         for layer, rec in ff["kernels"].items()}}
 
 
+# ---------------------------------------------------------------------------
+# Multi-device (phase 20): the mesh's ranks as processes sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_DEADLINE = 600.0
+# One step's gradients on a rank of the (data 2) mesh against the single
+# device's on the same batch, per parameter: max abs difference over the
+# single device's max abs value. TRAIN_TOL's 1e-5 holds one kernel against
+# its plain version; here the whole model's backward sums each half batch
+# apart (K2ab's dbias groups and K4's split-K chunks follow the batch) and
+# the two halves across ranks, so ten times that.
+MESH_GRAD_TOL = 1e-4
+MESH_RING_ROWS = 700              # the ring path's entity: 6 steps of 64 at window 300
+
+
+def mesh_argv(data_root: str, out_root: str, *flags: str) -> list:
+    return ["--dataset", "SMD", "--group", "1-1", "--data_root", data_root,
+            "--output_root", out_root, "--device", "cuda", "--log_tensorboard", "False",
+            "--seed", "0", *flags]
+
+
+def param_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def flagship_trainer(log_dir: str, dropout: float, mesh=None):
+    """The flagship Trainer through every kernel, from train seed 0."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.training import Trainer
+
+    cfg = RunConfig(attention_impl="pallas", gru_impl="pallas", dropout=dropout, epochs=1,
+                    log_tensorboard=False)
+    trainer = Trainer(cfg.model_config(38, 38), cfg.train_config(), log_dir=log_dir,
+                      device="cuda", mesh=mesh)
+    trainer.init_state()
+    return trainer
+
+
+def first_batch_grads(trainer, x_train) -> dict:
+    """One step's gradients on windows 0..255 (this rank's columns of them
+    on a mesh, summed over it), as float32 numpy by parameter."""
+    from mtad_gat_tpu_torch.data.windows import batched_starts
+    from mtad_gat_tpu_torch.parallel import multihost
+
+    starts, mask, _ = batched_starts(0, 256, indices=np.arange(256))
+    starts, mask = multihost.epoch_arrays(trainer.mesh, starts, mask)
+    trainer.step_gradients(trainer._series(x_train), starts[0].cuda(), mask[0].cuda(),
+                           trainer.step_generator())
+    grads = {k: p.grad.detach().cpu().numpy().copy()
+             for k, p in trainer.model.named_parameters()}
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return grads
+
+
+def timed_epoch(trainer, x_train) -> dict:
+    """A warm-up epoch, then one timed epoch (device synced) over the
+    training windows at batch 256: windows, seconds, windows/s and the peak
+    memory above the baseline."""
+    from mtad_gat_tpu_torch.data.windows import batched_starts
+
+    series = trainer._series(x_train)
+    n_win = len(x_train) - trainer.window
+    starts, mask, _ = batched_starts(0, 256, indices=np.arange(n_win - n_win // 10))
+    trainer.train_epoch(series, starts, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer.train_epoch(series, starts, mask)          # ends in a device sync
+    seconds = time.perf_counter() - t0
+    windows = int(mask.sum())
+    return {"windows": windows, "steps": int(starts.shape[0]), "seconds": seconds,
+            "windows_per_s": windows / seconds,
+            "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def multi_device_rank(data_root: str, ring_root: str, out_root: str) -> list:
+    """One rank of phase 20 (every rank runs it; rank 0 returns every
+    rank's record). (a) ``train_cli.train_rank``, the function each rank
+    of ``train_cli --mesh_devices 2 --model_parallel 1`` runs, at the
+    flagship through every kernel, dropout 0.3, 1 epoch: launches, plain
+    calls, the trained parameters' digest; then on a (data 2) mesh one
+    step's gradients at dropout 0 and a timed epoch at dropout 0.3. (b)
+    ``train_rank`` of ``--mesh_devices 2 --model_parallel 2 --attention_impl
+    ring --lookback 300 --bs 64`` at dropout 0: launches, ring calls,
+    losses, digest, peak memory."""
+    import torch.distributed as dist
+
+    import mtad_gat_tpu_torch.nn.gat as ngat
+    from mtad_gat_tpu_torch.cli import train_cli
+    from mtad_gat_tpu_torch.cli.args import get_parser, to_run_config
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.parallel import make_mesh
+
+    def entry(run_id):
+        return lambda argv: train_cli.train_rank(to_run_config(get_parser().parse_args(argv)),
+                                                 run_id, None, None, "cuda")
+
+    rec = {"rank": dist.get_rank(), "device": str(torch.device("cuda", 0)),
+           "backend": dist.get_backend()}
+    out_a = os.path.join(out_root, "data_axis")
+    with plain_calls() as plain:
+        run = timed_train_cli(mesh_argv(data_root, out_a, "--attention_impl", "pallas",
+                                        "--gru_impl", "pallas", "--epochs", "1", "--run_id",
+                                        "mesh", "--mesh_devices", "2", "--model_parallel", "1"),
+                              out_a, entry("mesh"))
+    rec["cli"] = {k: run[k] for k in ("seconds", "launches", "peak_extra_bytes",
+                                      "train_windows_per_s_by_epoch", "epoch_losses",
+                                      "summary")}
+    rec["cli"].update(plain=dict(plain), digest=param_digest(run["last_epoch"]["trainer"].model))
+    del run
+    # path (a)'s run kept PyTorch's TF32 defaults, as predict_cli's ranks
+    # do; what follows is held against this process's float32 references
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    (x_train, _), _ = get_data("machine-1-1", data_root=data_root, normalize=True)
+    mesh = make_mesh(model_parallel=1, device=torch.device("cuda", 0))
+    rec["mesh"] = mesh.describe()
+    rec["grads"] = first_batch_grads(flagship_trainer(os.path.join(out_root, "logs"), 0.0, mesh),
+                                     x_train)
+    trainer = flagship_trainer(os.path.join(out_root, "logs"), 0.3, mesh)
+    rec["epoch"] = timed_epoch(trainer, x_train)
+    rec["epoch"]["digest"] = param_digest(trainer.model)
+    del trainer
+
+    out_b = os.path.join(out_root, "model_axis")
+    real_ring, ring_calls = ngat.ring_gatv2_attention, [0]
+
+    def counted_ring(*args, **kw):
+        ring_calls[0] += 1
+        return real_ring(*args, **kw)
+
+    ngat.ring_gatv2_attention = counted_ring
+    try:
+        run = timed_train_cli(mesh_argv(ring_root, out_b, "--lookback", "300", "--bs", "64",
+                                        "--attention_impl", "ring", "--gru_impl", "pallas",
+                                        "--epochs", "1", "--dropout", "0", "--run_id", "ring",
+                                        "--mesh_devices", "2", "--model_parallel", "2"),
+                              out_b, entry("ring"))
+    finally:
+        ngat.ring_gatv2_attention = real_ring
+    rec["ring"] = {k: run[k] for k in ("seconds", "launches", "peak_extra_bytes",
+                                       "train_windows_per_s_by_epoch", "epoch_losses",
+                                       "step_losses")}
+    rec["ring"].update(ring_calls=ring_calls[0],
+                       digest=param_digest(run["last_epoch"]["trainer"].model))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, rec)
+    return every
+
+
+def check_multi_device(work, data_root: str, smi: str) -> dict:
+    """Phase 20: ``MESH_RANKS`` ranks sharing the card over gloo (NCCL
+    refuses two ranks on one device), spawned by ``parallel.multihost.spawn``
+    as ``train_cli --mesh_devices`` spawns them, each running
+    ``multi_device_rank``; the single-device references in this process
+    before, and ``predict_cli.main --mesh_devices 2`` after. Fails on any
+    check; returns rank 0's launches on path (a) and the numbers."""
+    from mtad_gat_tpu_torch.cli import predict_cli
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.parallel import multihost
+
+    root = os.path.join(work, "multi_device")
+    ring_root = os.path.join(root, "ring_data")
+    write_smd(ring_root, n=MESH_RING_ROWS)
+    (x_train, _), _ = get_data("machine-1-1", data_root=data_root, normalize=True)
+    ref_grads = first_batch_grads(flagship_trainer(os.path.join(root, "logs"), 0.0), x_train)
+    one = timed_epoch(flagship_trainer(os.path.join(root, "logs"), 0.3), x_train)
+    out_dense = os.path.join(root, "dense")
+    dense = timed_train_cli(mesh_argv(ring_root, out_dense, "--lookback", "300", "--bs", "64",
+                                      "--attention_impl", "dense", "--gru_impl", "pallas",
+                                      "--epochs", "1", "--dropout", "0", "--run_id", "dense"),
+                            out_dense)
+    del dense["last_epoch"]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    every = multihost.spawn(MESH_RANKS, multi_device_rank, (data_root, ring_root, root),
+                            device_type="cuda", deadline=MESH_DEADLINE)
+    spawn_seconds = time.perf_counter() - t0
+    out_a = os.path.join(root, "data_axis")
+    run_a = os.path.join(out_a, "SMD", "1-1", "mesh")
+    t0 = time.perf_counter()
+    predict_cli.main(mesh_argv(data_root, out_a, "--model_id", "mesh", "--mesh_devices", "2",
+                               "--model_parallel", "1"))
+    predict_seconds = time.perf_counter() - t0
+
+    want_a, steps_a = expected_training_launches(2000, 2000, 100, 256, 1, 0.1, "pallas")
+    want_b, _ = expected_training_launches(MESH_RING_ROWS, MESH_RING_ROWS, 300, 64, 1, 0.1,
+                                           "pallas")
+    ring_want = {name: (want_b[name] if name.startswith("gru") else 0)
+                 for name in KERNEL_COUNTERS}
+    grad_err = [{k: float(np.abs(r["grads"][k] - g).max() / max(np.abs(g).max(), 1e-30))
+                 for k, g in ref_grads.items()} for r in every]
+    _, ring_loss_err = loss_errors(every[0]["ring"]["epoch_losses"], dense["epoch_losses"])
+    ring_step_err = max(abs(x - y) / abs(y) for r, d in zip(every[0]["ring"]["step_losses"],
+                                                            dense["step_losses"])
+                        for x, y in zip(r, d))
+    summary = finite_summary(os.path.join(run_a, "summary.txt"))
+    reproduced = finite_summary(os.path.join(run_a, "summary_1.txt")) == summary
+    rec = {
+        "phase": "multi_device", "nvidia_smi": smi, "ranks": MESH_RANKS,
+        "backend": [r["backend"] for r in every], "mesh": every[0]["mesh"],
+        "spawn_seconds": spawn_seconds, "predict_cli_seconds": predict_seconds,
+        "data_axis": {
+            "train_cli": [{k: r["cli"][k] for k in ("seconds", "launches", "plain",
+                                                     "peak_extra_bytes",
+                                                     "train_windows_per_s_by_epoch",
+                                                     "digest")} for r in every],
+            "expected_launches": want_a, "steps": steps_a,
+            "epoch_losses": every[0]["cli"]["epoch_losses"],
+            "bf_f1": summary["bf_result"]["f1"],
+            "predict_cli_reproduces_summary": reproduced,
+            "grad_max_rel_err_by_rank": [max(e.values()) for e in grad_err],
+            "grad_tol": MESH_GRAD_TOL,
+            "all_rank_windows_per_s": every[0]["epoch"]["windows_per_s"],
+            "single_device_windows_per_s": one["windows_per_s"],
+            "epoch_by_rank": [r["epoch"] for r in every], "single_device_epoch": one},
+        "model_axis": {
+            "ring_launches_by_rank": [r["ring"]["launches"] for r in every],
+            "ring_calls_by_rank": [r["ring"]["ring_calls"] for r in every],
+            "expected_ring_calls": want_b["gru_scan_fwd"],
+            "epoch_loss_max_rel_err": ring_loss_err, "step_loss_max_rel_err": ring_step_err,
+            "tol": WIDE_LOSS_TOL,
+            "peak_extra_bytes_by_rank": [r["ring"]["peak_extra_bytes"] for r in every],
+            "dense_peak_extra_bytes": dense["peak_extra_bytes"],
+            "ring_train_windows_per_s_by_epoch": every[0]["ring"]["train_windows_per_s_by_epoch"],
+            "dense_train_windows_per_s_by_epoch": dense["train_windows_per_s_by_epoch"],
+            "ring_epoch_losses": every[0]["ring"]["epoch_losses"],
+            "dense_epoch_losses": dense["epoch_losses"],
+            "digests": [r["ring"]["digest"] for r in every]},
+    }
+    emit(rec)
+    problems = []
+    for r in every:
+        got = {k: v for k, v in r["cli"]["launches"].items() if k in want_a}
+        if got != want_a:
+            problems.append(f"rank {r['rank']}: train_cli launches {got}, expected {want_a}")
+        if any(r["cli"]["plain"].values()):
+            problems.append(f"rank {r['rank']}: plain calls {r['cli']['plain']}")
+        if r["cli"]["summary"] != summary:
+            problems.append(f"rank {r['rank']}: summary differs from the run's")
+        if {k: r["ring"]["launches"][k] for k in KERNEL_COUNTERS} != ring_want:
+            problems.append(f"rank {r['rank']}: ring launches {r['ring']['launches']}, "
+                            f"expected {ring_want}")
+        if r["ring"]["ring_calls"] != want_b["gru_scan_fwd"]:
+            problems.append(f"rank {r['rank']}: {r['ring']['ring_calls']} ring calls")
+    if len(every[0]["cli"]["epoch_losses"]) != 1:
+        problems.append(f"metrics written {len(every[0]['cli']['epoch_losses'])} times")
+    for what in (lambda r: r["cli"]["digest"], lambda r: r["epoch"]["digest"],
+                 lambda r: r["ring"]["digest"]):
+        if len({what(r) for r in every}) != 1:
+            problems.append("the ranks' parameters differ")
+    if max(max(e.values()) for e in grad_err) > MESH_GRAD_TOL:
+        problems.append(f"gradients against one device's: {grad_err}")
+    if not reproduced:
+        problems.append("predict_cli --mesh_devices 2 did not reproduce the summary")
+    if not (ring_loss_err <= WIDE_LOSS_TOL and ring_step_err <= WIDE_LOSS_TOL):
+        problems.append(f"ring losses against dense: {ring_loss_err}, {ring_step_err}")
+    if problems:
+        raise AssertionError("multi_device: " + "; ".join(problems))
+    return {"launches": every[0]["cli"]["launches"], "record": rec}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4984,6 +5281,8 @@ def main() -> None:
         mark("fleet_wide_window")
         fleet_features = check_fleet_wide_features(gen, dev, work, smi)
         mark("fleet_wide_features")
+        multi = check_multi_device(work, data_root, smi)
+        mark("multi_device")
     emit({"phase": "seconds", "by_phase": {name: t - marks[i][1]
                                            for i, (name, t) in enumerate(marks[1:])},
           "total_after_start": marks[-1][1] - marks[0][1]})
@@ -4997,7 +5296,8 @@ def main() -> None:
                       "fleet_serving": fleet["launches"][name],
                       "fleet_training": fleet_train["launches"][name],
                       "fleet_wide_window": fleet_wide["launches"][name],
-                      "fleet_wide_features": fleet_features["launches"][name]}
+                      "fleet_wide_features": fleet_features["launches"][name],
+                      "multi_device": multi["launches"].get(name, 0)}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]

@@ -17,6 +17,13 @@ model do so on the GPU unless ``--device cpu`` is given):
 - ``python -m mtad_gat_tpu_torch.cli.sweep_cli``: trains and scores every
   SMD machine, one after another or (``--batched``) as one fleet in one
   vmapped step.
+
+On a mesh (``parallel/``; one ``torch.distributed`` rank a process and a
+device): ``train_cli`` and ``predict_cli`` with ``--mesh_devices N
+[--model_parallel M]`` (spawned ranks) or ``--coordinator`` train and score
+one model with the batch split over the data axis, every kernel on each
+rank, and under ``--attention_impl ring`` the attention's nodes split over
+the model axis. ``sweep_cli`` and ``serve_cli`` run on one device.
 """
 
 from mtad_gat_tpu_torch.config import MTADGATConfig, PredictConfig, RunConfig, TrainConfig

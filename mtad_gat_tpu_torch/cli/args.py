@@ -117,18 +117,23 @@ def get_parser() -> argparse.ArgumentParser:
                              "unless --use_cuda False) or 'cpu'; without a "
                              "GPU, 'cuda' raises")
 
-    # --- Multi-device extensions (not ported yet: ROADMAP.md Queue 1 item 8) ---
+    # --- Multi-device extensions (parallel/: one rank a process and a device) ---
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="devices in the training mesh: 0 = single-device "
-                             "(no mesh), -1 = all visible devices, N = first N")
+                        help="ranks of the mesh: 0 = single-device (no mesh), "
+                             "-1 = every visible card, N = N ranks spawned here "
+                             "(rank r on cuda:(r %% cards), or the CPU under "
+                             "--device cpu); beside --coordinator, P or -1")
     parser.add_argument("--model_parallel", type=int, default=0,
                         help="model-axis size of the mesh (graph/sequence "
                              "partition); 0 = auto factorization")
     parser.add_argument("--coordinator", type=str, default="",
                         help="multi-host coordinator address host:port; "
                              "empty = single-process")
-    parser.add_argument("--num_processes", type=int, default=0)
-    parser.add_argument("--process_id", type=int, default=-1)
+    parser.add_argument("--num_processes", type=int, default=0,
+                        help="ranks of a multi-process run started elsewhere, "
+                             "one a process")
+    parser.add_argument("--process_id", type=int, default=-1,
+                        help="this process's rank in a multi-process run")
 
     # --- Production-training extensions ---
     parser.add_argument("--profile_dir", type=str, default="",

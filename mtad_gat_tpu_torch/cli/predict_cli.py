@@ -14,6 +14,11 @@ with no GPU and neither flag it raises (``cli/args.resolve_device``).
 
     python -m mtad_gat_tpu_torch.cli.predict_cli --dataset SMD --group 1-1 \\
         --model_id -1 --data_root <root> --output_root <out>
+
+``--mesh_devices N [--model_parallel M]`` (or ``--coordinator``) scores over
+a mesh of N ranks as ``train_cli`` trains over one: each data slice's ranks
+score their columns of every batch, and the primary rank thresholds and
+writes.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from mtad_gat_tpu_torch.cli.args import get_parser, resolve_device, str2bool
 from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
 from mtad_gat_tpu_torch.data import get_data, get_target_dims
 from mtad_gat_tpu_torch.inference import Predictor
+from mtad_gat_tpu_torch.kernels import _build
 from mtad_gat_tpu_torch.models import MTADGAT
+from mtad_gat_tpu_torch.parallel import make_mesh, multihost
 from mtad_gat_tpu_torch.training.checkpoint import read_flax_msgpack
 from mtad_gat_tpu_torch.utils.weights import jax_params_to_state_dict, load_checkpoint
 
@@ -88,11 +95,26 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         help="a model.pt to load instead of the run's own")
     args = parser.parse_args(argv)
     device = resolve_device(args.device, args.use_cuda)
-    if args.mesh_devices:
-        raise NotImplementedError(
-            "--mesh_devices: multi-device scoring is not ported to "
-            "mtad_gat_tpu_torch yet (ROADMAP.md, Queue 1 item 8)")
+    if not (args.mesh_devices or args.coordinator or args.num_processes > 0):
+        return predict(args, device)
+    if device.type == "cuda":
+        _build.build_all()   # once, before the ranks load the libraries
+    return multihost.run_mesh(predict_rank, (args, device.type), args.mesh_devices,
+                              args.coordinator, args.num_processes, args.process_id, device)
 
+
+def predict_rank(args, device_type: str) -> dict:
+    """One rank of a mesh scoring run: the mesh of every rank, then
+    ``predict`` on it."""
+    mesh = make_mesh(model_parallel=args.model_parallel or None,
+                     device=multihost.local_device(device_type))
+    print(mesh.describe())
+    return predict(args, mesh.device, mesh)
+
+
+def predict(args, device: torch.device, mesh=None) -> dict:
+    """Score and threshold the run that ``args`` names on ``device``, over
+    ``mesh``'s ranks when given; returns the summary."""
     dataset = args.dataset
     if dataset == "SMD":
         output_path = os.path.join(args.output_root, "SMD", args.group)
@@ -129,12 +151,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     level, q, reg_level = lookup_pot_params(dataset, args.group, args.level, args.q)
 
-    # numbered summary files (predict.py:160-167)
+    # numbered summary files (predict.py:160-167), the primary's choice
     count = 0
     summary_name = "summary.txt"
     while os.path.exists(os.path.join(model_path, summary_name)):
         count += 1
         summary_name = f"summary_{count}.txt"
+    summary_name = multihost.broadcast_object(summary_name)
 
     prediction_args = {
         "dataset": dataset,
@@ -151,7 +174,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     predictor = Predictor(
         model, window_size, n_features, prediction_args,
         summary_file_name=summary_name, batch_size=cfg.bs,
-        data_root=args.data_root,
+        data_root=args.data_root, mesh=mesh,
     )
     label = y_test[window_size:] if y_test is not None else None
     return predictor.predict_anomalies(

@@ -70,7 +70,7 @@ def _refuse_unported(cfg: RunConfig) -> None:
     if cfg.mesh_devices:
         raise NotImplementedError(
             "--mesh_devices: a fleet sharded over devices is not ported to "
-            "mtad_gat_tpu_torch yet (ROADMAP.md, Queue 1 item 8)")
+            "mtad_gat_tpu_torch yet (ROADMAP.md, Queue 1 item 8b)")
 
 
 def run_sweep(cfg: RunConfig, groups: Optional[List[str]] = None,

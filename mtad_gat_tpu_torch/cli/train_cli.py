@@ -14,6 +14,15 @@ item 9): the loss series are in ``<output>/logs/metrics.jsonl``.
 
     python -m mtad_gat_tpu_torch.cli.train_cli --dataset SMD --group 1-1 \\
         --attention_impl pallas --data_root <root> --output_root <out>
+
+On a mesh (``parallel/``): ``--mesh_devices N [--model_parallel M]`` spawns
+N ranks here, rank r on ``cuda:(r % cards)`` (or the CPU under ``--device
+cpu``), which train one model over a (data, model) mesh: the batch split
+over the data axis through every kernel, and under ``--attention_impl
+ring`` the attention's node axis over the model axis. ``--coordinator
+host:port --num_processes P --process_id i`` makes this process rank i of
+P started elsewhere. The CUDA kernels are built once before the ranks
+start; the primary rank writes the run directory.
 """
 
 from __future__ import annotations
@@ -27,15 +36,19 @@ from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
 from mtad_gat_tpu_torch.data import get_data, get_target_dims
 from mtad_gat_tpu_torch.graph import knn_edges_from_series, parse_graph_spec
 from mtad_gat_tpu_torch.inference import Predictor
+from mtad_gat_tpu_torch.kernels import _build
+from mtad_gat_tpu_torch.parallel import make_mesh, multihost
 from mtad_gat_tpu_torch.training import Trainer
 
 
 def run_prediction(
     model, cfg: RunConfig, dataset: str, group: str, target_dims, n_features: int,
     save_path: str, x_train, x_test, y_test, summary_file_name: str = "summary.txt",
+    mesh=None,
 ):
     """Per-dataset POT/epsilon params + Predictor + predict_anomalies
-    (reference train.py:126-167); ``model`` lies on the scoring device."""
+    (reference train.py:126-167); ``model`` lies on the scoring device, and
+    ``mesh`` scores over its ranks."""
     level, q, reg_level = lookup_pot_params(dataset, group, cfg.level, cfg.q)
     predictor = Predictor(
         model, cfg.lookback, n_features,
@@ -52,22 +65,25 @@ def run_prediction(
             "save_path": save_path,
         },
         summary_file_name=summary_file_name,
-        batch_size=cfg.bs, data_root=cfg.data_root,
+        batch_size=cfg.bs, data_root=cfg.data_root, mesh=mesh,
     )
     label = y_test[cfg.lookback:] if y_test is not None else None
     return predictor.predict_anomalies(x_train, x_test, label)
 
 
 def _refuse_unported(cfg: RunConfig) -> None:
-    if cfg.mesh_devices or cfg.coordinator or cfg.num_processes > 0 or cfg.model_parallel:
-        raise NotImplementedError(
-            "--mesh_devices / --model_parallel / --coordinator / --num_processes: "
-            "multi-device training is not ported to mtad_gat_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 8)")
     if cfg.profile_dir:
         raise NotImplementedError(
             "--profile_dir: profiling is not ported to mtad_gat_tpu_torch yet "
             "(ROADMAP.md, Queue 1 item 9)")
+
+
+def _check_auto_resume(cfg: RunConfig, run_id: Optional[str]) -> None:
+    if cfg.auto_resume and not (run_id or cfg.run_id):
+        raise ValueError(
+            "--auto_resume needs --run_id: without a pinned run directory a "
+            "fresh datetime id is generated and there is no checkpoint to "
+            "find, silently restarting from scratch")
 
 
 def run_training(
@@ -76,21 +92,22 @@ def run_training(
     resume_from: Optional[str] = None,
     init_from_torch: Optional[str] = None,
     device: Optional[str] = None,
+    mesh=None,
 ) -> str:
     """Execute the full pipeline on ``device`` (by default the GPU, or the
     CPU under ``cfg.use_cuda`` False: ``resolve_device``); returns the save
-    path.
+    path. ``mesh`` trains and scores over its ranks (every rank calls this,
+    the primary writes).
     ``resume_from`` restores a ``train_state.pt`` (params, optimizer state,
     step) before continuing; ``init_from_torch`` warm-starts from a
     reference PyTorch ``model.pt``."""
     _refuse_unported(cfg)
     dev = resolve_device(device, cfg.use_cuda)
-    if cfg.auto_resume and not (run_id or cfg.run_id):
-        raise ValueError(
-            "--auto_resume needs --run_id: without a pinned run directory a "
-            "fresh datetime id is generated and there is no checkpoint to "
-            "find, silently restarting from scratch")
+    _check_auto_resume(cfg, run_id)
     run_id = run_id or cfg.run_id or datetime.now().strftime("%d%m%Y_%H%M%S")
+    if mesh is not None:
+        run_id = multihost.broadcast_object(run_id)   # rank 0's clock names the run
+        print(mesh.describe())
     dataset = cfg.dataset
 
     if dataset == "SMD":
@@ -142,7 +159,7 @@ def run_training(
 
     trainer = Trainer(
         model_cfg, cfg.train_config(), target_dims=target_dims, save_path=save_path,
-        log_dir=log_dir, args_summary=args_summary, device=str(dev),
+        log_dir=log_dir, args_summary=args_summary, device=str(dev), mesh=mesh,
     )
     trainer.init_state()
     auto_ckpt = os.path.join(save_path, "train_state.pt")
@@ -164,10 +181,21 @@ def run_training(
 
     trainer.load(os.path.join(save_path, "model.pt"))
     run_prediction(trainer.model, cfg, dataset, cfg.group, target_dims, n_features,
-                   save_path, x_train, x_test, y_test)
+                   save_path, x_train, x_test, y_test, mesh=mesh)
     trainer.logger.close()
-    cfg.save(os.path.join(save_path, "config.txt"))
+    if multihost.is_primary():
+        cfg.save(os.path.join(save_path, "config.txt"))
     return save_path
+
+
+def train_rank(cfg: RunConfig, run_id: Optional[str], resume_from: Optional[str],
+               init_from_torch: Optional[str], device_type: str) -> str:
+    """One rank of a mesh run: the mesh of every rank (``--model_parallel``
+    or the default factorization), then ``run_training`` on it."""
+    mesh = make_mesh(model_parallel=cfg.model_parallel or None,
+                     device=multihost.local_device(device_type))
+    return run_training(cfg, run_id=run_id, resume_from=resume_from,
+                        init_from_torch=init_from_torch, device=str(mesh.device), mesh=mesh)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
@@ -178,13 +206,21 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                         help="warm-start from a reference PyTorch model.pt")
     args = parser.parse_args(argv)
     cfg = to_run_config(args)
-    return run_training(
-        cfg,
-        run_id=cfg.run_id or None,
-        resume_from=args.resume_from or None,
-        init_from_torch=args.init_from_torch or None,
-        device=args.device,
-    )
+    run_id = cfg.run_id or None
+    resume_from, init_from_torch = args.resume_from or None, args.init_from_torch or None
+    if not (cfg.mesh_devices or cfg.coordinator or cfg.num_processes > 0):
+        return run_training(cfg, run_id=run_id, resume_from=resume_from,
+                            init_from_torch=init_from_torch, device=args.device)
+    _refuse_unported(cfg)
+    dev = resolve_device(args.device, cfg.use_cuda)
+    _check_auto_resume(cfg, run_id)
+    if dev.type == "cuda":
+        _build.build_all()   # once, before the ranks load the libraries
+    # spawned ranks share this process's clock for the run directory's name
+    run_id = run_id or datetime.now().strftime("%d%m%Y_%H%M%S")
+    return multihost.run_mesh(
+        train_rank, (cfg, run_id, resume_from, init_from_torch, dev.type),
+        cfg.mesh_devices, cfg.coordinator, cfg.num_processes, cfg.process_id, dev)
 
 
 if __name__ == "__main__":

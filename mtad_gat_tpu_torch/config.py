@@ -52,9 +52,10 @@ class MTADGATConfig:
     compute_dtype: str = "float32"
     # "dense" (plain tensor ops; a complete GATv2 graph too large for them
     # goes to the fused kernel, nn/gat.dense_route), "sparse" (the COO
-    # path) or "pallas" (the fused attention kernel); "ring" is accepted for
-    # config compatibility and raises when a layer is built (ROADMAP.md,
-    # Queue 1 item 8).
+    # path), "pallas" (the fused attention kernel) or "ring" (GATv2 on a
+    # complete graph with its node axis split over a mesh's model axis,
+    # parallel/ring_attention.py; the dense ops without such a mesh; on a
+    # band:W graph it raises, ROADMAP.md Queue 1 item 8b).
     attention_impl: str = "dense"
     # trades recompute for memory in the backward pass of the dense path:
     # accepted for config compatibility, no effect in the port

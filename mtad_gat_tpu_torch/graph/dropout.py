@@ -60,14 +60,16 @@ def seed_int(seed: Seed) -> int:
 
 
 def hash_keep_mask(seed: Seed, batch: int, n_rows: int, n_cols: int, rate: float,
-                   batch_offset: int = 0, device=None, row_offset: int = 0) -> torch.Tensor:
+                   batch_offset: int = 0, device=None, row_offset: int = 0,
+                   col_offset: int = 0) -> torch.Tensor:
     """(batch, n_rows, n_cols) bool keep mask of a call's dropout, for batch
-    indices ``batch_offset`` .. ``batch_offset + batch - 1`` and rows
-    ``row_offset`` .. ``row_offset + n_rows - 1`` of that call."""
+    indices ``batch_offset`` .. ``batch_offset + batch - 1``, rows
+    ``row_offset`` .. ``row_offset + n_rows - 1`` and columns
+    ``col_offset`` .. ``col_offset + n_cols - 1`` of that call."""
     i64 = dict(dtype=torch.int64, device=device)
     b = torch.arange(batch_offset, batch_offset + batch, **i64)[:, None, None]
     rows = torch.arange(row_offset, row_offset + n_rows, **i64)[None, :, None]
-    cols = torch.arange(n_cols, **i64)[None, None, :]
+    cols = torch.arange(col_offset, col_offset + n_cols, **i64)[None, None, :]
     return hash_u32(seed_int(seed), b, rows, cols) < keep_threshold(rate)
 
 

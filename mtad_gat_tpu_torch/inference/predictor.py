@@ -17,6 +17,12 @@ feature mean; then channel-boundary adjustment for MSL/SMAP, optional EWM
 smoothing with span = int(256 * window * 0.05), per-feature epsilon
 thresholds (reg_level=2), and entity-level evaluation with the three
 thresholding methods, JSON summary, and output pickles.
+
+On a mesh (``mesh=``) each data slice's ranks score their columns of every
+batch (``multihost.epoch_arrays``), the ring layers over the model axis;
+the forecasts and reconstructions are gathered over the data axis in
+window order, and the primary rank thresholds and writes, then hands its
+summary to every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ from mtad_gat_tpu_torch.inference.eval_methods import (
     pot_eval,
 )
 from mtad_gat_tpu_torch.models import MTADGAT
+from mtad_gat_tpu_torch.parallel import multihost
+from mtad_gat_tpu_torch.parallel.sharding import all_gather, use_mesh
 
 
 def smoothing_span(window_size: int, base: int = 256) -> int:
@@ -70,7 +78,12 @@ class Predictor:
         batch_size: int = 256,
         data_root: str = "datasets",
         smoothing_base: int = 256,
+        mesh=None,
     ):
+        if mesh is not None and batch_size % mesh.dp:
+            raise ValueError(f"batch {batch_size} not divisible by the mesh's {mesh.dp} "
+                             "data slices")
+        self.mesh = mesh
         self.model = model.eval()
         self.window_size = window_size
         self.n_features = n_features
@@ -94,21 +107,30 @@ class Predictor:
     @torch.inference_mode()
     def _score_pass(self, values: np.ndarray, n_windows: int):
         """Forecasts and last-step reconstructions of windows 0..n_windows-1,
-        one fixed-size batch at a time (the padded tail batch included)."""
+        one fixed-size batch at a time (the padded tail batch included); on a
+        mesh this rank's columns of each, gathered over the data axis."""
         device = next(self.model.parameters()).device
         series = torch.from_numpy(values).to(device)
-        starts, _, _ = batched_starts(n_windows, self.batch_size)
+        starts, mask, _ = batched_starts(n_windows, self.batch_size)
+        starts, _ = multihost.epoch_arrays(self.mesh, starts, mask)
         starts = starts.to(device)
         preds, recons = [], []
-        for batch_starts in starts:
-            x = gather_windows(series, batch_starts, self.window_size)
-            p, r = self.model(x)
-            preds.append(p)
-            recons.append(r[:, -1, :])   # last-step reconstruction (prediction.py:63)
+        with use_mesh(self.mesh):
+            for batch_starts in starts:
+                x = gather_windows(series, batch_starts, self.window_size)
+                p, r = self.model(x)
+                preds.append(p)
+                recons.append(r[:, -1, :])   # last-step reconstruction (prediction.py:63)
         out_dim = preds[0].shape[-1]
-        preds_all = torch.cat(preds).float().reshape(-1, out_dim)[:n_windows]
-        recon_all = torch.cat(recons).float().reshape(-1, out_dim)[:n_windows]
-        return preds_all.cpu().numpy(), recon_all.cpu().numpy()
+
+        def in_window_order(parts):
+            # (n_batches, bs / dp, out) a data slice -> batch by batch, slice by slice
+            local = torch.stack(parts).float()
+            if self.mesh is not None and self.mesh.dp > 1:
+                local = torch.stack(all_gather(local, self.mesh.data_group), dim=1)
+            return local.reshape(-1, out_dim)[:n_windows].cpu().numpy()
+
+        return in_window_order(preds), in_window_order(recons)
 
     def get_score(self, values: np.ndarray) -> pd.DataFrame:
         """Anomaly scores for a full series (reference ``prediction.py:36-94``)."""
@@ -253,9 +275,12 @@ class Predictor:
         scale_scores: bool = False,
     ) -> Dict:
         """Full anomaly-prediction pipeline (capabilities of reference
-        ``prediction.py:96-202``); returns the summary dict. This package
-        scores in one process, which writes the outputs."""
+        ``prediction.py:96-202``); returns the summary dict. On a mesh every
+        rank scores, and the primary thresholds, writes the outputs and
+        hands its summary to the others."""
         frames = self._scored_frames(train, test, load_scores)
+        if not multihost.is_primary():
+            return multihost.broadcast_object(None)
         scores = {
             split: df["A_Score_Global"].to_numpy() for split, df in frames.items()
         }
@@ -275,4 +300,4 @@ class Predictor:
                 summary["epsilon_result"]["threshold"],
             )
         print("-- Done.")
-        return summary
+        return multihost.broadcast_object(summary)

@@ -22,7 +22,14 @@ computed in decomposed form (``p_i + q_j``). Dispatch, as the JAX layer's
   graph under ``impl="sparse"``: the COO path;
 - GATv2 on a complete graph: the fused kernel (``kernels/gat.py``) under
   ``impl="pallas"``, and under ``impl="dense"`` wherever the dense path
-  would not fit the device (``dense_route``); else the dense ops.
+  would not fit the device (``dense_route``); under ``impl="ring"``, the
+  ring over the model axis (``parallel/ring_attention.py``) where a mesh
+  with more than one model rank is active (``parallel.use_mesh``), else,
+  as in the JAX layer (its single-shard case), the dense ops; else the
+  dense ops. The ring runs GATv2 on complete graphs only (a GATv1 layer
+  under ``impl="ring"`` takes the dense ops, as in the JAX layer): a band
+  under ``impl="ring"`` (the JAX package's halo exchange) is not ported
+  yet.
 
 In training mode the attention weights take dropout at ``dropout`` from the
 caller's generator: the kernels' and the block scan's hash mask keyed by a
@@ -63,6 +70,8 @@ from mtad_gat_tpu_torch.graph.structure import (
 from mtad_gat_tpu_torch.kernels import _vmap
 from mtad_gat_tpu_torch.kernels.gat import gatv2_attention
 from mtad_gat_tpu_torch.nn.init import torch_linear_, xavier_uniform_gain_
+from mtad_gat_tpu_torch.parallel.ring_attention import ring_gatv2_attention
+from mtad_gat_tpu_torch.parallel.sharding import copy_to_model, current_mesh
 
 Edges = Tuple[Tuple[int, ...], Tuple[int, ...]]
 
@@ -142,10 +151,11 @@ class GATLayer(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if impl == "ring":
-            raise _not_ported("attention_impl='ring'", "Queue 1 item 8")
-        if impl not in ("dense", "sparse", "pallas"):
-            raise ValueError(f"attention impl must be dense|sparse|pallas, got {impl!r}")
+        if impl not in ("dense", "sparse", "pallas", "ring"):
+            raise ValueError(f"attention impl must be dense|sparse|pallas|ring, got {impl!r}")
+        if impl == "ring" and band is not None:
+            raise _not_ported("attention_impl='ring' on a band:W graph (the halo exchange)",
+                              "Queue 1 item 8b")
         if impl == "pallas" and (edges is not None or band is not None):
             raise ValueError("attention_impl='pallas' runs complete graphs only")
         if bias_storage == "band" and band is None:
@@ -184,6 +194,13 @@ class GATLayer(nn.Module):
         return (self.impl == "pallas" and self.use_gatv2 and not self.has_graph
                 and self.band is None)
 
+    def rings(self, mesh) -> bool:
+        """Whether calls under ``mesh`` run the ring: ``impl="ring"`` on a
+        complete graph with more than one model rank. Such a layer's
+        parameter gradients are each model rank's part of the whole."""
+        return (self.impl == "ring" and self.use_gatv2 and not self.has_graph
+                and mesh is not None and mesh.mp > 1)
+
     def dense_route(self, v: torch.Tensor) -> bool:
         """Whether a dense GATv2 call on ``v`` goes to the fused kernel: the
         dense path's bytes (``dense_gatv2_bytes``, with autograd when a
@@ -221,9 +238,17 @@ class GATLayer(nn.Module):
             return 0 if rate == 0.0 else hash_seed(generator, v)
 
         if self.use_gatv2:
+            mesh = current_mesh()
+            if self.rings(mesh):
+                # every model rank computes p, q, v of all nodes and
+                # differentiates through its own rows only
+                v = copy_to_model(v, mesh)
             # lin([v_i || v_j]) == v_i @ W_l^T + v_j @ W_r^T + b
             p = v @ w[:, :d].t()               # query side (i)
             q = v @ w[:, d:].t() + b           # key side (j)
+            if self.rings(mesh):
+                return ring_gatv2_attention(p, q, a, bias, v, self.alpha, mesh,
+                                            dropout_rate=rate, dropout_seed=seed()).to(cd)
             if banded and self.band <= BAND_UNROLL_CUTOFF:
                 return gatv2_banded_attention(p, q, a, bias, v, self.alpha, self.band, rate,
                                               generator, self.bias_storage).to(cd)

@@ -14,6 +14,9 @@ two files, written with ``torch.save`` and read with
 own decoder of the msgpack subset flax uses, so no ``msgpack`` package is
 needed. ``utils/weights.jax_params_to_state_dict`` maps its ``params`` to
 this package's ``state_dict``.
+
+On a mesh only the primary rank writes (``parallel/multihost.is_primary``):
+the ranks hold the same parameters, and the run directory has one writer.
 """
 
 from __future__ import annotations
@@ -25,8 +28,13 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from mtad_gat_tpu_torch.parallel import multihost
+
 
 def save_checkpoint(path: str, obj: Any) -> None:
+    """``torch.save`` of ``obj`` at ``path``, on the primary rank only."""
+    if not multihost.is_primary():
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save(obj, path)
 

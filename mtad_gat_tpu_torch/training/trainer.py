@@ -19,6 +19,17 @@ same six loss series, on raw series inputs.
   ``jax.random.fold_in(rng, step)``. A restored train state therefore needs
   only its step to continue bit for bit.
 - A checkpoint holds params, optimizer state and step (``checkpoint.py``).
+- On a mesh (``mesh=``, ``parallel/mesh.make_mesh``; one rank a process
+  and a device), each rank runs every step on its data slice's columns of
+  the batch (``multihost.epoch_arrays``), and the RMSEs' numerators and
+  mask counts are summed over the data axis before the square root (an
+  RMSE is not a mean of the ranks' RMSEs). After ``backward`` the ring
+  layers' own parameter gradients are summed over the model axis, then
+  every gradient over the data axis; clipping and Adam follow on every
+  rank alike, so the ranks' parameters stay equal. Dropout generators are
+  seeded from (seed, step, data index): the model ranks of a data slice
+  compute the same activations and draw the same masks, and data slices
+  draw their own. Only the primary rank writes checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -34,41 +45,53 @@ import torch
 from mtad_gat_tpu_torch.config import MTADGATConfig, TrainConfig
 from mtad_gat_tpu_torch.data.windows import batched_starts, num_windows, window_batch
 from mtad_gat_tpu_torch.models import MTADGAT
+from mtad_gat_tpu_torch.nn.gat import GATLayer
+from mtad_gat_tpu_torch.parallel import multihost
+from mtad_gat_tpu_torch.parallel.sharding import all_reduce_, data_sum, use_mesh
 from mtad_gat_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from mtad_gat_tpu_torch.training.metrics import MetricsLogger
 
 
-def masked_rmse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """sqrt(MSE) over valid windows only. mask: (b,) 1.0 for real windows."""
+def masked_rmse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """sqrt(MSE) over valid windows only. mask: (b,) 1.0 for real windows.
+    On a mesh with more than one data slice, the squared errors' sum and
+    the mask count are summed over the data axis before the division."""
     pred = pred.float()
     target = target.float()
     per_win = ((pred - target) ** 2).reshape(pred.shape[0], -1).mean(dim=1)
+    if mesh is not None and mesh.dp > 1:
+        num = data_sum((per_win * mask).sum(), mesh)
+        return torch.sqrt(num / torch.clamp(data_sum(mask.sum(), mesh), min=1.0))
     w = mask / torch.clamp(mask.sum(), min=1.0)
     return torch.sqrt((per_win * w).sum())
 
 
-def make_loss_fn(model: MTADGAT, window: int, horizon: int, target_dims):
+def make_loss_fn(model: MTADGAT, window: int, horizon: int, target_dims, mesh=None):
     """Batch loss = RMSE(forecast) + RMSE(recon) over one window batch
     gathered on the device from the series (reference training.py:113-124).
     ``deterministic`` puts the model in eval mode (no dropout); otherwise it
     trains and draws its masks from ``generator``. ``params`` (a name ->
     tensor dict) runs the model on those weights instead of its own, through
-    ``torch.func.functional_call``: the form a fleet step vmaps."""
+    ``torch.func.functional_call``: the form a fleet step vmaps. ``mesh``
+    is active around the model (its ring layers read it) and sums the
+    RMSEs over its data axis."""
     dims = None if target_dims is None else list(target_dims)
 
     def loss_fn(series, starts, mask, generator, deterministic: bool, params=None):
         x, y = window_batch(series, starts, window, horizon)
         model.train(not deterministic)
         args = (x, None if deterministic else generator)
-        preds, recons = (model(*args) if params is None
-                         else torch.func.functional_call(model, params, args))
+        with use_mesh(mesh):
+            preds, recons = (model(*args) if params is None
+                             else torch.func.functional_call(model, params, args))
         x_t, y_t = x, y
         if dims is not None:
             x_t = x_t[:, :, dims]
             y_t = y_t[:, :, dims]
         y_t = y_t[:, 0, :]
-        f = masked_rmse(preds, y_t, mask)
-        r = masked_rmse(recons, x_t, mask)
+        f = masked_rmse(preds, y_t, mask, mesh)
+        r = masked_rmse(recons, x_t, mask, mesh)
         return f + r, (f, r)
 
     return loss_fn
@@ -99,16 +122,29 @@ def learning_rate(cfg: TrainConfig, step: int) -> float:
     raise ValueError(f"unknown lr_schedule {cfg.lr_schedule}")
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, data_index: int = 0) -> int:
     """The seed of step ``step``'s dropout generator, a pure function of
-    (train seed, step): the counterpart of ``jax.random.fold_in``."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    (train seed, step): the counterpart of ``jax.random.fold_in``. Data
+    slice ``data_index`` of a mesh draws its own (slice 0 the single
+    device's)."""
+    key = [seed, step] if data_index == 0 else [seed, step, data_index]
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
+
+
+def _sum_over(grads, group) -> None:
+    """Sum the tensors of ``grads`` in place over ``group``, as one buffer."""
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 class Trainer:
     """fit / evaluate / save / load, mirroring the reference Trainer API
     surface (``training.py:83,187,231,243``) on raw series inputs. The model
-    and its optimizer live on ``device``."""
+    and its optimizer live on ``device``; ``mesh`` trains over its ranks
+    (module docstring)."""
 
     def __init__(
         self,
@@ -120,12 +156,17 @@ class Trainer:
         args_summary: str = "",
         horizon: int = 1,
         device: str = "cuda",
+        mesh=None,
     ):
         if train_config.profile_dir:
             raise NotImplementedError(
                 "profile_dir: profiling is not ported to mtad_gat_tpu_torch yet "
                 "(ROADMAP.md, Queue 1 item 9)")
         learning_rate(train_config, 0)   # an unknown schedule raises here
+        if mesh is not None and train_config.bs % mesh.dp:
+            raise ValueError(f"batch {train_config.bs} not divisible by the mesh's "
+                             f"{mesh.dp} data slices")
+        self.mesh = mesh
         self.model_config = model_config
         self.train_config = train_config
         self.target_dims = None if target_dims is None else tuple(target_dims)
@@ -151,7 +192,8 @@ class Trainer:
         # step restored by load_full(): the next fit() resumes from it
         self._resume_step = 0
         self.logger = MetricsLogger(log_dir, use_tensorboard=train_config.log_tensorboard,
-                                    args_summary=args_summary)
+                                    args_summary=args_summary,
+                                    enabled=multihost.is_primary())
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> MTADGAT:
@@ -163,7 +205,12 @@ class Trainer:
         self.optimizer = torch.optim.Adam(self.model.parameters(),
                                           lr=learning_rate(self.train_config, 0))
         self.step = 0
-        self._loss_fn = make_loss_fn(self.model, self.window, self.horizon, self.target_dims)
+        self._loss_fn = make_loss_fn(self.model, self.window, self.horizon, self.target_dims,
+                                     self.mesh)
+        # parameters whose gradient each model rank holds a part of
+        self._ring_params = [p for m in self.model.modules()
+                             if isinstance(m, GATLayer) and m.rings(self.mesh)
+                             for p in m.parameters()]
         return self.model
 
     def _clip(self) -> None:
@@ -177,17 +224,42 @@ class Trainer:
         for g in grads:
             g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
+    def step_generator(self) -> torch.Generator:
+        """The dropout generator of the next step on this rank's device."""
+        data_index = 0 if self.mesh is None else self.mesh.data_index
+        gen = torch.Generator(device=self.device)
+        return gen.manual_seed(step_seed(self.train_config.seed, self.step, data_index))
+
+    def step_gradients(self, series: torch.Tensor, starts: torch.Tensor, mask: torch.Tensor,
+                       generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (forecast, recon) RMSEs of one batch, whose gradients it
+        leaves in the parameters' ``grad``: ``starts`` and ``mask`` (bs / dp,)
+        are this rank's windows, and on a mesh the gradients are summed
+        over it (the ring layers' over the model axis, then all over the
+        data axis), so every rank holds the whole batch's."""
+        total, (f, r) = self._loss_fn(series, starts, mask, generator, False)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        mesh = self.mesh
+        if mesh is not None and mesh.size > 1:
+            for p in self.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self._ring_params and mesh.model_group is not None:
+                _sum_over([p.grad for p in self._ring_params], mesh.model_group)
+            if mesh.data_group is not None:
+                _sum_over([p.grad for p in self.model.parameters()], mesh.data_group)
+        return f, r
+
     def train_epoch(self, series: torch.Tensor, starts: torch.Tensor,
                     mask: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
         """One optimizer step per row of ``starts`` / ``mask`` (n_batches, bs)
-        on the device series; returns the per-batch (forecast, recon) RMSEs."""
+        on the device series; returns the per-batch (forecast, recon) RMSEs.
+        On a mesh each rank steps on its data slice's columns."""
         fs, rs = [], []
+        starts, mask = multihost.epoch_arrays(self.mesh, starts, mask)
         for st, m in zip(starts.to(self.device), mask.to(self.device)):
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(step_seed(self.train_config.seed, self.step))
-            total, (f, r) = self._loss_fn(series, st, m, gen, False)
-            self.optimizer.zero_grad(set_to_none=True)
-            total.backward()
+            f, r = self.step_gradients(series, st, m, self.step_generator())
             self._clip()
             for group in self.optimizer.param_groups:
                 group["lr"] = learning_rate(self.train_config, self.step)
@@ -200,6 +272,7 @@ class Trainer:
     @torch.no_grad()
     def _epoch_eval(self, series, starts, mask) -> Tuple[np.ndarray, np.ndarray]:
         fs, rs = [], []
+        starts, mask = multihost.epoch_arrays(self.mesh, starts, mask)
         for st, m in zip(starts.to(self.device), mask.to(self.device)):
             _, (f, r) = self._loss_fn(series, st, m, None, True)
             fs.append(f)
@@ -336,14 +409,18 @@ class Trainer:
 
     def save(self, file_name: str = "model.pt") -> None:
         """``file_name`` (the state_dict) and ``train_state.pt`` (params,
-        optimizer state, step) in the save path."""
+        optimizer state, step) in the save path, written by the primary
+        rank; on a mesh every rank returns once they are written."""
         assert self.model is not None
-        os.makedirs(self.save_path or ".", exist_ok=True)
-        params = self._params()
-        save_checkpoint(os.path.join(self.save_path, file_name), params)
-        save_checkpoint(os.path.join(self.save_path, "train_state.pt"), {
-            "params": params, "optimizer": self.optimizer.state_dict(), "step": self.step,
-        })
+        if multihost.is_primary():
+            os.makedirs(self.save_path or ".", exist_ok=True)
+            params = self._params()
+            save_checkpoint(os.path.join(self.save_path, file_name), params)
+            save_checkpoint(os.path.join(self.save_path, "train_state.pt"), {
+                "params": params, "optimizer": self.optimizer.state_dict(), "step": self.step,
+            })
+        if self.mesh is not None:
+            multihost.barrier()
 
     def load(self, path: str) -> None:
         """Load the model's parameters from a ``model.pt``."""

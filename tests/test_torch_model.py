@@ -124,7 +124,7 @@ def test_seeded_init_is_reproducible_and_uses_reference_names():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(attention_impl="ring"), "Queue 1 item 8"),
+    (dict(attention_impl="ring", temporal_graph="band:3", use_gatv2=False), "Queue 1 item 8"),
     (dict(attention_impl="ring", temporal_graph="band:3"), "Queue 1 item 8"),
 ])
 def test_unported_routes_raise(over, item):

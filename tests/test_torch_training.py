@@ -241,7 +241,7 @@ def _check_train_then_predict(tmp_path, flags, tiny=TINY, predict_flags=("--devi
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh_devices", "2"], "Queue 1 item 8"),
+    (["--attention_impl", "ring", "--temporal_graph", "band:2"], "Queue 1 item 8"),
     (["--profile_dir", "prof"], "Queue 1 item 9"),
 ])
 def test_train_cli_refuses_unported_paths(flags, item, tmp_path):
