@@ -200,7 +200,7 @@ In order, each phase failing the run with a non-zero exit:
     grouped plain version, timed by CUDA graph beside the G launches, with
     its bound; the host cost of the K1 and K3 custom ops had the solo path
     called them (it calls the wrappers direct); then 28 synthetic SMD
-    machines (``write_smd`` from seeds 1-28, 1,000 rows each, a seeded
+    machines (``write_smd`` from seeds 1-28, 500 rows each, a seeded
     flagship model each, both kernels on, no cached train scores) served by
     ``serve_cli.main --group 1-1,...,3-11 --input a.csv,...`` at chunk 128
     (calibrating by scoring each training split) and chunk 1, epsilon:
@@ -230,7 +230,7 @@ In order, each phase failing the run with a non-zero exit:
     gradients: ``vmap(grad(...))`` over 28 entities launching K1-res and
     K2ab once each a layer, within ``TRAIN_TOL`` of 28 solo ``grad`` calls;
     the dense layers' byte model for the fleet at batch 64 and 256; then 28
-    synthetic SMD machines (``write_smd`` from seeds 1-28, 800-1,200 rows)
+    synthetic SMD machines (``write_smd`` from seeds 1-28, 400-600 rows)
     trained by ``sweep_cli.main --batched`` at the flagship widths, dropout
     0.3, 1 epoch, float32, with dense attention at batch 64 and with
     ``--attention_impl pallas --gru_impl pallas`` at batch 64 and 256:
@@ -309,7 +309,35 @@ In order, each phase failing the run with a non-zero exit:
     the ring twice a forward, K3 and K4 as one device's, no attention
     kernel; epoch and step losses within ``WIDE_LOSS_TOL`` of
     ``--attention_impl dense`` on one device; the ranks' parameters equal;
-    peak memory per rank beside the dense run's;
+    peak memory per rank beside the dense run's. (c) The banded halo
+    exchange: ``train_rank`` of ``--mesh_devices 2 --model_parallel 2
+    --attention_impl ring --gru_impl pallas`` at phase ``long_window``'s
+    configuration (lookback 1024, band:128, band-stored bias, batch 64) at
+    dropout 0, 1 epoch (temporal N 1024, 512 a rank, W 128: the halo;
+    feature N 38, 19 a rank: the ring): the halo and the ring each once a
+    forward, K3 and K4 as one device's, no attention kernel and no plain
+    GRU call; epoch and step losses within ``WIDE_LOSS_TOL`` of
+    ``--attention_impl dense`` (the single-device block scan) on one
+    device; then an epoch at dropout 0.3 on the same mesh, finite; the
+    ranks' parameters equal; peak memory per rank beside the single
+    device's, windows/s. (d) The fleet over data ranks: a second spawn of
+    three ranks, each running ``sweep_cli.main --batched --mesh_devices 3
+    --attention_impl pallas --gru_impl pallas --bs 64`` as a rank of a
+    group started elsewhere (``--num_processes 3``) over phase
+    ``fleet_training``'s 28 machines, dropout 0.3, 1 epoch: the entities
+    in blocks of 10, 9 and 9, each rank's grouped K1-res, K2ab, K3 and
+    K4 launches those of its block (``expect_fleet_epoch``, each grouped
+    launch's G its block's), no plain call, each entity scored over the 3
+    ranks at batch 64 (which 3 does not divide), every summary finite and
+    written once; then a fleet at dropout 0 on the 3 ranks (cuDNN
+    deterministic, TF32 off), its parameters and losses equal bit for bit
+    to one device's fleets of the same blocks, its losses within
+    ``FLEET_PARITY_TOL`` of one device's fleet of 28 and its parameters'
+    distance from that reported, with a probe of the ops that round by the
+    entity count; the ``fleet_state.pt`` the ranks wrote
+    resumed on one device to the parameters the sweep wrote; all-rank
+    windows/s beside phase ``fleet_training``'s one-device fleet, peak
+    memory per rank, each path's seconds;
 21. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
     path, serving's, fleet serving's, fleet training's, the wide fleet's,
     the wide-feature fleet's and long_complete's included, the tiled kernels' times at the route's
@@ -321,7 +349,8 @@ In order, each phase failing the run with a non-zero exit:
     CHUNKED K2a and K2b (their grouped launches and path (a)'s launches
     with them), the chunked K2c and the streamed backward as rows of their
     own; ``launches_by_path["multi_device"]`` rank 0's on phase 20's path
-    (a)) and, last, ``{"ok": true, ...}``.
+    (a), ``"multi_device_halo"`` on path (c) and ``"multi_device_fleet"``
+    on path (d)) and, last, ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -3111,7 +3140,7 @@ def check_serving(gen, dev, work, k3_batch1, smi) -> dict:
 
 # rows a served machine's train and test splits hold (2,000 before phase
 # fleet_wide_features needed the time)
-FLEET_SERVE_ROWS = 1000
+FLEET_SERVE_ROWS = 500
 FLEET_GROUPS = tuple([f"1-{i}" for i in range(1, 9)] + [f"2-{i}" for i in range(1, 10)]
                      + [f"3-{i}" for i in range(1, 12)])      # SMD's 28 machines
 FLEET_ROWS = (1, 128)            # rows a group: chunk 1 and chunk 128
@@ -3950,11 +3979,27 @@ def check_attention_under_grad(gen, dev) -> dict:
     return out
 
 
+def parity_machines(root: str) -> str:
+    """The data root of the parity checks' three machines: the fleet's
+    first three at their lengths before the cut to 400-600 rows (800, 814
+    and 829, whose first ``FLEET_PARITY_ROWS`` rows the checks train),
+    written under ``root`` once. Their parameters' agreement at dropout 0
+    depends on the data (Adam turns a near-0 gradient's last bits into
+    updates of up to lr), so the checks keep the data they were set on."""
+    data_root = os.path.join(root, "parity_data")
+    if not os.path.isdir(data_root):
+        n = len(FLEET_GROUPS)
+        for e, group in enumerate(FLEET_GROUPS[:len(FLEET_PARITY_ROWS)]):
+            write_smd(data_root, n=800 + (400 * e) // (n - 1), group=group, seed=1 + e)
+    return data_root
+
+
 def fleet_lengths() -> list:
-    """Ragged train lengths of the fleet's 28 machines, 800 to 1,200 rows
-    (1,600 to 2,400 before phase ``fleet_wide_features`` needed the time)."""
+    """Ragged train lengths of the fleet's 28 machines, 400 to 600 rows
+    (1,600 to 2,400 before phase ``fleet_wide_features`` needed the time,
+    800 to 1,200 before phase ``multi_device``'s fleet over ranks did)."""
     n = len(FLEET_GROUPS)
-    return [800 + (400 * e) // (n - 1) for e in range(n)]
+    return [400 + (200 * e) // (n - 1) for e in range(n)]
 
 
 class FleetProbe:
@@ -4336,7 +4381,7 @@ def check_fleet_training(gen, dev, work, smi) -> dict:
     """Phase ``fleet_training``: grouped K4 and K3 under gradients against G
     launches and their plain versions; grouped K1-res and K2ab against G
     launches and theirs, and the attention under gradients; 28 synthetic SMD
-    machines (ragged, 800-1,200 train rows) trained by ``sweep_cli
+    machines (ragged, 400-600 train rows) trained by ``sweep_cli
     --batched`` (1 epoch, dropout 0.3, float32): with dense attention at
     batch 64, and through the attention kernels at batch 64 and 256, each
     entity's run written and scored, ``predict_cli`` reproducing one; three
@@ -4375,8 +4420,9 @@ def check_fleet_training(gen, dev, work, smi) -> dict:
     # the phase's launches: its three sweeps, each counted from 0
     counts = {k: rec["launches"][k] + sum(r["launches"][k] for r in sweeps.values())
               for k in rec["launches"]}
-    parity = check_fleet_parity(data_root, dev)
-    kparity = check_fleet_parity(data_root, dev, "pallas")
+    parity_root = parity_machines(root)
+    parity = check_fleet_parity(parity_root, dev)
+    kparity = check_fleet_parity(parity_root, dev, "pallas")
     numbers = fleet_training_numbers(data_root, smi, dev)
     knumbers = {bs: fleet_training_numbers(data_root, smi, dev, "pallas", bs)
                 for bs in FLEET_TRAIN_ROWS}
@@ -4659,7 +4705,8 @@ def check_fleet_wide_window(gen, dev, data_root, out_root, smi) -> dict:
               data_root, "--device", "cuda", "--log_tensorboard", "False"]
     sweep = batched_sweep(common, out_root, "wide", "pallas", FLEET_TRAIN_BS,
                           FLEET_WIDE_LOOKBACK)
-    parity = check_fleet_parity(data_root, dev, "pallas", FLEET_WIDE_LOOKBACK, (0.0,))
+    parity = check_fleet_parity(parity_machines(os.path.dirname(data_root)), dev, "pallas",
+                                FLEET_WIDE_LOOKBACK, (0.0,))
     numbers = fleet_training_numbers(data_root, smi, dev, "pallas", FLEET_TRAIN_BS,
                                      FLEET_WIDE_LOOKBACK)
     return {"kernels": kernels, "sweep": sweep, "parity": parity, "numbers": numbers,
@@ -4946,6 +4993,12 @@ MESH_DEADLINE = 600.0
 # the two halves across ranks, so ten times that.
 MESH_GRAD_TOL = 1e-4
 MESH_RING_ROWS = 700              # the ring path's entity: 6 steps of 64 at window 300
+# the halo path's entity: phase long_window's configuration, 306 windows at
+# lookback 1024 (5 steps of 64 and a validation batch an epoch)
+HALO_ROWS = 1330
+HALO_FLAGS = ["--lookback", "1024", "--temporal_graph", "band:128", "--bias_storage", "band",
+              "--bs", "64"]
+FLEET_MESH_RANKS = 3
 
 
 def mesh_argv(data_root: str, out_root: str, *flags: str) -> list:
@@ -5015,7 +5068,7 @@ def timed_epoch(trainer, x_train) -> dict:
             "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
 
 
-def multi_device_rank(data_root: str, ring_root: str, out_root: str) -> list:
+def multi_device_rank(data_root: str, ring_root: str, halo_root: str, out_root: str) -> list:
     """One rank of phase 20 (every rank runs it; rank 0 returns every
     rank's record). (a) ``train_cli.train_rank``, the function each rank
     of ``train_cli --mesh_devices 2 --model_parallel 1`` runs, at the
@@ -5024,7 +5077,10 @@ def multi_device_rank(data_root: str, ring_root: str, out_root: str) -> list:
     step's gradients at dropout 0 and a timed epoch at dropout 0.3. (b)
     ``train_rank`` of ``--mesh_devices 2 --model_parallel 2 --attention_impl
     ring --lookback 300 --bs 64`` at dropout 0: launches, ring calls,
-    losses, digest, peak memory."""
+    losses, digest, peak memory. (c) ``train_rank`` of the same mesh at
+    ``HALO_FLAGS`` (lookback 1024, band:128) at dropout 0: launches, halo
+    and ring calls, plain calls, losses, digest, peak memory; then a
+    ``Trainer`` epoch at dropout 0.3 on a (model 2) mesh."""
     import torch.distributed as dist
 
     import mtad_gat_tpu_torch.nn.gat as ngat
@@ -5086,18 +5142,385 @@ def multi_device_rank(data_root: str, ring_root: str, out_root: str) -> list:
                                        "step_losses")}
     rec["ring"].update(ring_calls=ring_calls[0],
                        digest=param_digest(run["last_epoch"]["trainer"].model))
+    del run
+    rec["halo"] = halo_rank_path(halo_root, os.path.join(out_root, "halo"), entry("halo"))
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, rec)
     return every
 
 
-def check_multi_device(work, data_root: str, smi: str) -> dict:
+def halo_rank_path(halo_root: str, out_c: str, entry) -> dict:
+    """Path (c) on one rank: ``entry`` (``train_rank``) of ``HALO_FLAGS`` on
+    (model 2) at dropout 0 with the halo and the ring counted and the plain
+    calls, then one ``Trainer`` epoch at dropout 0.3 on a (model 2) mesh."""
+    import mtad_gat_tpu_torch.nn.gat as ngat
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.data.windows import batched_starts
+    from mtad_gat_tpu_torch.parallel import make_mesh
+    from mtad_gat_tpu_torch.training import Trainer
+
+    calls = {"banded_halo_attention": 0, "ring_gatv2_attention": 0}
+    real = {name: getattr(ngat, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return real[name](*args, **kw)
+        return call
+
+    for name in calls:
+        setattr(ngat, name, counted(name))
+    t0 = time.perf_counter()
+    try:
+        with plain_calls() as plain:
+            run = timed_train_cli(mesh_argv(halo_root, out_c, *HALO_FLAGS, "--attention_impl",
+                                            "ring", "--gru_impl", "pallas", "--epochs", "1",
+                                            "--dropout", "0", "--run_id", "halo",
+                                            "--mesh_devices", "2", "--model_parallel", "2"),
+                                  out_c, entry)
+    finally:
+        for name, fn in real.items():
+            setattr(ngat, name, fn)
+    trainer = run["last_epoch"]["trainer"]
+    rec = {k: run[k] for k in ("seconds", "launches", "peak_extra_bytes",
+                               "train_windows_per_s_by_epoch", "epoch_losses", "step_losses")}
+    rec.update(calls=dict(calls), plain=dict(plain), digest=param_digest(trainer.model),
+               temporal_halos=trainer.model.temporal_gat.halos(trainer.mesh),
+               feature_rings=trainer.model.feature_gat.rings(trainer.mesh))
+    del run, trainer
+
+    mesh = make_mesh(model_parallel=2, device=torch.device("cuda", 0))
+    cfg = RunConfig(lookback=1024, temporal_graph="band:128", bias_storage="band", bs=64,
+                    attention_impl="ring", gru_impl="pallas", dropout=0.3, epochs=1,
+                    log_tensorboard=False)
+    trainer = Trainer(cfg.model_config(38, 38), cfg.train_config(),
+                      log_dir=os.path.join(out_c, "logs_dropout"), device="cuda", mesh=mesh)
+    trainer.init_state()
+    (x_train, _), _ = get_data("machine-1-1", data_root=halo_root, normalize=True)
+    starts, mask, _ = batched_starts(0, 64, indices=np.arange(len(x_train) - 1024))
+    f, r = trainer.train_epoch(trainer._series(x_train), starts, mask)
+    rec.update(dropout_losses=[f.tolist(), r.tolist()], dropout_digest=param_digest(trainer.model),
+               path_seconds=time.perf_counter() - t0)
+    return rec
+
+
+def fleet_mesh_parity(fleet_data: str, ref_path: str, mesh=None) -> dict:
+    """Phase ``fleet_training``'s 28 machines at dropout 0 through every
+    kernel, batch 64, 1 epoch, on cuDNN's deterministic algorithms (its
+    default weight gradient of the grouped conv sums with atomics, and two
+    runs of one fleet then disagree) and with TF32 off. Without ``mesh``, on this device: one
+    ``MultiEntityTrainer`` of all 28 (G 28) and one of each block that
+    ``FLEET_MESH_RANKS`` data ranks train (``entity_blocks``: G 10, 9, 9),
+    written to ``ref_path``. Over ``mesh`` (every rank calls this): the
+    fleet's parameters and losses against both, bit for bit against the
+    blocks' and by their largest differences against G 28's."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.training import MultiEntityTrainer
+    from mtad_gat_tpu_torch.training.multi_entity import entity_blocks
+
+    cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, dropout=0.0, log_tensorboard=False,
+                    attention_impl="pallas", gru_impl="pallas")
+    series = [get_data(f"machine-{g}", data_root=fleet_data, normalize=True)[0][0]
+              for g in FLEET_GROUPS]
+
+    def fit(entities, over=None):
+        fleet = MultiEntityTrainer(cfg.model_config(38, 38), cfg.train_config(), device="cuda",
+                                   mesh=over)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fleet.fit(entities, verbose=False)
+        torch.cuda.synchronize()
+        return {"seconds": time.perf_counter() - t0, "fleet_steps": fleet.fleet_steps,
+                "losses": [e["train_total"] for e in fleet.losses],
+                "params": {k: v.detach().cpu() for k, v in fleet.params.items()}}
+
+    # and with TF32 off on both sides: spawned ranks start with PyTorch's
+    # defaults, whose cuDNN convolutions take TF32
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if mesh is None:
+            whole = fit(series)
+            parts = [fit(series[first:end]) for first, end in
+                     entity_blocks(len(series), FLEET_MESH_RANKS)]
+            blocks = {"losses": [x for p in parts for x in p["losses"]],
+                      "params": {k: torch.cat([p["params"][k] for p in parts])
+                                 for k in whole["params"]}}
+            torch.save({"whole": whole, "blocks": blocks}, ref_path)
+            return {"seconds": whole["seconds"], "fleet_steps": whole["fleet_steps"],
+                    "blocks_seconds": [p["seconds"] for p in parts]}
+        mine = fit(series, mesh)
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    ref = torch.load(ref_path)
+    params, whole = mine["params"], ref["whole"]["params"]
+    return {"seconds": mine["seconds"], "fleet_steps": mine["fleet_steps"],
+            "bits_equal_to_blocks_by_param": {k: torch.equal(v, ref["blocks"]["params"][k])
+                                              for k, v in params.items()},
+            "losses_equal_to_blocks": mine["losses"] == ref["blocks"]["losses"],
+            "g28_param_max_abs_err_by_entity": [
+                max((params[k][e] - whole[k][e]).abs().max().item() for k in params)
+                for e in range(len(series))],
+            "g28_param_max_abs_err_by_name": {k: (v - whole[k]).abs().max().item()
+                                              for k, v in params.items()},
+            "g28_bits_equal_by_param": {k: torch.equal(v, whole[k]) for k, v in params.items()},
+            "g28_loss_max_abs_err": float(np.max(np.abs(
+                np.array(mine["losses"]) - np.array(ref["whole"]["losses"]))))}
+
+
+def batched_product_probe(gen) -> dict:
+    """Whether the fleet's vmapped ops give an entity's bits whatever the
+    number of entities: products of the model that run no kernel of the
+    port (a linear layer at the GRU input projection's and the heads'
+    shapes, the conv, a batched matmul at the attention's projection) and
+    two reductions (the RMSE's mean, a bias gradient's sum), each op's
+    output and its gradients of both operands, at G 28 against the same
+    entities' slices at G 10 and 9 (the blocks of 3 data ranks), with
+    cuDNN's default and its deterministic algorithms."""
+    import torch.nn.functional as F
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+
+    cases = {
+        "linear (6400, 38) x (450, 38) [GRU input projection]":
+            (lambda x, w: F.linear(x, w), (6400, 38), (450, 38)),
+        "linear (64, 150) x (150, 150) [forecast head]":
+            (lambda x, w: F.linear(x, w), (64, 150), (150, 150)),
+        "conv1d (64, 38, 106) x (38, 38, 7) [conv]":
+            (lambda x, w: F.conv1d(x, w), (64, 38, 106), (38, 38, 7)),
+        "matmul (64, 38, 100) x (100, 200) [feature attention's projection]":
+            (lambda x, w: torch.matmul(x, w), (64, 38, 100), (100, 200)),
+        "matmul (64, 38, 100) x lin.weight[:, :100].T (200, 200) [as nn/gat.py computes p]":
+            (lambda x, w: x @ w[:, :100].t(), (64, 38, 100), (200, 200)),
+        "matmul (64, 100, 38) x lin.weight[:, :38].T (76, 76) [the temporal layer's p]":
+            (lambda x, w: x @ w[:, :38].t(), (64, 100, 38), (76, 76)),
+        "mean over a window's (100, 38) [the RMSE's per-window mean]":
+            (lambda x, w: ((x - w) ** 2).reshape(64, -1).mean(dim=1), (64, 100, 38),
+             (64, 100, 38)),
+        "sum over the batch (64, 450) [a bias gradient]":
+            (lambda x, w: (x * w).sum(dim=0), (64, 450), (64, 450)),
+    }
+    def run(fn, x, w, cot):
+        """The vmapped product and its gradients of x and w for ``cot``."""
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = torch.func.vmap(fn)(xs, ws)
+        out.backward(cot)
+        return out.detach(), xs.grad, ws.grad
+
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            for name, (fn, xs, ws) in cases.items():
+                x, w = r(28, *xs), r(28, *ws)
+                cot = r(*torch.func.vmap(fn)(x, w).shape)
+                whole = run(fn, x, w, cot)
+                out[f"{name}, cudnn.deterministic {det}"] = {
+                    f"G {end - first} (entities {first}-{end - 1})": [
+                        torch.equal(part, full[first:end]) for part, full in zip(
+                            run(fn, x[first:end], w[first:end], cot[first:end]), whole)]
+                    for first, end in ((0, 10), (10, 19))}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def fleet_mesh_rank(argv: list, fleet_data: str, ref_path: str) -> list:
+    """One rank of phase 20's path (d) (every rank runs it; rank 0 returns
+    every rank's record): ``sweep_cli.main(argv)`` as this rank of the
+    group (``--num_processes``), with its fleet epoch probed (launches,
+    vmap rules, each grouped kernel's G), the plain calls counted and the
+    peak memory; then ``fleet_mesh_parity`` over a (data 3) mesh."""
+    import torch.distributed as dist
+
+    from mtad_gat_tpu_torch.cli import sweep_cli
+    from mtad_gat_tpu_torch.kernels import gat as kg
+    from mtad_gat_tpu_torch.kernels import gru as kgru
+    from mtad_gat_tpu_torch.parallel import make_mesh
+    from mtad_gat_tpu_torch.training import MultiEntityTrainer
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    grouped = {"gatv2_attention_res": kg.gatv2_attention_res, "gatv2_bwd_graph": kg.gatv2_bwd_graph,
+               "gru_scan_fwd": kgru.gru_scan_fwd, "gru_scan_bwd": kgru.gru_scan_bwd,
+               "gru_weight_grads": kgru.gru_weight_grads}
+    groups = {}
+    real_epoch = MultiEntityTrainer.train_epoch
+
+    def epoch(trainer, *args):
+        out = real_epoch(trainer, *args)
+        # the epoch's last launches: its last step's, all grouped
+        groups.update(entities=trainer.n_entities,
+                      **{k: fn.last_launch["groups"] for k, fn in grouped.items()})
+        return out
+
+    MultiEntityTrainer.train_epoch = epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    try:
+        with FleetProbe() as probe, plain_calls() as plain:
+            t0 = time.perf_counter()
+            sweep_cli.main(argv + ["--num_processes", str(world), "--process_id", str(rank)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        MultiEntityTrainer.train_epoch = real_epoch
+    rec = {"rank": rank, "seconds": seconds, "launches": read_counts(), "plain": dict(plain),
+           "epoch": probe.epochs[0], "groups": groups,
+           "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
+    mesh = make_mesh(model_parallel=1, device=torch.device("cuda", 0))
+    rec["parity"] = fleet_mesh_parity(fleet_data, ref_path, mesh)
+    every = [None] * world
+    dist.all_gather_object(every, rec)
+    return every
+
+
+def check_fleet_mesh(gen, work, fleet_data: str, one_device: dict, smi: str) -> dict:
+    """Path (d) of phase 20: the one-device fleet at dropout 0 here, then
+    ``FLEET_MESH_RANKS`` ranks sharing the card, each running
+    ``fleet_mesh_rank``; the ``fleet_state.pt`` they wrote resumed here.
+    ``one_device`` is phase ``fleet_training``'s one-device sweep at the
+    same settings. Fails on any check; returns rank 0's launches and the
+    record."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.parallel import multihost
+    from mtad_gat_tpu_torch.training import MultiEntityTrainer
+    from mtad_gat_tpu_torch.training.multi_entity import entity_blocks
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "multi_device_fleet")
+    os.makedirs(root)
+    ref_path = os.path.join(root, "one_device_params.pt")
+    one_parity = fleet_mesh_parity(fleet_data, ref_path)
+    probe = batched_product_probe(gen)
+    out_d = os.path.join(root, "output")
+    argv = ["--dataset", "SMD", "--epochs", "1", "--dropout", "0.3", "--data_root", fleet_data,
+            "--device", "cuda", "--log_tensorboard", "False", "--bs", str(FLEET_TRAIN_BS),
+            "--output_root", out_d, "--batched", "--run_id", "mesh", "--attention_impl",
+            "pallas", "--gru_impl", "pallas", "--mesh_devices", str(FLEET_MESH_RANKS),
+            "--groups", ",".join(FLEET_GROUPS)]
+    t1 = time.perf_counter()
+    every = multihost.spawn(FLEET_MESH_RANKS, fleet_mesh_rank, (argv, fleet_data, ref_path),
+                            device_type="cuda", deadline=MESH_DEADLINE)
+    spawn_seconds = time.perf_counter() - t1
+
+    E = len(FLEET_GROUPS)
+    blocks = [end - first for first, end in entity_blocks(E, FLEET_MESH_RANKS)]
+    problems = []
+    for r, block in zip(every, blocks):
+        name = f"rank {r['rank']} of the fleet mesh"
+        try:
+            expect_fleet_epoch(name, r["epoch"], 0.3, kernels=True)
+        except AssertionError as err:
+            problems.append(str(err))
+        want_groups = {"entities": block, **{k: block for k in r["groups"] if k != "entities"}}
+        if r["groups"] != want_groups:
+            problems.append(f"{name}: grouped launches {r['groups']}, expected {want_groups}")
+        if any(r["plain"].values()):
+            problems.append(f"{name}: plain calls {r['plain']}")
+    summaries = {}
+    for group in FLEET_GROUPS:
+        run = os.path.join(out_d, "SMD", group, "mesh")
+        written = sorted(f for f in os.listdir(run) if f.startswith("summary"))
+        if written != ["summary.txt"]:
+            problems.append(f"{group}: summaries {written}")
+        summaries[group] = finite_summary(os.path.join(run, "summary.txt"))
+    if not os.path.exists(os.path.join(out_d, "SMD", "sweep_summary.json")):
+        problems.append("no sweep_summary.json")
+
+    # the fleet state the ranks wrote, resumed on this device
+    cfg = RunConfig(bs=FLEET_TRAIN_BS, epochs=1, dropout=0.3, log_tensorboard=False,
+                    attention_impl="pallas", gru_impl="pallas")
+    resumed = MultiEntityTrainer(cfg.model_config(38, 38), cfg.train_config(), device="cuda")
+    resumed.load_fleet(os.path.join(out_d, "SMD", "fleet", "mesh", "fleet_state.pt"), E)
+    resumed.fit([get_data(f"machine-{g}", data_root=fleet_data, normalize=True)[0][0]
+                 for g in FLEET_GROUPS], verbose=False)
+    written = [torch.load(os.path.join(out_d, "SMD", g, "mesh", "model.pt")) for g in FLEET_GROUPS]
+    resume_equal = resumed.fleet_steps == 0 and all(
+        torch.equal(v, written[e][k])
+        for e in range(E) for k, v in resumed.entity_params(e).items())
+    if not resume_equal:
+        problems.append("fleet_state.pt resumed on one device differs from the sweep's models")
+    parity = every[0]["parity"]
+    if not (all(parity["bits_equal_to_blocks_by_param"].values())
+            and parity["losses_equal_to_blocks"]):
+        problems.append("dropout 0: the mesh fleet differs from one device's fleets of its "
+                        f"blocks: {parity['bits_equal_to_blocks_by_param']}")
+    if parity["g28_loss_max_abs_err"] > FLEET_PARITY_TOL:
+        problems.append("dropout 0: losses against one device's fleet of 28: "
+                        f"{parity['g28_loss_max_abs_err']}")
+    if any(r["parity"]["g28_param_max_abs_err_by_entity"]
+           != parity["g28_param_max_abs_err_by_entity"] for r in every):
+        problems.append("the ranks' gathered parameters differ")
+
+    epochs = [r["epoch"] for r in every]
+    windows, slowest = sum(ep["windows"] for ep in epochs), max(ep["seconds"] for ep in epochs)
+    rec = {"phase": "multi_device", "path": "(d) the fleet over data ranks", "nvidia_smi": smi,
+           "run": f"sweep_cli --batched --mesh_devices {FLEET_MESH_RANKS} --attention_impl "
+                  f"pallas --gru_impl pallas --bs {FLEET_TRAIN_BS}, {E} machines, dropout 0.3, "
+                  "1 epoch, each rank a process of one group (--num_processes)",
+           "entity_blocks": blocks, "spawn_seconds": spawn_seconds,
+           "seconds_by_rank": [r["seconds"] for r in every],
+           "launches_by_rank": [r["launches"] for r in every],
+           "grouped_G_by_rank": [r["groups"] for r in every],
+           "fleet_steps_by_rank": [ep["steps"] for ep in epochs],
+           "epoch_seconds_by_rank": [ep["seconds"] for ep in epochs],
+           "windows_by_rank": [ep["windows"] for ep in epochs],
+           "all_rank_windows_per_s": windows / slowest,
+           "one_device_windows_per_s": one_device["windows_per_s"],
+           "one_device_source": "phase fleet_training, sweep_cli --batched, attention pallas, "
+                                f"batch {FLEET_TRAIN_BS}, dropout 0.3, this call",
+           "peak_extra_bytes_by_rank": [r["peak_extra_bytes"] for r in every],
+           "bf_f1_by_machine": {g: v["bf_result"]["f1"] for g, v in summaries.items()},
+           "dropout0_bits_equal_to_one_device_blocks": all(
+               parity["bits_equal_to_blocks_by_param"].values())
+           and parity["losses_equal_to_blocks"],
+           "dropout0_g28_param_max_abs_err_by_entity": parity["g28_param_max_abs_err_by_entity"],
+           "dropout0_g28_param_max_abs_err_by_name": parity["g28_param_max_abs_err_by_name"],
+           "dropout0_g28_loss_max_abs_err": parity["g28_loss_max_abs_err"],
+           "dropout0_g28_all_bits_equal": all(parity["g28_bits_equal_by_param"].values()),
+           "dropout0_fleet_steps": {"one_device_g28": one_parity["fleet_steps"],
+                                    "by_rank": [r["parity"]["fleet_steps"] for r in every]},
+           "dropout0_seconds": {"one_device_g28": one_parity["seconds"],
+                                "one_device_blocks": one_parity["blocks_seconds"],
+                                "by_rank": [r["parity"]["seconds"] for r in every]},
+           "fleet_parity_tol": FLEET_PARITY_TOL,
+           "g28_entities_params_within_tol": sum(
+               e <= FLEET_PARITY_TOL for e in parity["g28_param_max_abs_err_by_entity"]),
+           "held": "bits equal to one device's fleets of the same blocks (G 10, 9, 9); the "
+                   "losses within fleet_parity_tol of one device's fleet of 28; its "
+                   "parameters reported, not held: ops round by the entity count "
+                   "(ops_bits_equal_by_G) and Adam turns a near-0 gradient's last bits "
+                   "into updates of up to lr",
+           "ops_bits_equal_by_G": probe,
+           "fleet_state_resumed_on_one_device_equal": resume_equal,
+           "path_seconds": time.perf_counter() - t0}
+    emit(rec)
+    if problems:
+        raise AssertionError("multi_device (fleet): " + "; ".join(problems))
+    return {"launches": every[0]["launches"], "record": rec}
+
+
+def check_multi_device(gen, work, data_root: str, fleet_data: str, one_device_fleet: dict,
+                       smi: str) -> dict:
     """Phase 20: ``MESH_RANKS`` ranks sharing the card over gloo (NCCL
     refuses two ranks on one device), spawned by ``parallel.multihost.spawn``
     as ``train_cli --mesh_devices`` spawns them, each running
-    ``multi_device_rank``; the single-device references in this process
-    before, and ``predict_cli.main --mesh_devices 2`` after. Fails on any
-    check; returns rank 0's launches on path (a) and the numbers."""
+    ``multi_device_rank`` (paths (a) to (c)); the single-device references
+    in this process before, and ``predict_cli.main --mesh_devices 2`` after;
+    then path (d), ``check_fleet_mesh``, on phase ``fleet_training``'s
+    machines (``fleet_data``) beside its one-device sweep
+    (``one_device_fleet``). Fails on any check; returns rank 0's launches
+    on paths (a), (c) and (d) and the numbers."""
     from mtad_gat_tpu_torch.cli import predict_cli
     from mtad_gat_tpu_torch.data import get_data
     from mtad_gat_tpu_torch.parallel import multihost
@@ -5105,6 +5528,8 @@ def check_multi_device(work, data_root: str, smi: str) -> dict:
     root = os.path.join(work, "multi_device")
     ring_root = os.path.join(root, "ring_data")
     write_smd(ring_root, n=MESH_RING_ROWS)
+    halo_root = os.path.join(root, "halo_data")
+    write_smd(halo_root, n=HALO_ROWS)
     (x_train, _), _ = get_data("machine-1-1", data_root=data_root, normalize=True)
     ref_grads = first_batch_grads(flagship_trainer(os.path.join(root, "logs"), 0.0), x_train)
     one = timed_epoch(flagship_trainer(os.path.join(root, "logs"), 0.3), x_train)
@@ -5114,10 +5539,16 @@ def check_multi_device(work, data_root: str, smi: str) -> dict:
                                       "--epochs", "1", "--dropout", "0", "--run_id", "dense"),
                             out_dense)
     del dense["last_epoch"]
+    out_halo = os.path.join(root, "halo_dense")
+    halo_dense = timed_train_cli(mesh_argv(halo_root, out_halo, *HALO_FLAGS, "--attention_impl",
+                                           "dense", "--gru_impl", "pallas", "--epochs", "1",
+                                           "--dropout", "0", "--run_id", "dense"), out_halo)
+    del halo_dense["last_epoch"]
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    every = multihost.spawn(MESH_RANKS, multi_device_rank, (data_root, ring_root, root),
+    every = multihost.spawn(MESH_RANKS, multi_device_rank,
+                            (data_root, ring_root, halo_root, root),
                             device_type="cuda", deadline=MESH_DEADLINE)
     spawn_seconds = time.perf_counter() - t0
     out_a = os.path.join(root, "data_axis")
@@ -5140,6 +5571,14 @@ def check_multi_device(work, data_root: str, smi: str) -> dict:
                         for x, y in zip(r, d))
     summary = finite_summary(os.path.join(run_a, "summary.txt"))
     reproduced = finite_summary(os.path.join(run_a, "summary_1.txt")) == summary
+    want_c, steps_c = expected_training_launches(HALO_ROWS, HALO_ROWS, 1024, 64, 1, 0.1, "pallas")
+    halo_want = {name: (want_c[name] if name.startswith("gru") else 0)
+                 for name in KERNEL_COUNTERS}
+    forwards_c = want_c["gru_scan_fwd"] // 2       # K3 twice a forward
+    _, halo_loss_err = loss_errors(every[0]["halo"]["epoch_losses"], halo_dense["epoch_losses"])
+    halo_step_err = max(abs(x - y) / abs(y) for r, d in zip(every[0]["halo"]["step_losses"],
+                                                            halo_dense["step_losses"])
+                        for x, y in zip(r, d))
     rec = {
         "phase": "multi_device", "nvidia_smi": smi, "ranks": MESH_RANKS,
         "backend": [r["backend"] for r in every], "mesh": every[0]["mesh"],
@@ -5171,6 +5610,31 @@ def check_multi_device(work, data_root: str, smi: str) -> dict:
             "ring_epoch_losses": every[0]["ring"]["epoch_losses"],
             "dense_epoch_losses": dense["epoch_losses"],
             "digests": [r["ring"]["digest"] for r in every]},
+        "halo": {
+            "config": "train_rank of --mesh_devices 2 --model_parallel 2 --attention_impl ring "
+                      "--gru_impl pallas " + " ".join(HALO_FLAGS) + f", {HALO_ROWS} rows, "
+                      "dropout 0, 1 epoch; temporal N 1024 (512 a rank, W 128: the halo), "
+                      "feature N 38 (19 a rank: the ring)",
+            "steps": steps_c, "forwards": forwards_c,
+            "temporal_halos_by_rank": [r["halo"]["temporal_halos"] for r in every],
+            "feature_rings_by_rank": [r["halo"]["feature_rings"] for r in every],
+            "calls_by_rank": [r["halo"]["calls"] for r in every],
+            "launches_by_rank": [r["halo"]["launches"] for r in every],
+            "plain_by_rank": [r["halo"]["plain"] for r in every],
+            "epoch_loss_max_rel_err": halo_loss_err, "step_loss_max_rel_err": halo_step_err,
+            "tol": WIDE_LOSS_TOL,
+            "halo_epoch_losses": every[0]["halo"]["epoch_losses"],
+            "one_device_epoch_losses": halo_dense["epoch_losses"],
+            "dropout_0_3_losses": every[0]["halo"]["dropout_losses"],
+            "peak_extra_bytes_by_rank": [r["halo"]["peak_extra_bytes"] for r in every],
+            "one_device_peak_extra_bytes": halo_dense["peak_extra_bytes"],
+            "halo_train_windows_per_s_by_epoch":
+                every[0]["halo"]["train_windows_per_s_by_epoch"],
+            "one_device_train_windows_per_s_by_epoch": halo_dense["train_windows_per_s_by_epoch"],
+            "seconds_by_rank": [r["halo"]["path_seconds"] for r in every],
+            "one_device_seconds": halo_dense["seconds"],
+            "digests": [r["halo"]["digest"] for r in every],
+            "dropout_digests": [r["halo"]["dropout_digest"] for r in every]},
     }
     emit(rec)
     problems = []
@@ -5187,10 +5651,25 @@ def check_multi_device(work, data_root: str, smi: str) -> dict:
                             f"expected {ring_want}")
         if r["ring"]["ring_calls"] != want_b["gru_scan_fwd"]:
             problems.append(f"rank {r['rank']}: {r['ring']['ring_calls']} ring calls")
+        h = r["halo"]
+        if {k: h["launches"][k] for k in KERNEL_COUNTERS} != halo_want:
+            problems.append(f"rank {r['rank']}: halo launches {h['launches']}, expected "
+                            f"{halo_want}")
+        if h["calls"] != {"banded_halo_attention": forwards_c,
+                          "ring_gatv2_attention": forwards_c}:
+            problems.append(f"rank {r['rank']}: halo and ring calls {h['calls']}, expected "
+                            f"{forwards_c} each")
+        if any(h["plain"].values()) or not (h["temporal_halos"] and h["feature_rings"]):
+            problems.append(f"rank {r['rank']}: halo path plain calls {h['plain']}, routes "
+                            f"{h['temporal_halos']}, {h['feature_rings']}")
+        if not np.all(np.isfinite(h["dropout_losses"])):
+            problems.append(f"rank {r['rank']}: halo losses at dropout 0.3 "
+                            f"{h['dropout_losses']}")
     if len(every[0]["cli"]["epoch_losses"]) != 1:
         problems.append(f"metrics written {len(every[0]['cli']['epoch_losses'])} times")
     for what in (lambda r: r["cli"]["digest"], lambda r: r["epoch"]["digest"],
-                 lambda r: r["ring"]["digest"]):
+                 lambda r: r["ring"]["digest"], lambda r: r["halo"]["digest"],
+                 lambda r: r["halo"]["dropout_digest"]):
         if len({what(r) for r in every}) != 1:
             problems.append("the ranks' parameters differ")
     if max(max(e.values()) for e in grad_err) > MESH_GRAD_TOL:
@@ -5199,9 +5678,13 @@ def check_multi_device(work, data_root: str, smi: str) -> dict:
         problems.append("predict_cli --mesh_devices 2 did not reproduce the summary")
     if not (ring_loss_err <= WIDE_LOSS_TOL and ring_step_err <= WIDE_LOSS_TOL):
         problems.append(f"ring losses against dense: {ring_loss_err}, {ring_step_err}")
+    if not (halo_loss_err <= WIDE_LOSS_TOL and halo_step_err <= WIDE_LOSS_TOL):
+        problems.append(f"halo losses against one device's: {halo_loss_err}, {halo_step_err}")
     if problems:
         raise AssertionError("multi_device: " + "; ".join(problems))
-    return {"launches": every[0]["cli"]["launches"], "record": rec}
+    fleet = check_fleet_mesh(gen, work, fleet_data, one_device_fleet, smi)
+    return {"launches": every[0]["cli"]["launches"], "halo_launches": every[0]["halo"]["launches"],
+            "fleet_launches": fleet["launches"], "record": rec, "fleet": fleet["record"]}
 
 
 def main() -> None:
@@ -5281,7 +5764,8 @@ def main() -> None:
         mark("fleet_wide_window")
         fleet_features = check_fleet_wide_features(gen, dev, work, smi)
         mark("fleet_wide_features")
-        multi = check_multi_device(work, data_root, smi)
+        multi = check_multi_device(gen, work, data_root, os.path.join(fleet_root, "data"),
+                                   fleet_train["kernel_sweeps"][FLEET_TRAIN_BS], smi)
         mark("multi_device")
     emit({"phase": "seconds", "by_phase": {name: t - marks[i][1]
                                            for i, (name, t) in enumerate(marks[1:])},
@@ -5297,7 +5781,9 @@ def main() -> None:
                       "fleet_training": fleet_train["launches"][name],
                       "fleet_wide_window": fleet_wide["launches"][name],
                       "fleet_wide_features": fleet_features["launches"][name],
-                      "multi_device": multi["launches"].get(name, 0)}
+                      "multi_device": multi["launches"].get(name, 0),
+                      "multi_device_halo": multi["halo_launches"].get(name, 0),
+                      "multi_device_fleet": multi["fleet_launches"].get(name, 0)}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]

@@ -23,6 +23,15 @@ every ``--checkpoint_every`` epochs and resumes from it with
 ``--auto_resume --run_id <id>``. It runs on the GPU unless ``--device cpu``
 or ``--use_cuda False`` is given (``cli/args.resolve_device``).
 
+On a mesh, as ``train_cli``: ``--mesh_devices N`` spawns N ranks here
+(``--coordinator host:port --num_processes P --process_id i`` joins a group
+started elsewhere). The batched sweep builds a mesh whose model axis is 1
+whatever ``--model_parallel`` says, as the JAX sweep does, splits the fleet's
+entities over its data axis (``MultiEntityTrainer(mesh=)``) and scores each
+entity over the same mesh; the sequential sweep trains and scores each
+entity over the mesh of ``--model_parallel``. The primary rank writes the
+run directories and the summary.
+
     python -m mtad_gat_tpu_torch.cli.sweep_cli --batched --epochs 10 \\
         --attention_impl pallas --gru_impl pallas --data_root <root> --output_root <out>
 """
@@ -38,6 +47,7 @@ import numpy as np
 
 from mtad_gat_tpu_torch.cli.args import get_parser, resolve_device, to_run_config
 from mtad_gat_tpu_torch.config import RunConfig
+from mtad_gat_tpu_torch.parallel import multihost
 
 
 def discover_smd_entities(data_root: str) -> List[str]:
@@ -58,6 +68,8 @@ def _groups(cfg: RunConfig, groups: Optional[List[str]]) -> List[str]:
 
 
 def _write_summary(cfg: RunConfig, results: Dict[str, Dict]) -> None:
+    if not multihost.is_primary():
+        return
     agg = aggregate(results)
     out = os.path.join(cfg.output_root, "SMD", "sweep_summary.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -66,36 +78,44 @@ def _write_summary(cfg: RunConfig, results: Dict[str, Dict]) -> None:
     print(json.dumps(agg, indent=2))
 
 
-def _refuse_unported(cfg: RunConfig) -> None:
-    if cfg.mesh_devices:
-        raise NotImplementedError(
-            "--mesh_devices: a fleet sharded over devices is not ported to "
-            "mtad_gat_tpu_torch yet (ROADMAP.md, Queue 1 item 8b)")
+def _read_summary(save_path: str) -> Dict:
+    """A run's ``summary.txt``, read by the primary and handed to every rank."""
+    summary = None
+    if multihost.is_primary():
+        with open(os.path.join(save_path, "summary.txt")) as f:
+            summary = json.load(f)
+    return multihost.broadcast_object(summary)
 
 
 def run_sweep(cfg: RunConfig, groups: Optional[List[str]] = None,
-              device: Optional[str] = None) -> Dict[str, Dict]:
-    """Train and score each entity in turn through ``run_training``."""
+              device: Optional[str] = None, mesh=None) -> Dict[str, Dict]:
+    """Train and score each entity in turn through ``run_training`` (over
+    ``mesh``'s ranks when given: every rank calls this)."""
     from mtad_gat_tpu_torch.cli.train_cli import run_training
 
-    _refuse_unported(cfg)
     results = {}
     for group in _groups(cfg, groups):
         print(f"===== training machine-{group} =====")
         entity_cfg = RunConfig.from_dict({**cfg.__dict__, "group": group})
-        save_path = run_training(entity_cfg, device=device)
-        with open(os.path.join(save_path, "summary.txt")) as f:
-            results[group] = json.load(f)
+        results[group] = _read_summary(run_training(entity_cfg, device=device, mesh=mesh))
     _write_summary(cfg, results)
     return results
 
 
+def _check_fleet_resume(cfg: RunConfig) -> None:
+    if cfg.auto_resume and not cfg.run_id:
+        raise ValueError("--auto_resume needs --run_id: the fleet state lives under "
+                         "<output>/SMD/fleet/<run_id>")
+
+
 def run_sweep_batched(cfg: RunConfig, groups: Optional[List[str]] = None,
-                      device: Optional[str] = None) -> Dict[str, Dict]:
+                      device: Optional[str] = None, mesh=None) -> Dict[str, Dict]:
     """Train every entity at once (``MultiEntityTrainer``), then score each
     through ``run_prediction``. The fleet shares one topology, so a
     ``knn:K`` feature graph comes from the concatenated train series of all
-    entities (the sequential sweep builds one an entity)."""
+    entities (the sequential sweep builds one an entity). ``mesh`` (every
+    rank calls this) splits the entities over its data axis and scores
+    each entity over it."""
     from mtad_gat_tpu_torch.cli.train_cli import run_prediction
     from mtad_gat_tpu_torch.data import get_data, get_target_dims
     from mtad_gat_tpu_torch.graph import knn_edges_from_series, parse_graph_spec
@@ -103,7 +123,6 @@ def run_sweep_batched(cfg: RunConfig, groups: Optional[List[str]] = None,
     from mtad_gat_tpu_torch.training import MultiEntityTrainer
     from mtad_gat_tpu_torch.training.checkpoint import save_checkpoint
 
-    _refuse_unported(cfg)
     dev = resolve_device(device, cfg.use_cuda)
     groups = _groups(cfg, groups)
     data = {g: get_data(f"machine-{g}", data_root=cfg.data_root, normalize=cfg.normalize)
@@ -120,14 +139,15 @@ def run_sweep_batched(cfg: RunConfig, groups: Optional[List[str]] = None,
         print(f"Feature graph {cfg.feature_graph} (shared across the fleet, from the "
               f"concatenated train series): {len(src)} edges")
 
-    if cfg.auto_resume and not cfg.run_id:
-        raise ValueError("--auto_resume needs --run_id: the fleet state lives under "
-                         "<output>/SMD/fleet/<run_id>")
+    _check_fleet_resume(cfg)
     run_id = cfg.run_id or datetime.now().strftime("%d%m%Y_%H%M%S")
+    if mesh is not None:
+        run_id = multihost.broadcast_object(run_id)   # rank 0's clock names the run
+        print(f"Batched sweep mesh: {mesh.shape} (entity axis over data); {mesh.describe()}")
     fleet_dir = os.path.join(cfg.output_root, "SMD", "fleet", run_id)
     model_cfg = cfg.model_config(n_features, out_dim)
     trainer = MultiEntityTrainer(model_cfg, cfg.train_config(), target_dims=target_dims,
-                                 save_path=fleet_dir, device=str(dev))
+                                 save_path=fleet_dir, device=str(dev), mesh=mesh)
     fleet_ckpt = os.path.join(fleet_dir, MultiEntityTrainer.FLEET_STATE_FILE)
     if cfg.auto_resume and os.path.exists(fleet_ckpt):
         trainer.load_fleet(fleet_ckpt, len(groups))
@@ -139,15 +159,15 @@ def run_sweep_batched(cfg: RunConfig, groups: Optional[List[str]] = None,
     model = MTADGAT(model_cfg).to(dev)
     for e, group in enumerate(groups):
         save_path = os.path.join(cfg.output_root, "SMD", group, run_id)
-        os.makedirs(save_path, exist_ok=True)
         params = trainer.entity_params(e)
         save_checkpoint(os.path.join(save_path, "model.pt"), params)
         model.load_state_dict(params)
         (x_train, _), (x_test, y_test) = data[group]
         results[group] = run_prediction(model, cfg, "SMD", group, target_dims, n_features,
-                                        save_path, x_train, x_test, y_test)
-        RunConfig.from_dict({**cfg.__dict__, "group": group}).save(
-            os.path.join(save_path, "config.txt"))
+                                        save_path, x_train, x_test, y_test, mesh=mesh)
+        if multihost.is_primary():
+            RunConfig.from_dict({**cfg.__dict__, "group": group}).save(
+                os.path.join(save_path, "config.txt"))
     _write_summary(cfg, results)
     return results
 
@@ -192,9 +212,34 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict]:
     args = parser.parse_args(argv)
     cfg = to_run_config(args)
     groups = [g for g in args.groups.split(",") if g] or None
+    if not (cfg.mesh_devices or cfg.coordinator or cfg.num_processes > 0):
+        run = run_sweep_batched if args.batched else run_sweep
+        return run(cfg, groups, device=args.device)
+    from mtad_gat_tpu_torch.kernels import _build
+
+    dev = resolve_device(args.device, cfg.use_cuda)
     if args.batched:
-        return run_sweep_batched(cfg, groups, device=args.device)
-    return run_sweep(cfg, groups, device=args.device)
+        _check_fleet_resume(cfg)
+        # spawned ranks share this process's clock for the run directories' name
+        cfg.run_id = cfg.run_id or datetime.now().strftime("%d%m%Y_%H%M%S")
+    if dev.type == "cuda":
+        _build.build_all()   # once, before the ranks load the libraries
+    return multihost.run_mesh(sweep_rank, (cfg, groups, args.batched, dev.type),
+                              cfg.mesh_devices, cfg.coordinator, cfg.num_processes,
+                              cfg.process_id, dev)
+
+
+def sweep_rank(cfg: RunConfig, groups: Optional[List[str]], batched: bool,
+               device_type: str) -> Dict[str, Dict]:
+    """One rank of a mesh sweep: the batched sweep's mesh has a model axis
+    of 1 (the entities split over the data axis, as the JAX sweep's), the
+    sequential sweep's ``--model_parallel`` or the default factorization."""
+    from mtad_gat_tpu_torch.parallel import make_mesh
+
+    model_parallel = 1 if batched else (cfg.model_parallel or None)
+    mesh = make_mesh(model_parallel=model_parallel, device=multihost.local_device(device_type))
+    run = run_sweep_batched if batched else run_sweep
+    return run(cfg, groups, device=str(mesh.device), mesh=mesh)
 
 
 if __name__ == "__main__":

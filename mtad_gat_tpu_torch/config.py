@@ -54,8 +54,9 @@ class MTADGATConfig:
     # goes to the fused kernel, nn/gat.dense_route), "sparse" (the COO
     # path), "pallas" (the fused attention kernel) or "ring" (GATv2 on a
     # complete graph with its node axis split over a mesh's model axis,
-    # parallel/ring_attention.py; the dense ops without such a mesh; on a
-    # band:W graph it raises, ROADMAP.md Queue 1 item 8b).
+    # parallel/ring_attention.py; on a band:W graph, GATv2 or GATv1, the
+    # halo exchange, parallel/banded_halo.py; the single-device paths
+    # without such a mesh).
     attention_impl: str = "dense"
     # trades recompute for memory in the backward pass of the dense path:
     # accepted for config compatibility, no effect in the port

@@ -231,28 +231,29 @@ class _RecomputedStep(torch.autograd.Function):
 
     Inputs: the step (a function of the rest), the offset d, the carry (the
     running max, which carries no gradient, the denominator and the
-    weighted sum), pB, qB, vB, af, the bias (or its band blocks) and the
-    seed: what ``checkpoint`` kept. The step draws from no generator, so a
+    weighted sum), pB, qB, vB, af, the bias (or its band blocks), the
+    attendable keys in block layout (or None) and the seed: what
+    ``checkpoint`` kept. The step draws from no generator, so a
     recompute is the forward's function bit for bit."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(step, d, m_run, denom, acc, pB, qB, vB, af, bias, seed):
-        return step(d, m_run, denom, acc, pB, qB, vB, af, bias, seed)
+    def forward(step, d, m_run, denom, acc, pB, qB, vB, af, bias, kv, seed):
+        return step(d, m_run, denom, acc, pB, qB, vB, af, bias, kv, seed)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        step, d, m_run, denom, acc, pB, qB, vB, af, bias, seed = inputs
+        step, d, m_run, denom, acc, pB, qB, vB, af, bias, kv, seed = inputs
         ctx.mark_non_differentiable(output[0])
         ctx.step, ctx.d = step, d
         ctx.seed = None if isinstance(seed, torch.Tensor) else seed
-        ctx.save_for_backward(m_run, denom, acc, pB, qB, vB, af, bias,
+        ctx.save_for_backward(m_run, denom, acc, pB, qB, vB, af, bias, kv,
                               seed if isinstance(seed, torch.Tensor) else None)
 
     @staticmethod
     def backward(ctx, _, g_denom, g_acc):
-        m_run, *diff, seed = ctx.saved_tensors
+        m_run, *diff, kv, seed = ctx.saved_tensors
         seed = ctx.seed if seed is None else seed
         # the step's differentiable inputs: denom, acc, pB, qB, vB, af, bias
         live = [i for i, t in enumerate(diff) if t is not None and ctx.needs_input_grad[3 + i]]
@@ -261,7 +262,7 @@ class _RecomputedStep(torch.autograd.Function):
             args = list(diff)
             for i, x in zip(live, xs):
                 args[i] = x
-            return ctx.step(ctx.d, m_run, *args, seed)[1:]
+            return ctx.step(ctx.d, m_run, *args, kv, seed)[1:]
 
         # no_grad: torch.func.grad runs the backward pass with create_graph
         # on, so a recorded recompute would keep every step's (b, M, B, B, e)
@@ -276,7 +277,7 @@ class _RecomputedStep(torch.autograd.Function):
             grads = [None] * len(diff)
             for i, g in zip(live, vjp((g_denom, g_acc), retain_graph=False)):
                 grads[i] = g
-        return (None, None, None, *grads, None)
+        return (None, None, None, *grads, None, None)
 
 
 def banded_attention_scan(
@@ -292,6 +293,8 @@ def banded_attention_scan(
     dropout_seed=None,
     bias_storage: str = "full",
     recompute: bool = True,
+    key_valid: Optional[torch.Tensor] = None,   # (N,) bool: the keys that may be attended
+    hash_offset: int = 0,
 ) -> torch.Tensor:
     """Banded attention whose memory does not grow with W: a loop over
     block-diagonal offsets with an online softmax (running max, denominator
@@ -311,7 +314,15 @@ def banded_attention_scan(
     is. Under vmap ``dropout_seed`` is an entity's own and the batch index
     is within the entity, so each entity's mask is its solo call's. The
     mask applies to the numerator only, as the reference's dropout on the
-    normalised weights does.
+    normalised weights does. ``hash_offset`` is added to both node indices
+    before they are hashed: a block of a longer sequence whose node 0 is
+    that sequence's node ``hash_offset`` draws the whole sequence's mask
+    for its pairs (``parallel/banded_halo.py``).
+
+    ``key_valid`` marks the keys that may be attended at all (rows stay
+    queries), as in the JAX function: the halo path's hook for halo rows
+    that lie outside the sequence. It travels in block layout and rolls
+    with the key blocks.
     """
     gatv2 = a is not None
     b, n, dv = v.shape
@@ -330,6 +341,10 @@ def banded_attention_scan(
         qB = _pad_nodes(q.float(), pad).reshape(b, M, B)
         af = None
     vB = _pad_nodes(v, pad).float().reshape(b, M, B, dv)
+    kvB = None
+    if key_valid is not None:
+        kvB = torch.cat([key_valid.bool(), key_valid.new_zeros(pad, dtype=torch.bool)])
+        kvB = kvB.reshape(M, B)
     D = min(-(-bandwidth // B), M)     # block offsets covering the band
     rate = dropout_rate
     if rate > 0.0 and dropout_seed is None:
@@ -347,7 +362,7 @@ def banded_attention_scan(
         bias = F.pad(bias, (2 * B, 2 * B))
     keep_below = keep_threshold(rate) if rate > 0.0 else 0
 
-    def step(d: int, m_run, denom, acc, pB, qB, vB, af, bias, seed):
+    def step(d: int, m_run, denom, acc, pB, qB, vB, af, bias, kv, seed):
         # the index tensors are made here, not captured: a tensor made
         # under a torch.func transform and read inside _RecomputedStep
         # would belong to a level the Function has left
@@ -361,6 +376,8 @@ def banded_attention_scan(
         valid = (((d * B + loff).abs()[None] <= bandwidth)
                  & (gj[:, None, :] >= 0) & (gj[:, None, :] < n)
                  & (gi[:, :, None] < n))           # (M, B, B)
+        if kv is not None:
+            valid = valid & torch.roll(kv, -d, dims=0)[:, None, :]
         if gatv2:
             z = leaky_relu(pB[:, :, :, None, :] + qd[:, :, None, :, :], alpha)
             s = torch.matmul(z.float(), af)       # (b, M, B, B)
@@ -384,8 +401,9 @@ def banded_attention_scan(
         denom = denom * scale + wgt.sum(dim=-1)
         if rate > 0.0:
             bidx = torch.arange(b, device=dev)[:, None, None, None]
-            keep = hash_u32(seed, bidx, gi_c[None, :, :, None],
-                             gj.clamp(0, n - 1)[None, :, None, :]) < keep_below
+            rows = (gi_c + hash_offset).clamp(min=0)[None, :, :, None]
+            cols = (gj.clamp(0, n - 1) + hash_offset).clamp(min=0)[None, :, None, :]
+            keep = hash_u32(seed, bidx, rows, cols) < keep_below
             wgt = torch.where(keep, wgt / (1.0 - rate), 0.0)
         acc = acc * scale[..., None] + torch.matmul(wgt, vd)
         return m_new, denom, acc
@@ -400,7 +418,7 @@ def banded_attention_scan(
         seed = int(seed)
     train = recompute and torch.is_grad_enabled()
     for d in range(-D, D + 1):
-        args = (d, *carry, pB, qB, vB, af, bias, seed)
+        args = (d, *carry, pB, qB, vB, af, bias, kvB, seed)
         carry = _RecomputedStep.apply(step, *args) if train else step(*args)
     _, denom, acc = carry
     out = acc / torch.where(denom > 0, denom, 1.0)[..., None]

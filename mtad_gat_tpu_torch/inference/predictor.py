@@ -19,7 +19,7 @@ thresholds (reg_level=2), and entity-level evaluation with the three
 thresholding methods, JSON summary, and output pickles.
 
 On a mesh (``mesh=``) each data slice's ranks score their columns of every
-batch (``multihost.epoch_arrays``), the ring layers over the model axis;
+batch (``multihost.epoch_arrays``), the ring and halo layers over the model axis;
 the forecasts and reconstructions are gathered over the data axis in
 window order, and the primary rank thresholds and writes, then hands its
 summary to every rank.
@@ -80,9 +80,6 @@ class Predictor:
         smoothing_base: int = 256,
         mesh=None,
     ):
-        if mesh is not None and batch_size % mesh.dp:
-            raise ValueError(f"batch {batch_size} not divisible by the mesh's {mesh.dp} "
-                             "data slices")
         self.mesh = mesh
         self.model = model.eval()
         self.window_size = window_size
@@ -124,10 +121,12 @@ class Predictor:
         out_dim = preds[0].shape[-1]
 
         def in_window_order(parts):
-            # (n_batches, bs / dp, out) a data slice -> batch by batch, slice by slice
+            # (n_batches, ceil(bs / dp), out) a data slice -> batch by batch,
+            # slice by slice, the padded columns cut before the windows
             local = torch.stack(parts).float()
             if self.mesh is not None and self.mesh.dp > 1:
                 local = torch.stack(all_gather(local, self.mesh.data_group), dim=1)
+                local = local.reshape(local.shape[0], -1, out_dim)[:, :self.batch_size]
             return local.reshape(-1, out_dim)[:n_windows].cpu().numpy()
 
         return in_window_order(preds), in_window_order(recons)

@@ -27,9 +27,10 @@ computed in decomposed form (``p_i + q_j``). Dispatch, as the JAX layer's
   with more than one model rank is active (``parallel.use_mesh``), else,
   as in the JAX layer (its single-shard case), the dense ops; else the
   dense ops. The ring runs GATv2 on complete graphs only (a GATv1 layer
-  under ``impl="ring"`` takes the dense ops, as in the JAX layer): a band
-  under ``impl="ring"`` (the JAX package's halo exchange) is not ported
-  yet.
+  under ``impl="ring"`` takes the dense ops, as in the JAX layer);
+- a band under ``impl="ring"``, GATv2 or GATv1: the halo exchange over the
+  model axis (``parallel/banded_halo.py``) where such a mesh is active and
+  W <= ceil(N / S), else the band paths of ``impl="dense"``.
 
 In training mode the attention weights take dropout at ``dropout`` from the
 caller's generator: the kernels' and the block scan's hash mask keyed by a
@@ -49,6 +50,7 @@ from torch.nn.utils import skip_init
 from mtad_gat_tpu_torch.graph.dropout import hash_seed
 from mtad_gat_tpu_torch.graph.ops import (
     BAND_UNROLL_CUTOFF,
+    _banded_bias_cols,
     banded_attention_scan,
     banded_bias_to_full,
     gat_aggregate_coo,
@@ -70,6 +72,7 @@ from mtad_gat_tpu_torch.graph.structure import (
 from mtad_gat_tpu_torch.kernels import _vmap
 from mtad_gat_tpu_torch.kernels.gat import gatv2_attention
 from mtad_gat_tpu_torch.nn.init import torch_linear_, xavier_uniform_gain_
+from mtad_gat_tpu_torch.parallel.banded_halo import banded_halo_attention
 from mtad_gat_tpu_torch.parallel.ring_attention import ring_gatv2_attention
 from mtad_gat_tpu_torch.parallel.sharding import copy_to_model, current_mesh
 
@@ -130,12 +133,6 @@ def dense_route_threshold(device: torch.device) -> int:
     return _device_limit[index]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mtad_gat_tpu_torch yet (ROADMAP.md, {item})"
-    )
-
-
 class GATLayer(nn.Module):
     """Attention over a graph of ``n_nodes`` nodes, each with ``node_dim``
     input features: complete, or the COO ``edges`` (src, dst), or the band
@@ -153,9 +150,6 @@ class GATLayer(nn.Module):
         super().__init__()
         if impl not in ("dense", "sparse", "pallas", "ring"):
             raise ValueError(f"attention impl must be dense|sparse|pallas|ring, got {impl!r}")
-        if impl == "ring" and band is not None:
-            raise _not_ported("attention_impl='ring' on a band:W graph (the halo exchange)",
-                              "Queue 1 item 8b")
         if impl == "pallas" and (edges is not None or band is not None):
             raise ValueError("attention_impl='pallas' runs complete graphs only")
         if bias_storage == "band" and band is None:
@@ -195,11 +189,24 @@ class GATLayer(nn.Module):
                 and self.band is None)
 
     def rings(self, mesh) -> bool:
-        """Whether calls under ``mesh`` run the ring: ``impl="ring"`` on a
-        complete graph with more than one model rank. Such a layer's
-        parameter gradients are each model rank's part of the whole."""
+        """Whether calls under ``mesh`` run the ring: ``impl="ring"`` GATv2
+        on a complete graph with more than one model rank."""
         return (self.impl == "ring" and self.use_gatv2 and not self.has_graph
-                and mesh is not None and mesh.mp > 1)
+                and self.band is None and mesh is not None and mesh.mp > 1)
+
+    def halos(self, mesh) -> bool:
+        """Whether calls under ``mesh`` run the halo exchange: ``impl="ring"``
+        on a band with more than one model rank and W <= ceil(N / S) (the
+        JAX layer's rule); a wider band takes the single-device band path."""
+        return (self.impl == "ring" and self.band is not None and mesh is not None
+                and mesh.mp > 1 and self.band <= -(-self.n_nodes // mesh.mp))
+
+    def partial_grads(self, mesh) -> bool:
+        """Whether this layer's parameter gradients under ``mesh`` are each
+        model rank's part of the whole (the ring's and the halo's: a rank
+        differentiates through its own rows), so that the trainer sums them
+        over the model axis. Elsewhere every rank holds the whole gradient."""
+        return self.rings(mesh) or self.halos(mesh)
 
     def dense_route(self, v: torch.Tensor) -> bool:
         """Whether a dense GATv2 call on ``v`` goes to the fused kernel: the
@@ -229,7 +236,12 @@ class GATLayer(nn.Module):
         coo_bias = bias
         if bias is not None and self.bias_storage == "band" and self.has_graph:
             coo_bias = banded_bias_to_full(bias, self.n_nodes, self.band)
-        banded = self.band is not None and self.impl == "dense"
+        banded = self.band is not None and self.impl in ("dense", "ring")
+        mesh = current_mesh()
+        if self.partial_grads(mesh):
+            # every model rank computes p, q, v of all nodes and
+            # differentiates through its own rows only
+            v = copy_to_model(v, mesh)
 
         def seed():
             # one draw a layer call, on the device: the kernels and the
@@ -237,18 +249,21 @@ class GATLayer(nn.Module):
             # its own generator (EntityGenerators), at the same place
             return 0 if rate == 0.0 else hash_seed(generator, v)
 
+        def band_rows():
+            # the halo path reads the bias as its (N, 2W+1) band
+            return None if bias is None else _banded_bias_cols(bias, self.n_nodes, self.band,
+                                                               self.bias_storage)
+
         if self.use_gatv2:
-            mesh = current_mesh()
-            if self.rings(mesh):
-                # every model rank computes p, q, v of all nodes and
-                # differentiates through its own rows only
-                v = copy_to_model(v, mesh)
             # lin([v_i || v_j]) == v_i @ W_l^T + v_j @ W_r^T + b
             p = v @ w[:, :d].t()               # query side (i)
             q = v @ w[:, d:].t() + b           # key side (j)
             if self.rings(mesh):
                 return ring_gatv2_attention(p, q, a, bias, v, self.alpha, mesh,
                                             dropout_rate=rate, dropout_seed=seed()).to(cd)
+            if self.halos(mesh):
+                return banded_halo_attention(p, q, a, band_rows(), v, self.alpha, self.band,
+                                             mesh, rate, seed()).to(cd)
             if banded and self.band <= BAND_UNROLL_CUTOFF:
                 return gatv2_banded_attention(p, q, a, bias, v, self.alpha, self.band, rate,
                                               generator, self.bias_storage).to(cd)
@@ -270,6 +285,9 @@ class GATLayer(nn.Module):
                 # rank-1 GATv1 scores: the two halves once
                 u = torch.matmul(wx.float(), a[:e].float())
                 wk = torch.matmul(wx.float(), a[e:].float())
+                if self.halos(mesh):
+                    return banded_halo_attention(u, wk, None, band_rows(), v, self.alpha,
+                                                 self.band, mesh, rate, seed()).to(cd)
                 if self.band <= BAND_UNROLL_CUTOFF:
                     return gatv1_banded_attention(u, wk, bias, v, self.alpha, self.band,
                                                   rate, generator, self.bias_storage).to(cd)

@@ -20,7 +20,8 @@ Two ways to make ranks:
   ``jax.distributed.initialize``).
 
 Every rank computes the same seeded shuffle, and ``host_local_starts``
-keeps its data slice's column block of each batch.
+keeps its data slice's column block of each batch (a batch the data axis
+does not divide is padded with masked slots).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import time
 from datetime import timedelta
 from typing import Any, Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -127,9 +129,11 @@ def barrier() -> None:
 def host_local_starts(all_starts, data_shards: int, data_index: Optional[int] = None):
     """This rank's column block of a (n_batches, bs) epoch array: data slice
     ``data_index`` of ``data_shards`` (default: this process's, the ranks
-    of a data slice being consecutive as in ``mesh.rank_grid``). ``bs`` must
-    be divisible by ``data_shards``, so that the blocks side by side are
-    the single-device layout."""
+    of a data slice being consecutive as in ``mesh.rank_grid``). A batch
+    that ``data_shards`` does not divide is padded with zero columns to
+    ``ceil(bs / data_shards) * data_shards``, so that every rank runs the
+    same shapes and the blocks side by side are the single-device layout
+    followed by slots that start at 0 and are masked out."""
     if data_index is None:
         pid, pcount = process_info()
         if pcount == 1:
@@ -138,16 +142,21 @@ def host_local_starts(all_starts, data_shards: int, data_index: Optional[int] = 
     if data_shards == 1:
         return all_starts
     bs = all_starts.shape[1]
-    if bs % data_shards:
-        raise ValueError(f"batch {bs} not divisible by {data_shards} data shards")
-    per = bs // data_shards
-    return all_starts[:, data_index * per:(data_index + 1) * per]
+    per = -(-bs // data_shards)
+    local = all_starts[:, min(data_index * per, bs):(data_index + 1) * per]
+    short = per - local.shape[1]
+    if short == 0:
+        return local
+    if isinstance(local, torch.Tensor):
+        return torch.cat([local, local.new_zeros((local.shape[0], short))], dim=1)
+    return np.pad(local, ((0, 0), (0, short)))
 
 
 def epoch_arrays(mesh, starts, mask):
     """This rank's (starts, mask) of a (n_batches, bs) epoch: every rank
-    computes the same seeded arrays and keeps its data slice's columns.
-    Without a mesh, or with one data slice, the arrays themselves."""
+    computes the same seeded arrays and keeps its data slice's columns
+    (``host_local_starts``: padded slots have mask 0). Without a mesh, or
+    with one data slice, the arrays themselves."""
     if mesh is None or mesh.dp == 1:
         return starts, mask
     return (host_local_starts(starts, mesh.dp, mesh.data_index),

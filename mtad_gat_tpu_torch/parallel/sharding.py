@@ -13,7 +13,8 @@ the collectives below are what the port calls, each a differentiable
 
 - ``data_sum``: the sum over the data axis; its backward is the identity
   (each data rank's gradient is its part of the sum's);
-- ``ppermute``: a block rotated to the next rank of the model axis; its
+- ``ppermute``: a block rotated ``shift`` ranks along the model axis (the
+  ring passes to the next rank, the halo exchange to both neighbours); its
   backward rotates the gradient back;
 - ``copy_to_model``: the identity; its backward sums the gradient over the
   model axis (each model rank differentiates through its own rows only);
@@ -152,10 +153,12 @@ def data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     return x if group is None else _DataSum.apply(x, group)
 
 
-def ppermute(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` of the model rank before this one (the last rank's for rank 0)."""
+def ppermute(x: torch.Tensor, mesh, shift: int = 1) -> torch.Tensor:
+    """``x`` of the model rank ``shift`` places before this one, cyclically:
+    with shift 1 the previous rank's (the last rank's for rank 0), with -1
+    the next rank's."""
     group = None if mesh is None else mesh.model_group
-    return x if group is None else _PPermute.apply(x, group, 1)
+    return x if group is None else _PPermute.apply(x, group, shift)
 
 
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:

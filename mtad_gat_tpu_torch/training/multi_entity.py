@@ -36,6 +36,19 @@ Entity e's trajectory is its solo ``Trainer``'s to float tolerance:
 The series go to the device once per ``fit``, an epoch's schedule and its
 per-entity step scalars once per epoch, and the losses come back once per
 epoch.
+
+On a mesh (``mesh=``, one rank a process and a device), the entity axis is
+split over the data axis, as the JAX trainer shards it: data rank d trains
+the d-th of ``entity_blocks``' contiguous blocks (sizes differing by at
+most one, so 28 entities over 3 ranks train 10, 9 and 9) with no
+collective inside a step, each rank on its own block's schedule (all-masked
+steps are no-ops, so the ranks need no lockstep within an epoch). At each
+epoch's end the losses are gathered over the data axis, and after ``fit``
+the trained blocks, so that ``losses`` and ``entity_params`` cover every
+entity on every rank. ``fleet_state.pt`` keeps its one-device format: the
+primary writes the gathered blocks, and a state written on any number of
+ranks resumes on any other. A rank with no entity (fewer entities than
+data ranks) joins the collectives and takes no step.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import grad_and_value, vmap
 
 from mtad_gat_tpu_torch.config import MTADGATConfig, TrainConfig
@@ -58,6 +72,15 @@ from mtad_gat_tpu_torch.utils.weights import Stacked, stack_state_dicts, unstack
 
 # torch.optim.Adam's defaults, as the solo Trainer uses them
 BETA1, BETA2, EPS = 0.9, 0.999, 1e-8
+
+
+def entity_blocks(n_entities: int, n_ranks: int) -> List[Tuple[int, int]]:
+    """Each of ``n_ranks`` data ranks' (first, end) entities: contiguous
+    blocks in global order whose sizes differ by at most one, the larger
+    first (28 over 3: 10, 9, 9); empty where ranks outnumber entities."""
+    base, extra = divmod(n_entities, n_ranks)
+    ends = np.cumsum([base + (r < extra) for r in range(n_ranks)])
+    return [(int(e - base - (r < extra)), int(e)) for r, e in enumerate(ends)]
 
 
 def _per_entity(values, like: torch.Tensor) -> torch.Tensor:
@@ -73,7 +96,8 @@ class MultiEntityTrainer:
     ``exp_avg`` / ``exp_avg_sq`` Adam's moments alike, ``steps`` the
     entities' optimizer steps (a host int64 array: it seeds their dropout
     and picks their learning rates), ``losses`` one dict of the six loss
-    series an entity.
+    series an entity. Outside ``fit`` they hold every entity; inside it, on
+    a mesh, this rank's block (module docstring).
     """
 
     FLEET_STATE_FILE = "fleet_state.pt"
@@ -86,6 +110,7 @@ class MultiEntityTrainer:
         horizon: int = 1,
         save_path: str = "",
         device: str = "cuda",
+        mesh=None,
     ):
         if train_config.profile_dir:
             raise NotImplementedError(
@@ -99,6 +124,10 @@ class MultiEntityTrainer:
         self.window = model_config.window_size
         self.save_path = save_path
         self.device = torch.device(device)
+        # the entity axis over this mesh's data axis (module docstring)
+        self.mesh = mesh
+        # whether the state is this rank's block (inside fit on a mesh)
+        self._blockwise = False
         # the module the stacked weights run through; its own are not used
         self.model = MTADGAT(model_config).to(self.device)
         self._loss_fn = make_loss_fn(self.model, self.window, horizon, self.target_dims)
@@ -150,6 +179,47 @@ class MultiEntityTrainer:
     def entity_params(self, e: int) -> Dict[str, torch.Tensor]:
         """Entity e's trained weights as a port ``state_dict`` (CPU)."""
         return unstack_state_dict(self.params, e)
+
+    def _data_group(self):
+        return None if self.mesh is None else self.mesh.data_group
+
+    def _gathered(self, mine) -> list:
+        """Every data rank's ``mine`` in data-rank order (``[mine]`` without
+        a data axis): the fleet's host-side gathers, once an epoch."""
+        group = self._data_group()
+        if group is None:
+            return [mine]
+        every = [None] * dist.get_world_size(group)
+        dist.all_gather_object(every, mine, group=group)
+        return every
+
+    def _narrow(self, first: int, end: int) -> None:
+        """Keep entities first .. end - 1 of the state (this rank's block)."""
+        for name in ("params", "exp_avg", "exp_avg_sq"):
+            setattr(self, name, {n: p[first:end] for n, p in getattr(self, name).items()})
+        self.steps = self.steps[first:end]
+
+    def _state(self) -> dict:
+        """The whole fleet's state on the host: this rank's block gathered
+        with the others' in entity order inside ``fit`` on a mesh (every
+        rank must call it then), else the state itself."""
+        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+        mine = {"params": cpu(self.params), "exp_avg": cpu(self.exp_avg),
+                "exp_avg_sq": cpu(self.exp_avg_sq), "steps": torch.from_numpy(self.steps)}
+        if not self._blockwise:
+            return mine
+        blocks = self._gathered(mine)
+        return {"params": {n: torch.cat([b["params"][n] for b in blocks]) for n in mine["params"]},
+                **{k: {n: torch.cat([b[k][n] for b in blocks]) for n in mine[k]}
+                   for k in ("exp_avg", "exp_avg_sq")},
+                "steps": torch.cat([b["steps"] for b in blocks])}
+
+    def _restore(self, state: dict) -> None:
+        dev = lambda d: {k: v.to(self.device) for k, v in d.items()}  # noqa: E731
+        self.params = dev(state["params"])
+        self.exp_avg = dev(state["exp_avg"])
+        self.exp_avg_sq = dev(state["exp_avg_sq"])
+        self.steps = state["steps"].numpy().astype(np.int64)
 
     # ------------------------------------------------------------------
     def _schedule(self, orders: List[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
@@ -274,33 +344,30 @@ class MultiEntityTrainer:
     # ------------------------------------------------------------------
     def save_fleet(self) -> None:
         """``fleet_state.pt`` in the save path: the stacked weights, Adam's
-        moments and the entities' steps (which alone reseed their dropout)."""
-        if not self.save_path:
-            return
-        os.makedirs(self.save_path, exist_ok=True)
-        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
-        save_checkpoint(os.path.join(self.save_path, self.FLEET_STATE_FILE), {
-            "params": cpu(self.params), "exp_avg": cpu(self.exp_avg),
-            "exp_avg_sq": cpu(self.exp_avg_sq), "steps": torch.from_numpy(self.steps)})
+        moments and the entities' steps (which alone reseed their dropout),
+        of every entity; on a mesh the primary writes it (inside ``fit``
+        every rank calls this, for the gather)."""
+        if self.save_path:
+            save_checkpoint(os.path.join(self.save_path, self.FLEET_STATE_FILE), self._state())
 
     def load_fleet(self, path: str, n_entities: int) -> None:
-        """Restore a fleet state; ``fit`` then skips the epochs it had
-        trained while replaying their shuffles, so the resumed run equals
-        the uninterrupted one bit for bit."""
+        """Restore a fleet state of every entity (written on any number of
+        ranks); ``fit`` then skips the epochs it had trained while
+        replaying their shuffles, so the resumed run equals the
+        uninterrupted one bit for bit, and on a mesh each rank trains its
+        own block of it."""
         state = load_checkpoint(path)
         if len(state["steps"]) != n_entities:
             raise ValueError(f"{path} holds {len(state['steps'])} entities, not {n_entities}")
-        dev = lambda d: {k: v.to(self.device) for k, v in d.items()}  # noqa: E731
-        self.params = dev(state["params"])
-        self.exp_avg = dev(state["exp_avg"])
-        self.exp_avg_sq = dev(state["exp_avg_sq"])
-        self.steps = state["steps"].numpy().astype(np.int64)
+        self._restore(state)
 
     # ------------------------------------------------------------------
     def fit(self, series_list: List[np.ndarray], verbose: bool = True) -> None:
         """Train every entity for ``train_config.epochs`` in lockstep, each
         on ``Trainer.fit``'s schedule: a shuffled train/validation split,
-        a fresh train permutation every epoch, validation in order."""
+        a fresh train permutation every epoch, validation in order. On a
+        mesh each rank trains its block of the entities (module
+        docstring)."""
         cfg = self.train_config
         E = len(series_list)
         if self.params is None:
@@ -313,11 +380,12 @@ class MultiEntityTrainer:
             raise ValueError(
                 f"series of lengths {lengths} yield no training windows for some entity at "
                 f"window={self.window}, horizon={self.horizon}")
-        stacked = np.zeros((E, max(lengths), series_list[0].shape[1]), np.float32)
-        for e, s in enumerate(series_list):
-            stacked[e, : len(s)] = s
-        series = torch.from_numpy(stacked).to(self.device)
+        sharded = self._data_group() is not None
+        first, end = entity_blocks(E, self.mesh.dp)[self.mesh.data_index] if sharded else (0, E)
+        mine = range(first, end)
 
+        # every rank draws every entity's shuffles (host work), each entity
+        # from its own generator, and trains its own block
         host_rngs = [np.random.default_rng(cfg.seed) for _ in range(E)]
         train_idx, val_idx = [], []
         for e in range(E):
@@ -332,8 +400,15 @@ class MultiEntityTrainer:
                 train_idx.append(idx)
                 val_idx.append(np.array([], np.int64))
         has_val = [len(v) > 0 for v in val_idx]
-        if any(has_val):
-            vstarts, vmask, _ = self._schedule([np.sort(v) for v in val_idx])
+        my_val = any(has_val[e] for e in mine)
+        if mine:
+            stacked = np.zeros((len(mine), max(lengths[e] for e in mine),
+                                series_list[0].shape[1]), np.float32)
+            for i, e in enumerate(mine):
+                stacked[i, : lengths[e]] = series_list[e]
+            series = torch.from_numpy(stacked).to(self.device)
+            if my_val:
+                vstarts, vmask, _ = self._schedule([np.sort(val_idx[e]) for e in mine])
 
         self.losses = [{k: [] for k in ("train_total", "train_forecast", "train_recon",
                                         "val_total", "val_forecast", "val_recon")}
@@ -345,16 +420,26 @@ class MultiEntityTrainer:
         if start_epoch and verbose:
             print(f"Resuming fleet at epoch {start_epoch + 1}/{cfg.epochs}")
 
+        if sharded:
+            self._narrow(first, end)
+            self._blockwise = True
         for epoch in range(cfg.epochs):
             orders = [host_rngs[e].permutation(train_idx[e]) if cfg.shuffle_dataset
                       else train_idx[e] for e in range(E)]
             if epoch < start_epoch:
                 continue
-            starts, mask, real = self._schedule(orders)
-            self.last_batch_losses = self.train_epoch(series, starts, mask, real)
-            f, r, tot = self._aggregate(*self.last_batch_losses)
-            if any(has_val):
-                vf, vr, vtot = self._aggregate(*self._epoch_eval(series, vstarts, vmask))
+            nan = np.full(len(mine), np.nan)
+            f = r = tot = vf = vr = vtot = nan
+            batches = (np.zeros((0, len(mine))),) * 2
+            if mine:
+                starts, mask, real = self._schedule([orders[e] for e in mine])
+                batches = self.train_epoch(series, starts, mask, real)
+                f, r, tot = self._aggregate(*batches)
+                if my_val:
+                    vf, vr, vtot = self._aggregate(*self._epoch_eval(series, vstarts, vmask))
+            f, r, tot, vf, vr, vtot, batches = self._entity_order(
+                (f, r, tot, vf, vr, vtot), batches)
+            self.last_batch_losses = batches
             for e in range(E):
                 for key, val in (("train_forecast", f), ("train_recon", r),
                                  ("train_total", tot)):
@@ -368,3 +453,25 @@ class MultiEntityTrainer:
                       f"{float(np.mean(tot)):.5f}")
             if self.save_path and cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
                 self.save_fleet()
+        if sharded:
+            state = self._state()
+            self._blockwise = False
+            self._restore(state)
+
+    def _entity_order(self, epoch_losses: tuple, batches: tuple) -> tuple:
+        """An epoch's per-entity losses and (n_batches, E) batch losses of
+        every entity: this rank's gathered with the others' over the data
+        axis inside ``fit`` on a mesh (each rank's batch count its own,
+        NaN-padded to the most), else as they are."""
+        if not self._blockwise:
+            return (*epoch_losses, batches)
+        every = self._gathered((epoch_losses, batches))
+        rows = max(b[0].shape[0] for _, b in every)
+
+        def padded(x):
+            return np.concatenate([x, np.full((rows - len(x), x.shape[1]), np.nan)])
+
+        losses = tuple(np.concatenate([el[i] for el, _ in every])
+                       for i in range(len(epoch_losses)))
+        return (*losses, tuple(np.concatenate([padded(b[i]) for _, b in every], axis=1)
+                               for i in range(2)))

@@ -21,15 +21,20 @@ same six loss series, on raw series inputs.
 - A checkpoint holds params, optimizer state and step (``checkpoint.py``).
 - On a mesh (``mesh=``, ``parallel/mesh.make_mesh``; one rank a process
   and a device), each rank runs every step on its data slice's columns of
-  the batch (``multihost.epoch_arrays``), and the RMSEs' numerators and
+  the batch (``multihost.epoch_arrays``; a batch the data axis does not
+  divide is padded with masked slots), and the RMSEs' numerators and
   mask counts are summed over the data axis before the square root (an
-  RMSE is not a mean of the ranks' RMSEs). After ``backward`` the ring
-  layers' own parameter gradients are summed over the model axis, then
+  RMSE is not a mean of the ranks' RMSEs). After ``backward`` the
+  parameter gradients of the ring and halo layers (each model rank's part
+  of the whole, ``GATLayer.partial_grads``) are summed over the model axis,
+  then
   every gradient over the data axis; clipping and Adam follow on every
   rank alike, so the ranks' parameters stay equal. Dropout generators are
   seeded from (seed, step, data index): the model ranks of a data slice
   compute the same activations and draw the same masks, and data slices
-  draw their own. Only the primary rank writes checkpoints and metrics.
+  draw their own. With a model axis, cuDNN is held to its deterministic
+  algorithms, so that the model ranks' replicated gradients are equal.
+  Only the primary rank writes checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ def make_loss_fn(model: MTADGAT, window: int, horizon: int, target_dims, mesh=No
     trains and draws its masks from ``generator``. ``params`` (a name ->
     tensor dict) runs the model on those weights instead of its own, through
     ``torch.func.functional_call``: the form a fleet step vmaps. ``mesh``
-    is active around the model (its ring layers read it) and sums the
+    is active around the model (its ring and halo layers read it) and sums the
     RMSEs over its data axis."""
     dims = None if target_dims is None else list(target_dims)
 
@@ -163,9 +168,13 @@ class Trainer:
                 "profile_dir: profiling is not ported to mtad_gat_tpu_torch yet "
                 "(ROADMAP.md, Queue 1 item 9)")
         learning_rate(train_config, 0)   # an unknown schedule raises here
-        if mesh is not None and train_config.bs % mesh.dp:
-            raise ValueError(f"batch {train_config.bs} not divisible by the mesh's "
-                             f"{mesh.dp} data slices")
+        if mesh is not None and mesh.mp > 1:
+            # the model ranks of a data slice each compute the gradients of
+            # the layers they replicate, and must get the same bits: cuDNN's
+            # default weight-gradient algorithm for the conv sums with
+            # atomics, and two model ranks' conv gradients differed in their
+            # last bits on an H100 (so did their parameters after an epoch)
+            torch.backends.cudnn.deterministic = True
         self.mesh = mesh
         self.model_config = model_config
         self.train_config = train_config
@@ -209,7 +218,7 @@ class Trainer:
                                      self.mesh)
         # parameters whose gradient each model rank holds a part of
         self._ring_params = [p for m in self.model.modules()
-                             if isinstance(m, GATLayer) and m.rings(self.mesh)
+                             if isinstance(m, GATLayer) and m.partial_grads(self.mesh)
                              for p in m.parameters()]
         return self.model
 
@@ -233,9 +242,9 @@ class Trainer:
     def step_gradients(self, series: torch.Tensor, starts: torch.Tensor, mask: torch.Tensor,
                        generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
         """The (forecast, recon) RMSEs of one batch, whose gradients it
-        leaves in the parameters' ``grad``: ``starts`` and ``mask`` (bs / dp,)
+        leaves in the parameters' ``grad``: ``starts`` and ``mask`` (ceil(bs / dp),)
         are this rank's windows, and on a mesh the gradients are summed
-        over it (the ring layers' over the model axis, then all over the
+        over it (the ring and halo layers' over the model axis, then all over the
         data axis), so every rank holds the whole batch's."""
         total, (f, r) = self._loss_fn(series, starts, mask, generator, False)
         self.optimizer.zero_grad(set_to_none=True)

@@ -7,8 +7,10 @@
   farm, and each rank's data and model index its place in it.
 - ``host_local_starts`` and ``is_primary`` as ``tests/test_multihost.py``
   holds JAX's (process info monkeypatched): each rank keeps its column
-  block, the blocks tile the batch, a batch the data axis does not divide
-  raises, with a data slice of several model ranks too.
+  block, the blocks tile the batch, with a data slice of several model
+  ranks too; a batch the data axis does not divide is padded with zero
+  columns (masked out in ``epoch_arrays``), so the blocks side by side are
+  the single-device layout followed by them.
 - Without a process group: a one-rank mesh, every collective the
   identity, ``use_mesh`` / ``current_mesh`` and ``constrain`` as JAX's.
 - ``multihost.spawn``: a rank that raises makes it raise, and ranks past
@@ -83,9 +85,14 @@ def test_host_local_starts_multi_process_slicing(monkeypatch):
     monkeypatch.setattr(mh, "process_info", lambda: (3, 4))
     np.testing.assert_array_equal(mh.host_local_starts(starts, 2), starts[:, 4:])
 
-    monkeypatch.setattr(mh, "process_info", lambda: (0, 5))
-    with pytest.raises(ValueError, match="not divisible"):
-        mh.host_local_starts(starts, 5)
+    # five processes, eight columns: blocks of two, the last all padding
+    blocks = []
+    for pid in range(5):
+        monkeypatch.setattr(mh, "process_info", lambda pid=pid: (pid, 5))
+        blocks.append(mh.host_local_starts(starts, 5))
+        assert blocks[-1].shape == (3, 2)
+    np.testing.assert_array_equal(np.concatenate(blocks, axis=1),
+                                  np.pad(starts, ((0, 0), (0, 2))))
 
 
 def test_epoch_arrays_keep_the_data_slice():
@@ -98,8 +105,16 @@ def test_epoch_arrays_keep_the_data_slice():
         s, m = mh.epoch_arrays(mesh, starts, mask)
         d = rank // 2
         assert torch.equal(s, starts[:, d * 4:(d + 1) * 4]) and m.shape == (2, 4)
-    with pytest.raises(ValueError, match="not divisible"):
-        mh.epoch_arrays(Mesh(rank_grid(3, 1), 0, torch.device("cpu")), starts, mask)
+    # three data slices of eight columns: blocks of three, the padded slot
+    # starting at 0 and masked out, so the blocks side by side are the
+    # single-device layout followed by it
+    blocks = [mh.epoch_arrays(Mesh(rank_grid(3, 1), r, torch.device("cpu")), starts, mask)
+              for r in range(3)]
+    assert all(s.shape == m.shape == (2, 3) for s, m in blocks)
+    assert torch.equal(torch.cat([s for s, _ in blocks], dim=1)[:, :8], starts)
+    assert torch.equal(torch.cat([m for _, m in blocks], dim=1),
+                       torch.cat([mask, torch.zeros(2, 1)], dim=1))
+    assert torch.equal(blocks[2][0][:, 2], torch.zeros(2, dtype=starts.dtype))
 
 
 def test_one_rank_mesh_without_a_process_group():

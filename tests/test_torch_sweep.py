@@ -20,7 +20,9 @@
   ``torch.utils.checkpoint``'s saved-tensor hooks under ``torch.func``):
   two entities train at dropout 0 and 0.3, every summary written, and at
   dropout 0 each entity's weights are its sequential run's.
-- ``--mesh_devices`` raises naming Queue 1 item 8.
+- The mesh flags' refusals: ``--mesh_devices`` beside a process count it
+  is not, and ``--mesh_devices -1`` on the CPU (the sweeps over a mesh are
+  ``tests/test_torch_mesh_fleet.py``'s).
 """
 
 import json
@@ -199,11 +201,11 @@ def test_sweep_batched_on_a_wide_band(dropout, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--mesh_devices", "2"], "Queue 1 item 8"),
-    (["--batched", "--mesh_devices", "-1"], "Queue 1 item 8"),
+    (["--mesh_devices", "3", "--num_processes", "2"], "one rank is one device"),
+    (["--batched", "--mesh_devices", "-1"], "every visible card"),
 ])
 def test_sweep_refusals(extra, match, tmp_path):
     root = _entities(tmp_path, [("1-1", 200)])
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         sweep_cli.main(_argv(root, tmp_path / "output", *extra))
     assert not os.path.exists(tmp_path / "output" / "SMD" / "sweep_summary.json")

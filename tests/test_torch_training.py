@@ -24,6 +24,8 @@
   the port's ``predict_cli`` on it reproduces summary.txt; also with
   ``--gru_impl pallas``, and with ``--use_cuda False`` in place of
   ``--device cpu`` (the reference's way to ask for the CPU).
+- ``train_cli --attention_impl ring --temporal_graph band:2`` on one device
+  equals the dense band's run (the single-device band path).
 - The device rule of both entry points (``cli/args.resolve_device``).
 """
 
@@ -240,8 +242,26 @@ def _check_train_then_predict(tmp_path, flags, tiny=TINY, predict_flags=("--devi
     return run
 
 
+def test_train_cli_trains_ring_on_a_band(tmp_path):
+    """``--attention_impl ring --temporal_graph band:2``, refused until the
+    halo exchange was ported, trains on one device as the dense band does:
+    the same losses and the same summary at dropout 0."""
+    data, out = str(tmp_path / "data"), str(tmp_path / "out")
+    _write_smd(data)
+    runs = {}
+    for impl in ("ring", "dense"):
+        run = train_cli.main(["--dataset", "SMD", "--group", "1-1", "--data_root", data,
+                              "--output_root", out, *TINY, "--temporal_graph", "band:2",
+                              "--dropout", "0", "--attention_impl", impl, "--run_id", impl])
+        with open(os.path.join(run, "summary.txt")) as f:
+            runs[impl] = json.load(f)
+    assert runs["ring"] == runs["dense"]
+    with open(os.path.join(out, "SMD", "1-1", "logs", "metrics.jsonl")) as f:
+        ring, dense = (json.loads(line) for line in f)
+    assert ring["train_total"] == dense["train_total"]
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--attention_impl", "ring", "--temporal_graph", "band:2"], "Queue 1 item 8"),
     (["--profile_dir", "prof"], "Queue 1 item 9"),
 ])
 def test_train_cli_refuses_unported_paths(flags, item, tmp_path):
