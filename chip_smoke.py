@@ -112,14 +112,25 @@ In order, each phase failing the run with a non-zero exit:
    kernels, K3, K4's scan and K4's weights product twice each; per batch scored without
    gradient K1 and, with the GRU kernels, K3 twice; K1 and K1-res through
    the whole-graph kernel only) and that
-   ``predict_cli`` on the written run reproduces its summary;
+   ``predict_cli`` on the written run reproduces its summary; the float32
+   run with every kernel on also takes ``--profile_dir``: one trace file, of
+   its second epoch, in which each kernel of ``TRACED_KERNELS`` (K1-res,
+   K2ab, K3, K4's scan and weights product) shows as many kernel events as
+   its launch counters counted over the traced epoch, with the file's size,
+   the device's busy share over it and the trace's seconds; and its loss
+   plots written (or, where matplotlib is not installed, skipped);
 9. three one-epoch runs at dropout 0 from one seed: all plain, attention
    through the kernels, and attention and GRU through the kernels; per-step
    losses and final parameters of each kernel run must agree with the plain
    one. Then training windows/s in float32 and bfloat16 (all the steps of
    some epochs after a warm-up one, and each epoch's own rate) with the
    plain GRU loop and with every kernel on, and device time by kernel over
-   one profiled float32 epoch of each;
+   one profiled float32 epoch of each; then ``reporting``:
+   ``visualize_cli`` on phase 5's float32 kernel run, the files the root
+   ``visualize.py`` writes (the .png plots only where matplotlib is
+   installed), and the thresholds' host time on that run's scores
+   (epsilon, POT, the best-F1 search; ``utils/profiling.timed``, each
+   result equal to the run's summary);
 10. ``long_window``: the port's ``Trainer`` at lookback 1024 on a band:128
     temporal graph with the band-stored score bias (the block scan), batch
     64, float32, dropout 0.3, ``gru_impl auto``: 2 epochs of 4 steps, finite
@@ -302,7 +313,10 @@ In order, each phase failing the run with a non-zero exit:
     0 on each rank within ``MESH_GRAD_TOL`` of the single device's; the
     ranks' parameters equal bit for bit after each run; all-rank windows/s
     of a timed epoch beside one device's in this process, peak memory per
-    rank, the backend. (b) The model axis: ``train_rank`` of
+    rank, the backend; the run takes ``--profile_dir``, and each rank
+    writes its own trace of the epoch (two files, a rank's name in each),
+    its kernel events equal to its launch counters over the epoch, with its
+    busy share and its host time in collectives. (b) The model axis: ``train_rank`` of
     ``--mesh_devices 2 --model_parallel 2 --attention_impl ring
     --gru_impl pallas --lookback 300 --bs 64`` at dropout 0, 1 epoch on a
     700-row entity (temporal N 300, 150 a rank; feature N 38, 19 a rank):
@@ -364,6 +378,7 @@ import contextlib
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -1868,9 +1883,105 @@ def finite_summary(path: str) -> dict:
     return summary
 
 
+# the kernels of a traced training epoch at the flagship widths, each with
+# the counters whose launches it is (phase 8's trace, phase 20's per rank)
+TRACED_KERNELS = {
+    "gatv2_fwd_graph_kernel": ("gatv2_attention_fwd:graph", "gatv2_attention_res:graph"),
+    "gatv2_bwd_graph_kernel": ("gatv2_bwd_graph",),
+    "gru_fwd_cluster_kernel": ("gru_scan_fwd",),
+    "gru_bwd_cluster_kernel": ("gru_scan_bwd",),
+    "gru_bwd_weights_kernel": ("gru_weight_grads",),
+}
+
+
+@contextlib.contextmanager
+def counted_traces():
+    """Each ``Trainer.fit`` trace opened inside the block
+    (``utils/profiling.trace`` through ``training/trainer.py``): the launch
+    counters' change over the traced block, its file written, and its
+    seconds, one dict a trace."""
+    import mtad_gat_tpu_torch.training.trainer as trainer_module
+
+    real, traces = trainer_module.trace, []
+
+    @contextlib.contextmanager
+    def counted(*args, **kw):
+        before, t0 = read_counts(), time.perf_counter()
+        with real(*args, **kw) as prof:
+            yield prof
+        after = read_counts()
+        traces.append({"seconds": time.perf_counter() - t0,
+                       "launches": {k: n - before[k] for k, n in after.items() if n != before[k]}})
+
+    trainer_module.trace = counted
+    try:
+        yield traces
+    finally:
+        trainer_module.trace = real
+
+
+def trace_record(path: str, launches: dict) -> dict:
+    """A trace file's size, its kernel events by ``TRACED_KERNELS`` name
+    beside the launches its counters made over the traced block, the
+    device's busy share over the span of its device events, and the host's
+    time in collectives (the backends' ``gloo:`` and ``nccl:`` annotations,
+    which hold a collective's whole time where the ``c10d::`` operator only
+    enqueues it: on a mesh, what a rank's steps spend summing gradients
+    with the other ranks)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    span_us = (max(e["ts"] + e["dur"] for e in device) - min(e["ts"] for e in device)
+               if device else 0.0)
+    busy_us = sum(e["dur"] for e in device)
+    collective_us = sum(e.get("dur", 0) for e in events if e.get("cat") == "user_annotation"
+                        and re.match(r"(gloo|nccl):", e.get("name", "")))
+    return {"file": os.path.basename(path), "bytes": os.path.getsize(path),
+            "kernel_events": {name: sum(1 for e in kernels if re.search(rf"\b{name}\b", e["name"]))
+                              for name in TRACED_KERNELS},
+            "launches": {name: sum(launches.get(c, 0) for c in counters)
+                         for name, counters in TRACED_KERNELS.items()},
+            "all_kernel_events": len(kernels), "device_span_ms": span_us / 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / span_us if span_us else None,
+            "host_collective_ms": collective_us / 1e3,
+            "host_collective_share": collective_us / span_us if span_us else None}
+
+
+def trace_problem(trace: dict) -> str:
+    """Why a ``trace_record`` fails its check, or "" where each traced
+    kernel shows as many events as it had launches, and at least one."""
+    if "launches" not in trace:
+        return "no trace file read"
+    if trace["kernel_events"] != trace["launches"] or not all(trace["launches"].values()):
+        return f"kernel events {trace.get('kernel_events')}, launches {trace.get('launches')}"
+    return ""
+
+
+def loss_plots(run: str) -> str:
+    """train_cli's loss plots in the run directory: both written where
+    matplotlib is installed, else none (``plot_losses`` prints that it
+    skipped them)."""
+    import importlib.util
+
+    pngs = [n for n in ("train_losses.png", "validation_losses.png")
+            if os.path.exists(os.path.join(run, n))]
+    if importlib.util.find_spec("matplotlib") is None:
+        if pngs:
+            raise AssertionError(f"{run}: {pngs} written without matplotlib")
+        return "skipped: matplotlib is not installed on this machine"
+    if len(pngs) != 2:
+        raise AssertionError(f"{run}: loss plots {pngs}, expected train and validation")
+    return "written: " + ", ".join(pngs)
+
+
 def check_train_cli(work, data_root, gru_impl: str, epochs: int):
     """train_cli.main on the card with the attention kernels and the given
-    GRU path, float32 then bfloat16; returns the f32 run's launch counts."""
+    GRU path, float32 then bfloat16; returns the f32 run's launch counts.
+    With every kernel on, the float32 run also takes ``--profile_dir``: one
+    trace file, of the second epoch, whose kernel events match the launch
+    counters over that epoch; and its loss plots are checked."""
     from mtad_gat_tpu_torch.cli import predict_cli, train_cli
     from mtad_gat_tpu_torch.config import RunConfig
 
@@ -1883,9 +1994,14 @@ def check_train_cli(work, data_root, gru_impl: str, epochs: int):
         argv = common + ["--attention_impl", "pallas", "--gru_impl", gru_impl,
                          "--epochs", str(epochs), "--compute_dtype", dtype,
                          "--log_tensorboard", "False", "--run_id", "run", "--seed", "0"]
+        prof = (os.path.join(work, f"prof_{gru_impl}_{dtype}")
+                if gru_impl == "pallas" and dtype == "float32" else None)
+        if prof:
+            argv += ["--profile_dir", prof]
         reset_counts()
         t0 = time.perf_counter()
-        run = train_cli.main(argv)
+        with counted_traces() as traces:
+            run = train_cli.main(argv)
         seconds = time.perf_counter() - t0
         counts = read_counts()
         want, steps = expected_training_launches(2000, 2000, flagship.lookback, flagship.bs,
@@ -1898,6 +2014,15 @@ def check_train_cli(work, data_root, gru_impl: str, epochs: int):
                f"gru_impl {gru_impl}", "epochs": epochs, "seconds": seconds,
                "steps": steps, "launches": counts, "expected_launches": want,
                "epoch_losses": records, "bf_f1": summary["bf_result"]["f1"]}
+        if prof:
+            files = sorted(os.listdir(prof))
+            rec["trace"] = {"files": files, "traces_opened": len(traces),
+                            "traced_epoch": epochs - 1, "steps": steps // epochs}
+            if len(files) == 1 and len(traces) == 1:
+                rec["trace"].update(trace_record(os.path.join(prof, files[0]),
+                                                 traces[0]["launches"]),
+                                    seconds=traces[0]["seconds"])
+            rec["loss_plots"] = loss_plots(run)
         if dtype == "float32":
             predict_cli.main(common + ["--model_id", "run"])
             rec["predict_cli_reproduces_summary"] = (
@@ -1907,11 +2032,90 @@ def check_train_cli(work, data_root, gru_impl: str, epochs: int):
         if counts != want:
             raise AssertionError(f"train_cli {dtype} gru_impl {gru_impl}: launches "
                                  f"{counts}, expected {want}")
+        if prof and (len(rec["trace"]["files"]) != 1 or trace_problem(rec["trace"])):
+            raise AssertionError(f"train_cli --profile_dir: {rec['trace']['files']}, "
+                                 f"{trace_problem(rec['trace'])}")
         if not (len(losses) == 2 * epochs and np.all(np.isfinite(losses))):
             raise AssertionError(f"train_cli {dtype} gru_impl {gru_impl}: losses {losses}")
         if rec.get("predict_cli_reproduces_summary") is False:
             raise AssertionError("predict_cli did not reproduce the trained run's summary")
     return launches
+
+
+# what the root visualize.py writes into a run directory, at feature 0
+VISUALIZE_PNGS = ("feature_0.png", "all_features.png", "global_predictions.png",
+                  "anomaly_segments.png")
+VISUALIZE_HTML = ("feature_0.html", "global_predictions.html")
+THRESHOLD_REPEATS = 3
+
+
+def check_reporting(work, data_root) -> dict:
+    """``visualize_cli.main`` on phase 5's float32 kernel run: its summary
+    and the files the root ``visualize.py`` writes (the .png plots only
+    where matplotlib is installed; the interactive .html figures need no
+    plotting library). Then the thresholds' host work on that run's scores,
+    each method under ``utils/profiling.timed`` ``THRESHOLD_REPEATS``
+    times: epsilon, POT and the best-F1 search, with the predictor's
+    parameters, each result equal to the run's summary."""
+    import importlib.util
+
+    import pandas as pd
+
+    from mtad_gat_tpu_torch.cli import visualize_cli
+    from mtad_gat_tpu_torch.config import RunConfig, lookup_pot_params
+    from mtad_gat_tpu_torch.inference.eval_methods import bf_search, epsilon_eval, pot_eval
+    from mtad_gat_tpu_torch.utils.profiling import timed
+
+    out_root = os.path.join(work, "kernels_f32")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    before = set(os.listdir(os.path.join(out_root, "SMD", "1-1", SERVE_RUN)))
+    t0 = time.perf_counter()
+    run = visualize_cli.main(["--dataset", "SMD", "--group", "1-1", "--model_id", "-1",
+                              "--output_root", out_root])
+    vis_seconds = time.perf_counter() - t0
+    want = VISUALIZE_HTML + (VISUALIZE_PNGS if has_mpl else ())
+    written = sorted(set(os.listdir(run)) - before)
+    vis = {"phase": "reporting", "run": "visualize_cli on phase 5's kernels_f32 run",
+           "seconds": vis_seconds, "written": written,
+           "files": {n: os.path.getsize(os.path.join(run, n)) for n in written},
+           "png_plots": "written" if has_mpl else
+           "skipped: matplotlib is not installed on this machine"}
+    emit(vis)
+    if written != sorted(want):
+        raise AssertionError(f"visualize_cli wrote {written}, expected {sorted(want)}")
+
+    cfg = RunConfig()
+    level, q, reg_level = lookup_pot_params("SMD", "1-1", cfg.level, cfg.q)
+    with open(os.path.join(data_root, "ServerMachineDataset", "processed",
+                           "machine-1-1_test_label.pkl"), "rb") as f:
+        label = np.asarray(pickle.load(f))[cfg.lookback:]
+    train = pd.read_pickle(os.path.join(run, "train_output.pkl"))["A_Score_Global"].to_numpy()
+    test = pd.read_pickle(os.path.join(run, "test_output.pkl"))["A_Score_Global"].to_numpy()
+    with open(os.path.join(run, "summary.txt")) as f:
+        summary = json.load(f)
+    methods = {
+        "epsilon_result": lambda: epsilon_eval(train, test, label, reg_level=reg_level),
+        "pot_result": lambda: pot_eval(train, test, label, q=q, level=level,
+                                       dynamic=cfg.dynamic_pot),
+        "bf_result": lambda: bf_search(test, label, start=0.01, end=2, step_num=100,
+                                       verbose=False)}
+    seconds, results = {k: [] for k in methods}, {}
+    for _ in range(THRESHOLD_REPEATS):
+        for name, fn in methods.items():
+            held = {}
+            with timed(name, held):
+                results[name] = fn()
+            seconds[name].append(held[name])
+    agree = {k: all(float(results[k][m]) == float(summary[k][m])
+                    for m in ("f1", "threshold")) for k in results}
+    rec = {"phase": "reporting", "check": "threshold host time (utils/profiling.timed)",
+           "seconds_by_method": seconds, "train_points": len(train), "test_points": len(test),
+           "pot": {"q": q, "level": level, "dynamic": cfg.dynamic_pot},
+           "bf_thresholds": 100, "f1_and_threshold_equal_summary": agree}
+    emit(rec)
+    if not all(agree.values()):
+        raise AssertionError(f"thresholds on the run's scores differ from its summary: {agree}")
+    return {"visualize": vis, "thresholds": rec}
 
 
 def train_trainer(work, dtype: str, impl: str, gru_impl: str, dropout: float):
@@ -5096,15 +5300,25 @@ def multi_device_rank(data_root: str, ring_root: str, halo_root: str, out_root: 
     rec = {"rank": dist.get_rank(), "device": str(torch.device("cuda", 0)),
            "backend": dist.get_backend()}
     out_a = os.path.join(out_root, "data_axis")
-    with plain_calls() as plain:
+    prof_a = os.path.join(out_a, "prof")
+    with plain_calls() as plain, counted_traces() as traces:
         run = timed_train_cli(mesh_argv(data_root, out_a, "--attention_impl", "pallas",
                                         "--gru_impl", "pallas", "--epochs", "1", "--run_id",
-                                        "mesh", "--mesh_devices", "2", "--model_parallel", "1"),
+                                        "mesh", "--mesh_devices", "2", "--model_parallel", "1",
+                                        "--profile_dir", prof_a),
                               out_a, entry("mesh"))
     rec["cli"] = {k: run[k] for k in ("seconds", "launches", "peak_extra_bytes",
                                       "train_windows_per_s_by_epoch", "epoch_losses",
                                       "summary")}
     rec["cli"].update(plain=dict(plain), digest=param_digest(run["last_epoch"]["trainer"].model))
+    # each rank's own trace of the epoch: its worker name carries the rank
+    dist.barrier()
+    mine = sorted(f for f in os.listdir(prof_a) if f"_rank{rec['rank']}." in f)
+    rec["cli"]["trace"] = {"files": mine, "traces_opened": len(traces)}
+    if len(mine) == 1 and len(traces) == 1:
+        rec["cli"]["trace"].update(trace_record(os.path.join(prof_a, mine[0]),
+                                                traces[0]["launches"]),
+                                   seconds=traces[0]["seconds"])
     del run
     # path (a)'s run kept PyTorch's TF32 defaults, as predict_cli's ranks
     # do; what follows is held against this process's float32 references
@@ -5596,7 +5810,9 @@ def check_multi_device(gen, work, data_root: str, fleet_data: str, one_device_fl
             "grad_tol": MESH_GRAD_TOL,
             "all_rank_windows_per_s": every[0]["epoch"]["windows_per_s"],
             "single_device_windows_per_s": one["windows_per_s"],
-            "epoch_by_rank": [r["epoch"] for r in every], "single_device_epoch": one},
+            "epoch_by_rank": [r["epoch"] for r in every], "single_device_epoch": one,
+            "trace_files": sorted(os.listdir(os.path.join(out_a, "prof"))),
+            "trace_by_rank": [r["cli"]["trace"] for r in every]},
         "model_axis": {
             "ring_launches_by_rank": [r["ring"]["launches"] for r in every],
             "ring_calls_by_rank": [r["ring"]["ring_calls"] for r in every],
@@ -5646,6 +5862,10 @@ def check_multi_device(gen, work, data_root: str, fleet_data: str, one_device_fl
             problems.append(f"rank {r['rank']}: plain calls {r['cli']['plain']}")
         if r["cli"]["summary"] != summary:
             problems.append(f"rank {r['rank']}: summary differs from the run's")
+        tr = r["cli"]["trace"]
+        if len(tr["files"]) != 1 or tr["traces_opened"] != 1 or trace_problem(tr):
+            problems.append(f"rank {r['rank']}: trace {tr['files']}, opened "
+                            f"{tr['traces_opened']}, {trace_problem(tr)}")
         if {k: r["ring"]["launches"][k] for k in KERNEL_COUNTERS} != ring_want:
             problems.append(f"rank {r['rank']}: ring launches {r['ring']['launches']}, "
                             f"expected {ring_want}")
@@ -5665,6 +5885,8 @@ def check_multi_device(gen, work, data_root: str, fleet_data: str, one_device_fl
         if not np.all(np.isfinite(h["dropout_losses"])):
             problems.append(f"rank {r['rank']}: halo losses at dropout 0.3 "
                             f"{h['dropout_losses']}")
+    if len(rec["data_axis"]["trace_files"]) != MESH_RANKS:
+        problems.append(f"trace files {rec['data_axis']['trace_files']}, one a rank expected")
     if len(every[0]["cli"]["epoch_losses"]) != 1:
         problems.append(f"metrics written {len(every[0]['cli']['epoch_losses'])} times")
     for what in (lambda r: r["cli"]["digest"], lambda r: r["epoch"]["digest"],
@@ -5742,6 +5964,8 @@ def main() -> None:
         training_throughput(work, x_train, "xla")
         training_throughput(work, x_train, "pallas")
         mark("main_path")
+        check_reporting(work, data_root)
+        mark("reporting")
         long_window = check_long_window(gen, dev, work)
         mark("long_window")
         graph_cli = check_graph_cli(work, data_root)

@@ -17,6 +17,14 @@ model do so on the GPU unless ``--device cpu`` is given):
 - ``python -m mtad_gat_tpu_torch.cli.sweep_cli``: trains and scores every
   SMD machine, one after another or (``--batched``) as one fleet in one
   vmapped step.
+- ``python -m mtad_gat_tpu_torch.cli.visualize_cli``: draws a scored run
+  (the root ``visualize.py``'s files; runs no model).
+
+``train_cli --profile_dir D`` writes a ``torch.profiler`` trace of the
+first steady training epoch into D, one file a rank
+(``utils/profiling.trace``), and ``train_cli`` writes the loss plots
+(``utils/plotting.plot_losses``) where matplotlib is installed.
+``tests/test_torch_reporting.py`` holds these against the JAX package.
 
 On a mesh (``parallel/``; one ``torch.distributed`` rank a process and a
 device): ``train_cli`` and ``predict_cli`` with ``--mesh_devices N
@@ -27,5 +35,6 @@ the model axis. ``sweep_cli`` and ``serve_cli`` run on one device.
 """
 
 from mtad_gat_tpu_torch.config import MTADGATConfig, PredictConfig, RunConfig, TrainConfig
+from mtad_gat_tpu_torch.version import __version__
 
-__all__ = ["MTADGATConfig", "TrainConfig", "PredictConfig", "RunConfig"]
+__all__ = ["__version__", "MTADGATConfig", "TrainConfig", "PredictConfig", "RunConfig"]

@@ -137,8 +137,9 @@ def get_parser() -> argparse.ArgumentParser:
 
     # --- Production-training extensions ---
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="capture a profiler trace of the first "
-                             "epoch into this directory")
+                        help="write a torch.profiler trace of the first steady "
+                             "training epoch (the second, or the only one) into "
+                             "this directory, one file a rank")
     parser.add_argument("--checkpoint_every", type=int, default=1,
                         help="epochs between full-resume checkpoints when "
                              "there is no val split (0 = end-of-run only, "

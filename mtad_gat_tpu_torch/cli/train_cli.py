@@ -9,8 +9,10 @@ datetime-stamped like the reference's (``train.py:14``: ddmmYYYY_HHMMSS).
 
 Runs on the GPU unless ``--device cpu`` or ``--use_cuda False`` is given;
 with no GPU and neither flag it raises (``cli/args.resolve_device``). The
-loss plots of the JAX pipeline are not written yet (ROADMAP.md, Queue 1
-item 9): the loss series are in ``<output>/logs/metrics.jsonl``.
+run directory also gets the loss plots (``train_losses.png``,
+``validation_losses.png``) where matplotlib is installed; ``--profile_dir
+D`` writes a ``torch.profiler`` trace of one training epoch into D, one
+file a rank (``utils/profiling.trace``).
 
     python -m mtad_gat_tpu_torch.cli.train_cli --dataset SMD --group 1-1 \\
         --attention_impl pallas --data_root <root> --output_root <out>
@@ -39,6 +41,7 @@ from mtad_gat_tpu_torch.inference import Predictor
 from mtad_gat_tpu_torch.kernels import _build
 from mtad_gat_tpu_torch.parallel import make_mesh, multihost
 from mtad_gat_tpu_torch.training import Trainer
+from mtad_gat_tpu_torch.utils.plotting import plot_losses
 
 
 def run_prediction(
@@ -71,13 +74,6 @@ def run_prediction(
     return predictor.predict_anomalies(x_train, x_test, label)
 
 
-def _refuse_unported(cfg: RunConfig) -> None:
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir: profiling is not ported to mtad_gat_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 9)")
-
-
 def _check_auto_resume(cfg: RunConfig, run_id: Optional[str]) -> None:
     if cfg.auto_resume and not (run_id or cfg.run_id):
         raise ValueError(
@@ -101,7 +97,6 @@ def run_training(
     ``resume_from`` restores a ``train_state.pt`` (params, optimizer state,
     step) before continuing; ``init_from_torch`` warm-starts from a
     reference PyTorch ``model.pt``."""
-    _refuse_unported(cfg)
     dev = resolve_device(device, cfg.use_cuda)
     _check_auto_resume(cfg, run_id)
     run_id = run_id or cfg.run_id or datetime.now().strftime("%d%m%Y_%H%M%S")
@@ -174,6 +169,9 @@ def run_training(
         print(f"Warm-started from PyTorch checkpoint {init_from_torch}")
     trainer.fit(x_train)
 
+    if multihost.is_primary():
+        plot_losses(trainer.losses, save_path=save_path, plot=False)
+
     test_loss = trainer.evaluate(x_test)
     print(f"Test forecast loss: {test_loss[0]:.5f}")
     print(f"Test reconstruction loss: {test_loss[1]:.5f}")
@@ -211,7 +209,6 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     if not (cfg.mesh_devices or cfg.coordinator or cfg.num_processes > 0):
         return run_training(cfg, run_id=run_id, resume_from=resume_from,
                             init_from_torch=init_from_torch, device=args.device)
-    _refuse_unported(cfg)
     dev = resolve_device(args.device, cfg.use_cuda)
     _check_auto_resume(cfg, run_id)
     if dev.type == "cuda":

@@ -37,6 +37,9 @@ The series go to the device once per ``fit``, an epoch's schedule and its
 per-entity step scalars once per epoch, and the losses come back once per
 epoch.
 
+``train_config.profile_dir`` traces nothing here, as in the JAX fleet
+trainer: the solo ``Trainer`` and the sequential sweep trace.
+
 On a mesh (``mesh=``, one rank a process and a device), the entity axis is
 split over the data axis, as the JAX trainer shards it: data rank d trains
 the d-th of ``entity_blocks``' contiguous blocks (sizes differing by at
@@ -112,10 +115,6 @@ class MultiEntityTrainer:
         device: str = "cuda",
         mesh=None,
     ):
-        if train_config.profile_dir:
-            raise NotImplementedError(
-                "profile_dir: profiling is not ported to mtad_gat_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 item 9)")
         learning_rate(train_config, 0)   # an unknown schedule raises here
         self.model_config = model_config
         self.train_config = train_config

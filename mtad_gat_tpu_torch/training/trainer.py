@@ -35,6 +35,10 @@ same six loss series, on raw series inputs.
   draw their own. With a model axis, cuDNN is held to its deterministic
   algorithms, so that the model ranks' replicated gradients are equal.
   Only the primary rank writes checkpoints and metrics.
+- ``profile_dir`` traces one epoch's steps with ``torch.profiler``
+  (``utils/profiling.trace``): the first epoch after the first that runs,
+  or the only one, as the JAX trainer picks it; on a mesh every rank
+  writes its own file. The trace changes nothing that is computed.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from mtad_gat_tpu_torch.parallel import multihost
 from mtad_gat_tpu_torch.parallel.sharding import all_reduce_, data_sum, use_mesh
 from mtad_gat_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from mtad_gat_tpu_torch.training.metrics import MetricsLogger
+from mtad_gat_tpu_torch.utils.profiling import force_completion, trace
 
 
 def masked_rmse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
@@ -163,10 +168,6 @@ class Trainer:
         device: str = "cuda",
         mesh=None,
     ):
-        if train_config.profile_dir:
-            raise NotImplementedError(
-                "profile_dir: profiling is not ported to mtad_gat_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 item 9)")
         learning_rate(train_config, 0)   # an unknown schedule raises here
         if mesh is not None and mesh.mp > 1:
             # the model ranks of a data slice each compute the gradients of
@@ -360,6 +361,11 @@ class Trainer:
         else:
             print(f"Resuming at epoch {start_epoch + 1}/{cfg.epochs} (step {self.step})")
 
+        # profile_dir traces the first steady epoch that runs (the first one
+        # warms the allocator and the kernels' first calls up); a one-epoch
+        # run traces its only epoch
+        profile_epoch = min(start_epoch + 1, cfg.epochs - 1)
+
         print(f"Training model for {cfg.epochs} epochs..")
         train_start = time.time()
         for epoch in range(cfg.epochs):
@@ -368,7 +374,12 @@ class Trainer:
             if epoch < start_epoch:
                 continue  # trained before the restart; the rng stream advanced
             starts, mask, _ = batched_starts(0, cfg.bs, indices=order)
-            fs, rs = self.train_epoch(series, starts, mask)
+            if cfg.profile_dir and epoch == profile_epoch:
+                with trace(cfg.profile_dir, self.device):
+                    fs, rs = self.train_epoch(series, starts, mask)
+                    force_completion(list(self.model.parameters()))
+            else:
+                fs, rs = self.train_epoch(series, starts, mask)
             self.last_batch_losses = (fs, rs)
             f, r, total = self._aggregate(fs, rs)
 

@@ -26,6 +26,8 @@
   ``--device cpu`` (the reference's way to ask for the CPU).
 - ``train_cli --attention_impl ring --temporal_graph band:2`` on one device
   equals the dense band's run (the single-device band path).
+- ``train_cli --profile_dir`` writes one trace file under the directory
+  given, and its run's summary and metrics equal the untraced run's.
 - The device rule of both entry points (``cli/args.resolve_device``).
 """
 
@@ -261,16 +263,39 @@ def test_train_cli_trains_ring_on_a_band(tmp_path):
     assert ring["train_total"] == dense["train_total"]
 
 
+def _metrics(out):
+    """A run's per-epoch metrics records without their wall-clock time."""
+    with open(os.path.join(out, "SMD", "1-1", "logs", "metrics.jsonl")) as f:
+        return [{k: v for k, v in json.loads(line).items() if k != "time"} for line in f]
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--profile_dir", "prof"], "Queue 1 item 9"),
+    (["--profile_dir"], "Queue 1 item 9"),
 ])
 def test_train_cli_refuses_unported_paths(flags, item, tmp_path):
-    data, out = str(tmp_path / "data"), str(tmp_path / "out")
+    """``--profile_dir``, refused until ``item`` was ported, now writes one
+    trace file of the run's only epoch under the directory given, and the
+    run's summary and metrics equal those of the same run without the flag;
+    nothing is written in the working directory. The run directory also
+    holds the loss plots."""
+    data = str(tmp_path / "data")
     _write_smd(data)
-    argv = (["--dataset", "SMD", "--data_root", data, "--output_root", out]
-            + TINY + flags)
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(argv)
+    prof = str(tmp_path / "prof")
+    cwd_before = sorted(os.listdir(os.getcwd()))
+    runs = {}
+    for name, extra in (("traced", flags + [prof]), ("plain", [])):
+        out = str(tmp_path / name)
+        run = train_cli.main(["--dataset", "SMD", "--data_root", data, "--output_root", out,
+                              "--run_id", name] + TINY + extra)
+        with open(os.path.join(run, "summary.txt")) as f:
+            runs[name] = (json.load(f), _metrics(out), sorted(os.listdir(run)))
+    traces = os.listdir(prof)
+    assert len(traces) == 1 and traces[0].endswith(".pt.trace.json"), traces
+    with open(os.path.join(prof, traces[0])) as f:
+        assert json.load(f)["traceEvents"]
+    assert runs["traced"] == runs["plain"]
+    assert {"train_losses.png", "validation_losses.png"} <= set(runs["traced"][2])
+    assert sorted(os.listdir(os.getcwd())) == cwd_before
 
 
 def test_train_cli_defaults_to_the_gpu(tmp_path):
