@@ -352,7 +352,32 @@ In order, each phase failing the run with a non-zero exit:
     resumed on one device to the parameters the sweep wrote; all-rank
     windows/s beside phase ``fleet_training``'s one-device fleet, peak
     memory per rank, each path's seconds;
-21. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+21. ``bench_scripts``: the root bench scripts' H100 counterparts, imported
+    and called in this process at the flagship widths and reduced depth,
+    each a counted run: (a) ``bench_edges_torch``'s table (bf16, E 256, D
+    128, at ``BENCH_EDGES_ITERS``) and crossover at N 8,192 and 65,536
+    (1 iteration), K1's and its merge's launches equal to the script's
+    calls, every dense row out of memory marked ``oom``, every kernel row
+    a rate; K1 on the same inputs against its plain version at (8, 128),
+    (8, 512) and (4, 2048) and against ``chunked_plain_attention`` at N
+    8,192 (every row, with and without bias) and 65,536 (three blocks of
+    128 rows), within ``BENCH_K1_TOL``; beside each case its time, bound
+    and the dense path's, and the N at which ``nn/gat.dense_gatv2_bytes``
+    puts dense beyond the card; (b) ``bench_long_torch.bench_config(8192,
+    256, 8, 4, epochs=1)``, its launches (K3, K4's scan and weights twice
+    a step), then at (8, 8192, 150) in bfloat16 and float32 K3 against its
+    plain version within ``K3_TOL``, and K4 (scan and weights product, and
+    the weights product alone) against theirs within ``K4_TOL``; (c)
+    ``bench_entities_torch.bench(4, batches_per_epoch=2, epochs=1)``: each
+    solo epoch's and each fleet epoch's launches (grouped K3 and K4 twice a
+    fleet step, ``expect_fleet_epoch``); (d) ``bench_attrib_torch`` at
+    ``BENCH_ATTRIB_STEPS`` steps: the capture's traced block counted, its
+    parse giving K3's and K4's kernels as many events as their counters,
+    all in ``gru scan body``, the modules summing within 1% to the busy
+    time measured apart from the parser, as many kernel events as
+    correlation ids, and each traced module some device time; the phase
+    fails past ``BENCH_SECONDS_LIMIT`` seconds;
+22. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
     path, serving's, fleet serving's, fleet training's, the wide fleet's,
     the wide-feature fleet's and long_complete's included, the tiled kernels' times at the route's
     N, K2b's with and without dbias, K2c's forced times and where dbias now
@@ -364,7 +389,9 @@ In order, each phase failing the run with a non-zero exit:
     with them), the chunked K2c and the streamed backward as rows of their
     own; ``launches_by_path["multi_device"]`` rank 0's on phase 20's path
     (a), ``"multi_device_halo"`` on path (c) and ``"multi_device_fleet"``
-    on path (d)) and, last, ``{"ok": true, ...}``.
+    on path (d); ``"bench_scripts"`` phase 21's, K1's cases there under
+    ``bench_edges`` and K3's long chain under ``bench_long``) and, last,
+    ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
 visible card only. Without a CUDA device it exits non-zero before printing
@@ -442,9 +469,10 @@ K3_TOL = 2e-5
 # K4 against its plain version on the same inputs (gi, saved states,
 # cotangent), max abs error over the plain gradient's max abs value, float32
 # arithmetic on both sides whatever gi's type. dgi: the same terms in another
-# order, carried back through up to 1024 steps. dW_hh and db_hh: sums over
-# B * T rows (25,600, or 262,144 at 1024 steps), by step on the plain side, by
-# row chunk in the kernel: about sqrt(rows) * 6e-8 of the largest term.
+# order, carried back through up to 8192 steps. dW_hh and db_hh: sums over
+# B * T rows (25,600; 65,536 at (8, 8192); 262,144 at (256, 1024)), by step
+# on the plain side, by row chunk in the kernel: about sqrt(rows) * 6e-8 of
+# the largest term.
 K4_TOL = 5e-5
 SCORE_ATOL = 1e-4
 BF16_SCORE_ATOL = 4e-3
@@ -455,17 +483,11 @@ def emit(record: dict) -> None:
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds of one call, by CUDA events around ``iters`` calls."""
+    from mtad_gat_tpu_torch.utils.benchtime import pass_seconds
+
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return pass_seconds(fn, iters, "cuda") * 1e3 / iters
 
 
 def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
@@ -1895,14 +1917,15 @@ TRACED_KERNELS = {
 
 
 @contextlib.contextmanager
-def counted_traces():
-    """Each ``Trainer.fit`` trace opened inside the block
-    (``utils/profiling.trace`` through ``training/trainer.py``): the launch
-    counters' change over the traced block, its file written, and its
-    seconds, one dict a trace."""
-    import mtad_gat_tpu_torch.training.trainer as trainer_module
+def counted_traces(module=None):
+    """Each trace that ``module`` (default ``training/trainer.py``: each
+    ``Trainer.fit`` trace) opens through its ``trace``
+    (``utils/profiling.trace``) inside the block: the launch counters'
+    change over the traced block, and its seconds, one dict a trace."""
+    if module is None:
+        import mtad_gat_tpu_torch.training.trainer as module
 
-    real, traces = trainer_module.trace, []
+    real, traces = module.trace, []
 
     @contextlib.contextmanager
     def counted(*args, **kw):
@@ -1913,11 +1936,11 @@ def counted_traces():
         traces.append({"seconds": time.perf_counter() - t0,
                        "launches": {k: n - before[k] for k, n in after.items() if n != before[k]}})
 
-    trainer_module.trace = counted
+    module.trace = counted
     try:
         yield traces
     finally:
-        trainer_module.trace = real
+        module.trace = real
 
 
 def trace_record(path: str, launches: dict) -> dict:
@@ -2249,30 +2272,39 @@ def chunked_plain_attention(p, q, a, bias, v, alpha, seed, rate, cot=None,
     """The plain GATv2 attention, out = sigmoid(softmax(a . leakyrelu(p_i +
     q_j) + bias_ij) v), over chunks of query rows, float32: the softmax is
     per row, so each chunk's weights are exact, and the hash mask takes the
-    chunk's global rows. With a cotangent ``cot`` of out, also the gradients
-    {dp, dq, da, dbias, dv} by autograd a chunk at a time, summed over the
-    chunks. Holds no (N, N, E) tensor, so it runs at N where the whole plain
-    version does not fit."""
+    chunk's global rows. ``bias`` may be None; p (and bias) may hold some of
+    the query rows (the first of them the graph's row 0 for the hash mask)
+    against all of q's and v's keys, and out has p's rows. With a cotangent
+    ``cot`` of out, also the gradients {dp, dq, da, dbias, dv} by autograd a
+    chunk at a time, summed over the chunks. Holds no (N, N, E) tensor, so
+    it runs at N where the whole plain version does not fit."""
     from mtad_gat_tpu_torch.graph.dropout import hash_keep_mask
     from mtad_gat_tpu_torch.graph.ops import gatv2_scores_dense
 
     B, N, _ = p.shape
+    keys = v.shape[1]
     names = ("dp", "dq", "da", "dbias", "dv")
-    leaves = [t.detach().float().requires_grad_(cot is not None) for t in (p, q, a, bias, v)]
+    leaves = [None if t is None else t.detach().float().requires_grad_(cot is not None)
+              for t in (p, q, a, bias, v)]
     pl, ql, al, bl, vl = leaves
-    out = torch.empty(v.shape, dtype=torch.float32, device=v.device)
-    grads = {k: torch.zeros_like(t) for k, t in zip(names, leaves)}
+    given = [(k, t) for k, t in zip(names, leaves) if t is not None]
+    out = torch.empty((B, N, v.shape[-1]), dtype=torch.float32, device=v.device)
+    grads = {k: torch.zeros_like(t) for k, t in given}
     with torch.set_grad_enabled(cot is not None):
         for i0 in range(0, N, rows):
             i1 = min(N, i0 + rows)
-            w = torch.softmax(gatv2_scores_dense(pl[:, i0:i1], ql, al, alpha) + bl[i0:i1], dim=2)
+            s = gatv2_scores_dense(pl[:, i0:i1], ql, al, alpha)
+            w = torch.softmax(s if bl is None else s + bl[i0:i1], dim=2)
+            del s
             if rate > 0.0:
-                keep = hash_keep_mask(seed, B, i1 - i0, N, rate, device=v.device, row_offset=i0)
+                keep = hash_keep_mask(seed, B, i1 - i0, keys, rate, device=v.device,
+                                      row_offset=i0)
                 w = torch.where(keep, w / (1.0 - rate), 0.0)
             o = torch.sigmoid(torch.matmul(w, vl))
             out[:, i0:i1] = o.detach()
             if cot is not None:
-                for k, g in zip(names, torch.autograd.grad((o * cot[:, i0:i1]).sum(), leaves)):
+                for (k, _), g in zip(given, torch.autograd.grad((o * cot[:, i0:i1]).sum(),
+                                                                [t for _, t in given])):
                     grads[k] += g
     return out, grads
 
@@ -5909,6 +5941,340 @@ def check_multi_device(gen, work, data_root: str, fleet_data: str, one_device_fl
             "fleet_launches": fleet["launches"], "record": rec, "fleet": fleet["record"]}
 
 
+# Phase bench_scripts: the root bench scripts' H100 counterparts, in-process
+BENCH_EDGES_ITERS = 3
+BENCH_CROSSOVER_NODES = (8192, 65536)
+# K1 against its plain version at the table's cases (gatv2_attention_fwd_plain)
+BENCH_K1_PLAIN_CASES = ((8, 128), (8, 512), (4, 2048))
+# and against chunked_plain_attention beyond: (B, N, bias, query-row blocks
+# checked (None: every row), rows a chunk); at N 65,536 the first, middle
+# and last 128 rows, each chunk's (1, 32, 65536, 256) float32 scores 2.1 GB
+BENCH_K1_CHUNKED_CASES = ((1, 8192, True, None, 512), (1, 8192, False, None, 512),
+                          (1, 65536, False, ((0, 128), (32704, 32832), (65408, 65536)), 32))
+# bfloat16 in, compared in float32: the kernel and the plain version round
+# the same float32 sigmoid (a few 1e-7 apart) to bfloat16, one step apart
+# at most, 2**-8 below 1.0 (K1_TOL's bfloat16 case); against the chunked
+# plain version, whose output stays float32, half a step plus the same
+# float32 differences
+BENCH_K1_TOL = K1_TOL[torch.bfloat16]
+BENCH_LONG = (8192, 256, 8, 4)       # bench_long_torch.CONFIGS' longest
+BENCH_LONG_EPOCHS = 1
+BENCH_FLEET = dict(E=4, batches_per_epoch=2, epochs=1)
+BENCH_ATTRIB_STEPS = 10
+BENCH_SECONDS_LIMIT = 90.0
+# K3's and K4's kernels in a trace, by the counter whose launches they are
+BENCH_GRU_KERNELS = {"gru_scan_fwd": r"\bgru_fwd_(cluster_)?kernel\b",
+                     "gru_scan_bwd": r"\bgru_bwd_(cluster|scan)_kernel\b",
+                     "gru_weight_grads": r"\bgru_bwd_weights_kernel\b"}
+# the modules a captured flagship trace must attribute device time to
+BENCH_ATTRIB_MODULES = ("feature GAT", "temporal GAT", "gru input proj / grads", "gru scan body",
+                        "window gather", "adam update")
+
+
+def k1_e256_bound(B: int, N: int, bias: bool) -> tuple:
+    """K1's bound at bench_edges' widths (E 256, D 128, bfloat16 inputs and
+    output): 4E + 2D operations a pair; p, q, v, a (and bias) read once,
+    the output written once."""
+    import bench_edges_torch as be
+
+    nbytes = 2 * (2 * B * N * be.E + be.E + 2 * B * N * be.D + (N * N if bias else 0))
+    return bound(B * N * N * (4 * be.E + 2 * be.D), nbytes)
+
+
+def check_bench_edges(dev) -> dict:
+    """(a) ``bench_edges_torch``: the table at ``BENCH_EDGES_ITERS`` and the
+    crossover at ``BENCH_CROSSOVER_NODES`` (1 iteration), K1's and the
+    merge's launches equal to the calls the script makes, every dense row
+    that ran out of memory marked so, every kernel row finite; then K1 on
+    the same inputs against its plain version at ``BENCH_K1_PLAIN_CASES``
+    and against ``chunked_plain_attention`` at ``BENCH_K1_CHUNKED_CASES``
+    (launches outside the counted run)."""
+    import bench_edges_torch as be
+    from mtad_gat_tpu_torch.kernels.gat import (gat_fwd_plan, gatv2_attention_fwd,
+                                                gatv2_attention_fwd_plain)
+    from mtad_gat_tpu_torch.nn.gat import dense_route_nodes
+
+    reset_counts()
+    t0 = time.perf_counter()
+    table = be.bench_tpu_table(be.TABLE_CASES, iters=BENCH_EDGES_ITERS, device=dev)
+    cross = be.bench_crossover(iters=1, nodes=BENCH_CROSSOVER_NODES, device=dev)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    calls = lambda iters: be.WARMUP + be.PASSES * iters  # noqa: E731
+    shapes = [(B, N, BENCH_EDGES_ITERS) for B, N in be.TABLE_CASES] + [
+        (1, N, 1) for N in BENCH_CROSSOVER_NODES]
+    want = {"gatv2_attention_fwd": sum(calls(i) for *_, i in shapes),
+            "gatv2_attention_fwd:graph": 0, "gatv2_attention_fwd:tiled": 0}
+    for B, N, i in shapes:
+        want[f"gatv2_attention_fwd:{gat_fwd_plan(N, be.E, be.D)}"] += calls(i)
+    want["gatv2_fwd_merge"] = want["gatv2_attention_fwd:tiled"]
+    expect_counts("bench_scripts bench_edges", counts, want)
+    for row in table + cross:
+        if row["path"] == "pallas" and not (row["value"] and np.isfinite(row["value"])):
+            raise AssertionError(f"bench_edges: a kernel row without a rate: {row}")
+        if row["path"] == "dense" and row["value"] is None and row.get("oom") is not True:
+            raise AssertionError(f"bench_edges: a dense row failed without oom: {row}")
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    dense_rows = [r for r in table + cross if r["path"] == "dense"]
+    first_oom = next(((r["batch"], r["n_nodes"]) for r in dense_rows if r.get("oom")), None)
+    predicted = {f"B {B}": dense_route_nodes(B, be.E, 2, False, total)
+                 for B in sorted({B for B, _ in be.TABLE_CASES})}
+    by_case = {}
+    for rows, with_bias in ((table, True), (cross, False)):
+        for row in rows:
+            B, N = row["batch"], row["n_nodes"]
+            key = f"{'table' if with_bias else 'crossover'} B {B}, N {N}"
+            rec = by_case.setdefault(key, {"B": B, "N": N, "bias": with_bias})
+            if row["path"] == "pallas":
+                ms = B * N * N / (row["value"] * 1e9) * 1e3
+                bound_ms, bound_by = k1_e256_bound(B, N, with_bias)
+                rec.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                           plan=gat_fwd_plan(N, be.E, be.D), peak_gib=row.get("peak_hbm_gib"))
+            else:
+                rec.update(dense_ms=None if row["value"] is None
+                           else B * N * N / (row["value"] * 1e9) * 1e3,
+                           dense_oom=bool(row.get("oom")), dense_peak_gib=row.get("peak_hbm_gib"))
+
+    errs = {}
+    with torch.no_grad():
+        for B, N in BENCH_K1_PLAIN_CASES:
+            args = be._inputs(B, N, be.E, be.D, torch.bfloat16, dev)
+            got = gatv2_attention_fwd(*args, be.ALPHA).float()
+            want_out = gatv2_attention_fwd_plain(*args, be.ALPHA).float()
+            errs[f"B {B}, N {N}, bias, against the plain version"] = (
+                got - want_out).abs().max().item()
+            del args, got, want_out
+            torch.cuda.empty_cache()
+        for B, N, with_bias, blocks, rows in BENCH_K1_CHUNKED_CASES:
+            p, q, a, bias, v = be._inputs(B, N, be.E, be.D, torch.bfloat16, dev, bias=with_bias)
+            got = gatv2_attention_fwd(p, q, a, bias, v, be.ALPHA).float()
+            err = 0.0
+            for r0, r1 in blocks or ((0, N),):
+                want_out, _ = chunked_plain_attention(
+                    p[:, r0:r1], q, a, None if bias is None else bias[r0:r1], v, be.ALPHA, 0,
+                    0.0, rows=rows)
+                err = max(err, (got[:, r0:r1] - want_out).abs().max().item())
+                del want_out
+            what = "every row" if blocks is None else f"rows {list(blocks)}"
+            errs[f"B {B}, N {N}, {'bias' if with_bias else 'no bias'}, {what}, against "
+                 "chunked_plain_attention"] = err
+            del p, q, a, bias, v, got
+            torch.cuda.empty_cache()
+    rec = {"phase": "bench_scripts", "script": "bench_edges_torch", "rows": table + cross,
+           "seconds": seconds, "launches": counts, "expected_launches": want,
+           "k1_by_case": by_case, "max_abs_err": errs, "tol": BENCH_K1_TOL,
+           "dense_first_oom": first_oom,
+           "dense_bytes_model_first_unfit_nodes": predicted,
+           "card_total_memory": total}
+    emit(rec)
+    bad = {k: e for k, e in errs.items() if not e <= BENCH_K1_TOL}
+    if bad:
+        raise AssertionError(f"bench_edges: K1 off its plain version: {bad}")
+    return rec
+
+
+def check_bench_long(gen, dev) -> dict:
+    """(b) ``bench_long_torch.bench_config`` at ``BENCH_LONG`` for
+    ``BENCH_LONG_EPOCHS`` epoch: K3, K4's scan and its weights product
+    twice a step each and nothing else launched; then, at (8, 8192, 150)
+    with bfloat16 gi as the path gives it and with float32: K3 against its
+    plain version, K4 (the scan and the weights product) on K3's states and
+    a random cotangent against ``gru_scan_bwd_plain``, and the weights
+    product alone (its operands float32 whatever gi's type, so once) against
+    ``gru_weight_grads_plain`` (``check_k4_weights``)."""
+    import bench_long_torch as bl
+    from mtad_gat_tpu_torch.kernels.gru import (gru_scan_bwd, gru_scan_bwd_plain,
+                                                gru_scan_fwd, gru_scan_fwd_plain)
+
+    lookback, band, bs, batches = BENCH_LONG
+    H = 150
+    reset_counts()
+    t0 = time.perf_counter()
+    row = bl.bench_config(lookback, band, bs, batches, epochs=BENCH_LONG_EPOCHS, device=dev)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    steps = batches * (1 + BENCH_LONG_EPOCHS)
+    want = {k: 2 * steps for k in ("gru_scan_fwd", "gru_scan_bwd", "gru_weight_grads")}
+    expect_counts("bench_scripts bench_long", counts, want)
+    if not (np.isfinite(row["value"]) and row["value"] > 0):
+        raise AssertionError(f"bench_long: {row}")
+    k3, k4, names = {}, {}, ("dgi", "dw_hh", "db_hh")
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).replace("torch.", "")
+        _, _, gi, w_hh, b_hh = gru_case(gen, dev, bs, lookback, H, dtype)
+        w_hh = w_hh.contiguous()
+        with torch.no_grad():
+            hseq, _ = gru_scan_fwd(gi, w_hh, b_hh, H)
+            ms = time_ms(lambda: gru_scan_fwd(gi, w_hh, b_hh, H), 3, warmup=1)
+            want_h, _ = gru_scan_fwd_plain(gi, w_hh, b_hh, H)
+        read = bs * lookback * 3 * H * dtype.itemsize + (H * 3 * H + 3 * H) * 4
+        bound_ms, bound_by = bound(2 * bs * lookback * H * 3 * H, read + bs * lookback * H * 4)
+        k3[key] = {"max_abs_err": (hseq - want_h).abs().max().item(), "ms": ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, **gru_scan_fwd.last_launch}
+        del want_h
+        dhseq = torch.randn(bs, lookback, H, generator=gen).to(dev)
+        got = gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H)
+        plain = gru_scan_bwd_plain(gi, w_hh, b_hh, hseq, dhseq, H)
+        torch.cuda.synchronize()
+        scan_ms = time_ms(lambda: gru_scan_bwd(gi, w_hh, b_hh, hseq, dhseq, H,
+                                               need_weights=False), 3, warmup=1)
+        scan_bound_ms, scan_bound_by = bound(
+            bs * lookback * (2 * 2 * H * 3 * H + 30 * H),
+            read + 2 * bs * lookback * H * 4 + bs * lookback * 4 * H * 4)
+        k4[key] = {"rel_err": {n: rel_err(a, b) for n, a, b in zip(names, got, plain)},
+                   "abs_err": {n: (a - b).abs().max().item()
+                               for n, a, b in zip(names, got, plain)},
+                   "scan_ms": scan_ms, "scan_bound_ms": scan_bound_ms,
+                   "scan_bound_by": scan_bound_by, **gru_scan_bwd.last_launch}
+        del plain
+        if dtype == torch.float32:
+            # the product's operands are float32 whatever gi's type; raises
+            # beyond K4_TOL
+            weights = check_k4_weights(gi, w_hh, b_hh, hseq, got[0], H)
+        del gi, hseq, dhseq, got
+    rec = {"phase": "bench_scripts", "script": "bench_long_torch", "rows": [row],
+           "seconds": seconds, "launches": counts, "expected_launches": want,
+           "k3": {"B": bs, "T": lookback, "H": H, "by_dtype": k3, "tol": K3_TOL},
+           "k4": {"B": bs, "T": lookback, "H": H, "by_dtype": k4, "tol": K4_TOL,
+                  "weights": weights}}
+    emit(rec)
+    bad = {k: v["max_abs_err"] for k, v in k3.items() if not v["max_abs_err"] <= K3_TOL}
+    bad.update({f"K4 {k} {n}": e for k, v in k4.items() for n, e in v["rel_err"].items()
+                if not e <= K4_TOL})
+    if bad:
+        raise AssertionError(f"bench_long: K3 or K4 at ({bs}, {lookback}, {H}) off its plain "
+                             f"version: {bad}")
+    return rec
+
+
+def check_bench_entities(dev) -> dict:
+    """(c) ``bench_entities_torch.bench`` at ``BENCH_FLEET``: each solo epoch
+    K3, K4's scan and weights twice a step and nothing else; each fleet
+    epoch the same grouped, two a fleet step whatever E (``FleetProbe``,
+    ``expect_fleet_epoch``: dense attention, dropout 0.3)."""
+    import bench_entities_torch as ben
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with FleetProbe() as probe:
+        rows = ben.bench(BENCH_FLEET["E"], batches_per_epoch=BENCH_FLEET["batches_per_epoch"],
+                         epochs=BENCH_FLEET["epochs"], device=dev)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    for i, epoch in enumerate(probe.epochs):
+        if epoch["kind"] == "fleet":
+            expect_fleet_epoch(f"bench_entities fleet epoch {i}", epoch, dropout=0.3)
+        else:
+            steps = epoch["steps"]
+            expect_counts(f"bench_entities solo epoch {i}", epoch["launches"],
+                          {k: 2 * steps for k in ("gru_scan_fwd", "gru_scan_bwd",
+                                                  "gru_weight_grads")})
+    kinds = [e["kind"] for e in probe.epochs]
+    want_kinds = (["solo"] * (1 + BENCH_FLEET["epochs"] * BENCH_FLEET["E"])
+                  + ["fleet"] * (1 + BENCH_FLEET["epochs"]))
+    if kinds != want_kinds or not all(np.isfinite(r["value"]) for r in rows):
+        raise AssertionError(f"bench_entities: epochs {kinds}, rows {rows}")
+    rec = {"phase": "bench_scripts", "script": "bench_entities_torch", "rows": rows,
+           "seconds": seconds, "launches": counts,
+           "fleet_steps": sum(e["steps"] for e in probe.epochs if e["kind"] == "fleet"),
+           "solo_steps": sum(e["steps"] for e in probe.epochs if e["kind"] == "solo")}
+    emit(rec)
+    return rec
+
+
+def trace_kernel_union(path: str) -> tuple:
+    """The kernel events of a Chrome trace on their own: the microseconds in
+    which at least one runs (sorted and merged intervals), and how many
+    distinct correlation ids they carry."""
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel" and "dur" in e]
+    union, end = 0.0, float("-inf")
+    for ts, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        union += max(0.0, stop - max(ts, end))
+        end = max(end, stop)
+    return union, len({(e.get("args") or {}).get("correlation") for e in kernels})
+
+
+def check_bench_attrib(dev, work) -> dict:
+    """(d) ``bench_attrib_torch`` at ``BENCH_ATTRIB_STEPS`` steps: capture
+    (its traced block's launches counted), then ``parse``: each of K3's and
+    K4's kernels with as many events as its counter shows over the traced
+    block, every one of them in ``gru scan body``; the modules' times
+    summing within 1% to the device's busy time as ``trace_kernel_union``
+    measures it apart from the parser; as many kernel events parsed as
+    distinct correlation ids in the trace (none counted twice); and every
+    module of ``BENCH_ATTRIB_MODULES`` given device time."""
+    import bench_attrib_torch as ba
+    from mtad_gat_tpu_torch.utils import profiling
+
+    trace_dir = os.path.join(work, "bench_attrib")
+    reset_counts()
+    t0 = time.perf_counter()
+    with counted_traces(profiling) as traces:
+        steady = ba.capture(trace_dir, device=dev, nsteps=BENCH_ATTRIB_STEPS)
+    (traced,) = traces
+    counts = read_counts()
+    parsed = ba.parse(trace_dir, BENCH_ATTRIB_STEPS)
+    seconds = time.perf_counter() - t0
+    union_us, correlations = trace_kernel_union(parsed["file"])
+    by_kernel = parsed["module_events_by_kernel"]
+    events = {c: sum(n for name, n in parsed["events_by_kernel"].items() if re.search(rx, name))
+              for c, rx in BENCH_GRU_KERNELS.items()}
+    gru_elsewhere = {name: mods for name, mods in by_kernel.items()
+                     if any(re.search(rx, name) for rx in BENCH_GRU_KERNELS.values())
+                     and set(mods) != {ba.GRU_SCAN}}
+    launches = {c: traced["launches"].get(c, 0) for c in BENCH_GRU_KERNELS}
+    module_us = sum(m["us"] for m in parsed["modules"].values())
+    missing = [m for m in BENCH_ATTRIB_MODULES
+               if not parsed["modules"].get(m, {}).get("us", 0) > 0]
+    rec = {"phase": "bench_scripts", "script": "bench_attrib_torch", "steady": steady,
+           "steps": BENCH_ATTRIB_STEPS, "seconds": seconds,
+           "trace_seconds": traced["seconds"], "launches": counts,
+           "kernel_events_by_counter": events, "launches_traced": launches,
+           "gru_kernels_outside_gru_scan_body": gru_elsewhere,
+           "modules_us": module_us, "busy_us": parsed["busy_us"],
+           "kernel_union_us": union_us, "kernel_events": parsed["kernel_events"],
+           "kernel_correlations": correlations,
+           "parsed": {k: v for k, v in parsed.items()
+                      if k not in ("events_by_kernel", "module_events_by_kernel", "lines")}}
+    emit(rec)
+    want = {k: 2 * BENCH_ATTRIB_STEPS for k in BENCH_GRU_KERNELS}
+    if events != launches or launches != want or gru_elsewhere:
+        raise AssertionError(f"bench_attrib: kernel events {events}, launches {launches}, "
+                             f"expected {want}; GRU kernels outside the GRU scan body: "
+                             f"{gru_elsewhere}")
+    if not abs(module_us - union_us) <= 0.01 * union_us:
+        raise AssertionError(f"bench_attrib: modules {module_us} us against busy "
+                             f"{union_us} us")
+    if parsed["kernel_events"] != correlations or missing or not parsed["module_ranges"]:
+        raise AssertionError(f"bench_attrib: {parsed['kernel_events']} kernel events parsed "
+                             f"of {correlations} correlation ids; no device time for {missing}")
+    return rec
+
+
+def check_bench_scripts(gen, dev, work) -> dict:
+    """Phase bench_scripts: the four root bench scripts' H100 counterparts
+    at the flagship widths and reduced depth, each its own counted run
+    (``check_bench_edges``, ``check_bench_long``, ``check_bench_entities``,
+    ``check_bench_attrib``); fails when the phase takes more than
+    ``BENCH_SECONDS_LIMIT`` seconds. Returns the launches of the four runs and
+    the records."""
+    t0 = time.perf_counter()
+    recs = {"edges": check_bench_edges(dev), "long": check_bench_long(gen, dev),
+            "entities": check_bench_entities(dev), "attrib": check_bench_attrib(dev, work)}
+    seconds = time.perf_counter() - t0
+    launches = {k: sum(r["launches"].get(k, 0) for r in recs.values())
+                for k in recs["edges"]["launches"]}
+    emit({"phase": "bench_scripts", "seconds": seconds, "seconds_limit": BENCH_SECONDS_LIMIT,
+          "within_limit": seconds <= BENCH_SECONDS_LIMIT,
+          "seconds_by_script": {k: r["seconds"] for k, r in recs.items()}, "launches": launches})
+    if not seconds <= BENCH_SECONDS_LIMIT:
+        raise AssertionError(f"bench_scripts took {seconds} s, over {BENCH_SECONDS_LIMIT} s")
+    return {"launches": launches, "seconds": seconds, **recs}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5991,6 +6357,8 @@ def main() -> None:
         multi = check_multi_device(gen, work, data_root, os.path.join(fleet_root, "data"),
                                    fleet_train["kernel_sweeps"][FLEET_TRAIN_BS], smi)
         mark("multi_device")
+        bench = check_bench_scripts(gen, dev, work)
+        mark("bench_scripts")
     emit({"phase": "seconds", "by_phase": {name: t - marks[i][1]
                                            for i, (name, t) in enumerate(marks[1:])},
           "total_after_start": marks[-1][1] - marks[0][1]})
@@ -6007,7 +6375,8 @@ def main() -> None:
                       "fleet_wide_features": fleet_features["launches"][name],
                       "multi_device": multi["launches"].get(name, 0),
                       "multi_device_halo": multi["halo_launches"].get(name, 0),
-                      "multi_device_fleet": multi["fleet_launches"].get(name, 0)}
+                      "multi_device_fleet": multi["fleet_launches"].get(name, 0),
+                      "bench_scripts": bench["launches"].get(name, 0)}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]
@@ -6038,6 +6407,8 @@ def main() -> None:
              **{f"batch1_{k}_by_layer": [serving["k1"][la][k] for la in ("feature", "temporal")]
                 for k in ("graph_ms", "plain_ms", "bound_ms", "bound_by")}},
          "fleet_serving": fleet_row(fleet, "k1"),
+         "bench_edges": {k: bench["edges"][k] for k in (
+             "k1_by_case", "max_abs_err", "tol", "dense_first_oom")},
          "shapes": "one scoring batch: feature (256,38,200/100) + temporal "
                    "(256,100,76/38) layer, float32, bias; ms is a wrapper call by CUDA "
                    "events, graph_ms its device time from a CUDA graph of 20 calls; tiled_* "
@@ -6058,6 +6429,7 @@ def main() -> None:
                                                           "max_abs_err")}},
          "fleet_serving": fleet_row(fleet, "k3"),
          "fleet_training": fleet_training_row(fleet_train, "gru_scan_fwd"),
+         "bench_long": bench["long"]["k3"],
          "shapes": "one chain: gi (256,100,450) float32, hidden 150; library_ms "
                    "is torch.nn.GRU (cuDNN) with its input projection, projection_ms "
                    "that projection alone as one matrix product"},
@@ -6073,6 +6445,7 @@ def main() -> None:
          "cudnn_gru_backward_ms": k4["library_ms"],
          "variant": k4["variant"], "cluster": k4["cluster"], "smem_bytes": k4["smem_bytes"],
          "fleet_training": fleet_training_row(fleet_train, "gru_scan_bwd"),
+         "bench_long": {k: v for k, v in bench["long"]["k4"].items() if k != "weights"},
          "shapes": "one chain: gi (256,100,450), hseq and dhseq (256,100,150) float32; "
                    "ms and graph_ms are the serial scan alone (need_weights off), k4_* the "
                    "whole call with the weights product; plain_ms is the whole plain "
@@ -6087,6 +6460,9 @@ def main() -> None:
          "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
          "library_ms": w["library_ms"], "library_graph_ms": w["library_graph_ms"],
          "fleet_training": fleet_training_row(fleet_train, "gru_weight_grads"),
+         "bench_long": {f: bench["long"]["k4"]["weights"][f] for f in (
+             "B", "T", "rel_err", "abs_err", "tol", "ms", "graph_ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by")},
          "shapes": "dW_hh (150,450) and db_hh over the 25,600 rows of one chain, float32; "
                    "library_ms is torch.mm(hprev.T, dgh) with dgh.sum(0) on prepared "
                    "operands, TF32 off"},

@@ -1,11 +1,12 @@
 """The port imports nothing of JAX or of the JAX package.
 
 In a fresh interpreter, importing every module of ``mtad_gat_tpu_torch``
-and loading ``chip_smoke.py`` (without running its ``main``) leaves ``jax``,
+and loading ``chip_smoke.py`` and the root bench scripts of the port
+(``BENCH_SCRIPTS``, without running their ``main``) leaves ``jax``,
 ``flax``, ``msgpack`` (the port reads flax's checkpoints with its own
 decoder: the card's machine has no ``msgpack``) and every ``mtad_gat_tpu.``
-module out of ``sys.modules``; and an AST scan of the package and of
-``chip_smoke.py`` finds no such import.
+module out of ``sys.modules``; and an AST scan of the package, of
+``chip_smoke.py`` and of those scripts finds no such import.
 """
 
 import ast
@@ -17,10 +18,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "mtad_gat_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mtad_gat_tpu", "msgpack")
+BENCH_SCRIPTS = ("bench_edges_torch.py", "bench_long_torch.py", "bench_entities_torch.py",
+                 "bench_attrib_torch.py")
+SCRIPTS = ("chip_smoke.py",) + BENCH_SCRIPTS
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / name for name in SCRIPTS]
 
 
 def _forbidden(name: str) -> bool:
@@ -50,8 +54,10 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(REPO / 'chip_smoke.py')!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for name in {SCRIPTS!r}:\n"
+        f"    path = {str(REPO)!r} + '/' + name\n"
+        "    spec = importlib.util.spec_from_file_location(name[:-3], path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
