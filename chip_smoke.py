@@ -377,7 +377,23 @@ In order, each phase failing the run with a non-zero exit:
     time measured apart from the parser, as many kernel events as
     correlation ids, and each traced module some device time; the phase
     fails past ``BENCH_SECONDS_LIMIT`` seconds;
-22. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
+22. ``remat``: ``remat_attention`` (both attention layers recomputed in
+    the backward pass, ``nn/remat.py``) against the same run without it,
+    float32, dropout 0.3, cuDNN deterministic: (a) the flagship ``Trainer``
+    through every kernel and with dense attention, 4 steps of 256 from one
+    seed, each step's losses, the final parameters and each step's dropout
+    generator state identical in bits, the launches exact
+    (``step_launches(..., remat=True)``: K1-res twice a layer a step, the
+    forward's and the recompute's); (b) windows/s over the last 3 steps and
+    peak memory over them, with and without remat, for those two, for
+    lookback 300 with dense attention at batch 64, and for phase
+    ``fleet_training``'s 28 machines as one dense ``MultiEntityTrainer``
+    at batch 64 (4 fleet steps under ``vmap(grad_and_value)``, parameters,
+    losses and keep-mask draws identical in bits); (c) that fleet with
+    remat at ``REMAT_WITNESS_BS`` for two steps, its peak memory beside
+    the batch-64 run's slope and that slope's batch 256 (ROADMAP item 2);
+    the phase fails past ``REMAT_SECONDS_LIMIT`` seconds;
+23. one JSON line ``{"kernels": [...]}`` (with each kernel's launches by
     path, serving's, fleet serving's, fleet training's, the wide fleet's,
     the wide-feature fleet's and long_complete's included, the tiled kernels' times at the route's
     N, K2b's with and without dbias, K2c's forced times and where dbias now
@@ -390,7 +406,8 @@ In order, each phase failing the run with a non-zero exit:
     own; ``launches_by_path["multi_device"]`` rank 0's on phase 20's path
     (a), ``"multi_device_halo"`` on path (c) and ``"multi_device_fleet"``
     on path (d); ``"bench_scripts"`` phase 21's, K1's cases there under
-    ``bench_edges`` and K3's long chain under ``bench_long``) and, last,
+    ``bench_edges`` and K3's long chain under ``bench_long``; ``"remat"``
+    phase 22's) and, last,
     ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``mtad_gat_tpu``, and runs on the first
@@ -402,6 +419,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import pickle
@@ -1839,23 +1857,11 @@ def read_counts() -> dict:
 
 def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: int,
                                epochs: int, val_split: float, gru_impl: str,
-                               n_features: int = 38) -> dict:
-    """Launch counts of one train_cli run: each training step runs K1-res
-    and the backward's variant that ``gat_bwd_route`` names for the layer
-    (K2ab, K2a and K2b, or the streamed backward, each summing dbias too;
-    K2c never) in both attention layers
-    (feature: N features, E 2w, D w; temporal: N w, E 2 features, D
-    features; both with a learned score bias) and, with the GRU
-    kernels, K3 and K4 (scan and weights product) in the encoder and the
-    decoder; each batch evaluated or scored without gradient runs K1 twice
-    and, with the GRU kernels, K3 twice (init train and val losses, one val
-    pass per epoch, the test loss, and the train and test scoring passes).
-    K1 and K1-res also count by the variant ``gat_fwd_plan`` names, each
-    tiled one with a merge; the tiled K2a and K2b by the tile
-    ``gat_tiled_bwd_plan`` names, K2b's also as summing dbias."""
-    from mtad_gat_tpu_torch.kernels.gat import (TILED_TILE_NAMES, gat_bwd_route, gat_fwd_plan,
-                                                gat_tiled_bwd_plan)
-
+                               n_features: int = 38, remat: bool = False) -> tuple:
+    """Launch counts of one train_cli run (``step_launches`` of its
+    training steps and of its batches evaluated or scored without gradient:
+    init train and val losses, one val pass per epoch, the test loss, and
+    the train and test scoring passes), and its steps."""
     batches = lambda n: max(1, -(-n // bs))  # noqa: E731
     n_win = n_train_rows - w
     n_val = int(np.floor(val_split * n_win))
@@ -1863,14 +1869,36 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
     no_grad = (batches(n_win - n_val) + batches(n_val) * (1 + epochs)
                + batches(n_test_rows - w) + batches(n_train_rows - w + 1)
                + batches(n_test_rows - w + 1))
+    return step_launches(steps, no_grad, w, bs, gru_impl, n_features, remat), steps
+
+
+def step_launches(steps: int, no_grad: int, w: int, bs: int, gru_impl: str,
+                  n_features: int = 38, remat: bool = False) -> dict:
+    """Launch counts of ``steps`` training steps and ``no_grad`` batches
+    without gradient through the attention kernels: each training step runs
+    K1-res (twice with ``remat``: the forward and the backward's recompute,
+    ``nn/remat.py``) and the backward's variant that ``gat_bwd_route`` names
+    for the layer (K2ab, K2a and K2b, or the streamed backward, each summing
+    dbias too; K2c never) in both attention layers (feature: N features, E
+    2w, D w; temporal: N w, E 2 features, D features; both with a learned
+    score bias) and, with the GRU kernels, K3 and K4 (scan and weights
+    product) in the encoder and the decoder; each batch without gradient
+    runs K1 twice and, with the GRU kernels, K3 twice. K1 and K1-res also
+    count by the variant ``gat_fwd_plan`` names, each tiled one with a
+    merge; the tiled K2a and K2b by the tile ``gat_tiled_bwd_plan`` names,
+    K2b's also as summing dbias."""
+    from mtad_gat_tpu_torch.kernels.gat import (TILED_TILE_NAMES, gat_bwd_route, gat_fwd_plan,
+                                                gat_tiled_bwd_plan)
+
+    res = steps * (2 if remat else 1)
     gru = gru_impl == "pallas"
     want = {name: 2 * steps for name in KERNEL_COUNTERS}
     layers = ((n_features, 2 * w, w), (w, 2 * n_features, n_features))
     routes = [gat_bwd_route(*layer) for layer in layers]
     graph, tiled, streamed = (routes.count(r) for r in ("graph", "tiled", "streamed"))
-    want.update(gatv2_bwd_graph=graph * steps, gatv2_bwd_dp_da=tiled * steps,
-                gatv2_bwd_dq_dv=tiled * steps, gatv2_bwd_dbias=0,
-                gatv2_bwd_streamed=streamed * steps)
+    want.update(gatv2_attention_res=2 * res, gatv2_bwd_graph=graph * steps,
+                gatv2_bwd_dp_da=tiled * steps, gatv2_bwd_dq_dv=tiled * steps,
+                gatv2_bwd_dbias=0, gatv2_bwd_streamed=streamed * steps)
     want["gatv2_bwd_dq_dv:dbias"], want["gatv2_bwd_dq_dv:no_dbias"] = tiled * steps, 0
     want["gatv2_bwd_graph:dbias"], want["gatv2_bwd_graph:no_dbias"] = graph * steps, 0
     want["gatv2_bwd_streamed:dbias"] = streamed * steps
@@ -1879,10 +1907,10 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
                 gru_scan_fwd=2 * (steps + no_grad) if gru else 0,
                 gru_scan_bwd=2 * steps if gru else 0, gru_weight_grads=2 * steps if gru else 0)
     fwd_graph = sum(gat_fwd_plan(*layer) == "graph" for layer in layers)
-    for name, calls in (("gatv2_attention_fwd", no_grad), ("gatv2_attention_res", steps)):
+    for name, calls in (("gatv2_attention_fwd", no_grad), ("gatv2_attention_res", res)):
         want[f"{name}:graph"] = fwd_graph * calls
         want[f"{name}:tiled"] = (2 - fwd_graph) * calls
-    want["gatv2_fwd_merge"] = (2 - fwd_graph) * (no_grad + steps)
+    want["gatv2_fwd_merge"] = (2 - fwd_graph) * (no_grad + res)
     for name in ("gatv2_bwd_dp_da", "gatv2_bwd_dq_dv"):
         want.update({f"{name}:{tile}": 0 for tile in TILED_TILE_NAMES})
     want.update({"gatv2_bwd_dbias:full": 0, "gatv2_bwd_dbias:chunked": 0})
@@ -1892,7 +1920,7 @@ def expected_training_launches(n_train_rows: int, n_test_rows: int, w: int, bs: 
             for kernel, pl in gat_tiled_bwd_plan(bs, *layer, sms, dbias=True).items():
                 name = "gatv2_bwd_dp_da" if kernel == "k2a" else "gatv2_bwd_dq_dv"
                 want[f"{name}:{TILED_TILE_NAMES[pl.tile]}"] += steps
-    return want, steps
+    return want
 
 
 def finite_summary(path: str) -> dict:
@@ -2315,13 +2343,13 @@ def capture_attention(ngat, store: dict):
     gives p, q, a, bias and v (no launch and no copy of its own)."""
     real = ngat.gatv2_attention
 
-    def spy(p, q, a, bias, v, alpha, seed, rate):
+    def spy(p, q, a, bias, v, alpha, seed, rate, train=False):
         ins = [t.view_as(t) for t in (p, q, a, bias, v)]
         for k, t in zip(("dp", "dq", "da", "dbias", "dv"), ins):
             if t.requires_grad:
                 t.register_hook(lambda g, k=k: store.__setitem__(k, g.detach()))
         store.update(inputs=[t.detach() for t in ins], alpha=alpha, seed=seed, rate=rate)
-        return real(*ins, alpha, seed, rate)
+        return real(*ins, alpha, seed, rate, train=train)
 
     return spy
 
@@ -6275,6 +6303,232 @@ def check_bench_scripts(gen, dev, work) -> dict:
     return {"launches": launches, "seconds": seconds, **recs}
 
 
+# ---------------------------------------------------------------------------
+# Phase remat: both attention layers recomputed in the backward pass
+# (remat_attention, nn/remat.py) on the solo and the fleet training paths
+# ---------------------------------------------------------------------------
+
+REMAT_STEPS = 4                  # a case's steps: one to warm up, then the timed ones
+REMAT_RATE = 0.3
+# (case, attention_impl, lookback, batch) of the solo cases
+REMAT_SOLO = (("flagship, pallas", "pallas", 100, 256), ("flagship, dense", "dense", 100, 256),
+              ("lookback 300, dense", "dense", 300, 64))
+REMAT_FLEET_BS = FLEET_TRAIN_BS
+# The dense fleet's batch 256 (ROADMAP item 2) with remat: the temporal
+# layer's recompute alone holds 72.5 GB by the byte model, and the peak at
+# batch 64 gave 0.298 GB a batch row, 77.3 GB at 256 on an 85.0 GB card
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6). The phase runs
+# the largest multiple of 32 under REMAT_WITNESS_SHARE of the card by that
+# slope, 224, for two steps, and fails rather than run a batch predicted
+# over it.
+REMAT_WITNESS_BS = 224
+REMAT_WITNESS_SHARE = 0.85
+REMAT_SECONDS_LIMIT = 60.0
+
+
+def remat_digest(state: dict) -> dict:
+    """A state's tensors on the host, by name."""
+    return {k: v.detach().cpu().clone() for k, v in state.items()}
+
+
+def remat_solo(work, x_train, impl: str, lookback: int, bs: int, remat: bool) -> dict:
+    """``REMAT_STEPS`` training steps of the flagship ``Trainer`` (train seed
+    0, dropout 0.3, the GRU's kernels) at ``lookback`` and batch ``bs``, the
+    attention ``impl``, with or without ``remat_attention``, from the first
+    windows in order: each step's losses, the final parameters, each step's
+    dropout generator's state after the step, the launches of all the
+    steps (counted from 0), and over the steps after the first, windows/s and
+    the peak memory (absolute and above the baseline before them)."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.data.windows import batched_starts
+    from mtad_gat_tpu_torch.training import Trainer
+
+    cfg = RunConfig(attention_impl=impl, gru_impl="pallas", dropout=REMAT_RATE, epochs=1,
+                    lookback=lookback, bs=bs, log_tensorboard=False)
+    mc = dataclasses.replace(cfg.model_config(38, 38), remat_attention=remat)
+    trainer = Trainer(mc, cfg.train_config(), device="cuda",
+                      log_dir=os.path.join(work, f"logs_remat_{impl}_{lookback}_{int(remat)}"))
+    trainer.init_state()
+    series = trainer._series(x_train)
+    starts, mask, _ = batched_starts(0, bs, indices=np.arange(REMAT_STEPS * bs))
+    gens, step_generator = [], trainer.step_generator
+    trainer.step_generator = lambda: gens.append(step_generator()) or gens[-1]
+    reset_counts()
+    first = trainer.train_epoch(series, starts[:1], mask[:1])      # ends in a device sync
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rest = trainer.train_epoch(series, starts[1:], mask[1:])
+    seconds = time.perf_counter() - t0
+    out = {"losses": np.concatenate([np.stack(first), np.stack(rest)], axis=1),
+           "params": remat_digest(trainer.model.state_dict()),
+           "generator_states": [g.get_state() for g in gens], "launches": read_counts(),
+           "windows_per_s": float(mask[1:].sum()) / seconds,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
+    del trainer, series
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_fleet_series(fleet_data: str):
+    """Phase ``fleet_training``'s 28 machines (400-600 train rows,
+    normalised) as ``MultiEntityTrainer.fit`` stacks them, and each one's
+    windows in order."""
+    from mtad_gat_tpu_torch.data import get_data
+    from mtad_gat_tpu_torch.data.windows import num_windows
+
+    series = [get_data(f"machine-{g}", data_root=fleet_data, normalize=True)[0][0]
+              for g in FLEET_GROUPS]
+    stacked = np.zeros((len(series), max(len(s) for s in series), 38), np.float32)
+    for e, s in enumerate(series):
+        stacked[e, :len(s)] = s
+    return stacked, [np.arange(num_windows(len(s), 100)) for s in series]
+
+
+def remat_fleet(fleet_data: str, remat: bool, bs: int, steps: int) -> dict:
+    """The 28 machines' ``MultiEntityTrainer`` (seed 0, dropout 0.3, dense
+    attention, the GRU's kernels, window 100) at batch ``bs``, with or
+    without ``remat_attention``: ``steps`` fleet steps (one
+    ``vmap(grad_and_value)`` step for all) over each machine's first windows
+    in order; the stacked parameters, each step's losses, the launches and
+    the keep-mask rule's calls of all the steps, and over the steps after
+    the first, all-entity windows/s and the peak memory."""
+    from mtad_gat_tpu_torch.config import RunConfig
+    from mtad_gat_tpu_torch.graph import dropout as gdrop
+    from mtad_gat_tpu_torch.training import MultiEntityTrainer
+
+    cfg = RunConfig(attention_impl="dense", gru_impl="pallas", dropout=REMAT_RATE, epochs=1,
+                    bs=bs, log_tensorboard=False)
+    mc = dataclasses.replace(cfg.model_config(38, 38), remat_attention=remat)
+    stacked, orders = remat_fleet_series(fleet_data)
+    fleet = MultiEntityTrainer(mc, cfg.train_config(), device="cuda")
+    fleet.init_states(len(orders))
+    series = torch.from_numpy(stacked).cuda()
+    starts, mask, real = fleet._schedule(orders)
+    draws = gdrop._entity_keep_mask_vmap.calls
+    reset_counts()
+    first = fleet.train_epoch(series, starts[:1], mask[:1], real[:1])   # ends in a sync
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rest = fleet.train_epoch(series, starts[1:steps], mask[1:steps], real[1:steps])
+    seconds = time.perf_counter() - t0
+    out = {"params": remat_digest(fleet.params),
+           "losses": np.concatenate([np.stack(first), np.stack(rest)], axis=1),
+           "launches": read_counts(), "keep_mask_draws": gdrop._entity_keep_mask_vmap.calls - draws,
+           "windows_per_s": float(mask[1:steps].sum()) / seconds,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
+    del fleet, series
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_pair(name: str, off: dict, on: dict, want_off: dict, want_on: dict) -> dict:
+    """One case's record: the runs without and with remat hold the same
+    losses, parameters (and generator states, where given) bit for bit and
+    their exact launches; their windows/s and peak memory side by side."""
+    same = {"losses": np.array_equal(off["losses"], on["losses"], equal_nan=True),
+            "params": all(torch.equal(v, on["params"][k]) for k, v in off["params"].items())}
+    if "generator_states" in off:
+        same["generator_states"] = all(torch.equal(a, b) for a, b in
+                                       zip(off["generator_states"], on["generator_states"]))
+    if "keep_mask_draws" in off:
+        same["keep_mask_draws"] = off["keep_mask_draws"] == on["keep_mask_draws"]
+    rec = {"phase": "remat", "case": name, "identical": same,
+           **{f"{k}_{tag}": run[k] for tag, run in (("off", off), ("on", on))
+              for k in ("windows_per_s", "peak_bytes", "peak_extra_bytes")},
+           "launches_on": {k: v for k, v in on["launches"].items() if v},
+           "launches_off": {k: v for k, v in off["launches"].items() if v}}
+    rec["peak_on_over_off"] = rec["peak_bytes_on"] / rec["peak_bytes_off"]
+    rec["windows_per_s_on_over_off"] = rec["windows_per_s_on"] / rec["windows_per_s_off"]
+    emit(rec)
+    if not all(same.values()):
+        raise AssertionError(f"remat: {name}: the runs with and without remat differ: {same}")
+    expect_counts(f"remat: {name}, without", off["launches"], want_off)
+    expect_counts(f"remat: {name}, with", on["launches"], want_on)
+    return rec
+
+
+def remat_witness(fleet_data: str, at_64: dict, smi: str) -> dict:
+    """The 28 machines' dense fleet with remat at ``REMAT_WITNESS_BS``, two
+    steps: its peak memory against the slope of the batch-64 run
+    (``at_64``: peak bytes above what the process held before it, a batch
+    row), and that slope's peak at batch 256; it runs only where the slope
+    puts the batch under ``REMAT_WITNESS_SHARE`` of the card."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    base = torch.cuda.memory_allocated()
+    per_row = (at_64["peak_bytes"] - base) / REMAT_FLEET_BS
+    predicted = {bs: base + per_row * bs for bs in (REMAT_WITNESS_BS, 256)}
+    if not predicted[REMAT_WITNESS_BS] <= REMAT_WITNESS_SHARE * total:
+        raise AssertionError(f"remat witness: batch {REMAT_WITNESS_BS} predicted at "
+                             f"{predicted[REMAT_WITNESS_BS]} bytes of {total}")
+    run = remat_fleet(fleet_data, True, REMAT_WITNESS_BS, 2)
+    rec = {"phase": "remat", "case": f"{len(FLEET_GROUPS)} machines, dense, batch "
+           f"{REMAT_WITNESS_BS}, remat, 2 steps", "card": smi, "card_bytes": total,
+           "peak_bytes": run["peak_bytes"], "predicted_peak_bytes": predicted[REMAT_WITNESS_BS],
+           "predicted_peak_bytes_at_256": predicted[256], "bytes_a_batch_row": per_row,
+           "windows_per_s": run["windows_per_s"],
+           "launches": {k: v for k, v in run["launches"].items() if v},
+           "losses_finite": bool(np.isfinite(run["losses"]).all())}
+    emit(rec)
+    if not rec["losses_finite"]:
+        raise AssertionError(f"remat witness: losses {run['losses']}")
+    expect_counts("remat witness", run["launches"],
+                  {k: 4 for k in ("gru_scan_fwd", "gru_scan_bwd", "gru_weight_grads")})
+    return {**rec, "launches": run["launches"]}
+
+
+def check_remat(work, x_train, fleet_data: str, smi: str) -> dict:
+    """Phase ``remat``: ``remat_attention`` against the same run without it,
+    on the card, float32, dropout 0.3, cuDNN deterministic (as
+    ``Trainer(mesh=)`` holds it), TF32 off: (a) the flagship through every
+    kernel and with dense attention, ``REMAT_STEPS`` steps each from one
+    seed: each step's losses, the final parameters and every step's
+    generator state identical in bits, the launches exact (K1-res twice a
+    layer a step with remat: the forward and the recompute, ``step_launches``);
+    (b) windows/s and peak memory of each, and of lookback 300 with dense
+    attention at batch 64 and the 28 machines' dense fleet at batch 64
+    (``REMAT_STEPS`` fleet steps; parameters, losses and keep-mask draws
+    identical in bits with and without remat); (c) that fleet with remat at
+    ``REMAT_WITNESS_BS`` (``remat_witness``). The counts set to 0 before
+    each run; the phase fails past ``REMAT_SECONDS_LIMIT`` seconds."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gru = lambda steps: {k: 2 * steps for k in ("gru_scan_fwd", "gru_scan_bwd",  # noqa: E731
+                                                "gru_weight_grads")}
+    recs, launches = {}, {}
+    try:
+        for name, impl, lookback, bs in REMAT_SOLO:
+            runs = [remat_solo(work, x_train, impl, lookback, bs, r) for r in (False, True)]
+            wants = [step_launches(REMAT_STEPS, 0, lookback, bs, "pallas", remat=r)
+                     if impl == "pallas" else gru(REMAT_STEPS) for r in (False, True)]
+            recs[name] = remat_pair(name, *runs, *wants)
+            for run in runs:
+                for k, v in run["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        runs = [remat_fleet(fleet_data, r, REMAT_FLEET_BS, REMAT_STEPS) for r in (False, True)]
+        name = f"{len(FLEET_GROUPS)} machines, dense, batch {REMAT_FLEET_BS}"
+        recs[name] = remat_pair(name, *runs, gru(REMAT_STEPS), gru(REMAT_STEPS))
+        witness = remat_witness(fleet_data, runs[1], smi)
+        for run in (*runs, witness):
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        recs["witness"] = witness
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    seconds = time.perf_counter() - t0
+    emit({"phase": "remat", "card": smi, "seconds": seconds,
+          "seconds_limit": REMAT_SECONDS_LIMIT, "launches": launches,
+          "card_bytes": torch.cuda.get_device_properties(0).total_memory})
+    if not seconds <= REMAT_SECONDS_LIMIT:
+        raise AssertionError(f"remat took {seconds} s, over {REMAT_SECONDS_LIMIT} s")
+    return {"launches": launches, "seconds": seconds, "cases": recs}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6359,6 +6613,8 @@ def main() -> None:
         mark("multi_device")
         bench = check_bench_scripts(gen, dev, work)
         mark("bench_scripts")
+        remat = check_remat(work, x_train, os.path.join(fleet_root, "data"), smi)
+        mark("remat")
     emit({"phase": "seconds", "by_phase": {name: t - marks[i][1]
                                            for i, (name, t) in enumerate(marks[1:])},
           "total_after_start": marks[-1][1] - marks[0][1]})
@@ -6376,7 +6632,8 @@ def main() -> None:
                       "multi_device": multi["launches"].get(name, 0),
                       "multi_device_halo": multi["halo_launches"].get(name, 0),
                       "multi_device_fleet": multi["fleet_launches"].get(name, 0),
-                      "bench_scripts": bench["launches"].get(name, 0)}
+                      "bench_scripts": bench["launches"].get(name, 0),
+                      "remat": remat["launches"].get(name, 0)}
                for name in KERNEL_COUNTERS}
     by_path["gatv2_attention_fwd"]["main"] = launches["k1"]
     by_path["gru_scan_fwd"]["main"] = launches["k3"]

@@ -58,8 +58,12 @@ class MTADGATConfig:
     # halo exchange, parallel/banded_halo.py; the single-device paths
     # without such a mesh).
     attention_impl: str = "dense"
-    # trades recompute for memory in the backward pass of the dense path:
-    # accepted for config compatibility, no effect in the port
+    # recompute both attention layers in the backward pass of a training
+    # call, keeping only each layer's input, parameters and dropout draw
+    # (nn/remat.py; the JAX package's nn.remat): trades a second forward of
+    # each layer for its residuals, the dense path's (b, N, N) scores
+    # above all; on the solo, fleet and mesh training paths, with the same
+    # bits as without it; eval and no-grad calls are unchanged
     remat_attention: bool = False
     # "auto", "xla" (per-step loop of tensor ops) or "pallas" (the fused
     # GRU scan kernels, forward and backward); "auto" resolves by window size.

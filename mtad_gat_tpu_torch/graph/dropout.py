@@ -99,15 +99,36 @@ _ENTITY_GENERATORS: "weakref.WeakValueDictionary[int, EntityGenerators]" = \
     weakref.WeakValueDictionary()
 
 
+class Drawn:
+    """A layer call's one dropout draw (a keep mask or a hash seed), made
+    before the call (``nn/gat.GATLayer.draw``) and handed to it in place of
+    its generator: ``bernoulli_keep`` and ``hash_seed`` give it back instead
+    of drawing, so that a layer recomputed in the backward pass
+    (``nn/remat.py``) sees its forward's mask or seed again and advances no
+    generator."""
+
+    def __init__(self, value: torch.Tensor):
+        self.value = value
+
+
+GeneratorLike = Union[torch.Generator, EntityGenerators, Drawn]
+
+
 def bernoulli_keep(like: torch.Tensor, prob: torch.Tensor,
-                   generator: Optional[Union[torch.Generator, EntityGenerators]]) -> torch.Tensor:
+                   generator: Optional[GeneratorLike]) -> torch.Tensor:
     """A bool keep mask of ``prob``'s shape, each element kept with its
     probability: ``torch.bernoulli(prob, generator=generator)``; with
     ``EntityGenerators`` inside a vmap over the entities (``like`` the
     batched input the mask applies to), one draw an entity from its own
-    generator, through ``entity_keep_mask``'s vmap rule."""
+    generator, through ``entity_keep_mask``'s vmap rule; with ``Drawn``,
+    the mask drawn before the call."""
     if generator is None:
         raise ValueError("training-mode dropout needs a generator")
+    if isinstance(generator, Drawn):
+        if generator.value.shape != prob.shape:
+            raise ValueError(f"a keep mask of shape {tuple(generator.value.shape)} drawn "
+                             f"for dropout over {tuple(prob.shape)}")
+        return generator.value
     if isinstance(generator, EntityGenerators):
         return entity_keep_mask(like.detach(), prob, generator.token)
     return torch.bernoulli(prob, generator=generator).bool()
@@ -144,14 +165,16 @@ _entity_keep_mask_vmap.calls = 0
 entity_keep_mask.register_vmap(_entity_keep_mask_vmap)
 
 
-def hash_seed(generator: Union[torch.Generator, EntityGenerators],
-              like: torch.Tensor) -> torch.Tensor:
+def hash_seed(generator: GeneratorLike, like: torch.Tensor) -> torch.Tensor:
     """The hash mask's seed of one attention call, drawn on the generator's
     device: one int64 in [0, 2**32), ``torch.randint(0, 2**32, (1,))`` from
     ``generator``; with ``EntityGenerators`` inside a vmap over the entities
     (``like`` a batched input of the call), the same draw an entity from its
     own generator, through ``entity_seed``'s vmap rule, so that each
-    entity's seed is its solo call's."""
+    entity's seed is its solo call's; with ``Drawn``, the seed drawn before
+    the call."""
+    if isinstance(generator, Drawn):
+        return generator.value
     if isinstance(generator, EntityGenerators):
         return entity_seed(like.detach(), generator.token)
     return torch.randint(0, 2**32, (1,), generator=generator, device=generator.device,

@@ -1876,15 +1876,17 @@ def chunked_tile(N: int, E: int, D: int) -> bool:
 def gatv2_attention(
     p: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
     bias: Optional[torch.Tensor], v: torch.Tensor, alpha: float,
-    seed: Seed = 0, rate: float = 0.0,
+    seed: Seed = 0, rate: float = 0.0, train: bool = False,
 ) -> torch.Tensor:
     """Fused GATv2 attention with gradients and attention dropout at
     ``rate`` (0 in eval), keyed by ``seed`` (an int, or one int64 value on
-    the inputs' device). Where a gradient is needed, or dropout is on, it
-    runs K1-res forward (and K2ab, or K2a then K2b, or the streamed
-    backward, backward); otherwise K1 alone. Under ``torch.func.vmap`` each
-    is one grouped launch for all entities, each with its own weights and
-    seed, whatever the plan and route."""
-    if rate > 0.0 or _vmap.requires_grad(p, q, a, bias, v):
+    the inputs' device). Where a gradient is needed, or dropout is on, or
+    ``train`` says so (the no-grad forward of a recomputed layer,
+    ``nn/remat.py``, which must give a training call's bits), it runs K1-res
+    forward (and K2ab, or K2a then K2b, or the streamed backward, backward);
+    otherwise K1 alone. Under ``torch.func.vmap`` each is one grouped launch
+    for all entities, each with its own weights and seed, whatever the plan
+    and route."""
+    if train or rate > 0.0 or _vmap.requires_grad(p, q, a, bias, v):
         return _GATv2Attention.apply(p, q, a, bias, v, alpha, seed, rate)[0]
     return gatv2_attention_fwd(p, q, a, bias, v, alpha)

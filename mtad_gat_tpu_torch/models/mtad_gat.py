@@ -7,7 +7,9 @@ Composition matches the reference (``mtad_gat.py:64-79``):
          -> GRU -> h_end (b, gru_hid)
          -> forecasting MLP (b, out_dim)  +  reconstruction decoder (b, n, out_dim)
 
-returning ``(predictions, reconstructions)``. Submodules carry the
+returning ``(predictions, reconstructions)``. With
+``config.remat_attention`` a training call recomputes both attention layers
+in the backward pass (``nn/remat.py``). Submodules carry the
 reference's names, so ``load_state_dict`` takes a reference ``model.pt``.
 The model is built on the CPU from an optional seeded generator and moved
 with ``.to(device)``; params are float32 and the forward runs in
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from mtad_gat_tpu_torch.config import MTADGATConfig
+from mtad_gat_tpu_torch.kernels import _vmap
 from mtad_gat_tpu_torch.nn import (
     FeatureAttention,
     ForecastingHead,
@@ -30,6 +33,7 @@ from mtad_gat_tpu_torch.nn import (
     TemporalAttention,
     TemporalConv,
 )
+from mtad_gat_tpu_torch.nn.remat import recomputed
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -85,8 +89,17 @@ class MTADGAT(nn.Module):
                 raise ValueError(f"the dropout generator lies on {generator.device}, "
                                  f"the model on {device}")
         x = self.conv(x)
-        h_feat = self.feature_gat(x, generator)
-        h_temp = self.temporal_gat(x, generator)
+        # remat_attention: each attention layer keeps only its input and is
+        # recomputed in the backward pass (nn/remat.py); eval and no-grad
+        # calls have no backward and call the layers directly. A layer's
+        # input is its own view of x either way, so that the layer's
+        # gradient for it is summed before it joins x's other uses, as a
+        # recomputed layer returns it: x's gradient then adds the same terms
+        # in the same order with and without remat
+        remat = self.config.remat_attention and self.training and _vmap.requires_grad(x)
+        attend = recomputed if remat else (lambda layer, x, g: layer(x.view_as(x), g))
+        h_feat = attend(self.feature_gat, x, generator)
+        h_temp = attend(self.temporal_gat, x, generator)
         h_cat = torch.cat([x, h_feat, h_temp], dim=2)        # (b, n, 3k)
         _, h_end = self.gru["gru"](h_cat, generator)
         return (self.forecasting_model(h_end, generator),

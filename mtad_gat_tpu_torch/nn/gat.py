@@ -47,7 +47,7 @@ import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
-from mtad_gat_tpu_torch.graph.dropout import hash_seed
+from mtad_gat_tpu_torch.graph.dropout import GeneratorLike, bernoulli_keep, hash_seed
 from mtad_gat_tpu_torch.graph.ops import (
     BAND_UNROLL_CUTOFF,
     _banded_bias_cols,
@@ -208,24 +208,75 @@ class GATLayer(nn.Module):
         over the model axis. Elsewhere every rank holds the whole gradient."""
         return self.rings(mesh) or self.halos(mesh)
 
-    def dense_route(self, v: torch.Tensor) -> bool:
+    def dense_route(self, v: torch.Tensor, grad: Optional[bool] = None) -> bool:
         """Whether a dense GATv2 call on ``v`` goes to the fused kernel: the
         dense path's bytes (``dense_gatv2_bytes``, with autograd when a
-        gradient is being recorded) above ``dense_route_threshold``. Under
-        ``torch.func.vmap`` ``v`` is one entity's batch and the layer runs
-        for every entity at once, so the bytes count them all
-        (``_vmap.entities``; nested vmaps multiply)."""
-        grad = torch.is_grad_enabled() and (v.requires_grad or self.a.requires_grad)
+        gradient is being recorded, or as ``grad`` says) above
+        ``dense_route_threshold``. Under ``torch.func.vmap`` ``v`` is one
+        entity's batch and the layer runs for every entity at once, so the
+        bytes count them all (``_vmap.entities``; nested vmaps multiply)."""
+        if grad is None:
+            grad = torch.is_grad_enabled() and (v.requires_grad or self.a.requires_grad)
         need = dense_gatv2_bytes(v.shape[0] * _vmap.entities(v), self.n_nodes,
-                                 self.lin.weight.shape[0], v.element_size(), grad)
+                                 self.lin.weight.shape[0], self.compute_dtype.itemsize, grad)
         return need > dense_route_threshold(v.device)
 
+    def route(self, v: torch.Tensor, grad: Optional[bool] = None) -> str:
+        """The path a call on ``v`` (b, ., .) takes: "ring", "halo", "band"
+        (the unrolled band), "scan" (the block scan), "coo", "fused" (the
+        kernels of ``kernels/gat.py``) or "dense". ``grad`` as in
+        ``dense_route``."""
+        mesh = current_mesh()
+        if self.rings(mesh):
+            return "ring"
+        if self.halos(mesh):
+            return "halo"
+        if self.band is not None and self.impl in ("dense", "ring"):
+            return "band" if self.band <= BAND_UNROLL_CUTOFF else "scan"
+        if self.has_graph:
+            return "coo"
+        if self.use_gatv2 and (self.fused_kernels() or self.dense_route(v, grad)):
+            return "fused"
+        return "dense"
+
+    def draw(self, v: torch.Tensor, route: str,
+             generator: Optional[GeneratorLike]) -> Optional[torch.Tensor]:
+        """The one dropout draw that a training-mode call on ``v`` (b, ., .)
+        along ``route`` makes, made ahead of the call, from ``generator`` as
+        the call would make it (None without dropout): the hash seed of the
+        kernels, the ring, the halo and the block scan, or the Bernoulli
+        keep mask of the band, COO and dense paths, over the attention
+        weights' shape. ``forward`` takes it back as ``Drawn(...)``."""
+        rate = self.dropout if self.training else 0.0
+        if rate == 0.0:
+            return None
+        if generator is None:
+            raise ValueError("training-mode attention dropout needs a generator")
+        if route in ("ring", "halo", "scan", "fused"):
+            return hash_seed(generator, v)
+        b, n = v.shape[0], self.n_nodes
+        if route == "dense":
+            shape = (b, n, n)
+        elif route == "band":
+            shape = (b, n, 2 * self.band + 1)
+        else:                                  # "coo": one weight an edge
+            shape = (b, self.graph_src.numel())
+        prob = torch.full(shape, 1.0 - rate, dtype=torch.float32, device=v.device)
+        return bernoulli_keep(v, prob, generator)
+
     def forward(
-        self, v: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, v: torch.Tensor, generator: Optional[GeneratorLike] = None,
+        route: Optional[str] = None,
     ) -> torch.Tensor:
+        """``route`` fixes the path as a training call's (``nn/remat.py``,
+        with ``generator`` the call's ``Drawn`` draw): the fused path then
+        runs K1-res whatever the grad mode; None takes ``self.route(v)``."""
         rate = self.dropout if self.training else 0.0
         if rate > 0.0 and generator is None:
             raise ValueError("training-mode attention dropout needs a generator")
+        train = route is not None
+        if route is None:
+            route = self.route(v)
         cd = self.compute_dtype
         d = self.node_dim
         v = v.to(cd)
@@ -236,7 +287,6 @@ class GATLayer(nn.Module):
         coo_bias = bias
         if bias is not None and self.bias_storage == "band" and self.has_graph:
             coo_bias = banded_bias_to_full(bias, self.n_nodes, self.band)
-        banded = self.band is not None and self.impl in ("dense", "ring")
         mesh = current_mesh()
         if self.partial_grads(mesh):
             # every model rank computes p, q, v of all nodes and
@@ -258,43 +308,44 @@ class GATLayer(nn.Module):
             # lin([v_i || v_j]) == v_i @ W_l^T + v_j @ W_r^T + b
             p = v @ w[:, :d].t()               # query side (i)
             q = v @ w[:, d:].t() + b           # key side (j)
-            if self.rings(mesh):
+            if route == "ring":
                 return ring_gatv2_attention(p, q, a, bias, v, self.alpha, mesh,
                                             dropout_rate=rate, dropout_seed=seed()).to(cd)
-            if self.halos(mesh):
+            if route == "halo":
                 return banded_halo_attention(p, q, a, band_rows(), v, self.alpha, self.band,
                                              mesh, rate, seed()).to(cd)
-            if banded and self.band <= BAND_UNROLL_CUTOFF:
+            if route == "band":
                 return gatv2_banded_attention(p, q, a, bias, v, self.alpha, self.band, rate,
                                               generator, self.bias_storage).to(cd)
-            if banded:
+            if route == "scan":
                 return banded_attention_scan(p, q, a, bias, v, self.alpha, self.band,
                                              dropout_rate=rate, dropout_seed=seed(),
                                              bias_storage=self.bias_storage).to(cd)
-            if self.has_graph:
+            if route == "coo":
                 scores = gatv2_scores_coo(self.graph(), p, q, a, self.alpha)
                 return gat_aggregate_coo(self.graph(), scores, v, coo_bias, rate,
                                          generator).to(cd)
-            if self.fused_kernels() or self.dense_route(v):
-                return gatv2_attention(p, q, a, bias, v, self.alpha, seed(), rate).to(cd)
+            if route == "fused":
+                return gatv2_attention(p, q, a, bias, v, self.alpha, seed(), rate,
+                                       train=train).to(cd)
             scores = gatv2_scores_dense(p, q, a, self.alpha)
         else:
             e = w.shape[0]
             wx = v @ w.t() + b                 # (b, N, e)
-            if banded:
+            if route in ("halo", "band", "scan"):
                 # rank-1 GATv1 scores: the two halves once
                 u = torch.matmul(wx.float(), a[:e].float())
                 wk = torch.matmul(wx.float(), a[e:].float())
-                if self.halos(mesh):
+                if route == "halo":
                     return banded_halo_attention(u, wk, None, band_rows(), v, self.alpha,
                                                  self.band, mesh, rate, seed()).to(cd)
-                if self.band <= BAND_UNROLL_CUTOFF:
+                if route == "band":
                     return gatv1_banded_attention(u, wk, bias, v, self.alpha, self.band,
                                                   rate, generator, self.bias_storage).to(cd)
                 return banded_attention_scan(u, wk, None, bias, v, self.alpha, self.band,
                                              dropout_rate=rate, dropout_seed=seed(),
                                              bias_storage=self.bias_storage).to(cd)
-            if self.has_graph:
+            if route == "coo":
                 scores = gatv1_scores_coo(self.graph(), wx, a[:e], a[e:], self.alpha)
                 return gat_aggregate_coo(self.graph(), scores, v, coo_bias, rate,
                                          generator).to(cd)
@@ -327,11 +378,10 @@ class FeatureAttention(GATLayer):
             edges=edges if kind == "knn" else None, generator=generator,
         )
 
-    def forward(
-        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-    ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[GeneratorLike] = None,
+                route: Optional[str] = None) -> torch.Tensor:
         # (b, n, k) -> (b, k, n): node = feature over the window
-        h = super().forward(x.transpose(1, 2), generator)
+        h = super().forward(x.transpose(1, 2), generator, route)
         return h.transpose(1, 2)
 
 

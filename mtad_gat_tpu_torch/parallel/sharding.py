@@ -9,7 +9,10 @@ insert the collectives. PyTorch has no such propagation: each rank holds
 its own tensors and the collectives are explicit. So ``constrain`` is the
 identity here, kept so that code written against the JAX names runs, and
 the collectives below are what the port calls, each a differentiable
-``torch.autograd.Function`` over one axis's process group:
+``torch.autograd.Function`` over one axis's process group (those a layer
+runs with ``setup_context``, so that ``torch.func.vjp`` takes them: a
+recomputed attention layer, ``nn/remat.py``, runs them again in its
+backward):
 
 - ``data_sum``: the sum over the data axis; its backward is the identity
   (each data rank's gradient is its part of the sum's);
@@ -114,9 +117,12 @@ class _DataSum(torch.autograd.Function):
 
 class _PPermute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, shift):
-        ctx.group, ctx.shift = group, shift
+    def forward(x, group, shift):
         return rotate(x, group, shift)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.group, ctx.shift = inputs
 
     @staticmethod
     def backward(ctx, g):
@@ -125,9 +131,12 @@ class _PPermute(torch.autograd.Function):
 
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(x, group):
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
@@ -136,10 +145,14 @@ class _CopyToModel(torch.autograd.Function):
 
 class _GatherModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(x, group):
+        return torch.cat(all_gather(x, group), dim=1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, group = inputs
         ctx.rows = x.shape[1]
         ctx.index = dist.get_group_rank(group, dist.get_rank())
-        return torch.cat(all_gather(x, group), dim=1)
 
     @staticmethod
     def backward(ctx, g):

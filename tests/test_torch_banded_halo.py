@@ -24,7 +24,9 @@ references run on the package's 8-device CPU farm (``make_mesh(8)``: data
   from one seeded init of the port's: the port's ``Trainer`` on (data 2,
   model 2) gives one epoch's per-batch losses within 1e-5 of the port's
   single-device dense run and of the JAX halo trainer, and equal
-  parameters on every rank.
+  parameters on every rank; at dropout 0.3, the same trainer with
+  ``remat_attention`` (the halo layer recomputed in the backward pass)
+  equals it without bit for bit on every rank.
 
 Without a spawn: ``impl="ring"`` with no mesh equals ``impl="dense"`` on
 band W 7 (unrolled) and W 40 (block scan), and ``GATLayer.partial_grads``
@@ -239,6 +241,21 @@ def test_halo_trainer_matches_one_device_and_the_jax_halo_trainer(halo_run):
             np.testing.assert_allclose(got, jx, atol=1e-5, err_msg=f"rank {rank} {what}, JAX")
         for name, w in t["params"].items():
             assert np.array_equal(w, every[0]["trainer"]["params"][name]), (rank, name)
+
+
+def test_halo_trainer_with_remat_is_the_trainer_without_it(halo_run):
+    """At dropout 0.3, ``remat_attention`` recomputes the halo layer in the
+    backward pass (its exchanges run again, in the same order on every
+    rank): each rank's losses and parameters equal the run without it bit
+    for bit, and every rank's parameters are rank 0's."""
+    every = halo_run["every"]
+    for rank, r in enumerate(every):
+        base, got = r["dropped_trainer"], r["remat"]
+        assert np.array_equal(got["f"], base["f"]) and np.array_equal(got["r"], base["r"]), rank
+        for name, w in base["params"].items():
+            assert np.array_equal(got["params"][name], w), (rank, name)
+            assert np.array_equal(w, every[0]["dropped_trainer"]["params"][name]), (rank, name)
+    assert not np.array_equal(every[0]["dropped_trainer"]["f"], every[0]["trainer"]["f"])
 
 
 @pytest.mark.parametrize("use_gatv2", [True, False], ids=["gatv2", "gatv1"])

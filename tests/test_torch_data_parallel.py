@@ -16,7 +16,10 @@ against the JAX package's mesh trainer.
   one device's.
 - At dropout 0.3 on (data 2, model 2): the model ranks of a data slice draw
   the same masks (one step generator seed, and every rank's parameters
-  equal after an epoch), the two slices their own seeds.
+  equal after an epoch), the two slices their own seeds; with
+  ``remat_attention`` (the ring recomputed in the backward pass, its
+  collectives run again) every rank's losses and parameters equal the run
+  without it bit for bit.
 - Ring on a band graph routes by the mesh (``GATLayer.halos``,
   ``partial_grads``: the halo exchange where W <= ceil(N / S), the
   single-device band path with whole gradients where not), GATv2 and
@@ -132,11 +135,17 @@ def test_mesh_trainer_matches_one_device_and_the_jax_mesh(ranks, model_parallel,
         for got, want in zip(r["scores"], want_scores):
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-5,
                                        err_msg=f"rank {r['rank']} scores")
-        for field in ("params", "dropped"):
+        for field in ("params", "dropped", "dropped_remat"):
             for name, w in r.get(field, {}).items():
                 assert np.array_equal(w, every[0][field][name]), (r["rank"], field, name)
     if model_parallel == 1:
         return
+    # remat_attention recomputes the ring in the backward pass, its
+    # collectives in the same order on every rank: the same bits
+    for r in every:
+        assert r["dropped_remat_losses"] == r["dropped_losses"], r["rank"]
+        for name, w in r["dropped"].items():
+            assert np.array_equal(r["dropped_remat"][name], w), (r["rank"], name)
     # data slices draw their own dropout streams, the model ranks of one the same
     seeds = {r["data_index"]: set() for r in every}
     for r in every:

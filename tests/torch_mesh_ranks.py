@@ -72,7 +72,8 @@ def trainer_rank(model_kw, train_kw, state_dict, series, starts, mask, log_dir,
     """Each rank: one step's gradients, 2 epochs' losses and parameters at
     dropout 0 and the trained model's scores at the training batch, then an
     epoch at dropout 0.3 (its first step's generator seed, its parameters)
-    on a mesh with a model axis; rank 0 returns every rank's."""
+    on a mesh with a model axis, without and with ``remat_attention``; rank
+    0 returns every rank's."""
     torch.set_num_threads(1)
     mesh = make_mesh(model_parallel=model_parallel, device="cpu")
     trainer = Trainer(MTADGATConfig(**model_kw), TrainConfig(**train_kw), log_dir=log_dir,
@@ -86,14 +87,17 @@ def trainer_rank(model_kw, train_kw, state_dict, series, starts, mask, log_dir,
                 scores=scores_of(trainer.model, series, model_kw["window_size"],
                                  train_kw["bs"], mesh))
     if mesh.mp > 1:
-        dropped = Trainer(MTADGATConfig(**dict(model_kw, dropout=0.3)),
-                          TrainConfig(**dict(train_kw, epochs=1)), log_dir=log_dir,
-                          device="cpu", mesh=mesh)
-        dropped.init_state()
-        dropped.model.load_state_dict(state_dict)
-        mine["seed"] = dropped.step_generator().initial_seed()
-        dropped.fit(series)
-        mine.update(dropped=params_of(dropped.model), dropped_losses=dropped.losses)
+        for remat in (False, True):
+            dropped = Trainer(MTADGATConfig(**dict(model_kw, dropout=0.3,
+                                                   remat_attention=remat)),
+                              TrainConfig(**dict(train_kw, epochs=1)), log_dir=log_dir,
+                              device="cpu", mesh=mesh)
+            dropped.init_state()
+            dropped.model.load_state_dict(state_dict)
+            mine["seed"] = dropped.step_generator().initial_seed()
+            dropped.fit(series)
+            key = "dropped_remat" if remat else "dropped"
+            mine.update({key: params_of(dropped.model), f"{key}_losses": dropped.losses})
     return _every_rank(mine)
 
 
@@ -129,8 +133,8 @@ def halo_rank(layer_cases, drop_cases, rate, seed, trainer_args):
     layer case's ``layer_result`` through ``attention_impl="ring"``, and
     every dropout case's ``banded_halo_attention`` at ``rate``; then the
     ``Trainer`` of ``trainer_args`` on the (data 2, model 2) mesh: one
-    epoch's per-batch losses and its parameters. Rank 0 returns every
-    rank's."""
+    epoch's per-batch losses and its parameters, and the same at dropout 0.3
+    without and with ``remat_attention``. Rank 0 returns every rank's."""
     torch.set_num_threads(1)
     meshes = {4: make_mesh(model_parallel=4, device="cpu"),
               2: make_mesh(model_parallel=2, device="cpu")}
@@ -150,6 +154,15 @@ def halo_rank(layer_cases, drop_cases, rate, seed, trainer_args):
     f, r = trainer.train_epoch(torch.from_numpy(series), starts, mask)
     mine["trainer"] = dict(f=f, r=r, params=params_of(trainer.model),
                            halos=trainer.model.temporal_gat.halos(meshes[2]))
+    for remat in (False, True):
+        dropped = Trainer(MTADGATConfig(**dict(model_kw, dropout=0.3, remat_attention=remat)),
+                          TrainConfig(**train_kw), log_dir=log_dir, device="cpu",
+                          mesh=meshes[2])
+        dropped.init_state()
+        dropped.model.load_state_dict(state_dict)
+        f, r = dropped.train_epoch(torch.from_numpy(series), starts, mask)
+        mine["remat" if remat else "dropped_trainer"] = dict(f=f, r=r,
+                                                             params=params_of(dropped.model))
     return _every_rank(mine)
 
 
